@@ -1,0 +1,111 @@
+"""Weights carried into the port's `DIT` (port of
+`ddg_tpu/convert.py:136-218`).
+
+`dit_state_dict_from_jax` turns a `ddg_tpu` DIT params tree (numpy
+arrays, flax names) into a state dict in the reference torch naming,
+which `ddg_tpu_torch.models.dit.DIT` loads with `strict=True`.
+`make_reference_dit_state_dict` makes seeded random weights in that
+naming, for runs that have no checkpoint.
+
+Name mapping (flax -> reference torch):
+  vocab_embed                     -> vocab_embed.embedding
+  sigma_map/mlp{1,2}              -> sigma_map.mlp.{0,2}
+  cond_map/embedding              -> cond_map.embedding_table.weight
+  block_N/{norm1,norm2}/weight    -> blocks.N.{norm1,norm2}.weight
+  block_N/{attn_qkv,attn_out}     -> blocks.N.{attn_qkv,attn_out}
+  block_N/{mlp_in,mlp_out}        -> blocks.N.mlp.{0,2}
+  block_N/adaLN_modulation        -> blocks.N.adaLN_modulation
+  norm_final/weight               -> output_layer.norm_final.weight
+  output_linear                   -> output_layer.linear
+  final_adaLN                     -> output_layer.adaLN_modulation
+Flax Dense kernels are (in, out); torch Linear weights (out, in).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def dit_state_dict_from_jax(params, *, n_blocks: int
+                            ) -> Dict[str, torch.Tensor]:
+    """`ddg_tpu` DIT params (nested dict of arrays) -> float32 torch state
+    dict in the reference naming."""
+    def T(x):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(x, dtype=np.float32).T))
+
+    def A(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    def dense(prefix, p, bias=True):
+        s[prefix + '.weight'] = T(p['kernel'])
+        if bias:
+            s[prefix + '.bias'] = A(p['bias'])
+
+    s: Dict[str, torch.Tensor] = {}
+    s['vocab_embed.embedding'] = A(params['vocab_embed'])
+    if 'sigma_map' in params:
+        dense('sigma_map.mlp.0', params['sigma_map']['mlp1'])
+        dense('sigma_map.mlp.2', params['sigma_map']['mlp2'])
+    if 'cond_map' in params:
+        s['cond_map.embedding_table.weight'] = A(
+            params['cond_map']['embedding'])
+    for i in range(n_blocks):
+        b = params[f'block_{i}']
+        p = f'blocks.{i}.'
+        s[p + 'norm1.weight'] = A(b['norm1']['weight'])
+        s[p + 'norm2.weight'] = A(b['norm2']['weight'])
+        dense(p + 'attn_qkv', b['attn_qkv'], bias=False)
+        dense(p + 'attn_out', b['attn_out'], bias=False)
+        dense(p + 'mlp.0', b['mlp_in'])
+        dense(p + 'mlp.2', b['mlp_out'])
+        if 'adaLN_modulation' in b:
+            dense(p + 'adaLN_modulation', b['adaLN_modulation'])
+    s['output_layer.norm_final.weight'] = A(params['norm_final']['weight'])
+    dense('output_layer.linear', params['output_linear'])
+    if 'final_adaLN' in params:
+        dense('output_layer.adaLN_modulation', params['final_adaLN'])
+    return s
+
+
+def make_reference_dit_state_dict(rng: np.random.RandomState, *,
+                                  hidden: int, cond_dim: int,
+                                  n_blocks: int, vocab: int,
+                                  with_cond: bool = False
+                                  ) -> Dict[str, torch.Tensor]:
+    """Seeded random weights (N(0, 0.02^2), norm weights around 1) with
+    the reference's names and shapes; `with_cond` adds the 3-row class
+    table of a 2-class model."""
+    s = {}
+
+    def r(*shape):
+        return rng.randn(*shape).astype(np.float32) * 0.02
+
+    s['vocab_embed.embedding'] = r(vocab, hidden)
+    s['sigma_map.mlp.0.weight'] = r(cond_dim, 256)
+    s['sigma_map.mlp.0.bias'] = r(cond_dim)
+    s['sigma_map.mlp.2.weight'] = r(cond_dim, cond_dim)
+    s['sigma_map.mlp.2.bias'] = r(cond_dim)
+    if with_cond:
+        s['cond_map.embedding_table.weight'] = r(3, cond_dim)
+    for i in range(n_blocks):
+        p = f'blocks.{i}.'
+        s[p + 'norm1.weight'] = r(hidden) + 1
+        s[p + 'norm2.weight'] = r(hidden) + 1
+        s[p + 'attn_qkv.weight'] = r(3 * hidden, hidden)
+        s[p + 'attn_out.weight'] = r(hidden, hidden)
+        s[p + 'mlp.0.weight'] = r(4 * hidden, hidden)
+        s[p + 'mlp.0.bias'] = r(4 * hidden)
+        s[p + 'mlp.2.weight'] = r(hidden, 4 * hidden)
+        s[p + 'mlp.2.bias'] = r(hidden)
+        s[p + 'adaLN_modulation.weight'] = r(6 * hidden, cond_dim)
+        s[p + 'adaLN_modulation.bias'] = r(6 * hidden)
+    s['output_layer.norm_final.weight'] = r(hidden) + 1
+    s['output_layer.linear.weight'] = r(vocab, hidden)
+    s['output_layer.linear.bias'] = r(vocab)
+    s['output_layer.adaLN_modulation.weight'] = r(2 * hidden, cond_dim)
+    s['output_layer.adaLN_modulation.bias'] = r(2 * hidden)
+    return {k: torch.from_numpy(v) for k, v in s.items()}

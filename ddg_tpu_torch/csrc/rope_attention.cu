@@ -1,0 +1,376 @@
+// Fused RoPE + softmax attention, forward, on the token-major layout.
+//
+// Replaces the TPU kernel ddg_tpu/ops/attention_pallas.py:
+//   fused_rope_attention -> _rope_flash -> _rope_attn_kernel (pallas_call :215)
+// For each (b, h), with q, k, v of shape (B, L, H, D):
+//   q' = RoPE(q), k' = RoPE(k)  rotate-half in fp32, rounded back to the input dtype
+//   S  = q' k'^T / sqrt(D)      fp32; with `causal`, S[i][j] = -1e30 for j > i
+//   P  = softmax(S)             rounded to v's dtype
+//   O  = P V                    fp32 accumulation, written in the input dtype
+//
+// Bound on the H100 at the DiT-small sampling shape (B=48, L=128, H=12,
+// D=64, bf16): bytes, 37.7 MB of q, k, v and o (11 us), against 2.4 GFLOP
+// that the bf16 tensor cores do in 2.4 us.
+//
+// Two kernels:
+// * rope_attention_mma_kernel, for bf16 with D = 64 and L <= 128 (the
+//   DiT's shapes): one block of 8 warps per (head, batch) stages the
+//   rotated Q and K and the transposed V of that head in 53 KB of shared
+//   memory, bf16, rows padded so that the fragment loads of a warp hit 32
+//   banks; each warp then owns 16 query rows and keeps them in registers
+//   from end to end: S = Q K^T by mma.sync m16n8k16 (bf16 in, fp32
+//   accumulate), the masked softmax with quad shuffles, P rounded to bf16
+//   and fed straight back as the A operand of O = P V. Nothing but q, k,
+//   v and o touches device memory, each once, so the kernel is bound by
+//   its loads.
+// * rope_attention_kernel, for float32 and any other shape: one block per
+//   (32-row query tile, head, batch) stages the head's rotated K and V in
+//   fp32 (K rows padded by one float against bank conflicts) and the
+//   tile's L scores per row in dynamic shared memory, (L (2D + 1) +
+//   32 (D + L)) floats, 90.6 KB at L=128, D=64, and does the products with
+//   fp32 FMAs on the CUDA cores, in full fp32.
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kTile = 32;
+constexpr int kThreads = 256;
+constexpr float kNeg = -1e30f;
+
+// RoPE of element d of one (L, D) head row, rounded to T: the rotate-half
+// convention (x1 c - x2 s, x2 c + x1 s) with separately rounded fp32
+// products, as the plain version computes it.
+template <typename T>
+__device__ __forceinline__ float rope_at(const T* row, int d, int D, const float* cos_row,
+                                         const float* sin_row) {
+  const int half = D / 2;
+  const int f = d < half ? d : d - half;
+  const float x = ddg::to_f32(row[d]);
+  const float c = cos_row[f], s = sin_row[f];
+  float y;
+  if (d < half) {
+    y = __fsub_rn(__fmul_rn(x, c), __fmul_rn(ddg::to_f32(row[d + half]), s));
+  } else {
+    y = __fadd_rn(__fmul_rn(x, c), __fmul_rn(ddg::to_f32(row[d - half]), s));
+  }
+  return ddg::round_to<T>(y);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rope_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const float* __restrict__ cos,
+                          const float* __restrict__ sin, T* __restrict__ o, int L, int H,
+                          int D, int tok_stride, int causal, float scale) {
+  extern __shared__ float smem[];
+  const int KS = D + 1;  // padded K row
+  float* Ks = smem;                 // L x (D + 1)
+  float* Vs = Ks + L * KS;          // L x D
+  float* Qs = Vs + L * D;           // kTile x D
+  float* Ss = Qs + kTile * D;       // kTile x L
+
+  const int i0 = blockIdx.x * kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  // q, k, v rows are tok_stride elements apart (3 H D when they are views
+  // into the fused qkv projection); o is contiguous (B, L, H, D).
+  const size_t row_stride = tok_stride;
+  const size_t head = static_cast<size_t>(b) * L * row_stride + static_cast<size_t>(h) * D;
+  const size_t out_stride = static_cast<size_t>(H) * D;
+  const size_t out_head = static_cast<size_t>(b) * L * out_stride + static_cast<size_t>(h) * D;
+  const int half = D / 2;
+
+  for (int idx = threadIdx.x; idx < L * D; idx += blockDim.x) {
+    const int j = idx / D, d = idx % D;
+    const size_t off = head + j * row_stride;
+    Ks[j * KS + d] = rope_at(k + off, d, D, cos + j * half, sin + j * half);
+    Vs[j * D + d] = ddg::to_f32(v[off + d]);
+  }
+  for (int idx = threadIdx.x; idx < kTile * D; idx += blockDim.x) {
+    const int i = idx / D, d = idx % D;
+    const int row = i0 + i;
+    Qs[idx] = row < L ? rope_at(q + head + row * row_stride, d, D, cos + row * half,
+                                sin + row * half)
+                      : 0.f;
+  }
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < kTile * L; idx += blockDim.x) {
+    const int i = idx / L, j = idx % L;
+    const float* qi = Qs + i * D;
+    const float* kj = Ks + j * KS;
+    float acc = 0.f;
+    for (int d = 0; d < D; ++d) acc = fmaf(qi[d], kj[d], acc);
+    acc *= scale;
+    if (causal && j > i0 + i) acc = kNeg;
+    Ss[idx] = acc;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = warp; i < kTile; i += kThreads / 32) {
+    float* s = Ss + i * L;
+    float m = kNeg;
+    for (int j = lane; j < L; j += 32) m = fmaxf(m, s[j]);
+    m = ddg::warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float e = expf(s[j] - m);
+      s[j] = e;
+      sum += e;
+    }
+    sum = ddg::warp_sum(sum);
+    for (int j = lane; j < L; j += 32) s[j] = ddg::round_to<T>(s[j] / sum);
+  }
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < kTile * D; idx += blockDim.x) {
+    const int i = idx / D, d = idx % D;
+    const int row = i0 + i;
+    if (row >= L) continue;
+    const float* p = Ss + i * L;
+    const int jmax = causal ? row + 1 : L;
+    float acc = 0.f;
+    for (int j = 0; j < jmax; ++j) acc = fmaf(p[j], Vs[j * D + d], acc);
+    o[out_head + row * out_stride + d] = ddg::from_f32<T>(acc);
+  }
+}
+
+// --- bf16 tensor-core path --------------------------------------------------
+
+constexpr int kMmaD = 64;                  // head dim
+constexpr int kMmaMaxL = 128;              // queries and keys of one block
+constexpr int kMmaWarps = kMmaMaxL / 16;   // one warp per 16 query rows
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kQKRow = kMmaD + 8;          // padded bf16 row of Q and K
+constexpr int kVtRow = kMmaMaxL + 8;       // padded bf16 row of V^T
+constexpr size_t kMmaSmem =
+    sizeof(__nv_bfloat16) * (2 * kMmaMaxL * kQKRow + kMmaD * kVtRow);
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += A (16x16, row) * B (16x8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Rotate 8 consecutive pairs (x1 = row[f..f+7], x2 = row[f+32..f+39]) of one
+// 64-wide row and store them, rounded to bf16, at dst[f..] and dst[f+32..].
+__device__ __forceinline__ void rope8(const __nv_bfloat16* row, const float* cos_row,
+                                      const float* sin_row, int f, __nv_bfloat16* dst) {
+  constexpr int half = kMmaD / 2;
+  float x1[8], x2[8], c[8], s[8], y1[8], y2[8];
+  ddg::load16(row + f, x1);
+  ddg::load16(row + f + half, x2);
+  ddg::load_f32<8>(cos_row + f, c);
+  ddg::load_f32<8>(sin_row + f, s);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    y1[i] = __fsub_rn(__fmul_rn(x1[i], c[i]), __fmul_rn(x2[i], s[i]));
+    y2[i] = __fadd_rn(__fmul_rn(x2[i], c[i]), __fmul_rn(x1[i], s[i]));
+  }
+  ddg::store16(dst + f, y1);
+  ddg::store16(dst + f + half, y2);
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+    rope_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const float* __restrict__ cos, const float* __restrict__ sin,
+                              __nv_bfloat16* __restrict__ o, int L, int H, int tok_stride,
+                              int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kMmaMaxL x kQKRow
+  __nv_bfloat16* Ks = Qs + kMmaMaxL * kQKRow;                       // kMmaMaxL x kQKRow
+  __nv_bfloat16* Vt = Ks + kMmaMaxL * kQKRow;                       // kMmaD x kVtRow
+  constexpr int half = kMmaD / 2;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t head = static_cast<size_t>(b) * L * tok_stride + static_cast<size_t>(h) * kMmaD;
+
+  // Stage RoPE(q), RoPE(k) (8 pairs a thread) and V^T; rows past L are 0.
+  for (int idx = threadIdx.x; idx < kMmaMaxL * (half / 8); idx += kMmaThreads) {
+    const int j = idx / (half / 8), f = (idx % (half / 8)) * 8;
+    __nv_bfloat16* qd = Qs + j * kQKRow;
+    __nv_bfloat16* kd = Ks + j * kQKRow;
+    if (j < L) {
+      const size_t off = head + static_cast<size_t>(j) * tok_stride;
+      rope8(q + off, cos + j * half, sin + j * half, f, qd);
+      rope8(k + off, cos + j * half, sin + j * half, f, kd);
+    } else {
+      const float z[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      ddg::store16(qd + f, z);
+      ddg::store16(qd + f + half, z);
+      ddg::store16(kd + f, z);
+      ddg::store16(kd + f + half, z);
+    }
+  }
+  for (int idx = threadIdx.x; idx < kMmaMaxL * (kMmaD / 8); idx += kMmaThreads) {
+    const int j = idx / (kMmaD / 8), d0 = (idx % (kMmaD / 8)) * 8;
+    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (j < L) ddg::load16(v + head + static_cast<size_t>(j) * tok_stride + d0, x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) Vt[(d0 + i) * kVtRow + j] = __float2bfloat16_rn(x[i]);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * 16;
+  if (row0 >= L) return;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, column pair
+  const int r0 = row0 + g, r1 = r0 + 8;
+
+  // S = Q K^T: 16 rows x kMmaMaxL keys, in kNT tiles of 8 keys.
+  constexpr int kNT = kMmaMaxL / 8;
+  float s[kNT][4];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kMmaD / 16; ++kk) {
+    const __nv_bfloat16* qa = Qs + r0 * kQKRow + kk * 16 + 2 * t;
+    const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * kQKRow);
+    const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * kQKRow + 8);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const __nv_bfloat16* kb = Ks + (nt * 8 + g) * kQKRow + kk * 16 + 2 * t;
+      mma_16816(s[nt], a0, a1, a2, a3, ld32(kb), ld32(kb + 8));
+    }
+  }
+
+  // Scale, mask, softmax. Element e of tile nt is row (e < 2 ? r0 : r1),
+  // key nt * 8 + 2 t + (e & 1); a row's keys are spread over a quad.
+  float m[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = nt * 8 + 2 * t + (e & 1);
+      const int row = e < 2 ? r0 : r1;
+      float x = s[nt][e] * scale;
+      if (key >= L || (causal && key > row)) x = kNeg;
+      s[nt][e] = x;
+      m[e >> 1] = fmaxf(m[e >> 1], x);
+    }
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+  }
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nt][e] = expf(s[nt][e] - m[e >> 1]);
+      sum[e >> 1] += s[nt][e];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+  }
+
+  // O = P V, P rounded to bf16 as the A fragments (the S tiles' layout).
+  float acc[kMmaD / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < kMmaD / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kMmaMaxL / 16; ++kk) {
+    const int lo = 2 * kk, hi = 2 * kk + 1;
+    const uint32_t a0 = pack_bf16(s[lo][0] / sum[0], s[lo][1] / sum[0]);
+    const uint32_t a1 = pack_bf16(s[lo][2] / sum[1], s[lo][3] / sum[1]);
+    const uint32_t a2 = pack_bf16(s[hi][0] / sum[0], s[hi][1] / sum[0]);
+    const uint32_t a3 = pack_bf16(s[hi][2] / sum[1], s[hi][3] / sum[1]);
+#pragma unroll
+    for (int nt = 0; nt < kMmaD / 8; ++nt) {
+      const __nv_bfloat16* vb = Vt + (nt * 8 + g) * kVtRow + kk * 16 + 2 * t;
+      mma_16816(acc[nt], a0, a1, a2, a3, ld32(vb), ld32(vb + 8));
+    }
+  }
+
+  const size_t out_stride = static_cast<size_t>(H) * kMmaD;
+  __nv_bfloat16* out = o + static_cast<size_t>(b) * L * out_stride + static_cast<size_t>(h) * kMmaD;
+#pragma unroll
+  for (int nt = 0; nt < kMmaD / 8; ++nt) {
+    const int d = nt * 8 + 2 * t;
+    if (r0 < L)
+      *reinterpret_cast<uint32_t*>(out + r0 * out_stride + d) = pack_bf16(acc[nt][0], acc[nt][1]);
+    if (r1 < L)
+      *reinterpret_cast<uint32_t*>(out + r1 * out_stride + d) = pack_bf16(acc[nt][2], acc[nt][3]);
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+int launch_mma(const void* q, const void* k, const void* v, const void* cos, const void* sin,
+               void* o, int B, int L, int H, int tok_stride, int causal, float scale,
+               cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(rope_attention_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kMmaSmem));
+  if (err != cudaSuccess) return err;
+  rope_attention_mma_kernel<<<dim3(H, B), kMmaThreads, kMmaSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(cos),
+      static_cast<const float*>(sin), static_cast<__nv_bfloat16*>(o), L, H, tok_stride, causal,
+      scale);
+  return cudaGetLastError();
+}
+
+// --- generic path ----------------------------------------------------------
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* cos, const void* sin,
+           void* o, int B, int L, int H, int D, int tok_stride, int causal, float scale,
+           cudaStream_t stream) {
+  if (D % 2 || B <= 0 || L <= 0 || H <= 0 || tok_stride < H * D) return cudaErrorInvalidValue;
+  if (std::is_same<T, __nv_bfloat16>::value && D == kMmaD && L <= kMmaMaxL &&
+      tok_stride % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(cos) &&
+      aligned16(sin) && aligned16(o))
+    return launch_mma(q, k, v, cos, sin, o, B, L, H, tok_stride, causal, scale, stream);
+  const size_t smem = sizeof(float) * (static_cast<size_t>(L) * (2 * D + 1) +
+                                       static_cast<size_t>(kTile) * (D + L));
+  if (smem > 232448) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(rope_attention_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + kTile - 1) / kTile, H, B);
+  rope_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(cos), static_cast<const float*>(sin), static_cast<T*>(o), L, H,
+      D, tok_stride, causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ddg_rope_attention(const void* q, const void* k, const void* v, const void* cos,
+                                  const void* sin, void* o, int B, int L, int H, int D,
+                                  int tok_stride, int causal, float scale, int dtype,
+                                  void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == ddg::kF32)
+    return launch<float>(q, k, v, cos, sin, o, B, L, H, D, tok_stride, causal, scale, s);
+  if (dtype == ddg::kBF16)
+    return launch<__nv_bfloat16>(q, k, v, cos, sin, o, B, L, H, D, tok_stride, causal, scale,
+                                 s);
+  return cudaErrorInvalidValue;
+}

@@ -1,0 +1,346 @@
+"""Diffusion Transformer (DiT) denoiser (port of `ddg_tpu/models/dit.py`,
+inference path).
+
+Parameter names are the reference torch DIT's (`vocab_embed.embedding`,
+`blocks.{i}.attn_qkv.weight`, `blocks.{i}.mlp.0.weight`,
+`output_layer.linear.weight`, ...), so `convert.dit_state_dict_from_jax`
+and reference checkpoints load with `strict=True`.
+
+Dtypes follow the JAX module's policy. The layers flax runs in
+`compute_dtype` (adaLN projections, qkv, attention out, MLP) hold their
+weights in that dtype, which is what flax's per-call cast produces; the
+vocab head holds `logits_dtype`. Embeddings, the sigma and class maps, the
+norm weights and the final adaLN projection stay float32: the final adaLN
+weight is cast to `compute_dtype` inside the forward, as flax does, and
+used in float32 by `dit_head_features`, as `ddg_tpu` does.
+
+`fused_rope_attn=True` runs attention through `ops.attention`, and
+`fused_adaln=True` the block-entry and attention->MLP adaLN chains and the
+final norm through `ops.adaln`: on CUDA tensors these are the Hopper
+kernels, on CPU tensors their plain versions. The JAX-only branches
+(tensor/sequence/ring parallelism, the TPU flash and short-sequence
+Pallas attentions, int8, the attention remat and bf16-probs knobs) raise
+NotImplementedError when set.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ddg_tpu_torch.ops import adaln
+from ddg_tpu_torch.ops import attention
+
+
+@dataclasses.dataclass(frozen=True)
+class DITConfig:
+    hidden_size: int = 768
+    cond_dim: int = 128
+    length: int = 1024
+    n_blocks: int = 12
+    n_heads: int = 12
+    vocab_size: int = 258
+    causal: bool = False
+    use_adaLN: bool = True
+    num_classes: Optional[int] = None  # +1 null class added internally
+    compute_dtype: torch.dtype = torch.bfloat16
+    logits_dtype: torch.dtype = torch.float32
+    # The trunk's Hopper kernels; off by default, as `ddg_tpu`'s 'auto'.
+    fused_rope_attn: bool = False
+    fused_adaln: bool = False
+    # Not ported: they raise when set.
+    pallas_attention: bool = False
+    tpu_flash_attn: bool = False
+    attn_probs_bf16: bool = False
+    attn_remat: bool = False
+    tensor_axis: Optional[str] = None
+    quant_int8: bool = False
+
+    def __post_init__(self):
+        unported = {
+            'pallas_attention': 'K2 short_seq_attention',
+            'tpu_flash_attn': 'the TPU library flash attention',
+            'attn_probs_bf16': 'the bf16-probs einsum attention',
+            'attn_remat': 'attention remat (training slice)',
+            'tensor_axis': 'tensor/sequence/ring parallelism '
+                           '(ROADMAP A.11)',
+            'quant_int8': 'int8 inference (ROADMAP A.11)',
+        }
+        for name, what in unported.items():
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f'DITConfig.{name}: {what} is not ported to '
+                    'ddg_tpu_torch yet')
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10_000.0) -> torch.Tensor:
+    """Sinusoidal features of sigma, float32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=t.device) / half)
+    args = t[:, None].float() * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def rope_cos_sin(length: int, head_dim: int, base: float = 10_000.0,
+                 device=None):
+    """Rotary cos/sin tables, float32, shape (L, head_dim // 2)."""
+    inv_freq = 1.0 / (base ** (torch.arange(
+        0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+    t = torch.arange(length, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+apply_rope = attention.apply_rope
+
+
+def modulate(x, shift, scale):
+    """x * (1 + scale) + shift with (B, D) shift/scale."""
+    return x * (1 + scale[:, None]) + shift[:, None]
+
+
+class AdaLNLayerNorm(nn.Module):
+    """LayerNorm with a learned scale only, fp32 one-pass moments
+    (E[x^2] - E[x]^2, clamped at 0), eps 1e-5."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        x32 = x.float()
+        m1 = x32.mean(-1, keepdim=True)
+        m2 = (x32 * x32).mean(-1, keepdim=True)
+        var = (m2 - m1 * m1).clamp_min(0.0)
+        y = (x32 - m1) * torch.rsqrt(var + 1e-5)
+        return (y * self.weight).to(x.dtype)
+
+
+class DDiTBlock(nn.Module):
+    def __init__(self, cfg: DITConfig):
+        super().__init__()
+        self.cfg = cfg
+        dim, dt = cfg.hidden_size, cfg.compute_dtype
+        self.norm1 = AdaLNLayerNorm(dim)
+        self.attn_qkv = nn.Linear(dim, 3 * dim, bias=False, dtype=dt)
+        self.attn_out = nn.Linear(dim, dim, bias=False, dtype=dt)
+        self.norm2 = AdaLNLayerNorm(dim)
+        self.mlp = nn.Sequential(
+            nn.Linear(dim, 4 * dim, bias=True, dtype=dt),
+            nn.GELU(approximate='tanh'),
+            nn.Linear(4 * dim, dim, bias=True, dtype=dt))
+        if cfg.use_adaLN:
+            self.adaLN_modulation = nn.Linear(cfg.cond_dim, 6 * dim,
+                                              bias=True, dtype=dt)
+
+    def forward(self, x, cos, sin, c):
+        cfg = self.cfg
+        use_adaLN = cfg.use_adaLN and c is not None
+        fused_adaln = cfg.fused_adaln and use_adaLN
+        if use_adaLN:
+            (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
+             gate_mlp) = self.adaLN_modulation(c).chunk(6, dim=-1)
+
+        x_skip = x
+        if fused_adaln:
+            h = adaln.ln_modulate(x, self.norm1.weight, shift_msa, scale_msa)
+        else:
+            h = self.norm1(x)
+            if use_adaLN:
+                h = modulate(h, shift_msa, scale_msa)
+        B, L, dim = x.shape
+        H = cfg.n_heads
+        qkv = self.attn_qkv(h).view(B, L, 3, H, dim // H)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if cfg.fused_rope_attn:
+            attn = attention.fused_rope_attention(q, k, v, cos, sin,
+                                                  causal=cfg.causal)
+        else:
+            attn = attention.attention_plain(
+                apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
+                causal=cfg.causal)
+        h = self.attn_out(attn.reshape(B, L, dim))
+        if fused_adaln:
+            x, h = adaln.gate_res_ln_modulate(h, x_skip, gate_msa,
+                                              self.norm2.weight, shift_mlp,
+                                              scale_mlp)
+            x_skip = x
+        else:
+            if use_adaLN:
+                h = gate_msa[:, None] * h
+            x = x_skip + h
+            x_skip = x
+            h = self.norm2(x)
+            if use_adaLN:
+                h = modulate(h, shift_mlp, scale_mlp)
+        h = self.mlp(h)
+        if use_adaLN:
+            h = gate_mlp[:, None] * h
+        return x_skip + h
+
+
+class EmbeddingLayer(nn.Module):
+    def __init__(self, vocab_size: int, dim: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(vocab_size, dim))
+        bound = 1.0 / math.sqrt(dim)   # variance_scaling(1/3, fan_in)
+        nn.init.uniform_(self.embedding, -bound, bound)
+
+    def forward(self, x):
+        return self.embedding[x.long()]
+
+
+class TimestepEmbedder(nn.Module):
+    def __init__(self, cond_dim: int, freq_dim: int = 256):
+        super().__init__()
+        self.freq_dim = freq_dim
+        self.mlp = nn.Sequential(nn.Linear(freq_dim, cond_dim), nn.SiLU(),
+                                 nn.Linear(cond_dim, cond_dim))
+
+    def forward(self, sigma):
+        return self.mlp(timestep_embedding(sigma, self.freq_dim))
+
+
+class LabelEmbedder(nn.Module):
+    """Class embedding with the null class (index num_classes) for CFG."""
+
+    def __init__(self, num_classes: int, cond_dim: int):
+        super().__init__()
+        self.embedding_table = nn.Embedding(num_classes + 1, cond_dim)
+
+    def forward(self, cond):
+        return self.embedding_table(cond.long())
+
+
+class DDitFinalLayer(nn.Module):
+    def __init__(self, cfg: DITConfig):
+        super().__init__()
+        self.norm_final = AdaLNLayerNorm(cfg.hidden_size)
+        self.linear = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                dtype=cfg.logits_dtype)
+        if cfg.use_adaLN:
+            self.adaLN_modulation = nn.Linear(cfg.cond_dim,
+                                              2 * cfg.hidden_size)
+
+
+class DIT(nn.Module):
+    """Denoiser: (indices, sigma, cond, x_emb) -> logits (B, L, V).
+
+    `skip_head` returns (trunk hidden state, conditioning vector) for the
+    samplers' head shortcuts; `return_hidden_states` returns the hidden
+    state beside the logits; `x_emb` bypasses the trunk.
+    """
+
+    def __init__(self, cfg: DITConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.vocab_embed = EmbeddingLayer(cfg.vocab_size, cfg.hidden_size)
+        if not cfg.causal:
+            self.sigma_map = TimestepEmbedder(cfg.cond_dim)
+        if cfg.num_classes is not None:
+            self.cond_map = LabelEmbedder(cfg.num_classes, cfg.cond_dim)
+        self.blocks = nn.ModuleList(DDiTBlock(cfg)
+                                    for _ in range(cfg.n_blocks))
+        self.output_layer = DDitFinalLayer(cfg)
+        self._rope = {}
+
+    def rope_tables(self, length: int, device):
+        key = (length, str(device))
+        if key not in self._rope:
+            self._rope[key] = rope_cos_sin(
+                length, self.cfg.hidden_size // self.cfg.n_heads,
+                device=device)
+        return self._rope[key]
+
+    def forward(self, indices, sigma, cond=None, x_emb=None, *,
+                return_hidden_states: bool = False,
+                skip_head: bool = False):
+        cfg = self.cfg
+        c = None if cfg.causal else F.silu(self.sigma_map(sigma))
+        if cond is not None:
+            if cfg.num_classes is None:
+                raise ValueError('Conditioning variable provided, but model '
+                                 'was not initialized with condition '
+                                 'embedding layer.')
+            cond_emb = F.silu(self.cond_map(cond))
+            c = cond_emb if c is None else c + cond_emb
+        if c is not None:
+            c = c.to(cfg.compute_dtype)
+
+        if x_emb is None:
+            x = self.vocab_embed(indices).to(cfg.compute_dtype)
+            cos, sin = self.rope_tables(x.shape[1], x.device)
+            for block in self.blocks:
+                x = block(x, cos, sin, c)
+        else:
+            x = x_emb.to(cfg.compute_dtype)
+
+        hidden = x
+        if skip_head:
+            if c is None:
+                c = torch.zeros((x.shape[0], cfg.cond_dim),
+                                dtype=cfg.compute_dtype, device=x.device)
+            return hidden, c
+        out = self.output_layer
+        use_adaLN = cfg.use_adaLN and c is not None
+        if use_adaLN:
+            ada = out.adaLN_modulation
+            shift, scale = F.linear(
+                c, ada.weight.to(cfg.compute_dtype),
+                ada.bias.to(cfg.compute_dtype)).chunk(2, dim=-1)
+        if use_adaLN and cfg.fused_adaln:
+            h = adaln.ln_modulate(x, out.norm_final.weight, shift, scale)
+        else:
+            h = out.norm_final(x)
+            if use_adaLN:
+                h = modulate(h, shift, scale)
+        logits = out.linear(h.to(cfg.logits_dtype))
+        if return_hidden_states:
+            return logits, hidden
+        return logits
+
+
+def dit_head_features(cfg: DITConfig, params, hidden, c):
+    """norm_final (two-pass variance) + final adaLN modulation without the
+    vocab matmul. hidden: (..., D); c: (batch, cond_dim), broadcast over
+    any middle dims. The final adaLN projection runs in float32 on the
+    float32 weights, so the features are float32 under adaLN (as in
+    `ddg_tpu`, whose bf16 x fp32 products promote)."""
+    h32 = hidden.float()
+    mean = h32.mean(-1, keepdim=True)
+    var = h32.var(-1, unbiased=False, keepdim=True)
+    h = (h32 - mean) * torch.rsqrt(var + 1e-5)
+    h = (h * params['output_layer.norm_final.weight']).to(hidden.dtype)
+    if cfg.use_adaLN and 'output_layer.adaLN_modulation.weight' in params:
+        mod = (c.float() @ params['output_layer.adaLN_modulation.weight'].T
+               + params['output_layer.adaLN_modulation.bias'])
+        shift, scale = mod.chunk(2, dim=-1)
+        extra = (1,) * (hidden.ndim - 2)
+        shift = shift.reshape(shift.shape[0], *extra, shift.shape[-1])
+        scale = scale.reshape(scale.shape[0], *extra, scale.shape[-1])
+        h = h * (1 + scale) + shift
+    return h
+
+
+def dit_head_matmul(cfg: DITConfig, params, feats):
+    """The vocab projection on head features, in `logits_dtype` (the bias
+    is in that dtype too, so the logits are not promoted)."""
+    dt = cfg.logits_dtype
+    return F.linear(feats.to(dt), params['output_layer.linear.weight'].to(dt),
+                    params['output_layer.linear.bias'].to(dt))
+
+
+def dit_head_fn(cfg: DITConfig, params, hidden_rows, c):
+    """The DIT output head on gathered hidden rows (B, D), float32."""
+    feats = dit_head_features(cfg, params, hidden_rows, c)
+    return dit_head_matmul(cfg, params, feats).float()

@@ -1,0 +1,386 @@
+"""Sampling loops for absorbing-state (MDLM) diffusion with D-CFG (port of
+`ddg_tpu/samplers.py:40-372, 538-765`, the serving slice).
+
+The JAX package runs each loop as one `lax.scan`; here it is a Python
+loop over steps, and the tokens stay on the device throughout. Random
+draws come from one explicit `torch.Generator`, whose device is where the
+loop runs. The fused denoise-step kernels (`ops/fused_sampling.py`) serve
+the `fused=True` paths when the tokens live on a CUDA device; elsewhere
+the unfused chain runs, as the JAX package does off the TPU.
+
+The NFE cache (`use_cache`) is carried as the last computed value, or
+None before the first compute, so no `_init_cache` allocation is needed.
+Checking whether a step changed nothing costs one host sync per step.
+
+Not ported yet (they raise NotImplementedError): classifier-based
+guidance, NOS, FUDGE/PPLM and AR sampling (ROADMAP A.7, A.8), the
+head-fused kernel (`fused_head`, K11/K12) and the fused uniform-state
+kernels (K9/K10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ddg_tpu_torch.diffusion import DiffusionSpec, log_x_theta, process_sigma
+from ddg_tpu_torch.ops import forward_process as fp
+from ddg_tpu_torch.ops import sampling as S
+from ddg_tpu_torch.ops.fused_sampling import (fused_absorbing_cfg_sample,
+                                              fused_absorbing_sample)
+from ddg_tpu_torch.ops.noise_schedules import LogLinearNoise
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _raw_logits(spec, model_apply, params, xt, sigma, cond=None):
+    """Denoiser forward without the parameterization transform, in bf16:
+    the fused kernels read raw logits and do the fp32 math themselves."""
+    return model_apply(params, xt, process_sigma(spec, sigma), cond,
+                       None, train=False, rng=None).to(torch.bfloat16)
+
+
+def _fused_ok(spec, sampler, guidance, xt):
+    """The fused kernels serve this step: `sampler.fused`, tokens on a
+    CUDA device, and a process/parameterization they cover."""
+    return (sampler.fused
+            and xt.is_cuda
+            and ((spec.diffusion == 'absorbing_state'
+                  and spec.parameterization == 'subs')
+                 or (spec.diffusion == 'uniform'
+                     and spec.parameterization == 'd3pm'
+                     and not spec.subs_masking))
+            and not sampler.low_confidence_sampling
+            and not sampler.argmax_sampling
+            and not sampler.use_float64)
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerSpec:
+    """Static sampling settings (configs/config.yaml `sampling` group)."""
+    steps: int = 128
+    eps: float = 1e-5
+    use_cache: bool = True
+    use_float64: bool = False
+    low_confidence_sampling: bool = False
+    low_confidence_threshold: float = 0.3
+    argmax_sampling: bool = False
+    fused: bool = False
+    first_hitting: bool = False
+    fused_head: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class GuidanceSpec:
+    """Static guidance settings (configs/guidance/*.yaml). Only `cfg` is
+    ported; the other methods' settings come with them."""
+    method: str                      # cfg | cbg | nos | fudge | pplm
+    gamma: float = 1.0
+
+
+def _sample_dtype(sampler: SamplerSpec):
+    return torch.float64 if sampler.use_float64 else torch.float32
+
+
+def _seed(generator):
+    """One int32 kernel seed in [0, 2^31 - 1), drawn on the generator's
+    device (no host sync)."""
+    return torch.randint(0, _INT32_MAX, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
+def _posterior_probs(spec: DiffusionSpec, x_theta, xt, mct, mcs):
+    """Unguided reverse posterior as probabilities."""
+    if spec.diffusion == 'absorbing_state':
+        return fp.absorbing_posterior(x_theta, mct, mcs,
+                                      mask_index=spec.mask_index)
+    if spec.diffusion == 'uniform':
+        return fp.uniform_posterior(x_theta, xt, 1 - mcs, 1 - mct,
+                                    vocab_size=spec.vocab_size)
+    raise NotImplementedError(
+        f'Diffusion type {spec.diffusion} not implemented.')
+
+
+def _sample_and_copy(spec, sampler, generator, q_xs, xt):
+    xs = S.sample_categorical(
+        q_xs, generator=generator,
+        low_confidence_sampling=sampler.low_confidence_sampling,
+        low_confidence_threshold=sampler.low_confidence_threshold,
+        argmax_sampling=sampler.argmax_sampling)
+    if spec.diffusion == 'absorbing_state':
+        xs = fp.apply_copy_flag_tokens(xs, xt, mask_index=spec.mask_index)
+    return xs.to(torch.int32)
+
+
+def _cached(compute, cache, cache_valid):
+    """NFE cache: reuse `cache` while the last step changed nothing, else
+    recompute. Returns (value, new_cache). cache_valid=None disables the
+    cache: nothing is kept between steps."""
+    if cache_valid is None:
+        return compute(), cache
+    if cache_valid:
+        return cache, cache
+    val = compute()
+    return val, val
+
+
+def _fused_uniform_unported():
+    return NotImplementedError(
+        'the fused uniform-state kernels (K9/K10 fused_uniform_sample, '
+        'fused_uniform_cfg_sample) are not ported yet (ROADMAP B)')
+
+
+# ---------------------------------------------------------------------------
+# Denoise-step variants. Each returns (xs, cache).
+# ---------------------------------------------------------------------------
+
+def _ddpm_step(spec, sampler, model_apply, params, generator, xt, sigma_t,
+               mct, mcs, cache, cache_valid, dit_cfg=None):
+    if _fused_ok(spec, sampler, None, xt):
+        if spec.diffusion == 'uniform':
+            raise _fused_uniform_unported()
+        logits, new_cache = _cached(
+            lambda: _raw_logits(spec, model_apply, params, xt, sigma_t),
+            cache, cache_valid)
+        xs = fused_absorbing_sample(
+            _seed(generator), xt, logits, mct[:, 0, 0], mcs[:, 0, 0],
+            mask_index=spec.mask_index)
+        return xs, new_cache
+
+    def compute():
+        out = log_x_theta(spec, model_apply, params, xt, sigma_t)
+        return out.to(_sample_dtype(sampler))
+
+    log_xt, new_cache = _cached(compute, cache, cache_valid)
+    q_xs = _posterior_probs(spec, log_xt.exp(), xt, mct, mcs)
+    return _sample_and_copy(spec, sampler, generator, q_xs, xt), new_cache
+
+
+def _cfg_step(spec, sampler, guidance, model_apply, params, generator, xt,
+              sigma_t, mct, mcs, cond, cache, cache_valid, dit_cfg=None):
+    """D-CFG. gamma in {0, 1} takes a single forward; otherwise one
+    batched [cond; uncond] forward at 2B."""
+    gamma = guidance.gamma
+    null_cond = torch.full_like(cond, spec.num_classes)
+    B = xt.shape[0]
+    mixed = gamma not in (0.0, 1.0)
+    fused = mixed and _fused_ok(spec, sampler, guidance, xt)
+
+    def doubled():
+        """[cond; uncond] rows for one batched forward at 2B."""
+        return (torch.cat([xt, xt]), torch.cat([sigma_t, sigma_t]),
+                torch.cat([cond, null_cond]))
+
+    if (fused and spec.diffusion == 'absorbing_state'
+            and dit_cfg is not None and cache_valid is None):
+        # Feature-mix path: the head is linear in its features, so
+        # gamma * logits_c + (1 - gamma) * logits_u equals the head
+        # applied to gamma * feats_c + (1 - gamma) * feats_u: one vocab
+        # matmul on B rows instead of 2B, and B rows of logits.
+        from ddg_tpu_torch.models.dit import (dit_head_features,
+                                              dit_head_matmul)
+        x2, s2, c2 = doubled()
+        hidden2, cvec2 = model_apply(params, x2, process_sigma(spec, s2), c2,
+                                     None, train=False, rng=None,
+                                     skip_head=True)
+        feats2 = dit_head_features(dit_cfg, params, hidden2, cvec2)
+        fmix = (gamma * feats2[:B].float()
+                + (1 - gamma) * feats2[B:].float())
+        logits_mix = dit_head_matmul(
+            dit_cfg, params, fmix.to(feats2.dtype)).to(torch.bfloat16)
+        xs = fused_absorbing_sample(
+            _seed(generator), xt, logits_mix, mct[:, 0, 0], mcs[:, 0, 0],
+            mask_index=spec.mask_index)
+        return xs, cache
+
+    if fused:
+        if spec.diffusion == 'uniform':
+            raise _fused_uniform_unported()
+        logits2, new_cache = _cached(
+            lambda: _raw_logits(spec, model_apply, params, *doubled()),
+            cache, cache_valid)
+        xs = fused_absorbing_cfg_sample(
+            _seed(generator), xt, logits2[:B], logits2[B:], gamma,
+            mct[:, 0, 0], mcs[:, 0, 0], mask_index=spec.mask_index)
+        return xs, new_cache
+
+    dt = _sample_dtype(sampler)
+    if not mixed:
+        use_cond = cond if gamma == 1.0 else null_cond
+        log_xt, new_cache = _cached(
+            lambda: log_x_theta(spec, model_apply, params, xt, sigma_t,
+                                cond=use_cond).to(dt),
+            cache, cache_valid)
+        q_xs = _posterior_probs(spec, log_xt.exp(), xt, mct, mcs)
+        return (_sample_and_copy(spec, sampler, generator, q_xs, xt),
+                new_cache)
+
+    def compute():
+        x2, s2, c2 = doubled()
+        return log_x_theta(spec, model_apply, params, x2, s2,
+                           cond=c2).to(dt)
+
+    log_both, new_cache = _cached(compute, cache, cache_valid)
+    log_cond, log_uncond = log_both[:B], log_both[B:]
+    if spec.diffusion == 'absorbing_state':
+        # Interpolate in x_theta logit space, then the posterior.
+        log_mix = gamma * log_cond + (1 - gamma) * log_uncond
+        q_xs = _posterior_probs(spec, torch.softmax(log_mix, dim=-1), xt,
+                                mct, mcs)
+    else:
+        # Uniform: interpolate log-posteriors, then normalise.
+        log_q_c = torch.log(_posterior_probs(spec, log_cond.exp(), xt,
+                                             mct, mcs))
+        log_q_u = torch.log(_posterior_probs(spec, log_uncond.exp(), xt,
+                                             mct, mcs))
+        q_xs = torch.softmax(gamma * log_q_c + (1 - gamma) * log_q_u,
+                             dim=-1)
+    return _sample_and_copy(spec, sampler, generator, q_xs, xt), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Main loops
+# ---------------------------------------------------------------------------
+
+def _check_guidance(sampler, guidance, cond):
+    method = guidance.method if guidance is not None else None
+    if method not in (None, 'cfg'):
+        raise NotImplementedError(
+            f'guidance method {method!r} is not ported yet (ROADMAP A.7 '
+            'for AR guidance, A.8 for CBG/NOS)')
+    if method == 'cfg' and cond is None:
+        raise ValueError('cfg guidance needs `cond`')
+    if sampler.fused_head:
+        raise NotImplementedError(
+            'fused_head (K11/K12 fused_absorbing_head_sample) is not '
+            'ported yet (ROADMAP B)')
+    return method
+
+
+@torch.no_grad()
+def diffusion_sample(spec: DiffusionSpec, sampler: SamplerSpec,
+                     model_apply, params, generator: torch.Generator, *,
+                     batch_size: int, length: int,
+                     guidance: Optional[GuidanceSpec] = None,
+                     cond: Optional[torch.Tensor] = None,
+                     classifier_apply=None, classifier_params=None,
+                     dit_cfg=None) -> torch.Tensor:
+    """Ancestral reverse-diffusion sampling on `generator.device`.
+    Returns (batch_size, length) int32 tokens."""
+    if (sampler.first_hitting and spec.diffusion == 'absorbing_state'
+            and (guidance is None or guidance.method == 'cfg')):
+        return first_hitting_sample(
+            spec, sampler, model_apply, params, generator,
+            batch_size=batch_size, length=length, guidance=guidance,
+            cond=cond, dit_cfg=dit_cfg)
+    method = _check_guidance(sampler, guidance, cond)
+    dev = generator.device
+    B = batch_size
+    xt = fp.sample_prior((B, length), diffusion=spec.diffusion,
+                         mask_index=spec.mask_index,
+                         vocab_size=spec.vocab_size, device=dev,
+                         generator=generator)
+    timesteps = torch.linspace(1.0, sampler.eps, sampler.steps + 1,
+                               dtype=torch.float32, device=dev)
+    dt_step = (1 - sampler.eps) / sampler.steps
+    use_cache = (sampler.use_cache and spec.diffusion == 'absorbing_state'
+                 and method in (None, 'cfg'))
+    cache, valid = None, False
+    for i in range(sampler.steps):
+        t = timesteps[i]
+        if spec.T > 0:
+            t = fp.discretize_t(t, spec.T)
+        t_vec = t.expand(B)
+        sigma_t = spec.noise.total_noise(t_vec)
+        sigma_s = spec.noise.total_noise(t_vec - dt_step)
+        mct = (1 - torch.exp(-sigma_t))[:, None, None]
+        mcs = (1 - torch.exp(-sigma_s))[:, None, None]
+        cache_valid = valid if use_cache else None
+        if method is None:
+            xs, cache = _ddpm_step(spec, sampler, model_apply, params,
+                                   generator, xt, sigma_t, mct, mcs, cache,
+                                   cache_valid, dit_cfg=dit_cfg)
+        else:
+            xs, cache = _cfg_step(spec, sampler, guidance, model_apply,
+                                  params, generator, xt, sigma_t, mct, mcs,
+                                  cond, cache, cache_valid, dit_cfg=dit_cfg)
+        if use_cache:
+            valid = torch.equal(xs, xt)
+        xt = xs
+    return xt
+
+
+@torch.no_grad()
+def first_hitting_sample(spec: DiffusionSpec, sampler: SamplerSpec,
+                         model_apply, params, generator: torch.Generator, *,
+                         batch_size: int, length: int,
+                         guidance: Optional[GuidanceSpec] = None,
+                         cond: Optional[torch.Tensor] = None,
+                         dit_cfg=None) -> torch.Tensor:
+    """Event-driven MDLM sampling (the exact T -> infinity limit): each
+    token's decode time has survival move_chance(t) / move_chance(1);
+    events are processed in decreasing time, one denoiser forward each,
+    sampling the decoded token from x_theta at sigma(tau). L forwards in
+    all (2B rows each under CFG)."""
+    if spec.diffusion != 'absorbing_state':
+        raise ValueError('first-hitting sampling is defined for '
+                         'absorbing-state diffusion')
+    method = _check_guidance(sampler, guidance, cond)
+    dev = generator.device
+    B, L = batch_size, length
+    u = (torch.rand((B, L), generator=generator, device=dev)
+         * (1.0 - sampler.eps) + sampler.eps)
+    if isinstance(spec.noise, LogLinearNoise):
+        tau = u        # move chance is linear in t
+    else:
+        mc1 = 1.0 - torch.exp(-spec.noise.total_noise(1.0)).item()
+        sigma_tau = -torch.log1p(-u * mc1)
+        tau = spec.noise.inverse_total_noise(sigma_tau).clamp(
+            sampler.eps, 1.0)
+    order = torch.argsort(-tau, dim=-1)
+    times = torch.gather(tau, 1, order)
+    xt = torch.full((B, L), spec.mask_index, dtype=torch.int32, device=dev)
+    gamma = guidance.gamma if guidance is not None else None
+    mixed_cfg = method == 'cfg' and gamma not in (0.0, 1.0)
+    use_cond = None
+    if method == 'cfg' and not mixed_cfg:
+        use_cond = cond if gamma == 1.0 else torch.full_like(
+            cond, spec.num_classes)
+
+    def rows_log_probs(x, sigma, c, pos):
+        """log-probs (rows, V) at position `pos` of each row."""
+        if dit_cfg is not None:
+            # Trunk only, then the head on the decoded row alone.
+            from ddg_tpu_torch.models.dit import dit_head_fn
+            hidden, cvec = model_apply(params, x, process_sigma(spec, sigma),
+                                       c, None, train=False, rng=None,
+                                       skip_head=True)
+            rows = hidden[torch.arange(x.shape[0], device=dev), pos]
+            logits = dit_head_fn(dit_cfg, params, rows, cvec)
+            logits[:, spec.mask_index] += fp.NEG_INFINITY
+            return torch.log_softmax(logits, dim=-1)
+        lp = log_x_theta(spec, model_apply, params, x, sigma, cond=c)
+        return lp[torch.arange(x.shape[0], device=dev), pos]
+
+    for k in range(L):
+        sigma_t = spec.noise.total_noise(times[:, k])
+        pos = order[:, k]
+        if mixed_cfg:
+            null = torch.full_like(cond, spec.num_classes)
+            lp2 = rows_log_probs(torch.cat([xt, xt]),
+                                 torch.cat([sigma_t, sigma_t]),
+                                 torch.cat([cond, null]),
+                                 torch.cat([pos, pos]))
+            row = torch.log_softmax(gamma * lp2[:B] + (1 - gamma) * lp2[B:],
+                                    dim=-1)
+        else:
+            row = rows_log_probs(xt, sigma_t, use_cond, pos)
+        g = S.gumbel_noise_like(row.shape, generator=generator,
+                                dtype=row.dtype)
+        tok = S.sample_token(
+            row, g, low_confidence_sampling=sampler.low_confidence_sampling,
+            low_confidence_threshold=sampler.low_confidence_threshold)
+        xt[torch.arange(B, device=dev), pos] = tok.to(torch.int32)
+    return xt

@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Where the time of `ddg_tpu_torch`'s D-CFG sampling goes on one CUDA card.
+
+    python3 scripts/profile_torch_sampling.py [--steps 16] [--trace-dir DIR]
+
+Builds the flagship (DiT-small, seeded random weights, the Hopper kernels
+on) and runs each sampler three times: to warm up, timed, and under
+`torch.profiler`. The samplers are ancestral D-CFG (gamma 2, B=24)
+through the feature-mix path and through the NFE cache, and first-
+hitting (B=32, all L=128 events). For each it prints one JSON line: wall
+ms per step, device-busy ms per step, the card's idle share, and device
+ms per step by kernel group, from the trace's kernel events. With
+--trace-dir the Chrome traces are written there (tens of MB).
+"""
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+GROUPS = (   # first match wins; matched against the kernel's name
+    ('K1 rope_attention', ('rope_attention',)),
+    ('K3/K5 adaln', ('adaln_kernel',)),
+    ('K7/K8 absorbing_sample', ('absorbing_sample',)),
+    ('gemm', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas')),
+    ('elementwise/reduce/other', ('',)),
+)
+
+
+def group_of(name):
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return GROUPS[-1][0]
+
+
+def kernel_events(trace_path):
+    with open(trace_path) as f:
+        events = json.load(f)['traceEvents']
+    return [e for e in events if e.get('cat') == 'kernel']
+
+
+def profile(name, run, n_steps, trace_dir):
+    """One warm-up, one timed run, one run under the profiler. The idle
+    share compares the profiled device time with the unprofiled wall
+    time (the profiler slows the host, not the kernels)."""
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        profiled_wall = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(trace_dir, f'{name}.json')
+    prof.export_chrome_trace(path)
+    kernels = kernel_events(path)
+    if not kernels:
+        raise RuntimeError('the profiler recorded no kernel on the card')
+    by_group, count = {}, {}
+    for e in kernels:
+        g = group_of(e['name'])
+        by_group[g] = by_group.get(g, 0.0) + e['dur'] / 1e3
+        count[g] = count.get(g, 0) + 1
+    # Kernels of one stream do not overlap: their sum is the busy time.
+    busy = sum(by_group.values())
+    print(json.dumps({
+        'run': name, 'steps': n_steps,
+        'wall_ms_per_step': wall / n_steps,
+        'device_busy_ms_per_step': busy / n_steps,
+        'idle_share': 1.0 - busy / wall,
+        'device_ms_per_step': {g: v / n_steps for g, v in sorted(
+            by_group.items(), key=lambda kv: -kv[1])},
+        'kernels_per_step': {g: c / n_steps for g, c in count.items()},
+        'profiled_wall_ms_per_step': profiled_wall / n_steps}), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--steps', type=int, default=16,
+                    help='ancestral steps to profile (default 16)')
+    ap.add_argument('--trace-dir', default=None,
+                    help='write the Chrome traces here')
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print('no CUDA device is visible', file=sys.stderr)
+        return 1
+    from ddg_tpu_torch import samplers as SM
+    from ddg_tpu_torch.entry import flagship
+    spec, cfg, _, apply_fn, params = flagship(device='cuda')
+    guidance = SM.GuidanceSpec(method='cfg', gamma=2.0)
+
+    def runner(batch, sampler):
+        def run():
+            gen = torch.Generator(device='cuda').manual_seed(0)
+            cond = torch.zeros((batch,), dtype=torch.int32, device='cuda')
+            SM.diffusion_sample(spec, sampler, apply_fn, params, gen,
+                                batch_size=batch, length=cfg.length,
+                                guidance=guidance, cond=cond, dit_cfg=cfg)
+        return run
+
+    print(json.dumps({'device': torch.cuda.get_device_name(0),
+                      'torch': torch.__version__}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = args.trace_dir or tmp
+        os.makedirs(trace_dir, exist_ok=True)
+        profile('ancestral_feature_mix', runner(24, SM.SamplerSpec(
+            steps=args.steps, use_cache=False, fused=True)), args.steps,
+            trace_dir)
+        profile('ancestral_nfe_cache', runner(24, SM.SamplerSpec(
+            steps=args.steps, use_cache=True, fused=True)), args.steps,
+            trace_dir)
+        profile('first_hitting', runner(32, SM.SamplerSpec(
+            first_hitting=True)), cfg.length, trace_dir)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
