@@ -9,14 +9,25 @@ Each phase prints one JSON line:
   2. build: the CUDA sources under ddg_tpu_torch/csrc, compiled with nvcc
      into build/ddg_tpu_torch/ (seconds, ptxas register/spill lines);
   3. kernels against their plain PyTorch versions on the card, at the
-     shapes of the main path, in float32 and bfloat16, with the median
-     CUDA-event time of kernel, plain version and (attention only) the
-     one PyTorch call that computes the same function;
-  4. a tiny DiT on the card against the same weights on the CPU;
-  5. the main path at full width: the flagship DiT-small (seeded random
-     weights) serving ancestral D-CFG (gamma=2, T=128, B=24) through the
-     feature-mix path, the same with the NFE cache (the CFG kernel), and
-     first-hitting D-CFG (B=32); samples/s and kernel launches per run.
+     shapes of the main paths, in float32 and bfloat16, with the median
+     CUDA-event time of kernel, plain version and (attention, forward and
+     backward) the one PyTorch call that computes the same function; the
+     adaLN backwards also run twice and must give bit-identical grads;
+  4. a tiny DiT on the card against the same weights on the CPU, and a
+     tiny float32 train step (loss, every gradient, and the parameters
+     after one clip + AdamW + EMA update) card against CPU;
+  5. the serving main path at full width: the flagship DiT-small (seeded
+     random weights) serving ancestral D-CFG (gamma=2, T=128, B=24)
+     through the feature-mix path, the same with the NFE cache (the CFG
+     kernel), and first-hitting D-CFG (B=32); samples/s and kernel
+     launches per run;
+  6. the training main path at full width: `entry.train_flagship()` (LM1B
+     DiT-small MDLM, global batch 512 x 128 as micro-batches), warm-up
+     steps, then timed steps: tokens/s, ms/step, peak memory, loss, grad
+     norm and the kernel launches per micro-step, which must be exact;
+  7. a learning check at full width: one Zipf-distributed micro-batch,
+     lr 3e-4 without warmup, 30 steps; the mean loss of the last 5 must
+     be at least 10% below that of the first 5.
 Then the `kernels` line, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}} last. Any failed check raises, so the run
 exits non-zero without a result line; so does a machine without a CUDA
@@ -29,6 +40,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -44,6 +56,7 @@ MASK = V - 1
 DEV = 'cuda'
 GAMMA = 2.0
 FP32_TOL = 1e-4
+SUM_RTOL = 1e-5
 # Gumbel-argmax tokens are compared where the top-two perturbed scores of
 # the plain version differ by more than this; closer calls may go either
 # way under another summation order.
@@ -317,6 +330,135 @@ def _tv_check(fs):
     return out
 
 
+def _close_sum(name, dtype, out, ref):
+    """Sums over L or B*L rows, taken in another order than the plain
+    version: fp32 to 1e-5 of the reference's largest magnitude; bf16 as
+    the rows, 2 ulp of that magnitude."""
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (SUM_RTOL * ref.float().abs().max().item()
+           if out.dtype == torch.float32 else bf16_tol(ref))
+    check(err <= tol, f'{name} {dtype}: max abs err {err} > {tol}')
+    return err
+
+
+def check_adaln_bwd(results):
+    """K4 and K6 against their plain backwards, at the training micro-
+    batch, with the conditioning as strided chunks of one (B, 6D)
+    projection; each kernel run twice must give bit-identical grads."""
+    from ddg_tpu_torch.ops import adaln
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    from ddg_tpu_torch.entry import TRAIN_MICRO_BATCH as nb
+    rows = nb * L
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        x = _rand(gen, nb, L, D, dtype=dtype)
+        y = _rand(gen, nb, L, D, dtype=dtype)
+        dx = _rand(gen, nb, L, D, dtype=dtype)
+        dh = _rand(gen, nb, L, D, dtype=dtype)
+        mod = _rand(gen, nb, 6 * D, scale=0.5, dtype=dtype)
+        scale, gate = mod[:, D:2 * D], mod[:, 2 * D:3 * D]
+        w = 1.0 + _rand(gen, D, scale=0.1)
+        for name, call, plain, n_rows in (
+                ('ln_modulate_bwd',
+                 lambda: adaln.ln_modulate_bwd(x, w, scale, dh),
+                 lambda: adaln.ln_modulate_bwd_plain(x, w, scale, dh), 1),
+                ('gate_res_ln_modulate_bwd',
+                 lambda: adaln.gate_res_ln_modulate_bwd(x, y, gate, w, scale,
+                                                        dx, dh),
+                 lambda: adaln.gate_res_ln_modulate_bwd_plain(
+                     x, y, gate, w, scale, dx, dh), 2)):
+            out, again, ref = call(), call(), plain()
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  f'{name} {dtype}: a rerun is not bit-identical')
+            rec = {'err': 0.0, 'sum_err': 0.0, 'bit_identical_rerun': True}
+            for i, (o, r) in enumerate(zip(out, ref)):
+                if i < n_rows:      # the row grads
+                    e, rec['tol'] = _close(f'{name} out {i}', dtype, o, r)
+                    rec['err'] = max(rec['err'], e)
+                else:               # dgate, dw, dshift, dscale
+                    rec['sum_err'] = max(rec['sum_err'], _close_sum(
+                        f'{name} out {i}', dtype, o, r))
+            if dtype == torch.bfloat16:
+                rec['ms'] = time_ms(call)
+                rec['plain_ms'] = time_ms(plain)
+                # Rows: K4 reads x, dh and writes dx; K6 reads x', y, dx,
+                # dh and writes dy, dskip. About 15 (K4) and 20 (K6) fp32
+                # operations per element.
+                n_stream = 3 if n_rows == 1 else 6
+                rec['bound_ms'], rec['bound_by'] = bound(
+                    n_stream * rows * D * es + (n_rows + 2) * nb * D * es
+                    + 8 * D, (15 if n_rows == 1 else 20) * rows * D,
+                    PEAK_FP32)
+            results[name][str(dtype)] = rec
+
+
+def check_attention_bwd(results):
+    """K1b against its plain backward at the training micro-batch, causal
+    and not, and at the ragged L=40; q, k, v are views into one qkv
+    projection."""
+    import torch.nn.functional as F
+    from ddg_tpu_torch.models.dit import rope_cos_sin
+    from ddg_tpu_torch.ops import attention
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    from ddg_tpu_torch.entry import TRAIN_MICRO_BATCH as nb
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        # 'main_path' keeps each gradient's (err, tol) at the training
+        # shape without the mask, the case the main path runs; each
+        # tensor has its own bar.
+        rec = {'err': 0.0, 'main_path': {}}
+        for shape in ((nb, L, H, DH), (4, 40, 3, DH)):
+            cos, sin = rope_cos_sin(shape[1], DH, device=DEV)
+            qkv = _rand(gen, shape[0], shape[1], 3, *shape[2:], dtype=dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            do = _rand(gen, *shape, dtype=dtype)
+            for causal in (False, True):
+                out = attention.fused_rope_attention_bwd(
+                    q, k, v, cos, sin, do, causal=causal)
+                ref = attention.fused_rope_attention_bwd_plain(
+                    q, k, v, cos, sin, do, causal=causal)
+                for o, r, g in zip(out, ref, 'qkv'):
+                    err, tol = _close(f'fused_rope_attention_bwd d{g} '
+                                      f'{shape} causal={causal}', dtype, o, r)
+                    if shape[0] == nb:
+                        rec['err'] = max(err, rec['err'])
+                        if not causal:
+                            rec['main_path'][f'd{g}'] = {'err': err,
+                                                         'tol': tol}
+        if dtype == torch.bfloat16:
+            cos, sin = rope_cos_sin(L, DH, device=DEV)
+            qkv = _rand(gen, nb, L, 3, H, DH, dtype=dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            do = _rand(gen, nb, L, H, DH, dtype=dtype)
+            rec['ms'] = time_ms(lambda: attention.fused_rope_attention_bwd(
+                q, k, v, cos, sin, do))
+            rec['plain_ms'] = time_ms(
+                lambda: attention.fused_rope_attention_bwd_plain(
+                    q, k, v, cos, sin, do), reps=10)
+            # The library yardstick: SDPA's backward on already rotated,
+            # heads-major q, k, v: autograd through SDPA minus its forward.
+            qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (attention.apply_rope(q, cos, sin),
+                                    attention.apply_rope(k, cos, sin), v))
+            doh = do.transpose(1, 2).contiguous()
+            fwd_bwd = time_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh),
+                doh))
+            with torch.no_grad():
+                fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh))
+            rec['library_ms'] = fwd_bwd - fwd
+            rec['library'] = 'SDPA backward (autograd through SDPA minus ' \
+                             'its forward)'
+            # q, k, v, dO in, dq, dk, dv out; five L x L x Dh products on
+            # bf16 operands, at the card's bf16 tensor-core rate (the
+            # kernel itself runs them on the CUDA cores).
+            rec['bound_ms'], rec['bound_by'] = bound(
+                7 * nb * L * D * es + 2 * L * (DH // 2) * 4,
+                10 * nb * H * L * L * DH, PEAK_BF16_TENSOR)
+        results['fused_rope_attention_bwd'][str(dtype)] = rec
+
+
 def check_sampling(results):
     from ddg_tpu_torch.ops import fused_sampling as fs
     gen = torch.Generator(device=DEV).manual_seed(6)
@@ -415,6 +557,81 @@ def check_tiny_dit():
           'logit_std': outs[0].std().item()})
 
 
+def check_tiny_train():
+    """A tiny float32 train step, fused flags on, dropout 0, on the card
+    against the CPU, on one batch and one injected (t, x_t). Bars, set
+    before the first run: the loss to 1e-5 relative; every parameter
+    gradient to 1e-4 of its largest magnitude on the CPU (sums in
+    another order, and the embedding's scatter-add in no fixed order on
+    the card); and, fed the CPU's gradients, the parameters and the EMA
+    shadow after one clip + AdamW + EMA update to 1e-6."""
+    import numpy as np
+    from ddg_tpu_torch.convert import make_reference_dit_state_dict
+    from ddg_tpu_torch.diffusion import (DiffusionSpec, diffusion_loss_given,
+                                         sample_corruption)
+    from ddg_tpu_torch.models import DIT, DITConfig, make_model_apply
+    from ddg_tpu_torch.ops.noise_schedules import LogLinearNoise
+    from ddg_tpu_torch.runtime import averaging
+    from ddg_tpu_torch.runtime.optim import OptimSpec, make_optimizer
+    cfg = DITConfig(hidden_size=128, cond_dim=32, length=32, n_blocks=2,
+                    n_heads=2, vocab_size=101, num_classes=2, dropout=0.0,
+                    compute_dtype=torch.float32, fused_rope_attn=True,
+                    fused_adaln=True)
+    sd = make_reference_dit_state_dict(
+        np.random.RandomState(1), hidden=128, cond_dim=32, n_blocks=2,
+        vocab=101, with_cond=True)
+    sd = {k: v * 10 if v.ndim == 2 else v for k, v in sd.items()}
+    spec = DiffusionSpec(diffusion='absorbing_state',
+                         parameterization='subs', noise=LogLinearNoise(),
+                         vocab_size=101, mask_index=100, num_classes=2)
+    gen = torch.Generator().manual_seed(3)
+    x0 = torch.randint(0, 100, (8, 32), generator=gen, dtype=torch.int32)
+    mask = torch.ones((8, 32))
+    cond = torch.tensor([0, 1] * 4, dtype=torch.int32)
+    t, xt = sample_corruption(spec, x0, gen)
+    names = list(sd)
+    res = {}
+    for dev in ('cpu', DEV):
+        m = DIT(cfg)
+        m.load_state_dict(sd, strict=True)
+        apply = make_model_apply(m.to(dev))
+        nll = diffusion_loss_given(
+            spec, apply, apply.params, x0.to(dev), t.to(dev), xt.to(dev),
+            cond.to(dev), torch.Generator(device=dev), train=True,
+            label_smoothing=0.0)['loss']
+        loss = (nll * mask.to(dev)).sum() / mask.sum()
+        grads = torch.autograd.grad(loss, [apply.params[k] for k in names])
+        res[dev] = (loss.item(), [g.cpu() for g in grads])
+    (l_cpu, g_cpu), (l_dev, g_dev) = res['cpu'], res[DEV]
+    loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
+    check(math.isfinite(l_dev) and loss_err <= 1e-5,
+          f'tiny train: card loss {l_dev} vs CPU {l_cpu}')
+    grad_err = 0.0
+    for k, a, b in zip(names, g_cpu, g_dev):
+        e = (a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
+        check(e <= 1e-4, f'tiny train: grad of {k} differs by {e} of its '
+                         f'largest magnitude')
+        grad_err = max(grad_err, e)
+    optim = OptimSpec(lr=1e-3, weight_decay=0.01, num_warmup_steps=0)
+    avg = averaging.AveragingSpec.ema(0.9)
+    after = {}
+    for dev in ('cpu', DEV):
+        masters = {k: sd[k].to(dev, copy=True) for k in names}
+        ema = averaging.init(avg, masters)
+        make_optimizer(optim, list(masters.values())).step(
+            [g.to(dev) for g in g_cpu])
+        averaging.update(avg, ema, masters)
+        after[dev] = [v.cpu() for v in (*masters.values(),
+                                        *ema.shadow_params.values())]
+    step_err = max((a - b).abs().max().item()
+                   for a, b in zip(after['cpu'], after[DEV]))
+    check(step_err <= 1e-6, f'tiny train: parameters after the update '
+                            f'differ by {step_err}')
+    emit({'phase': 'tiny_train_card_vs_cpu', 'loss': l_cpu,
+          'loss_rel_err': loss_err, 'max_grad_err_of_max': grad_err,
+          'update_max_abs_err': step_err})
+
+
 def run_main_path(kernels):
     from ddg_tpu_torch import samplers as SM
     from ddg_tpu_torch.entry import flagship
@@ -476,7 +693,113 @@ def run_main_path(kernels):
                                  f'(> {allowed})')
         for k in trunk | expect:
             check(launches[k] > 0, f'{name}: kernel {k} never launched')
+        for k in BACKWARD:
+            check(launches[k] == 0, f'{name}: backward kernel {k} launched '
+                                    'while sampling')
     return totals
+
+
+BACKWARD = ('fused_rope_attention_bwd', 'ln_modulate_bwd',
+            'gate_res_ln_modulate_bwd')
+# Launches per micro-step of the training path: 12 blocks, and the final
+# norm's ln_modulate.
+PER_MICRO_STEP = {'fused_rope_attention': 12, 'fused_rope_attention_bwd': 12,
+                  'ln_modulate': 13, 'ln_modulate_bwd': 13,
+                  'gate_res_ln_modulate': 12, 'gate_res_ln_modulate_bwd': 12,
+                  'fused_absorbing_sample': 0,
+                  'fused_absorbing_cfg_sample': 0}
+
+
+def run_train_path(kernels, warmup=2, steps=5):
+    """The training flagship at full width: `warmup` steps, then `steps`
+    timed ones."""
+    from ddg_tpu_torch.entry import train_flagship
+    t0 = time.perf_counter()
+    run = train_flagship(device=DEV)
+    cfg = run.cfg
+    emit({'phase': 'train_flagship', 'seconds': time.perf_counter() - t0,
+          'parameters': sum(p.numel() for p in run.apply_fn.params.values()),
+          'hidden': cfg.hidden_size, 'blocks': cfg.n_blocks,
+          'heads': cfg.n_heads, 'length': cfg.length,
+          'vocab': cfg.vocab_size, 'global_batch': run.global_batch,
+          'micro_batch': run.micro_batch, 'accum_steps': run.accum_steps})
+    batch = run.batch(torch.Generator(device=DEV).manual_seed(1))
+    for _ in range(warmup):
+        run.step(run.state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = [run.step(run.state, batch)[1] for _ in range(steps)]
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / steps
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    # One more step with PyTorch's sync debugging on: the step must not
+    # wait for the card anywhere (its metrics stay on the card).
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            run.step(run.state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    syncs = [str(w.message) for w in syncs
+             if 'called a synchronizing' in str(w.message)]
+    loss = [m['loss'].item() for m in metrics]
+    gnorm = [m['grad_norm'].item() for m in metrics]
+    n_micro = steps * run.accum_steps
+    emit({'phase': 'train_main_path', 'steps': steps,
+          'ms_per_step': secs * 1e3,
+          'tokens_per_s': run.global_batch * cfg.length / secs,
+          'peak_memory_bytes': peak,
+          'loss': loss, 'grad_norm': gnorm,
+          'lr': metrics[-1]['lr'].item(),
+          'launches_per_micro_step': {k: v / n_micro
+                                      for k, v in launches.items()},
+          'host_syncs_in_a_step': len(syncs)})
+    check(all(math.isfinite(v) for v in loss + gnorm),
+          'training: non-finite loss or grad norm')
+    check(not syncs, f'training: the step synchronises with the card: '
+                     f'{syncs[:3]}')
+    for k, n in PER_MICRO_STEP.items():
+        check(launches[k] == n * n_micro,
+              f'training: {k} launched {launches[k]} times in {n_micro} '
+              f'micro-steps, expected {n} each')
+    return launches
+
+
+def check_learning(micro_steps=30):
+    """At full width, one micro-batch of Zipf-distributed tokens repeated,
+    lr 3e-4 with no warmup: the mean loss of the last 5 steps at least
+    10% below the first 5 (a bar set before the first run)."""
+    import dataclasses
+    from ddg_tpu_torch.entry import train_flagship
+    from ddg_tpu_torch.runtime.train_state import (init_train_state,
+                                                   make_train_step)
+    run = train_flagship(device=DEV, seed=2)
+    optim = dataclasses.replace(run.optim, num_warmup_steps=0)
+    state = init_train_state(torch.Generator(device=DEV).manual_seed(3),
+                             run.apply_fn.params, optim, run.averaging)
+    step = make_train_step(run.spec, run.apply_fn, optim, run.averaging)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    zipf = 1.0 / torch.arange(1, run.cfg.vocab_size, device=DEV) ** 1.1
+    ids = torch.multinomial(zipf, run.micro_batch * run.cfg.length,
+                            replacement=True, generator=gen)
+    shape = (run.micro_batch, run.cfg.length)
+    batch = {'input_ids': ids.view(shape).int(),
+             'attention_mask': torch.ones(shape, device=DEV)}
+    t0 = time.perf_counter()
+    losses = torch.stack([step(state, batch)[1]['loss']
+                          for _ in range(micro_steps)]).tolist()
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    emit({'phase': 'learning_check', 'steps': micro_steps,
+          'seconds': time.perf_counter() - t0, 'loss_first5': first,
+          'loss_last5': last, 'drop': 1 - last / first, 'losses': losses})
+    check(all(math.isfinite(v) for v in losses), 'learning: non-finite loss')
+    check(last <= 0.9 * first, f'learning: loss fell from {first} to '
+                               f'{last}, less than 10%')
 
 
 SOURCES = {
@@ -490,6 +813,13 @@ SOURCES = {
                                'ddg_tpu/ops/fused_sampling.py:226'),
     'fused_absorbing_cfg_sample': ('ddg_tpu_torch/csrc/absorbing_sample.cu',
                                    'ddg_tpu/ops/fused_sampling.py:281'),
+    # K1's backward on the TPU is a plain-jnp recompute (_rope_flash_bwd).
+    'fused_rope_attention_bwd': ('ddg_tpu_torch/csrc/rope_attention_bwd.cu',
+                                 'ddg_tpu/ops/attention_pallas.py:233'),
+    'ln_modulate_bwd': ('ddg_tpu_torch/csrc/adaln.cu',
+                        'ddg_tpu/ops/adaln_pallas.py:149'),
+    'gate_res_ln_modulate_bwd': ('ddg_tpu_torch/csrc/adaln.cu',
+                                 'ddg_tpu/ops/adaln_pallas.py:234'),
 }
 
 
@@ -508,6 +838,9 @@ def main():
         'gate_res_ln_modulate': adaln.gate_res_ln_modulate,
         'fused_absorbing_sample': fs.fused_absorbing_sample,
         'fused_absorbing_cfg_sample': fs.fused_absorbing_cfg_sample,
+        'fused_rope_attention_bwd': attention.fused_rope_attention_bwd,
+        'ln_modulate_bwd': adaln.ln_modulate_bwd,
+        'gate_res_ln_modulate_bwd': adaln.gate_res_ln_modulate_bwd,
     }
 
     phase_environment()
@@ -517,17 +850,26 @@ def main():
     check_adaln(results)
     check_attention(results)
     tv = check_sampling(results)
+    check_adaln_bwd(results)
+    check_attention_bwd(results)
     emit({'phase': 'kernels_vs_plain', 'results': results,
           'internal_rng': tv})
     check_tiny_dit()
-    launches = run_main_path(kernels)
+    check_tiny_train()
+    by_path = {'serving': run_main_path(kernels),
+               'training': run_train_path(kernels)}
+    check_learning()
 
     rows = []
     for name in kernels:
         r = results[name][str(torch.bfloat16)]
         src, replaces = SOURCES[name]
+        launches = {path: n[name] for path, n in by_path.items()
+                    if n[name]}
         rows.append({'name': name, 'route': 'cuda', 'source': src,
-                     'replaces': replaces, 'launches': launches[name],
+                     'replaces': replaces,
+                     'launches': sum(launches.values()),
+                     'launches_by_path': launches,
                      'max_abs_err': r['err'], 'ms': r['ms'],
                      'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                      'bound_by': r['bound_by'],

@@ -11,7 +11,17 @@ is in the repository.
 
 `entry()` returns one denoiser forward to log-probs with example inputs.
 
-Both run on the card unless the caller passes `device='cpu'`.
+`train_flagship()` builds the training flagship, the reference's LM1B
+MDLM run (`scripts/train_lm1b.sh` with `configs/model/small.yaml`,
+`configs/config.yaml:77-107`, `configs/lr_scheduler/constant_warmup.yaml`
+and `configs/weights_averaging/ema.yaml`): the same DiT-small without
+classes, dropout 0.1, bf16 trunk with a float32 vocab head, absorbing
+SUBS with the log-linear schedule and antithetic t, AdamW (lr 3e-4, no
+weight decay, clip 1.0) with 2500 warmup steps, EMA 0.9999, and a global
+batch of 512 x 128 tokens as micro-batches of TRAIN_MICRO_BATCH. Until the LM1B data is in the repository, batches are
+synthetic tokens drawn uniformly over [0, V-1) (`TrainRun.batch`).
+
+All run on the card unless the caller passes `device='cpu'`.
 """
 
 from __future__ import annotations
@@ -25,6 +35,15 @@ from ddg_tpu_torch.convert import make_reference_dit_state_dict
 from ddg_tpu_torch.diffusion import DiffusionSpec, log_x_theta
 from ddg_tpu_torch.models import DIT, DITConfig, make_model_apply
 from ddg_tpu_torch.ops.noise_schedules import LogLinearNoise
+from ddg_tpu_torch.runtime.averaging import AveragingSpec
+from ddg_tpu_torch.runtime.optim import OptimSpec
+from ddg_tpu_torch.runtime.train_state import (TrainState, init_train_state,
+                                               make_train_step)
+
+TRAIN_GLOBAL_BATCH = 512
+# The largest power of two whose train step peaks under half of an 80 GB
+# card (PERF.md, training section).
+TRAIN_MICRO_BATCH = 256
 
 
 def resolve_device(device=None) -> torch.device:
@@ -78,3 +97,79 @@ def entry(device=None):
             return log_x_theta(spec, apply_fn, params, x, sigma)
 
     return fn, (params, x, sigma)
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What `train_flagship` builds; `step(state, batch)` is the train
+    step."""
+    spec: DiffusionSpec
+    cfg: DITConfig
+    model: DIT
+    apply_fn: object
+    optim: OptimSpec
+    averaging: AveragingSpec
+    state: TrainState
+    step: object
+    global_batch: int
+    micro_batch: int
+
+    @property
+    def accum_steps(self) -> int:
+        return self.global_batch // self.micro_batch
+
+    def batch(self, generator: torch.Generator) -> dict:
+        """A synthetic global batch, tokens uniform over [0, V-1) as
+        `bench.py` draws them, shaped (accum, micro, L) when accumulating."""
+        shape = (self.global_batch, self.cfg.length)
+        if self.accum_steps > 1:
+            shape = (self.accum_steps, self.micro_batch, self.cfg.length)
+        ids = torch.randint(0, self.cfg.vocab_size - 1, shape,
+                            generator=generator, device=generator.device,
+                            dtype=torch.int32)
+        return {'input_ids': ids,
+                'attention_mask': torch.ones(shape, device=ids.device)}
+
+
+def train_flagship(device=None, *, seed: int = 0,
+                   tiny: bool = False) -> TrainRun:
+    """The training flagship on `device`, weights seeded random in the
+    reference layout, the train state's generator seeded with `seed`.
+    `tiny` is a 2-block, 64-wide model with V=258, L=32 and a global
+    batch of 8 as 2 micro-batches, for runs on the CPU."""
+    device = resolve_device(device)
+    if tiny:
+        cfg = DITConfig(hidden_size=64, cond_dim=32, length=32, n_blocks=2,
+                        n_heads=2, vocab_size=258)
+        global_batch, micro = 8, 4
+    else:
+        cfg = DITConfig(hidden_size=768, cond_dim=128, length=128,
+                        n_blocks=12, n_heads=12, vocab_size=30523)
+        global_batch, micro = TRAIN_GLOBAL_BATCH, TRAIN_MICRO_BATCH
+    cfg = dataclasses.replace(cfg, dropout=0.1, num_classes=None,
+                              compute_dtype=torch.bfloat16,
+                              logits_dtype=torch.float32,
+                              fused_rope_attn=True, fused_adaln=True)
+    spec = DiffusionSpec(diffusion='absorbing_state',
+                         parameterization='subs', noise=LogLinearNoise(),
+                         vocab_size=cfg.vocab_size,
+                         mask_index=cfg.vocab_size - 1,
+                         antithetic_sampling=True, sampling_eps=1e-3)
+    model = DIT(cfg)
+    model.load_state_dict(make_reference_dit_state_dict(
+        np.random.RandomState(seed), hidden=cfg.hidden_size,
+        cond_dim=cfg.cond_dim, n_blocks=cfg.n_blocks,
+        vocab=cfg.vocab_size), strict=True)
+    model = model.to(device)
+    apply_fn = make_model_apply(model)
+    optim = OptimSpec(lr=3e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+                      weight_decay=0.0, grad_clip=1.0,
+                      scheduler='constant_warmup', num_warmup_steps=2500)
+    avg = AveragingSpec.ema(0.9999)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = init_train_state(gen, apply_fn.params, optim, avg)
+    step = make_train_step(spec, apply_fn, optim, avg,
+                           accum_steps=global_batch // micro)
+    return TrainRun(spec=spec, cfg=cfg, model=model, apply_fn=apply_fn,
+                    optim=optim, averaging=avg, state=state, step=step,
+                    global_batch=global_batch, micro_batch=micro)

@@ -17,21 +17,24 @@ def make_model_apply(module: torch.nn.Module):
     `params` is a {name: tensor} dict over the module's parameters, as
     the head functions of `models.dit` read it. `apply.params` is the
     module's own dict: with it the module runs as it is; any other dict
-    runs through `torch.func.functional_call`. Inference only: `train`
-    (dropout, gradients) comes with the training slice."""
+    runs through `torch.func.functional_call`. With `train=False` the
+    forward runs under `torch.no_grad()`; with `train=True` it records
+    gradients and applies dropout with masks from the `rng` generator."""
     own = dict(module.named_parameters())
+
+    def run(params, x, sigma, cond, x_emb, kwargs):
+        if params is own:
+            return module(x, sigma, cond, x_emb, **kwargs)
+        return torch.func.functional_call(module, params,
+                                          (x, sigma, cond, x_emb), kwargs)
 
     def apply(params, x, sigma, cond=None, x_emb=None, *,
               train: bool = False, rng=None, **kwargs):
         if train:
-            raise NotImplementedError(
-                'train=True needs the training slice of ddg_tpu_torch '
-                '(ROADMAP A.5)')
+            return run(params, x, sigma, cond, x_emb,
+                       dict(kwargs, train=True, rng=rng))
         with torch.no_grad():
-            if params is own:
-                return module(x, sigma, cond, x_emb, **kwargs)
-            return torch.func.functional_call(
-                module, params, (x, sigma, cond, x_emb), kwargs)
+            return run(params, x, sigma, cond, x_emb, kwargs)
 
     apply.params = own
     return apply

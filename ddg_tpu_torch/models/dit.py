@@ -1,5 +1,5 @@
 """Diffusion Transformer (DiT) denoiser (port of `ddg_tpu/models/dit.py`,
-inference path).
+inference and training).
 
 Parameter names are the reference torch DIT's (`vocab_embed.embedding`,
 `blocks.{i}.attn_qkv.weight`, `blocks.{i}.mlp.0.weight`,
@@ -17,10 +17,15 @@ used in float32 by `dit_head_features`, as `ddg_tpu` does.
 `fused_rope_attn=True` runs attention through `ops.attention`, and
 `fused_adaln=True` the block-entry and attention->MLP adaLN chains and the
 final norm through `ops.adaln`: on CUDA tensors these are the Hopper
-kernels, on CPU tensors their plain versions. The JAX-only branches
-(tensor/sequence/ring parallelism, the TPU flash and short-sequence
-Pallas attentions, int8, the attention remat and bf16-probs knobs) raise
-NotImplementedError when set.
+kernels (forward and backward), on CPU tensors their plain versions. The
+JAX-only branches (tensor/sequence/ring parallelism, the TPU flash and
+short-sequence Pallas attentions, int8, the attention remat and bf16-probs
+knobs) raise NotImplementedError when set.
+
+`train=True` applies dropout (rate `cfg.dropout`) after the attention
+output projection and after the MLP, where the JAX block has it, with
+masks drawn from the `rng` generator: keep with probability 1 - p and
+scale by 1 / (1 - p), as flax's Dropout. The masks are not JAX's bits.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ class DITConfig:
     length: int = 1024
     n_blocks: int = 12
     n_heads: int = 12
+    dropout: float = 0.1
     vocab_size: int = 258
     causal: bool = False
     use_adaLN: bool = True
@@ -66,7 +72,7 @@ class DITConfig:
             'pallas_attention': 'K2 short_seq_attention',
             'tpu_flash_attn': 'the TPU library flash attention',
             'attn_probs_bf16': 'the bf16-probs einsum attention',
-            'attn_remat': 'attention remat (training slice)',
+            'attn_remat': 'attention remat (ROADMAP A.11)',
             'tensor_axis': 'tensor/sequence/ring parallelism '
                            '(ROADMAP A.11)',
             'quant_int8': 'int8 inference (ROADMAP A.11)',
@@ -102,6 +108,18 @@ def rope_cos_sin(length: int, head_dim: int, base: float = 10_000.0,
 
 
 apply_rope = attention.apply_rope
+
+
+def dropout(x, p: float, *, train: bool, generator):
+    """flax Dropout: where(keep, x / (1 - p), 0) with keep ~ Bernoulli(1 -
+    p) from `generator`; the identity unless training with p > 0."""
+    if not train or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError('dropout in train mode needs a generator (rng=)')
+    keep = torch.rand(x.shape, generator=generator,
+                      device=generator.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def modulate(x, shift, scale):
@@ -143,7 +161,7 @@ class DDiTBlock(nn.Module):
             self.adaLN_modulation = nn.Linear(cfg.cond_dim, 6 * dim,
                                               bias=True, dtype=dt)
 
-    def forward(self, x, cos, sin, c):
+    def forward(self, x, cos, sin, c, *, train: bool = False, rng=None):
         cfg = self.cfg
         use_adaLN = cfg.use_adaLN and c is not None
         fused_adaln = cfg.fused_adaln and use_adaLN
@@ -170,6 +188,7 @@ class DDiTBlock(nn.Module):
                 apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
                 causal=cfg.causal)
         h = self.attn_out(attn.reshape(B, L, dim))
+        h = dropout(h, cfg.dropout, train=train, generator=rng)
         if fused_adaln:
             x, h = adaln.gate_res_ln_modulate(h, x_skip, gate_msa,
                                               self.norm2.weight, shift_mlp,
@@ -183,7 +202,7 @@ class DDiTBlock(nn.Module):
             h = self.norm2(x)
             if use_adaLN:
                 h = modulate(h, shift_mlp, scale_mlp)
-        h = self.mlp(h)
+        h = dropout(self.mlp(h), cfg.dropout, train=train, generator=rng)
         if use_adaLN:
             h = gate_mlp[:, None] * h
         return x_skip + h
@@ -263,6 +282,7 @@ class DIT(nn.Module):
         return self._rope[key]
 
     def forward(self, indices, sigma, cond=None, x_emb=None, *,
+                train: bool = False, rng=None,
                 return_hidden_states: bool = False,
                 skip_head: bool = False):
         cfg = self.cfg
@@ -281,7 +301,7 @@ class DIT(nn.Module):
             x = self.vocab_embed(indices).to(cfg.compute_dtype)
             cos, sin = self.rope_tables(x.shape[1], x.device)
             for block in self.blocks:
-                x = block(x, cos, sin, c)
+                x = block(x, cos, sin, c, train=train, rng=rng)
         else:
             x = x_emb.to(cfg.compute_dtype)
 

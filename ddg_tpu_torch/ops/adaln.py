@@ -1,13 +1,17 @@
-"""adaLN chains of the DiT block (port of `ddg_tpu/ops/adaln_pallas.py`,
-forward only):
+"""adaLN chains of the DiT block (port of `ddg_tpu/ops/adaln_pallas.py`):
 
     ln_modulate:          h = LN(x) * w * (1 + scale) + shift
     gate_res_ln_modulate: x' = skip + gate * y
                           h  = LN(x') * w * (1 + scale) + shift
 
 LN uses one-pass fp32 moments, the variance clamped at 0, eps 1e-5, and a
-scale-only weight. On CUDA tensors each chain is one launch of
-`csrc/adaln.cu`; on CPU tensors the plain versions below run instead.
+scale-only weight. Both chains are differentiable: as the JAX custom VJPs
+do, the backward recomputes the LN statistics from the saved x (the
+rounded x' for the residual form) and returns the row grads in the row
+dtype, dw in fp32 and the conditioning grads in their own dtype. On CUDA
+tensors each forward is one launch of `csrc/adaln.cu` and each backward
+one launch of its backward kernel there; on CPU tensors the plain
+versions below run instead.
 """
 
 from __future__ import annotations
@@ -43,6 +47,41 @@ def gate_res_ln_modulate_plain(y, skip, gate, w, shift, scale):
             _modulate32(x32, w, shift, scale).to(y.dtype))
 
 
+def _mod_bwd32(x32, w, scale, dh32):
+    """The shared backward of h = LN(x) * w * (1 + scale) + shift in fp32
+    (`_mod_bwd`): (dx_ln, dw, dshift, dscale)."""
+    m1 = x32.mean(-1, keepdim=True)
+    m2 = (x32 * x32).mean(-1, keepdim=True)
+    r = torch.rsqrt((m2 - m1 * m1).clamp_min(0.0) + _EPS)
+    xn = (x32 - m1) * r
+    w32 = w.float()
+    sc = scale.float()
+    s_dhxn = (dh32 * xn).sum(1)
+    dw = (s_dhxn * (1.0 + sc)).sum(0)
+    dxn = dh32 * (w32 * (1.0 + sc[:, None]))
+    md = dxn.mean(-1, keepdim=True)
+    mdx = (dxn * xn).mean(-1, keepdim=True)
+    return r * (dxn - md - xn * mdx), dw, dh32.sum(1), s_dhxn * w32
+
+
+def ln_modulate_bwd_plain(x, w, scale, dh):
+    """Plain PyTorch version of `ln_modulate_bwd`."""
+    dx, dw, dshift, dscale = _mod_bwd32(x.float(), w, scale, dh.float())
+    return (dx.to(x.dtype), dw, dshift.to(scale.dtype),
+            dscale.to(scale.dtype))
+
+
+def gate_res_ln_modulate_bwd_plain(x_new, y, gate, w, scale, dx, dh):
+    """Plain PyTorch version of `gate_res_ln_modulate_bwd`."""
+    dx_ln, dw, dshift, dscale = _mod_bwd32(x_new.float(), w, scale,
+                                           dh.float())
+    dx_tot = dx.float() + dx_ln
+    dgate = (dx_tot * y.float()).sum(1)
+    dy = dx_tot * gate.float()[:, None]
+    return (dy.to(y.dtype), dx_tot.to(y.dtype), dgate.to(gate.dtype), dw,
+            dshift.to(scale.dtype), dscale.to(scale.dtype))
+
+
 def _conds(x, *conds):
     """(B, D) conditioning views sharing one row stride (the chunks of the
     adaLN projection), as the kernel reads them; else contiguous copies."""
@@ -74,9 +113,54 @@ def _check(x, w, *rows):
         raise ValueError('the row width must fill whole 16-byte vectors')
 
 
+class _LnModulate(torch.autograd.Function):
+    """Saves x, w and scale (shift's grad needs only dh)."""
+
+    @staticmethod
+    def forward(ctx, x, w, shift, scale):
+        ctx.save_for_backward(x, w, scale)
+        return _ln_modulate_fwd(x, w, shift, scale)
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, w, scale = ctx.saved_tensors
+        return ln_modulate_bwd(x, w, scale, dh)
+
+
+class _GateResLnModulate(torch.autograd.Function):
+    """Saves x' (as rounded), y, gate, w and scale."""
+
+    @staticmethod
+    def forward(ctx, y, skip, gate, w, shift, scale):
+        x_new, h = _gate_res_ln_modulate_fwd(y, skip, gate, w, shift, scale)
+        ctx.save_for_backward(x_new, y, gate, w, scale)
+        return x_new, h
+
+    @staticmethod
+    def backward(ctx, dx, dh):
+        x_new, y, gate, w, scale = ctx.saved_tensors
+        if dx is None:
+            dx = torch.zeros_like(x_new)
+        if dh is None:
+            dh = torch.zeros_like(x_new)
+        return gate_res_ln_modulate_bwd(x_new, y, gate, w, scale, dx, dh)
+
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def ln_modulate(x, w, shift, scale):
-    """h = LN(x) * w * (1 + scale[:, None]) + shift[:, None].
-    x: (B, L, D); w: (D,) float32; shift/scale: (B, D)."""
+    """h = LN(x) * w * (1 + scale[:, None]) + shift[:, None],
+    differentiable in every input. x: (B, L, D); w: (D,) float32;
+    shift/scale: (B, D). Without gradients (sampling) the forward runs
+    as it is, outside autograd."""
+    if _needs_grad(x, w, shift, scale):
+        return _LnModulate.apply(x, w, shift, scale)
+    return _ln_modulate_fwd(x, w, shift, scale)
+
+
+def _ln_modulate_fwd(x, w, shift, scale):
     if x.device.type == 'cpu':
         return ln_modulate_plain(x, w, shift, scale)
     B, L, D = x.shape
@@ -99,8 +183,15 @@ ln_modulate.launches = 0
 
 def gate_res_ln_modulate(y, skip, gate, w, shift, scale):
     """x' = skip + gate[:, None] * y; h = LN(x') * w * (1 + scale[:, None])
-    + shift[:, None]. Returns (x', h), both in y's dtype.
-    y/skip: (B, L, D); gate/shift/scale: (B, D); w: (D,) float32."""
+    + shift[:, None]. Returns (x', h), both in y's dtype, differentiable
+    in every input. y/skip: (B, L, D); gate/shift/scale: (B, D); w: (D,)
+    float32."""
+    if _needs_grad(y, skip, gate, w, shift, scale):
+        return _GateResLnModulate.apply(y, skip, gate, w, shift, scale)
+    return _gate_res_ln_modulate_fwd(y, skip, gate, w, shift, scale)
+
+
+def _gate_res_ln_modulate_fwd(y, skip, gate, w, shift, scale):
     if y.device.type == 'cpu':
         return gate_res_ln_modulate_plain(y, skip, gate, w, shift, scale)
     B, L, D = y.shape
@@ -123,3 +214,85 @@ def gate_res_ln_modulate(y, skip, gate, w, shift, scale):
 
 
 gate_res_ln_modulate.launches = 0
+
+
+_BWD_ROWS = 16          # rows per block of the backward kernels
+
+
+def _bwd_args(x, w, dh, *conds):
+    """Checks shared by the backward kernels; returns (dh, conds,
+    cond_stride, tiles, fp32 workspace) for the launch."""
+    B, L, D = x.shape
+    dh = dh.to(x.dtype).contiguous()
+    _check(x, w, dh)
+    conds, cs = _conds(x, *conds)
+    _build.require_cuda(x, *conds, contiguous=False)
+    if D // (16 // x.element_size()) > 1024:
+        raise ValueError('the adaLN backward kernels take rows of at most '
+                         '1024 16-byte vectors')
+    tiles = -(-L // _BWD_ROWS)
+    ws = torch.empty((3, B, tiles, D), dtype=torch.float32, device=x.device)
+    return dh, conds, cs, tiles, ws
+
+
+def ln_modulate_bwd(x, w, scale, dh):
+    """Backward of `ln_modulate` for the output gradient dh: (dx, dw,
+    dshift, dscale), dx in x's dtype, dw float32, dshift/dscale (B, D)
+    contiguous in scale's dtype. On CUDA tensors one kernel launch (two
+    passes, deterministic)."""
+    if x.device.type == 'cpu':
+        return ln_modulate_bwd_plain(x, w, scale, dh)
+    B, L, D = x.shape
+    dh, (scale,), cs, tiles, ws = _bwd_args(x, w, dh, scale)
+    dx = torch.empty_like(x)
+    dw = torch.empty((D,), dtype=torch.float32, device=x.device)
+    dshift, dscale = (torch.empty((B, D), dtype=x.dtype, device=x.device)
+                      for _ in range(2))
+    fn = _build.kernel('adaln', 'ddg_ln_modulate_bwd',
+                       (_build.ptr,) * 9 + (_build.i32,) * 6 + (_build.ptr,))
+    rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), dh.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(), dshift.data_ptr(),
+            dscale.data_ptr(), ws.data_ptr(), B, L, D, cs, tiles,
+            _DTYPES[x.dtype], _build.stream(x))
+    ln_modulate_bwd.launches += 1
+    _build.check(rc, 'ddg_ln_modulate_bwd')
+    return dx, dw, dshift, dscale
+
+
+ln_modulate_bwd.launches = 0
+
+
+def gate_res_ln_modulate_bwd(x_new, y, gate, w, scale, dx, dh):
+    """Backward of `gate_res_ln_modulate` for the output gradients (dx,
+    dh) of (x', h), from the saved x': (dy, dskip, dgate, dw, dshift,
+    dscale), row grads in y's dtype, dw float32, the (B, D) conditioning
+    grads contiguous in gate's dtype. On CUDA tensors one kernel launch
+    (two passes, deterministic)."""
+    if x_new.device.type == 'cpu':
+        return gate_res_ln_modulate_bwd_plain(x_new, y, gate, w, scale, dx,
+                                              dh)
+    B, L, D = x_new.shape
+    dh, (gate, scale), cs, tiles, ws = _bwd_args(x_new, w, dh, gate, scale)
+    dx = dx.to(x_new.dtype).contiguous()
+    _check(x_new, w, y, dx)
+    if y.dtype != x_new.dtype or y.shape != x_new.shape:
+        raise ValueError("y and x' must share a dtype and a shape")
+    dy, dskip = torch.empty_like(x_new), torch.empty_like(x_new)
+    dw = torch.empty((D,), dtype=torch.float32, device=x_new.device)
+    dgate, dshift, dscale = (torch.empty((B, D), dtype=x_new.dtype,
+                                         device=x_new.device)
+                             for _ in range(3))
+    fn = _build.kernel('adaln', 'ddg_gate_res_ln_modulate_bwd',
+                       (_build.ptr,) * 14 + (_build.i32,) * 6
+                       + (_build.ptr,))
+    rc = fn(x_new.data_ptr(), y.data_ptr(), gate.data_ptr(), w.data_ptr(),
+            scale.data_ptr(), dx.data_ptr(), dh.data_ptr(), dy.data_ptr(),
+            dskip.data_ptr(), dgate.data_ptr(), dw.data_ptr(),
+            dshift.data_ptr(), dscale.data_ptr(), ws.data_ptr(), B, L, D, cs,
+            tiles, _DTYPES[x_new.dtype], _build.stream(x_new))
+    gate_res_ln_modulate_bwd.launches += 1
+    _build.check(rc, 'ddg_gate_res_ln_modulate_bwd')
+    return dy, dskip, dgate, dw, dshift, dscale
+
+
+gate_res_ln_modulate_bwd.launches = 0

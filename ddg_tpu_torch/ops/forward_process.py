@@ -21,8 +21,10 @@ import torch.nn.functional as F
 NEG_INFINITY = -1_000_000.0
 
 
-def _one_hot(idx, n, dtype):
-    return F.one_hot(torch.as_tensor(idx).long(), n).to(dtype)
+def _one_hot(idx: int, n: int, like: torch.Tensor) -> torch.Tensor:
+    """One-hot row of index idx in like's dtype, made on like's device
+    without a copy from the host (which would wait for the card)."""
+    return (torch.arange(n, device=like.device) == idx).to(like.dtype)
 
 
 def sample_t(n: int, *, sampling_eps: float, generator: torch.Generator,
@@ -86,7 +88,7 @@ def subs_parameterization(logits: torch.Tensor, xt: torch.Tensor, *,
     to a (near-)one-hot at x_t; then log_softmax."""
     vocab_size = logits.shape[-1]
     logits = logits + _one_hot(mask_index, vocab_size,
-                               logits.dtype) * NEG_INFINITY
+                               logits) * NEG_INFINITY
     unmasked = (xt != mask_index)[..., None]
     forced = torch.where(F.one_hot(xt.long(), vocab_size).bool(),
                          0.0, NEG_INFINITY).to(logits.dtype)
@@ -115,7 +117,7 @@ def absorbing_posterior(x_theta: torch.Tensor, move_chance_t,
     """q_xs = x_theta * (mct - mcs); q_xs[..., mask] = mcs; then / mct."""
     vocab_size = x_theta.shape[-1]
     q_xs = x_theta * (move_chance_t - move_chance_s)
-    mask_one_hot = _one_hot(mask_index, vocab_size, q_xs.dtype)
+    mask_one_hot = _one_hot(mask_index, vocab_size, q_xs)
     q_xs = q_xs * (1 - mask_one_hot) + mask_one_hot * move_chance_s
     return q_xs / move_chance_t
 
@@ -128,7 +130,7 @@ def absorbing_posterior_log(log_x_theta: torch.Tensor, move_chance_t,
     vocab_size = log_x_theta.shape[-1]
     ratio = move_chance_s / move_chance_t
     out = log_x_theta + torch.log(1.0 - ratio)
-    mask_one_hot = _one_hot(mask_index, vocab_size, torch.bool)
+    mask_one_hot = _one_hot(mask_index, vocab_size, log_x_theta).bool()
     return torch.where(mask_one_hot, torch.log(ratio), out)
 
 

@@ -150,9 +150,16 @@ def test_model_apply_with_other_params(weights, inputs):
         want = m2(torch.from_numpy(x), torch.from_numpy(sigma),
                   torch.from_numpy(cond))
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        apply_fn(apply_fn.params, torch.from_numpy(x),
-                 torch.from_numpy(sigma), train=True)
+    # In train mode (dropout 0.1) the other dict runs with gradients,
+    # which reach every one of its tensors.
+    other = {k: v.detach().clone().requires_grad_()
+             for k, v in other.items()}
+    out = apply_fn(other, torch.from_numpy(x), torch.from_numpy(sigma),
+                   torch.from_numpy(cond), train=True,
+                   rng=torch.Generator().manual_seed(0))
+    assert out.requires_grad and out.shape == want.shape
+    out.sum().backward()
+    assert all(v.grad is not None for v in other.values())
 
 
 def test_state_dict_conversion_matches_export(weights):

@@ -24,6 +24,9 @@ print(json.dumps(bad))
 def test_module_list_covers_the_package():
     assert 'ddg_tpu_torch.samplers' in MODULES
     assert 'ddg_tpu_torch.ops.fused_sampling' in MODULES
+    for name in ('ops.losses', 'runtime.optim', 'runtime.averaging',
+                 'runtime.train_state'):
+        assert f'ddg_tpu_torch.{name}' in MODULES
     assert len(MODULES) >= 15
 
 
