@@ -8,24 +8,37 @@ Each phase prints one JSON line:
      compute capability (sm_90 required);
   2. build: the CUDA sources under ddg_tpu_torch/csrc, compiled with nvcc
      into build/ddg_tpu_torch/ (seconds, ptxas register/spill lines);
-  3. kernels against their plain PyTorch versions on the card, at the
+  3. the UNet flagship (seeded random weights), the (H, W, C, act) of
+     each GroupNorm of its forward and its multiply-accumulates per image,
+     read by hooks; the GroupNorms' count must equal the architecture's
+     (51);
+  4. kernels against their plain PyTorch versions on the card, at the
      shapes of the main paths, in float32 and bfloat16, with the median
-     CUDA-event time of kernel, plain version and (attention, forward and
-     backward) the one PyTorch call that computes the same function; the
-     adaLN backwards also run twice and must give bit-identical grads;
-  4. a tiny DiT on the card against the same weights on the CPU, and a
-     tiny float32 train step (loss, every gradient, and the parameters
-     after one clip + AdamW + EMA update) card against CPU;
-  5. the serving main path at full width: the flagship DiT-small (seeded
+     CUDA-event time of kernel, plain version and (attention forward and
+     backward, GroupNorm) the one PyTorch call that computes the same
+     function; the adaLN backwards and the GroupNorm also run twice and
+     must give bit-identical outputs; the sampling kernels' in-kernel
+     Philox noise is held against the exact distribution by TV;
+  5. a tiny DiT on the card against the same weights on the CPU, a tiny
+     float32 train step (loss, every gradient, and the parameters after
+     one clip + AdamW + EMA update) card against CPU, and a tiny float32
+     UNet (logits and one fused D-CFG step given the same Gumbel noise)
+     card against CPU;
+  6. the serving main path at full width: the flagship DiT-small (seeded
      random weights) serving ancestral D-CFG (gamma=2, T=128, B=24)
      through the feature-mix path, the same with the NFE cache (the CFG
      kernel), and first-hitting D-CFG (B=32); samples/s and kernel
      launches per run;
-  6. the training main path at full width: `entry.train_flagship()` (LM1B
+  7. the training main path at full width: `entry.train_flagship()` (LM1B
      DiT-small MDLM, global batch 512 x 128 as micro-batches), warm-up
      steps, then timed steps: tokens/s, ms/step, peak memory, loss, grad
      norm and the kernel launches per micro-step, which must be exact;
-  7. a learning check at full width: one Zipf-distributed micro-batch,
+  8. the image serving main path at full width and depth:
+     `entry.unet_flagship()` (CIFAR10 UNet UDLM) sampling D-CFG (gamma 2)
+     and unguided, T=128, B=32: samples/s, ms/step, peak memory, exact
+     launches per step (K10 or K9 once, K13 once per GroupNorm) and 0 host
+     syncs per step under PyTorch's sync debug mode;
+  9. a learning check at full width: one Zipf-distributed micro-batch,
      lr 3e-4 without warmup, 30 steps; the mean loss of the last 5 must
      be at least 10% below that of the first 5.
 Then the `kernels` line, the nvidia-smi line, and the result line
@@ -519,6 +532,209 @@ def check_sampling(results):
     return _tv_check(fs)
 
 
+# The UNet path's shapes: CIFAR10 32 x 32 x 3 as 3072 tokens over V=256,
+# B=32 images, 2B=64 under D-CFG.
+UB, UL, UV = 32, 3072, 256
+# SFU results (exp2, log2, rcp) per second: 16 a clock per SM (the CUDA
+# programming guide's throughput table for compute capability 9.0) x 132
+# SMs x 1.98 GHz (H100 SXM boost clock).
+PEAK_SFU = 16 * 132 * 1.98e9
+
+
+def _uniform_inputs(gen, dtype, V, n_logits=2):
+    """Logits as the two halves of one [cond; uncond] tensor, as the main
+    path slices them; alpha(s) > alpha(t)."""
+    both = _rand(gen, n_logits * UB, UL, V, scale=2.0, dtype=dtype)
+    logits = [both[i * UB:(i + 1) * UB] for i in range(n_logits)]
+    xt = torch.randint(0, V, (UB, UL), generator=gen, device=DEV,
+                       dtype=torch.int32)
+    a_t = 0.05 + 0.8 * torch.rand((UB,), generator=gen, device=DEV)
+    a_s = a_t + (1 - a_t) * torch.rand((UB,), generator=gen, device=DEV)
+    return logits, xt, a_t, a_s
+
+
+def _uniform_token_check(name, out, ref, scores, vocab):
+    """Identical tokens where the top-two perturbed scores differ by more
+    than MARGIN; every token inside the vocabulary. Returns the tokens
+    that differ there and the tokens compared."""
+    top2 = scores.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > MARGIN
+    bad = int(((out != ref) & decided).sum().item())
+    check(bad == 0, f'{name}: {bad} tokens differ where the margin > '
+                    f'{MARGIN}')
+    check(bool(((out >= 0) & (out < vocab)).all()),
+          f'{name}: token outside the vocabulary')
+    return bad, int(decided.sum().item())
+
+
+def _uniform_cases(fs, seed, xt, lc, lu, a_t, a_s, vocab, g):
+    """(name, kernel call, plain call, scores) of K9 and K10."""
+    kw = dict(vocab_size=vocab, gumbel=g)
+    return (
+        ('fused_uniform_sample',
+         lambda: fs.fused_uniform_sample(seed, xt, lc, a_t, a_s, **kw),
+         lambda: fs.fused_uniform_sample_plain(seed, xt, lc, a_t, a_s, **kw),
+         lambda: fs.uniform_perturbed_scores(
+             seed, fs.uniform_log_num(lc, xt, a_t, a_s, vocab_size=vocab),
+             **kw)),
+        ('fused_uniform_cfg_sample',
+         lambda: fs.fused_uniform_cfg_sample(seed, xt, lc, lu, GAMMA, a_t,
+                                             a_s, **kw),
+         lambda: fs.fused_uniform_cfg_sample_plain(seed, xt, lc, lu, GAMMA,
+                                                   a_t, a_s, **kw),
+         lambda: fs.uniform_perturbed_scores(
+             seed, fs.uniform_cfg_log_num(lc, lu, GAMMA, xt, a_t, a_s,
+                                          vocab_size=vocab), **kw)))
+
+
+def _uniform_tv_check(fs):
+    """Internal-RNG draws of K9/K10 against their exact distribution at a
+    small V (columns past the vocabulary included): TV below twice the
+    binomial floor."""
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    Bt, Lt, Vt, vocab = 64, 1024, 20, 16
+    n = Bt * Lt
+    row_c = torch.randn((Vt,), generator=gen, device=DEV)
+    row_u = torch.randn((Vt,), generator=gen, device=DEV)
+    lc = row_c.expand(Bt, Lt, Vt).contiguous()
+    lu = row_u.expand(Bt, Lt, Vt).contiguous()
+    xt = torch.full((Bt, Lt), 3, dtype=torch.int32, device=DEV)
+    a_t = torch.full((Bt,), 0.3, device=DEV)
+    a_s = torch.full((Bt,), 0.6, device=DEV)
+    out = {}
+    for name, call, log_q in (
+            ('fused_uniform_sample',
+             lambda: fs.fused_uniform_sample(1234, xt, lc, a_t, a_s,
+                                             vocab_size=vocab),
+             fs.uniform_log_num(lc[:1, :1], xt[:1, :1], a_t[:1], a_s[:1],
+                                vocab_size=vocab)),
+            ('fused_uniform_cfg_sample',
+             lambda: fs.fused_uniform_cfg_sample(
+                 4321, xt, lc, lu, GAMMA, a_t, a_s, vocab_size=vocab),
+             fs.uniform_cfg_log_num(lc[:1, :1], lu[:1, :1], GAMMA, xt[:1, :1],
+                                    a_t[:1], a_s[:1], vocab_size=vocab))):
+        q = torch.softmax(log_q.flatten().double(), -1)
+        hist = torch.bincount(call().flatten().long(),
+                              minlength=Vt).double() / n
+        tv = 0.5 * (hist - q).abs().sum().item()
+        floor = 0.5 * torch.sqrt(2 * q * (1 - q) / (math.pi * n)).sum().item()
+        check(tv < 2 * floor, f'{name} internal RNG: TV {tv} >= 2 x floor '
+                              f'{floor}')
+        out[name] = {'tv': tv, 'floor': floor, 'draws': n}
+    return out
+
+
+def check_uniform(results):
+    """K9/K10 against their plain versions with the same noise at the main
+    path's shape (and at a V that is not a multiple of 8, with columns past
+    the vocabulary), timed with the in-kernel generator."""
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    for V, vocab in ((UV, UV), (250, 243)):
+        for dtype in (torch.float32, torch.bfloat16):
+            (lc, lu), xt, a_t, a_s = _uniform_inputs(gen, dtype, V)
+            g = -torch.log(-torch.log(
+                torch.rand((UB, UL, V), generator=gen, device=DEV)
+                .clamp_min(1e-20)))
+            for name, call, plain, scores in _uniform_cases(
+                    fs, 7, xt, lc, lu, a_t, a_s, vocab, g):
+                bad, n_cmp = _uniform_token_check(
+                    f'{name} V={V} {dtype}', call(), plain(), scores(), vocab)
+                if V == UV:
+                    results[name][str(dtype)] = {'err': bad,
+                                                 'compared_tokens': n_cmp}
+            del g
+            if V != UV or dtype != torch.bfloat16:
+                continue
+            seed = torch.tensor([11], dtype=torch.int32, device=DEV)
+            es = 2
+            for name, call, plain, _ in _uniform_cases(
+                    fs, seed, xt, lc, lu, a_t, a_s, vocab, None):
+                rec = results[name][str(dtype)]
+                rec['ms'] = time_ms(call)
+                rec['plain_ms'] = time_ms(plain, reps=10)
+                n_in = 2 if 'cfg' in name else 1
+                # Bytes: the logits, xt in and the tokens out. Operations:
+                # per logit one exp (a lane keeps its V / 32 values in
+                # registers, so exp(z - max) serves the sum and the
+                # probability, times 1 / sum) and one log of the numerator
+                # for each logits tensor, and the two logs of the Gumbel
+                # draw, on the SFU (about 12 other fp32 operations per
+                # logit each stay far under the fp32 rate).
+                rec['bound_ms'], rec['bound_by'] = bound(
+                    n_in * UB * UL * V * es + 2 * UB * UL * 4 + 8 * UB,
+                    (2 * n_in + 2) * UB * UL * V, PEAK_SFU)
+    return _uniform_tv_check(fs)
+
+
+def check_groupnorm(results, norms):
+    """K13 against its plain version at every (HW, C, act) of one UNet
+    forward (`norms`: {(H, W, C, act): count}), bf16 in and fp32 out, at
+    N=64 (D-CFG) and N=32; the other three dtype pairs at one shape. The times
+    are sums over one D-CFG forward's norms (N=64), each shape weighted by
+    its count; the library yardstick is F.group_norm without the SiLU, on
+    the NCHW view of the same channels-last input (bf16 out)."""
+    import torch.nn.functional as F
+    from ddg_tpu_torch.ops import groupnorm as gn
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    rec = {'err': 0.0, 'tol': FP32_TOL, 'ms': 0.0, 'plain_ms': 0.0,
+           'library_ms': 0.0, 'shapes': []}
+    nbytes = 0
+    for (Hh, Ww, C, act), count in sorted(norms.items()):
+        G = min(C // 4, 32)
+        scale = 1.0 + _rand(gen, C, scale=0.2)
+        bias = _rand(gen, C, scale=0.2)
+        for N in (2 * UB, UB):
+            x = (0.3 + 2.0 * torch.randn((N, Hh, Ww, C), generator=gen,
+                                         device=DEV)).to(torch.bfloat16)
+            kw = dict(num_groups=G, eps=1e-6, act=act,
+                      out_dtype=torch.float32)
+            out = gn.fused_group_norm_act(x, scale, bias, **kw)
+            ref = gn.fused_group_norm_act_plain(x, scale, bias, **kw)
+            err, _ = _close(f'fused_group_norm_act {(N, Hh, Ww, C, act)}',
+                            torch.float32, out, ref)
+            rec['err'] = max(rec['err'], err)
+            if N != 2 * UB:
+                continue
+            again = gn.fused_group_norm_act(x, scale, bias, **kw)
+            check(torch.equal(out, again),
+                  f'fused_group_norm_act {(N, Hh, Ww, C)}: a rerun is not '
+                  'bit-identical')
+            ms = time_ms(lambda: gn.fused_group_norm_act(x, scale, bias, **kw))
+            plain_ms = time_ms(
+                lambda: gn.fused_group_norm_act_plain(x, scale, bias, **kw),
+                reps=10)
+            xc = x.permute(0, 3, 1, 2)
+            sb, bb = scale.to(x.dtype), bias.to(x.dtype)
+            lib_ms = time_ms(lambda: F.group_norm(xc, G, sb, bb, 1e-6))
+            rec['ms'] += count * ms
+            rec['plain_ms'] += count * plain_ms
+            rec['library_ms'] += count * lib_ms
+            nbytes += count * (N * Hh * Ww * C * (2 + 4) + 2 * C * 4)
+            rec['shapes'].append({'N': N, 'H': Hh, 'W': Ww, 'C': C,
+                                  'act': act, 'count': count, 'ms': ms,
+                                  'plain_ms': plain_ms, 'library_ms': lib_ms})
+    # The other dtypes, at the largest shape: fp32 in with fp32 or bf16
+    # out, and bf16 in and out (norm_dtype=bf16).
+    x32 = torch.randn((UB, 32, 32, 384), generator=gen, device=DEV)
+    scale, bias = 1.0 + _rand(gen, 384, scale=0.2), _rand(gen, 384, scale=0.2)
+    for in_dtype, out_dtype in ((torch.float32, torch.float32),
+                                (torch.float32, torch.bfloat16),
+                                (torch.bfloat16, torch.bfloat16)):
+        x = x32.to(in_dtype)
+        kw = dict(num_groups=32, act=True, out_dtype=out_dtype)
+        _close(f'fused_group_norm_act {in_dtype} in, {out_dtype} out',
+               out_dtype, gn.fused_group_norm_act(x, scale, bias, **kw),
+               gn.fused_group_norm_act_plain(x, scale, bias, **kw))
+    # Read once and write once per norm; about 10 fp32 operations per
+    # element (stats, normalize, SiLU), under the fp32 rate.
+    n_elem = nbytes / 6
+    rec['bound_ms'], rec['bound_by'] = bound(nbytes, 10 * n_elem, PEAK_FP32)
+    rec['ms_covers'] = (f'{sum(norms.values())} launches, one D-CFG '
+                        f'forward at N={2 * UB}')
+    results['fused_group_norm_act'][str(torch.bfloat16)] = rec
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the model
 # ---------------------------------------------------------------------------
@@ -707,7 +923,8 @@ PER_MICRO_STEP = {'fused_rope_attention': 12, 'fused_rope_attention_bwd': 12,
                   'ln_modulate': 13, 'ln_modulate_bwd': 13,
                   'gate_res_ln_modulate': 12, 'gate_res_ln_modulate_bwd': 12,
                   'fused_absorbing_sample': 0,
-                  'fused_absorbing_cfg_sample': 0}
+                  'fused_absorbing_cfg_sample': 0, 'fused_uniform_sample': 0,
+                  'fused_uniform_cfg_sample': 0, 'fused_group_norm_act': 0}
 
 
 def run_train_path(kernels, warmup=2, steps=5):
@@ -802,6 +1019,198 @@ def check_learning(micro_steps=30):
                                f'{last}, less than 10%')
 
 
+# ---------------------------------------------------------------------------
+# The UNet serving path: CIFAR10 UDLM with D-CFG
+# ---------------------------------------------------------------------------
+
+def expected_norms(cfg):
+    """GroupNorms of one UNet forward, counted from the architecture: two
+    per ResBlock (num_res_blocks per scale down, one more per scale up, two
+    in the middle), one per AttnBlock (at one scale down and up, one in
+    the middle) and norm_out."""
+    res = cfg.num_scales * (2 * cfg.num_res_blocks + 1) + 2
+    attn = 2 * cfg.num_res_blocks + 2
+    return 2 * res + attn + 1
+
+
+def unet_forward_census(model, cfg):
+    """What one forward of one image runs, read by hooks during a B=1
+    forward: {(H, W, C, act): count} of the GroupNorms (GNorm modules), and
+    the multiply-accumulates of the convs (counted in the model's `_conv`),
+    the dense and 1x1 projections and the attention products."""
+    from ddg_tpu_torch.models import unet as U
+    norms, macs = {}, [0]
+
+    def on_norm(mod, args):
+        key = (*args[0].shape[1:], mod.act)
+        norms[key] = norms.get(key, 0) + 1
+
+    def conv(mod, x, **kw):          # the model's convs go through _conv
+        out = plain_conv(mod, x, **kw)
+        macs[0] += out.numel() * mod.in_channels * mod.kernel_size[0] \
+            * mod.kernel_size[1]
+        return out
+
+    def on_dense(mod, args, out):
+        macs[0] += out.numel() * args[0].shape[-1]
+
+    def on_attn(mod, args):
+        _, Hh, Ww, C = args[0].shape
+        macs[0] += 2 * (Hh * Ww) ** 2 * C          # QK^T and PV
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, U.GNorm):
+            hooks.append(m.register_forward_pre_hook(on_norm))
+        elif isinstance(m, (torch.nn.Linear, U.NiN)):
+            hooks.append(m.register_forward_hook(on_dense))
+        elif isinstance(m, U.AttnBlock):
+            hooks.append(m.register_forward_pre_hook(on_attn))
+    L_img = cfg.input_channels * cfg.image_size ** 2
+    plain_conv, U._conv = U._conv, conv
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1, L_img), dtype=torch.int32, device=DEV),
+                  torch.ones((1,), device=DEV),
+                  torch.zeros((1,), dtype=torch.int32, device=DEV))
+    finally:
+        U._conv = plain_conv
+        for h in hooks:
+            h.remove()
+    return norms, macs[0]
+
+
+def check_tiny_unet():
+    """A tiny float32 UNet (fused GroupNorm on) on the card against the same
+    weights on the CPU, and one fused D-CFG step (gamma 2) from the same
+    x_t, sigma and Gumbel noise composed as the sampler composes it: the
+    trunk's output to 1e-4, the logits to the CPU tests' bar (1e-3 abs +
+    5e-3 relative: the logistic head's tail cancels), the tokens identical
+    where the CPU's top-two perturbed scores differ by more than MARGIN."""
+    import dataclasses
+    import numpy as np
+    from ddg_tpu_torch import samplers as SM
+    from ddg_tpu_torch.convert import make_unet_state_dict
+    from ddg_tpu_torch.entry import unet_flagship
+    from ddg_tpu_torch.models import UNet, make_model_apply
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    spec, cfg, _, _, _ = unet_flagship(tiny=True, device='cpu')
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(5)
+    sd = {k: v + 0.05 * torch.randn(v.shape, generator=gen)
+          for k, v in make_unet_state_dict(
+              UNet(cfg), np.random.RandomState(3)).items()}
+    Bt, Lt, Vt = 2, 3 * cfg.image_size ** 2, cfg.vocab_size
+    xt = torch.randint(0, Vt, (Bt, Lt), generator=gen, dtype=torch.int32)
+    sigma = 0.1 + 2 * torch.rand((Bt,), generator=gen)
+    cond = torch.tensor([3, 8], dtype=torch.int32)
+    null = torch.full_like(cond, cfg.num_classes)
+    mct = 1 - torch.exp(-sigma)
+    mcs = 0.6 * mct
+    g = -torch.log(-torch.log(torch.rand((Bt, Lt, Vt), generator=gen)
+                              .clamp_min(1e-20)))
+    outs = {}
+    for dev in ('cpu', DEV):
+        m = UNet(cfg)
+        m.load_state_dict(sd, strict=True)
+        apply = make_model_apply(m.to(dev).eval())
+        args = [t.to(dev) for t in (xt, sigma, cond)]
+        logits, hidden = apply(apply.params, *args, return_hidden_states=True)
+        x2, s2, c2 = (torch.cat([a, b]).to(dev) for a, b in (
+            (xt, xt), (sigma, sigma), (cond, null)))
+        raw = SM._raw_logits(spec, apply, apply.params, x2, s2, c2)
+        tok = fs.fused_uniform_cfg_sample(
+            7, x2[:Bt], raw[:Bt], raw[Bt:], GAMMA, (1 - mct).to(dev),
+            (1 - mcs).to(dev), vocab_size=Vt, gumbel=g.to(dev))
+        outs[dev] = [t.cpu() for t in (logits, hidden, raw, tok)]
+    (l_c, h_c, raw_c, tok_c), (l_d, h_d, _, tok_d) = outs['cpu'], outs[DEV]
+    check(bool(torch.isfinite(l_d).all()), 'tiny UNet: non-finite logits')
+    h_err = (h_c - h_d).abs().max().item()
+    check(h_err <= 1e-4, f'tiny UNet: trunk output differs by {h_err}')
+    excess = ((l_c - l_d).abs() - 5e-3 * l_c.abs()).max().item()
+    check(excess <= 1e-3, f'tiny UNet: logits beyond the bar by {excess}')
+    scores = fs.uniform_perturbed_scores(
+        7, fs.uniform_cfg_log_num(raw_c[:Bt], raw_c[Bt:], GAMMA, xt, 1 - mct,
+                                  1 - mcs, vocab_size=Vt),
+        vocab_size=Vt, gumbel=g)
+    _, n_cmp = _uniform_token_check('tiny UNet fused D-CFG step', tok_d,
+                                    tok_c, scores, Vt)
+    emit({'phase': 'tiny_unet_card_vs_cpu', 'trunk_max_abs_err': h_err,
+          'logits_max_abs_err': (l_c - l_d).abs().max().item(),
+          'logit_std': l_c.std().item(), 'step_tokens_compared': n_cmp,
+          'step_tokens_equal': int((tok_c == tok_d).sum().item()),
+          'step_tokens': tok_c.numel()})
+
+
+def run_unet_path(kernels, flag, n_norms, steps=128):
+    """The UNet main path at full width and depth: D-CFG (gamma 2) and
+    unguided ancestral sampling, T=128, B=32, with exact launches per step
+    and host syncs per step counted under PyTorch's sync debug mode."""
+    from ddg_tpu_torch import samplers as SM
+    spec, cfg, _, apply_fn, params = flag
+    L_img = cfg.input_channels * cfg.image_size ** 2
+    cond = torch.zeros((UB,), dtype=torch.int32, device=DEV)
+    runs = [
+        ('dcfg', SM.GuidanceSpec(method='cfg', gamma=GAMMA),
+         {'fused_uniform_cfg_sample': 1, 'fused_group_norm_act': n_norms}),
+        ('unguided', None,
+         {'fused_uniform_sample': 1, 'fused_group_norm_act': n_norms}),
+    ]
+
+    def sample(guidance, n_steps, seed):
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        kw = {} if guidance is None else {'guidance': guidance, 'cond': cond}
+        return SM.diffusion_sample(
+            spec, SM.SamplerSpec(steps=n_steps, use_cache=False, fused=True),
+            apply_fn, params, gen, batch_size=UB, length=L_img, **kw)
+
+    for _, guidance, _ in runs:          # cuDNN's algorithm choice, outside
+        sample(guidance, 2, 99)          # the counts
+    totals = {name: 0 for name in kernels}
+    for i, (name, guidance, per_step) in enumerate(runs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        x = sample(guidance, steps, i)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        for k in kernels:
+            totals[k] += launches[k]
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                sample(guidance, 2, 98)
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+        syncs = [str(w.message) for w in syncs
+                 if 'called a synchronizing' in str(w.message)]
+        hist = torch.bincount(x.flatten().long(), minlength=cfg.vocab_size)
+        emit({'phase': 'unet_main_path', 'run': name, 'batch': UB,
+              'steps': steps, 'seconds': secs, 'samples_per_s': UB / secs,
+              'ms_per_step': secs / steps * 1e3, 'peak_memory_bytes': peak,
+              'launches': launches,
+              'launches_per_step': {k: v / steps for k, v in launches.items()
+                                    if v},
+              'host_syncs_per_step': len(syncs) / 2,
+              'distinct_tokens': int((hist > 0).sum().item()),
+              'top_token_share': (hist.max() / x.numel()).item()})
+        check(tuple(x.shape) == (UB, L_img) and x.dtype == torch.int32,
+              f'unet {name}: output {tuple(x.shape)} {x.dtype}')
+        check(bool(((x >= 0) & (x < cfg.vocab_size)).all()),
+              f'unet {name}: token outside [0, {cfg.vocab_size})')
+        for k in kernels:
+            want = per_step.get(k, 0) * steps
+            check(launches[k] == want, f'unet {name}: {k} launched '
+                                       f'{launches[k]} times, expected {want}')
+        check(not syncs, f'unet {name}: the loop synchronises with the card: '
+                         f'{syncs[:3]}')
+    return totals
+
+
 SOURCES = {
     'fused_rope_attention': ('ddg_tpu_torch/csrc/rope_attention.cu',
                              'ddg_tpu/ops/attention_pallas.py:215'),
@@ -820,6 +1229,13 @@ SOURCES = {
                         'ddg_tpu/ops/adaln_pallas.py:149'),
     'gate_res_ln_modulate_bwd': ('ddg_tpu_torch/csrc/adaln.cu',
                                  'ddg_tpu/ops/adaln_pallas.py:234'),
+    # K9 and K10 reach pl.pallas_call through _uniform_call.
+    'fused_uniform_sample': ('ddg_tpu_torch/csrc/uniform_sample.cu',
+                             'ddg_tpu/ops/fused_sampling.py:398'),
+    'fused_uniform_cfg_sample': ('ddg_tpu_torch/csrc/uniform_sample.cu',
+                                 'ddg_tpu/ops/fused_sampling.py:398'),
+    'fused_group_norm_act': ('ddg_tpu_torch/csrc/groupnorm.cu',
+                             'ddg_tpu/ops/groupnorm_pallas.py:89'),
 }
 
 
@@ -830,7 +1246,8 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from ddg_tpu_torch.ops import adaln, attention
+    from ddg_tpu_torch.entry import unet_flagship
+    from ddg_tpu_torch.ops import adaln, attention, groupnorm
     from ddg_tpu_torch.ops import fused_sampling as fs
     kernels = {
         'fused_rope_attention': attention.fused_rope_attention,
@@ -841,23 +1258,46 @@ def main():
         'fused_rope_attention_bwd': attention.fused_rope_attention_bwd,
         'ln_modulate_bwd': adaln.ln_modulate_bwd,
         'gate_res_ln_modulate_bwd': adaln.gate_res_ln_modulate_bwd,
+        'fused_uniform_sample': fs.fused_uniform_sample,
+        'fused_uniform_cfg_sample': fs.fused_uniform_cfg_sample,
+        'fused_group_norm_act': groupnorm.fused_group_norm_act,
     }
 
     phase_environment()
     phase_build()
 
+    t0 = time.perf_counter()
+    unet = unet_flagship(device=DEV)
+    unet_cfg = unet[1]
+    norms, macs = unet_forward_census(unet[2], unet_cfg)
+    n_norms = sum(norms.values())
+    emit({'phase': 'unet_flagship', 'seconds': time.perf_counter() - t0,
+          'parameters': sum(p.numel() for p in unet[4].values()),
+          'ch': unet_cfg.ch, 'ch_mult': list(unet_cfg.ch_mult),
+          'num_res_blocks': unet_cfg.num_res_blocks,
+          'image_size': unet_cfg.image_size, 'vocab': unet_cfg.vocab_size,
+          'macs_per_image': macs, 'norms_per_forward': n_norms,
+          'norm_shapes': [[*k, v] for k, v in sorted(norms.items())]})
+    check(n_norms == expected_norms(unet_cfg),
+          f'the UNet runs {n_norms} GroupNorms a forward, the architecture '
+          f'{expected_norms(unet_cfg)}')
+
     results = {name: {} for name in kernels}
     check_adaln(results)
     check_attention(results)
     tv = check_sampling(results)
+    tv.update(check_uniform(results))
+    check_groupnorm(results, norms)
     check_adaln_bwd(results)
     check_attention_bwd(results)
     emit({'phase': 'kernels_vs_plain', 'results': results,
           'internal_rng': tv})
     check_tiny_dit()
     check_tiny_train()
+    check_tiny_unet()
     by_path = {'serving': run_main_path(kernels),
-               'training': run_train_path(kernels)}
+               'training': run_train_path(kernels),
+               'unet_serving': run_unet_path(kernels, unet, n_norms)}
     check_learning()
 
     rows = []
@@ -874,6 +1314,8 @@ def main():
                      'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                      'bound_by': r['bound_by'],
                      'library_ms': r.get('library_ms')})
+        if 'ms_covers' in r:
+            rows[-1]['ms_covers'] = r['ms_covers']
     emit({'phase': 'done', 'seconds': time.perf_counter() - t_start})
     emit({'kernels': rows})
     print(nvidia_smi(), flush=True)

@@ -1,5 +1,5 @@
 """Weights carried into the port's `DIT` (port of
-`ddg_tpu/convert.py:136-218`).
+`ddg_tpu/convert.py:136-218`) and `UNet`.
 
 `dit_state_dict_from_jax` turns a `ddg_tpu` DIT params tree (numpy
 arrays, flax names) into a state dict in the reference torch naming,
@@ -19,10 +19,20 @@ Name mapping (flax -> reference torch):
   output_linear                   -> output_layer.linear
   final_adaLN                     -> output_layer.adaLN_modulation
 Flax Dense kernels are (in, out); torch Linear weights (out, in).
+
+`unet_state_dict_from_jax` turns a `ddg_tpu` UNet params tree into the
+state dict of `ddg_tpu_torch.models.unet.UNet`, whose submodules carry
+the flax names (no reference torch UNet checkpoint exists), with layout
+transposes only: conv kernels (kh, kw, in, out) -> (out, in, kh, kw),
+Dense kernels (in, out) -> Linear (out, in), Embed tables, NiN `W` (in,
+out) and `b`, and GroupNorm `scale`/`bias` as they are.
+`make_unet_state_dict` makes seeded random weights from the JAX
+initializers.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
@@ -109,3 +119,61 @@ def make_reference_dit_state_dict(rng: np.random.RandomState, *,
     s['output_layer.adaLN_modulation.weight'] = r(2 * hidden, cond_dim)
     s['output_layer.adaLN_modulation.bias'] = r(2 * hidden)
     return {k: torch.from_numpy(v) for k, v in s.items()}
+
+
+def unet_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """`ddg_tpu` UNet params (nested dict of arrays) -> float32 torch state
+    dict in the port's (flax) naming."""
+    s: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for name, val in tree.items():
+            if isinstance(val, dict):
+                walk(val, prefix + name + '.')
+                continue
+            a = np.asarray(val, dtype=np.float32)
+            if name == 'kernel':
+                name = 'weight'
+                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            elif name == 'embedding':
+                name = 'weight'
+            s[prefix + name] = torch.from_numpy(np.ascontiguousarray(a))
+
+    walk(params, '')
+    return s
+
+
+def make_unet_state_dict(model: torch.nn.Module, rng: np.random.RandomState
+                         ) -> Dict[str, torch.Tensor]:
+    """Seeded random float32 weights for `model` (a port `UNet`), drawn as
+    the JAX module initialises them: NiN `W` from variance_scaling(0.1,
+    fan_avg, uniform), the attention `out` projection at scale 1e-10;
+    convs and denses lecun_normal (truncated normal); the class table
+    normal with variance 1 / width; GroupNorm scales one; biases zero."""
+    def lecun(shape, fan_in):
+        """Normal truncated at two standard deviations, rescaled to
+        variance 1 / fan_in."""
+        a = rng.standard_normal(shape)
+        out = np.abs(a) > 2
+        while out.any():
+            a[out] = rng.standard_normal(int(out.sum()))
+            out = np.abs(a) > 2
+        return a * (math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+    s = {}
+    for name, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if name.endswith('.W'):
+            scale = 1e-10 if name.endswith('out.W') else 0.1
+            limit = math.sqrt(3 * scale / ((shape[0] + shape[1]) / 2))
+            a = rng.uniform(-limit, limit, shape)
+        elif name == 'cond_map.weight':
+            a = rng.standard_normal(shape) / math.sqrt(shape[1])
+        elif name.endswith('.weight'):
+            a = lecun(shape, int(np.prod(shape[1:])))
+        elif name.endswith('.scale'):
+            a = np.ones(shape)
+        else:
+            a = np.zeros(shape)
+        s[name] = torch.from_numpy(a.astype(np.float32))
+    return s

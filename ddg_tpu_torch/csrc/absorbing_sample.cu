@@ -40,38 +40,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -1e30f;
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
-__device__ __forceinline__ float gumbel_from_bits(unsigned bits) {
-  const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f) + 1e-10f;
-  return -logf(-logf(u));
-}
-
-// Online (max, sum of exp) pair: merge b into a.
-__device__ __forceinline__ void merge_ms(float& m, float& s, float m2, float s2) {
-  const float mx = fmaxf(m, m2);
-  s = s * expf(m - mx) + s2 * expf(m2 - mx);
-  m = mx;
-}
-
-// Argmax pair: keep (v2, i2) if larger, or equal with a lower index.
-__device__ __forceinline__ void merge_arg(float& v, int& i, float v2, int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
-
 template <typename T, bool kCfg>
 __device__ __forceinline__ float mixed(const T* lc, const T* lu, int v, float gamma, float omg) {
   const float c = ddg::to_f32(lc[v]);
@@ -112,12 +80,7 @@ __global__ void __launch_bounds__(kThreads)
       s += expf(z - m);
     }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
-    const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
-    merge_ms(m, s, m2, s2);
-  }
+  ddg::warp_merge_ms(m, s);
   if (lane == 0) {
     sh_a[warp] = m;
     sh_b[warp] = s;
@@ -125,7 +88,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   m = sh_a[0];
   s = sh_b[0];
-  for (int w = 1; w < kWarps; ++w) merge_ms(m, s, sh_a[w], sh_b[w]);
+  for (int w = 1; w < kWarps; ++w) ddg::merge_ms(m, s, sh_a[w], sh_b[w]);
   const float lse = m + logf(s);
   const float log_move = logf(mct[b] - mcs[b]);
   const float log_stay = logf(mcs[b]);
@@ -138,7 +101,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int v0 = threadIdx.x * 4; v0 < V; v0 += kThreads * 4) {
     unsigned bits[4] = {0u, 0u, 0u, 0u};
     if (!kExternal) {
-      const uint4 r = philox4x32_10(
+      const uint4 r = ddg::philox4x32_10(
           make_uint4(static_cast<unsigned>(v0 >> 2), static_cast<unsigned>(l),
                      static_cast<unsigned>(b), 0u),
           key);
@@ -152,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
                            ? log_stay
                            : __fadd_rn(__fsub_rn(mixed<T, kCfg>(lc, lu, v, gamma, omg), lse),
                                        log_move);
-      const float g = kExternal ? g_row[v] : gumbel_from_bits(bits[c]);
+      const float g = kExternal ? g_row[v] : ddg::gumbel_from_bits(bits[c]);
       const float score = __fadd_rn(lq, g);
       if (score > best) {
         best = score;
@@ -160,12 +123,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float v2 = __shfl_xor_sync(0xffffffffu, best, o);
-    const int i2 = __shfl_xor_sync(0xffffffffu, best_i, o);
-    merge_arg(best, best_i, v2, i2);
-  }
+  ddg::warp_argmax(best, best_i);
   __syncthreads();  // sh_a is reused
   if (lane == 0) {
     sh_a[warp] = best;
@@ -173,7 +131,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < kWarps; ++w) merge_arg(best, best_i, sh_a[w], sh_i[w]);
+    for (int w = 1; w < kWarps; ++w) ddg::merge_arg(best, best_i, sh_a[w], sh_i[w]);
     out[row] = best_i;
   }
 }

@@ -1,5 +1,6 @@
 // Helpers shared by the ddg_tpu_torch kernels: 16-byte vector loads and
-// stores of fp32 / bf16 rows as fp32 registers, and block reductions.
+// stores of fp32 / bf16 rows as fp32 registers, warp reductions, and the
+// sampling kernels' Philox generator, Gumbel noise and argmax merge.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -76,6 +77,64 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Philox4x32-10 (Salmon et al., SC'11): one call gives four 32-bit words
+// for the counter c under the key k.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += 0x9E3779B9u;
+    k.y += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// Standard Gumbel noise from 32 random bits, as the TPU kernels' _gumbel
+// builds it: the top 24 bits give u = top24 / 2^24 + 1e-10, then
+// g = -log(-log(u)).
+__device__ __forceinline__ float gumbel_from_bits(unsigned bits) {
+  const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f) + 1e-10f;
+  return -logf(-logf(u));
+}
+
+// Online (max, sum of exp) pair: merge (m2, s2) into (m, s).
+__device__ __forceinline__ void merge_ms(float& m, float& s, float m2, float s2) {
+  const float mx = fmaxf(m, m2);
+  s = s * expf(m - mx) + s2 * expf(m2 - mx);
+  m = mx;
+}
+
+// merge_ms over the warp; every lane ends with the result.
+__device__ __forceinline__ void warp_merge_ms(float& m, float& s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+    const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
+    merge_ms(m, s, m2, s2);
+  }
+}
+
+// Argmax pair: keep (v2, i2) if larger, or equal with a lower index.
+__device__ __forceinline__ void merge_arg(float& v, int& i, float v2, int i2) {
+  if (v2 > v || (v2 == v && i2 < i)) {
+    v = v2;
+    i = i2;
+  }
+}
+
+// Argmax over the warp, the lowest index winning ties; every lane ends
+// with the result.
+__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
+    const int i2 = __shfl_xor_sync(0xffffffffu, i, o);
+    merge_arg(v, i, v2, i2);
+  }
 }
 
 }  // namespace ddg

@@ -21,6 +21,20 @@ weight decay, clip 1.0) with 2500 warmup steps, EMA 0.9999, and a global
 batch of 512 x 128 tokens as micro-batches of TRAIN_MICRO_BATCH. Until the LM1B data is in the repository, batches are
 synthetic tokens drawn uniformly over [0, V-1) (`TrainRun.batch`).
 
+`unet_flagship()` builds the image serving configuration, the JAX bench's
+CIFAR10 UDLM cell (`bench.py:626-683`, trained by
+`scripts/train_cifar10_unet_guidance.sh`): the UNet with ch 128, 2 res
+blocks a scale, 4 scales of `ch_mult` (1, 2, 2, 2), attention at 16 x 16,
+32 x 32 x 3 images as 3072 tokens over V=256 pixel values, 10 classes + the
+null class, dropout 0, a bf16 trunk with fp32 GroupNorm outputs through
+the Hopper GroupNorm kernel (`fused_norm=True`); uniform-state D3PM with the
+log-linear schedule, no mask token. Sigma conditions the model
+(`time_conditioning=True`, as the reference CIFAR run trains it;
+`bench.py` leaves the spec's default, which zeroes sigma, for the same
+compute). The weights are seeded random ones drawn as the JAX module
+initialises them (`convert.make_unet_state_dict`) until a CIFAR10
+checkpoint is in the repository.
+
 All run on the card unless the caller passes `device='cpu'`.
 """
 
@@ -31,9 +45,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from ddg_tpu_torch.convert import make_reference_dit_state_dict
+from ddg_tpu_torch.convert import (make_reference_dit_state_dict,
+                                   make_unet_state_dict)
 from ddg_tpu_torch.diffusion import DiffusionSpec, log_x_theta
-from ddg_tpu_torch.models import DIT, DITConfig, make_model_apply
+from ddg_tpu_torch.models import (DIT, DITConfig, UNet, UNetConfig,
+                                  make_model_apply)
 from ddg_tpu_torch.ops.noise_schedules import LogLinearNoise
 from ddg_tpu_torch.runtime.averaging import AveragingSpec
 from ddg_tpu_torch.runtime.optim import OptimSpec
@@ -77,6 +93,32 @@ def flagship(tiny: bool = False, device=None, *, seed: int = 0):
         np.random.RandomState(seed), hidden=cfg.hidden_size,
         cond_dim=cfg.cond_dim, n_blocks=cfg.n_blocks,
         vocab=cfg.vocab_size, with_cond=True), strict=True)
+    model = model.to(device).eval()
+    apply_fn = make_model_apply(model)
+    return spec, cfg, model, apply_fn, apply_fn.params
+
+
+def unet_flagship(tiny: bool = False, device=None, *, seed: int = 0):
+    """Returns (spec, cfg, model, model_apply, params) on `device`. `tiny`
+    is `bench.py --unet --quick`'s model: ch 16, one res block, 2 scales,
+    8 x 8 images (L=192)."""
+    device = resolve_device(device)
+    if tiny:
+        cfg = UNetConfig(ch=16, num_res_blocks=1, num_scales=2,
+                         ch_mult=(1, 1), image_size=8)
+    else:
+        cfg = UNetConfig(ch=128, num_res_blocks=2, num_scales=4,
+                         ch_mult=(1, 2, 2, 2), image_size=32)
+    cfg = dataclasses.replace(cfg, num_classes=10, dropout=0.0,
+                              compute_dtype=torch.bfloat16,
+                              norm_dtype=torch.float32, fused_norm=True)
+    spec = DiffusionSpec(diffusion='uniform', parameterization='d3pm',
+                         noise=LogLinearNoise(), vocab_size=cfg.vocab_size,
+                         mask_index=-1, num_classes=cfg.num_classes,
+                         time_conditioning=True)
+    model = UNet(cfg)
+    model.load_state_dict(make_unet_state_dict(
+        model, np.random.RandomState(seed)), strict=True)
     model = model.to(device).eval()
     apply_fn = make_model_apply(model)
     return spec, cfg, model, apply_fn, apply_fn.params

@@ -1,12 +1,13 @@
 """Denoiser backbones and the ModelApply adapter bridging an `nn.Module`
-to the functional diffusion core (port of `ddg_tpu/models/__init__.py`;
-the DiT only, so far)."""
+to the functional diffusion core (port of `ddg_tpu/models/__init__.py`):
+the DiT (inference and training) and the UNet (inference)."""
 
 from __future__ import annotations
 
 import torch
 
 from ddg_tpu_torch.models.dit import DIT, DITConfig  # noqa: F401
+from ddg_tpu_torch.models.unet import UNet, UNetConfig  # noqa: F401
 
 
 def make_model_apply(module: torch.nn.Module):

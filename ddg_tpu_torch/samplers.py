@@ -1,5 +1,6 @@
-"""Sampling loops for absorbing-state (MDLM) diffusion with D-CFG (port of
-`ddg_tpu/samplers.py:40-372, 538-765`, the serving slice).
+"""Sampling loops for absorbing-state (MDLM) and uniform-state (UDLM)
+diffusion with D-CFG (port of `ddg_tpu/samplers.py:40-372, 538-765`, the
+serving slices).
 
 The JAX package runs each loop as one `lax.scan`; here it is a Python
 loop over steps, and the tokens stay on the device throughout. Random
@@ -12,10 +13,11 @@ The NFE cache (`use_cache`) is carried as the last computed value, or
 None before the first compute, so no `_init_cache` allocation is needed.
 Checking whether a step changed nothing costs one host sync per step.
 
-Not ported yet (they raise NotImplementedError): classifier-based
-guidance, NOS, FUDGE/PPLM and AR sampling (ROADMAP A.7, A.8), the
-head-fused kernel (`fused_head`, K11/K12) and the fused uniform-state
-kernels (K9/K10).
+The fused steps cover absorbing-state SUBS (K7/K8) and uniform-state
+D3PM (K9/K10, every token resampled from raw logits with alpha = 1 -
+move chance per row). Not ported yet (they raise NotImplementedError):
+classifier-based guidance, NOS, FUDGE/PPLM and AR sampling (ROADMAP A.7,
+A.8) and the head-fused kernel (`fused_head`, K11/K12).
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ from ddg_tpu_torch.diffusion import DiffusionSpec, log_x_theta, process_sigma
 from ddg_tpu_torch.ops import forward_process as fp
 from ddg_tpu_torch.ops import sampling as S
 from ddg_tpu_torch.ops.fused_sampling import (fused_absorbing_cfg_sample,
-                                              fused_absorbing_sample)
+                                              fused_absorbing_sample,
+                                              fused_uniform_cfg_sample,
+                                              fused_uniform_sample)
 from ddg_tpu_torch.ops.noise_schedules import LogLinearNoise
 
 _INT32_MAX = 2 ** 31 - 1
@@ -126,12 +130,6 @@ def _cached(compute, cache, cache_valid):
     return val, val
 
 
-def _fused_uniform_unported():
-    return NotImplementedError(
-        'the fused uniform-state kernels (K9/K10 fused_uniform_sample, '
-        'fused_uniform_cfg_sample) are not ported yet (ROADMAP B)')
-
-
 # ---------------------------------------------------------------------------
 # Denoise-step variants. Each returns (xs, cache).
 # ---------------------------------------------------------------------------
@@ -139,14 +137,17 @@ def _fused_uniform_unported():
 def _ddpm_step(spec, sampler, model_apply, params, generator, xt, sigma_t,
                mct, mcs, cache, cache_valid, dit_cfg=None):
     if _fused_ok(spec, sampler, None, xt):
-        if spec.diffusion == 'uniform':
-            raise _fused_uniform_unported()
         logits, new_cache = _cached(
             lambda: _raw_logits(spec, model_apply, params, xt, sigma_t),
             cache, cache_valid)
-        xs = fused_absorbing_sample(
-            _seed(generator), xt, logits, mct[:, 0, 0], mcs[:, 0, 0],
-            mask_index=spec.mask_index)
+        if spec.diffusion == 'uniform':
+            xs = fused_uniform_sample(
+                _seed(generator), xt, logits, 1 - mct[:, 0, 0],
+                1 - mcs[:, 0, 0], vocab_size=spec.vocab_size)
+        else:
+            xs = fused_absorbing_sample(
+                _seed(generator), xt, logits, mct[:, 0, 0], mcs[:, 0, 0],
+                mask_index=spec.mask_index)
         return xs, new_cache
 
     def compute():
@@ -196,14 +197,19 @@ def _cfg_step(spec, sampler, guidance, model_apply, params, generator, xt,
         return xs, cache
 
     if fused:
-        if spec.diffusion == 'uniform':
-            raise _fused_uniform_unported()
         logits2, new_cache = _cached(
             lambda: _raw_logits(spec, model_apply, params, *doubled()),
             cache, cache_valid)
-        xs = fused_absorbing_cfg_sample(
-            _seed(generator), xt, logits2[:B], logits2[B:], gamma,
-            mct[:, 0, 0], mcs[:, 0, 0], mask_index=spec.mask_index)
+        if spec.diffusion == 'uniform':
+            # Log-posterior interpolation inside the kernel.
+            xs = fused_uniform_cfg_sample(
+                _seed(generator), xt, logits2[:B], logits2[B:], gamma,
+                1 - mct[:, 0, 0], 1 - mcs[:, 0, 0],
+                vocab_size=spec.vocab_size)
+        else:
+            xs = fused_absorbing_cfg_sample(
+                _seed(generator), xt, logits2[:B], logits2[B:], gamma,
+                mct[:, 0, 0], mcs[:, 0, 0], mask_index=spec.mask_index)
         return xs, new_cache
 
     dt = _sample_dtype(sampler)

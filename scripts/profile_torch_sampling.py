@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time of `ddg_tpu_torch`'s D-CFG sampling goes on one CUDA card.
+"""Where the time of `ddg_tpu_torch`'s sampling goes on one CUDA card.
 
     python3 scripts/profile_torch_sampling.py [--steps 16] [--trace-dir DIR]
 
-Builds the flagship (DiT-small, seeded random weights, the Hopper kernels
-on) and runs each sampler three times: to warm up, timed, and under
-`torch.profiler`. The samplers are ancestral D-CFG (gamma 2, B=24)
-through the feature-mix path and through the NFE cache, and first-
-hitting (B=32, all L=128 events). For each it prints one JSON line: wall
-ms per step, device-busy ms per step, the card's idle share, and device
-ms per step by kernel group, from the trace's kernel events. With
---trace-dir the Chrome traces are written there (tens of MB).
+Builds the two serving flagships (seeded random weights, the Hopper
+kernels on) and runs each sampler three times: to warm up, timed, and
+under `torch.profiler`. The samplers are, for the LM1B DiT-small,
+ancestral D-CFG (gamma 2, B=24) through the feature-mix path and through
+the NFE cache, and first-hitting (B=32, all L=128 events); for the CIFAR10
+UNet (UDLM), ancestral D-CFG (gamma 2) and unguided, B=32. For each it
+prints one JSON line: wall ms per step, device-busy ms per step, the
+card's idle share, and device ms per step by kernel group, from the
+trace's kernel events, and the twelve kernels with the most device
+time. TF32 is off for matmuls and convolutions, as in
+`chip_smoke.py`. With --trace-dir the Chrome traces are written there
+(tens of MB).
 """
 
 import argparse
@@ -29,9 +33,15 @@ GROUPS = (   # first match wins; matched against the kernel's name
     ('K1 rope_attention', ('rope_attention',)),
     ('K3/K5 adaln', ('adaln_kernel',)),
     ('K7/K8 absorbing_sample', ('absorbing_sample',)),
-    ('gemm', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas')),
+    ('K9/K10 uniform_sample', ('uniform_sample',)),
+    ('K13 groupnorm', ('gn_stats', 'gn_apply')),
+    ('gemm/conv', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas', 'conv',
+                   'cudnn')),
     ('elementwise/reduce/other', ('',)),
 )
+
+
+TOP = 12     # the kernels with the most device time, by name
 
 
 def group_of(name):
@@ -69,11 +79,13 @@ def profile(name, run, n_steps, trace_dir):
     kernels = kernel_events(path)
     if not kernels:
         raise RuntimeError('the profiler recorded no kernel on the card')
-    by_group, count = {}, {}
+    by_group, count, by_name = {}, {}, {}
     for e in kernels:
         g = group_of(e['name'])
         by_group[g] = by_group.get(g, 0.0) + e['dur'] / 1e3
         count[g] = count.get(g, 0) + 1
+        by_name[e['name']] = by_name.get(e['name'], 0.0) + e['dur'] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
     # Kernels of one stream do not overlap: their sum is the busy time.
     busy = sum(by_group.values())
     print(json.dumps({
@@ -84,6 +96,7 @@ def profile(name, run, n_steps, trace_dir):
         'device_ms_per_step': {g: v / n_steps for g, v in sorted(
             by_group.items(), key=lambda kv: -kv[1])},
         'kernels_per_step': {g: c / n_steps for g, c in count.items()},
+        'top_kernels_ms_per_step': [[n[:120], v / n_steps] for n, v in top],
         'profiled_wall_ms_per_step': profiled_wall / n_steps}), flush=True)
 
 
@@ -97,8 +110,10 @@ def main():
     if not torch.cuda.is_available():
         print('no CUDA device is visible', file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from ddg_tpu_torch import samplers as SM
-    from ddg_tpu_torch.entry import flagship
+    from ddg_tpu_torch.entry import flagship, unet_flagship
     spec, cfg, _, apply_fn, params = flagship(device='cuda')
     guidance = SM.GuidanceSpec(method='cfg', gamma=2.0)
 
@@ -109,6 +124,21 @@ def main():
             SM.diffusion_sample(spec, sampler, apply_fn, params, gen,
                                 batch_size=batch, length=cfg.length,
                                 guidance=guidance, cond=cond, dit_cfg=cfg)
+        return run
+
+    uspec, ucfg, _, uapply, uparams = unet_flagship(device='cuda')
+
+    def unet_runner(guided):
+        def run():
+            gen = torch.Generator(device='cuda').manual_seed(0)
+            kw = {}
+            if guided:
+                kw = dict(guidance=guidance, cond=torch.zeros(
+                    (32,), dtype=torch.int32, device='cuda'))
+            SM.diffusion_sample(
+                uspec, SM.SamplerSpec(steps=args.steps, use_cache=False,
+                                      fused=True), uapply, uparams, gen,
+                batch_size=32, length=3 * ucfg.image_size ** 2, **kw)
         return run
 
     print(json.dumps({'device': torch.cuda.get_device_name(0),
@@ -124,6 +154,8 @@ def main():
             trace_dir)
         profile('first_hitting', runner(32, SM.SamplerSpec(
             first_hitting=True)), cfg.length, trace_dir)
+        profile('unet_dcfg', unet_runner(True), args.steps, trace_dir)
+        profile('unet_unguided', unet_runner(False), args.steps, trace_dir)
     return 0
 
 

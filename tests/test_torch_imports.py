@@ -2,6 +2,7 @@
 `chip_smoke`, loads neither JAX nor any module of the JAX package."""
 
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -25,9 +26,9 @@ def test_module_list_covers_the_package():
     assert 'ddg_tpu_torch.samplers' in MODULES
     assert 'ddg_tpu_torch.ops.fused_sampling' in MODULES
     for name in ('ops.losses', 'runtime.optim', 'runtime.averaging',
-                 'runtime.train_state'):
+                 'runtime.train_state', 'ops.groupnorm', 'models.unet'):
         assert f'ddg_tpu_torch.{name}' in MODULES
-    assert len(MODULES) >= 15
+    assert len(MODULES) >= 17
 
 
 def test_imports_pull_in_no_jax():
@@ -40,13 +41,17 @@ def test_imports_pull_in_no_jax():
 
 
 def test_no_library_kernels_in_the_port():
-    """The port's kernels are its own: no library attention, LayerNorm or
-    compiler stands in for one."""
+    """The port's kernels are its own: no library attention, LayerNorm,
+    GroupNorm or compiler stands in for one. `group_norm` is banned as a
+    word (F.group_norm, torch.group_norm), which leaves the port's own
+    `fused_group_norm_act`."""
     banned = ('scaled_dot_product_attention', 'F.layer_norm',
-              'torch.compile', 'import jax', 'from jax', 'import flax',
+              'torch.compile', 'nn.GroupNorm', 'native_group_norm',
+              'import jax', 'from jax', 'import flax',
               'from ddg_tpu ', 'from ddg_tpu.', 'import ddg_tpu\n',
               'import ddg_tpu.')
     for path in (ROOT / 'ddg_tpu_torch').rglob('*.py'):
         text = path.read_text()
         for word in banned:
             assert word not in text, (path, word)
+        assert not re.search(r'\bgroup_norm\b', text), path
