@@ -40,7 +40,19 @@ Each phase prints one JSON line:
      syncs per step under PyTorch's sync debug mode;
   9. a learning check at full width: one Zipf-distributed micro-batch,
      lr 3e-4 without warmup, 30 steps; the mean loss of the last 5 must
-     be at least 10% below that of the first 5.
+     be at least 10% below that of the first 5;
+ 10. the genomics serving main path at full width and depth:
+     `entry.dimamba_flagship()` (Species10 DiMamba UDLM, L=32768) sampling
+     D-CFG (gamma 2) and unguided, T=128, B=8: samples/s, ms/step, the
+     card's idle share (a few steps under torch.profiler), peak memory,
+     exact launches per step (16 K18 calls a forward, K10 or K9 once) and
+     0 host syncs per step; then a few D-CFG steps of the same model with
+     `fused_block=False`, the unfused chain around K14 (16 calls a
+     forward).
+Phase 4 also holds K18 and K14 against their plain versions at the
+DiMamba's full widths (fp32 and bf16, both directions' weights, a ragged
+row tile, a padded last chunk), timed at the Species10 shape, and K9/K10
+at its V=12; phase 5 a tiny DiMamba card against CPU.
 Then the `kernels` line, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}} last. Any failed check raises, so the run
 exits non-zero without a result line; so does a machine without a CUDA
@@ -115,8 +127,15 @@ def time_ms(fn, reps=30, warmup=3):
 
 
 def bound(nbytes, ops, peak):
+    return bound_mixed(nbytes, ((ops, peak),))
+
+
+def bound_mixed(nbytes, ops_at_peak):
+    """The least time for `nbytes` of traffic and each (operations, peak
+    rate) kind of work: the larger of the bytes' time and the slowest
+    kind's time."""
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
+    t_ops = max(ops / peak * 1e3 for ops, peak in ops_at_peak)
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else
                                  'operations')
 
@@ -541,15 +560,15 @@ UB, UL, UV = 32, 3072, 256
 PEAK_SFU = 16 * 132 * 1.98e9
 
 
-def _uniform_inputs(gen, dtype, V, n_logits=2):
+def _uniform_inputs(gen, dtype, V, n_logits=2, Bu=UB, Lu=UL):
     """Logits as the two halves of one [cond; uncond] tensor, as the main
     path slices them; alpha(s) > alpha(t)."""
-    both = _rand(gen, n_logits * UB, UL, V, scale=2.0, dtype=dtype)
-    logits = [both[i * UB:(i + 1) * UB] for i in range(n_logits)]
-    xt = torch.randint(0, V, (UB, UL), generator=gen, device=DEV,
+    both = _rand(gen, n_logits * Bu, Lu, V, scale=2.0, dtype=dtype)
+    logits = [both[i * Bu:(i + 1) * Bu] for i in range(n_logits)]
+    xt = torch.randint(0, V, (Bu, Lu), generator=gen, device=DEV,
                        dtype=torch.int32)
-    a_t = 0.05 + 0.8 * torch.rand((UB,), generator=gen, device=DEV)
-    a_s = a_t + (1 - a_t) * torch.rand((UB,), generator=gen, device=DEV)
+    a_t = 0.05 + 0.8 * torch.rand((Bu,), generator=gen, device=DEV)
+    a_s = a_t + (1 - a_t) * torch.rand((Bu,), generator=gen, device=DEV)
     return logits, xt, a_t, a_s
 
 
@@ -587,12 +606,12 @@ def _uniform_cases(fs, seed, xt, lc, lu, a_t, a_s, vocab, g):
                                           vocab_size=vocab), **kw)))
 
 
-def _uniform_tv_check(fs):
+def _uniform_tv_check(fs, Vt=20, vocab=16):
     """Internal-RNG draws of K9/K10 against their exact distribution at a
-    small V (columns past the vocabulary included): TV below twice the
-    binomial floor."""
+    small V (by default with columns past the vocabulary): TV below twice
+    the binomial floor."""
     gen = torch.Generator(device=DEV).manual_seed(12)
-    Bt, Lt, Vt, vocab = 64, 1024, 20, 16
+    Bt, Lt = 64, 1024
     n = Bt * Lt
     row_c = torch.randn((Vt,), generator=gen, device=DEV)
     row_u = torch.randn((Vt,), generator=gen, device=DEV)
@@ -620,7 +639,7 @@ def _uniform_tv_check(fs):
         floor = 0.5 * torch.sqrt(2 * q * (1 - q) / (math.pi * n)).sum().item()
         check(tv < 2 * floor, f'{name} internal RNG: TV {tv} >= 2 x floor '
                               f'{floor}')
-        out[name] = {'tv': tv, 'floor': floor, 'draws': n}
+        out[f'{name} V={Vt}'] = {'tv': tv, 'floor': floor, 'draws': n}
     return out
 
 
@@ -733,6 +752,191 @@ def check_groupnorm(results, norms):
     rec['ms_covers'] = (f'{sum(norms.values())} launches, one D-CFG '
                         f'forward at N={2 * UB}')
     results['fused_group_norm_act'][str(torch.bfloat16)] = rec
+
+
+# The Species10 DiMamba path's shapes: B=8 sequences of L=32768 (2B=16 rows
+# a forward under D-CFG), hidden 256, d_inner 512, d_state 16, dt_rank 16,
+# the DNA vocabulary of 12.
+SB, SL, SH, SD, SN, SR, SV = 8, 32768, 256, 512, 16, 16, 12
+
+
+def check_uniform_species(results, tv):
+    """K9/K10 at the Species10 shape (B=8 x 32768, V=12: the scalar path,
+    12 being no multiple of 8) against their plain versions with the same
+    noise, timed with the in-kernel generator; their in-kernel noise at
+    V=12 by TV. The records go under 'species10'."""
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    for dtype in (torch.float32, torch.bfloat16):
+        (lc, lu), xt, a_t, a_s = _uniform_inputs(gen, dtype, SV, Bu=SB,
+                                                 Lu=SL)
+        g = -torch.log(-torch.log(
+            torch.rand((SB, SL, SV), generator=gen, device=DEV)
+            .clamp_min(1e-20)))
+        for name, call, plain, scores in _uniform_cases(
+                fs, 7, xt, lc, lu, a_t, a_s, SV, g):
+            bad, n_cmp = _uniform_token_check(f'{name} V={SV} {dtype}',
+                                              call(), plain(), scores(), SV)
+            rec = {'err': bad, 'compared_tokens': n_cmp,
+                   'shape': [SB, SL, SV]}
+            if dtype == torch.bfloat16:
+                seed = torch.tensor([11], dtype=torch.int32, device=DEV)
+                case = {c[0]: c for c in _uniform_cases(
+                    fs, seed, xt, lc, lu, a_t, a_s, SV, None)}[name]
+                rec['ms'] = time_ms(case[1])
+                rec['plain_ms'] = time_ms(case[2], reps=10)
+                n_in = 2 if 'cfg' in name else 1
+                rec['bound_ms'], rec['bound_by'] = bound(
+                    n_in * SB * SL * SV * 2 + 2 * SB * SL * 4 + 8 * SB,
+                    (2 * n_in + 2) * SB * SL * SV, PEAK_SFU)
+                results[name]['species10'] = rec
+        del g
+    tv.update(_uniform_tv_check(fs, SV, SV))
+
+
+def _mamba_weights(gen, dtype, H=SH, d=SD, R=SR, N=SN, K=4):
+    """One direction's weights as the model hands them over: flax (in, out)
+    views of torch-layout matrices in `dtype`, scaled so the outputs are of
+    order one; A = -exp(A_log) around the S4D init, dt biases near the
+    reference's softplus range."""
+    def mat(n_out, n_in):
+        return _rand(gen, n_out, n_in, scale=n_in ** -0.5, dtype=dtype).t()
+    a_log = torch.log(torch.arange(1, N + 1, device=DEV, dtype=torch.float32))
+    return dict(W_in=mat(2 * d, H),
+                conv_w=_rand(gen, K, 1, d, scale=0.5, dtype=dtype),
+                conv_b=_rand(gen, d, scale=0.1, dtype=dtype),
+                W_x=mat(R + 2 * N, d),
+                W_dt=_rand(gen, d, R, scale=R ** -0.5).t(),
+                b_dt=_rand(gen, d, scale=0.5) - 3.0,
+                A=-torch.exp(a_log + _rand(gen, d, N, scale=0.1)),
+                D=_rand(gen, d), W_out=mat(H, d))
+
+
+def _close_states(name, dtype, out, ref):
+    """Chunk entry states (fp32 sums over up to L rows): 1e-5 of their
+    largest magnitude, 2^-7 of it when the inputs were rounded to bf16
+    (one rounding flip of an input moves a state by that much)."""
+    rtol = SUM_RTOL if dtype == torch.float32 else 2.0 ** -7
+    err = (out - ref).abs().max().item()
+    tol = rtol * ref.abs().max().item()
+    check(err <= tol, f'{name} h0s {dtype}: max abs err {err} > {tol}')
+    return err
+
+
+def _main_path_check(name, rec, got, want):
+    """(out, h0s) of a kernel against its plain version at the main path's
+    bf16 shape; the errors also raise `rec`'s maxima."""
+    err, tol = _close(name, torch.bfloat16, got[0], want[0])
+    h0s_err = _close_states(name, torch.bfloat16, got[1], want[1])
+    rec['err'] = max(rec['err'], err)
+    rec['h0s_err'] = max(rec['h0s_err'], h0s_err)
+    return {'err': err, 'tol': tol, 'h0s_err': h0s_err}
+
+
+def check_mamba(results):
+    """K18 (`mamba_inner`) and K14 (`ssm_scan`) against their plain versions
+    on the card at the DiMamba's widths, in fp32 and bf16: K18 at B=2,
+    L=2048 (16 chunks of 128) with the forward direction's weights and
+    with another set on the flipped rows (as the model runs `core_rev`),
+    and at L=80, chunk 16 (a ragged last row tile of the conv kernel and of
+    the products); K14 on u, z, B, C as views into wider projections (as
+    the model slices them) at L=2048 and at L=2000 (a padded last chunk).
+    Outputs to the usual bars, the chunk entry states to `_close_states`.
+    Timed in bf16 at the Species10 shape, 16 x 32768 (256 chunks a row),
+    and held against the plain versions there too (`main_path`)."""
+    from ddg_tpu_torch.ops import mamba as M
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    for dtype in (torch.float32, torch.bfloat16):
+        rec18 = {'err': 0.0, 'h0s_err': 0.0}
+        for Bt, Lm, chunk, rows in ((2, 2048, 128, 'fwd'),
+                                    (2, 2048, 128, 'rev'),
+                                    (2, 80, 16, 'ragged')):
+            w = _mamba_weights(gen, dtype)
+            h = _rand(gen, Bt, Lm, SH, dtype=dtype)
+            if rows == 'rev':
+                h = torch.flip(h, (1,))
+            kw = dict(d_state=SN, dt_rank=SR, chunk=chunk,
+                      compute_dtype=dtype, return_h0s=True)
+            out, h0 = M.mamba_inner(h, **w, **kw)
+            ref, h0r = M.mamba_inner_plain(h, **w, **kw)
+            name = f'mamba_inner {rows} B={Bt} L={Lm} chunk={chunk}'
+            err, rec18['tol'] = _close(name, dtype, out, ref)
+            rec18['err'] = max(rec18['err'], err)
+            rec18['h0s_err'] = max(rec18['h0s_err'],
+                                   _close_states(name, dtype, h0, h0r))
+        results['mamba_inner'][str(dtype)] = rec18
+        rec14 = {'err': 0.0, 'h0s_err': 0.0}
+        for Bt, Lm in ((2, 2048), (2, 2000)):
+            xz = _rand(gen, Bt, Lm, 2 * SD, dtype=dtype)
+            xd = _rand(gen, Bt, Lm, SR + 2 * SN, dtype=dtype)
+            w = _mamba_weights(gen, dtype)
+            args = (xz[..., :SD], M.softplus(_rand(gen, Bt, Lm, SD) - 3.0),
+                    w['A'], xd[..., SR:SR + SN], xd[..., SR + SN:], w['D'],
+                    xz[..., SD:])
+            y, h0 = M.ssm_scan(*args, return_h0s=True)
+            ref, h0r = M.ssm_scan_plain(*args, return_h0s=True)
+            name = f'ssm_scan B={Bt} L={Lm}'
+            err, rec14['tol'] = _close(name, dtype, y, ref)
+            rec14['err'] = max(rec14['err'], err)
+            rec14['h0s_err'] = max(rec14['h0s_err'],
+                                   _close_states(name, dtype, h0, h0r))
+        results['ssm_scan'][str(dtype)] = rec14
+
+    # Times at the main path's shape, bf16.
+    bf = torch.bfloat16
+    M_rows, nx = 2 * SB * SL, SR + 2 * SN
+    w = _mamba_weights(gen, bf)
+    h = _rand(gen, 2 * SB, SL, SH, dtype=bf)
+    kw = dict(d_state=SN, dt_rank=SR)
+    rec18 = results['mamba_inner'][str(bf)]
+    rec18['ms'] = time_ms(lambda: M.mamba_inner(h, **w, **kw))
+    rec18['plain_ms'] = time_ms(lambda: M.mamba_inner_plain(h, **w, **kw),
+                                reps=3, warmup=1)
+    rec18['main_path'] = _main_path_check(
+        f'mamba_inner B={2 * SB} L={SL}', rec18,
+        M.mamba_inner(h, **w, **kw, return_h0s=True),
+        M.mamba_inner_plain(h, **w, **kw, return_h0s=True))
+    # The yardstick for its GEMM share: its four products through
+    # torch.matmul at the same shapes (bf16; dt_proj fp32).
+    u = _rand(gen, M_rows, SD, dtype=bf)
+    lr = _rand(gen, M_rows, SR)
+    h2 = h.reshape(M_rows, SH)
+    rec18['products_matmul_ms'] = time_ms(lambda: (
+        h2 @ w['W_in'], u @ w['W_x'], lr @ w['W_dt'], u @ w['W_out']))
+    # Bytes: h in, out out, the weights once. Operations (per token): the
+    # bf16 products of in_proj, x_proj and out_proj on the tensor cores,
+    # dt_proj in fp32, and the exps and logs (exp(delta A) over d x N,
+    # softplus's exp and log1p, the two sigmoids) on the SFU.
+    wbytes = 2 * (SH * 2 * SD + SD * nx + SD * SH + 5 * SD) \
+        + 4 * (SR * SD + 3 * SD + SD * SN)
+    rec18['bound_ms'], rec18['bound_by'] = bound_mixed(
+        2 * M_rows * SH * 2 + wbytes,
+        ((2 * M_rows * (SH * 2 * SD + SD * nx + SD * SH), PEAK_BF16_TENSOR),
+         (2 * M_rows * SR * SD, PEAK_FP32),
+         (M_rows * SD * (SN + 4), PEAK_SFU)))
+    del h, h2, u, lr
+
+    rec14 = results['ssm_scan'][str(bf)]
+    xz = _rand(gen, 2 * SB, SL, 2 * SD, dtype=bf)
+    xd = _rand(gen, 2 * SB, SL, nx, dtype=bf)
+    args = (xz[..., :SD], M.softplus(_rand(gen, 2 * SB, SL, SD) - 3.0),
+            w['A'], xd[..., SR:SR + SN], xd[..., SR + SN:], w['D'],
+            xz[..., SD:])
+    rec14['ms'] = time_ms(lambda: M.ssm_scan(*args))
+    rec14['plain_ms'] = time_ms(lambda: M.ssm_scan_plain(*args), reps=3,
+                                warmup=1)
+    rec14['main_path'] = _main_path_check(
+        f'ssm_scan B={2 * SB} L={SL}', rec14,
+        M.ssm_scan(*args, return_h0s=True),
+        M.ssm_scan_plain(*args, return_h0s=True))
+    # Bytes: u, z, y (bf16) and delta (fp32) per (row, channel), B and C
+    # per row, the chunk entry states out. Operations: exp(delta A) per
+    # state and the gate's sigmoid, on the SFU.
+    n_chunks = SL // 128
+    rec14['bound_ms'], rec14['bound_by'] = bound_mixed(
+        M_rows * SD * (2 + 2 + 2 + 4) + M_rows * 2 * SN * 2
+        + 2 * SB * n_chunks * SN * SD * 4 + 4 * SD * (SN + 1),
+        ((M_rows * SD * (SN + 1), PEAK_SFU),))
 
 
 # ---------------------------------------------------------------------------
@@ -848,6 +1052,31 @@ def check_tiny_train():
           'update_max_abs_err': step_err})
 
 
+def _launch_check(name, kernels, launches, per_step, steps):
+    """Each kernel launched exactly per_step[k] (0 if absent) x steps
+    times."""
+    for k in kernels:
+        want = per_step.get(k, 0) * steps
+        check(launches[k] == want, f'{name}: {k} launched {launches[k]} '
+                                   f'times, expected {want}')
+
+
+def _sync_check(name, run):
+    """Host syncs of `run` under PyTorch's sync debug mode; must be none."""
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    syncs = [str(w.message) for w in syncs
+             if 'called a synchronizing' in str(w.message)]
+    check(not syncs, f'{name}: the loop synchronises with the card: '
+                     f'{syncs[:3]}')
+    return len(syncs)
+
+
 def run_main_path(kernels):
     from ddg_tpu_torch import samplers as SM
     from ddg_tpu_torch.entry import flagship
@@ -924,7 +1153,8 @@ PER_MICRO_STEP = {'fused_rope_attention': 12, 'fused_rope_attention_bwd': 12,
                   'gate_res_ln_modulate': 12, 'gate_res_ln_modulate_bwd': 12,
                   'fused_absorbing_sample': 0,
                   'fused_absorbing_cfg_sample': 0, 'fused_uniform_sample': 0,
-                  'fused_uniform_cfg_sample': 0, 'fused_group_norm_act': 0}
+                  'fused_uniform_cfg_sample': 0, 'fused_group_norm_act': 0,
+                  'mamba_inner': 0, 'ssm_scan': 0}
 
 
 def run_train_path(kernels, warmup=2, steps=5):
@@ -953,20 +1183,13 @@ def run_train_path(kernels, warmup=2, steps=5):
     secs = (time.perf_counter() - t0) / steps
     launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
+    n_micro = steps * run.accum_steps
+    _launch_check('training', kernels, launches, PER_MICRO_STEP, n_micro)
     # One more step with PyTorch's sync debugging on: the step must not
     # wait for the card anywhere (its metrics stay on the card).
-    with warnings.catch_warnings(record=True) as syncs:
-        warnings.simplefilter('always')
-        torch.cuda.set_sync_debug_mode('warn')
-        try:
-            run.step(run.state, batch)
-        finally:
-            torch.cuda.set_sync_debug_mode('default')
-    syncs = [str(w.message) for w in syncs
-             if 'called a synchronizing' in str(w.message)]
+    n_syncs = _sync_check('training', lambda: run.step(run.state, batch))
     loss = [m['loss'].item() for m in metrics]
     gnorm = [m['grad_norm'].item() for m in metrics]
-    n_micro = steps * run.accum_steps
     emit({'phase': 'train_main_path', 'steps': steps,
           'ms_per_step': secs * 1e3,
           'tokens_per_s': run.global_batch * cfg.length / secs,
@@ -975,15 +1198,9 @@ def run_train_path(kernels, warmup=2, steps=5):
           'lr': metrics[-1]['lr'].item(),
           'launches_per_micro_step': {k: v / n_micro
                                       for k, v in launches.items()},
-          'host_syncs_in_a_step': len(syncs)})
+          'host_syncs_in_a_step': n_syncs})
     check(all(math.isfinite(v) for v in loss + gnorm),
           'training: non-finite loss or grad norm')
-    check(not syncs, f'training: the step synchronises with the card: '
-                     f'{syncs[:3]}')
-    for k, n in PER_MICRO_STEP.items():
-        check(launches[k] == n * n_micro,
-              f'training: {k} launched {launches[k]} times in {n_micro} '
-              f'micro-steps, expected {n} each')
     return launches
 
 
@@ -1141,6 +1358,216 @@ def check_tiny_unet():
           'step_tokens': tok_c.numel()})
 
 
+def check_tiny_dimamba():
+    """`dimamba_flagship(tiny=True)`'s model in float32 (its matrices x4, as
+    the CPU tests scale them, so the mixer moves the logits) on the card
+    against the same weights on the CPU, through the fused block (K18 on
+    the card, its plain version on the CPU) and through the unfused chain
+    around K14: logits to the 1e-3 bar; and one fused D-CFG step (gamma 2,
+    K10) from the same x_t, sigma and Gumbel noise: tokens identical where
+    the CPU's top-two perturbed scores differ by more than MARGIN."""
+    import dataclasses
+    from ddg_tpu_torch import samplers as SM
+    from ddg_tpu_torch.entry import dimamba_flagship
+    from ddg_tpu_torch.models import DiMamba, make_model_apply
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    spec, cfg, model, _, _ = dimamba_flagship(tiny=True, device='cpu')
+    sd = {k: v.float() * (4 if v.ndim >= 2 and 'A_log' not in k else 1)
+          for k, v in model.state_dict().items()}
+    gen = torch.Generator().manual_seed(6)
+    Bt, Lt, Vt = 2, cfg.length, cfg.vocab_size
+    xt = torch.randint(0, Vt, (Bt, Lt), generator=gen, dtype=torch.int32)
+    sigma = 0.1 + 2 * torch.rand((Bt,), generator=gen)
+    cond = torch.tensor([3, 8], dtype=torch.int32)
+    null = torch.full_like(cond, cfg.num_classes)
+    mct = 1 - torch.exp(-sigma)
+    mcs = 0.6 * mct
+    g = -torch.log(-torch.log(torch.rand((Bt, Lt, Vt), generator=gen)
+                              .clamp_min(1e-20)))
+    rec = {}
+    for route, kw in (('fused_block', dict(fused_block=True)),
+                      ('scan_kernel', dict(fused_block=False,
+                                           pallas_scan=True))):
+        outs = {}
+        for dev in ('cpu', DEV):
+            m = DiMamba(dataclasses.replace(cfg, compute_dtype=torch.float32,
+                                            dropout=0.0, **kw))
+            m.load_state_dict(sd, strict=True)
+            apply = make_model_apply(m.to(dev).eval())
+            logits = apply(apply.params, *(t.to(dev) for t in
+                                           (xt, sigma, cond)))
+            x2, s2, c2 = (torch.cat([a, b]).to(dev) for a, b in (
+                (xt, xt), (sigma, sigma), (cond, null)))
+            raw = SM._raw_logits(spec, apply, apply.params, x2, s2, c2)
+            tok = fs.fused_uniform_cfg_sample(
+                7, x2[:Bt], raw[:Bt], raw[Bt:], GAMMA, (1 - mct).to(dev),
+                (1 - mcs).to(dev), vocab_size=Vt, gumbel=g.to(dev))
+            outs[dev] = [t.cpu() for t in (logits, raw, tok)]
+        (l_c, raw_c, tok_c), (l_d, _, tok_d) = outs['cpu'], outs[DEV]
+        check(bool(torch.isfinite(l_d).all()),
+              f'tiny DiMamba {route}: non-finite logits')
+        err = (l_c - l_d).abs().max().item()
+        check(err <= 1e-3, f'tiny DiMamba {route}: card vs CPU logits '
+                           f'differ by {err}')
+        scores = fs.uniform_perturbed_scores(
+            7, fs.uniform_cfg_log_num(raw_c[:Bt], raw_c[Bt:], GAMMA, xt,
+                                      1 - mct, 1 - mcs, vocab_size=Vt),
+            vocab_size=Vt, gumbel=g)
+        _, n_cmp = _uniform_token_check(f'tiny DiMamba {route} fused D-CFG '
+                                        'step', tok_d, tok_c, scores, Vt)
+        rec[route] = {'logits_max_abs_err': err,
+                      'logit_std': l_c.std().item(),
+                      'step_tokens_compared': n_cmp,
+                      'step_tokens_equal': int((tok_c == tok_d).sum()),
+                      'step_tokens': tok_c.numel()}
+    emit({'phase': 'tiny_dimamba_card_vs_cpu', **rec})
+
+
+def device_busy_ms(run):
+    """(busy, span, lead) ms of `run` from one torch.profiler trace: busy
+    sums the device time of its kernels, copies and fills (one stream, so
+    they do not overlap); span runs on the card's clock from the first of
+    them to the end of the last, so its gaps are the card's idle time; lead
+    is the host's time from its first operation to the first of them."""
+    import os
+    import tempfile
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    dev = [e for e in events
+           if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
+    check(dev, 'the profiler recorded no kernel on the card')
+    host = [e['ts'] for e in events
+            if e.get('cat') in ('cpu_op', 'cuda_runtime', 'cuda_driver')]
+    t_first = min(e['ts'] for e in dev)
+    t_end = max(e['ts'] + e['dur'] for e in dev)
+    lead = t_first - min(host + [t_first])
+    return (sum(e['dur'] for e in dev) / 1e3, (t_end - t_first) / 1e3,
+            lead / 1e3)
+
+
+def run_dimamba_path(kernels, steps=128, budget_s=60.0, unfused_steps=4):
+    """The Species10 serving path at full width and depth:
+    `dimamba_flagship()` sampling D-CFG (gamma 2) and unguided, T=128,
+    B=8 of one class, with exact launches per step (16 K18 calls a forward,
+    K10 or K9 once), 0 host syncs per step, and the card's idle share (the
+    gaps between the kernels of two profiled steps). A run whose T=128 would take over `budget_s` (estimated
+    from its warm-up) runs fewer steps and says so. Then `unfused_steps`
+    D-CFG steps of the same weights in a model built with
+    `fused_block=False`: the unfused chain around K14, 16 calls a forward.
+    Returns the launches of each path."""
+    import dataclasses
+    from ddg_tpu_torch import samplers as SM
+    from ddg_tpu_torch.entry import dimamba_flagship
+    from ddg_tpu_torch.models import DiMamba, make_model_apply
+    t0 = time.perf_counter()
+    flag = dimamba_flagship(device=DEV)
+    spec, cfg, _, apply_fn, params = flag
+    emit({'phase': 'dimamba_flagship', 'seconds': time.perf_counter() - t0,
+          'parameters': sum(p.numel() for p in params.values()),
+          'hidden': cfg.hidden_size, 'd_inner': cfg.d_inner,
+          'd_state': cfg.d_state, 'dt_rank': cfg.dt_rank,
+          'blocks': cfg.n_blocks, 'length': cfg.length,
+          'vocab': cfg.vocab_size, 'classes': cfg.num_classes})
+    cond = torch.zeros((SB,), dtype=torch.int32, device=DEV)
+    per_fwd = 2 * cfg.n_blocks
+    dcfg = SM.GuidanceSpec(method='cfg', gamma=GAMMA)
+    runs = [('dcfg', dcfg, {'mamba_inner': per_fwd,
+                            'fused_uniform_cfg_sample': 1}),
+            ('unguided', None, {'mamba_inner': per_fwd,
+                                'fused_uniform_sample': 1})]
+
+    def sample(flag_, guidance, n_steps, seed):
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        kw = {} if guidance is None else {'guidance': guidance, 'cond': cond}
+        return SM.diffusion_sample(
+            flag_[0], SM.SamplerSpec(steps=n_steps, use_cache=False,
+                                     fused=True),
+            flag_[3], flag_[4], gen, batch_size=SB, length=cfg.length, **kw)
+
+    out = {'species10_serving': {k: 0 for k in kernels}}
+    for i, (name, guidance, per_step) in enumerate(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample(flag, guidance, 2, 99)           # warm-up, outside the counts
+        torch.cuda.synchronize()
+        est = (time.perf_counter() - t0) / 2 * steps
+        n_steps = steps if est <= budget_s else max(
+            2, int(steps * budget_s / est))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        x = sample(flag, guidance, n_steps, i)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        for k in kernels:
+            out['species10_serving'][k] += launches[k]
+        _launch_check(f'species10 {name}', kernels, launches, per_step,
+                      n_steps)
+        n_syncs = _sync_check(f'species10 {name}',
+                              lambda: sample(flag, guidance, 2, 98))
+        busy, span, lead = device_busy_ms(
+            lambda: sample(flag, guidance, 2, 97))
+        ms_step = secs / n_steps * 1e3
+        hist = torch.bincount(x.flatten().long(), minlength=cfg.vocab_size)
+        emit({'phase': 'species10_main_path', 'run': name, 'batch': SB,
+              'steps': n_steps,
+              'steps_note': (None if n_steps == steps else
+                             f'cut from {steps}: T={steps} estimated at '
+                             f'{est:.1f} s > {budget_s} s'),
+              'seconds': secs, 'samples_per_s': SB / secs,
+              'ms_per_step': ms_step,
+              'profiled_busy_ms_per_step': busy / 2,
+              'profiled_span_ms_per_step': span / 2,
+              'profiled_lead_ms': lead,
+              'idle_share': 1.0 - busy / span,
+              'peak_memory_bytes': peak,
+              'launches_per_step': {k: v / n_steps
+                                    for k, v in launches.items() if v},
+              'host_syncs_per_step': n_syncs / 2,
+              'token_histogram': hist.tolist()})
+        check(tuple(x.shape) == (SB, cfg.length) and x.dtype == torch.int32,
+              f'species10 {name}: output {tuple(x.shape)} {x.dtype}')
+        check(bool(((x >= 0) & (x < cfg.vocab_size)).all()),
+              f'species10 {name}: token outside [0, {cfg.vocab_size})')
+
+    model = DiMamba(dataclasses.replace(cfg, fused_block=False))
+    model.load_state_dict(flag[2].state_dict(), strict=True)
+    apply = make_model_apply(model.to(DEV).eval())
+    unfused = (spec, cfg, model, apply, apply.params)
+    sample(unfused, dcfg, 1, 96)                 # warm-up
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    x = sample(unfused, dcfg, unfused_steps, 5)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    out['species10_unfused'] = launches
+    _launch_check('species10 unfused', kernels, launches,
+                  {'ssm_scan': per_fwd, 'fused_uniform_cfg_sample': 1},
+                  unfused_steps)
+    check(bool(((x >= 0) & (x < cfg.vocab_size)).all()),
+          'species10 unfused: token outside the vocabulary')
+    emit({'phase': 'species10_unfused_path', 'run': 'dcfg', 'batch': SB,
+          'steps': unfused_steps, 'ms_per_step': secs / unfused_steps * 1e3,
+          'launches_per_step': {k: v / unfused_steps
+                                for k, v in launches.items() if v}})
+    return out
+
+
 def run_unet_path(kernels, flag, n_norms, steps=128):
     """The UNet main path at full width and depth: D-CFG (gamma 2) and
     unguided ancestral sampling, T=128, B=32, with exact launches per step
@@ -1179,15 +1606,9 @@ def run_unet_path(kernels, flag, n_norms, steps=128):
         peak = torch.cuda.max_memory_allocated()
         for k in kernels:
             totals[k] += launches[k]
-        with warnings.catch_warnings(record=True) as syncs:
-            warnings.simplefilter('always')
-            torch.cuda.set_sync_debug_mode('warn')
-            try:
-                sample(guidance, 2, 98)
-            finally:
-                torch.cuda.set_sync_debug_mode('default')
-        syncs = [str(w.message) for w in syncs
-                 if 'called a synchronizing' in str(w.message)]
+        _launch_check(f'unet {name}', kernels, launches, per_step, steps)
+        n_syncs = _sync_check(f'unet {name}',
+                              lambda: sample(guidance, 2, 98))
         hist = torch.bincount(x.flatten().long(), minlength=cfg.vocab_size)
         emit({'phase': 'unet_main_path', 'run': name, 'batch': UB,
               'steps': steps, 'seconds': secs, 'samples_per_s': UB / secs,
@@ -1195,19 +1616,13 @@ def run_unet_path(kernels, flag, n_norms, steps=128):
               'launches': launches,
               'launches_per_step': {k: v / steps for k, v in launches.items()
                                     if v},
-              'host_syncs_per_step': len(syncs) / 2,
+              'host_syncs_per_step': n_syncs / 2,
               'distinct_tokens': int((hist > 0).sum().item()),
               'top_token_share': (hist.max() / x.numel()).item()})
         check(tuple(x.shape) == (UB, L_img) and x.dtype == torch.int32,
               f'unet {name}: output {tuple(x.shape)} {x.dtype}')
         check(bool(((x >= 0) & (x < cfg.vocab_size)).all()),
               f'unet {name}: token outside [0, {cfg.vocab_size})')
-        for k in kernels:
-            want = per_step.get(k, 0) * steps
-            check(launches[k] == want, f'unet {name}: {k} launched '
-                                       f'{launches[k]} times, expected {want}')
-        check(not syncs, f'unet {name}: the loop synchronises with the card: '
-                         f'{syncs[:3]}')
     return totals
 
 
@@ -1236,6 +1651,11 @@ SOURCES = {
                                  'ddg_tpu/ops/fused_sampling.py:398'),
     'fused_group_norm_act': ('ddg_tpu_torch/csrc/groupnorm.cu',
                              'ddg_tpu/ops/groupnorm_pallas.py:89'),
+    # K18 and K14 reach pl.pallas_call through _mk_fwd_call and _fwd_call.
+    'mamba_inner': ('ddg_tpu_torch/csrc/mamba.cu',
+                    'ddg_tpu/ops/mamba_block_pallas.py:511'),
+    'ssm_scan': ('ddg_tpu_torch/csrc/mamba.cu',
+                 'ddg_tpu/ops/selective_scan_pallas.py:618'),
 }
 
 
@@ -1247,7 +1667,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from ddg_tpu_torch.entry import unet_flagship
-    from ddg_tpu_torch.ops import adaln, attention, groupnorm
+    from ddg_tpu_torch.ops import adaln, attention, groupnorm, mamba
     from ddg_tpu_torch.ops import fused_sampling as fs
     kernels = {
         'fused_rope_attention': attention.fused_rope_attention,
@@ -1261,6 +1681,8 @@ def main():
         'fused_uniform_sample': fs.fused_uniform_sample,
         'fused_uniform_cfg_sample': fs.fused_uniform_cfg_sample,
         'fused_group_norm_act': groupnorm.fused_group_norm_act,
+        'mamba_inner': mamba.mamba_inner,
+        'ssm_scan': mamba.ssm_scan,
     }
 
     phase_environment()
@@ -1290,14 +1712,18 @@ def main():
     check_groupnorm(results, norms)
     check_adaln_bwd(results)
     check_attention_bwd(results)
+    check_uniform_species(results, tv)
+    check_mamba(results)
     emit({'phase': 'kernels_vs_plain', 'results': results,
           'internal_rng': tv})
     check_tiny_dit()
     check_tiny_train()
     check_tiny_unet()
+    check_tiny_dimamba()
     by_path = {'serving': run_main_path(kernels),
                'training': run_train_path(kernels),
                'unet_serving': run_unet_path(kernels, unet, n_norms)}
+    by_path.update(run_dimamba_path(kernels))
     check_learning()
 
     rows = []
@@ -1314,8 +1740,14 @@ def main():
                      'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                      'bound_by': r['bound_by'],
                      'library_ms': r.get('library_ms')})
-        if 'ms_covers' in r:
-            rows[-1]['ms_covers'] = r['ms_covers']
+        for key in ('ms_covers', 'products_matmul_ms'):
+            if key in r:
+                rows[-1][key] = r[key]
+        if 'species10' in results[name]:
+            rows[-1]['species10'] = {
+                k: results[name]['species10'][k]
+                for k in ('shape', 'err', 'ms', 'plain_ms', 'bound_ms',
+                          'bound_by')}
     emit({'phase': 'done', 'seconds': time.perf_counter() - t_start})
     emit({'kernels': rows})
     print(nvidia_smi(), flush=True)

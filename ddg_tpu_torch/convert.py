@@ -1,5 +1,5 @@
 """Weights carried into the port's `DIT` (port of
-`ddg_tpu/convert.py:136-218`) and `UNet`.
+`ddg_tpu/convert.py:136-218`), `UNet` and `DiMamba`.
 
 `dit_state_dict_from_jax` turns a `ddg_tpu` DIT params tree (numpy
 arrays, flax names) into a state dict in the reference torch naming,
@@ -28,12 +28,22 @@ Dense kernels (in, out) -> Linear (out, in), Embed tables, NiN `W` (in,
 out) and `b`, and GroupNorm `scale`/`bias` as they are.
 `make_unet_state_dict` makes seeded random weights from the JAX
 initializers.
+
+`dimamba_params_from_reference` turns a reference DiMamba state dict into
+a `ddg_tpu` DiMamba params tree (a copy of `ddg_tpu/convert.py:228-315`,
+tied in/out projections and `core_rev` included), and
+`dimamba_state_dict_from_jax` turns that tree into the state dict of
+`ddg_tpu_torch.models.dimamba.DiMamba` (flax names; kernels transposed,
+`embedding` -> `weight`, `sigma_map/mlp{1,2}` -> `sigma_map.mlp.{0,2}`).
+`make_reference_dimamba_state_dict` makes seeded random weights in the
+reference layout, with a class table of `num_classes + 1` rows.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+import re
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -176,4 +186,163 @@ def make_unet_state_dict(model: torch.nn.Module, rng: np.random.RandomState
         else:
             a = np.zeros(shape)
         s[name] = torch.from_numpy(a.astype(np.float32))
+    return s
+
+
+def dimamba_params_from_reference(state: Dict, *, n_blocks: int,
+                                  bidirectional: bool = True,
+                                  weight_tie: bool = True) -> Dict:
+    """Reference DiMamba state dict (numpy arrays) -> `ddg_tpu` DiMamba
+    params tree. In/out projections are shared across directions when
+    `weight_tie`; each direction keeps its own conv/x_proj/dt_proj/A/D."""
+    s = {re.sub(r'^backbone\.', '', k): v for k, v in state.items()}
+
+    def T(x):
+        return np.ascontiguousarray(np.asarray(x).T)
+
+    def core(p):
+        return {
+            # torch Conv1d (d, 1, K) -> lax 'LIO' (K, 1, d)
+            'conv1d_kernel': np.ascontiguousarray(
+                np.transpose(s[p + 'conv1d.weight'], (2, 1, 0))),
+            'conv1d_bias': s[p + 'conv1d.bias'],
+            'x_proj': {'kernel': T(s[p + 'x_proj.weight'])},
+            'dt_proj': {'kernel': T(s[p + 'dt_proj.weight']),
+                        'bias': s[p + 'dt_proj.bias']},
+            'A_log': s[p + 'A_log'],
+            'D': s[p + 'D'],
+        }
+
+    def dense(p, bias=True):
+        out = {'kernel': T(s[p + '.weight'])}
+        if bias:
+            out['bias'] = s[p + '.bias']
+        return out
+
+    bb = 'model.bimamba.backbone.'
+    params: Dict = {'word_embeddings': {
+        'embedding': s[bb + 'embeddings.word_embeddings.weight']}}
+    if 'sigma_map.mlp.0.weight' in s:
+        params['sigma_map'] = {'mlp1': dense('sigma_map.mlp.0'),
+                               'mlp2': dense('sigma_map.mlp.2')}
+    if 'cond_map.embedding_table.weight' in s:
+        params['cond_map'] = {
+            'embedding': s['cond_map.embedding_table.weight']}
+    for i in range(n_blocks):
+        p = bb + f'layers.{i}.'
+        mixer = {'in_proj_fwd': dense(p + 'mixer.mamba_fwd.in_proj', False),
+                 'out_proj_fwd': dense(p + 'mixer.mamba_fwd.out_proj',
+                                       False),
+                 'core_fwd': core(p + 'mixer.mamba_fwd.')}
+        if bidirectional:
+            mixer['core_rev'] = core(p + 'mixer.mamba_rev.')
+            if not weight_tie:
+                mixer['in_proj_rev'] = dense(p + 'mixer.mamba_rev.in_proj',
+                                             False)
+                mixer['out_proj_rev'] = dense(
+                    p + 'mixer.mamba_rev.out_proj', False)
+        block = {'norm': {'scale': s[p + 'norm.weight'],
+                          'bias': s[p + 'norm.bias']},
+                 'mixer': mixer}
+        if p + 'adaLN_modulation.weight' in s:
+            block['adaLN_modulation'] = dense(p + 'adaLN_modulation')
+        params[f'block_{i}'] = block
+    params['norm_f'] = {'scale': s[bb + 'norm_f.weight'],
+                        'bias': s[bb + 'norm_f.bias']}
+    if bb + 'adaLN_modulation_final.weight' in s:
+        params['adaLN_final'] = dense(bb + 'adaLN_modulation_final')
+    if 'model.lm_head.weight' in s:
+        w = s['model.lm_head.weight']
+        params['lm_head'] = {'kernel': T(w),
+                             'bias': np.zeros(w.shape[0], np.float32)}
+    return params
+
+
+def dimamba_state_dict_from_jax(params, *, n_blocks: int
+                                ) -> Dict[str, torch.Tensor]:
+    """`ddg_tpu` DiMamba params (nested dict of arrays) -> float32 torch
+    state dict of the port's `DiMamba`."""
+    blocks = sum(k.startswith('block_') for k in params)
+    if blocks != n_blocks:
+        raise ValueError(f'the params hold {blocks} blocks, not {n_blocks}')
+    renames = {'mlp1': 'mlp.0', 'mlp2': 'mlp.2'}
+    s: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for name, val in tree.items():
+            if isinstance(val, dict):
+                walk(val, prefix + renames.get(name, name) + '.')
+                continue
+            a = np.asarray(val, dtype=np.float32)
+            if name == 'kernel':
+                name, a = 'weight', a.T
+            elif name == 'embedding':
+                name = 'weight'
+            s[prefix + name] = torch.from_numpy(np.ascontiguousarray(a))
+
+    walk(params, '')
+    return s
+
+
+def make_reference_dimamba_state_dict(rng: np.random.RandomState, *,
+                                      hidden: int, cond_dim: int,
+                                      n_blocks: int, vocab: int,
+                                      d_state: int = 16, d_conv: int = 4,
+                                      expand: int = 2,
+                                      num_classes: Optional[int] = None,
+                                      bidirectional: bool = True,
+                                      weight_tie: bool = True) -> Dict:
+    """Seeded random weights with the reference DiMamba's names and shapes
+    (numpy arrays, N(0, 0.05^2); norm weights around 1, dt biases in
+    [-4, -2), A_log the S4D init, D around 1; the adaLN projections are
+    drawn too, so every block's gate is non-zero); `num_classes` adds its
+    class table with the null row."""
+    d_inner = expand * hidden
+    dt_rank = math.ceil(hidden / 16)
+
+    def r(*shape):
+        return rng.randn(*shape).astype(np.float32) * 0.05
+
+    s: Dict = {}
+    s['sigma_map.mlp.0.weight'] = r(cond_dim, 256)
+    s['sigma_map.mlp.0.bias'] = r(cond_dim)
+    s['sigma_map.mlp.2.weight'] = r(cond_dim, cond_dim)
+    s['sigma_map.mlp.2.bias'] = r(cond_dim)
+    if num_classes is not None:
+        s['cond_map.embedding_table.weight'] = r(num_classes + 1, cond_dim)
+    bb = 'model.bimamba.backbone.'
+    s[bb + 'embeddings.word_embeddings.weight'] = r(vocab, hidden)
+
+    def core(p):
+        s[p + 'conv1d.weight'] = r(d_inner, 1, d_conv)
+        s[p + 'conv1d.bias'] = r(d_inner)
+        s[p + 'x_proj.weight'] = r(dt_rank + 2 * d_state, d_inner)
+        s[p + 'dt_proj.weight'] = r(d_inner, dt_rank)
+        s[p + 'dt_proj.bias'] = rng.rand(d_inner).astype(np.float32) * 2 - 4
+        s[p + 'A_log'] = np.log(np.broadcast_to(
+            np.arange(1, d_state + 1, dtype=np.float32),
+            (d_inner, d_state))).copy()
+        s[p + 'D'] = np.ones(d_inner, np.float32) + r(d_inner)
+
+    for i in range(n_blocks):
+        p = bb + f'layers.{i}.'
+        s[p + 'norm.weight'] = r(hidden) + 1
+        s[p + 'norm.bias'] = r(hidden)
+        s[p + 'adaLN_modulation.weight'] = r(3 * hidden, cond_dim)
+        s[p + 'adaLN_modulation.bias'] = r(3 * hidden)
+        s[p + 'mixer.mamba_fwd.in_proj.weight'] = r(2 * d_inner, hidden)
+        s[p + 'mixer.mamba_fwd.out_proj.weight'] = r(hidden, d_inner)
+        core(p + 'mixer.mamba_fwd.')
+        if bidirectional:
+            core(p + 'mixer.mamba_rev.')
+            for name, shape in (('in_proj', (2 * d_inner, hidden)),
+                                ('out_proj', (hidden, d_inner))):
+                s[p + f'mixer.mamba_rev.{name}.weight'] = (
+                    s[p + f'mixer.mamba_fwd.{name}.weight'] if weight_tie
+                    else r(*shape))
+    s[bb + 'norm_f.weight'] = r(hidden) + 1
+    s[bb + 'norm_f.bias'] = r(hidden)
+    s[bb + 'adaLN_modulation_final.weight'] = r(2 * hidden, cond_dim)
+    s[bb + 'adaLN_modulation_final.bias'] = r(2 * hidden)
+    s['model.lm_head.weight'] = r(vocab, hidden)
     return s

@@ -1,5 +1,6 @@
 // Helpers shared by the ddg_tpu_torch kernels: 16-byte vector loads and
-// stores of fp32 / bf16 rows as fp32 registers, warp reductions, and the
+// stores of fp32 / bf16 rows as fp32 registers, warp reductions, the bf16
+// tensor-core product (mma.sync m16n8k16) and its fragment loads, and the
 // sampling kernels' Philox generator, Gumbel noise and argmax merge.
 #pragma once
 
@@ -65,6 +66,28 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += A (16x16, row) * B (16x8, col), bf16 in, fp32 accumulate. Fragments
+// of lane (g = lane / 4, t = lane % 4): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],
+// a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]; b0 = B[2t..2t+1][g], b1 =
+// B[2t+8..][g]; c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1].
+__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -36,6 +36,10 @@
 
 namespace {
 
+using ddg::ld32;
+using ddg::mma_16816;
+using ddg::pack_bf16;
+
 constexpr int kTile = 32;
 constexpr int kThreads = 256;
 constexpr float kNeg = -1e30f;
@@ -149,25 +153,6 @@ constexpr int kQKRow = kMmaD + 8;          // padded bf16 row of Q and K
 constexpr int kVtRow = kMmaMaxL + 8;       // padded bf16 row of V^T
 constexpr size_t kMmaSmem =
     sizeof(__nv_bfloat16) * (2 * kMmaMaxL * kQKRow + kMmaD * kVtRow);
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += A (16x16, row) * B (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // Rotate 8 consecutive pairs (x1 = row[f..f+7], x2 = row[f+32..f+39]) of one
 // 64-wide row and store them, rounded to bf16, at dst[f..] and dst[f+32..].

@@ -35,6 +35,18 @@ compute). The weights are seeded random ones drawn as the JAX module
 initialises them (`convert.make_unet_state_dict`) until a CIFAR10
 checkpoint is in the repository.
 
+`dimamba_flagship()` builds the genomics serving configuration, the
+paper's Species10 UDLM workload (`scripts/train_ten_species_guidance.sh`
+with `configs/model/dimamba.yaml`, built as `ddg_tpu/main.py:173-209`
+builds it): DiMamba with hidden 256, cond_dim 128, L=32768, 8 blocks,
+d_state 16, d_conv 4, expand 2, bidirectional 'add' with tied in/out
+projections, an untied fp32 `lm_head`, 10 classes + the null class, bf16
+compute, scan chunk 128; uniform-state D3PM with the log-linear schedule
+over the DNA tokenizer's V=12 (`mask_index` 3 as `effective_vocab` sets
+it), sigma conditioning on. The weights are seeded random ones in the
+reference layout (`convert.make_reference_dimamba_state_dict`, non-zero
+adaLN projections) through the port's converter.
+
 All run on the card unless the caller passes `device='cpu'`.
 """
 
@@ -45,11 +57,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from ddg_tpu_torch.convert import (make_reference_dit_state_dict,
+from ddg_tpu_torch.convert import (dimamba_params_from_reference,
+                                   dimamba_state_dict_from_jax,
+                                   make_reference_dimamba_state_dict,
+                                   make_reference_dit_state_dict,
                                    make_unet_state_dict)
 from ddg_tpu_torch.diffusion import DiffusionSpec, log_x_theta
-from ddg_tpu_torch.models import (DIT, DITConfig, UNet, UNetConfig,
-                                  make_model_apply)
+from ddg_tpu_torch.models import (DIT, DiMamba, DiMambaConfig, DITConfig,
+                                  UNet, UNetConfig, make_model_apply)
 from ddg_tpu_torch.ops.noise_schedules import LogLinearNoise
 from ddg_tpu_torch.runtime.averaging import AveragingSpec
 from ddg_tpu_torch.runtime.optim import OptimSpec
@@ -119,6 +134,44 @@ def unet_flagship(tiny: bool = False, device=None, *, seed: int = 0):
     model = UNet(cfg)
     model.load_state_dict(make_unet_state_dict(
         model, np.random.RandomState(seed)), strict=True)
+    model = model.to(device).eval()
+    apply_fn = make_model_apply(model)
+    return spec, cfg, model, apply_fn, apply_fn.params
+
+
+# The DNA tokenizer (`ddg_tpu/data/tokenizers.py:211-231`): 7 specials, then
+# A C G T N; [MASK] is 3.
+DNA_VOCAB, DNA_MASK = 12, 3
+
+
+def dimamba_flagship(tiny: bool = False, device=None, *, seed: int = 0):
+    """Returns (spec, cfg, model, model_apply, params) on `device`. `tiny`
+    is a CPU-sized model: hidden 32, cond_dim 16, 2 blocks, L=256 (two scan
+    chunks)."""
+    device = resolve_device(device)
+    if tiny:
+        cfg = DiMambaConfig(hidden_size=32, cond_dim=16, length=256,
+                            n_blocks=2)
+    else:
+        cfg = DiMambaConfig(hidden_size=256, cond_dim=128, length=32768,
+                            n_blocks=8)
+    cfg = dataclasses.replace(cfg, vocab_size=DNA_VOCAB, num_classes=10,
+                              d_state=16, d_conv=4, expand=2,
+                              scan_chunk=128, scan_seg=64, scan_seg_bwd=64,
+                              dropout=0.1, compute_dtype=torch.bfloat16)
+    spec = DiffusionSpec(diffusion='uniform', parameterization='d3pm',
+                         noise=LogLinearNoise(), vocab_size=DNA_VOCAB,
+                         mask_index=DNA_MASK, num_classes=cfg.num_classes,
+                         time_conditioning=True)
+    model = DiMamba(cfg)
+    ref = make_reference_dimamba_state_dict(
+        np.random.RandomState(seed), hidden=cfg.hidden_size,
+        cond_dim=cfg.cond_dim, n_blocks=cfg.n_blocks, vocab=cfg.vocab_size,
+        d_state=cfg.d_state, d_conv=cfg.d_conv, expand=cfg.expand,
+        num_classes=cfg.num_classes)
+    model.load_state_dict(dimamba_state_dict_from_jax(
+        dimamba_params_from_reference(ref, n_blocks=cfg.n_blocks),
+        n_blocks=cfg.n_blocks), strict=True)
     model = model.to(device).eval()
     apply_fn = make_model_apply(model)
     return spec, cfg, model, apply_fn, apply_fn.params

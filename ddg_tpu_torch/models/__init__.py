@@ -1,11 +1,12 @@
 """Denoiser backbones and the ModelApply adapter bridging an `nn.Module`
 to the functional diffusion core (port of `ddg_tpu/models/__init__.py`):
-the DiT (inference and training) and the UNet (inference)."""
+the DiT (inference and training), the UNet and DiMamba (inference)."""
 
 from __future__ import annotations
 
 import torch
 
+from ddg_tpu_torch.models.dimamba import DiMamba, DiMambaConfig  # noqa: F401
 from ddg_tpu_torch.models.dit import DIT, DITConfig  # noqa: F401
 from ddg_tpu_torch.models.unet import UNet, UNetConfig  # noqa: F401
 

@@ -1,0 +1,344 @@
+"""DiMamba: the bidirectional Mamba denoiser for long genomic sequences
+(port of `ddg_tpu/models/dimamba.py`, inference).
+
+Block = add -> LayerNorm -> adaLN (shift, scale, gate) -> BiMamba mixer ->
+gated residual; the mixer runs a forward and a flipped-sequence Mamba
+direction with tied in/out projections and combines them ('add' or
+'ew_multiply'). The residual stream re-accumulates on purpose: a block
+returns (gate * mixer + residual, residual) and the next block adds both
+again, as the reference does.
+
+Submodules carry the flax names (`word_embeddings`, `sigma_map`,
+`cond_map`, `block_{i}.norm`, `block_{i}.adaLN_modulation`,
+`block_{i}.mixer.in_proj_fwd`, `block_{i}.mixer.core_fwd.A_log`,
+`norm_f`, `adaLN_final`, `lm_head`), and `convert.dimamba_state_dict_from_jax`
+maps the JAX params onto them.
+
+Dtypes follow the JAX module's policy: in_proj, out_proj, x_proj, the
+conv and the block adaLN projections run in `compute_dtype` and hold their
+weights in it (what flax's per-call cast produces); dt_proj, A_log, D, the
+LayerNorms (flax's: bias, eps 1e-6, E[x^2] - E[x]^2 variance), the final
+adaLN projection and `lm_head` are float32.
+
+A direction runs one of three routes, as the JAX module picks them:
+- `fused_block` ('auto': when L is a multiple of `scan_chunk` and the
+  tensors are on the card): `ops.mamba.mamba_inner`, K18;
+- `pallas_scan` ('auto': on the card): the unfused chain (in_proj, conv,
+  x_proj, dt_proj as PyTorch ops) around `ops.mamba.ssm_scan`, K14;
+- otherwise the plain `selective_scan`.
+On CPU tensors the kernels' wrappers run their plain versions, so `True`
+still works there. Not ported (they raise): `dt_inkernel` (K16),
+`sequence_axis`, `remat` and training.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ddg_tpu_torch.models.dit import TimestepEmbedder
+from ddg_tpu_torch.ops import mamba as mamba_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class DiMambaConfig:
+    hidden_size: int = 256
+    cond_dim: int = 128
+    length: int = 32768
+    n_blocks: int = 8
+    vocab_size: int = 16
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    bidirectional: bool = True
+    bidirectional_strategy: str = 'add'
+    bidirectional_weight_tie: bool = True
+    tie_word_embeddings: bool = False
+    num_classes: Optional[int] = None
+    use_adaLN: bool = True
+    scan_chunk: int = 128
+    # 'auto' = the kernel when the tensors are on the card; True / False
+    # force it.
+    pallas_scan: str | bool = 'auto'
+    dt_inkernel: bool = False
+    # The TPU kernels' within-chunk schedule; the port's kernels have none.
+    scan_seg: int = 64
+    scan_seg_bwd: int = 64
+    scan_impl: str = 'pps3'
+    fused_block: str | bool = 'auto'
+    # The JAX package's interpret switch, kept for the config's shape: the
+    # port's wrappers choose by the tensors' device, so True is refused.
+    pallas_interpret: bool = False
+    dropout: float = 0.1
+    remat: bool = False
+    compute_dtype: torch.dtype = torch.bfloat16
+    sequence_axis: Optional[str] = None
+    batch_axis: str = 'data'
+
+    def __post_init__(self):
+        unported = {
+            'dt_inkernel': 'K16 ssm_scan_dtlr (dt_proj inside the scan)',
+            'sequence_axis': 'sequence parallelism (ROADMAP A.11)',
+            'remat': 'block remat (training, ROADMAP A.10)',
+        }
+        for name, what in unported.items():
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f'DiMambaConfig.{name}: {what} is not ported to '
+                    'ddg_tpu_torch yet')
+        if self.pallas_interpret:
+            raise ValueError(
+                'DiMambaConfig.pallas_interpret: the port has no interpret '
+                'mode; a kernel runs its plain version on CPU tensors')
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.hidden_size
+
+    @property
+    def dt_rank(self) -> int:
+        return math.ceil(self.hidden_size / 16)
+
+
+def selective_scan(u, delta, A, B, C, D, z, *, chunk: int = 256):
+    """The selective scan as the JAX module's plain path computes it:
+    h_t = exp(delta_t A) h_{t-1} + delta_t B_t u_t, y_t = C_t . h_t + D u_t,
+    out = y * silu(z), fp32 recurrence, output in u's dtype. u, delta, z:
+    (B, L, d); A: (d, N); B, C: (B, L, N); D: (d,)."""
+    u32 = u.float()
+    y, _ = mamba_ops.scan_chunks(u32, delta.float(), A.float(), B.float(),
+                                 C.float(), chunk)
+    z32 = z.float()
+    y = (y + D.float() * u32) * (z32 * torch.sigmoid(z32))
+    return y.to(u.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm in float32: E[x^2] - E[x]^2 variance (clamped at
+    0), (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
+            + self.bias
+
+
+def _use_kernel(flag, x) -> bool:
+    return flag if isinstance(flag, bool) else x.is_cuda
+
+
+def _use_fused_block(cfg: DiMambaConfig, x) -> bool:
+    """cfg.fused_block ('auto' / True / False) against the fused kernel's
+    shape constraints, as the JAX module resolves it."""
+    L = x.shape[1]
+    ok = (L % cfg.scan_chunk == 0
+          and all(cfg.scan_chunk % s == 0 and cfg.scan_chunk // s >= 2
+                  for s in (cfg.scan_seg, cfg.scan_seg_bwd))
+          and cfg.d_conv <= 8)
+    if cfg.fused_block is True:
+        if not ok:
+            raise ValueError(
+                'fused_block=True but the kernel shape constraints do not '
+                f'hold (L={L}, chunk={cfg.scan_chunk}, seg={cfg.scan_seg}/'
+                f'{cfg.scan_seg_bwd}, d_conv={cfg.d_conv})')
+        return True
+    if cfg.fused_block is False:
+        return False
+    return (_use_kernel(cfg.pallas_scan, x)
+            and cfg.scan_impl in ('pps2', 'pps3') and ok)
+
+
+class MambaCore(nn.Module):
+    """Conv + SSM core of one direction (everything between in_proj and
+    out_proj): conv1d, x_proj, dt_proj, A_log, D."""
+
+    def __init__(self, cfg: DiMambaConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, cd = cfg.d_inner, cfg.compute_dtype
+        self.conv1d_kernel = nn.Parameter(torch.zeros(cfg.d_conv, 1, d,
+                                                      dtype=cd))
+        self.conv1d_bias = nn.Parameter(torch.zeros(d, dtype=cd))
+        self.x_proj = nn.Linear(d, cfg.dt_rank + 2 * cfg.d_state,
+                                bias=False, dtype=cd)
+        self.dt_proj = nn.Linear(cfg.dt_rank, d)
+        self.A_log = nn.Parameter(torch.zeros(d, cfg.d_state))
+        self.D = nn.Parameter(torch.ones(d))
+
+    def A(self):
+        return -torch.exp(self.A_log)
+
+    def forward(self, x, z):
+        """The unfused chain on x, z (B, L, d_inner) in compute dtype."""
+        cfg = self.cfg
+        K = cfg.d_conv
+        # Causal depthwise conv from the newest tap: x w_{K-1}, then the
+        # older taps 0..K-2, then the bias, each op in compute dtype.
+        w = self.conv1d_kernel[:, 0]
+        xp = F.pad(x, (0, 0, K - 1, 0))
+        L = x.shape[1]
+        acc = x * w[K - 1]
+        for j in range(K - 1):
+            acc = acc + xp[:, j:j + L] * w[j]
+        x = acc + self.conv1d_bias
+        x = x * torch.sigmoid(x)
+        x_dbl = self.x_proj(x)
+        R, N = cfg.dt_rank, cfg.d_state
+        dt, B, C = x_dbl[..., :R], x_dbl[..., R:R + N], x_dbl[..., R + N:]
+        delta = mamba_ops.softplus(self.dt_proj(dt.float()))
+        if _use_kernel(cfg.pallas_scan, x):
+            return mamba_ops.ssm_scan(x, delta, self.A(), B, C, self.D, z,
+                                      chunk=cfg.scan_chunk)
+        return selective_scan(x, delta, self.A(), B, C, self.D, z,
+                              chunk=cfg.scan_chunk)
+
+
+class BiMambaWrapper(nn.Module):
+    """Forward + reversed Mamba with optional in/out projection tying."""
+
+    def __init__(self, cfg: DiMambaConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, H, cd = cfg.d_inner, cfg.hidden_size, cfg.compute_dtype
+        self.in_proj_fwd = nn.Linear(H, 2 * d, bias=False, dtype=cd)
+        self.out_proj_fwd = nn.Linear(d, H, bias=False, dtype=cd)
+        self.core_fwd = MambaCore(cfg)
+        if cfg.bidirectional:
+            self.core_rev = MambaCore(cfg)
+            if not cfg.bidirectional_weight_tie:
+                self.in_proj_rev = nn.Linear(H, 2 * d, bias=False, dtype=cd)
+                self.out_proj_rev = nn.Linear(d, H, bias=False, dtype=cd)
+        if cfg.bidirectional_strategy not in ('add', 'ew_multiply'):
+            raise NotImplementedError(
+                f'`{cfg.bidirectional_strategy}` for bi-directionality not '
+                'implemented!')
+
+    def _direction(self, h, in_proj, core, out_proj, fused):
+        cfg = self.cfg
+        if fused:
+            # Weights as flax's (in, out) views of the Linear weights: the
+            # kernel reads them in place.
+            return mamba_ops.mamba_inner(
+                h, in_proj.weight.t(), core.conv1d_kernel, core.conv1d_bias,
+                core.x_proj.weight.t(), core.dt_proj.weight.t(),
+                core.dt_proj.bias, core.A(), core.D, out_proj.weight.t(),
+                d_state=cfg.d_state, dt_rank=cfg.dt_rank,
+                chunk=cfg.scan_chunk, compute_dtype=cfg.compute_dtype)
+        x, z = in_proj(h).chunk(2, dim=-1)
+        return out_proj(core(x, z))
+
+    def forward(self, h):
+        cfg = self.cfg
+        fused = _use_fused_block(cfg, h)
+        out = self._direction(h, self.in_proj_fwd, self.core_fwd,
+                              self.out_proj_fwd, fused)
+        if not cfg.bidirectional:
+            return out
+        tied = cfg.bidirectional_weight_tie
+        out_r = self._direction(
+            torch.flip(h, (1,)),
+            self.in_proj_fwd if tied else self.in_proj_rev, self.core_rev,
+            self.out_proj_fwd if tied else self.out_proj_rev, fused)
+        out_r = torch.flip(out_r, (1,))
+        if cfg.bidirectional_strategy == 'add':
+            return out + out_r
+        return out * out_r
+
+
+class DiMambaBlock(nn.Module):
+    """Add -> LayerNorm -> adaLN modulate -> mixer -> gated residual."""
+
+    def __init__(self, cfg: DiMambaConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.norm = LayerNorm(cfg.hidden_size)
+        if cfg.use_adaLN:
+            self.adaLN_modulation = nn.Linear(cfg.cond_dim,
+                                              3 * cfg.hidden_size,
+                                              dtype=cfg.compute_dtype)
+        self.mixer = BiMambaWrapper(cfg)
+
+    def forward(self, hidden_states, residual, c):
+        cfg = self.cfg
+        residual = (hidden_states + residual if residual is not None
+                    else hidden_states).float()
+        h = self.norm(residual).to(cfg.compute_dtype)
+        gate = None
+        if cfg.use_adaLN and c is not None:
+            shift, scale, gate = self.adaLN_modulation(c).chunk(3, dim=-1)
+            h = h * (1 + scale[:, None]) + shift[:, None]
+        h = self.mixer(h)
+        if gate is not None:
+            h = gate[:, None] * h + residual.to(h.dtype)
+        return h, residual
+
+
+class DiMamba(nn.Module):
+    """Denoiser: (indices, sigma, cond, x_emb) -> logits (B, L, V)."""
+
+    def __init__(self, cfg: DiMambaConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.sigma_map = TimestepEmbedder(cfg.cond_dim)
+        if cfg.num_classes is not None:
+            self.cond_map = nn.Embedding(cfg.num_classes + 1, cfg.cond_dim)
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        for i in range(cfg.n_blocks):
+            self.add_module(f'block_{i}', DiMambaBlock(cfg))
+        self.norm_f = LayerNorm(cfg.hidden_size)
+        if cfg.use_adaLN:
+            self.adaLN_final = nn.Linear(cfg.cond_dim, 2 * cfg.hidden_size)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+
+    def forward(self, indices, sigma, cond=None, x_emb=None, *,
+                train: bool = False, rng=None,
+                return_hidden_states: bool = False):
+        cfg = self.cfg
+        if train:
+            raise NotImplementedError('DiMamba training is not ported to '
+                                      'ddg_tpu_torch yet (ROADMAP A.10)')
+        cd = cfg.compute_dtype
+        c = None
+        if sigma is not None:
+            c = F.silu(self.sigma_map(sigma))
+        if cond is not None:
+            if cfg.num_classes is None:
+                raise ValueError('Conditioning provided but num_classes is '
+                                 'None')
+            ce = F.silu(self.cond_map(cond.long()))
+            c = ce if c is None else c + ce
+        if c is not None:
+            c = c.to(cd)
+        if x_emb is None:
+            h = self.word_embeddings(indices.long()).to(cd)
+        else:
+            h = x_emb.to(cd)
+        residual = None
+        for i in range(cfg.n_blocks):
+            h, residual = getattr(self, f'block_{i}')(h, residual, c)
+        final = h + residual.to(h.dtype) if residual is not None else h
+        final = self.norm_f(final)
+        if cfg.use_adaLN and c is not None:
+            shift, scale = self.adaLN_final(c.float()).chunk(2, dim=-1)
+            final = final * (1 + scale[:, None]) + shift[:, None]
+        if cfg.tie_word_embeddings:
+            logits = final @ self.word_embeddings.weight.T
+        else:
+            logits = self.lm_head(final)
+        if return_hidden_states:
+            return logits, final
+        return logits

@@ -8,7 +8,9 @@ kernels on) and runs each sampler three times: to warm up, timed, and
 under `torch.profiler`. The samplers are, for the LM1B DiT-small,
 ancestral D-CFG (gamma 2, B=24) through the feature-mix path and through
 the NFE cache, and first-hitting (B=32, all L=128 events); for the CIFAR10
-UNet (UDLM), ancestral D-CFG (gamma 2) and unguided, B=32. For each it
+UNet (UDLM), ancestral D-CFG (gamma 2) and unguided, B=32; for the
+Species10 DiMamba (UDLM, L=32768), D-CFG (gamma 2) and unguided, B=8,
+for `--dimamba-steps` steps. For each it
 prints one JSON line: wall ms per step, device-busy ms per step, the
 card's idle share, and device ms per step by kernel group, from the
 trace's kernel events, and the twelve kernels with the most device
@@ -35,6 +37,9 @@ GROUPS = (   # first match wins; matched against the kernel's name
     ('K7/K8 absorbing_sample', ('absorbing_sample',)),
     ('K9/K10 uniform_sample', ('uniform_sample',)),
     ('K13 groupnorm', ('gn_stats', 'gn_apply')),
+    ('K18 in/out_proj', ('gemm_bf16_kernel', 'gemm_f32_kernel')),
+    ('K18 conv/x_proj/dt_proj', ('mamba_front',)),
+    ('K18/K14 scan', ('scan_chunk', 'scan_carry', 'scan_out')),
     ('gemm/conv', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas', 'conv',
                    'cudnn')),
     ('elementwise/reduce/other', ('',)),
@@ -104,6 +109,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--steps', type=int, default=16,
                     help='ancestral steps to profile (default 16)')
+    ap.add_argument('--dimamba-steps', type=int, default=8,
+                    help='Species10 DiMamba steps to profile (default 8)')
     ap.add_argument('--trace-dir', default=None,
                     help='write the Chrome traces here')
     args = ap.parse_args()
@@ -113,7 +120,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from ddg_tpu_torch import samplers as SM
-    from ddg_tpu_torch.entry import flagship, unet_flagship
+    from ddg_tpu_torch.entry import dimamba_flagship, flagship, unet_flagship
     spec, cfg, _, apply_fn, params = flagship(device='cuda')
     guidance = SM.GuidanceSpec(method='cfg', gamma=2.0)
 
@@ -141,6 +148,21 @@ def main():
                 batch_size=32, length=3 * ucfg.image_size ** 2, **kw)
         return run
 
+    dspec, dcfg, _, dapply, dparams = dimamba_flagship(device='cuda')
+
+    def dimamba_runner(guided):
+        def run():
+            gen = torch.Generator(device='cuda').manual_seed(0)
+            kw = {}
+            if guided:
+                kw = dict(guidance=guidance, cond=torch.zeros(
+                    (8,), dtype=torch.int32, device='cuda'))
+            SM.diffusion_sample(
+                dspec, SM.SamplerSpec(steps=args.dimamba_steps,
+                                      use_cache=False, fused=True),
+                dapply, dparams, gen, batch_size=8, length=dcfg.length, **kw)
+        return run
+
     print(json.dumps({'device': torch.cuda.get_device_name(0),
                       'torch': torch.__version__}), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -156,6 +178,10 @@ def main():
             first_hitting=True)), cfg.length, trace_dir)
         profile('unet_dcfg', unet_runner(True), args.steps, trace_dir)
         profile('unet_unguided', unet_runner(False), args.steps, trace_dir)
+        profile('species10_dcfg', dimamba_runner(True), args.dimamba_steps,
+                trace_dir)
+        profile('species10_unguided', dimamba_runner(False),
+                args.dimamba_steps, trace_dir)
     return 0
 
 

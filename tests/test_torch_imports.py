@@ -26,9 +26,10 @@ def test_module_list_covers_the_package():
     assert 'ddg_tpu_torch.samplers' in MODULES
     assert 'ddg_tpu_torch.ops.fused_sampling' in MODULES
     for name in ('ops.losses', 'runtime.optim', 'runtime.averaging',
-                 'runtime.train_state', 'ops.groupnorm', 'models.unet'):
+                 'runtime.train_state', 'ops.groupnorm', 'models.unet',
+                 'ops.mamba', 'models.dimamba'):
         assert f'ddg_tpu_torch.{name}' in MODULES
-    assert len(MODULES) >= 17
+    assert len(MODULES) >= 19
 
 
 def test_imports_pull_in_no_jax():
