@@ -48,11 +48,26 @@ Each phase prints one JSON line:
      exact launches per step (16 K18 calls a forward, K10 or K9 once) and
      0 host syncs per step; then a few D-CFG steps of the same model with
      `fused_block=False`, the unfused chain around K14 (16 calls a
-     forward).
+     forward);
+ 11. the genomics training main path at full width and depth:
+     `entry.dimamba_train_flagship()` (Species10 DiMamba UDLM, global
+     batch 32 x 32768 as micro-batches): warm-up, then timed steps
+     (tokens/s, ms/step, peak memory, loss, grad norm), exact launches per
+     micro-step (16 K18, 16 K19), 0 host syncs per step and the idle share
+     of one profiled step; then a step of the same weights with
+     `fused_block=False`, two micro-batches of 4 rows (16 K14, 16 K15 per
+     micro-step);
+ 12. a learning check of both DiMamba kernel routes from the same weights
+     and generator: 30 steps on one class-structured micro-batch at lr
+     2e-3, each route's loss at least 10% down, the routes' last-5 means
+     closer than the pooled std of their last-10 losses.
 Phase 4 also holds K18 and K14 against their plain versions at the
 DiMamba's full widths (fp32 and bf16, both directions' weights, a ragged
 row tile, a padded last chunk), timed at the Species10 shape, and K9/K10
-at its V=12; phase 5 a tiny DiMamba card against CPU.
+at its V=12; and K19 and K15 (the backwards) the same way, twice each with
+bit-identical outputs, in bf16 also at the training shape (16 x 32768),
+timed there; phase 5 a tiny DiMamba card against CPU and a tiny DiMamba
+train step card against CPU on both kernel routes.
 Then the `kernels` line, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}} last. Any failed check raises, so the run
 exits non-zero without a result line; so does a machine without a CUDA
@@ -939,6 +954,163 @@ def check_mamba(results):
         ((M_rows * SD * (SN + 1), PEAK_SFU),))
 
 
+# Outputs of the backward kernels: per row (the 1e-4 / 2-ulp bars) or sums
+# over rows (`_close_grad`).
+K15_OUT = (('du', 'row'), ('ddelta', 'row'), ('dB', 'row'), ('dC', 'row'),
+           ('dA_log', 'sum'), ('dz', 'row'), ('dD', 'sum'))
+K19_OUT = (('dh', 'row'), ('dW_in', 'sum'), ('dconv_w', 'sum'),
+           ('dconv_b', 'sum'), ('dW_x', 'sum'), ('dW_dt', 'sum'),
+           ('db_dt', 'sum'), ('dA_log', 'sum'), ('dD', 'sum'),
+           ('dW_out', 'sum'))
+
+
+def _close_grad(name, dtype, kind, out, ref):
+    """A backward output against its plain version: rows at the usual
+    bars; sums over rows (fp32 whatever the inputs) at 1e-5 of their
+    largest magnitude in float32 and 2 ulp of it when the inputs were
+    bf16 (a rounding flip of a bf16 operand moves a sum by up to that)."""
+    if kind == 'row':
+        return _close(name, dtype, out, ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (SUM_RTOL * ref.float().abs().max().item()
+           if dtype == torch.float32 else bf16_tol(ref))
+    check(err <= tol, f'{name} {dtype}: max abs err {err} > {tol}')
+    return err, tol
+
+
+def _bwd_case(rec, label, dtype, names, call, plain):
+    """Kernel (twice: every output bit-identical) against plain; the
+    errors go into rec['outputs'][label] and raise rec's maxima."""
+    got, again, ref = call(), call(), plain()
+    torch.cuda.synchronize()
+    errs = {}
+    for (name, kind), a, b, c in zip(names, got, again, ref):
+        check(torch.equal(a, b), f'{label} {name}: reruns differ')
+        check(a.shape == c.shape and a.dtype == c.dtype,
+              f'{label} {name}: {a.shape} {a.dtype} vs {c.shape} {c.dtype}')
+        err, tol = _close_grad(f'{label} {name}', dtype, kind, a, c)
+        errs[name] = [err, tol]
+        key = 'err' if kind == 'row' else 'sum_err_of_tol'
+        rec[key] = max(rec.get(key, 0.0), err if kind == 'row' else err / tol)
+    rec.setdefault('outputs', {})[label] = errs
+    return got
+
+
+def check_mamba_bwd(results):
+    """K19 (`mamba_inner_bwd`) and K15 (`ssm_scan_bwd`) against their plain
+    versions on the card at the DiMamba's widths, fp32 and bf16, each run
+    twice with bit-identical outputs: K19 on the forward direction's
+    weights and on another set with flipped rows (as the model runs
+    `core_rev`) at B=2, L=2048, and at L=80, chunk 16 (ragged row tiles);
+    K15 on u, z, B, C as views of wider projections at L=2048 and L=2000 (a
+    padded last chunk). Then in bf16 at the training main path's shape
+    (DIMAMBA_TRAIN_MICRO_BATCH x 32768), timed there beside the bound, the
+    plain version and (K19) its products through `torch.matmul`."""
+    from ddg_tpu_torch.entry import DIMAMBA_TRAIN_MICRO_BATCH as TB
+    from ddg_tpu_torch.ops import mamba as M
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    nx = SR + 2 * SN
+
+    def k19_args(dtype, Bt, Lm, chunk, rev):
+        w = _mamba_weights(gen, dtype)
+        h = _rand(gen, Bt, Lm, SH, dtype=dtype)
+        if rev:
+            h = torch.flip(h, (1,))
+        kw = dict(d_state=SN, dt_rank=SR, chunk=chunk, compute_dtype=dtype)
+        _, h0s = M.mamba_inner(h, **w, **kw, return_h0s=True)
+        g = _rand(gen, Bt, Lm, SH, dtype=dtype)
+        return (h, *w.values(), h0s, g), kw
+
+    def k15_args(dtype, Bt, Lm, chunk=128):
+        xz = _rand(gen, Bt, Lm, 2 * SD, dtype=dtype)
+        xd = _rand(gen, Bt, Lm, nx, dtype=dtype)
+        w = _mamba_weights(gen, dtype)
+        args = (xz[..., :SD], M.softplus(_rand(gen, Bt, Lm, SD) - 3.0),
+                w['A'], xd[..., SR:SR + SN], xd[..., SR + SN:], w['D'],
+                xz[..., SD:])
+        _, h0s = M.ssm_scan(*args, chunk=chunk, return_h0s=True)
+        return (*args, h0s, _rand(gen, Bt, Lm, SD, dtype=dtype)), \
+            {'chunk': chunk}
+
+    for dtype in (torch.float32, torch.bfloat16):
+        rec19, rec15 = {}, {}
+        for Bt, Lm, chunk, rows in ((2, 2048, 128, 'fwd'),
+                                    (2, 2048, 128, 'rev'),
+                                    (2, 80, 16, 'ragged')):
+            a, kw = k19_args(dtype, Bt, Lm, chunk, rows == 'rev')
+            _bwd_case(rec19, f'mamba_inner_bwd {rows} B={Bt} L={Lm}', dtype,
+                      K19_OUT, lambda: M.mamba_inner_bwd(*a, **kw),
+                      lambda: M.mamba_inner_bwd_plain(*a, **kw))
+        for Bt, Lm in ((2, 2048), (2, 2000)):
+            a, kw = k15_args(dtype, Bt, Lm)
+            _bwd_case(rec15, f'ssm_scan_bwd B={Bt} L={Lm}', dtype, K15_OUT,
+                      lambda: M.ssm_scan_bwd(*a, **kw),
+                      lambda: M.ssm_scan_bwd_plain(*a, **kw))
+        results['mamba_inner_bwd'][str(dtype)] = rec19
+        results['ssm_scan_bwd'][str(dtype)] = rec15
+
+    # The training main path's shape, bf16: held against the plain versions
+    # (one call each: they hold many GB), then timed.
+    bf = torch.bfloat16
+    M_rows = TB * SL
+    rec19 = results['mamba_inner_bwd'][str(bf)]
+    a, kw = k19_args(bf, TB, SL, 128, False)
+    _bwd_case(rec19, f'mamba_inner_bwd B={TB} L={SL}', bf, K19_OUT,
+              lambda: M.mamba_inner_bwd(*a, **kw),
+              lambda: M.mamba_inner_bwd_plain(*a, **kw))
+    rec19['ms'] = time_ms(lambda: M.mamba_inner_bwd(*a, **kw), reps=10)
+    rec19['plain_ms'] = time_ms(lambda: M.mamba_inner_bwd_plain(*a, **kw),
+                                reps=1, warmup=0)
+    # The yardstick: its products through torch.matmul at the same shapes
+    # (bf16; dt_proj's three in fp32).
+    h2 = a[0].reshape(M_rows, SH)
+    w_in, w_x, w_dt, w_out = a[1], a[4], a[5], a[9]
+    u = _rand(gen, M_rows, SD, dtype=bf)
+    dxz = _rand(gen, M_rows, 2 * SD, dtype=bf)
+    dxd = _rand(gen, M_rows, nx, dtype=bf)
+    lr, dpre = _rand(gen, M_rows, SR), _rand(gen, M_rows, SD)
+    rec19['library_ms'] = time_ms(lambda: (
+        h2 @ w_in, u @ w_x, h2 @ w_out.t(), dxd @ w_x.t(), u.t() @ dxd,
+        lr @ w_dt, dpre @ w_dt.t(), lr.t() @ dpre, dxz @ w_in.t(),
+        h2.t() @ dxz, u.t() @ h2), reps=10)
+    # Per token: bf16 products (in_proj and x_proj recomputed, dy, x_proj's
+    # adjoint and dW_x, dh and dW_in, dW_out) on the tensor cores; dt_proj
+    # forward, its adjoint and dW_dt in fp32; on the SFU exp(delta A) over
+    # d x N, softplus's exp and log1p and three sigmoids (xc, z, pre) a
+    # channel. Bytes: h, g and dh, the chunk entry states, the weights.
+    n_chunks = SL // 128
+    wbytes = 2 * (SH * 2 * SD + SD * nx + SD * SH + 5 * SD) \
+        + 4 * (SR * SD + 3 * SD + SD * SN)
+    rec19['bound_ms'], rec19['bound_by'] = bound_mixed(
+        3 * M_rows * SH * 2 + TB * n_chunks * SN * SD * 4 + 2 * wbytes,
+        ((2 * M_rows * (3 * SH * 2 * SD + 3 * SD * nx + 2 * SD * SH),
+          PEAK_BF16_TENSOR),
+         (3 * 2 * M_rows * SR * SD, PEAK_FP32),
+         (M_rows * SD * (SN + 5), PEAK_SFU)))
+    rec19['shape'] = [TB, SL, SH, SD]
+    del a, h2, u, dxz, dxd, lr, dpre
+
+    rec15 = results['ssm_scan_bwd'][str(bf)]
+    a, kw = k15_args(bf, TB, SL)
+    _bwd_case(rec15, f'ssm_scan_bwd B={TB} L={SL}', bf, K15_OUT,
+              lambda: M.ssm_scan_bwd(*a, **kw),
+              lambda: M.ssm_scan_bwd_plain(*a, **kw))
+    rec15['ms'] = time_ms(lambda: M.ssm_scan_bwd(*a, **kw), reps=10)
+    rec15['plain_ms'] = time_ms(lambda: M.ssm_scan_bwd_plain(*a, **kw),
+                                reps=1, warmup=0)
+    # Bytes: u, z, g (bf16) and delta (fp32) in and du, dz (bf16), ddelta
+    # (fp32) out per (row, channel); B, C in and dB, dC out per row; the
+    # chunk entry states. Operations: exp(delta A) per state and the gate's
+    # sigmoid, on the SFU.
+    rec15['bound_ms'], rec15['bound_by'] = bound_mixed(
+        M_rows * SD * 18 + M_rows * 4 * SN * 2 + TB * n_chunks * SN * SD * 4
+        + 4 * SD * (2 * SN + 2),
+        ((M_rows * SD * (SN + 1), PEAK_SFU),))
+    rec15['library_ms'] = None
+    rec15['shape'] = [TB, SL, SD]
+    del a
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the model
 # ---------------------------------------------------------------------------
@@ -977,22 +1149,70 @@ def check_tiny_dit():
           'logit_std': outs[0].std().item()})
 
 
-def check_tiny_train():
-    """A tiny float32 train step, fused flags on, dropout 0, on the card
-    against the CPU, on one batch and one injected (t, x_t). Bars, set
-    before the first run: the loss to 1e-5 relative; every parameter
-    gradient to 1e-4 of its largest magnitude on the CPU (sums in
-    another order, and the embedding's scatter-add in no fixed order on
+def _train_step_card_vs_cpu(name, build, sd, spec, batch, optim, avg):
+    """One float32 train step of `build()` loaded with `sd`, on one batch
+    and one injected (t, x_t) (`batch` = (x0, t, xt, cond)), card against
+    CPU. Bars, set before the first run: the loss to 1e-5 relative; every
+    parameter gradient to 1e-4 of its largest magnitude on the CPU (sums
+    in another order, and the embedding's scatter-add in no fixed order on
     the card); and, fed the CPU's gradients, the parameters and the EMA
-    shadow after one clip + AdamW + EMA update to 1e-6."""
+    shadow after one clip + AdamW + EMA update to 1e-6. Returns the
+    errors."""
+    from ddg_tpu_torch.diffusion import diffusion_loss_given
+    from ddg_tpu_torch.models import make_model_apply
+    from ddg_tpu_torch.runtime import averaging
+    from ddg_tpu_torch.runtime.optim import make_optimizer
+    x0, t, xt, cond = batch
+    names = list(sd)
+    res = {}
+    for dev in ('cpu', DEV):
+        m = build()
+        m.load_state_dict(sd, strict=True)
+        apply = make_model_apply(m.to(dev))
+        nll = diffusion_loss_given(
+            spec, apply, apply.params, x0.to(dev), t.to(dev), xt.to(dev),
+            cond.to(dev), torch.Generator(device=dev), train=True,
+            label_smoothing=0.0)['loss']
+        loss = nll.mean()
+        grads = torch.autograd.grad(loss, [apply.params[k] for k in names])
+        res[dev] = (loss.item(), [g.cpu() for g in grads])
+    (l_cpu, g_cpu), (l_dev, g_dev) = res['cpu'], res[DEV]
+    loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
+    check(math.isfinite(l_dev) and loss_err <= 1e-5,
+          f'{name}: card loss {l_dev} vs CPU {l_cpu}')
+    grad_err = 0.0
+    for k, a, b in zip(names, g_cpu, g_dev):
+        e = (a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
+        check(e <= 1e-4, f'{name}: grad of {k} differs by {e} of its '
+                         f'largest magnitude')
+        grad_err = max(grad_err, e)
+    after = {}
+    for dev in ('cpu', DEV):
+        masters = {k: sd[k].to(dev, copy=True) for k in names}
+        ema = averaging.init(avg, masters)
+        make_optimizer(optim, list(masters.values())).step(
+            [g.to(dev) for g in g_cpu])
+        averaging.update(avg, ema, masters)
+        after[dev] = [v.cpu() for v in (*masters.values(),
+                                        *ema.shadow_params.values())]
+    step_err = max((a - b).abs().max().item()
+                   for a, b in zip(after['cpu'], after[DEV]))
+    check(step_err <= 1e-6, f'{name}: parameters after the update differ '
+                            f'by {step_err}')
+    return {'loss': l_cpu, 'loss_rel_err': loss_err,
+            'max_grad_err_of_max': grad_err, 'update_max_abs_err': step_err}
+
+
+def check_tiny_train():
+    """A tiny float32 DiT train step, fused flags on, dropout 0, card
+    against CPU (`_train_step_card_vs_cpu`)."""
     import numpy as np
     from ddg_tpu_torch.convert import make_reference_dit_state_dict
-    from ddg_tpu_torch.diffusion import (DiffusionSpec, diffusion_loss_given,
-                                         sample_corruption)
-    from ddg_tpu_torch.models import DIT, DITConfig, make_model_apply
+    from ddg_tpu_torch.diffusion import DiffusionSpec, sample_corruption
+    from ddg_tpu_torch.models import DIT, DITConfig
     from ddg_tpu_torch.ops.noise_schedules import LogLinearNoise
     from ddg_tpu_torch.runtime import averaging
-    from ddg_tpu_torch.runtime.optim import OptimSpec, make_optimizer
+    from ddg_tpu_torch.runtime.optim import OptimSpec
     cfg = DITConfig(hidden_size=128, cond_dim=32, length=32, n_blocks=2,
                     n_heads=2, vocab_size=101, num_classes=2, dropout=0.0,
                     compute_dtype=torch.float32, fused_rope_attn=True,
@@ -1006,50 +1226,13 @@ def check_tiny_train():
                          vocab_size=101, mask_index=100, num_classes=2)
     gen = torch.Generator().manual_seed(3)
     x0 = torch.randint(0, 100, (8, 32), generator=gen, dtype=torch.int32)
-    mask = torch.ones((8, 32))
     cond = torch.tensor([0, 1] * 4, dtype=torch.int32)
     t, xt = sample_corruption(spec, x0, gen)
-    names = list(sd)
-    res = {}
-    for dev in ('cpu', DEV):
-        m = DIT(cfg)
-        m.load_state_dict(sd, strict=True)
-        apply = make_model_apply(m.to(dev))
-        nll = diffusion_loss_given(
-            spec, apply, apply.params, x0.to(dev), t.to(dev), xt.to(dev),
-            cond.to(dev), torch.Generator(device=dev), train=True,
-            label_smoothing=0.0)['loss']
-        loss = (nll * mask.to(dev)).sum() / mask.sum()
-        grads = torch.autograd.grad(loss, [apply.params[k] for k in names])
-        res[dev] = (loss.item(), [g.cpu() for g in grads])
-    (l_cpu, g_cpu), (l_dev, g_dev) = res['cpu'], res[DEV]
-    loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
-    check(math.isfinite(l_dev) and loss_err <= 1e-5,
-          f'tiny train: card loss {l_dev} vs CPU {l_cpu}')
-    grad_err = 0.0
-    for k, a, b in zip(names, g_cpu, g_dev):
-        e = (a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
-        check(e <= 1e-4, f'tiny train: grad of {k} differs by {e} of its '
-                         f'largest magnitude')
-        grad_err = max(grad_err, e)
-    optim = OptimSpec(lr=1e-3, weight_decay=0.01, num_warmup_steps=0)
-    avg = averaging.AveragingSpec.ema(0.9)
-    after = {}
-    for dev in ('cpu', DEV):
-        masters = {k: sd[k].to(dev, copy=True) for k in names}
-        ema = averaging.init(avg, masters)
-        make_optimizer(optim, list(masters.values())).step(
-            [g.to(dev) for g in g_cpu])
-        averaging.update(avg, ema, masters)
-        after[dev] = [v.cpu() for v in (*masters.values(),
-                                        *ema.shadow_params.values())]
-    step_err = max((a - b).abs().max().item()
-                   for a, b in zip(after['cpu'], after[DEV]))
-    check(step_err <= 1e-6, f'tiny train: parameters after the update '
-                            f'differ by {step_err}')
-    emit({'phase': 'tiny_train_card_vs_cpu', 'loss': l_cpu,
-          'loss_rel_err': loss_err, 'max_grad_err_of_max': grad_err,
-          'update_max_abs_err': step_err})
+    rec = _train_step_card_vs_cpu(
+        'tiny train', lambda: DIT(cfg), sd, spec, (x0, t, xt, cond),
+        OptimSpec(lr=1e-3, weight_decay=0.01, num_warmup_steps=0),
+        averaging.AveragingSpec.ema(0.9))
+    emit({'phase': 'tiny_train_card_vs_cpu', **rec})
 
 
 def _launch_check(name, kernels, launches, per_step, steps):
@@ -1145,7 +1328,7 @@ def run_main_path(kernels):
 
 
 BACKWARD = ('fused_rope_attention_bwd', 'ln_modulate_bwd',
-            'gate_res_ln_modulate_bwd')
+            'gate_res_ln_modulate_bwd', 'mamba_inner_bwd', 'ssm_scan_bwd')
 # Launches per micro-step of the training path: 12 blocks, and the final
 # norm's ln_modulate.
 PER_MICRO_STEP = {'fused_rope_attention': 12, 'fused_rope_attention_bwd': 12,
@@ -1568,6 +1751,197 @@ def run_dimamba_path(kernels, steps=128, budget_s=60.0, unfused_steps=4):
     return out
 
 
+def check_tiny_dimamba_train():
+    """`dimamba_flagship(tiny=True)`'s model in float32 (matrices x4, dropout
+    0) with the training run's optimizer and EMA, card against CPU
+    (`_train_step_card_vs_cpu`), on both kernel routes: the fused block
+    (K18 and K19 on the card, their plain versions on the CPU) and the
+    unfused chain around the scan (K14, K15)."""
+    import dataclasses
+    from ddg_tpu_torch.diffusion import sample_corruption
+    from ddg_tpu_torch.entry import dimamba_train_flagship
+    from ddg_tpu_torch.models import DiMamba
+    run = dimamba_train_flagship(device='cpu', tiny=True)
+    sd = {k: v.float() * (4 if v.ndim >= 2 and 'A_log' not in k else 1)
+          for k, v in run.model.state_dict().items()}
+    gen = torch.Generator().manual_seed(8)
+    data = run.batch(gen)
+    x0, cond = data['input_ids'][0], data['cond'][0]
+    t, xt = sample_corruption(run.spec, x0, gen)
+    optim = dataclasses.replace(run.optim, num_warmup_steps=0)
+    rec = {}
+    for route, kw in (('fused_block', dict(fused_block=True)),
+                      ('scan_kernel', dict(fused_block=False,
+                                           pallas_scan=True))):
+        cfg = dataclasses.replace(run.cfg, compute_dtype=torch.float32,
+                                  dropout=0.0, **kw)
+        rec[route] = _train_step_card_vs_cpu(
+            f'tiny DiMamba train {route}', lambda: DiMamba(cfg), sd,
+            run.spec, (x0, t, xt, cond), optim, run.averaging)
+    emit({'phase': 'tiny_dimamba_train_card_vs_cpu', **rec})
+
+
+def _micro_step_fn(run, model, accum_steps=1):
+    """A train step of `accum_steps` micro-batches for `model` (the run's
+    optimizer and averaging), with its own train state."""
+    from ddg_tpu_torch.models import make_model_apply
+    from ddg_tpu_torch.runtime.train_state import (init_train_state,
+                                                   make_train_step)
+    apply = make_model_apply(model)
+    state = init_train_state(torch.Generator(device=DEV).manual_seed(3),
+                             apply.params, run.optim, run.averaging)
+    return state, make_train_step(run.spec, apply, run.optim, run.averaging,
+                                  accum_steps=accum_steps)
+
+
+def run_dimamba_train_path(kernels, warmup=1, steps=3):
+    """The Species10 training run at full width and depth: warm-up steps,
+    then `steps` timed ones (tokens/s, ms/step, peak memory, loss, grad
+    norm), exact launches per micro-step (16 K18 and 16 K19: accumulating,
+    the step skips the t=0 forward that `zero_recon_loss` keeps only as a
+    metric), 0 host syncs per step and the card's idle share over one
+    profiled step. Then a step of the same weights built with
+    `fused_block=False`, two micro-batches of a quarter of the rows each:
+    exactly 16 K14 and 16 K15 per micro-step.
+    Returns the launches of each path."""
+    import dataclasses
+    from ddg_tpu_torch.entry import dimamba_train_flagship
+    from ddg_tpu_torch.models import DiMamba
+    t0 = time.perf_counter()
+    run = dimamba_train_flagship(device=DEV)
+    cfg = run.cfg
+    emit({'phase': 'dimamba_train_flagship',
+          'seconds': time.perf_counter() - t0,
+          'parameters': sum(p.numel() for p in run.apply_fn.params.values()),
+          'hidden': cfg.hidden_size, 'd_inner': cfg.d_inner,
+          'blocks': cfg.n_blocks, 'length': cfg.length,
+          'global_batch': run.global_batch, 'micro_batch': run.micro_batch,
+          'accum_steps': run.accum_steps})
+    batch = run.batch(torch.Generator(device=DEV).manual_seed(1))
+    for _ in range(warmup):
+        run.step(run.state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = [run.step(run.state, batch)[1] for _ in range(steps)]
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / steps
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_micro = steps * run.accum_steps
+    per_fwd = 2 * cfg.n_blocks
+    _launch_check('species10 training', kernels, launches,
+                  {'mamba_inner': per_fwd, 'mamba_inner_bwd': per_fwd},
+                  n_micro)
+    n_syncs = _sync_check('species10 training',
+                          lambda: run.step(run.state, batch))
+    busy, span, lead = device_busy_ms(lambda: run.step(run.state, batch))
+    loss = [m['loss'].item() for m in metrics]
+    gnorm = [m['grad_norm'].item() for m in metrics]
+    ms_micro = secs * 1e3 / run.accum_steps
+    emit({'phase': 'species10_train_main_path', 'steps': steps,
+          'ms_per_step': secs * 1e3,
+          'tokens_per_s': run.global_batch * cfg.length / secs,
+          'ms_per_micro_step': ms_micro,
+          'peak_memory_bytes': peak, 'loss': loss, 'grad_norm': gnorm,
+          'lr': metrics[-1]['lr'].item(),
+          'launches_per_micro_step': {k: v / n_micro
+                                      for k, v in launches.items() if v},
+          'host_syncs_in_a_step': n_syncs,
+          'profiled_busy_ms': busy, 'profiled_span_ms': span,
+          'profiled_lead_ms': lead, 'idle_share': 1.0 - busy / span})
+    check(all(math.isfinite(v) for v in loss + gnorm),
+          'species10 training: non-finite loss or grad norm')
+
+    # The unfused route: a step of the same weights, two micro-batches of a
+    # quarter of the rows each (PyTorch's autograd keeps the unfused chain's
+    # intermediates, about 4x the fused route's activations).
+    rows = max(1, run.micro_batch // 4)
+    del metrics
+    torch.cuda.empty_cache()
+    model = DiMamba(dataclasses.replace(cfg, fused_block=False))
+    model.load_state_dict(run.model.state_dict(), strict=True)
+    state, step = _micro_step_fn(run, model.to(DEV), accum_steps=2)
+    micro = {k: v[:, :rows] for k, v in batch.items()}
+    step(state, micro)                            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    unfused_loss = step(state, micro)[1]['loss'].item()
+    torch.cuda.synchronize()
+    ms_unfused = (time.perf_counter() - t0) * 1e3 / 2
+    unfused = {k: fn.launches for k, fn in kernels.items()}
+    _launch_check('species10 training unfused', kernels, unfused,
+                  {'ssm_scan': per_fwd, 'ssm_scan_bwd': per_fwd}, 2)
+    emit({'phase': 'species10_train_unfused_route', 'rows': rows,
+          'accum_steps': 2,
+          'ms_per_micro_step': ms_unfused,
+          'ms_per_row': ms_unfused / rows,
+          'fused_ms_per_row': ms_micro / run.micro_batch,
+          'unfused_over_fused_per_row': (ms_unfused / rows)
+          / (ms_micro / run.micro_batch),
+          'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+          'loss': unfused_loss,
+          'launches': {k: v for k, v in unfused.items() if v}})
+    check(math.isfinite(unfused_loss), 'species10 unfused: non-finite loss')
+    return {'species10_training': launches,
+            'species10_training_unfused': unfused}
+
+
+def check_dimamba_learning(micro_steps=30, rows=4):
+    """Both kernel routes of the Species10 DiMamba from the same weights
+    and the same generator, lr 2e-3 without warmup, `micro_steps` steps on
+    one micro-batch of `rows` sequences whose bases depend on the class.
+    Bars, set before the first run: each route's mean loss over the last 5
+    steps at least 10% below that over the first 5; the routes' last-5
+    means closer than the pooled std of their last-10 losses (the criterion
+    of the TPU's fused-vs-unfused convergence check,
+    artifacts/round5/megakernel_parity.json)."""
+    import dataclasses
+    from ddg_tpu_torch.entry import DNA_BASES, dimamba_train_flagship
+    from ddg_tpu_torch.models import DiMamba
+    run = dimamba_train_flagship(device=DEV, seed=2)
+    run.optim = dataclasses.replace(run.optim, num_warmup_steps=0)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    cond = torch.arange(rows, device=DEV, dtype=torch.int32) \
+        % run.cfg.num_classes
+    n_bases = DNA_BASES[1] - DNA_BASES[0]
+    # Class c draws base c mod 5 with probability 0.7, the others evenly.
+    probs = torch.full((rows, n_bases), 0.3 / (n_bases - 1), device=DEV)
+    probs[torch.arange(rows), cond.long() % n_bases] = 0.7
+    ids = torch.multinomial(probs, run.cfg.length, replacement=True,
+                            generator=gen) + DNA_BASES[0]
+    batch = {'input_ids': ids.int(), 'cond': cond,
+             'attention_mask': torch.ones_like(ids, dtype=torch.float32)}
+    out, t0 = {}, time.perf_counter()
+    for route, fused in (('fused_block', True), ('scan_kernel', False)):
+        model = DiMamba(dataclasses.replace(run.cfg, fused_block=fused))
+        model.load_state_dict(run.model.state_dict(), strict=True)
+        state, step = _micro_step_fn(run, model.to(DEV))
+        losses = torch.stack([step(state, batch)[1]['loss']
+                              for _ in range(micro_steps)]).tolist()
+        check(all(math.isfinite(v) for v in losses),
+              f'learning {route}: non-finite loss')
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        check(last <= 0.9 * first, f'learning {route}: loss fell from '
+                                   f'{first} to {last}, less than 10%')
+        out[route] = {'loss_first5': first, 'loss_last5': last,
+                      'drop': 1 - last / first, 'losses': losses}
+    tails = [out[r]['losses'][-10:] for r in out]
+    pooled = math.sqrt(sum(statistics.variance(t) for t in tails) / 2)
+    gap = abs(out['fused_block']['loss_last5']
+              - out['scan_kernel']['loss_last5'])
+    emit({'phase': 'species10_learning_check', 'steps': micro_steps,
+          'rows': rows, 'seconds': time.perf_counter() - t0,
+          'last5_gap': gap, 'pooled_tail_std': pooled, **out})
+    check(gap < pooled, f'learning: fused and unfused routes end {gap} '
+                        f'apart, over the pooled tail std {pooled}')
+
+
 def run_unet_path(kernels, flag, n_norms, steps=128):
     """The UNet main path at full width and depth: D-CFG (gamma 2) and
     unguided ancestral sampling, T=128, B=32, with exact launches per step
@@ -1656,6 +2030,11 @@ SOURCES = {
                     'ddg_tpu/ops/mamba_block_pallas.py:511'),
     'ssm_scan': ('ddg_tpu_torch/csrc/mamba.cu',
                  'ddg_tpu/ops/selective_scan_pallas.py:618'),
+    # K19 and K15 reach pl.pallas_call through _mk_bwd_call and _bwd_call.
+    'mamba_inner_bwd': ('ddg_tpu_torch/csrc/mamba_bwd.cu',
+                        'ddg_tpu/ops/mamba_block_pallas.py:553'),
+    'ssm_scan_bwd': ('ddg_tpu_torch/csrc/mamba_bwd.cu',
+                     'ddg_tpu/ops/selective_scan_pallas.py:653'),
 }
 
 
@@ -1683,6 +2062,8 @@ def main():
         'fused_group_norm_act': groupnorm.fused_group_norm_act,
         'mamba_inner': mamba.mamba_inner,
         'ssm_scan': mamba.ssm_scan,
+        'mamba_inner_bwd': mamba.mamba_inner_bwd,
+        'ssm_scan_bwd': mamba.ssm_scan_bwd,
     }
 
     phase_environment()
@@ -1714,17 +2095,21 @@ def main():
     check_attention_bwd(results)
     check_uniform_species(results, tv)
     check_mamba(results)
+    check_mamba_bwd(results)
     emit({'phase': 'kernels_vs_plain', 'results': results,
           'internal_rng': tv})
     check_tiny_dit()
     check_tiny_train()
     check_tiny_unet()
     check_tiny_dimamba()
+    check_tiny_dimamba_train()
     by_path = {'serving': run_main_path(kernels),
                'training': run_train_path(kernels),
                'unet_serving': run_unet_path(kernels, unet, n_norms)}
     by_path.update(run_dimamba_path(kernels))
+    by_path.update(run_dimamba_train_path(kernels))
     check_learning()
+    check_dimamba_learning()
 
     rows = []
     for name in kernels:
@@ -1740,7 +2125,8 @@ def main():
                      'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                      'bound_by': r['bound_by'],
                      'library_ms': r.get('library_ms')})
-        for key in ('ms_covers', 'products_matmul_ms'):
+        for key in ('ms_covers', 'products_matmul_ms', 'shape',
+                    'sum_err_of_tol'):
             if key in r:
                 rows[-1][key] = r[key]
         if 'species10' in results[name]:

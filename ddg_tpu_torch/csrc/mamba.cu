@@ -43,388 +43,9 @@
 // take the exps of delta A (4.3 G each), so this design spends at least
 // 2.06 ms on the SFU; its workspace traffic (about 9.5 GB) costs 2.8 ms.
 
-#include "common.cuh"
+#include "mamba.cuh"
 
 namespace {
-
-using ddg::from_f32;
-using ddg::ld32;
-using ddg::mma_16816;
-using ddg::pack_bf16;
-using ddg::round_to;
-using ddg::to_f32;
-using bf16 = __nv_bfloat16;
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxN = 16;       // states a thread holds
-constexpr int kMaxR = 32;       // dt_rank
-constexpr int kSmemMax = 232448;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 1 / (1 + exp(-x)); the correctly rounded reciprocal is the division's result.
-__device__ __forceinline__ float sigmoid(float x) { return __frcp_rn(1.f + expf(-x)); }
-
-// log(1 + exp(x)) as jax.nn.softplus: max(x, 0) + log1p(exp(-|x|)).
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-cudaError_t allow_smem(const void* fn, size_t bytes) {
-  if (bytes > kSmemMax) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// --- products: C[M, N] = A[M, K] W[N, K]^T, rounded to T --------------------
-
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kGemmThreads = 256;
-constexpr int kGRow = kBK + 8;  // padded smem row: fragment loads hit 32 banks
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-// bf16: a block of 8 warps owns a 128 x 128 tile of C, a warp 32 x 64 (2 x 8
-// mma tiles); k advances 32 at a time through a two-stage cp.async ring,
-// rows past M or N loaded as zeros. K must be a multiple of 8.
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                     bf16* __restrict__ C, int M, int N, int K, int lda, int ldc) {
-  __shared__ __align__(16) bf16 As[2][kBM * kGRow];
-  __shared__ __align__(16) bf16 Ws[2][kBN * kGRow];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  auto load = [&](int stage, int k0) {
-    for (int i = threadIdx.x; i < kBM * (kBK / 8); i += kGemmThreads) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8, k = k0 + c;
-      const bool ka = m0 + r < M && k < K, kw = n0 + r < N && k < K;
-      cp_async16(&As[stage][r * kGRow + c], ka ? A + static_cast<size_t>(m0 + r) * lda + k : A,
-                 ka);
-      cp_async16(&Ws[stage][r * kGRow + c], kw ? W + static_cast<size_t>(n0 + r) * K + k : W,
-                 kw);
-    }
-  };
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 64;
-  const int g = lane >> 2, t = lane & 3;
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int nk = (K + kBK - 1) / kBK;
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, (kt + 1) * kBK);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    const bf16* as = As[kt & 1];
-    const bf16* ws = Ws[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const bf16* p = as + (wm + i * 16 + g) * kGRow + kk * 16 + 2 * t;
-        a[i][0] = ld32(p);
-        a[i][1] = ld32(p + 8 * kGRow);
-        a[i][2] = ld32(p + 8);
-        a[i][3] = ld32(p + 8 * kGRow + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bf16* q = ws + (wn + j * 8 + g) * kGRow + kk * 16 + 2 * t;
-        const uint32_t b0 = ld32(q), b1 = ld32(q + 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_16816(acc[i][j], a[i][0], a[i][1], a[i][2], a[i][3], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + wn + j * 8 + 2 * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + wm + i * 16 + g + 8 * h;
-        if (r >= M || c >= N) continue;
-        bf16* dst = C + static_cast<size_t>(r) * ldc + c;
-        if (c + 1 < N) {
-          *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        } else {
-          *dst = __float2bfloat16_rn(acc[i][j][2 * h]);
-        }
-      }
-    }
-}
-
-// fp32: a block owns 64 x 64 of C, a thread 4 x 4, in full fp32 FMAs.
-__global__ void __launch_bounds__(256)
-    gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                    float* __restrict__ C, int M, int N, int K, int lda, int ldc) {
-  __shared__ float As[16][65];
-  __shared__ float Ws[16][65];
-  const int m0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    for (int i = threadIdx.x; i < 64 * 16; i += 256) {
-      const int r = i >> 4, k = i & 15;
-      As[k][r] = m0 + r < M && k0 + k < K ? A[static_cast<size_t>(m0 + r) * lda + k0 + k] : 0.f;
-      Ws[k][r] = n0 + r < N && k0 + k < K ? W[static_cast<size_t>(n0 + r) * K + k0 + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = As[k][ty * 4 + i];
-        b[i] = Ws[k][tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = m0 + ty * 4 + i, c = n0 + tx * 4 + j;
-      if (r < M && c < N) C[static_cast<size_t>(r) * ldc + c] = acc[i][j];
-    }
-}
-
-cudaError_t gemm(const bf16* A, const bf16* W, bf16* C, int M, int N, int K, int lda, int ldc,
-                 cudaStream_t s) {
-  const uintptr_t mis = reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(W);
-  if (K % 8 || lda % 8 || ldc % 2 || mis % 16) return cudaErrorMisalignedAddress;
-  gemm_bf16_kernel<<<dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM), kGemmThreads, 0, s>>>(
-      A, W, C, M, N, K, lda, ldc);
-  return cudaGetLastError();
-}
-
-cudaError_t gemm(const float* A, const float* W, float* C, int M, int N, int K, int lda, int ldc,
-                 cudaStream_t s) {
-  gemm_f32_kernel<<<dim3((N + 63) / 64, (M + 63) / 64), 256, 0, s>>>(A, W, C, M, N, K, lda, ldc);
-  return cudaGetLastError();
-}
-
-// --- front: conv + SiLU, x_proj, dt_proj + softplus -------------------------
-
-constexpr int kFrontRows = 64;
-constexpr int kFrontThreads = 256;
-constexpr int kRowBatch = 8;    // rows of x a thread loads at once
-
-// x_proj of the tile's u rows (us, row stride us_ld) on the tensor cores:
-// warps take (16-row, 8-column) tiles in turn; columns past nx are zero.
-// x_dbl goes out rounded to bf16; its dt_lr columns also go to lr (fp32,
-// row stride lr_ld) for dt_proj.
-__device__ void xproj_tile(const bf16* us, int us_ld, const bf16* __restrict__ wx, int d, int nx,
-                           int R, float* lr, int lr_ld, int rows, bf16* __restrict__ xdbl,
-                           size_t row0) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_tiles = (nx + 7) / 8;
-  for (int tile = warp; tile < (kFrontRows / 16) * n_tiles; tile += kFrontThreads / 32) {
-    const int mt = tile / n_tiles, nt = tile % n_tiles;
-    const int n = nt * 8 + g;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int k0 = 0; k0 < d; k0 += 16) {
-      const bf16* p = us + (mt * 16 + g) * us_ld + k0 + 2 * t;
-      const bf16* q = wx + static_cast<size_t>(n) * d + k0 + 2 * t;
-      const uint32_t b0 = n < nx ? ld32(q) : 0u, b1 = n < nx ? ld32(q + 8) : 0u;
-      mma_16816(acc, ld32(p), ld32(p + 8 * us_ld), ld32(p + 8), ld32(p + 8 * us_ld + 8), b0, b1);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = mt * 16 + g + (e >> 1) * 8, c = nt * 8 + 2 * t + (e & 1);
-      if (c >= nx) continue;
-      const bf16 v = __float2bfloat16_rn(acc[e]);
-      if (c < R) lr[r * lr_ld + c] = __bfloat162float(v);
-      if (r < rows) xdbl[(row0 + r) * nx + c] = v;
-    }
-  }
-}
-
-// The same on the CUDA cores, for fp32.
-__device__ void xproj_tile(const float* us, int us_ld, const float* __restrict__ wx, int d,
-                           int nx, int R, float* lr, int lr_ld, int rows,
-                           float* __restrict__ xdbl, size_t row0) {
-  for (int i = threadIdx.x; i < kFrontRows * nx; i += kFrontThreads) {
-    const int r = i / nx, c = i % nx;
-    const float* a = us + r * us_ld;
-    const float* w = wx + static_cast<size_t>(c) * d;
-    float acc = 0.f;
-    for (int k = 0; k < d; ++k) acc = fmaf(a[k], w[k], acc);
-    if (c < R) lr[r * lr_ld + c] = acc;
-    if (r < rows) xdbl[(row0 + r) * nx + c] = acc;
-  }
-}
-
-constexpr int kConvTaps = 4;
-
-// One block per (64-row tile, b), for K conv taps. Threads own channels
-// and walk the tile's rows with the last K values of x in registers (the
-// tile's K - 1 halo rows read first, zeros before the sequence starts),
-// loading a batch of rows at a time; u goes to shared memory for x_proj,
-// whose rounded dt_lr columns feed dt_proj (fp32 FMAs, float4 reads).
-template <typename T, int K>
-__global__ void __launch_bounds__(kFrontThreads)
-    mamba_front_kernel(const T* __restrict__ xz, const T* __restrict__ cw,
-                       const T* __restrict__ cb, const T* __restrict__ wx,
-                       const float* __restrict__ wdt, const float* __restrict__ bdt,
-                       T* __restrict__ u, T* __restrict__ xdbl, float* __restrict__ delta, int L,
-                       int d, int R, int N) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int us_ld = d + 8, lr_ld = (R + 3) / 4 * 4;
-  const int nx = R + 2 * N;
-  T* us = reinterpret_cast<T*>(smem);                     // rows x us_ld
-  float* lr = reinterpret_cast<float*>(us + kFrontRows * us_ld);  // rows x lr_ld
-  const int b = blockIdx.y, t0 = blockIdx.x * kFrontRows;
-  const int rows = min(kFrontRows, L - t0);
-  const size_t row0 = static_cast<size_t>(b) * L + t0;
-  const int ld = 2 * d;
-  for (int i = threadIdx.x; i < kFrontRows * lr_ld; i += kFrontThreads) lr[i] = 0.f;
-
-  for (int ch = threadIdx.x; ch < d; ch += kFrontThreads) {
-    // win[K - 1] is x_t, win[K - 1 - i] is x_{t-i}.
-    float win[K], w[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      w[j] = to_f32(cw[j * d + ch]);
-      const int tt = t0 - K + j;  // at win[j - 1] once row t0 shifts in
-      win[j] = tt >= 0 && j >= 1 ? to_f32(xz[(static_cast<size_t>(b) * L + tt) * ld + ch]) : 0.f;
-    }
-    const float bias = to_f32(cb[ch]);
-    // Rows go in batches whose loads are all issued first: one row at a
-    // time leaves the thread waiting on device memory for every row.
-    for (int r0 = 0; r0 < kFrontRows; r0 += kRowBatch) {
-      float xv[kRowBatch];
-#pragma unroll
-      for (int i = 0; i < kRowBatch; ++i)
-        xv[i] = r0 + i < rows ? to_f32(xz[(row0 + r0 + i) * ld + ch]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < kRowBatch; ++i) {
-        const int r = r0 + i;
-#pragma unroll
-        for (int j = 0; j < K - 1; ++j) win[j] = win[j + 1];
-        win[K - 1] = xv[i];
-        if (r >= rows) {
-          us[r * us_ld + ch] = from_f32<T>(0.f);
-          continue;
-        }
-        float acc = round_to<T>(win[0] * w[0]);
-#pragma unroll
-        for (int j = 1; j < K; ++j) acc = round_to<T>(acc + round_to<T>(win[j] * w[j]));
-        const float xc = round_to<T>(acc + bias);
-        const T v = from_f32<T>(xc * sigmoid(xc));
-        us[r * us_ld + ch] = v;
-        u[(row0 + r) * d + ch] = v;
-      }
-    }
-  }
-  __syncthreads();
-  xproj_tile(us, us_ld, wx, d, nx, R, lr, lr_ld, rows, xdbl, row0);
-  __syncthreads();
-
-  for (int ch = threadIdx.x; ch < d; ch += kFrontThreads) {
-    float wr[kMaxR];
-#pragma unroll
-    for (int k = 0; k < kMaxR; ++k) wr[k] = k < R ? wdt[ch * R + k] : 0.f;
-    const float bias = bdt[ch];
-    for (int r = 0; r < rows; ++r) {
-      const float* lrr = lr + r * lr_ld;
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < kMaxR; k += 4) {
-        if (k >= R) break;
-        const float4 v = *reinterpret_cast<const float4*>(lrr + k);
-        acc = fmaf(v.x, wr[k], acc);
-        acc = fmaf(v.y, wr[k + 1], acc);
-        acc = fmaf(v.z, wr[k + 2], acc);
-        acc = fmaf(v.w, wr[k + 3], acc);
-      }
-      delta[(row0 + r) * d + ch] = softplus(acc + bias);
-    }
-  }
-}
-
-template <typename T, int K>
-cudaError_t front_k(const T* xz, const T* cw, const T* cb, const T* wx, const float* wdt,
-                    const float* bdt, T* u, T* xdbl, float* delta, int Bt, int L, int d, int R,
-                    int N, cudaStream_t s) {
-  const size_t smem =
-      sizeof(T) * kFrontRows * (d + 8) + sizeof(float) * kFrontRows * ((R + 3) / 4 * 4);
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(mamba_front_kernel<T, K>), smem);
-  if (err != cudaSuccess) return err;
-  mamba_front_kernel<T, K><<<dim3((L + kFrontRows - 1) / kFrontRows, Bt), kFrontThreads, smem,
-                             s>>>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, L, d, R, N);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t front(const T* xz, const T* cw, const T* cb, const T* wx, const float* wdt,
-                  const float* bdt, T* u, T* xdbl, float* delta, int Bt, int L, int d, int K, int R,
-                  int N, cudaStream_t s) {
-  // Built for the tap count every configuration uses (d_conv 4 in
-  // configs/model/dimamba.yaml); another count is refused.
-  if (R > kMaxR || (sizeof(T) == 2 && d % 16) || K != kConvTaps) return cudaErrorInvalidValue;
-  return front_k<T, kConvTaps>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt, L, d, R, N, s);
-}
-
-// --- the scan ---------------------------------------------------------------
-
-constexpr int kScanThreads = 128;  // channels of one block
-
-// B (and C) rows of chunk c into shared memory as fp32, kMaxN to a row
-// (zeros past N), so that a thread reads a row as four float4s.
-template <typename T>
-__device__ void stage_rows(const T* __restrict__ src, int ld, size_t row0, int rows, int N,
-                           float* dst) {
-  for (int i = threadIdx.x; i < rows * kMaxN; i += blockDim.x) {
-    const int r = i / kMaxN, n = i % kMaxN;
-    dst[i] = n < N ? to_f32(src[(row0 + r) * ld + n]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_row(const float* p, float (&v)[kMaxN]) {
-#pragma unroll
-  for (int i = 0; i < kMaxN; i += 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p + i);
-    v[i] = q.x;
-    v[i + 1] = q.y;
-    v[i + 2] = q.z;
-    v[i + 3] = q.w;
-  }
-}
-
-// A's row of channel ch, round-tripped as -exp(log(-A)) and times log2 e;
-// 0 past N (a = 1, and B = C = 0 there, so those states stay 0).
-__device__ __forceinline__ void load_a(const float* __restrict__ A, int ch, int N,
-                                       float (&a2)[kMaxN]) {
-#pragma unroll
-  for (int n = 0; n < kMaxN; ++n) a2[n] = n < N ? -expf(logf(-A[ch * N + n])) * kLog2e : 0.f;
-}
 
 // Pass 1: each (b, chunk, channel) from a zero state; P and E are
 // (Bt, n_chunks, N, d).

@@ -15,6 +15,7 @@ draw to the latter.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Optional
@@ -195,9 +196,13 @@ def _k_step_ce(spec: DiffusionSpec, model_apply, params, xt, x0, time_cond,
 
 def diffusion_loss_given(spec: DiffusionSpec, model_apply: ModelApply,
                          params, x0, t, xt, cond, generator, *, train: bool,
-                         label_smoothing: float) -> dict:
+                         label_smoothing: float,
+                         metrics: bool = True) -> dict:
     """The diffusion training loss for a drawn (t, x_t): a dict with
-    'loss' (B, L) and the optional 'recon_loss'/'diffusion_loss'."""
+    'loss' (B, L) and the optional 'recon_loss'/'diffusion_loss'. With
+    `metrics=False` a term that only feeds a metric (the t = 0
+    reconstruction under `zero_recon_loss`) is not computed and comes back
+    None, as XLA drops it from the JAX step that discards it."""
     sigma, dsigma, time_cond, _ = _time_terms(spec, t)
     ls = label_smoothing
     if train and spec.unrolling and spec.unrolling_ignore_diffusion_loss:
@@ -246,8 +251,16 @@ def diffusion_loss_given(spec: DiffusionSpec, model_apply: ModelApply,
         diffusion_loss = L.uniform_continuous_loss(
             model_output, xt, x0, t, vocab_size=spec.vocab_size,
             label_smoothing=ls)
-        recon = _reconstruction_loss(spec, model_apply, params, x0, cond, ls,
-                                     train=train, rng=generator)
+        # With zero_recon_loss (and no simple CE) the t = 0 term is only a
+        # metric: its forward records no graph, so it holds no activations
+        # while the loss is backpropagated.
+        metric_only = spec.zero_recon_loss and not simple_ce
+        recon = None
+        if metrics or not metric_only:
+            with torch.no_grad() if metric_only else contextlib.nullcontext():
+                recon = _reconstruction_loss(spec, model_apply, params, x0,
+                                             cond, ls, train=train,
+                                             rng=generator)
         if simple_ce:
             loss = L.nll_loss(model_output, x0, ls)
         elif spec.zero_recon_loss:
@@ -262,20 +275,24 @@ def diffusion_loss_given(spec: DiffusionSpec, model_apply: ModelApply,
 
 def forward_pass_diffusion(spec: DiffusionSpec, model_apply: ModelApply,
                            params, x0, cond, generator, *, train: bool,
-                           label_smoothing: float, step=None) -> dict:
+                           label_smoothing: float, step=None,
+                           metrics: bool = True) -> dict:
     """Draw (t, x_t) and return `diffusion_loss_given` on them."""
     t, xt = sample_corruption(spec, x0, generator, step=step)
     return diffusion_loss_given(spec, model_apply, params, x0, t, xt, cond,
                                 generator, train=train,
-                                label_smoothing=label_smoothing)
+                                label_smoothing=label_smoothing,
+                                metrics=metrics)
 
 
 def loss_fn(spec: DiffusionSpec, model_apply: ModelApply, params, x0,
             attention_mask, cond, generator, *, train: bool,
-            label_smoothing: Optional[float] = None, step=None) -> Loss:
+            label_smoothing: Optional[float] = None, step=None,
+            metrics: bool = True) -> Loss:
     """The full loss: CFG cond dropout, the AR CE or the diffusion loss
     (with the unrolled CE as an auxiliary term), and the mask-weighted
-    token mean. For AR, x0 is the (inputs, targets) pair."""
+    token mean. For AR, x0 is the (inputs, targets) pair. `metrics=False`
+    skips terms that feed only a metric (`diffusion_loss_given`)."""
     if label_smoothing is None:
         label_smoothing = spec.label_smoothing if train else 0.0
     recon_loss = diffusion_loss = unroll_loss = None
@@ -295,7 +312,7 @@ def loss_fn(spec: DiffusionSpec, model_apply: ModelApply, params, x0,
         out = forward_pass_diffusion(spec, model_apply, params, x0, cond,
                                      generator, train=train,
                                      label_smoothing=label_smoothing,
-                                     step=step)
+                                     step=step, metrics=metrics)
         recon_loss = out.get('recon_loss')
         diffusion_loss = out.get('diffusion_loss')
         loss = out['loss']

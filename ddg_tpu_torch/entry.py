@@ -47,6 +47,17 @@ it), sigma conditioning on. The weights are seeded random ones in the
 reference layout (`convert.make_reference_dimamba_state_dict`, non-zero
 adaLN projections) through the port's converter.
 
+`dimamba_train_flagship()` builds the genomics training run, the same
+script's (`scripts/train_ten_species_guidance.sh`, `ddg_tpu/main.py:173-209`):
+that DiMamba at full width and depth with dropout 0.1 on the gated branch;
+uniform-state D3PM in continuous time with the log-linear schedule,
+antithetic t (eps 1e-3), sigma conditioning, `zero_recon_loss` and CFG
+cond dropout 0.1; AdamW (lr 2e-3, betas 0.9/0.999, eps 1e-8, no weight
+decay, clip 1.0) with 2500 warmup steps, EMA 0.9999; a global batch of
+32 x 32768 tokens as micro-batches of DIMAMBA_TRAIN_MICRO_BATCH. Until the
+Species10 data is in the repository, batches are synthetic bases (A C G T
+N, ids 7-11) with a class label per row (`TrainRun.batch`).
+
 All run on the card unless the caller passes `device='cpu'`.
 """
 
@@ -75,6 +86,10 @@ TRAIN_GLOBAL_BATCH = 512
 # The largest power of two whose train step peaks under half of an 80 GB
 # card (PERF.md, training section).
 TRAIN_MICRO_BATCH = 256
+DIMAMBA_TRAIN_GLOBAL_BATCH = 32
+# The largest power of two dividing 32 whose train step peaks under half of
+# an 80 GB card (PERF.md, Species10 training).
+DIMAMBA_TRAIN_MICRO_BATCH = 16
 
 
 def resolve_device(device=None) -> torch.device:
@@ -142,6 +157,7 @@ def unet_flagship(tiny: bool = False, device=None, *, seed: int = 0):
 # The DNA tokenizer (`ddg_tpu/data/tokenizers.py:211-231`): 7 specials, then
 # A C G T N; [MASK] is 3.
 DNA_VOCAB, DNA_MASK = 12, 3
+DNA_BASES = (7, 12)
 
 
 def dimamba_flagship(tiny: bool = False, device=None, *, seed: int = 0):
@@ -149,6 +165,19 @@ def dimamba_flagship(tiny: bool = False, device=None, *, seed: int = 0):
     is a CPU-sized model: hidden 32, cond_dim 16, 2 blocks, L=256 (two scan
     chunks)."""
     device = resolve_device(device)
+    cfg, model = _dimamba(tiny, seed)
+    spec = DiffusionSpec(diffusion='uniform', parameterization='d3pm',
+                         noise=LogLinearNoise(), vocab_size=DNA_VOCAB,
+                         mask_index=DNA_MASK, num_classes=cfg.num_classes,
+                         time_conditioning=True)
+    model = model.to(device).eval()
+    apply_fn = make_model_apply(model)
+    return spec, cfg, model, apply_fn, apply_fn.params
+
+
+def _dimamba(tiny: bool, seed: int):
+    """The Species10 DiMamba (or its CPU-sized cut) with seeded random
+    weights in the reference layout: (cfg, model) on the CPU."""
     if tiny:
         cfg = DiMambaConfig(hidden_size=32, cond_dim=16, length=256,
                             n_blocks=2)
@@ -159,10 +188,6 @@ def dimamba_flagship(tiny: bool = False, device=None, *, seed: int = 0):
                               d_state=16, d_conv=4, expand=2,
                               scan_chunk=128, scan_seg=64, scan_seg_bwd=64,
                               dropout=0.1, compute_dtype=torch.bfloat16)
-    spec = DiffusionSpec(diffusion='uniform', parameterization='d3pm',
-                         noise=LogLinearNoise(), vocab_size=DNA_VOCAB,
-                         mask_index=DNA_MASK, num_classes=cfg.num_classes,
-                         time_conditioning=True)
     model = DiMamba(cfg)
     ref = make_reference_dimamba_state_dict(
         np.random.RandomState(seed), hidden=cfg.hidden_size,
@@ -172,9 +197,7 @@ def dimamba_flagship(tiny: bool = False, device=None, *, seed: int = 0):
     model.load_state_dict(dimamba_state_dict_from_jax(
         dimamba_params_from_reference(ref, n_blocks=cfg.n_blocks),
         n_blocks=cfg.n_blocks), strict=True)
-    model = model.to(device).eval()
-    apply_fn = make_model_apply(model)
-    return spec, cfg, model, apply_fn, apply_fn.params
+    return cfg, model
 
 
 def entry(device=None):
@@ -196,11 +219,11 @@ def entry(device=None):
 
 @dataclasses.dataclass
 class TrainRun:
-    """What `train_flagship` builds; `step(state, batch)` is the train
-    step."""
+    """What `train_flagship` and `dimamba_train_flagship` build;
+    `step(state, batch)` is the train step."""
     spec: DiffusionSpec
-    cfg: DITConfig
-    model: DIT
+    cfg: object                 # DITConfig or DiMambaConfig
+    model: torch.nn.Module
     apply_fn: object
     optim: OptimSpec
     averaging: AveragingSpec
@@ -208,22 +231,33 @@ class TrainRun:
     step: object
     global_batch: int
     micro_batch: int
+    # Synthetic tokens are drawn uniformly over [lo, hi).
+    tokens: tuple = (0, None)
 
     @property
     def accum_steps(self) -> int:
         return self.global_batch // self.micro_batch
 
     def batch(self, generator: torch.Generator) -> dict:
-        """A synthetic global batch, tokens uniform over [0, V-1) as
-        `bench.py` draws them, shaped (accum, micro, L) when accumulating."""
+        """A synthetic global batch shaped (accum, micro, L) when
+        accumulating: tokens uniform over `tokens` (by default [0, V-1), as
+        `bench.py` draws them) and, for a class-conditional model, a class
+        label per row ('cond', uniform over the classes)."""
         shape = (self.global_batch, self.cfg.length)
         if self.accum_steps > 1:
             shape = (self.accum_steps, self.micro_batch, self.cfg.length)
-        ids = torch.randint(0, self.cfg.vocab_size - 1, shape,
-                            generator=generator, device=generator.device,
-                            dtype=torch.int32)
-        return {'input_ids': ids,
-                'attention_mask': torch.ones(shape, device=ids.device)}
+        lo, hi = self.tokens
+        ids = torch.randint(lo, self.cfg.vocab_size - 1 if hi is None else hi,
+                            shape, generator=generator,
+                            device=generator.device, dtype=torch.int32)
+        out = {'input_ids': ids,
+               'attention_mask': torch.ones(shape, device=ids.device)}
+        if self.cfg.num_classes is not None:
+            out['cond'] = torch.randint(0, self.cfg.num_classes, shape[:-1],
+                                        generator=generator,
+                                        device=generator.device,
+                                        dtype=torch.int32)
+        return out
 
 
 def train_flagship(device=None, *, seed: int = 0,
@@ -268,3 +302,37 @@ def train_flagship(device=None, *, seed: int = 0,
     return TrainRun(spec=spec, cfg=cfg, model=model, apply_fn=apply_fn,
                     optim=optim, averaging=avg, state=state, step=step,
                     global_batch=global_batch, micro_batch=micro)
+
+
+def dimamba_train_flagship(device=None, *, seed: int = 0,
+                           tiny: bool = False) -> TrainRun:
+    """The Species10 DiMamba training run on `device`, weights seeded random
+    in the reference layout, the train state's generator seeded with `seed`.
+    `tiny` is `dimamba_flagship(tiny=True)`'s model (hidden 32, 2 blocks,
+    L=256) with a global batch of 4 as 2 micro-batches, for runs on the
+    CPU."""
+    device = resolve_device(device)
+    cfg, model = _dimamba(tiny, seed)
+    global_batch, micro = ((4, 2) if tiny else
+                           (DIMAMBA_TRAIN_GLOBAL_BATCH,
+                            DIMAMBA_TRAIN_MICRO_BATCH))
+    spec = DiffusionSpec(diffusion='uniform', parameterization='d3pm',
+                         noise=LogLinearNoise(), vocab_size=DNA_VOCAB,
+                         mask_index=DNA_MASK, num_classes=cfg.num_classes,
+                         time_conditioning=True, zero_recon_loss=True,
+                         cond_dropout=0.1, antithetic_sampling=True,
+                         sampling_eps=1e-3)
+    model = model.to(device)
+    apply_fn = make_model_apply(model)
+    optim = OptimSpec(lr=2e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                      weight_decay=0.0, grad_clip=1.0,
+                      scheduler='constant_warmup', num_warmup_steps=2500)
+    avg = AveragingSpec.ema(0.9999)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = init_train_state(gen, apply_fn.params, optim, avg)
+    step = make_train_step(spec, apply_fn, optim, avg,
+                           accum_steps=global_batch // micro)
+    return TrainRun(spec=spec, cfg=cfg, model=model, apply_fn=apply_fn,
+                    optim=optim, averaging=avg, state=state, step=step,
+                    global_batch=global_batch, micro_batch=micro,
+                    tokens=DNA_BASES)

@@ -1,6 +1,6 @@
 """Denoiser backbones and the ModelApply adapter bridging an `nn.Module`
 to the functional diffusion core (port of `ddg_tpu/models/__init__.py`):
-the DiT (inference and training), the UNet and DiMamba (inference)."""
+the DiT and DiMamba (inference and training) and the UNet (inference)."""
 
 from __future__ import annotations
 

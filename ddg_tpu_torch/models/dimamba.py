@@ -1,5 +1,5 @@
 """DiMamba: the bidirectional Mamba denoiser for long genomic sequences
-(port of `ddg_tpu/models/dimamba.py`, inference).
+(port of `ddg_tpu/models/dimamba.py`).
 
 Block = add -> LayerNorm -> adaLN (shift, scale, gate) -> BiMamba mixer ->
 gated residual; the mixer runs a forward and a flipped-sequence Mamba
@@ -27,8 +27,13 @@ A direction runs one of three routes, as the JAX module picks them:
   x_proj, dt_proj as PyTorch ops) around `ops.mamba.ssm_scan`, K14;
 - otherwise the plain `selective_scan`.
 On CPU tensors the kernels' wrappers run their plain versions, so `True`
-still works there. Not ported (they raise): `dt_inkernel` (K16),
-`sequence_axis`, `remat` and training.
+still works there. Gradients flow through every route: the kernels' autograd
+wrappers backpropagate through K19 (fused block) and K15 (scan kernel), the
+plain scan through PyTorch's autograd, and the tied in/out projections sum
+both directions' gradients. `train=True` applies dropout (rate
+`cfg.dropout`) to the mixer output before the gate, with masks from the
+`rng` generator, as the JAX block does. Not ported (they raise):
+`dt_inkernel` (K16), `sequence_axis` and `remat`.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ddg_tpu_torch.models.dit import TimestepEmbedder
+from ddg_tpu_torch.models.dit import TimestepEmbedder, dropout
 from ddg_tpu_torch.ops import mamba as mamba_ops
 
 
@@ -84,7 +89,7 @@ class DiMambaConfig:
         unported = {
             'dt_inkernel': 'K16 ssm_scan_dtlr (dt_proj inside the scan)',
             'sequence_axis': 'sequence parallelism (ROADMAP A.11)',
-            'remat': 'block remat (training, ROADMAP A.10)',
+            'remat': 'block remat (ROADMAP A.10)',
         }
         for name, what in unported.items():
             if getattr(self, name):
@@ -271,7 +276,7 @@ class DiMambaBlock(nn.Module):
                                               dtype=cfg.compute_dtype)
         self.mixer = BiMambaWrapper(cfg)
 
-    def forward(self, hidden_states, residual, c):
+    def forward(self, hidden_states, residual, c, train=False, rng=None):
         cfg = self.cfg
         residual = (hidden_states + residual if residual is not None
                     else hidden_states).float()
@@ -282,6 +287,7 @@ class DiMambaBlock(nn.Module):
             h = h * (1 + scale[:, None]) + shift[:, None]
         h = self.mixer(h)
         if gate is not None:
+            h = dropout(h, cfg.dropout, train=train, generator=rng)
             h = gate[:, None] * h + residual.to(h.dtype)
         return h, residual
 
@@ -308,9 +314,6 @@ class DiMamba(nn.Module):
                 train: bool = False, rng=None,
                 return_hidden_states: bool = False):
         cfg = self.cfg
-        if train:
-            raise NotImplementedError('DiMamba training is not ported to '
-                                      'ddg_tpu_torch yet (ROADMAP A.10)')
         cd = cfg.compute_dtype
         c = None
         if sigma is not None:
@@ -329,7 +332,8 @@ class DiMamba(nn.Module):
             h = x_emb.to(cd)
         residual = None
         for i in range(cfg.n_blocks):
-            h, residual = getattr(self, f'block_{i}')(h, residual, c)
+            h, residual = getattr(self, f'block_{i}')(h, residual, c, train,
+                                                      rng)
         final = h + residual.to(h.dtype) if residual is not None else h
         final = self.norm_f(final)
         if cfg.use_adaLN and c is not None:

@@ -85,11 +85,12 @@ def _libraries() -> dict[str, ctypes.CDLL]:
 
 
 @functools.cache
-def kernel(lib: str, fn: str, argtypes: tuple) -> ctypes._CFuncPtr:
+def kernel(lib: str, fn: str, argtypes: tuple,
+           restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C function `fn` of `csrc/<lib>.cu`, built on first use."""
     f = getattr(_libraries()[lib], fn)
     f.argtypes = list(argtypes)
-    f.restype = ctypes.c_int
+    f.restype = restype
     return f
 
 

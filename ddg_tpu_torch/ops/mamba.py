@@ -1,5 +1,6 @@
 """The DiMamba kernels (port of `ddg_tpu/ops/selective_scan_pallas.py`'s
-forward, K14, and `ddg_tpu/ops/mamba_block_pallas.py`'s forward, K18).
+forward and backward, K14 and K15, and `ddg_tpu/ops/mamba_block_pallas.py`'s,
+K18 and K19).
 
 `ssm_scan` (K14) is the gated selective scan, in fp32:
 
@@ -28,10 +29,20 @@ conv_w (K, 1, d). The TPU schedule knobs (`seg`, `scan_impl`, tiles,
 `csrc/mamba.cu` (K18: in_proj, conv + x_proj + dt_proj, the three scan
 passes and out_proj, six launches; K14: the three scan passes) and adds
 one to the wrapper's `launches`; on CPU tensors the plain versions below
-run instead. Inference only: the VJPs (K15, K19) come with training.
+run instead.
+
+With gradients recorded, `ssm_scan` and `mamba_inner` run through
+autograd Functions that save the inputs and the chunk entry states h0s (as
+the TPU VJPs save (inputs, h0s)); their backwards are `ssm_scan_bwd` (K15)
+and `mamba_inner_bwd` (K19), `csrc/mamba_bwd.cu` on the card, each with its
+own `launches`. K19 recomputes the front from h by K18's own launches, so
+the forward keeps nothing but h and h0s. Under `torch.no_grad()` (sampling)
+the forwards run outside autograd and launch what they did before.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -135,7 +146,10 @@ def _scan_buffers(u, d, N, chunk):
 
 def ssm_scan(u, delta, A, B, C, D, z, *, chunk: int = 128,
              return_h0s: bool = False):
-    """Gated selective scan, K14 (`selective_scan_pallas`'s arguments).
+    """Gated selective scan, K14 (`selective_scan_pallas`'s arguments),
+    differentiable in its seven tensors through K15 (`ssm_scan_bwd`).
+    Without gradients (sampling) the forward runs as it is, outside
+    autograd.
 
     u, z: (Bt, L, d); delta: (Bt, L, d) float32; A: (d, N) (= -exp(A_log));
     B, C: (Bt, L, N); D: (d,). u, z, B and C share one dtype (float32 or
@@ -143,9 +157,18 @@ def ssm_scan(u, delta, A, B, C, D, z, *, chunk: int = 128,
     projection); on the card N <= 16 and d <= 1024. Returns y (Bt, L, d)
     in u's dtype, and with `return_h0s` also the chunk entry states
     (Bt, ceil(L / chunk), N, d) float32."""
+    if _needs_grad(u, delta, A, B, C, D, z):
+        y, h0s = _SsmScan.apply(u, delta, A, B, C, D, z, chunk)
+    else:
+        y, h0s = _ssm_scan_fwd(u, delta, A, B, C, D, z, chunk=chunk)
+    return (y, h0s) if return_h0s else y
+
+
+def _ssm_scan_fwd(u, delta, A, B, C, D, z, *, chunk):
+    """K14 (or its plain version on CPU tensors): (y, h0s)."""
     if u.device.type == 'cpu':
         return ssm_scan_plain(u, delta, A, B, C, D, z, chunk=chunk,
-                              return_h0s=return_h0s)
+                              return_h0s=True)
     _build.require_cuda(u, delta, A, B, C, D, z, contiguous=False)
     Bt, L, d = u.shape
     N = A.shape[1]
@@ -181,7 +204,7 @@ def ssm_scan(u, delta, A, B, C, D, z, *, chunk: int = 128,
             chunk, _DTYPES[u.dtype], _build.stream(u))
     ssm_scan.launches += 1
     _build.check(rc, 'ddg_ssm_scan')
-    return (y, h0s) if return_h0s else y
+    return y, h0s
 
 
 ssm_scan.launches = 0
@@ -242,7 +265,22 @@ def mamba_inner(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out, *,
     (out, in) layout: pass W_in, W_x, W_dt and W_out as transposed views of
     contiguous Linear weights, or they are copied per call; H, d and the
     row length of h must be multiples of 8 (16 for d in bfloat16),
-    d_state <= 16, dt_rank <= 32, d_conv = 4."""
+    d_state <= 16, dt_rank <= 32, d_conv = 4. Differentiable in h and every
+    weight through K19 (`mamba_inner_bwd`); without gradients (sampling)
+    the forward runs as it is, outside autograd."""
+    kw = dict(d_state=d_state, dt_rank=dt_rank, chunk=chunk,
+              compute_dtype=compute_dtype)
+    ws = (W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out)
+    _check_inner(h, *ws, **kw)
+    if _needs_grad(h, *ws):
+        out, h0s = _MambaInner.apply(h, *ws, kw)
+    else:
+        out, h0s = _mamba_inner_fwd(h, *ws, **kw)
+    return (out, h0s) if return_h0s else out
+
+
+def _check_inner(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out, *,
+                 d_state, dt_rank, chunk, compute_dtype):
     Bt, L, H = h.shape
     d = W_in.shape[1] // 2
     K = conv_w.shape[0]
@@ -255,11 +293,7 @@ def mamba_inner(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out, *,
             or tuple(W_out.shape) != (d, H)):
         raise ValueError('mamba_inner: inconsistent weight shapes')
     if h.device.type == 'cpu':
-        return mamba_inner_plain(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt,
-                                 A, D, W_out, d_state=d_state,
-                                 dt_rank=dt_rank, chunk=chunk,
-                                 compute_dtype=compute_dtype,
-                                 return_h0s=return_h0s)
+        return
     cd = compute_dtype
     if cd not in _DTYPES:
         raise ValueError('compute_dtype must be float32 or bfloat16')
@@ -269,6 +303,22 @@ def mamba_inner(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out, *,
         raise ValueError(f'mamba_inner: H={H}, d={d}, d_state={N}, '
                          f'dt_rank={R} or d_conv={K} outside what the '
                          'kernel takes')
+
+
+def _mamba_inner_fwd(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out,
+                     *, d_state, dt_rank, chunk, compute_dtype):
+    """K18 (or its plain version on CPU tensors): (out, h0s)."""
+    if h.device.type == 'cpu':
+        return mamba_inner_plain(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt,
+                                 A, D, W_out, d_state=d_state,
+                                 dt_rank=dt_rank, chunk=chunk,
+                                 compute_dtype=compute_dtype,
+                                 return_h0s=True)
+    Bt, L, H = h.shape
+    d = W_in.shape[1] // 2
+    K = conv_w.shape[0]
+    R, N = dt_rank, d_state
+    cd = compute_dtype
     hc = h.to(cd).contiguous()
     w_in = W_in.to(cd).t().contiguous()                  # (2d, H)
     w_x = W_x.to(cd).t().contiguous()                    # (R + 2N, d)
@@ -296,8 +346,380 @@ def mamba_inner(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out, *,
             Bt, L, H, d, K, R, N, chunk, _DTYPES[cd], _build.stream(h))
     mamba_inner.launches += 1
     _build.check(rc, 'ddg_mamba_inner')
-    return (out, h0s) if return_h0s else out
+    return out, h0s
 
 
 mamba_inner.launches = 0
 
+
+
+# --- the backward: K15 and K19 ------------------------------------------------
+
+# Rows between the forward-state checkpoints of the adjoint's last pass
+# (the kernel's segment; the plain version keeps the same ones to bound
+# its memory).
+_SEG = 16
+
+
+def scan_bwd_chunks(u, delta, A, B, C, D, z, g, h0s, chunk: int):
+    """The adjoint of the gated selective scan in fp32, chunk-parallel as
+    the kernel runs it; every input fp32, A round-tripped (d, N), g the
+    gradient of the gated output. Pass 1 runs every chunk's adjoint from
+    zero at its end, keeping the carry it hands left (a_t0 dh_t0) and the
+    product of its a_t; pass 2 chains those right to left into each
+    chunk's true incoming carry; pass 3 reruns each chunk from its entry
+    state in h0s, keeping the state every `_SEG` rows, and walks each
+    segment back from its checkpoint, recomputing its states. Returns
+    (ddelta, du, dB, dC, y_pre, dz, dA, dD): (Bt, L, d) / (Bt, L, N),
+    y_pre = C . h + D u before the gate, dA (d, N) and dD (d,) summed over
+    batch and rows."""
+    Bt, L, d = u.shape
+    N = A.shape[1]
+    nc = -(-L // chunk)
+    pad = nc * chunk - L
+
+    def split(x):
+        x = F.pad(x, (0, 0, 0, pad))
+        return x.reshape(Bt, nc, chunk, x.shape[-1])
+
+    sig = torch.sigmoid(z)
+    sg = z * sig
+    gy = g * sg
+    dt, uu, dtu, gys, Bs, Cs = (split(t) for t in
+                                (delta, u, delta * u, gy, B, C))
+
+    def a_row(j):
+        return torch.exp(dt[:, :, j, :, None] * A)       # (Bt, nc, d, N)
+
+    def w_row(j):
+        return gys[:, :, j, :, None] * Cs[:, :, j, None, :]
+
+    def h_next(h, j):
+        return a_row(j) * h + dtu[:, :, j, :, None] * Bs[:, :, j, None, :]
+
+    dh = torch.zeros((Bt, nc, d, N), dtype=torch.float32, device=u.device)
+    p = torch.ones_like(dh)
+    a_up = torch.ones_like(dh)
+    for j in reversed(range(chunk)):
+        a = a_row(j)
+        dh = w_row(j) + a_up * dh
+        a_up = a
+        p = p * a
+    left = a_up * dh
+    carry = torch.zeros_like(dh[:, 0])
+    carries = [None] * nc
+    for c in reversed(range(nc)):
+        carries[c] = carry
+        carry = p[:, c] * carry + left[:, c]
+    dh = torch.stack(carries, dim=1)
+    del p, left, carries
+
+    h = h0s.transpose(2, 3)
+    ckpts = []
+    for j in range(chunk):
+        if j % _SEG == 0:
+            ckpts.append(h)
+        h = h_next(h, j)
+    rows = {k: [None] * chunk for k in ('ddt', 'du', 'dB', 'dC', 'y')}
+    dA = torch.zeros((d, N), dtype=torch.float32, device=u.device)
+    a_up = torch.ones_like(dh)
+    for s in reversed(range(len(ckpts))):
+        j0 = s * _SEG
+        hs = [ckpts[s]]
+        for j in range(j0, min(chunk, j0 + _SEG)):
+            hs.append(h_next(hs[-1], j))
+        for j in reversed(range(j0, min(chunk, j0 + _SEG))):
+            a = a_row(j)
+            dh = w_row(j) + a_up * dh
+            a_up = a
+            h_prev, h_j = hs[j - j0], hs[j - j0 + 1]
+            daa = dh * h_prev * a
+            dhB = (dh * Bs[:, :, j, None, :]).sum(-1)
+            rows['ddt'][j] = (daa * A).sum(-1) + dhB * uu[:, :, j]
+            rows['du'][j] = dhB * dt[:, :, j] + gys[:, :, j] * D
+            rows['dB'][j] = (dh * dtu[:, :, j, :, None]).sum(-2)
+            rows['dC'][j] = (h_j * gys[:, :, j, :, None]).sum(-2)
+            rows['y'][j] = (h_j * Cs[:, :, j, None, :]).sum(-1) \
+                + D * uu[:, :, j]
+            dA = dA + (daa * dt[:, :, j, :, None]).sum((0, 1))
+
+    def join(k):
+        return torch.stack(rows[k], dim=2).reshape(Bt, nc * chunk, -1)[:, :L]
+
+    ddt, du, dB, dC, y_pre = (join(k) for k in ('ddt', 'du', 'dB', 'dC', 'y'))
+    dz = g * y_pre * (sig + sg * (1.0 - sig))
+    dD = (gy * u).sum((0, 1))
+    return ddt, du, dB, dC, y_pre, dz, dA, dD
+
+
+def ssm_scan_bwd_plain(u, delta, A, B, C, D, z, h0s, g, *, chunk: int = 128):
+    """Plain PyTorch version of `ssm_scan_bwd`."""
+    A_rt = _round_trip(A)
+    ddt, du, dB, dC, _, dz, dA, dD = scan_bwd_chunks(
+        u.float(), delta.float(), A_rt, B.float(), C.float(), D.float(),
+        z.float(), g.float(), h0s, chunk)
+    return (du.to(u.dtype), ddt, dB.to(B.dtype), dC.to(C.dtype),
+            (dA * A_rt).t(), dz.to(z.dtype), dD)
+
+
+def _conv_adjoint(dxc, conv_w):
+    """dx_t = ((dxc_{t+K-1} w_0 + dxc_{t+K-2} w_1) + ...) + dxc_t w_{K-1}
+    in fp32 (the TPU kernel's `_conv_adjoint` order); rows past L are 0."""
+    K = conv_w.shape[0]
+    L = dxc.shape[1]
+    w = conv_w.reshape(K, -1).float()
+    dp = F.pad(dxc, (0, 0, 0, K - 1))
+    acc = dp[:, K - 1:K - 1 + L] * w[0]
+    for j in range(1, K):
+        acc = acc + dp[:, K - 1 - j:K - 1 - j + L] * w[j]
+    return acc
+
+
+def mamba_inner_bwd_plain(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D,
+                          W_out, h0s, g, *, d_state: int, dt_rank: int,
+                          chunk: int = 128, compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of `mamba_inner_bwd`."""
+    cd = compute_dtype
+    Bt, L, H = h.shape
+    d = W_in.shape[1] // 2
+    K = conv_w.shape[0]
+    R, N = dt_rank, d_state
+    f32 = torch.float32
+    # The front, recomputed from h as the forward rounds it.
+    hc = h.to(cd)
+    x = _mm(hc, W_in[:, :d].to(cd), cd)
+    z32 = _mm(hc, W_in[:, d:].to(cd), cd).float()
+    xc32 = _conv_taps(x, conv_w, conv_b).float()
+    sc = torch.sigmoid(xc32)
+    u = (xc32 * sc).to(cd)
+    x_dbl = _mm(u, W_x.to(cd), cd).float()
+    lr, Bc, Cc = x_dbl[..., :R], x_dbl[..., R:R + N], x_dbl[..., R + N:]
+    W_dt32 = W_dt.float()
+    pre = lr @ W_dt32 + b_dt.float()
+    A_rt = _round_trip(A)
+    u32 = u.float()
+    # out_proj's adjoint, then the scan's.
+    gc = g.to(cd).float()
+    dy = gc @ W_out.to(cd).float().t()
+    ddt, du, dB, dC, y_pre, dz, dA, dD = scan_bwd_chunks(
+        u32, softplus(pre), A_rt, Bc, Cc, D.float(), z32, dy, h0s, chunk)
+    yg = (y_pre * (z32 * torch.sigmoid(z32))).to(cd).float()
+    rows = lambda t: t.reshape(Bt * L, t.shape[-1])      # noqa: E731
+    dW_out = rows(yg).t() @ rows(gc)
+    # dt_proj's adjoint in fp32; x_proj's on the rounded gradients.
+    dpre = ddt * torch.sigmoid(pre)
+    dW_dt = rows(lr).t() @ rows(dpre)
+    db_dt = dpre.sum((0, 1))
+    dxdbl = torch.cat([dpre @ W_dt32.t(), dB, dC], dim=-1).to(cd).float()
+    du = du + dxdbl @ W_x.to(cd).float().t()
+    dW_x = rows(u32).t() @ rows(dxdbl)
+    # The conv + SiLU adjoint, then in_proj's.
+    dxc = du * (sc * (1.0 + xc32 * (1.0 - sc)))
+    dconv_b = dxc.sum((0, 1))
+    xp = F.pad(x, (0, 0, K - 1, 0)).float()
+    dconv_w = torch.stack([(xp[:, j:j + L] * dxc).sum((0, 1))
+                           for j in range(K)]).reshape(K, 1, d)
+    dxz = torch.cat([_conv_adjoint(dxc, conv_w).to(cd),
+                     dz.to(cd)], dim=-1).float()
+    dh = (dxz @ W_in.to(cd).float().t()).to(cd)
+    dW_in = rows(hc.float()).t() @ rows(dxz)
+    return (dh, dW_in, dconv_w, dconv_b, dW_x, dW_dt, db_dt,
+            (dA * A_rt).t(), dD, dW_out)
+
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _grad_A(dA_log, A):
+    """The gradient of A from that of log(-A) (N, d), as the JAX calls
+    differentiate their log(-A).T."""
+    return dA_log.t() / A
+
+
+class _SsmScan(torch.autograd.Function):
+    """Saves the inputs and the chunk entry states, as the TPU VJP saves
+    (inputs, h0s)."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, z, chunk):
+        y, h0s = _ssm_scan_fwd(u, delta, A, B, C, D, z, chunk=chunk)
+        ctx.save_for_backward(u, delta, A, B, C, D, z, h0s)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(h0s)
+        return y, h0s
+
+    @staticmethod
+    def backward(ctx, g, _):
+        u, delta, A, B, C, D, z, h0s = ctx.saved_tensors
+        du, ddt, dB, dC, dA_log, dz, dD = ssm_scan_bwd(
+            u, delta, A, B, C, D, z, h0s, g, chunk=ctx.chunk)
+        return du, ddt, _grad_A(dA_log, A), dB, dC, dD, dz, None
+
+
+class _MambaInner(torch.autograd.Function):
+    """Saves h, the weights and the chunk entry states, as the TPU VJP
+    saves (h, ws, h0s); the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out,
+                kw):
+        out, h0s = _mamba_inner_fwd(h, W_in, conv_w, conv_b, W_x, W_dt,
+                                    b_dt, A, D, W_out, **kw)
+        ctx.save_for_backward(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A,
+                              D, W_out, h0s)
+        ctx.kw = kw
+        ctx.mark_non_differentiable(h0s)
+        return out, h0s
+
+    @staticmethod
+    def backward(ctx, g, _):
+        h, *ws, h0s = ctx.saved_tensors
+        grads = mamba_inner_bwd(h, *ws, h0s, g, **ctx.kw)
+        A = ws[6]
+        return grads[:7] + (_grad_A(grads[7], A),) + grads[8:] + (None,)
+
+
+def _workspace(fn: str, device, *ints) -> torch.Tensor:
+    """A byte workspace of the size the C side's `<fn>_workspace` gives."""
+    size = _build.kernel('mamba_bwd', f'{fn}_workspace',
+                         (_build.i32,) * len(ints), ctypes.c_longlong)(*ints)
+    return torch.empty((size,), dtype=torch.uint8, device=device)
+
+
+def ssm_scan_bwd(u, delta, A, B, C, D, z, h0s, g, *, chunk: int = 128):
+    """Backward of `ssm_scan`, K15 (`_ssm_scan_vjp_bwd`'s outputs): for
+    the gradient g of y and the forward's chunk entry states h0s, returns
+    (du, ddelta, dB, dC, dA_log, dz, dD): du, dB, dC and dz in their
+    inputs' dtypes, ddelta float32, dA_log (N, d) the gradient of
+    log(-A).T, dD (d,). On CUDA tensors one call of `csrc/mamba_bwd.cu`
+    (the adjoint's three passes and the fixed-order sums of the channel
+    tiles' and chunks' partials; deterministic) and one count."""
+    if u.device.type == 'cpu':
+        return ssm_scan_bwd_plain(u, delta, A, B, C, D, z, h0s, g,
+                                  chunk=chunk)
+    _build.require_cuda(u, delta, A, B, C, D, z, h0s, g, contiguous=False)
+    Bt, L, d = u.shape
+    N = A.shape[1]
+    nc = -(-L // chunk)
+    if u.dtype not in _DTYPES or any(t.dtype != u.dtype for t in (z, B, C)):
+        raise ValueError('u, z, B and C must share one dtype, float32 or '
+                         'bfloat16')
+    if (delta.dtype != torch.float32 or A.dtype != torch.float32
+            or D.dtype != torch.float32 or h0s.dtype != torch.float32):
+        raise ValueError('delta, A, D and h0s must be float32')
+    if (tuple(A.shape) != (d, N) or tuple(D.shape) != (d,)
+            or not A.is_contiguous() or not D.is_contiguous()
+            or not delta.is_contiguous() or not h0s.is_contiguous()
+            or z.shape != u.shape or delta.shape != u.shape
+            or g.shape != u.shape or B.shape != (Bt, L, N)
+            or C.shape != B.shape or tuple(h0s.shape) != (Bt, nc, N, d)):
+        raise ValueError('ssm_scan_bwd: inconsistent shapes or layouts')
+    if not 0 < N <= _MAX_STATE or chunk <= 0:
+        raise ValueError(f'ssm_scan_bwd: N={N} (<= {_MAX_STATE}) and '
+                         'chunk > 0 on the card')
+    ld_bc = _row_stride(B, 'B')
+    if _row_stride(C, 'C') != ld_bc:
+        raise ValueError('B and C must share their row stride')
+    g = g.to(u.dtype).contiguous()
+    dev, f32 = u.device, torch.float32
+    du, ddt, dz = (torch.empty((Bt, L, d), dtype=f32, device=dev)
+                   for _ in range(3))
+    dB, dC = (torch.empty((Bt, L, N), dtype=f32, device=dev)
+              for _ in range(2))
+    dA_log = torch.empty((N, d), dtype=f32, device=dev)
+    dD = torch.empty((d,), dtype=f32, device=dev)
+    ws = _workspace('ddg_ssm_scan_bwd', dev, Bt, L, d, N, chunk)
+    fn = _build.kernel('mamba_bwd', 'ddg_ssm_scan_bwd',
+                       (_build.ptr, _build.i32, _build.ptr, _build.ptr,
+                        _build.ptr, _build.i32, _build.ptr, _build.i32)
+                       + (_build.ptr,) * 12 + (_build.i32,) * 6
+                       + (_build.ptr,))
+    rc = fn(u.data_ptr(), _row_stride(u, 'u'), delta.data_ptr(),
+            B.data_ptr(), C.data_ptr(), ld_bc, z.data_ptr(),
+            _row_stride(z, 'z'), A.data_ptr(), D.data_ptr(),
+            h0s.data_ptr(), g.data_ptr(), du.data_ptr(), ddt.data_ptr(),
+            dz.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA_log.data_ptr(),
+            dD.data_ptr(), ws.data_ptr(), Bt, L, d, N, chunk,
+            _DTYPES[u.dtype], _build.stream(u))
+    ssm_scan_bwd.launches += 1
+    _build.check(rc, 'ddg_ssm_scan_bwd')
+    return (du.to(u.dtype), ddt, dB.to(B.dtype), dC.to(C.dtype), dA_log,
+            dz.to(z.dtype), dD)
+
+
+ssm_scan_bwd.launches = 0
+
+
+def mamba_inner_bwd(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out,
+                    h0s, g, *, d_state: int, dt_rank: int, chunk: int = 128,
+                    compute_dtype=torch.bfloat16):
+    """Backward of `mamba_inner`, K19 (`_mamba_inner_bwd`): for the output
+    gradient g and the forward's chunk entry states h0s, returns (dh,
+    dW_in, dconv_w, dconv_b, dW_x, dW_dt, db_dt, dA_log, dD, dW_out): dh
+    (Bt, L, H) in compute_dtype, the weight gradients float32 in the
+    arguments' shapes (W_in's and W_x's hold the TPU call's wx | wz and
+    wlr | wb | wc), dA_log (N, d) the gradient of log(-A).T. On CUDA
+    tensors one call of `csrc/mamba_bwd.cu` (the front recomputed from h,
+    the products on the tensor cores in bf16, the scan's adjoint, the
+    weight gradients as fixed-order two-stage sums; deterministic) and
+    one count. The card takes what the forward takes."""
+    kw = dict(d_state=d_state, dt_rank=dt_rank, chunk=chunk,
+              compute_dtype=compute_dtype)
+    if h.device.type == 'cpu':
+        return mamba_inner_bwd_plain(h, W_in, conv_w, conv_b, W_x, W_dt,
+                                     b_dt, A, D, W_out, h0s, g, **kw)
+    _check_inner(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out, **kw)
+    Bt, L, H = h.shape
+    d = W_in.shape[1] // 2
+    K = conv_w.shape[0]
+    R, N = dt_rank, d_state
+    nx = R + 2 * N
+    nxp = -(-nx // 8) * 8
+    cd = compute_dtype
+    if h0s.dtype != torch.float32 or tuple(h0s.shape) != (Bt, L // chunk,
+                                                          N, d):
+        raise ValueError('mamba_inner_bwd: h0s must be the forward\'s '
+                         f'(Bt, L / chunk, N, d) float32, got {h0s.shape}')
+    hc = h.to(cd).contiguous()
+    gc = g.to(cd).contiguous()
+    w_in = W_in.to(cd).t().contiguous()                  # (2d, H)
+    w_in_f = W_in.to(cd).contiguous()                    # (H, 2d)
+    w_x = W_x.to(cd).t().contiguous()                    # (nx, d)
+    w_x_f = torch.zeros((d, nxp), dtype=cd, device=h.device)
+    w_x_f[:, :nx] = W_x                                  # (d, nxp)
+    w_dt = W_dt.float().t().contiguous()                 # (d, R)
+    w_out_f = W_out.to(cd).contiguous()                  # (d, H)
+    cw = conv_w.to(cd).reshape(K, d).contiguous()
+    cb = conv_b.to(cd).contiguous()
+    b_dt, A, D, h0s = (t.float().contiguous() for t in (b_dt, A, D, h0s))
+    _build.require_cuda(hc, gc, w_in, w_x, w_dt, w_out_f, cw, cb, b_dt, A, D,
+                        h0s)
+    dev, f32 = h.device, torch.float32
+    dh = torch.empty((Bt, L, H), dtype=cd, device=dev)
+    dW_in = torch.empty((H, 2 * d), dtype=f32, device=dev)
+    dcw = torch.empty((K, d), dtype=f32, device=dev)
+    dcb, db_dt, dD = (torch.empty((d,), dtype=f32, device=dev)
+                      for _ in range(3))
+    dW_x = torch.empty((d, nx), dtype=f32, device=dev)
+    dW_dt = torch.empty((R, d), dtype=f32, device=dev)
+    dA_log = torch.empty((N, d), dtype=f32, device=dev)
+    dW_out = torch.empty((d, H), dtype=f32, device=dev)
+    ints = (Bt, L, H, d, K, R, N, chunk, _DTYPES[cd])
+    ws = _workspace('ddg_mamba_inner_bwd', dev, *ints)
+    fn = _build.kernel('mamba_bwd', 'ddg_mamba_inner_bwd',
+                       (_build.ptr,) * 25 + (_build.i32,) * 9 + (_build.ptr,))
+    rc = fn(hc.data_ptr(), w_in.data_ptr(), w_in_f.data_ptr(), cw.data_ptr(),
+            cb.data_ptr(), w_x.data_ptr(), w_x_f.data_ptr(), w_dt.data_ptr(),
+            b_dt.data_ptr(), A.data_ptr(), D.data_ptr(), w_out_f.data_ptr(),
+            h0s.data_ptr(), gc.data_ptr(), dh.data_ptr(), dW_in.data_ptr(),
+            dcw.data_ptr(), dcb.data_ptr(), dW_x.data_ptr(), dW_dt.data_ptr(),
+            db_dt.data_ptr(), dA_log.data_ptr(), dD.data_ptr(),
+            dW_out.data_ptr(), ws.data_ptr(), *ints, _build.stream(h))
+    mamba_inner_bwd.launches += 1
+    _build.check(rc, 'ddg_mamba_inner_bwd')
+    return (dh, dW_in, dcw.reshape(K, 1, d), dcb, dW_x, dW_dt, db_dt, dA_log,
+            dD, dW_out)
+
+
+mamba_inner_bwd.launches = 0

@@ -81,9 +81,13 @@ def make_train_step(spec: DiffusionSpec, model_apply,
                   for i in range(accum_steps)])
         loss_sum = nll_sum = count = 0.0
         for mb in micro:
+            # Accumulating, the step returns no per-term metric, so a
+            # term computed only for one is skipped (XLA drops it from the
+            # JAX step).
             out = loss_fn(spec, model_apply, live, _x0(spec, mb),
                           mb['attention_mask'], mb.get('cond'),
-                          state.generator, train=True, step=state.step)
+                          state.generator, train=True, step=state.step,
+                          metrics=accum_steps == 1)
             g = torch.autograd.grad(out.loss, weights, allow_unused=True)
             for acc, gi in zip(grads, g):
                 if gi is not None:

@@ -1,21 +1,31 @@
 #!/usr/bin/env python3
 """Where the time of `ddg_tpu_torch`'s training step goes on one CUDA card.
 
-    python3 scripts/profile_torch_train.py [--steps 2] [--trace-dir DIR]
+    python3 scripts/profile_torch_train.py [--model dit|dimamba|both]
+                                           [--steps 2] [--trace-dir DIR]
 
-Builds the training flagship (`entry.train_flagship`: LM1B DiT-small MDLM,
-seeded random weights, global batch 512 x 128 tokens as micro-batches,
-the Hopper kernels on), warms it up, times `--steps` steps unprofiled and
-one step under `torch.profiler`. Prints one JSON line with wall ms per
-step, device-busy ms per step, the card's idle share, device ms per step
-by kernel group (from the trace's kernel events) and the largest kernels
-by name. A second line times the vocab head's three float32 GEMMs (the
-forward and the two of the backward) alone at the micro-batch's shape
-with CUDA events, times the micro-steps of a step: the head's share of
-the GEMM time. With --trace-dir the Chrome trace is written there.
+For each model, builds its training run, warms it up, times `--steps`
+steps unprofiled and one step under `torch.profiler`, and prints one JSON
+line with wall ms per step, device-busy ms per step, the card's idle
+share, device ms per step by group and the largest kernels by name.
+
+- dit: `entry.train_flagship` (LM1B DiT-small MDLM, global batch 512 x 128
+  tokens as micro-batches); groups by kernel name. A second line times the
+  vocab head's three float32 GEMMs alone at the micro-batch's shape with
+  CUDA events, times the micro-steps of a step.
+- dimamba: `entry.dimamba_train_flagship` (Species10 DiMamba UDLM, global
+  batch 32 x 32768). The step runs with profiler ranges around K18, K19,
+  K14 and K15 calls, the loss's forward and the backward, and a kernel on
+  the card is charged to the innermost range it ran in: K18 and K19 (the
+  latter by kernel), the trunk's forward and backward work outside them,
+  the optimizer/clip/EMA (foreach kernels) and the rest.
+
+With --trace-dir the Chrome traces are written there.
 """
 
 import argparse
+import contextlib
+import functools
 import json
 import os
 import sys
@@ -67,18 +77,7 @@ def head_gemm_ms(n_rows, hidden, vocab, reps=20):
     return out
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--steps', type=int, default=2,
-                    help='unprofiled steps to time (default 2)')
-    ap.add_argument('--trace-dir', default=None,
-                    help='write the Chrome trace here')
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print('no CUDA device is visible', file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def profile_dit(args):
     from ddg_tpu_torch.entry import train_flagship
     run = train_flagship(device='cuda')
     batch = run.batch(torch.Generator(device='cuda').manual_seed(0))
@@ -142,6 +141,147 @@ def main():
                               'backward_dw': bwd_dw},
         'ms_per_step': (fwd + bwd_dh + bwd_dw) * run.accum_steps}),
         flush=True)
+
+
+# Profiler ranges of the DiMamba step, innermost first.
+RANGES = ('K19', 'K18', 'K15', 'K14', 'forward', 'backward')
+
+
+def _ranged(name, fn):
+    @functools.wraps(fn)       # keeps a wrapper's `launches` counter
+    def wrapped(*a, **k):
+        with torch.profiler.record_function(name):
+            return fn(*a, **k)
+    return wrapped
+
+
+@contextlib.contextmanager
+def _step_ranges():
+    """Profiler ranges around the kernels' wrappers (looked up by name at
+    call time), the loss's forward and the backward."""
+    from ddg_tpu_torch.ops import mamba
+    from ddg_tpu_torch.runtime import train_state
+    patches = [(mamba, '_mamba_inner_fwd', 'K18'),
+               (mamba, 'mamba_inner_bwd', 'K19'),
+               (mamba, '_ssm_scan_fwd', 'K14'),
+               (mamba, 'ssm_scan_bwd', 'K15'),
+               (train_state, 'loss_fn', 'forward'),
+               (torch.autograd, 'grad', 'backward')]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    for mod, attr, name in patches:
+        setattr(mod, attr, _ranged(name, getattr(mod, attr)))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            if hasattr(fn, 'launches'):
+                fn.launches = getattr(mod, attr).launches
+            setattr(mod, attr, fn)
+
+
+def _short(name):
+    name = name.replace('(anonymous namespace)::', '').replace('void ', '')
+    return name.split('(')[0].split('<')[0].strip()
+
+
+def profile_dimamba(args):
+    from ddg_tpu_torch.entry import dimamba_train_flagship
+    run = dimamba_train_flagship(device='cuda')
+    batch = run.batch(torch.Generator(device='cuda').manual_seed(0))
+
+    def step():
+        run.step(run.state, batch)
+
+    print(json.dumps({'device': torch.cuda.get_device_name(0),
+                      'model': 'dimamba', 'micro_batch': run.micro_batch,
+                      'accum_steps': run.accum_steps}), flush=True)
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / args.steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = args.trace_dir or tmp
+        os.makedirs(trace_dir, exist_ok=True)
+        with _step_ranges(), torch.profiler.profile(activities=acts) as prof:
+            step()
+            torch.cuda.synchronize()
+        path = os.path.join(trace_dir, 'dimamba_train_step.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    if not kernels:
+        raise RuntimeError('the profiler recorded no kernel on the card')
+    spans = {r: [(e['ts'], e['ts'] + e['dur']) for e in events
+                 if e.get('cat') == 'gpu_user_annotation'
+                 and e.get('name') == r] for r in RANGES}
+    if not spans['K19']:
+        raise RuntimeError('the trace holds no device span of the K19 range')
+
+    def range_of(e):
+        t = e['ts'] + e['dur'] / 2
+        for r in RANGES:
+            if any(a <= t <= b for a, b in spans[r]):
+                return r
+        return None
+
+    by_group, by_name = {}, {}
+    for e in kernels:
+        r = range_of(e)
+        if r == 'K19':
+            g = f'K19 {_short(e["name"])}'
+        elif r in ('K18', 'K15', 'K14'):
+            g = r
+        elif 'multi_tensor_apply' in e['name']:
+            g = 'optimizer/clip/EMA (foreach)'
+        elif r in ('forward', 'backward'):
+            g = f'trunk {r}'
+        elif not spans['backward']:
+            # The backward's kernels are launched by autograd's own thread,
+            # whose work may carry no device span of the range.
+            g = 'trunk backward and other (outside the ranges)'
+        else:
+            g = 'other'
+        by_group[g] = by_group.get(g, 0.0) + e['dur'] / 1e3
+        by_name[e['name'][:120]] = by_name.get(e['name'][:120], 0.0) + \
+            e['dur'] / 1e3
+    busy = sum(by_group.values())
+    k19 = sum(v for k, v in by_group.items() if k.startswith('K19'))
+    print(json.dumps({
+        'run': 'dimamba_train_step', 'wall_ms_per_step': wall,
+        'device_busy_ms_per_step': busy, 'idle_share': 1.0 - busy / wall,
+        'K19_ms_per_step': k19,
+        'device_ms_per_step': dict(sorted(by_group.items(),
+                                          key=lambda kv: -kv[1])),
+        'top_kernels_ms': dict(sorted(by_name.items(),
+                                      key=lambda kv: -kv[1])[:15])}),
+        flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--model', choices=('dit', 'dimamba', 'both'),
+                    default='both', help='which training run (default both)')
+    ap.add_argument('--steps', type=int, default=2,
+                    help='unprofiled steps to time (default 2)')
+    ap.add_argument('--trace-dir', default=None,
+                    help='write the Chrome traces here')
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print('no CUDA device is visible', file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.model in ('dit', 'both'):
+        profile_dit(args)
+        torch.cuda.empty_cache()
+    if args.model in ('dimamba', 'both'):
+        profile_dimamba(args)
     return 0
 
 

@@ -255,8 +255,6 @@ def test_unported_settings_raise():
     with pytest.raises(ValueError, match='interpret'):
         DiMambaConfig(pallas_interpret=True)
     m = DiMamba(DiMambaConfig(**SMALL))
-    with pytest.raises(NotImplementedError):
-        m(torch.zeros((1, L), dtype=torch.int32), torch.zeros(1), train=True)
     with pytest.raises(ValueError, match='constraints'):
         m2 = DiMamba(dataclasses.replace(m.cfg, fused_block=True,
                                          length=200))

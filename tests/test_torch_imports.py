@@ -27,7 +27,8 @@ def test_module_list_covers_the_package():
     assert 'ddg_tpu_torch.ops.fused_sampling' in MODULES
     for name in ('ops.losses', 'runtime.optim', 'runtime.averaging',
                  'runtime.train_state', 'ops.groupnorm', 'models.unet',
-                 'ops.mamba', 'models.dimamba'):
+                 'ops.mamba', 'models.dimamba', 'entry', 'diffusion',
+                 'ops._build'):
         assert f'ddg_tpu_torch.{name}' in MODULES
     assert len(MODULES) >= 19
 

@@ -3,8 +3,8 @@ mode, `entry.train_flagship`) against `ddg_tpu/runtime/*` and the JAX DiT:
 schedules, clip + AdamW (optax), EMA/SWA, the fp32 DiT's loss gradients
 with the fused flags on (float32, rtol 1e-4), gradient accumulation, the
 eval step on the averaged weights, a run whose loss falls, dropout, and
-the backward wrappers' refusal of tensors that are not on the CPU or a
-card."""
+the backward wrappers' (the DiMamba's K15 and K19 among them) refusal of
+tensors that are not on the CPU or a card."""
 
 import dataclasses
 
@@ -27,7 +27,7 @@ from ddg_tpu_torch import diffusion as td
 from ddg_tpu_torch.entry import train_flagship
 from ddg_tpu_torch.models import DIT, DITConfig, make_model_apply
 from ddg_tpu_torch.models.dit import dropout
-from ddg_tpu_torch.ops import adaln, attention
+from ddg_tpu_torch.ops import adaln, attention, mamba
 from ddg_tpu_torch.ops import noise_schedules as tns
 from ddg_tpu_torch.runtime import averaging as tavg
 from ddg_tpu_torch.runtime import optim as topt
@@ -366,7 +366,8 @@ def test_backward_wrappers_never_take_the_plain_version_off_the_cpu():
     def meta(*s):
         return torch.empty(s, device='meta')
     counters = (adaln.ln_modulate_bwd, adaln.gate_res_ln_modulate_bwd,
-                attention.fused_rope_attention_bwd)
+                attention.fused_rope_attention_bwd, mamba.ssm_scan_bwd,
+                mamba.mamba_inner_bwd)
     before = [f.launches for f in counters]
     x, d = meta(2, 16, 128), meta(2, 16, 128)
     w, c = meta(128), meta(2, 128)
@@ -378,4 +379,14 @@ def test_backward_wrappers_never_take_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError):
         attention.fused_rope_attention_bwd(q, q, q, meta(16, 32),
                                            meta(16, 32), q)
+    u, a, bc, h0s = meta(2, 256, 64), meta(64, 16), meta(2, 256, 16), \
+        meta(2, 2, 16, 64)
+    with pytest.raises(ValueError):
+        mamba.ssm_scan_bwd(u, u, a, bc, bc, meta(64), u, h0s, u, chunk=128)
+    h = meta(2, 256, 32)
+    with pytest.raises(ValueError):
+        mamba.mamba_inner_bwd(h, meta(32, 128), meta(4, 1, 64), meta(64),
+                              meta(64, 48), meta(16, 64), meta(64), a,
+                              meta(64), meta(64, 32), h0s, h, d_state=16,
+                              dt_rank=16, chunk=128)
     assert [f.launches for f in counters] == before
