@@ -25,10 +25,10 @@ Each phase prints one JSON line:
      UNet (logits and one fused D-CFG step given the same Gumbel noise)
      card against CPU;
   6. the serving main path at full width: the flagship DiT-small (seeded
-     random weights) serving ancestral D-CFG (gamma=2, T=128, B=24)
-     through the feature-mix path, the same with the NFE cache (the CFG
-     kernel), and first-hitting D-CFG (B=32); samples/s and kernel
-     launches per run;
+     random weights) serving ancestral D-CFG (gamma=2, B=24) through the
+     feature-mix path at T=1000, the same with the NFE cache (the CFG
+     kernel) at T=128, and first-hitting D-CFG (B=32); samples/s, ms/step,
+     host syncs and kernel launches per run;
   7. the training main path at full width: `entry.train_flagship()` (LM1B
      DiT-small MDLM, global batch 512 x 128 as micro-batches), warm-up
      steps, then timed steps: tokens/s, ms/step, peak memory, loss, grad
@@ -43,7 +43,8 @@ Each phase prints one JSON line:
      be at least 10% below that of the first 5;
  10. the genomics serving main path at full width and depth:
      `entry.dimamba_flagship()` (Species10 DiMamba UDLM, L=32768) sampling
-     D-CFG (gamma 2) and unguided, T=128, B=8: samples/s, ms/step, the
+     D-CFG (gamma 2) and unguided, B=8, as many of T=128 steps as fit in
+     8 s each: samples/s, ms/step, the
      card's idle share (a few steps under torch.profiler), peak memory,
      exact launches per step (16 K18 calls a forward, K10 or K9 once) and
      0 host syncs per step; then a few D-CFG steps of the same model with
@@ -60,14 +61,34 @@ Each phase prints one JSON line:
  12. a learning check of both DiMamba kernel routes from the same weights
      and generator: 30 steps on one class-structured micro-batch at lr
      2e-3, each route's loss at least 10% down, the routes' last-5 means
-     closer than the pooled std of their last-10 losses.
-Phase 4 also holds K18 and K14 against their plain versions at the
+     closer than the pooled std of their last-10 losses;
+ 13. the text8 training main path at full width and depth:
+     `entry.text8_train_flagship()` (DiT-small MDLM at L=256, V=35, global
+     batch 512 x 256 as micro-batches) on both attention routes, K1 and
+     K1b ('fused_rope': 2 warm-up and 3 timed steps) and K2 and its
+     backward ('short_seq': 1 and 2): tokens/s, ms/step, peak memory, the
+     idle share of one profiled step, exact launches per micro-step (12
+     attention forwards and backwards of the route's kernel and none of
+     the other's, 13 ln_modulate and 12 gate_res_ln_modulate each way) and
+     0 host syncs per step;
+ 14. a learning check of both text8 routes from the same weights and
+     generator: 30 steps on one Zipf micro-batch at lr 3e-4, the bars of
+     12.
+The serving path (6) runs feature-mix at T=1000 (the JAX bench's line) and
+records each run under PyTorch's sync debug mode: no host sync in
+feature-mix and first-hitting, exactly one a step in the NFE cache (its
+validity flag).
+Phase 4 holds K1, K2 and their backwards at L=128 and L=256 (the text8
+micro-batch), requires the tensor-core path of the bf16 forwards, and
+reruns the backwards for bit-identical outputs. It also holds K18 and K14
+against their plain versions at the
 DiMamba's full widths (fp32 and bf16, both directions' weights, a ragged
 row tile, a padded last chunk), timed at the Species10 shape, and K9/K10
 at its V=12; and K19 and K15 (the backwards) the same way, twice each with
 bit-identical outputs, in bf16 also at the training shape (16 x 32768),
 timed there; phase 5 a tiny DiMamba card against CPU and a tiny DiMamba
-train step card against CPU on both kernel routes.
+train step card against CPU on both kernel routes, and a tiny text8 DiT
+train step (L=256) card against CPU on both attention routes.
 Then the `kernels` line, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}} last. Any failed check raises, so the run
 exits non-zero without a result line; so does a machine without a CUDA
@@ -103,7 +124,14 @@ SUM_RTOL = 1e-5
 MARGIN = 1e-4
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also says when it ended, in seconds
+    since the script started ('at_s'), so that its cost can be read."""
+    if 'phase' in obj:
+        obj = {**obj, 'at_s': time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -244,57 +272,150 @@ def check_adaln(results):
         results['gate_res_ln_modulate'][str(dtype)] = rec
 
 
-def check_attention(results):
-    import torch.nn.functional as F
+def _qkv_views(gen, shape, dtype):
+    """q, k, v as views into one fused qkv projection, as in the model."""
+    qkv = _rand(gen, shape[0], shape[1], 3, *shape[2:], dtype=dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+def _attention_cases(shape, dtype, gen):
+    """K1's and K2's forward and backward at one (B, L, H, D) shape, each
+    as (name, kernel, plain, yardstick inputs): K1 on views into one qkv
+    projection; K2 on a rotated contiguous q and k beside a view of v, as
+    the DiT's `pallas_attention` route hands them over. The yardstick
+    inputs are SDPA's: rotated, heads-major q, k, v."""
     from ddg_tpu_torch.models.dit import rope_cos_sin
-    from ddg_tpu_torch.ops import attention
+    from ddg_tpu_torch.ops import attention as A
+    cos, sin = rope_cos_sin(shape[1], shape[3], device=DEV)
+    q, k, v = _qkv_views(gen, shape, dtype)
+    do = _rand(gen, *shape, dtype=dtype)
+    qr, kr = A.apply_rope(q, cos, sin), A.apply_rope(k, cos, sin)
+    sdpa = tuple(t.transpose(1, 2).contiguous() for t in (qr, kr, v))
+    return {
+        'fused_rope_attention': (
+            lambda c: A.fused_rope_attention(q, k, v, cos, sin, causal=c),
+            lambda c: A.fused_rope_attention_plain(q, k, v, cos, sin,
+                                                   causal=c)),
+        'short_seq_attention': (
+            lambda c: A.short_seq_attention(qr, kr, v, causal=c),
+            lambda c: A.attention_plain(qr, kr, v, causal=c)),
+        'fused_rope_attention_bwd': (
+            lambda c: A.fused_rope_attention_bwd(q, k, v, cos, sin, do,
+                                                 causal=c),
+            lambda c: A.fused_rope_attention_bwd_plain(q, k, v, cos, sin, do,
+                                                       causal=c)),
+        'short_seq_attention_bwd': (
+            lambda c: A.short_seq_attention_bwd(qr, kr, v, do, causal=c),
+            lambda c: A.short_seq_attention_bwd_plain(qr, kr, v, do,
+                                                      causal=c)),
+    }, sdpa, do
+
+
+def _attention_bound(name, shape, es):
+    """(bound_ms, bound_by) of K1, K2 or their backwards at `shape`: the
+    inputs read once and outputs written once (and the rope tables), against
+    the L x L x D products (two forward, five backward) at the bf16
+    tensor-core rate."""
+    nb, Lq, Hq, Dq = shape
+    tensors, products = (7, 5) if name.endswith('_bwd') else (4, 2)
+    tables = 2 * Lq * (Dq // 2) * 4 if name.startswith('fused') else 0
+    return bound(tensors * nb * Lq * Hq * Dq * es + tables,
+                 2 * products * nb * Hq * Lq * Lq * Dq, PEAK_BF16_TENSOR)
+
+
+def _sdpa_ms(sdpa, do, backward):
+    """SDPA's time on heads-major q, k, v: the forward, or autograd through
+    SDPA minus its forward."""
+    import torch.nn.functional as F
+    with torch.no_grad():
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(*sdpa))
+    if not backward:
+        return fwd
+    qh, kh, vh = (t.detach().requires_grad_() for t in sdpa)
+    doh = do.transpose(1, 2).contiguous()
+    return time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh), doh)) - fwd
+
+
+def check_attention(results):
+    """K1 and K2, forward and backward, against their plain versions,
+    causal and not, in fp32 and bf16, at the shapes the main paths give
+    them: the LM1B sampling batch 2 x 24 x 128 (K1, K2, K2b), the LM1B training
+    micro-batch 256 x 128 (K1b) and the text8 training micro-batch x 256
+    (all four); and a ragged L=40 on both kernel routes (D = 64 on tensor
+    cores, D = 32 on CUDA cores; the backward takes D = 64 only). Each
+    backward runs twice with bit-identical outputs. In bf16 with D = 64
+    every call must take the tensor-core path (the wrapper's
+    `tensor_core_launches` rise with its `launches`). The bf16 records hold the kernel's, plain
+    version's and SDPA's CUDA-event medians and the bound; a kernel's main
+    record is at the shape of the path that launches it most (K1: LM1B
+    sampling; K1b: LM1B training; K2, K2b: text8 training), the others go
+    under their shape's label."""
+    from ddg_tpu_torch.entry import TEXT8_TRAIN_MICRO_BATCH, TRAIN_MICRO_BATCH
+    from ddg_tpu_torch.ops import attention as A
     gen = torch.Generator(device=DEV).manual_seed(4)
-    cos, sin = rope_cos_sin(L, DH, device=DEV)
-    for dtype in (torch.float32, torch.bfloat16):
-        es = torch.tensor([], dtype=dtype).element_size()
-        # q, k, v as views into one fused qkv projection, as in the model.
-        qkv = _rand(gen, B2, L, 3, H, DH, dtype=dtype)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        rec = {}
-        for causal in (False, True):
-            o = attention.fused_rope_attention(q, k, v, cos, sin,
-                                               causal=causal)
-            ref = attention.fused_rope_attention_plain(q, k, v, cos, sin,
-                                                       causal=causal)
-            err, tol = _close(f'fused_rope_attention causal={causal}',
-                              dtype, o, ref)
-            rec['err'] = max(err, rec.get('err', 0.0))
-            rec['tol'] = tol
-        if dtype == torch.bfloat16:
-            rec['ms'] = time_ms(lambda: attention.fused_rope_attention(
-                q, k, v, cos, sin))
-            rec['plain_ms'] = time_ms(
-                lambda: attention.fused_rope_attention_plain(q, k, v, cos,
-                                                             sin))
-            # The library yardstick: SDPA on already rotated, heads-major
-            # q, k, v.
-            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (
-                attention.apply_rope(q, cos, sin),
-                attention.apply_rope(k, cos, sin), v))
-            rec['library_ms'] = time_ms(
-                lambda: F.scaled_dot_product_attention(qh, kh, vh))
-            rec['bound_ms'], rec['bound_by'] = bound(
-                4 * B2 * L * D * es + 2 * L * (DH // 2) * 4,
-                4 * B2 * H * L * L * DH, PEAK_BF16_TENSOR)
-        results['fused_rope_attention'][str(dtype)] = rec
-    # Shapes off the main path: a ragged L on the bf16 tensor-core path
-    # (D = 64) and on the generic path (D = 32).
-    for shape in ((4, 40, 3, 64), (4, 40, 2, 32)):
-        c2, s2 = rope_cos_sin(shape[1], shape[3], device=DEV)
+    shapes = {'lm1b_sampling': ((B2, L, H, DH), ('fused_rope_attention',
+                                                  'short_seq_attention',
+                                                  'short_seq_attention_bwd')),
+              'lm1b_training': ((TRAIN_MICRO_BATCH, L, H, DH),
+                                ('fused_rope_attention_bwd',)),
+              'text8_training': ((TEXT8_TRAIN_MICRO_BATCH, 256, H, DH),
+                                 ('fused_rope_attention',
+                                  'short_seq_attention',
+                                  'fused_rope_attention_bwd',
+                                  'short_seq_attention_bwd')),
+              'ragged': ((4, 40, 3, DH), ('fused_rope_attention',
+                                          'short_seq_attention',
+                                          'fused_rope_attention_bwd',
+                                          'short_seq_attention_bwd')),
+              'ragged_d32': ((4, 40, 2, 32), ('fused_rope_attention',
+                                              'short_seq_attention'))}
+    main = {'fused_rope_attention': 'lm1b_sampling',
+            'short_seq_attention': 'text8_training',
+            'fused_rope_attention_bwd': 'lm1b_training',
+            'short_seq_attention_bwd': 'text8_training'}
+    for label, (shape, names) in shapes.items():
         for dtype in (torch.float32, torch.bfloat16):
-            qkv = _rand(gen, shape[0], shape[1], 3, *shape[2:], dtype=dtype)
-            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            for causal in (False, True):
-                _close(f'fused_rope_attention {shape} causal={causal}', dtype,
-                       attention.fused_rope_attention(q, k, v, c2, s2,
-                                                      causal=causal),
-                       attention.fused_rope_attention_plain(
-                           q, k, v, c2, s2, causal=causal))
+            es = torch.tensor([], dtype=dtype).element_size()
+            cases, sdpa, do = _attention_cases(shape, dtype, gen)
+            for name in names:
+                call, plain = cases[name]
+                rec = {'shape': list(shape), 'err': 0.0}
+                wrapper = getattr(A, name)
+                for causal in (False, True):
+                    before = (wrapper.launches, wrapper.tensor_core_launches)
+                    if name.endswith('_bwd'):
+                        _bwd_case(rec, f'{name} {label} causal={causal}',
+                                  dtype, (('dq', 'row'), ('dk', 'row'),
+                                          ('dv', 'row')),
+                                  lambda: call(causal), lambda: plain(causal))
+                        rec['bit_identical_rerun'] = True
+                    else:
+                        err, rec['tol'] = _close(
+                            f'{name} {label} causal={causal}', dtype,
+                            call(causal), plain(causal))
+                        rec['err'] = max(rec['err'], err)
+                    calls = wrapper.launches - before[0]
+                    on_tc = wrapper.tensor_core_launches - before[1] == calls
+                    if dtype == torch.bfloat16 and shape[3] == 64:
+                        check(on_tc, f'{name} {label}: bf16 at D=64, '
+                                     f'L={shape[1]} missed the tensor cores')
+                    rec['tensor_cores'] = on_tc
+                if dtype == torch.bfloat16 and label not in ('ragged',
+                                                             'ragged_d32'):
+                    rec['ms'] = time_ms(lambda: call(False))
+                    rec['plain_ms'] = time_ms(lambda: plain(False), reps=10)
+                    rec['library_ms'] = _sdpa_ms(sdpa, do,
+                                                 name.endswith('_bwd'))
+                    rec['library'] = ('SDPA backward (autograd through SDPA '
+                                      'minus its forward)'
+                                      if name.endswith('_bwd') else 'SDPA')
+                    rec['bound_ms'], rec['bound_by'] = _attention_bound(
+                        name, shape, es)
+                if main[name] == label:
+                    results[name].setdefault(str(dtype), {}).update(rec)
+                else:
+                    results[name].setdefault(label, {})[str(dtype)] = rec
 
 
 def _sample_inputs(gen, dtype, n_logits):
@@ -437,73 +558,6 @@ def check_adaln_bwd(results):
                     + 8 * D, (15 if n_rows == 1 else 20) * rows * D,
                     PEAK_FP32)
             results[name][str(dtype)] = rec
-
-
-def check_attention_bwd(results):
-    """K1b against its plain backward at the training micro-batch, causal
-    and not, and at the ragged L=40; q, k, v are views into one qkv
-    projection."""
-    import torch.nn.functional as F
-    from ddg_tpu_torch.models.dit import rope_cos_sin
-    from ddg_tpu_torch.ops import attention
-    gen = torch.Generator(device=DEV).manual_seed(9)
-    from ddg_tpu_torch.entry import TRAIN_MICRO_BATCH as nb
-    for dtype in (torch.float32, torch.bfloat16):
-        es = torch.tensor([], dtype=dtype).element_size()
-        # 'main_path' keeps each gradient's (err, tol) at the training
-        # shape without the mask, the case the main path runs; each
-        # tensor has its own bar.
-        rec = {'err': 0.0, 'main_path': {}}
-        for shape in ((nb, L, H, DH), (4, 40, 3, DH)):
-            cos, sin = rope_cos_sin(shape[1], DH, device=DEV)
-            qkv = _rand(gen, shape[0], shape[1], 3, *shape[2:], dtype=dtype)
-            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            do = _rand(gen, *shape, dtype=dtype)
-            for causal in (False, True):
-                out = attention.fused_rope_attention_bwd(
-                    q, k, v, cos, sin, do, causal=causal)
-                ref = attention.fused_rope_attention_bwd_plain(
-                    q, k, v, cos, sin, do, causal=causal)
-                for o, r, g in zip(out, ref, 'qkv'):
-                    err, tol = _close(f'fused_rope_attention_bwd d{g} '
-                                      f'{shape} causal={causal}', dtype, o, r)
-                    if shape[0] == nb:
-                        rec['err'] = max(err, rec['err'])
-                        if not causal:
-                            rec['main_path'][f'd{g}'] = {'err': err,
-                                                         'tol': tol}
-        if dtype == torch.bfloat16:
-            cos, sin = rope_cos_sin(L, DH, device=DEV)
-            qkv = _rand(gen, nb, L, 3, H, DH, dtype=dtype)
-            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            do = _rand(gen, nb, L, H, DH, dtype=dtype)
-            rec['ms'] = time_ms(lambda: attention.fused_rope_attention_bwd(
-                q, k, v, cos, sin, do))
-            rec['plain_ms'] = time_ms(
-                lambda: attention.fused_rope_attention_bwd_plain(
-                    q, k, v, cos, sin, do), reps=10)
-            # The library yardstick: SDPA's backward on already rotated,
-            # heads-major q, k, v: autograd through SDPA minus its forward.
-            qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
-                          for t in (attention.apply_rope(q, cos, sin),
-                                    attention.apply_rope(k, cos, sin), v))
-            doh = do.transpose(1, 2).contiguous()
-            fwd_bwd = time_ms(lambda: torch.autograd.grad(
-                F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh),
-                doh))
-            with torch.no_grad():
-                fwd = time_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh))
-            rec['library_ms'] = fwd_bwd - fwd
-            rec['library'] = 'SDPA backward (autograd through SDPA minus ' \
-                             'its forward)'
-            # q, k, v, dO in, dq, dk, dv out; five L x L x Dh products on
-            # bf16 operands, at the card's bf16 tensor-core rate (the
-            # kernel itself runs them on the CUDA cores).
-            rec['bound_ms'], rec['bound_by'] = bound(
-                7 * nb * L * D * es + 2 * L * (DH // 2) * 4,
-                10 * nb * H * L * L * DH, PEAK_BF16_TENSOR)
-        results['fused_rope_attention_bwd'][str(dtype)] = rec
 
 
 def check_sampling(results):
@@ -854,7 +908,8 @@ def check_mamba(results):
     L=2048 (16 chunks of 128) with the forward direction's weights and
     with another set on the flipped rows (as the model runs `core_rev`),
     and at L=80, chunk 16 (a ragged last row tile of the conv kernel and of
-    the products); K14 on u, z, B, C as views into wider projections (as
+    the products), there also with d_conv 3 (run as 4 taps, the first
+    zero); K14 on u, z, B, C as views into wider projections (as
     the model slices them) at L=2048 and at L=2000 (a padded last chunk).
     Outputs to the usual bars, the chunk entry states to `_close_states`.
     Timed in bf16 at the Species10 shape, 16 x 32768 (256 chunks a row),
@@ -865,8 +920,9 @@ def check_mamba(results):
         rec18 = {'err': 0.0, 'h0s_err': 0.0}
         for Bt, Lm, chunk, rows in ((2, 2048, 128, 'fwd'),
                                     (2, 2048, 128, 'rev'),
-                                    (2, 80, 16, 'ragged')):
-            w = _mamba_weights(gen, dtype)
+                                    (2, 80, 16, 'ragged'),
+                                    (2, 80, 16, 'taps3')):
+            w = _mamba_weights(gen, dtype, K=3 if rows == 'taps3' else 4)
             h = _rand(gen, Bt, Lm, SH, dtype=dtype)
             if rows == 'rev':
                 h = torch.flip(h, (1,))
@@ -1149,43 +1205,54 @@ def check_tiny_dit():
           'logit_std': outs[0].std().item()})
 
 
-def _train_step_card_vs_cpu(name, build, sd, spec, batch, optim, avg):
-    """One float32 train step of `build()` loaded with `sd`, on one batch
-    and one injected (t, x_t) (`batch` = (x0, t, xt, cond)), card against
-    CPU. Bars, set before the first run: the loss to 1e-5 relative; every
-    parameter gradient to 1e-4 of its largest magnitude on the CPU (sums
-    in another order, and the embedding's scatter-add in no fixed order on
-    the card); and, fed the CPU's gradients, the parameters and the EMA
-    shadow after one clip + AdamW + EMA update to 1e-6. Returns the
-    errors."""
+def _loss_grads(build, weights, dev, spec, batch):
+    """The float32 loss of `build()` loaded with `weights` on `dev`, on one
+    batch and one injected (t, x_t) (`batch` = (x0, t, xt, cond)), and the
+    gradient of every parameter of `weights`, on the CPU."""
     from ddg_tpu_torch.diffusion import diffusion_loss_given
     from ddg_tpu_torch.models import make_model_apply
+    x0, t, xt, cond = batch
+    m = build()
+    m.load_state_dict(weights, strict=True)
+    apply = make_model_apply(m.to(dev))
+    nll = diffusion_loss_given(
+        spec, apply, apply.params, x0.to(dev), t.to(dev), xt.to(dev),
+        None if cond is None else cond.to(dev), torch.Generator(device=dev),
+        train=True, label_smoothing=0.0)['loss']
+    loss = nll.mean()
+    grads = torch.autograd.grad(loss, [apply.params[k] for k in weights])
+    return loss.item(), [g.cpu() for g in grads]
+
+
+def _train_step_card_vs_cpu(name, build, sd, spec, batch, optim, avg,
+                            grad_bars=None):
+    """One float32 train step of `build()` loaded with `sd`, on one batch
+    and one injected (t, x_t) (`batch` = (x0, t, xt, cond), cond None for
+    a model without classes), card against CPU. Bars, set before the first
+    run: the loss to 1e-5 relative; every parameter gradient to 1e-4 of its
+    largest magnitude on the CPU (sums in another order, and the
+    embedding's scatter-add in no fixed order on the card), or to the bar
+    `grad_bars` gives it; and, fed the CPU's gradients, the parameters and
+    the EMA shadow after one clip + AdamW + EMA update to 1e-6. Returns the
+    errors."""
     from ddg_tpu_torch.runtime import averaging
     from ddg_tpu_torch.runtime.optim import make_optimizer
-    x0, t, xt, cond = batch
     names = list(sd)
-    res = {}
-    for dev in ('cpu', DEV):
-        m = build()
-        m.load_state_dict(sd, strict=True)
-        apply = make_model_apply(m.to(dev))
-        nll = diffusion_loss_given(
-            spec, apply, apply.params, x0.to(dev), t.to(dev), xt.to(dev),
-            cond.to(dev), torch.Generator(device=dev), train=True,
-            label_smoothing=0.0)['loss']
-        loss = nll.mean()
-        grads = torch.autograd.grad(loss, [apply.params[k] for k in names])
-        res[dev] = (loss.item(), [g.cpu() for g in grads])
+    grad_bars = grad_bars or {}
+    res = {dev: _loss_grads(build, sd, dev, spec, batch)
+           for dev in ('cpu', DEV)}
     (l_cpu, g_cpu), (l_dev, g_dev) = res['cpu'], res[DEV]
     loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
     check(math.isfinite(l_dev) and loss_err <= 1e-5,
           f'{name}: card loss {l_dev} vs CPU {l_cpu}')
-    grad_err = 0.0
+    grad_err, worst = 0.0, 0.0
     for k, a, b in zip(names, g_cpu, g_dev):
-        e = (a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
-        check(e <= 1e-4, f'{name}: grad of {k} differs by {e} of its '
-                         f'largest magnitude')
-        grad_err = max(grad_err, e)
+        scale = max(a.abs().max().item(), 1e-30)
+        e = (a - b).abs().max().item() / scale
+        bar = grad_bars.get(k, 1e-4)
+        check(e <= bar, f'{name}: grad of {k} differs by {e} of its '
+                        f'largest magnitude (bar {bar})')
+        grad_err, worst = max(grad_err, e), max(worst, e / bar)
     after = {}
     for dev in ('cpu', DEV):
         masters = {k: sd[k].to(dev, copy=True) for k in names}
@@ -1200,7 +1267,8 @@ def _train_step_card_vs_cpu(name, build, sd, spec, batch, optim, avg):
     check(step_err <= 1e-6, f'{name}: parameters after the update differ '
                             f'by {step_err}')
     return {'loss': l_cpu, 'loss_rel_err': loss_err,
-            'max_grad_err_of_max': grad_err, 'update_max_abs_err': step_err}
+            'max_grad_err_of_max': grad_err, 'max_grad_err_over_bar': worst,
+            'update_max_abs_err': step_err}
 
 
 def check_tiny_train():
@@ -1244,8 +1312,9 @@ def _launch_check(name, kernels, launches, per_step, steps):
                                    f'times, expected {want}')
 
 
-def _sync_check(name, run):
-    """Host syncs of `run` under PyTorch's sync debug mode; must be none."""
+def _sync_check(name, run, expect=0):
+    """Host syncs of `run` under PyTorch's sync debug mode; must be
+    `expect` (none, unless the loop is known to sync)."""
     with warnings.catch_warnings(record=True) as syncs:
         warnings.simplefilter('always')
         torch.cuda.set_sync_debug_mode('warn')
@@ -1255,12 +1324,22 @@ def _sync_check(name, run):
             torch.cuda.set_sync_debug_mode('default')
     syncs = [str(w.message) for w in syncs
              if 'called a synchronizing' in str(w.message)]
-    check(not syncs, f'{name}: the loop synchronises with the card: '
-                     f'{syncs[:3]}')
+    check(len(syncs) == expect,
+          f'{name}: the loop synchronises with the card {len(syncs)} times, '
+          f'expected {expect}: {syncs[:3]}')
     return len(syncs)
 
 
 def run_main_path(kernels):
+    """The LM1B D-CFG serving path (gamma 2) at full width: ancestral
+    feature-mix at T=1000, B=24 (the JAX bench's line, `bench.py:170-176`
+    with its default --steps), the NFE cache (the CFG kernel) at T=128,
+    B=24, and first-hitting at B=32, each timed alone. Then short runs of
+    the same samplers at B=2, untimed, under PyTorch's sync debug mode:
+    feature-mix (2 steps) and first-hitting must not wait for the card;
+    the NFE cache (8 steps) waits once a step, for the validity flag of its
+    cache (`samplers.py`'s `torch.equal`; `ddg_tpu` keeps that flag in its
+    scan carry)."""
     from ddg_tpu_torch import samplers as SM
     from ddg_tpu_torch.entry import flagship
     t0 = time.perf_counter()
@@ -1271,14 +1350,25 @@ def run_main_path(kernels):
           'heads': cfg.n_heads, 'length': cfg.length,
           'vocab': cfg.vocab_size})
     guidance = SM.GuidanceSpec(method='cfg', gamma=GAMMA)
+    jax_line = 'LM1B D-CFG samples/sec/chip ({}, B={}, DiT-small)'
     runs = [
         ('ancestral_feature_mix', 24,
-         SM.SamplerSpec(steps=128, use_cache=False, fused=True),
-         {'fused_absorbing_sample'}),
+         SM.SamplerSpec(steps=1000, use_cache=False, fused=True),
+         {'fused_absorbing_sample'}, jax_line.format('T=1000', 24)),
         ('ancestral_nfe_cache', 24,
          SM.SamplerSpec(steps=128, use_cache=True, fused=True),
-         {'fused_absorbing_cfg_sample'}),
-        ('first_hitting', 32, SM.SamplerSpec(first_hitting=True), set()),
+         {'fused_absorbing_cfg_sample'},
+         'none: the JAX line with --cache runs T=1000; this run T=128'),
+        ('first_hitting', 32, SM.SamplerSpec(first_hitting=True), set(),
+         jax_line.format('first-hitting ~ T=inf exact', 32)),
+    ]
+    # (run, sampler, host syncs expected) for the sync count.
+    sync_runs = [
+        ('ancestral_feature_mix',
+         SM.SamplerSpec(steps=2, use_cache=False, fused=True), 0),
+        ('ancestral_nfe_cache',
+         SM.SamplerSpec(steps=8, use_cache=True, fused=True), 8),
+        ('first_hitting', SM.SamplerSpec(first_hitting=True), 0),
     ]
     trunk = {'fused_rope_attention', 'ln_modulate', 'gate_res_ln_modulate'}
 
@@ -1294,7 +1384,7 @@ def run_main_path(kernels):
     sample(24, SM.SamplerSpec(steps=2, use_cache=False, fused=True), 99)
     torch.cuda.synchronize()
     totals = {name: 0 for name in kernels}
-    for i, (name, batch, sampler, expect) in enumerate(runs):
+    for i, (name, batch, sampler, expect, line) in enumerate(runs):
         for fn in kernels.values():
             fn.launches = 0
         torch.cuda.synchronize()
@@ -1308,9 +1398,11 @@ def run_main_path(kernels):
         n_tok = x.numel()
         n_mask = int((x == MASK).sum().item())
         allowed = math.ceil(5 * n_tok / 8192)
+        steps = None if sampler.first_hitting else sampler.steps
         emit({'phase': 'main_path', 'run': name, 'batch': batch,
-              'steps': None if sampler.first_hitting else sampler.steps,
+              'steps': steps, 'jax_line': line,
               'seconds': secs, 'samples_per_s': batch / secs,
+              'ms_per_step': secs / (steps or cfg.length) * 1e3,
               'launches': launches, 'mask_tokens_left': n_mask,
               'distinct_tokens': int(torch.unique(x).numel())})
         check(tuple(x.shape) == (batch, cfg.length) and x.dtype == torch.int32,
@@ -1324,11 +1416,17 @@ def run_main_path(kernels):
         for k in BACKWARD:
             check(launches[k] == 0, f'{name}: backward kernel {k} launched '
                                     'while sampling')
+    for name, sampler, expect in sync_runs:
+        n_syncs = _sync_check(name, lambda: sample(2, sampler, 7), expect)
+        emit({'phase': 'main_path_host_syncs', 'run': name, 'batch': 2,
+              'steps': None if sampler.first_hitting else sampler.steps,
+              'host_syncs': n_syncs, 'expected': expect})
     return totals
 
 
 BACKWARD = ('fused_rope_attention_bwd', 'ln_modulate_bwd',
-            'gate_res_ln_modulate_bwd', 'mamba_inner_bwd', 'ssm_scan_bwd')
+            'gate_res_ln_modulate_bwd', 'mamba_inner_bwd', 'ssm_scan_bwd',
+            'short_seq_attention_bwd')
 # Launches per micro-step of the training path: 12 blocks, and the final
 # norm's ln_modulate.
 PER_MICRO_STEP = {'fused_rope_attention': 12, 'fused_rope_attention_bwd': 12,
@@ -1337,7 +1435,16 @@ PER_MICRO_STEP = {'fused_rope_attention': 12, 'fused_rope_attention_bwd': 12,
                   'fused_absorbing_sample': 0,
                   'fused_absorbing_cfg_sample': 0, 'fused_uniform_sample': 0,
                   'fused_uniform_cfg_sample': 0, 'fused_group_norm_act': 0,
-                  'mamba_inner': 0, 'ssm_scan': 0}
+                  'mamba_inner': 0, 'ssm_scan': 0, 'mamba_inner_bwd': 0,
+                  'ssm_scan_bwd': 0, 'short_seq_attention': 0,
+                  'short_seq_attention_bwd': 0}
+# The text8 run's routes: K1 and K1b, or K2 and its backward, 12 a
+# micro-step each; the adaLN kernels as in LM1B training.
+TEXT8_PER_MICRO_STEP = {
+    'fused_rope': PER_MICRO_STEP,
+    'short_seq': dict(PER_MICRO_STEP, fused_rope_attention=0,
+                      fused_rope_attention_bwd=0, short_seq_attention=12,
+                      short_seq_attention_bwd=12)}
 
 
 def run_train_path(kernels, warmup=2, steps=5):
@@ -1417,6 +1524,160 @@ def check_learning(micro_steps=30):
     check(all(math.isfinite(v) for v in losses), 'learning: non-finite loss')
     check(last <= 0.9 * first, f'learning: loss fell from {first} to '
                                f'{last}, less than 10%')
+
+
+# ---------------------------------------------------------------------------
+# The text8 training path: DiT-small MDLM at L=256, on two attention routes
+# ---------------------------------------------------------------------------
+
+def check_tiny_text8_train():
+    """A tiny float32 DiT at text8's L=256 and V=35 (hidden 128, 2 heads of
+    64, 2 blocks, dropout 0) with the text8 run's optimizer and EMA, card
+    against CPU (`_train_step_card_vs_cpu`), on both attention routes: K1
+    and K1b, and RoPE then K2 and its backward (the plain versions on the
+    CPU). At L=256 with the x10 weights a gradient can move by ~1e-4 of its
+    largest magnitude under another summation order alone, so each
+    gradient's bar is twice its fp32 sensitivity where that exceeds 1e-4,
+    capped at 3e-4 so that a wrong kernel still fails: how far it moves on
+    the CPU, in units of its largest magnitude, when every weight matrix
+    is perturbed by half an fp32 ulp (2^-24 relative, seeded), which is
+    all that another summation order can do to an input."""
+    import dataclasses
+    import numpy as np
+    from ddg_tpu_torch.convert import make_reference_dit_state_dict
+    from ddg_tpu_torch.diffusion import sample_corruption
+    from ddg_tpu_torch.entry import (TEXT8_ROUTES, text8_train_flagship,
+                                     text8_train_setup)
+    from ddg_tpu_torch.models import DIT
+    run = text8_train_flagship(device='cpu', tiny=True)
+    sd = make_reference_dit_state_dict(
+        np.random.RandomState(1), hidden=128, cond_dim=32, n_blocks=2,
+        vocab=run.cfg.vocab_size)
+    sd = {k: v * 10 if v.ndim == 2 else v for k, v in sd.items()}
+    gen = torch.Generator().manual_seed(3)
+    x0 = run.batch(gen)['input_ids'][0]
+    t, xt = sample_corruption(run.spec, x0, gen)
+    optim = dataclasses.replace(run.optim, num_warmup_steps=0)
+    noise = torch.Generator().manual_seed(11)
+    half_ulp = {k: v * (1 + torch.randn(v.shape, generator=noise) * 2.0 ** -24)
+                if v.ndim == 2 else v for k, v in sd.items()}
+    batch = (x0, t, xt, None)
+    rec = {}
+    for route in TEXT8_ROUTES:
+        cfg = dataclasses.replace(
+            text8_train_setup(tiny=True, route=route).cfg, hidden_size=128,
+            compute_dtype=torch.float32, dropout=0.0)
+        build = lambda: DIT(cfg)          # noqa: E731
+        _, g_cpu = _loss_grads(build, sd, 'cpu', run.spec, batch)
+        _, g_half = _loss_grads(build, half_ulp, 'cpu', run.spec, batch)
+        spread = {k: ((a - b).abs().max()
+                      / a.abs().max().clamp_min(1e-30)).item()
+                  for k, a, b in zip(sd, g_cpu, g_half)}
+        bars = {k: max(1e-4, min(3e-4, 2 * v)) for k, v in spread.items()}
+        rec[route] = _train_step_card_vs_cpu(
+            f'tiny text8 train {route}', build, sd, run.spec, batch, optim,
+            run.averaging, grad_bars=bars)
+        rec[route]['max_half_ulp_spread_of_max'] = max(spread.values())
+    emit({'phase': 'tiny_text8_train_card_vs_cpu', 'length': run.cfg.length,
+          **rec})
+
+
+def run_text8_train_path(kernels, route, warmup=2, steps=3):
+    """The text8 training run at full width and depth on one attention
+    route: `warmup` steps, then `steps` timed ones (tokens/s, ms/step, peak
+    memory, loss, grad norm), exact launches per micro-step
+    (TEXT8_PER_MICRO_STEP), 0 host syncs per step and the card's idle share
+    over one profiled step. Returns the launches."""
+    from ddg_tpu_torch.entry import text8_train_flagship
+    t0 = time.perf_counter()
+    run = text8_train_flagship(device=DEV, route=route)
+    cfg = run.cfg
+    emit({'phase': 'text8_train_flagship', 'route': route,
+          'seconds': time.perf_counter() - t0,
+          'parameters': sum(p.numel() for p in run.apply_fn.params.values()),
+          'hidden': cfg.hidden_size, 'blocks': cfg.n_blocks,
+          'heads': cfg.n_heads, 'length': cfg.length,
+          'vocab': cfg.vocab_size, 'global_batch': run.global_batch,
+          'micro_batch': run.micro_batch, 'accum_steps': run.accum_steps})
+    batch = run.batch(torch.Generator(device=DEV).manual_seed(1))
+    for _ in range(warmup):
+        run.step(run.state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = [run.step(run.state, batch)[1] for _ in range(steps)]
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / steps
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_micro = steps * run.accum_steps
+    _launch_check(f'text8 training {route}', kernels, launches,
+                  TEXT8_PER_MICRO_STEP[route], n_micro)
+    n_syncs = _sync_check(f'text8 training {route}',
+                          lambda: run.step(run.state, batch))
+    busy, span, lead = device_busy_ms(lambda: run.step(run.state, batch))
+    loss = [m['loss'].item() for m in metrics]
+    gnorm = [m['grad_norm'].item() for m in metrics]
+    emit({'phase': 'text8_train_main_path', 'route': route, 'steps': steps,
+          'ms_per_step': secs * 1e3,
+          'tokens_per_s': run.global_batch * cfg.length / secs,
+          'peak_memory_bytes': peak, 'loss': loss, 'grad_norm': gnorm,
+          'lr': metrics[-1]['lr'].item(),
+          'launches_per_micro_step': {k: v / n_micro
+                                      for k, v in launches.items() if v},
+          'host_syncs_in_a_step': n_syncs,
+          'profiled_busy_ms': busy, 'profiled_span_ms': span,
+          'profiled_lead_ms': lead, 'idle_share': 1.0 - busy / span})
+    check(all(math.isfinite(v) for v in loss + gnorm),
+          f'text8 training {route}: non-finite loss or grad norm')
+    return launches
+
+
+def check_text8_learning(micro_steps=30, rows=64):
+    """Both attention routes of the text8 run from the same weights and the
+    same generator, lr 3e-4 without warmup, `micro_steps` steps on one
+    micro-batch of `rows` sequences (a quarter of TEXT8_TRAIN_MICRO_BATCH)
+    of Zipf-distributed tokens (exponent 1.1, as `check_learning`). Bars,
+    set before the first run: each route's mean loss over the last 5 steps
+    at least 10% below that over the first 5; the routes' last-5 means
+    closer than the pooled std of their last-10 losses."""
+    import dataclasses
+    from ddg_tpu_torch.entry import TEXT8_ROUTES, text8_train_flagship
+    from ddg_tpu_torch.models import DIT
+    run = text8_train_flagship(device=DEV, seed=2)
+    run.optim = dataclasses.replace(run.optim, num_warmup_steps=0)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    zipf = 1.0 / torch.arange(1, run.cfg.vocab_size, device=DEV) ** 1.1
+    shape = (rows, run.cfg.length)
+    ids = torch.multinomial(zipf, rows * run.cfg.length, replacement=True,
+                            generator=gen).view(shape).int()
+    batch = {'input_ids': ids, 'attention_mask': torch.ones(shape,
+                                                            device=DEV)}
+    out, t0 = {}, time.perf_counter()
+    for route in TEXT8_ROUTES:
+        model = DIT(dataclasses.replace(run.cfg, **TEXT8_ROUTES[route]))
+        model.load_state_dict(run.model.state_dict(), strict=True)
+        state, step = _micro_step_fn(run, model.to(DEV))
+        losses = torch.stack([step(state, batch)[1]['loss']
+                              for _ in range(micro_steps)]).tolist()
+        check(all(math.isfinite(v) for v in losses),
+              f'text8 learning {route}: non-finite loss')
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        check(last <= 0.9 * first, f'text8 learning {route}: loss fell '
+                                   f'from {first} to {last}, less than 10%')
+        out[route] = {'loss_first5': first, 'loss_last5': last,
+                      'drop': 1 - last / first, 'losses': losses}
+    tails = [out[r]['losses'][-10:] for r in out]
+    pooled = math.sqrt(sum(statistics.variance(t) for t in tails) / 2)
+    gap = abs(out['fused_rope']['loss_last5']
+              - out['short_seq']['loss_last5'])
+    emit({'phase': 'text8_learning_check', 'steps': micro_steps,
+          'rows': rows, 'seconds': time.perf_counter() - t0,
+          'last5_gap': gap, 'pooled_tail_std': pooled, **out})
+    check(gap < pooled, f'text8 learning: the two routes end {gap} apart, '
+                        f'over the pooled tail std {pooled}')
 
 
 # ---------------------------------------------------------------------------
@@ -1636,13 +1897,16 @@ def device_busy_ms(run):
             lead / 1e3)
 
 
-def run_dimamba_path(kernels, steps=128, budget_s=60.0, unfused_steps=4):
+def run_dimamba_path(kernels, steps=128, budget_s=8.0, unfused_steps=4):
     """The Species10 serving path at full width and depth:
     `dimamba_flagship()` sampling D-CFG (gamma 2) and unguided, T=128,
     B=8 of one class, with exact launches per step (16 K18 calls a forward,
     K10 or K9 once), 0 host syncs per step, and the card's idle share (the
-    gaps between the kernels of two profiled steps). A run whose T=128 would take over `budget_s` (estimated
-    from its warm-up) runs fewer steps and says so. Then `unfused_steps`
+    gaps between the kernels of two profiled steps). A run whose T=128
+    would take over `budget_s` (estimated from its warm-up) runs fewer
+    steps and says so: 8 s keeps the script near its time with the text8
+    phases (about 42 D-CFG and 82 unguided steps; ms/step is the metric,
+    and samples/s is given at T=128 from it). Then `unfused_steps`
     D-CFG steps of the same weights in a model built with
     `fused_block=False`: the unfused chain around K14, 16 calls a forward.
     Returns the launches of each path."""
@@ -1709,8 +1973,8 @@ def run_dimamba_path(kernels, steps=128, budget_s=60.0, unfused_steps=4):
               'steps_note': (None if n_steps == steps else
                              f'cut from {steps}: T={steps} estimated at '
                              f'{est:.1f} s > {budget_s} s'),
-              'seconds': secs, 'samples_per_s': SB / secs,
-              'ms_per_step': ms_step,
+              'seconds': secs, 'ms_per_step': ms_step,
+              f'samples_per_s_at_T{steps}': SB / (ms_step * steps / 1e3),
               'profiled_busy_ms_per_step': busy / 2,
               'profiled_span_ms_per_step': span / 2,
               'profiled_lead_ms': lead,
@@ -2035,11 +2299,15 @@ SOURCES = {
                         'ddg_tpu/ops/mamba_block_pallas.py:553'),
     'ssm_scan_bwd': ('ddg_tpu_torch/csrc/mamba_bwd.cu',
                      'ddg_tpu/ops/selective_scan_pallas.py:653'),
+    'short_seq_attention': ('ddg_tpu_torch/csrc/rope_attention.cu',
+                            'ddg_tpu/ops/attention_pallas.py:85'),
+    # K2's backward on the TPU is a plain-jnp recompute (_flash_bwd).
+    'short_seq_attention_bwd': ('ddg_tpu_torch/csrc/rope_attention_bwd.cu',
+                                'ddg_tpu/ops/attention_pallas.py:101'),
 }
 
 
 def main():
-    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is visible', file=sys.stderr)
         return 1
@@ -2064,6 +2332,8 @@ def main():
         'ssm_scan': mamba.ssm_scan,
         'mamba_inner_bwd': mamba.mamba_inner_bwd,
         'ssm_scan_bwd': mamba.ssm_scan_bwd,
+        'short_seq_attention': attention.short_seq_attention,
+        'short_seq_attention_bwd': attention.short_seq_attention_bwd,
     }
 
     phase_environment()
@@ -2092,7 +2362,6 @@ def main():
     tv.update(check_uniform(results))
     check_groupnorm(results, norms)
     check_adaln_bwd(results)
-    check_attention_bwd(results)
     check_uniform_species(results, tv)
     check_mamba(results)
     check_mamba_bwd(results)
@@ -2103,13 +2372,18 @@ def main():
     check_tiny_unet()
     check_tiny_dimamba()
     check_tiny_dimamba_train()
+    check_tiny_text8_train()
     by_path = {'serving': run_main_path(kernels),
                'training': run_train_path(kernels),
                'unet_serving': run_unet_path(kernels, unet, n_norms)}
     by_path.update(run_dimamba_path(kernels))
     by_path.update(run_dimamba_train_path(kernels))
+    by_path['text8_training'] = run_text8_train_path(kernels, 'fused_rope')
+    by_path['text8_training_short_seq'] = run_text8_train_path(
+        kernels, 'short_seq', warmup=1, steps=2)
     check_learning()
     check_dimamba_learning()
+    check_text8_learning()
 
     rows = []
     for name in kernels:
@@ -2129,12 +2403,19 @@ def main():
                     'sum_err_of_tol'):
             if key in r:
                 rows[-1][key] = r[key]
+        for label in ('lm1b_sampling', 'text8_training'):
+            other = results[name].get(label, {}).get(str(torch.bfloat16))
+            if other and 'ms' in other:
+                rows[-1][label] = {
+                    k: other[k] for k in ('shape', 'err', 'ms', 'plain_ms',
+                                          'library_ms', 'bound_ms',
+                                          'bound_by')}
         if 'species10' in results[name]:
             rows[-1]['species10'] = {
                 k: results[name]['species10'][k]
                 for k in ('shape', 'err', 'ms', 'plain_ms', 'bound_ms',
                           'bound_by')}
-    emit({'phase': 'done', 'seconds': time.perf_counter() - t_start})
+    emit({'phase': 'done', 'seconds': time.perf_counter() - T_START})
     emit({'kernels': rows})
     print(nvidia_smi(), flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

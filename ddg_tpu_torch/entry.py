@@ -21,6 +21,18 @@ weight decay, clip 1.0) with 2500 warmup steps, EMA 0.9999, and a global
 batch of 512 x 128 tokens as micro-batches of TRAIN_MICRO_BATCH. Until the LM1B data is in the repository, batches are
 synthetic tokens drawn uniformly over [0, V-1) (`TrainRun.batch`).
 
+`text8_train_flagship()` builds the reference's text8 MDLM run
+(`scripts/train_text8.sh`: `model=small`, `model.length=256`, global batch
+512, lr 3e-4; the JAX bench's training line, `bench.py:433-543`): the
+DiT-small at L=256 over text8's V=35 (mask 34) without classes, dropout
+0.1, bf16 trunk with a float32 vocab head, and the rest as
+`train_flagship()`, as micro-batches of TEXT8_TRAIN_MICRO_BATCH. Its
+attention takes one of two routes through the Hopper kernels: 'fused_rope'
+(K1 and K1b, `fused_rope_attn=True`) or 'short_seq' (RoPE in PyTorch, then
+K2 and its backward, `pallas_attention=True`). Batches are synthetic
+tokens over [0, 34), as `bench.py` draws them: no text8 data is in the
+repository.
+
 `unet_flagship()` builds the image serving configuration, the JAX bench's
 CIFAR10 UDLM cell (`bench.py:626-683`, trained by
 `scripts/train_cifar10_unet_guidance.sh`): the UNet with ch 128, 2 res
@@ -86,6 +98,17 @@ TRAIN_GLOBAL_BATCH = 512
 # The largest power of two whose train step peaks under half of an 80 GB
 # card (PERF.md, training section).
 TRAIN_MICRO_BATCH = 256
+TEXT8_TRAIN_GLOBAL_BATCH = 512
+# The fastest micro-batch of the card's sweep whose step peaks under half of
+# an 80 GB card (PERF.md, text8 training; scripts/profile_torch_train.py
+# --model text8 --sweep).
+TEXT8_TRAIN_MICRO_BATCH = 256
+TEXT8_VOCAB = 35                 # text8's characters and specials; mask 34
+# The attention routes of the text8 run: the DITConfig flags of each.
+TEXT8_ROUTES = {'fused_rope': dict(fused_rope_attn=True,
+                                   pallas_attention=False),
+                'short_seq': dict(fused_rope_attn=False,
+                                  pallas_attention=True)}
 DIMAMBA_TRAIN_GLOBAL_BATCH = 32
 # The largest power of two dividing 32 whose train step peaks under half of
 # an 80 GB card (PERF.md, Species10 training).
@@ -266,7 +289,6 @@ def train_flagship(device=None, *, seed: int = 0,
     reference layout, the train state's generator seeded with `seed`.
     `tiny` is a 2-block, 64-wide model with V=258, L=32 and a global
     batch of 8 as 2 micro-batches, for runs on the CPU."""
-    device = resolve_device(device)
     if tiny:
         cfg = DITConfig(hidden_size=64, cond_dim=32, length=32, n_blocks=2,
                         n_heads=2, vocab_size=258)
@@ -275,15 +297,79 @@ def train_flagship(device=None, *, seed: int = 0,
         cfg = DITConfig(hidden_size=768, cond_dim=128, length=128,
                         n_blocks=12, n_heads=12, vocab_size=30523)
         global_batch, micro = TRAIN_GLOBAL_BATCH, TRAIN_MICRO_BATCH
+    return _dit_train_run(
+        _dit_train_setup(dataclasses.replace(cfg, fused_rope_attn=True),
+                         global_batch, micro), device, seed)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTTrainSetup:
+    """What a DiT MDLM training run is made of, before any model is
+    built."""
+    cfg: DITConfig
+    spec: DiffusionSpec
+    optim: OptimSpec
+    averaging: AveragingSpec
+    global_batch: int
+    micro_batch: int
+
+
+def _dit_train_setup(cfg: DITConfig, global_batch: int,
+                     micro: int) -> DiTTrainSetup:
+    """The DiT MDLM training run of `train_flagship` for `cfg` (its
+    attention flags set): dropout 0.1, no classes, bf16 trunk, fp32 head,
+    the adaLN kernels, absorbing SUBS with the log-linear schedule and
+    antithetic t, AdamW 3e-4 (2500 warmup, clip 1.0), EMA 0.9999."""
     cfg = dataclasses.replace(cfg, dropout=0.1, num_classes=None,
                               compute_dtype=torch.bfloat16,
-                              logits_dtype=torch.float32,
-                              fused_rope_attn=True, fused_adaln=True)
+                              logits_dtype=torch.float32, fused_adaln=True)
     spec = DiffusionSpec(diffusion='absorbing_state',
                          parameterization='subs', noise=LogLinearNoise(),
                          vocab_size=cfg.vocab_size,
                          mask_index=cfg.vocab_size - 1,
                          antithetic_sampling=True, sampling_eps=1e-3)
+    optim = OptimSpec(lr=3e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+                      weight_decay=0.0, grad_clip=1.0,
+                      scheduler='constant_warmup', num_warmup_steps=2500)
+    return DiTTrainSetup(cfg=cfg, spec=spec, optim=optim,
+                         averaging=AveragingSpec.ema(0.9999),
+                         global_batch=global_batch, micro_batch=micro)
+
+
+def text8_train_setup(*, tiny: bool = False,
+                      route: str = 'fused_rope') -> DiTTrainSetup:
+    """The text8 run's configuration with attention through `route`
+    ('fused_rope' or 'short_seq', TEXT8_ROUTES). `tiny` is `bench.py
+    --quick`'s text8 model with L raised to 256 (hidden 64, cond 32, 2
+    blocks of 2 heads, V=35) and a global batch of 4 as 2 micro-batches,
+    for runs on the CPU."""
+    if route not in TEXT8_ROUTES:
+        raise ValueError(f'route must be one of {sorted(TEXT8_ROUTES)}, '
+                         f'got {route!r}')
+    if tiny:
+        cfg = DITConfig(hidden_size=64, cond_dim=32, length=256, n_blocks=2,
+                        n_heads=2, vocab_size=TEXT8_VOCAB)
+        global_batch, micro = 4, 2
+    else:
+        cfg = DITConfig(hidden_size=768, cond_dim=128, length=256,
+                        n_blocks=12, n_heads=12, vocab_size=TEXT8_VOCAB)
+        global_batch, micro = TEXT8_TRAIN_GLOBAL_BATCH, TEXT8_TRAIN_MICRO_BATCH
+    return _dit_train_setup(dataclasses.replace(cfg, **TEXT8_ROUTES[route]),
+                            global_batch, micro)
+
+
+def text8_train_flagship(device=None, *, seed: int = 0, tiny: bool = False,
+                         route: str = 'fused_rope') -> TrainRun:
+    """The text8 training run (`text8_train_setup(tiny=tiny, route=route)`)
+    on `device`, weights seeded random in the reference layout, the train
+    state's generator seeded with `seed`."""
+    return _dit_train_run(text8_train_setup(tiny=tiny, route=route), device,
+                          seed)
+
+
+def _dit_train_run(setup: DiTTrainSetup, device, seed: int) -> TrainRun:
+    device = resolve_device(device)
+    cfg = setup.cfg
     model = DIT(cfg)
     model.load_state_dict(make_reference_dit_state_dict(
         np.random.RandomState(seed), hidden=cfg.hidden_size,
@@ -291,17 +377,16 @@ def train_flagship(device=None, *, seed: int = 0,
         vocab=cfg.vocab_size), strict=True)
     model = model.to(device)
     apply_fn = make_model_apply(model)
-    optim = OptimSpec(lr=3e-4, beta1=0.9, beta2=0.999, eps=1e-8,
-                      weight_decay=0.0, grad_clip=1.0,
-                      scheduler='constant_warmup', num_warmup_steps=2500)
-    avg = AveragingSpec.ema(0.9999)
     gen = torch.Generator(device=device).manual_seed(seed)
-    state = init_train_state(gen, apply_fn.params, optim, avg)
-    step = make_train_step(spec, apply_fn, optim, avg,
-                           accum_steps=global_batch // micro)
-    return TrainRun(spec=spec, cfg=cfg, model=model, apply_fn=apply_fn,
-                    optim=optim, averaging=avg, state=state, step=step,
-                    global_batch=global_batch, micro_batch=micro)
+    state = init_train_state(gen, apply_fn.params, setup.optim,
+                             setup.averaging)
+    step = make_train_step(setup.spec, apply_fn, setup.optim,
+                           setup.averaging,
+                           accum_steps=setup.global_batch // setup.micro_batch)
+    return TrainRun(spec=setup.spec, cfg=cfg, model=model, apply_fn=apply_fn,
+                    optim=setup.optim, averaging=setup.averaging, state=state,
+                    step=step, global_batch=setup.global_batch,
+                    micro_batch=setup.micro_batch)
 
 
 def dimamba_train_flagship(device=None, *, seed: int = 0,

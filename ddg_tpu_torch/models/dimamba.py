@@ -20,14 +20,22 @@ weights in it (what flax's per-call cast produces); dt_proj, A_log, D, the
 LayerNorms (flax's: bias, eps 1e-6, E[x^2] - E[x]^2 variance), the final
 adaLN projection and `lm_head` are float32.
 
-A direction runs one of three routes, as the JAX module picks them:
-- `fused_block` ('auto': when L is a multiple of `scan_chunk` and the
-  tensors are on the card): `ops.mamba.mamba_inner`, K18;
-- `pallas_scan` ('auto': on the card): the unfused chain (in_proj, conv,
-  x_proj, dt_proj as PyTorch ops) around `ops.mamba.ssm_scan`, K14;
-- otherwise the plain `selective_scan`.
-On CPU tensors the kernels' wrappers run their plain versions, so `True`
-still works there. Gradients flow through every route: the kernels' autograd
+A direction runs one of three routes, which `resolve_route` picks from
+the configuration, L and whether the tensors are on the card, before any
+launch, as the JAX module picks them:
+- 'fused_block': `ops.mamba.mamba_inner`, K18. `fused_block='auto'` takes
+  it where the scan kernel is on (`pallas_scan`, 'auto': on the card) and
+  L and the segments fit `scan_chunk`, d_conv <= 8;
+- 'scan_kernel': the unfused chain (in_proj, conv, x_proj, dt_proj as
+  PyTorch ops) around `ops.mamba.ssm_scan`, K14, where the scan kernel is
+  on and the fused block is not taken;
+- 'plain_scan': the plain `selective_scan`, where the scan kernel is off.
+On the card a route whose kernel does not take the shape raises, naming
+what the kernel takes; it never hands the work to the plain version.
+K18/K19 take d_conv <= 4, d_state <= 16, dt_rank <= 32 and d_inner <=
+1024, K14/K15 d_state <= 16, where the TPU kernels take more. On CPU
+tensors the kernels' wrappers run their plain versions, so every route
+runs there. Gradients flow through every route: the kernels' autograd
 wrappers backpropagate through K19 (fused block) and K15 (scan kernel), the
 plain scan through PyTorch's autograd, and the tied in/out projections sum
 both directions' gradients. `train=True` applies dropout (rate
@@ -141,29 +149,54 @@ class LayerNorm(nn.Module):
             + self.bias
 
 
-def _use_kernel(flag, x) -> bool:
-    return flag if isinstance(flag, bool) else x.is_cuda
+def _scan_kernel(cfg: DiMambaConfig, on_card: bool) -> bool:
+    """cfg.pallas_scan ('auto': on the card, or True / False). On the card
+    the scan kernel, once chosen, must take the shape."""
+    use = cfg.pallas_scan is True or (cfg.pallas_scan == 'auto' and on_card)
+    if use and on_card and not mamba_ops.ssm_scan_takes(cfg.d_inner,
+                                                        cfg.d_state):
+        raise ValueError(
+            f'DiMamba: the scan kernel K14/K15 takes d_inner <= 1024 and '
+            f'd_state <= 16 on the card (got d_inner={cfg.d_inner}, '
+            f'd_state={cfg.d_state}); set pallas_scan=False for the plain '
+            'scan')
+    return use
 
 
-def _use_fused_block(cfg: DiMambaConfig, x) -> bool:
-    """cfg.fused_block ('auto' / True / False) against the fused kernel's
-    shape constraints, as the JAX module resolves it."""
-    L = x.shape[1]
-    ok = (L % cfg.scan_chunk == 0
-          and all(cfg.scan_chunk % s == 0 and cfg.scan_chunk // s >= 2
-                  for s in (cfg.scan_seg, cfg.scan_seg_bwd))
-          and cfg.d_conv <= 8)
+def resolve_route(cfg: DiMambaConfig, L: int, on_card: bool) -> str:
+    """The route of a direction, 'fused_block', 'scan_kernel' or
+    'plain_scan', from cfg.fused_block and cfg.pallas_scan ('auto' / True
+    / False) as the JAX module resolves them. fused_block=True raises where
+    the JAX constraints fail; on the card a route whose kernel does not
+    take the shape raises."""
+    jax_ok = (L % cfg.scan_chunk == 0
+              and all(cfg.scan_chunk % s == 0 and cfg.scan_chunk // s >= 2
+                      for s in (cfg.scan_seg, cfg.scan_seg_bwd))
+              and cfg.d_conv <= 8)
+    shape = (f'L={L}, chunk={cfg.scan_chunk}, seg={cfg.scan_seg}/'
+             f'{cfg.scan_seg_bwd}, hidden={cfg.hidden_size}, '
+             f'd_inner={cfg.d_inner}, d_state={cfg.d_state}, '
+             f'dt_rank={cfg.dt_rank}, d_conv={cfg.d_conv}')
     if cfg.fused_block is True:
-        if not ok:
+        if not jax_ok:
+            raise ValueError('fused_block=True but the kernel shape '
+                             f'constraints do not hold ({shape})')
+        fused = True
+    else:
+        scan = _scan_kernel(cfg, on_card)
+        fused = (cfg.fused_block == 'auto' and scan
+                 and cfg.scan_impl in ('pps2', 'pps3') and jax_ok)
+    if fused:
+        if on_card and not mamba_ops.mamba_inner_takes(
+                cfg.hidden_size, cfg.d_inner, cfg.d_state, cfg.dt_rank,
+                cfg.d_conv, cfg.compute_dtype):
             raise ValueError(
-                'fused_block=True but the kernel shape constraints do not '
-                f'hold (L={L}, chunk={cfg.scan_chunk}, seg={cfg.scan_seg}/'
-                f'{cfg.scan_seg_bwd}, d_conv={cfg.d_conv})')
-        return True
-    if cfg.fused_block is False:
-        return False
-    return (_use_kernel(cfg.pallas_scan, x)
-            and cfg.scan_impl in ('pps2', 'pps3') and ok)
+                f'DiMamba: the fused block K18/K19 does not take {shape} on '
+                'the card (it takes hidden % 8 == 0, d_inner <= 1024, '
+                'd_state <= 16, dt_rank <= 32, d_conv <= 4); set '
+                'fused_block=False for the unfused route')
+        return 'fused_block'
+    return 'scan_kernel' if scan else 'plain_scan'
 
 
 class MambaCore(nn.Module):
@@ -204,7 +237,7 @@ class MambaCore(nn.Module):
         R, N = cfg.dt_rank, cfg.d_state
         dt, B, C = x_dbl[..., :R], x_dbl[..., R:R + N], x_dbl[..., R + N:]
         delta = mamba_ops.softplus(self.dt_proj(dt.float()))
-        if _use_kernel(cfg.pallas_scan, x):
+        if _scan_kernel(cfg, x.is_cuda):
             return mamba_ops.ssm_scan(x, delta, self.A(), B, C, self.D, z,
                                       chunk=cfg.scan_chunk)
         return selective_scan(x, delta, self.A(), B, C, self.D, z,
@@ -247,7 +280,7 @@ class BiMambaWrapper(nn.Module):
 
     def forward(self, h):
         cfg = self.cfg
-        fused = _use_fused_block(cfg, h)
+        fused = resolve_route(cfg, h.shape[1], h.is_cuda) == 'fused_block'
         out = self._direction(h, self.in_proj_fwd, self.core_fwd,
                               self.out_proj_fwd, fused)
         if not cfg.bidirectional:

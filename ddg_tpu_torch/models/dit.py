@@ -14,13 +14,16 @@ norm weights and the final adaLN projection stay float32: the final adaLN
 weight is cast to `compute_dtype` inside the forward, as flax does, and
 used in float32 by `dit_head_features`, as `ddg_tpu` does.
 
-`fused_rope_attn=True` runs attention through `ops.attention`, and
-`fused_adaln=True` the block-entry and attention->MLP adaLN chains and the
-final norm through `ops.adaln`: on CUDA tensors these are the Hopper
+`fused_rope_attn=True` runs attention through `ops.attention`'s K1 (RoPE
+inside the kernel); else `pallas_attention=True` rotates q and k in plain
+PyTorch and runs `ops.attention`'s K2, as `ddg_tpu` runs its
+short-sequence kernel (the same precedence as the JAX block).
+`fused_adaln=True` runs the block-entry and attention->MLP adaLN chains and
+the final norm through `ops.adaln`. On CUDA tensors these are the Hopper
 kernels (forward and backward), on CPU tensors their plain versions. The
-JAX-only branches (tensor/sequence/ring parallelism, the TPU flash and
-short-sequence Pallas attentions, int8, the attention remat and bf16-probs
-knobs) raise NotImplementedError when set.
+JAX-only branches (tensor/sequence/ring parallelism, the TPU library flash
+attention, int8, the attention remat and bf16-probs knobs) raise
+NotImplementedError when set.
 
 `train=True` applies dropout (rate `cfg.dropout`) after the attention
 output projection and after the MLP, where the JAX block has it, with
@@ -59,8 +62,8 @@ class DITConfig:
     # The trunk's Hopper kernels; off by default, as `ddg_tpu`'s 'auto'.
     fused_rope_attn: bool = False
     fused_adaln: bool = False
-    # Not ported: they raise when set.
     pallas_attention: bool = False
+    # Not ported: they raise when set.
     tpu_flash_attn: bool = False
     attn_probs_bf16: bool = False
     attn_remat: bool = False
@@ -69,7 +72,6 @@ class DITConfig:
 
     def __post_init__(self):
         unported = {
-            'pallas_attention': 'K2 short_seq_attention',
             'tpu_flash_attn': 'the TPU library flash attention',
             'attn_probs_bf16': 'the bf16-probs einsum attention',
             'attn_remat': 'attention remat (ROADMAP A.11)',
@@ -183,6 +185,10 @@ class DDiTBlock(nn.Module):
         if cfg.fused_rope_attn:
             attn = attention.fused_rope_attention(q, k, v, cos, sin,
                                                   causal=cfg.causal)
+        elif cfg.pallas_attention:
+            attn = attention.short_seq_attention(
+                apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
+                causal=cfg.causal)
         else:
             attn = attention.attention_plain(
                 apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
@@ -216,7 +222,10 @@ class EmbeddingLayer(nn.Module):
         nn.init.uniform_(self.embedding, -bound, bound)
 
     def forward(self, x):
-        return self.embedding[x.long()]
+        # F.embedding's backward sums the rows of each token in segments; the
+        # backward of plain indexing serialises a token's duplicates, which
+        # a small vocabulary (text8's 35) has by the thousand.
+        return F.embedding(x.long(), self.embedding)
 
 
 class TimestepEmbedder(nn.Module):

@@ -32,6 +32,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 ptr = ctypes.c_void_p
 i32 = ctypes.c_int
 f32 = ctypes.c_float
+i32p = ctypes.POINTER(ctypes.c_int)
 
 
 def _nvcc() -> str:

@@ -1,20 +1,27 @@
-"""RoPE + softmax attention for the DiT's short sequences (port of
-`ddg_tpu/ops/attention_pallas.py:fused_rope_attention`, forward and
-backward).
+"""Softmax attention for the DiT's short sequences (ports of
+`ddg_tpu/ops/attention_pallas.py`: `fused_rope_attention`, K1, and
+`short_seq_attention`, K2, forward and backward).
 
-On CUDA tensors one launch of `csrc/rope_attention.cu` rotates q and k
-(rotate-half RoPE in fp32, rounded back to the input dtype), computes
-softmax(q' k'^T / sqrt(D)) with fp32 scores, rounds the probabilities to
-v's dtype and accumulates P V in fp32: on tensor cores for bf16 with
-D = 64 and L <= 128 (the DiT's shapes), on CUDA cores otherwise (the
-source picks). The backward saves only q, k and v, as `_rope_flash_fwd`
-does, and recomputes the probabilities in one launch of
-`csrc/rope_attention_bwd.cu` (D = 64 and L <= 128 only), rounding where
-the VJP of `_rope_reference` rounds. On CPU tensors the plain versions
-below run instead. Layout is the model's (B, L, H, D), as in `ddg_tpu`.
+On CUDA tensors one launch of `csrc/rope_attention.cu` computes
+softmax(q k^T / sqrt(D)) with fp32 scores, rounds the probabilities to v's
+dtype and accumulates P V in fp32; K1 first rotates q and k (rotate-half
+RoPE in fp32, rounded back to the input dtype) inside the kernel, K2 takes
+them as they are (the DiT rotates them before it, as `ddg_tpu` does). The
+products run on tensor cores for bf16 with D = 64 and L <= 256 (the DiT's
+shapes), on CUDA cores otherwise (the source picks and reports which: each
+wrapper's `tensor_core_launches` counts the former). The backward saves
+only q, k and v, as `_rope_flash_fwd` and `_flash_fwd` do, and recomputes
+the probabilities in one launch of `csrc/rope_attention_bwd.cu` (D = 64,
+L <= 256 and, in bf16, rows on 16-byte boundaries only; tensor cores for
+bf16, CUDA cores for fp32, counted the same way), rounding where the VJP
+of `_rope_reference` or `_reference` rounds. On CPU tensors the plain versions below run instead.
+Layout is the model's (B, L, H, D), as in `ddg_tpu`; q, k and v may each
+have their own token stride (views into the fused qkv projection).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -22,6 +29,7 @@ from ddg_tpu_torch.ops import _build
 
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_BWD_L = 256
 
 
 def apply_rope(x, cos, sin):
@@ -36,16 +44,21 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
 
 
-def attention_plain(q, k, v, *, causal: bool = False):
-    """softmax(q k^T / sqrt(D)) v on (B, L, H, D) with fp32 scores and the
-    probabilities cast to v's dtype before the product."""
-    scale = 1.0 / (q.shape[-1] ** 0.5)
-    s = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float()) * scale
+def _masked_scores(q32, k32, causal):
+    scale = 1.0 / (q32.shape[-1] ** 0.5)
+    s = torch.einsum('bqhd,bkhd->bhqk', q32, k32) * scale
     if causal:
         L = s.shape[-1]
         keep = torch.ones((L, L), dtype=torch.bool, device=s.device).tril()
         s = torch.where(keep, s, torch.full_like(s, NEG))
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def attention_plain(q, k, v, *, causal: bool = False):
+    """softmax(q k^T / sqrt(D)) v on (B, L, H, D) with fp32 scores and the
+    probabilities cast to v's dtype before the product: the plain version
+    of `short_seq_attention`."""
+    p = torch.softmax(_masked_scores(q.float(), k.float(), causal), dim=-1)
     return torch.einsum('bhqk,bkhd->bqhd', p.to(v.dtype), v).to(v.dtype)
 
 
@@ -66,128 +79,191 @@ def unrotate(g, cos, sin):
     return torch.cat([g1 * c + g2 * s, g2 * c - g1 * s], -1).to(g.dtype)
 
 
+def short_seq_attention_bwd_plain(q, k, v, do, *, causal: bool = False):
+    """Plain PyTorch version of `short_seq_attention_bwd`: the VJP of
+    `attention_plain` written out, with the rounding points of `jax.vjp`
+    through `_reference`. Products of input-dtype operands accumulate in
+    fp32 and round once."""
+    dt = q.dtype
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    q32, k32 = q.float(), k.float()
+    do = do.to(dt).float()
+    p = torch.softmax(_masked_scores(q32, k32, causal), dim=-1)
+    dv = torch.einsum('bhqk,bqhd->bkhd', p.to(dt).float(), do).to(dt)
+    dp = torch.einsum('bqhd,bkhd->bhqk', do, v.float()).to(dt).float()
+    ds = (p * dp - p * (p * dp).sum(-1, keepdim=True)) * scale
+    dq = torch.einsum('bhqk,bkhd->bqhd', ds, k32).to(dt)
+    dk = torch.einsum('bhqk,bqhd->bkhd', ds, q32).to(dt)
+    return dq, dk, dv
+
+
 def fused_rope_attention_bwd_plain(q, k, v, cos, sin, do, *,
                                    causal: bool = False):
     """Plain PyTorch version of `fused_rope_attention_bwd`: the VJP of
     `fused_rope_attention_plain` written out, with the rounding points of
-    `jax.vjp` through `_rope_reference`. Products of input-dtype operands
-    accumulate in fp32 and round once."""
-    dt = q.dtype
-    scale = 1.0 / (q.shape[-1] ** 0.5)
-    qr = apply_rope(q, cos, sin).float()
-    kr = apply_rope(k, cos, sin).float()
-    do = do.to(dt).float()
-    s = torch.einsum('bqhd,bkhd->bhqk', qr, kr) * scale
-    if causal:
-        L = s.shape[-1]
-        keep = torch.ones((L, L), dtype=torch.bool, device=s.device).tril()
-        s = torch.where(keep, s, torch.full_like(s, NEG))
-    p = torch.softmax(s, dim=-1)
-    dv = torch.einsum('bhqk,bqhd->bkhd', p.to(dt).float(), do).to(dt)
-    dp = torch.einsum('bqhd,bkhd->bhqk', do, v.float()).to(dt).float()
-    ds = (p * dp - p * (p * dp).sum(-1, keepdim=True)) * scale
-    dq = torch.einsum('bhqk,bkhd->bqhd', ds, kr).to(dt)
-    dk = torch.einsum('bhqk,bqhd->bkhd', ds, qr).to(dt)
+    `jax.vjp` through `_rope_reference`."""
+    dq, dk, dv = short_seq_attention_bwd_plain(
+        apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, do,
+        causal=causal)
     return unrotate(dq, cos, sin), unrotate(dk, cos, sin), dv
 
 
-class _RopeAttention(torch.autograd.Function):
+class _Attention(torch.autograd.Function):
+    """K1 (cos, sin given) or K2 (cos = sin = None) with its backward."""
+
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, causal):
-        ctx.save_for_backward(q, k, v, cos, sin)
-        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        ctx.rope, ctx.causal = (cos, sin), causal
         return _forward(q, k, v, cos, sin, causal)
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, cos, sin = ctx.saved_tensors
-        dq, dk, dv = fused_rope_attention_bwd(q, k, v, cos, sin, do,
-                                              causal=ctx.causal)
-        return dq, dk, dv, None, None, None
+        q, k, v = ctx.saved_tensors
+        cos, sin = ctx.rope
+        if cos is None:
+            grads = short_seq_attention_bwd(q, k, v, do, causal=ctx.causal)
+        else:
+            grads = fused_rope_attention_bwd(q, k, v, cos, sin, do,
+                                             causal=ctx.causal)
+        return (*grads, None, None, None)
 
 
-def fused_rope_attention(q, k, v, cos, sin, *, causal: bool = False):
-    """RoPE(q), RoPE(k) and softmax attention, differentiable in q, k, v.
-    q, k, v: (B, L, H, D), contiguous or views sharing one token stride
-    (the q/k/v slices of the fused qkv projection); cos, sin: (L, D/2)
-    float32. Returns a contiguous (B, L, H, D). Without gradients
-    (sampling) the forward runs as it is, outside autograd."""
+def _attend(q, k, v, cos, sin, causal):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _RopeAttention.apply(q, k, v, cos, sin, causal)
+        return _Attention.apply(q, k, v, cos, sin, causal)
     return _forward(q, k, v, cos, sin, causal)
 
 
+def fused_rope_attention(q, k, v, cos, sin, *, causal: bool = False):
+    """RoPE(q), RoPE(k) and softmax attention (K1), differentiable in q,
+    k, v. q, k, v: (B, L, H, D) with dense heads, each with its own token
+    stride; cos, sin: (L, D/2) float32. Returns a contiguous (B, L, H, D).
+    Without gradients (sampling) the forward runs as it is, outside
+    autograd."""
+    return _attend(q, k, v, cos, sin, causal)
+
+
+def short_seq_attention(q, k, v, *, causal: bool = False):
+    """softmax(q k^T / sqrt(D)) v (K2), differentiable in q, k, v: the
+    port of `ddg_tpu`'s `short_seq_attention`, whose caller rotates q and
+    k. Shapes and strides as `fused_rope_attention`."""
+    return _attend(q, k, v, None, None, causal)
+
+
 def _check(q, k, v, cos, sin):
-    """Raise unless q, k, v, cos, sin are what the kernels take; returns
-    the token stride."""
+    """Raise unless q, k, v (and cos, sin for K1) are what the kernels
+    take; returns the token strides of q, k and v."""
     B, L, H, D = q.shape
-    _build.require_cuda(cos, sin)
-    _build.require_cuda(q, k, v, cos, contiguous=False)
-    ts = q.stride(1)
-    if any(t.stride() != (L * ts, ts, D, 1) for t in (q, k, v)):
-        raise ValueError('q, k, v must be (B, L, H, D) with dense heads and '
-                         'one token stride')
+    tables = () if cos is None else (cos, sin)
+    _build.require_cuda(q, k, v, *tables, contiguous=False)
     if (k.shape != q.shape or v.shape != q.shape or D % 2
             or q.dtype not in _DTYPES or k.dtype != q.dtype
             or v.dtype != q.dtype):
         raise ValueError('q, k, v must share a float32/bfloat16 dtype and a '
                          '(B, L, H, D) shape with even D')
-    if (cos.dtype != torch.float32 or sin.dtype != torch.float32
-            or tuple(cos.shape) != (L, D // 2) or sin.shape != cos.shape):
-        raise ValueError(f'cos, sin must be float32 of shape ({L}, {D // 2})')
-    return ts
+    strides = tuple(t.stride(1) for t in (q, k, v))
+    if any(t.stride() != (L * ts, ts, D, 1) for t, ts in zip((q, k, v),
+                                                             strides)):
+        raise ValueError('q, k, v must be (B, L, H, D) with dense heads')
+    if cos is not None and (
+            cos.dtype != torch.float32 or sin.dtype != torch.float32
+            or tuple(cos.shape) != (L, D // 2) or sin.shape != cos.shape
+            or not cos.is_contiguous() or not sin.is_contiguous()):
+        raise ValueError(f'cos, sin must be contiguous float32 of shape '
+                         f'({L}, {D // 2})')
+    return strides
 
 
 def _forward(q, k, v, cos, sin, causal):
+    rope = cos is not None
     if q.device.type == 'cpu':
-        return fused_rope_attention_plain(q, k, v, cos, sin, causal=causal)
+        if rope:
+            return fused_rope_attention_plain(q, k, v, cos, sin,
+                                              causal=causal)
+        return attention_plain(q, k, v, causal=causal)
     B, L, H, D = q.shape
-    ts = _check(q, k, v, cos, sin)
+    strides = _check(q, k, v, cos, sin)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    fn = _build.kernel('rope_attention', 'ddg_rope_attention',
-                       (_build.ptr,) * 6 + (_build.i32,) * 6
-                       + (_build.f32, _build.i32, _build.ptr))
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
-            sin.data_ptr(), o.data_ptr(), B, L, H, D, ts, int(causal),
-            1.0 / (D ** 0.5), _DTYPES[q.dtype], _build.stream(q))
-    fused_rope_attention.launches += 1
-    _build.check(rc, 'ddg_rope_attention')
+    wrapper = fused_rope_attention if rope else short_seq_attention
+    name = 'ddg_rope_attention' if rope else 'ddg_short_seq_attention'
+    tables = (cos.data_ptr(), sin.data_ptr()) if rope else ()
+    fn = _build.kernel('rope_attention', name,
+                       (_build.ptr,) * (4 + len(tables)) + (_build.i32,) * 8
+                       + (_build.f32, _build.i32, _build.ptr, _build.i32p))
+    path = ctypes.c_int(-1)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *tables, o.data_ptr(),
+            B, L, H, D, *strides, int(causal), 1.0 / (D ** 0.5),
+            _DTYPES[q.dtype], _build.stream(q), ctypes.byref(path))
+    wrapper.launches += 1
+    wrapper.tensor_core_launches += path.value == 1
+    _build.check(rc, name)
     return o
 
 
 fused_rope_attention.launches = 0
+fused_rope_attention.tensor_core_launches = 0
+short_seq_attention.launches = 0
+short_seq_attention.tensor_core_launches = 0
 
 
-def fused_rope_attention_bwd(q, k, v, cos, sin, do, *, causal: bool = False):
-    """(dq, dk, dv) of `fused_rope_attention` for the output gradient do,
-    recomputed from q, k, v. On CUDA tensors one kernel launch, for
-    D = 64 and L <= 128; other shapes raise."""
-    if q.device.type == 'cpu':
-        return fused_rope_attention_bwd_plain(q, k, v, cos, sin, do,
-                                              causal=causal)
+def _backward(q, k, v, cos, sin, do, causal):
+    """One launch of the backward kernel: (dq, dk, dv)."""
+    rope = cos is not None
     B, L, H, D = q.shape
-    ts = _check(q, k, v, cos, sin)
-    if D != 64 or L > 128:
+    strides = _check(q, k, v, cos, sin)
+    if D != 64 or L > _MAX_BWD_L:
         raise ValueError(
-            f'the attention backward kernel takes head_dim 64 and L <= 128, '
-            f'got head_dim {D}, L {L}: retiling it is queued in ROADMAP.md '
-            '(section B)')
+            f'the attention backward kernel takes head_dim 64 and '
+            f'L <= {_MAX_BWD_L}, got head_dim {D}, L {L}')
     if tuple(do.shape) != tuple(q.shape):
         raise ValueError(f'do must have the shape {tuple(q.shape)}')
+    if q.dtype == torch.bfloat16 and (
+            any(ts % 8 for ts in strides)
+            or any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError('the bf16 attention backward kernel takes rows '
+                         'that start on 16-byte boundaries')
     do = do.to(q.dtype).contiguous()
     _build.require_cuda(q, do, contiguous=False)
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    fn = _build.kernel('rope_attention_bwd', 'ddg_rope_attention_bwd',
-                       (_build.ptr,) * 9 + (_build.i32,) * 5
-                       + (_build.f32, _build.i32, _build.ptr))
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
-            sin.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, L, H, ts, int(causal), 1.0 / (D ** 0.5),
-            _DTYPES[q.dtype], _build.stream(q))
-    fused_rope_attention_bwd.launches += 1
-    _build.check(rc, 'ddg_rope_attention_bwd')
+    wrapper = fused_rope_attention_bwd if rope else short_seq_attention_bwd
+    name = 'ddg_rope_attention_bwd' if rope else 'ddg_short_seq_attention_bwd'
+    tables = (cos.data_ptr(), sin.data_ptr()) if rope else ()
+    fn = _build.kernel('rope_attention_bwd', name,
+                       (_build.ptr,) * (7 + len(tables)) + (_build.i32,) * 7
+                       + (_build.f32, _build.i32, _build.ptr, _build.i32p))
+    path = ctypes.c_int(-1)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *tables, do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L, H, *strides,
+            int(causal), 1.0 / (D ** 0.5), _DTYPES[q.dtype],
+            _build.stream(q), ctypes.byref(path))
+    wrapper.launches += 1
+    wrapper.tensor_core_launches += path.value == 1
+    _build.check(rc, name)
     return dq, dk, dv
 
 
+def fused_rope_attention_bwd(q, k, v, cos, sin, do, *, causal: bool = False):
+    """(dq, dk, dv) of `fused_rope_attention` for the output gradient do,
+    recomputed from q, k, v. On CUDA tensors one kernel launch (K1b), for
+    D = 64 and L <= 256; other shapes raise."""
+    if q.device.type == 'cpu':
+        return fused_rope_attention_bwd_plain(q, k, v, cos, sin, do,
+                                              causal=causal)
+    return _backward(q, k, v, cos, sin, do, causal)
+
+
+def short_seq_attention_bwd(q, k, v, do, *, causal: bool = False):
+    """(dq, dk, dv) of `short_seq_attention`, recomputed from q, k, v. On
+    CUDA tensors one kernel launch (K2's backward), for D = 64 and
+    L <= 256; other shapes raise."""
+    if q.device.type == 'cpu':
+        return short_seq_attention_bwd_plain(q, k, v, do, causal=causal)
+    return _backward(q, k, v, None, None, do, causal)
+
+
 fused_rope_attention_bwd.launches = 0
+fused_rope_attention_bwd.tensor_core_launches = 0
+short_seq_attention_bwd.launches = 0
+short_seq_attention_bwd.tensor_core_launches = 0

@@ -52,9 +52,34 @@ from ddg_tpu_torch.ops import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # What the kernels hold in registers and shared memory.
 _MAX_STATE = 16
-_CONV_TAPS = 4                  # d_conv of every DiMamba configuration
+_CONV_TAPS = 4                  # fewer taps are padded with leading zeros
 _MAX_RANK = 32
 _MAX_INNER = 1024
+
+
+def mamba_inner_takes(H: int, d: int, N: int, R: int, K: int,
+                      compute_dtype) -> bool:
+    """Whether K18 and K19 take a block of hidden H, d_inner d, d_state
+    N, dt_rank R and d_conv K in `compute_dtype` on the card (d_conv < 4
+    through `pad_taps`)."""
+    return (compute_dtype in _DTYPES and H % 8 == 0
+            and d % (16 if compute_dtype == torch.bfloat16 else 8) == 0
+            and d <= _MAX_INNER and 0 < N <= _MAX_STATE
+            and 0 < R <= _MAX_RANK and 0 < K <= _CONV_TAPS)
+
+
+def pad_taps(conv_w):
+    """conv_w (K, 1, d) with K < 4 as the 4-tap weight of the same conv:
+    leading zero taps, which add exact zeros to the sum before the first
+    real tap, so the output is bit-identical."""
+    K = conv_w.shape[0]
+    return F.pad(conv_w, (0, 0, 0, 0, _CONV_TAPS - K, 0)) if K < _CONV_TAPS \
+        else conv_w
+
+
+def ssm_scan_takes(d: int, N: int) -> bool:
+    """Whether K14 and K15 take d_inner d and d_state N on the card."""
+    return d <= _MAX_INNER and 0 < N <= _MAX_STATE
 
 
 def softplus(x):
@@ -184,7 +209,7 @@ def _ssm_scan_fwd(u, delta, A, B, C, D, z, *, chunk):
             or delta.shape != u.shape or B.shape != (Bt, L, N)
             or C.shape != B.shape):
         raise ValueError('ssm_scan: inconsistent shapes or layouts')
-    if not 0 < N <= _MAX_STATE or d > _MAX_INNER or chunk <= 0:
+    if not ssm_scan_takes(d, N) or chunk <= 0:
         raise ValueError(f'ssm_scan: N={N} (<= {_MAX_STATE}), d={d} '
                          f'(<= {_MAX_INNER}) and chunk > 0 on the card')
     ld_bc = _row_stride(B, 'B')
@@ -265,12 +290,13 @@ def mamba_inner(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out, *,
     (out, in) layout: pass W_in, W_x, W_dt and W_out as transposed views of
     contiguous Linear weights, or they are copied per call; H, d and the
     row length of h must be multiples of 8 (16 for d in bfloat16),
-    d_state <= 16, dt_rank <= 32, d_conv = 4. Differentiable in h and every
-    weight through K19 (`mamba_inner_bwd`); without gradients (sampling)
-    the forward runs as it is, outside autograd."""
+    d_state <= 16, dt_rank <= 32, d_conv <= 4 (fewer than 4 taps run as 4,
+    `pad_taps`, on every device). Differentiable in h and every weight
+    through K19 (`mamba_inner_bwd`); without gradients (sampling) the
+    forward runs as it is, outside autograd."""
     kw = dict(d_state=d_state, dt_rank=dt_rank, chunk=chunk,
               compute_dtype=compute_dtype)
-    ws = (W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out)
+    ws = (W_in, pad_taps(conv_w), conv_b, W_x, W_dt, b_dt, A, D, W_out)
     _check_inner(h, *ws, **kw)
     if _needs_grad(h, *ws):
         out, h0s = _MambaInner.apply(h, *ws, kw)
@@ -294,12 +320,9 @@ def _check_inner(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out, *,
         raise ValueError('mamba_inner: inconsistent weight shapes')
     if h.device.type == 'cpu':
         return
-    cd = compute_dtype
-    if cd not in _DTYPES:
+    if compute_dtype not in _DTYPES:
         raise ValueError('compute_dtype must be float32 or bfloat16')
-    if (H % 8 or d % (16 if cd == torch.bfloat16 else 8) or d > _MAX_INNER
-            or not 0 < N <= _MAX_STATE or not 0 < R <= _MAX_RANK
-            or K != _CONV_TAPS):
+    if not mamba_inner_takes(H, d, N, R, K, compute_dtype):
         raise ValueError(f'mamba_inner: H={H}, d={d}, d_state={N}, '
                          f'dt_rank={R} or d_conv={K} outside what the '
                          'kernel takes')
@@ -669,6 +692,8 @@ def mamba_inner_bwd(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out,
     if h.device.type == 'cpu':
         return mamba_inner_bwd_plain(h, W_in, conv_w, conv_b, W_x, W_dt,
                                      b_dt, A, D, W_out, h0s, g, **kw)
+    taps = conv_w.shape[0]
+    conv_w = pad_taps(conv_w)
     _check_inner(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out, **kw)
     Bt, L, H = h.shape
     d = W_in.shape[1] // 2
@@ -718,8 +743,8 @@ def mamba_inner_bwd(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out,
             dW_out.data_ptr(), ws.data_ptr(), *ints, _build.stream(h))
     mamba_inner_bwd.launches += 1
     _build.check(rc, 'ddg_mamba_inner_bwd')
-    return (dh, dW_in, dcw.reshape(K, 1, d), dcb, dW_x, dW_dt, db_dt, dA_log,
-            dD, dW_out)
+    return (dh, dW_in, dcw[K - taps:].reshape(taps, 1, d), dcb, dW_x, dW_dt,
+            db_dt, dA_log, dD, dW_out)
 
 
 mamba_inner_bwd.launches = 0

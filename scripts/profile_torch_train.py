@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of `ddg_tpu_torch`'s training step goes on one CUDA card.
 
-    python3 scripts/profile_torch_train.py [--model dit|dimamba|both]
-                                           [--steps 2] [--trace-dir DIR]
+    python3 scripts/profile_torch_train.py [--model dit|dimamba|text8|both]
+                                           [--route fused_rope|short_seq]
+                                           [--sweep] [--steps 2]
+                                           [--trace-dir DIR]
 
 For each model, builds its training run, warms it up, times `--steps`
 steps unprofiled and one step under `torch.profiler`, and prints one JSON
@@ -13,6 +15,12 @@ share, device ms per step by group and the largest kernels by name.
   tokens as micro-batches); groups by kernel name. A second line times the
   vocab head's three float32 GEMMs alone at the micro-batch's shape with
   CUDA events, times the micro-steps of a step.
+- text8: `entry.text8_train_flagship` (DiT-small MDLM at L=256, global
+  batch 512 x 256) on `--route`, grouped as dit. With `--sweep`, first a
+  micro-batch sweep instead: for each micro-batch of 16 to 512 a fresh run,
+  one warm-up and `--steps` timed steps, one JSON line with ms/step,
+  tokens/s and peak memory (or the out-of-memory error), then a line
+  naming the fastest micro-batch whose peak stays under half the card.
 - dimamba: `entry.dimamba_train_flagship` (Species10 DiMamba UDLM, global
   batch 32 x 32768). The step runs with profiler ranges around K18, K19,
   K14 and K15 calls, the loss's forward and the backward, and a kernel on
@@ -38,8 +46,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 GROUPS = (   # first match wins; matched against the kernel's name
-    ('K1b rope_attention_bwd', ('rope_attention_bwd',)),
-    ('K1 rope_attention', ('rope_attention',)),
+    # The attention kernels' RoPE flag is their template's `true`.
+    ('K1b attention bwd (RoPE)', ('attention_bwd_mma_kernel<true',
+                                  'attention_bwd_kernel<__nv_bfloat16, true',
+                                  'attention_bwd_kernel<float, true')),
+    ('K2 attention bwd', ('attention_bwd_mma_kernel', 'attention_bwd_kernel')),
+    ('K1 attention (RoPE)', ('attention_mma_kernel<128, true',
+                             'attention_mma_kernel<256, true',
+                             'attention_kernel<__nv_bfloat16, true',
+                             'attention_kernel<float, true')),
+    ('K2 attention', ('attention_mma_kernel', 'attention_kernel')),
     ('K4/K6 adaln bwd', ('adaln_bwd',)),
     ('K3/K5 adaln fwd', ('adaln_kernel',)),
     ('gemm', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas', 'splitK')),
@@ -77,9 +93,55 @@ def head_gemm_ms(n_rows, hidden, vocab, reps=20):
     return out
 
 
-def profile_dit(args):
-    from ddg_tpu_torch.entry import train_flagship
-    run = train_flagship(device='cuda')
+def _text8_run(args):
+    from ddg_tpu_torch.entry import text8_train_flagship
+    return text8_train_flagship(device='cuda', route=args.route)
+
+
+def sweep_text8(args, micros=(16, 32, 64, 128, 256, 512)):
+    """The text8 run at each micro-batch: ms/step, tokens/s, peak memory."""
+    from ddg_tpu_torch import entry
+    half = torch.cuda.get_device_properties(0).total_memory / 2
+    rows, default = [], entry.TEXT8_TRAIN_MICRO_BATCH
+    for micro in micros:
+        entry.TEXT8_TRAIN_MICRO_BATCH = micro
+        rec = {'run': 'text8_micro_batch_sweep', 'route': args.route,
+               'micro_batch': micro}
+        try:
+            run = _text8_run(args)
+            batch = run.batch(torch.Generator(device='cuda').manual_seed(0))
+            run.step(run.state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                run.step(run.state, batch)
+            torch.cuda.synchronize()
+            secs = (time.perf_counter() - t0) / args.steps
+            rec.update(ms_per_step=secs * 1e3,
+                       tokens_per_s=run.global_batch * run.cfg.length / secs,
+                       peak_memory_bytes=torch.cuda.max_memory_allocated())
+        except torch.cuda.OutOfMemoryError as e:
+            rec['error'] = f'out of memory: {str(e)[:120]}'
+        run = batch = None
+        torch.cuda.empty_cache()
+        rows.append(rec)
+        print(json.dumps(rec), flush=True)
+    entry.TEXT8_TRAIN_MICRO_BATCH = default
+    fits = [r for r in rows if r.get('peak_memory_bytes', half) < half]
+    best = min(fits, key=lambda r: r['ms_per_step']) if fits else None
+    print(json.dumps({'run': 'text8_micro_batch_choice',
+                      'under_bytes': half,
+                      'micro_batch': best and best['micro_batch'],
+                      'entry_default': default}), flush=True)
+
+
+def profile_dit(args, build=None):
+    if build is None:
+        from ddg_tpu_torch.entry import train_flagship
+        run = train_flagship(device='cuda')
+    else:
+        run = build(args)
     batch = run.batch(torch.Generator(device='cuda').manual_seed(0))
 
     def step():
@@ -87,6 +149,7 @@ def profile_dit(args):
 
     print(json.dumps({'device': torch.cuda.get_device_name(0),
                       'torch': torch.__version__,
+                      'length': run.cfg.length,
                       'micro_batch': run.micro_batch,
                       'accum_steps': run.accum_steps}), flush=True)
     step()
@@ -265,8 +328,14 @@ def profile_dimamba(args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--model', choices=('dit', 'dimamba', 'both'),
-                    default='both', help='which training run (default both)')
+    ap.add_argument('--model', choices=('dit', 'dimamba', 'text8', 'both'),
+                    default='both',
+                    help='which training run (default both: dit, dimamba)')
+    ap.add_argument('--route', choices=('fused_rope', 'short_seq'),
+                    default='fused_rope',
+                    help="the text8 run's attention route")
+    ap.add_argument('--sweep', action='store_true',
+                    help='text8: sweep the micro-batch first')
     ap.add_argument('--steps', type=int, default=2,
                     help='unprofiled steps to time (default 2)')
     ap.add_argument('--trace-dir', default=None,
@@ -282,6 +351,10 @@ def main():
         torch.cuda.empty_cache()
     if args.model in ('dimamba', 'both'):
         profile_dimamba(args)
+    if args.model == 'text8':
+        if args.sweep:
+            sweep_text8(args)
+        profile_dit(args, build=_text8_run)
     return 0
 
 

@@ -18,9 +18,9 @@ B, L, H, DH = 2, 16, 2, 64
 ATOL = 1e-5
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, length=L):
     r = np.random.RandomState(seed)
-    return [r.randn(B, L, H, DH).astype(np.float32) for _ in range(3)]
+    return [r.randn(B, length, H, DH).astype(np.float32) for _ in range(3)]
 
 
 def test_rope_tables_match():
@@ -30,16 +30,21 @@ def test_rope_tables_match():
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize('causal', [False, True])
-def test_fused_rope_attention_matches_pallas(causal):
-    q, k, v = _inputs(1 + causal)
-    cos, sin = (np.array(a) for a in jdit.rope_cos_sin(L, DH))
+# L=16, and text8's L=256 (the case ids of L=16 are the original ones).
+LENGTHS = [pytest.param(c, n, id=f'{c}' if n == L else f'{c}-L{n}')
+           for n in (L, 256) for c in (False, True)]
+
+
+@pytest.mark.parametrize('causal,length', LENGTHS)
+def test_fused_rope_attention_matches_pallas(causal, length):
+    q, k, v = _inputs(1 + causal, length)
+    cos, sin = (np.array(a) for a in jdit.rope_cos_sin(length, DH))
     want = jat.fused_rope_attention(
         *(jnp.asarray(a) for a in (q, k, v, cos, sin)), causal=causal,
         interpret=True)
     got = tat.fused_rope_attention(
         *(torch.from_numpy(a) for a in (q, k, v, cos, sin)), causal=causal)
-    assert got.shape == (B, L, H, DH)
+    assert got.shape == (B, length, H, DH)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=0)
 

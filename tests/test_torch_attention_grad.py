@@ -22,19 +22,24 @@ B, L, H, DH = 2, 16, 2, 64
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
-def _inputs(seed):
+def _inputs(seed, length=L):
     r = np.random.RandomState(seed)
-    return [r.randn(B, L, H, DH).astype(np.float32) for _ in range(4)]
+    return [r.randn(B, length, H, DH).astype(np.float32) for _ in range(4)]
 
 
 def T(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize('causal', [False, True])
-def test_bwd_matches_pallas_vjp(causal):
-    q, k, v, do = _inputs(10 + causal)
-    cos, sin = (np.array(a) for a in jdit.rope_cos_sin(L, DH))
+# L=16, and text8's L=256 (the case ids of L=16 are the original ones).
+LENGTHS = [pytest.param(c, n, id=f'{c}' if n == L else f'{c}-L{n}')
+           for n in (L, 256) for c in (False, True)]
+
+
+@pytest.mark.parametrize('causal,length', LENGTHS)
+def test_bwd_matches_pallas_vjp(causal, length):
+    q, k, v, do = _inputs(10 + causal, length)
+    cos, sin = (np.array(a) for a in jdit.rope_cos_sin(length, DH))
     _, vjp = jax.vjp(
         lambda q, k, v: jat.fused_rope_attention(
             q, k, v, jnp.asarray(cos), jnp.asarray(sin), causal=causal,

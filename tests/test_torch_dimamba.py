@@ -38,6 +38,7 @@ from ddg_tpu_torch import convert
 from ddg_tpu_torch import samplers as TS
 from ddg_tpu_torch.entry import dimamba_flagship
 from ddg_tpu_torch.models import DiMamba, DiMambaConfig, make_model_apply
+from ddg_tpu_torch.models.dimamba import resolve_route
 from ddg_tpu_torch.ops import fused_sampling as tfs
 from ddg_tpu_torch.ops import sampling as tsamp
 
@@ -259,3 +260,68 @@ def test_unported_settings_raise():
         m2 = DiMamba(dataclasses.replace(m.cfg, fused_block=True,
                                          length=200))
         m2(torch.zeros((1, 200), dtype=torch.int32), torch.zeros(1))
+
+
+# d_conv, d_state -> the route 'auto' takes on the card, as the JAX module
+# takes it on the TPU (the fused block: L on the chunk grid, d_conv <= 8),
+# or None where the port's kernels do not take what the TPU kernels do:
+# K18/K19 take d_conv <= 4 (3 as 4 with a zero tap) and d_state <= 16,
+# K14/K15 d_state <= 16.
+AUTO_ROUTES = [(4, 16, 'fused_block'), (3, 16, 'fused_block'),
+               (4, 32, None), (3, 32, None)]
+
+
+@pytest.mark.parametrize('d_conv,d_state,want', AUTO_ROUTES)
+def test_auto_route_follows_the_kernels_limits(d_conv, d_state, want):
+    """The resolution is a pure function of (cfg, L, on_card): 'auto'
+    follows the JAX module's choice, and on the card a shape the chosen
+    kernel does not take raises rather than run the plain scan there; off
+    the card 'auto' is the plain scan. An explicit True on a refused shape
+    raises on the card and runs the plain version on the CPU."""
+    cfg = DiMambaConfig(**dict(SMALL, d_conv=d_conv, d_state=d_state))
+    if want is None:
+        with pytest.raises(ValueError, match='K14/K15'):
+            resolve_route(cfg, L, on_card=True)
+    else:
+        assert resolve_route(cfg, L, on_card=True) == want
+    assert resolve_route(cfg, L, on_card=False) == 'plain_scan'
+    # L off the chunk grid: the scan kernel, as in JAX.
+    if d_state > 16:
+        with pytest.raises(ValueError, match='K14/K15'):
+            resolve_route(cfg, L - 1, on_card=True)
+    else:
+        assert resolve_route(cfg, L - 1, on_card=True) == 'scan_kernel'
+    fused = dataclasses.replace(cfg, fused_block=True)
+    assert resolve_route(fused, L, on_card=False) == 'fused_block'
+    if want == 'fused_block':
+        assert resolve_route(fused, L, on_card=True) == 'fused_block'
+    else:
+        with pytest.raises(ValueError, match='K18/K19'):
+            resolve_route(fused, L, on_card=True)
+    scan = dataclasses.replace(cfg, fused_block=False, pallas_scan=True)
+    assert resolve_route(scan, L, on_card=False) == 'scan_kernel'
+    if d_state > 16:
+        with pytest.raises(ValueError, match='K14/K15'):
+            resolve_route(scan, L, on_card=True)
+    else:
+        assert resolve_route(scan, L, on_card=True) == 'scan_kernel'
+    plain = dataclasses.replace(cfg, pallas_scan=False)
+    assert resolve_route(plain, L, on_card=True) == 'plain_scan'
+    # d_conv 5 the TPU's fused block takes, K18/K19 not: the card raises.
+    five = dataclasses.replace(cfg, d_conv=5, d_state=16)
+    with pytest.raises(ValueError, match='K18/K19'):
+        resolve_route(five, L, on_card=True)
+    assert resolve_route(dataclasses.replace(five, fused_block=False), L,
+                         on_card=True) == 'scan_kernel'
+
+
+def test_auto_route_on_a_refused_shape_runs_on_the_cpu():
+    """A model whose shape the card's kernels refuse (d_conv 3, d_state 32)
+    builds and runs with the default 'auto' flags."""
+    cfg = DiMambaConfig(**dict(SMALL, d_conv=3, d_state=32,
+                               compute_dtype=torch.float32))
+    m = DiMamba(cfg).eval()
+    x = torch.randint(0, V, (1, L))
+    with torch.no_grad():
+        out = m(x, torch.ones(1), torch.zeros(1, dtype=torch.int32))
+    assert out.shape == (1, L, V) and bool(torch.isfinite(out).all())

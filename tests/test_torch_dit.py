@@ -6,6 +6,7 @@ BASELINE.md, with the fused flags off on both sides and on on both sides
 CPU). The trunk-only outputs and the head functions are compared too."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ import torch
 
 from ddg_tpu import convert as jconvert
 from ddg_tpu.models import dit as jdit
+from ddg_tpu.ops import attention_pallas as jap
 from ddg_tpu_torch import convert as tconvert
 from ddg_tpu_torch.models import DIT, DITConfig, make_model_apply
 from ddg_tpu_torch.models import dit as tdit
@@ -183,8 +185,26 @@ def test_state_dict_conversion_matches_export(weights):
 
 
 def test_unported_options_raise():
-    for kw in (dict(pallas_attention=True), dict(tpu_flash_attn=True),
-               dict(quant_int8=True), dict(tensor_axis='model')):
+    for kw in (dict(tpu_flash_attn=True), dict(quant_int8=True),
+               dict(tensor_axis='model')):
         with pytest.raises(NotImplementedError):
             torch_cfg(**kw)
     assert dataclasses.replace(torch_cfg(), fused_adaln=True).fused_adaln
+
+
+def test_short_seq_attention_logits_match_jax(weights, inputs, monkeypatch):
+    """`pallas_attention=True` builds and runs RoPE then K2 (its plain
+    version on the CPU); JAX runs its short-sequence Pallas kernel in
+    interpret mode. Float32 logits to the same bar."""
+    monkeypatch.setattr(jap, 'short_seq_attention', functools.partial(
+        jap.short_seq_attention, interpret=True))
+    x, sigma, cond = inputs
+    want = jdit.DIT(jax_cfg(pallas_attention=True)).apply(
+        {'params': weights}, jnp.asarray(x), jnp.asarray(sigma),
+        jnp.asarray(cond))
+    m = torch_model(weights, pallas_attention=True)
+    assert m.cfg.pallas_attention and not m.cfg.fused_rope_attn
+    with torch.no_grad():
+        got = m(torch.from_numpy(x), torch.from_numpy(sigma),
+                torch.from_numpy(cond))
+    close(got, want)

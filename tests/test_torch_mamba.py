@@ -75,6 +75,28 @@ def test_mamba_inner_matches_pallas(L, chunk, seg, dtype):
     _check(got.float(), want, dtype)
 
 
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+def test_mamba_inner_three_taps_match_pallas(dtype):
+    """d_conv 3 (the TPU kernel takes d_conv <= 8): `mamba_inner` runs it
+    as 4 taps with a leading zero one (`pad_taps`, on every device), which
+    equals the plain version on the 3 taps bit for bit and the Pallas
+    kernel to the bar."""
+    L, chunk = 64, 16
+    args = list(_weights(11, L))
+    args[2] = args[2][1:]
+    jdt, tdt = _DT[dtype]
+    want = jax.jit(functools.partial(
+        mamba_inner_pallas, d_state=N, dt_rank=R, chunk=chunk, seg=4,
+        seg_bwd=4, interpret=True, compute_dtype=jdt))(
+            *(jnp.asarray(a) for a in args)).astype(jnp.float32)
+    targs = [torch.from_numpy(a) for a in args]
+    kw = dict(d_state=N, dt_rank=R, chunk=chunk, compute_dtype=tdt)
+    got = mamba.mamba_inner(*targs, **kw)
+    assert tuple(mamba.pad_taps(targs[2]).shape) == (4, 1, D_IN)
+    assert torch.equal(got, mamba.mamba_inner_plain(*targs, **kw))
+    _check(got.float(), want, dtype)
+
+
 def test_mamba_inner_reverse_direction_weights():
     """The reverse direction: flip(h) through another core's weights, as
     BiMambaWrapper runs `core_rev`, flipped back."""

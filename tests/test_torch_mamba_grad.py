@@ -118,6 +118,19 @@ def test_mamba_inner_grads_match_pallas_bf16(key):
         assert err <= 1.5 * jax_err + _ulp2(w), (name, err, jax_err)
 
 
+def test_mamba_inner_grads_three_taps_match_pallas_f32():
+    """d_conv 3 runs as 4 taps with a leading zero one (`pad_taps`): the
+    gradients, conv_w's (3, 1, d) too, equal JAX's at 3 taps, and
+    `mamba_inner_bwd` slices the padded tap off itself."""
+    shape, args, ct = _inner_case('chunk16', 5)
+    args = args[:2] + (args[2][1:],) + args[3:]
+    want = _jax_inner_grads(args, ct, shape, jnp.float32)
+    got = _port_inner_grads(args, ct, shape, torch.float32)
+    for name, g, w in zip(NAMES, got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4, err_msg=name)
+
+
 def test_mamba_inner_grads_reverse_direction_weights():
     """The reverse direction: flip(h) through another set of weights, the
     output flipped back, as the model runs `core_rev`."""
