@@ -49,7 +49,10 @@ Each phase prints one JSON line:
      exact launches per step (16 K18 calls a forward, K10 or K9 once) and
      0 host syncs per step; then a few D-CFG steps of the same model with
      `fused_block=False`, the unfused chain around K14 (16 calls a
-     forward);
+     forward), and as many of the same weights on the 'dt_lowrank' route
+     (`dimamba_flagship(route='dt_lowrank')`, the unfused chain around K16:
+     16 calls a forward, none of K14 or K18, K10 once a step, 0 host syncs),
+     ms/step beside the dense route's;
  11. the genomics training main path at full width and depth:
      `entry.dimamba_train_flagship()` (Species10 DiMamba UDLM, global
      batch 32 x 32768 as micro-batches): warm-up, then timed steps
@@ -57,11 +60,16 @@ Each phase prints one JSON line:
      micro-step (16 K18, 16 K19), 0 host syncs per step and the idle share
      of one profiled step; then a step of the same weights with
      `fused_block=False`, two micro-batches of 4 rows (16 K14, 16 K15 per
-     micro-step);
- 12. a learning check of both DiMamba kernel routes from the same weights
-     and generator: 30 steps on one class-structured micro-batch at lr
-     2e-3, each route's loss at least 10% down, the routes' last-5 means
-     closer than the pooled std of their last-10 losses;
+     micro-step); then the run on the 'dt_lowrank' route
+     (`dimamba_train_flagship(route='dt_lowrank')`, micro-batches of
+     DIMAMBA_DTLR_TRAIN_MICRO_BATCH): timed steps, tokens/s, peak memory,
+     exactly 16 K16 and 16 K17 per micro-step and none of K14, K15, K18,
+     K19, 0 host syncs;
+ 12. a learning check of the three DiMamba kernel routes (fused block,
+     K14/K15, K16/K17) from the same weights and generator: 30 steps on one
+     class-structured micro-batch at lr 2e-3, each route's loss at least
+     10% down, each unfused route's last-5 mean closer to the fused
+     route's than the pooled std of the two routes' last-10 losses;
  13. the text8 training main path at full width and depth:
      `entry.text8_train_flagship()` (DiT-small MDLM at L=256, V=35, global
      batch 512 x 256 as micro-batches) on both attention routes, K1 and
@@ -86,9 +94,22 @@ DiMamba's full widths (fp32 and bf16, both directions' weights, a ragged
 row tile, a padded last chunk), timed at the Species10 shape, and K9/K10
 at its V=12; and K19 and K15 (the backwards) the same way, twice each with
 bit-identical outputs, in bf16 also at the training shape (16 x 32768),
-timed there; phase 5 a tiny DiMamba card against CPU and a tiny DiMamba
-train step card against CPU on both kernel routes, and a tiny text8 DiT
-train step (L=256) card against CPU on both attention routes.
+timed there; K16 and K17 (the dt-lowrank scan and its backward) against
+their plain versions, fp32 and bf16, at B=2, L=2048, at a ragged channel
+tile, at 16 x 32768 and at the dt-lowrank training micro-batch
+(DIMAMBA_DTLR_TRAIN_MICRO_BATCH x 32768), K16 also bit for bit against K14
+fed its composite delta, K17 rerun bit-identical, K16 timed in bf16 at the
+serving shape (16 x 32768) and K17 at the training one, beside their
+composites; K14-K19 at the shapes they were widened to take (d_state 24
+and 64, d_conv 6 and 8, hidden 768 with dt_rank 48) against their plain
+versions, fp32 and bf16 (fp32 rows to 1e-4 of their largest magnitude,
+K14 and K15 also against float64, recorded), the backwards twice each
+with bit-identical outputs; and the wrappers' mirror of the kernels'
+shared-memory sums (what `ops.mamba`'s `*_takes` accept) against the
+sums the built kernels use. Phase 5 runs a tiny DiMamba card against CPU and a
+tiny DiMamba train step card against CPU on the three kernel routes, and a
+tiny text8 DiT train step (L=256) card against CPU on both attention
+routes.
 Then the `kernels` line, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}} last. Any failed check raises, so the run
 exits non-zero without a result line; so does a machine without a CUDA
@@ -222,9 +243,17 @@ def _rand(gen, *shape, scale=1.0, dtype=torch.float32):
             * scale).to(dtype)
 
 
-def _close(name, dtype, out, ref):
+def _close(name, dtype, out, ref, rel=False):
+    """out against ref: fp32 to FP32_TOL, bf16 to 2 ulp of ref's largest
+    magnitude. `rel` (the widened DiMamba shapes): fp32 to FP32_TOL of
+    ref's largest magnitude where it exceeds 1, as tests/test_torch_mamba*.py
+    hold the plain versions (past 1024 one fp32 ulp is over 1e-4)."""
     err = (out.float() - ref.float()).abs().max().item()
-    tol = FP32_TOL if dtype == torch.float32 else bf16_tol(ref)
+    if dtype != torch.float32:
+        tol = bf16_tol(ref)
+    else:
+        tol = FP32_TOL * (max(1.0, ref.float().abs().max().item()) if rel
+                          else 1.0)
     check(err <= tol, f'{name} {dtype}: max abs err {err} > {tol}')
     return err, tol
 
@@ -892,13 +921,16 @@ def _close_states(name, dtype, out, ref):
     return err
 
 
-def _main_path_check(name, rec, got, want):
-    """(out, h0s) of a kernel against its plain version at the main path's
-    bf16 shape; the errors also raise `rec`'s maxima."""
-    err, tol = _close(name, torch.bfloat16, got[0], want[0])
-    h0s_err = _close_states(name, torch.bfloat16, got[1], want[1])
-    rec['err'] = max(rec['err'], err)
-    rec['h0s_err'] = max(rec['h0s_err'], h0s_err)
+def _fwd_pair(rec, name, dtype, got, want, rel=False):
+    """(out, h0s) of a kernel against another computation of them: out to
+    the usual bars (`_close`, with `rel`), h0s to `_close_states`; the
+    errors also raise `rec`'s maxima (and set its 'tol'). Returns {err,
+    tol, h0s_err}."""
+    err, tol = _close(name, dtype, got[0], want[0], rel)
+    h0s_err = _close_states(name, dtype, got[1], want[1])
+    rec['tol'] = tol
+    rec['err'] = max(rec.get('err', 0.0), err)
+    rec['h0s_err'] = max(rec.get('h0s_err', 0.0), h0s_err)
     return {'err': err, 'tol': tol, 'h0s_err': h0s_err}
 
 
@@ -917,7 +949,7 @@ def check_mamba(results):
     from ddg_tpu_torch.ops import mamba as M
     gen = torch.Generator(device=DEV).manual_seed(14)
     for dtype in (torch.float32, torch.bfloat16):
-        rec18 = {'err': 0.0, 'h0s_err': 0.0}
+        rec18 = {}
         for Bt, Lm, chunk, rows in ((2, 2048, 128, 'fwd'),
                                     (2, 2048, 128, 'rev'),
                                     (2, 80, 16, 'ragged'),
@@ -928,15 +960,11 @@ def check_mamba(results):
                 h = torch.flip(h, (1,))
             kw = dict(d_state=SN, dt_rank=SR, chunk=chunk,
                       compute_dtype=dtype, return_h0s=True)
-            out, h0 = M.mamba_inner(h, **w, **kw)
-            ref, h0r = M.mamba_inner_plain(h, **w, **kw)
-            name = f'mamba_inner {rows} B={Bt} L={Lm} chunk={chunk}'
-            err, rec18['tol'] = _close(name, dtype, out, ref)
-            rec18['err'] = max(rec18['err'], err)
-            rec18['h0s_err'] = max(rec18['h0s_err'],
-                                   _close_states(name, dtype, h0, h0r))
+            _fwd_pair(rec18, f'mamba_inner {rows} B={Bt} L={Lm} '
+                      f'chunk={chunk}', dtype, M.mamba_inner(h, **w, **kw),
+                      M.mamba_inner_plain(h, **w, **kw))
         results['mamba_inner'][str(dtype)] = rec18
-        rec14 = {'err': 0.0, 'h0s_err': 0.0}
+        rec14 = {}
         for Bt, Lm in ((2, 2048), (2, 2000)):
             xz = _rand(gen, Bt, Lm, 2 * SD, dtype=dtype)
             xd = _rand(gen, Bt, Lm, SR + 2 * SN, dtype=dtype)
@@ -944,13 +972,9 @@ def check_mamba(results):
             args = (xz[..., :SD], M.softplus(_rand(gen, Bt, Lm, SD) - 3.0),
                     w['A'], xd[..., SR:SR + SN], xd[..., SR + SN:], w['D'],
                     xz[..., SD:])
-            y, h0 = M.ssm_scan(*args, return_h0s=True)
-            ref, h0r = M.ssm_scan_plain(*args, return_h0s=True)
-            name = f'ssm_scan B={Bt} L={Lm}'
-            err, rec14['tol'] = _close(name, dtype, y, ref)
-            rec14['err'] = max(rec14['err'], err)
-            rec14['h0s_err'] = max(rec14['h0s_err'],
-                                   _close_states(name, dtype, h0, h0r))
+            _fwd_pair(rec14, f'ssm_scan B={Bt} L={Lm}', dtype,
+                      M.ssm_scan(*args, return_h0s=True),
+                      M.ssm_scan_plain(*args, return_h0s=True))
         results['ssm_scan'][str(dtype)] = rec14
 
     # Times at the main path's shape, bf16.
@@ -963,8 +987,8 @@ def check_mamba(results):
     rec18['ms'] = time_ms(lambda: M.mamba_inner(h, **w, **kw))
     rec18['plain_ms'] = time_ms(lambda: M.mamba_inner_plain(h, **w, **kw),
                                 reps=3, warmup=1)
-    rec18['main_path'] = _main_path_check(
-        f'mamba_inner B={2 * SB} L={SL}', rec18,
+    rec18['main_path'] = _fwd_pair(
+        rec18, f'mamba_inner B={2 * SB} L={SL}', bf,
         M.mamba_inner(h, **w, **kw, return_h0s=True),
         M.mamba_inner_plain(h, **w, **kw, return_h0s=True))
     # The yardstick for its GEMM share: its four products through
@@ -996,8 +1020,8 @@ def check_mamba(results):
     rec14['ms'] = time_ms(lambda: M.ssm_scan(*args))
     rec14['plain_ms'] = time_ms(lambda: M.ssm_scan_plain(*args), reps=3,
                                 warmup=1)
-    rec14['main_path'] = _main_path_check(
-        f'ssm_scan B={2 * SB} L={SL}', rec14,
+    rec14['main_path'] = _fwd_pair(
+        rec14, f'ssm_scan B={2 * SB} L={SL}', bf,
         M.ssm_scan(*args, return_h0s=True),
         M.ssm_scan_plain(*args, return_h0s=True))
     # Bytes: u, z, y (bf16) and delta (fp32) per (row, channel), B and C
@@ -1008,25 +1032,198 @@ def check_mamba(results):
         M_rows * SD * (2 + 2 + 2 + 4) + M_rows * 2 * SN * 2
         + 2 * SB * n_chunks * SN * SD * 4 + 4 * SD * (SN + 1),
         ((M_rows * SD * (SN + 1), PEAK_SFU),))
+    check_mamba_smem()
+    check_mamba_dtlr(results, gen)
+    check_mamba_wide(results, gen)
+
+
+# ROADMAP C.1: the shapes the card's kernels were widened to take, run at
+# B=2, L=1024 with fp32 rows held to 1e-4 of their largest magnitude
+# (`_close`'s `rel`): (label, H, d_inner, d_state, dt_rank, d_conv).
+WIDE_SHAPES = (('d_state24', SH, SD, 24, SR, 4), ('d_state64', SH, SD, 64, SR, 4),
+               ('d_conv6', SH, SD, SN, SR, 6), ('d_conv8', SH, SD, SN, SR, 8),
+               ('hidden768', 768, 1536, SN, 48, 4))
+WIDE_B, WIDE_L = 2, 1024
+
+
+def _scan_inputs(gen, dtype, Bt, Lm, d=SD, N=SN, R=SR):
+    """The scans' operands as the model hands them over: u, z, B, C (and
+    dt_lr) views of wider projections of unit scale, W_dt a (R, d) view of
+    a torch-layout weight. Returns (K16's nine arguments, K14's seven with
+    delta = softplus(dt_lr W_dt + b_dt), the composite)."""
+    from ddg_tpu_torch.ops import mamba as M
+    xz = _rand(gen, Bt, Lm, 2 * d, dtype=dtype)
+    xd = _rand(gen, Bt, Lm, R + 2 * N, dtype=dtype)
+    w = _mamba_weights(gen, dtype, H=8, d=d, R=R, N=N)
+    lr = xd[..., :R].float()
+    u, z, Bc, Cc = xz[..., :d], xz[..., d:], xd[..., R:R + N], xd[..., R + N:]
+    delta = M.softplus(lr @ w['W_dt'] + w['b_dt'])
+    return ((u, lr, w['W_dt'], w['b_dt'], w['A'], Bc, Cc, w['D'], z),
+            (u, delta, w['A'], Bc, Cc, w['D'], z))
+
+
+def check_mamba_dtlr(results, gen):
+    """K16 (`ssm_scan_dtlr`) against its plain version, and bit for bit
+    against K14 fed the composite softplus(dt_lr W_dt + b_dt) (y and h0s
+    equal), fp32 and bf16: at B=2, L=2048, at d_inner 200 (a ragged
+    channel tile of the scan's 128), at the dt-lowrank serving path's shape
+    (16 x 32768: D-CFG doubles B=8; d 512, N 16, R 16) and at its training
+    path's (DIMAMBA_DTLR_TRAIN_MICRO_BATCH x 32768). Timed in bf16 at the
+    serving shape beside its bound, its plain version and the composite
+    (dt_proj by torch.matmul, softplus, K14)."""
+    from ddg_tpu_torch.entry import DIMAMBA_DTLR_TRAIN_MICRO_BATCH as TB
+    from ddg_tpu_torch.ops import mamba as M
+    SB2 = 2 * SB
+    for dtype in (torch.float32, torch.bfloat16):
+        rec = {}
+        for Bt, Lm, d in ((2, 2048, SD), (2, 1024, 200), (SB2, SL, SD),
+                          (TB, SL, SD)):
+            a16, a14 = _scan_inputs(gen, dtype, Bt, Lm, d=d)
+            got = M.ssm_scan_dtlr(*a16, return_h0s=True)
+            name = f'ssm_scan_dtlr B={Bt} L={Lm} d={d}'
+            _fwd_pair(rec, name, dtype, got,
+                      M.ssm_scan_dtlr_plain(*a16, return_h0s=True))
+            want = M.ssm_scan(*a14, return_h0s=True)
+            check(torch.equal(got[0], want[0])
+                  and torch.equal(got[1], want[1]),
+                  f'{name} {dtype}: differs from K14 fed the composite '
+                  f'delta (y {(got[0].float() - want[0].float()).abs().max()}'
+                  f', h0s {(got[1] - want[1]).abs().max()})')
+            rec['equals_ssm_scan_on_composite'] = True
+            del a16, a14, got, want
+        results['ssm_scan_dtlr'][str(dtype)] = rec
+    bf = torch.bfloat16
+    rec = results['ssm_scan_dtlr'][str(bf)]
+    a16, a14 = _scan_inputs(gen, bf, SB2, SL)
+    rec['ms'] = time_ms(lambda: M.ssm_scan_dtlr(*a16), reps=10)
+    rec['plain_ms'] = time_ms(lambda: M.ssm_scan_dtlr_plain(*a16), reps=3,
+                              warmup=1)
+    lr, w_dt, b_dt = a16[1], a16[2], a16[3]
+    rec['composite_ms'] = time_ms(lambda: M.ssm_scan(
+        a14[0], M.softplus(lr @ w_dt + b_dt), *a14[2:]), reps=10)
+    rec['library_ms'] = None
+    # Bytes: u, z, y (bf16) per (row, channel); dt_lr (fp32), B and C per
+    # row; the chunk entry states out; the weights. Operations: per (row,
+    # channel) exp(delta A) per state, softplus's exp and log1p and the
+    # gate's sigmoid on the SFU; dt_proj's FMAs in fp32.
+    M_rows, n_chunks = SB2 * SL, SL // 128
+    rec['bound_ms'], rec['bound_by'] = bound_mixed(
+        M_rows * SD * 6 + M_rows * (4 * SR + 4 * SN)
+        + SB2 * n_chunks * SN * SD * 4 + 4 * SD * (SR + SN + 2),
+        ((M_rows * SD * (SN + 3), PEAK_SFU), (2 * M_rows * SR * SD, PEAK_FP32)))
+    rec['shape'] = [SB2, SL, SD, SN, SR]
+
+
+def check_mamba_smem():
+    """The wrappers' mirror of the kernels' shared-memory sums
+    (`ops.mamba.scan_smem`, `_front_tile`, `_SMEM`, which decide what
+    `ssm_scan_takes`, `ssm_scan_dtlr_takes` and `mamba_inner_takes` accept
+    without a card) equals the sums the built kernels use
+    (`ddg_scan_smem`, `ddg_scan_bwd_smem`, `ddg_front_tile`,
+    `ddg_smem_max`): at Species10's shape, the WIDE_SHAPES, the d_state
+    and dt_rank where the scans stop fitting, and the d_inner where the
+    front tile shrinks or fails, at chunks 128 and 16."""
+    import ctypes
+    from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import mamba as M
+    i32, ll = _build.i32, ctypes.c_longlong
+    fwd = _build.kernel('mamba', 'ddg_scan_smem', (i32,) * 3, ll)
+    bwd = _build.kernel('mamba_bwd', 'ddg_scan_bwd_smem', (i32,) * 3, ll)
+    tile = _build.kernel('mamba', 'ddg_front_tile', (i32,) * 3, i32)
+    smem_max = _build.kernel('mamba', 'ddg_smem_max', (), i32)()
+    check(smem_max == M._SMEM, f'kSmemMax {smem_max} != ops.mamba._SMEM '
+          f'{M._SMEM}')
+    n = 0
+    for chunk in (128, 16):
+        for N in sorted({SN, 24, 64, 96, 97, 112, 113, 128}):
+            for R in (0, SR, 48, 64):
+                py, c = M.scan_smem(chunk, N, R), max(fwd(chunk, N, R),
+                                                      bwd(chunk, N, R))
+                check(py == c, f'scan_smem(chunk={chunk}, N={N}, R={R}): '
+                      f'{py} in ops.mamba, {c} in csrc')
+                n += 1
+    for d in (200, SD, 1536, 2048, 3328, 3560, 3568, 7120, 7136):
+        for R in (SR, 48, 64):
+            for esize in (2, 4):
+                py, c = M._front_tile(d, R, esize), tile(d, R, esize)
+                check(py == c, f'front tile (d={d}, R={R}, {esize}-byte '
+                      f'rows): {py} in ops.mamba, {c} in csrc')
+                n += 1
+    emit({'phase': 'mamba_smem_mirror', 'cases': n, 'smem_max': smem_max})
+
+
+def _f64_scan(a14):
+    """K14's (y, h0s) on its operands in float64 (the plain version's sums
+    and order, A's fp32 round trip kept): the yardstick for how far the
+    fp32 plain version and the kernel lie from the exact sums."""
+    from ddg_tpu_torch.ops import mamba as M
+    u, delta, A, Bc, Cc, D, z = (t.double() for t in a14)
+    y, h0s = M.scan_chunks(u, delta, M._round_trip(a14[2]).double(), Bc, Cc,
+                           128)
+    return (y + D * u) * (z * torch.sigmoid(z)), h0s
+
+
+def _f64_gap(outs, got, plain, exact):
+    """{output: [max |plain - exact|, max |kernel - exact|, max |exact|]}."""
+    return {n: [(p.double() - e).abs().max().item(),
+                (g.double() - e).abs().max().item(), e.abs().max().item()]
+            for n, g, p, e in zip(outs, got, plain, exact)}
+
+
+def check_mamba_wide(results, gen):
+    """The C.1 shapes (WIDE_SHAPES) on K18, K14 and K16 against their plain
+    versions, fp32 and bf16, fp32 rows to 1e-4 of their largest magnitude
+    (`_close`'s `rel`): K18 at every shape, the scans at those whose
+    d_state, d_inner or dt_rank differ from Species10's. In fp32 K14's y
+    from the plain version and the kernel is also held against float64
+    (`_f64_scan`; recorded, the basis of that bar)."""
+    from ddg_tpu_torch.ops import mamba as M
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, H, d, N, R, K in WIDE_SHAPES:
+            w = _mamba_weights(gen, dtype, H=H, d=d, R=R, N=N, K=K)
+            h = _rand(gen, WIDE_B, WIDE_L, H, dtype=dtype)
+            kw = dict(d_state=N, dt_rank=R, compute_dtype=dtype,
+                      return_h0s=True)
+            rec = results['mamba_inner'][str(dtype)]
+            rec.setdefault('widened', {})[label] = _fwd_pair(
+                rec, f'mamba_inner {label}', dtype, M.mamba_inner(h, **w, **kw),
+                M.mamba_inner_plain(h, **w, **kw), rel=True)['err']
+            if K != 4:
+                continue
+            a16, a14 = _scan_inputs(gen, dtype, WIDE_B, WIDE_L, d=d, N=N, R=R)
+            for name, fn, plain, a in (
+                    ('ssm_scan', M.ssm_scan, M.ssm_scan_plain, a14),
+                    ('ssm_scan_dtlr', M.ssm_scan_dtlr, M.ssm_scan_dtlr_plain,
+                     a16)):
+                rec = results[name][str(dtype)]
+                got, want = fn(*a, return_h0s=True), plain(*a, return_h0s=True)
+                rec.setdefault('widened', {})[label] = _fwd_pair(
+                    rec, f'{name} {label}', dtype, got, want, rel=True)['err']
+                if name == 'ssm_scan' and dtype == torch.float32:
+                    rec.setdefault('widened_vs_f64', {})[label] = _f64_gap(
+                        ('y',), got, want, _f64_scan(a14))
 
 
 # Outputs of the backward kernels: per row (the 1e-4 / 2-ulp bars) or sums
 # over rows (`_close_grad`).
 K15_OUT = (('du', 'row'), ('ddelta', 'row'), ('dB', 'row'), ('dC', 'row'),
            ('dA_log', 'sum'), ('dz', 'row'), ('dD', 'sum'))
+K17_OUT = (('du', 'row'), ('ddt_lr', 'row'), ('dW_dt', 'sum'),
+           ('db_dt', 'sum'), ('dB', 'row'), ('dC', 'row'), ('dA_log', 'sum'),
+           ('dz', 'row'), ('dD', 'sum'))
 K19_OUT = (('dh', 'row'), ('dW_in', 'sum'), ('dconv_w', 'sum'),
            ('dconv_b', 'sum'), ('dW_x', 'sum'), ('dW_dt', 'sum'),
            ('db_dt', 'sum'), ('dA_log', 'sum'), ('dD', 'sum'),
            ('dW_out', 'sum'))
 
 
-def _close_grad(name, dtype, kind, out, ref):
+def _close_grad(name, dtype, kind, out, ref, rel=False):
     """A backward output against its plain version: rows at the usual
-    bars; sums over rows (fp32 whatever the inputs) at 1e-5 of their
+    bars (`_close`, with `rel`); sums over rows (fp32 whatever the inputs) at 1e-5 of their
     largest magnitude in float32 and 2 ulp of it when the inputs were
     bf16 (a rounding flip of a bf16 operand moves a sum by up to that)."""
     if kind == 'row':
-        return _close(name, dtype, out, ref)
+        return _close(name, dtype, out, ref, rel)
     err = (out.float() - ref.float()).abs().max().item()
     tol = (SUM_RTOL * ref.float().abs().max().item()
            if dtype == torch.float32 else bf16_tol(ref))
@@ -1034,9 +1231,10 @@ def _close_grad(name, dtype, kind, out, ref):
     return err, tol
 
 
-def _bwd_case(rec, label, dtype, names, call, plain):
-    """Kernel (twice: every output bit-identical) against plain; the
-    errors go into rec['outputs'][label] and raise rec's maxima."""
+def _bwd_case(rec, label, dtype, names, call, plain, rel=False):
+    """Kernel (twice: every output bit-identical) against plain (rows with
+    `rel`, `_close`); the errors go into rec['outputs'][label] and raise
+    rec's maxima."""
     got, again, ref = call(), call(), plain()
     torch.cuda.synchronize()
     errs = {}
@@ -1044,7 +1242,7 @@ def _bwd_case(rec, label, dtype, names, call, plain):
         check(torch.equal(a, b), f'{label} {name}: reruns differ')
         check(a.shape == c.shape and a.dtype == c.dtype,
               f'{label} {name}: {a.shape} {a.dtype} vs {c.shape} {c.dtype}')
-        err, tol = _close_grad(f'{label} {name}', dtype, kind, a, c)
+        err, tol = _close_grad(f'{label} {name}', dtype, kind, a, c, rel)
         errs[name] = [err, tol]
         key = 'err' if kind == 'row' else 'sum_err_of_tol'
         rec[key] = max(rec.get(key, 0.0), err if kind == 'row' else err / tol)
@@ -1165,6 +1363,128 @@ def check_mamba_bwd(results):
     rec15['library_ms'] = None
     rec15['shape'] = [TB, SL, SD]
     del a
+    check_mamba_dtlr_bwd(results, gen)
+    check_mamba_wide_bwd(results, gen)
+
+
+def _k17_args(gen, dtype, Bt, Lm, d=SD, N=SN, R=SR):
+    """K17's arguments: K16's inputs, the chunk entry states of K16's
+    forward on them and a cotangent."""
+    from ddg_tpu_torch.ops import mamba as M
+    a16, _ = _scan_inputs(gen, dtype, Bt, Lm, d=d, N=N, R=R)
+    _, h0s = M.ssm_scan_dtlr(*a16, return_h0s=True)
+    return (*a16, h0s, _rand(gen, Bt, Lm, d, dtype=dtype))
+
+
+def check_mamba_dtlr_bwd(results, gen):
+    """K17 (`ssm_scan_dtlr_bwd`) against its plain backward, fp32 and bf16,
+    twice each with bit-identical outputs (`_bwd_case`): at B=2, L=2048, at
+    d_inner 200 (ragged channel tiles of the adjoint's 64 and the dt
+    adjoint's 128), at 16 x 32768 (the fused route's micro-batch) and at
+    the dt-lowrank training path's shape, DIMAMBA_DTLR_TRAIN_MICRO_BATCH x
+    32768. Timed in bf16 at the path's shape beside its bound, its plain
+    version and the composite (dt_proj and softplus, K15, the dt products
+    by torch.matmul)."""
+    from ddg_tpu_torch.entry import DIMAMBA_DTLR_TRAIN_MICRO_BATCH as TB
+    from ddg_tpu_torch.ops import mamba as M
+    for dtype in (torch.float32, torch.bfloat16):
+        rec = {}
+        for Bt, Lm, d in ((2, 2048, SD), (2, 1024, 200), (2 * SB, SL, SD),
+                          (TB, SL, SD)):
+            a = _k17_args(gen, dtype, Bt, Lm, d=d)
+            _bwd_case(rec, f'ssm_scan_dtlr_bwd B={Bt} L={Lm} d={d}', dtype,
+                      K17_OUT, lambda: M.ssm_scan_dtlr_bwd(*a),
+                      lambda: M.ssm_scan_dtlr_bwd_plain(*a))
+            if Bt == TB and dtype == torch.bfloat16:
+                rec['ms'] = time_ms(lambda: M.ssm_scan_dtlr_bwd(*a), reps=10)
+                rec['plain_ms'] = time_ms(
+                    lambda: M.ssm_scan_dtlr_bwd_plain(*a), reps=1, warmup=0)
+                u, lr, w_dt, b_dt, A, Bc, Cc, D, z, _, g = a
+                pre = lr @ w_dt + b_dt
+                _, h0s = M.ssm_scan(u, M.softplus(pre), A, Bc, Cc, D, z,
+                                    return_h0s=True)
+
+                def composite():
+                    p = lr @ w_dt + b_dt
+                    ddt = M.ssm_scan_bwd(u, M.softplus(p), A, Bc, Cc, D, z,
+                                         h0s, g)[1]
+                    dpre = ddt * torch.sigmoid(p)
+                    rows = dpre.reshape(-1, d)
+                    return (dpre @ w_dt.t(), lr.reshape(-1, SR).t() @ rows,
+                            rows.sum(0))
+
+                rec['composite_ms'] = time_ms(composite, reps=10)
+                rec['library_ms'] = None
+                del u, lr, w_dt, b_dt, A, Bc, Cc, D, z, g, pre, h0s
+            del a
+        results['ssm_scan_dtlr_bwd'][str(dtype)] = rec
+    rec = results['ssm_scan_dtlr_bwd'][str(torch.bfloat16)]
+    # Bytes: u, z, g in and du, dz out (bf16) per (row, channel); dt_lr in
+    # and ddt_lr out (fp32), B, C in and dB, dC out per row; the chunk entry
+    # states; the weights and their gradients. Operations: per (row,
+    # channel) exp(delta A) per state, softplus's exp and log1p and the
+    # sigmoids of z and pre on the SFU; dt_proj, its adjoint and dW_dt in
+    # fp32. The ddelta workspace (fp32, written and read) is this design's
+    # and not the function's: it is in `bound_with_workspace_ms` only.
+    M_rows, n_chunks = TB * SL, SL // 128
+    nbytes = (M_rows * SD * 10 + M_rows * (8 * SR + 8 * SN)
+              + TB * n_chunks * SN * SD * 4 + 8 * SD * (SR + SN + 2))
+    ops = ((M_rows * SD * (SN + 4), PEAK_SFU),
+           (3 * 2 * M_rows * SR * SD, PEAK_FP32))
+    rec['bound_ms'], rec['bound_by'] = bound_mixed(nbytes, ops)
+    rec['bound_with_workspace_ms'] = bound_mixed(
+        nbytes + M_rows * SD * 8, ops)[0]
+    rec['shape'] = [TB, SL, SD, SN, SR]
+
+
+def check_mamba_wide_bwd(results, gen):
+    """The C.1 shapes (WIDE_SHAPES) on K19, K15 and K17 against their plain
+    backwards, fp32 and bf16, twice each with bit-identical outputs, fp32
+    rows to 1e-4 of their largest magnitude: K19 at every shape, the scans
+    at those whose d_state, d_inner or dt_rank differ from Species10's. In
+    fp32 K15's per-row outputs from the plain version and the kernel are
+    also held against float64 (recorded)."""
+    from ddg_tpu_torch.ops import mamba as M
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, H, d, N, R, K in WIDE_SHAPES:
+            w = _mamba_weights(gen, dtype, H=H, d=d, R=R, N=N, K=K)
+            h = _rand(gen, WIDE_B, WIDE_L, H, dtype=dtype)
+            kw = dict(d_state=N, dt_rank=R, chunk=128, compute_dtype=dtype)
+            _, h0s = M.mamba_inner(h, **w, **kw, return_h0s=True)
+            a19 = (h, *w.values(), h0s, _rand(gen, WIDE_B, WIDE_L, H,
+                                                dtype=dtype))
+            rec = results['mamba_inner_bwd'][str(dtype)]
+            _bwd_case(rec, f'mamba_inner_bwd {label}', dtype, K19_OUT,
+                      lambda: M.mamba_inner_bwd(*a19, **kw),
+                      lambda: M.mamba_inner_bwd_plain(*a19, **kw), rel=True)
+            if K != 4:
+                continue
+            _, a14 = _scan_inputs(gen, dtype, WIDE_B, WIDE_L, d=d, N=N, R=R)
+            _, h0s = M.ssm_scan(*a14, return_h0s=True)
+            a15 = (*a14, h0s, _rand(gen, WIDE_B, WIDE_L, d, dtype=dtype))
+            rec = results['ssm_scan_bwd'][str(dtype)]
+            got = _bwd_case(rec, f'ssm_scan_bwd {label}', dtype, K15_OUT,
+                            lambda: M.ssm_scan_bwd(*a15),
+                            lambda: M.ssm_scan_bwd_plain(*a15), rel=True)
+            if dtype == torch.float32:
+                # float64 adjoint from the float64 forward's entry states.
+                h0s64 = _f64_scan(a14)[1]
+                ddt, du, dB, dC, _, dz, _, _ = M.scan_bwd_chunks(
+                    *(t.double() for t in a14[:2]),
+                    M._round_trip(a14[2]).double(),
+                    *(t.double() for t in a14[3:]), a15[-1].double(), h0s64,
+                    128)
+                plain = M.ssm_scan_bwd_plain(*a15)
+                rec.setdefault('widened_vs_f64', {})[label] = _f64_gap(
+                    ('du', 'ddelta', 'dB', 'dC', 'dz'),
+                    [got[i] for i in (0, 1, 2, 3, 5)],
+                    [plain[i] for i in (0, 1, 2, 3, 5)],
+                    (du, ddt, dB, dC, dz))
+            a17 = _k17_args(gen, dtype, WIDE_B, WIDE_L, d=d, N=N, R=R)
+            _bwd_case(results['ssm_scan_dtlr_bwd'][str(dtype)],
+                      f'ssm_scan_dtlr_bwd {label}', dtype, K17_OUT,
+                      lambda: M.ssm_scan_dtlr_bwd(*a17),
+                      lambda: M.ssm_scan_dtlr_bwd_plain(*a17), rel=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1802,12 +2122,23 @@ def check_tiny_unet():
           'step_tokens': tok_c.numel()})
 
 
+# The DiMamba routes the tiny card-vs-CPU checks take: the fused block
+# (K18, K19), the unfused chain around the scan (K14, K15) and around the
+# dt-lowrank scan (K16, K17).
+TINY_DIMAMBA_ROUTES = (
+    ('fused_block', dict(fused_block=True)),
+    ('scan_kernel', dict(fused_block=False, pallas_scan=True)),
+    ('scan_kernel_dtlr', dict(fused_block=False, pallas_scan=True,
+                              dt_inkernel=True)))
+
+
 def check_tiny_dimamba():
     """`dimamba_flagship(tiny=True)`'s model in float32 (its matrices x4, as
     the CPU tests scale them, so the mixer moves the logits) on the card
     against the same weights on the CPU, through the fused block (K18 on
-    the card, its plain version on the CPU) and through the unfused chain
-    around K14: logits to the 1e-3 bar; and one fused D-CFG step (gamma 2,
+    the card, its plain version on the CPU), the unfused chain around K14
+    and that around K16 (TINY_DIMAMBA_ROUTES): logits to the 1e-3 bar; and
+    one fused D-CFG step (gamma 2,
     K10) from the same x_t, sigma and Gumbel noise: tokens identical where
     the CPU's top-two perturbed scores differ by more than MARGIN."""
     import dataclasses
@@ -1829,9 +2160,7 @@ def check_tiny_dimamba():
     g = -torch.log(-torch.log(torch.rand((Bt, Lt, Vt), generator=gen)
                               .clamp_min(1e-20)))
     rec = {}
-    for route, kw in (('fused_block', dict(fused_block=True)),
-                      ('scan_kernel', dict(fused_block=False,
-                                           pallas_scan=True))):
+    for route, kw in TINY_DIMAMBA_ROUTES:
         outs = {}
         for dev in ('cpu', DEV):
             m = DiMamba(dataclasses.replace(cfg, compute_dtype=torch.float32,
@@ -2008,19 +2337,55 @@ def run_dimamba_path(kernels, steps=128, budget_s=8.0, unfused_steps=4):
                   unfused_steps)
     check(bool(((x >= 0) & (x < cfg.vocab_size)).all()),
           'species10 unfused: token outside the vocabulary')
+    ms_dense = secs / unfused_steps * 1e3
     emit({'phase': 'species10_unfused_path', 'run': 'dcfg', 'batch': SB,
-          'steps': unfused_steps, 'ms_per_step': secs / unfused_steps * 1e3,
+          'steps': unfused_steps, 'ms_per_step': ms_dense,
           'launches_per_step': {k: v / unfused_steps
                                 for k, v in launches.items() if v}})
+
+    # The dt-lowrank route: the same weights through the entry point's
+    # 'dt_lowrank' mixer, the unfused chain around K16.
+    del model, apply, unfused
+    flag_lr = dimamba_flagship(device=DEV, route='dt_lowrank')
+    sample(flag_lr, dcfg, 1, 95)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    x = sample(flag_lr, dcfg, unfused_steps, 5)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    out['species10_dtlr'] = launches
+    _launch_check('species10 dt-lowrank', kernels, launches,
+                  {'ssm_scan_dtlr': per_fwd, 'fused_uniform_cfg_sample': 1},
+                  unfused_steps)
+    n_syncs = _sync_check('species10 dt-lowrank',
+                          lambda: sample(flag_lr, dcfg, 2, 94))
+    check(bool(((x >= 0) & (x < cfg.vocab_size)).all()),
+          'species10 dt-lowrank: token outside the vocabulary')
+    ms_lr = secs / unfused_steps * 1e3
+    emit({'phase': 'species10_dtlr_path', 'run': 'dcfg', 'batch': SB,
+          'steps': unfused_steps, 'ms_per_step': ms_lr,
+          'dense_unfused_ms_per_step': ms_dense,
+          'dtlr_over_dense': ms_lr / ms_dense,
+          'samples_per_s_at_T128': SB / (ms_lr * steps / 1e3),
+          'peak_memory_bytes': peak,
+          'launches_per_step': {k: v / unfused_steps
+                                for k, v in launches.items() if v},
+          'host_syncs_per_step': n_syncs / 2})
     return out
 
 
 def check_tiny_dimamba_train():
     """`dimamba_flagship(tiny=True)`'s model in float32 (matrices x4, dropout
     0) with the training run's optimizer and EMA, card against CPU
-    (`_train_step_card_vs_cpu`), on both kernel routes: the fused block
-    (K18 and K19 on the card, their plain versions on the CPU) and the
-    unfused chain around the scan (K14, K15)."""
+    (`_train_step_card_vs_cpu`), on the three kernel routes: the fused
+    block (K18 and K19 on the card, their plain versions on the CPU), the
+    unfused chain around the scan (K14, K15) and around the dt-lowrank scan
+    (K16, K17)."""
     import dataclasses
     from ddg_tpu_torch.diffusion import sample_corruption
     from ddg_tpu_torch.entry import dimamba_train_flagship
@@ -2034,9 +2399,7 @@ def check_tiny_dimamba_train():
     t, xt = sample_corruption(run.spec, x0, gen)
     optim = dataclasses.replace(run.optim, num_warmup_steps=0)
     rec = {}
-    for route, kw in (('fused_block', dict(fused_block=True)),
-                      ('scan_kernel', dict(fused_block=False,
-                                           pallas_scan=True))):
+    for route, kw in TINY_DIMAMBA_ROUTES:
         cfg = dataclasses.replace(run.cfg, compute_dtype=torch.float32,
                                   dropout=0.0, **kw)
         rec[route] = _train_step_card_vs_cpu(
@@ -2156,14 +2519,63 @@ def run_dimamba_train_path(kernels, warmup=1, steps=3):
             'species10_training_unfused': unfused}
 
 
+def run_dimamba_dtlr_train_path(kernels, warmup=1, steps=2):
+    """The Species10 training run on the 'dt_lowrank' route at full width
+    and depth (`dimamba_train_flagship(route='dt_lowrank')`: the unfused
+    chain around K16 and K17, global batch 32 x 32768 as micro-batches of
+    DIMAMBA_DTLR_TRAIN_MICRO_BATCH): warm-up, then `steps` timed steps
+    (tokens/s, ms/step, peak memory, loss, grad norm), exact launches per
+    micro-step (16 K16 and 16 K17, none of K14, K15, K18, K19) and 0 host
+    syncs per step. Returns its launches."""
+    from ddg_tpu_torch.entry import dimamba_train_flagship
+    torch.cuda.empty_cache()
+    run = dimamba_train_flagship(device=DEV, route='dt_lowrank')
+    batch = run.batch(torch.Generator(device=DEV).manual_seed(1))
+    for _ in range(warmup):
+        run.step(run.state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = [run.step(run.state, batch)[1] for _ in range(steps)]
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / steps
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_micro = steps * run.accum_steps
+    per_fwd = 2 * run.cfg.n_blocks
+    _launch_check('species10 training dt-lowrank', kernels, launches,
+                  {'ssm_scan_dtlr': per_fwd, 'ssm_scan_dtlr_bwd': per_fwd},
+                  n_micro)
+    n_syncs = _sync_check('species10 training dt-lowrank',
+                          lambda: run.step(run.state, batch))
+    loss = [m['loss'].item() for m in metrics]
+    gnorm = [m['grad_norm'].item() for m in metrics]
+    emit({'phase': 'species10_train_dtlr_path', 'steps': steps,
+          'micro_batch': run.micro_batch, 'accum_steps': run.accum_steps,
+          'ms_per_step': secs * 1e3,
+          'tokens_per_s': run.global_batch * run.cfg.length / secs,
+          'ms_per_micro_step': secs * 1e3 / run.accum_steps,
+          'peak_memory_bytes': peak, 'loss': loss, 'grad_norm': gnorm,
+          'launches_per_micro_step': {k: v / n_micro
+                                      for k, v in launches.items() if v},
+          'host_syncs_in_a_step': n_syncs})
+    check(all(math.isfinite(v) for v in loss + gnorm),
+          'species10 training dt-lowrank: non-finite loss or grad norm')
+    return {'species10_training_dtlr': launches}
+
+
 def check_dimamba_learning(micro_steps=30, rows=4):
-    """Both kernel routes of the Species10 DiMamba from the same weights
-    and the same generator, lr 2e-3 without warmup, `micro_steps` steps on
-    one micro-batch of `rows` sequences whose bases depend on the class.
-    Bars, set before the first run: each route's mean loss over the last 5
-    steps at least 10% below that over the first 5; the routes' last-5
-    means closer than the pooled std of their last-10 losses (the criterion
-    of the TPU's fused-vs-unfused convergence check,
+    """The three kernel routes of the Species10 DiMamba (the fused block,
+    the unfused chain around K14/K15 and around K16/K17) from the same
+    weights and the same generator, lr 2e-3 without warmup, `micro_steps`
+    steps on one micro-batch of `rows` sequences whose bases depend on the
+    class. Bars, set before the first run: each route's mean loss over the
+    last 5 steps at least 10% below that over the first 5; each unfused
+    route's last-5 mean closer to the fused route's than the pooled std of
+    the two routes' last-10 losses (the criterion of the TPU's
+    fused-vs-unfused convergence check,
     artifacts/round5/megakernel_parity.json)."""
     import dataclasses
     from ddg_tpu_torch.entry import DNA_BASES, dimamba_train_flagship
@@ -2182,8 +2594,11 @@ def check_dimamba_learning(micro_steps=30, rows=4):
     batch = {'input_ids': ids.int(), 'cond': cond,
              'attention_mask': torch.ones_like(ids, dtype=torch.float32)}
     out, t0 = {}, time.perf_counter()
-    for route, fused in (('fused_block', True), ('scan_kernel', False)):
-        model = DiMamba(dataclasses.replace(run.cfg, fused_block=fused))
+    for route, kw in (('fused_block', dict(fused_block=True)),
+                      ('scan_kernel', dict(fused_block=False)),
+                      ('scan_kernel_dtlr', dict(fused_block=False,
+                                                dt_inkernel=True))):
+        model = DiMamba(dataclasses.replace(run.cfg, **kw))
         model.load_state_dict(run.model.state_dict(), strict=True)
         state, step = _micro_step_fn(run, model.to(DEV))
         losses = torch.stack([step(state, batch)[1]['loss']
@@ -2195,15 +2610,19 @@ def check_dimamba_learning(micro_steps=30, rows=4):
                                    f'{first} to {last}, less than 10%')
         out[route] = {'loss_first5': first, 'loss_last5': last,
                       'drop': 1 - last / first, 'losses': losses}
-    tails = [out[r]['losses'][-10:] for r in out]
-    pooled = math.sqrt(sum(statistics.variance(t) for t in tails) / 2)
-    gap = abs(out['fused_block']['loss_last5']
-              - out['scan_kernel']['loss_last5'])
+    gaps = {}
+    for route in ('scan_kernel', 'scan_kernel_dtlr'):
+        tails = [out[r]['losses'][-10:] for r in ('fused_block', route)]
+        pooled = math.sqrt(sum(statistics.variance(t) for t in tails) / 2)
+        gap = abs(out['fused_block']['loss_last5'] - out[route]['loss_last5'])
+        gaps[route] = {'last5_gap': gap, 'pooled_tail_std': pooled}
     emit({'phase': 'species10_learning_check', 'steps': micro_steps,
           'rows': rows, 'seconds': time.perf_counter() - t0,
-          'last5_gap': gap, 'pooled_tail_std': pooled, **out})
-    check(gap < pooled, f'learning: fused and unfused routes end {gap} '
-                        f'apart, over the pooled tail std {pooled}')
+          'gaps_to_fused': gaps, **out})
+    for route, g in gaps.items():
+        check(g['last5_gap'] < g['pooled_tail_std'],
+              f'learning: the fused and {route} routes end {g["last5_gap"]} '
+              f'apart, over the pooled tail std {g["pooled_tail_std"]}')
 
 
 def run_unet_path(kernels, flag, n_norms, steps=128):
@@ -2304,6 +2723,11 @@ SOURCES = {
     # K2's backward on the TPU is a plain-jnp recompute (_flash_bwd).
     'short_seq_attention_bwd': ('ddg_tpu_torch/csrc/rope_attention_bwd.cu',
                                 'ddg_tpu/ops/attention_pallas.py:101'),
+    # K16 and K17 reach pl.pallas_call through _fwd_call_lr and _bwd_call_lr.
+    'ssm_scan_dtlr': ('ddg_tpu_torch/csrc/mamba.cu',
+                      'ddg_tpu/ops/selective_scan_pallas.py:945'),
+    'ssm_scan_dtlr_bwd': ('ddg_tpu_torch/csrc/mamba_bwd.cu',
+                          'ddg_tpu/ops/selective_scan_pallas.py:994'),
 }
 
 
@@ -2334,6 +2758,8 @@ def main():
         'ssm_scan_bwd': mamba.ssm_scan_bwd,
         'short_seq_attention': attention.short_seq_attention,
         'short_seq_attention_bwd': attention.short_seq_attention_bwd,
+        'ssm_scan_dtlr': mamba.ssm_scan_dtlr,
+        'ssm_scan_dtlr_bwd': mamba.ssm_scan_dtlr_bwd,
     }
 
     phase_environment()
@@ -2378,6 +2804,7 @@ def main():
                'unet_serving': run_unet_path(kernels, unet, n_norms)}
     by_path.update(run_dimamba_path(kernels))
     by_path.update(run_dimamba_train_path(kernels))
+    by_path.update(run_dimamba_dtlr_train_path(kernels))
     by_path['text8_training'] = run_text8_train_path(kernels, 'fused_rope')
     by_path['text8_training_short_seq'] = run_text8_train_path(
         kernels, 'short_seq', warmup=1, steps=2)
@@ -2399,8 +2826,10 @@ def main():
                      'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                      'bound_by': r['bound_by'],
                      'library_ms': r.get('library_ms')})
-        for key in ('ms_covers', 'products_matmul_ms', 'shape',
-                    'sum_err_of_tol'):
+        for key in ('ms_covers', 'products_matmul_ms', 'composite_ms',
+                    'shape', 'sum_err_of_tol', 'widened',
+                    'bound_with_workspace_ms',
+                    'equals_ssm_scan_on_composite'):
             if key in r:
                 rows[-1][key] = r[key]
         for label in ('lm1b_sampling', 'text8_training'):

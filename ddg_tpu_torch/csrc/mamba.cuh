@@ -16,9 +16,14 @@ using ddg::to_f32;
 using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxN = 16;       // states a thread holds
-constexpr int kMaxR = 32;       // dt_rank
+constexpr int kMaxN = 16;       // states a thread holds: a group; d_state loops over groups
+constexpr int kMaxR = 32;       // dt_rank of one tile of W_dt held in registers
+constexpr int kMaxRT = 2;       // tiles: dt_rank <= 64
 constexpr int kSmemMax = 232448;
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+// d_state padded to whole groups of kMaxN (zero states).
+__host__ __device__ constexpr int n_pad(int n) { return (n + kMaxN - 1) / kMaxN * kMaxN; }
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -32,6 +37,46 @@ __device__ __forceinline__ float sigmoid(float x) { return __frcp_rn(1.f + expf(
 // log(1 + exp(x)) as jax.nn.softplus: max(x, 0) + log1p(exp(-|x|)).
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+// dt_proj's sum pre = dt_lr . w, fp32 FMAs with k ascending, four at a
+// time (lr zero past R up to a multiple of 4, w zero past R): the forward
+// and every adjoint form delta = softplus(pre + b_dt) from this one sum, so
+// they agree bit for bit. w in registers (a channel's column of W_dt)...
+template <int NW>
+__device__ __forceinline__ float dt_pre(const float* lr, const float (&w)[NW], int R) {
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < NW; k += 4) {
+    if (k >= R) break;
+    const float4 v = *reinterpret_cast<const float4*>(lr + k);
+    acc = fmaf(v.x, w[k], acc);
+    acc = fmaf(v.y, w[k + 1], acc);
+    acc = fmaf(v.z, w[k + 2], acc);
+    acc = fmaf(v.w, w[k + 3], acc);
+  }
+  return acc;
+}
+
+// ... or in shared memory, w[k * ldw] (zero rows past R up to round4(R)).
+__device__ __forceinline__ float dt_pre_s(const float* lr, const float* w, int ldw, int R) {
+  float acc = 0.f;
+  for (int k = 0; k < R; k += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(lr + k);
+    acc = fmaf(v.x, w[k * ldw], acc);
+    acc = fmaf(v.y, w[(k + 1) * ldw], acc);
+    acc = fmaf(v.z, w[(k + 2) * ldw], acc);
+    acc = fmaf(v.w, w[(k + 3) * ldw], acc);
+  }
+  return acc;
+}
+
+// Channel ch's column of W_dt (R, d) into registers, zeros past R.
+template <int NW>
+__device__ __forceinline__ void load_wdt(const float* __restrict__ wdt, int ch, int d, int R,
+                                         float (&w)[NW]) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) w[k] = k < R ? wdt[static_cast<size_t>(k) * d + ch] : 0.f;
 }
 
 cudaError_t allow_smem(const void* fn, size_t bytes) {
@@ -205,22 +250,22 @@ cudaError_t gemm(const float* A, const float* W, float* C, int M, int N, int K, 
 
 // --- front: conv + SiLU, x_proj, dt_proj + softplus -------------------------
 
-constexpr int kFrontRows = 64;
+constexpr int kFrontRows = 64;  // rows of a tile where d allows (fewer where d is wide)
 constexpr int kFrontThreads = 256;
 constexpr int kRowBatch = 8;    // rows of x a thread loads at once
 
-// x_proj of the tile's u rows (us, row stride us_ld) on the tensor cores:
-// warps take (16-row, 8-column) tiles in turn; columns past nx are zero.
-// x_dbl goes out rounded to bf16; its dt_lr columns also go to lr (fp32,
-// row stride lr_ld) for dt_proj.
-__device__ void xproj_tile(const bf16* us, int us_ld, const bf16* __restrict__ wx, int d, int nx,
-                           int R, float* lr, int lr_ld, int rows, bf16* __restrict__ xdbl,
-                           size_t row0) {
+// x_proj of the tile's u rows (us, row stride us_ld; tile rows, a multiple
+// of 16) on the tensor cores: warps take (16-row, 8-column) tiles in turn;
+// columns past nx are zero. x_dbl goes out rounded to bf16; its dt_lr
+// columns also go to lr (fp32, row stride lr_ld) for dt_proj.
+__device__ void xproj_tile(const bf16* us, int us_ld, int tile, const bf16* __restrict__ wx, int d,
+                           int nx, int R, float* lr, int lr_ld, int rows,
+                           bf16* __restrict__ xdbl, size_t row0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n_tiles = (nx + 7) / 8;
-  for (int tile = warp; tile < (kFrontRows / 16) * n_tiles; tile += kFrontThreads / 32) {
-    const int mt = tile / n_tiles, nt = tile % n_tiles;
+  for (int tl = warp; tl < (tile / 16) * n_tiles; tl += kFrontThreads / 32) {
+    const int mt = tl / n_tiles, nt = tl % n_tiles;
     const int n = nt * 8 + g;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
@@ -242,10 +287,10 @@ __device__ void xproj_tile(const bf16* us, int us_ld, const bf16* __restrict__ w
 }
 
 // The same on the CUDA cores, for fp32.
-__device__ void xproj_tile(const float* us, int us_ld, const float* __restrict__ wx, int d,
-                           int nx, int R, float* lr, int lr_ld, int rows,
+__device__ void xproj_tile(const float* us, int us_ld, int tile, const float* __restrict__ wx,
+                           int d, int nx, int R, float* lr, int lr_ld, int rows,
                            float* __restrict__ xdbl, size_t row0) {
-  for (int i = threadIdx.x; i < kFrontRows * nx; i += kFrontThreads) {
+  for (int i = threadIdx.x; i < tile * nx; i += kFrontThreads) {
     const int r = i / nx, c = i % nx;
     const float* a = us + r * us_ld;
     const float* w = wx + static_cast<size_t>(c) * d;
@@ -256,30 +301,30 @@ __device__ void xproj_tile(const float* us, int us_ld, const float* __restrict__
   }
 }
 
-constexpr int kConvTaps = 4;
-
-// One block per (64-row tile, b), for K conv taps. Threads own channels
-// and walk the tile's rows with the last K values of x in registers (the
-// tile's K - 1 halo rows read first, zeros before the sequence starts),
-// loading a batch of rows at a time; u goes to shared memory for x_proj,
-// whose rounded dt_lr columns feed dt_proj (fp32 FMAs, float4 reads).
-template <typename T, int K>
+// One block per (tile-row tile, b), for K conv taps (4, or 8: fewer taps
+// come padded with leading zero taps) and W_dt held as NW / 32 register
+// tiles of its column. Threads own channels and walk the tile's rows with
+// the last K values of x in registers (the tile's K - 1 halo rows read
+// first, zeros before the sequence starts), loading a batch of rows at a
+// time; u goes to shared memory for x_proj, whose rounded dt_lr columns
+// feed dt_proj (fp32 FMAs, `dt_pre`). W_dt is (R, d).
+template <typename T, int K, int NW>
 __global__ void __launch_bounds__(kFrontThreads)
     mamba_front_kernel(const T* __restrict__ xz, const T* __restrict__ cw,
                        const T* __restrict__ cb, const T* __restrict__ wx,
                        const float* __restrict__ wdt, const float* __restrict__ bdt,
                        T* __restrict__ u, T* __restrict__ xdbl, float* __restrict__ delta, int L,
-                       int d, int R, int N) {
+                       int d, int R, int N, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int us_ld = d + 8, lr_ld = (R + 3) / 4 * 4;
+  const int us_ld = d + 8, lr_ld = round4(R);
   const int nx = R + 2 * N;
-  T* us = reinterpret_cast<T*>(smem);                     // rows x us_ld
-  float* lr = reinterpret_cast<float*>(us + kFrontRows * us_ld);  // rows x lr_ld
-  const int b = blockIdx.y, t0 = blockIdx.x * kFrontRows;
-  const int rows = min(kFrontRows, L - t0);
+  T* us = reinterpret_cast<T*>(smem);                        // tile x us_ld
+  float* lr = reinterpret_cast<float*>(us + tile * us_ld);   // tile x lr_ld
+  const int b = blockIdx.y, t0 = blockIdx.x * tile;
+  const int rows = min(tile, L - t0);
   const size_t row0 = static_cast<size_t>(b) * L + t0;
   const int ld = 2 * d;
-  for (int i = threadIdx.x; i < kFrontRows * lr_ld; i += kFrontThreads) lr[i] = 0.f;
+  for (int i = threadIdx.x; i < tile * lr_ld; i += kFrontThreads) lr[i] = 0.f;
 
   for (int ch = threadIdx.x; ch < d; ch += kFrontThreads) {
     // win[K - 1] is x_t, win[K - 1 - i] is x_{t-i}.
@@ -293,7 +338,7 @@ __global__ void __launch_bounds__(kFrontThreads)
     const float bias = to_f32(cb[ch]);
     // Rows go in batches whose loads are all issued first: one row at a
     // time leaves the thread waiting on device memory for every row.
-    for (int r0 = 0; r0 < kFrontRows; r0 += kRowBatch) {
+    for (int r0 = 0; r0 < tile; r0 += kRowBatch) {
       float xv[kRowBatch];
 #pragma unroll
       for (int i = 0; i < kRowBatch; ++i)
@@ -319,66 +364,101 @@ __global__ void __launch_bounds__(kFrontThreads)
     }
   }
   __syncthreads();
-  xproj_tile(us, us_ld, wx, d, nx, R, lr, lr_ld, rows, xdbl, row0);
+  xproj_tile(us, us_ld, tile, wx, d, nx, R, lr, lr_ld, rows, xdbl, row0);
   __syncthreads();
 
   for (int ch = threadIdx.x; ch < d; ch += kFrontThreads) {
-    float wr[kMaxR];
-#pragma unroll
-    for (int k = 0; k < kMaxR; ++k) wr[k] = k < R ? wdt[ch * R + k] : 0.f;
+    float wr[NW];
+    load_wdt(wdt, ch, d, R, wr);
     const float bias = bdt[ch];
-    for (int r = 0; r < rows; ++r) {
-      const float* lrr = lr + r * lr_ld;
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < kMaxR; k += 4) {
-        if (k >= R) break;
-        const float4 v = *reinterpret_cast<const float4*>(lrr + k);
-        acc = fmaf(v.x, wr[k], acc);
-        acc = fmaf(v.y, wr[k + 1], acc);
-        acc = fmaf(v.z, wr[k + 2], acc);
-        acc = fmaf(v.w, wr[k + 3], acc);
-      }
-      delta[(row0 + r) * d + ch] = softplus(acc + bias);
-    }
+    for (int r = 0; r < rows; ++r)
+      delta[(row0 + r) * d + ch] = softplus(dt_pre(lr + r * lr_ld, wr, R) + bias);
   }
 }
 
-template <typename T, int K>
+size_t front_smem(int tile, int d, int R, size_t tsize) {
+  return tsize * tile * (d + 8) + sizeof(float) * tile * round4(R);
+}
+
+// Rows of a front tile: 64, or the most multiples of 16 whose rows fit in
+// shared memory (0: d too wide).
+int front_tile(int d, int R, size_t tsize) {
+  for (int t = kFrontRows; t >= 16; t -= 16)
+    if (front_smem(t, d, R, tsize) <= kSmemMax) return t;
+  return 0;
+}
+
+template <typename T, int K, int NW>
 cudaError_t front_k(const T* xz, const T* cw, const T* cb, const T* wx, const float* wdt,
                     const float* bdt, T* u, T* xdbl, float* delta, int Bt, int L, int d, int R,
                     int N, cudaStream_t s) {
-  const size_t smem =
-      sizeof(T) * kFrontRows * (d + 8) + sizeof(float) * kFrontRows * ((R + 3) / 4 * 4);
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(mamba_front_kernel<T, K>), smem);
+  const int tile = front_tile(d, R, sizeof(T));
+  if (tile == 0) return cudaErrorInvalidValue;
+  const size_t smem = front_smem(tile, d, R, sizeof(T));
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(mamba_front_kernel<T, K, NW>), smem);
   if (err != cudaSuccess) return err;
-  mamba_front_kernel<T, K><<<dim3((L + kFrontRows - 1) / kFrontRows, Bt), kFrontThreads, smem,
-                             s>>>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, L, d, R, N);
+  mamba_front_kernel<T, K, NW><<<dim3((L + tile - 1) / tile, Bt), kFrontThreads, smem, s>>>(
+      xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, L, d, R, N, tile);
   return cudaGetLastError();
 }
 
+// Built for 4 and 8 taps (the wrapper pads 1-3 taps to 4 and 5-7 to 8
+// with leading zeros) and dt_rank <= 32 or <= 64; others are refused.
 template <typename T>
 cudaError_t front(const T* xz, const T* cw, const T* cb, const T* wx, const float* wdt,
                   const float* bdt, T* u, T* xdbl, float* delta, int Bt, int L, int d, int K, int R,
                   int N, cudaStream_t s) {
-  // Built for the tap count every configuration uses (d_conv 4 in
-  // configs/model/dimamba.yaml); another count is refused.
-  if (R > kMaxR || (sizeof(T) == 2 && d % 16) || K != kConvTaps) return cudaErrorInvalidValue;
-  return front_k<T, kConvTaps>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt, L, d, R, N, s);
+  if (R <= 0 || R > kMaxR * kMaxRT || (sizeof(T) == 2 && d % 16) || (K != 4 && K != 8))
+    return cudaErrorInvalidValue;
+  if (K == 4)
+    return R <= kMaxR
+               ? front_k<T, 4, kMaxR>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt, L, d, R, N, s)
+               : front_k<T, 4, kMaxR * kMaxRT>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt, L,
+                                               d, R, N, s);
+  return R <= kMaxR
+             ? front_k<T, 8, kMaxR>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt, L, d, R, N, s)
+             : front_k<T, 8, kMaxR * kMaxRT>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt, L, d,
+                                             R, N, s);
 }
 
 // --- the scan ---------------------------------------------------------------
 
 constexpr int kScanThreads = 128;  // channels of one block
 
-// B (and C) rows of chunk c into shared memory as fp32, kMaxN to a row
-// (zeros past N), so that a thread reads a row as four float4s.
-template <typename T>
+// Where the scan takes delta from: the (Bt L, d) fp32 array (K14, K15 and
+// inside K18, K19), or, with delta null, formed per (row, channel) as
+// softplus(dt_lr W_dt + b_dt) from dt_lr (Bt L rows of stride ld_lr,
+// fp32), W_dt (R, d) and b_dt (d), fp32 (K16, K17): never in device memory.
+struct DtSrc {
+  const float* delta;
+  const float* lr;
+  int ld_lr;
+  const float* wdt;
+  const float* bdt;
+  int R;
+};
+
+// B (and C) rows of chunk c into shared memory as fp32, Np to a row (N
+// padded to whole groups, zeros past N), so that a thread reads a group's
+// row as four float4s. Grp false: one group, Np = 16 known to the compiler
+// (a runtime divisor costs an integer division per element).
+template <bool Grp, typename T>
 __device__ void stage_rows(const T* __restrict__ src, int ld, size_t row0, int rows, int N,
-                           float* dst) {
-  for (int i = threadIdx.x; i < rows * kMaxN; i += blockDim.x) {
-    const int r = i / kMaxN, n = i % kMaxN;
+                           int Np_, float* dst) {
+  const int Np = Grp ? Np_ : kMaxN;
+  for (int i = threadIdx.x; i < rows * Np; i += blockDim.x) {
+    const int r = i / Np, n = i % Np;
     dst[i] = n < N ? to_f32(src[(row0 + r) * ld + n]) : 0.f;
+  }
+}
+
+// dt_lr rows into shared memory, lr_ld = round4(R) to a row, zeros past R.
+__device__ void stage_lr(const float* __restrict__ lr, int ld, size_t row0, int rows, int R,
+                         float* dst) {
+  const int lr_ld = round4(R);
+  for (int i = threadIdx.x; i < rows * lr_ld; i += blockDim.x) {
+    const int r = i / lr_ld, k = i % lr_ld;
+    dst[i] = k < R ? lr[(row0 + r) * ld + k] : 0.f;
   }
 }
 
@@ -393,12 +473,14 @@ __device__ __forceinline__ void load_row(const float* p, float (&v)[kMaxN]) {
   }
 }
 
-// A's row of channel ch, round-tripped as -exp(log(-A)) and times log2 e;
-// 0 past N (a = 1, and B = C = 0 there, so those states stay 0).
-__device__ __forceinline__ void load_a(const float* __restrict__ A, int ch, int N,
+// States n0 .. n0 + 15 of A's row of channel ch, round-tripped as
+// -exp(log(-A)) and times log2 e; 0 past N (a = 1, and B = C = 0 there, so
+// those states stay 0).
+__device__ __forceinline__ void load_a(const float* __restrict__ A, int ch, int N, int n0,
                                        float (&a2)[kMaxN]) {
 #pragma unroll
-  for (int n = 0; n < kMaxN; ++n) a2[n] = n < N ? -expf(logf(-A[ch * N + n])) * kLog2e : 0.f;
+  for (int n = 0; n < kMaxN; ++n)
+    a2[n] = n0 + n < N ? -expf(logf(-A[ch * N + n0 + n])) * kLog2e : 0.f;
 }
 
 }  // namespace

@@ -4,6 +4,8 @@
 // Replaces the TPU kernels
 //   ddg_tpu/ops/selective_scan_pallas.py: ssm_scan -> _bwd_call (pallas_call :653,
 //     body _bwd_kernel :488), K15
+//   ddg_tpu/ops/selective_scan_pallas.py: ssm_scan_dtlr -> _bwd_call_lr (:994,
+//     body _bwd_kernel_lr :842), K17
 //   ddg_tpu/ops/mamba_block_pallas.py: mamba_inner_pallas -> _mk_bwd_call (:553,
 //     body _mk_bwd_kernel :370), K19
 // with their rounding points; ddg_tpu_torch/ops/mamba.py holds the plain
@@ -28,7 +30,20 @@
 // channels: a recursive-halving warp shuffle, then the block's 8 warps in
 // order, then the channel tiles in order (`reduce_slices`). dA and dD sum
 // per (b, chunk) and then over those in order. No atomics: reruns are
-// bit-identical.
+// bit-identical. d_state > 16 runs passes 1 and 3 over groups of 16 states
+// in order; pass 3 carries each row's sums over the states from group to
+// group (ddelta and du in their outputs, C.h in shared memory).
+//
+// ddg_ssm_scan_dtlr_bwd (K17) is that adjoint with delta formed in passes 1
+// and 3 from dt_lr, W_dt and b_dt as K16 forms it (`stage_seg`), ddelta
+// through a workspace, then dt_proj's adjoint over channel tiles
+// (`dt_bwd_kernel`, which K19 runs too): dpre = ddelta sigmoid(pre),
+// ddt_lr = dpre W_dt^T, dW_dt = dt_lr^T dpre, db_dt = sum_t dpre, each a
+// fixed-order sum of partials. Bound at the training shape (16 x 32768,
+// d 512, N 16, R 16): 8,704 exps a token for the scan and 2 x 512 for
+// delta and its sigmoid, 1.22 ms on the SFU, against 1.2 GB of bytes
+// (0.36 ms) in this design's count: u, z, g, dt_lr, B, C in, du, dz,
+// ddt_lr, dB, dC out, h0s and the ddelta workspace.
 //
 // ddg_mamba_inner_bwd (K19), for compute type T, per direction:
 //   xz, u, x_dbl, delta   the front, recomputed from h by the forward's own
@@ -36,7 +51,8 @@
 //   dy    = g W_out                          (gemm, fp32 out)
 //   scan adjoint with gy = dy silu(z): ddelta, du, dB, dC, dz (-> dxz, T),
 //         y_g = (C.h + D u) silu(z) in T, dA, dD
-//   dpre  = ddelta sigmoid(pre), ddt_lr = dpre W_dt^T, dW_dt, db_dt  (fp32 FMAs)
+//   dpre  = ddelta sigmoid(pre), ddt_lr = dpre W_dt^T, dW_dt, db_dt  (fp32 FMAs,
+//           K17's dt adjoint over channel tiles)
 //   dx_dbl = [ddt_lr | dB | dC] rounded to T
 //   du   += dx_dbl W_x^T                     (gemm, accumulated in fp32)
 //   dxc   = du silu'(xc); dx = conv adjoint (a halo of K - 1 rows read
@@ -69,13 +85,13 @@ constexpr int kSeg = 16;                     // rows between checkpoints
 constexpr int kGroup = 128;                  // slices one reduction pass sums
 constexpr int kWRows = 4096;                 // rows of one weight-gradient slice
 
-// A's quarter q of channel ch, round-tripped as -exp(log(-A)): plain (av)
-// and times log2 e (a2); 0 past N.
-__device__ __forceinline__ void load_a4(const float* __restrict__ A, int ch, int N, int q,
+// States nq .. nq + 3 of channel ch's row of A, round-tripped as
+// -exp(log(-A)): plain (av) and times log2 e (a2); 0 past N.
+__device__ __forceinline__ void load_a4(const float* __restrict__ A, int ch, int N, int nq,
                                         float (&a2)[kQ], float (&av)[kQ]) {
 #pragma unroll
   for (int i = 0; i < kQ; ++i) {
-    const int n = q * kQ + i;
+    const int n = nq + i;
     av[i] = n < N ? -expf(logf(-A[ch * N + n])) : 0.f;
     a2[i] = av[i] * kLog2e;
   }
@@ -92,18 +108,49 @@ __device__ __forceinline__ void load_q(const float* p, float (&v)[kQ]) {
 // One coalesced load for kSeg rows, in place of a dependent load per row,
 // which left the few warps an SM holds waiting on memory; the gate is
 // taken once per (row, channel), not by each of its four threads.
+// In the low-rank form (dl.delta null, K17) delta is formed here as the
+// forward forms it: the segment's dt_lr rows staged in lrs (kSeg x
+// round4(R)), W_dt's columns of the block's channels and b_dt in ws
+// (`stage_w`), the same sum in the same order (`dt_pre_s`). A thread forms
+// delta of one channel only (kBwdThreads is a multiple of kBwdCh).
 constexpr int kStage = kSeg * kBwdCh;
 constexpr int kStaged = 5;
 
-template <typename T, typename G>
+// W_dt's columns of the block's channels, round4(R) rows of kBwdCh (zeros
+// past R and past d), then b_dt as one more row.
+__device__ void stage_w(const DtSrc& dl, int ch0, int d, float* ws) {
+  const int lr_ld = round4(dl.R);
+  for (int i = threadIdx.x; i < (lr_ld + 1) * kBwdCh; i += kBwdThreads) {
+    const int k = i / kBwdCh, c = i % kBwdCh, ch = ch0 + c;
+    float v = 0.f;
+    if (ch < d && k < dl.R) v = dl.wdt[static_cast<size_t>(k) * d + ch];
+    if (ch < d && k == lr_ld) v = dl.bdt[ch];
+    ws[i] = v;
+  }
+}
+
+template <bool LR, typename T, typename G>
 __device__ void stage_seg(float* st, int r0, int rows, size_t row0, int ch0, int d,
-                          const float* __restrict__ delta, const T* __restrict__ u, int ld_u,
-                          const T* __restrict__ z, int ld_z, const G* __restrict__ g, int ld_g) {
+                          const DtSrc& dl, float* lrs, const float* ws,
+                          const T* __restrict__ u, int ld_u, const T* __restrict__ z, int ld_z,
+                          const G* __restrict__ g, int ld_g) {
+  const int lr_ld = round4(dl.R);
+  if (LR) {
+    for (int i = threadIdx.x; i < kSeg * lr_ld; i += kBwdThreads) {
+      const int j = i / lr_ld, k = i % lr_ld, r = r0 + j;
+      lrs[i] = r < rows && k < dl.R ? dl.lr[(row0 + r) * dl.ld_lr + k] : 0.f;
+    }
+    __syncthreads();
+  }
   for (int i = threadIdx.x; i < kStage; i += kBwdThreads) {
     const int j = i / kBwdCh, c = i % kBwdCh, r = r0 + j, ch = ch0 + c;
     const bool in = r < rows && ch < d;
     const size_t row = row0 + r;
-    st[i] = in ? delta[row * d + ch] : 0.f;
+    float dt = 0.f;
+    if (in)
+      dt = LR ? softplus(dt_pre_s(lrs + j * lr_ld, ws + c, kBwdCh, dl.R) + ws[lr_ld * kBwdCh + c])
+              : dl.delta[row * d + ch];
+    st[i] = dt;
     if (u != nullptr) st[kStage + i] = in ? to_f32(u[row * ld_u + ch]) : 0.f;
     if (z != nullptr) {
       const float zz = in ? to_f32(z[row * ld_z + ch]) : 0.f;
@@ -117,52 +164,61 @@ __device__ void stage_seg(float* st, int r0, int rows, size_t row0, int ch0, int
 }
 
 // Pass 1: each (b, chunk, channel quarter) from a zero adjoint at the
-// chunk's end. P and E (the carry handed left) are (Bt, n_chunks, N, d).
-template <typename T, typename G>
+// chunk's end, a group of 16 states at a time (Grp: d_state > 16). P and
+// E (the carry handed left) are (Bt, n_chunks, N, d).
+template <typename T, typename G, bool Grp, bool LR>
 __global__ void __launch_bounds__(kBwdThreads)
-    scan_bwd_chunk_kernel(const float* __restrict__ delta, const T* __restrict__ Cc, int ld_bc,
+    scan_bwd_chunk_kernel(DtSrc dl, const T* __restrict__ Cc, int ld_bc,
                           const T* __restrict__ z, int ld_z, const G* __restrict__ g, int ld_g,
                           const float* __restrict__ A, float* __restrict__ P,
                           float* __restrict__ E, int L, int d, int N, int chunk) {
   extern __shared__ __align__(16) float sm1[];
-  float* Cs = sm1;                            // chunk x kMaxN
-  float* st = Cs + chunk * kMaxN;             // kStaged x kStage
+  const int Np = Grp ? n_pad(N) : kMaxN, lr_ld = round4(dl.R);
+  float* Cs = sm1;                         // chunk x Np
+  float* st = Cs + chunk * Np;             // kStaged x kStage
+  float* lrs = st + kStaged * kStage;      // kSeg x lr_ld (low-rank form)
+  float* ws = lrs + kSeg * lr_ld;          // (lr_ld + 1) x kBwdCh (low-rank form)
   const int b = blockIdx.z, c = blockIdx.y, nc = gridDim.y;
   const int q = threadIdx.x & 3, chl = threadIdx.x >> 2;
   const int ch0 = blockIdx.x * kBwdCh, ch = ch0 + chl;
   const bool live = ch < d;
   const int t0 = c * chunk, rows = min(chunk, L - t0);
   const size_t row0 = static_cast<size_t>(b) * L + t0;
-  stage_rows(Cc, ld_bc, row0, rows, N, Cs);
-  float a2[kQ], av[kQ], dh[kQ], p[kQ], aup[kQ], cv[kQ];
-  load_a4(A, live ? ch : 0, N, q, a2, av);
+  stage_rows<Grp>(Cc, ld_bc, row0, rows, N, Np, Cs);
+  if (LR) stage_w(dl, ch0, d, ws);
+  const size_t o = (static_cast<size_t>(b) * nc + c) * N * d + ch;
+  const int n_end = Grp ? N : 1;
+  for (int n0 = 0; n0 < n_end; n0 += kMaxN) {
+    const int nq = n0 + q * kQ;
+    float a2[kQ], av[kQ], dh[kQ], p[kQ], aup[kQ], cv[kQ];
+    load_a4(A, live ? ch : 0, N, nq, a2, av);
 #pragma unroll
-  for (int i = 0; i < kQ; ++i) dh[i] = 0.f, p[i] = 1.f, aup[i] = 1.f;
-  for (int s = (rows - 1) / kSeg; s >= 0; --s) {
-    __syncthreads();
-    stage_seg<T, G>(st, s * kSeg, rows, row0, ch0, d, delta, nullptr, 0, z, ld_z, g, ld_g);
-    __syncthreads();
-    for (int j = min(kSeg, rows - s * kSeg) - 1; j >= 0; --j) {
-      const int r = s * kSeg + j, k = j * kBwdCh + chl;
-      const float dt = st[k], gy = st[2 * kStage + k];
-      load_q(Cs + r * kMaxN + q * kQ, cv);
+    for (int i = 0; i < kQ; ++i) dh[i] = 0.f, p[i] = 1.f, aup[i] = 1.f;
+    for (int s = (rows - 1) / kSeg; s >= 0; --s) {
+      __syncthreads();
+      stage_seg<LR, T, G>(st, s * kSeg, rows, row0, ch0, d, dl, lrs, ws, nullptr, 0, z, ld_z, g,
+                      ld_g);
+      __syncthreads();
+      for (int j = min(kSeg, rows - s * kSeg) - 1; j >= 0; --j) {
+        const int r = s * kSeg + j, k = j * kBwdCh + chl;
+        const float dt = st[k], gy = st[2 * kStage + k];
+        load_q(Cs + r * Np + nq, cv);
 #pragma unroll
-      for (int i = 0; i < kQ; ++i) {
-        const float a = ex2(dt * a2[i]);
-        dh[i] = fmaf(aup[i], dh[i], cv[i] * gy);
-        aup[i] = a;
-        p[i] *= a;
+        for (int i = 0; i < kQ; ++i) {
+          const float a = ex2(dt * a2[i]);
+          dh[i] = fmaf(aup[i], dh[i], cv[i] * gy);
+          aup[i] = a;
+          p[i] *= a;
+        }
       }
     }
-  }
-  if (!live) return;
-  const size_t o = (static_cast<size_t>(b) * nc + c) * N * d + ch;
+    if (!live) continue;
 #pragma unroll
-  for (int i = 0; i < kQ; ++i) {
-    const int n = q * kQ + i;
-    if (n >= N) continue;
-    P[o + static_cast<size_t>(n) * d] = p[i];
-    E[o + static_cast<size_t>(n) * d] = aup[i] * dh[i];
+    for (int i = 0; i < kQ; ++i) {
+      if (nq + i >= N) continue;
+      P[o + static_cast<size_t>(nq + i) * d] = p[i];
+      E[o + static_cast<size_t>(nq + i) * d] = aup[i] * dh[i];
+    }
   }
 }
 
@@ -210,10 +266,14 @@ __device__ __forceinline__ float channel_sums8(const float (&v)[8], int lane) {
 // ddelta, du (fp32), dz (ZT, row stride ld_dz) and, when yg is given, the
 // gated output (C.h + D u) silu(z) in T; the block's partial sums of dB and
 // dC over its channels (dBp, dCp: (tiles, Bt L, N)); per (b, chunk) the
-// partial dA (N, d) and dD (d).
-template <typename T, typename G, typename ZT>
+// partial dA (N, d) and dD (d). Grp (d_state > 16): the groups of 16 states
+// in order, each walked as one group is; the per-row sums over the states
+// carry from group to group, ddelta and du in their fp32 outputs (added to
+// by the thread that wrote them) and C.h in shared memory (ysm), and the
+// gated terms are written after the last group.
+template <typename T, typename G, typename ZT, bool Grp, bool LR>
 __global__ void __launch_bounds__(kBwdThreads, 2)
-    scan_bwd_out_kernel(const T* __restrict__ u, int ld_u, const float* __restrict__ delta,
+    scan_bwd_out_kernel(const T* __restrict__ u, int ld_u, DtSrc dl,
                         const T* __restrict__ Bc, const T* __restrict__ Cc, int ld_bc,
                         const T* __restrict__ z, int ld_z, const G* __restrict__ g, int ld_g,
                         const float* __restrict__ A, const float* __restrict__ D,
@@ -223,12 +283,16 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
                         float* __restrict__ dCp, float* __restrict__ dAp,
                         float* __restrict__ dDp, int Bt, int L, int d, int N, int chunk) {
   extern __shared__ __align__(16) float sm[];
-  const int n_seg = (chunk + kSeg - 1) / kSeg;
-  float* Bs = sm;
-  float* Cs = Bs + chunk * kMaxN;
-  float4* ck = reinterpret_cast<float4*>(Cs + chunk * kMaxN);      // [n_seg][threads]
+  const int n_seg = (chunk + kSeg - 1) / kSeg, lr_ld = round4(dl.R);
+  const int Np = Grp ? n_pad(N) : kMaxN;
+  float* Bs = sm;                                                   // chunk x Np
+  float* Cs = Bs + chunk * Np;                                      // chunk x Np
+  float4* ck = reinterpret_cast<float4*>(Cs + chunk * Np);          // [n_seg][threads]
   float* part = reinterpret_cast<float*>(ck + n_seg * kBwdThreads);  // [kSeg][warps][32]
-  float* st = part + kSeg * kBwdWarps * 32;                     // kStaged x kStage
+  float* st = part + kSeg * kBwdWarps * 32;                         // kStaged x kStage
+  float* ysm = st + kStaged * kStage;                               // chunk x kBwdCh, Grp
+  float* lrs = ysm + (Grp ? chunk * kBwdCh : 0);                    // kSeg x lr_ld, low rank
+  float* ws = lrs + kSeg * lr_ld;                                   // (lr_ld + 1) x kBwdCh
   const int b = blockIdx.z, c = blockIdx.y, nc = gridDim.y;
   const int tid = threadIdx.x, q = tid & 3, lane = tid & 31, warp = tid >> 5;
   const int chl = tid >> 2, ch0 = blockIdx.x * kBwdCh, ch = ch0 + chl;
@@ -236,128 +300,141 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
   const int cl = live ? ch : 0;  // threads past d compute on zeros and write nothing
   const int t0 = c * chunk, rows = min(chunk, L - t0);
   const size_t row0 = static_cast<size_t>(b) * L + t0;
-  stage_rows(Bc, ld_bc, row0, rows, N, Bs);
-  stage_rows(Cc, ld_bc, row0, rows, N, Cs);
+  stage_rows<Grp>(Bc, ld_bc, row0, rows, N, Np, Bs);
+  stage_rows<Grp>(Cc, ld_bc, row0, rows, N, Np, Cs);
+  if (LR) stage_w(dl, ch0, d, ws);
   __syncthreads();
 
-  float a2[kQ], av[kQ], h[kQ];
-  load_a4(A, cl, N, q, a2, av);
   const size_t o = (static_cast<size_t>(b) * nc + c) * N * d + cl;
-#pragma unroll
-  for (int i = 0; i < kQ; ++i) {
-    const int n = q * kQ + i;
-    h[i] = n < N ? h0s[o + static_cast<size_t>(n) * d] : 0.f;
-  }
-  // Row r of the staged segment j: the state after it from the one before.
-  auto step = [&](int r, int j, const float (&hp)[kQ], float (&hn)[kQ]) {
-    const float dt = st[j * kBwdCh + chl];
-    const float dtu = dt * st[kStage + j * kBwdCh + chl];
-    float bv[kQ];
-    load_q(Bs + r * kMaxN + q * kQ, bv);
-#pragma unroll
-    for (int i = 0; i < kQ; ++i) hn[i] = fmaf(ex2(dt * a2[i]), hp[i], dtu * bv[i]);
-  };
-  const int segs = (rows + kSeg - 1) / kSeg;
-  for (int s = 0; s < segs; ++s) {
-    ck[s * kBwdThreads + tid] = make_float4(h[0], h[1], h[2], h[3]);
-    if (s + 1 == segs) break;
-    __syncthreads();
-    stage_seg<T, G>(st, s * kSeg, rows, row0, ch0, d, delta, u, ld_u, nullptr, 0, nullptr, 0);
-    __syncthreads();
-    for (int j = 0; j < kSeg; ++j) step(s * kSeg + j, j, h, h);
-  }
-
-  float dh[kQ], aup[kQ], dA[kQ];
-#pragma unroll
-  for (int i = 0; i < kQ; ++i) {
-    const int n = q * kQ + i;
-    dh[i] = n < N ? carry[o + static_cast<size_t>(n) * d] : 0.f;
-    aup[i] = 1.f;
-    dA[i] = 0.f;
-  }
   const float Dv = D[cl];
   float dD = 0.f;
-  for (int s = segs - 1; s >= 0; --s) {
-    __syncthreads();
-    stage_seg<T, G>(st, s * kSeg, rows, row0, ch0, d, delta, u, ld_u, z, ld_z, g, ld_g);
-    __syncthreads();
-    float hs[kSeg + 1][kQ];
-    const float4 c4 = ck[s * kBwdThreads + tid];
-    hs[0][0] = c4.x, hs[0][1] = c4.y, hs[0][2] = c4.z, hs[0][3] = c4.w;
+  const int segs = (rows + kSeg - 1) / kSeg;
+  const int n_end = Grp ? N : 1;
+  for (int n0 = 0; n0 < n_end; n0 += kMaxN) {
+    const bool first = !Grp || n0 == 0, last = !Grp || n0 + kMaxN >= N;
+    const int nq = n0 + q * kQ;  // the thread's first state
+    float a2[kQ], av[kQ], h[kQ];
+    load_a4(A, cl, N, nq, a2, av);
 #pragma unroll
-    for (int j = 0; j < kSeg; ++j) {
-      if (s * kSeg + j < rows) {
-        step(s * kSeg + j, j, hs[j], hs[j + 1]);
-      } else {
+    for (int i = 0; i < kQ; ++i)
+      h[i] = nq + i < N ? h0s[o + static_cast<size_t>(nq + i) * d] : 0.f;
+    // Row r of the staged segment j: the state after it from the one before.
+    auto step = [&](int r, int j, const float (&hp)[kQ], float (&hn)[kQ]) {
+      const float dt = st[j * kBwdCh + chl];
+      const float dtu = dt * st[kStage + j * kBwdCh + chl];
+      float bv[kQ];
+      load_q(Bs + r * Np + nq, bv);
 #pragma unroll
-        for (int i = 0; i < kQ; ++i) hs[j + 1][i] = 0.f;
-      }
+      for (int i = 0; i < kQ; ++i) hn[i] = fmaf(ex2(dt * a2[i]), hp[i], dtu * bv[i]);
+    };
+    for (int s = 0; s < segs; ++s) {
+      ck[s * kBwdThreads + tid] = make_float4(h[0], h[1], h[2], h[3]);
+      if (s + 1 == segs) break;
+      __syncthreads();
+      stage_seg<LR, T, G>(st, s * kSeg, rows, row0, ch0, d, dl, lrs, ws, u, ld_u, nullptr, 0,
+                      nullptr, 0);
+      __syncthreads();
+      for (int j = 0; j < kSeg; ++j) step(s * kSeg + j, j, h, h);
     }
+
+    float dh[kQ], aup[kQ], dA[kQ];
 #pragma unroll
-    for (int j = kSeg - 1; j >= 0; --j) {
-      const int r = s * kSeg + j;
-      if (r >= rows) continue;  // uniform over the block
-      const size_t row = row0 + r;
-      const int k = j * kBwdCh + chl;
-      const float dt = st[k], uu = st[kStage + k], gy = st[2 * kStage + k];
-      const float dzf = st[3 * kStage + k], sg = st[4 * kStage + k], dtu = dt * uu;
-      float bv[kQ], cv[kQ], pv[8];  // dB then dC partials of the 4 states
-      load_q(Bs + r * kMaxN + q * kQ, bv);
-      load_q(Cs + r * kMaxN + q * kQ, cv);
-      float sdd = 0.f, sb = 0.f, sy = 0.f;
-#pragma unroll
-      for (int i = 0; i < kQ; ++i) {
-        const float a = ex2(dt * a2[i]);
-        dh[i] = fmaf(aup[i], dh[i], cv[i] * gy);
-        aup[i] = a;
-        const float daa = dh[i] * hs[j][i] * a;
-        sdd = fmaf(daa, av[i], sdd);
-        sb = fmaf(dh[i], bv[i], sb);
-        sy = fmaf(hs[j + 1][i], cv[i], sy);
-        dA[i] = fmaf(daa, dt, dA[i]);
-        pv[i] = live ? dh[i] * dtu : 0.f;
-        pv[kQ + i] = live ? hs[j + 1][i] * gy : 0.f;
-      }
-      sdd = quad_sum(sdd);
-      sb = quad_sum(sb);
-      sy = quad_sum(sy);
-      {
-        const float v = channel_sums8(pv, lane);
-        const int idx = (lane >> 2) & 7;  // which of the 8 this lane holds
-        part[(j * kBwdWarps + warp) * 32 + (idx >> 2) * 16 + q * kQ + (idx & 3)] = v;
-      }
-      if (!live) continue;
-      const float ypre = sy + Dv * uu;
-      if (q == 0) {
-        ddt[row * d + ch] = sdd + sb * uu;
-        dD = fmaf(gy, uu, dD);
-      } else if (q == 1) {
-        du[row * d + ch] = sb * dt + gy * Dv;
-      } else if (q == 2) {
-        dz[row * ld_dz + ch] = from_f32<ZT>(ypre * dzf);
-      } else if (yg != nullptr) {
-        yg[row * d + ch] = from_f32<T>(ypre * sg);
-      }
+    for (int i = 0; i < kQ; ++i) {
+      dh[i] = nq + i < N ? carry[o + static_cast<size_t>(nq + i) * d] : 0.f;
+      aup[i] = 1.f;
+      dA[i] = 0.f;
     }
-    __syncthreads();
-    for (int k = tid; k < kSeg * 32; k += kBwdThreads) {
-      const int j = k >> 5, v = k & 31, n = v & 15, r = s * kSeg + j;
-      if (r >= rows || n >= N) continue;
-      float acc = 0.f;
+    for (int s = segs - 1; s >= 0; --s) {
+      __syncthreads();
+      stage_seg<LR, T, G>(st, s * kSeg, rows, row0, ch0, d, dl, lrs, ws, u, ld_u, z, ld_z, g, ld_g);
+      __syncthreads();
+      float hs[kSeg + 1][kQ];
+      const float4 c4 = ck[s * kBwdThreads + tid];
+      hs[0][0] = c4.x, hs[0][1] = c4.y, hs[0][2] = c4.z, hs[0][3] = c4.w;
 #pragma unroll
-      for (int w = 0; w < kBwdWarps; ++w) acc += part[(j * kBwdWarps + w) * 32 + v];
-      float* dst = v < 16 ? dBp : dCp;
-      dst[(static_cast<size_t>(blockIdx.x) * Bt * L + row0 + r) * N + n] = acc;
+      for (int j = 0; j < kSeg; ++j) {
+        if (s * kSeg + j < rows) {
+          step(s * kSeg + j, j, hs[j], hs[j + 1]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kQ; ++i) hs[j + 1][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = kSeg - 1; j >= 0; --j) {
+        const int r = s * kSeg + j;
+        if (r >= rows) continue;  // uniform over the block
+        const size_t row = row0 + r;
+        const int k = j * kBwdCh + chl;
+        const float dt = st[k], uu = st[kStage + k], gy = st[2 * kStage + k];
+        const float dzf = st[3 * kStage + k], sg = st[4 * kStage + k], dtu = dt * uu;
+        float bv[kQ], cv[kQ], pv[8];  // dB then dC partials of the 4 states
+        load_q(Bs + r * Np + nq, bv);
+        load_q(Cs + r * Np + nq, cv);
+        float sdd = 0.f, sb = 0.f, sy = 0.f;
+#pragma unroll
+        for (int i = 0; i < kQ; ++i) {
+          const float a = ex2(dt * a2[i]);
+          dh[i] = fmaf(aup[i], dh[i], cv[i] * gy);
+          aup[i] = a;
+          const float daa = dh[i] * hs[j][i] * a;
+          sdd = fmaf(daa, av[i], sdd);
+          sb = fmaf(dh[i], bv[i], sb);
+          sy = fmaf(hs[j + 1][i], cv[i], sy);
+          dA[i] = fmaf(daa, dt, dA[i]);
+          pv[i] = live ? dh[i] * dtu : 0.f;
+          pv[kQ + i] = live ? hs[j + 1][i] * gy : 0.f;
+        }
+        sdd = quad_sum(sdd);
+        sb = quad_sum(sb);
+        sy = quad_sum(sy);
+        {
+          const float v = channel_sums8(pv, lane);
+          const int idx = (lane >> 2) & 7;  // which of the 8 this lane holds
+          part[(j * kBwdWarps + warp) * 32 + (idx >> 2) * 16 + q * kQ + (idx & 3)] = v;
+        }
+        if (Grp) {
+          const int yk = r * kBwdCh + chl;
+          if (!first) sy += ysm[yk];
+          if (!last) {
+            __syncwarp();  // the quad's reads of ysm[yk] before its write
+            if (q == 0) ysm[yk] = sy;
+          }
+        }
+        if (!live) continue;
+        const float ypre = sy + Dv * uu;
+        if (q == 0) {
+          const float v = sdd + sb * uu;
+          ddt[row * d + ch] = first ? v : ddt[row * d + ch] + v;
+          if (last) dD = fmaf(gy, uu, dD);
+        } else if (q == 1) {
+          const float v = first ? sb * dt : du[row * d + ch] + sb * dt;
+          du[row * d + ch] = last ? v + gy * Dv : v;
+        } else if (last) {
+          if (q == 2)
+            dz[row * ld_dz + ch] = from_f32<ZT>(ypre * dzf);
+          else if (yg != nullptr)
+            yg[row * d + ch] = from_f32<T>(ypre * sg);
+        }
+      }
+      __syncthreads();
+      for (int k = tid; k < kSeg * 32; k += kBwdThreads) {
+        const int j = k >> 5, v = k & 31, n = n0 + (v & 15), r = s * kSeg + j;
+        if (r >= rows || n >= N) continue;
+        float acc = 0.f;
+#pragma unroll
+        for (int w = 0; w < kBwdWarps; ++w) acc += part[(j * kBwdWarps + w) * 32 + v];
+        float* dst = v < 16 ? dBp : dCp;
+        dst[(static_cast<size_t>(blockIdx.x) * Bt * L + row0 + r) * N + n] = acc;
+      }
+      __syncthreads();
     }
-    __syncthreads();
+    if (!live) continue;
+#pragma unroll
+    for (int i = 0; i < kQ; ++i)
+      if (nq + i < N) dAp[o + static_cast<size_t>(nq + i) * d] = dA[i];
   }
-  if (!live) return;
-#pragma unroll
-  for (int i = 0; i < kQ; ++i) {
-    const int n = q * kQ + i;
-    if (n < N) dAp[o + static_cast<size_t>(n) * d] = dA[i];
-  }
-  if (q == 0) dDp[(static_cast<size_t>(b) * nc + c) * d + ch] = dD;
+  if (live && q == 0) dDp[(static_cast<size_t>(b) * nc + c) * d + ch] = dD;
 }
 
 // out[i] = sum over s of in[s n + i], in order of s, for groups of up to
@@ -570,120 +647,130 @@ cudaError_t wgrad(const T* X, int ldx, const T* Y, int ldy, float* part, float* 
   return reduce_slices(part, out, ns, static_cast<size_t>(P) * Q, tmp, s);
 }
 
-// --- dt_proj's adjoint and x_proj's input gradient ---------------------------
+// --- dt_proj's adjoint, over channel tiles (K17, and inside K19) --------------
 
-constexpr int kDtRows = 16;    // rows staged at once
-constexpr int kDtTile = 256;   // rows of one block's partial sums
+constexpr int kDtCh = 128;                 // channels of one block, a thread each
+constexpr int kDtTile = 256;               // rows of one block
+constexpr int kDtRows = 16;                // rows staged at once
+constexpr int kDtMaxR = kMaxR * kMaxRT;    // dt_rank
 
-// One block per kDtTile rows. pre is recomputed exactly as the front
-// forms it; dpre = ddelta sigmoid(pre); dW_dt and db_dt sum over the
-// block's rows (partials (tiles, R, d) and (tiles, d)); ddt_lr = dpre
-// W_dt^T in fp32 FMAs, a warp to a row.
-// dx_dbl (row stride nxp) = [ddt_lr | dB | dC | 0] rounded to T, dB and dC
-// summed over the scan's channel tiles in order.
-template <typename T>
-__global__ void __launch_bounds__(kFrontThreads)
-    dtproj_bwd_kernel(const float* __restrict__ ddt, const T* __restrict__ xdbl, int nx,
-                      const float* __restrict__ wdt, const float* __restrict__ bdt,
-                      const float* __restrict__ dBp, const float* __restrict__ dCp, int n_tiles,
-                      T* __restrict__ dxdbl, int nxp, float* __restrict__ dwdt_p,
-                      float* __restrict__ dbdt_p, int M, int d, int R, int N) {
-  extern __shared__ __align__(16) float smf[];
-  const int lr_ld = (R + 3) / 4 * 4, dp_ld = d + 1;
-  float* lr = smf;                           // kDtRows x lr_ld
-  float* dp = lr + kDtRows * lr_ld;          // kDtRows x dp_ld
-  float* wacc = dp + kDtRows * dp_ld;        // R x d
-  float* bacc = wacc + R * d;                // d
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t m_begin = static_cast<size_t>(blockIdx.x) * kDtTile;
+// One block per (kDtTile rows, kDtCh channels). A thread holds its
+// channel's column of W_dt (R, d) in registers and recomputes pre as the
+// forward forms it (`dt_pre` on the dt_lr rows, rounded as stored);
+// dpre = ddelta sigmoid(pre); dW_dt and db_dt sum over the block's rows in
+// row order (partials (row tiles, R, d) and (row tiles, d)). ddt_lr = dpre
+// W_dt^T sums over the block's channels in channel order, four running
+// sums (channel mod 4) added in a fixed order (partials (channel tiles,
+// M, R), summed over the tiles in order by the caller). Any d; R <= 64.
+template <typename LrT, int NW>
+__global__ void __launch_bounds__(kDtCh)
+    dt_bwd_kernel(const float* __restrict__ ddt, const LrT* __restrict__ lr, int ld_lr,
+                  const float* __restrict__ wdt, const float* __restrict__ bdt,
+                  float* __restrict__ dlr_p, float* __restrict__ dw_p, float* __restrict__ db_p,
+                  int M, int d, int R) {
+  __shared__ __align__(16) float lrs[kDtRows * kDtMaxR];
+  __shared__ float dps[kDtRows][kDtCh + 1];
+  __shared__ float wts[kDtMaxR][kDtCh + 1];
+  const int lr_ld = round4(R);
+  const int ch0 = blockIdx.x * kDtCh, cn = min(kDtCh, d - ch0);
+  const int tid = threadIdx.x, ch = ch0 + tid;
+  const bool live = tid < cn;
+  const size_t m_begin = static_cast<size_t>(blockIdx.y) * kDtTile;
   const int tile_rows = static_cast<int>(min(static_cast<size_t>(kDtTile), M - m_begin));
-  for (int i = threadIdx.x; i < (R + 1) * d; i += kFrontThreads) wacc[i] = 0.f;
+  float wr[NW], gw[NW];
+  load_wdt(wdt, live ? ch : 0, d, live ? R : 0, wr);
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    gw[k] = 0.f;
+    if (k < R) wts[k][tid] = wr[k];
+  }
+  const float bias = live ? bdt[ch] : 0.f;
+  float gb = 0.f;
   for (int r0 = 0; r0 < tile_rows; r0 += kDtRows) {
     const int rows = min(kDtRows, tile_rows - r0);
     const size_t m0 = m_begin + r0;
-    for (int i = threadIdx.x; i < kDtRows * lr_ld; i += kFrontThreads) {
+    __syncthreads();  // the last batch's reads of lrs and dps are done
+    for (int i = tid; i < kDtRows * lr_ld; i += kDtCh) {
       const int r = i / lr_ld, k = i % lr_ld;
-      lr[i] = r < rows && k < R ? to_f32(xdbl[(m0 + r) * nx + k]) : 0.f;
+      lrs[i] = r < rows && k < R ? to_f32(lr[(m0 + r) * ld_lr + k]) : 0.f;
     }
     __syncthreads();
-    for (int ch = threadIdx.x; ch < d; ch += kFrontThreads) {
-      float wr[kMaxR], gw[kMaxR], dd[kDtRows];
+    for (int r = 0; r < kDtRows; ++r) {
+      const float* lrr = lrs + r * lr_ld;
+      // Rows past the tile have ddelta 0, so dpre 0.
+      const float dd = live && r < rows ? ddt[(m0 + r) * d + ch] : 0.f;
+      const float dpv = dd * sigmoid(dt_pre(lrr, wr, R) + bias);
+      dps[r][tid] = dpv;
+      gb += dpv;
 #pragma unroll
-      for (int k = 0; k < kMaxR; ++k) wr[k] = k < R ? wdt[ch * R + k] : 0.f, gw[k] = 0.f;
-#pragma unroll
-      for (int r = 0; r < kDtRows; ++r) dd[r] = r < rows ? ddt[(m0 + r) * d + ch] : 0.f;
-      const float bias = bdt[ch];
-      float gb = 0.f;
-#pragma unroll
-      for (int r = 0; r < kDtRows; ++r) {
-        const float* lrr = lr + r * lr_ld;
-        float acc = 0.f;
-#pragma unroll
-        for (int k = 0; k < kMaxR; k += 4) {
-          if (k >= R) break;
-          const float4 v = *reinterpret_cast<const float4*>(lrr + k);
-          acc = fmaf(v.x, wr[k], acc);
-          acc = fmaf(v.y, wr[k + 1], acc);
-          acc = fmaf(v.z, wr[k + 2], acc);
-          acc = fmaf(v.w, wr[k + 3], acc);
-        }
-        // Rows past the tile have ddelta 0, so dpre 0.
-        const float dpv = dd[r] * sigmoid(acc + bias);
-        dp[r * dp_ld + ch] = dpv;
-        gb += dpv;
-#pragma unroll
-        for (int k = 0; k < kMaxR; k += 4) {
-          if (k >= R) break;
-          const float4 v = *reinterpret_cast<const float4*>(lrr + k);
-          gw[k] = fmaf(v.x, dpv, gw[k]);
-          gw[k + 1] = fmaf(v.y, dpv, gw[k + 1]);
-          gw[k + 2] = fmaf(v.z, dpv, gw[k + 2]);
-          gw[k + 3] = fmaf(v.w, dpv, gw[k + 3]);
-        }
+      for (int k = 0; k < NW; k += 4) {
+        if (k >= R) break;
+        const float4 v = *reinterpret_cast<const float4*>(lrr + k);
+        gw[k] = fmaf(v.x, dpv, gw[k]);
+        gw[k + 1] = fmaf(v.y, dpv, gw[k + 1]);
+        gw[k + 2] = fmaf(v.z, dpv, gw[k + 2]);
+        gw[k + 3] = fmaf(v.w, dpv, gw[k + 3]);
       }
-#pragma unroll
-      for (int k = 0; k < kMaxR; ++k)
-        if (k < R) wacc[k * d + ch] += gw[k];
-      bacc[ch] += gb;
     }
     __syncthreads();
-    // ddt_lr: a warp to a row. Lane l sums column l mod R over the channel
-    // quads of its part l / R (32 / R parts when R divides 32): its loads
-    // of W_dt (d, R) are R consecutive floats across the lanes, dpre a
-    // broadcast. Four running sums (ch mod 4), then the parts added in
-    // butterfly order. d is a multiple of 8.
-    const int parts = 32 % R == 0 ? 32 / R : 1;
-    for (int r = warp; r < rows; r += kFrontThreads / 32) {
-      const float* dpr = dp + r * dp_ld;
-      const int k = lane % R, part = lane / R;
+    for (int i = tid; i < rows * R; i += kDtCh) {
+      const int r = i / R, k = i % R;
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      if (part < parts) {
-        for (int ch = 4 * part; ch < d; ch += 4 * parts) {
+      for (int c0 = 0; c0 < cn; c0 += 4) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[e] = fmaf(dpr[ch + e], wdt[(ch + e) * R + k], acc[e]);
-        }
+        for (int e = 0; e < 4; ++e)
+          if (c0 + e < cn) acc[e] = fmaf(dps[r][c0 + e], wts[k][c0 + e], acc[e]);
       }
-      float v = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-      for (int o = R; parts > 1 && o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane < R) dxdbl[(m0 + r) * nxp + lane] = from_f32<T>(v);
+      dlr_p[(static_cast<size_t>(blockIdx.x) * M + m0 + r) * R + k] =
+          (acc[0] + acc[1]) + (acc[2] + acc[3]);
     }
-    for (int i = threadIdx.x; i < rows * (nxp - R); i += kFrontThreads) {
-      const int r = i / (nxp - R), col = R + i % (nxp - R);
-      const size_t m = m0 + r;
-      float v = 0.f;
-      if (col < nx) {
-        const int n = (col - R) % N;
-        const float* src = col < R + N ? dBp : dCp;
-        for (int t = 0; t < n_tiles; ++t) v += src[(static_cast<size_t>(t) * M + m) * N + n];
-      }
-      dxdbl[m * nxp + col] = from_f32<T>(v);
-    }
-    __syncthreads();
   }
-  for (int i = threadIdx.x; i < R * d; i += kFrontThreads)
-    dwdt_p[static_cast<size_t>(blockIdx.x) * R * d + i] = wacc[i];
-  for (int i = threadIdx.x; i < d; i += kFrontThreads)
-    dbdt_p[static_cast<size_t>(blockIdx.x) * d + i] = bacc[i];
+  if (!live) return;
+#pragma unroll
+  for (int k = 0; k < NW; ++k)
+    if (k < R) dw_p[(static_cast<size_t>(blockIdx.y) * R + k) * d + ch] = gw[k];
+  db_p[static_cast<size_t>(blockIdx.y) * d + ch] = gb;
+}
+
+int dt_row_tiles(int M) { return (M + kDtTile - 1) / kDtTile; }
+int dt_ch_tiles(int d) { return (d + kDtCh - 1) / kDtCh; }
+
+template <typename LrT>
+cudaError_t dt_bwd(const float* ddt, const LrT* lr, int ld_lr, const float* wdt,
+                   const float* bdt, float* dlr_p, float* dw_p, float* db_p, int M, int d, int R,
+                   cudaStream_t s) {
+  if (R <= 0 || R > kDtMaxR) return cudaErrorInvalidValue;
+  const dim3 grid(dt_ch_tiles(d), dt_row_tiles(M));
+  if (R <= kMaxR)
+    dt_bwd_kernel<LrT, kMaxR><<<grid, kDtCh, 0, s>>>(ddt, lr, ld_lr, wdt, bdt, dlr_p, dw_p, db_p,
+                                                     M, d, R);
+  else
+    dt_bwd_kernel<LrT, kDtMaxR><<<grid, kDtCh, 0, s>>>(ddt, lr, ld_lr, wdt, bdt, dlr_p, dw_p,
+                                                       db_p, M, d, R);
+  return cudaGetLastError();
+}
+
+// K19's dx_dbl (row stride nxp) = [ddt_lr | dB | dC | 0] rounded to T:
+// ddt_lr summed over the dt adjoint's channel tiles, dB and dC over the
+// scan's, in order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    dxdbl_kernel(const float* __restrict__ dlr_p, int n_ct, const float* __restrict__ dBp,
+                 const float* __restrict__ dCp, int n_st, T* __restrict__ dxdbl, int nxp, int M,
+                 int R, int N) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= static_cast<size_t>(M) * nxp) return;
+  const size_t m = i / nxp;
+  const int col = static_cast<int>(i % nxp);
+  float v = 0.f;
+  if (col < R) {
+    for (int t = 0; t < n_ct; ++t) v += dlr_p[(static_cast<size_t>(t) * M + m) * R + col];
+  } else if (col < R + 2 * N) {
+    const int n = (col - R) % N;
+    const float* src = col < R + N ? dBp : dCp;
+    for (int t = 0; t < n_st; ++t) v += src[(static_cast<size_t>(t) * M + m) * N + n];
+  }
+  dxdbl[i] = from_f32<T>(v);
 }
 
 // --- the conv + SiLU adjoint ---------------------------------------------------
@@ -784,6 +871,9 @@ struct Carve {
   }
 };
 
+#define DDG_TRY(x) \
+  if ((err = (x)) != cudaSuccess) return err
+
 struct ScanBwdWs {
   float *P, *E, *dBp, *dCp, *dAp, *dDp, *tmp;
 };
@@ -806,44 +896,83 @@ ScanBwdWs carve_scan(Carve& cv, int Bt, int L, int d, int N, int chunk) {
   return w;
 }
 
+// Shared memory of the adjoint's passes 1 and 3 (R = 0: delta from
+// memory); the wrappers' `ssm_scan_takes` and `ssm_scan_dtlr_takes` hold
+// the same sums.
+size_t scan_bwd_smem1(int chunk, int N, int R) {
+  const int lr_ld = round4(R);
+  return sizeof(float) * (static_cast<size_t>(chunk) * n_pad(N) + kStaged * kStage +
+                          (R > 0 ? kSeg * lr_ld + (lr_ld + 1) * kBwdCh : 0));
+}
+
+size_t scan_bwd_smem3(int chunk, int N, int R) {
+  const int n_seg = (chunk + kSeg - 1) / kSeg, lr_ld = round4(R);
+  return sizeof(float) * (2 * static_cast<size_t>(chunk) * n_pad(N) +
+                          kSeg * kBwdWarps * 32 + kStaged * kStage +
+                          (N > kMaxN ? chunk * kBwdCh : 0) +
+                          (R > 0 ? kSeg * lr_ld + (lr_ld + 1) * kBwdCh : 0)) +
+         sizeof(float4) * n_seg * kBwdThreads;
+}
+
+template <typename T, typename G, typename ZT, bool Grp, bool LR>
+cudaError_t scan_bwd_k(const T* u, int ld_u, const DtSrc& dl, const T* Bc, const T* Cc,
+                       int ld_bc, const T* z, int ld_z, const G* g, int ld_g, const float* A,
+                       const float* D, const float* h0s, const ScanBwdWs& w, float* ddt,
+                       float* du, ZT* dz, int ld_dz, T* yg, int Bt, int L, int d, int N,
+                       int chunk, cudaStream_t s) {
+  const int nc = (L + chunk - 1) / chunk, R = LR ? dl.R : 0;
+  const size_t smem1 = scan_bwd_smem1(chunk, N, R), smem3 = scan_bwd_smem3(chunk, N, R);
+  cudaError_t err;
+  DDG_TRY(allow_smem(reinterpret_cast<const void*>(scan_bwd_chunk_kernel<T, G, Grp, LR>), smem1));
+  DDG_TRY(allow_smem(reinterpret_cast<const void*>(scan_bwd_out_kernel<T, G, ZT, Grp, LR>), smem3));
+  const dim3 grid(scan_tiles(d), nc, Bt);
+  scan_bwd_chunk_kernel<T, G, Grp, LR><<<grid, kBwdThreads, smem1, s>>>(dl, Cc, ld_bc, z, ld_z, g,
+                                                                   ld_g, A, w.P, w.E, L, d, N,
+                                                                   chunk);
+  DDG_TRY(cudaGetLastError());
+  scan_bwd_carry_kernel<<<dim3((N * d + 255) / 256, Bt), 256, 0, s>>>(w.P, w.E, nc, N * d);
+  DDG_TRY(cudaGetLastError());
+  scan_bwd_out_kernel<T, G, ZT, Grp, LR><<<grid, kBwdThreads, smem3, s>>>(
+      u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, ld_g, A, D, h0s, w.E, ddt, du, dz, ld_dz, yg,
+      w.dBp, w.dCp, w.dAp, w.dDp, Bt, L, d, N, chunk);
+  return cudaGetLastError();
+}
+
 template <typename T, typename G, typename ZT>
-cudaError_t scan_bwd(const T* u, int ld_u, const float* delta, const T* Bc, const T* Cc, int ld_bc,
+cudaError_t scan_bwd(const T* u, int ld_u, const DtSrc& dl, const T* Bc, const T* Cc, int ld_bc,
                      const T* z, int ld_z, const G* g, int ld_g, const float* A, const float* D,
                      const float* h0s, const ScanBwdWs& w, float* ddt, float* du, ZT* dz,
                      int ld_dz, T* yg, int Bt, int L, int d, int N, int chunk, cudaStream_t s) {
-  if (N > kMaxN || N <= 0 || chunk <= 0 || d <= 0 || L <= 0) return cudaErrorInvalidValue;
-  const int nc = (L + chunk - 1) / chunk;
-  const int n_seg = (chunk + kSeg - 1) / kSeg;
-  const size_t rows = sizeof(float) * chunk * kMaxN;
-  const size_t staged = sizeof(float) * kStaged * kStage;
-  const size_t smem1 = rows + staged;
-  const size_t smem3 = 2 * rows + sizeof(float4) * n_seg * kBwdThreads
-                       + sizeof(float) * kSeg * kBwdWarps * 32 + staged;
-  cudaError_t err =
-      allow_smem(reinterpret_cast<const void*>(scan_bwd_chunk_kernel<T, G>), smem1);
-  if (err != cudaSuccess) return err;
-  err = allow_smem(reinterpret_cast<const void*>(scan_bwd_out_kernel<T, G, ZT>), smem3);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(scan_tiles(d), nc, Bt);
-  scan_bwd_chunk_kernel<T, G><<<grid, kBwdThreads, smem1, s>>>(delta, Cc, ld_bc, z, ld_z, g, ld_g,
-                                                              A, w.P, w.E, L, d, N, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scan_bwd_carry_kernel<<<dim3((N * d + 255) / 256, Bt), 256, 0, s>>>(w.P, w.E, nc, N * d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scan_bwd_out_kernel<T, G, ZT><<<grid, kBwdThreads, smem3, s>>>(
-      u, ld_u, delta, Bc, Cc, ld_bc, z, ld_z, g, ld_g, A, D, h0s, w.E, ddt, du, dz, ld_dz, yg,
-      w.dBp, w.dCp, w.dAp, w.dDp, Bt, L, d, N, chunk);
-  return cudaGetLastError();
+  if (N <= 0 || chunk <= 0 || d <= 0 || L <= 0) return cudaErrorInvalidValue;
+  if (dl.delta == nullptr && (dl.R <= 0 || dl.R > kDtMaxR || L % chunk))
+    return cudaErrorInvalidValue;
+#define DDG_SCAN_BWD(G2, L2)                                                                   \
+  scan_bwd_k<T, G, ZT, G2, L2>(u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, ld_g, A, D, h0s, w, ddt, \
+                               du, dz, ld_dz, yg, Bt, L, d, N, chunk, s)
+  if (dl.delta == nullptr)
+    return N > kMaxN ? DDG_SCAN_BWD(true, true) : DDG_SCAN_BWD(false, true);
+  return N > kMaxN ? DDG_SCAN_BWD(true, false) : DDG_SCAN_BWD(false, false);
+#undef DDG_SCAN_BWD
 }
 
 // The (N, d) dA_log and (d,) dD from the per-(b, chunk) partials.
 cudaError_t scan_bwd_sums(const ScanBwdWs& w, const float* A, float* dA_log, float* dD, int Bt,
                           int L, int d, int N, int chunk, cudaStream_t s) {
   const int slices = Bt * ((L + chunk - 1) / chunk);
-  cudaError_t err =
-      reduce_slices(w.dAp, dA_log, slices, static_cast<size_t>(N) * d, w.tmp, s, A, N, d);
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
+  DDG_TRY(reduce_slices(w.dAp, dA_log, slices, static_cast<size_t>(N) * d, w.tmp, s, A, N, d));
   return reduce_slices(w.dDp, dD, slices, d, w.tmp, s);
+}
+
+// dB and dC summed over the scan's channel tiles, then dA_log and dD.
+cudaError_t scan_bwd_outputs(const ScanBwdWs& w, const float* A, float* dB, float* dC,
+                             float* dA_log, float* dD, int Bt, int L, int d, int N, int chunk,
+                             cudaStream_t s) {
+  const size_t n = static_cast<size_t>(Bt) * L * N;
+  cudaError_t err;
+  DDG_TRY(reduce_slices(w.dBp, dB, scan_tiles(d), n, w.tmp, s));
+  DDG_TRY(reduce_slices(w.dCp, dC, scan_tiles(d), n, w.tmp, s));
+  return scan_bwd_sums(w, A, dA_log, dD, Bt, L, d, N, chunk, s);
 }
 
 template <typename T>
@@ -854,19 +983,61 @@ cudaError_t ssm_bwd(const T* u, int ld_u, const float* delta, const T* Bc, const
                     cudaStream_t s) {
   Carve cv{reinterpret_cast<uintptr_t>(ws)};
   const ScanBwdWs w = carve_scan(cv, Bt, L, d, N, chunk);
-  cudaError_t err = scan_bwd<T, T, float>(u, ld_u, delta, Bc, Cc, ld_bc, z, ld_z, g, d, A, D, h0s,
-                                          w, ddelta, du, dz, d, nullptr, Bt, L, d, N, chunk, s);
-  if (err != cudaSuccess) return err;
-  const size_t n = static_cast<size_t>(Bt) * L * N;
-  if ((err = reduce_slices(w.dBp, dB, scan_tiles(d), n, w.tmp, s)) != cudaSuccess) return err;
-  if ((err = reduce_slices(w.dCp, dC, scan_tiles(d), n, w.tmp, s)) != cudaSuccess) return err;
-  return scan_bwd_sums(w, A, dA_log, dD, Bt, L, d, N, chunk, s);
+  const DtSrc dl{delta, nullptr, 0, nullptr, nullptr, 0};
+  cudaError_t err;
+  DDG_TRY((scan_bwd<T, T, float>(u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, d, A, D, h0s, w, ddelta,
+                                 du, dz, d, nullptr, Bt, L, d, N, chunk, s)));
+  return scan_bwd_outputs(w, A, dB, dC, dA_log, dD, Bt, L, d, N, chunk, s);
+}
+
+// K17's workspace: the scan adjoint's, ddelta (M, d) and the dt adjoint's
+// partials.
+struct DtlrBwdWs {
+  ScanBwdWs scan;
+  float *ddt, *dlr_p, *dw_p, *db_p, *tmp;
+};
+
+DtlrBwdWs carve_dtlr(Carve& cv, int Bt, int L, int d, int N, int R, int chunk) {
+  const size_t M = static_cast<size_t>(Bt) * L;
+  const size_t ct = dt_ch_tiles(d), rt = dt_row_tiles(static_cast<int>(M));
+  DtlrBwdWs w;
+  w.scan = carve_scan(cv, Bt, L, d, N, chunk);
+  w.ddt = cv.take<float>(M * d);
+  w.dlr_p = cv.take<float>(ct * M * R);
+  w.dw_p = cv.take<float>(rt * R * d);
+  w.db_p = cv.take<float>(rt * d);
+  size_t t = reduce_tmp(ct, M * R);
+  const size_t t2 = reduce_tmp(rt, static_cast<size_t>(R) * d);
+  w.tmp = cv.take<float>(t > t2 ? t : t2);
+  return w;
+}
+
+template <typename T>
+cudaError_t dtlr_bwd(const T* u, int ld_u, const float* lr, int ld_lr, const float* wdt,
+                     const float* bdt, const T* Bc, const T* Cc, int ld_bc, const T* z, int ld_z,
+                     const float* A, const float* D, const float* h0s, const T* g, float* du,
+                     float* dlr, float* dW_dt, float* db_dt, float* dz, float* dB, float* dC,
+                     float* dA_log, float* dD, void* ws, int Bt, int L, int d, int N, int R,
+                     int chunk, cudaStream_t s) {
+  if (R <= 0 || R > kDtMaxR || chunk <= 0 || L % chunk) return cudaErrorInvalidValue;
+  Carve cv{reinterpret_cast<uintptr_t>(ws)};
+  const DtlrBwdWs w = carve_dtlr(cv, Bt, L, d, N, R, chunk);
+  const int M = Bt * L, rt = dt_row_tiles(M);
+  const DtSrc dl{nullptr, lr, ld_lr, wdt, bdt, R};
+  cudaError_t err;
+  DDG_TRY((scan_bwd<T, T, float>(u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, d, A, D, h0s, w.scan,
+                                 w.ddt, du, dz, d, nullptr, Bt, L, d, N, chunk, s)));
+  DDG_TRY(dt_bwd<float>(w.ddt, lr, ld_lr, wdt, bdt, w.dlr_p, w.dw_p, w.db_p, M, d, R, s));
+  DDG_TRY(reduce_slices(w.dlr_p, dlr, dt_ch_tiles(d), static_cast<size_t>(M) * R, w.tmp, s));
+  DDG_TRY(reduce_slices(w.dw_p, dW_dt, rt, static_cast<size_t>(R) * d, w.tmp, s));
+  DDG_TRY(reduce_slices(w.db_p, db_dt, rt, d, w.tmp, s));
+  return scan_bwd_outputs(w.scan, A, dB, dC, dA_log, dD, Bt, L, d, N, chunk, s);
 }
 
 template <typename T>
 struct InnerBwdWs {
   T *xz, *u, *xdbl, *yg, *dxz, *dxdbl;
-  float *delta, *dy, *ddt, *du, *dtw_p, *dtb_p, *cw_p, *cb_p, *wpart, *wtmp;
+  float *delta, *dy, *ddt, *du, *dlr_p, *dtw_p, *dtb_p, *cw_p, *cb_p, *wpart, *wtmp;
   ScanBwdWs scan;
 };
 
@@ -888,8 +1059,9 @@ InnerBwdWs<T> carve_inner(Carve& cv, int Bt, int L, int H, int d, int K, int R, 
   w.dy = cv.take<float>(M * d);
   w.ddt = cv.take<float>(M * d);
   w.du = cv.take<float>(M * d);
-  const size_t dt_tiles = (M + kDtTile - 1) / kDtTile;
+  const size_t dt_tiles = dt_row_tiles(static_cast<int>(M));
   const size_t cv_tiles = static_cast<size_t>(Bt) * ((L + kConvRows - 1) / kConvRows);
+  w.dlr_p = cv.take<float>(static_cast<size_t>(dt_ch_tiles(d)) * M * R);
   w.dtw_p = cv.take<float>(dt_tiles * R * d);
   w.dtb_p = cv.take<float>(dt_tiles * d);
   w.cw_p = cv.take<float>(cv_tiles * K * d);
@@ -919,38 +1091,40 @@ cudaError_t inner_bwd(const T* h, const T* w_in, const T* w_in_f, const T* cw, c
                       float* dW_dt, float* db_dt, float* dA_log, float* dD, float* dW_out,
                       void* ws, int Bt, int L, int H, int d, int K, int R, int N, int chunk,
                       cudaStream_t s) {
-  if (K != kConvTaps || R > kMaxR || N > kMaxN || L % chunk) return cudaErrorInvalidValue;
+  if ((K != 4 && K != 8) || R <= 0 || R > kDtMaxR || chunk <= 0 || L % chunk)
+    return cudaErrorInvalidValue;
   Carve cv{reinterpret_cast<uintptr_t>(ws)};
   const InnerBwdWs<T> w = carve_inner<T>(cv, Bt, L, H, d, K, R, N, chunk);
   const int M = Bt * L, nx = R + 2 * N, nxp = round8(nx);
   cudaError_t err;
-#define DDG_TRY(x) \
-  if ((err = (x)) != cudaSuccess) return err
   // The front, as the forward computes it.
   DDG_TRY(gemm(h, w_in, w.xz, M, 2 * d, H, H, 2 * d, s));
   DDG_TRY(front<T>(w.xz, cw, cb, w_x, w_dt, b_dt, w.u, w.xdbl, w.delta, Bt, L, d, K, R, N, s));
   // out_proj's adjoint, then the scan's.
   DDG_TRY(gemm(g, w_out_f, w.dy, M, d, H, H, d, s));
-  DDG_TRY((scan_bwd<T, float, T>(w.u, d, w.delta, w.xdbl + R, w.xdbl + R + N, nx, w.xz + d, 2 * d,
+  const DtSrc dl{w.delta, nullptr, 0, nullptr, nullptr, 0};
+  DDG_TRY((scan_bwd<T, float, T>(w.u, d, dl, w.xdbl + R, w.xdbl + R + N, nx, w.xz + d, 2 * d,
                                  w.dy, d, A, D, h0s, w.scan, w.ddt, w.du, w.dxz + d, 2 * d, w.yg,
                                  Bt, L, d, N, chunk, s)));
-  // dt_proj's and x_proj's adjoints.
-  const int dt_tiles = (M + kDtTile - 1) / kDtTile;
-  const size_t dt_smem =
-      sizeof(float) * (kDtRows * ((R + 3) / 4 * 4) + kDtRows * (d + 1) + (R + 1) * d);
-  DDG_TRY(allow_smem(reinterpret_cast<const void*>(dtproj_bwd_kernel<T>), dt_smem));
-  dtproj_bwd_kernel<T><<<dt_tiles, kFrontThreads, dt_smem, s>>>(
-      w.ddt, w.xdbl, nx, w_dt, b_dt, w.scan.dBp, w.scan.dCp, scan_tiles(d), w.dxdbl, nxp, w.dtw_p,
-      w.dtb_p, M, d, R, N);
+  // dt_proj's adjoint (on the stored dt_lr columns), then x_proj's.
+  DDG_TRY(dt_bwd<T>(w.ddt, w.xdbl, nx, w_dt, b_dt, w.dlr_p, w.dtw_p, w.dtb_p, M, d, R, s));
+  const size_t n_dx = static_cast<size_t>(M) * nxp;
+  dxdbl_kernel<T><<<static_cast<unsigned>((n_dx + 255) / 256), 256, 0, s>>>(
+      w.dlr_p, dt_ch_tiles(d), w.scan.dBp, w.scan.dCp, scan_tiles(d), w.dxdbl, nxp, M, R, N);
   DDG_TRY(cudaGetLastError());
   DDG_TRY(gemm(w.dxdbl, w_x_f, w.du, M, d, nxp, nxp, d, s, true));
   // The conv + SiLU adjoint, then in_proj's.
   const int cv_x = (L + kConvRows - 1) / kConvRows;
-  conv_bwd_kernel<T, kConvTaps><<<dim3(cv_x, Bt), kFrontThreads, 0, s>>>(
-      w.xz, cw, cb, w.du, w.dxz, w.cw_p, w.cb_p, L, d);
+  if (K == 4)
+    conv_bwd_kernel<T, 4><<<dim3(cv_x, Bt), kFrontThreads, 0, s>>>(w.xz, cw, cb, w.du, w.dxz,
+                                                                  w.cw_p, w.cb_p, L, d);
+  else
+    conv_bwd_kernel<T, 8><<<dim3(cv_x, Bt), kFrontThreads, 0, s>>>(w.xz, cw, cb, w.du, w.dxz,
+                                                                  w.cw_p, w.cb_p, L, d);
   DDG_TRY(cudaGetLastError());
   DDG_TRY(gemm(w.dxz, w_in_f, dh, M, H, 2 * d, 2 * d, H, s));
   // Weight gradients, each a fixed-order two-stage sum.
+  const int dt_tiles = dt_row_tiles(M);
   DDG_TRY(wgrad(h, H, w.dxz, 2 * d, w.wpart, dW_in, w.wtmp, M, H, 2 * d, s));
   DDG_TRY(wgrad(w.u, d, w.dxdbl, nxp, w.wpart, dW_x, w.wtmp, M, d, nx, s));
   DDG_TRY(wgrad(w.yg, d, g, H, w.wpart, dW_out, w.wtmp, M, d, H, s));
@@ -958,11 +1132,23 @@ cudaError_t inner_bwd(const T* h, const T* w_in, const T* w_in_f, const T* cw, c
   DDG_TRY(reduce_slices(w.dtb_p, db_dt, dt_tiles, d, w.wtmp, s));
   DDG_TRY(reduce_slices(w.cw_p, dcw, Bt * cv_x, static_cast<size_t>(K) * d, w.wtmp, s));
   DDG_TRY(reduce_slices(w.cb_p, dcb, Bt * cv_x, d, w.wtmp, s));
-#undef DDG_TRY
   return scan_bwd_sums(w.scan, A, dA_log, dD, Bt, L, d, N, chunk, s);
 }
 
+#undef DDG_TRY
+
+const float* f(const void* p) { return static_cast<const float*>(p); }
+float* fo(void* p) { return static_cast<float*>(p); }
+const bf16* b(const void* p) { return static_cast<const bf16*>(p); }
+bf16* bo(void* p) { return static_cast<bf16*>(p); }
+
 }  // namespace
+
+// The adjoint's share of `ops.mamba.scan_smem`, for the same check.
+extern "C" long long ddg_scan_bwd_smem(int chunk, int N, int R) {
+  const size_t s1 = scan_bwd_smem1(chunk, N, R), s3 = scan_bwd_smem3(chunk, N, R);
+  return static_cast<long long>(s1 > s3 ? s1 : s3);
+}
 
 extern "C" long long ddg_ssm_scan_bwd_workspace(int Bt, int L, int d, int N, int chunk) {
   Carve cv{0};
@@ -977,18 +1163,45 @@ extern "C" int ddg_ssm_scan_bwd(const void* u, int ld_u, const void* delta, cons
                                 void* dA_log, void* dD, void* ws, int Bt, int L, int d, int N,
                                 int chunk, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto fo = [](void* p) { return static_cast<float*>(p); };
   if (dtype == ddg::kF32)
     return ssm_bwd<float>(f(u), ld_u, f(delta), f(Bc), f(Cc), ld_bc, f(z), ld_z, f(A), f(D),
                           f(h0s), f(g), fo(du), fo(ddelta), fo(dz), fo(dB), fo(dC), fo(dA_log),
                           fo(dD), ws, Bt, L, d, N, chunk, s);
-  if (dtype == ddg::kBF16) {
-    auto b = [](const void* p) { return static_cast<const bf16*>(p); };
+  if (dtype == ddg::kBF16)
     return ssm_bwd<bf16>(b(u), ld_u, f(delta), b(Bc), b(Cc), ld_bc, b(z), ld_z, f(A), f(D),
                          f(h0s), b(g), fo(du), fo(ddelta), fo(dz), fo(dB), fo(dC), fo(dA_log),
                          fo(dD), ws, Bt, L, d, N, chunk, s);
-  }
+  return cudaErrorInvalidValue;
+}
+
+extern "C" long long ddg_ssm_scan_dtlr_bwd_workspace(int Bt, int L, int d, int N, int R,
+                                                     int chunk) {
+  Carve cv{0};
+  carve_dtlr(cv, Bt, L, d, N, R, chunk);
+  return static_cast<long long>(cv.off);
+}
+
+// K17: the gradients of u, dt_lr (fp32, rows of stride ld_lr), W_dt (R, d),
+// b_dt, B, C, log(-A).T, z and D.
+extern "C" int ddg_ssm_scan_dtlr_bwd(const void* u, int ld_u, const void* dt_lr, int ld_lr,
+                                     const void* w_dt, const void* b_dt, const void* Bc,
+                                     const void* Cc, int ld_bc, const void* z, int ld_z,
+                                     const void* A, const void* D, const void* h0s,
+                                     const void* g, void* du, void* ddt_lr, void* dW_dt,
+                                     void* db_dt, void* dz, void* dB, void* dC, void* dA_log,
+                                     void* dD, void* ws, int Bt, int L, int d, int N, int R,
+                                     int chunk, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == ddg::kF32)
+    return dtlr_bwd<float>(f(u), ld_u, f(dt_lr), ld_lr, f(w_dt), f(b_dt), f(Bc), f(Cc), ld_bc,
+                           f(z), ld_z, f(A), f(D), f(h0s), f(g), fo(du), fo(ddt_lr), fo(dW_dt),
+                           fo(db_dt), fo(dz), fo(dB), fo(dC), fo(dA_log), fo(dD), ws, Bt, L, d,
+                           N, R, chunk, s);
+  if (dtype == ddg::kBF16)
+    return dtlr_bwd<bf16>(b(u), ld_u, f(dt_lr), ld_lr, f(w_dt), f(b_dt), b(Bc), b(Cc), ld_bc,
+                          b(z), ld_z, f(A), f(D), f(h0s), b(g), fo(du), fo(ddt_lr), fo(dW_dt),
+                          fo(db_dt), fo(dz), fo(dB), fo(dC), fo(dA_log), fo(dD), ws, Bt, L, d,
+                          N, R, chunk, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1012,20 +1225,15 @@ extern "C" int ddg_mamba_inner_bwd(const void* h, const void* w_in, const void* 
                                    int H, int d, int K, int R, int N, int chunk, int dtype,
                                    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto fo = [](void* p) { return static_cast<float*>(p); };
   if (dtype == ddg::kF32)
     return inner_bwd<float>(f(h), f(w_in), f(w_in_f), f(cw), f(cb), f(w_x), f(w_x_f), f(w_dt),
                             f(b_dt), f(A), f(D), f(w_out_f), f(h0s), f(g), fo(dh), fo(dW_in),
                             fo(dcw), fo(dcb), fo(dW_x), fo(dW_dt), fo(db_dt), fo(dA_log), fo(dD),
                             fo(dW_out), ws, Bt, L, H, d, K, R, N, chunk, s);
-  if (dtype == ddg::kBF16) {
-    auto b = [](const void* p) { return static_cast<const bf16*>(p); };
+  if (dtype == ddg::kBF16)
     return inner_bwd<bf16>(b(h), b(w_in), b(w_in_f), b(cw), b(cb), b(w_x), b(w_x_f), f(w_dt),
-                           f(b_dt), f(A), f(D), b(w_out_f), f(h0s), b(g),
-                           static_cast<bf16*>(dh), fo(dW_in), fo(dcw), fo(dcb), fo(dW_x),
-                           fo(dW_dt), fo(db_dt), fo(dA_log), fo(dD), fo(dW_out), ws, Bt, L, H, d,
-                           K, R, N, chunk, s);
-  }
+                           f(b_dt), f(A), f(D), b(w_out_f), f(h0s), b(g), bo(dh), fo(dW_in),
+                           fo(dcw), fo(dcb), fo(dW_x), fo(dW_dt), fo(db_dt), fo(dA_log), fo(dD),
+                           fo(dW_out), ws, Bt, L, H, d, K, R, N, chunk, s);
   return cudaErrorInvalidValue;
 }

@@ -57,7 +57,9 @@ compute, scan chunk 128; uniform-state D3PM with the log-linear schedule
 over the DNA tokenizer's V=12 (`mask_index` 3 as `effective_vocab` sets
 it), sigma conditioning on. The weights are seeded random ones in the
 reference layout (`convert.make_reference_dimamba_state_dict`, non-zero
-adaLN projections) through the port's converter.
+adaLN projections) through the port's converter. `route='dt_lowrank'` builds the same weights
+into the unfused chain around the dt-lowrank scan, K16 (`fused_block=False,
+dt_inkernel=True`).
 
 `dimamba_train_flagship()` builds the genomics training run, the same
 script's (`scripts/train_ten_species_guidance.sh`, `ddg_tpu/main.py:173-209`):
@@ -66,7 +68,8 @@ uniform-state D3PM in continuous time with the log-linear schedule,
 antithetic t (eps 1e-3), sigma conditioning, `zero_recon_loss` and CFG
 cond dropout 0.1; AdamW (lr 2e-3, betas 0.9/0.999, eps 1e-8, no weight
 decay, clip 1.0) with 2500 warmup steps, EMA 0.9999; a global batch of
-32 x 32768 tokens as micro-batches of DIMAMBA_TRAIN_MICRO_BATCH. Until the
+32 x 32768 tokens as micro-batches of DIMAMBA_TRAIN_MICRO_BATCH (on the
+'dt_lowrank' route, K16 and K17, of DIMAMBA_DTLR_TRAIN_MICRO_BATCH). Until the
 Species10 data is in the repository, batches are synthetic bases (A C G T
 N, ids 7-11) with a class label per row (`TrainRun.batch`).
 
@@ -113,6 +116,17 @@ DIMAMBA_TRAIN_GLOBAL_BATCH = 32
 # The largest power of two dividing 32 whose train step peaks under half of
 # an 80 GB card (PERF.md, Species10 training).
 DIMAMBA_TRAIN_MICRO_BATCH = 16
+# The same rule on the 'dt_lowrank' route, whose unfused chain keeps its
+# intermediates for PyTorch's autograd (PERF.md §4, the card's sweep by
+# scripts/profile_torch_train.py --model dimamba --route dt_lowrank --sweep).
+DIMAMBA_DTLR_TRAIN_MICRO_BATCH = 4
+# The mixer routes of the Species10 runs: the DiMambaConfig flags of each.
+# 'fused_block' is K18/K19 (the JAX module's default choice); 'dt_lowrank'
+# is the unfused chain around K16/K17 (`dt_inkernel`), taken on the CPU
+# too (the kernels' plain versions there).
+DIMAMBA_ROUTES = {'fused_block': {},
+                  'dt_lowrank': dict(fused_block=False, dt_inkernel=True,
+                                     pallas_scan=True)}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -183,12 +197,14 @@ DNA_VOCAB, DNA_MASK = 12, 3
 DNA_BASES = (7, 12)
 
 
-def dimamba_flagship(tiny: bool = False, device=None, *, seed: int = 0):
-    """Returns (spec, cfg, model, model_apply, params) on `device`. `tiny`
-    is a CPU-sized model: hidden 32, cond_dim 16, 2 blocks, L=256 (two scan
-    chunks)."""
+def dimamba_flagship(tiny: bool = False, device=None, *, seed: int = 0,
+                     route: str = 'fused_block'):
+    """Returns (spec, cfg, model, model_apply, params) on `device`, its
+    mixer through `route` (DIMAMBA_ROUTES: 'fused_block' or 'dt_lowrank';
+    the weights are the same). `tiny` is a CPU-sized model: hidden 32,
+    cond_dim 16, 2 blocks, L=256 (two scan chunks)."""
     device = resolve_device(device)
-    cfg, model = _dimamba(tiny, seed)
+    cfg, model = _dimamba(tiny, seed, route)
     spec = DiffusionSpec(diffusion='uniform', parameterization='d3pm',
                          noise=LogLinearNoise(), vocab_size=DNA_VOCAB,
                          mask_index=DNA_MASK, num_classes=cfg.num_classes,
@@ -198,9 +214,13 @@ def dimamba_flagship(tiny: bool = False, device=None, *, seed: int = 0):
     return spec, cfg, model, apply_fn, apply_fn.params
 
 
-def _dimamba(tiny: bool, seed: int):
+def _dimamba(tiny: bool, seed: int, route: str):
     """The Species10 DiMamba (or its CPU-sized cut) with seeded random
-    weights in the reference layout: (cfg, model) on the CPU."""
+    weights in the reference layout, its mixer through `route`: (cfg,
+    model) on the CPU."""
+    if route not in DIMAMBA_ROUTES:
+        raise ValueError(f'route must be one of {sorted(DIMAMBA_ROUTES)}, '
+                         f'got {route!r}')
     if tiny:
         cfg = DiMambaConfig(hidden_size=32, cond_dim=16, length=256,
                             n_blocks=2)
@@ -210,7 +230,8 @@ def _dimamba(tiny: bool, seed: int):
     cfg = dataclasses.replace(cfg, vocab_size=DNA_VOCAB, num_classes=10,
                               d_state=16, d_conv=4, expand=2,
                               scan_chunk=128, scan_seg=64, scan_seg_bwd=64,
-                              dropout=0.1, compute_dtype=torch.bfloat16)
+                              dropout=0.1, compute_dtype=torch.bfloat16,
+                              **DIMAMBA_ROUTES[route])
     model = DiMamba(cfg)
     ref = make_reference_dimamba_state_dict(
         np.random.RandomState(seed), hidden=cfg.hidden_size,
@@ -390,17 +411,21 @@ def _dit_train_run(setup: DiTTrainSetup, device, seed: int) -> TrainRun:
 
 
 def dimamba_train_flagship(device=None, *, seed: int = 0,
-                           tiny: bool = False) -> TrainRun:
+                           tiny: bool = False,
+                           route: str = 'fused_block') -> TrainRun:
     """The Species10 DiMamba training run on `device`, weights seeded random
-    in the reference layout, the train state's generator seeded with `seed`.
-    `tiny` is `dimamba_flagship(tiny=True)`'s model (hidden 32, 2 blocks,
-    L=256) with a global batch of 4 as 2 micro-batches, for runs on the
-    CPU."""
+    in the reference layout, the train state's generator seeded with `seed`,
+    the mixer through `route` (DIMAMBA_ROUTES) with that route's
+    micro-batch (DIMAMBA_TRAIN_MICRO_BATCH, DIMAMBA_DTLR_TRAIN_MICRO_BATCH).
+    `tiny` is
+    `dimamba_flagship(tiny=True)`'s model (hidden 32, 2 blocks, L=256)
+    with a global batch of 4 as 2 micro-batches, for runs on the CPU."""
     device = resolve_device(device)
-    cfg, model = _dimamba(tiny, seed)
+    cfg, model = _dimamba(tiny, seed, route)
     global_batch, micro = ((4, 2) if tiny else
                            (DIMAMBA_TRAIN_GLOBAL_BATCH,
-                            DIMAMBA_TRAIN_MICRO_BATCH))
+                            DIMAMBA_TRAIN_MICRO_BATCH if route == 'fused_block'
+                            else DIMAMBA_DTLR_TRAIN_MICRO_BATCH))
     spec = DiffusionSpec(diffusion='uniform', parameterization='d3pm',
                          noise=LogLinearNoise(), vocab_size=DNA_VOCAB,
                          mask_index=DNA_MASK, num_classes=cfg.num_classes,

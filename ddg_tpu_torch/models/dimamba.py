@@ -20,28 +20,33 @@ weights in it (what flax's per-call cast produces); dt_proj, A_log, D, the
 LayerNorms (flax's: bias, eps 1e-6, E[x^2] - E[x]^2 variance), the final
 adaLN projection and `lm_head` are float32.
 
-A direction runs one of three routes, which `resolve_route` picks from
+A direction runs one of four routes, which `resolve_route` picks from
 the configuration, L and whether the tensors are on the card, before any
 launch, as the JAX module picks them:
 - 'fused_block': `ops.mamba.mamba_inner`, K18. `fused_block='auto'` takes
   it where the scan kernel is on (`pallas_scan`, 'auto': on the card) and
   L and the segments fit `scan_chunk`, d_conv <= 8;
-- 'scan_kernel': the unfused chain (in_proj, conv, x_proj, dt_proj as
-  PyTorch ops) around `ops.mamba.ssm_scan`, K14, where the scan kernel is
-  on and the fused block is not taken;
+- 'scan_kernel_dtlr': with `dt_inkernel`, where the scan kernel is on, the
+  fused block is not taken and L is a multiple of `scan_chunk`: the
+  unfused chain (in_proj, conv, x_proj as PyTorch ops) around
+  `ops.mamba.ssm_scan_dtlr`, K16, which forms delta = softplus(dt_lr W_dt
+  + b_dt) inside the kernel from dt_proj's own weights;
+- 'scan_kernel': the unfused chain with dt_proj and softplus as PyTorch
+  ops around `ops.mamba.ssm_scan`, K14, where the scan kernel is on and
+  neither route above is taken;
 - 'plain_scan': the plain `selective_scan`, where the scan kernel is off.
 On the card a route whose kernel does not take the shape raises, naming
-what the kernel takes; it never hands the work to the plain version.
-K18/K19 take d_conv <= 4, d_state <= 16, dt_rank <= 32 and d_inner <=
-1024, K14/K15 d_state <= 16, where the TPU kernels take more. On CPU
-tensors the kernels' wrappers run their plain versions, so every route
+what the kernel takes (`ops.mamba.mamba_inner_takes`, `ssm_scan_takes`,
+`ssm_scan_dtlr_takes`); it never hands the work to the plain version. On
+CPU tensors the kernels' wrappers run their plain versions, so every route
 runs there. Gradients flow through every route: the kernels' autograd
-wrappers backpropagate through K19 (fused block) and K15 (scan kernel), the
-plain scan through PyTorch's autograd, and the tied in/out projections sum
-both directions' gradients. `train=True` applies dropout (rate
-`cfg.dropout`) to the mixer output before the gate, with masks from the
-`rng` generator, as the JAX block does. Not ported (they raise):
-`dt_inkernel` (K16), `sequence_axis` and `remat`.
+wrappers backpropagate through K19 (fused block), K17 (dt-lowrank) and K15
+(scan kernel), the plain scan through PyTorch's autograd, and the tied
+in/out projections sum both directions' gradients. `train=True` applies
+dropout (rate `cfg.dropout`) to the mixer output before the gate, with
+masks from the `rng` generator, as the JAX block does. The parameter tree
+is the same on every route. Not ported (they raise): `sequence_axis` and
+`remat`.
 """
 
 from __future__ import annotations
@@ -95,7 +100,6 @@ class DiMambaConfig:
 
     def __post_init__(self):
         unported = {
-            'dt_inkernel': 'K16 ssm_scan_dtlr (dt_proj inside the scan)',
             'sequence_axis': 'sequence parallelism (ROADMAP A.11)',
             'remat': 'block remat (ROADMAP A.10)',
         }
@@ -149,26 +153,12 @@ class LayerNorm(nn.Module):
             + self.bias
 
 
-def _scan_kernel(cfg: DiMambaConfig, on_card: bool) -> bool:
-    """cfg.pallas_scan ('auto': on the card, or True / False). On the card
-    the scan kernel, once chosen, must take the shape."""
-    use = cfg.pallas_scan is True or (cfg.pallas_scan == 'auto' and on_card)
-    if use and on_card and not mamba_ops.ssm_scan_takes(cfg.d_inner,
-                                                        cfg.d_state):
-        raise ValueError(
-            f'DiMamba: the scan kernel K14/K15 takes d_inner <= 1024 and '
-            f'd_state <= 16 on the card (got d_inner={cfg.d_inner}, '
-            f'd_state={cfg.d_state}); set pallas_scan=False for the plain '
-            'scan')
-    return use
-
-
 def resolve_route(cfg: DiMambaConfig, L: int, on_card: bool) -> str:
-    """The route of a direction, 'fused_block', 'scan_kernel' or
-    'plain_scan', from cfg.fused_block and cfg.pallas_scan ('auto' / True
-    / False) as the JAX module resolves them. fused_block=True raises where
-    the JAX constraints fail; on the card a route whose kernel does not
-    take the shape raises."""
+    """The route of a direction, 'fused_block', 'scan_kernel_dtlr',
+    'scan_kernel' or 'plain_scan', from cfg.fused_block, cfg.pallas_scan
+    ('auto' / True / False) and cfg.dt_inkernel as the JAX module resolves
+    them. fused_block=True raises where the JAX constraints fail; on the
+    card a route whose kernel does not take the shape raises."""
     jax_ok = (L % cfg.scan_chunk == 0
               and all(cfg.scan_chunk % s == 0 and cfg.scan_chunk // s >= 2
                       for s in (cfg.scan_seg, cfg.scan_seg_bwd))
@@ -177,26 +167,43 @@ def resolve_route(cfg: DiMambaConfig, L: int, on_card: bool) -> str:
              f'{cfg.scan_seg_bwd}, hidden={cfg.hidden_size}, '
              f'd_inner={cfg.d_inner}, d_state={cfg.d_state}, '
              f'dt_rank={cfg.dt_rank}, d_conv={cfg.d_conv}')
+    scan = cfg.pallas_scan is True or (cfg.pallas_scan == 'auto' and on_card)
     if cfg.fused_block is True:
         if not jax_ok:
             raise ValueError('fused_block=True but the kernel shape '
                              f'constraints do not hold ({shape})')
-        fused = True
+        route = 'fused_block'
+    elif (cfg.fused_block == 'auto' and scan
+          and cfg.scan_impl in ('pps2', 'pps3') and jax_ok):
+        route = 'fused_block'
+    elif not scan:
+        return 'plain_scan'
+    elif cfg.dt_inkernel and L % cfg.scan_chunk == 0:
+        route = 'scan_kernel_dtlr'
     else:
-        scan = _scan_kernel(cfg, on_card)
-        fused = (cfg.fused_block == 'auto' and scan
-                 and cfg.scan_impl in ('pps2', 'pps3') and jax_ok)
-    if fused:
-        if on_card and not mamba_ops.mamba_inner_takes(
-                cfg.hidden_size, cfg.d_inner, cfg.d_state, cfg.dt_rank,
-                cfg.d_conv, cfg.compute_dtype):
-            raise ValueError(
-                f'DiMamba: the fused block K18/K19 does not take {shape} on '
-                'the card (it takes hidden % 8 == 0, d_inner <= 1024, '
-                'd_state <= 16, dt_rank <= 32, d_conv <= 4); set '
-                'fused_block=False for the unfused route')
-        return 'fused_block'
-    return 'scan_kernel' if scan else 'plain_scan'
+        route = 'scan_kernel'
+    if not on_card:
+        return route
+    d, N, R, chunk = cfg.d_inner, cfg.d_state, cfg.dt_rank, cfg.scan_chunk
+    if route == 'fused_block' and not mamba_ops.mamba_inner_takes(
+            cfg.hidden_size, d, N, R, cfg.d_conv, cfg.compute_dtype, chunk):
+        raise ValueError(
+            f'DiMamba: the fused block K18/K19 does not take {shape} on the '
+            'card (it takes hidden % 8 == 0, dt_rank <= 64, d_conv <= 8 '
+            'and the d_inner and d_state of mamba_inner_takes); set '
+            'fused_block=False for the unfused route')
+    if route == 'scan_kernel_dtlr' and not mamba_ops.ssm_scan_dtlr_takes(
+            d, N, R, chunk):
+        raise ValueError(
+            f'DiMamba: the dt-lowrank scan K16/K17 does not take {shape} on '
+            'the card (dt_rank <= 64 and a d_state whose blocks fit in '
+            'shared memory, ssm_scan_dtlr_takes); set dt_inkernel=False')
+    if route == 'scan_kernel' and not mamba_ops.ssm_scan_takes(d, N, chunk):
+        raise ValueError(
+            f'DiMamba: the scan kernel K14/K15 does not take {shape} on the '
+            'card (a d_state whose blocks fit in shared memory, '
+            'ssm_scan_takes); set pallas_scan=False for the plain scan')
+    return route
 
 
 class MambaCore(nn.Module):
@@ -219,8 +226,10 @@ class MambaCore(nn.Module):
     def A(self):
         return -torch.exp(self.A_log)
 
-    def forward(self, x, z):
-        """The unfused chain on x, z (B, L, d_inner) in compute dtype."""
+    def forward(self, x, z, route: str):
+        """The unfused chain on x, z (B, L, d_inner) in compute dtype, its
+        scan by `route` ('scan_kernel_dtlr', 'scan_kernel' or
+        'plain_scan')."""
         cfg = self.cfg
         K = cfg.d_conv
         # Causal depthwise conv from the newest tap: x w_{K-1}, then the
@@ -236,8 +245,14 @@ class MambaCore(nn.Module):
         x_dbl = self.x_proj(x)
         R, N = cfg.dt_rank, cfg.d_state
         dt, B, C = x_dbl[..., :R], x_dbl[..., R:R + N], x_dbl[..., R + N:]
+        if route == 'scan_kernel_dtlr':
+            # dt_proj's weights (flax's (R, d) view) into the kernel, which
+            # forms delta itself; dt_lr in fp32, as JAX casts it.
+            return mamba_ops.ssm_scan_dtlr(
+                x, dt.float(), self.dt_proj.weight.t(), self.dt_proj.bias,
+                self.A(), B, C, self.D, z, chunk=cfg.scan_chunk)
         delta = mamba_ops.softplus(self.dt_proj(dt.float()))
-        if _scan_kernel(cfg, x.is_cuda):
+        if route == 'scan_kernel':
             return mamba_ops.ssm_scan(x, delta, self.A(), B, C, self.D, z,
                                       chunk=cfg.scan_chunk)
         return selective_scan(x, delta, self.A(), B, C, self.D, z,
@@ -264,9 +279,9 @@ class BiMambaWrapper(nn.Module):
                 f'`{cfg.bidirectional_strategy}` for bi-directionality not '
                 'implemented!')
 
-    def _direction(self, h, in_proj, core, out_proj, fused):
+    def _direction(self, h, in_proj, core, out_proj, route):
         cfg = self.cfg
-        if fused:
+        if route == 'fused_block':
             # Weights as flax's (in, out) views of the Linear weights: the
             # kernel reads them in place.
             return mamba_ops.mamba_inner(
@@ -276,20 +291,20 @@ class BiMambaWrapper(nn.Module):
                 d_state=cfg.d_state, dt_rank=cfg.dt_rank,
                 chunk=cfg.scan_chunk, compute_dtype=cfg.compute_dtype)
         x, z = in_proj(h).chunk(2, dim=-1)
-        return out_proj(core(x, z))
+        return out_proj(core(x, z, route))
 
     def forward(self, h):
         cfg = self.cfg
-        fused = resolve_route(cfg, h.shape[1], h.is_cuda) == 'fused_block'
+        route = resolve_route(cfg, h.shape[1], h.is_cuda)
         out = self._direction(h, self.in_proj_fwd, self.core_fwd,
-                              self.out_proj_fwd, fused)
+                              self.out_proj_fwd, route)
         if not cfg.bidirectional:
             return out
         tied = cfg.bidirectional_weight_tie
         out_r = self._direction(
             torch.flip(h, (1,)),
             self.in_proj_fwd if tied else self.in_proj_rev, self.core_rev,
-            self.out_proj_fwd if tied else self.out_proj_rev, fused)
+            self.out_proj_fwd if tied else self.out_proj_rev, route)
         out_r = torch.flip(out_r, (1,))
         if cfg.bidirectional_strategy == 'add':
             return out + out_r

@@ -1,6 +1,6 @@
 """The DiMamba kernels (port of `ddg_tpu/ops/selective_scan_pallas.py`'s
-forward and backward, K14 and K15, and `ddg_tpu/ops/mamba_block_pallas.py`'s,
-K18 and K19).
+forward and backward, K14 and K15, and their dt-lowrank variant, K16 and
+K17, and of `ddg_tpu/ops/mamba_block_pallas.py`'s, K18 and K19).
 
 `ssm_scan` (K14) is the gated selective scan, in fp32:
 
@@ -9,7 +9,10 @@ K18 and K19).
 
 with A round-tripped as -exp(log(-A)), as the TPU call hands its kernel
 log(-A); y is written in u's dtype. It also gives the entry state of each
-chunk of `chunk` rows, h0s (B, n_chunks, N, d) float32.
+chunk of `chunk` rows, h0s (B, n_chunks, N, d) float32. `ssm_scan_dtlr`
+(K16) is the same scan with delta = softplus(dt_lr @ W_dt + b_dt) formed
+inside the kernel from the low-rank dt_lr, so the (B, L, d) delta never
+reaches device memory; L must be a multiple of the chunk.
 
 `mamba_inner` (K18) is one direction of the fused Mamba block, with the
 rounding points of the TPU kernel's `_recompute_front` (compute dtype cd):
@@ -23,21 +26,26 @@ rounding points of the TPU kernel's `_recompute_front` (compute dtype cd):
     out   = (y @ W_out) rounded to cd
 
 The arguments follow the JAX functions (`mamba_inner_pallas`,
-`selective_scan_pallas`): weights in flax's (in, out) layout, A (d, N),
-conv_w (K, 1, d). The TPU schedule knobs (`seg`, `scan_impl`, tiles,
-`interpret`) have no counterpart. On CUDA tensors each call runs
-`csrc/mamba.cu` (K18: in_proj, conv + x_proj + dt_proj, the three scan
-passes and out_proj, six launches; K14: the three scan passes) and adds
-one to the wrapper's `launches`; on CPU tensors the plain versions below
-run instead.
+`selective_scan_pallas`, `selective_scan_pallas_dtlr`): weights in flax's
+(in, out) layout, A (d, N), conv_w (K, 1, d). The TPU schedule knobs
+(`seg`, `scan_impl`, tiles, `interpret`) have no counterpart. On CUDA
+tensors each call runs `csrc/mamba.cu` (K18: in_proj, conv + x_proj +
+dt_proj, the three scan passes and out_proj, six launches; K14 and K16:
+the three scan passes) and adds one to the wrapper's `launches`; on CPU
+tensors the plain versions below run instead. What the card takes is
+stated by `mamba_inner_takes`, `ssm_scan_takes` and `ssm_scan_dtlr_takes`
+(any d_state whose blocks fit in shared memory, dt_rank <= 64, d_conv <=
+8, and on the fused block a d_inner whose front tile fits).
 
-With gradients recorded, `ssm_scan` and `mamba_inner` run through
-autograd Functions that save the inputs and the chunk entry states h0s (as
-the TPU VJPs save (inputs, h0s)); their backwards are `ssm_scan_bwd` (K15)
-and `mamba_inner_bwd` (K19), `csrc/mamba_bwd.cu` on the card, each with its
-own `launches`. K19 recomputes the front from h by K18's own launches, so
-the forward keeps nothing but h and h0s. Under `torch.no_grad()` (sampling)
-the forwards run outside autograd and launch what they did before.
+With gradients recorded, `ssm_scan`, `ssm_scan_dtlr` and `mamba_inner` run
+through autograd Functions that save the inputs and the chunk entry states
+h0s (as the TPU VJPs save (inputs, h0s)); their backwards are
+`ssm_scan_bwd` (K15), `ssm_scan_dtlr_bwd` (K17) and `mamba_inner_bwd`
+(K19), `csrc/mamba_bwd.cu` on the card, each with its own `launches`. K19
+recomputes the front from h by K18's own launches, so the forward keeps
+nothing but h and h0s; K17 forms delta again from dt_lr. Under
+`torch.no_grad()` (sampling) the forwards run outside autograd and launch
+what they did before.
 """
 
 from __future__ import annotations
@@ -50,36 +58,93 @@ import torch.nn.functional as F
 from ddg_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# What the kernels hold in registers and shared memory.
-_MAX_STATE = 16
-_CONV_TAPS = 4                  # fewer taps are padded with leading zeros
-_MAX_RANK = 32
-_MAX_INNER = 1024
+# What the kernels hold in registers and shared memory (csrc/mamba.cuh;
+# `chip_smoke.py` holds `_SMEM`, `scan_smem` and `_front_tile` against the
+# built kernels' own sums, `ddg_smem_max`, `ddg_scan_smem`,
+# `ddg_scan_bwd_smem` and `ddg_front_tile`).
+_GROUP = 16                     # states a thread holds; more run in groups
+_MAX_RANK = 64                  # dt_rank: two register tiles of W_dt
+_TAPS = (4, 8)                  # conv taps built; fewer are padded with zeros
+_SMEM = 232448                  # shared memory a block can have
+
+
+def _n_pad(N: int) -> int:
+    return -(-N // _GROUP) * _GROUP
+
+
+def _round4(R: int) -> int:
+    return -(-R // 4) * 4
+
+
+def scan_smem(chunk: int, N: int, R: int = 0) -> int:
+    """Bytes of shared memory of the largest block of the scan's forward and
+    adjoint passes, as csrc's `scan_smem1/3` and `scan_bwd_smem1/3` count
+    them (R > 0: the low-rank form, K16 and K17): the chunk's B and C rows
+    padded to whole groups of 16 states, the staged segment, the forward
+    checkpoints, and past 16 states each row's running C.h sum."""
+    Np, lr = _n_pad(N), (_round4(R) if R else 0)
+    grp = N > _GROUP
+    low = 16 * lr + (lr + 1) * 64 if R else 0
+    staged = 5 * 16 * 64
+    return max(4 * chunk * (Np + lr),
+               4 * chunk * (2 * Np + lr + (128 if grp else 0)),
+               4 * (chunk * Np + staged + low),
+               4 * (2 * chunk * Np + 16 * 8 * 32 + staged
+                    + (chunk * 64 if grp else 0) + low)
+               + 16 * -(-chunk // 16) * 256)
+
+
+def _front_tile(d: int, R: int, esize: int) -> int:
+    """Rows of K18's front tile (csrc `front_tile`): 64, or the most
+    multiples of 16 whose u and dt_lr rows fit in shared memory; 0 if none
+    do."""
+    for t in (64, 48, 32, 16):
+        if esize * t * (d + 8) + 4 * t * _round4(R) <= _SMEM:
+            return t
+    return 0
 
 
 def mamba_inner_takes(H: int, d: int, N: int, R: int, K: int,
-                      compute_dtype) -> bool:
+                      compute_dtype, chunk: int = 128) -> bool:
     """Whether K18 and K19 take a block of hidden H, d_inner d, d_state
-    N, dt_rank R and d_conv K in `compute_dtype` on the card (d_conv < 4
-    through `pad_taps`)."""
+    N, dt_rank R, d_conv K and scan chunk `chunk` in `compute_dtype` on the
+    card: H % 8 == 0 and d % 8 (16 in bfloat16) == 0 for the products;
+    dt_rank <= 64 (W_dt's column in two register tiles of 32); d_conv <= 8
+    (built for 4 and 8 taps, `pad_taps`); a d_inner whose front tile of 16
+    rows of u fits in shared memory (up to 3560 in float32, 7120 in
+    bfloat16; dt_rank <= 64 already caps hidden at 1024, d_inner 2048 at
+    expand 2); d_state and chunk as `ssm_scan_takes`."""
+    esize = 2 if compute_dtype == torch.bfloat16 else 4
     return (compute_dtype in _DTYPES and H % 8 == 0
             and d % (16 if compute_dtype == torch.bfloat16 else 8) == 0
-            and d <= _MAX_INNER and 0 < N <= _MAX_STATE
-            and 0 < R <= _MAX_RANK and 0 < K <= _CONV_TAPS)
+            and 0 < R <= _MAX_RANK and 0 < K <= _TAPS[-1]
+            and _front_tile(d, R, esize) > 0
+            and ssm_scan_takes(d, N, chunk))
 
 
 def pad_taps(conv_w):
-    """conv_w (K, 1, d) with K < 4 as the 4-tap weight of the same conv:
-    leading zero taps, which add exact zeros to the sum before the first
-    real tap, so the output is bit-identical."""
+    """conv_w (K, 1, d) with K < 4 or 4 < K < 8 as the 4- or 8-tap weight
+    of the same conv: leading zero taps, which add exact zeros to the sum
+    before the first real tap, so the output is bit-identical."""
     K = conv_w.shape[0]
-    return F.pad(conv_w, (0, 0, 0, 0, _CONV_TAPS - K, 0)) if K < _CONV_TAPS \
-        else conv_w
+    taps = next((t for t in _TAPS if K <= t), K)
+    return F.pad(conv_w, (0, 0, 0, 0, taps - K, 0)) if K < taps else conv_w
 
 
-def ssm_scan_takes(d: int, N: int) -> bool:
-    """Whether K14 and K15 take d_inner d and d_state N on the card."""
-    return d <= _MAX_INNER and 0 < N <= _MAX_STATE
+def ssm_scan_takes(d: int, N: int, chunk: int = 128) -> bool:
+    """Whether K14 and K15 take d_inner d, d_state N and `chunk` on the
+    card: any d and N whose blocks' shared memory fits (`scan_smem`; at
+    chunk 128, d_state <= 112)."""
+    return d > 0 and N > 0 and chunk > 0 and scan_smem(chunk, N) <= _SMEM
+
+
+def ssm_scan_dtlr_takes(d: int, N: int, R: int, chunk: int = 128) -> bool:
+    """Whether K16 and K17 take d_inner d, d_state N, dt_rank R and `chunk`
+    on the card: dt_rank <= 64, and the blocks' shared memory with the
+    staged dt_lr rows and W_dt columns fits (`scan_smem`; at chunk 128,
+    d_state <= 96 with dt_rank 64)."""
+    return (d > 0 and N > 0 and chunk > 0 and 0 < R <= _MAX_RANK
+            and scan_smem(chunk, N, R) <= _SMEM)
 
 
 def softplus(x):
@@ -179,7 +244,7 @@ def ssm_scan(u, delta, A, B, C, D, z, *, chunk: int = 128,
     u, z: (Bt, L, d); delta: (Bt, L, d) float32; A: (d, N) (= -exp(A_log));
     B, C: (Bt, L, N); D: (d,). u, z, B and C share one dtype (float32 or
     bfloat16) and may be views with evenly spaced rows (slices of a wider
-    projection); on the card N <= 16 and d <= 1024. Returns y (Bt, L, d)
+    projection); on the card `ssm_scan_takes(d, N, chunk)`. Returns y (Bt, L, d)
     in u's dtype, and with `return_h0s` also the chunk entry states
     (Bt, ceil(L / chunk), N, d) float32."""
     if _needs_grad(u, delta, A, B, C, D, z):
@@ -209,9 +274,10 @@ def _ssm_scan_fwd(u, delta, A, B, C, D, z, *, chunk):
             or delta.shape != u.shape or B.shape != (Bt, L, N)
             or C.shape != B.shape):
         raise ValueError('ssm_scan: inconsistent shapes or layouts')
-    if not ssm_scan_takes(d, N) or chunk <= 0:
-        raise ValueError(f'ssm_scan: N={N} (<= {_MAX_STATE}), d={d} '
-                         f'(<= {_MAX_INNER}) and chunk > 0 on the card')
+    if not ssm_scan_takes(d, N, chunk):
+        raise ValueError(f'ssm_scan: d_state={N}, chunk={chunk} do not fit '
+                         'the kernel\'s shared memory on the card '
+                         '(ssm_scan_takes)')
     ld_bc = _row_stride(B, 'B')
     if _row_stride(C, 'C') != ld_bc:
         raise ValueError('B and C must share their row stride')
@@ -289,9 +355,9 @@ def mamba_inner(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out, *,
     scan's chunk entry states. On the card the weights are read in torch's
     (out, in) layout: pass W_in, W_x, W_dt and W_out as transposed views of
     contiguous Linear weights, or they are copied per call; H, d and the
-    row length of h must be multiples of 8 (16 for d in bfloat16),
-    d_state <= 16, dt_rank <= 32, d_conv <= 4 (fewer than 4 taps run as 4,
-    `pad_taps`, on every device). Differentiable in h and every weight
+    row length of h must be multiples of 8 (16 for d in bfloat16), and
+    the shape one `mamba_inner_takes` takes (d_conv 1-3 run as 4 taps and
+    5-7 as 8, `pad_taps`, on every device). Differentiable in h and every weight
     through K19 (`mamba_inner_bwd`); without gradients (sampling) the
     forward runs as it is, outside autograd."""
     kw = dict(d_state=d_state, dt_rank=dt_rank, chunk=chunk,
@@ -322,10 +388,10 @@ def _check_inner(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out, *,
         return
     if compute_dtype not in _DTYPES:
         raise ValueError('compute_dtype must be float32 or bfloat16')
-    if not mamba_inner_takes(H, d, N, R, K, compute_dtype):
+    if not mamba_inner_takes(H, d, N, R, K, compute_dtype, chunk):
         raise ValueError(f'mamba_inner: H={H}, d={d}, d_state={N}, '
-                         f'dt_rank={R} or d_conv={K} outside what the '
-                         'kernel takes')
+                         f'dt_rank={R}, d_conv={K} or chunk={chunk} outside '
+                         'what the kernel takes (mamba_inner_takes)')
 
 
 def _mamba_inner_fwd(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out,
@@ -345,7 +411,7 @@ def _mamba_inner_fwd(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out,
     hc = h.to(cd).contiguous()
     w_in = W_in.to(cd).t().contiguous()                  # (2d, H)
     w_x = W_x.to(cd).t().contiguous()                    # (R + 2N, d)
-    w_dt = W_dt.float().t().contiguous()                 # (d, R)
+    w_dt = W_dt.float().contiguous()                     # (R, d)
     w_out = W_out.to(cd).t().contiguous()                # (H, d)
     cw = conv_w.to(cd).reshape(K, d).contiguous()
     cb = conv_b.to(cd).contiguous()
@@ -638,9 +704,10 @@ def ssm_scan_bwd(u, delta, A, B, C, D, z, h0s, g, *, chunk: int = 128):
             or g.shape != u.shape or B.shape != (Bt, L, N)
             or C.shape != B.shape or tuple(h0s.shape) != (Bt, nc, N, d)):
         raise ValueError('ssm_scan_bwd: inconsistent shapes or layouts')
-    if not 0 < N <= _MAX_STATE or chunk <= 0:
-        raise ValueError(f'ssm_scan_bwd: N={N} (<= {_MAX_STATE}) and '
-                         'chunk > 0 on the card')
+    if not ssm_scan_takes(d, N, chunk):
+        raise ValueError(f'ssm_scan_bwd: d_state={N}, chunk={chunk} do not '
+                         'fit the kernel\'s shared memory on the card '
+                         '(ssm_scan_takes)')
     ld_bc = _row_stride(B, 'B')
     if _row_stride(C, 'C') != ld_bc:
         raise ValueError('B and C must share their row stride')
@@ -713,7 +780,7 @@ def mamba_inner_bwd(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out,
     w_x = W_x.to(cd).t().contiguous()                    # (nx, d)
     w_x_f = torch.zeros((d, nxp), dtype=cd, device=h.device)
     w_x_f[:, :nx] = W_x                                  # (d, nxp)
-    w_dt = W_dt.float().t().contiguous()                 # (d, R)
+    w_dt = W_dt.float().contiguous()                     # (R, d)
     w_out_f = W_out.to(cd).contiguous()                  # (d, H)
     cw = conv_w.to(cd).reshape(K, d).contiguous()
     cb = conv_b.to(cd).contiguous()
@@ -748,3 +815,213 @@ def mamba_inner_bwd(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out,
 
 
 mamba_inner_bwd.launches = 0
+
+
+# --- the dt-lowrank scan: K16 and K17 -------------------------------------------
+
+def _dtlr_grid(L: int, chunk: int):
+    if L % chunk:
+        raise ValueError(
+            f'dt-lowrank path requires chunk | L (got L={L}, chunk={chunk}); '
+            'use ssm_scan instead')
+
+
+def _delta_lr(dt_lr, W_dt, b_dt):
+    """(softplus(pre), pre), pre = dt_lr @ W_dt + b_dt in fp32."""
+    pre = dt_lr.float() @ W_dt.float() + b_dt.float()
+    return softplus(pre), pre
+
+
+def ssm_scan_dtlr_plain(u, dt_lr, W_dt, b_dt, A, B, C, D, z, *,
+                        chunk: int = 128, return_h0s: bool = False):
+    """Plain PyTorch version of `ssm_scan_dtlr`: `ssm_scan_plain` of
+    delta = softplus(dt_lr @ W_dt + b_dt), in fp32."""
+    _dtlr_grid(u.shape[1], chunk)
+    delta, _ = _delta_lr(dt_lr, W_dt, b_dt)
+    return ssm_scan_plain(u, delta, A, B, C, D, z, chunk=chunk,
+                          return_h0s=return_h0s)
+
+
+def ssm_scan_dtlr(u, dt_lr, W_dt, b_dt, A, B, C, D, z, *, chunk: int = 128,
+                  return_h0s: bool = False):
+    """Gated selective scan with dt_proj and softplus inside the kernel,
+    K16 (`selective_scan_pallas_dtlr`'s arguments): `ssm_scan` of delta =
+    softplus(dt_lr @ W_dt + b_dt), the (Bt, L, d) delta never in device
+    memory. Differentiable in its nine tensors through K17
+    (`ssm_scan_dtlr_bwd`); without gradients (sampling) the forward runs as
+    it is, outside autograd.
+
+    dt_lr: (Bt, L, R), cast to float32 as the JAX call casts it; W_dt:
+    (R, d); b_dt: (d,); the rest as `ssm_scan`. L must be a multiple of
+    `chunk` on every device (a padded tail would carry softplus(b_dt) > 0
+    into the state). On the card `ssm_scan_dtlr_takes(d, N, R, chunk)`.
+    Returns y (Bt, L, d) in u's dtype, and with `return_h0s` the chunk
+    entry states."""
+    _dtlr_grid(u.shape[1], chunk)
+    if _needs_grad(u, dt_lr, W_dt, b_dt, A, B, C, D, z):
+        y, h0s = _SsmScanDtlr.apply(u, dt_lr, W_dt, b_dt, A, B, C, D, z,
+                                    chunk)
+    else:
+        y, h0s = _ssm_scan_dtlr_fwd(u, dt_lr, W_dt, b_dt, A, B, C, D, z,
+                                    chunk=chunk)
+    return (y, h0s) if return_h0s else y
+
+
+def _dtlr_operands(u, dt_lr, W_dt, b_dt, A, B, C, D, z, chunk, name):
+    """Checks for the card and the operands in the kernels' layouts:
+    (dt_lr fp32 with its row stride, W_dt (R, d), b_dt, A, D fp32
+    contiguous, the B/C row stride)."""
+    Bt, L, d = u.shape
+    N, R = A.shape[1], dt_lr.shape[-1]
+    if u.dtype not in _DTYPES or any(t.dtype != u.dtype for t in (z, B, C)):
+        raise ValueError('u, z, B and C must share one dtype, float32 or '
+                         'bfloat16')
+    if (tuple(A.shape) != (d, N) or tuple(D.shape) != (d,)
+            or tuple(W_dt.shape) != (R, d) or tuple(b_dt.shape) != (d,)
+            or tuple(dt_lr.shape) != (Bt, L, R) or z.shape != u.shape
+            or B.shape != (Bt, L, N) or C.shape != B.shape):
+        raise ValueError(f'{name}: inconsistent shapes')
+    if not ssm_scan_dtlr_takes(d, N, R, chunk):
+        raise ValueError(f'{name}: d_state={N}, dt_rank={R}, chunk={chunk} '
+                         'outside what the kernel takes on the card '
+                         '(ssm_scan_dtlr_takes)')
+    lr = dt_lr.float()
+    ld_bc = _row_stride(B, 'B')
+    if _row_stride(C, 'C') != ld_bc:
+        raise ValueError('B and C must share their row stride')
+    return (lr, _row_stride(lr, 'dt_lr'), W_dt.float().contiguous(),
+            b_dt.float().contiguous(), A.float().contiguous(),
+            D.float().contiguous(), ld_bc)
+
+
+def _ssm_scan_dtlr_fwd(u, dt_lr, W_dt, b_dt, A, B, C, D, z, *, chunk):
+    """K16 (or its plain version on CPU tensors): (y, h0s)."""
+    if u.device.type == 'cpu':
+        return ssm_scan_dtlr_plain(u, dt_lr, W_dt, b_dt, A, B, C, D, z,
+                                   chunk=chunk, return_h0s=True)
+    _build.require_cuda(u, dt_lr, W_dt, b_dt, A, B, C, D, z,
+                        contiguous=False)
+    Bt, L, d = u.shape
+    N, R = A.shape[1], dt_lr.shape[-1]
+    lr, ld_lr, w_dt, b_dt, A, D, ld_bc = _dtlr_operands(
+        u, dt_lr, W_dt, b_dt, A, B, C, D, z, chunk, 'ssm_scan_dtlr')
+    y = torch.empty((Bt, L, d), dtype=u.dtype, device=u.device)
+    prod, end, h0s = _scan_buffers(u, d, N, chunk)
+    fn = _build.kernel('mamba', 'ddg_ssm_scan_dtlr',
+                       (_build.ptr, _build.i32, _build.ptr, _build.i32,
+                        _build.ptr, _build.ptr, _build.ptr, _build.ptr,
+                        _build.i32, _build.ptr, _build.i32)
+                       + (_build.ptr,) * 6 + (_build.i32,) * 7
+                       + (_build.ptr,))
+    rc = fn(u.data_ptr(), _row_stride(u, 'u'), lr.data_ptr(), ld_lr,
+            w_dt.data_ptr(), b_dt.data_ptr(), B.data_ptr(), C.data_ptr(),
+            ld_bc, z.data_ptr(), _row_stride(z, 'z'), A.data_ptr(),
+            D.data_ptr(), y.data_ptr(), prod.data_ptr(), end.data_ptr(),
+            h0s.data_ptr(), Bt, L, d, N, R, chunk, _DTYPES[u.dtype],
+            _build.stream(u))
+    ssm_scan_dtlr.launches += 1
+    _build.check(rc, 'ddg_ssm_scan_dtlr')
+    return y, h0s
+
+
+ssm_scan_dtlr.launches = 0
+
+
+def ssm_scan_dtlr_bwd_plain(u, dt_lr, W_dt, b_dt, A, B, C, D, z, h0s, g, *,
+                            chunk: int = 128):
+    """Plain PyTorch version of `ssm_scan_dtlr_bwd`: `ssm_scan_bwd_plain`
+    on delta = softplus(pre), then dt_proj's adjoint in fp32, written out
+    (dpre = ddelta sigmoid(pre), ddt_lr = dpre W_dt^T, dW_dt = dt_lr^T
+    dpre, db_dt = sum of dpre)."""
+    _dtlr_grid(u.shape[1], chunk)
+    delta, pre = _delta_lr(dt_lr, W_dt, b_dt)
+    du, ddt, dB, dC, dA_log, dz, dD = ssm_scan_bwd_plain(
+        u, delta, A, B, C, D, z, h0s, g, chunk=chunk)
+    dpre = ddt * torch.sigmoid(pre)
+    R, d = W_dt.shape
+    rows = dt_lr.float().reshape(-1, R)
+    dp = dpre.reshape(-1, d)
+    return (du, dpre @ W_dt.float().t(), rows.t() @ dp, dp.sum(0), dB, dC,
+            dA_log, dz, dD)
+
+
+def ssm_scan_dtlr_bwd(u, dt_lr, W_dt, b_dt, A, B, C, D, z, h0s, g, *,
+                      chunk: int = 128):
+    """Backward of `ssm_scan_dtlr`, K17 (`_ssm_scan_dtlr_bwd`'s outputs):
+    for the gradient g of y and the forward's chunk entry states h0s,
+    returns (du, ddt_lr, dW_dt, db_dt, dB, dC, dA_log, dz, dD): du, dB, dC
+    and dz in their inputs' dtypes, ddt_lr (Bt, L, R), dW_dt (R, d) and
+    db_dt float32, dA_log (N, d) the gradient of log(-A).T, dD (d,). On
+    CUDA tensors one call of `csrc/mamba_bwd.cu` (the scan's adjoint with
+    delta formed in the kernel, then dt_proj's adjoint over channel tiles
+    and the fixed-order sums of the partials; deterministic) and one
+    count."""
+    if u.device.type == 'cpu':
+        return ssm_scan_dtlr_bwd_plain(u, dt_lr, W_dt, b_dt, A, B, C, D, z,
+                                       h0s, g, chunk=chunk)
+    _dtlr_grid(u.shape[1], chunk)
+    _build.require_cuda(u, dt_lr, W_dt, b_dt, A, B, C, D, z, h0s, g,
+                        contiguous=False)
+    Bt, L, d = u.shape
+    N, R = A.shape[1], dt_lr.shape[-1]
+    lr, ld_lr, w_dt, b_dt, A32, D32, ld_bc = _dtlr_operands(
+        u, dt_lr, W_dt, b_dt, A, B, C, D, z, chunk, 'ssm_scan_dtlr_bwd')
+    if (h0s.dtype != torch.float32 or not h0s.is_contiguous()
+            or tuple(h0s.shape) != (Bt, L // chunk, N, d)
+            or g.shape != u.shape):
+        raise ValueError('ssm_scan_dtlr_bwd: h0s must be the forward\'s '
+                         f'(Bt, L / chunk, N, d) float32, got {h0s.shape}')
+    g = g.to(u.dtype).contiguous()
+    dev, f32 = u.device, torch.float32
+    du, dz = (torch.empty((Bt, L, d), dtype=f32, device=dev)
+              for _ in range(2))
+    dlr = torch.empty((Bt, L, R), dtype=f32, device=dev)
+    dW = torch.empty((R, d), dtype=f32, device=dev)
+    db, dD = (torch.empty((d,), dtype=f32, device=dev) for _ in range(2))
+    dB, dC = (torch.empty((Bt, L, N), dtype=f32, device=dev)
+              for _ in range(2))
+    dA_log = torch.empty((N, d), dtype=f32, device=dev)
+    ws = _workspace('ddg_ssm_scan_dtlr_bwd', dev, Bt, L, d, N, R, chunk)
+    fn = _build.kernel('mamba_bwd', 'ddg_ssm_scan_dtlr_bwd',
+                       (_build.ptr, _build.i32, _build.ptr, _build.i32,
+                        _build.ptr, _build.ptr, _build.ptr, _build.ptr,
+                        _build.i32, _build.ptr, _build.i32)
+                       + (_build.ptr,) * 14 + (_build.i32,) * 7
+                       + (_build.ptr,))
+    rc = fn(u.data_ptr(), _row_stride(u, 'u'), lr.data_ptr(), ld_lr,
+            w_dt.data_ptr(), b_dt.data_ptr(), B.data_ptr(), C.data_ptr(),
+            ld_bc, z.data_ptr(), _row_stride(z, 'z'), A32.data_ptr(),
+            D32.data_ptr(), h0s.data_ptr(), g.data_ptr(), du.data_ptr(),
+            dlr.data_ptr(), dW.data_ptr(), db.data_ptr(), dz.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), dA_log.data_ptr(), dD.data_ptr(),
+            ws.data_ptr(), Bt, L, d, N, R, chunk, _DTYPES[u.dtype],
+            _build.stream(u))
+    ssm_scan_dtlr_bwd.launches += 1
+    _build.check(rc, 'ddg_ssm_scan_dtlr_bwd')
+    return (du.to(u.dtype), dlr, dW, db, dB.to(B.dtype), dC.to(C.dtype),
+            dA_log, dz.to(z.dtype), dD)
+
+
+ssm_scan_dtlr_bwd.launches = 0
+
+
+class _SsmScanDtlr(torch.autograd.Function):
+    """Saves (u, dt_lr, W_dt, b_dt, A, B, C, z, D, h0s), as the TPU VJP
+    `_ssm_scan_dtlr_fwd` saves them; delta is never saved."""
+
+    @staticmethod
+    def forward(ctx, u, dt_lr, W_dt, b_dt, A, B, C, D, z, chunk):
+        y, h0s = _ssm_scan_dtlr_fwd(u, dt_lr, W_dt, b_dt, A, B, C, D, z,
+                                    chunk=chunk)
+        ctx.save_for_backward(u, dt_lr, W_dt, b_dt, A, B, C, z, D, h0s)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(h0s)
+        return y, h0s
+
+    @staticmethod
+    def backward(ctx, g, _):
+        u, dt_lr, W_dt, b_dt, A, B, C, z, D, h0s = ctx.saved_tensors
+        du, dlr, dW, db, dB, dC, dA_log, dz, dD = ssm_scan_dtlr_bwd(
+            u, dt_lr, W_dt, b_dt, A, B, C, D, z, h0s, g, chunk=ctx.chunk)
+        return (du, dlr.to(dt_lr.dtype), dW.to(W_dt.dtype),
+                db.to(b_dt.dtype), _grad_A(dA_log, A), dB, dC, dD, dz, None)

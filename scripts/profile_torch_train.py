@@ -2,9 +2,8 @@
 """Where the time of `ddg_tpu_torch`'s training step goes on one CUDA card.
 
     python3 scripts/profile_torch_train.py [--model dit|dimamba|text8|both]
-                                           [--route fused_rope|short_seq]
-                                           [--sweep] [--steps 2]
-                                           [--trace-dir DIR]
+                                           [--route ROUTE] [--sweep]
+                                           [--steps 2] [--trace-dir DIR]
 
 For each model, builds its training run, warms it up, times `--steps`
 steps unprofiled and one step under `torch.profiler`, and prints one JSON
@@ -22,11 +21,15 @@ share, device ms per step by group and the largest kernels by name.
   tokens/s and peak memory (or the out-of-memory error), then a line
   naming the fastest micro-batch whose peak stays under half the card.
 - dimamba: `entry.dimamba_train_flagship` (Species10 DiMamba UDLM, global
-  batch 32 x 32768). The step runs with profiler ranges around K18, K19,
-  K14 and K15 calls, the loss's forward and the backward, and a kernel on
-  the card is charged to the innermost range it ran in: K18 and K19 (the
-  latter by kernel), the trunk's forward and backward work outside them,
-  the optimizer/clip/EMA (foreach kernels) and the rest.
+  batch 32 x 32768) on `--route` ('fused_block', the default, or
+  'dt_lowrank', the unfused chain around K16/K17). The step runs with
+  profiler ranges around K14-K19 calls, the loss's forward and the
+  backward, and a kernel on the card is charged to the innermost range it
+  ran in: K14-K18 and K19 (the latter by kernel), the trunk's forward and
+  backward work outside them, the optimizer/clip/EMA (foreach kernels) and
+  the rest. With `--sweep`, first a sweep of the micro-batches dividing 32
+  (1 to 16) as text8's, whose choice line also names the largest
+  micro-batch peaking under half the card (the DiMamba runs' rule).
 
 With --trace-dir the Chrome traces are written there.
 """
@@ -98,17 +101,56 @@ def _text8_run(args):
     return text8_train_flagship(device='cuda', route=args.route)
 
 
+def _dimamba_run(args):
+    from ddg_tpu_torch.entry import dimamba_train_flagship
+    return dimamba_train_flagship(device='cuda', route=args.route)
+
+
 def sweep_text8(args, micros=(16, 32, 64, 128, 256, 512)):
     """The text8 run at each micro-batch: ms/step, tokens/s, peak memory."""
     from ddg_tpu_torch import entry
-    half = torch.cuda.get_device_properties(0).total_memory / 2
-    rows, default = [], entry.TEXT8_TRAIN_MICRO_BATCH
-    for micro in micros:
+    default = entry.TEXT8_TRAIN_MICRO_BATCH
+
+    def build(micro):
         entry.TEXT8_TRAIN_MICRO_BATCH = micro
-        rec = {'run': 'text8_micro_batch_sweep', 'route': args.route,
+        return _text8_run(args)
+
+    try:
+        sweep('text8', args, build, micros, default)
+    finally:
+        entry.TEXT8_TRAIN_MICRO_BATCH = default
+
+
+def sweep_dimamba(args, micros=(1, 2, 4, 8, 16)):
+    """The Species10 run on `--route` at each micro-batch dividing 32."""
+    from ddg_tpu_torch import entry
+    name = ('DIMAMBA_TRAIN_MICRO_BATCH' if args.route == 'fused_block'
+            else 'DIMAMBA_DTLR_TRAIN_MICRO_BATCH')
+    default = getattr(entry, name)
+
+    def build(micro):
+        setattr(entry, name, micro)
+        return _dimamba_run(args)
+
+    try:
+        sweep('dimamba', args, build, micros, default)
+    finally:
+        setattr(entry, name, default)
+
+
+def sweep(model, args, build, micros, default):
+    """`build(micro)`'s run at each micro-batch: one warm-up and
+    `--steps` timed steps, ms/step, tokens/s and peak memory (or the
+    out-of-memory error); then the fastest micro-batch and the largest
+    whose step peaks under half the card."""
+    half = torch.cuda.get_device_properties(0).total_memory / 2
+    rows = []
+    for micro in micros:
+        rec = {'run': f'{model}_micro_batch_sweep', 'route': args.route,
                'micro_batch': micro}
+        run = batch = None
         try:
-            run = _text8_run(args)
+            run = build(micro)
             batch = run.batch(torch.Generator(device='cuda').manual_seed(0))
             run.step(run.state, batch)
             torch.cuda.synchronize()
@@ -127,12 +169,13 @@ def sweep_text8(args, micros=(16, 32, 64, 128, 256, 512)):
         torch.cuda.empty_cache()
         rows.append(rec)
         print(json.dumps(rec), flush=True)
-    entry.TEXT8_TRAIN_MICRO_BATCH = default
     fits = [r for r in rows if r.get('peak_memory_bytes', half) < half]
     best = min(fits, key=lambda r: r['ms_per_step']) if fits else None
-    print(json.dumps({'run': 'text8_micro_batch_choice',
-                      'under_bytes': half,
+    print(json.dumps({'run': f'{model}_micro_batch_choice',
+                      'route': args.route, 'under_bytes': half,
                       'micro_batch': best and best['micro_batch'],
+                      'largest_under_half': max(
+                          (r['micro_batch'] for r in fits), default=None),
                       'entry_default': default}), flush=True)
 
 
@@ -207,7 +250,7 @@ def profile_dit(args, build=None):
 
 
 # Profiler ranges of the DiMamba step, innermost first.
-RANGES = ('K19', 'K18', 'K15', 'K14', 'forward', 'backward')
+RANGES = ('K19', 'K18', 'K17', 'K16', 'K15', 'K14', 'forward', 'backward')
 
 
 def _ranged(name, fn):
@@ -228,6 +271,8 @@ def _step_ranges():
                (mamba, 'mamba_inner_bwd', 'K19'),
                (mamba, '_ssm_scan_fwd', 'K14'),
                (mamba, 'ssm_scan_bwd', 'K15'),
+               (mamba, '_ssm_scan_dtlr_fwd', 'K16'),
+               (mamba, 'ssm_scan_dtlr_bwd', 'K17'),
                (train_state, 'loss_fn', 'forward'),
                (torch.autograd, 'grad', 'backward')]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
@@ -248,15 +293,15 @@ def _short(name):
 
 
 def profile_dimamba(args):
-    from ddg_tpu_torch.entry import dimamba_train_flagship
-    run = dimamba_train_flagship(device='cuda')
+    run = _dimamba_run(args)
     batch = run.batch(torch.Generator(device='cuda').manual_seed(0))
 
     def step():
         run.step(run.state, batch)
 
     print(json.dumps({'device': torch.cuda.get_device_name(0),
-                      'model': 'dimamba', 'micro_batch': run.micro_batch,
+                      'model': 'dimamba', 'route': args.route,
+                      'micro_batch': run.micro_batch,
                       'accum_steps': run.accum_steps}), flush=True)
     step()
     torch.cuda.synchronize()
@@ -283,8 +328,10 @@ def profile_dimamba(args):
     spans = {r: [(e['ts'], e['ts'] + e['dur']) for e in events
                  if e.get('cat') == 'gpu_user_annotation'
                  and e.get('name') == r] for r in RANGES}
-    if not spans['K19']:
-        raise RuntimeError('the trace holds no device span of the K19 range')
+    core = 'K19' if args.route == 'fused_block' else 'K17'
+    if not spans[core]:
+        raise RuntimeError(f'the trace holds no device span of the {core} '
+                           'range')
 
     def range_of(e):
         t = e['ts'] + e['dur'] / 2
@@ -298,7 +345,7 @@ def profile_dimamba(args):
         r = range_of(e)
         if r == 'K19':
             g = f'K19 {_short(e["name"])}'
-        elif r in ('K18', 'K15', 'K14'):
+        elif r in ('K18', 'K17', 'K16', 'K15', 'K14'):
             g = r
         elif 'multi_tensor_apply' in e['name']:
             g = 'optimizer/clip/EMA (foreach)'
@@ -331,16 +378,20 @@ def main():
     ap.add_argument('--model', choices=('dit', 'dimamba', 'text8', 'both'),
                     default='both',
                     help='which training run (default both: dit, dimamba)')
-    ap.add_argument('--route', choices=('fused_rope', 'short_seq'),
-                    default='fused_rope',
-                    help="the text8 run's attention route")
+    ap.add_argument('--route', default=None,
+                    choices=('fused_rope', 'short_seq', 'fused_block',
+                             'dt_lowrank'),
+                    help="text8's attention route (default fused_rope) or "
+                         "the DiMamba's mixer route (default fused_block)")
     ap.add_argument('--sweep', action='store_true',
-                    help='text8: sweep the micro-batch first')
+                    help='text8, dimamba: sweep the micro-batch first')
     ap.add_argument('--steps', type=int, default=2,
                     help='unprofiled steps to time (default 2)')
     ap.add_argument('--trace-dir', default=None,
                     help='write the Chrome traces here')
     args = ap.parse_args()
+    if args.route is None:
+        args.route = 'fused_rope' if args.model == 'text8' else 'fused_block'
     if not torch.cuda.is_available():
         print('no CUDA device is visible', file=sys.stderr)
         return 1
@@ -350,6 +401,8 @@ def main():
         profile_dit(args)
         torch.cuda.empty_cache()
     if args.model in ('dimamba', 'both'):
+        if args.sweep and args.model == 'dimamba':
+            sweep_dimamba(args)
         profile_dimamba(args)
     if args.model == 'text8':
         if args.sweep:

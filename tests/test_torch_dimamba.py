@@ -248,9 +248,10 @@ def test_sampling_loop_gives_dna_tokens(fused, guided, monkeypatch):
 
 
 def test_unported_settings_raise():
-    for name in ('dt_inkernel', 'remat'):
+    for name in ('remat',):
         with pytest.raises(NotImplementedError):
             DiMambaConfig(**{name: True})
+    assert DiMambaConfig(dt_inkernel=True).dt_inkernel    # ported (K16)
     with pytest.raises(NotImplementedError):
         DiMambaConfig(sequence_axis='tensor')
     with pytest.raises(ValueError, match='interpret'):
@@ -263,61 +264,78 @@ def test_unported_settings_raise():
 
 
 # d_conv, d_state -> the route 'auto' takes on the card, as the JAX module
-# takes it on the TPU (the fused block: L on the chunk grid, d_conv <= 8),
-# or None where the port's kernels do not take what the TPU kernels do:
-# K18/K19 take d_conv <= 4 (3 as 4 with a zero tap) and d_state <= 16,
-# K14/K15 d_state <= 16.
+# takes it on the TPU (the fused block: L on the chunk grid, d_conv <= 8).
+# K18/K19 take d_conv 3 (as 4 with a zero tap) and d_state 32 (two groups
+# of 16 states) on the card, as the TPU kernels do.
 AUTO_ROUTES = [(4, 16, 'fused_block'), (3, 16, 'fused_block'),
-               (4, 32, None), (3, 32, None)]
+               (4, 32, 'fused_block'), (3, 32, 'fused_block')]
 
 
 @pytest.mark.parametrize('d_conv,d_state,want', AUTO_ROUTES)
 def test_auto_route_follows_the_kernels_limits(d_conv, d_state, want):
     """The resolution is a pure function of (cfg, L, on_card): 'auto'
-    follows the JAX module's choice, and on the card a shape the chosen
-    kernel does not take raises rather than run the plain scan there; off
-    the card 'auto' is the plain scan. An explicit True on a refused shape
-    raises on the card and runs the plain version on the CPU."""
+    follows the JAX module's choice, off the card 'auto' is the plain
+    scan, and on the card a shape the chosen kernel does not take raises
+    rather than run the plain scan there. `dt_inkernel` takes the
+    dt-lowrank scan where the JAX module takes it: never in place of the
+    fused block, and the dense scan kernel where L is off the chunk grid."""
     cfg = DiMambaConfig(**dict(SMALL, d_conv=d_conv, d_state=d_state))
-    if want is None:
-        with pytest.raises(ValueError, match='K14/K15'):
-            resolve_route(cfg, L, on_card=True)
-    else:
-        assert resolve_route(cfg, L, on_card=True) == want
+    assert resolve_route(cfg, L, on_card=True) == want
     assert resolve_route(cfg, L, on_card=False) == 'plain_scan'
     # L off the chunk grid: the scan kernel, as in JAX.
-    if d_state > 16:
-        with pytest.raises(ValueError, match='K14/K15'):
-            resolve_route(cfg, L - 1, on_card=True)
-    else:
-        assert resolve_route(cfg, L - 1, on_card=True) == 'scan_kernel'
+    assert resolve_route(cfg, L - 1, on_card=True) == 'scan_kernel'
     fused = dataclasses.replace(cfg, fused_block=True)
-    assert resolve_route(fused, L, on_card=False) == 'fused_block'
-    if want == 'fused_block':
-        assert resolve_route(fused, L, on_card=True) == 'fused_block'
-    else:
-        with pytest.raises(ValueError, match='K18/K19'):
-            resolve_route(fused, L, on_card=True)
+    for on_card in (False, True):
+        assert resolve_route(fused, L, on_card=on_card) == 'fused_block'
     scan = dataclasses.replace(cfg, fused_block=False, pallas_scan=True)
-    assert resolve_route(scan, L, on_card=False) == 'scan_kernel'
-    if d_state > 16:
-        with pytest.raises(ValueError, match='K14/K15'):
-            resolve_route(scan, L, on_card=True)
-    else:
-        assert resolve_route(scan, L, on_card=True) == 'scan_kernel'
+    for on_card in (False, True):
+        assert resolve_route(scan, L, on_card=on_card) == 'scan_kernel'
     plain = dataclasses.replace(cfg, pallas_scan=False)
     assert resolve_route(plain, L, on_card=True) == 'plain_scan'
-    # d_conv 5 the TPU's fused block takes, K18/K19 not: the card raises.
-    five = dataclasses.replace(cfg, d_conv=5, d_state=16)
+    # dt_inkernel: the fused block still wins where 'auto' takes it.
+    dtlr = dataclasses.replace(cfg, dt_inkernel=True)
+    assert resolve_route(dtlr, L, on_card=True) == 'fused_block'
+    assert resolve_route(dtlr, L, on_card=False) == 'plain_scan'
+    unfused = dataclasses.replace(dtlr, fused_block=False)
+    assert resolve_route(unfused, L, on_card=True) == 'scan_kernel_dtlr'
+    assert resolve_route(unfused, L - 1, on_card=True) == 'scan_kernel'
+    assert resolve_route(dataclasses.replace(unfused, pallas_scan=True), L,
+                         on_card=False) == 'scan_kernel_dtlr'
+    assert resolve_route(dataclasses.replace(unfused, pallas_scan=False), L,
+                         on_card=True) == 'plain_scan'
+    # d_conv 5-8 take the fused block on the card as on the TPU; 9 fails
+    # the JAX constraint and takes the scan kernel.
+    for taps in (5, 8):
+        assert resolve_route(dataclasses.replace(cfg, d_conv=taps), L,
+                             on_card=True) == 'fused_block'
+    assert resolve_route(dataclasses.replace(cfg, d_conv=9), L,
+                         on_card=True) == 'scan_kernel'
+    # What the card's kernels still refuse raises, naming the kernel: a
+    # d_state whose blocks overflow shared memory, and dt_rank 65 (> 64) at
+    # hidden 1040.
+    big = dataclasses.replace(cfg, d_state=128)
     with pytest.raises(ValueError, match='K18/K19'):
-        resolve_route(five, L, on_card=True)
-    assert resolve_route(dataclasses.replace(five, fused_block=False), L,
+        resolve_route(big, L, on_card=True)
+    with pytest.raises(ValueError, match='K14/K15'):
+        resolve_route(dataclasses.replace(big, fused_block=False), L,
+                      on_card=True)
+    with pytest.raises(ValueError, match='K16/K17'):
+        resolve_route(dataclasses.replace(big, fused_block=False,
+                                          dt_inkernel=True), L, on_card=True)
+    wide = dataclasses.replace(cfg, hidden_size=1040)
+    with pytest.raises(ValueError, match='K18/K19'):
+        resolve_route(wide, L, on_card=True)
+    with pytest.raises(ValueError, match='K16/K17'):
+        resolve_route(dataclasses.replace(wide, fused_block=False,
+                                          dt_inkernel=True), L, on_card=True)
+    assert resolve_route(dataclasses.replace(wide, fused_block=False), L,
                          on_card=True) == 'scan_kernel'
 
 
 def test_auto_route_on_a_refused_shape_runs_on_the_cpu():
-    """A model whose shape the card's kernels refuse (d_conv 3, d_state 32)
-    builds and runs with the default 'auto' flags."""
+    """A model of a shape past the Species10 one (d_conv 3, d_state 32),
+    which the card's widened kernels take, builds and runs on the CPU with
+    the default 'auto' flags (the plain scan there)."""
     cfg = DiMambaConfig(**dict(SMALL, d_conv=3, d_state=32,
                                compute_dtype=torch.float32))
     m = DiMamba(cfg).eval()

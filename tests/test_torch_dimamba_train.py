@@ -189,7 +189,7 @@ def test_dimamba_train_flagship_tiny_runs_on_the_cpu():
 
 
 def test_unported_training_settings_still_raise():
-    for name in ('dt_inkernel', 'remat'):
+    for name in ('remat',):
         with pytest.raises(NotImplementedError):
             DiMambaConfig(**{name: True})
 
