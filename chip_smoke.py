@@ -19,7 +19,13 @@ Each phase prints one JSON line:
      function; the adaLN backwards and the GroupNorm also run twice and
      must give bit-identical outputs; the sampling kernels' in-kernel
      Philox noise is held against the exact distribution by TV;
-  5. a tiny DiT on the card against the same weights on the CPU, a tiny
+  5. a tiny DiT on the card against the same weights on the CPU (also
+     under `quant_int8`: each int8 layer bit for bit on the same input,
+     the logits to 1e-3 where no head code flips, and the head-fused
+     unguided step, K11 and K12, against the unfused chain under one
+     Gumbel), the int8 distribution check of
+     `scripts/validate_quant_tpu.py` (TV of the bf16 and int8 posteriors
+     under the N=4000 binomial floor), a tiny
      float32 train step (loss, every gradient, and the parameters after
      one clip + AdamW + EMA update) card against CPU, and a tiny float32
      UNet (logits and one fused D-CFG step given the same Gumbel noise)
@@ -27,8 +33,13 @@ Each phase prints one JSON line:
   6. the serving main path at full width: the flagship DiT-small (seeded
      random weights) serving ancestral D-CFG (gamma=2, B=24) through the
      feature-mix path at T=1000, the same with the NFE cache (the CFG
-     kernel) at T=128, and first-hitting D-CFG (B=32); samples/s, ms/step,
-     host syncs and kernel launches per run;
+     kernel) at T=128, and first-hitting D-CFG (B=32); then the JAX
+     bench's head-fused and int8 lines: feature-mix with `fused_head` (1
+     K11 a step) on the bf16 and the int8 flagship (1 K12 a step), the int8
+     flagship without it (`ancestral_int8`: 1 K7 a step) and first-hitting
+     on it (`first_hitting_int8`), with exact launches (K1, K3, K5 12 a
+     forward); samples/s, ms/step, peak memory, host syncs and kernel
+     launches per run;
   7. the training main path at full width: `entry.train_flagship()` (LM1B
      DiT-small MDLM, global batch 512 x 128 as micro-batches), warm-up
      steps, then timed steps: tokens/s, ms/step, peak memory, loss, grad
@@ -86,6 +97,13 @@ The serving path (6) runs feature-mix at T=1000 (the JAX bench's line) and
 records each run under PyTorch's sync debug mode: no host sync in
 feature-mix and first-hitting, exactly one a step in the NFE cache (its
 validity flag).
+Phase 4 also holds K11 (bf16, fp32) and K12 against their plain versions
+at 24 x 128 x 768 x V=30523 and a ragged case (V=1000, the mask in a
+non-final tile, L=32): tokens under an external Gumbel, the logits the
+kernel forms (K12's bit for bit with `int8_dense`), the in-kernel noise
+against fp32 logits + K7 with the same seed (their Philox draws rebuilt in
+PyTorch where the two disagree), identical reruns; timed beside the
+composite of the unfused path.
 Phase 4 holds K1, K2 and their backwards at L=128 and L=256 (the text8
 micro-batch), requires the tensor-core path of the bf16 forwards, and
 reruns the backwards for bit-identical outputs. It also holds K18 and K14
@@ -459,9 +477,11 @@ def _sample_inputs(gen, dtype, n_logits):
     return logits, xt, mct, mcs
 
 
-def _token_check(name, out, ref, scores, xt):
+def _token_check(name, out, ref, scores, xt, vocab=None):
     """Identical tokens where the top-two perturbed scores differ by more
-    than MARGIN; decoded positions copied over exactly."""
+    than MARGIN; decoded positions copied over exactly; every token below
+    `vocab` (default V)."""
+    vocab = vocab or V
     top2 = scores.topk(2, dim=-1).values
     decided = (top2[..., 0] - top2[..., 1]) > MARGIN
     masked = xt == MASK
@@ -470,7 +490,8 @@ def _token_check(name, out, ref, scores, xt):
                     f'{MARGIN}')
     check(torch.equal(out[~masked], xt[~masked]),
           f'{name}: decoded tokens not copied over')
-    check(bool(((out >= 0) & (out < V)).all()), f'{name}: token outside V')
+    check(bool(((out >= 0) & (out < vocab)).all()),
+          f'{name}: token outside V')
     return int(decided[masked].sum().item())
 
 
@@ -647,6 +668,263 @@ def check_sampling(results):
         results['fused_absorbing_cfg_sample'][str(dtype)] = rec_c
     _tie_check(fs)
     return _tv_check(fs)
+
+
+# ---------------------------------------------------------------------------
+# K11 and K12: the head-fused absorbing step
+# ---------------------------------------------------------------------------
+
+PEAK_INT8_TENSOR = 1979e12       # dense int8 tensor-core OP/s
+TILE_V = 2048                    # the JAX kernel's vocab tile: Vp = 30720
+
+
+def _philox_gumbel(seed, b, l, v):
+    """K7's in-kernel Gumbel draws at the given (b, l, v) int64 tensors
+    (any shape), rebuilt in PyTorch: Philox4x32-10 keyed on (seed, 0),
+    counter (v / 4, l, b, 0), word v % 4, g = -log(-log(top24 / 2^24 +
+    1e-10)). Used where two samplers disagree, to read the gap of the
+    perturbed scores there."""
+    c = _philox4x32_10([v >> 2, l, b, torch.zeros_like(v)], int(seed), 0)
+    word = torch.stack(c, -1).gather(-1, (v & 3)[..., None])[..., 0]
+    u = (word >> 8).float() * (1.0 / 16777216.0) + 1e-10
+    return -torch.log(-torch.log(u))
+
+
+def _philox4x32_10(c, k0, k1):
+    """Philox4x32-10 on int64 tensors holding 32-bit words (counter c, a
+    list of four; key k0, k1), as `csrc/common.cuh` runs it."""
+    M32 = 0xFFFFFFFF
+
+    def mulhilo(a, m):
+        ah, al, mh, ml = a >> 16, a & 0xFFFF, m >> 16, m & 0xFFFF
+        mid = ah * ml + al * mh
+        lo = al * ml + ((mid & 0xFFFF) << 16)
+        return (ah * mh + (mid >> 16) + (lo >> 32)) & M32, lo & M32
+
+    k0, k1 = k0 & M32, k1 & M32
+    for _ in range(10):
+        hi0, lo0 = mulhilo(c[0], 0xD2511F53)
+        hi1, lo1 = mulhilo(c[2], 0xCD9E8D57)
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+        k0, k1 = (k0 + 0x9E3779B9) & M32, (k1 + 0xBB67AE85) & M32
+    return c
+
+
+def _check_philox_mirror(fs):
+    """`_philox_gumbel` against K7's own draws: with zero logits K7 picks
+    the argmax of the Gumbel noise over the non-mask channels."""
+    Bt, Lt, Vt = 2, 8, 64
+    xt = torch.full((Bt, Lt), Vt - 1, dtype=torch.int32, device=DEV)
+    mct = torch.full((Bt,), 0.9, device=DEV)
+    mcs = torch.full((Bt,), 1e-30, device=DEV)
+    out = fs.fused_absorbing_sample(
+        777, xt, torch.zeros((Bt, Lt, Vt), device=DEV), mct, mcs,
+        mask_index=Vt - 1)
+    b, l, v = torch.meshgrid(*(torch.arange(n, device=DEV)
+                               for n in (Bt, Lt, Vt)), indexing='ij')
+    g = _philox_gumbel(777, b, l, v)
+    g[..., Vt - 1] = -math.inf
+    check(torch.equal(out.long(), g.argmax(-1)),
+          'the PyTorch mirror of the kernels\' Philox draws disagrees with '
+          'K7')
+
+
+def _rng_gap_check(name, got, ref, z, xt, mct, mcs, seed):
+    """Tokens of two samplers with the same in-kernel noise (`got`, `ref`)
+    are equal wherever the top-two perturbed scores of the fp32 logits z
+    differ by more than MARGIN: at every masked token where they differ,
+    the two tokens' scores (K7's, with the Philox noise rebuilt) must lie
+    within MARGIN. Returns the number of such near-ties."""
+    masked = xt == MASK
+    check(torch.equal(got[~masked], xt[~masked]),
+          f'{name}: decoded tokens not copied over')
+    diff = (got != ref) & masked
+    n = int(diff.sum().item())
+    if n == 0:
+        return 0
+    check(n <= max(4, masked.sum().item() // 1000),
+          f'{name}: {n} tokens differ from the composite')
+    bi, li = diff.nonzero(as_tuple=True)
+    V = z.shape[-1]
+    zm = z[bi, li].double()
+    zm[:, MASK] = -math.inf
+    lse = torch.logsumexp(zm, -1)
+    log_move = torch.log((mct - mcs)[bi].double())
+    log_stay = torch.log(mcs[bi].double())
+    gaps = []
+    for v in (got[bi, li].long(), ref[bi, li].long()):
+        g = _philox_gumbel(seed, bi, li, v).double()
+        zv = zm.gather(-1, v[:, None])[:, 0]
+        gaps.append(torch.where(v == MASK, log_stay, zv - lse + log_move)
+                    + g)
+    worst = (gaps[0] - gaps[1]).abs().max().item()
+    check(worst <= MARGIN, f'{name}: tokens differ from the composite '
+                           f'where the scores differ by {worst}')
+    return n
+
+
+def _head_inputs(gen, Bt, Lt, Vt, mask, tile_v, dtype):
+    """Features (Bt, Lt, D), the head prepared for K11 (dtype) or K12
+    (int8), xt with 70% masked, move chances and JAX-layout Gumbel."""
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    feats = _rand(gen, Bt, Lt, D)
+    weight = _rand(gen, Vt, D, scale=0.05)
+    bias = _rand(gen, Vt, scale=0.5)
+    if dtype == torch.int8:
+        head = fs.quantize_head_weights(weight, bias, tile_v=tile_v)
+        fin = fs.quantize_head_inputs(feats)
+    else:
+        head = fs.pad_head_weights(weight.to(dtype), bias, tile_v=tile_v)
+        fin = (feats.to(dtype),)
+    x0 = torch.randint(0, Vt, (Bt, Lt), generator=gen, device=DEV,
+                       dtype=torch.int32)
+    x0 = torch.where(x0 == mask, (x0 + 1) % Vt, x0)
+    xt = torch.where(torch.rand((Bt, Lt), generator=gen, device=DEV) < 0.7,
+                     torch.full_like(x0, mask), x0)
+    mct = 0.4 + 0.5 * torch.rand((Bt,), generator=gen, device=DEV)
+    mcs = 0.6 * mct
+    Vp = head[0].shape[0]
+    g = -torch.log(-torch.log(torch.rand((Bt, Vp, Lt), generator=gen,
+                                         device=DEV).clamp_min(1e-20)))
+    return fin, head, xt, mct, mcs, g
+
+
+def check_head_sample(results):
+    """K11 (bf16 and fp32) and K12 against their plain versions on the card,
+    at the main path's 24 x 128 x 768 x V=30523 (Vp 30720) and at a ragged
+    case (V=1000 off the 256-row tile with the mask in a non-final tile,
+    L=32, a partial token tile): tokens equal under an external Gumbel
+    wherever the top-two gap exceeds MARGIN; the logits the kernel forms
+    (a probe buffer) equal to the plain version's, K12's bit for bit; with
+    the in-kernel noise, equal to the composite that K11/K12 replace (fp32
+    logits by a PyTorch product, then K7 with the same seed) under the same
+    gap rule; reruns identical. Timed at the main shape, every token
+    masked, in-kernel noise, beside the plain version and the composite
+    the port's unfused path runs (the head product, then K7)."""
+    global MASK
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    from ddg_tpu_torch.ops import quant
+    _check_philox_mirror(fs)
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    cases = (('main_path', B, L, V, V - 1, TILE_V),
+             ('ragged', 3, 32, 1000, 300, 256))
+    saved_mask = MASK
+    try:
+        for dtype in (torch.bfloat16, torch.float32, torch.int8):
+            int8 = dtype == torch.int8
+            name = ('fused_absorbing_head_sample_int8' if int8
+                    else 'fused_absorbing_head_sample')
+            kern = getattr(fs, name)
+            plain = getattr(fs, name + '_plain')
+            for label, Bt, Lt, Vt, mask, tile_v in cases:
+                MASK = mask
+                fin, head, xt, mct, mcs, g = _head_inputs(
+                    gen, Bt, Lt, Vt, mask, tile_v, dtype)
+                kw = dict(vocab_size=Vt, mask_index=mask, tile_v=tile_v)
+                z = (fs.head_logits_int8(*fin, *head) if int8
+                     else fs.head_logits(*fin, *head))
+                # External Gumbel against the plain version.
+                out = kern(7, xt, *fin, *head, mct, mcs, gumbel_t=g, **kw)
+                ref = plain(7, xt, *fin, *head, mct, mcs, gumbel_t=g, **kw)
+                scores = fs.perturbed_scores(
+                    7, z[..., :Vt], mct, mcs, mask_index=mask,
+                    gumbel=g.transpose(1, 2)[..., :Vt])
+                n_cmp = _token_check(f'{name} {dtype} {label}', out, ref,
+                                     scores, xt, Vt)
+                del scores
+                # The logits the kernel formed.
+                probe = torch.empty((Bt, Lt, head[0].shape[0]),
+                                    device=DEV)
+                args = ((fin[0], head[0], head[2], fin[1], head[1]) if int8
+                        else (fin[0], head[0], head[1], None, None))
+                fs._launch_head(kern, 7, xt, *args, mct, mcs, Vt, mask,
+                                tile_v, None, logits_out=probe)
+                if int8:
+                    check(torch.equal(probe, z),
+                          f'{name} {label}: the kernel\'s logits are not '
+                          'bit-equal to int8_dense\'s')
+                    err = 0.0
+                else:
+                    err = (probe - z).abs().max().item()
+                    tol = FP32_TOL * max(1.0, z.abs().max().item())
+                    check(err <= tol, f'{name} {dtype} {label}: logits '
+                                      f'differ by {err} > {tol}')
+                # In-kernel noise against the composite, and a rerun.
+                seed = torch.tensor([4321], dtype=torch.int32, device=DEV)
+                got = kern(seed, xt, *fin, *head, mct, mcs, **kw)
+                check(torch.equal(got, kern(seed, xt, *fin, *head, mct,
+                                            mcs, **kw)),
+                      f'{name} {dtype} {label}: a rerun differs')
+                comp = fs.fused_absorbing_sample(
+                    seed, xt, z[..., :Vt].contiguous(), mct, mcs,
+                    mask_index=mask)
+                n_tie = _rng_gap_check(f'{name} {dtype} {label} vs K7',
+                                       got, comp, z[..., :Vt], xt, mct,
+                                       mcs, 4321)
+                rec = {'err': err, 'compared_tokens': n_cmp,
+                       'rng_near_ties_vs_k7': n_tie,
+                       'bit_identical_rerun': True,
+                       'shape': [Bt, Lt, D, Vt], 'mask_index': mask,
+                       'tile_v': tile_v}
+                if int8:
+                    rec['logits_bit_equal_int8_dense'] = True
+                if label == 'main_path':
+                    rec.update(_time_head(fs, quant, kern, plain, fin,
+                                          head, mct, mcs, kw, dtype))
+                    results[name][str(dtype)] = rec
+                else:
+                    results[name].setdefault(label, {})[str(dtype)] = rec
+                del fin, head, g, z, probe
+    finally:
+        MASK = saved_mask
+
+
+def _time_head(fs, quant, kern, plain, fin, head, mct, mcs, kw, dtype):
+    """CUDA-event medians at the main shape, every token masked, in-kernel
+    noise: the kernel, its plain version, and the composite of the port's
+    unfused path (the head product in the head's dtype, then K7)."""
+    xm = torch.full((B, L), MASK, dtype=torch.int32, device=DEV)
+    seed = torch.tensor([11], dtype=torch.int32, device=DEV)
+    Vt = kw['vocab_size']
+    rec = {'ms': time_ms(lambda: kern(seed, xm, *fin, *head, mct, mcs,
+                                      **kw)),
+           'plain_ms': time_ms(lambda: plain(seed, xm, *fin, *head, mct,
+                                             mcs, **kw), reps=5)}
+    if dtype == torch.int8:
+        w_q, w_scale, bias_col = head
+
+        def composite():
+            acc = quant.int8_matmul(fin[0].reshape(B * L, D), w_q)[:, :Vt]
+            z = quant.rescale(acc.reshape(B, L, Vt), fin[1],
+                              w_scale[:Vt, 0], bias_col[:Vt, 0],
+                              torch.bfloat16)
+            return fs.fused_absorbing_sample(seed, xm, z, mct, mcs,
+                                             mask_index=MASK)
+        what = ('quant.int8_matmul (torch._int_mm) + the rescale to bf16 '
+                'logits + K7')
+    else:
+        w, bias = head[0][:Vt], head[1][:Vt, 0].to(dtype)
+
+        def composite():
+            z = torch.nn.functional.linear(fin[0], w, bias)
+            return fs.fused_absorbing_sample(seed, xm, z, mct, mcs,
+                                             mask_index=MASK)
+        what = f'F.linear ({dtype} logits) + K7'
+    rec['composite_ms'] = time_ms(composite)
+    rec['composite'] = what
+    es = {torch.bfloat16: 2, torch.float32: 4, torch.int8: 1}[dtype]
+    peak = {torch.bfloat16: PEAK_BF16_TENSOR, torch.float32: PEAK_FP32,
+            torch.int8: PEAK_INT8_TENSOR}[dtype]
+    T = B * L
+    # W, the features, the bias (and scales), xt and the output once; the
+    # product's 2 T D V operations; one exp and two Gumbel logs a logit.
+    nbytes = (Vt * D + T * D) * es + Vt * 4 + 2 * T * 4 + B * 8
+    if dtype == torch.int8:
+        nbytes += Vt * 4 + T * 4
+    rec['bound_ms'], rec['bound_by'] = bound_mixed(
+        nbytes, ((2 * T * D * Vt, peak), (3 * T * Vt, PEAK_SFU)))
+    rec['library_ms'] = None
+    return rec
 
 
 # The UNet path's shapes: CIFAR10 32 x 32 x 3 as 3072 tokens over V=256,
@@ -1525,6 +1803,233 @@ def check_tiny_dit():
           'logit_std': outs[0].std().item()})
 
 
+def _tiny_int8_dit(quant_int8=True):
+    """check_tiny_dit's model (fp32, fused flags on, weights x10), with
+    `quant_int8`."""
+    import numpy as np
+    from ddg_tpu_torch.convert import make_reference_dit_state_dict
+    from ddg_tpu_torch.models import DITConfig
+    cfg = DITConfig(hidden_size=128, cond_dim=32, length=32, n_blocks=2,
+                    n_heads=2, vocab_size=101, num_classes=2,
+                    compute_dtype=torch.float32, fused_rope_attn=True,
+                    fused_adaln=True, quant_int8=quant_int8)
+    sd = make_reference_dit_state_dict(
+        np.random.RandomState(1), hidden=128, cond_dim=32, n_blocks=2,
+        vocab=101, with_cond=True)
+    sd = {k: v * 10 if v.ndim == 2 else v for k, v in sd.items()}
+    return cfg, sd
+
+
+def check_tiny_dit_int8():
+    """The tiny DiT under `quant_int8`, card against CPU. Each int8 layer
+    (the 4 x 2 trunk products and the head), fed on the CPU the input it
+    got on the card, must give the card's output bit for bit (an exact s32
+    product, then the same fp32 roundings). End to end, an activation
+    within fp32 noise of a rounding tie quantizes to the next code on one
+    side (tests/test_torch_quant.py finds the same against JAX), and the
+    flip moves what follows, so the logits are held to check_tiny_dit's
+    1e-3 bar on token rows whose head codes agree and, on a row where n
+    head codes differ, to 1e-3 plus n steps of the head, n x x_scale x max
+    |W|. Then the unguided `_ddpm_step` with `fused_head` at B=2, K11 (the
+    fp32 head) and K12, against the unfused chain (`dit_head_matmul`, then
+    K7) under one external Gumbel: tokens equal wherever the top-two gap
+    exceeds MARGIN."""
+    from ddg_tpu_torch.models import DIT
+    from ddg_tpu_torch.models.dit import dit_head_features
+    from ddg_tpu_torch.ops import quant
+    cfg, sd = _tiny_int8_dit()
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randint(0, 101, (4, 32), generator=gen, dtype=torch.int32)
+    sigma = torch.rand((4,), generator=gen)
+    cond = torch.tensor([0, 1, 2, 0], dtype=torch.int32)
+    outs, layers = {}, {}
+    for dev in ('cpu', DEV):
+        m = DIT(cfg)
+        m.load_state_dict(sd, strict=True)
+        m = m.to(dev).eval()
+        params = dict(m.named_parameters())
+        args = (x.to(dev), sigma.to(dev), cond.to(dev))
+        seen = []
+        hooks = [mod.register_forward_hook(
+            lambda mod, inp, out: seen.append((mod, inp[0], out)))
+            for mod in m.modules() if isinstance(mod, quant.QLinear)]
+        with torch.no_grad():
+            logits = m(*args)
+        for hk in hooks:
+            hk.remove()
+        layers[dev] = seen
+        with torch.no_grad():
+            h, c = m(*args, skip_head=True)
+            feats = dit_head_features(cfg, params, h, c)
+        outs[dev] = (logits.cpu(), quant.quantize_rowwise(feats.cpu()),
+                     h.cpu())
+    check(len(layers[DEV]) == 2 * 4 + 1, 'tiny int8 DiT: expected 9 int8 '
+                                         f'layers, ran {len(layers[DEV])}')
+    with torch.no_grad():
+        for n, ((mod, _, _), (_, inp, out)) in enumerate(
+                zip(layers['cpu'], layers[DEV])):
+            want = mod(inp.cpu())
+            check(torch.equal(want, out.cpu()),
+                  f'tiny int8 DiT: int8 layer {n} on the card differs from '
+                  'the CPU on the same input by '
+                  f'{(want - out.cpu()).abs().max().item()}')
+    (l_cpu, (q_cpu, s_cpu), h_cpu), (l_dev, (q_dev, _), h_dev) = (
+        outs['cpu'], outs[DEV])
+    flips = (q_cpu != q_dev).sum(-1, keepdim=True)
+    w_max = sd['output_layer.linear.weight'].abs().max().item()
+    bar = 1e-3 + flips * s_cpu * w_max
+    err = (l_cpu - l_dev).abs()
+    check(bool(torch.isfinite(l_dev).all()), 'tiny int8 DiT: non-finite')
+    check(bool((err <= bar).all()),
+          f'tiny int8 DiT: card vs CPU logits differ by {err.max().item()} '
+          f'(flipped head codes: {int(flips.sum().item())})')
+    rec = {'phase': 'tiny_dit_int8_card_vs_cpu',
+           'int8_layers_bit_equal_on_same_input': len(layers[DEV]),
+           'max_abs_err': err.max().item(),
+           'max_abs_err_unflipped_rows': err[(flips == 0).expand_as(err)]
+           .max().item(),
+           'flipped_head_codes': int(flips.sum().item()),
+           'hidden_max_abs_err': (h_cpu - h_dev).abs().max().item(),
+           'logit_std': l_cpu.std().item()}
+    rec['fused_head_step'] = {
+        name: _head_step_vs_chain(name, quant_int8)
+        for name, quant_int8 in (('fused_absorbing_head_sample', False),
+                                 ('fused_absorbing_head_sample_int8', True))}
+    emit(rec)
+
+
+def _head_step_vs_chain(name, quant_int8):
+    """One unguided `_ddpm_step` with `fused_head` on the tiny fp32 DiT at
+    B=2 (K11 in fp32, or K12), its kernel handed an external Gumbel,
+    against `dit_head_matmul` (fp32 logits) then K7 on the same noise."""
+    from ddg_tpu_torch import samplers as SM
+    from ddg_tpu_torch.diffusion import DiffusionSpec, process_sigma
+    from ddg_tpu_torch.models import DIT, make_model_apply
+    from ddg_tpu_torch.models.dit import dit_head_features, dit_head_matmul
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    from ddg_tpu_torch.ops.noise_schedules import LogLinearNoise
+    cfg, sd = _tiny_int8_dit(quant_int8)
+    Vt, mask, Bt, Lt = cfg.vocab_size, cfg.vocab_size - 1, 2, cfg.length
+    m = DIT(cfg)
+    m.load_state_dict(sd, strict=True)
+    apply = make_model_apply(m.to(DEV).eval())
+    params = apply.params
+    spec = DiffusionSpec(diffusion='absorbing_state',
+                         parameterization='subs', noise=LogLinearNoise(),
+                         vocab_size=Vt, mask_index=mask, num_classes=2)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    x0 = torch.randint(0, mask, (Bt, Lt), generator=gen, device=DEV,
+                       dtype=torch.int32)
+    xt = torch.where(torch.rand((Bt, Lt), generator=gen, device=DEV) < 0.8,
+                     torch.full_like(x0, mask), x0)
+    sigma = torch.full((Bt,), 0.7, device=DEV)
+    mct = torch.full((Bt, 1, 1), 0.6, device=DEV)
+    mcs = torch.full((Bt, 1, 1), 0.3, device=DEV)
+    head = SM._prepare_head(cfg, params)
+    g = -torch.log(-torch.log(torch.rand(
+        (Bt, head[0].shape[0], Lt), generator=gen, device=DEV)
+        .clamp_min(1e-20)))
+    kernel = getattr(SM, name)
+    setattr(SM, name, lambda *a, **kw: kernel(*a, gumbel_t=g, **kw))
+    try:
+        xs, _ = SM._ddpm_step(
+            spec, SM.SamplerSpec(fused=True, fused_head=True,
+                                 use_cache=False),
+            apply, params, gen, xt, sigma, mct, mcs, None, None,
+            dit_cfg=cfg, head=head)
+    finally:
+        setattr(SM, name, kernel)
+    with torch.no_grad():
+        h, c = apply(params, xt, process_sigma(spec, sigma), None, None,
+                     train=False, rng=None, skip_head=True)
+        z = dit_head_matmul(cfg, params,
+                            dit_head_features(cfg, params, h, c)).float()
+    gl = g.transpose(1, 2)[..., :Vt].contiguous()
+    ref = fs.fused_absorbing_sample(0, xt, z, mct[:, 0, 0], mcs[:, 0, 0],
+                                    mask_index=mask, gumbel=gl)
+    scores = fs.perturbed_scores(0, z, mct[:, 0, 0], mcs[:, 0, 0],
+                                 mask_index=mask, gumbel=gl)
+    top2 = scores.topk(2, dim=-1).values
+    masked = xt == mask
+    decided = ((top2[..., 0] - top2[..., 1]) > MARGIN) & masked
+    bad = int(((xs != ref) & decided).sum().item())
+    check(bad == 0, f'{name} step: {bad} tokens differ from the unfused '
+                    f'chain where the margin > {MARGIN}')
+    check(torch.equal(xs[~masked], xt[~masked]),
+          f'{name} step: decoded tokens not copied over')
+    return {'compared_tokens': int(decided.sum().item()),
+            'masked_tokens': int(masked.sum().item())}
+
+
+def check_int8_tv():
+    """scripts/validate_quant_tpu.py's test on the card: a DiT of hidden
+    256, 4 blocks of 4 heads, L=32, V=203, bf16 trunk and head, its head
+    drawn at 0.02 and its bias at 0.05 (the adaLN projections zero, as
+    flax initialises them; the rest the reference's seeded draw), B=4. The
+    TV between the analytic posteriors (mct 0.8, mcs 0.3) of its bf16 and
+    its int8 logits must be below the binomial floor at N=4000 draws a
+    position at every position, and 4000 Gumbel draws through the int8
+    posterior within twice that floor of the bf16 one."""
+    import numpy as np
+    from ddg_tpu_torch.convert import make_reference_dit_state_dict
+    from ddg_tpu_torch.models import DIT, DITConfig
+    Bq, Lq, Vq, n_eval = 4, 32, 203, 4000
+    mask = Vq - 1
+    r = np.random.RandomState(0)
+    sd = make_reference_dit_state_dict(r, hidden=256, cond_dim=64,
+                                       n_blocks=4, vocab=Vq, with_cond=True)
+    for k in sd:
+        if 'adaLN_modulation' in k:
+            sd[k] = torch.zeros_like(sd[k])
+    sd['output_layer.linear.weight'] = torch.from_numpy(
+        0.02 * r.randn(Vq, 256).astype(np.float32))
+    sd['output_layer.linear.bias'] = torch.from_numpy(
+        0.05 * r.randn(Vq).astype(np.float32))
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    x = torch.randint(0, Vq, (Bq, Lq), generator=gen, device=DEV)
+    sig = torch.full((Bq,), 0.5, device=DEV)
+    cond = torch.zeros((Bq,), dtype=torch.int32, device=DEV)
+    logits = {}
+    for q8 in (False, True):
+        cfg = DITConfig(hidden_size=256, cond_dim=64, length=Lq, n_blocks=4,
+                        n_heads=4, dropout=0.0, vocab_size=Vq,
+                        num_classes=2, compute_dtype=torch.bfloat16,
+                        logits_dtype=torch.bfloat16, quant_int8=q8,
+                        fused_rope_attn=True, fused_adaln=True)
+        m = DIT(cfg)
+        m.load_state_dict(sd, strict=True)
+        with torch.no_grad():
+            logits[q8] = m.to(DEV).eval()(x, sig, cond).float()
+
+    def posterior(z, mct=0.8, mcs=0.3):
+        z = z.clone()
+        z[..., mask] = -1e30
+        q = torch.softmax(z, -1) * (mct - mcs)
+        q[..., mask] = mcs
+        return (q / q.sum(-1, keepdim=True)).double()
+
+    q_ref, q_int8 = posterior(logits[False]), posterior(logits[True])
+    floor = 0.5 * torch.sqrt(2 * q_ref * (1 - q_ref) / (math.pi * n_eval)
+                             ).sum(-1)
+    tv = 0.5 * (q_ref - q_int8).abs().sum(-1)
+    worst = (tv / floor).max().item()
+    logq = torch.log(q_int8.float() + 1e-20)
+    g = -torch.log(-torch.log(torch.rand(
+        (n_eval, Bq, Lq, Vq), generator=gen, device=DEV).clamp_min(1e-20)))
+    draws = (logq[None] + g).argmax(-1)
+    emp = torch.nn.functional.one_hot(draws, Vq).double().mean(0)
+    ratio_emp = (0.5 * (emp - q_ref).abs().sum(-1) / floor).max().item()
+    rel = ((logits[True] - logits[False]).norm()
+           / logits[False].norm()).item()
+    check(worst < 1.0, f'int8 TV: systematic TV {worst} x the N={n_eval} '
+                       'floor')
+    check(ratio_emp < 2.0, f'int8 TV: empirical TV {ratio_emp} x the floor')
+    emit({'phase': 'int8_tv', 'systematic_tv_max': tv.max().item(),
+          'floor_min': floor.min().item(), 'floor_max': floor.max().item(),
+          'worst_ratio_to_floor': worst, 'empirical_ratio': ratio_emp,
+          'logit_rel_l2': rel, 'draws': n_eval})
+
+
 def _loss_grads(build, weights, dev, spec, batch):
     """The float32 loss of `build()` loaded with `weights` on `dev`, on one
     batch and one injected (t, x_t) (`batch` = (x0, t, xt, cond)), and the
@@ -1654,45 +2159,84 @@ def run_main_path(kernels):
     """The LM1B D-CFG serving path (gamma 2) at full width: ancestral
     feature-mix at T=1000, B=24 (the JAX bench's line, `bench.py:170-176`
     with its default --steps), the NFE cache (the CFG kernel) at T=128,
-    B=24, and first-hitting at B=32, each timed alone. Then short runs of
-    the same samplers at B=2, untimed, under PyTorch's sync debug mode:
-    feature-mix (2 steps) and first-hitting must not wait for the card;
+    B=24, and first-hitting at B=32; then the head-fused and int8 runs of
+    the JAX bench's lines (`bench.py:154, 184, 212, 849-866`): feature-mix
+    with `fused_head` (1 K11 a step, no K7), the same on the int8 flagship
+    (1 K12 a step), the int8 flagship without the fused head (the default
+    suite's `ancestral_int8`: the int8 head through `torch._int_mm`, then 1
+    K7 a step) and first-hitting on it (`first_hitting_int8`). Each is
+    timed alone, with its peak memory; the new runs also hold K1, K3 and K5
+    to exactly 12 a forward. Then short runs at B=2, untimed, under
+    PyTorch's sync debug mode: feature-mix (2 steps), the head-fused runs
+    (2 steps each) and both first-hitting runs must not wait for the card;
     the NFE cache (8 steps) waits once a step, for the validity flag of its
     cache (`samplers.py`'s `torch.equal`; `ddg_tpu` keeps that flag in its
     scan carry)."""
     from ddg_tpu_torch import samplers as SM
     from ddg_tpu_torch.entry import flagship
-    t0 = time.perf_counter()
-    spec, cfg, _, apply_fn, params = flagship(device=DEV)
-    emit({'phase': 'flagship', 'seconds': time.perf_counter() - t0,
-          'parameters': sum(p.numel() for p in params.values()),
-          'hidden': cfg.hidden_size, 'blocks': cfg.n_blocks,
-          'heads': cfg.n_heads, 'length': cfg.length,
-          'vocab': cfg.vocab_size})
+    models = {}
+    for key, int8 in (('bf16', False), ('int8', True)):
+        t0 = time.perf_counter()
+        spec, cfg, _, apply_fn, params = flagship(device=DEV, int8=int8)
+        models[key] = (spec, cfg, apply_fn, params)
+        emit({'phase': 'flagship', 'int8': int8,
+              'seconds': time.perf_counter() - t0,
+              'parameters': sum(p.numel() for p in params.values()),
+              'hidden': cfg.hidden_size, 'blocks': cfg.n_blocks,
+              'heads': cfg.n_heads, 'length': cfg.length,
+              'vocab': cfg.vocab_size})
     guidance = SM.GuidanceSpec(method='cfg', gamma=GAMMA)
-    jax_line = 'LM1B D-CFG samples/sec/chip ({}, B={}, DiT-small)'
+    jax_line = 'LM1B D-CFG samples/sec/chip ({}, B={}, DiT-small{})'
+    trunk = {'fused_rope_attention': 12, 'ln_modulate': 12,
+             'gate_res_ln_modulate': 12}
+    fh = dict(use_cache=False, fused=True, fused_head=True)
+    # (run, model, batch, sampler, kernels that must run, exact launches a
+    # step or None, JAX line)
     runs = [
-        ('ancestral_feature_mix', 24,
+        ('ancestral_feature_mix', 'bf16', 24,
          SM.SamplerSpec(steps=1000, use_cache=False, fused=True),
-         {'fused_absorbing_sample'}, jax_line.format('T=1000', 24)),
-        ('ancestral_nfe_cache', 24,
+         {'fused_absorbing_sample'}, None,
+         jax_line.format('T=1000', 24, '')),
+        ('ancestral_nfe_cache', 'bf16', 24,
          SM.SamplerSpec(steps=128, use_cache=True, fused=True),
-         {'fused_absorbing_cfg_sample'},
+         {'fused_absorbing_cfg_sample'}, None,
          'none: the JAX line with --cache runs T=1000; this run T=128'),
-        ('first_hitting', 32, SM.SamplerSpec(first_hitting=True), set(),
-         jax_line.format('first-hitting ~ T=inf exact', 32)),
+        ('first_hitting', 'bf16', 32, SM.SamplerSpec(first_hitting=True),
+         set(), None,
+         jax_line.format('first-hitting ~ T=inf exact', 32, '')),
+        ('ancestral_feature_mix_fused_head', 'bf16', 24,
+         SM.SamplerSpec(steps=1000, **fh), set(),
+         {**trunk, 'fused_absorbing_head_sample': 1},
+         jax_line.format('T=1000', 24, ', fused-head')),
+        ('ancestral_feature_mix_int8_fused_head', 'int8', 24,
+         SM.SamplerSpec(steps=1000, **fh), set(),
+         {**trunk, 'fused_absorbing_head_sample_int8': 1},
+         jax_line.format('T=1000', 24, ', int8, fused-head')),
+        ('ancestral_int8', 'int8', 24,
+         SM.SamplerSpec(steps=1000, use_cache=False, fused=True), set(),
+         {**trunk, 'fused_absorbing_sample': 1},
+         jax_line.format('T=1000', 24, ', int8')),
+        ('first_hitting_int8', 'int8', 32,
+         SM.SamplerSpec(first_hitting=True), set(), trunk,
+         jax_line.format('first-hitting ~ T=inf exact', 32, ', int8')),
     ]
-    # (run, sampler, host syncs expected) for the sync count.
+    # (run, model, sampler, host syncs expected) for the sync count.
     sync_runs = [
-        ('ancestral_feature_mix',
+        ('ancestral_feature_mix', 'bf16',
          SM.SamplerSpec(steps=2, use_cache=False, fused=True), 0),
-        ('ancestral_nfe_cache',
+        ('ancestral_nfe_cache', 'bf16',
          SM.SamplerSpec(steps=8, use_cache=True, fused=True), 8),
-        ('first_hitting', SM.SamplerSpec(first_hitting=True), 0),
+        ('first_hitting', 'bf16', SM.SamplerSpec(first_hitting=True), 0),
+        ('ancestral_feature_mix_fused_head', 'bf16',
+         SM.SamplerSpec(steps=2, **fh), 0),
+        ('ancestral_feature_mix_int8_fused_head', 'int8',
+         SM.SamplerSpec(steps=2, **fh), 0),
+        ('first_hitting_int8', 'int8', SM.SamplerSpec(first_hitting=True),
+         0),
     ]
-    trunk = {'fused_rope_attention', 'ln_modulate', 'gate_res_ln_modulate'}
 
-    def sample(batch, sampler, seed):
+    def sample(model, batch, sampler, seed):
+        spec, cfg, apply_fn, params = models[model]
         gen = torch.Generator(device=DEV).manual_seed(seed)
         cond = torch.zeros((batch,), dtype=torch.int32, device=DEV)
         return SM.diffusion_sample(spec, sampler, apply_fn, params, gen,
@@ -1701,15 +2245,23 @@ def run_main_path(kernels):
                                    dit_cfg=cfg)
 
     # Warm-up: the trunk's and head's GEMM shapes, outside the counts.
-    sample(24, SM.SamplerSpec(steps=2, use_cache=False, fused=True), 99)
+    for model, sampler in (
+            ('bf16', SM.SamplerSpec(steps=2, use_cache=False, fused=True)),
+            ('bf16', SM.SamplerSpec(steps=2, **fh)),
+            ('int8', SM.SamplerSpec(steps=2, **fh)),
+            ('int8', SM.SamplerSpec(steps=2, use_cache=False, fused=True))):
+        sample(model, 24, sampler, 99)
     torch.cuda.synchronize()
     totals = {name: 0 for name in kernels}
-    for i, (name, batch, sampler, expect, line) in enumerate(runs):
+    for i, (name, model, batch, sampler, expect, per_step,
+            line) in enumerate(runs):
+        cfg = models[model][1]
         for fn in kernels.values():
             fn.launches = 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        x = sample(batch, sampler, i)
+        x = sample(model, batch, sampler, i)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in kernels.items()}
@@ -1719,10 +2271,12 @@ def run_main_path(kernels):
         n_mask = int((x == MASK).sum().item())
         allowed = math.ceil(5 * n_tok / 8192)
         steps = None if sampler.first_hitting else sampler.steps
-        emit({'phase': 'main_path', 'run': name, 'batch': batch,
+        emit({'phase': 'main_path', 'run': name, 'int8': cfg.quant_int8,
+              'fused_head': sampler.fused_head, 'batch': batch,
               'steps': steps, 'jax_line': line,
               'seconds': secs, 'samples_per_s': batch / secs,
               'ms_per_step': secs / (steps or cfg.length) * 1e3,
+              'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
               'launches': launches, 'mask_tokens_left': n_mask,
               'distinct_tokens': int(torch.unique(x).numel())})
         check(tuple(x.shape) == (batch, cfg.length) and x.dtype == torch.int32,
@@ -1731,13 +2285,17 @@ def run_main_path(kernels):
               f'{name}: token outside [0, V)')
         check(n_mask <= allowed, f'{name}: {n_mask} mask tokens left '
                                  f'(> {allowed})')
-        for k in trunk | expect:
+        for k in set(trunk) | expect:
             check(launches[k] > 0, f'{name}: kernel {k} never launched')
+        if per_step is not None:
+            _launch_check(name, kernels, launches, per_step,
+                          steps or cfg.length)
         for k in BACKWARD:
             check(launches[k] == 0, f'{name}: backward kernel {k} launched '
                                     'while sampling')
-    for name, sampler, expect in sync_runs:
-        n_syncs = _sync_check(name, lambda: sample(2, sampler, 7), expect)
+    for name, model, sampler, expect in sync_runs:
+        n_syncs = _sync_check(name, lambda: sample(model, 2, sampler, 7),
+                              expect)
         emit({'phase': 'main_path_host_syncs', 'run': name, 'batch': 2,
               'steps': None if sampler.first_hitting else sampler.steps,
               'host_syncs': n_syncs, 'expected': expect})
@@ -2728,6 +3286,12 @@ SOURCES = {
                       'ddg_tpu/ops/selective_scan_pallas.py:945'),
     'ssm_scan_dtlr_bwd': ('ddg_tpu_torch/csrc/mamba_bwd.cu',
                           'ddg_tpu/ops/selective_scan_pallas.py:994'),
+    # K11 and K12 share the body _head_kernel (:464).
+    'fused_absorbing_head_sample': ('ddg_tpu_torch/csrc/head_sample.cu',
+                                    'ddg_tpu/ops/fused_sampling.py:617'),
+    'fused_absorbing_head_sample_int8': (
+        'ddg_tpu_torch/csrc/head_sample.cu',
+        'ddg_tpu/ops/fused_sampling.py:705'),
 }
 
 
@@ -2760,6 +3324,9 @@ def main():
         'short_seq_attention_bwd': attention.short_seq_attention_bwd,
         'ssm_scan_dtlr': mamba.ssm_scan_dtlr,
         'ssm_scan_dtlr_bwd': mamba.ssm_scan_dtlr_bwd,
+        'fused_absorbing_head_sample': fs.fused_absorbing_head_sample,
+        'fused_absorbing_head_sample_int8':
+            fs.fused_absorbing_head_sample_int8,
     }
 
     phase_environment()
@@ -2785,6 +3352,7 @@ def main():
     check_adaln(results)
     check_attention(results)
     tv = check_sampling(results)
+    check_head_sample(results)
     tv.update(check_uniform(results))
     check_groupnorm(results, norms)
     check_adaln_bwd(results)
@@ -2794,6 +3362,8 @@ def main():
     emit({'phase': 'kernels_vs_plain', 'results': results,
           'internal_rng': tv})
     check_tiny_dit()
+    check_tiny_dit_int8()
+    check_int8_tv()
     check_tiny_train()
     check_tiny_unet()
     check_tiny_dimamba()
@@ -2814,7 +3384,9 @@ def main():
 
     rows = []
     for name in kernels:
-        r = results[name][str(torch.bfloat16)]
+        # K12's record is its int8 one.
+        r = (results[name].get(str(torch.bfloat16))
+             or results[name][str(torch.int8)])
         src, replaces = SOURCES[name]
         launches = {path: n[name] for path, n in by_path.items()
                     if n[name]}
@@ -2827,6 +3399,8 @@ def main():
                      'bound_by': r['bound_by'],
                      'library_ms': r.get('library_ms')})
         for key in ('ms_covers', 'products_matmul_ms', 'composite_ms',
+                    'composite', 'rng_near_ties_vs_k7',
+                    'logits_bit_equal_int8_dense',
                     'shape', 'sum_err_of_tol', 'widened',
                     'bound_with_workspace_ms',
                     'equals_ssm_scan_on_composite'):
@@ -2839,6 +3413,11 @@ def main():
                     k: other[k] for k in ('shape', 'err', 'ms', 'plain_ms',
                                           'library_ms', 'bound_ms',
                                           'bound_by')}
+        f32 = results[name].get(str(torch.float32), {})
+        if name.startswith('fused_absorbing_head') and 'ms' in f32:
+            rows[-1]['float32'] = {
+                k: f32[k] for k in ('err', 'ms', 'plain_ms', 'composite_ms',
+                                    'bound_ms', 'bound_by')}
         if 'species10' in results[name]:
             rows[-1]['species10'] = {
                 k: results[name]['species10'][k]

@@ -7,7 +7,11 @@ bf16 vocab head, running its attention and adaLN chains through the
 Hopper kernels (`fused_rope_attn=True`, `fused_adaln=True`). The weights
 are seeded random ones in the reference layout
 (`convert.make_reference_dit_state_dict`) until a published checkpoint
-is in the repository.
+is in the repository. `int8=True` gives the JAX bench's
+`_lm1b_setup(int8=True)` configuration (`bench.py:140-162`): the same
+model and weights with `quant_int8`, the trunk's four big products and
+the vocab head on int8 dynamic quantization (`ops.quant.QLinear`), the
+attention and adaLN kernels unchanged.
 
 `entry()` returns one denoiser forward to log-probs with example inputs.
 
@@ -139,8 +143,10 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def flagship(tiny: bool = False, device=None, *, seed: int = 0):
-    """Returns (spec, cfg, model, model_apply, params) on `device`."""
+def flagship(tiny: bool = False, device=None, *, seed: int = 0,
+             int8: bool = False):
+    """Returns (spec, cfg, model, model_apply, params) on `device`;
+    `int8` turns on `quant_int8` (inference only)."""
     device = resolve_device(device)
     if tiny:
         cfg = DITConfig(hidden_size=64, cond_dim=32, length=32, n_blocks=2,
@@ -150,7 +156,8 @@ def flagship(tiny: bool = False, device=None, *, seed: int = 0):
                         n_blocks=12, n_heads=12, vocab_size=30523)
     cfg = dataclasses.replace(cfg, num_classes=2,
                               logits_dtype=torch.bfloat16,
-                              fused_rope_attn=True, fused_adaln=True)
+                              fused_rope_attn=True, fused_adaln=True,
+                              quant_int8=int8)
     spec = DiffusionSpec(diffusion='absorbing_state',
                          parameterization='subs', noise=LogLinearNoise(),
                          vocab_size=cfg.vocab_size,

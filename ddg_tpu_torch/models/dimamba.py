@@ -100,8 +100,8 @@ class DiMambaConfig:
 
     def __post_init__(self):
         unported = {
-            'sequence_axis': 'sequence parallelism (ROADMAP A.11)',
-            'remat': 'block remat (ROADMAP A.10)',
+            'sequence_axis': 'sequence parallelism (ROADMAP A.9)',
+            'remat': 'block remat (ROADMAP A.8)',
         }
         for name, what in unported.items():
             if getattr(self, name):

@@ -20,10 +20,13 @@ PyTorch and runs `ops.attention`'s K2, as `ddg_tpu` runs its
 short-sequence kernel (the same precedence as the JAX block).
 `fused_adaln=True` runs the block-entry and attention->MLP adaLN chains and
 the final norm through `ops.adaln`. On CUDA tensors these are the Hopper
-kernels (forward and backward), on CPU tensors their plain versions. The
-JAX-only branches (tensor/sequence/ring parallelism, the TPU library flash
-attention, int8, the attention remat and bf16-probs knobs) raise
-NotImplementedError when set.
+kernels (forward and backward), on CPU tensors their plain versions.
+`quant_int8=True` (inference only, as in `ddg_tpu`) runs the four big trunk
+products and the vocab head through `ops.quant.QLinear` (int8 dynamic
+quantization, same parameters and state-dict keys); the adaLN projections
+stay in `compute_dtype`. The JAX-only branches (tensor/sequence/ring
+parallelism, the TPU library flash attention, the attention remat and
+bf16-probs knobs) raise NotImplementedError when set.
 
 `train=True` applies dropout (rate `cfg.dropout`) after the attention
 output projection and after the MLP, where the JAX block has it, with
@@ -43,6 +46,7 @@ import torch.nn.functional as F
 
 from ddg_tpu_torch.ops import adaln
 from ddg_tpu_torch.ops import attention
+from ddg_tpu_torch.ops import quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,21 +67,22 @@ class DITConfig:
     fused_rope_attn: bool = False
     fused_adaln: bool = False
     pallas_attention: bool = False
+    # int8 dynamic quantization of the trunk products and the head
+    # (inference only).
+    quant_int8: bool = False
     # Not ported: they raise when set.
     tpu_flash_attn: bool = False
     attn_probs_bf16: bool = False
     attn_remat: bool = False
     tensor_axis: Optional[str] = None
-    quant_int8: bool = False
 
     def __post_init__(self):
         unported = {
             'tpu_flash_attn': 'the TPU library flash attention',
             'attn_probs_bf16': 'the bf16-probs einsum attention',
-            'attn_remat': 'attention remat (ROADMAP A.11)',
+            'attn_remat': 'attention remat (ROADMAP A.10)',
             'tensor_axis': 'tensor/sequence/ring parallelism '
-                           '(ROADMAP A.11)',
-            'quant_int8': 'int8 inference (ROADMAP A.11)',
+                           '(ROADMAP A.9)',
         }
         for name, what in unported.items():
             if getattr(self, name):
@@ -151,14 +156,16 @@ class DDiTBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         dim, dt = cfg.hidden_size, cfg.compute_dtype
+        # The four big products; the adaLN projection stays a float Linear.
+        Linear = quant.QLinear if cfg.quant_int8 else nn.Linear
         self.norm1 = AdaLNLayerNorm(dim)
-        self.attn_qkv = nn.Linear(dim, 3 * dim, bias=False, dtype=dt)
-        self.attn_out = nn.Linear(dim, dim, bias=False, dtype=dt)
+        self.attn_qkv = Linear(dim, 3 * dim, bias=False, dtype=dt)
+        self.attn_out = Linear(dim, dim, bias=False, dtype=dt)
         self.norm2 = AdaLNLayerNorm(dim)
         self.mlp = nn.Sequential(
-            nn.Linear(dim, 4 * dim, bias=True, dtype=dt),
+            Linear(dim, 4 * dim, bias=True, dtype=dt),
             nn.GELU(approximate='tanh'),
-            nn.Linear(4 * dim, dim, bias=True, dtype=dt))
+            Linear(4 * dim, dim, bias=True, dtype=dt))
         if cfg.use_adaLN:
             self.adaLN_modulation = nn.Linear(cfg.cond_dim, 6 * dim,
                                               bias=True, dtype=dt)
@@ -254,8 +261,9 @@ class DDitFinalLayer(nn.Module):
     def __init__(self, cfg: DITConfig):
         super().__init__()
         self.norm_final = AdaLNLayerNorm(cfg.hidden_size)
-        self.linear = nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                dtype=cfg.logits_dtype)
+        Linear = quant.QLinear if cfg.quant_int8 else nn.Linear
+        self.linear = Linear(cfg.hidden_size, cfg.vocab_size,
+                             dtype=cfg.logits_dtype)
         if cfg.use_adaLN:
             self.adaLN_modulation = nn.Linear(cfg.cond_dim,
                                               2 * cfg.hidden_size)
@@ -295,6 +303,10 @@ class DIT(nn.Module):
                 return_hidden_states: bool = False,
                 skip_head: bool = False):
         cfg = self.cfg
+        if cfg.quant_int8 and train:
+            raise ValueError(
+                'quant_int8 is an inference-only transform (rounding kills '
+                'gradients); train with it off and turn it on for sampling')
         c = None if cfg.causal else F.silu(self.sigma_map(sigma))
         if cond is not None:
             if cfg.num_classes is None:
@@ -333,7 +345,9 @@ class DIT(nn.Module):
             h = out.norm_final(x)
             if use_adaLN:
                 h = modulate(h, shift, scale)
-        logits = out.linear(h.to(cfg.logits_dtype))
+        # The int8 head quantizes the features as they are (QDense takes
+        # them uncast).
+        logits = out.linear(h if cfg.quant_int8 else h.to(cfg.logits_dtype))
         if return_hidden_states:
             return logits, hidden
         return logits
@@ -363,8 +377,14 @@ def dit_head_features(cfg: DITConfig, params, hidden, c):
 
 def dit_head_matmul(cfg: DITConfig, params, feats):
     """The vocab projection on head features, in `logits_dtype` (the bias
-    is in that dtype too, so the logits are not promoted)."""
+    is in that dtype too, so the logits are not promoted). Under
+    `quant_int8` it is the int8 product, the bias added in fp32 before the
+    cast, on the weight's quantization kept across calls."""
     dt = cfg.logits_dtype
+    if cfg.quant_int8:
+        return quant.int8_linear(feats, params['output_layer.linear.weight'],
+                                 params['output_layer.linear.bias'],
+                                 out_dtype=dt)
     return F.linear(feats.to(dt), params['output_layer.linear.weight'].to(dt),
                     params['output_layer.linear.bias'].to(dt))
 

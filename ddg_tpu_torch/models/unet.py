@@ -83,7 +83,7 @@ class UNetConfig:
         if self.quant_int8:
             raise NotImplementedError(
                 'UNetConfig.quant_int8: int8 inference is not ported to '
-                'ddg_tpu_torch yet (ROADMAP A.11)')
+                'ddg_tpu_torch yet (ROADMAP A.3)')
         if self.pallas_interpret:
             raise ValueError(
                 'UNetConfig.pallas_interpret: the port has no interpret '
@@ -302,7 +302,7 @@ class UNet(nn.Module):
         cfg = self.cfg
         if train:
             raise NotImplementedError('UNet training is not ported to '
-                                      'ddg_tpu_torch yet (ROADMAP A.9)')
+                                      'ddg_tpu_torch yet (ROADMAP A.7)')
         cd = cfg.compute_dtype
         img, C = cfg.image_size, cfg.input_channels
         B = x.shape[0]

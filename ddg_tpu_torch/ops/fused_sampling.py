@@ -1,5 +1,5 @@
 """Fused denoise steps, one kernel per step (port of
-`ddg_tpu/ops/fused_sampling.py:40-398`).
+`ddg_tpu/ops/fused_sampling.py:40-763`).
 
 Absorbing state (MDLM; K7, K8): SUBS + posterior + Gumbel-argmax +
 copy-over from raw logits.
@@ -18,9 +18,15 @@ argmax, every token resampled. With p = softmax(z) over the first
 The posterior's denominator is constant along a row. The CFG variant
 interpolates log-posteriors, gamma log q(l_c) + (1 - gamma) log q(l_u).
 
-On CUDA tensors each function is one launch of `csrc/absorbing_sample.cu`
-or `csrc/uniform_sample.cu`; on CPU tensors the plain versions below run
-instead. `gumbel=` passes (B, L, V) float32 noise in; otherwise the noise
+Head-fused absorbing state (K11, K12): the vocab projection of the head
+features runs inside the step, z = W f + bias (bf16 or fp32 operands,
+fp32 sums; or the int8 head's (acc * x_scale) * w_scale + bias), and the
+(B, L, V) logits never reach memory. The pick is the same posterior
+argmax as K7's.
+
+On CUDA tensors each function is one call of `csrc/absorbing_sample.cu`,
+`csrc/uniform_sample.cu` or `csrc/head_sample.cu`; on CPU tensors the
+plain versions below run instead. `gumbel=` passes (B, L, V) float32 noise in; otherwise the noise
 comes from `seed`: a Philox counter in the kernel, a `torch.Generator`
 seeded with it in the plain version. The two give different draws of the
 same distribution.
@@ -28,9 +34,12 @@ same distribution.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ddg_tpu_torch.ops import _build
+from ddg_tpu_torch.ops import quant
 
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -309,3 +318,254 @@ def fused_uniform_cfg_sample(seed, xt, logits_cond, logits_uncond, gamma,
 
 
 fused_uniform_cfg_sample.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Head-fused absorbing state: K11, K12
+# ---------------------------------------------------------------------------
+
+# Vocab rows a chunk of the CUDA kernel, and token rows a block.
+HEAD_CHUNK = 128
+HEAD_TOKENS = 128
+_HEAD_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _pad_rows(x, rows):
+    return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[0]))
+
+
+def _padded_vocab(V, tile_v):
+    return -(-V // tile_v) * tile_v
+
+
+def pad_head_weights(weight, bias, tile_v: int = 2048):
+    """One-time preparation for `fused_absorbing_head_sample`: the (V, D)
+    head weight (the `nn.Linear` layout, which is the JAX kernel
+    transposed) zero-padded to (Vp, D), Vp a multiple of tile_v, in its
+    own dtype; the bias as a (Vp, 1) fp32 column. Loop-invariant."""
+    Vp = _padded_vocab(weight.shape[0], tile_v)
+    w_t = _pad_rows(weight, Vp).contiguous()
+    bias_col = _pad_rows(bias.float()[:, None], Vp).contiguous()
+    return w_t, bias_col
+
+
+def quantize_head_weights(weight, bias, tile_v: int = 2048):
+    """One-time preparation for `fused_absorbing_head_sample_int8`: the
+    (V, D) head weight quantized per vocab row (the scheme of
+    `ops.quant`), zero-padded to (Vp, D) int8, its (Vp, 1) fp32 scales and
+    the (Vp, 1) fp32 bias. Loop-invariant."""
+    q, scale = quant.quantize_rowwise(weight)
+    Vp = _padded_vocab(weight.shape[0], tile_v)
+    return (_pad_rows(q, Vp).contiguous(), _pad_rows(scale, Vp).contiguous(),
+            _pad_rows(bias.float()[:, None], Vp).contiguous())
+
+
+def quantize_head_inputs(feats):
+    """Per-token int8 head features for K12: (B, L, D) -> ((B, L, D)
+    int8, (B, L, 1) fp32 scales). The JAX function returns the same codes
+    and scales transposed to its kernel's (B, D, L) and (B, 1, L)."""
+    return quant.quantize_rowwise(feats)
+
+
+def head_logits(feats, w_t, bias_col):
+    """fp32 logits (B, L, Vp) of the bf16 or fp32 head: the operands'
+    exact products summed in fp32, plus the bias."""
+    return torch.matmul(feats.float(), w_t.float().t()) + bias_col[:, 0]
+
+
+def head_logits_int8(feats_q, x_scale, w_q, w_scale, bias_col):
+    """fp32 logits (B, L, Vp) of the int8 head: the s32 product, then
+    (acc * x_scale) * w_scale + bias, as `ops.quant.int8_dense` forms
+    them."""
+    B, L, D = feats_q.shape
+    acc = quant.int8_matmul(feats_q.reshape(B * L, D), w_q)
+    return quant.rescale(acc.reshape(B, L, -1), x_scale, w_scale[:, 0],
+                         bias_col[:, 0], torch.float32)
+
+
+def _head_pick(seed, xt, logits, mct, mcs, vocab_size, mask_index,
+               gumbel_t):
+    g = None
+    if gumbel_t is not None:
+        g = gumbel_t.transpose(1, 2)[..., :vocab_size]
+    return _sample_plain(seed, xt, logits[..., :vocab_size], mct, mcs,
+                         mask_index, g)
+
+
+def fused_absorbing_head_sample_plain(seed, xt, feats, w_t, bias_col,
+                                      move_chance_t, move_chance_s, *,
+                                      vocab_size: int, mask_index: int,
+                                      tile_v: int = 2048, gumbel_t=None):
+    """Plain PyTorch version of `fused_absorbing_head_sample`: the full
+    fp32 logits, then K7's pick (lowest index on ties)."""
+    return _head_pick(seed, xt, head_logits(feats, w_t, bias_col),
+                      move_chance_t, move_chance_s, vocab_size, mask_index,
+                      gumbel_t)
+
+
+def fused_absorbing_head_sample_int8_plain(seed, xt, feats_q, x_scale, w_q,
+                                           w_scale, bias_col, move_chance_t,
+                                           move_chance_s, *,
+                                           vocab_size: int, mask_index: int,
+                                           tile_v: int = 2048,
+                                           gumbel_t=None):
+    """Plain PyTorch version of `fused_absorbing_head_sample_int8`."""
+    logits = head_logits_int8(feats_q, x_scale, w_q, w_scale, bias_col)
+    return _head_pick(seed, xt, logits, move_chance_t, move_chance_s,
+                      vocab_size, mask_index, gumbel_t)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def head_splits(n_tokens: int, Vp: int, sms: int) -> int:
+    """Vocab splits of the head kernel's grid: enough blocks for two a
+    multiprocessor, each split a whole number of chunks and none empty."""
+    chunks = Vp // HEAD_CHUNK
+    tiles = -(-n_tokens // HEAD_TOKENS)
+    want = min(chunks, max(1, -(-2 * sms // tiles)))
+    per = -(-chunks // want)
+    return -(-chunks // per)
+
+
+def _check_head(seed, xt, feats, w_t, bias_col, mct, mcs, vocab_size,
+                mask_index, tile_v, gumbel_t, extra=()):
+    B, L, D = feats.shape
+    Vp = w_t.shape[0]
+    if not isinstance(seed, torch.Tensor):
+        seed = torch.tensor([seed], dtype=torch.int32, device=feats.device)
+    tensors = [seed, xt, feats, w_t, bias_col, mct, mcs, *extra]
+    if gumbel_t is not None:
+        tensors.append(gumbel_t)
+    _build.require_cuda(*tensors)
+    es = feats.element_size()
+    if (feats.dtype not in _HEAD_MODES or w_t.dtype != feats.dtype
+            or tuple(w_t.shape) != (Vp, D)):
+        raise ValueError('feats (B, L, D) and w_t (Vp, D) must share a '
+                         'dtype: float32, bfloat16 or int8')
+    if (D * es) % 64 or feats.data_ptr() % 16 or w_t.data_ptr() % 16:
+        raise ValueError(f'the head kernel takes rows of D a multiple of '
+                         f'64 bytes ({64 // es} {feats.dtype} values), '
+                         f'16-byte aligned; got D={D}')
+    if (Vp % tile_v or Vp % HEAD_CHUNK or not 2 <= vocab_size <= Vp
+            or not 0 <= mask_index < vocab_size):
+        raise ValueError(f'Vp={Vp} must be a multiple of tile_v={tile_v} '
+                         f'and of {HEAD_CHUNK}, with 2 <= vocab_size '
+                         f'({vocab_size}) <= Vp and mask_index in '
+                         '[0, vocab_size)')
+    if (seed.dtype != torch.int32 or seed.numel() != 1
+            or xt.dtype != torch.int32 or tuple(xt.shape) != (B, L)
+            or mct.dtype != torch.float32 or mcs.dtype != torch.float32
+            or tuple(mct.shape) != (B,) or tuple(mcs.shape) != (B,)
+            or bias_col.dtype != torch.float32
+            or tuple(bias_col.shape) != (Vp, 1)):
+        raise ValueError('seed: one int32; xt: (B, L) int32; move chances: '
+                         '(B,) float32; bias_col: (Vp, 1) float32')
+    if gumbel_t is not None and (gumbel_t.dtype != torch.float32
+                                 or tuple(gumbel_t.shape) != (B, Vp, L)):
+        raise ValueError('gumbel_t must be float32 (B, Vp, L)')
+    return seed
+
+
+def _launch_head(wrapper, seed, xt, feats, w_t, bias_col, x_scale, w_scale,
+                 mct, mcs, vocab_size, mask_index, tile_v, gumbel_t,
+                 logits_out=None):
+    """One call of `csrc/head_sample.cu` (the product-and-pick kernel, then
+    the merge of its vocab splits). `logits_out`, a (B, L, Vp) fp32
+    tensor, receives the logits the kernel formed (a probe for checks)."""
+    extra = () if x_scale is None else (x_scale, w_scale)
+    seed = _check_head(seed, xt, feats, w_t, bias_col, mct, mcs, vocab_size,
+                       mask_index, tile_v, gumbel_t, extra)
+    B, L, D = feats.shape
+    Vp = w_t.shape[0]
+    if x_scale is not None and (
+            x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32
+            or tuple(x_scale.shape) != (B, L, 1)
+            or tuple(w_scale.shape) != (Vp, 1)):
+        raise ValueError('x_scale: (B, L, 1) float32; w_scale: (Vp, 1) '
+                         'float32')
+    if logits_out is not None and (logits_out.dtype != torch.float32
+                                   or tuple(logits_out.shape) != (B, L, Vp)
+                                   or not logits_out.is_contiguous()):
+        raise ValueError('logits_out must be contiguous float32 (B, L, Vp)')
+    splits = head_splits(B * L, Vp, _sm_count(feats.device.index or 0))
+    part = torch.empty((5, splits, B * L), dtype=torch.float32,
+                       device=feats.device)
+    out = torch.empty((B, L), dtype=torch.int32, device=feats.device)
+    fn = _build.kernel('head_sample', 'ddg_head_sample',
+                       (_build.ptr,) * 13 + (_build.i32,) * 8
+                       + (_build.ptr,))
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    rc = fn(seed.data_ptr(), xt.data_ptr(), feats.data_ptr(),
+            w_t.data_ptr(), bias_col.data_ptr(), ptr(x_scale),
+            ptr(w_scale), mct.data_ptr(), mcs.data_ptr(), ptr(gumbel_t),
+            out.data_ptr(), part.data_ptr(), ptr(logits_out), B, L, D, Vp,
+            vocab_size, mask_index, _HEAD_MODES[feats.dtype], splits,
+            _build.stream(feats))
+    wrapper.launches += 1
+    _build.check(rc, 'ddg_head_sample')
+    return out
+
+
+def fused_absorbing_head_sample(seed, xt, feats, w_t, bias_col,
+                                move_chance_t, move_chance_s, *,
+                                vocab_size: int, mask_index: int,
+                                tile_v: int = 2048, gumbel_t=None):
+    """SUBS + posterior + Gumbel-argmax + copy-over with the vocab product
+    inside (K11).
+
+    feats: (B, L, D) head features, bfloat16 or float32, contiguous in D
+    (the JAX kernel takes them transposed, (B, D, L)); w_t: (Vp, D) head
+    weight of the same dtype, zero-padded to a multiple of tile_v
+    (`pad_head_weights`); bias_col: (Vp, 1) float32; xt: (B, L) int32;
+    move_chance_*: (B,) float32; gumbel_t: optional (B, Vp, L) float32, the
+    JAX layout. seed: int or a one-element int32 tensor. Returns xs (B, L)
+    int32. On the card D must fill whole 64-byte rows (D % 32 in bf16, D %
+    16 in fp32) and Vp be a multiple of 128."""
+    if feats.device.type == 'cpu':
+        return fused_absorbing_head_sample_plain(
+            seed, xt, feats, w_t, bias_col, move_chance_t, move_chance_s,
+            vocab_size=vocab_size, mask_index=mask_index, tile_v=tile_v,
+            gumbel_t=gumbel_t)
+    if feats.dtype == torch.int8:
+        raise ValueError('int8 features take '
+                         'fused_absorbing_head_sample_int8')
+    return _launch_head(fused_absorbing_head_sample, seed, xt, feats, w_t,
+                        bias_col, None, None, move_chance_t, move_chance_s,
+                        vocab_size, mask_index, tile_v, gumbel_t)
+
+
+fused_absorbing_head_sample.launches = 0
+
+
+def fused_absorbing_head_sample_int8(seed, xt, feats_q, x_scale, w_q,
+                                     w_scale, bias_col, move_chance_t,
+                                     move_chance_s, *, vocab_size: int,
+                                     mask_index: int, tile_v: int = 2048,
+                                     gumbel_t=None):
+    """K11 with the int8 head (K12): an s8 x s8 -> s32 product rescaled as
+    `ops.quant.int8_dense` does, so the logits equal the unfused int8
+    head's.
+
+    feats_q: (B, L, D) int8 and x_scale: (B, L, 1) float32 from
+    `quantize_head_inputs` (the JAX kernel takes them transposed); w_q:
+    (Vp, D) int8, w_scale and bias_col: (Vp, 1) float32 from
+    `quantize_head_weights`; the rest as `fused_absorbing_head_sample`. On
+    the card D must be a multiple of 64."""
+    if feats_q.device.type == 'cpu':
+        return fused_absorbing_head_sample_int8_plain(
+            seed, xt, feats_q, x_scale, w_q, w_scale, bias_col,
+            move_chance_t, move_chance_s, vocab_size=vocab_size,
+            mask_index=mask_index, tile_v=tile_v, gumbel_t=gumbel_t)
+    if feats_q.dtype != torch.int8:
+        raise ValueError('fused_absorbing_head_sample_int8 takes int8 '
+                         'features')
+    return _launch_head(fused_absorbing_head_sample_int8, seed, xt, feats_q,
+                        w_q, bias_col, x_scale, w_scale, move_chance_t,
+                        move_chance_s, vocab_size, mask_index, tile_v,
+                        gumbel_t)
+
+
+fused_absorbing_head_sample_int8.launches = 0

@@ -15,9 +15,13 @@ Checking whether a step changed nothing costs one host sync per step.
 
 The fused steps cover absorbing-state SUBS (K7/K8) and uniform-state
 D3PM (K9/K10, every token resampled from raw logits with alpha = 1 -
-move chance per row). Not ported yet (they raise NotImplementedError):
-classifier-based guidance, NOS, FUDGE/PPLM and AR sampling (ROADMAP A.7,
-A.8) and the head-fused kernel (`fused_head`, K11/K12).
+move chance per row). `fused_head` runs the DiT's vocab projection inside
+the absorbing step (K11, or K12 under `quant_int8`) where the NFE cache is
+off: in the unguided step and in the D-CFG feature-mix step, as
+`ddg_tpu` does; the head's padded (or quantized) weights are prepared
+once per sampling call. Not ported yet (they raise NotImplementedError):
+classifier-based guidance, NOS, FUDGE/PPLM and AR sampling (ROADMAP A.4,
+A.5).
 """
 
 from __future__ import annotations
@@ -30,10 +34,11 @@ import torch
 from ddg_tpu_torch.diffusion import DiffusionSpec, log_x_theta, process_sigma
 from ddg_tpu_torch.ops import forward_process as fp
 from ddg_tpu_torch.ops import sampling as S
-from ddg_tpu_torch.ops.fused_sampling import (fused_absorbing_cfg_sample,
-                                              fused_absorbing_sample,
-                                              fused_uniform_cfg_sample,
-                                              fused_uniform_sample)
+from ddg_tpu_torch.ops.fused_sampling import (
+    fused_absorbing_cfg_sample, fused_absorbing_head_sample,
+    fused_absorbing_head_sample_int8, fused_absorbing_sample,
+    fused_uniform_cfg_sample, fused_uniform_sample, pad_head_weights,
+    quantize_head_inputs, quantize_head_weights)
 from ddg_tpu_torch.ops.noise_schedules import LogLinearNoise
 
 _INT32_MAX = 2 ** 31 - 1
@@ -130,12 +135,47 @@ def _cached(compute, cache, cache_valid):
     return val, val
 
 
+def _prepare_head(dit_cfg, params):
+    """The head-fused step's weights, once per sampling call: the vocab
+    head padded in `logits_dtype` (K11), or quantized and padded (K12)."""
+    w = params['output_layer.linear.weight']
+    b = params['output_layer.linear.bias']
+    if dit_cfg.quant_int8:
+        return quantize_head_weights(w, b)
+    return pad_head_weights(w.to(dit_cfg.logits_dtype), b)
+
+
+def _head_fused_sample(spec, dit_cfg, head, seed, xt, feats, mct, mcs):
+    """Head-fused denoise step (`ddg_tpu/samplers.py:185-217`): K12 on the
+    quantized features under `quant_int8`, else K11 on the features in
+    `logits_dtype`. `head` is `_prepare_head`'s result."""
+    kw = dict(vocab_size=spec.vocab_size, mask_index=spec.mask_index)
+    if dit_cfg.quant_int8:
+        feats_q, x_scale = quantize_head_inputs(feats)
+        return fused_absorbing_head_sample_int8(
+            seed, xt, feats_q, x_scale, *head, mct[:, 0, 0], mcs[:, 0, 0],
+            **kw)
+    return fused_absorbing_head_sample(
+        seed, xt, feats.to(dit_cfg.logits_dtype).contiguous(), *head,
+        mct[:, 0, 0], mcs[:, 0, 0], **kw)
+
+
 # ---------------------------------------------------------------------------
 # Denoise-step variants. Each returns (xs, cache).
 # ---------------------------------------------------------------------------
 
 def _ddpm_step(spec, sampler, model_apply, params, generator, xt, sigma_t,
-               mct, mcs, cache, cache_valid, dit_cfg=None):
+               mct, mcs, cache, cache_valid, dit_cfg=None, head=None):
+    if (head is not None and cache_valid is None
+            and _fused_ok(spec, sampler, None, xt)):
+        from ddg_tpu_torch.models.dit import dit_head_features
+        hidden, cvec = model_apply(params, xt, process_sigma(spec, sigma_t),
+                                   None, None, train=False, rng=None,
+                                   skip_head=True)
+        feats = dit_head_features(dit_cfg, params, hidden, cvec)
+        xs = _head_fused_sample(spec, dit_cfg, head, _seed(generator), xt,
+                                feats, mct, mcs)
+        return xs, cache
     if _fused_ok(spec, sampler, None, xt):
         logits, new_cache = _cached(
             lambda: _raw_logits(spec, model_apply, params, xt, sigma_t),
@@ -160,9 +200,11 @@ def _ddpm_step(spec, sampler, model_apply, params, generator, xt, sigma_t,
 
 
 def _cfg_step(spec, sampler, guidance, model_apply, params, generator, xt,
-              sigma_t, mct, mcs, cond, cache, cache_valid, dit_cfg=None):
+              sigma_t, mct, mcs, cond, cache, cache_valid, dit_cfg=None,
+              head=None):
     """D-CFG. gamma in {0, 1} takes a single forward; otherwise one
-    batched [cond; uncond] forward at 2B."""
+    batched [cond; uncond] forward at 2B. `head` (the prepared head
+    weights) sends the feature-mix path through K11/K12."""
     gamma = guidance.gamma
     null_cond = torch.full_like(cond, spec.num_classes)
     B = xt.shape[0]
@@ -189,6 +231,10 @@ def _cfg_step(spec, sampler, guidance, model_apply, params, generator, xt,
         feats2 = dit_head_features(dit_cfg, params, hidden2, cvec2)
         fmix = (gamma * feats2[:B].float()
                 + (1 - gamma) * feats2[B:].float())
+        if head is not None:
+            xs = _head_fused_sample(spec, dit_cfg, head, _seed(generator),
+                                    xt, fmix.to(feats2.dtype), mct, mcs)
+            return xs, cache
         logits_mix = dit_head_matmul(
             dit_cfg, params, fmix.to(feats2.dtype)).to(torch.bfloat16)
         xs = fused_absorbing_sample(
@@ -254,14 +300,10 @@ def _check_guidance(sampler, guidance, cond):
     method = guidance.method if guidance is not None else None
     if method not in (None, 'cfg'):
         raise NotImplementedError(
-            f'guidance method {method!r} is not ported yet (ROADMAP A.7 '
-            'for AR guidance, A.8 for CBG/NOS)')
+            f'guidance method {method!r} is not ported yet (ROADMAP A.5 '
+            'for AR guidance, A.4 for CBG/NOS)')
     if method == 'cfg' and cond is None:
         raise ValueError('cfg guidance needs `cond`')
-    if sampler.fused_head:
-        raise NotImplementedError(
-            'fused_head (K11/K12 fused_absorbing_head_sample) is not '
-            'ported yet (ROADMAP B)')
     return method
 
 
@@ -294,6 +336,15 @@ def diffusion_sample(spec: DiffusionSpec, sampler: SamplerSpec,
     use_cache = (sampler.use_cache and spec.diffusion == 'absorbing_state'
                  and method in (None, 'cfg'))
     cache, valid = None, False
+    # The head-fused step serves where the cache is off (`ddg_tpu`'s
+    # precedence: the NFE cache's route wins); its weights are prepared
+    # here, once.
+    head = None
+    if (sampler.fused_head and dit_cfg is not None and not use_cache
+            and spec.diffusion == 'absorbing_state'
+            and (method is None or guidance.gamma not in (0.0, 1.0))
+            and _fused_ok(spec, sampler, guidance, xt)):
+        head = _prepare_head(dit_cfg, params)
     for i in range(sampler.steps):
         t = timesteps[i]
         if spec.T > 0:
@@ -307,11 +358,12 @@ def diffusion_sample(spec: DiffusionSpec, sampler: SamplerSpec,
         if method is None:
             xs, cache = _ddpm_step(spec, sampler, model_apply, params,
                                    generator, xt, sigma_t, mct, mcs, cache,
-                                   cache_valid, dit_cfg=dit_cfg)
+                                   cache_valid, dit_cfg=dit_cfg, head=head)
         else:
             xs, cache = _cfg_step(spec, sampler, guidance, model_apply,
                                   params, generator, xt, sigma_t, mct, mcs,
-                                  cond, cache, cache_valid, dit_cfg=dit_cfg)
+                                  cond, cache, cache_valid, dit_cfg=dit_cfg,
+                                  head=head)
         if use_cache:
             valid = torch.equal(xs, xt)
         xt = xs

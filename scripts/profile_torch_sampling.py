@@ -2,6 +2,7 @@
 """Where the time of `ddg_tpu_torch`'s sampling goes on one CUDA card.
 
     python3 scripts/profile_torch_sampling.py [--steps 16] [--trace-dir DIR]
+        [--fused-head] [--int8] [--dit-only]
 
 Builds the two serving flagships (seeded random weights, the Hopper
 kernels on) and runs each sampler three times: to warm up, timed, and
@@ -10,7 +11,11 @@ ancestral D-CFG (gamma 2, B=24) through the feature-mix path and through
 the NFE cache, and first-hitting (B=32, all L=128 events); for the CIFAR10
 UNet (UDLM), ancestral D-CFG (gamma 2) and unguided, B=32; for the
 Species10 DiMamba (UDLM, L=32768), D-CFG (gamma 2) and unguided, B=8,
-for `--dimamba-steps` steps. For each it
+for `--dimamba-steps` steps. `--int8` runs the DiT samplers on the int8
+flagship (`flagship(int8=True)`: the trunk's products and the vocab head
+quantized), `--fused-head` runs the feature-mix sampler with `fused_head`
+(the vocab product inside the step, K11 or, with `--int8`, K12), and
+`--dit-only` skips the UNet and the DiMamba. For each it
 prints one JSON line: wall ms per step, device-busy ms per step, the
 card's idle share, and device ms per step by kernel group, from the
 trace's kernel events, and the twelve kernels with the most device
@@ -35,6 +40,7 @@ GROUPS = (   # first match wins; matched against the kernel's name
     ('K1 rope_attention', ('rope_attention',)),
     ('K3/K5 adaln', ('adaln_kernel',)),
     ('K7/K8 absorbing_sample', ('absorbing_sample',)),
+    ('K11/K12 head_sample', ('head_sample', 'head_merge')),
     ('K9/K10 uniform_sample', ('uniform_sample',)),
     ('K13 groupnorm', ('gn_stats', 'gn_apply')),
     ('K18 in/out_proj', ('gemm_bf16_kernel', 'gemm_f32_kernel')),
@@ -113,6 +119,13 @@ def main():
                     help='Species10 DiMamba steps to profile (default 8)')
     ap.add_argument('--trace-dir', default=None,
                     help='write the Chrome traces here')
+    ap.add_argument('--fused-head', action='store_true',
+                    help='feature-mix with fused_head (K11, or K12 with '
+                         '--int8)')
+    ap.add_argument('--int8', action='store_true',
+                    help='the DiT samplers on the int8 flagship')
+    ap.add_argument('--dit-only', action='store_true',
+                    help='skip the UNet and the DiMamba')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('no CUDA device is visible', file=sys.stderr)
@@ -121,7 +134,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     from ddg_tpu_torch import samplers as SM
     from ddg_tpu_torch.entry import dimamba_flagship, flagship, unet_flagship
-    spec, cfg, _, apply_fn, params = flagship(device='cuda')
+    spec, cfg, _, apply_fn, params = flagship(device='cuda', int8=args.int8)
+    tag = '_int8' if args.int8 else ''
     guidance = SM.GuidanceSpec(method='cfg', gamma=2.0)
 
     def runner(batch, sampler):
@@ -132,8 +146,6 @@ def main():
                                 batch_size=batch, length=cfg.length,
                                 guidance=guidance, cond=cond, dit_cfg=cfg)
         return run
-
-    uspec, ucfg, _, uapply, uparams = unet_flagship(device='cuda')
 
     def unet_runner(guided):
         def run():
@@ -147,8 +159,6 @@ def main():
                                       fused=True), uapply, uparams, gen,
                 batch_size=32, length=3 * ucfg.image_size ** 2, **kw)
         return run
-
-    dspec, dcfg, _, dapply, dparams = dimamba_flagship(device='cuda')
 
     def dimamba_runner(guided):
         def run():
@@ -168,14 +178,20 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = args.trace_dir or tmp
         os.makedirs(trace_dir, exist_ok=True)
-        profile('ancestral_feature_mix', runner(24, SM.SamplerSpec(
-            steps=args.steps, use_cache=False, fused=True)), args.steps,
-            trace_dir)
-        profile('ancestral_nfe_cache', runner(24, SM.SamplerSpec(
+        profile('ancestral_feature_mix' + tag
+                + ('_fused_head' if args.fused_head else ''),
+                runner(24, SM.SamplerSpec(
+                    steps=args.steps, use_cache=False, fused=True,
+                    fused_head=args.fused_head)), args.steps, trace_dir)
+        profile('ancestral_nfe_cache' + tag, runner(24, SM.SamplerSpec(
             steps=args.steps, use_cache=True, fused=True)), args.steps,
             trace_dir)
-        profile('first_hitting', runner(32, SM.SamplerSpec(
+        profile('first_hitting' + tag, runner(32, SM.SamplerSpec(
             first_hitting=True)), cfg.length, trace_dir)
+        if args.dit_only:
+            return 0
+        uspec, ucfg, _, uapply, uparams = unet_flagship(device='cuda')
+        dspec, dcfg, _, dapply, dparams = dimamba_flagship(device='cuda')
         profile('unet_dcfg', unet_runner(True), args.steps, trace_dir)
         profile('unet_unguided', unet_runner(False), args.steps, trace_dir)
         profile('species10_dcfg', dimamba_runner(True), args.dimamba_steps,

@@ -185,8 +185,7 @@ def test_state_dict_conversion_matches_export(weights):
 
 
 def test_unported_options_raise():
-    for kw in (dict(tpu_flash_attn=True), dict(quant_int8=True),
-               dict(tensor_axis='model')):
+    for kw in (dict(tpu_flash_attn=True), dict(tensor_axis='model')):
         with pytest.raises(NotImplementedError):
             torch_cfg(**kw)
     assert dataclasses.replace(torch_cfg(), fused_adaln=True).fused_adaln

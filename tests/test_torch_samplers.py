@@ -203,6 +203,3 @@ def test_unported_paths_raise(models):
         TS.diffusion_sample(TSPEC, TS.SamplerSpec(steps=2), tapply,
                             tapply.params, gen,
                             guidance=TS.GuidanceSpec(method='cbg'), **kw)
-    with pytest.raises(NotImplementedError):
-        TS.diffusion_sample(TSPEC, TS.SamplerSpec(steps=2, fused_head=True),
-                            tapply, tapply.params, gen, **kw)
