@@ -7,7 +7,8 @@ Each phase prints one JSON line:
   1. environment: nvidia-smi's name and power limit, torch/CUDA versions,
      compute capability (sm_90 required);
   2. build: the CUDA sources under ddg_tpu_torch/csrc, compiled with nvcc
-     into build/ddg_tpu_torch/ (seconds, ptxas register/spill lines);
+     into build/ddg_tpu_torch/ (seconds, ptxas register/spill lines under
+     the lines that name their kernel);
   3. the UNet flagship (seeded random weights), the (H, W, C, act) of
      each GroupNorm of its forward and its multiply-accumulates per image,
      read by hooks; the GroupNorms' count must equal the architecture's
@@ -105,8 +106,11 @@ against fp32 logits + K7 with the same seed (their Philox draws rebuilt in
 PyTorch where the two disagree), identical reruns; timed beside the
 composite of the unfused path.
 Phase 4 holds K1, K2 and their backwards at L=128 and L=256 (the text8
-micro-batch), requires the tensor-core path of the bf16 forwards, and
-reruns the backwards for bit-identical outputs. It also holds K18 and K14
+micro-batch) and at the key-tile edges L=64, 192 and 200, and K1 and K2's
+forwards at L=1024 (the reference DiT-small), requires the tensor-core path
+of the bf16 forwards at D=64, reruns the bf16 forwards and the backwards
+for bit-identical outputs, and holds `ops.attention.forward_plan` equal to
+the built library's launch plan. It also holds K18 and K14
 against their plain versions at the
 DiMamba's full widths (fp32 and bf16, both directions' weights, a ragged
 row tile, a padded last chunk), timed at the Species10 shape, and K9/K10
@@ -239,14 +243,21 @@ def phase_environment():
     check(cap == (9, 0), f'need an sm_90 card, found sm_{cap[0]}{cap[1]}')
 
 
+def ptxas_lines(log):
+    """ptxas's register, spill, shared-memory and performance lines of an
+    nvcc log, each kernel's under the lines that name it."""
+    keep = ('Compiling entry function', 'Function properties for',
+            'registers', 'spill', 'Performance')
+    return [ln.strip() for ln in log.splitlines()
+            if any(k in ln for k in keep)]
+
+
 def phase_build():
     from ddg_tpu_torch.ops import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for _, log in libs.values()
-             for ln in log.splitlines()
-             if 'registers' in ln or 'spill' in ln]
+    ptxas = [ln for _, log in libs.values() for ln in ptxas_lines(log)]
     emit({'phase': 'build', 'seconds': secs,
           'libraries': sorted(str(p) for p, _ in libs.values()),
           'ptxas': ptxas})
@@ -387,36 +398,49 @@ def _sdpa_ms(sdpa, do, backward):
 def check_attention(results):
     """K1 and K2, forward and backward, against their plain versions,
     causal and not, in fp32 and bf16, at the shapes the main paths give
-    them: the LM1B sampling batch 2 x 24 x 128 (K1, K2, K2b), the LM1B training
-    micro-batch 256 x 128 (K1b) and the text8 training micro-batch x 256
-    (all four); and a ragged L=40 on both kernel routes (D = 64 on tensor
-    cores, D = 32 on CUDA cores; the backward takes D = 64 only). Each
-    backward runs twice with bit-identical outputs. In bf16 with D = 64
-    every call must take the tensor-core path (the wrapper's
-    `tensor_core_launches` rise with its `launches`). The bf16 records hold the kernel's, plain
-    version's and SDPA's CUDA-event medians and the bound; a kernel's main
-    record is at the shape of the path that launches it most (K1: LM1B
-    sampling; K1b: LM1B training; K2, K2b: text8 training), the others go
-    under their shape's label."""
+    them: the LM1B sampling batch 2 x 24 x 128 (K1, K2, K2b), the LM1B
+    training micro-batch 256 x 128 (K1, K1b) and the text8 training
+    micro-batch x 256 (all four); at the key-tile edges L = 64, 192 and 200
+    (one tile, three whole tiles, a ragged last tile; all four); a ragged
+    L=40 on both kernel routes (D = 64 on tensor cores, D = 32 on CUDA
+    cores; the backward takes D = 64 only); and the reference DiT-small's
+    L=1024 (`long`, 4 x 1024 x 12 x 64: K1 and K2 forward, which take any
+    L; the backward takes L <= 256). Each backward runs twice with
+    bit-identical outputs, each bf16 forward twice with bit-identical
+    outputs. In bf16 with D = 64 every call must take the tensor-core path
+    (the wrapper's `tensor_core_launches` rise with its `launches`). A bf16
+    forward's record also gives the share of its outputs that differ from
+    the plain version's at all (`differs_from_plain`), which must stay at
+    or under 1%: the 2-ulp bar cannot tell P's rounding point apart, bit
+    equality can (the CPU mirror of the two-pass key-tile order gives 0 to
+    0.12%, a flash-style order ~45%: tests/test_torch_attention_tiles.py).
+    The bf16 records of the main
+    paths' shapes and of `long` hold the kernel's, plain version's and
+    SDPA's CUDA-event medians and the bound; a kernel's main record is at
+    the shape of the path that launches it most (K1: LM1B sampling; K1b:
+    LM1B training; K2, K2b: text8 training), the others go under their
+    shape's label. Returns the (B, L, H, D) shapes checked."""
     from ddg_tpu_torch.entry import TEXT8_TRAIN_MICRO_BATCH, TRAIN_MICRO_BATCH
     from ddg_tpu_torch.ops import attention as A
     gen = torch.Generator(device=DEV).manual_seed(4)
+    every = ('fused_rope_attention', 'short_seq_attention',
+             'fused_rope_attention_bwd', 'short_seq_attention_bwd')
+    forwards = every[:2]
     shapes = {'lm1b_sampling': ((B2, L, H, DH), ('fused_rope_attention',
                                                   'short_seq_attention',
                                                   'short_seq_attention_bwd')),
               'lm1b_training': ((TRAIN_MICRO_BATCH, L, H, DH),
-                                ('fused_rope_attention_bwd',)),
+                                ('fused_rope_attention',
+                                 'fused_rope_attention_bwd')),
               'text8_training': ((TEXT8_TRAIN_MICRO_BATCH, 256, H, DH),
-                                 ('fused_rope_attention',
-                                  'short_seq_attention',
-                                  'fused_rope_attention_bwd',
-                                  'short_seq_attention_bwd')),
-              'ragged': ((4, 40, 3, DH), ('fused_rope_attention',
-                                          'short_seq_attention',
-                                          'fused_rope_attention_bwd',
-                                          'short_seq_attention_bwd')),
-              'ragged_d32': ((4, 40, 2, 32), ('fused_rope_attention',
-                                              'short_seq_attention'))}
+                                 every),
+              **{f'tile_edges_L{n}': ((2, n, 3, DH), every)
+                 for n in (64, 192, 200)},
+              'ragged': ((4, 40, 3, DH), every),
+              'ragged_d32': ((4, 40, 2, 32), forwards),
+              'long': ((4, 1024, H, DH), forwards)}
+    untimed = {'ragged', 'ragged_d32', 'tile_edges_L64', 'tile_edges_L192',
+               'tile_edges_L200'}
     main = {'fused_rope_attention': 'lm1b_sampling',
             'short_seq_attention': 'text8_training',
             'fused_rope_attention_bwd': 'lm1b_training',
@@ -438,18 +462,30 @@ def check_attention(results):
                                   lambda: call(causal), lambda: plain(causal))
                         rec['bit_identical_rerun'] = True
                     else:
+                        out, ref = call(causal), plain(causal)
                         err, rec['tol'] = _close(
-                            f'{name} {label} causal={causal}', dtype,
-                            call(causal), plain(causal))
+                            f'{name} {label} causal={causal}', dtype, out,
+                            ref)
                         rec['err'] = max(rec['err'], err)
+                        if dtype == torch.bfloat16:
+                            check(torch.equal(out, call(causal)),
+                                  f'{name} {label} causal={causal}: a rerun '
+                                  f'differs')
+                            rec['bit_identical_rerun'] = True
+                            rec['differs_from_plain'] = max(
+                                rec.get('differs_from_plain', 0.0),
+                                (out != ref).float().mean().item())
+                            check(rec['differs_from_plain'] <= 0.01,
+                                  f'{name} {label} causal={causal}: '
+                                  f'{rec["differs_from_plain"]:.4f} of the '
+                                  f'outputs differ from the plain version')
                     calls = wrapper.launches - before[0]
                     on_tc = wrapper.tensor_core_launches - before[1] == calls
                     if dtype == torch.bfloat16 and shape[3] == 64:
                         check(on_tc, f'{name} {label}: bf16 at D=64, '
                                      f'L={shape[1]} missed the tensor cores')
                     rec['tensor_cores'] = on_tc
-                if dtype == torch.bfloat16 and label not in ('ragged',
-                                                             'ragged_d32'):
+                if dtype == torch.bfloat16 and label not in untimed:
                     rec['ms'] = time_ms(lambda: call(False))
                     rec['plain_ms'] = time_ms(lambda: plain(False), reps=10)
                     rec['library_ms'] = _sdpa_ms(sdpa, do,
@@ -463,6 +499,38 @@ def check_attention(results):
                     results[name].setdefault(str(dtype), {}).update(rec)
                 else:
                     results[name].setdefault(label, {})[str(dtype)] = rec
+    return [shape for shape, _ in shapes.values()]
+
+
+def check_attention_plan(shapes):
+    """`ops.attention.forward_plan` (the launch plan the CPU tests check)
+    equals the built library's `ddg_attention_fwd_plan` at every shape
+    `check_attention` ran, in fp32 and bf16, rows aligned or not, and both
+    refuse the same head widths (290 is the widest the CUDA-core kernel's
+    shared memory holds)."""
+    import ctypes
+    from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import attention as A
+    i32 = _build.i32
+    fn = _build.kernel('rope_attention', 'ddg_attention_fwd_plan',
+                       (i32,) * 6 + (_build.i32p,))
+    dtypes = {torch.float32: 0, torch.bfloat16: 1}
+    cases = [(*shape, dtype, aligned) for shape in shapes
+             for dtype in dtypes for aligned in (True, False)]
+    cases += [(1, 16, 1, D, torch.float32, True) for D in (290, 292)]
+    for Bq, Lq, Hq, Dq, dtype, aligned in cases:
+        out = (ctypes.c_int * 9)()
+        rc = fn(Bq, Lq, Hq, Dq, dtypes[dtype], int(aligned), out)
+        try:
+            py = A.forward_plan(Bq, Lq, Hq, Dq, dtype, aligned=aligned)
+        except ValueError:
+            py = None
+        c = None if rc else dict(zip(
+            ('path', 'q_tile', 'k_tile', 'stages', 'smem', 'threads'),
+            out[:6]), grid=tuple(out[6:]))
+        check(py == c, f'forward plan of {(Bq, Lq, Hq, Dq)} {dtype} '
+              f'aligned={aligned}: {py} in ops.attention, {c} in csrc')
+    emit({'phase': 'attention_plan_mirror', 'cases': len(cases)})
 
 
 def _sample_inputs(gen, dtype, n_logits):
@@ -3350,7 +3418,7 @@ def main():
 
     results = {name: {} for name in kernels}
     check_adaln(results)
-    check_attention(results)
+    check_attention_plan(check_attention(results))
     tv = check_sampling(results)
     check_head_sample(results)
     tv.update(check_uniform(results))
@@ -3402,11 +3470,13 @@ def main():
                     'composite', 'rng_near_ties_vs_k7',
                     'logits_bit_equal_int8_dense',
                     'shape', 'sum_err_of_tol', 'widened',
+                    'differs_from_plain',
                     'bound_with_workspace_ms',
                     'equals_ssm_scan_on_composite'):
             if key in r:
                 rows[-1][key] = r[key]
-        for label in ('lm1b_sampling', 'text8_training'):
+        for label in ('lm1b_sampling', 'lm1b_training', 'text8_training',
+                      'long'):
             other = results[name].get(label, {}).get(str(torch.bfloat16))
             if other and 'ms' in other:
                 rows[-1][label] = {

@@ -1,4 +1,4 @@
-"""Softmax attention for the DiT's short sequences (ports of
+"""Softmax attention for the DiT's sequences (ports of
 `ddg_tpu/ops/attention_pallas.py`: `fused_rope_attention`, K1, and
 `short_seq_attention`, K2, forward and backward).
 
@@ -6,10 +6,13 @@ On CUDA tensors one launch of `csrc/rope_attention.cu` computes
 softmax(q k^T / sqrt(D)) with fp32 scores, rounds the probabilities to v's
 dtype and accumulates P V in fp32; K1 first rotates q and k (rotate-half
 RoPE in fp32, rounded back to the input dtype) inside the kernel, K2 takes
-them as they are (the DiT rotates them before it, as `ddg_tpu` does). The
-products run on tensor cores for bf16 with D = 64 and L <= 256 (the DiT's
-shapes), on CUDA cores otherwise (the source picks and reports which: each
-wrapper's `tensor_core_launches` counts the former). The backward saves
+them as they are (the DiT rotates them before it, as `ddg_tpu` does). Both
+forward kernels walk the keys in tiles of 64, in two passes (the row max
+and sum, then the normalised P), and take any L: the products run on
+tensor cores (`wgmma`) for bf16 with D = 64 and rows on 16-byte
+boundaries, on CUDA cores otherwise (the source picks and reports which:
+each wrapper's `tensor_core_launches` counts the former; `forward_plan`
+mirrors the launch plan). The backward saves
 only q, k and v, as `_rope_flash_fwd` and `_flash_fwd` do, and recomputes
 the probabilities in one launch of `csrc/rope_attention_bwd.cu` (D = 64,
 L <= 256 and, in bf16, rows on 16-byte boundaries only; tensor cores for
@@ -30,6 +33,41 @@ from ddg_tpu_torch.ops import _build
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BWD_L = 256
+# The forward kernels' tiles and shared memory (csrc/rope_attention.cu).
+_KEY_TILE = 64
+_SMEM_MAX = 232448
+
+
+def forward_plan(B, L, H, D, dtype, aligned=True):
+    """What a K1 or K2 forward launches for a (B, L, H, D) call of `dtype`
+    whose rows start on 16-byte boundaries (`aligned`) or not: a dict of
+    path (1: the bf16 tensor-core kernel, 0: the CUDA-core one), q_tile,
+    k_tile, stages (of the cp.async ring; 1: staged synchronously), smem
+    (dynamic shared bytes), threads and grid. The mirror of the C
+    library's `ddg_attention_fwd_plan`; raises ValueError where no kernel
+    takes the shape."""
+    if (D <= 0 or D % 2 or min(B, L, H) <= 0 or max(B, H) > 65535
+            or dtype not in _DTYPES):
+        raise ValueError(f'no attention kernel takes B={B}, L={L}, H={H}, '
+                         f'D={D}, {dtype}')
+    if dtype == torch.bfloat16 and D == 64 and aligned:
+        # Two warpgroups a 128-row query tile: 64 x 64 bf16 tiles of Q (one
+        # a warpgroup), four K slots (every K tile up to L = 256) and a
+        # two-stage V ring.
+        plan = dict(path=1, q_tile=128, k_tile=_KEY_TILE, stages=2,
+                    smem=64 * 64 * 2 * (2 + 4 + 2), threads=256)
+    else:
+        # fp32: the Q tile, one key tile of K (rows padded by one) and V,
+        # the 32 x 64 scores and the 32-row O sums.
+        smem = 4 * (32 * D + _KEY_TILE * (D + 1) + _KEY_TILE * D
+                    + 32 * _KEY_TILE + 32 * D)
+        if smem > _SMEM_MAX:
+            raise ValueError(f'the CUDA-core attention kernel takes head_dim '
+                             f'up to 290, got {D}')
+        plan = dict(path=0, q_tile=32, k_tile=_KEY_TILE, stages=1,
+                    smem=smem, threads=256)
+    plan['grid'] = (-(-L // plan['q_tile']), H, B)
+    return plan
 
 
 def apply_rope(x, cos, sin):
@@ -184,6 +222,7 @@ def _forward(q, k, v, cos, sin, causal):
         return attention_plain(q, k, v, causal=causal)
     B, L, H, D = q.shape
     strides = _check(q, k, v, cos, sin)
+    forward_plan(B, L, H, D, q.dtype, aligned=False)  # raises where no kernel takes it
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     wrapper = fused_rope_attention if rope else short_seq_attention
     name = 'ddg_rope_attention' if rope else 'ddg_short_seq_attention'

@@ -1,0 +1,225 @@
+#!/usr/bin/env python3
+"""The K1/K2 forward kernels of `csrc/rope_attention.cu` on one card: a
+first-call check, and a same-call A/B against another copy of the source.
+
+    python3 scripts/ab_torch_attention.py --check
+    python3 scripts/ab_torch_attention.py --parent-source build/ab/rope_attention.cu
+
+`--check` builds the kernels and prints ptxas's lines for
+`rope_attention.cu` (registers, spills and shared memory under the line
+that names each kernel), then runs K1 and K2 once at 48 x 128 x 12 x 64
+(LM1B sampling), 256 x 256 (text8 training), 4 x 40 x 3 (a ragged tile)
+and 4 x 1024 x 12 (the reference DiT-small), fp32 and bf16, causal and
+not, against their plain versions with `chip_smoke.py`'s bars (fp32 1e-4
+abs, bf16 2 ulp of the largest magnitude), plus a probe with V = I at
+L = 64, where O is P itself, and `chip_smoke.py`'s launch-plan mirror. One
+JSON line a case; it exits non-zero if any failed. Use it as the first call
+on the card after changing a forward kernel.
+
+Otherwise it builds `--parent-source` (a copy of an earlier
+`rope_attention.cu`, e.g. `git show HEAD:ddg_tpu_torch/csrc/rope_attention.cu
+> build/ab/rope_attention.cu`; headers are looked up beside it first, then
+in `csrc/`) with nvcc into `build/ab/` under another library name, and
+times the parent's kernel, the new one, the new one, the parent's (A B B
+A) and SDPA with CUDA events (`chip_smoke.time_ms`), at 48 x 128, 256 x 128
+and 256 x 256, K1 and K2, bf16, not causal: one JSON line per arm and one
+summary line per (kernel, shape) beside nvidia-smi's name and power limit.
+Both arms are called through the same ctypes code; their outputs are
+compared too.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+SHAPES = {'48x128': (48, 128, 12, 64), '256x128': (256, 128, 12, 64),
+          '256x256': (256, 256, 12, 64)}
+CHECK_SHAPES = ((48, 128, 12, 64), (256, 256, 12, 64), (4, 40, 3, 64),
+                (4, 1024, 12, 64))
+NAMES = {'K1': 'ddg_rope_attention', 'K2': 'ddg_short_seq_attention'}
+
+
+def argtypes(kernel):
+    from ddg_tpu_torch.ops import _build
+    tables = 2 if kernel == 'K1' else 0
+    return ((_build.ptr,) * (4 + tables) + (_build.i32,) * 8
+            + (_build.f32, _build.i32, _build.ptr, _build.i32p))
+
+
+def inputs(shape, gen):
+    """K1's q, k, v as views into one qkv projection with its rope tables;
+    K2's rotated contiguous q and k beside the view of v (the DiT's two
+    routes); and SDPA's heads-major q, k, v."""
+    from ddg_tpu_torch.models.dit import rope_cos_sin
+    from ddg_tpu_torch.ops import attention as A
+    Bq, Lq, Hq, Dq = shape
+    qkv = torch.randn((Bq, Lq, 3, Hq, Dq), generator=gen,
+                      device='cuda').to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    cos, sin = rope_cos_sin(Lq, Dq, device='cuda')
+    qr, kr = A.apply_rope(q, cos, sin), A.apply_rope(k, cos, sin)
+    sdpa = tuple(t.transpose(1, 2).contiguous() for t in (qr, kr, v))
+    return {'K1': (q, k, v, cos, sin), 'K2': (qr, kr, v)}, sdpa
+
+
+def call(fn, kernel, tensors, out):
+    """One launch of `fn` (either library's entry point) into `out`."""
+    from ddg_tpu_torch.ops import _build
+    q = tensors[0]
+    Bq, Lq, Hq, Dq = q.shape
+    path = ctypes.c_int(-1)
+    rc = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), Bq, Lq, Hq, Dq,
+            *(t.stride(1) for t in tensors[:3]), 0, 1.0 / Dq ** 0.5, 1,
+            _build.stream(q), ctypes.byref(path))
+    _build.check(rc, NAMES[kernel])
+    return path.value
+
+
+def build_parent(src):
+    from ddg_tpu_torch.ops import _build
+    out_dir = ROOT / 'build' / 'ab'
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / 'libparent_rope_attention.so'
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, '-I', str(Path(src).parent),
+         '-I', str(_build.CSRC), '-o', str(lib), str(src)],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f'nvcc failed on {src}:\n{proc.stdout}'
+                           f'{proc.stderr}')
+    return ctypes.CDLL(str(lib)), proc.stdout + proc.stderr
+
+
+def run_check():
+    from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import attention as A
+    cs.DEV = 'cuda'
+    libs = _build.build_all()
+    print(json.dumps({'ptxas': cs.ptxas_lines(libs['rope_attention'][1])}),
+          flush=True)
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    failed = 0
+    for shape in CHECK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            cases, _, _ = cs._attention_cases(shape, dtype, gen)
+            for name in ('fused_rope_attention', 'short_seq_attention'):
+                kern, plain = cases[name]
+                wrapper = getattr(A, name)
+                for causal in (False, True):
+                    rec = {'case': name, 'shape': list(shape),
+                           'dtype': str(dtype), 'causal': causal}
+                    tc = wrapper.tensor_core_launches
+                    try:
+                        out = kern(causal)
+                        torch.cuda.synchronize()
+                        ref = plain(causal)
+                        rec['err'] = (out.float() - ref.float()).abs().max(
+                        ).item()
+                        rec['tensor_cores'] = wrapper.tensor_core_launches > tc
+                        rec['differs_from_plain'] = (out != ref).float(
+                        ).mean().item()
+                        cs._close(name, dtype, out, ref)
+                        rec['ok'] = True
+                    except Exception as e:  # report every case, then fail
+                        rec['ok'], rec['error'] = False, repr(e)[:400]
+                        failed += 1
+                    print(json.dumps(rec), flush=True)
+    # V = I at L = 64: O = P V is P itself, rounded to bf16.
+    Lp = 64
+    q, k = (torch.randn((1, Lp, 1, 64), generator=gen, device='cuda')
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.eye(Lp, device='cuda', dtype=torch.bfloat16)[None, :, None]
+    p = torch.softmax(A._masked_scores(q.float(), k.float(), False),
+                      -1).to(torch.bfloat16)[0, 0]
+    o = A.short_seq_attention(q, k, v)[0, :, 0]
+    rec = {'case': 'probe V=I', 'err_vs_P': (o.float() - p.float()).abs()
+           .max().item(), 'err_vs_P_transposed': (o.float() - p.float().t())
+           .abs().max().item(), 'max_P': p.float().max().item()}
+    rec['ok'] = rec['err_vs_P'] <= cs.bf16_tol(p)
+    failed += not rec['ok']
+    print(json.dumps(rec), flush=True)
+    try:
+        cs.check_attention_plan(CHECK_SHAPES)
+    except Exception as e:
+        failed += 1
+        print(json.dumps({'case': 'plan mirror', 'ok': False,
+                          'error': repr(e)[:400]}), flush=True)
+    print(cs.nvidia_smi(), flush=True)
+    return 1 if failed else 0
+
+
+def run_ab(parent_source, rounds):
+    from ddg_tpu_torch.ops import _build
+    parent, log = build_parent(parent_source)
+    print(json.dumps({'parent_ptxas': cs.ptxas_lines(log)}), flush=True)
+    smi = cs.nvidia_smi()
+    gen = torch.Generator(device='cuda').manual_seed(9)
+    for label, shape in SHAPES.items():
+        per_kernel, sdpa = inputs(shape, gen)
+        with torch.no_grad():
+            sdpa_ms = cs.time_ms(lambda: F.scaled_dot_product_attention(*sdpa))
+        for kernel, tensors in per_kernel.items():
+            fns = {'parent': getattr(parent, NAMES[kernel]),
+                   'new': _build.kernel('rope_attention', NAMES[kernel],
+                                        argtypes(kernel))}
+            fns['parent'].argtypes = list(argtypes(kernel))
+            fns['parent'].restype = ctypes.c_int
+            outs = {arm: torch.empty(tensors[0].shape, dtype=torch.bfloat16,
+                                     device='cuda') for arm in fns}
+            paths = {arm: call(fn, kernel, tensors, outs[arm])
+                     for arm, fn in fns.items()}
+            diff = (outs['new'].float() - outs['parent'].float()).abs().max()
+            times = {'parent': [], 'new': []}
+            for r in range(rounds):
+                for arm in ('parent', 'new', 'new', 'parent'):
+                    fn, out = fns[arm], outs[arm]
+                    ms = cs.time_ms(lambda: call(fn, kernel, tensors, out))
+                    times[arm].append(ms)
+                    print(json.dumps({'kernel': kernel, 'shape': label,
+                                      'arm': arm, 'round': r, 'ms': ms,
+                                      'nvidia_smi': smi}), flush=True)
+            mean = {arm: sum(t) / len(t) for arm, t in times.items()}
+            bound, by = cs._attention_bound(
+                'fused_rope_attention' if kernel == 'K1'
+                else 'short_seq_attention', shape, 2)
+            print(json.dumps({
+                'kernel': kernel, 'shape': label, 'dims': list(shape),
+                'parent_ms': mean['parent'], 'new_ms': mean['new'],
+                'speedup': mean['parent'] / mean['new'], 'sdpa_ms': sdpa_ms,
+                'bound_ms': bound, 'bound_by': by, 'paths': paths,
+                'max_abs_diff_new_vs_parent': diff.item(),
+                'nvidia_smi': smi}), flush=True)
+    return 0
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--check', action='store_true')
+    ap.add_argument('--parent-source')
+    ap.add_argument('--rounds', type=int, default=1)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print('no CUDA device is visible', file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.check:
+        return run_check()
+    if not args.parent_source or not os.path.exists(args.parent_source):
+        ap.error('--parent-source names no file')
+    return run_ab(args.parent_source, args.rounds)
+
+
+if __name__ == '__main__':
+    sys.exit(main())

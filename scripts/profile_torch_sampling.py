@@ -37,7 +37,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 GROUPS = (   # first match wins; matched against the kernel's name
-    ('K1 rope_attention', ('rope_attention',)),
+    ('K1 rope_attention', ('attention_wgmma_kernel<true',
+                           'attention_kernel<__nv_bfloat16, true',
+                           'attention_kernel<float, true')),
     ('K3/K5 adaln', ('adaln_kernel',)),
     ('K7/K8 absorbing_sample', ('absorbing_sample',)),
     ('K11/K12 head_sample', ('head_sample', 'head_merge')),

@@ -54,11 +54,10 @@ GROUPS = (   # first match wins; matched against the kernel's name
                                   'attention_bwd_kernel<__nv_bfloat16, true',
                                   'attention_bwd_kernel<float, true')),
     ('K2 attention bwd', ('attention_bwd_mma_kernel', 'attention_bwd_kernel')),
-    ('K1 attention (RoPE)', ('attention_mma_kernel<128, true',
-                             'attention_mma_kernel<256, true',
+    ('K1 attention (RoPE)', ('attention_wgmma_kernel<true',
                              'attention_kernel<__nv_bfloat16, true',
                              'attention_kernel<float, true')),
-    ('K2 attention', ('attention_mma_kernel', 'attention_kernel')),
+    ('K2 attention', ('attention_wgmma_kernel', 'attention_kernel')),
     ('K4/K6 adaln bwd', ('adaln_bwd',)),
     ('K3/K5 adaln fwd', ('adaln_kernel',)),
     ('gemm', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas', 'splitK')),

@@ -1,7 +1,7 @@
 """The port's fused RoPE attention (`ddg_tpu_torch.ops.attention`, plain
 version on the CPU) against `ddg_tpu/ops/attention_pallas.py`'s kernel in
-interpret mode: float32, 1e-5 abs. H * D = 128, so the JAX function takes
-its kernel and not its jnp fallback."""
+interpret mode: float32, 1e-5 abs, at L=16, 256 and 1024. H * D = 128, so
+the JAX function takes its kernel and not its jnp fallback."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,9 +30,10 @@ def test_rope_tables_match():
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-6, rtol=0)
 
 
-# L=16, and text8's L=256 (the case ids of L=16 are the original ones).
+# L=16, text8's L=256 and the reference DiT-small's L=1024
+# (configs/model/small.yaml; the case ids of L=16 are the original ones).
 LENGTHS = [pytest.param(c, n, id=f'{c}' if n == L else f'{c}-L{n}')
-           for n in (L, 256) for c in (False, True)]
+           for n in (L, 256, 1024) for c in (False, True)]
 
 
 @pytest.mark.parametrize('causal,length', LENGTHS)
