@@ -93,7 +93,13 @@ Each phase prints one JSON line:
      0 host syncs per step;
  14. a learning check of both text8 routes from the same weights and
      generator: 30 steps on one Zipf micro-batch at lr 3e-4, the bars of
-     12.
+     12;
+ 15. the reference DiT-small at its own L=1024 (`configs/model/small.yaml`,
+     the LM1B vocabulary) through `entry._dit_train_setup`, global batch 32
+     as micro-batches of 16, two steps on each attention route: finite
+     losses, exact launches (12 attention forwards and 12 backwards of the
+     route's kernels a micro-step) and every attention call on the tensor
+     cores.
 The serving path (6) runs feature-mix at T=1000 (the JAX bench's line) and
 records each run under PyTorch's sync debug mode: no host sync in
 feature-mix and first-hitting, exactly one a step in the NFE cache (its
@@ -106,14 +112,15 @@ against fp32 logits + K7 with the same seed (their Philox draws rebuilt in
 PyTorch where the two disagree), identical reruns; timed beside the
 composite of the unfused path.
 Phase 4 holds K1, K2 and their backwards at L=128 and L=256 (the text8
-micro-batch) and at the key-tile edges L=64, 192 and 200, and K1 and K2's
-forwards at L=1024 (the reference DiT-small), requires the tensor-core path
-of the bf16 forwards at D=64, reruns the bf16 forwards and the backwards
-for bit-identical outputs, and holds `ops.attention.forward_plan` equal to
-the built library's launch plan. It also holds K18 and K14
-against their plain versions at the
-DiMamba's full widths (fp32 and bf16, both directions' weights, a ragged
-row tile, a padded last chunk), timed at the Species10 shape, and K9/K10
+micro-batch), at the key-tile edges L=64, 192 and 200, at L=40 with D=64
+and D=32 and at L=1024 (the reference DiT-small), requires the tensor-core
+path of every bf16 call at D=64, reruns the bf16 forwards and the backwards
+for bit-identical outputs, bounds the share of bf16 outputs that differ
+from the plain version at all, and holds `ops.attention.forward_plan` and
+`backward_plan` equal to the built libraries' launch plans. It also holds
+K18 and K14 against their plain versions at the DiMamba's full widths
+(fp32 and bf16, both directions' weights, a ragged row tile, a padded last
+chunk), timed at the Species10 shape, and K9/K10
 at its V=12; and K19 and K15 (the backwards) the same way, twice each with
 bit-identical outputs, in bf16 also at the training shape (16 x 32768),
 timed there; K16 and K17 (the dt-lowrank scan and its backward) against
@@ -395,6 +402,12 @@ def _sdpa_ms(sdpa, do, backward):
         F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh), doh)) - fwd
 
 
+# The share of a bf16 attention backward's dq, dk or dv elements that may
+# differ at all from the plain version's (check_attention): the forward's
+# bar, three times the largest share measured on the card (0.34%).
+BWD_DIFFERS_BAR = 0.01
+
+
 def check_attention(results):
     """K1 and K2, forward and backward, against their plain versions,
     causal and not, in fp32 and bf16, at the shapes the main paths give
@@ -403,17 +416,19 @@ def check_attention(results):
     micro-batch x 256 (all four); at the key-tile edges L = 64, 192 and 200
     (one tile, three whole tiles, a ragged last tile; all four); a ragged
     L=40 on both kernel routes (D = 64 on tensor cores, D = 32 on CUDA
-    cores; the backward takes D = 64 only); and the reference DiT-small's
-    L=1024 (`long`, 4 x 1024 x 12 x 64: K1 and K2 forward, which take any
-    L; the backward takes L <= 256). Each backward runs twice with
-    bit-identical outputs, each bf16 forward twice with bit-identical
+    cores; all four); and the reference DiT-small's L=1024 (`long`, 4 x
+    1024 x 12 x 64: all four, which take any L). Each backward runs twice
+    with bit-identical outputs, each bf16 forward twice with bit-identical
     outputs. In bf16 with D = 64 every call must take the tensor-core path
     (the wrapper's `tensor_core_launches` rise with its `launches`). A bf16
     forward's record also gives the share of its outputs that differ from
     the plain version's at all (`differs_from_plain`), which must stay at
     or under 1%: the 2-ulp bar cannot tell P's rounding point apart, bit
     equality can (the CPU mirror of the two-pass key-tile order gives 0 to
-    0.12%, a flash-style order ~45%: tests/test_torch_attention_tiles.py).
+    0.12%, a flash-style order ~45%: tests/test_torch_attention_tiles.py);
+    a bf16 backward's gives it for each of dq, dk and dv, each at or under
+    BWD_DIFFERS_BAR (the CPU mirror of the two-launch tile order gives 0.1
+    to 0.3%: tests/test_torch_attention_bwd_tiles.py).
     The bf16 records of the main
     paths' shapes and of `long` hold the kernel's, plain version's and
     SDPA's CUDA-event medians and the bound; a kernel's main record is at
@@ -425,7 +440,6 @@ def check_attention(results):
     gen = torch.Generator(device=DEV).manual_seed(4)
     every = ('fused_rope_attention', 'short_seq_attention',
              'fused_rope_attention_bwd', 'short_seq_attention_bwd')
-    forwards = every[:2]
     shapes = {'lm1b_sampling': ((B2, L, H, DH), ('fused_rope_attention',
                                                   'short_seq_attention',
                                                   'short_seq_attention_bwd')),
@@ -437,8 +451,8 @@ def check_attention(results):
               **{f'tile_edges_L{n}': ((2, n, 3, DH), every)
                  for n in (64, 192, 200)},
               'ragged': ((4, 40, 3, DH), every),
-              'ragged_d32': ((4, 40, 2, 32), forwards),
-              'long': ((4, 1024, H, DH), forwards)}
+              'ragged_d32': ((4, 40, 2, 32), every),
+              'long': ((4, 1024, H, DH), every)}
     untimed = {'ragged', 'ragged_d32', 'tile_edges_L64', 'tile_edges_L192',
                'tile_edges_L200'}
     main = {'fused_rope_attention': 'lm1b_sampling',
@@ -459,7 +473,10 @@ def check_attention(results):
                         _bwd_case(rec, f'{name} {label} causal={causal}',
                                   dtype, (('dq', 'row'), ('dk', 'row'),
                                           ('dv', 'row')),
-                                  lambda: call(causal), lambda: plain(causal))
+                                  lambda: call(causal), lambda: plain(causal),
+                                  differs_bar=(BWD_DIFFERS_BAR
+                                               if dtype == torch.bfloat16
+                                               else None))
                         rec['bit_identical_rerun'] = True
                     else:
                         out, ref = call(causal), plain(causal)
@@ -502,25 +519,35 @@ def check_attention(results):
     return [shape for shape, _ in shapes.values()]
 
 
+def _plan_launch(v):
+    return dict(zip(('q_tile', 'k_tile', 'stages', 'smem', 'threads'), v[:5]),
+                grid=tuple(v[5:8]))
+
+
 def check_attention_plan(shapes):
-    """`ops.attention.forward_plan` (the launch plan the CPU tests check)
-    equals the built library's `ddg_attention_fwd_plan` at every shape
-    `check_attention` ran, in fp32 and bf16, rows aligned or not, and both
-    refuse the same head widths (290 is the widest the CUDA-core kernel's
-    shared memory holds)."""
+    """`ops.attention.forward_plan` and `backward_plan` (the launch plans
+    the CPU tests check) equal the built libraries' `ddg_attention_fwd_plan`
+    and `ddg_attention_bwd_plan` at every shape `check_attention` ran, in
+    fp32 and bf16, rows aligned or not, and each pair refuses the same head
+    widths (290 is the widest the CUDA-core forward's shared memory holds,
+    174 the CUDA-core backward's)."""
     import ctypes
     from ddg_tpu_torch.ops import _build
     from ddg_tpu_torch.ops import attention as A
     i32 = _build.i32
-    fn = _build.kernel('rope_attention', 'ddg_attention_fwd_plan',
-                       (i32,) * 6 + (_build.i32p,))
+    fwd = _build.kernel('rope_attention', 'ddg_attention_fwd_plan',
+                        (i32,) * 6 + (_build.i32p,))
+    bwd = _build.kernel('rope_attention_bwd', 'ddg_attention_bwd_plan',
+                        (i32,) * 6 + (_build.i32p,))
     dtypes = {torch.float32: 0, torch.bfloat16: 1}
     cases = [(*shape, dtype, aligned) for shape in shapes
              for dtype in dtypes for aligned in (True, False)]
-    cases += [(1, 16, 1, D, torch.float32, True) for D in (290, 292)]
+    cases += [(1, 16, 1, D, torch.float32, True)
+              for D in (174, 176, 290, 292)]
     for Bq, Lq, Hq, Dq, dtype, aligned in cases:
+        args = (Bq, Lq, Hq, Dq, dtypes[dtype], int(aligned))
         out = (ctypes.c_int * 9)()
-        rc = fn(Bq, Lq, Hq, Dq, dtypes[dtype], int(aligned), out)
+        rc = fwd(*args, out)
         try:
             py = A.forward_plan(Bq, Lq, Hq, Dq, dtype, aligned=aligned)
         except ValueError:
@@ -529,6 +556,19 @@ def check_attention_plan(shapes):
             ('path', 'q_tile', 'k_tile', 'stages', 'smem', 'threads'),
             out[:6]), grid=tuple(out[6:]))
         check(py == c, f'forward plan of {(Bq, Lq, Hq, Dq)} {dtype} '
+              f'aligned={aligned}: {py} in ops.attention, {c} in csrc')
+        out = (ctypes.c_int * 22)()
+        rc = bwd(*args, out)
+        try:
+            py = A.backward_plan(Bq, Lq, Hq, Dq, dtype, aligned=aligned)
+        except ValueError:
+            py = None
+        rope = (dict(threads=out[18], grid=tuple(out[19:22])) if out[18]
+                else None)
+        c = None if rc else dict(path=out[0], stats_len=out[1],
+                                 q=_plan_launch(out[2:10]),
+                                 kv=_plan_launch(out[10:18]), rope=rope)
+        check(py == c, f'backward plan of {(Bq, Lq, Hq, Dq)} {dtype} '
               f'aligned={aligned}: {py} in ops.attention, {c} in csrc')
     emit({'phase': 'attention_plan_mirror', 'cases': len(cases)})
 
@@ -1577,10 +1617,13 @@ def _close_grad(name, dtype, kind, out, ref, rel=False):
     return err, tol
 
 
-def _bwd_case(rec, label, dtype, names, call, plain, rel=False):
+def _bwd_case(rec, label, dtype, names, call, plain, rel=False,
+              differs_bar=None):
     """Kernel (twice: every output bit-identical) against plain (rows with
     `rel`, `_close`); the errors go into rec['outputs'][label] and raise
-    rec's maxima."""
+    rec's maxima. With `differs_bar`, the share of each output's elements
+    that differ from the plain version's at all must stay at or under it
+    (rec['differs_from_plain'][name] keeps the largest)."""
     got, again, ref = call(), call(), plain()
     torch.cuda.synchronize()
     errs = {}
@@ -1592,6 +1635,13 @@ def _bwd_case(rec, label, dtype, names, call, plain, rel=False):
         errs[name] = [err, tol]
         key = 'err' if kind == 'row' else 'sum_err_of_tol'
         rec[key] = max(rec.get(key, 0.0), err if kind == 'row' else err / tol)
+        if differs_bar is not None:
+            share = (a != c).float().mean().item()
+            seen = rec.setdefault('differs_from_plain', {})
+            seen[name] = max(seen.get(name, 0.0), share)
+            check(share <= differs_bar, f'{label} {name}: {share:.4f} of the '
+                                        f'outputs differ from the plain '
+                                        f'version (bar {differs_bar})')
     rec.setdefault('outputs', {})[label] = errs
     return got
 
@@ -2626,6 +2676,71 @@ def check_text8_learning(micro_steps=30, rows=64):
                         f'over the pooled tail std {pooled}')
 
 
+SMALL_L1024_MICRO_BATCH = 16
+
+
+def run_dit_small_l1024(kernels, steps=2):
+    """The reference DiT-small at its own L=1024 (`configs/model/small.yaml`:
+    hidden 768, 12 blocks of 12 heads of 64, cond 128; the LM1B flagship's
+    vocabulary) trained through `entry._dit_train_setup` on both attention
+    routes (TEXT8_ROUTES' flags): global batch 2 x SMALL_L1024_MICRO_BATCH
+    as two micro-batches, `steps` steps from seeded random weights. The
+    losses and grad norms must be finite, the launches exact (the route's
+    attention forward and backward 12 times a micro-step, the other
+    route's never, the adaLN kernels as in LM1B training) and every
+    attention call on the tensor cores. Returns the launches of both
+    routes."""
+    from ddg_tpu_torch.entry import (TEXT8_ROUTES, _dit_train_run,
+                                     _dit_train_setup)
+    from ddg_tpu_torch.models import DITConfig
+    from ddg_tpu_torch.ops import attention as A
+    attn = ('fused_rope_attention', 'fused_rope_attention_bwd',
+            'short_seq_attention', 'short_seq_attention_bwd')
+    total, out = {k: 0 for k in kernels}, {}
+    for route, flags in TEXT8_ROUTES.items():
+        cfg = DITConfig(hidden_size=768, cond_dim=128, length=1024,
+                        n_blocks=12, n_heads=12, vocab_size=V, **flags)
+        run = _dit_train_run(_dit_train_setup(
+            cfg, 2 * SMALL_L1024_MICRO_BATCH, SMALL_L1024_MICRO_BATCH),
+            DEV, 0)
+        batch = run.batch(torch.Generator(device=DEV).manual_seed(1))
+        for fn in kernels.values():
+            fn.launches = 0
+        tc = {n: getattr(A, n).tensor_core_launches for n in attn}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = [run.step(run.state, batch)[1] for _ in range(steps)]
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / steps
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        n_micro = steps * run.accum_steps
+        _launch_check(f'DiT-small L=1024 {route}', kernels, launches,
+                      TEXT8_PER_MICRO_STEP[route], n_micro)
+        for n in attn:
+            check(getattr(A, n).tensor_core_launches - tc[n] == launches[n],
+                  f'DiT-small L=1024 {route}: {n} missed the tensor cores')
+        loss = [m['loss'].item() for m in metrics]
+        gnorm = [m['grad_norm'].item() for m in metrics]
+        check(all(math.isfinite(v) for v in loss + gnorm),
+              f'DiT-small L=1024 {route}: non-finite loss or grad norm')
+        out[route] = {'ms_per_step': secs * 1e3,
+                      'tokens_per_s': run.global_batch * cfg.length / secs,
+                      'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+                      'loss': loss, 'grad_norm': gnorm,
+                      'launches_per_micro_step': {
+                          k: v / n_micro for k, v in launches.items() if v}}
+        for k, v in launches.items():
+            total[k] += v
+        del run, batch, metrics
+        torch.cuda.empty_cache()
+    emit({'phase': 'dit_small_l1024_train', 'length': cfg.length,
+          'steps': steps,
+          'global_batch': 2 * SMALL_L1024_MICRO_BATCH,
+          'micro_batch': SMALL_L1024_MICRO_BATCH, **out})
+    return total
+
+
 # ---------------------------------------------------------------------------
 # The UNet serving path: CIFAR10 UDLM with D-CFG
 # ---------------------------------------------------------------------------
@@ -3446,6 +3561,7 @@ def main():
     by_path['text8_training'] = run_text8_train_path(kernels, 'fused_rope')
     by_path['text8_training_short_seq'] = run_text8_train_path(
         kernels, 'short_seq', warmup=1, steps=2)
+    by_path['dit_small_l1024_training'] = run_dit_small_l1024(kernels)
     check_learning()
     check_dimamba_learning()
     check_text8_learning()

@@ -1,11 +1,11 @@
-// Softmax attention for the DiT's short sequences, backward, on the
-// token-major layout: K1b (with RoPE) and K2's backward (without).
+// Softmax attention for the DiT's sequences, backward, on the token-major
+// layout: K1b (with RoPE) and K2's backward (without).
 //
 // Replaces the backwards of ddg_tpu/ops/attention_pallas.py's two TPU
 // kernels: _rope_flash_bwd (:233-248, for fused_rope_attention) and
 // _flash_bwd (:101-115, for short_seq_attention). Both are plain-jnp
 // recomputes whose VJPs, through _rope_reference (:190-203) and
-// _reference (:63-75), round where this kernel rounds. For each (b, h),
+// _reference (:63-75), round where these kernels round. For each (b, h),
 // from the saved q, k, v and the output gradient dO, all (B, L, H, D):
 //   q' = RoPE(q), k' = RoPE(k)     K1b only: fp32, rounded to the input dtype
 //   P  = softmax(q' k'^T / sqrt(D)) fp32 (causal: keys j > i masked)
@@ -15,375 +15,388 @@
 //   dq' = (dS / sqrt(D)) k',  dk' = (dS / sqrt(D))^T q'   rounded to the input dtype
 //   dq = RoPE^T(dq'), dk = RoPE^T(dk')   K1b only: (x1, x2) <- (g1 c + g2 s, g2 c - g1 s),
 //                                        rounded again
+// delta comes from P and the rounded dP, not from rowsum(dO o O) as in
+// FlashAttention: that form moves the rounding point.
 //
 // Bound on the H100 at text8's training shape (micro-batch B=256, L=256,
 // H=12, D=64): 7 B L H D elements moved, 705 MB in bf16, take 0.210 ms at
 // 3.35 TB/s; five L x L x D products, 10 B H L^2 D = 128.8 GFLOP, take
-// 0.130 ms at the bf16 tensor-core rate. So the function is bound by
-// bytes.
+// 0.130 ms at the bf16 tensor-core rate. So the function is bound by bytes.
 //
-// Two kernels, each in a RoPE and a plain instantiation, one block of 256
-// threads per (head, batch), for D = 64 and L <= 256 (kMaxL / kKeys = 128
-// or 256, L rounded up); the wrapper raises on other shapes. Neither uses
-// atomics: dK and dV sum over the query tiles in registers, in the order
-// of the queries, so reruns are bit-identical. The grid is therefore only
-// H x B blocks, each walking every query tile of its head in turn, and at
-// L = 256 the bf16 kernel's 206.5 KB of shared memory holds one block to
-// an SM: below about 11 rows (132 SMs / 12 heads) SMs sit idle, and
-// fewer blocks a wave leave less to hide each block's serial walk behind.
-// * attention_bwd_mma_kernel, for bf16 (rows 16-byte aligned): the products
-//   on the tensor cores (mma.sync m16n8k16, fp32 sums); its comment below
-//   has the layout.
-// * attention_bwd_kernel, for float32: the block
-//   stages k', v of its head in fp32 (two kMaxL x 65 tiles, rows padded
-//   against bank conflicts, rows past L zero) and walks the queries in
-//   tiles of 32 rows, staging each tile's q' and dO (32 x 65) beside a
-//   32 x (kMaxL + 1) score tile: 100 KB of shared memory at kMaxL = 128,
-//   183 KB at 256. A tile has every key of its rows, so its softmax, delta
-//   and dq need nothing from other tiles. Per tile: S = q' k'^T with a
-//   thread holding 4 rows x kMaxL / 32 keys (a warp owns whole rows, so the softmax runs on
-//   registers with warp shuffles) and P written to the tile; dV +=
-//   round(P)^T dO; dP = dO V^T in the same layout, delta by warp shuffles;
-//   dS written over P once dV has read it; dq = dS k' (stored, un-rotated);
-//   dK += dS^T q'. All products are fp32 FMAs on the CUDA cores, which
-//   cannot take less than 0.96 ms at the shape above (67 TFLOP/s). The
-//   un-rotation pairs columns d and d + 32, which one thread holds.
+// Each call is two launches (K1b on the tensor cores: four, with the
+// rotations), in stream order, over tiles of 64 keys and of query rows, so
+// any L is taken and nothing held grows with it:
+//   kernel Q, query-tile parallel: pass A over the key tiles gives each
+//     row's max m and sum l exactly as the forward's pass 1 does (so that P
+//     is the forward's P bit for bit), and carries delta online beside l
+//     (sum_j exp(S - m_running) round(dP), rescaled as m grows, times 1 / l
+//     at the end: no extra product and no statistics saved by the forward);
+//     pass B forms P, dP, dS and dq' += dS k' tile by tile. It writes dq
+//     and each row's (m, 1/l or l, delta) to a workspace, (B, H, 3, Lp)
+//     fp32 with Lp = L rounded up to 64.
+//   kernel KV, key-tile parallel: each block owns its keys' dK and dV whole
+//     and walks the query tiles in order (q', dO and the workspace rows),
+//     forming P^T, dP^T and dS^T from the same formulas: dV += round(P^T)
+//     dO, dK += dS^T q'.
+// Neither uses atomics: every sum runs in a fixed order (dq over the keys,
+// dK and dV over the queries), so reruns are bit-identical. Under `causal`
+// kernel Q skips key tiles wholly past its rows and kernel KV query tiles
+// wholly before its keys.
+//
+// * The tensor-core kernels (bf16, D = 64, rows on 16-byte boundaries):
+//   attention_bwd_q_wgmma_kernel and attention_bwd_kv_wgmma_kernel, two
+//   warpgroups (256 threads) a block of 128 query rows (Q) or 128 keys
+//   (KV), a warpgroup's 64 rows being one wgmma M; grids (L / 128, H, B).
+//   Tiles are 64 x 64 bf16 in the 128-byte swizzle, copied by cp.async
+//   (wgmma.cuh, as the forward). Every product is wgmma m64n64k16 with fp32
+//   sums: S = Q K^T and dP = dO V^T (kernel Q), S^T = K Q^T and dP^T = V
+//   dO^T (kernel KV) from two K-major tiles in shared memory; dq' += dS K,
+//   dV += round(P^T) dO and dK += dS^T Q with A from registers (the S
+//   fragments turned into bf16 A fragments, as the forward's P) and B
+//   MN-major through the transpose bit. dS enters dq and dk as two bf16
+//   terms (split_bf16: the rounded value and the rounded remainder, together
+//   dS to about 2^-16 relative; tf32 would keep fewer bits).
+//   - Kernel Q keeps the block's two Q and two dO tiles; up to four key
+//     tiles (L <= 256) every K and V tile stays in its own slot from pass A
+//     to pass B, past that they stream through a two-stage ring (98,304
+//     bytes). At most 128 registers (126), so two blocks (16 warps) an SM.
+//   - Kernel KV keeps its two K and two V tiles and streams (q', dO, the
+//     workspace rows) through a two-stage ring (67,584 bytes); one block an
+//     SM (195 registers: dK, dV, S^T, dP^T and the A fragments). It issues
+//     dV's products before forming dS^T, so that the two overlap.
+//   - P = 2^((S - m) scale log2 e) / l by ex2.approx times 1 / l, the
+//     forward's own formula; the scale 1/8 is a power of two, so m is kept
+//     on the unscaled scores and scaling commutes exactly.
+//   - K1b rotates q and k once, before them (rope_rows_kernel into a
+//     (2, B, L, H, 64) workspace), and un-rotates dq' and dk' in place after
+//     them: two passes over four tensors (0.8 GB at text8's shape, 0.24 ms
+//     at 3.35 TB/s), where rotating tiles inside the kernels, as the
+//     forward does, cost twice that (PERF.md, PR 10).
+// * The CUDA-core kernels (float32; bf16 rows off 16-byte boundaries; any
+//   other even D up to the shared-memory cap, 174): attention_bwd_q_kernel
+//   (32 query rows a block, 64-key tiles) and attention_bwd_kv_kernel (64
+//   keys a block, 32-query tiles), 256 threads, the same passes with expf,
+//   IEEE division and fp32 products on the CUDA cores (the contract there).
+//   Shared memory depends on D only: (224 D + 4224) floats for Q and (320 D
+//   + 2400) for KV.
+// The C functions report in *path which kernels they launched (1: tensor
+// cores, 0: CUDA cores); ddg_attention_bwd_plan exports the launch plan,
+// which ops/attention.py:backward_plan mirrors.
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kD = 64;
-constexpr int kTq = 32;              // query rows of a tile (CUDA-core kernel)
-constexpr int kThreads = 256;
-constexpr int kRow = kD + 1;         // padded fp32 row of k', v, q', dO
-constexpr float kNeg = -1e30f;
-
-template <int kMaxL>
-constexpr size_t bwd_smem() {
-  return sizeof(float) * (2 * kMaxL * kRow + 2 * kTq * kRow + kTq * (kMaxL + 1));
-}
-
-// acc[a][b] += sum_k A[(ty + RS a) am + k ak] * Bm[k bk + (tx + CS b) bn],
-// A optionally rounded to T on load: a TM x TN tile of the result per
-// thread, rows RS and columns CS apart.
-template <int TM, int TN, int RS, int CS, bool kRoundA, typename T>
-__device__ __forceinline__ void tile_fma(float (&acc)[TM][TN], const float* A, int am, int ak,
-                                         const float* Bm, int bk, int bn, int K, int ty,
-                                         int tx) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[TM], bv[TN];
-#pragma unroll
-    for (int a = 0; a < TM; ++a) {
-      const float x = A[(ty + RS * a) * am + k * ak];
-      av[a] = kRoundA ? ddg::round_to<T>(x) : x;
-    }
-#pragma unroll
-    for (int b = 0; b < TN; ++b) bv[b] = Bm[k * bk + (tx + CS * b) * bn];
-#pragma unroll
-    for (int a = 0; a < TM; ++a)
-#pragma unroll
-      for (int b = 0; b < TN; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-  }
-}
-
-template <int TM, int TN>
-__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int b = 0; b < TN; ++b) acc[a][b] = 0.f;
-}
-
-// Store a (TM rows, 16 apart, from row0 + ty) x (4 column-groups, tx + 16 b)
-// tile of dq' or dk' rounded to T: un-rotated (K1b; columns tx + 16 b and
-// tx + 16 b + 32 are a pair) or as it is (K2).
-template <typename T, bool kRope, int TM>
-__device__ __forceinline__ void store_grad(const float (&acc)[TM][4], T* out, size_t head,
-                                           size_t row_stride, const float* cos,
-                                           const float* sin, int row0, int L, int ty, int tx) {
-  constexpr int half = kD / 2;
-#pragma unroll
-  for (int a = 0; a < TM; ++a) {
-    const int i = row0 + ty + 16 * a;
-    if (i >= L) continue;
-    T* row = out + head + static_cast<size_t>(i) * row_stride;
-    if constexpr (kRope) {
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const int f = tx + 16 * b;
-        const float g1 = ddg::round_to<T>(acc[a][b]);
-        const float g2 = ddg::round_to<T>(acc[a][b + 2]);
-        const float c = cos[i * half + f], s = sin[i * half + f];
-        row[f] = ddg::from_f32<T>(__fadd_rn(__fmul_rn(g1, c), __fmul_rn(g2, s)));
-        row[f + half] = ddg::from_f32<T>(__fsub_rn(__fmul_rn(g2, c), __fmul_rn(g1, s)));
-      }
-    } else {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) row[tx + 16 * b] = ddg::from_f32<T>(acc[a][b]);
-    }
-  }
-}
-
-// Stage rows [row0, row0 + n) of one head of x (rows ts apart) into dst
-// (n x kRow fp32): rotated and rounded to T (q, k of K1b) or as they are;
-// rows past L are 0.
-template <typename T, bool kRotate>
-__device__ __forceinline__ void stage_rows(float* dst, const T* x, size_t head, int ts, int row0,
-                                           int n, int L, const float* cos, const float* sin,
-                                           int tid) {
-  constexpr int half = kD / 2;
-  for (int idx = tid; idx < n * half; idx += kThreads) {
-    const int r = idx / half, f = idx % half, j = row0 + r;
-    float y1 = 0.f, y2 = 0.f;
-    if (j < L) {
-      const T* row = x + head + static_cast<size_t>(j) * ts;
-      const float x1 = ddg::to_f32(row[f]), x2 = ddg::to_f32(row[f + half]);
-      if constexpr (kRotate) {
-        const float c = cos[j * half + f], s = sin[j * half + f];
-        y1 = ddg::round_to<T>(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s)));
-        y2 = ddg::round_to<T>(__fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s)));
-      } else {
-        y1 = x1;
-        y2 = x2;
-      }
-    }
-    dst[r * kRow + f] = y1;
-    dst[r * kRow + f + half] = y2;
-  }
-}
-
-template <typename T, bool kRope, int kMaxL>
-__global__ void __launch_bounds__(kThreads, 1)
-    attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const float* __restrict__ cos,
-                         const float* __restrict__ sin, const T* __restrict__ dout,
-                         T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int L,
-                         int H, int ts_q, int ts_k, int ts_v, int causal, float scale) {
-  constexpr int kPRow = kMaxL + 1;   // padded fp32 row of the score tile
-  constexpr int kIW = kTq / 8;       // query rows of a thread in the wide layout
-  constexpr int kKT = kMaxL / 32;    // keys of a thread in the wide layout
-  constexpr int kIQ = kTq / 16;      // query rows of a thread's dq tile
-  constexpr int kJT = kMaxL / 16;    // key rows of a thread's dK, dV tile
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                  // kMaxL x kRow: k'
-  float* Vs = Ks + kMaxL * kRow;     // kMaxL x kRow: v
-  float* Qs = Vs + kMaxL * kRow;     // kTq x kRow: q' of the tile
-  float* Os = Qs + kTq * kRow;       // kTq x kRow: dO of the tile
-  float* Ps = Os + kTq * kRow;       // kTq x kPRow: P, then dS / sqrt(D)
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x;
-  // Square layout (16 x 16) for dq, dK, dV; wide layout (8 warps x 32
-  // lanes, warp w owning rows w, w + 8, ...) for S and dP.
-  const int ty = tid >> 4, tx = tid & 15;
-  const int wy = tid >> 5, wx = tid & 31;
-  const size_t qh = static_cast<size_t>(b) * L * ts_q + static_cast<size_t>(h) * kD;
-  const size_t kh = static_cast<size_t>(b) * L * ts_k + static_cast<size_t>(h) * kD;
-  const size_t vh = static_cast<size_t>(b) * L * ts_v + static_cast<size_t>(h) * kD;
-  // dO, dq, dk, dv are contiguous (B, L, H, D).
-  const size_t out_stride = static_cast<size_t>(H) * kD;
-  const size_t out_head = static_cast<size_t>(b) * L * out_stride + static_cast<size_t>(h) * kD;
-
-  stage_rows<T, kRope>(Ks, k, kh, ts_k, 0, kMaxL, L, cos, sin, tid);
-  stage_rows<T, false>(Vs, v, vh, ts_v, 0, kMaxL, L, cos, sin, tid);
-
-  float dv_acc[kJT][4], dk_acc[kJT][4];
-  zero(dv_acc);
-  zero(dk_acc);
-
-  for (int i0 = 0; i0 < L; i0 += kTq) {
-    __syncthreads();   // the previous tile is done with Qs, Os, Ps
-    stage_rows<T, kRope>(Qs, q, qh, ts_q, i0, kTq, L, cos, sin, tid);
-    stage_rows<T, false>(Os, dout, out_head, static_cast<int>(out_stride), i0, kTq, L, cos, sin,
-                         tid);
-    __syncthreads();
-
-    {  // S = q' k'^T / sqrt(D), masked; P = softmax(S) on registers; rows
-       // past L are 0.
-      float s[kIW][kKT];
-      zero(s);
-      tile_fma<kIW, kKT, 8, 32, false, T>(s, Qs, kRow, 1, Ks, 1, kRow, kD, wy, wx);
-#pragma unroll
-      for (int a = 0; a < kIW; ++a) {
-        const int i = i0 + wy + 8 * a;
-        float m = kNeg;
-#pragma unroll
-        for (int c = 0; c < kKT; ++c) {
-          const int j = wx + 32 * c;
-          float x = s[a][c] * scale;
-          if (j >= L || (causal && j > i)) x = kNeg;
-          s[a][c] = x;
-          m = fmaxf(m, x);
-        }
-        m = ddg::warp_max(m);
-        float sum = 0.f;
-#pragma unroll
-        for (int c = 0; c < kKT; ++c) {
-          s[a][c] = expf(s[a][c] - m);
-          sum += s[a][c];
-        }
-        sum = ddg::warp_sum(sum);
-        float* row = Ps + (wy + 8 * a) * kPRow;
-#pragma unroll
-        for (int c = 0; c < kKT; ++c) row[wx + 32 * c] = i < L ? s[a][c] / sum : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // dV += round(P)^T dO
-    tile_fma<kJT, 4, 16, 16, true, T>(dv_acc, Ps, 1, kPRow, Os, kRow, 1, kTq, ty, tx);
-
-    // dP = dO V^T (rounded), delta = rowsum(P dP), then dS = P dP - P delta
-    // over P once every thread has read it.
-    float dp[kIW][kKT], delta[kIW];
-    zero(dp);
-    tile_fma<kIW, kKT, 8, 32, false, T>(dp, Os, kRow, 1, Vs, 1, kRow, kD, wy, wx);
-#pragma unroll
-    for (int a = 0; a < kIW; ++a) {
-      const float* row = Ps + (wy + 8 * a) * kPRow;
-      float part = 0.f;
-#pragma unroll
-      for (int c = 0; c < kKT; ++c) {
-        dp[a][c] = ddg::round_to<T>(dp[a][c]);
-        part = fmaf(row[wx + 32 * c], dp[a][c], part);
-      }
-      delta[a] = ddg::warp_sum(part);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < kIW; ++a) {
-      float* row = Ps + (wy + 8 * a) * kPRow;
-#pragma unroll
-      for (int c = 0; c < kKT; ++c) {
-        float* at = row + wx + 32 * c;
-        const float p = *at;
-        const float ds = __fsub_rn(__fmul_rn(p, dp[a][c]), __fmul_rn(p, delta[a]));
-        *at = __fmul_rn(ds, scale);
-      }
-    }
-    __syncthreads();
-
-    {  // dq' = dS k' for the tile's rows, stored
-      float acc[kIQ][4];
-      zero(acc);
-      tile_fma<kIQ, 4, 16, 16, false, T>(acc, Ps, kPRow, 1, Ks, kRow, 1, kMaxL, ty, tx);
-      store_grad<T, kRope, kIQ>(acc, dq, out_head, out_stride, cos, sin, i0, L, ty, tx);
-    }
-    // dK += dS^T q'
-    tile_fma<kJT, 4, 16, 16, false, T>(dk_acc, Ps, 1, kPRow, Qs, kRow, 1, kTq, ty, tx);
-  }
-
-#pragma unroll
-  for (int a = 0; a < kJT; ++a) {
-    const int j = ty + 16 * a;
-    if (j >= L) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      dv[out_head + static_cast<size_t>(j) * out_stride + tx + 16 * c] =
-          ddg::from_f32<T>(dv_acc[a][c]);
-  }
-  store_grad<T, kRope, kJT>(dk_acc, dk, out_head, out_stride, cos, sin, 0, L, ty, tx);
-}
-
-// --- bf16 tensor-core path ---------------------------------------------------
-
-using ddg::ld32;
-using ddg::mma_16816;
 using ddg::pack_bf16;
 
-constexpr int kMq = 64;           // query rows of a tile
-constexpr int kMRow = kD + 8;     // padded bf16 row of k', v, q', dO: 36 words, 4 mod 32
-constexpr int kMTRow = kMq + 8;   // padded bf16 row of q'^T, dO^T
+constexpr int kKeyTile = 64;               // keys of a tile (kernel Q), of a block (CUDA-core KV)
+constexpr int kSmemMax = 232448;           // dynamic shared memory of a block on the H100
 
-// Shared memory of the tensor-core kernel (byte offsets), for kKeys = 128 or
-// 256 keys: k', k'^T, v of the head; q', dO, q'^T, dO^T of the query tile
-// (bf16); P, then dS, of the tile (fp32, rows 4 mod 32 words); the two key
-// halves' partial deltas. 122.5 KB at 128 keys, 206.5 KB at 256.
-template <int kKeys>
-struct MmaLayout {
-  static constexpr int kKtRow = kKeys + 8;   // padded bf16 row of k'^T
-  static constexpr int kPRow = kKeys + 4;    // padded fp32 row of P / dS
-  static constexpr size_t kK = 0;
-  static constexpr size_t kKt = kK + 2 * kKeys * kMRow;
-  static constexpr size_t kV = kKt + 2 * kD * kKtRow;
-  static constexpr size_t kQ = kV + 2 * kKeys * kMRow;
-  static constexpr size_t kO = kQ + 2 * kMq * kMRow;
-  static constexpr size_t kQt = kO + 2 * kMq * kMRow;
-  static constexpr size_t kOt = kQt + 2 * kD * kMTRow;
-  static constexpr size_t kP = kOt + 2 * kD * kMTRow;
-  static constexpr size_t kDelta = kP + 4 * kMq * kPRow;
-  static constexpr size_t kSmem = kDelta + 4 * 2 * kMq;
-};
+// --- fp32 / any-D path on the CUDA cores ------------------------------------
 
-// Rows [row0, row0 + n) of one head of x (rows ts apart) into bf16 shared
-// memory, rows kMRow apart and, with dst_t, transposed (dst_t[d t_row + r]):
-// rotated and rounded (kRotate) or as they are; rows past L are 0.
-template <bool kRotate>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, __nv_bfloat16* dst_t, int t_row,
-                                           const __nv_bfloat16* x, size_t head, int ts,
-                                           int row0, int n, int L, const float* cos,
-                                           const float* sin, int tid) {
-  constexpr int half = kD / 2;
-  for (int idx = tid; idx < n * (half / 8); idx += kThreads) {
-    const int r = idx / (half / 8), f = (idx % (half / 8)) * 8, j = row0 + r;
-    float y1[8], y2[8];
-    if (j < L) {
-      const __nv_bfloat16* row = x + head + static_cast<size_t>(j) * ts;
-      ddg::load16(row + f, y1);
-      ddg::load16(row + f + half, y2);
-      if constexpr (kRotate) {
-        float c[8], s[8];
-        ddg::load_f32<8>(cos + j * half + f, c);
-        ddg::load_f32<8>(sin + j * half + f, s);
+constexpr int kTile = 32;                  // query rows of a tile
+constexpr int kThreads = 256;
+constexpr int kRowsPerWarp = kTile / (kThreads / 32);
+
+// Kernel Q: q', dO and the dq' sums (kTile x D each), k' and v (kKeyTile x
+// (D + 1) each, rows padded against bank conflicts), S then dS and the
+// rounded dP (kTile x kKeyTile each).
+__host__ __device__ constexpr size_t core_q_smem(int D) {
+  return sizeof(float) * (3 * static_cast<size_t>(kTile) * D +
+                          2 * static_cast<size_t>(kKeyTile) * (D + 1) + 2 * kTile * kKeyTile);
+}
+
+// Kernel KV: k', v (kKeyTile x (D + 1)), the query tile's q', dO (kTile x
+// (D + 1)), P^T then dS^T (kKeyTile x (kTile + 1)), the tile's m, l, delta
+// (3 x kTile), the dk' and dv sums (kKeyTile x D each).
+__host__ __device__ constexpr size_t core_kv_smem(int D) {
+  return sizeof(float) * (2 * static_cast<size_t>(kKeyTile) * (D + 1) +
+                          2 * static_cast<size_t>(kTile) * (D + 1) + kKeyTile * (kTile + 1) +
+                          3 * kTile + 2 * static_cast<size_t>(kKeyTile) * D);
+}
+
+// Element d of row `pos` of q or k as the products take it: rotated and
+// rounded to T (kRope; the forward's rope_at) or as it is.
+template <typename T, bool kRope>
+__device__ __forceinline__ float qk_at(const T* row, int pos, int d, int D, const float* cos,
+                                       const float* sin) {
+  if constexpr (kRope) {
+    const int half = D / 2, f = d < half ? d : d - half;
+    const float c = cos[pos * half + f], s = sin[pos * half + f];
+    const float x = ddg::to_f32(row[d]);
+    const float y = d < half ? __fsub_rn(__fmul_rn(x, c), __fmul_rn(ddg::to_f32(row[d + half]), s))
+                             : __fadd_rn(__fmul_rn(x, c), __fmul_rn(ddg::to_f32(row[d - half]), s));
+    return ddg::round_to<T>(y);
+  } else {
+    return ddg::to_f32(row[d]);
+  }
+}
+
+// Rows [row0, row0 + n) of one head of x (rows ts elements apart) into dst
+// (rows `stride` floats apart), as qk_at gives them; rows past L are 0.
+template <typename T, bool kRope>
+__device__ __forceinline__ void stage_rows(float* dst, int stride, const T* x, int ts, int row0,
+                                           int n, int L, int D, const float* cos,
+                                           const float* sin) {
+  for (int idx = threadIdx.x; idx < n * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D, p = row0 + r;
+    dst[r * stride + d] =
+        p < L ? qk_at<T, kRope>(x + static_cast<size_t>(p) * ts, p, d, D, cos, sin) : 0.f;
+  }
+}
+
+// Rows [row0, row0 + n) of dq', dk' or dv (fp32 sums, rows `stride` floats
+// apart) to out (rows out_stride apart), rounded to T and, under kRope,
+// un-rotated and rounded again.
+template <typename T, bool kRope>
+__device__ __forceinline__ void store_rows(const float* src, int stride, T* out,
+                                           size_t out_stride, int row0, int n, int L, int D,
+                                           const float* cos, const float* sin) {
+  const int half = D / 2;
+  for (int idx = threadIdx.x; idx < n * half; idx += kThreads) {
+    const int r = idx / half, f = idx % half, p = row0 + r;
+    if (p >= L) continue;
+    T* row = out + static_cast<size_t>(p) * out_stride;
+    const float g1 = ddg::round_to<T>(src[r * stride + f]);
+    const float g2 = ddg::round_to<T>(src[r * stride + f + half]);
+    if constexpr (kRope) {
+      const float c = cos[p * half + f], s = sin[p * half + f];
+      row[f] = ddg::from_f32<T>(__fadd_rn(__fmul_rn(g1, c), __fmul_rn(g2, s)));
+      row[f + half] = ddg::from_f32<T>(__fsub_rn(__fmul_rn(g2, c), __fmul_rn(g1, s)));
+    } else {
+      row[f] = ddg::from_f32<T>(g1);
+      row[f + half] = ddg::from_f32<T>(g2);
+    }
+  }
+}
+
+__device__ __forceinline__ float ds_of(float p, float dp, float delta, float scale) {
+  return __fmul_rn(__fsub_rn(__fmul_rn(p, dp), __fmul_rn(p, delta)), scale);
+}
+
+// Kernel Q on the CUDA cores: one block per (32-row query tile, head,
+// batch). Warp w owns rows w, w + 8, w + 16, w + 24 for the softmax.
+template <typename T, bool kRope>
+__global__ void __launch_bounds__(kThreads)
+    attention_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const float* __restrict__ cos,
+                           const float* __restrict__ sin, const T* __restrict__ dout,
+                           T* __restrict__ dq, float* __restrict__ stats, int L, int H, int D,
+                           int ts_q, int ts_k, int ts_v, int causal, float scale, int Lp) {
+  extern __shared__ float smem[];
+  const int KS = D + 1;
+  float* Qs = smem;                    // kTile x D: q'
+  float* Os = Qs + kTile * D;          // kTile x D: dO
+  float* Gs = Os + kTile * D;          // kTile x D: the dq' sums
+  float* Ks = Gs + kTile * D;          // kKeyTile x (D + 1): k'
+  float* Vs = Ks + kKeyTile * KS;      // kKeyTile x (D + 1): v
+  float* Ss = Vs + kKeyTile * KS;      // kTile x kKeyTile: S, then dS
+  float* Ps = Ss + kTile * kKeyTile;   // kTile x kKeyTile: dP, rounded
+  const int i0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int out_stride = H * D;
+  const T* qh = q + static_cast<size_t>(b) * L * ts_q + static_cast<size_t>(h) * D;
+  const T* kh = k + static_cast<size_t>(b) * L * ts_k + static_cast<size_t>(h) * D;
+  const T* vh = v + static_cast<size_t>(b) * L * ts_v + static_cast<size_t>(h) * D;
+  const size_t head = static_cast<size_t>(b) * L * out_stride + static_cast<size_t>(h) * D;
+
+  stage_rows<T, kRope>(Qs, D, qh, ts_q, i0, kTile, L, D, cos, sin);
+  stage_rows<T, false>(Os, D, dout + head, out_stride, i0, kTile, L, D, cos, sin);
+  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) Gs[idx] = 0.f;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float m[kRowsPerWarp], l[kRowsPerWarp], dl[kRowsPerWarp], delta[kRowsPerWarp];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float x1 = y1[i], x2 = y2[i];
-          y1[i] = __fsub_rn(__fmul_rn(x1, c[i]), __fmul_rn(x2, s[i]));
-          y2[i] = __fadd_rn(__fmul_rn(x2, c[i]), __fmul_rn(x1, s[i]));
+  for (int r = 0; r < kRowsPerWarp; ++r) m[r] = kNeg, l[r] = dl[r] = delta[r] = 0.f;
+
+  const int n_tiles = (L + kKeyTile - 1) / kKeyTile;
+  const int n_keys = causal ? min(n_tiles, (i0 + kTile - 1) / kKeyTile + 1) : n_tiles;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int jt = 0; jt < n_keys; ++jt) {
+      const int j0 = jt * kKeyTile;
+      __syncthreads();  // the previous tile's readers are done
+      stage_rows<T, kRope>(Ks, KS, kh, ts_k, j0, kKeyTile, L, D, cos, sin);
+      stage_rows<T, false>(Vs, KS, vh, ts_v, j0, kKeyTile, L, D, cos, sin);
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < kTile * kKeyTile; idx += kThreads) {
+        const int i = idx / kKeyTile, jj = idx % kKeyTile, key = j0 + jj;
+        const float *qi = Qs + i * D, *oi = Os + i * D;
+        const float *kj = Ks + jj * KS, *vj = Vs + jj * KS;
+        float s = 0.f, dp = 0.f;
+        for (int d = 0; d < D; ++d) {
+          s = fmaf(qi[d], kj[d], s);
+          dp = fmaf(oi[d], vj[d], dp);
+        }
+        s *= scale;
+        if (key >= L || (causal && key > i0 + i)) s = kNeg;
+        Ss[idx] = s;
+        Ps[idx] = ddg::round_to<T>(dp);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        float* s = Ss + (warp + r * (kThreads / 32)) * kKeyTile;
+        const float* dp = Ps + (warp + r * (kThreads / 32)) * kKeyTile;
+        const float x0 = s[lane], x1 = s[lane + 32], d0 = dp[lane], d1 = dp[lane + 32];
+        if (pass == 0) {
+          // The forward's pass 1, with delta carried beside l.
+          const float mn = fmaxf(m[r], ddg::warp_max(fmaxf(x0, x1)));
+          const float e0 = expf(x0 - mn), e1 = expf(x1 - mn);
+          const float sum = ddg::warp_sum(e0 + e1);
+          const float dsum = ddg::warp_sum(fmaf(e0, d0, e1 * d1));
+          const float f = expf(m[r] - mn);
+          l[r] = l[r] * f + sum;
+          dl[r] = dl[r] * f + dsum;
+          m[r] = mn;
+        } else {
+          const float p0 = expf(x0 - m[r]) / l[r], p1 = expf(x1 - m[r]) / l[r];
+          s[lane] = ds_of(p0, d0, delta[r], scale);
+          s[lane + 32] = ds_of(p1, d1, delta[r], scale);
         }
       }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) y1[i] = y2[i] = 0.f;
-    }
-    ddg::store16(dst + r * kMRow + f, y1);
-    ddg::store16(dst + r * kMRow + f + half, y2);
-    if (dst_t != nullptr) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        dst_t[(f + i) * t_row + r] = __float2bfloat16_rn(y1[i]);
-        dst_t[(f + half + i) * t_row + r] = __float2bfloat16_rn(y2[i]);
+      if (pass == 0) continue;
+      __syncthreads();
+      // dq' += dS k' in key order.
+      for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
+        const int i = idx / D, d = idx % D;
+        const float* ds = Ss + i * kKeyTile;
+        float acc = Gs[idx];
+        for (int jj = 0; jj < kKeyTile; ++jj) acc = fmaf(ds[jj], Ks[jj * KS + d], acc);
+        Gs[idx] = acc;
       }
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) delta[r] = dl[r] / l[r];
+    }
+  }
+  __syncthreads();
+  store_rows<T, kRope>(Gs, D, dq + head, out_stride, i0, kTile, L, D, cos, sin);
+  if (lane == 0) {
+    float* st = stats + (static_cast<size_t>(b) * H + h) * 3 * Lp;
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int row = i0 + warp + r * (kThreads / 32);
+      if (row >= L) continue;
+      st[row] = m[r];
+      st[Lp + row] = l[r];
+      st[2 * Lp + row] = delta[r];
     }
   }
 }
 
-// Rows [row0, row0 + n) of dq' or dk' (bf16 in shared memory, rows kMRow
-// apart) to the output: un-rotated and rounded again (kRope) or as they are.
-template <bool kRope>
-__device__ __forceinline__ void store_rows(const __nv_bfloat16* src, __nv_bfloat16* out,
-                                           size_t head, size_t stride, int row0, int n, int L,
-                                           const float* cos, const float* sin, int tid) {
-  constexpr int half = kD / 2;
-  for (int idx = tid; idx < n * half; idx += kThreads) {
-    const int r = idx / half, f = idx % half, i = row0 + r;
-    if (i >= L) continue;
-    __nv_bfloat16* row = out + head + static_cast<size_t>(i) * stride;
-    const __nv_bfloat16 x1 = src[r * kMRow + f], x2 = src[r * kMRow + f + half];
-    if constexpr (kRope) {
-      const float g1 = __bfloat162float(x1), g2 = __bfloat162float(x2);
-      const float c = cos[i * half + f], s = sin[i * half + f];
-      row[f] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(g1, c), __fmul_rn(g2, s)));
-      row[f + half] = __float2bfloat16_rn(__fsub_rn(__fmul_rn(g2, c), __fmul_rn(g1, s)));
-    } else {
-      row[f] = x1;
-      row[f + half] = x2;
+// Kernel KV on the CUDA cores: one block per (64-key tile, head, batch),
+// walking the 32-row query tiles in order.
+template <typename T, bool kRope>
+__global__ void __launch_bounds__(kThreads)
+    attention_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const float* __restrict__ cos,
+                            const float* __restrict__ sin, const T* __restrict__ dout,
+                            T* __restrict__ dk, T* __restrict__ dv,
+                            const float* __restrict__ stats, int L, int H, int D, int ts_q,
+                            int ts_k, int ts_v, int causal, float scale, int Lp) {
+  extern __shared__ float smem[];
+  const int RS = D + 1;                // padded row of k', v, q', dO
+  constexpr int PS = kTile + 1;        // padded row of P^T / dS^T
+  constexpr int kPer = kKeyTile * kTile / kThreads;
+  float* Ks = smem;                    // kKeyTile x (D + 1): k'
+  float* Vs = Ks + kKeyTile * RS;      // kKeyTile x (D + 1): v
+  float* Qs = Vs + kKeyTile * RS;      // kTile x (D + 1): q' of the query tile
+  float* Os = Qs + kTile * RS;         // kTile x (D + 1): dO of the query tile
+  float* Pt = Os + kTile * RS;         // kKeyTile x (kTile + 1): P^T, then dS^T
+  float* St = Pt + kKeyTile * PS;      // 3 x kTile: m, l, delta of the tile's rows
+  float* dKs = St + 3 * kTile;         // kKeyTile x D: the dk' sums
+  float* dVs = dKs + kKeyTile * D;     // kKeyTile x D: the dv sums
+  const int j0 = blockIdx.x * kKeyTile, h = blockIdx.y, b = blockIdx.z;
+  const int out_stride = H * D;
+  const T* qh = q + static_cast<size_t>(b) * L * ts_q + static_cast<size_t>(h) * D;
+  const T* kh = k + static_cast<size_t>(b) * L * ts_k + static_cast<size_t>(h) * D;
+  const T* vh = v + static_cast<size_t>(b) * L * ts_v + static_cast<size_t>(h) * D;
+  const size_t head = static_cast<size_t>(b) * L * out_stride + static_cast<size_t>(h) * D;
+  const float* st = stats + (static_cast<size_t>(b) * H + h) * 3 * Lp;
+
+  stage_rows<T, kRope>(Ks, RS, kh, ts_k, j0, kKeyTile, L, D, cos, sin);
+  stage_rows<T, false>(Vs, RS, vh, ts_v, j0, kKeyTile, L, D, cos, sin);
+  for (int idx = threadIdx.x; idx < kKeyTile * D; idx += kThreads) dKs[idx] = dVs[idx] = 0.f;
+
+  const int n_q = (L + kTile - 1) / kTile;
+  for (int it = causal ? j0 / kTile : 0; it < n_q; ++it) {
+    const int i0 = it * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    stage_rows<T, kRope>(Qs, RS, qh, ts_q, i0, kTile, L, D, cos, sin);
+    stage_rows<T, false>(Os, RS, dout + head, out_stride, i0, kTile, L, D, cos, sin);
+    for (int idx = threadIdx.x; idx < 3 * kTile; idx += kThreads) {
+      const int c = idx / kTile, p = i0 + idx % kTile;
+      St[idx] = p < L ? st[c * Lp + p] : (c == 1 ? 1.f : 0.f);
+    }
+    __syncthreads();
+    // P^T from kernel Q's formulas: S summed over d in the same order.
+    for (int idx = threadIdx.x; idx < kKeyTile * kTile; idx += kThreads) {
+      const int jj = idx / kTile, ii = idx % kTile, key = j0 + jj, row = i0 + ii;
+      const float *qi = Qs + ii * RS, *kj = Ks + jj * RS;
+      float s = 0.f;
+      for (int d = 0; d < D; ++d) s = fmaf(qi[d], kj[d], s);
+      s *= scale;
+      const bool masked = row >= L || key >= L || (causal && key > row);
+      Pt[jj * PS + ii] = masked ? 0.f : expf(s - St[ii]) / St[kTile + ii];
+    }
+    __syncthreads();
+    // dv += round(P)^T dO in query order.
+    for (int idx = threadIdx.x; idx < kKeyTile * D; idx += kThreads) {
+      const int jj = idx / D, d = idx % D;
+      const float* p = Pt + jj * PS;
+      float acc = dVs[idx];
+      for (int ii = 0; ii < kTile; ++ii) acc = fmaf(ddg::round_to<T>(p[ii]), Os[ii * RS + d], acc);
+      dVs[idx] = acc;
+    }
+    // dP^T rounded, dS^T over P^T once dv has read it.
+    float ds[kPer];
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int idx = threadIdx.x + e * kThreads, jj = idx / kTile, ii = idx % kTile;
+      const float *oi = Os + ii * RS, *vj = Vs + jj * RS;
+      float dp = 0.f;
+      for (int d = 0; d < D; ++d) dp = fmaf(oi[d], vj[d], dp);
+      ds[e] = ds_of(Pt[jj * PS + ii], ddg::round_to<T>(dp), St[2 * kTile + ii], scale);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int idx = threadIdx.x + e * kThreads;
+      Pt[(idx / kTile) * PS + idx % kTile] = ds[e];
+    }
+    __syncthreads();
+    // dk' += dS^T q' in query order.
+    for (int idx = threadIdx.x; idx < kKeyTile * D; idx += kThreads) {
+      const int jj = idx / D, d = idx % D;
+      const float* g = Pt + jj * PS;
+      float acc = dKs[idx];
+      for (int ii = 0; ii < kTile; ++ii) acc = fmaf(g[ii], Qs[ii * RS + d], acc);
+      dKs[idx] = acc;
     }
   }
+  __syncthreads();
+  store_rows<T, false>(dVs, D, dv + head, out_stride, j0, kKeyTile, L, D, cos, sin);
+  store_rows<T, kRope>(dKs, D, dk + head, out_stride, j0, kKeyTile, L, D, cos, sin);
 }
+
+// --- bf16 tensor-core path: wgmma over 64-row tiles --------------------------
+
+constexpr int kGroups = 2;                        // warpgroups of a block
+static_assert(kMmaThreads == 128 * kGroups, "one block is kGroups warpgroups");
+constexpr int kBlockRows = kTileRows * kGroups;   // query rows (Q) or keys (KV) of a block
+constexpr int kStages = 2;                        // the rings' depth
+constexpr int kSlots = 4;                         // K and V tiles kept for pass B: L <= 256
+constexpr int kStatBytes = 1024;                  // m, 1/l, delta of 64 rows (768 bytes), padded
+// Kernel Q: Q tiles 0-1, dO tiles 2-3, K slots 4-7, V slots 8-11.
+constexpr size_t kQSmem = static_cast<size_t>(kTileBytes) * (2 * kGroups + 2 * kSlots);
+// Kernel KV: K tiles 0-1, V tiles 2-3, then kStages stages of (Q tile, dO
+// tile, workspace rows), each stage 1024-aligned.
+constexpr int kKvStage = 2 * kTileBytes + kStatBytes;
+static_assert(kKvStage % kSwizzleAlign == 0, "stages keep the tiles 1024-aligned");
+constexpr size_t kKvSmem = static_cast<size_t>(kTileBytes) * 2 * kGroups + kStages * kKvStage;
 
 // (a, b) as two bf16 pairs whose sum is (a, b) to about 2^-16 relative: the
 // rounded pair and the rounded remainder.
@@ -394,376 +407,627 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
-// bf16, D = 64, L <= kKeys: one block of 8 warps per (head, batch) stages
-// k', k'^T and v of the head and walks the queries in tiles of 64. Per
-// tile, a warp owns 16 query rows x half of the keys for S and dP (bf16
-// products on the tensor cores, mma.sync m16n8k16, fp32 sums), 16 rows x
-// half of the head dim for dq, and kKeys / 128 16-key row tiles of dK and
-// dV, which sum over the tiles in registers. P goes through fp32 shared
-// memory: the softmax runs a warp to a row, dV reads round(P)^T as its A
-// fragments, dS = P dP - P delta overwrites it. dq and dk take the fp32 dS
-// as two bf16 terms (split_bf16), so their products keep dS to about 2^-16
-// where the plain version keeps it in fp32; dq' and dk' are rounded to
-// bf16 and staged in shared memory, then un-rotated by rows.
-template <bool kRope, int kKeys>
-__global__ void __launch_bounds__(kThreads, 1)
-    attention_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v, const float* __restrict__ cos,
-                             const float* __restrict__ sin,
-                             const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
-                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                             int L, int H, int ts_q, int ts_k, int ts_v, int causal,
-                             float scale) {
-  using M = MmaLayout<kKeys>;
-  constexpr int kKtRow = M::kKtRow, kPRow = M::kPRow;
-  constexpr int kNT = kKeys / 16;    // 8-key tiles of a warp's half of the keys
-  constexpr int kJT = kKeys / 128;   // 16-key row tiles of a warp's dK, dV
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + M::kK);
-  __nv_bfloat16* Kt = reinterpret_cast<__nv_bfloat16*>(smem_raw + M::kKt);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem_raw + M::kV);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + M::kQ);
-  __nv_bfloat16* Os = reinterpret_cast<__nv_bfloat16*>(smem_raw + M::kO);
-  __nv_bfloat16* Qt = reinterpret_cast<__nv_bfloat16*>(smem_raw + M::kQt);
-  __nv_bfloat16* Ot = reinterpret_cast<__nv_bfloat16*>(smem_raw + M::kOt);
-  float* Ps = reinterpret_cast<float*>(smem_raw + M::kP);
-  float* Dl = reinterpret_cast<float*>(smem_raw + M::kDelta);
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, column pair
-  const int half_ = warp >> 2;            // the warp's half of the keys (S, dP) or of d (dq)
-  const int r0 = (warp & 3) * 16 + g;     // the lane's rows in the tile: r0, r0 + 8
-  const int key0 = half_ * (kKeys / 2);
-  const size_t qh = static_cast<size_t>(b) * L * ts_q + static_cast<size_t>(h) * kD;
-  const size_t kh = static_cast<size_t>(b) * L * ts_k + static_cast<size_t>(h) * kD;
-  const size_t vh = static_cast<size_t>(b) * L * ts_v + static_cast<size_t>(h) * kD;
-  const size_t out_stride = static_cast<size_t>(H) * kD;
-  const size_t out_head = static_cast<size_t>(b) * L * out_stride + static_cast<size_t>(h) * kD;
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
-  stage_bf16<kRope>(Ks, Kt, kKtRow, k, kh, ts_k, 0, kKeys, L, cos, sin, tid);
-  stage_bf16<false>(Vs, nullptr, 0, v, vh, ts_v, 0, kKeys, L, cos, sin, tid);
+// d1 = A1 B1^T and d2 = A2 B2^T (64 x 64 over the head dim, all four tiles
+// K-major in shared memory): one commit group, one wait.
+__device__ __forceinline__ void two_products(float (&d1)[32], uint32_t a1, uint32_t b1,
+                                             float (&d2)[32], uint32_t a2, uint32_t b2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d1[i] = d2[i] = 0.f;
+  fence_regs(d1);
+  fence_regs(d2);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kMmaD / 16; ++kk)
+    wgmma_ss(d1, desc_b128(a1 + 32 * kk), desc_b128(b1 + 32 * kk));
+#pragma unroll
+  for (int kk = 0; kk < kMmaD / 16; ++kk)
+    wgmma_ss(d2, desc_b128(a2 + 32 * kk), desc_b128(b2 + 32 * kk));
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(d1);
+  fence_regs(d2);
+}
 
-  float dv_acc[kJT][kD / 8][4], dk_acc[kJT][kD / 8][4];
+// A warpgroup's 64 x 64 fp32 sums (the wgmma D layout) to bf16 in a
+// swizzled tile.
+__device__ __forceinline__ void stage_acc(unsigned char* tile, const float (&acc)[32]) {
+  const int lr = ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+  const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int jr = 0; jr < kJT; ++jr)
-#pragma unroll
-    for (int nt = 0; nt < kD / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dv_acc[jr][nt][e] = dk_acc[jr][nt][e] = 0.f;
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<uint32_t*>(tile + swz(lr, j) + 4 * t) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(tile + swz(lr + 8, j) + 4 * t) =
+        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
 
-  for (int i0 = 0; i0 < L; i0 += kMq) {
-    __syncthreads();   // the previous tile is done with Qs, Os, Qt, Ot, Ps
-    stage_bf16<kRope>(Qs, Qt, kMTRow, q, qh, ts_q, i0, kMq, L, cos, sin, tid);
-    stage_bf16<false>(Os, Ot, kMTRow, dout, out_head, static_cast<int>(out_stride), i0, kMq, L,
-                      cos, sin, tid);
+// Rows row0 .. row0 + 127 of the two swizzled tiles at `tiles` (rows 0-63,
+// then 64-127) to out as 16-byte rows, those < L.
+__device__ __forceinline__ void store_tiles(const unsigned char* tiles, bf16* out,
+                                            size_t out_stride, int row0, int L) {
+  const int c = threadIdx.x & 7;
+#pragma unroll
+  for (int i = 0; i < kBlockRows * 8 / kMmaThreads; ++i) {
+    const int r = (threadIdx.x >> 3) + i * (kMmaThreads / 8);
+    if (row0 + r < L)
+      *reinterpret_cast<uint4*>(out + (row0 + r) * out_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(tiles + (r / kTileRows) * kTileBytes +
+                                          swz(r % kTileRows, c));
+  }
+}
+
+// Kernel Q on the tensor cores: one block of two warpgroups per (128-row
+// query tile, head, batch), warpgroup wg taking rows q0 + 64 wg .. + 63.
+// A thread holds rows r0 and r0 + 8 of its warpgroup's S, dP and dq' sums
+// (the wgmma D layout: s[4 j + e] is row r0 + 8 (e >> 1), key j0 + 8 j + 2 t
+// + (e & 1)).
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    attention_bwd_q_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                 bf16* __restrict__ dq, float* __restrict__ stats, int L, int H,
+                                 int ts_q, int ts_k, int ts_v, int causal, float scale, int Lp) {
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  unsigned char* const smem = smem_tiles;
+  const uint32_t base = smem_addr(smem);
+  if (base % kSwizzleAlign) __trap();
+  const int q0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
+  const size_t out_stride = static_cast<size_t>(H) * kMmaD;
+  const bf16* qh = q + static_cast<size_t>(b) * L * ts_q + h * kMmaD;
+  const bf16* kh = k + static_cast<size_t>(b) * L * ts_k + h * kMmaD;
+  const bf16* vh = v + static_cast<size_t>(b) * L * ts_v + h * kMmaD;
+  const size_t head = static_cast<size_t>(b) * L * out_stride + h * kMmaD;
+
+  const int n_tiles = (L + kKeyTile - 1) / kKeyTile;
+  const int last_row = min(L, q0 + kBlockRows) - 1;
+  const int n_keys = causal ? min(n_tiles, last_row / kKeyTile + 1) : n_tiles;
+  const int n_steps = 2 * n_keys;  // pass A's key tiles, then pass B's
+  const bool resident = n_keys <= kSlots;
+  auto first_key = [&](int step) { return (step < n_keys ? step : step - n_keys) * kKeyTile; };
+  auto slot = [&](int step) { return resident ? first_key(step) / kKeyTile : step % kStages; };
+  auto k_slot = [&](int step) { return base + (2 * kGroups + slot(step)) * kTileBytes; };
+  auto v_slot = [&](int step) { return base + (2 * kGroups + kSlots + slot(step)) * kTileBytes; };
+  auto loads = [&](int step) { return step < n_keys || !resident; };
+  // One commit group a step.
+  auto issue = [&](int step) {
+    if (step >= n_steps) return;
+    if (loads(step)) {
+      load_tile(k_slot(step), kh, ts_k, first_key(step), L);
+      load_tile(v_slot(step), vh, ts_v, first_key(step), L);
+    }
+    cp_async_commit();
+  };
+  // As the forward's: wait for step's tiles, then step + 1's copy goes into
+  // the ring stage step - 1 used.
+  auto land = [&](int step) {
+    cp_async_wait<0>();
+    fence_async_smem();
     __syncthreads();
+    issue(step + 1);
+  };
 
-    {  // S = q' k'^T / sqrt(D), masked, into Ps
-      float s[kNT][4];
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wq0 = q0 + wg * kTileRows;
+  const uint32_t qs = base + wg * kTileBytes, os = base + (kGroups + wg) * kTileBytes;
+  const int r0 = wq0 + warp * 16 + g;
+  auto skips = [&](int step) {
+    return wq0 >= L || (causal && first_key(step) > wq0 + kTileRows - 1);
+  };
+  auto mask = [&](float (&s)[32], int j0) {
+    if (j0 + kKeyTile <= L && !(causal && j0 + kKeyTile > wq0 + 1)) return;
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const __nv_bfloat16* qa = Qs + r0 * kMRow + kk * 16 + 2 * t;
-        const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * kMRow);
-        const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * kMRow + 8);
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const __nv_bfloat16* kb = Ks + (key0 + nt * 8 + g) * kMRow + kk * 16 + 2 * t;
-          mma_16816(s[nt], a0, a1, a2, a3, ld32(kb), ld32(kb + 8));
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = r0 + (e >> 1) * 8, key = key0 + nt * 8 + 2 * t + (e & 1);
-          float x = s[nt][e] * scale;
-          if (key >= L || (causal && key > i0 + row)) x = kNeg;
-          Ps[row * kPRow + key] = x;
-        }
+    for (int i = 0; i < 32; ++i) {
+      const int key = j0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      const int row = r0 + 8 * ((i >> 1) & 1);
+      if (key >= L || (causal && key > row)) s[i] = kNeg;
     }
-    __syncthreads();
+  };
+  const float c2 = scale * kLog2e;
 
-    // P = softmax(S), a warp to a row; rows past L are 0.
-    for (int r = warp; r < kMq; r += kThreads / 32) {
-      float* row = Ps + r * kPRow;
-      if (i0 + r >= L) {
-        for (int j = lane; j < kKeys; j += 32) row[j] = 0.f;
-        continue;
-      }
-      float m = kNeg;
-      for (int j = lane; j < kKeys; j += 32) m = fmaxf(m, row[j]);
-      m = ddg::warp_max(m);
-      float sum = 0.f;
-      for (int j = lane; j < kKeys; j += 32) {
-        const float e = expf(row[j] - m);
-        row[j] = e;
-        sum += e;
-      }
-      sum = ddg::warp_sum(sum);
-      for (int j = lane; j < kKeys; j += 32) row[j] = row[j] / sum;
-    }
-    __syncthreads();
+  for (int w = 0; w < kGroups; ++w) {
+    load_tile(base + w * kTileBytes, qh, ts_q, q0 + w * kTileRows, L);
+    load_tile(base + (kGroups + w) * kTileBytes, dout + head, static_cast<int>(out_stride),
+              q0 + w * kTileRows, L);
+  }
+  issue(0);
 
-    // dV += round(P)^T dO: A fragments from P read transposed (rows of P 4
-    // mod 32 words apart, so a warp's loads hit 32 banks).
+  // Pass A: the forward's m and l, and delta's running sum dl beside l.
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  float s[32], dp[32];
+  int step = 0;
+  for (; step < n_keys; ++step) {
+    land(step);
+    if (skips(step)) continue;
+    two_products(s, qs, k_slot(step), dp, os, v_slot(step));
+    mask(s, first_key(step));
+    float mt[2] = {kNeg, kNeg};
 #pragma unroll
-    for (int jr = 0; jr < kJT; ++jr) {
-      const int j0 = (warp * kJT + jr) * 16;
-#pragma unroll
-      for (int kk = 0; kk < kMq / 16; ++kk) {
-        const float* p = Ps + (kk * 16 + 2 * t) * kPRow + j0 + g;
-        const uint32_t a0 = pack_bf16(p[0], p[kPRow]);
-        const uint32_t a1 = pack_bf16(p[8], p[kPRow + 8]);
-        const uint32_t a2 = pack_bf16(p[8 * kPRow], p[9 * kPRow]);
-        const uint32_t a3 = pack_bf16(p[8 * kPRow + 8], p[9 * kPRow + 8]);
-#pragma unroll
-        for (int nt = 0; nt < kD / 8; ++nt) {
-          const __nv_bfloat16* ob = Ot + (nt * 8 + g) * kMTRow + kk * 16 + 2 * t;
-          mma_16816(dv_acc[jr][nt], a0, a1, a2, a3, ld32(ob), ld32(ob + 8));
-        }
-      }
-    }
-
-    // dP = dO V^T, rounded; the half's partial rowsum(P dP).
-    float dp[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      const __nv_bfloat16* oa = Os + r0 * kMRow + kk * 16 + 2 * t;
-      const uint32_t a0 = ld32(oa), a1 = ld32(oa + 8 * kMRow);
-      const uint32_t a2 = ld32(oa + 8), a3 = ld32(oa + 8 * kMRow + 8);
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const __nv_bfloat16* vb = Vs + (key0 + nt * 8 + g) * kMRow + kk * 16 + 2 * t;
-        mma_16816(dp[nt], a0, a1, a2, a3, ld32(vb), ld32(vb + 8));
-      }
-    }
-    float part[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + (e >> 1) * 8, key = key0 + nt * 8 + 2 * t + (e & 1);
-        dp[nt][e] = ddg::round_to<__nv_bfloat16>(dp[nt][e]);
-        part[e >> 1] = fmaf(Ps[row * kPRow + key], dp[nt][e], part[e >> 1]);
-      }
+    for (int i = 0; i < 32; ++i) mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], s[i]);
+    float part[2] = {0.f, 0.f}, dpart[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 1);
-      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 2);
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      mt[r] = fmaxf(m[r], mt[r]);
     }
-    if (t == 0) {
-      Dl[half_ * kMq + r0] = part[0];
-      Dl[half_ * kMq + r0 + 8] = part[1];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float e = ex2((s[i] - mt[r]) * c2);
+      part[r] += e;
+      dpart[r] = fmaf(e, round_bf16(dp[i]), dpart[r]);
     }
-    __syncthreads();   // dV has read P; the partial deltas are in
-
-    {  // dS = P dP - P delta, scaled, over P
-      const float delta[2] = {Dl[r0] + Dl[kMq + r0], Dl[r0 + 8] + Dl[kMq + r0 + 8]};
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = r0 + (e >> 1) * 8, key = key0 + nt * 8 + 2 * t + (e & 1);
-          float* at = Ps + row * kPRow + key;
-          const float p = *at;
-          const float ds = __fsub_rn(__fmul_rn(p, dp[nt][e]), __fmul_rn(p, delta[e >> 1]));
-          *at = __fmul_rn(ds, scale);
-        }
-    }
-    __syncthreads();
-
-    {  // dq' = dS k' for the tile's rows, rounded and staged in Qs
-      float acc[kD / 16][4];
-#pragma unroll
-      for (int nt = 0; nt < kD / 16; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll 4
-      for (int kk = 0; kk < kKeys / 16; ++kk) {
-        const float* pa = Ps + r0 * kPRow + kk * 16 + 2 * t;
-        const float2 x0 = *reinterpret_cast<const float2*>(pa);
-        const float2 x1 = *reinterpret_cast<const float2*>(pa + 8 * kPRow);
-        const float2 x2 = *reinterpret_cast<const float2*>(pa + 8);
-        const float2 x3 = *reinterpret_cast<const float2*>(pa + 8 * kPRow + 8);
-        uint32_t hi[4], lo[4];
-        split_bf16(x0.x, x0.y, hi[0], lo[0]);
-        split_bf16(x1.x, x1.y, hi[1], lo[1]);
-        split_bf16(x2.x, x2.y, hi[2], lo[2]);
-        split_bf16(x3.x, x3.y, hi[3], lo[3]);
-#pragma unroll
-        for (int nt = 0; nt < kD / 16; ++nt) {
-          const __nv_bfloat16* kb =
-              Kt + (half_ * (kD / 2) + nt * 8 + g) * kKtRow + kk * 16 + 2 * t;
-          const uint32_t b0 = ld32(kb), b1 = ld32(kb + 8);
-          mma_16816(acc[nt], hi[0], hi[1], hi[2], hi[3], b0, b1);
-          mma_16816(acc[nt], lo[0], lo[1], lo[2], lo[3], b0, b1);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < kD / 16; ++nt) {
-        const int d = half_ * (kD / 2) + nt * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(Qs + r0 * kMRow + d) = pack_bf16(acc[nt][0], acc[nt][1]);
-        *reinterpret_cast<uint32_t*>(Qs + (r0 + 8) * kMRow + d) =
-            pack_bf16(acc[nt][2], acc[nt][3]);
-      }
-    }
-    __syncthreads();
-    store_rows<kRope>(Qs, dq, out_head, out_stride, i0, kMq, L, cos, sin, tid);
-
-    // dK += dS^T q': A fragments from dS read transposed, in two bf16 terms.
-#pragma unroll
-    for (int jr = 0; jr < kJT; ++jr) {
-      const int j0 = (warp * kJT + jr) * 16;
-#pragma unroll
-      for (int kk = 0; kk < kMq / 16; ++kk) {
-        const float* p = Ps + (kk * 16 + 2 * t) * kPRow + j0 + g;
-        uint32_t hi[4], lo[4];
-        split_bf16(p[0], p[kPRow], hi[0], lo[0]);
-        split_bf16(p[8], p[kPRow + 8], hi[1], lo[1]);
-        split_bf16(p[8 * kPRow], p[9 * kPRow], hi[2], lo[2]);
-        split_bf16(p[8 * kPRow + 8], p[9 * kPRow + 8], hi[3], lo[3]);
-#pragma unroll
-        for (int nt = 0; nt < kD / 8; ++nt) {
-          const __nv_bfloat16* qb = Qt + (nt * 8 + g) * kMTRow + kk * 16 + 2 * t;
-          const uint32_t b0 = ld32(qb), b1 = ld32(qb + 8);
-          mma_16816(dk_acc[jr][nt], hi[0], hi[1], hi[2], hi[3], b0, b1);
-          mma_16816(dk_acc[jr][nt], lo[0], lo[1], lo[2], lo[3], b0, b1);
-        }
-      }
+    for (int r = 0; r < 2; ++r) {
+      const float f = ex2((m[r] - mt[r]) * c2);
+      l[r] = l[r] * f + part[r];
+      dl[r] = dl[r] * f + dpart[r];
+      m[r] = mt[r];
     }
   }
+  float rl[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 1);
+    dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 2);
+    rl[r] = 1.f / l[r];
+    delta[r] = dl[r] * rl[r];
+  }
 
-  // dV straight from the fragments; dk' rounded and staged in Ks (last read
-  // by the final tile's S), then un-rotated by rows.
+  // Pass B: dS = P dP - P delta (scaled) as hi and lo A fragments, dq' +=
+  // dS K over the tile's 64 keys (K MN-major through the transpose bit).
+  float acc[32];
 #pragma unroll
-  for (int jr = 0; jr < kJT; ++jr) {
-    const int j = (warp * kJT + jr) * 16 + g;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (; step < n_steps; ++step) {
+    land(step);
+    if (skips(step)) continue;
+    two_products(s, qs, k_slot(step), dp, os, v_slot(step));
+    mask(s, first_key(step));
+    auto ds = [&](int i) {
+      const int r = (i >> 1) & 1;
+      const float p = ex2((s[i] - m[r]) * c2) * rl[r];
+      return ds_of(p, round_bf16(dp[i]), delta[r], scale);
+    };
+    uint32_t hi[16], lo[16];
 #pragma unroll
-    for (int nt = 0; nt < kD / 8; ++nt) {
-      const int d = nt * 8 + 2 * t;
-      if (j < L)
-        *reinterpret_cast<uint32_t*>(dv + out_head + static_cast<size_t>(j) * out_stride + d) =
-            pack_bf16(dv_acc[jr][nt][0], dv_acc[jr][nt][1]);
-      if (j + 8 < L)
-        *reinterpret_cast<uint32_t*>(dv + out_head + static_cast<size_t>(j + 8) * out_stride +
-                                     d) = pack_bf16(dv_acc[jr][nt][2], dv_acc[jr][nt][3]);
-      *reinterpret_cast<uint32_t*>(Ks + j * kMRow + d) =
-          pack_bf16(dk_acc[jr][nt][0], dk_acc[jr][nt][1]);
-      *reinterpret_cast<uint32_t*>(Ks + (j + 8) * kMRow + d) =
-          pack_bf16(dk_acc[jr][nt][2], dk_acc[jr][nt][3]);
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_bf16(ds(8 * kk + 2 * e), ds(8 * kk + 2 * e + 1),
+                                             hi[4 * kk + e], lo[4 * kk + e]);
+    const uint32_t ks = k_slot(step);
+    fence_regs(hi);
+    fence_regs(lo);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = desc_b128(ks + kk * 16 * 128);
+      wgmma_rs_tb(acc, hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3], db);
+      wgmma_rs_tb(acc, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3], db);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+  }
+
+  // The workspace rows: (m, 1/l, delta), zeros past L (kernel KV masks those
+  // rows; zeros keep them finite).
+  if (t == 0) {
+    float* st = stats + (static_cast<size_t>(b) * H + h) * 3 * Lp;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= Lp) continue;
+      const bool ok = row < L;
+      st[row] = ok ? m[r] : 0.f;
+      st[Lp + row] = ok ? rl[r] : 0.f;
+      st[2 * Lp + row] = ok ? delta[r] : 0.f;
     }
   }
+  // dq': rounded into the warpgroup's Q tile, then stored.
+  __syncthreads();  // every warpgroup is done reading its tiles
+  stage_acc(smem + wg * kTileBytes, acc);
   __syncthreads();
-  store_rows<kRope>(Ks, dk, out_head, out_stride, 0, kKeys, L, cos, sin, tid);
+  store_tiles(smem, dq + head, out_stride, q0, L);
 }
 
-template <bool kRope, int kKeys>
-int launch_mma(const void* q, const void* k, const void* v, const void* cos, const void* sin,
-               const void* dout, void* dq, void* dk, void* dv, int B, int L, int H, int ts_q,
-               int ts_k, int ts_v, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = MmaLayout<kKeys>::kSmem;
-  auto kernel = attention_bwd_mma_kernel<kRope, kKeys>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  using bf = __nv_bfloat16;
-  kernel<<<dim3(H, B), kThreads, smem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const float*>(cos), static_cast<const float*>(sin),
-      static_cast<const bf*>(dout), static_cast<bf*>(dq), static_cast<bf*>(dk),
-      static_cast<bf*>(dv), L, H, ts_q, ts_k, ts_v, causal, scale);
-  return cudaGetLastError();
+// Kernel KV on the tensor cores: one block of two warpgroups per (128-key
+// tile, head, batch), warpgroup wg owning keys k0 + 64 wg .. + 63 (the M of
+// its products: S^T[4 j + e] is key r0 + 8 (e >> 1), query i0 + 8 j + 2 t +
+// (e & 1)). The block walks the query tiles in order.
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    attention_bwd_kv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                  bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                  const float* __restrict__ stats, int L, int H, int ts_q,
+                                  int ts_k, int ts_v, int causal, float scale, int Lp) {
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  unsigned char* const smem = smem_tiles;
+  const uint32_t base = smem_addr(smem);
+  if (base % kSwizzleAlign) __trap();
+  const int k0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
+  const size_t out_stride = static_cast<size_t>(H) * kMmaD;
+  const bf16* qh = q + static_cast<size_t>(b) * L * ts_q + h * kMmaD;
+  const bf16* kh = k + static_cast<size_t>(b) * L * ts_k + h * kMmaD;
+  const bf16* vh = v + static_cast<size_t>(b) * L * ts_v + h * kMmaD;
+  const size_t head = static_cast<size_t>(b) * L * out_stride + h * kMmaD;
+  const float* st = stats + (static_cast<size_t>(b) * H + h) * 3 * Lp;
+
+  // Under `causal` the query tiles wholly before the block's first key are
+  // skipped.
+  const int n_q = (L + kTileRows - 1) / kTileRows;
+  const int first = causal ? k0 / kTileRows : 0;
+  const int n_steps = n_q - first;
+  auto q0_of = [&](int step) { return (first + step) * kTileRows; };
+  auto stage = [&](int step) {
+    return base + 2 * kGroups * kTileBytes + (step % kStages) * kKvStage;
+  };
+  // One commit group a step: the Q and dO tiles and the workspace rows
+  // (three runs of 64 floats; Lp is a multiple of 64, so they are whole).
+  auto issue = [&](int step) {
+    if (step >= n_steps) return;
+    const uint32_t sb = stage(step);
+    const int i0 = q0_of(step);
+    load_tile(sb, qh, ts_q, i0, L);
+    load_tile(sb + kTileBytes, dout + head, static_cast<int>(out_stride), i0, L);
+    if (threadIdx.x < 3 * kTileRows / 4) {
+      const int c = threadIdx.x / (kTileRows / 4), j = threadIdx.x % (kTileRows / 4);
+      cp_async16(sb + 2 * kTileBytes + c * kTileRows * 4 + j * 16, st + c * Lp + i0 + 4 * j, true);
+    }
+    cp_async_commit();
+  };
+  auto land = [&](int step) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    issue(step + 1);
+  };
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk0 = k0 + wg * kTileRows;
+  const uint32_t ks = base + wg * kTileBytes, vs = base + (kGroups + wg) * kTileBytes;
+  const int r0 = wk0 + warp * 16 + g;
+  auto skips = [&](int step) {
+    return wk0 >= L || (causal && q0_of(step) + kTileRows - 1 < wk0);
+  };
+  // Queries past L, and (causal) keys past a query, give P = 0.
+  auto mask = [&](float (&s)[32], int i0) {
+    if (i0 + kTileRows <= L && !(causal && wk0 + kTileRows - 1 > i0)) return;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int query = i0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      const int key = r0 + 8 * ((i >> 1) & 1);
+      if (query >= L || (causal && key > query)) s[i] = kNeg;
+    }
+  };
+  const float c2 = scale * kLog2e;
+
+  for (int w = 0; w < kGroups; ++w) {
+    load_tile(base + w * kTileBytes, kh, ts_k, k0 + w * kTileRows, L);
+    load_tile(base + (kGroups + w) * kTileBytes, vh, ts_v, k0 + w * kTileRows, L);
+  }
+  issue(0);
+
+  float dv_acc[32], dk_acc[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+  for (int step = 0; step < n_steps; ++step) {
+    land(step);
+    if (skips(step)) continue;
+    const uint32_t sb = stage(step);
+    const int i0 = q0_of(step);
+    const float* sm = reinterpret_cast<const float*>(smem + (sb - base) + 2 * kTileBytes);
+    two_products(s, ks, sb, dp, vs, sb + kTileBytes);   // S^T = K Q^T, dP^T = V dO^T
+    mask(s, i0);
+    // Query columns 8 j + 2 t and + 1 of n-tile j; keys 16 kk .. 16 kk + 15
+    // of the A fragments are the n-tiles 2 kk and 2 kk + 1, as the forward's
+    // P. P (kept in s) and its bf16 fragments first: dV's products run while
+    // dS is formed.
+    uint32_t pa[16], hi[16], lo[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 mq = *reinterpret_cast<const float2*>(sm + col);
+      const float2 rq = *reinterpret_cast<const float2*>(sm + kTileRows + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * j + e] = ex2((s[4 * j + e] - (e & 1 ? mq.y : mq.x)) * c2) * (e & 1 ? rq.y : rq.x);
+      const int a = 4 * (j >> 1) + 2 * (j & 1);
+      pa[a] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      pa[a + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+    }
+    fence_regs(pa);
+    fence_regs(dv_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb(dv_acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                  desc_b128(sb + kTileBytes + kk * 16 * 128));
+    wgmma_commit();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(sm + 2 * kTileRows + 8 * j + 2 * t);
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[e] = ds_of(s[4 * j + e], round_bf16(dp[4 * j + e]), e & 1 ? dl.y : dl.x, scale);
+      const int a = 4 * (j >> 1) + 2 * (j & 1);
+      split_bf16(ds[0], ds[1], hi[a], lo[a]);
+      split_bf16(ds[2], ds[3], hi[a + 1], lo[a + 1]);
+    }
+    fence_regs(hi);
+    fence_regs(lo);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = desc_b128(sb + kk * 16 * 128);
+      wgmma_rs_tb(dk_acc, hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3], db);
+      wgmma_rs_tb(dk_acc, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3], db);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(pa);
+    fence_regs(hi);
+    fence_regs(lo);
+  }
+
+  // dk' into the K tiles, dv into the V tiles, rounded; then 16-byte rows.
+  __syncthreads();  // every warpgroup is done reading the K and V tiles
+  stage_acc(smem + wg * kTileBytes, dk_acc);
+  stage_acc(smem + (kGroups + wg) * kTileBytes, dv_acc);
+  __syncthreads();
+  store_tiles(smem, dk + head, out_stride, k0, L);
+  store_tiles(smem + kGroups * kTileBytes, dv + head, out_stride, k0, L);
 }
+
+// K1b's rotations on the tensor-core path, a row pair (d, d + 32) at a time
+// with separately rounded fp32 products, back to bf16 (as the plain
+// version and the CUDA-core kernels round): before the kernels, q' =
+// RoPE(q) and k' = RoPE(k) into a (2, B, L, H, 64) workspace (rows of a, b
+// ts_a, ts_b elements apart); after them (kInverse), dq = RoPE^T(dq') and dk
+// = RoPE^T(dk') in place ((g1 c + g2 s, g2 c - g1 s)). blockIdx.y picks a
+// or b; a thread takes 8 pairs of a row. 32-bit index math: 4 B L H < 2^32
+// for any tensor that fits on the card.
+template <bool kInverse>
+__global__ void __launch_bounds__(kMmaThreads)
+    rope_rows_kernel(const bf16* a, const bf16* b, const float* __restrict__ cos,
+                     const float* __restrict__ sin, bf16* out_a, bf16* out_b, int B, int L,
+                     int H, int ts_a, int ts_b) {
+  constexpr int half = kMmaD / 2;
+  const unsigned rows = static_cast<unsigned>(B) * L * H;
+  const unsigned idx = blockIdx.x * kMmaThreads + threadIdx.x;
+  if (idx >= rows * 4) return;
+  const unsigned row = idx >> 2, bl = row / H;
+  const int c = idx & 3, h = row - bl * H, pos = bl % L;
+  const bool second = blockIdx.y != 0;
+  const bf16* src =
+      (second ? b : a) + static_cast<size_t>(bl) * (second ? ts_b : ts_a) + h * kMmaD + c * 8;
+  float x1[8], x2[8], cc[8], ss[8], y1[8], y2[8];
+  ddg::load16(src, x1);
+  ddg::load16(src + half, x2);
+  ddg::load_f32<8>(cos + pos * half + c * 8, cc);
+  ddg::load_f32<8>(sin + pos * half + c * 8, ss);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    if constexpr (kInverse) {
+      y1[e] = __fadd_rn(__fmul_rn(x1[e], cc[e]), __fmul_rn(x2[e], ss[e]));
+      y2[e] = __fsub_rn(__fmul_rn(x2[e], cc[e]), __fmul_rn(x1[e], ss[e]));
+    } else {
+      y1[e] = __fsub_rn(__fmul_rn(x1[e], cc[e]), __fmul_rn(x2[e], ss[e]));
+      y2[e] = __fadd_rn(__fmul_rn(x2[e], cc[e]), __fmul_rn(x1[e], ss[e]));
+    }
+  }
+  bf16* dst = (second ? out_b : out_a) + static_cast<size_t>(row) * kMmaD + c * 8;
+  ddg::store16(dst, y1);
+  ddg::store16(dst + half, y2);
+}
+
+// --- launch plan and dispatch -----------------------------------------------
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// --- dispatch ---------------------------------------------------------------
+int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-template <typename T, bool kRope, int kMaxL>
-int launch_l(const void* q, const void* k, const void* v, const void* cos, const void* sin,
-             const void* dout, void* dq, void* dk, void* dv, int B, int L, int H, int ts_q,
-             int ts_k, int ts_v, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem<kMaxL>();
-  auto kernel = attention_bwd_kernel<T, kRope, kMaxL>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(H, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(cos), static_cast<const float*>(sin),
-      static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), L, H, ts_q, ts_k, ts_v, causal, scale);
-  return cudaGetLastError();
+// What one of a backward call's launches takes.
+struct Launch {
+  int q_tile, k_tile, stages, smem, threads, gx, gy, gz;
+};
+
+// What a backward call launches. `tc`: bf16 with D = 64 and every row on a
+// 16-byte boundary, which the tensor-core kernels take at any L; K1b's call
+// then launches rope_rows_kernel before and after them (`rope`: threads and
+// grid; its other fields 0). stats_len: the workspace's row length Lp (L
+// rounded up to 64).
+struct Plan {
+  int path, stats_len;
+  Launch q, kv, rope;
+};
+
+int make_plan(int B, int L, int H, int D, bool tc, Plan* p) {
+  if (D <= 0 || D % 2 || B <= 0 || L <= 0 || H <= 0 || B > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
+  const int stats_len = cdiv(L, kKeyTile) * kKeyTile;
+  if (tc) {
+    const size_t rope_threads = static_cast<size_t>(B) * L * H * 4;
+    *p = {1, stats_len,
+          {kBlockRows, kKeyTile, kStages, static_cast<int>(kQSmem), kMmaThreads,
+           cdiv(L, kBlockRows), H, B},
+          {kTileRows, kBlockRows, kStages, static_cast<int>(kKvSmem), kMmaThreads,
+           cdiv(L, kBlockRows), H, B},
+          {0, 0, 0, 0, kMmaThreads,
+           static_cast<int>((rope_threads + kMmaThreads - 1) / kMmaThreads), 2, 1}};
+    return cudaSuccess;
+  }
+  const size_t q_smem = core_q_smem(D), kv_smem = core_kv_smem(D);
+  if (q_smem > kSmemMax || kv_smem > kSmemMax) return cudaErrorInvalidValue;
+  *p = {0, stats_len,
+        {kTile, kKeyTile, 1, static_cast<int>(q_smem), kThreads, cdiv(L, kTile), H, B},
+        {kTile, kKeyTile, 1, static_cast<int>(kv_smem), kThreads, cdiv(L, kKeyTile), H, B},
+        {0, 0, 0, 0, 0, 0, 0, 0}};
+  return cudaSuccess;
 }
 
+template <typename K>
+cudaError_t prepare(K kernel, int smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+dim3 grid_of(const Launch& l) { return dim3(l.gx, l.gy, l.gz); }
+
+// `rot`: K1b's (2, B, L, H, 64) bf16 workspace for the rotated q and k of
+// the tensor-core path (unused otherwise, may be null).
 template <typename T, bool kRope>
 int launch(const void* q, const void* k, const void* v, const void* cos, const void* sin,
-           const void* dout, void* dq, void* dk, void* dv, int B, int L, int H, int ts_q,
-           int ts_k, int ts_v, int causal, float scale, cudaStream_t stream, int* path) {
-  if (B <= 0 || B > 65535 || L <= 0 || L > 256 || H <= 0 || H > 65535 || ts_q < H * kD ||
-      ts_k < H * kD || ts_v < H * kD)
-    return cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // The tensor-core kernel's 16-byte row loads.
-    const bool ropes_aligned = !kRope || (aligned16(cos) && aligned16(sin));
-    if (ts_q % 8 || ts_k % 8 || ts_v % 8 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
-        !aligned16(dout) || !aligned16(dq) || !aligned16(dk) || !aligned16(dv) ||
-        !ropes_aligned)
-      return cudaErrorInvalidValue;
-    *path = 1;
-    if (L <= 128)
-      return launch_mma<kRope, 128>(q, k, v, cos, sin, dout, dq, dk, dv, B, L, H, ts_q, ts_k,
-                                    ts_v, causal, scale, stream);
-    return launch_mma<kRope, 256>(q, k, v, cos, sin, dout, dq, dk, dv, B, L, H, ts_q, ts_k,
-                                  ts_v, causal, scale, stream);
-  } else {
-    *path = 0;
-    if (L <= 128)
-      return launch_l<T, kRope, 128>(q, k, v, cos, sin, dout, dq, dk, dv, B, L, H, ts_q, ts_k,
-                                     ts_v, causal, scale, stream);
-    return launch_l<T, kRope, 256>(q, k, v, cos, sin, dout, dq, dk, dv, B, L, H, ts_q, ts_k,
-                                   ts_v, causal, scale, stream);
+           const void* dout, void* dq, void* dk, void* dv, void* stats, void* rot, int B,
+           int L, int H, int D, int ts_q, int ts_k, int ts_v, int causal, float scale,
+           cudaStream_t stream, int* path) {
+  if (ts_q < H * D || ts_k < H * D || ts_v < H * D) return cudaErrorInvalidValue;
+  const bool tc = std::is_same<T, bf16>::value && D == kMmaD && ts_q % 8 == 0 &&
+                  ts_k % 8 == 0 && ts_v % 8 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(dout) && aligned16(dq) && aligned16(dk) &&
+                  aligned16(dv) && aligned16(stats) &&
+                  (!kRope || (aligned16(cos) && aligned16(sin) && aligned16(rot)));
+  Plan p;
+  cudaError_t err = static_cast<cudaError_t>(make_plan(B, L, H, D, tc, &p));
+  if (err != cudaSuccess) return err;
+  *path = p.path;
+  const int Lp = p.stats_len;
+  const auto* fc = static_cast<const float*>(cos);
+  const auto* fs = static_cast<const float*>(sin);
+  auto* st = static_cast<float*>(stats);
+  if (tc) {
+    using P = const bf16*;
+    auto kq = attention_bwd_q_wgmma_kernel;
+    auto kkv = attention_bwd_kv_wgmma_kernel;
+    if ((err = prepare(kq, p.q.smem)) != cudaSuccess) return err;
+    if ((err = prepare(kkv, p.kv.smem)) != cudaSuccess) return err;
+    P qp = static_cast<P>(q), kp = static_cast<P>(k);
+    auto* gq = static_cast<bf16*>(dq);
+    auto* gk = static_cast<bf16*>(dk);
+    const int ts_out = H * kMmaD;
+    if constexpr (kRope) {
+      auto* r = static_cast<bf16*>(rot);
+      bf16* rk = r + static_cast<size_t>(B) * L * H * kMmaD;
+      rope_rows_kernel<false><<<grid_of(p.rope), p.rope.threads, 0, stream>>>(
+          qp, kp, fc, fs, r, rk, B, L, H, ts_q, ts_k);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      qp = r;
+      kp = rk;
+      ts_q = ts_k = ts_out;
+    }
+    kq<<<grid_of(p.q), p.q.threads, p.q.smem, stream>>>(
+        qp, kp, static_cast<P>(v), static_cast<P>(dout), gq, st, L, H, ts_q, ts_k, ts_v, causal,
+        scale, Lp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    kkv<<<grid_of(p.kv), p.kv.threads, p.kv.smem, stream>>>(
+        qp, kp, static_cast<P>(v), static_cast<P>(dout), gk, static_cast<bf16*>(dv), st, L, H,
+        ts_q, ts_k, ts_v, causal, scale, Lp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if constexpr (kRope) {
+      rope_rows_kernel<true><<<grid_of(p.rope), p.rope.threads, 0, stream>>>(
+          gq, gk, fc, fs, gq, gk, B, L, H, ts_out, ts_out);
+      err = cudaGetLastError();
+    }
+    return err;
   }
+  using P = const T*;
+  auto kq = attention_bwd_q_kernel<T, kRope>;
+  auto kkv = attention_bwd_kv_kernel<T, kRope>;
+  if ((err = prepare(kq, p.q.smem)) != cudaSuccess) return err;
+  if ((err = prepare(kkv, p.kv.smem)) != cudaSuccess) return err;
+  kq<<<grid_of(p.q), p.q.threads, p.q.smem, stream>>>(
+      static_cast<P>(q), static_cast<P>(k), static_cast<P>(v), fc, fs, static_cast<P>(dout),
+      static_cast<T*>(dq), st, L, H, D, ts_q, ts_k, ts_v, causal, scale, Lp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  kkv<<<grid_of(p.kv), p.kv.threads, p.kv.smem, stream>>>(
+      static_cast<P>(q), static_cast<P>(k), static_cast<P>(v), fc, fs, static_cast<P>(dout),
+      static_cast<T*>(dk), static_cast<T*>(dv), st, L, H, D, ts_q, ts_k, ts_v, causal, scale,
+      Lp);
+  return cudaGetLastError();
 }
 
 template <bool kRope>
 int dispatch(const void* q, const void* k, const void* v, const void* cos, const void* sin,
-             const void* dout, void* dq, void* dk, void* dv, int B, int L, int H, int ts_q,
-             int ts_k, int ts_v, int causal, float scale, int dtype, void* stream, int* path) {
+             const void* dout, void* dq, void* dk, void* dv, void* stats, void* rot, int B,
+             int L, int H, int D, int ts_q, int ts_k, int ts_v, int causal, float scale,
+             int dtype, void* stream, int* path) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == ddg::kF32)
-    return launch<float, kRope>(q, k, v, cos, sin, dout, dq, dk, dv, B, L, H, ts_q, ts_k, ts_v,
-                                causal, scale, s, path);
+    return launch<float, kRope>(q, k, v, cos, sin, dout, dq, dk, dv, stats, rot, B, L, H, D,
+                                ts_q, ts_k, ts_v, causal, scale, s, path);
   if (dtype == ddg::kBF16)
-    return launch<__nv_bfloat16, kRope>(q, k, v, cos, sin, dout, dq, dk, dv, B, L, H, ts_q,
-                                        ts_k, ts_v, causal, scale, s, path);
+    return launch<bf16, kRope>(q, k, v, cos, sin, dout, dq, dk, dv, stats, rot, B, L, H, D,
+                               ts_q, ts_k, ts_v, causal, scale, s, path);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// K1b. q, k, v: (B, L, H, 64) with dense heads, rows ts_q, ts_k, ts_v
-// elements apart; cos, sin: (L, 32) fp32; dout and the outputs dq, dk, dv:
-// contiguous (B, L, H, 64); L <= 256. *path: 1 for the tensor cores, 0
-// for the CUDA cores.
+// K1b. q, k, v: (B, L, H, D) with dense heads, rows ts_q, ts_k, ts_v
+// elements apart; cos, sin: (L, D / 2) fp32; dout and the outputs dq, dk,
+// dv: contiguous (B, L, H, D); stats: the (B, H, 3, Lp) fp32 workspace of
+// ddg_attention_bwd_plan's stats_len Lp; rot: a (2, B, L, H, D) workspace
+// of the input dtype (the rotated q and k of the tensor-core path). *path:
+// 1 for the tensor cores, 0 for the CUDA cores. Two launches on `stream`
+// (four on the tensor-core path: the rotation before, the un-rotation
+// after).
 extern "C" int ddg_rope_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* cos, const void* sin, const void* dout,
-                                      void* dq, void* dk, void* dv, int B, int L, int H,
-                                      int ts_q, int ts_k, int ts_v, int causal, float scale,
-                                      int dtype, void* stream, int* path) {
-  return dispatch<true>(q, k, v, cos, sin, dout, dq, dk, dv, B, L, H, ts_q, ts_k, ts_v, causal,
-                        scale, dtype, stream, path);
+                                      void* dq, void* dk, void* dv, void* stats, void* rot,
+                                      int B, int L, int H, int D, int ts_q, int ts_k, int ts_v,
+                                      int causal, float scale, int dtype, void* stream,
+                                      int* path) {
+  return dispatch<true>(q, k, v, cos, sin, dout, dq, dk, dv, stats, rot, B, L, H, D, ts_q,
+                        ts_k, ts_v, causal, scale, dtype, stream, path);
 }
 
-// K2's backward: the same without the rotation.
+// K2's backward: the same without the rotation (and without `rot`).
 extern "C" int ddg_short_seq_attention_bwd(const void* q, const void* k, const void* v,
                                            const void* dout, void* dq, void* dk, void* dv,
-                                           int B, int L, int H, int ts_q, int ts_k, int ts_v,
-                                           int causal, float scale, int dtype, void* stream,
-                                           int* path) {
-  return dispatch<false>(q, k, v, nullptr, nullptr, dout, dq, dk, dv, B, L, H, ts_q, ts_k,
-                         ts_v, causal, scale, dtype, stream, path);
+                                           void* stats, int B, int L, int H, int D, int ts_q,
+                                           int ts_k, int ts_v, int causal, float scale,
+                                           int dtype, void* stream, int* path) {
+  return dispatch<false>(q, k, v, nullptr, nullptr, dout, dq, dk, dv, stats, nullptr, B, L, H,
+                         D, ts_q, ts_k, ts_v, causal, scale, dtype, stream, path);
+}
+
+// The launch plan of a K1b or K2b call of this shape, for rows on 16-byte
+// boundaries (`aligned`) or not: out = {path, stats_len, then for kernel Q
+// and kernel KV each: query tile, key tile, ring stages, dynamic shared
+// bytes, threads, grid x, y, z; then K1b's rotation launch on the
+// tensor-core path: threads, grid x, y, z (all 0 on the CUDA cores)}.
+// Returns what the launch would return for the shape (0, or
+// cudaErrorInvalidValue where no kernel takes it). ops/attention.py:
+// backward_plan mirrors it.
+extern "C" int ddg_attention_bwd_plan(int B, int L, int H, int D, int dtype, int aligned,
+                                      int* out) {
+  if (dtype != ddg::kF32 && dtype != ddg::kBF16) return cudaErrorInvalidValue;
+  Plan p;
+  const int err = make_plan(B, L, H, D, dtype == ddg::kBF16 && D == kMmaD && aligned, &p);
+  if (err != cudaSuccess) return err;
+  const int fields[22] = {p.path,       p.stats_len,  p.q.q_tile,   p.q.k_tile,  p.q.stages,
+                          p.q.smem,     p.q.threads,  p.q.gx,       p.q.gy,      p.q.gz,
+                          p.kv.q_tile,  p.kv.k_tile,  p.kv.stages,  p.kv.smem,   p.kv.threads,
+                          p.kv.gx,      p.kv.gy,      p.kv.gz,      p.rope.threads,
+                          p.rope.gx,    p.rope.gy,    p.rope.gz};
+  for (int i = 0; i < 22; ++i) out[i] = fields[i];
+  return cudaSuccess;
 }

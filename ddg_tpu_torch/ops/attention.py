@@ -14,10 +14,15 @@ boundaries, on CUDA cores otherwise (the source picks and reports which:
 each wrapper's `tensor_core_launches` counts the former; `forward_plan`
 mirrors the launch plan). The backward saves
 only q, k and v, as `_rope_flash_fwd` and `_flash_fwd` do, and recomputes
-the probabilities in one launch of `csrc/rope_attention_bwd.cu` (D = 64,
-L <= 256 and, in bf16, rows on 16-byte boundaries only; tensor cores for
-bf16, CUDA cores for fp32, counted the same way), rounding where the VJP
-of `_rope_reference` or `_reference` rounds. On CPU tensors the plain versions below run instead.
+the probabilities in two launches of `csrc/rope_attention_bwd.cu` (a
+query-tile kernel for dq and each row's softmax statistics and delta, then
+a key-tile kernel for dk and dv; K1b on the tensor cores also rotates q
+and k in a pass before them and un-rotates dq and dk in one after),
+rounding where the VJP of
+`_rope_reference` or `_reference` rounds, at any L: tensor cores for bf16
+with D = 64 and rows on 16-byte boundaries, CUDA cores otherwise (counted
+the same way, one call each; `backward_plan` mirrors the launch plan). On
+CPU tensors the plain versions below run instead.
 Layout is the model's (B, L, H, D), as in `ddg_tpu`; q, k and v may each
 have their own token stride (views into the fused qkv projection).
 """
@@ -32,8 +37,8 @@ from ddg_tpu_torch.ops import _build
 
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BWD_L = 256
-# The forward kernels' tiles and shared memory (csrc/rope_attention.cu).
+# The kernels' tiles and shared memory (csrc/rope_attention.cu,
+# csrc/rope_attention_bwd.cu).
 _KEY_TILE = 64
 _SMEM_MAX = 232448
 
@@ -67,6 +72,63 @@ def forward_plan(B, L, H, D, dtype, aligned=True):
         plan = dict(path=0, q_tile=32, k_tile=_KEY_TILE, stages=1,
                     smem=smem, threads=256)
     plan['grid'] = (-(-L // plan['q_tile']), H, B)
+    return plan
+
+
+def _launch(q_tile, k_tile, stages, smem, threads, grid):
+    return dict(q_tile=q_tile, k_tile=k_tile, stages=stages, smem=smem,
+                threads=threads, grid=grid)
+
+
+def backward_plan(B, L, H, D, dtype, aligned=True):
+    """What a K1b or K2b backward launches for a (B, L, H, D) call of
+    `dtype` whose rows start on 16-byte boundaries (`aligned`) or not: a
+    dict of path (1: the bf16 tensor-core kernels, 0: the CUDA-core ones),
+    stats_len (the row length of the (B, H, 3, stats_len) fp32 workspace
+    that carries each query row's softmax statistics and delta from the
+    first launch to the second: L rounded up to 64), and for each launch,
+    'q' (query-tile parallel: dq) and 'kv' (key-tile parallel: dk, dv),
+    its q_tile, k_tile, stages (of the cp.async ring; 1: staged
+    synchronously), smem (dynamic shared bytes), threads and grid; 'rope'
+    is the threads and grid of the launches that, in a K1b call on the
+    tensor cores, rotate q and k before them and un-rotate dq and dk after
+    (None on the CUDA cores, which rotate as they stage). The mirror of
+    the C library's `ddg_attention_bwd_plan`; raises ValueError where no
+    kernel takes the shape."""
+    if (D <= 0 or D % 2 or min(B, L, H) <= 0 or max(B, H) > 65535
+            or dtype not in _DTYPES):
+        raise ValueError(f'no attention backward kernel takes B={B}, L={L}, '
+                         f'H={H}, D={D}, {dtype}')
+    tile = 64 * 64 * 2              # one 64 x 64 bf16 tile
+    if dtype == torch.bfloat16 and D == 64 and aligned:
+        # Two warpgroups a block of 128 query rows (Q: two Q and two dO
+        # tiles, four K and four V slots) or 128 keys (KV: two K and two V
+        # tiles, a two-stage ring of a Q tile, a dO tile and 1 KB of
+        # workspace rows).
+        g = -(-L // 128)
+        plan = dict(path=1,
+                    q=_launch(128, _KEY_TILE, 2, tile * 12, 256, (g, H, B)),
+                    kv=_launch(64, 128, 2, tile * 4 + 2 * (2 * tile + 1024),
+                               256, (g, H, B)),
+                    rope=dict(threads=256,
+                              grid=(-(-B * L * H * 4 // 256), 2, 1)))
+    else:
+        # fp32 on 32-row query tiles: q', dO, the dq sums, k', v (rows
+        # padded by one), S and dP (Q); k', v, q', dO (rows padded by one),
+        # P^T, the tile's statistics, the dk and dv sums (KV).
+        q_smem = 4 * (3 * 32 * D + 2 * 64 * (D + 1) + 2 * 32 * 64)
+        kv_smem = 4 * (2 * 64 * (D + 1) + 2 * 32 * (D + 1) + 64 * 33
+                       + 3 * 32 + 2 * 64 * D)
+        if max(q_smem, kv_smem) > _SMEM_MAX:
+            raise ValueError(f'the CUDA-core attention backward takes '
+                             f'head_dim up to 174, got {D}')
+        plan = dict(path=0,
+                    q=_launch(32, _KEY_TILE, 1, q_smem, 256,
+                              (-(-L // 32), H, B)),
+                    kv=_launch(32, _KEY_TILE, 1, kv_smem, 256,
+                               (-(-L // _KEY_TILE), H, B)),
+                    rope=None)
+    plan['stats_len'] = -(-L // _KEY_TILE) * _KEY_TILE
     return plan
 
 
@@ -247,36 +309,40 @@ short_seq_attention.tensor_core_launches = 0
 
 
 def _backward(q, k, v, cos, sin, do, causal):
-    """One launch of the backward kernel: (dq, dk, dv)."""
+    """One call of the backward kernels (two launches, four for K1b on the
+    tensor cores): (dq, dk, dv)."""
     rope = cos is not None
     B, L, H, D = q.shape
     strides = _check(q, k, v, cos, sin)
-    if D != 64 or L > _MAX_BWD_L:
-        raise ValueError(
-            f'the attention backward kernel takes head_dim 64 and '
-            f'L <= {_MAX_BWD_L}, got head_dim {D}, L {L}')
     if tuple(do.shape) != tuple(q.shape):
         raise ValueError(f'do must have the shape {tuple(q.shape)}')
-    if q.dtype == torch.bfloat16 and (
-            any(ts % 8 for ts in strides)
-            or any(t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError('the bf16 attention backward kernel takes rows '
-                         'that start on 16-byte boundaries')
+    # Raises where no kernel takes the shape (the CUDA-core plan is the
+    # narrower); the aligned plan says what the workspaces hold.
+    backward_plan(B, L, H, D, q.dtype, aligned=False)
+    plan = backward_plan(B, L, H, D, q.dtype)
     do = do.to(q.dtype).contiguous()
     _build.require_cuda(q, do, contiguous=False)
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
+    stats = torch.empty((B, H, 3, plan['stats_len']), dtype=torch.float32,
+                        device=q.device)
     wrapper = fused_rope_attention_bwd if rope else short_seq_attention_bwd
     name = 'ddg_rope_attention_bwd' if rope else 'ddg_short_seq_attention_bwd'
     tables = (cos.data_ptr(), sin.data_ptr()) if rope else ()
+    # K1b's rotated q and k for the tensor-core kernels (read only there).
+    rot = (torch.empty((2, *q.shape), dtype=q.dtype, device=q.device)
+           if rope and plan['rope'] is not None else None)
+    ws = (stats.data_ptr(),) + ((None if rot is None else rot.data_ptr(),)
+                                if rope else ())
     fn = _build.kernel('rope_attention_bwd', name,
-                       (_build.ptr,) * (7 + len(tables)) + (_build.i32,) * 7
+                       (_build.ptr,) * (7 + len(tables) + len(ws))
+                       + (_build.i32,) * 8
                        + (_build.f32, _build.i32, _build.ptr, _build.i32p))
     path = ctypes.c_int(-1)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *tables, do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L, H, *strides,
-            int(causal), 1.0 / (D ** 0.5), _DTYPES[q.dtype],
-            _build.stream(q), ctypes.byref(path))
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *ws, B, L, H, D,
+            *strides, int(causal), 1.0 / (D ** 0.5),
+            _DTYPES[q.dtype], _build.stream(q), ctypes.byref(path))
     wrapper.launches += 1
     wrapper.tensor_core_launches += path.value == 1
     _build.check(rc, name)
@@ -285,8 +351,8 @@ def _backward(q, k, v, cos, sin, do, causal):
 
 def fused_rope_attention_bwd(q, k, v, cos, sin, do, *, causal: bool = False):
     """(dq, dk, dv) of `fused_rope_attention` for the output gradient do,
-    recomputed from q, k, v. On CUDA tensors one kernel launch (K1b), for
-    D = 64 and L <= 256; other shapes raise."""
+    recomputed from q, k, v. On CUDA tensors one call of the K1b kernels
+    (two launches) at any L; shapes no kernel takes raise."""
     if q.device.type == 'cpu':
         return fused_rope_attention_bwd_plain(q, k, v, cos, sin, do,
                                               causal=causal)
@@ -295,8 +361,8 @@ def fused_rope_attention_bwd(q, k, v, cos, sin, do, *, causal: bool = False):
 
 def short_seq_attention_bwd(q, k, v, do, *, causal: bool = False):
     """(dq, dk, dv) of `short_seq_attention`, recomputed from q, k, v. On
-    CUDA tensors one kernel launch (K2's backward), for D = 64 and
-    L <= 256; other shapes raise."""
+    CUDA tensors one call of K2's backward kernels (two launches) at any
+    L; shapes no kernel takes raise."""
     if q.device.type == 'cpu':
         return short_seq_attention_bwd_plain(q, k, v, do, causal=causal)
     return _backward(q, k, v, None, None, do, causal)

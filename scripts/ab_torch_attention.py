@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""The K1/K2 forward kernels of `csrc/rope_attention.cu` on one card: a
-first-call check, and a same-call A/B against another copy of the source.
+"""The attention kernels of `csrc/rope_attention.cu` (K1/K2 forward) and
+`csrc/rope_attention_bwd.cu` (K1b/K2b backward) on one card: a first-call
+check, and a same-call A/B against another copy of the source.
 
-    python3 scripts/ab_torch_attention.py --check
+    python3 scripts/ab_torch_attention.py --check [--bwd]
     python3 scripts/ab_torch_attention.py --parent-source build/ab/rope_attention.cu
+    python3 scripts/ab_torch_attention.py --bwd --parent-source build/ab/rope_attention_bwd.cu
 
 `--check` builds the kernels and prints ptxas's lines for
 `rope_attention.cu` (registers, spills and shared memory under the line
@@ -14,18 +16,28 @@ not, against their plain versions with `chip_smoke.py`'s bars (fp32 1e-4
 abs, bf16 2 ulp of the largest magnitude), plus a probe with V = I at
 L = 64, where O is P itself, and `chip_smoke.py`'s launch-plan mirror. One
 JSON line a case; it exits non-zero if any failed. Use it as the first call
-on the card after changing a forward kernel.
+on the card after changing a forward kernel. `--check --bwd` does the same
+for the backward kernels (ptxas lines of `rope_attention_bwd.cu`; K1b and
+K2b at those shapes, at L = 64 and 200 and at D = 32, each run twice with
+bit-identical outputs, the share of bf16 outputs that differ from the
+plain version at all, the tensor cores at bf16 D = 64) and for both plan
+mirrors.
 
 Otherwise it builds `--parent-source` (a copy of an earlier
 `rope_attention.cu`, e.g. `git show HEAD:ddg_tpu_torch/csrc/rope_attention.cu
-> build/ab/rope_attention.cu`; headers are looked up beside it first, then
-in `csrc/`) with nvcc into `build/ab/` under another library name, and
-times the parent's kernel, the new one, the new one, the parent's (A B B
-A) and SDPA with CUDA events (`chip_smoke.time_ms`), at 48 x 128, 256 x 128
-and 256 x 256, K1 and K2, bf16, not causal: one JSON line per arm and one
-summary line per (kernel, shape) beside nvidia-smi's name and power limit.
-Both arms are called through the same ctypes code; their outputs are
-compared too.
+> build/ab/rope_attention.cu`, or with `--bwd` of `rope_attention_bwd.cu`;
+headers are looked up beside it first, then in `csrc/`) with nvcc into
+`build/ab/` under another library name, and times the parent's kernel, the
+new one, the new one, the parent's (A B B A) and SDPA (with `--bwd`: its
+backward, autograd through SDPA minus its forward) with CUDA events
+(`chip_smoke.time_ms`), at 48 x 128, 256 x 128 and 256 x 256, K1 and K2
+(K1b and K2b), bf16, not causal: one JSON line per arm and one summary line
+per (kernel, shape) beside nvidia-smi's name and power limit. Both arms are
+called through the same ctypes code; their outputs are compared with each
+other and (backward) each with the plain version (`differs_from_plain`,
+the share of elements that differ at all). The backward's parent is the
+single-launch `mma.sync` kernel, whose C interface has no head dim and no
+workspace; the call adapts to it.
 """
 
 import argparse
@@ -48,14 +60,62 @@ SHAPES = {'48x128': (48, 128, 12, 64), '256x128': (256, 128, 12, 64),
           '256x256': (256, 256, 12, 64)}
 CHECK_SHAPES = ((48, 128, 12, 64), (256, 256, 12, 64), (4, 40, 3, 64),
                 (4, 1024, 12, 64))
-NAMES = {'K1': 'ddg_rope_attention', 'K2': 'ddg_short_seq_attention'}
+NAMES = {'K1': 'ddg_rope_attention', 'K2': 'ddg_short_seq_attention',
+         'K1b': 'ddg_rope_attention_bwd', 'K2b': 'ddg_short_seq_attention_bwd'}
+# The backward check also covers one key tile, a ragged last tile and D=32
+# (the CUDA-core kernels).
+BWD_CHECK_SHAPES = CHECK_SHAPES + ((2, 64, 3, 64), (2, 200, 3, 64),
+                                   (4, 40, 2, 32))
 
 
-def argtypes(kernel):
+def argtypes(kernel, parent=False):
+    """The C entry point's arguments: the forward's, the backward's, or
+    (`parent` backward) the single-launch kernel's, which took no head dim
+    and no workspace."""
     from ddg_tpu_torch.ops import _build
-    tables = 2 if kernel == 'K1' else 0
-    return ((_build.ptr,) * (4 + tables) + (_build.i32,) * 8
+    tables = 2 if kernel.startswith('K1') else 0
+    if kernel in ('K1', 'K2'):
+        ptrs, ints = 4, 8
+    elif parent:
+        ptrs, ints = 7, 7
+    else:   # the workspaces: statistics, and K1b's rotated q and k
+        ptrs, ints = 8 + (kernel == 'K1b'), 8
+    return ((_build.ptr,) * (ptrs + tables) + (_build.i32,) * ints
             + (_build.f32, _build.i32, _build.ptr, _build.i32p))
+
+
+def bwd_inputs(shape, gen):
+    """K1b's (q, k, v views into one qkv projection, cos, sin, dO) and
+    K2b's (rotated contiguous q, k, the view of v, dO), with their plain
+    backwards; SDPA's heads-major q, k, v; dO."""
+    from ddg_tpu_torch.ops import attention as A
+    per_kernel, sdpa = inputs(shape, gen)
+    do = torch.randn(shape, generator=gen, device='cuda').to(torch.bfloat16)
+    q, k, v, cos, sin = per_kernel['K1']
+    qr, kr, _ = per_kernel['K2']
+    return {'K1b': ((q, k, v, cos, sin, do),
+                    lambda: A.fused_rope_attention_bwd_plain(q, k, v, cos, sin,
+                                                             do)),
+            'K2b': ((qr, kr, v, do),
+                    lambda: A.short_seq_attention_bwd_plain(qr, kr, v, do))
+            }, sdpa, do
+
+
+def bwd_call(fn, tensors, outs, ws, parent):
+    """One call of a backward entry point (either library's) into `outs`
+    (dq, dk, dv); `ws` are the new interface's workspaces (the statistics,
+    and K1b's rotated q and k)."""
+    from ddg_tpu_torch.ops import _build
+    q = tensors[0]
+    Bq, Lq, Hq, Dq = q.shape
+    path = ctypes.c_int(-1)
+    dims = (Bq, Lq, Hq) if parent else (Bq, Lq, Hq, Dq)
+    ws = () if parent else tuple(w.data_ptr() for w in ws)
+    rc = fn(*(t.data_ptr() for t in tensors), *(o.data_ptr() for o in outs),
+            *ws, *dims, *(t.stride(1) for t in tensors[:3]), 0,
+            1.0 / Dq ** 0.5, 1, _build.stream(q), ctypes.byref(path))
+    _build.check(rc, 'attention backward')
+    return path.value
 
 
 def inputs(shape, gen):
@@ -91,7 +151,7 @@ def build_parent(src):
     from ddg_tpu_torch.ops import _build
     out_dir = ROOT / 'build' / 'ab'
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / 'libparent_rope_attention.so'
+    lib = out_dir / f'libparent_{Path(src).stem}.so'
     proc = subprocess.run(
         [_build._nvcc(), *_build.NVCC_FLAGS, '-I', str(Path(src).parent),
          '-I', str(_build.CSRC), '-o', str(lib), str(src)],
@@ -160,6 +220,114 @@ def run_check():
     return 1 if failed else 0
 
 
+def run_check_bwd():
+    from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import attention as A
+    cs.DEV = 'cuda'
+    libs = _build.build_all()
+    print(json.dumps({'ptxas': cs.ptxas_lines(
+        libs['rope_attention_bwd'][1])}), flush=True)
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    failed = 0
+    for shape in BWD_CHECK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            cases, _, _ = cs._attention_cases(shape, dtype, gen)
+            for name in ('fused_rope_attention_bwd',
+                         'short_seq_attention_bwd'):
+                kern, plain = cases[name]
+                wrapper = getattr(A, name)
+                for causal in (False, True):
+                    rec = {'case': name, 'shape': list(shape),
+                           'dtype': str(dtype), 'causal': causal}
+                    tc = wrapper.tensor_core_launches
+                    try:
+                        got, again = kern(causal), kern(causal)
+                        torch.cuda.synchronize()
+                        rec['tensor_cores'] = wrapper.tensor_core_launches > tc
+                        rec['bit_identical_rerun'] = all(
+                            torch.equal(a, b) for a, b in zip(got, again))
+                        ref = plain(causal)
+                        rec['err'], rec['differs_from_plain'] = {}, {}
+                        for out, a, r in zip(('dq', 'dk', 'dv'), got, ref):
+                            rec['err'][out] = (a.float() - r.float()).abs(
+                            ).max().item()
+                            rec['differs_from_plain'][out] = (
+                                a != r).float().mean().item()
+                            cs._close(f'{name} {out}', dtype, a, r)
+                        rec['ok'] = rec['bit_identical_rerun']
+                    except Exception as e:  # report every case, then fail
+                        rec['ok'], rec['error'] = False, repr(e)[:400]
+                    failed += not rec['ok']
+                    print(json.dumps(rec), flush=True)
+    try:
+        cs.check_attention_plan(BWD_CHECK_SHAPES)
+    except Exception as e:
+        failed += 1
+        print(json.dumps({'case': 'plan mirror', 'ok': False,
+                          'error': repr(e)[:400]}), flush=True)
+    print(cs.nvidia_smi(), flush=True)
+    return 1 if failed else 0
+
+
+def run_ab_bwd(parent_source, rounds):
+    from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import attention as A
+    parent, log = build_parent(parent_source)
+    print(json.dumps({'parent_ptxas': cs.ptxas_lines(log)}), flush=True)
+    smi = cs.nvidia_smi()
+    gen = torch.Generator(device='cuda').manual_seed(9)
+    for label, shape in SHAPES.items():
+        per_kernel, sdpa, do = bwd_inputs(shape, gen)
+        sdpa_ms = cs._sdpa_ms(sdpa, do, True)
+        plan = A.backward_plan(*shape, torch.bfloat16)
+        stats = torch.empty((shape[0], shape[2], 3, plan['stats_len']),
+                            device='cuda')
+        rot = torch.empty((2, *shape), dtype=torch.bfloat16, device='cuda')
+        for kernel, (tensors, plain) in per_kernel.items():
+            ws = (stats, rot) if kernel == 'K1b' else (stats,)
+            fns = {'parent': getattr(parent, NAMES[kernel]),
+                   'new': _build.kernel('rope_attention_bwd', NAMES[kernel],
+                                        argtypes(kernel))}
+            fns['parent'].argtypes = list(argtypes(kernel, parent=True))
+            fns['parent'].restype = ctypes.c_int
+            outs = {arm: [torch.empty(shape, dtype=torch.bfloat16,
+                                      device='cuda') for _ in range(3)]
+                    for arm in fns}
+            paths = {arm: bwd_call(fn, tensors, outs[arm], ws,
+                                   arm == 'parent')
+                     for arm, fn in fns.items()}
+            ref = plain()
+            differs = {arm: {n: (o != r).float().mean().item()
+                             for n, o, r in zip(('dq', 'dk', 'dv'), outs[arm],
+                                                ref)}
+                       for arm in fns}
+            diff = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(outs['new'], outs['parent']))
+            times = {'parent': [], 'new': []}
+            for r in range(rounds):
+                for arm in ('parent', 'new', 'new', 'parent'):
+                    fn, out = fns[arm], outs[arm]
+                    ms = cs.time_ms(lambda: bwd_call(fn, tensors, out, ws,
+                                                     arm == 'parent'))
+                    times[arm].append(ms)
+                    print(json.dumps({'kernel': kernel, 'shape': label,
+                                      'arm': arm, 'round': r, 'ms': ms,
+                                      'nvidia_smi': smi}), flush=True)
+            mean = {arm: sum(t) / len(t) for arm, t in times.items()}
+            bound, by = cs._attention_bound(
+                'fused_rope_attention_bwd' if kernel == 'K1b'
+                else 'short_seq_attention_bwd', shape, 2)
+            print(json.dumps({
+                'kernel': kernel, 'shape': label, 'dims': list(shape),
+                'parent_ms': mean['parent'], 'new_ms': mean['new'],
+                'speedup': mean['parent'] / mean['new'],
+                'sdpa_bwd_ms': sdpa_ms, 'bound_ms': bound, 'bound_by': by,
+                'paths': paths, 'differs_from_plain': differs,
+                'max_abs_diff_new_vs_parent': diff,
+                'nvidia_smi': smi}), flush=True)
+    return 0
+
+
 def run_ab(parent_source, rounds):
     from ddg_tpu_torch.ops import _build
     parent, log = build_parent(parent_source)
@@ -209,15 +377,19 @@ def main():
     ap.add_argument('--check', action='store_true')
     ap.add_argument('--parent-source')
     ap.add_argument('--rounds', type=int, default=1)
+    ap.add_argument('--bwd', action='store_true',
+                    help='the backward kernels (K1b/K2b) instead of K1/K2')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('no CUDA device is visible', file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.check:
-        return run_check()
+        return run_check_bwd() if args.bwd else run_check()
     if not args.parent_source or not os.path.exists(args.parent_source):
         ap.error('--parent-source names no file')
+    if args.bwd:
+        return run_ab_bwd(args.parent_source, args.rounds)
     return run_ab(args.parent_source, args.rounds)
 
 

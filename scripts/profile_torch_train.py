@@ -50,10 +50,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 GROUPS = (   # first match wins; matched against the kernel's name
     # The attention kernels' RoPE flag is their template's `true`.
-    ('K1b attention bwd (RoPE)', ('attention_bwd_mma_kernel<true',
-                                  'attention_bwd_kernel<__nv_bfloat16, true',
-                                  'attention_bwd_kernel<float, true')),
-    ('K2 attention bwd', ('attention_bwd_mma_kernel', 'attention_bwd_kernel')),
+    # K1b and K2b share their two kernels, the query-tile one (dq) and the
+    # key-tile one (dk, dv): the route says which runs (K1b on 'fused_rope'
+    # and in LM1B training, K2b on 'short_seq'). K1b on the tensor cores
+    # also rotates q and k before them and un-rotates dq and dk after.
+    ('K1b RoPE passes', ('rope_rows_kernel',)),
+    ('K1b/K2b attention bwd', ('attention_bwd_q_wgmma_kernel',
+                               'attention_bwd_kv_wgmma_kernel',
+                               'attention_bwd_q_kernel',
+                               'attention_bwd_kv_kernel')),
     ('K1 attention (RoPE)', ('attention_wgmma_kernel<true',
                              'attention_kernel<__nv_bfloat16, true',
                              'attention_kernel<float, true')),

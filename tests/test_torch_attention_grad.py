@@ -31,9 +31,10 @@ def T(a):
     return torch.from_numpy(np.array(a))
 
 
-# L=16, and text8's L=256 (the case ids of L=16 are the original ones).
+# L=16, text8's L=256 and the reference DiT-small's L=1024 (the case ids
+# of L=16 are the original ones).
 LENGTHS = [pytest.param(c, n, id=f'{c}' if n == L else f'{c}-L{n}')
-           for n in (L, 256) for c in (False, True)]
+           for n in (L, 256, 1024) for c in (False, True)]
 
 
 @pytest.mark.parametrize('causal,length', LENGTHS)

@@ -2,8 +2,8 @@
 short_seq_attention`, K2: plain version on the CPU) against
 `ddg_tpu/ops/attention_pallas.py:short_seq_attention` with interpret=True
 (its Pallas kernel, and its custom VJP `_flash_bwd` for the backward),
-causal and not, at L=16 and at text8's L=256 (the forward also at
-L=1024), B=1, H=2, D=64: float32 to 1e-5 abs, bfloat16 to 2 ulp of the
+causal and not, at L=16, text8's L=256 and the reference DiT-small's
+L=1024, B=1, H=2, D=64: float32 to 1e-5 abs, bfloat16 to 2 ulp of the
 largest magnitude of the JAX output (one rounding flip of a bf16 operand
 moves a result by about that much). Also:
 the autograd Function equals the plain backward on views of one qkv
@@ -24,10 +24,8 @@ from ddg_tpu_torch.ops import attention as tat
 torch.set_num_threads(1)
 B, H, DH = 1, 2, 64
 ATOL = 1e-5
-CASES = [(causal, length) for length in (16, 256) for causal in (False, True)]
-# The forward also at the reference DiT-small's L=1024 (the backward
-# kernels take L <= 256).
-FORWARD_CASES = CASES + [(causal, 1024) for causal in (False, True)]
+CASES = [(causal, length) for length in (16, 256, 1024)
+         for causal in (False, True)]
 DTYPES = {'float32': (np.float32, jnp.float32, torch.float32),
           'bfloat16': (np.float32, jnp.bfloat16, torch.bfloat16)}
 
@@ -49,7 +47,7 @@ def _assert_close(got, want, dtype):
 
 
 @pytest.mark.parametrize('dtype', list(DTYPES))
-@pytest.mark.parametrize('causal,length', FORWARD_CASES)
+@pytest.mark.parametrize('causal,length', CASES)
 def test_forward_matches_pallas(causal, length, dtype):
     _, jdt, tdt = DTYPES[dtype]
     q, k, v = _inputs(1 + causal + length, length)
