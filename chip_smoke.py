@@ -84,22 +84,24 @@ Each phase prints one JSON line:
      route's than the pooled std of the two routes' last-10 losses;
  13. the text8 training main path at full width and depth:
      `entry.text8_train_flagship()` (DiT-small MDLM at L=256, V=35, global
-     batch 512 x 256 as micro-batches) on both attention routes, K1 and
-     K1b ('fused_rope': 2 warm-up and 3 timed steps) and K2 and its
-     backward ('short_seq': 1 and 2): tokens/s, ms/step, peak memory, the
-     idle share of one profiled step, exact launches per micro-step (12
-     attention forwards and backwards of the route's kernel and none of
-     the other's, 13 ln_modulate and 12 gate_res_ln_modulate each way) and
-     0 host syncs per step;
- 14. a learning check of both text8 routes from the same weights and
+     batch 512 x 256 as micro-batches) on its three attention routes, K1
+     and K1b ('fused_rope': 2 warm-up and 3 timed steps), K2 and its
+     backward ('short_seq': 1 and 2) and the library flash attention's K20
+     with K21 and K22 ('flash', the JAX bench's `--train --flash-attn`: 1
+     and 2): tokens/s, ms/step, peak memory, the idle share of one profiled
+     step, exact launches per micro-step (12 attention forwards and 12 of
+     each backward kernel of the route and none of the others', 13
+     ln_modulate and 12 gate_res_ln_modulate each way) and 0 host syncs per
+     step;
+ 14. a learning check of the three text8 routes from the same weights and
      generator: 30 steps on one Zipf micro-batch at lr 3e-4, the bars of
-     12;
+     12 against the 'fused_rope' route;
  15. the reference DiT-small at its own L=1024 (`configs/model/small.yaml`,
      the LM1B vocabulary) through `entry._dit_train_setup`, global batch 32
      as micro-batches of 16, two steps on each attention route: finite
-     losses, exact launches (12 attention forwards and 12 backwards of the
-     route's kernels a micro-step) and every attention call on the tensor
-     cores.
+     losses, exact launches (12 attention forwards and 12 of each backward
+     kernel of the route a micro-step) and every attention call on the
+     tensor cores.
 The serving path (6) runs feature-mix at T=1000 (the JAX bench's line) and
 records each run under PyTorch's sync debug mode: no host sync in
 feature-mix and first-hitting, exactly one a step in the NFE cache (its
@@ -111,6 +113,13 @@ kernel forms (K12's bit for bit with `int8_dense`), the in-kernel noise
 against fp32 logits + K7 with the same seed (their Philox draws rebuilt in
 PyTorch where the two disagree), identical reruns; timed beside the
 composite of the unfused path.
+Phase 4 holds K20, K21 and K22 (the library flash attention behind the
+DiT's `tpu_flash_attn`) against their plain versions on the same inputs,
+fp32 and bf16, causal and not, at 48 x 128 x 12 x 64, 256 x 256, 4 x 1024,
+L=384 (three key blocks) and D = 32, 40, 128, 160 (L=128) and 256, with
+the attention bars (fp32 1e-4 abs; bf16 2 ulp and at most 1% of each
+output differing at all), bit-identical reruns and the tensor cores at
+bf16 D = 64, timed beside SDPA (forward) and SDPA's backward.
 Phase 4 holds K1, K2 and their backwards at L=128 and L=256 (the text8
 micro-batch), at the key-tile edges L=64, 192 and 200, at L=40 with D=64
 and D=32 and at L=1024 (the reference DiT-small), requires the tensor-core
@@ -136,9 +145,9 @@ K14 and K15 also against float64, recorded), the backwards twice each
 with bit-identical outputs; and the wrappers' mirror of the kernels'
 shared-memory sums (what `ops.mamba`'s `*_takes` accept) against the
 sums the built kernels use. Phase 5 runs a tiny DiMamba card against CPU and a
-tiny DiMamba train step card against CPU on the three kernel routes, and a
-tiny text8 DiT train step (L=256) card against CPU on both attention
-routes.
+tiny DiMamba train step card against CPU on the three kernel routes, a
+tiny DiT on the flash route (L=256) card against CPU, and a tiny text8 DiT
+train step (L=256) card against CPU on the three attention routes.
 Then the `kernels` line, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}} last. Any failed check raises, so the run
 exits non-zero without a result line; so does a machine without a CUDA
@@ -517,6 +526,157 @@ def check_attention(results):
                 else:
                     results[name].setdefault(label, {})[str(dtype)] = rec
     return [shape for shape, _ in shapes.values()]
+
+
+# K20-K22, the library flash attention behind the DiT's `tpu_flash_attn`
+# route: (B, L, H, D) shapes of `check_flash_attention` and the kernels'
+# names (`ops.flash_attention`'s wrappers).
+FLASH = ('flash_attention_fwd', 'flash_attention_bwd_dkv',
+         'flash_attention_bwd_dq')
+FLASH_SHAPES = {'lm1b_sampling': (48, 128, 12, 64),
+                'text8_training': (256, 256, 12, 64),
+                'long': (4, 1024, 12, 64),
+                'odd_blocks_L384': (2, 384, 3, 64),
+                'd32': (2, 256, 2, 32),
+                'd40': (2, 256, 2, 40),
+                'd128': (2, 256, 2, 128),
+                'd160_one_block': (2, 128, 2, 160),
+                'd256': (2, 256, 2, 256)}
+# The products each kernel forms, in units of B H L^2 D multiply-adds: S
+# and P V (K20); S^T, dP^T, dV and dK (K21); S, dP and dQ (K22).
+FLASH_PRODUCTS = {'flash_attention_fwd': 2, 'flash_attention_bwd_dkv': 4,
+                  'flash_attention_bwd_dq': 3}
+
+
+def _flash_inputs(shape, dtype, gen, causal):
+    """q, k as the flash route hands them over (rotated, contiguous) beside
+    a view of v into the fused projection, do, and the plain forward's l,
+    m and di = sum(o * do), the backward kernels' shared inputs."""
+    from ddg_tpu_torch.models.dit import rope_cos_sin
+    from ddg_tpu_torch.ops import attention as A
+    from ddg_tpu_torch.ops import flash_attention as FA
+    cos, sin = rope_cos_sin(shape[1], shape[3], device=DEV)
+    q, k, v = _qkv_views(gen, shape, dtype)
+    q, k = A.apply_rope(q, cos, sin), A.apply_rope(k, cos, sin)
+    do = _rand(gen, *shape, dtype=dtype)
+    sc = 1.0 / math.sqrt(shape[3])
+    o, l, m = FA.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                           sm_scale=sc)
+    return (q, k, v), do, (l, m, FA.output_grad_dot(o, do)), sc
+
+
+def _flash_bound(name, shape, es):
+    """(bound_ms, bound_by) of K20, K21 or K22 at `shape`, not causal: q,
+    k, v (and do) read once, the outputs written once, l, m (and di) as
+    fp32 rows, against its products at the bf16 tensor-core rate."""
+    nb, Lq, Hq, Dq = shape
+    rows = nb * Hq * Lq * 4
+    tensors = {'flash_attention_fwd': (4, 2),
+               'flash_attention_bwd_dkv': (6, 3),
+               'flash_attention_bwd_dq': (5, 3)}[name]
+    return bound(tensors[0] * nb * Lq * Hq * Dq * es + tensors[1] * rows,
+                 2 * FLASH_PRODUCTS[name] * nb * Hq * Lq * Lq * Dq,
+                 PEAK_BF16_TENSOR)
+
+
+def _flash_cases(qkv, do, stats, kw):
+    """{name: (kernel call, plain call, outputs compared)} of K20-K22 on the
+    same inputs; every call returns a tuple."""
+    from ddg_tpu_torch.ops import flash_attention as FA
+    bwd = (*qkv, stats[0], stats[1], do, stats[2])
+    return {
+        'flash_attention_fwd': (
+            lambda: FA.flash_attention_fwd(*qkv, **kw),
+            lambda: FA.flash_attention_fwd_plain(*qkv, **kw),
+            (('o', 'row'),)),
+        'flash_attention_bwd_dkv': (
+            lambda: FA.flash_attention_bwd_dkv(*bwd, **kw),
+            lambda: FA.flash_attention_bwd_dkv_plain(*bwd, **kw),
+            (('dk', 'row'), ('dv', 'row'))),
+        'flash_attention_bwd_dq': (
+            lambda: (FA.flash_attention_bwd_dq(*bwd, **kw),),
+            lambda: (FA.flash_attention_bwd_dq_plain(*bwd, **kw),),
+            (('dq', 'row'),))}
+
+
+def check_flash_attention(results, shapes=None, timed=True):
+    """K20, K21 and K22 against their plain versions on the same inputs,
+    causal and not, fp32 and bf16, at FLASH_SHAPES: the LM1B serving batch
+    48 x 128 (one key block: the library's single-step forward), the text8
+    training micro-batch x 256, the reference DiT-small's L=1024 (4 x 1024
+    x 12), an odd count of key blocks (L=384) and head widths 32, 40, 128,
+    160 (one key block: the library takes it there only) and 256, the
+    widest the kernels take (in bf16 only 32 and 64 run on the tensor
+    cores). Bars: fp32 1e-4 abs; bf16 2 ulp of the largest magnitude, with
+    at most 1% of each output (o, dk, dv, dq) differing from the plain
+    version at all (the 2-ulp bar cannot see where p is rounded;
+    bit equality can); the forward's l and m (fp32) to SUM_RTOL of their
+    largest magnitude. Every call runs twice with bit-identical outputs,
+    and every bf16 call with D a multiple of 16 up to 64 takes the tensor
+    cores. The bf16 records at the main paths' shapes (text8 training is a
+    kernel's main record) hold the kernel's, the plain version's and SDPA's
+    CUDA-event medians (K21 and K22: SDPA's backward, autograd through SDPA
+    minus its forward, which gives dq, dk and dv together) and the bound."""
+    from ddg_tpu_torch.ops import flash_attention as FA
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    timed_labels = ('lm1b_sampling', 'text8_training', 'long')
+    for label, shape in (shapes or FLASH_SHAPES).items():
+        for dtype in (torch.float32, torch.bfloat16):
+            tc_path = (dtype == torch.bfloat16 and shape[3] % 16 == 0
+                       and shape[3] <= 64)
+            recs = {name: {'shape': list(shape), 'err': 0.0}
+                    for name in FLASH}
+            for causal in (False, True):
+                qkv, do, stats, sc = _flash_inputs(shape, dtype, gen, causal)
+                cases = _flash_cases(qkv, do, stats,
+                                     dict(causal=causal, sm_scale=sc))
+                for name, (call, plain, outs) in cases.items():
+                    rec, wrapper = recs[name], getattr(FA, name)
+                    before = (wrapper.launches, wrapper.tensor_core_launches)
+                    tag = f'{name} {label} causal={causal}'
+                    got = _bwd_case(rec, tag, dtype, outs, call, plain,
+                                    differs_bar=(0.01 if dtype ==
+                                                 torch.bfloat16 else None))
+                    if name == 'flash_attention_fwd':
+                        ref = plain()
+                        for i, what in ((1, 'l'), (2, 'm')):
+                            err = ((got[i] - ref[i]).abs().max()
+                                   / ref[i].abs().max()).item()
+                            check(torch.equal(got[i], call()[i]),
+                                  f'{tag}: {what} reruns differ')
+                            check(err <= SUM_RTOL, f'{tag}: {what} off by '
+                                  f'{err} of its largest magnitude')
+                            rec[f'{what}_err_of_max'] = max(
+                                rec.get(f'{what}_err_of_max', 0.0), err)
+                    n = wrapper.launches - before[0]
+                    on_tc = wrapper.tensor_core_launches - before[1] == n
+                    check(on_tc == tc_path, f'{tag} {dtype}: tensor cores '
+                          f'{on_tc}, expected {tc_path}')
+                    rec['tensor_cores'] = on_tc
+                    rec['bit_identical_rerun'] = True
+            if timed and dtype == torch.bfloat16 and label in timed_labels:
+                qkv, do, stats, sc = _flash_inputs(shape, dtype, gen, False)
+                sdpa = tuple(t.transpose(1, 2).contiguous() for t in qkv)
+                lib = {bwd: _sdpa_ms(sdpa, do, bwd) for bwd in (False, True)}
+                cases = _flash_cases(qkv, do, stats,
+                                     dict(causal=False, sm_scale=sc))
+                for name, (call, plain, _) in cases.items():
+                    rec, bwd = recs[name], name != 'flash_attention_fwd'
+                    rec['ms'] = time_ms(call)
+                    rec['plain_ms'] = time_ms(plain, reps=10)
+                    rec['library_ms'] = lib[bwd]
+                    rec['library'] = ('SDPA backward (autograd through SDPA '
+                                      'minus its forward: dq, dk and dv '
+                                      'together)' if bwd else 'SDPA')
+                    rec['bound_ms'], rec['bound_by'] = _flash_bound(
+                        name, shape, torch.tensor([], dtype=dtype)
+                        .element_size())
+            for name in FLASH:
+                if label == 'text8_training':
+                    results[name].setdefault(str(dtype), {}).update(recs[name])
+                else:
+                    results[name].setdefault(label, {})[str(dtype)] = \
+                        recs[name]
 
 
 def _plan_launch(v):
@@ -1887,27 +2047,33 @@ def check_mamba_wide_bwd(results, gen):
 # Phases 4 and 5: the model
 # ---------------------------------------------------------------------------
 
-def check_tiny_dit():
+def check_tiny_dit(route='fused_rope'):
     """A tiny float32 DiT with the fused flags on the card against the same
     weights on the CPU (where the plain versions run): the BASELINE 1e-3
-    logit bar."""
+    logit bar. `route` 'fused_rope' runs K1 at L=32; 'flash' runs the
+    library flash attention's K20 at L=256 (two key blocks), which must
+    launch on the card."""
     import numpy as np
     from ddg_tpu_torch.convert import make_reference_dit_state_dict
     from ddg_tpu_torch.models import DIT, DITConfig
-    cfg = DITConfig(hidden_size=128, cond_dim=32, length=32, n_blocks=2,
+    from ddg_tpu_torch.ops import flash_attention as FA
+    flash = route == 'flash'
+    Lt = 256 if flash else 32
+    cfg = DITConfig(hidden_size=128, cond_dim=32, length=Lt, n_blocks=2,
                     n_heads=2, vocab_size=101, num_classes=2,
-                    compute_dtype=torch.float32, fused_rope_attn=True,
-                    fused_adaln=True)
+                    compute_dtype=torch.float32, fused_rope_attn=not flash,
+                    tpu_flash_attn=flash, fused_adaln=True)
     sd = make_reference_dit_state_dict(
         np.random.RandomState(1), hidden=128, cond_dim=32, n_blocks=2,
         vocab=101, with_cond=True)
     # Larger weights than the 0.02 default, so that the logits vary.
     sd = {k: v * 10 if v.ndim == 2 else v for k, v in sd.items()}
     gen = torch.Generator().manual_seed(2)
-    x = torch.randint(0, 101, (4, 32), generator=gen, dtype=torch.int32)
+    x = torch.randint(0, 101, (4, Lt), generator=gen, dtype=torch.int32)
     sigma = torch.rand((4,), generator=gen)
     cond = torch.tensor([0, 1, 2, 0], dtype=torch.int32)
     outs = []
+    before = FA.flash_attention_fwd.launches
     for dev in ('cpu', DEV):
         m = DIT(cfg)
         m.load_state_dict(sd, strict=True)
@@ -1915,10 +2081,14 @@ def check_tiny_dit():
         with torch.no_grad():
             outs.append(m(x.to(dev), sigma.to(dev), cond.to(dev)).cpu())
     err = (outs[0] - outs[1]).abs().max().item()
-    check(bool(torch.isfinite(outs[1]).all()), 'tiny DiT: non-finite logits')
-    check(err < 1e-3, f'tiny DiT: card vs CPU logits differ by {err}')
-    emit({'phase': 'tiny_dit_card_vs_cpu', 'max_abs_err': err,
-          'logit_std': outs[0].std().item()})
+    launched = FA.flash_attention_fwd.launches - before
+    check(bool(torch.isfinite(outs[1]).all()),
+          f'tiny DiT {route}: non-finite logits')
+    check(err < 1e-3, f'tiny DiT {route}: card vs CPU logits differ by {err}')
+    check(launched == (2 if flash else 0),
+          f'tiny DiT {route}: K20 launched {launched} times')
+    emit({'phase': 'tiny_dit_card_vs_cpu', 'route': route, 'length': Lt,
+          'max_abs_err': err, 'logit_std': outs[0].std().item()})
 
 
 def _tiny_int8_dit(quant_int8=True):
@@ -2433,14 +2603,18 @@ PER_MICRO_STEP = {'fused_rope_attention': 12, 'fused_rope_attention_bwd': 12,
                   'fused_uniform_cfg_sample': 0, 'fused_group_norm_act': 0,
                   'mamba_inner': 0, 'ssm_scan': 0, 'mamba_inner_bwd': 0,
                   'ssm_scan_bwd': 0, 'short_seq_attention': 0,
-                  'short_seq_attention_bwd': 0}
-# The text8 run's routes: K1 and K1b, or K2 and its backward, 12 a
-# micro-step each; the adaLN kernels as in LM1B training.
+                  'short_seq_attention_bwd': 0,
+                  **{name: 0 for name in FLASH}}
+# The text8 run's routes: K1 and K1b, K2 and its backward, or K20 with K21
+# and K22, 12 a micro-step each; the adaLN kernels as in LM1B training.
 TEXT8_PER_MICRO_STEP = {
     'fused_rope': PER_MICRO_STEP,
     'short_seq': dict(PER_MICRO_STEP, fused_rope_attention=0,
                       fused_rope_attention_bwd=0, short_seq_attention=12,
-                      short_seq_attention_bwd=12)}
+                      short_seq_attention_bwd=12),
+    'flash': dict(PER_MICRO_STEP, fused_rope_attention=0,
+                  fused_rope_attention_bwd=0,
+                  **{name: 12 for name in FLASH})}
 
 
 def run_train_path(kernels, warmup=2, steps=5):
@@ -2523,17 +2697,18 @@ def check_learning(micro_steps=30):
 
 
 # ---------------------------------------------------------------------------
-# The text8 training path: DiT-small MDLM at L=256, on two attention routes
+# The text8 training path: DiT-small MDLM at L=256, on three attention routes
 # ---------------------------------------------------------------------------
 
 def check_tiny_text8_train():
     """A tiny float32 DiT at text8's L=256 and V=35 (hidden 128, 2 heads of
     64, 2 blocks, dropout 0) with the text8 run's optimizer and EMA, card
-    against CPU (`_train_step_card_vs_cpu`), on both attention routes: K1
-    and K1b, and RoPE then K2 and its backward (the plain versions on the
-    CPU). At L=256 with the x10 weights a gradient can move by ~1e-4 of its
-    largest magnitude under another summation order alone, so each
-    gradient's bar is twice its fp32 sensitivity where that exceeds 1e-4,
+    against CPU (`_train_step_card_vs_cpu`), on each attention route: K1
+    and K1b, RoPE then K2 and its backward, and RoPE then K20 with K21 and
+    K22 (the plain versions on the CPU). At L=256 with the x10 weights a
+    gradient can move by ~1e-4 of its largest magnitude under another
+    summation order alone, so each gradient's bar is twice its fp32
+    sensitivity where that exceeds 1e-4,
     capped at 3e-4 so that a wrong kernel still fails: how far it moves on
     the CPU, in units of its largest magnitude, when every weight matrix
     is perturbed by half an fp32 ulp (2^-24 relative, seeded), which is
@@ -2632,13 +2807,14 @@ def run_text8_train_path(kernels, route, warmup=2, steps=3):
 
 
 def check_text8_learning(micro_steps=30, rows=64):
-    """Both attention routes of the text8 run from the same weights and the
+    """The attention routes of the text8 run from the same weights and the
     same generator, lr 3e-4 without warmup, `micro_steps` steps on one
     micro-batch of `rows` sequences (a quarter of TEXT8_TRAIN_MICRO_BATCH)
     of Zipf-distributed tokens (exponent 1.1, as `check_learning`). Bars,
     set before the first run: each route's mean loss over the last 5 steps
-    at least 10% below that over the first 5; the routes' last-5 means
-    closer than the pooled std of their last-10 losses."""
+    at least 10% below that over the first 5; each other route's last-5
+    mean closer to 'fused_rope''s than the pooled std of the two routes'
+    last-10 losses."""
     import dataclasses
     from ddg_tpu_torch.entry import TEXT8_ROUTES, text8_train_flagship
     from ddg_tpu_torch.models import DIT
@@ -2665,15 +2841,23 @@ def check_text8_learning(micro_steps=30, rows=64):
                                    f'from {first} to {last}, less than 10%')
         out[route] = {'loss_first5': first, 'loss_last5': last,
                       'drop': 1 - last / first, 'losses': losses}
-    tails = [out[r]['losses'][-10:] for r in out]
-    pooled = math.sqrt(sum(statistics.variance(t) for t in tails) / 2)
-    gap = abs(out['fused_rope']['loss_last5']
-              - out['short_seq']['loss_last5'])
+    gaps = {}
+    for route in out:
+        if route == 'fused_rope':
+            continue
+        tails = [out[r]['losses'][-10:] for r in ('fused_rope', route)]
+        pooled = math.sqrt(sum(statistics.variance(t) for t in tails) / 2)
+        gaps[route] = {'last5_gap': abs(out['fused_rope']['loss_last5']
+                                        - out[route]['loss_last5']),
+                       'pooled_tail_std': pooled}
     emit({'phase': 'text8_learning_check', 'steps': micro_steps,
           'rows': rows, 'seconds': time.perf_counter() - t0,
-          'last5_gap': gap, 'pooled_tail_std': pooled, **out})
-    check(gap < pooled, f'text8 learning: the two routes end {gap} apart, '
-                        f'over the pooled tail std {pooled}')
+          'gaps_to_fused_rope': gaps, **out})
+    for route, g in gaps.items():
+        check(g['last5_gap'] < g['pooled_tail_std'],
+              f'text8 learning: {route} ends {g["last5_gap"]} from '
+              f'fused_rope, over the pooled tail std '
+              f'{g["pooled_tail_std"]}')
 
 
 SMALL_L1024_MICRO_BATCH = 16
@@ -2682,18 +2866,19 @@ SMALL_L1024_MICRO_BATCH = 16
 def run_dit_small_l1024(kernels, steps=2):
     """The reference DiT-small at its own L=1024 (`configs/model/small.yaml`:
     hidden 768, 12 blocks of 12 heads of 64, cond 128; the LM1B flagship's
-    vocabulary) trained through `entry._dit_train_setup` on both attention
-    routes (TEXT8_ROUTES' flags): global batch 2 x SMALL_L1024_MICRO_BATCH
+    vocabulary) trained through `entry._dit_train_setup` on each attention
+    route (TEXT8_ROUTES' flags): global batch 2 x SMALL_L1024_MICRO_BATCH
     as two micro-batches, `steps` steps from seeded random weights. The
     losses and grad norms must be finite, the launches exact (the route's
     attention forward and backward 12 times a micro-step, the other
     route's never, the adaLN kernels as in LM1B training) and every
-    attention call on the tensor cores. Returns the launches of both
+    attention call on the tensor cores. Returns the launches of all the
     routes."""
     from ddg_tpu_torch.entry import (TEXT8_ROUTES, _dit_train_run,
                                      _dit_train_setup)
     from ddg_tpu_torch.models import DITConfig
     from ddg_tpu_torch.ops import attention as A
+    from ddg_tpu_torch.ops import flash_attention as FA
     attn = ('fused_rope_attention', 'fused_rope_attention_bwd',
             'short_seq_attention', 'short_seq_attention_bwd')
     total, out = {k: 0 for k in kernels}, {}
@@ -2706,7 +2891,9 @@ def run_dit_small_l1024(kernels, steps=2):
         batch = run.batch(torch.Generator(device=DEV).manual_seed(1))
         for fn in kernels.values():
             fn.launches = 0
-        tc = {n: getattr(A, n).tensor_core_launches for n in attn}
+        wrappers = {**{n: getattr(A, n) for n in attn},
+                    **{n: getattr(FA, n) for n in FLASH}}
+        tc = {n: w.tensor_core_launches for n, w in wrappers.items()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2717,8 +2904,8 @@ def run_dit_small_l1024(kernels, steps=2):
         n_micro = steps * run.accum_steps
         _launch_check(f'DiT-small L=1024 {route}', kernels, launches,
                       TEXT8_PER_MICRO_STEP[route], n_micro)
-        for n in attn:
-            check(getattr(A, n).tensor_core_launches - tc[n] == launches[n],
+        for n, w in wrappers.items():
+            check(w.tensor_core_launches - tc[n] == launches[n],
                   f'DiT-small L=1024 {route}: {n} missed the tensor cores')
         loss = [m['loss'].item() for m in metrics]
         gnorm = [m['grad_norm'].item() for m in metrics]
@@ -3475,6 +3662,17 @@ SOURCES = {
     'fused_absorbing_head_sample_int8': (
         'ddg_tpu_torch/csrc/head_sample.cu',
         'ddg_tpu/ops/fused_sampling.py:705'),
+    # K20-K22: the library flash attention that ddg_tpu/models/dit.py:361-370
+    # calls (jax 0.9.0's module; its three pl.pallas_call sites).
+    'flash_attention_fwd': ('ddg_tpu_torch/csrc/flash_attention.cu',
+                            'jax/experimental/pallas/ops/tpu/'
+                            'flash_attention.py:758'),
+    'flash_attention_bwd_dkv': ('ddg_tpu_torch/csrc/flash_attention.cu',
+                                'jax/experimental/pallas/ops/tpu/'
+                                'flash_attention.py:1121'),
+    'flash_attention_bwd_dq': ('ddg_tpu_torch/csrc/flash_attention.cu',
+                               'jax/experimental/pallas/ops/tpu/'
+                               'flash_attention.py:1456'),
 }
 
 
@@ -3485,7 +3683,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from ddg_tpu_torch.entry import unet_flagship
-    from ddg_tpu_torch.ops import adaln, attention, groupnorm, mamba
+    from ddg_tpu_torch.ops import (adaln, attention, flash_attention,
+                                   groupnorm, mamba)
     from ddg_tpu_torch.ops import fused_sampling as fs
     kernels = {
         'fused_rope_attention': attention.fused_rope_attention,
@@ -3510,6 +3709,7 @@ def main():
         'fused_absorbing_head_sample': fs.fused_absorbing_head_sample,
         'fused_absorbing_head_sample_int8':
             fs.fused_absorbing_head_sample_int8,
+        **{name: getattr(flash_attention, name) for name in FLASH},
     }
 
     phase_environment()
@@ -3534,6 +3734,7 @@ def main():
     results = {name: {} for name in kernels}
     check_adaln(results)
     check_attention_plan(check_attention(results))
+    check_flash_attention(results)
     tv = check_sampling(results)
     check_head_sample(results)
     tv.update(check_uniform(results))
@@ -3545,6 +3746,7 @@ def main():
     emit({'phase': 'kernels_vs_plain', 'results': results,
           'internal_rng': tv})
     check_tiny_dit()
+    check_tiny_dit('flash')
     check_tiny_dit_int8()
     check_int8_tv()
     check_tiny_train()
@@ -3561,6 +3763,8 @@ def main():
     by_path['text8_training'] = run_text8_train_path(kernels, 'fused_rope')
     by_path['text8_training_short_seq'] = run_text8_train_path(
         kernels, 'short_seq', warmup=1, steps=2)
+    by_path['text8_training_flash'] = run_text8_train_path(
+        kernels, 'flash', warmup=1, steps=2)
     by_path['dit_small_l1024_training'] = run_dit_small_l1024(kernels)
     check_learning()
     check_dimamba_learning()

@@ -3,10 +3,10 @@
 // cp.async copies of 64-row tiles into shared memory in the 128-byte
 // swizzle, the wgmma shared-memory descriptor, wgmma m64n64k16 with A
 // from shared memory or from registers, the fences that order them, and 2^x
-// by the SFU.
+// by the SFU. flash_attention.cu (K20-K22) uses only the cp.async helpers.
 //
-// Every block that uses them has two warpgroups (256 threads) and tiles of
-// 64 rows x 64 bf16 (D = 64, 128 bytes a row). The definitions live in an
+// Every block that uses the tiles has two warpgroups (256 threads) and
+// tiles of 64 rows x 64 bf16 (D = 64, 128 bytes a row). The definitions live in an
 // unnamed namespace: each .cu is its own library with a plain C interface.
 #pragma once
 

@@ -31,9 +31,11 @@ synthetic tokens drawn uniformly over [0, V-1) (`TrainRun.batch`).
 DiT-small at L=256 over text8's V=35 (mask 34) without classes, dropout
 0.1, bf16 trunk with a float32 vocab head, and the rest as
 `train_flagship()`, as micro-batches of TEXT8_TRAIN_MICRO_BATCH. Its
-attention takes one of two routes through the Hopper kernels: 'fused_rope'
-(K1 and K1b, `fused_rope_attn=True`) or 'short_seq' (RoPE in PyTorch, then
-K2 and its backward, `pallas_attention=True`). Batches are synthetic
+attention takes one of three routes through the Hopper kernels: 'fused_rope'
+(K1 and K1b, `fused_rope_attn=True`), 'short_seq' (RoPE in PyTorch, then
+K2 and its backward, `pallas_attention=True`) or 'flash' (RoPE in PyTorch,
+then the library flash attention's K20 and K21/K22, `tpu_flash_attn=True`:
+the JAX bench's `--train --flash-attn` line). Batches are synthetic
 tokens over [0, 34), as `bench.py` draws them: no text8 data is in the
 repository.
 
@@ -113,9 +115,13 @@ TEXT8_TRAIN_MICRO_BATCH = 256
 TEXT8_VOCAB = 35                 # text8's characters and specials; mask 34
 # The attention routes of the text8 run: the DITConfig flags of each.
 TEXT8_ROUTES = {'fused_rope': dict(fused_rope_attn=True,
-                                   pallas_attention=False),
+                                   pallas_attention=False,
+                                   tpu_flash_attn=False),
                 'short_seq': dict(fused_rope_attn=False,
-                                  pallas_attention=True)}
+                                  pallas_attention=True,
+                                  tpu_flash_attn=False),
+                'flash': dict(fused_rope_attn=False, pallas_attention=False,
+                              tpu_flash_attn=True)}
 DIMAMBA_TRAIN_GLOBAL_BATCH = 32
 # The largest power of two dividing 32 whose train step peaks under half of
 # an 80 GB card (PERF.md, Species10 training).
@@ -367,7 +373,7 @@ def _dit_train_setup(cfg: DITConfig, global_batch: int,
 def text8_train_setup(*, tiny: bool = False,
                       route: str = 'fused_rope') -> DiTTrainSetup:
     """The text8 run's configuration with attention through `route`
-    ('fused_rope' or 'short_seq', TEXT8_ROUTES). `tiny` is `bench.py
+    ('fused_rope', 'short_seq' or 'flash', TEXT8_ROUTES). `tiny` is `bench.py
     --quick`'s text8 model with L raised to 256 (hidden 64, cond 32, 2
     blocks of 2 heads, V=35) and a global batch of 4 as 2 micro-batches,
     for runs on the CPU."""

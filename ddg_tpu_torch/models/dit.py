@@ -14,19 +14,24 @@ norm weights and the final adaLN projection stay float32: the final adaLN
 weight is cast to `compute_dtype` inside the forward, as flax does, and
 used in float32 by `dit_head_features`, as `ddg_tpu` does.
 
-`fused_rope_attn=True` runs attention through `ops.attention`'s K1 (RoPE
-inside the kernel); else `pallas_attention=True` rotates q and k in plain
-PyTorch and runs `ops.attention`'s K2, as `ddg_tpu` runs its
-short-sequence kernel (the same precedence as the JAX block).
+Attention takes the JAX block's routes in its order: `tpu_flash_attn=True`
+rotates q and k in plain PyTorch and runs `ops.flash_attention` (K20, and
+K21/K22 for its gradient: the port of the TPU library flash attention, with
+sm_scale 1/sqrt(head_dim)); else `fused_rope_attn=True` runs
+`ops.attention`'s K1 (RoPE inside the kernel); else `pallas_attention=True`
+rotates q and k and runs `ops.attention`'s K2, as `ddg_tpu` runs its
+short-sequence kernel; else plain PyTorch attention, which with
+`attn_probs_bf16=True` is `einsum_attention` (fp32 scores and softmax, the
+probabilities rounded to bf16 before PV) and with `attn_remat=True` runs
+under `torch.utils.checkpoint` (recomputed in the backward).
 `fused_adaln=True` runs the block-entry and attention->MLP adaLN chains and
 the final norm through `ops.adaln`. On CUDA tensors these are the Hopper
 kernels (forward and backward), on CPU tensors their plain versions.
 `quant_int8=True` (inference only, as in `ddg_tpu`) runs the four big trunk
 products and the vocab head through `ops.quant.QLinear` (int8 dynamic
 quantization, same parameters and state-dict keys); the adaLN projections
-stay in `compute_dtype`. The JAX-only branches (tensor/sequence/ring
-parallelism, the TPU library flash attention, the attention remat and
-bf16-probs knobs) raise NotImplementedError when set.
+stay in `compute_dtype`. The JAX-only branch (tensor/sequence/ring
+parallelism) raises NotImplementedError when set.
 
 `train=True` applies dropout (rate `cfg.dropout`) after the attention
 output projection and after the MLP, where the JAX block has it, with
@@ -37,15 +42,18 @@ scale by 1 / (1 - p), as flax's Dropout. The masks are not JAX's bits.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ddg_tpu_torch.ops import adaln
 from ddg_tpu_torch.ops import attention
+from ddg_tpu_torch.ops import flash_attention
 from ddg_tpu_torch.ops import quant
 
 
@@ -70,25 +78,19 @@ class DITConfig:
     # int8 dynamic quantization of the trunk products and the head
     # (inference only).
     quant_int8: bool = False
-    # Not ported: they raise when set.
+    # The library flash attention (K20-K22) and the plain route's knobs;
+    # off by default, as `ddg_tpu`'s 'auto'.
     tpu_flash_attn: bool = False
     attn_probs_bf16: bool = False
     attn_remat: bool = False
+    # Not ported: raises when set.
     tensor_axis: Optional[str] = None
 
     def __post_init__(self):
-        unported = {
-            'tpu_flash_attn': 'the TPU library flash attention',
-            'attn_probs_bf16': 'the bf16-probs einsum attention',
-            'attn_remat': 'attention remat (ROADMAP A.10)',
-            'tensor_axis': 'tensor/sequence/ring parallelism '
-                           '(ROADMAP A.9)',
-        }
-        for name, what in unported.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f'DITConfig.{name}: {what} is not ported to '
-                    'ddg_tpu_torch yet')
+        if self.tensor_axis:
+            raise NotImplementedError(
+                'DITConfig.tensor_axis: tensor/sequence/ring parallelism '
+                '(ROADMAP A.9) is not ported to ddg_tpu_torch yet')
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -115,6 +117,16 @@ def rope_cos_sin(length: int, head_dim: int, base: float = 10_000.0,
 
 
 apply_rope = attention.apply_rope
+
+
+def einsum_attention(q, k, v, *, causal: bool):
+    """`ddg_tpu`'s `einsum_attention` (`attn_probs_bf16`) on (B, L, H, D):
+    fp32 scores, a -1e30 causal mask, fp32 softmax, the probabilities cast
+    to bf16 before PV, accumulated in fp32 and cast to v's dtype."""
+    p = torch.softmax(attention._masked_scores(q.float(), k.float(), causal),
+                      dim=-1)
+    return torch.einsum('bhqk,bkhd->bqhd', p.to(torch.bfloat16).float(),
+                        v.float()).to(v.dtype)
 
 
 def dropout(x, p: float, *, train: bool, generator):
@@ -189,7 +201,11 @@ class DDiTBlock(nn.Module):
         H = cfg.n_heads
         qkv = self.attn_qkv(h).view(B, L, 3, H, dim // H)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if cfg.fused_rope_attn:
+        if cfg.tpu_flash_attn:
+            attn = flash_attention.flash_attention(
+                apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
+                causal=cfg.causal, sm_scale=1.0 / math.sqrt(dim // H))
+        elif cfg.fused_rope_attn:
             attn = attention.fused_rope_attention(q, k, v, cos, sin,
                                                   causal=cfg.causal)
         elif cfg.pallas_attention:
@@ -197,9 +213,12 @@ class DDiTBlock(nn.Module):
                 apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
                 causal=cfg.causal)
         else:
-            attn = attention.attention_plain(
-                apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
-                causal=cfg.causal)
+            fn = functools.partial(
+                einsum_attention if cfg.attn_probs_bf16
+                else attention.attention_plain, causal=cfg.causal)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            attn = (checkpoint(fn, q, k, v, use_reentrant=False)
+                    if cfg.attn_remat else fn(q, k, v))
         h = self.attn_out(attn.reshape(B, L, dim))
         h = dropout(h, cfg.dropout, train=train, generator=rng)
         if fused_adaln:

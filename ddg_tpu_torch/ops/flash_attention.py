@@ -1,0 +1,331 @@
+"""Online-softmax flash attention over blocks of 128 keys: the port of
+`jax.experimental.pallas.ops.tpu.flash_attention.flash_attention`, the
+library kernel behind the DiT's `tpu_flash_attn` route, with its three
+TPU kernels: the forward (K20, `_flash_attention_impl`), the dK/dV
+backward (K21, `_flash_attention_bwd_dkv`) and the dQ backward (K22,
+`_flash_attention_bwd_dq`), at the block sizes the DiT gets (128 for
+every block).
+
+The function differs from `ops.attention`'s K2 where bf16 rounds. For each
+query row the forward walks the key blocks in order, keeping the running
+max m and sum l: per block p = exp(s - m_next) in fp32, then the
+accumulator is renormalised, acc = acc * (alpha l_prev / l_next) +
+(bf16(p) @ v) / l_next, so the unnormalised p is what is rounded to v's
+dtype. With one key block (L = 128) the library's single-step kernel
+divides p by l before the rounding instead. The backward recomputes p =
+exp(s - m) * (1 / l) from the saved l and m, and with di = sum(o * do)
+(fp32, formed here outside the kernels, as the library does) forms ds =
+(do v^T - di) * p * scale; K21 walks the query blocks of a key block in
+order for dv += bf16(p)^T do and dk += bf16(ds)^T q, K22 the key blocks of
+a query block for dq += bf16(ds) k. Scores are the fp32 q k^T times
+sm_scale; under `causal`, blocks wholly above the diagonal are skipped and
+the rest get -0.7 * float32 max added where the key lies past the row.
+
+Layout is the model's (B, L, H, D): q, k and v may each have their own
+token stride (views into the fused qkv projection), as `ops.attention`
+takes them; the library's (B, H, L, D) swap is layout only. l, m and di
+are (B, H, L) float32. On CUDA tensors each wrapper launches its kernel of
+`csrc/flash_attention.cu` (bf16 with D a multiple of 16 up to 64 and rows
+on 16-byte boundaries on the tensor cores, `mma.sync`; everything else,
+up to D = 256, on the CUDA cores: each wrapper's `tensor_core_launches`
+counts the former) or raises; on CPU tensors the plain versions below
+run. Shapes the library refuses raise here too, with its exception types.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ddg_tpu_torch.ops import _build
+
+BLOCK = 128                      # every block size the DiT's call gets
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+D_MAX = 256                      # the widest head the kernels take
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_shape(L: int, D: int) -> None:
+    """Raise where the library refuses (B, H, L, D) at 128-blocks:
+    ValueError for L under 128 or not a multiple of it, NotImplementedError
+    for D over 128 that is not a multiple of 128 when there is more than
+    one key block (its multi-step kernel)."""
+    if L < BLOCK:
+        raise ValueError(f'block_q={BLOCK} should be smaller or equal to '
+                         f'q_seq_len={L}')
+    if L % BLOCK:
+        raise ValueError(f'kv_seq_len={L} should be divisible by '
+                         f'block_k_major={BLOCK}')
+    if L > BLOCK and D > BLOCK and D % BLOCK:
+        raise NotImplementedError(f'head_dim={D} should be a multiple of '
+                                  f'{BLOCK} if larger')
+
+
+def _heads(t):
+    """(B, L, H, D) -> (B, H, L, D) float32."""
+    return t.transpose(1, 2).float()
+
+
+def _block_scores(qr, kc, r, c, causal, sm_scale):
+    """fp32 scores of query block r against key block c, (B, H, 128,
+    128), scaled, with the mask value added past the diagonal."""
+    s = (qr @ kc.transpose(-1, -2)) * sm_scale
+    if causal and c == r:
+        i = torch.arange(BLOCK, device=s.device)
+        s = s + torch.where(i[None, :] <= i[:, None], 0.0, MASK_VALUE)
+    return s
+
+
+def _blocks(L, r, causal):
+    """The key blocks query block r visits, in order."""
+    return range(r + 1 if causal else L // BLOCK)
+
+
+def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
+                              sm_scale: float = 1.0):
+    """The plain PyTorch version of K20: (o, l, m), o (B, L, H, D) in q's
+    dtype, l and m (B, H, L) float32."""
+    B, L, H, D = q.shape
+    check_shape(L, D)
+    dt = v.dtype
+    qh, kh, vh = _heads(q), _heads(k), _heads(v)
+    o = torch.empty((B, H, L, D), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    m = torch.empty_like(l)
+    for r in range(L // BLOCK):
+        rows = slice(r * BLOCK, (r + 1) * BLOCK)
+        if L == BLOCK:      # the single-step kernel: normalise, then round
+            s = _block_scores(qh, kh, 0, 0, causal, sm_scale)
+            mr = s.amax(-1, keepdim=True)
+            p = torch.exp(s - mr)
+            lr = p.sum(-1, keepdim=True)
+            o[:, :, rows] = (p / lr).to(dt).float() @ vh
+            l[:, :, rows], m[:, :, rows] = lr[..., 0], mr[..., 0]
+            continue
+        acc = torch.zeros((B, H, BLOCK, D), dtype=torch.float32,
+                          device=q.device)
+        m_prev = torch.full((B, H, BLOCK, 1), float('-inf'),
+                            device=q.device)
+        l_prev = torch.zeros((B, H, BLOCK, 1), device=q.device)
+        for c in _blocks(L, r, causal):
+            keys = slice(c * BLOCK, (c + 1) * BLOCK)
+            s = _block_scores(qh[:, :, rows], kh[:, :, keys], r, c, causal,
+                              sm_scale)
+            m_next = torch.maximum(m_prev, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_next)
+            l_corr = torch.exp(m_prev - m_next) * l_prev
+            l_next = p.sum(-1, keepdim=True) + l_corr
+            inv = torch.where(l_next == 0.0, 1.0, 1.0 / l_next)
+            acc = acc * (l_corr * inv)
+            acc = acc + (p.to(dt).float() @ vh[:, :, keys]) * inv
+            m_prev, l_prev = m_next, l_next
+        o[:, :, rows] = acc
+        l[:, :, rows], m[:, :, rows] = l_prev[..., 0], m_prev[..., 0]
+    return o.transpose(1, 2).to(q.dtype).contiguous(), l, m
+
+
+def _block_grads(qh, kh, vh, doh, l, m, di, r, c, causal, sm_scale):
+    """p and ds of query block r against key block c, (B, H, 128, 128)
+    fp32, as both backward kernels form them."""
+    rows = slice(r * BLOCK, (r + 1) * BLOCK)
+    keys = slice(c * BLOCK, (c + 1) * BLOCK)
+    s = _block_scores(qh[:, :, rows], kh[:, :, keys], r, c, causal,
+                      sm_scale)
+    p = torch.exp(s - m[:, :, rows, None]) * (1.0 / l[:, :, rows, None])
+    dp = doh[:, :, rows] @ vh[:, :, keys].transpose(-1, -2)
+    ds = (dp - di[:, :, rows, None]) * p * sm_scale
+    return p, ds
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, l, m, do, di, *,
+                                  causal: bool = False,
+                                  sm_scale: float = 1.0):
+    """The plain PyTorch version of K21: (dk, dv) in k's and v's dtypes.
+    l, m, di: (B, H, L) float32."""
+    B, L, H, D = q.shape
+    check_shape(L, D)
+    n = L // BLOCK
+    qh, kh, vh, doh = _heads(q), _heads(k), _heads(v), _heads(do)
+    dk = torch.empty((B, H, L, D), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for c in range(n):
+        dk_acc = torch.zeros((B, H, BLOCK, D), device=q.device)
+        dv_acc = torch.zeros_like(dk_acc)
+        for r in range(c if causal else 0, n):
+            rows = slice(r * BLOCK, (r + 1) * BLOCK)
+            p, ds = _block_grads(qh, kh, vh, doh, l, m, di, r, c, causal,
+                                 sm_scale)
+            dv_acc = dv_acc + (p.transpose(-1, -2).to(do.dtype).float()
+                               @ doh[:, :, rows])
+            dk_acc = dk_acc + (ds.transpose(-1, -2).to(do.dtype).float()
+                               @ qh[:, :, rows])
+        dk[:, :, c * BLOCK:(c + 1) * BLOCK] = dk_acc
+        dv[:, :, c * BLOCK:(c + 1) * BLOCK] = dv_acc
+    return (dk.transpose(1, 2).to(k.dtype).contiguous(),
+            dv.transpose(1, 2).to(v.dtype).contiguous())
+
+
+def flash_attention_bwd_dq_plain(q, k, v, l, m, do, di, *,
+                                 causal: bool = False,
+                                 sm_scale: float = 1.0):
+    """The plain PyTorch version of K22: dq in q's dtype."""
+    B, L, H, D = q.shape
+    check_shape(L, D)
+    qh, kh, vh, doh = _heads(q), _heads(k), _heads(v), _heads(do)
+    dq = torch.empty((B, H, L, D), dtype=torch.float32, device=q.device)
+    for r in range(L // BLOCK):
+        acc = torch.zeros((B, H, BLOCK, D), device=q.device)
+        for c in _blocks(L, r, causal):
+            _, ds = _block_grads(qh, kh, vh, doh, l, m, di, r, c, causal,
+                                 sm_scale)
+            acc = acc + (ds.to(k.dtype).float()
+                         @ kh[:, :, c * BLOCK:(c + 1) * BLOCK])
+        dq[:, :, r * BLOCK:(r + 1) * BLOCK] = acc
+    return dq.transpose(1, 2).to(q.dtype).contiguous()
+
+
+def _check(q, k, v, *stats):
+    """Raise unless q, k, v (B, L, H, D) and the (B, H, L) fp32 `stats`
+    are what the kernels take; returns q's, k's and v's token strides."""
+    B, L, H, D = q.shape
+    _build.require_cuda(q, k, v, *stats, contiguous=False)
+    if (k.shape != q.shape or v.shape != q.shape or q.dtype not in _DTYPES
+            or k.dtype != q.dtype or v.dtype != q.dtype):
+        raise ValueError('q, k, v must share a float32/bfloat16 dtype and '
+                         'a (B, L, H, D) shape')
+    check_shape(L, D)
+    if D > D_MAX or max(B, H) > 65535:
+        raise ValueError(f'the flash attention kernels take head_dim up to '
+                         f'{D_MAX} and B, H up to 65535, got D={D}')
+    strides = tuple(t.stride(1) for t in (q, k, v))
+    if any(t.stride() != (L * ts, ts, D, 1) for t, ts in zip((q, k, v),
+                                                             strides)):
+        raise ValueError('q, k, v must be (B, L, H, D) with dense heads')
+    for t in stats:
+        if (t.dtype != torch.float32 or tuple(t.shape) != (B, H, L)
+                or not t.is_contiguous()):
+            raise ValueError(f'l, m, di must be contiguous float32 of shape '
+                             f'{(B, H, L)}')
+    return strides
+
+
+def _count(wrapper, path, rc, name):
+    wrapper.launches += 1
+    wrapper.tensor_core_launches += path.value == 1
+    _build.check(rc, name)
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = False,
+                        sm_scale: float = 1.0):
+    """K20: (o, l, m) of q, k, v (B, L, H, D); o contiguous in q's dtype,
+    l and m (B, H, L) float32, saved for the backward."""
+    if q.device.type == 'cpu':
+        return flash_attention_fwd_plain(q, k, v, causal=causal,
+                                         sm_scale=sm_scale)
+    B, L, H, D = q.shape
+    strides = _check(q, k, v)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    l = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    m = torch.empty_like(l)
+    fn = _build.kernel('flash_attention', 'ddg_flash_attention_fwd',
+                       (_build.ptr,) * 6 + (_build.i32,) * 8
+                       + (_build.f32, _build.i32, _build.ptr, _build.i32p))
+    path = ctypes.c_int(-1)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            l.data_ptr(), m.data_ptr(), B, L, H, D, *strides, int(causal),
+            sm_scale, _DTYPES[q.dtype], _build.stream(q), ctypes.byref(path))
+    _count(flash_attention_fwd, path, rc, 'ddg_flash_attention_fwd')
+    return o, l, m
+
+
+def _bwd_launch(name, q, k, v, l, m, do, di, outs, causal, sm_scale):
+    B, L, H, D = q.shape
+    strides = _check(q, k, v, l, m, di)
+    _build.require_cuda(q, do)
+    fn = _build.kernel('flash_attention', name,
+                       (_build.ptr,) * (7 + len(outs)) + (_build.i32,) * 8
+                       + (_build.f32, _build.i32, _build.ptr, _build.i32p))
+    path = ctypes.c_int(-1)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), l.data_ptr(),
+            m.data_ptr(), do.data_ptr(), di.data_ptr(),
+            *(t.data_ptr() for t in outs), B, L, H, D, *strides,
+            int(causal), sm_scale, _DTYPES[q.dtype], _build.stream(q),
+            ctypes.byref(path))
+    return path, rc
+
+
+def flash_attention_bwd_dkv(q, k, v, l, m, do, di, *, causal: bool = False,
+                            sm_scale: float = 1.0):
+    """K21: (dk, dv), contiguous (B, L, H, D), from the forward's l, m,
+    the output gradient do (B, L, H, D) and di = sum(o * do) (B, H, L)
+    float32."""
+    if q.device.type == 'cpu':
+        return flash_attention_bwd_dkv_plain(q, k, v, l, m, do, di,
+                                             causal=causal,
+                                             sm_scale=sm_scale)
+    do = do.to(q.dtype).contiguous()
+    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    path, rc = _bwd_launch('ddg_flash_attention_bwd_dkv', q, k, v, l, m, do,
+                           di, (dk, dv), causal, sm_scale)
+    _count(flash_attention_bwd_dkv, path, rc, 'ddg_flash_attention_bwd_dkv')
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, l, m, do, di, *, causal: bool = False,
+                           sm_scale: float = 1.0):
+    """K22: dq, contiguous (B, L, H, D), from the same inputs as K21."""
+    if q.device.type == 'cpu':
+        return flash_attention_bwd_dq_plain(q, k, v, l, m, do, di,
+                                            causal=causal, sm_scale=sm_scale)
+    do = do.to(q.dtype).contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    path, rc = _bwd_launch('ddg_flash_attention_bwd_dq', q, k, v, l, m, do,
+                           di, (dq,), causal, sm_scale)
+    _count(flash_attention_bwd_dq, path, rc, 'ddg_flash_attention_bwd_dq')
+    return dq
+
+
+for _fn in (flash_attention_fwd, flash_attention_bwd_dkv,
+            flash_attention_bwd_dq):
+    _fn.launches = 0
+    _fn.tensor_core_launches = 0
+
+
+def output_grad_dot(o, do):
+    """di = sum(o * do) over D in fp32, (B, H, L): the library's glue
+    between its forward and its backward kernels."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K20 with K21 and K22 as its backward; saves q, k, v, o, l and m."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        o, l, m = flash_attention_fwd(q, k, v, causal=causal,
+                                      sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, o, l, m)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, l, m = ctx.saved_tensors
+        do = do.to(q.dtype)
+        di = output_grad_dot(o, do)
+        kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, l, m, do, di, **kw)
+        dq = flash_attention_bwd_dq(q, k, v, l, m, do, di, **kw)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = False, sm_scale: float = 1.0):
+    """softmax(q k^T sm_scale) v in the library's block order (K20),
+    differentiable in q, k, v (K21, K22). q, k, v: (B, L, H, D) with dense
+    heads, each with its own token stride. Returns a contiguous (B, L, H,
+    D). Without gradients the forward runs as it is, outside autograd."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, sm_scale)
+    return flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale)[0]

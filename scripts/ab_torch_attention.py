@@ -6,6 +6,8 @@ check, and a same-call A/B against another copy of the source.
     python3 scripts/ab_torch_attention.py --check [--bwd]
     python3 scripts/ab_torch_attention.py --parent-source build/ab/rope_attention.cu
     python3 scripts/ab_torch_attention.py --bwd --parent-source build/ab/rope_attention_bwd.cu
+    python3 scripts/ab_torch_attention.py --flash [--check]
+    python3 scripts/ab_torch_attention.py --flash --parent-source build/ab/flash_attention.cu
 
 `--check` builds the kernels and prints ptxas's lines for
 `rope_attention.cu` (registers, spills and shared memory under the line
@@ -38,6 +40,16 @@ other and (backward) each with the plain version (`differs_from_plain`,
 the share of elements that differ at all). The backward's parent is the
 single-launch `mma.sync` kernel, whose C interface has no head dim and no
 workspace; the call adapts to it.
+
+`--flash` holds the library flash attention's kernels (K20 forward, K21
+dK/dV, K22 dQ; `csrc/flash_attention.cu`) against their plain versions at
+`chip_smoke.FLASH_SHAPES` with `chip_smoke.check_flash_attention` and times
+them at the main shapes beside the plain versions, SDPA (K21, K22: SDPA's
+backward) and the bound; `--check --flash` skips the timing (the first call
+on the card after editing the source); `--flash --parent-source <an earlier
+flash_attention.cu>` times that copy's K20-K22 against the current ones (A
+B B A, bf16 at 48 x 128, 256 x 256 and 4 x 1024) and requires bit-identical
+outputs.
 """
 
 import argparse
@@ -372,6 +384,121 @@ def run_ab(parent_source, rounds):
     return 0
 
 
+def run_flash(timed):
+    """K20-K22 (`csrc/flash_attention.cu`): ptxas's lines, then
+    `chip_smoke.check_flash_attention` shape by shape (its bars, bit-identical
+    reruns, the tensor cores at bf16 D <= 64), with `timed` the CUDA-event
+    medians of kernel, plain version and SDPA (backward: SDPA's) and the
+    bound at the main shapes. One JSON line a shape; non-zero if any failed."""
+    from ddg_tpu_torch.ops import _build
+    cs.DEV = 'cuda'
+    libs = _build.build_all()
+    print(json.dumps({'ptxas': cs.ptxas_lines(libs['flash_attention'][1])}),
+          flush=True)
+    failed = 0
+    for label, shape in cs.FLASH_SHAPES.items():
+        results = {name: {} for name in cs.FLASH}
+        rec = {'case': label, 'shape': list(shape)}
+        try:
+            cs.check_flash_attention(results, {label: shape}, timed=timed)
+            rec['ok'], rec['results'] = True, results
+        except Exception as e:  # report every shape, then fail
+            rec['ok'], rec['error'] = False, repr(e)[:600]
+            failed += 1
+        print(json.dumps(rec), flush=True)
+    print(cs.nvidia_smi(), flush=True)
+    return 1 if failed else 0
+
+
+FLASH_NAMES = {'K20': 'ddg_flash_attention_fwd',
+               'K21': 'ddg_flash_attention_bwd_dkv',
+               'K22': 'ddg_flash_attention_bwd_dq'}
+
+
+def flash_call(fn, kernel, qkv, stats, do, outs, sm_scale):
+    """One launch of K20, K21 or K22 (either library's entry point), not
+    causal, into `outs` (K20: o, l, m; K21: dk, dv; K22: dq)."""
+    from ddg_tpu_torch.ops import _build
+    q = qkv[0]
+    Bq, Lq, Hq, Dq = q.shape
+    ins = qkv if kernel == 'K20' else (*qkv, stats[0], stats[1], do, stats[2])
+    path = ctypes.c_int(-1)
+    rc = fn(*(t.data_ptr() for t in (*ins, *outs)), Bq, Lq, Hq, Dq,
+            *(t.stride(1) for t in qkv), 0, sm_scale, 1, _build.stream(q),
+            ctypes.byref(path))
+    _build.check(rc, FLASH_NAMES[kernel])
+    return path.value
+
+
+def run_ab_flash(parent_source, rounds):
+    """K20-K22 of `parent_source` (an earlier `flash_attention.cu`) against
+    the current ones, A B B A, bf16, not causal, at 48 x 128, 256 x 256 and
+    4 x 1024 (x 12 x 64), beside SDPA (K21, K22: SDPA's backward) and the
+    bound; each arm's outputs must equal the other's bit for bit."""
+    from ddg_tpu_torch.ops import _build
+    cs.DEV = 'cuda'
+    parent, log = build_parent(parent_source)
+    libs = _build.build_all()
+    new_log = libs['flash_attention'][1]
+    print(json.dumps({'parent_ptxas': cs.ptxas_lines(log),
+                      'new_ptxas': cs.ptxas_lines(new_log)}), flush=True)
+    smi = cs.nvidia_smi()
+    gen = torch.Generator(device='cuda').manual_seed(9)
+    shapes = {'48x128': (48, 128, 12, 64), '256x256': (256, 256, 12, 64),
+              '4x1024': (4, 1024, 12, 64)}
+    failed = 0
+    for label, shape in shapes.items():
+        qkv, do, stats, sc = cs._flash_inputs(shape, torch.bfloat16, gen,
+                                              False)
+        sdpa = tuple(t.transpose(1, 2).contiguous() for t in qkv)
+        lib_ms = {'K20': cs._sdpa_ms(sdpa, do, False)}
+        lib_ms['K21'] = lib_ms['K22'] = cs._sdpa_ms(sdpa, do, True)
+        for kernel, cname in FLASH_NAMES.items():
+            argt = ((_build.ptr,) * {'K20': 6, 'K21': 9, 'K22': 8}[kernel]
+                    + (_build.i32,) * 8
+                    + (_build.f32, _build.i32, _build.ptr, _build.i32p))
+            fns = {'parent': getattr(parent, cname),
+                   'new': _build.kernel('flash_attention', cname, argt)}
+            fns['parent'].argtypes = list(argt)
+            fns['parent'].restype = ctypes.c_int
+
+            def fresh():
+                n = {'K20': 1, 'K21': 2, 'K22': 1}[kernel]
+                outs = tuple(torch.empty(shape, dtype=torch.bfloat16,
+                                         device='cuda') for _ in range(n))
+                if kernel == 'K20':     # and its l and m
+                    outs += (torch.empty_like(stats[0]),
+                             torch.empty_like(stats[0]))
+                return outs
+            outs = {arm: fresh() for arm in fns}
+            paths = {arm: flash_call(fn, kernel, qkv, stats, do, outs[arm], sc)
+                     for arm, fn in fns.items()}
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(outs['new'],
+                                                         outs['parent']))
+            failed += not same
+            times = {'parent': [], 'new': []}
+            for r in range(rounds):
+                for arm in ('parent', 'new', 'new', 'parent'):
+                    fn, out = fns[arm], outs[arm]
+                    ms = cs.time_ms(lambda: flash_call(fn, kernel, qkv, stats,
+                                                       do, out, sc))
+                    times[arm].append(ms)
+            mean = {arm: sum(t) / len(t) for arm, t in times.items()}
+            name = {'K20': 'flash_attention_fwd',
+                    'K21': 'flash_attention_bwd_dkv',
+                    'K22': 'flash_attention_bwd_dq'}[kernel]
+            bound, by = cs._flash_bound(name, shape, 2)
+            print(json.dumps({
+                'kernel': kernel, 'shape': label, 'dims': list(shape),
+                'parent_ms': mean['parent'], 'new_ms': mean['new'],
+                'speedup': mean['parent'] / mean['new'], 'times': times,
+                'sdpa_ms': lib_ms[kernel], 'bound_ms': bound, 'bound_by': by,
+                'paths': paths, 'bit_identical_to_parent': same,
+                'nvidia_smi': smi}), flush=True)
+    return 1 if failed else 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--check', action='store_true')
@@ -379,11 +506,18 @@ def main():
     ap.add_argument('--rounds', type=int, default=1)
     ap.add_argument('--bwd', action='store_true',
                     help='the backward kernels (K1b/K2b) instead of K1/K2')
+    ap.add_argument('--flash', action='store_true',
+                    help='K20-K22 against their plain versions (with '
+                         '--check: untimed)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('no CUDA device is visible', file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.flash and args.parent_source:
+        return run_ab_flash(args.parent_source, args.rounds)
+    if args.flash:
+        return run_flash(timed=not args.check)
     if args.check:
         return run_check_bwd() if args.bwd else run_check()
     if not args.parent_source or not os.path.exists(args.parent_source):

@@ -15,11 +15,13 @@ share, device ms per step by group and the largest kernels by name.
   vocab head's three float32 GEMMs alone at the micro-batch's shape with
   CUDA events, times the micro-steps of a step.
 - text8: `entry.text8_train_flagship` (DiT-small MDLM at L=256, global
-  batch 512 x 256) on `--route`, grouped as dit. With `--sweep`, first a
-  micro-batch sweep instead: for each micro-batch of 16 to 512 a fresh run,
-  one warm-up and `--steps` timed steps, one JSON line with ms/step,
-  tokens/s and peak memory (or the out-of-memory error), then a line
-  naming the fastest micro-batch whose peak stays under half the card.
+  batch 512 x 256) on `--route` ('fused_rope', the default, 'short_seq'
+  or 'flash', the library flash attention's K20-K22), grouped as dit. With
+  `--sweep`, first a micro-batch sweep instead: for each micro-batch of 16
+  to 512 a fresh run, one warm-up and `--steps` timed steps, one JSON line
+  with ms/step, tokens/s and peak memory (or the out-of-memory error),
+  then a line naming the fastest micro-batch whose peak stays under half
+  the card.
 - dimamba: `entry.dimamba_train_flagship` (Species10 DiMamba UDLM, global
   batch 32 x 32768) on `--route` ('fused_block', the default, or
   'dt_lowrank', the unfused chain around K16/K17). The step runs with
@@ -49,6 +51,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 GROUPS = (   # first match wins; matched against the kernel's name
+    # The library flash attention's kernels ('flash' route): the tensor-core
+    # (bf16, D <= 64) and CUDA-core instantiations of each.
+    ('K20 flash attention fwd', ('fwd_mma<', 'fwd_core<')),
+    ('K21 flash attention dK/dV', ('dkv_mma<', 'dkv_core<')),
+    ('K22 flash attention dQ', ('dq_mma<', 'dq_core<')),
     # The attention kernels' RoPE flag is their template's `true`.
     # K1b and K2b share their two kernels, the query-tile one (dq) and the
     # key-tile one (dk, dv): the route says which runs (K1b on 'fused_rope'
@@ -383,8 +390,8 @@ def main():
                     default='both',
                     help='which training run (default both: dit, dimamba)')
     ap.add_argument('--route', default=None,
-                    choices=('fused_rope', 'short_seq', 'fused_block',
-                             'dt_lowrank'),
+                    choices=('fused_rope', 'short_seq', 'flash',
+                             'fused_block', 'dt_lowrank'),
                     help="text8's attention route (default fused_rope) or "
                          "the DiMamba's mixer route (default fused_block)")
     ap.add_argument('--sweep', action='store_true',

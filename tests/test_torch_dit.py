@@ -185,9 +185,8 @@ def test_state_dict_conversion_matches_export(weights):
 
 
 def test_unported_options_raise():
-    for kw in (dict(tpu_flash_attn=True), dict(tensor_axis='model')):
-        with pytest.raises(NotImplementedError):
-            torch_cfg(**kw)
+    with pytest.raises(NotImplementedError):
+        torch_cfg(tensor_axis='model')
     assert dataclasses.replace(torch_cfg(), fused_adaln=True).fused_adaln
 
 

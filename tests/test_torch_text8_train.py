@@ -4,10 +4,12 @@
 - the fp32 MDLM loss and every parameter gradient of a tiny text8 DiT at
   L=256 (the tiny run's model, widened to 2 heads of 64 so that JAX's
   attention kernels take it: H * D = 128) equal JAX's `loss_fn` at rtol
-  1e-4 on both attention routes: K1 (`fused_rope_attn`) and RoPE then K2
-  (`pallas_attention`). JAX runs its Pallas attention and adaLN kernels in
-  interpret mode (the attention ones through a monkeypatch, as
-  `tests/test_torch_dimamba.py` does for the scan); the port its plain
+  1e-4 on the three attention routes: K1 (`fused_rope_attn`), RoPE then K2
+  (`pallas_attention`) and RoPE then the library flash attention
+  (`tpu_flash_attn`, K20-K22). JAX runs its Pallas attention and adaLN
+  kernels in interpret mode (its own attention kernels through a
+  monkeypatch, as `tests/test_torch_dimamba.py` does for the scan; the
+  library's under `pltpu.force_tpu_interpret_mode()`); the port its plain
   versions on the CPU;
 - `text8_train_flagship(tiny=True, device='cpu')` trains on each route
   and launches nothing on the CPU;
@@ -15,6 +17,7 @@
   (`bench.py:452-491`), checked without building the model.
 """
 
+import contextlib
 import dataclasses
 import functools
 
@@ -23,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from ddg_tpu import diffusion as jd
 from ddg_tpu.models import dit as jdit
@@ -34,7 +38,7 @@ from ddg_tpu_torch import convert as tconvert
 from ddg_tpu_torch import diffusion as td
 from ddg_tpu_torch import entry
 from ddg_tpu_torch.models import DIT, make_model_apply
-from ddg_tpu_torch.ops import adaln, attention
+from ddg_tpu_torch.ops import adaln, attention, flash_attention
 from ddg_tpu_torch.runtime.train_state import (init_train_state,
                                                make_eval_step,
                                                make_train_step)
@@ -91,8 +95,10 @@ def test_loss_and_grads_match_jax(weights, route, monkeypatch):
         return jd.loss_fn(js, apply_j, p, x0, jnp.asarray(mask), None, rng,
                           train=True).loss
 
-    want_loss, want_grads = jax.jit(jax.value_and_grad(jloss))(
-        jax.tree.map(jnp.asarray, weights))
+    with (pltpu.force_tpu_interpret_mode() if route == 'flash'
+          else contextlib.nullcontext()):
+        want_loss, want_grads = jax.jit(jax.value_and_grad(jloss))(
+            jax.tree.map(jnp.asarray, weights))
     want = tconvert.dit_state_dict_from_jax(
         jax.tree.map(np.asarray, want_grads), n_blocks=NB)
 
@@ -127,7 +133,10 @@ def test_tiny_flagship_trains_on_the_cpu(route):
                 attention.fused_rope_attention,
                 attention.fused_rope_attention_bwd,
                 attention.short_seq_attention,
-                attention.short_seq_attention_bwd)
+                attention.short_seq_attention_bwd,
+                flash_attention.flash_attention_fwd,
+                flash_attention.flash_attention_bwd_dkv,
+                flash_attention.flash_attention_bwd_dq)
     before = [f.launches for f in counters]
     run = entry.text8_train_flagship(device='cpu', tiny=True, route=route)
     assert run.cfg.length == 256 and run.accum_steps == 2
@@ -159,7 +168,9 @@ def test_tiny_flagship_trains_on_the_cpu(route):
 def test_full_config_is_the_bench_text8_line():
     """`bench.py:452-491`: DiT-small at L=256, V=35, dropout 0.1, global
     batch 512, absorbing SUBS with mask V - 1, log-linear noise, AdamW
-    3e-4 with 2500 warmup, EMA 0.9999."""
+    3e-4 with 2500 warmup, EMA 0.9999; the 'flash' route is the line's
+    `--flash-attn` (`bench.py:457-466`: `tpu_flash_attn` alone, without
+    the bf16-probs and remat knobs it excludes)."""
     want = jdit.DITConfig(hidden_size=768, cond_dim=128, length=256,
                           n_blocks=12, n_heads=12, dropout=0.1,
                           vocab_size=35)
@@ -176,6 +187,8 @@ def test_full_config_is_the_bench_text8_line():
         assert s.cfg.fused_adaln
         assert s.cfg.fused_rope_attn == (route == 'fused_rope')
         assert s.cfg.pallas_attention == (route == 'short_seq')
+        assert s.cfg.tpu_flash_attn == (route == 'flash')
+        assert not s.cfg.attn_probs_bf16 and not s.cfg.attn_remat
         assert (s.spec.diffusion, s.spec.parameterization) == (
             'absorbing_state', 'subs')
         assert (s.spec.vocab_size, s.spec.mask_index) == (35, 34)
@@ -183,5 +196,6 @@ def test_full_config_is_the_bench_text8_line():
         assert not s.spec.time_conditioning       # scripts/train_text8.sh
         assert (s.optim.lr, s.optim.num_warmup_steps) == (3e-4, 2500)
         assert s.averaging.decay == 0.9999
+    assert set(ROUTES) == {'fused_rope', 'short_seq', 'flash'}
     with pytest.raises(ValueError):
-        entry.text8_train_setup(route='flash')
+        entry.text8_train_setup(route='sdpa')
