@@ -91,8 +91,10 @@ Each phase prints one JSON line:
      and 2): tokens/s, ms/step, peak memory, the idle share of one profiled
      step, exact launches per micro-step (12 attention forwards and 12 of
      each backward kernel of the route and none of the others', 13
-     ln_modulate and 12 gate_res_ln_modulate each way) and 0 host syncs per
-     step;
+     ln_modulate and 12 gate_res_ln_modulate each way), 0 host syncs per
+     step and, on every route, no call of the plain di glue
+     (`output_grad_dot`: K21 forms di on the card), with K20 and K21 on
+     their wgmma kernels;
  14. a learning check of the three text8 routes from the same weights and
      generator: 30 steps on one Zipf micro-batch at lr 3e-4, the bars of
      12 against the 'fused_rope' route;
@@ -116,10 +118,13 @@ composite of the unfused path.
 Phase 4 holds K20, K21 and K22 (the library flash attention behind the
 DiT's `tpu_flash_attn`) against their plain versions on the same inputs,
 fp32 and bf16, causal and not, at 48 x 128 x 12 x 64, 256 x 256, 4 x 1024,
-L=384 (three key blocks) and D = 32, 40, 128, 160 (L=128) and 256, with
-the attention bars (fp32 1e-4 abs; bf16 2 ulp and at most 1% of each
-output differing at all), bit-identical reruns and the tensor cores at
-bf16 D = 64, timed beside SDPA (forward) and SDPA's backward.
+L=384 (three key blocks) and D = 32, 40, 128, 160 and 300 (L=128), 256,
+384 and 512, with the attention bars (fp32 1e-4 abs; bf16 2 ulp and at
+most 1% of each output differing at all; l, m and K21's di to SUM_RTOL),
+bit-identical reruns, the tensor cores at bf16 D = 32 and 64 and wgmma for
+K20 and K21 at bf16 D = 64, timed beside SDPA (forward) and SDPA's
+backward; `ops.flash_attention.flash_plan` must equal the C launch plan
+(`ddg_flash_attention_plan`) at each of those shapes.
 Phase 4 holds K1, K2 and their backwards at L=128 and L=256 (the text8
 micro-batch), at the key-tile edges L=64, 192 and 200, at L=40 with D=64
 and D=32 and at L=1024 (the reference DiT-small), requires the tensor-core
@@ -541,7 +546,10 @@ FLASH_SHAPES = {'lm1b_sampling': (48, 128, 12, 64),
                 'd40': (2, 256, 2, 40),
                 'd128': (2, 256, 2, 128),
                 'd160_one_block': (2, 128, 2, 160),
-                'd256': (2, 256, 2, 256)}
+                'd256': (2, 256, 2, 256),
+                'd300_one_block': (2, 128, 2, 300),
+                'd384': (2, 256, 2, 384),
+                'd512': (2, 256, 2, 512)}
 # The products each kernel forms, in units of B H L^2 D multiply-adds: S
 # and P V (K20); S^T, dP^T, dV and dK (K21); S, dP and dQ (K22).
 FLASH_PRODUCTS = {'flash_attention_fwd': 2, 'flash_attention_bwd_dkv': 4,
@@ -551,7 +559,8 @@ FLASH_PRODUCTS = {'flash_attention_fwd': 2, 'flash_attention_bwd_dkv': 4,
 def _flash_inputs(shape, dtype, gen, causal):
     """q, k as the flash route hands them over (rotated, contiguous) beside
     a view of v into the fused projection, do, and the plain forward's l,
-    m and di = sum(o * do), the backward kernels' shared inputs."""
+    m and o with di = sum(o * do): (l, m, o, di), the backward kernels'
+    inputs (K21 forms di from o, K22 takes the plain one)."""
     from ddg_tpu_torch.models.dit import rope_cos_sin
     from ddg_tpu_torch.ops import attention as A
     from ddg_tpu_torch.ops import flash_attention as FA
@@ -562,17 +571,18 @@ def _flash_inputs(shape, dtype, gen, causal):
     sc = 1.0 / math.sqrt(shape[3])
     o, l, m = FA.flash_attention_fwd_plain(q, k, v, causal=causal,
                                            sm_scale=sc)
-    return (q, k, v), do, (l, m, FA.output_grad_dot(o, do)), sc
+    return (q, k, v), do, (l, m, o, FA.output_grad_dot(o, do)), sc
 
 
 def _flash_bound(name, shape, es):
     """(bound_ms, bound_by) of K20, K21 or K22 at `shape`, not causal: q,
-    k, v (and do) read once, the outputs written once, l, m (and di) as
-    fp32 rows, against its products at the bf16 tensor-core rate."""
+    k, v (and do; K21 also o) read once, the outputs written once, l, m
+    and di as fp32 rows (K21 writes di, K22 reads it), against its products
+    at the bf16 tensor-core rate."""
     nb, Lq, Hq, Dq = shape
     rows = nb * Hq * Lq * 4
     tensors = {'flash_attention_fwd': (4, 2),
-               'flash_attention_bwd_dkv': (6, 3),
+               'flash_attention_bwd_dkv': (7, 3),
                'flash_attention_bwd_dq': (5, 3)}[name]
     return bound(tensors[0] * nb * Lq * Hq * Dq * es + tensors[1] * rows,
                  2 * FLASH_PRODUCTS[name] * nb * Hq * Lq * Lq * Dq,
@@ -580,23 +590,33 @@ def _flash_bound(name, shape, es):
 
 
 def _flash_cases(qkv, do, stats, kw):
-    """{name: (kernel call, plain call, outputs compared)} of K20-K22 on the
-    same inputs; every call returns a tuple."""
+    """{name: (kernel call, plain call, outputs compared as rows)} of
+    K20-K22 on the same inputs; every call returns a tuple (K20: o, l, m;
+    K21: dk, dv, di; K22: dq)."""
     from ddg_tpu_torch.ops import flash_attention as FA
-    bwd = (*qkv, stats[0], stats[1], do, stats[2])
+    l, m, o, di = stats
+    dkv = (*qkv, l, m, do, o)
+    dq = (*qkv, l, m, do, di)
     return {
         'flash_attention_fwd': (
             lambda: FA.flash_attention_fwd(*qkv, **kw),
             lambda: FA.flash_attention_fwd_plain(*qkv, **kw),
             (('o', 'row'),)),
         'flash_attention_bwd_dkv': (
-            lambda: FA.flash_attention_bwd_dkv(*bwd, **kw),
-            lambda: FA.flash_attention_bwd_dkv_plain(*bwd, **kw),
+            lambda: FA.flash_attention_bwd_dkv(*dkv, **kw),
+            lambda: FA.flash_attention_bwd_dkv_plain(*dkv, **kw),
             (('dk', 'row'), ('dv', 'row'))),
         'flash_attention_bwd_dq': (
-            lambda: (FA.flash_attention_bwd_dq(*bwd, **kw),),
-            lambda: (FA.flash_attention_bwd_dq_plain(*bwd, **kw),),
+            lambda: (FA.flash_attention_bwd_dq(*dq, **kw),),
+            lambda: (FA.flash_attention_bwd_dq_plain(*dq, **kw),),
             (('dq', 'row'),))}
+
+
+# The fp32 rows each kernel writes beside its outputs, held to SUM_RTOL of
+# their largest magnitude: K20's l and m, K21's di.
+FLASH_ROWS = {'flash_attention_fwd': ((1, 'l'), (2, 'm')),
+              'flash_attention_bwd_dkv': ((2, 'di'),),
+              'flash_attention_bwd_dq': ()}
 
 
 def check_flash_attention(results, shapes=None, timed=True):
@@ -605,25 +625,29 @@ def check_flash_attention(results, shapes=None, timed=True):
     48 x 128 (one key block: the library's single-step forward), the text8
     training micro-batch x 256, the reference DiT-small's L=1024 (4 x 1024
     x 12), an odd count of key blocks (L=384) and head widths 32, 40, 128,
-    160 (one key block: the library takes it there only) and 256, the
-    widest the kernels take (in bf16 only 32 and 64 run on the tensor
-    cores). Bars: fp32 1e-4 abs; bf16 2 ulp of the largest magnitude, with
-    at most 1% of each output (o, dk, dv, dq) differing from the plain
-    version at all (the 2-ulp bar cannot see where p is rounded;
-    bit equality can); the forward's l and m (fp32) to SUM_RTOL of their
-    largest magnitude. Every call runs twice with bit-identical outputs,
-    and every bf16 call with D a multiple of 16 up to 64 takes the tensor
-    cores. The bf16 records at the main paths' shapes (text8 training is a
-    kernel's main record) hold the kernel's, the plain version's and SDPA's
-    CUDA-event medians (K21 and K22: SDPA's backward, autograd through SDPA
-    minus its forward, which gives dq, dk and dv together) and the bound."""
+    160 and 300 (one key block: the library takes them there only), 256,
+    384 and 512, the widest the kernels take (in bf16 only 32 and 64 run on
+    the tensor cores, 64 on wgmma). Bars: fp32 1e-4 abs; bf16 2 ulp of the
+    largest magnitude, with at most 1% of each output (o, dk, dv, dq)
+    differing from the plain version at all (the 2-ulp bar cannot see
+    where p is rounded; bit equality can); K20's l and m and K21's di
+    (fp32, K21's against `output_grad_dot`) to SUM_RTOL of their largest
+    magnitude. Every call runs twice with bit-identical outputs, every bf16
+    call with D a multiple of 16 up to 64 takes the tensor cores, and at D
+    = 64 K20 and K21 take wgmma (each record names its path). The bf16
+    records at the main paths' shapes (text8 training is a kernel's main
+    record) hold the kernel's, the plain version's and SDPA's CUDA-event
+    medians (K21 and K22: SDPA's backward, autograd through SDPA minus its
+    forward, which gives dq, dk and dv together) and the bound. Returns
+    the shapes it ran."""
     from ddg_tpu_torch.ops import flash_attention as FA
     gen = torch.Generator(device=DEV).manual_seed(5)
     timed_labels = ('lm1b_sampling', 'text8_training', 'long')
-    for label, shape in (shapes or FLASH_SHAPES).items():
+    shapes = shapes or FLASH_SHAPES
+    for label, shape in shapes.items():
         for dtype in (torch.float32, torch.bfloat16):
-            tc_path = (dtype == torch.bfloat16 and shape[3] % 16 == 0
-                       and shape[3] <= 64)
+            D = shape[3]
+            tc_path = dtype == torch.bfloat16 and D % 16 == 0 and D <= 64
             recs = {name: {'shape': list(shape), 'err': 0.0}
                     for name in FLASH}
             for causal in (False, True):
@@ -632,17 +656,18 @@ def check_flash_attention(results, shapes=None, timed=True):
                                      dict(causal=causal, sm_scale=sc))
                 for name, (call, plain, outs) in cases.items():
                     rec, wrapper = recs[name], getattr(FA, name)
-                    before = (wrapper.launches, wrapper.tensor_core_launches)
+                    before = (wrapper.launches, wrapper.tensor_core_launches,
+                              wrapper.wgmma_launches)
                     tag = f'{name} {label} causal={causal}'
                     got = _bwd_case(rec, tag, dtype, outs, call, plain,
                                     differs_bar=(0.01 if dtype ==
                                                  torch.bfloat16 else None))
-                    if name == 'flash_attention_fwd':
-                        ref = plain()
-                        for i, what in ((1, 'l'), (2, 'm')):
+                    if FLASH_ROWS[name]:
+                        ref, again = plain(), call()
+                        for i, what in FLASH_ROWS[name]:
                             err = ((got[i] - ref[i]).abs().max()
                                    / ref[i].abs().max()).item()
-                            check(torch.equal(got[i], call()[i]),
+                            check(torch.equal(got[i], again[i]),
                                   f'{tag}: {what} reruns differ')
                             check(err <= SUM_RTOL, f'{tag}: {what} off by '
                                   f'{err} of its largest magnitude')
@@ -650,9 +675,15 @@ def check_flash_attention(results, shapes=None, timed=True):
                                 rec.get(f'{what}_err_of_max', 0.0), err)
                     n = wrapper.launches - before[0]
                     on_tc = wrapper.tensor_core_launches - before[1] == n
+                    on_wg = wrapper.wgmma_launches - before[2] == n
                     check(on_tc == tc_path, f'{tag} {dtype}: tensor cores '
                           f'{on_tc}, expected {tc_path}')
+                    want_wg = tc_path and D == 64 and name != \
+                        'flash_attention_bwd_dq'
+                    check(on_wg == want_wg, f'{tag} {dtype}: wgmma {on_wg}, '
+                          f'expected {want_wg}')
                     rec['tensor_cores'] = on_tc
+                    rec['path'] = FA.PATHS[2 if on_wg else int(on_tc)]
                     rec['bit_identical_rerun'] = True
             if timed and dtype == torch.bfloat16 and label in timed_labels:
                 qkv, do, stats, sc = _flash_inputs(shape, dtype, gen, False)
@@ -677,6 +708,40 @@ def check_flash_attention(results, shapes=None, timed=True):
                 else:
                     results[name].setdefault(label, {})[str(dtype)] = \
                         recs[name]
+    return list(shapes.values())
+
+
+def check_flash_plan(shapes):
+    """`ops.flash_attention.flash_plan` (the launch plan the CPU tests
+    check) equals the built library's `ddg_flash_attention_plan` at every
+    shape `check_flash_attention` ran, in fp32 and bf16, rows aligned or
+    not, and both refuse a head width past 512 (D=640 at L=128) and the
+    library's refusals (D=160 past one key block)."""
+    import ctypes
+    from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import flash_attention as FA
+    fn = _build.kernel('flash_attention', 'ddg_flash_attention_plan',
+                       (_build.i32,) * 6 + (_build.i32p,))
+    fields = ('path', 'tile', 'step', 'stages', 'smem', 'threads')
+    for shape in list(shapes) + [(2, 128, 2, 640), (2, 256, 2, 160)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            for aligned in (True, False):
+                out = (ctypes.c_int * 27)()
+                rc = fn(*shape, FA._DTYPES[dtype], int(aligned), out)
+                try:
+                    want = FA.flash_plan(*shape, dtype, aligned=aligned)
+                except (ValueError, NotImplementedError):
+                    want = None
+                tag = f'flash plan {shape} {dtype} aligned={aligned}'
+                check((rc == 0) == (want is not None),
+                      f'{tag}: C returns {rc}, Python {want}')
+                if want is None:
+                    continue
+                for i, kern in enumerate(('fwd', 'dkv', 'dq')):
+                    v = list(out[9 * i:9 * i + 9])
+                    got = dict(zip(fields, v[:6]), grid=tuple(v[6:9]))
+                    check(got == want[kern], f'{tag} {kern}: C {got}, '
+                          f'Python {want[kern]}')
 
 
 def _plan_launch(v):
@@ -2760,6 +2825,7 @@ def run_text8_train_path(kernels, route, warmup=2, steps=3):
     (TEXT8_PER_MICRO_STEP), 0 host syncs per step and the card's idle share
     over one profiled step. Returns the launches."""
     from ddg_tpu_torch.entry import text8_train_flagship
+    from ddg_tpu_torch.ops import flash_attention as FA
     t0 = time.perf_counter()
     run = text8_train_flagship(device=DEV, route=route)
     cfg = run.cfg
@@ -2777,6 +2843,9 @@ def run_text8_train_path(kernels, route, warmup=2, steps=3):
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
+    flash = {n: getattr(FA, n) for n in FLASH}
+    wgmma = {n: w.wgmma_launches for n, w in flash.items()}
+    FA.output_grad_dot.calls = 0
     t0 = time.perf_counter()
     metrics = [run.step(run.state, batch)[1] for _ in range(steps)]
     torch.cuda.synchronize()
@@ -2786,6 +2855,13 @@ def run_text8_train_path(kernels, route, warmup=2, steps=3):
     n_micro = steps * run.accum_steps
     _launch_check(f'text8 training {route}', kernels, launches,
                   TEXT8_PER_MICRO_STEP[route], n_micro)
+    # K21 forms di on the card: the plain glue never runs; K20 and K21
+    # take wgmma at the DiT's bf16 D = 64.
+    check(FA.output_grad_dot.calls == 0, f'text8 training {route}: '
+          f'output_grad_dot ran {FA.output_grad_dot.calls} times')
+    for n in FLASH[:2]:
+        check(flash[n].wgmma_launches - wgmma[n] == launches[n],
+              f'text8 training {route}: {n} missed the wgmma kernel')
     n_syncs = _sync_check(f'text8 training {route}',
                           lambda: run.step(run.state, batch))
     busy, span, lead = device_busy_ms(lambda: run.step(run.state, batch))
@@ -2799,6 +2875,7 @@ def run_text8_train_path(kernels, route, warmup=2, steps=3):
           'launches_per_micro_step': {k: v / n_micro
                                       for k, v in launches.items() if v},
           'host_syncs_in_a_step': n_syncs,
+          'output_grad_dot_calls': FA.output_grad_dot.calls,
           'profiled_busy_ms': busy, 'profiled_span_ms': span,
           'profiled_lead_ms': lead, 'idle_share': 1.0 - busy / span})
     check(all(math.isfinite(v) for v in loss + gnorm),
@@ -3734,7 +3811,7 @@ def main():
     results = {name: {} for name in kernels}
     check_adaln(results)
     check_attention_plan(check_attention(results))
-    check_flash_attention(results)
+    check_flash_plan(check_flash_attention(results))
     tv = check_sampling(results)
     check_head_sample(results)
     tv.update(check_uniform(results))

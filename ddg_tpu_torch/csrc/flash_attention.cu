@@ -16,10 +16,12 @@
 //        acc = acc * (exp(m - m') l / l') + (round(p) V_c) / l'
 //        (round: to v's dtype); with one key block (L = 128): p = exp(s - m)
 //        / l, o = round(p) V. Writes o, and l and m for the backward.
-//   K21: per key, walking the query blocks in order, p = exp(s - m) * (1 / l),
-//        ds = (do v^T - di) * p * scale, dv += round(p)^T do, dk +=
-//        round(ds)^T q, with di = sum(o * do) formed outside (fp32).
-//   K22: per query, walking the key blocks in order, dq += round(ds) k.
+//   K21: per key, walking the query rows in order, di = sum_D(o * do) (fp32,
+//        formed here from the rows of o, and written for K22), p = exp(s -
+//        m) * (1 / l), ds = (do v^T - di) * p * scale, dv += round(p)^T do,
+//        dk += round(ds)^T q.
+//   K22: per query, walking the key blocks in order, dq += round(ds) k, with
+//        K21's di.
 // The blocking is part of the function where bf16 rounds (the forward
 // rounds the unnormalised p relative to the running max), so the forward
 // keeps the library's 128-key blocks and its renormalisation order; the
@@ -30,33 +32,67 @@
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): at the text8
 // training shape (256 x 256 x 12 x 64 bf16) K20 moves 409 MB (q, k, v, o
 // and the fp32 l and m rows; 0.122 ms) against 51.5 GFLOP (0.052 ms); K21
-// and K22 read q, k, v, do, l, m and di and write two or one (B, L, H, D):
-// bytes again (0.183, 0.153 ms). Measured there (NVIDIA H100 80GB HBM3,
-// 700 W): 0.40, 0.77 and 0.53 ms, held by one block an SM (174-244
-// registers) and mma.sync rather than wgmma.
+// reads q, k, v, do, o, l and m and writes dk, dv and di, 714 MB (0.213
+// ms); K22 reads q, k, v, do, l, m and di and writes dq (0.153 ms): bytes.
+// At L = 1024 (4 x 1024 x 12) the products bound them instead (0.013 and
+// 0.026 ms at the bf16 tensor rate).
 //
-// Two kernels for each of the three, picked by the launch:
-// * the tensor-core kernels (`*_mma`), for bf16 with D a multiple of 16 up
-//   to 64 and rows on 16-byte boundaries: 8 warps of mma.sync m16n8k16,
-//   bf16 in, fp32 out. K20: a block is one library query block (128 rows,
-//   16 a warp), Q's A fragments in registers, the 128-key blocks of K and V
-//   streamed through a two-stage cp.async ring (the next block copies
-//   while this one is used), S for 128 keys in registers (64 floats), the
-//   row max and sum over the quad by shuffles, P rounded to bf16 straight
-//   into the A fragments of P V. K21: a block is one library key block, K's
-//   and V's A fragments in registers, the query rows streamed 64 at a time
-//   through the ring (q, do, and the rows' m, 1 / l and di), S^T and dP^T
-//   by mma, then dV and dK by mma on the rounded P^T and dS^T. K22: a block
-//   is one query block, Q's and dO's fragments in registers, the key rows
-//   streamed 64 at a time, dQ by mma on the rounded dS. Shared-memory rows
-//   are padded by 16 bytes, so the ldmatrix reads of the B fragments (plain
-//   for K^T-like operands, transposed for V-like ones) are conflict-free.
-//   The mma order of each accumulator is fixed by the tiling alone.
-// * the CUDA-core kernels (`*_core`), for fp32 and every other head width up
-//   to 256: 32-row (K20, K22) or 32-key (K21) tiles, 8 warps of 4 rows, fp32
-//   tiles in shared memory (rows padded by one float), staged synchronously,
-//   a lane per key (or query) for the dot products and a lane per column
-//   for the sums.
+// Three kinds of kernel, picked by the launch plan (make_plan, exported as
+// ddg_flash_attention_plan; ops/flash_attention.py:flash_plan mirrors it):
+// * wgmma (path 2), K20 and K21 for bf16 with D = 64 and rows on 16-byte
+//   boundaries. One warpgroup (128 threads) a block owns 64 query rows
+//   (K20) or keys (K21), one wgmma M; 64 x 64 bf16 tiles in the 128-byte
+//   swizzle (wgmma.cuh), copied by 16-byte cp.async; products by wgmma
+//   m64n64k16 with fp32 sums. Three blocks an SM (12 warps): at L = 256
+//   the bytes in flight, not the tensor rate, set the pace, and
+//   one-warpgroup blocks finish and refill independently (two warpgroups
+//   a block, which halve the L2 reads of K and V, and a third K20 stage
+//   measured slower: PERF.md, section 6).
+//   - K20 (`fwd_wgmma`, 153 registers): the Q tile is copied in with the
+//     first key block; the 128-key blocks of K and V (four tiles, 32 KB)
+//     stream through a two-stage ring, two blocks in flight, so at L = 256
+//     a block's whole input is requested before its first product. S for
+//     one library block is two n64 chains over the block's two K tiles (64
+//     fp32 registers a thread); the row max is taken over all 128 keys
+//     before any exp; p = 2^((s - m') log2 e) by ex2.approx (the library's
+//     exp to 2 ulp; tests/test_torch_flash_tiles.py emulates the order);
+//     the unnormalised p rounds to bf16 straight into register A fragments
+//     of o_c = round(p) V_c (eight wgmma_rs_tb over the V tiles, MN-major
+//     through the transpose bit) into its own accumulator, and acc = acc *
+//     corr + o_c * inv with __fmul_rn / __fadd_rn, so nvcc contracts
+//     nothing. o leaves through the Q tile's shared memory as 16-byte rows.
+//   - K21 (`dkv_wgmma`, 168 registers): the block keeps its K and V tiles
+//     and walks the query rows 64 at a time: the Q, dO and O tiles and the
+//     rows' m and l stream through a two-stage ring. Per tile the block
+//     first forms di (and 1 / l) for the 64 rows from the O and dO tiles
+//     (a fixed order of fp32 products and one shuffle; the blocks of the
+//     first key tile, which visit every row, causal or not, write di out
+//     for K22), then S^T = K Q^T and dP^T = V dO^T by wgmma from shared
+//     memory, P^T and dS^T elementwise, rounded to bf16 into register A
+//     fragments for dV += P^T dO (issued before dS^T is formed) and dK +=
+//     dS^T Q (B MN-major). dK and dV leave through the K and V tiles as
+//     16-byte rows.
+//   Measured (scripts/ab_torch_attention.py, NVIDIA H100 80GB HBM3, 700 W,
+//   256 x 256 x 12 x 64): K20 0.187 ms (the mma.sync kernel it replaces:
+//   0.403), K21 with di 0.352 (the mma.sync K21 and the eager di: 1.46).
+// * mma.sync (path 1), for bf16 with D a multiple of 16 up to 48 (K20, K21)
+//   or 64 (K22) and rows on 16-byte boundaries: 8 warps of m16n8k16. K20: a
+//   block is one library query block (16 rows a warp), Q's A fragments in
+//   registers, the 128-key blocks of K and V through a two-stage cp.async
+//   ring, S for 128 keys in registers, P rounded into the A fragments of P
+//   V. K21: a block is one library key block, K's and V's A fragments in
+//   registers, the query rows streamed 64 at a time (q, do, and the rows'
+//   m, 1 / l and di, di formed from o's and do's rows), S^T and dP^T by mma,
+//   then dV and dK on the rounded P^T and dS^T. K22: a block is one query
+//   block, Q's and dO's fragments in registers, the key rows streamed 64 at
+//   a time, dQ by mma on the rounded dS. Shared-memory rows are padded by
+//   16 bytes, so the ldmatrix reads of the B fragments are conflict-free.
+// * CUDA cores (path 0), for fp32 and every other head width the library
+//   takes up to 512: 32-row (K20) tiles, and 32-row or 32-key tiles (K21,
+//   K22) that shrink to 16 past D = 256 so the fp32 tiles fit in shared
+//   memory (rows padded by one float), staged synchronously, a lane per key
+//   (or query) for the dot products and a lane per column for the sums.
+// The mma order of each accumulator is fixed by the tiling alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,19 +109,26 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kBlock = 128;        // the library's block, every kind
-constexpr int kThreads = 256;      // 8 warps
+constexpr int kThreads = 256;      // 8 warps (mma.sync and CUDA-core kernels)
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;          // CUDA-core tile: rows or keys
 constexpr int kRows = kTile / kWarps;  // 4 a warp
-constexpr int kSub = 64;           // tensor-core backward: streamed rows
-constexpr int kDMax = 256;
+constexpr int kSub = 64;           // mma.sync backward: streamed rows
+constexpr int kDMax = 512;
 constexpr int kMmaDMax = 64;
-constexpr size_t kSmemMax = 232448;
+constexpr int kSmemMax = 232448;
 
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
+// wgmma kernels (D = 64): one warpgroup a block, 64 query rows (K20) or
+// keys (K21); the rings' depth and shared memory.
+constexpr int kWgThreads = 128;
+constexpr int kFwdStages = 2;
+constexpr int kFwdStage = 4 * kTileBytes;   // a 128-key block of K, then of V
+constexpr int kFwdSmem = kTileBytes + kFwdStages * kFwdStage;   // 72 KB: 3 blocks an SM
+constexpr int kDkvStages = 2;
+constexpr int kStatBytes = 1024;            // m, l then 1 / l, di of 64 rows, padded
+constexpr int kDkvStage = 3 * kTileBytes + kStatBytes;   // Q, dO, O tiles, the rows
+static_assert(kDkvStage % kSwizzleAlign == 0, "stages keep the tiles 1024-aligned");
+constexpr int kDkvSmem = 2 * kTileBytes + kDkvStages * kDkvStage;   // 66 KB: 3 an SM
 
 // A fragments (16 rows x 16 columns, row-major) of the rows `ra` (g) and
 // `rb` (g + 8), at column 16 kk + 2t.
@@ -159,9 +202,226 @@ __device__ __forceinline__ void stage_f32(float* dst, int ld, const T* src, size
   }
 }
 
+// --- wgmma helpers (D = 64, one warpgroup a block) -------------------------
+
+// A warpgroup's 64 x 64 fp32 sums (the wgmma D layout: d[4 j + e] is row
+// 16 warp + g + 8 (e >> 1), column 8 j + 2 t + (e & 1)) rounded to bf16 into
+// a swizzled tile.
+__device__ __forceinline__ void acc_to_tile(unsigned char* tile, const float (&acc)[32]) {
+  const int lr = ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<uint32_t*>(tile + swz(lr, j) + 4 * t) =
+        ddg::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(tile + swz(lr + 8, j) + 4 * t) =
+        ddg::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// The 64 rows of a swizzled tile to `out` (rows `ts` elements apart) as
+// 16-byte rows.
+__device__ __forceinline__ void tile_to_rows(const unsigned char* tile, bf16* out, size_t ts) {
+  const int c = threadIdx.x & 7;
+#pragma unroll
+  for (int i = 0; i < kTileRows * 8 / kWgThreads; ++i) {
+    const int r = (threadIdx.x >> 3) + i * (kWgThreads / 8);
+    *reinterpret_cast<uint4*>(out + r * ts + c * 8) =
+        *reinterpret_cast<const uint4*>(tile + swz(r, c));
+  }
+}
+
+// The register A fragments (mma.sync's m16n8k16 layout, as wgmma_rs_tb
+// takes them) of 16-column slice kk of a warpgroup's fp32 sums s, rounded
+// to bf16: columns 16 kk .. + 15 are the n-tiles 2 kk and 2 kk + 1.
+__device__ __forceinline__ void slice_to_a(const float* s, int kk, uint32_t* a) {
+  const float* x = s + 8 * kk;
+  a[0] = ddg::pack_bf16(x[0], x[1]);
+  a[1] = ddg::pack_bf16(x[2], x[3]);
+  a[2] = ddg::pack_bf16(x[4], x[5]);
+  a[3] = ddg::pack_bf16(x[6], x[7]);
+}
+
 // ---------------------------------------------------------------------------
 // K20, the forward
 // ---------------------------------------------------------------------------
+
+// wgmma: one warpgroup a block per (64 query rows, head, batch); a thread
+// holds rows r0 and r0 + 8 of S, o_c and acc (the wgmma D layout).
+__global__ void __launch_bounds__(kWgThreads, 3)
+    fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lo,
+              float* __restrict__ mo, int L, int H, int tq, int tk, int tv, int causal,
+              float scale) {
+  // The Q tile, then kFwdStages stages of (K tiles 0-1, V tiles 0-1), each
+  // tile 1024-aligned (the dynamic shared memory's base is: the kernel
+  // traps if not).
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  unsigned char* const smem = smem_tiles;
+  const uint32_t base = smem_addr(smem);
+  if (base % kSwizzleAlign) __trap();
+  const int q0 = blockIdx.x * kTileRows, h = blockIdx.y, b = blockIdx.z;
+  const int nk = L / kBlock;
+  const int c_end = causal ? q0 / kBlock + 1 : nk;
+  const bf16* qh = q + static_cast<size_t>(b) * L * tq + h * kMmaD;
+  const bf16* kh = k + static_cast<size_t>(b) * L * tk + h * kMmaD;
+  const bf16* vh = v + static_cast<size_t>(b) * L * tv + h * kMmaD;
+  auto stage = [&](int c) { return base + kTileBytes + (c % kFwdStages) * kFwdStage; };
+  // One commit group a key block (empty past the last).
+  auto issue = [&](int c) {
+    if (c < c_end) {
+      const uint32_t s = stage(c);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = c * kBlock + i * kTileRows;
+        load_tile<kWgThreads>(s + i * kTileBytes, kh, tk, key, L);
+        load_tile<kWgThreads>(s + (2 + i) * kTileBytes, vh, tv, key, L);
+      }
+    }
+    cp_async_commit();
+  };
+  load_tile<kWgThreads>(base, qh, tq, q0, L);
+#pragma unroll
+  for (int c = 0; c < kFwdStages; ++c) issue(c);   // Q joins block 0's group
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + warp * 16 + g;
+  const uint32_t qs = base;
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m_prev[2] = {-INFINITY, -INFINITY}, l_prev[2] = {0.f, 0.f};
+
+  for (int c = 0; c < c_end; ++c) {
+    cp_async_wait<kFwdStages - 1>();
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t ks = stage(c), vs = ks + 2 * kTileBytes;
+
+    // S for the block's 128 keys: keys 0-63 in sa, 64-127 in sb.
+    float sa[32], sb[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sa[i] = sb[i] = 0.f;
+    fence_regs(sa);
+    fence_regs(sb);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kMmaD / 16; ++kk)
+      wgmma_ss(sa, desc_b128(qs + 32 * kk), desc_b128(ks + 32 * kk));
+#pragma unroll
+    for (int kk = 0; kk < kMmaD / 16; ++kk)
+      wgmma_ss(sb, desc_b128(qs + 32 * kk), desc_b128(ks + kTileBytes + 32 * kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sa);
+    fence_regs(sb);
+
+    // Scale, mask (the diagonal block under `causal`), and the row max over
+    // all 128 keys.
+    const bool diag = causal && c == c_end - 1;
+    float mx[2] = {-INFINITY, -INFINITY};
+    auto prep = [&](float (&s)[32], int key0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        float x = __fmul_rn(s[i], scale);
+        if (diag && key0 + 8 * (i >> 2) + 2 * t + (i & 1) > r0 + 8 * hh) x = -INFINITY;
+        s[i] = x;
+        mx[hh] = fmaxf(mx[hh], x);
+      }
+    };
+    prep(sa, c * kBlock);
+    prep(sb, c * kBlock + kTileRows);
+    float mn[2], sum[2] = {0.f, 0.f}, corr[2], inv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = quad_max(mx[hh]);
+      mn[hh] = nk == 1 ? mx[hh] : fmaxf(m_prev[hh], mx[hh]);
+    }
+    auto expo = [&](float (&s)[32]) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        s[i] = ex2(__fmul_rn(__fsub_rn(s[i], mn[hh]), kLog2e));
+        sum[hh] += s[i];
+      }
+    };
+    expo(sa);
+    expo(sb);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) sum[hh] = quad_sum(sum[hh]);
+    if (nk == 1) {
+      // The single-step kernel: p = exp(s - m) / l, then rounded.
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sa[i] = sa[i] / sum[(i >> 1) & 1];
+        sb[i] = sb[i] / sum[(i >> 1) & 1];
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        m_prev[hh] = mn[hh];
+        l_prev[hh] = sum[hh];
+        corr[hh] = 0.f;
+        inv[hh] = 1.f;
+      }
+    } else {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float l_corr = __fmul_rn(expf(m_prev[hh] - mn[hh]), l_prev[hh]);
+        const float l_next = sum[hh] + l_corr;
+        inv[hh] = l_next == 0.f ? 1.f : 1.f / l_next;
+        corr[hh] = __fmul_rn(l_corr, inv[hh]);
+        m_prev[hh] = mn[hh];
+        l_prev[hh] = l_next;
+      }
+    }
+
+    // o_c = round(p) V_c over the 128 keys: eight k-slices of 16, A from
+    // registers, V's tiles MN-major.
+    uint32_t pa[32];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      slice_to_a(sa, kk, pa + 4 * kk);
+      slice_to_a(sb, kk, pa + 16 + 4 * kk);
+    }
+    float oc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oc[i] = 0.f;
+    fence_regs(pa);
+    fence_regs(oc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs_tb(oc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                  desc_b128(vs + (kk >> 2) * kTileBytes + (kk & 3) * 16 * 128));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(oc);
+    fence_regs(pa);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      acc[i] = __fadd_rn(__fmul_rn(acc[i], corr[hh]), __fmul_rn(oc[i], inv[hh]));
+    }
+    __syncthreads();   // every warp is done with the stage
+    issue(c + kFwdStages);
+  }
+
+  // o rounded into the Q tile, then 16-byte rows; l and m.
+  acc_to_tile(smem, acc);
+  if (t == 0) {
+    const size_t i = (static_cast<size_t>(b) * H + h) * L + r0;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      lo[i + 8 * hh] = l_prev[hh];
+      mo[i + 8 * hh] = m_prev[hh];
+    }
+  }
+  __syncthreads();
+  const size_t to = static_cast<size_t>(H) * kMmaD;
+  tile_to_rows(smem, o + (static_cast<size_t>(b) * L + q0) * to + h * kMmaD, to);
+}
 
 template <int DK>
 __global__ void __launch_bounds__(kThreads) fwd_mma(const bf16* __restrict__ q,
@@ -464,17 +724,212 @@ __global__ void __launch_bounds__(kThreads) fwd_core(const T* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// K21, dK and dV
+// K21, dK and dV (and di)
 // ---------------------------------------------------------------------------
 
-// m, 1 / l and di of the kSub query rows from q0 into st ([3][kSub]), by
-// the block's first kSub threads.
+// wgmma: one warpgroup a block per (64 keys, head, batch), the M of its
+// products (S^T[4 j + e] is key r0 + 8 (e >> 1), query i0 + 8 j + 2 t + (e &
+// 1)). The block walks the query tiles in order; o and do are contiguous
+// (B, L, H, 64).
+__global__ void __launch_bounds__(kWgThreads, 3)
+    dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const float* __restrict__ lg,
+              const float* __restrict__ mg, const bf16* __restrict__ dO,
+              const bf16* __restrict__ o, bf16* __restrict__ dk, bf16* __restrict__ dv,
+              float* __restrict__ dig, int L, int H, int tq, int tk, int tv, int causal,
+              float scale) {
+  constexpr int S = kDkvStages;
+  // The K tile, the V tile, then S stages of (Q tile, dO tile, O tile, the
+  // rows' m, l and di).
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  unsigned char* const smem = smem_tiles;
+  const uint32_t base = smem_addr(smem);
+  if (base % kSwizzleAlign) __trap();
+  const int k0 = blockIdx.x * kTileRows, h = blockIdx.y, b = blockIdx.z;
+  const size_t to = static_cast<size_t>(H) * kMmaD;
+  const bf16* qh = q + static_cast<size_t>(b) * L * tq + h * kMmaD;
+  const bf16* kh = k + static_cast<size_t>(b) * L * tk + h * kMmaD;
+  const bf16* vh = v + static_cast<size_t>(b) * L * tv + h * kMmaD;
+  const size_t head = static_cast<size_t>(b) * L * to + h * kMmaD;
+  const size_t stats = (static_cast<size_t>(b) * H + h) * L;
+  // Under `causal` the query tiles wholly before the block's first key are
+  // skipped; the first key tile's blocks visit every row.
+  const int first = causal ? k0 / kTileRows : 0;
+  const int n_steps = L / kTileRows - first;
+  auto q0_of = [&](int step) { return (first + step) * kTileRows; };
+  auto stage = [&](int step) { return base + 2 * kTileBytes + (step % S) * kDkvStage; };
+  // One commit group a step (empty past the last): the three tiles, and
+  // the rows' m and l (two runs of 64 floats).
+  auto issue = [&](int step) {
+    if (step < n_steps) {
+      const uint32_t sb = stage(step);
+      const int i0 = q0_of(step);
+      load_tile<kWgThreads>(sb, qh, tq, i0, L);
+      load_tile<kWgThreads>(sb + kTileBytes, dO + head, H * kMmaD, i0, L);
+      load_tile<kWgThreads>(sb + 2 * kTileBytes, o + head, H * kMmaD, i0, L);
+      if (threadIdx.x < 32) {
+        const int which = threadIdx.x >> 4, j = threadIdx.x & 15;
+        cp_async16(sb + 3 * kTileBytes + which * 256 + j * 16,
+                   (which ? lg : mg) + stats + i0 + 4 * j, true);
+      }
+    }
+    cp_async_commit();
+  };
+  load_tile<kWgThreads>(base, kh, tk, k0, L);
+  load_tile<kWgThreads>(base + kTileBytes, vh, tv, k0, L);
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) issue(s);   // K and V join the first group
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t ks = base, vs = base + kTileBytes;
+  const int r0 = k0 + warp * 16 + g;
+  // di: TPR threads a row, each over 8 / TPR of its 16-byte chunks.
+  constexpr int TPR = kWgThreads / kTileRows;
+  const int di_row = threadIdx.x / TPR, di_part = threadIdx.x % TPR;
+
+  float dv_acc[32], dk_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<S - 2>();
+    fence_async_smem();
+    __syncthreads();
+    issue(step + S - 1);   // into the stage step - 1 used
+    const uint32_t sb = stage(step);
+    const int i0 = q0_of(step);
+    unsigned char* const tiles = smem + (sb - base);
+    float* const st = reinterpret_cast<float*>(tiles + 3 * kTileBytes);   // m, l, di
+
+    // di = sum_D(o * do) of the tile's rows, and 1 / l in place of l.
+    {
+      float part = 0.f;
+#pragma unroll
+      for (int c = di_part * (8 / TPR); c < (di_part + 1) * (8 / TPR); ++c) {
+        float x[8], y[8];
+        ddg::load16(reinterpret_cast<const bf16*>(tiles + 2 * kTileBytes + swz(di_row, c)), x);
+        ddg::load16(reinterpret_cast<const bf16*>(tiles + kTileBytes + swz(di_row, c)), y);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) part = fmaf(x[e], y[e], part);
+      }
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+      if (di_part == 0) {
+        st[2 * kTileRows + di_row] = part;
+        st[kTileRows + di_row] = 1.f / st[kTileRows + di_row];
+        if (blockIdx.x == 0) dig[stats + i0 + di_row] = part;
+      }
+    }
+    __syncthreads();
+    if (causal && i0 + kTileRows - 1 < k0) continue;   // every key past every query
+
+    // S^T = K Q^T and dP^T = V dO^T, both operands K-major in shared memory.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kMmaD / 16; ++kk)
+      wgmma_ss(s, desc_b128(ks + 32 * kk), desc_b128(sb + 32 * kk));
+#pragma unroll
+    for (int kk = 0; kk < kMmaD / 16; ++kk)
+      wgmma_ss(dp, desc_b128(vs + 32 * kk), desc_b128(sb + kTileBytes + 32 * kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T (kept in s) and its bf16 fragments; keys past a query give p = 0.
+    const bool diag = causal && i0 < k0 + kTileRows - 1;
+    uint32_t pa[16], da[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 mq = *reinterpret_cast<const float2*>(st + col);
+      const float2 iq = *reinterpret_cast<const float2*>(st + kTileRows + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = __fmul_rn(s[4 * j + e], scale);
+        float p = ex2(__fmul_rn(__fsub_rn(x, e & 1 ? mq.y : mq.x), kLog2e)) *
+                  (e & 1 ? iq.y : iq.x);
+        if (diag && r0 + 8 * (e >> 1) > i0 + col + (e & 1)) p = 0.f;
+        s[4 * j + e] = p;
+      }
+      const int a = 4 * (j >> 1) + 2 * (j & 1);
+      pa[a] = ddg::pack_bf16(s[4 * j], s[4 * j + 1]);
+      pa[a + 1] = ddg::pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+    }
+    // dV += round(P^T) dO while dS^T is formed.
+    fence_regs(pa);
+    fence_regs(dv_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb(dv_acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                  desc_b128(sb + kTileBytes + kk * 16 * 128));
+    wgmma_commit();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dq2 = *reinterpret_cast<const float2*>(st + 2 * kTileRows + 8 * j + 2 * t);
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[e] = __fmul_rn(__fmul_rn(dp[4 * j + e] - (e & 1 ? dq2.y : dq2.x), s[4 * j + e]),
+                          scale);
+      const int a = 4 * (j >> 1) + 2 * (j & 1);
+      da[a] = ddg::pack_bf16(ds[0], ds[1]);
+      da[a + 1] = ddg::pack_bf16(ds[2], ds[3]);
+    }
+    // dK += round(dS^T) Q.
+    fence_regs(da);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb(dk_acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                  desc_b128(sb + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(pa);
+    fence_regs(da);
+  }
+
+  // dk into the K tile, dv into the V tile, rounded; then 16-byte rows.
+  cp_async_wait<0>();
+  __syncthreads();   // every warp is done reading the K and V tiles
+  acc_to_tile(smem, dk_acc);
+  acc_to_tile(smem + kTileBytes, dv_acc);
+  __syncthreads();
+  tile_to_rows(smem, dk + head + k0 * to, to);
+  tile_to_rows(smem + kTileBytes, dv + head + k0 * to, to);
+}
+
+// m, 1 / l and di = sum_D(o * do) (fp32, the row's products in order) of
+// the kSub query rows from `at` into st ([3][kSub]), by the block's first
+// kSub threads; with `di_out`, di also goes there.
+template <int D>
 __device__ __forceinline__ void stage_stats(float* st, const float* mg, const float* lg,
-                                            const float* dig, size_t at) {
+                                            const bf16* orow, const bf16* drow, size_t to,
+                                            size_t at, float* di_out) {
   if (threadIdx.x < kSub) {
-    st[threadIdx.x] = mg[at + threadIdx.x];
-    st[kSub + threadIdx.x] = 1.f / lg[at + threadIdx.x];
-    st[2 * kSub + threadIdx.x] = dig[at + threadIdx.x];
+    const int r = threadIdx.x;
+    st[r] = mg[at + r];
+    st[kSub + r] = 1.f / lg[at + r];
+    float acc = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 8) {
+      float x[8], y[8];
+      ddg::load16(orow + r * to + d, x);
+      ddg::load16(drow + r * to + d, y);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(x[e], y[e], acc);
+    }
+    st[2 * kSub + r] = acc;
+    if (di_out) di_out[at + r] = acc;
   }
 }
 
@@ -482,8 +937,8 @@ template <int DK>
 __global__ void __launch_bounds__(kThreads) dkv_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const float* __restrict__ lg, const float* __restrict__ mg, const bf16* __restrict__ dO,
-    const float* __restrict__ dig, bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H,
-    int tq, int tk, int tv, int causal, float scale) {
+    const bf16* __restrict__ o, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    float* __restrict__ dig, int L, int H, int tq, int tk, int tv, int causal, float scale) {
   constexpr int D = 16 * DK, LD = D + 8, NT = D / 8;
   constexpr int kStage = 2 * kSub * LD;   // bf16: a sub-tile of q, then of do
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -491,10 +946,10 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(
   float* st0 = reinterpret_cast<float*>(stage0 + 2 * kStage);     // two [3][kSub]
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int nq = L / kBlock;
   const size_t bL = static_cast<size_t>(b) * L, hD = static_cast<size_t>(h) * D;
   const size_t stats = (static_cast<size_t>(b) * H + h) * L;
   const size_t to = static_cast<size_t>(H) * D;
+  float* const di_out = c == 0 ? dig : nullptr;   // the first key block visits every row
   const int key[2] = {c * kBlock + warp * 16 + g, c * kBlock + warp * 16 + g + 8};
   const int ld_n = ((lane & 7) + 8 * ((lane >> 4) & 1)) * LD + 8 * ((lane >> 3) & 1);
   const int ld_t = ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * ((lane >> 4) & 1);
@@ -506,7 +961,8 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(
   stage_async<D>(stage0, q + (bL + q_begin) * tq + hD, tq, kSub);
   stage_async<D>(stage0 + kSub * LD, dO + (bL + q_begin) * to + hD, to, kSub);
   cp_async_commit();
-  stage_stats(st0, mg, lg, dig, stats + q_begin);
+  stage_stats<D>(st0, mg, lg, o + (bL + q_begin) * to + hD, dO + (bL + q_begin) * to + hD, to,
+                 stats + q_begin, di_out);
   uint32_t ka[DK][4], va[DK][4];
   a_frags<DK>(k + (bL + key[0]) * tk + hD, k + (bL + key[1]) * tk + hD, t, ka);
   a_frags<DK>(v + (bL + key[0]) * tv + hD, v + (bL + key[1]) * tv + hD, t, va);
@@ -524,7 +980,9 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(
       stage_async<D>(next + kSub * LD, dO + (bL + q0 + kSub) * to + hD, to, kSub);
     }
     cp_async_commit();
-    if (it + 1 < n_sub) stage_stats(st0 + ((it + 1) & 1) * 3 * kSub, mg, lg, dig, stats + q0 + kSub);
+    if (it + 1 < n_sub)
+      stage_stats<D>(st0 + ((it + 1) & 1) * 3 * kSub, mg, lg, o + (bL + q0 + kSub) * to + hD,
+                     dO + (bL + q0 + kSub) * to + hD, to, stats + q0 + kSub, di_out);
     cp_async_wait<1>();
     __syncthreads();
     const bf16* Qs = stage0 + (it & 1) * kStage;
@@ -595,32 +1053,35 @@ __global__ void __launch_bounds__(kThreads) dkv_mma(
   }
 }
 
-template <typename T, int DC>
+// KR = keys a warp owns: 4 (32 a block) up to D = 256, 2 (16) past it.
+template <typename T, int DC, int KR>
 __global__ void __launch_bounds__(kThreads) dkv_core(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ lg, const float* __restrict__ mg, const T* __restrict__ dO,
-    const float* __restrict__ dig, T* __restrict__ dk, T* __restrict__ dv, int L, int H, int D,
-    int tq, int tk, int tv, int causal, float scale) {
+    const T* __restrict__ o, T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dig,
+    int L, int H, int D, int tq, int tk, int tv, int causal, float scale) {
+  constexpr int kOwn = kWarps * KR;
   extern __shared__ float smem[];
   const int ld = D + 1;
-  float* Ks = smem;                 // [32][ld]: the block's keys
-  float* Vs = Ks + kTile * ld;      // [32][ld]
-  float* Qs = Vs + kTile * ld;      // [32][ld]: a query sub-tile
+  float* Ks = smem;                 // [kOwn][ld]: the block's keys
+  float* Vs = Ks + kOwn * ld;       // [kOwn][ld]
+  float* Qs = Vs + kOwn * ld;       // [32][ld]: a query sub-tile
   float* Os = Qs + kTile * ld;      // [32][ld]: its dO
-  float* Ps = Os + kTile * ld;      // [32 keys][33]: round(p)^T
-  float* Ds = Ps + kTile * 33;      // [32 keys][33]: round(ds)^T
-  float* st = Ds + kTile * 33;      // m, 1 / l, di of the 32 queries
-  const int key0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  float* Ps = Os + kTile * ld;      // [kOwn keys][33]: round(p)^T
+  float* Ds = Ps + kOwn * 33;       // [kOwn keys][33]: round(ds)^T
+  float* st = Ds + kOwn * 33;       // m, 1 / l, di of the 32 queries
+  const int key0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int c = key0 / kBlock, nq = L / kBlock;
   const size_t bL = static_cast<size_t>(b) * L, hD = static_cast<size_t>(h) * D;
   const size_t stats = (static_cast<size_t>(b) * H + h) * L;
-  stage_f32(Ks, ld, k + (bL + key0) * tk + hD, tk, kTile, D);
-  stage_f32(Vs, ld, v + (bL + key0) * tv + hD, tv, kTile, D);
+  const size_t to = static_cast<size_t>(H) * D;
+  stage_f32(Ks, ld, k + (bL + key0) * tk + hD, tk, kOwn, D);
+  stage_f32(Vs, ld, v + (bL + key0) * tv + hD, tv, kOwn, D);
 
-  float dka[kRows][DC], dva[kRows][DC];
+  float dka[KR][DC], dva[KR][DC];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+  for (int i = 0; i < KR; ++i)
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) dka[i][cc] = dva[i][cc] = 0.f;
 
@@ -629,17 +1090,31 @@ __global__ void __launch_bounds__(kThreads) dkv_core(
       const int q0 = r * kBlock + sub * kTile;
       __syncthreads();
       stage_f32(Qs, ld, q + (bL + q0) * tq + hD, tq, kTile, D);
-      stage_f32(Os, ld, dO + (bL + q0) * H * D + hD, static_cast<size_t>(H) * D, kTile, D);
+      stage_f32(Os, ld, dO + (bL + q0) * to + hD, to, kTile, D);
       if (threadIdx.x < kTile) {
         st[threadIdx.x] = mg[stats + q0 + threadIdx.x];
         st[kTile + threadIdx.x] = 1.f / lg[stats + q0 + threadIdx.x];
-        st[2 * kTile + threadIdx.x] = dig[stats + q0 + threadIdx.x];
       }
-      __syncthreads();
-      // Lane j: query q0 + j against the warp's 4 keys.
+      // di of the sub-tile's rows, a warp a row: lanes over D, then the
+      // warp's sum; the first key tile's blocks write it out.
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        const int kl = warp * kRows + i;
+        const int rw = warp * kRows + i;
+        const size_t at = (bL + q0 + rw) * to + hD;
+        float acc = 0.f;
+        for (int d = lane; d < D; d += 32)
+          acc = fmaf(ddg::to_f32(o[at + d]), ddg::to_f32(dO[at + d]), acc);
+        acc = ddg::warp_sum(acc);
+        if (lane == 0) {
+          st[2 * kTile + rw] = acc;
+          if (blockIdx.x == 0) dig[stats + q0 + rw] = acc;
+        }
+      }
+      __syncthreads();
+      // Lane j: query q0 + j against the warp's KR keys.
+#pragma unroll
+      for (int i = 0; i < KR; ++i) {
+        const int kl = warp * KR + i;
         const float* qr = Qs + lane * ld;
         const float* orow = Os + lane * ld;
         const float* kr = Ks + kl * ld;
@@ -667,9 +1142,9 @@ __global__ void __launch_bounds__(kThreads) dkv_core(
           ov[cc] = d < D ? Os[j * ld + d] : 0.f;
         }
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const float p = Ps[(warp * kRows + i) * 33 + j];
-          const float ds = Ds[(warp * kRows + i) * 33 + j];
+        for (int i = 0; i < KR; ++i) {
+          const float p = Ps[(warp * KR + i) * 33 + j];
+          const float ds = Ds[(warp * KR + i) * 33 + j];
 #pragma unroll
           for (int cc = 0; cc < DC; ++cc) {
             dva[i][cc] = fmaf(p, ov[cc], dva[i][cc]);
@@ -680,8 +1155,8 @@ __global__ void __launch_bounds__(kThreads) dkv_core(
     }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const size_t at = ((bL + key0 + warp * kRows + i) * H + h) * D;
+  for (int i = 0; i < KR; ++i) {
+    const size_t at = ((bL + key0 + warp * KR + i) * H + h) * D;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) {
       const int d = lane + 32 * cc;
@@ -805,30 +1280,32 @@ __global__ void __launch_bounds__(kThreads) dq_mma(
   }
 }
 
-template <typename T, int DC>
+// KR = rows a warp owns: 4 (32 a block) up to D = 256, 2 (16) past it.
+template <typename T, int DC, int KR>
 __global__ void __launch_bounds__(kThreads) dq_core(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ lg, const float* __restrict__ mg, const T* __restrict__ dO,
     const float* __restrict__ dig, T* __restrict__ dq, int L, int H, int D, int tq, int tk,
     int tv, int causal, float scale) {
+  constexpr int kOwn = kWarps * KR;
   extern __shared__ float smem[];
   const int ld = D + 1;
-  float* Qs = smem;               // [32][ld]: the block's rows
-  float* Os = Qs + kTile * ld;    // [32][ld]: their dO
-  float* Ks = Os + kTile * ld;    // [32][ld]: a key sub-tile
+  float* Qs = smem;               // [kOwn][ld]: the block's rows
+  float* Os = Qs + kOwn * ld;     // [kOwn][ld]: their dO
+  float* Ks = Os + kOwn * ld;     // [32][ld]: a key sub-tile
   float* Vs = Ks + kTile * ld;    // [32][ld]
-  float* Ds = Vs + kTile * ld;    // [32 rows][33]: round(ds)
-  const int row0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  float* Ds = Vs + kTile * ld;    // [kOwn rows][33]: round(ds)
+  const int row0 = blockIdx.x * kOwn, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = row0 / kBlock, nk = L / kBlock;
   const size_t bL = static_cast<size_t>(b) * L, hD = static_cast<size_t>(h) * D;
   const size_t stats = (static_cast<size_t>(b) * H + h) * L;
-  stage_f32(Qs, ld, q + (bL + row0) * tq + hD, tq, kTile, D);
-  stage_f32(Os, ld, dO + (bL + row0) * H * D + hD, static_cast<size_t>(H) * D, kTile, D);
-  float m[kRows], il[kRows], di[kRows], dqa[kRows][DC];
+  stage_f32(Qs, ld, q + (bL + row0) * tq + hD, tq, kOwn, D);
+  stage_f32(Os, ld, dO + (bL + row0) * H * D + hD, static_cast<size_t>(H) * D, kOwn, D);
+  float m[KR], il[KR], di[KR], dqa[KR][DC];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const size_t ix = stats + row0 + warp * kRows + i;
+  for (int i = 0; i < KR; ++i) {
+    const size_t ix = stats + row0 + warp * KR + i;
     m[i] = mg[ix];
     il[i] = 1.f / lg[ix];
     di[i] = dig[ix];
@@ -844,10 +1321,10 @@ __global__ void __launch_bounds__(kThreads) dq_core(
       stage_f32(Ks, ld, k + (bL + key0) * tk + hD, tk, kTile, D);
       stage_f32(Vs, ld, v + (bL + key0) * tv + hD, tv, kTile, D);
       __syncthreads();
-      // Lane j: key key0 + j against the warp's 4 rows.
+      // Lane j: key key0 + j against the warp's KR rows.
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int rl = warp * kRows + i;
+      for (int i = 0; i < KR; ++i) {
+        const int rl = warp * KR + i;
         const float* qr = Qs + rl * ld;
         const float* orow = Os + rl * ld;
         const float* kr = Ks + lane * ld;
@@ -873,8 +1350,8 @@ __global__ void __launch_bounds__(kThreads) dq_core(
           kv[cc] = d < D ? Ks[j * ld + d] : 0.f;
         }
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const float ds = Ds[(warp * kRows + i) * 33 + j];
+        for (int i = 0; i < KR; ++i) {
+          const float ds = Ds[(warp * KR + i) * 33 + j];
 #pragma unroll
           for (int cc = 0; cc < DC; ++cc) dqa[i][cc] = fmaf(ds, kv[cc], dqa[i][cc]);
         }
@@ -882,8 +1359,8 @@ __global__ void __launch_bounds__(kThreads) dq_core(
     }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    T* out = dq + ((bL + row0 + warp * kRows + i) * H + h) * D;
+  for (int i = 0; i < KR; ++i) {
+    T* out = dq + ((bL + row0 + warp * KR + i) * H + h) * D;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) {
       const int d = lane + 32 * cc;
@@ -893,127 +1370,172 @@ __global__ void __launch_bounds__(kThreads) dq_core(
 }
 
 // ---------------------------------------------------------------------------
-// Launches
+// Launch plan and launches
 // ---------------------------------------------------------------------------
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // What the library takes at 128-blocks, and the kernels' own limits.
-bool takes(int B, int L, int H, int D, int tq, int tk, int tv) {
+bool shape_ok(int B, int L, int H, int D) {
   if (B <= 0 || H <= 0 || B > 65535 || H > 65535 || D <= 0 || D > kDMax) return false;
-  if (L < kBlock || L % kBlock || (L > kBlock && D > kBlock && D % kBlock)) return false;
-  return tq >= H * D && tk >= H * D && tv >= H * D;
+  return !(L < kBlock || L % kBlock || (L > kBlock && D > kBlock && D % kBlock));
 }
 
-template <typename T>
-bool use_mma(int D, int tq, int tk, int tv, std::initializer_list<const void*> ptrs) {
-  if (!std::is_same<T, bf16>::value || D % 16 || D > kMmaDMax || tq % 8 || tk % 8 || tv % 8)
-    return false;
+// Rows (K20, K22) or keys (K21) a CUDA-core block owns.
+int core_rows(int D) { return D <= 256 ? kTile : kTile / 2; }
+
+int col_groups(int D) {
+  return D <= 32 ? 1 : D <= 64 ? 2 : D <= 128 ? 4 : D <= 256 ? 8 : 16;
+}
+
+// One kernel's launch: path (2 wgmma, 1 mma.sync, 0 CUDA cores), the rows
+// or keys a block owns (`tile`), the rows or keys it takes a step
+// (`step`), ring stages (1: staged synchronously), dynamic shared bytes,
+// threads and grid.
+struct Launch {
+  int path, tile, step, stages, smem, threads, gx, gy, gz;
+};
+
+struct Plan {
+  Launch fwd, dkv, dq;
+};
+
+// `tc`: bf16 with every row on a 16-byte boundary.
+int make_plan(int B, int L, int H, int D, bool tc, Plan* p) {
+  if (!shape_ok(B, L, H, D)) return cudaErrorInvalidValue;
+  const bool mma = tc && D % 16 == 0 && D <= kMmaDMax;
+  const bool wg = mma && D == kMmaD;
+  const int pad = (D + 8) * 2;   // a padded bf16 row
+  const int own = core_rows(D);
+  if (wg)
+    p->fwd = {2, kTileRows, kBlock, kFwdStages, kFwdSmem, kWgThreads, L / kTileRows, H, B};
+  else if (mma)
+    p->fwd = {1, kBlock, kBlock, 2, 4 * kBlock * pad, kThreads, L / kBlock, H, B};
+  else
+    p->fwd = {0, kTile, kTile, 1, 4 * (2 * kTile * (D + 1) + kTile * kBlock), kThreads,
+              L / kTile, H, B};
+  if (wg)
+    p->dkv = {2, kTileRows, kTileRows, kDkvStages, kDkvSmem, kWgThreads, L / kTileRows, H, B};
+  else if (mma)
+    p->dkv = {1, kBlock, kSub, 2, 2 * (2 * kSub * pad + 3 * kSub * 4), kThreads, L / kBlock, H,
+              B};
+  else
+    p->dkv = {0, own, kTile, 1,
+              4 * (2 * own * (D + 1) + 2 * kTile * (D + 1) + 2 * own * 33 + 3 * kTile), kThreads,
+              L / own, H, B};
+  if (mma)
+    p->dq = {1, kBlock, kSub, 2, 4 * kSub * pad, kThreads, L / kBlock, H, B};
+  else
+    p->dq = {0, own, kTile, 1, 4 * (2 * own * (D + 1) + 2 * kTile * (D + 1) + own * 33),
+             kThreads, L / own, H, B};
+  for (const Launch* l : {&p->fwd, &p->dkv, &p->dq})
+    if (l->smem > kSmemMax) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// Rows on 16-byte boundaries: every pointer aligned and every token stride
+// a multiple of 8 elements.
+bool rows_aligned(int tq, int tk, int tv, std::initializer_list<const void*> ptrs) {
+  if (tq % 8 || tk % 8 || tv % 8) return false;
   for (const void* p : ptrs)
     if (!aligned16(p)) return false;
   return true;
 }
 
-int col_groups(int D) { return D <= 32 ? 1 : D <= 64 ? 2 : D <= 128 ? 4 : 8; }
-
-template <typename K>
-int prepare(K kernel, size_t smem) {
-  if (smem > kSmemMax) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+template <typename K, typename... A>
+int launch(K kernel, const Launch& l, cudaStream_t s, A... args) {
+  int err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(l.gx, l.gy, l.gz), l.threads, l.smem, s>>>(args...);
+  return cudaGetLastError();
 }
 
 // The launch body for each instantiated head width (variadic: the body
-// holds commas).
-#define DDG_FLASH_CORE_SWITCH(D, ...)            \
-  switch (col_groups(D)) {                       \
-    case 1: { constexpr int DC = 1; __VA_ARGS__ } \
-    case 2: { constexpr int DC = 2; __VA_ARGS__ } \
-    case 4: { constexpr int DC = 4; __VA_ARGS__ } \
-    default: { constexpr int DC = 8; __VA_ARGS__ } \
+// holds commas). CUDA cores: DC columns a lane, KR rows or keys a warp.
+#define DDG_FLASH_CORE_SWITCH(D, ...)                                     \
+  switch (col_groups(D)) {                                                \
+    case 1: { constexpr int DC = 1, KR = 4; __VA_ARGS__ }                 \
+    case 2: { constexpr int DC = 2, KR = 4; __VA_ARGS__ }                 \
+    case 4: { constexpr int DC = 4, KR = 4; __VA_ARGS__ }                 \
+    case 8: { constexpr int DC = 8, KR = 4; __VA_ARGS__ }                 \
+    default: { constexpr int DC = 16, KR = 2; __VA_ARGS__ }               \
   }
 
-#define DDG_FLASH_MMA_SWITCH(D, ...)             \
-  switch (D / 16) {                              \
-    case 1: { constexpr int DK = 1; __VA_ARGS__ } \
-    case 2: { constexpr int DK = 2; __VA_ARGS__ } \
-    case 3: { constexpr int DK = 3; __VA_ARGS__ } \
-    default: { constexpr int DK = 4; __VA_ARGS__ } \
+// mma.sync: DK k-steps of 16 over D, up to `DMAX` / 16.
+#define DDG_FLASH_MMA_SWITCH(D, DMAX, ...)                                \
+  switch (D / 16) {                                                       \
+    case 1: { constexpr int DK = 1; __VA_ARGS__ }                         \
+    case 2: { constexpr int DK = 2; __VA_ARGS__ }                         \
+    case 3: { constexpr int DK = 3; __VA_ARGS__ }                         \
+    default: { constexpr int DK = DMAX / 16; __VA_ARGS__ }                \
   }
 
 template <typename T>
 int fwd(const void* q, const void* k, const void* v, void* o, void* l, void* m, int B, int L,
         int H, int D, int tq, int tk, int tv, int causal, float scale, cudaStream_t s,
         int* path) {
-  if (!takes(B, L, H, D, tq, tk, tv)) return cudaErrorInvalidValue;
-  const bool tc = use_mma<T>(D, tq, tk, tv, {q, k, v, o});
-  *path = tc;
-  const T* tq_ = static_cast<const T*>(q);
-  const T* tk_ = static_cast<const T*>(k);
-  const T* tv_ = static_cast<const T*>(v);
+  if (tq < H * D || tk < H * D || tv < H * D) return cudaErrorInvalidValue;
+  Plan p;
+  const bool tc = std::is_same<T, bf16>::value && rows_aligned(tq, tk, tv, {q, k, v, o});
+  int err = make_plan(B, L, H, D, tc, &p);
+  if (err != cudaSuccess) return err;
+  *path = p.fwd.path;
   float* lp = static_cast<float*>(l);
   float* mp = static_cast<float*>(m);
-  if (tc) {
-    const dim3 grid(L / kBlock, H, B);
-    const size_t smem = 4 * kBlock * (D + 8) * sizeof(bf16);   // two stages of K and V
-    DDG_FLASH_MMA_SWITCH(D, {
-      auto kern = fwd_mma<DK>;
-      const int err = prepare(kern, smem);
-      if (err != cudaSuccess) return err;
-      kern<<<grid, kThreads, smem, s>>>(
-          reinterpret_cast<const bf16*>(tq_), reinterpret_cast<const bf16*>(tk_),
-          reinterpret_cast<const bf16*>(tv_), static_cast<bf16*>(o), lp, mp, L, H, tq, tk, tv,
-          causal, scale);
-      return cudaGetLastError();
+  if (p.fwd.path == 2)
+    return launch(fwd_wgmma, p.fwd, s, static_cast<const bf16*>(q),
+                  static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                  lp, mp, L, H, tq, tk, tv, causal, scale);
+  if (p.fwd.path == 1) {
+    DDG_FLASH_MMA_SWITCH(D, 48, {
+      return launch(fwd_mma<DK>, p.fwd, s, static_cast<const bf16*>(q),
+                    static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                    static_cast<bf16*>(o), lp, mp, L, H, tq, tk, tv, causal, scale);
     })
   }
-  const dim3 grid(L / kTile, H, B);
-  const size_t smem = sizeof(float) * (2 * kTile * (D + 1) + kTile * kBlock);
   DDG_FLASH_CORE_SWITCH(D, {
-    auto kern = fwd_core<T, DC>;
-    const int err = prepare(kern, smem);
-    if (err != cudaSuccess) return err;
-    kern<<<grid, kThreads, smem, s>>>(tq_, tk_, tv_, static_cast<T*>(o), lp, mp, L, H, D, tq,
-                                      tk, tv, causal, scale);
-    return cudaGetLastError();
+    return launch(fwd_core<T, DC>, p.fwd, s, static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<T*>(o), lp, mp, L, H, D, tq, tk, tv,
+                  causal, scale);
   })
 }
 
 template <typename T>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* l, const void* m,
-            const void* dO, const void* di, void* dk, void* dv, int B, int L, int H, int D,
-            int tq, int tk, int tv, int causal, float scale, cudaStream_t s, int* path) {
-  if (!takes(B, L, H, D, tq, tk, tv)) return cudaErrorInvalidValue;
-  const bool tc = use_mma<T>(D, tq, tk, tv, {q, k, v, dO, dk, dv});
-  *path = tc;
+            const void* dO, const void* o, void* dk, void* dv, void* di, int B, int L, int H,
+            int D, int tq, int tk, int tv, int causal, float scale, cudaStream_t s, int* path) {
+  if (tq < H * D || tk < H * D || tv < H * D) return cudaErrorInvalidValue;
+  Plan p;
+  const bool tc = std::is_same<T, bf16>::value &&
+                  rows_aligned(tq, tk, tv, {q, k, v, dO, o, dk, dv});
+  int err = make_plan(B, L, H, D, tc, &p);
+  if (err != cudaSuccess) return err;
+  *path = p.dkv.path;
   const float* lp = static_cast<const float*>(l);
   const float* mp = static_cast<const float*>(m);
-  const float* dp = static_cast<const float*>(di);
-  if (tc) {
-    const dim3 grid(L / kBlock, H, B);
-    const size_t smem = 2 * (2 * kSub * (D + 8) * sizeof(bf16) + 3 * kSub * sizeof(float));
-    DDG_FLASH_MMA_SWITCH(D, {
-      auto kern = dkv_mma<DK>;
-      const int err = prepare(kern, smem);
-      if (err != cudaSuccess) return err;
-      kern<<<grid, kThreads, smem, s>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), lp, mp, static_cast<const bf16*>(dO), dp,
-          static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, H, tq, tk, tv, causal, scale);
-      return cudaGetLastError();
+  float* dp = static_cast<float*>(di);
+  using P = const bf16*;
+  if (p.dkv.path == 2)
+    return launch(dkv_wgmma, p.dkv, s, static_cast<P>(q), static_cast<P>(k),
+                  static_cast<P>(v), lp, mp, static_cast<P>(dO), static_cast<P>(o),
+                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), dp, L, H, tq, tk, tv, causal,
+                  scale);
+  if (p.dkv.path == 1) {
+    DDG_FLASH_MMA_SWITCH(D, 48, {
+      return launch(dkv_mma<DK>, p.dkv, s, static_cast<P>(q), static_cast<P>(k),
+                    static_cast<P>(v), lp, mp, static_cast<P>(dO), static_cast<P>(o),
+                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), dp, L, H, tq, tk, tv,
+                    causal, scale);
     })
   }
-  const dim3 grid(L / kTile, H, B);
-  const size_t smem = sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * 33 + 3 * kTile);
   DDG_FLASH_CORE_SWITCH(D, {
-    auto kern = dkv_core<T, DC>;
-    const int err = prepare(kern, smem);
-    if (err != cudaSuccess) return err;
-    kern<<<grid, kThreads, smem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lp, mp,
-        static_cast<const T*>(dO), dp, static_cast<T*>(dk), static_cast<T*>(dv), L, H, D, tq,
-        tk, tv, causal, scale);
-    return cudaGetLastError();
+    return launch(dkv_core<T, DC, KR>, p.dkv, s, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v), lp, mp,
+                  static_cast<const T*>(dO), static_cast<const T*>(o), static_cast<T*>(dk),
+                  static_cast<T*>(dv), dp, L, H, D, tq, tk, tv, causal, scale);
   })
 }
 
@@ -1021,45 +1543,36 @@ template <typename T>
 int bwd_dq(const void* q, const void* k, const void* v, const void* l, const void* m,
            const void* dO, const void* di, void* dq, int B, int L, int H, int D, int tq,
            int tk, int tv, int causal, float scale, cudaStream_t s, int* path) {
-  if (!takes(B, L, H, D, tq, tk, tv)) return cudaErrorInvalidValue;
-  const bool tc = use_mma<T>(D, tq, tk, tv, {q, k, v, dO, dq});
-  *path = tc;
+  if (tq < H * D || tk < H * D || tv < H * D) return cudaErrorInvalidValue;
+  Plan p;
+  const bool tc = std::is_same<T, bf16>::value && rows_aligned(tq, tk, tv, {q, k, v, dO, dq});
+  int err = make_plan(B, L, H, D, tc, &p);
+  if (err != cudaSuccess) return err;
+  *path = p.dq.path;
   const float* lp = static_cast<const float*>(l);
   const float* mp = static_cast<const float*>(m);
   const float* dp = static_cast<const float*>(di);
-  if (tc) {
-    const dim3 grid(L / kBlock, H, B);
-    const size_t smem = 4 * kSub * (D + 8) * sizeof(bf16);   // two stages of K and V
-    DDG_FLASH_MMA_SWITCH(D, {
-      auto kern = dq_mma<DK>;
-      const int err = prepare(kern, smem);
-      if (err != cudaSuccess) return err;
-      kern<<<grid, kThreads, smem, s>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), lp, mp, static_cast<const bf16*>(dO), dp,
-          static_cast<bf16*>(dq), L, H, tq, tk, tv, causal, scale);
-      return cudaGetLastError();
+  if (p.dq.path == 1) {
+    using P = const bf16*;
+    DDG_FLASH_MMA_SWITCH(D, 64, {
+      return launch(dq_mma<DK>, p.dq, s, static_cast<P>(q), static_cast<P>(k),
+                    static_cast<P>(v), lp, mp, static_cast<P>(dO), dp, static_cast<bf16*>(dq),
+                    L, H, tq, tk, tv, causal, scale);
     })
   }
-  const dim3 grid(L / kTile, H, B);
-  const size_t smem = sizeof(float) * (4 * kTile * (D + 1) + kTile * 33);
   DDG_FLASH_CORE_SWITCH(D, {
-    auto kern = dq_core<T, DC>;
-    const int err = prepare(kern, smem);
-    if (err != cudaSuccess) return err;
-    kern<<<grid, kThreads, smem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lp, mp,
-        static_cast<const T*>(dO), dp, static_cast<T*>(dq), L, H, D, tq, tk, tv, causal,
-        scale);
-    return cudaGetLastError();
+    return launch(dq_core<T, DC, KR>, p.dq, s, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v), lp, mp,
+                  static_cast<const T*>(dO), dp, static_cast<T*>(dq), L, H, D, tq, tk, tv,
+                  causal, scale);
   })
 }
 
 }  // namespace
 
 // K20. q, k, v: (B, L, H, D) with dense heads, rows tq, tk, tv elements
-// apart; o: contiguous (B, L, H, D); l, m: (B, H, L) fp32. *path: 1 on the
-// tensor-core kernel, 0 on the CUDA-core one.
+// apart; o: contiguous (B, L, H, D); l, m: (B, H, L) fp32. *path: 2 on the
+// wgmma kernel, 1 on the mma.sync one, 0 on the CUDA cores.
 extern "C" int ddg_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                        void* l, void* m, int B, int L, int H, int D, int tq,
                                        int tk, int tv, int causal, float scale, int dtype,
@@ -1072,24 +1585,26 @@ extern "C" int ddg_flash_attention_fwd(const void* q, const void* k, const void*
   return cudaErrorInvalidValue;
 }
 
-// K21. As K20, with the forward's l and m, do (contiguous, q's dtype) and
-// di = sum(o * do) ((B, H, L) fp32); writes dk, dv (contiguous).
+// K21. As K20, with the forward's l and m, its output o and the output
+// gradient do (both contiguous, q's dtype); writes dk, dv (contiguous) and
+// di = sum(o * do) ((B, H, L) fp32, for K22).
 extern "C" int ddg_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                            const void* l, const void* m, const void* dO,
-                                           const void* di, void* dk, void* dv, int B, int L,
-                                           int H, int D, int tq, int tk, int tv, int causal,
-                                           float scale, int dtype, void* stream, int* path) {
+                                           const void* o, void* dk, void* dv, void* di, int B,
+                                           int L, int H, int D, int tq, int tk, int tv,
+                                           int causal, float scale, int dtype, void* stream,
+                                           int* path) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == ddg::kF32)
-    return bwd_dkv<float>(q, k, v, l, m, dO, di, dk, dv, B, L, H, D, tq, tk, tv, causal, scale,
-                          s, path);
+    return bwd_dkv<float>(q, k, v, l, m, dO, o, dk, dv, di, B, L, H, D, tq, tk, tv, causal,
+                          scale, s, path);
   if (dtype == ddg::kBF16)
-    return bwd_dkv<bf16>(q, k, v, l, m, dO, di, dk, dv, B, L, H, D, tq, tk, tv, causal, scale,
-                         s, path);
+    return bwd_dkv<bf16>(q, k, v, l, m, dO, o, dk, dv, di, B, L, H, D, tq, tk, tv, causal,
+                         scale, s, path);
   return cudaErrorInvalidValue;
 }
 
-// K22. As K21; writes dq (contiguous).
+// K22. As K21, with K21's di in place of o; writes dq (contiguous).
 extern "C" int ddg_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                           const void* l, const void* m, const void* dO,
                                           const void* di, void* dq, int B, int L, int H, int D,
@@ -1103,4 +1618,23 @@ extern "C" int ddg_flash_attention_bwd_dq(const void* q, const void* k, const vo
     return bwd_dq<bf16>(q, k, v, l, m, dO, di, dq, B, L, H, D, tq, tk, tv, causal, scale, s,
                         path);
   return cudaErrorInvalidValue;
+}
+
+// The launch plan of a K20, K21 and K22 call of this shape, for rows on
+// 16-byte boundaries (`aligned`) or not: out = for K20, K21, K22 each
+// {path, tile, step, stages, dynamic shared bytes, threads, grid x, y, z}.
+// Returns what the launches would return for the shape (0, or
+// cudaErrorInvalidValue where no kernel takes it).
+// ops/flash_attention.py:flash_plan mirrors it.
+extern "C" int ddg_flash_attention_plan(int B, int L, int H, int D, int dtype, int aligned,
+                                        int* out) {
+  if (dtype != ddg::kF32 && dtype != ddg::kBF16) return cudaErrorInvalidValue;
+  Plan p;
+  const int err = make_plan(B, L, H, D, dtype == ddg::kBF16 && aligned, &p);
+  if (err != cudaSuccess) return err;
+  int i = 0;
+  for (const Launch* l : {&p.fwd, &p.dkv, &p.dq})
+    for (int f : {l->path, l->tile, l->step, l->stages, l->smem, l->threads, l->gx, l->gy, l->gz})
+      out[i++] = f;
+  return cudaSuccess;
 }

@@ -3,11 +3,13 @@
 // cp.async copies of 64-row tiles into shared memory in the 128-byte
 // swizzle, the wgmma shared-memory descriptor, wgmma m64n64k16 with A
 // from shared memory or from registers, the fences that order them, and 2^x
-// by the SFU. flash_attention.cu (K20-K22) uses only the cp.async helpers.
+// by the SFU. flash_attention.cu's wgmma K20 and K21 use them too, with one
+// warpgroup a block.
 //
-// Every block that uses the tiles has two warpgroups (256 threads) and
-// tiles of 64 rows x 64 bf16 (D = 64, 128 bytes a row). The definitions live in an
-// unnamed namespace: each .cu is its own library with a plain C interface.
+// Tiles are 64 rows x 64 bf16 (D = 64, 128 bytes a row), loaded by blocks
+// of two warpgroups (256 threads) unless load_tile is told otherwise. The
+// definitions live in an unnamed namespace: each .cu is its own library
+// with a plain C interface.
 #pragma once
 
 #include "common.cuh"
@@ -79,13 +81,15 @@ __device__ __forceinline__ void wgmma_wait0() {
 // Pin register values at this point of the program: the compiler may not
 // move their reads or writes across it (wgmma writes and reads them
 // asynchronously between issue and wait).
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[16]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 #define DDG_D32                                                                               \
@@ -128,13 +132,15 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], uint32_t a0, uint32_
 #undef DDG_D32_OUT
 
 // Copy rows row0 .. row0 + 63 of one head (token stride ts elements) into
-// a swizzled tile with cp.async; rows past L read as zeros.
+// a swizzled tile with cp.async, by the block's NT threads; rows past L
+// read as zeros.
+template <int NT = kMmaThreads>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int ts, int row0,
                                           int L) {
   const int c = threadIdx.x & 7;
 #pragma unroll
-  for (int i = 0; i < kTileRows * 8 / kMmaThreads; ++i) {
-    const int r = (threadIdx.x >> 3) + i * (kMmaThreads / 8), p = row0 + r;
+  for (int i = 0; i < kTileRows * 8 / NT; ++i) {
+    const int r = (threadIdx.x >> 3) + i * (NT / 8), p = row0 + r;
     const bool ok = p < L;
     cp_async16(dst + swz(r, c), src + static_cast<size_t>(ok ? p : 0) * ts + c * 8, ok);
   }

@@ -14,22 +14,25 @@ accumulator is renormalised, acc = acc * (alpha l_prev / l_next) +
 dtype. With one key block (L = 128) the library's single-step kernel
 divides p by l before the rounding instead. The backward recomputes p =
 exp(s - m) * (1 / l) from the saved l and m, and with di = sum(o * do)
-(fp32, formed here outside the kernels, as the library does) forms ds =
-(do v^T - di) * p * scale; K21 walks the query blocks of a key block in
-order for dv += bf16(p)^T do and dk += bf16(ds)^T q, K22 the key blocks of
-a query block for dq += bf16(ds) k. Scores are the fp32 q k^T times
-sm_scale; under `causal`, blocks wholly above the diagonal are skipped and
-the rest get -0.7 * float32 max added where the key lies past the row.
+(fp32; the library forms it outside its kernels, K21 forms it from o's
+rows and hands it to K22) forms ds = (do v^T - di) * p * scale; K21 walks
+the query rows of a key block in order for dv += bf16(p)^T do and dk +=
+bf16(ds)^T q, K22 the key blocks of a query block for dq += bf16(ds) k.
+Scores are the fp32 q k^T times sm_scale; under `causal`, blocks wholly
+above the diagonal are skipped and the rest get -0.7 * float32 max added
+where the key lies past the row.
 
 Layout is the model's (B, L, H, D): q, k and v may each have their own
 token stride (views into the fused qkv projection), as `ops.attention`
 takes them; the library's (B, H, L, D) swap is layout only. l, m and di
 are (B, H, L) float32. On CUDA tensors each wrapper launches its kernel of
-`csrc/flash_attention.cu` (bf16 with D a multiple of 16 up to 64 and rows
-on 16-byte boundaries on the tensor cores, `mma.sync`; everything else,
-up to D = 256, on the CUDA cores: each wrapper's `tensor_core_launches`
-counts the former) or raises; on CPU tensors the plain versions below
-run. Shapes the library refuses raise here too, with its exception types.
+`csrc/flash_attention.cu` or raises; `flash_plan` mirrors which (bf16
+rows on 16-byte boundaries: D = 64 on wgmma for K20 and K21, D a multiple
+of 16 up to 48, and K22 up to 64, on `mma.sync`; everything else, every
+head width the library takes up to D = 512, on the CUDA cores; each
+wrapper's `tensor_core_launches` counts the first two, `wgmma_launches`
+the first). On CPU tensors the plain versions below run. Shapes the
+library refuses raise here too, with its exception types.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from ddg_tpu_torch.ops import _build
 
 BLOCK = 128                      # every block size the DiT's call gets
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-D_MAX = 256                      # the widest head the kernels take
+D_MAX = 512                      # the widest head the kernels take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -138,13 +141,15 @@ def _block_grads(qh, kh, vh, doh, l, m, di, r, c, causal, sm_scale):
     return p, ds
 
 
-def flash_attention_bwd_dkv_plain(q, k, v, l, m, do, di, *,
+def flash_attention_bwd_dkv_plain(q, k, v, l, m, do, o, *,
                                   causal: bool = False,
                                   sm_scale: float = 1.0):
-    """The plain PyTorch version of K21: (dk, dv) in k's and v's dtypes.
-    l, m, di: (B, H, L) float32."""
+    """The plain PyTorch version of K21: (dk, dv, di), dk and dv in k's and
+    v's dtypes, di = sum(o * do) (B, H, L) float32 (`output_grad_dot`), from
+    the forward's l and m (B, H, L) float32 and its output o."""
     B, L, H, D = q.shape
     check_shape(L, D)
+    di = output_grad_dot(o, do)
     n = L // BLOCK
     qh, kh, vh, doh = _heads(q), _heads(k), _heads(v), _heads(do)
     dk = torch.empty((B, H, L, D), dtype=torch.float32, device=q.device)
@@ -163,7 +168,7 @@ def flash_attention_bwd_dkv_plain(q, k, v, l, m, do, di, *,
         dk[:, :, c * BLOCK:(c + 1) * BLOCK] = dk_acc
         dv[:, :, c * BLOCK:(c + 1) * BLOCK] = dv_acc
     return (dk.transpose(1, 2).to(k.dtype).contiguous(),
-            dv.transpose(1, 2).to(v.dtype).contiguous())
+            dv.transpose(1, 2).to(v.dtype).contiguous(), di)
 
 
 def flash_attention_bwd_dq_plain(q, k, v, l, m, do, di, *,
@@ -185,11 +190,73 @@ def flash_attention_bwd_dq_plain(q, k, v, l, m, do, di, *,
     return dq.transpose(1, 2).to(q.dtype).contiguous()
 
 
-def _check(q, k, v, *stats):
-    """Raise unless q, k, v (B, L, H, D) and the (B, H, L) fp32 `stats`
-    are what the kernels take; returns q's, k's and v's token strides."""
+# The kernels' tiles and shared memory (csrc/flash_attention.cu).
+_TILE = 64 * 64 * 2              # one 64 x 64 bf16 tile in the 128-byte swizzle
+_SMEM_MAX = 232448
+PATHS = {2: 'wgmma', 1: 'mma.sync', 0: 'CUDA cores'}
+
+
+def _launch(path, tile, step, stages, smem, threads, grid):
+    return dict(path=path, tile=tile, step=step, stages=stages, smem=smem,
+                threads=threads, grid=grid)
+
+
+def flash_plan(B, L, H, D, dtype, aligned=True):
+    """What K20, K21 and K22 launch for a (B, L, H, D) call of `dtype`
+    whose rows start on 16-byte boundaries (`aligned`) or not: a dict of
+    'fwd', 'dkv' and 'dq', each with path (2: wgmma, 1: mma.sync, 0: the
+    CUDA cores; PATHS names them), tile (the query rows, or K21's keys, a
+    block owns), step (the keys, or K21's query rows, it takes a step),
+    stages (of the cp.async ring; 1: staged synchronously), smem (dynamic
+    shared bytes), threads and grid. The mirror of the C library's
+    `ddg_flash_attention_plan`; raises where the library refuses the shape
+    (its exception types) and ValueError where no kernel takes it."""
+    check_shape(L, D)
+    if (D <= 0 or D > D_MAX or min(B, H) <= 0 or max(B, H) > 65535
+            or dtype not in _DTYPES):
+        raise ValueError(f'no flash attention kernel takes B={B}, L={L}, '
+                         f'H={H}, D={D}, {dtype}: head_dim up to {D_MAX}')
+    mma = dtype == torch.bfloat16 and aligned and D % 16 == 0 and D <= 64
+    pad = (D + 8) * 2               # a bf16 row padded by 16 bytes
+    own = 32 if D <= 256 else 16    # CUDA-core rows or keys a block
+    if mma and D == 64:
+        # One warpgroup of 64 query rows, its Q tile and a two-stage ring
+        # of 128-key blocks (K and V: four tiles).
+        fwd = _launch(2, 64, 128, 2, _TILE + 2 * 4 * _TILE, 128,
+                      (L // 64, H, B))
+        # One warpgroup of 64 keys, its K and V tiles and a two-stage ring
+        # of (Q, dO, O tiles and 1 KB of the rows' m, l, di).
+        dkv = _launch(2, 64, 64, 2, 2 * _TILE + 2 * (3 * _TILE + 1024),
+                      128, (L // 64, H, B))
+    elif mma:
+        fwd = _launch(1, 128, 128, 2, 4 * 128 * pad, 256, (L // 128, H, B))
+        dkv = _launch(1, 128, 64, 2, 2 * (2 * 64 * pad + 3 * 64 * 4), 256,
+                      (L // 128, H, B))
+    else:
+        fwd = _launch(0, 32, 32, 1, 4 * (2 * 32 * (D + 1) + 32 * 128), 256,
+                      (L // 32, H, B))
+        dkv = _launch(0, own, 32, 1, 4 * (2 * own * (D + 1) + 2 * 32 * (D + 1)
+                                          + 2 * own * 33 + 3 * 32),
+                      256, (L // own, H, B))
+    if mma:
+        dq = _launch(1, 128, 64, 2, 4 * 64 * pad, 256, (L // 128, H, B))
+    else:
+        dq = _launch(0, own, 32, 1, 4 * (2 * own * (D + 1) + 2 * 32 * (D + 1)
+                                         + own * 33),
+                     256, (L // own, H, B))
+    plan = dict(fwd=fwd, dkv=dkv, dq=dq)
+    if max(lp['smem'] for lp in plan.values()) > _SMEM_MAX:
+        raise ValueError(f'no flash attention kernel fits D={D} in shared '
+                         f'memory')
+    return plan
+
+
+def _check(q, k, v, *stats, rows=()):
+    """Raise unless q, k, v (B, L, H, D), the contiguous (B, L, H, D)
+    `rows` of q's dtype and the (B, H, L) fp32 `stats` are what the kernels
+    take; returns q's, k's and v's token strides."""
     B, L, H, D = q.shape
-    _build.require_cuda(q, k, v, *stats, contiguous=False)
+    _build.require_cuda(q, k, v, *rows, *stats, contiguous=False)
     if (k.shape != q.shape or v.shape != q.shape or q.dtype not in _DTYPES
             or k.dtype != q.dtype or v.dtype != q.dtype):
         raise ValueError('q, k, v must share a float32/bfloat16 dtype and '
@@ -202,6 +269,11 @@ def _check(q, k, v, *stats):
     if any(t.stride() != (L * ts, ts, D, 1) for t, ts in zip((q, k, v),
                                                              strides)):
         raise ValueError('q, k, v must be (B, L, H, D) with dense heads')
+    for t in rows:
+        if (t.shape != q.shape or t.dtype != q.dtype
+                or not t.is_contiguous()):
+            raise ValueError(f'o and do must be contiguous {q.dtype} of '
+                             f'shape {tuple(q.shape)}')
     for t in stats:
         if (t.dtype != torch.float32 or tuple(t.shape) != (B, H, L)
                 or not t.is_contiguous()):
@@ -211,9 +283,25 @@ def _check(q, k, v, *stats):
 
 
 def _count(wrapper, path, rc, name):
-    wrapper.launches += 1
-    wrapper.tensor_core_launches += path.value == 1
     _build.check(rc, name)
+    wrapper.launches += 1
+    wrapper.tensor_core_launches += path.value >= 1
+    wrapper.wgmma_launches += path.value == 2
+
+
+def _call(name, ins, outs, shape, strides, causal, sm_scale, dtype, q):
+    """One launch of the C entry point `name` on the pointers of `ins` then
+    `outs`; returns the path it took."""
+    B, L, H, D = shape
+    fn = _build.kernel('flash_attention', name,
+                       (_build.ptr,) * (len(ins) + len(outs))
+                       + (_build.i32,) * 8
+                       + (_build.f32, _build.i32, _build.ptr, _build.i32p))
+    path = ctypes.c_int(-1)
+    rc = fn(*(t.data_ptr() for t in (*ins, *outs)), B, L, H, D, *strides,
+            int(causal), sm_scale, _DTYPES[dtype], _build.stream(q),
+            ctypes.byref(path))
+    return path, rc
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = False,
@@ -228,61 +316,45 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     l = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
-    fn = _build.kernel('flash_attention', 'ddg_flash_attention_fwd',
-                       (_build.ptr,) * 6 + (_build.i32,) * 8
-                       + (_build.f32, _build.i32, _build.ptr, _build.i32p))
-    path = ctypes.c_int(-1)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            l.data_ptr(), m.data_ptr(), B, L, H, D, *strides, int(causal),
-            sm_scale, _DTYPES[q.dtype], _build.stream(q), ctypes.byref(path))
+    path, rc = _call('ddg_flash_attention_fwd', (q, k, v), (o, l, m),
+                     q.shape, strides, causal, sm_scale, q.dtype, q)
     _count(flash_attention_fwd, path, rc, 'ddg_flash_attention_fwd')
     return o, l, m
 
 
-def _bwd_launch(name, q, k, v, l, m, do, di, outs, causal, sm_scale):
-    B, L, H, D = q.shape
-    strides = _check(q, k, v, l, m, di)
-    _build.require_cuda(q, do)
-    fn = _build.kernel('flash_attention', name,
-                       (_build.ptr,) * (7 + len(outs)) + (_build.i32,) * 8
-                       + (_build.f32, _build.i32, _build.ptr, _build.i32p))
-    path = ctypes.c_int(-1)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), l.data_ptr(),
-            m.data_ptr(), do.data_ptr(), di.data_ptr(),
-            *(t.data_ptr() for t in outs), B, L, H, D, *strides,
-            int(causal), sm_scale, _DTYPES[q.dtype], _build.stream(q),
-            ctypes.byref(path))
-    return path, rc
-
-
-def flash_attention_bwd_dkv(q, k, v, l, m, do, di, *, causal: bool = False,
+def flash_attention_bwd_dkv(q, k, v, l, m, do, o, *, causal: bool = False,
                             sm_scale: float = 1.0):
-    """K21: (dk, dv), contiguous (B, L, H, D), from the forward's l, m,
-    the output gradient do (B, L, H, D) and di = sum(o * do) (B, H, L)
-    float32."""
+    """K21: (dk, dv, di), dk and dv contiguous (B, L, H, D), di = sum(o *
+    do) (B, H, L) float32 for K22, from the forward's l, m and output o
+    and the output gradient do (both contiguous (B, L, H, D) in q's
+    dtype)."""
     if q.device.type == 'cpu':
-        return flash_attention_bwd_dkv_plain(q, k, v, l, m, do, di,
+        return flash_attention_bwd_dkv_plain(q, k, v, l, m, do, o,
                                              causal=causal,
                                              sm_scale=sm_scale)
-    do = do.to(q.dtype).contiguous()
+    B, L, H, D = q.shape
+    strides = _check(q, k, v, l, m, rows=(do, o))
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
               for _ in range(2))
-    path, rc = _bwd_launch('ddg_flash_attention_bwd_dkv', q, k, v, l, m, do,
-                           di, (dk, dv), causal, sm_scale)
+    di = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    path, rc = _call('ddg_flash_attention_bwd_dkv', (q, k, v, l, m, do, o),
+                     (dk, dv, di), q.shape, strides, causal, sm_scale,
+                     q.dtype, q)
     _count(flash_attention_bwd_dkv, path, rc, 'ddg_flash_attention_bwd_dkv')
-    return dk, dv
+    return dk, dv, di
 
 
 def flash_attention_bwd_dq(q, k, v, l, m, do, di, *, causal: bool = False,
                            sm_scale: float = 1.0):
-    """K22: dq, contiguous (B, L, H, D), from the same inputs as K21."""
+    """K22: dq, contiguous (B, L, H, D), from the forward's l, m, the
+    output gradient do (contiguous, q's dtype) and K21's di."""
     if q.device.type == 'cpu':
         return flash_attention_bwd_dq_plain(q, k, v, l, m, do, di,
                                             causal=causal, sm_scale=sm_scale)
-    do = do.to(q.dtype).contiguous()
+    strides = _check(q, k, v, l, m, di, rows=(do,))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    path, rc = _bwd_launch('ddg_flash_attention_bwd_dq', q, k, v, l, m, do,
-                           di, (dq,), causal, sm_scale)
+    path, rc = _call('ddg_flash_attention_bwd_dq', (q, k, v, l, m, do, di),
+                     (dq,), q.shape, strides, causal, sm_scale, q.dtype, q)
     _count(flash_attention_bwd_dq, path, rc, 'ddg_flash_attention_bwd_dq')
     return dq
 
@@ -291,16 +363,23 @@ for _fn in (flash_attention_fwd, flash_attention_bwd_dkv,
             flash_attention_bwd_dq):
     _fn.launches = 0
     _fn.tensor_core_launches = 0
+    _fn.wgmma_launches = 0
 
 
 def output_grad_dot(o, do):
     """di = sum(o * do) over D in fp32, (B, H, L): the library's glue
-    between its forward and its backward kernels."""
+    between its forward and its backward kernels, here the plain K21's
+    (on the card K21 forms it; `calls` counts the calls)."""
+    output_grad_dot.calls += 1
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+output_grad_dot.calls = 0
+
+
 class _FlashAttention(torch.autograd.Function):
-    """K20 with K21 and K22 as its backward; saves q, k, v, o, l and m."""
+    """K20 with K21 (which forms di) and K22 as its backward; saves q, k,
+    v, o, l and m."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
@@ -313,10 +392,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, l, m = ctx.saved_tensors
-        do = do.to(q.dtype)
-        di = output_grad_dot(o, do)
+        do = do.to(q.dtype).contiguous()
         kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, l, m, do, di, **kw)
+        dk, dv, di = flash_attention_bwd_dkv(q, k, v, l, m, do, o, **kw)
         dq = flash_attention_bwd_dq(q, k, v, l, m, do, di, **kw)
         return dq, dk, dv, None, None
 

@@ -42,14 +42,17 @@ single-launch `mma.sync` kernel, whose C interface has no head dim and no
 workspace; the call adapts to it.
 
 `--flash` holds the library flash attention's kernels (K20 forward, K21
-dK/dV, K22 dQ; `csrc/flash_attention.cu`) against their plain versions at
-`chip_smoke.FLASH_SHAPES` with `chip_smoke.check_flash_attention` and times
-them at the main shapes beside the plain versions, SDPA (K21, K22: SDPA's
-backward) and the bound; `--check --flash` skips the timing (the first call
-on the card after editing the source); `--flash --parent-source <an earlier
-flash_attention.cu>` times that copy's K20-K22 against the current ones (A
-B B A, bf16 at 48 x 128, 256 x 256 and 4 x 1024) and requires bit-identical
-outputs.
+dK/dV and di, K22 dQ; `csrc/flash_attention.cu`) against their plain
+versions at `chip_smoke.FLASH_SHAPES` with `chip_smoke.check_flash_attention`
+and `check_flash_plan` and times them at the main shapes beside the plain
+versions, SDPA (K21, K22: SDPA's backward) and the bound; `--check
+--flash` skips the timing (the first call on the card after editing the
+source); `--flash --parent-source <an earlier flash_attention.cu>` times
+that copy's K20-K22 against the current ones (A B B A, bf16 at 48 x 128,
+256 x 256 and 4 x 1024; a parent whose K21 takes di is timed with
+`output_grad_dot`) and reports the share of each output that differs
+between the versions and from the plain version; K22 must match bit for
+bit.
 """
 
 import argparse
@@ -308,7 +311,7 @@ def run_ab_bwd(parent_source, rounds):
             paths = {arm: bwd_call(fn, tensors, outs[arm], ws,
                                    arm == 'parent')
                      for arm, fn in fns.items()}
-            ref = plain()
+            ref = plain[kernel]()
             differs = {arm: {n: (o != r).float().mean().item()
                              for n, o, r in zip(('dq', 'dk', 'dv'), outs[arm],
                                                 ref)}
@@ -387,9 +390,10 @@ def run_ab(parent_source, rounds):
 def run_flash(timed):
     """K20-K22 (`csrc/flash_attention.cu`): ptxas's lines, then
     `chip_smoke.check_flash_attention` shape by shape (its bars, bit-identical
-    reruns, the tensor cores at bf16 D <= 64), with `timed` the CUDA-event
-    medians of kernel, plain version and SDPA (backward: SDPA's) and the
-    bound at the main shapes. One JSON line a shape; non-zero if any failed."""
+    reruns, the tensor cores at bf16 D <= 64, wgmma for K20 and K21 at bf16
+    D = 64), with `timed` the CUDA-event medians of kernel, plain version
+    and SDPA (backward: SDPA's) and the bound at the main shapes, and the
+    launch-plan mirror. One JSON line a shape; non-zero if any failed."""
     from ddg_tpu_torch.ops import _build
     cs.DEV = 'cuda'
     libs = _build.build_all()
@@ -406,6 +410,12 @@ def run_flash(timed):
             rec['ok'], rec['error'] = False, repr(e)[:600]
             failed += 1
         print(json.dumps(rec), flush=True)
+    try:
+        cs.check_flash_plan(cs.FLASH_SHAPES.values())
+    except Exception as e:
+        failed += 1
+        print(json.dumps({'case': 'plan mirror', 'ok': False,
+                          'error': repr(e)[:400]}), flush=True)
     print(cs.nvidia_smi(), flush=True)
     return 1 if failed else 0
 
@@ -413,20 +423,21 @@ def run_flash(timed):
 FLASH_NAMES = {'K20': 'ddg_flash_attention_fwd',
                'K21': 'ddg_flash_attention_bwd_dkv',
                'K22': 'ddg_flash_attention_bwd_dq'}
+FLASH_WRAPPERS = {'K20': 'flash_attention_fwd',
+                  'K21': 'flash_attention_bwd_dkv',
+                  'K22': 'flash_attention_bwd_dq'}
 
 
-def flash_call(fn, kernel, qkv, stats, do, outs, sm_scale):
-    """One launch of K20, K21 or K22 (either library's entry point), not
-    causal, into `outs` (K20: o, l, m; K21: dk, dv; K22: dq)."""
+def flash_call(fn, ins, outs, sm_scale):
+    """One launch of a K20, K21 or K22 entry point (either library's), not
+    causal, on the pointers of `ins` then `outs`."""
     from ddg_tpu_torch.ops import _build
-    q = qkv[0]
-    Bq, Lq, Hq, Dq = q.shape
-    ins = qkv if kernel == 'K20' else (*qkv, stats[0], stats[1], do, stats[2])
+    q = ins[0]
     path = ctypes.c_int(-1)
-    rc = fn(*(t.data_ptr() for t in (*ins, *outs)), Bq, Lq, Hq, Dq,
-            *(t.stride(1) for t in qkv), 0, sm_scale, 1, _build.stream(q),
-            ctypes.byref(path))
-    _build.check(rc, FLASH_NAMES[kernel])
+    rc = fn(*(t.data_ptr() for t in (*ins, *outs)), *q.shape,
+            *(t.stride(1) for t in ins[:3]), 0, sm_scale, 1,
+            _build.stream(q), ctypes.byref(path))
+    _build.check(rc, 'flash attention')
     return path.value
 
 
@@ -434,68 +445,101 @@ def run_ab_flash(parent_source, rounds):
     """K20-K22 of `parent_source` (an earlier `flash_attention.cu`) against
     the current ones, A B B A, bf16, not causal, at 48 x 128, 256 x 256 and
     4 x 1024 (x 12 x 64), beside SDPA (K21, K22: SDPA's backward) and the
-    bound; each arm's outputs must equal the other's bit for bit."""
+    bound. A parent from before K21 formed di (its library has no
+    `ddg_flash_attention_plan`) takes di as an input: its K21 arm times
+    `output_grad_dot` and the launch together, so both arms compute dk, dv
+    and di. Each output's share of elements that differ between the arms
+    and from the plain version is reported; K22 (whose rounding points no
+    version moved) and a parent of the current design must match the new
+    outputs bit for bit, or the run fails."""
     from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import flash_attention as FA
     cs.DEV = 'cuda'
     parent, log = build_parent(parent_source)
     libs = _build.build_all()
     new_log = libs['flash_attention'][1]
     print(json.dumps({'parent_ptxas': cs.ptxas_lines(log),
                       'new_ptxas': cs.ptxas_lines(new_log)}), flush=True)
+    parent_takes_o = hasattr(parent, 'ddg_flash_attention_plan')
     smi = cs.nvidia_smi()
     gen = torch.Generator(device='cuda').manual_seed(9)
     shapes = {'48x128': (48, 128, 12, 64), '256x256': (256, 256, 12, 64),
               '4x1024': (4, 1024, 12, 64)}
+    names = {'K20': ('o', 'l', 'm'), 'K21': ('dk', 'dv', 'di'),
+             'K22': ('dq',)}
     failed = 0
     for label, shape in shapes.items():
-        qkv, do, stats, sc = cs._flash_inputs(shape, torch.bfloat16, gen,
-                                              False)
+        qkv, do, (l, m, o, di), sc = cs._flash_inputs(
+            shape, torch.bfloat16, gen, False)
         sdpa = tuple(t.transpose(1, 2).contiguous() for t in qkv)
         lib_ms = {'K20': cs._sdpa_ms(sdpa, do, False)}
         lib_ms['K21'] = lib_ms['K22'] = cs._sdpa_ms(sdpa, do, True)
+        plain = {'K20': lambda: FA.flash_attention_fwd_plain(
+                     *qkv, sm_scale=sc),
+                 'K21': lambda: FA.flash_attention_bwd_dkv_plain(
+                     *qkv, l, m, do, o, sm_scale=sc),
+                 'K22': lambda: (FA.flash_attention_bwd_dq_plain(
+                     *qkv, l, m, do, di, sm_scale=sc),)}
         for kernel, cname in FLASH_NAMES.items():
-            argt = ((_build.ptr,) * {'K20': 6, 'K21': 9, 'K22': 8}[kernel]
-                    + (_build.i32,) * 8
+            old_k21 = kernel == 'K21' and not parent_takes_o
+            n_in = {'K20': 3, 'K21': 7, 'K22': 7}[kernel]
+            n_out = {'K20': 3, 'K21': 3, 'K22': 1}[kernel]
+            argt = ((_build.ptr,) * (n_in + n_out) + (_build.i32,) * 8
                     + (_build.f32, _build.i32, _build.ptr, _build.i32p))
             fns = {'parent': getattr(parent, cname),
                    'new': _build.kernel('flash_attention', cname, argt)}
-            fns['parent'].argtypes = list(argt)
+            fns['parent'].argtypes = list(
+                argt[1:] if old_k21 else argt)   # no di output
             fns['parent'].restype = ctypes.c_int
+            ins = {'K20': qkv, 'K21': (*qkv, l, m, do, o),
+                   'K22': (*qkv, l, m, do, di)}[kernel]
 
             def fresh():
-                n = {'K20': 1, 'K21': 2, 'K22': 1}[kernel]
                 outs = tuple(torch.empty(shape, dtype=torch.bfloat16,
-                                         device='cuda') for _ in range(n))
-                if kernel == 'K20':     # and its l and m
-                    outs += (torch.empty_like(stats[0]),
-                             torch.empty_like(stats[0]))
-                return outs
+                                         device='cuda')
+                             for _ in range(1 if kernel == 'K22' else
+                                            2 if kernel == 'K21' else 1))
+                rows = {'K20': 2, 'K21': 1, 'K22': 0}[kernel]
+                return outs + tuple(torch.empty_like(l) for _ in range(rows))
             outs = {arm: fresh() for arm in fns}
-            paths = {arm: flash_call(fn, kernel, qkv, stats, do, outs[arm], sc)
-                     for arm, fn in fns.items()}
+
+            def arm_call(arm):
+                if arm == 'parent' and old_k21:
+                    # The parent's K21 takes di: form it as its caller did.
+                    outs[arm][2].copy_(FA.output_grad_dot(o, do))
+                    return flash_call(fns[arm], (*qkv, l, m, do, outs[arm][2]),
+                                      outs[arm][:2], sc)
+                return flash_call(fns[arm], ins, outs[arm], sc)
+            paths = {arm: arm_call(arm) for arm in fns}
             torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(outs['new'],
-                                                         outs['parent']))
-            failed += not same
+            ref = plain[kernel]()
+            differs = {
+                arm: {n: (a != r).float().mean().item()
+                      for n, a, r in zip(names[kernel], outs[arm], ref)}
+                for arm in fns}
+            between = {n: (a != b).float().mean().item()
+                       for n, a, b in zip(names[kernel], outs['new'],
+                                          outs['parent'])}
+            same = not any(between.values())
+            if kernel == 'K22' or parent_takes_o:
+                failed += not same
             times = {'parent': [], 'new': []}
             for r in range(rounds):
                 for arm in ('parent', 'new', 'new', 'parent'):
-                    fn, out = fns[arm], outs[arm]
-                    ms = cs.time_ms(lambda: flash_call(fn, kernel, qkv, stats,
-                                                       do, out, sc))
-                    times[arm].append(ms)
+                    times[arm].append(cs.time_ms(lambda: arm_call(arm)))
             mean = {arm: sum(t) / len(t) for arm, t in times.items()}
-            name = {'K20': 'flash_attention_fwd',
-                    'K21': 'flash_attention_bwd_dkv',
-                    'K22': 'flash_attention_bwd_dq'}[kernel]
-            bound, by = cs._flash_bound(name, shape, 2)
+            bound, by = cs._flash_bound(FLASH_WRAPPERS[kernel], shape, 2)
             print(json.dumps({
                 'kernel': kernel, 'shape': label, 'dims': list(shape),
                 'parent_ms': mean['parent'], 'new_ms': mean['new'],
                 'speedup': mean['parent'] / mean['new'], 'times': times,
+                'parent_arm': ('output_grad_dot + K21' if old_k21
+                               else kernel),
                 'sdpa_ms': lib_ms[kernel], 'bound_ms': bound, 'bound_by': by,
                 'paths': paths, 'bit_identical_to_parent': same,
-                'nvidia_smi': smi}), flush=True)
+                'differs_new_vs_parent': between,
+                'differs_from_plain': differs, 'nvidia_smi': smi}),
+                flush=True)
     return 1 if failed else 0
 
 

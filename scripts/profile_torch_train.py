@@ -51,10 +51,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 GROUPS = (   # first match wins; matched against the kernel's name
-    # The library flash attention's kernels ('flash' route): the tensor-core
-    # (bf16, D <= 64) and CUDA-core instantiations of each.
-    ('K20 flash attention fwd', ('fwd_mma<', 'fwd_core<')),
-    ('K21 flash attention dK/dV', ('dkv_mma<', 'dkv_core<')),
+    # The library flash attention's kernels ('flash' route): the wgmma
+    # (bf16, D = 64; K20, K21), mma.sync (bf16, D <= 64) and CUDA-core
+    # instantiations of each.
+    ('K20 flash attention fwd', ('fwd_wgmma(', 'fwd_mma<', 'fwd_core<')),
+    ('K21 flash attention dK/dV and di', ('dkv_wgmma(', 'dkv_mma<',
+                                          'dkv_core<')),
     ('K22 flash attention dQ', ('dq_mma<', 'dq_core<')),
     # The attention kernels' RoPE flag is their template's `true`.
     # K1b and K2b share their two kernels, the query-tile one (dq) and the

@@ -7,6 +7,8 @@ against the library flash attention they port,
   at B=1, H=2, L in {128 (the single-step kernel), 384 (three key blocks)},
   D in {32, 64}, causal and not; fp32 to 1e-5 of the largest magnitude,
   bf16 to 2 ulp of it with at most 1% of the elements differing at all;
+- the plain K21 on its own, forming di from the forward's o: dk and dv
+  against the library's VJP at L=384, di equal to `output_grad_dot`;
 - a negative control: `ops.attention.attention_plain` (normalise, then
   round) fails that bf16 share bar at L=384, so the bar sees where p is
   rounded;
@@ -103,6 +105,26 @@ def test_plain_matches_library(L, D, causal, dtype):
     assert torch.equal(out, got_o)
     grads = torch.autograd.grad(out, (qq, kk, vv), tdo)
     for name, a, b in zip(('dq', 'dk', 'dv'), grads, (dq, dk, dv)):
+        close(name, a, b, dt)
+
+
+@pytest.mark.parametrize('dtype', list(DTYPES))
+@pytest.mark.parametrize('causal', [False, True])
+def test_plain_k21_forms_di_and_matches_library(causal, dtype):
+    """K21's plain version takes the forward's o in place of di (as the
+    kernel does), returns di = output_grad_dot(o, do) beside dk and dv, and
+    its dk and dv match the library's VJP."""
+    dt, jdt = DTYPES[dtype]
+    q, k, v, do = _inputs(384, 64, seed=21 + causal)
+    (o, _, dk, dv), (l, m) = library(q, k, v, do, causal, jdt)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(dt) for a in (q, k, v, do))
+    calls = fa.output_grad_dot.calls
+    got_dk, got_dv, di = fa.flash_attention_bwd_dkv(
+        tq, tk, tv, l, m, tdo, o, causal=causal, sm_scale=1.0 / 8)
+    assert fa.output_grad_dot.calls == calls + 1
+    assert di.shape == (1, 2, 384) and di.dtype == torch.float32
+    assert torch.equal(di, fa.output_grad_dot(o, tdo))
+    for name, a, b in (('dk', got_dk, dk), ('dv', got_dv, dv)):
         close(name, a, b, dt)
 
 
