@@ -431,9 +431,11 @@ def check_attention(results):
     (one tile, three whole tiles, a ragged last tile; all four); a ragged
     L=40 on both kernel routes (D = 64 on tensor cores, D = 32 on CUDA
     cores; all four); and the reference DiT-small's L=1024 (`long`, 4 x
-    1024 x 12 x 64: all four, which take any L). Each backward runs twice
-    with bit-identical outputs, each bf16 forward twice with bit-identical
-    outputs. In bf16 with D = 64 every call must take the tensor-core path
+    1024 x 12 x 64: all four, which take any L); and head widths the
+    CUDA-core backward takes on its halved tiles (ROADMAP C.7): 176 and 192
+    at L=200, 290 (the widest the forward takes) at L=72, all four. Each
+    backward runs twice with bit-identical outputs, each bf16 forward twice
+    with bit-identical outputs. In bf16 with D = 64 every call must take the tensor-core path
     (the wrapper's `tensor_core_launches` rise with its `launches`). A bf16
     forward's record also gives the share of its outputs that differ from
     the plain version's at all (`differs_from_plain`), which must stay at
@@ -466,9 +468,11 @@ def check_attention(results):
                  for n in (64, 192, 200)},
               'ragged': ((4, 40, 3, DH), every),
               'ragged_d32': ((4, 40, 2, 32), every),
-              'long': ((4, 1024, H, DH), every)}
+              'long': ((4, 1024, H, DH), every),
+              **{f'wide_d{D}': ((2, 200, 2, D), every) for D in (176, 192)},
+              'wide_d290': ((2, 72, 1, 290), every)}
     untimed = {'ragged', 'ragged_d32', 'tile_edges_L64', 'tile_edges_L192',
-               'tile_edges_L200'}
+               'tile_edges_L200', 'wide_d176', 'wide_d192', 'wide_d290'}
     main = {'fused_rope_attention': 'lm1b_sampling',
             'short_seq_attention': 'text8_training',
             'fused_rope_attention_bwd': 'lm1b_training',
@@ -634,7 +638,7 @@ def check_flash_attention(results, shapes=None, timed=True):
     (fp32, K21's against `output_grad_dot`) to SUM_RTOL of their largest
     magnitude. Every call runs twice with bit-identical outputs, every bf16
     call with D a multiple of 16 up to 64 takes the tensor cores, and at D
-    = 64 K20 and K21 take wgmma (each record names its path). The bf16
+    = 64 K20, K21 and K22 take wgmma (each record names its path). The bf16
     records at the main paths' shapes (text8 training is a kernel's main
     record) hold the kernel's, the plain version's and SDPA's CUDA-event
     medians (K21 and K22: SDPA's backward, autograd through SDPA minus its
@@ -678,8 +682,7 @@ def check_flash_attention(results, shapes=None, timed=True):
                     on_wg = wrapper.wgmma_launches - before[2] == n
                     check(on_tc == tc_path, f'{tag} {dtype}: tensor cores '
                           f'{on_tc}, expected {tc_path}')
-                    want_wg = tc_path and D == 64 and name != \
-                        'flash_attention_bwd_dq'
+                    want_wg = tc_path and D == 64
                     check(on_wg == want_wg, f'{tag} {dtype}: wgmma {on_wg}, '
                           f'expected {want_wg}')
                     rec['tensor_cores'] = on_tc
@@ -755,7 +758,7 @@ def check_attention_plan(shapes):
     and `ddg_attention_bwd_plan` at every shape `check_attention` ran, in
     fp32 and bf16, rows aligned or not, and each pair refuses the same head
     widths (290 is the widest the CUDA-core forward's shared memory holds,
-    174 the CUDA-core backward's)."""
+    and the CUDA-core backward, whose tiles halve past 174, takes it too)."""
     import ctypes
     from ddg_tpu_torch.ops import _build
     from ddg_tpu_torch.ops import attention as A
@@ -1746,7 +1749,8 @@ def check_mamba_smem():
           f'{M._SMEM}')
     n = 0
     for chunk in (128, 16):
-        for N in sorted({SN, 24, 64, 96, 97, 112, 113, 128}):
+        for N in sorted({SN, 24, 64, 96, 97, 112, 113, 128, 144, 145, 160,
+                         161}):
             for R in (0, SR, 48, 64):
                 py, c = M.scan_smem(chunk, N, R), max(fwd(chunk, N, R),
                                                       bwd(chunk, N, R))
@@ -2765,6 +2769,24 @@ def check_learning(micro_steps=30):
 # The text8 training path: DiT-small MDLM at L=256, on three attention routes
 # ---------------------------------------------------------------------------
 
+def _half_ulp_bars(build, sd, spec, batch, seed):
+    """Each gradient's bar for a card-against-CPU step: twice how far it
+    moves on the CPU, in units of its largest magnitude, when every weight
+    matrix is perturbed by half an fp32 ulp (2^-24 relative, seeded), at
+    least 1e-4 and capped at 3e-4 so that a wrong kernel still fails.
+    Returns (bars, the largest such move)."""
+    noise = torch.Generator().manual_seed(seed)
+    half_ulp = {k: v * (1 + torch.randn(v.shape, generator=noise) * 2.0 ** -24)
+                if v.ndim == 2 else v for k, v in sd.items()}
+    _, g_cpu = _loss_grads(build, sd, 'cpu', spec, batch)
+    _, g_half = _loss_grads(build, half_ulp, 'cpu', spec, batch)
+    spread = {k: ((a - b).abs().max()
+                  / a.abs().max().clamp_min(1e-30)).item()
+              for k, a, b in zip(sd, g_cpu, g_half)}
+    return ({k: max(1e-4, min(3e-4, 2 * v)) for k, v in spread.items()},
+            max(spread.values()))
+
+
 def check_tiny_text8_train():
     """A tiny float32 DiT at text8's L=256 and V=35 (hidden 128, 2 heads of
     64, 2 blocks, dropout 0) with the text8 run's optimizer and EMA, card
@@ -2794,9 +2816,6 @@ def check_tiny_text8_train():
     x0 = run.batch(gen)['input_ids'][0]
     t, xt = sample_corruption(run.spec, x0, gen)
     optim = dataclasses.replace(run.optim, num_warmup_steps=0)
-    noise = torch.Generator().manual_seed(11)
-    half_ulp = {k: v * (1 + torch.randn(v.shape, generator=noise) * 2.0 ** -24)
-                if v.ndim == 2 else v for k, v in sd.items()}
     batch = (x0, t, xt, None)
     rec = {}
     for route in TEXT8_ROUTES:
@@ -2804,18 +2823,65 @@ def check_tiny_text8_train():
             text8_train_setup(tiny=True, route=route).cfg, hidden_size=128,
             compute_dtype=torch.float32, dropout=0.0)
         build = lambda: DIT(cfg)          # noqa: E731
-        _, g_cpu = _loss_grads(build, sd, 'cpu', run.spec, batch)
-        _, g_half = _loss_grads(build, half_ulp, 'cpu', run.spec, batch)
-        spread = {k: ((a - b).abs().max()
-                      / a.abs().max().clamp_min(1e-30)).item()
-                  for k, a, b in zip(sd, g_cpu, g_half)}
-        bars = {k: max(1e-4, min(3e-4, 2 * v)) for k, v in spread.items()}
+        bars, spread = _half_ulp_bars(build, sd, run.spec, batch, 11)
         rec[route] = _train_step_card_vs_cpu(
             f'tiny text8 train {route}', build, sd, run.spec, batch, optim,
             run.averaging, grad_bars=bars)
-        rec[route]['max_half_ulp_spread_of_max'] = max(spread.values())
+        rec[route]['max_half_ulp_spread_of_max'] = spread
     emit({'phase': 'tiny_text8_train_card_vs_cpu', 'length': run.cfg.length,
           **rec})
+
+
+def check_wide_head_dit_train():
+    """ROADMAP C.7: a tiny float32 DiT whose heads are 192 wide (hidden 384,
+    2 heads, 2 blocks, text8's L=256 and V=35, dropout 0) trains on the card
+    through K1 and K1b ('fused_rope') and through RoPE, K2 and K2b
+    ('short_seq'): one step card against CPU (`_train_step_card_vs_cpu`,
+    with `check_tiny_text8_train`'s half-ulp bars), each backward launched
+    on the CUDA cores (16-row query tiles, 32-key tiles) 2 times. The
+    weight matrices are scaled x3: at this width x10 (the text8 check's,
+    at hidden 128) puts the model where half an fp32 ulp on the weights
+    moves the embedding's gradient by 1.5e-3 of its largest magnitude on
+    the CPU, past the 3e-4 cap, so no bar could tell a wrong kernel from
+    another summation order; at x3 that spread is 7e-7."""
+    import dataclasses
+    import numpy as np
+    from ddg_tpu_torch.convert import make_reference_dit_state_dict
+    from ddg_tpu_torch.diffusion import sample_corruption
+    from ddg_tpu_torch.entry import text8_train_flagship, text8_train_setup
+    from ddg_tpu_torch.models import DIT
+    from ddg_tpu_torch.ops import attention as A
+    run = text8_train_flagship(device='cpu', tiny=True)
+    sd = make_reference_dit_state_dict(
+        np.random.RandomState(2), hidden=384, cond_dim=32, n_blocks=2,
+        vocab=run.cfg.vocab_size)
+    sd = {k: v * 3 if v.ndim == 2 else v for k, v in sd.items()}
+    gen = torch.Generator().manual_seed(4)
+    x0 = run.batch(gen)['input_ids'][0]
+    t, xt = sample_corruption(run.spec, x0, gen)
+    optim = dataclasses.replace(run.optim, num_warmup_steps=0)
+    batch = (x0, t, xt, None)
+    rec = {}
+    for route, bwd in (('fused_rope', A.fused_rope_attention_bwd),
+                       ('short_seq', A.short_seq_attention_bwd)):
+        cfg = dataclasses.replace(
+            text8_train_setup(tiny=True, route=route).cfg, hidden_size=384,
+            n_heads=2, compute_dtype=torch.float32, dropout=0.0)
+        build = lambda: DIT(cfg)          # noqa: E731
+        bars, spread = _half_ulp_bars(build, sd, run.spec, batch, 12)
+        before = (bwd.launches, bwd.tensor_core_launches)
+        rec[route] = _train_step_card_vs_cpu(
+            f'head dim 192 DiT train {route}', build, sd, run.spec, batch,
+            optim, run.averaging, grad_bars=bars)
+        n = bwd.launches - before[0]
+        check(n == cfg.n_blocks and bwd.tensor_core_launches == before[1],
+              f'head dim 192 {route}: {n} backward launches, '
+              f'{bwd.tensor_core_launches - before[1]} on the tensor cores')
+        rec[route]['backward_launches'] = n
+        rec[route]['max_half_ulp_spread_of_max'] = spread
+        rec[route]['plan'] = A.backward_plan(
+            x0.shape[0], cfg.length, cfg.n_heads, 192, torch.float32)['q']
+    emit({'phase': 'head_dim_192_dit_train_card_vs_cpu', **rec})
 
 
 def run_text8_train_path(kernels, route, warmup=2, steps=3):
@@ -2855,11 +2921,11 @@ def run_text8_train_path(kernels, route, warmup=2, steps=3):
     n_micro = steps * run.accum_steps
     _launch_check(f'text8 training {route}', kernels, launches,
                   TEXT8_PER_MICRO_STEP[route], n_micro)
-    # K21 forms di on the card: the plain glue never runs; K20 and K21
-    # take wgmma at the DiT's bf16 D = 64.
+    # K21 forms di on the card: the plain glue never runs; K20, K21 and
+    # K22 take wgmma at the DiT's bf16 D = 64.
     check(FA.output_grad_dot.calls == 0, f'text8 training {route}: '
           f'output_grad_dot ran {FA.output_grad_dot.calls} times')
-    for n in FLASH[:2]:
+    for n in FLASH:
         check(flash[n].wgmma_launches - wgmma[n] == launches[n],
               f'text8 training {route}: {n} missed the wgmma kernel')
     n_syncs = _sync_check(f'text8 training {route}',
@@ -3831,6 +3897,7 @@ def main():
     check_tiny_dimamba()
     check_tiny_dimamba_train()
     check_tiny_text8_train()
+    check_wide_head_dit_train()
     by_path = {'serving': run_main_path(kernels),
                'training': run_train_path(kernels),
                'unet_serving': run_unet_path(kernels, unet, n_norms)}

@@ -39,9 +39,9 @@
 //
 // Three kinds of kernel, picked by the launch plan (make_plan, exported as
 // ddg_flash_attention_plan; ops/flash_attention.py:flash_plan mirrors it):
-// * wgmma (path 2), K20 and K21 for bf16 with D = 64 and rows on 16-byte
-//   boundaries. One warpgroup (128 threads) a block owns 64 query rows
-//   (K20) or keys (K21), one wgmma M; 64 x 64 bf16 tiles in the 128-byte
+// * wgmma (path 2), K20, K21 and K22 for bf16 with D = 64 and rows on
+//   16-byte boundaries. One warpgroup (128 threads) a block owns 64 query
+//   rows (K20, K22) or keys (K21), one wgmma M; 64 x 64 bf16 tiles in the 128-byte
 //   swizzle (wgmma.cuh), copied by 16-byte cp.async; products by wgmma
 //   m64n64k16 with fp32 sums. Three blocks an SM (12 warps): at L = 256
 //   the bytes in flight, not the tensor rate, set the pace, and
@@ -72,11 +72,20 @@
 //     fragments for dV += P^T dO (issued before dS^T is formed) and dK +=
 //     dS^T Q (B MN-major). dK and dV leave through the K and V tiles as
 //     16-byte rows.
-//   Measured (scripts/ab_torch_attention.py, NVIDIA H100 80GB HBM3, 700 W,
-//   256 x 256 x 12 x 64): K20 0.187 ms (the mma.sync kernel it replaces:
-//   0.403), K21 with di 0.352 (the mma.sync K21 and the eager di: 1.46).
-// * mma.sync (path 1), for bf16 with D a multiple of 16 up to 48 (K20, K21)
-//   or 64 (K22) and rows on 16-byte boundaries: 8 warps of m16n8k16. K20: a
+//   - K22 (`dq_wgmma`, 156 registers): the block keeps its Q and dO tiles
+//     (by cp.async with the first key tile) and walks the 64-key tiles of K
+//     and V in order through a three-stage ring (64 KB a block), S = Q K^T
+//     and dP = dO V^T by wgmma, p = 2^((s - m) log2 e) / l and ds = (dP -
+//     di) p scale rounded to bf16 straight into register A fragments of
+//     dQ += round(ds) K (B MN-major). dq leaves through the Q tile as
+//     16-byte rows.
+//   Measured (scripts/ab_torch_attention.py, same-call A/B, NVIDIA H100
+//   80GB HBM3, 700.00 W, 256 x 256 x 12 x 64): K20 0.185 ms (the mma.sync
+//   kernel it replaced: 0.403), K21 with di 0.331 (the mma.sync K21 and the
+//   eager di: 1.47), K22 0.217 (the mma.sync K22: 0.532); K21 + K22 0.55
+//   against SDPA's backward 0.78; bounds 0.122, 0.213, 0.153 (bytes).
+// * mma.sync (path 1), for bf16 with D a multiple of 16 up to 48 and rows
+//   on 16-byte boundaries: 8 warps of m16n8k16. K20: a
 //   block is one library query block (16 rows a warp), Q's A fragments in
 //   registers, the 128-key blocks of K and V through a two-stage cp.async
 //   ring, S for 128 keys in registers, P rounded into the A fragments of P
@@ -129,6 +138,9 @@ constexpr int kStatBytes = 1024;            // m, l then 1 / l, di of 64 rows, p
 constexpr int kDkvStage = 3 * kTileBytes + kStatBytes;   // Q, dO, O tiles, the rows
 static_assert(kDkvStage % kSwizzleAlign == 0, "stages keep the tiles 1024-aligned");
 constexpr int kDkvSmem = 2 * kTileBytes + kDkvStages * kDkvStage;   // 66 KB: 3 an SM
+constexpr int kDqStages = 3;
+constexpr int kDqStage = 2 * kTileBytes;    // a 64-key K tile, then its V tile
+constexpr int kDqSmem = 2 * kTileBytes + kDqStages * kDqStage;   // 64 KB: 3 an SM
 
 // A fragments (16 rows x 16 columns, row-major) of the rows `ra` (g) and
 // `rb` (g + 8), at column 16 kk + 2t.
@@ -1280,6 +1292,127 @@ __global__ void __launch_bounds__(kThreads) dq_mma(
   }
 }
 
+// wgmma: one warpgroup a block per (64 query rows, head, batch), the M of
+// its products (S[4 j + e] is row r0 + 8 (e >> 1), key k0 + 8 j + 2 t + (e &
+// 1)). The block keeps its Q and dO tiles and walks the 64-key tiles of K
+// and V in order through a three-stage ring; dO and dq are contiguous (B,
+// L, H, 64).
+__global__ void __launch_bounds__(kWgThreads, 3)
+    dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const float* __restrict__ lg,
+             const float* __restrict__ mg, const bf16* __restrict__ dO,
+             const float* __restrict__ dig, bf16* __restrict__ dq, int L, int H, int tq, int tk,
+             int tv, int causal, float scale) {
+  constexpr int S = kDqStages;
+  // The Q tile, the dO tile, then S stages of (K tile, V tile).
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  unsigned char* const smem = smem_tiles;
+  const uint32_t base = smem_addr(smem);
+  if (base % kSwizzleAlign) __trap();
+  const int q0 = blockIdx.x * kTileRows, h = blockIdx.y, b = blockIdx.z;
+  const size_t to = static_cast<size_t>(H) * kMmaD;
+  const bf16* qh = q + static_cast<size_t>(b) * L * tq + h * kMmaD;
+  const bf16* kh = k + static_cast<size_t>(b) * L * tk + h * kMmaD;
+  const bf16* vh = v + static_cast<size_t>(b) * L * tv + h * kMmaD;
+  const size_t head = static_cast<size_t>(b) * L * to + h * kMmaD;
+  const size_t stats = (static_cast<size_t>(b) * H + h) * L;
+  // Under `causal` the key tiles up to the diagonal one.
+  const int n_steps = causal ? q0 / kTileRows + 1 : L / kTileRows;
+  auto stage = [&](int step) { return base + 2 * kTileBytes + (step % S) * kDqStage; };
+  // One commit group a key tile (empty past the last).
+  auto issue = [&](int step) {
+    if (step < n_steps) {
+      const uint32_t sb = stage(step);
+      load_tile<kWgThreads>(sb, kh, tk, step * kTileRows, L);
+      load_tile<kWgThreads>(sb + kTileBytes, vh, tv, step * kTileRows, L);
+    }
+    cp_async_commit();
+  };
+  load_tile<kWgThreads>(base, qh, tq, q0, L);
+  load_tile<kWgThreads>(base + kTileBytes, dO + head, H * kMmaD, q0, L);
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) issue(s);   // Q and dO join the first group
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + warp * 16 + g;
+  float m[2], il[2], di[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    m[hh] = mg[stats + r0 + 8 * hh];
+    il[hh] = 1.f / lg[stats + r0 + 8 * hh];
+    di[hh] = dig[stats + r0 + 8 * hh];
+  }
+  float dq_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<S - 2>();
+    fence_async_smem();
+    __syncthreads();
+    issue(step + S - 1);   // into the stage step - 1 used
+    const uint32_t ks = stage(step), vs = ks + kTileBytes;
+    const int k0 = step * kTileRows;
+
+    // S = Q K^T and dP = dO V^T, both operands K-major in shared memory.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kMmaD / 16; ++kk)
+      wgmma_ss(s, desc_b128(base + 32 * kk), desc_b128(ks + 32 * kk));
+#pragma unroll
+    for (int kk = 0; kk < kMmaD / 16; ++kk)
+      wgmma_ss(dp, desc_b128(base + kTileBytes + 32 * kk), desc_b128(vs + 32 * kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p = exp(s - m) (1 / l), ds = (dP - di) p scale, rounded to bf16 into
+    // register A fragments; keys past a row give ds = 0.
+    const bool diag = causal && step == n_steps - 1;
+    uint32_t da[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const float x = __fmul_rn(s[4 * j + e], scale);
+        const float p = ex2(__fmul_rn(__fsub_rn(x, m[hh]), kLog2e)) * il[hh];
+        ds[e] = __fmul_rn(__fmul_rn(dp[4 * j + e] - di[hh], p), scale);
+        if (diag && k0 + 8 * j + 2 * t + (e & 1) > r0 + 8 * hh) ds[e] = 0.f;
+      }
+      const int a = 4 * (j >> 1) + 2 * (j & 1);
+      da[a] = ddg::pack_bf16(ds[0], ds[1]);
+      da[a + 1] = ddg::pack_bf16(ds[2], ds[3]);
+    }
+    // dQ += round(dS) K, B MN-major (keys are the reduction).
+    fence_regs(da);
+    fence_regs(dq_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb(dq_acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                  desc_b128(ks + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dq_acc);
+    fence_regs(da);
+  }
+
+  // dq into the Q tile, rounded; then 16-byte rows.
+  cp_async_wait<0>();
+  __syncthreads();   // every warp is done reading the Q tile
+  acc_to_tile(smem, dq_acc);
+  __syncthreads();
+  tile_to_rows(smem, dq + head + q0 * to, to);
+}
+
 // KR = rows a warp owns: 4 (32 a block) up to D = 256, 2 (16) past it.
 template <typename T, int DC, int KR>
 __global__ void __launch_bounds__(kThreads) dq_core(
@@ -1423,7 +1556,9 @@ int make_plan(int B, int L, int H, int D, bool tc, Plan* p) {
     p->dkv = {0, own, kTile, 1,
               4 * (2 * own * (D + 1) + 2 * kTile * (D + 1) + 2 * own * 33 + 3 * kTile), kThreads,
               L / own, H, B};
-  if (mma)
+  if (wg)
+    p->dq = {2, kTileRows, kTileRows, kDqStages, kDqSmem, kWgThreads, L / kTileRows, H, B};
+  else if (mma)
     p->dq = {1, kBlock, kSub, 2, 4 * kSub * pad, kThreads, L / kBlock, H, B};
   else
     p->dq = {0, own, kTile, 1, 4 * (2 * own * (D + 1) + 2 * kTile * (D + 1) + own * 33),
@@ -1552,9 +1687,13 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* l, const voi
   const float* lp = static_cast<const float*>(l);
   const float* mp = static_cast<const float*>(m);
   const float* dp = static_cast<const float*>(di);
+  using P = const bf16*;
+  if (p.dq.path == 2)
+    return launch(dq_wgmma, p.dq, s, static_cast<P>(q), static_cast<P>(k), static_cast<P>(v),
+                  lp, mp, static_cast<P>(dO), dp, static_cast<bf16*>(dq), L, H, tq, tk, tv,
+                  causal, scale);
   if (p.dq.path == 1) {
-    using P = const bf16*;
-    DDG_FLASH_MMA_SWITCH(D, 64, {
+    DDG_FLASH_MMA_SWITCH(D, 48, {
       return launch(dq_mma<DK>, p.dq, s, static_cast<P>(q), static_cast<P>(k),
                     static_cast<P>(v), lp, mp, static_cast<P>(dO), dp, static_cast<bf16*>(dq),
                     L, H, tq, tk, tv, causal, scale);

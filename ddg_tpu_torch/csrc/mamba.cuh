@@ -4,6 +4,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -15,7 +16,6 @@ using ddg::round_to;
 using ddg::to_f32;
 using bf16 = __nv_bfloat16;
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxN = 16;       // states a thread holds: a group; d_state loops over groups
 constexpr int kMaxR = 32;       // dt_rank of one tile of W_dt held in registers
 constexpr int kMaxRT = 2;       // tiles: dt_rank <= 64
@@ -24,12 +24,6 @@ constexpr int kSmemMax = 232448;
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 // d_state padded to whole groups of kMaxN (zero states).
 __host__ __device__ constexpr int n_pad(int n) { return (n + kMaxN - 1) / kMaxN * kMaxN; }
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // 1 / (1 + exp(-x)); the correctly rounded reciprocal is the division's result.
 __device__ __forceinline__ float sigmoid(float x) { return __frcp_rn(1.f + expf(-x)); }
@@ -86,92 +80,123 @@ cudaError_t allow_smem(const void* fn, size_t bytes) {
 }
 
 // --- products: C[M, N] = A[M, K] W[N, K]^T, rounded to T --------------------
+//
+// bf16 on wgmma: a block of two warpgroups owns a 128 x 128 tile of C, a
+// warpgroup 64 rows of it as two m64n64 fp32 accumulators; k advances 64 at
+// a time (one 128-byte swizzled row of bf16: wgmma.cuh) through a
+// kGemmStages-stage ring of 16-byte cp.async copies of A's two 64 x 64
+// tiles and W's two, issued kGemmStages - 1 steps ahead; rows past M or N
+// and columns past K load as zeros. The same kernel (kWgrad) gives the
+// weight gradients' partials, part[slice, P, Q] = X^T Y over a slice of
+// kWRows rows: there both operands are read row by row, M-major, through
+// wgmma's transpose bits. Each output's fp32 sum runs in the order the
+// tiling fixes: reruns are bit-identical.
+constexpr int kGemmTile = 2 * kTileRows;     // rows and columns of a block's C tile
+constexpr int kGemmThreads = 256;            // two warpgroups
+constexpr int kGemmStages = 3;
+constexpr int kGemmStage = 4 * kTileBytes;   // A's two 64 x 64 tiles, then W's two
+constexpr int kGemmSmem = kGemmStages * kGemmStage;   // 96 KB: two blocks an SM
+constexpr int kWRows = 4096;                 // rows of one weight-gradient slice
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kGemmThreads = 256;
-constexpr int kGRow = kBK + 8;  // padded smem row: fragment loads hit 32 banks
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
+// Rows r0 .. r0 + 63 (those < rmax) and columns c0 .. c0 + 63 (16-byte
+// pieces starting < cmax) of the row-major X (rows ld elements apart) into
+// a swizzled 64 x 64 tile, zeros elsewhere.
+__device__ __forceinline__ void load_tile_rc(uint32_t dst, const bf16* X, int ld, int r0,
+                                             int rmax, int c0, int cmax) {
+  const int c = threadIdx.x & 7, col = c0 + 8 * c;
+#pragma unroll
+  for (int i = 0; i < kTileRows * 8 / kGemmThreads; ++i) {
+    const int r = (threadIdx.x >> 3) + i * (kGemmThreads / 8), p = r0 + r;
+    const bool ok = p < rmax && col < cmax;
+    cp_async16(dst + swz(r, c), ok ? X + static_cast<size_t>(p) * ld + col : X, ok);
+  }
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
-// bf16: a block of 8 warps owns a 128 x 128 tile of C, a warp 32 x 64 (2 x 8
-// mma tiles); k advances 32 at a time through a two-stage cp.async ring,
-// rows past M or N loaded as zeros. K must be a multiple of 8. C is bf16
-// (rounded) or fp32; with `acc` the product is added to C's fp32 values.
-template <typename OutT>
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                     OutT* __restrict__ C, int M, int N, int K, int lda, int ldc, int acc_c) {
-  __shared__ __align__(16) bf16 As[2][kBM * kGRow];
-  __shared__ __align__(16) bf16 Ws[2][kBN * kGRow];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  auto load = [&](int stage, int k0) {
-    for (int i = threadIdx.x; i < kBM * (kBK / 8); i += kGemmThreads) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8, k = k0 + c;
-      const bool ka = m0 + r < M && k < K, kw = n0 + r < N && k < K;
-      cp_async16(&As[stage][r * kGRow + c], ka ? A + static_cast<size_t>(m0 + r) * lda + k : A,
-                 ka);
-      cp_async16(&Ws[stage][r * kGRow + c], kw ? W + static_cast<size_t>(n0 + r) * K + k : W,
-                 kw);
-    }
-  };
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 64;
-  const int g = lane >> 2, t = lane & 3;
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int nk = (K + kBK - 1) / kBK;
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, (kt + 1) * kBK);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    const bf16* as = As[kt & 1];
-    const bf16* ws = Ws[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[2][4];
+// !kWgrad: C (+)= A W^T over k in [0, K), C in OutT (bf16 rounded, or fp32;
+// acc_c adds to C's fp32 values), blocks (N tiles, M tiles). kWgrad: C =
+// part + slice P Q gets X^T Y over rows [slice kWRows, + kWRows) of M = K
+// rows, with A = X (P columns), W = Y (Q columns); blocks (Q tiles, P
+// tiles, slices). M, N name C's rows and columns in both.
+template <bool kWgrad, typename OutT>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    gemm_wgmma_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ W, int ldw,
+                      OutT* __restrict__ C, int ldc, int M, int N, int K, int acc_c) {
+  constexpr int S = kGemmStages;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  const uint32_t base = smem_addr(smem_tiles);
+  if (base % kSwizzleAlign) __trap();
+  const int m0 = blockIdx.y * kGemmTile, n0 = blockIdx.x * kGemmTile;
+  const int kb = kWgrad ? blockIdx.z * kWRows : 0;
+  const int ke = kWgrad ? min(K, kb + kWRows) : K;
+  if (kWgrad) C += static_cast<size_t>(blockIdx.z) * M * N;
+  const int n_steps = (ke - kb + kTileRows - 1) / kTileRows;
+  auto stage = [&](int step) { return base + (step % S) * kGemmStage; };
+  // One commit group a k step (empty past the last).
+  auto issue = [&](int step) {
+    if (step < n_steps) {
+      const uint32_t sb = stage(step);
+      const int k0 = kb + step * kTileRows;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const bf16* p = as + (wm + i * 16 + g) * kGRow + kk * 16 + 2 * t;
-        a[i][0] = ld32(p);
-        a[i][1] = ld32(p + 8 * kGRow);
-        a[i][2] = ld32(p + 8);
-        a[i][3] = ld32(p + 8 * kGRow + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bf16* q = ws + (wn + j * 8 + g) * kGRow + kk * 16 + 2 * t;
-        const uint32_t b0 = ld32(q), b1 = ld32(q + 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_16816(acc[i][j], a[i][0], a[i][1], a[i][2], a[i][3], b0, b1);
+        if constexpr (kWgrad) {
+          load_tile_rc(sb + i * kTileBytes, A, lda, k0, ke, m0 + i * kTileRows, M);
+          load_tile_rc(sb + (2 + i) * kTileBytes, W, ldw, k0, ke, n0 + i * kTileRows, N);
+        } else {
+          load_tile_rc(sb + i * kTileBytes, A, lda, m0 + i * kTileRows, M, k0, K);
+          load_tile_rc(sb + (2 + i) * kTileBytes, W, ldw, n0 + i * kTileRows, N, k0, K);
+        }
       }
     }
-    __syncthreads();
-  }
-
+    cp_async_commit();
+  };
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int st = 0; st < S - 1; ++st) issue(st);
+
+  const int wg = threadIdx.x >> 7;
+  float acc0[32], acc1[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+  fence_regs(acc0);
+  fence_regs(acc1);
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<S - 2>();
+    fence_async_smem();
+    __syncthreads();
+    issue(step + S - 1);   // into the stage step - 1 used
+    const uint32_t sa = stage(step) + wg * kTileBytes, sw = stage(step) + 2 * kTileBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTileRows / 16; ++kk) {
+      if constexpr (kWgrad) {
+        wgmma_ss_tt(acc0, desc_b128(sa + kk * 16 * 128), desc_b128(sw + kk * 16 * 128));
+        wgmma_ss_tt(acc1, desc_b128(sa + kk * 16 * 128),
+                    desc_b128(sw + kTileBytes + kk * 16 * 128));
+      } else {
+        wgmma_ss(acc0, desc_b128(sa + 32 * kk), desc_b128(sw + 32 * kk));
+        wgmma_ss(acc1, desc_b128(sa + 32 * kk), desc_b128(sw + kTileBytes + 32 * kk));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc0);
+    fence_regs(acc1);
+  }
+  cp_async_wait<0>();
+
+  // acc[4 j + e] is row 16 warp + g + 8 (e >> 1), column 8 j + 2 t + (e & 1)
+  // of the warpgroup's 64 x 64 accumulator.
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  auto store = [&](const float (&acc)[32], int h2) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int c = n0 + wn + j * 8 + 2 * t;
+      const int c = n0 + h2 * kTileRows + 8 * j + 2 * t;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + wm + i * 16 + g + 8 * h;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = m0 + wg * kTileRows + 16 * warp + g + 8 * hh;
         if (r >= M || c >= N) continue;
         OutT* dst = C + static_cast<size_t>(r) * ldc + c;
-        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        float v0 = acc[4 * j + 2 * hh], v1 = acc[4 * j + 2 * hh + 1];
         if (acc_c) {
           v0 += to_f32(dst[0]);
           if (c + 1 < N) v1 += to_f32(dst[1]);
@@ -184,6 +209,9 @@ __global__ void __launch_bounds__(kGemmThreads)
         }
       }
     }
+  };
+  store(acc0, 0);
+  store(acc1, 1);
 }
 
 // fp32: a block owns 64 x 64 of C, a thread 4 x 4, in full fp32 FMAs.
@@ -228,6 +256,18 @@ __global__ void __launch_bounds__(256)
     }
 }
 
+// The wgmma product's launch: grid, its shared memory allowed first.
+template <bool kWgrad, typename OutT>
+cudaError_t gemm_launch(dim3 grid, const bf16* A, int lda, const bf16* W, int ldw, OutT* C,
+                        int ldc, int M, int N, int K, int acc, cudaStream_t s) {
+  auto kernel = gemm_wgmma_kernel<kWgrad, OutT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kGemmThreads, kGemmSmem, s>>>(A, lda, W, ldw, C, ldc, M, N, K, acc);
+  return cudaGetLastError();
+}
+
 // C[M, N] (+)= A[M, K] W[N, K]^T: bf16 inputs with C in bf16 or fp32, or
 // all fp32; `acc` adds to C (fp32 only).
 template <typename OutT>
@@ -236,9 +276,8 @@ cudaError_t gemm(const bf16* A, const bf16* W, OutT* C, int M, int N, int K, int
   const uintptr_t mis = reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(W);
   if (K % 8 || lda % 8 || ldc % 2 || mis % 16 || (acc && sizeof(OutT) != 4))
     return cudaErrorMisalignedAddress;
-  gemm_bf16_kernel<OutT><<<dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM), kGemmThreads, 0, s>>>(
-      A, W, C, M, N, K, lda, ldc, acc);
-  return cudaGetLastError();
+  const dim3 grid((N + kGemmTile - 1) / kGemmTile, (M + kGemmTile - 1) / kGemmTile);
+  return gemm_launch<false, OutT>(grid, A, lda, W, K, C, ldc, M, N, K, acc, s);
 }
 
 cudaError_t gemm(const float* A, const float* W, float* C, int M, int N, int K, int lda, int ldc,

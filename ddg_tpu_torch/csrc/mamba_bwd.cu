@@ -11,33 +11,41 @@
 // with their rounding points; ddg_tpu_torch/ops/mamba.py holds the plain
 // versions (`ssm_scan_bwd_plain`, `mamba_inner_bwd_plain`).
 //
-// The scan's adjoint (one routine for both). The TPU grid runs the chunks
-// right to left and carries the adjoint in VMEM; here three launches make
-// the chunks independent blocks, as the forward's three do:
-//   1. every chunk from a zero adjoint at its end: the carry it hands left
-//      (a_t0 dh_t0) and the product P of its a_t;
-//   2. per (b, state, channel), the chunks right to left: the true carry
-//      into each chunk, chi[c] = P[c + 1] chi[c + 1] + left[c + 1];
-//   3. every chunk again with its carry. A thread cannot hold a chunk's
-//      states, so it walks the chunk forward from its entry state (h0s,
-//      saved by the forward) keeping the state every kSeg = 16 rows in
-//      shared memory, then takes the segments right to left: it recomputes
-//      a segment's 16 states into registers and walks them back with the
-//      adjoint. The recurrence is never inverted (a_t underflows).
-// Four threads share a channel, four states each, so a segment's states
-// fit in registers; sums over the states are quad shuffles. A segment's
-// rows are staged in shared memory by coalesced loads. dB and dC sum over
-// channels: a recursive-halving warp shuffle, then the block's 8 warps in
-// order, then the channel tiles in order (`reduce_slices`). dA and dD sum
-// per (b, chunk) and then over those in order. No atomics: reruns are
-// bit-identical. d_state > 16 runs passes 1 and 3 over groups of 16 states
-// in order; pass 3 carries each row's sums over the states from group to
-// group (ddelta and du in their outputs, C.h in shared memory).
+// The scan's adjoint (one routine for K15, K17 and K19). The TPU grid runs
+// the chunks right to left and carries the adjoint in VMEM; here three
+// launches make pieces of the chunks independent blocks. Each chunk is cut
+// into sub-chunks of up to kSubRows = 64 rows:
+//   1. every sub-chunk from a zero adjoint at its end: the carry it hands
+//      left (a_t0 dh_t0) and the product P of its a_t (four threads a
+//      channel, four states each, walking the rows back);
+//   2. per (b, state, channel), the sub-chunks right to left: the true carry
+//      into each, chi[c] = P[c + 1] chi[c + 1] + left[c + 1];
+//   3. per (b, chunk, channel tile), the sub-chunks left to right, each
+//      time-parallel (`scan_bwd_out_kernel`): warp w takes rows 8 w .. 8 w +
+//      7, takes a_t = exp(delta_t A) of its rows once into registers, forms
+//      its segment's (P, H, E) and, through shared memory, chains the
+//      segments before it from the entry state (h0s, saved by the forward,
+//      or the last sub-chunk's exit) and those after it from the carry, in
+//      segment order; then it walks dh back and h forward from them and
+//      forms every row's outputs. The recurrence is never inverted (a_t
+//      underflows).
+// So exp(delta A) is taken twice a state-row (pass 1 and pass 3), and a
+// row's fixed work (delta, u, the gate's three terms) once per (row,
+// channel): staged in shared memory a round of 8 channels at a time. Sums
+// over the states are quad shuffles; dB and dC sum over channels by a
+// recursive-halving warp shuffle, then over the rounds in order in
+// registers, then over the channel tiles in order (`reduce_slices`). dA and
+// dD sum over a sub-chunk's segments in order, per (b, sub-chunk), then over
+// those in order. No atomics: reruns are bit-identical. d_state > 16 runs
+// passes 1 and 3 over groups of 16 states in order; pass 3 carries each
+// row's sums over the states from group to group (ddelta and du in their
+// outputs, C.h in shared memory). tests/test_torch_mamba_scan_order.py
+// emulates this order against the float64 recurrence.
 //
 // ddg_ssm_scan_dtlr_bwd (K17) is that adjoint with delta formed in passes 1
-// and 3 from dt_lr, W_dt and b_dt as K16 forms it (`stage_seg`), ddelta
-// through a workspace, then dt_proj's adjoint over channel tiles
-// (`dt_bwd_kernel`, which K19 runs too): dpre = ddelta sigmoid(pre),
+// and 3 from dt_lr, W_dt and b_dt as K16 forms it (`stage_seg`,
+// `stage_sub_rows`), ddelta through a workspace, then dt_proj's adjoint over
+// channel tiles (`dt_bwd_kernel`, which K19 runs too): dpre = ddelta sigmoid(pre),
 // ddt_lr = dpre W_dt^T, dW_dt = dt_lr^T dpre, db_dt = sum_t dpre, each a
 // fixed-order sum of partials. Bound at the training shape (16 x 32768,
 // d 512, N 16, R 16): 8,704 exps a token for the scan and 2 x 512 for
@@ -59,8 +67,9 @@
 //           from the next tile), rounded to T -> dxz; dconv_w, dconv_b
 //   dh    = dxz W_in^T                       (gemm, T out)
 //   dW_in = h^T dxz, dW_x = u^T dx_dbl, dW_out = y_g^T g   (wgrad)
-// bf16 products are mma.sync m16n8k16 with fp32 sums; weight gradients sum
-// per 4096-row slice, then over the slices in order.
+// bf16 products are wgmma m64n64k16 with fp32 sums (mamba.cuh's
+// gemm_wgmma_kernel, 128 x 128 tiles of two warpgroups); weight gradients
+// sum per 4096-row slice, then over the slices in order.
 //
 // Bounds on the H100 at the Species10 training shape (16 rows of L = 32768,
 // H = 256, d = 512, N = 16, dt_rank 16), per K19 call: 2.24 MFLOP of bf16
@@ -83,7 +92,21 @@ constexpr int kBwdCh = kBwdThreads / kQ;     // channels of a block
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kSeg = 16;                     // rows between checkpoints
 constexpr int kGroup = 128;                  // slices one reduction pass sums
-constexpr int kWRows = 4096;                 // rows of one weight-gradient slice
+// Pass 3 cuts a chunk into sub-chunks of up to kSubRows rows, and a
+// sub-chunk into segments of kP3Rows rows, warp w taking segment w; the
+// block's kBwdCh channels go kRoundCh at a time (a round), one a lane
+// quad: lane = 4 c8 + q, c8 the round's channel, q the quarter of the
+// group of 16 states. Passes 1 and 2 run on the same sub-chunks.
+constexpr int kP3Rows = 8;
+constexpr int kRoundCh = 8;
+constexpr int kSubRows = kBwdWarps * kP3Rows;
+constexpr int kRowVals = 5;                  // staged per (row, channel): dt, u, gy, dzf, sg
+static_assert(kRoundCh * kQ == 32 && kBwdCh % kRoundCh == 0, "a round is one warp's lanes");
+
+__host__ __device__ constexpr int sub_rows(int chunk) {
+  return chunk < kSubRows ? chunk : kSubRows;
+}
+__host__ __device__ constexpr int n_subs(int chunk) { return (chunk + kSubRows - 1) / kSubRows; }
 
 // States nq .. nq + 3 of channel ch's row of A, round-tripped as
 // -exp(log(-A)): plain (av) and times log2 e (a2); 0 past N.
@@ -102,10 +125,9 @@ __device__ __forceinline__ void load_q(const float* p, float (&v)[kQ]) {
   v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
 }
 
-// A segment's per-channel row values staged in shared memory as fp32,
-// [value][row][channel of the block]: delta, u (when given) and, from z and
-// g (when given), the gate's terms gy = g silu(z), g silu'(z) and silu(z).
-// One coalesced load for kSeg rows, in place of a dependent load per row,
+// Pass 1's per-channel row values of a segment staged in shared memory as
+// fp32, [value][row][channel of the block]: delta and gy = g silu(z). One
+// coalesced load for kSeg rows, in place of a dependent load per row,
 // which left the few warps an SM holds waiting on memory; the gate is
 // taken once per (row, channel), not by each of its four threads.
 // In the low-rank form (dl.delta null, K17) delta is formed here as the
@@ -114,7 +136,7 @@ __device__ __forceinline__ void load_q(const float* p, float (&v)[kQ]) {
 // (`stage_w`), the same sum in the same order (`dt_pre_s`). A thread forms
 // delta of one channel only (kBwdThreads is a multiple of kBwdCh).
 constexpr int kStage = kSeg * kBwdCh;
-constexpr int kStaged = 5;
+constexpr int kStaged = 2;
 
 // W_dt's columns of the block's channels, round4(R) rows of kBwdCh (zeros
 // past R and past d), then b_dt as one more row.
@@ -132,8 +154,7 @@ __device__ void stage_w(const DtSrc& dl, int ch0, int d, float* ws) {
 template <bool LR, typename T, typename G>
 __device__ void stage_seg(float* st, int r0, int rows, size_t row0, int ch0, int d,
                           const DtSrc& dl, float* lrs, const float* ws,
-                          const T* __restrict__ u, int ld_u, const T* __restrict__ z, int ld_z,
-                          const G* __restrict__ g, int ld_g) {
+                          const T* __restrict__ z, int ld_z, const G* __restrict__ g, int ld_g) {
   const int lr_ld = round4(dl.R);
   if (LR) {
     for (int i = threadIdx.x; i < kSeg * lr_ld; i += kBwdThreads) {
@@ -151,21 +172,16 @@ __device__ void stage_seg(float* st, int r0, int rows, size_t row0, int ch0, int
       dt = LR ? softplus(dt_pre_s(lrs + j * lr_ld, ws + c, kBwdCh, dl.R) + ws[lr_ld * kBwdCh + c])
               : dl.delta[row * d + ch];
     st[i] = dt;
-    if (u != nullptr) st[kStage + i] = in ? to_f32(u[row * ld_u + ch]) : 0.f;
-    if (z != nullptr) {
-      const float zz = in ? to_f32(z[row * ld_z + ch]) : 0.f;
-      const float gg = in ? to_f32(g[row * ld_g + ch]) : 0.f;
-      const float sig = sigmoid(zz), sg = zz * sig;
-      st[2 * kStage + i] = gg * sg;
-      st[3 * kStage + i] = gg * (sig + sg * (1.f - sig));
-      st[4 * kStage + i] = sg;
-    }
+    const float zz = in ? to_f32(z[row * ld_z + ch]) : 0.f;
+    const float gg = in ? to_f32(g[row * ld_g + ch]) : 0.f;
+    st[kStage + i] = gg * (zz * sigmoid(zz));
   }
 }
 
-// Pass 1: each (b, chunk, channel quarter) from a zero adjoint at the
-// chunk's end, a group of 16 states at a time (Grp: d_state > 16). P and
-// E (the carry handed left) are (Bt, n_chunks, N, d).
+// Pass 1: each (b, sub-chunk, channel tile) from a zero adjoint at the
+// sub-chunk's end, a group of 16 states at a time (Grp: d_state > 16). P
+// and E (the carry handed left) are (Bt, n_chunks x n_subs, N, d); a
+// sub-chunk past L has P = 1, E = 0.
 template <typename T, typename G, bool Grp, bool LR>
 __global__ void __launch_bounds__(kBwdThreads)
     scan_bwd_chunk_kernel(DtSrc dl, const T* __restrict__ Cc, int ld_bc,
@@ -174,19 +190,20 @@ __global__ void __launch_bounds__(kBwdThreads)
                           float* __restrict__ E, int L, int d, int N, int chunk) {
   extern __shared__ __align__(16) float sm1[];
   const int Np = Grp ? n_pad(N) : kMaxN, lr_ld = round4(dl.R);
-  float* Cs = sm1;                         // chunk x Np
-  float* st = Cs + chunk * Np;             // kStaged x kStage
+  const int sc = sub_rows(chunk), ns = n_subs(chunk);
+  float* Cs = sm1;                         // sc x Np
+  float* st = Cs + sc * Np;                // kStaged x kStage
   float* lrs = st + kStaged * kStage;      // kSeg x lr_ld (low-rank form)
   float* ws = lrs + kSeg * lr_ld;          // (lr_ld + 1) x kBwdCh (low-rank form)
-  const int b = blockIdx.z, c = blockIdx.y, nc = gridDim.y;
+  const int b = blockIdx.z, y = blockIdx.y, c = y / ns, k = y - c * ns;
   const int q = threadIdx.x & 3, chl = threadIdx.x >> 2;
   const int ch0 = blockIdx.x * kBwdCh, ch = ch0 + chl;
   const bool live = ch < d;
-  const int t0 = c * chunk, rows = min(chunk, L - t0);
+  const int t0 = c * chunk + k * sc, rows = min(min(sc, chunk - k * sc), L - t0);
   const size_t row0 = static_cast<size_t>(b) * L + t0;
   stage_rows<Grp>(Cc, ld_bc, row0, rows, N, Np, Cs);
   if (LR) stage_w(dl, ch0, d, ws);
-  const size_t o = (static_cast<size_t>(b) * nc + c) * N * d + ch;
+  const size_t o = (static_cast<size_t>(b) * gridDim.y + y) * N * d + ch;
   const int n_end = Grp ? N : 1;
   for (int n0 = 0; n0 < n_end; n0 += kMaxN) {
     const int nq = n0 + q * kQ;
@@ -196,12 +213,12 @@ __global__ void __launch_bounds__(kBwdThreads)
     for (int i = 0; i < kQ; ++i) dh[i] = 0.f, p[i] = 1.f, aup[i] = 1.f;
     for (int s = (rows - 1) / kSeg; s >= 0; --s) {
       __syncthreads();
-      stage_seg<LR, T, G>(st, s * kSeg, rows, row0, ch0, d, dl, lrs, ws, nullptr, 0, z, ld_z, g,
+      stage_seg<LR, T, G>(st, s * kSeg, rows, row0, ch0, d, dl, lrs, ws, z, ld_z, g,
                       ld_g);
       __syncthreads();
       for (int j = min(kSeg, rows - s * kSeg) - 1; j >= 0; --j) {
         const int r = s * kSeg + j, k = j * kBwdCh + chl;
-        const float dt = st[k], gy = st[2 * kStage + k];
+        const float dt = st[k], gy = st[kStage + k];
         load_q(Cs + r * Np + nq, cv);
 #pragma unroll
         for (int i = 0; i < kQ; ++i) {
@@ -223,25 +240,31 @@ __global__ void __launch_bounds__(kBwdThreads)
 }
 
 // Pass 2: per (b, state, channel), right to left; E becomes the carry into
-// each chunk (0 into the last).
+// each sub-chunk (0 into the last). The loads of kCarryBatch sub-chunks go
+// out together, before their stores: the chain waits on memory once a batch.
+constexpr int kCarryBatch = 8;
+
 __global__ void __launch_bounds__(256)
     scan_bwd_carry_kernel(const float* __restrict__ P, float* __restrict__ E, int nc, int Nd) {
   const int i = blockIdx.x * 256 + threadIdx.x;
   if (i >= Nd) return;
   const size_t base = static_cast<size_t>(blockIdx.y) * nc * Nd + i;
   float chi = 0.f;
-#pragma unroll 8
-  for (int c = nc - 1; c >= 0; --c) {
-    const size_t o = base + static_cast<size_t>(c) * Nd;
-    const float e = E[o], p = P[o];
-    E[o] = chi;
-    chi = fmaf(p, chi, e);
+  for (int c0 = nc - 1; c0 >= 0; c0 -= kCarryBatch) {
+    float e[kCarryBatch], p[kCarryBatch];
+#pragma unroll
+    for (int k = 0; k < kCarryBatch; ++k) {
+      const size_t o = base + static_cast<size_t>(max(c0 - k, 0)) * Nd;
+      e[k] = E[o];
+      p[k] = P[o];
+    }
+#pragma unroll
+    for (int k = 0; k < kCarryBatch; ++k) {
+      if (c0 - k < 0) break;
+      E[base + static_cast<size_t>(c0 - k) * Nd] = chi;
+      chi = fmaf(p[k], chi, e[k]);
+    }
   }
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Sums of eight values over the warp's 8 channels (lane bits 2-4) by
@@ -262,15 +285,108 @@ __device__ __forceinline__ float channel_sums8(const float (&v)[8], int lane) {
   return (b2 ? x[1] : x[0]) + __shfl_xor_sync(0xffffffffu, b2 ? x[0] : x[1], 4);
 }
 
-// Pass 3: each (b, chunk, channel tile) with its true carry. Per row:
-// ddelta, du (fp32), dz (ZT, row stride ld_dz) and, when yg is given, the
-// gated output (C.h + D u) silu(z) in T; the block's partial sums of dB and
-// dC over its channels (dBp, dCp: (tiles, Bt L, N)); per (b, chunk) the
-// partial dA (N, d) and dD (d). Grp (d_state > 16): the groups of 16 states
-// in order, each walked as one group is; the per-row sums over the states
-// carry from group to group, ddelta and du in their fp32 outputs (added to
-// by the thread that wrote them) and C.h in shared memory (ysm), and the
-// gated terms are written after the last group.
+// The four per-row sums a quad holds, each over its four threads' states:
+// lane q of the quad ends with the sum of v[q] (two exchanges, three
+// shuffles, in a fixed order).
+__device__ __forceinline__ float quad_sums4(const float (&v)[4], int q) {
+  const bool b1 = q & 2, b0 = q & 1;
+  const float w0 = (b1 ? v[2] : v[0]) + __shfl_xor_sync(0xffffffffu, b1 ? v[0] : v[2], 2);
+  const float w1 = (b1 ? v[3] : v[1]) + __shfl_xor_sync(0xffffffffu, b1 ? v[1] : v[3], 2);
+  return (b0 ? w1 : w0) + __shfl_xor_sync(0xffffffffu, b0 ? w0 : w1, 1);
+}
+
+// The sub-chunk's row values for the gch channels from ch0 + chr,
+// [value][row][channel] for rows [0, sc) (zeros past `rows` and past d):
+// delta (from memory, or formed as
+// the forward forms it from the dt_lr row and W_dt's columns in ws, the
+// same fp32 sum in the same order as `dt_pre_s`), u, and from z and g the
+// gate's terms gy = g silu(z), g silu'(z) and silu(z), each once per (row,
+// channel). Loads go kStageBatch pairs a thread at a time, then are formed.
+constexpr int kStageBatch = 8;
+
+template <bool LR, typename T, typename G>
+__device__ void stage_sub_rows(float* st, int sc, int rows, size_t row0, int ch0, int chr,
+                               int gch, int d, const DtSrc& dl, const float* ws,
+                               const T* __restrict__ u, int ld_u, const T* __restrict__ z,
+                               int ld_z, const G* __restrict__ g, int ld_g) {
+  const int lr_ld = round4(dl.R), n = sc * gch;
+  for (int i0 = 0; i0 < n; i0 += kStageBatch * kBwdThreads) {
+    float dt[kStageBatch], uu[kStageBatch], zz[kStageBatch], gg[kStageBatch];
+#pragma unroll
+    for (int e = 0; e < kStageBatch; ++e) {
+      const int i = i0 + threadIdx.x + e * kBwdThreads;
+      const int r = i / gch, ch = ch0 + chr + i % gch;
+      const bool in = i < n && r < rows && ch < d;
+      const size_t row = row0 + r;
+      dt[e] = uu[e] = zz[e] = gg[e] = 0.f;
+      if (in) {
+        if (!LR) dt[e] = dl.delta[row * d + ch];
+        uu[e] = to_f32(u[row * ld_u + ch]);
+        zz[e] = to_f32(z[row * ld_z + ch]);
+        gg[e] = to_f32(g[row * ld_g + ch]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kStageBatch; ++e) {
+      const int i = i0 + threadIdx.x + e * kBwdThreads;
+      if (i >= n) break;
+      const int r = i / gch, ct = chr + i % gch;
+      if (LR && r < rows && ch0 + ct < d) {
+        const float* lr = dl.lr + (row0 + r) * dl.ld_lr;
+        float acc = 0.f;
+        for (int kk = 0; kk < dl.R; ++kk) acc = fmaf(lr[kk], ws[kk * kBwdCh + ct], acc);
+        dt[e] = softplus(acc + ws[lr_ld * kBwdCh + ct]);
+      }
+      const float sig = sigmoid(zz[e]), sg = zz[e] * sig;
+      st[i] = dt[e];
+      st[n + i] = uu[e];
+      st[2 * n + i] = gg[e] * sg;
+      st[3 * n + i] = gg[e] * (sig + sg * (1.f - sig));
+      st[4 * n + i] = sg;
+    }
+  }
+}
+
+// Rows [0, sc) of B or C (fp32, Np to a row), zeros past `rows` and N.
+template <bool Grp, typename T>
+__device__ void stage_sub(const T* __restrict__ src, int ld, size_t row0, int rows, int sc,
+                          int N, int Np_, float* dst) {
+  const int Np = Grp ? Np_ : kMaxN;
+  for (int i = threadIdx.x; i < sc * Np; i += kBwdThreads) {
+    const int r = i / Np, n = i % Np;
+    dst[i] = r < rows && n < N ? to_f32(src[(row0 + r) * ld + n]) : 0.f;
+  }
+}
+
+// Pass 3: each (b, chunk, channel tile), its sub-chunks left to right, with
+// the true carry into each (pass 2) and the entry state of each (h0s, then
+// the last sub-chunk's exit state through hx, (Bt, n_chunks, N, d)). Per
+// row: ddelta, du (fp32), dz (ZT, row stride ld_dz) and, when yg is given,
+// the gated output (C.h + D u) silu(z) in T; the block's partial sums of dB
+// and dC over its channels (dBp, dCp: (tiles, Bt L, N)); per (b, sub-chunk)
+// the partial dA (N, d) and dD (d).
+//
+// Time-parallel over a sub-chunk's rows: for each round of 8 channels and
+// each group of 16 states, warp w takes rows 8 w .. 8 w + 7 of the
+// sub-chunk, a thread four states of one channel. It takes a_t = exp(delta_t
+// A) of its 8 rows once, into registers, and forms its segment's summaries
+// from them: P = prod a_t, H = the state at its end from a zero state, E =
+// a_t0 dh_t0 from a zero adjoint at its end. Through shared memory each
+// thread then chains the segments before its own from the sub-chunk's entry
+// state, h = P h + H, and those after it from the carry, X = P X + E, in
+// segment order (a fixed order: reruns are bit-identical); walks its rows
+// back for dh_t = a_{t+1} dh_{t+1} + C_t gy_t (kept in registers) and
+// forward for h_t = a_t h_{t-1} + delta_t u_t B_t, forming each row's
+// outputs. The recurrence is never inverted. Sums over the 16 states are
+// quad shuffles (`quad_sums4`); dB and dC sum over the round's 8 channels
+// by `channel_sums8` and over the rounds in order in registers. A row's
+// outputs go into staged values already read, and leave coalesced once the
+// staged channels' rounds are done. The row values of the tile's 64
+// channels are staged at once where they fit (`scan_bwd_gch`), else a
+// round's 8. Grp (d_state > 16): the groups of 16 states in order; the
+// per-row sums over the states carry from group to group, ddelta and du in
+// their fp32 outputs (each group's flush adds to them) and C.h in shared
+// memory (ysm), and the gated terms are written after the last group.
 template <typename T, typename G, typename ZT, bool Grp, bool LR>
 __global__ void __launch_bounds__(kBwdThreads, 2)
     scan_bwd_out_kernel(const T* __restrict__ u, int ld_u, DtSrc dl,
@@ -278,163 +394,238 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
                         const T* __restrict__ z, int ld_z, const G* __restrict__ g, int ld_g,
                         const float* __restrict__ A, const float* __restrict__ D,
                         const float* __restrict__ h0s, const float* __restrict__ carry,
-                        float* __restrict__ ddt, float* __restrict__ du, ZT* __restrict__ dz,
-                        int ld_dz, T* __restrict__ yg, float* __restrict__ dBp,
-                        float* __restrict__ dCp, float* __restrict__ dAp,
-                        float* __restrict__ dDp, int Bt, int L, int d, int N, int chunk) {
+                        float* __restrict__ hx, float* __restrict__ ddt,
+                        float* __restrict__ du, ZT* __restrict__ dz, int ld_dz,
+                        T* __restrict__ yg, float* __restrict__ dBp, float* __restrict__ dCp,
+                        float* __restrict__ dAp, float* __restrict__ dDp, int Bt, int L, int d,
+                        int N, int chunk, int gch) {
   extern __shared__ __align__(16) float sm[];
-  const int n_seg = (chunk + kSeg - 1) / kSeg, lr_ld = round4(dl.R);
+  const int sc = sub_rows(chunk), ns = n_subs(chunk);
+  const int n_seg = (sc + kP3Rows - 1) / kP3Rows;
   const int Np = Grp ? n_pad(N) : kMaxN;
-  float* Bs = sm;                                                   // chunk x Np
-  float* Cs = Bs + chunk * Np;                                      // chunk x Np
-  float4* ck = reinterpret_cast<float4*>(Cs + chunk * Np);          // [n_seg][threads]
-  float* part = reinterpret_cast<float*>(ck + n_seg * kBwdThreads);  // [kSeg][warps][32]
-  float* st = part + kSeg * kBwdWarps * 32;                         // kStaged x kStage
-  float* ysm = st + kStaged * kStage;                               // chunk x kBwdCh, Grp
-  float* lrs = ysm + (Grp ? chunk * kBwdCh : 0);                    // kSeg x lr_ld, low rank
-  float* ws = lrs + kSeg * lr_ld;                                   // (lr_ld + 1) x kBwdCh
+  float* Bs = sm;                                                  // sc x Np
+  float* Cs = Bs + sc * Np;                                        // sc x Np
+  float* st = Cs + sc * Np;                                        // kRowVals x sc x gch
+  float4* sum = reinterpret_cast<float4*>(st + kRowVals * sc * gch);  // n_seg x 3 x 32
+  float* ysm = reinterpret_cast<float*>(sum + n_seg * 3 * 32);     // sc x kBwdCh, Grp
+  float* ws = ysm + (Grp ? sc * kBwdCh : 0);                       // (lr_ld + 1) x kBwdCh
   const int b = blockIdx.z, c = blockIdx.y, nc = gridDim.y;
-  const int tid = threadIdx.x, q = tid & 3, lane = tid & 31, warp = tid >> 5;
-  const int chl = tid >> 2, ch0 = blockIdx.x * kBwdCh, ch = ch0 + chl;
-  const bool live = ch < d;
-  const int cl = live ? ch : 0;  // threads past d compute on zeros and write nothing
-  const int t0 = c * chunk, rows = min(chunk, L - t0);
-  const size_t row0 = static_cast<size_t>(b) * L + t0;
-  stage_rows<Grp>(Bc, ld_bc, row0, rows, N, Np, Bs);
-  stage_rows<Grp>(Cc, ld_bc, row0, rows, N, Np, Cs);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, q = lane & 3, c8 = lane >> 2;
+  const int ch0 = blockIdx.x * kBwdCh, r0 = w * kP3Rows;
+  const bool has_seg = w < n_seg;  // uniform over the warp
+  const int sv = sc * gch;         // one staged value's floats
   if (LR) stage_w(dl, ch0, d, ws);
-  __syncthreads();
 
-  const size_t o = (static_cast<size_t>(b) * nc + c) * N * d + cl;
-  const float Dv = D[cl];
-  float dD = 0.f;
-  const int segs = (rows + kSeg - 1) / kSeg;
-  const int n_end = Grp ? N : 1;
-  for (int n0 = 0; n0 < n_end; n0 += kMaxN) {
-    const bool first = !Grp || n0 == 0, last = !Grp || n0 + kMaxN >= N;
-    const int nq = n0 + q * kQ;  // the thread's first state
-    float a2[kQ], av[kQ], h[kQ];
-    load_a4(A, cl, N, nq, a2, av);
-#pragma unroll
-    for (int i = 0; i < kQ; ++i)
-      h[i] = nq + i < N ? h0s[o + static_cast<size_t>(nq + i) * d] : 0.f;
-    // Row r of the staged segment j: the state after it from the one before.
-    auto step = [&](int r, int j, const float (&hp)[kQ], float (&hn)[kQ]) {
-      const float dt = st[j * kBwdCh + chl];
-      const float dtu = dt * st[kStage + j * kBwdCh + chl];
-      float bv[kQ];
-      load_q(Bs + r * Np + nq, bv);
-#pragma unroll
-      for (int i = 0; i < kQ; ++i) hn[i] = fmaf(ex2(dt * a2[i]), hp[i], dtu * bv[i]);
-    };
-    for (int s = 0; s < segs; ++s) {
-      ck[s * kBwdThreads + tid] = make_float4(h[0], h[1], h[2], h[3]);
-      if (s + 1 == segs) break;
-      __syncthreads();
-      stage_seg<LR, T, G>(st, s * kSeg, rows, row0, ch0, d, dl, lrs, ws, u, ld_u, nullptr, 0,
-                      nullptr, 0);
-      __syncthreads();
-      for (int j = 0; j < kSeg; ++j) step(s * kSeg + j, j, h, h);
-    }
+  for (int k = 0; k < ns; ++k) {
+    const int t0 = c * chunk + k * sc, rows = min(min(sc, chunk - k * sc), L - t0);
+    const size_t row0 = static_cast<size_t>(b) * L + t0;
+    const size_t slice = (static_cast<size_t>(b) * nc + c) * ns + k;
+    __syncthreads();  // the last sub-chunk's readers of Bs and Cs are done
+    stage_sub<Grp>(Bc, ld_bc, row0, rows, sc, N, Np, Bs);
+    stage_sub<Grp>(Cc, ld_bc, row0, rows, sc, N, Np, Cs);
 
-    float dh[kQ], aup[kQ], dA[kQ];
+    const int n_end = Grp ? N : 1;
+    for (int n0 = 0; n0 < n_end; n0 += kMaxN) {
+      const bool first = !Grp || n0 == 0, last = !Grp || n0 + kMaxN >= N;
+      const int nq = n0 + q * kQ;  // the thread's first state
+      float acc[kP3Rows];          // dB or dC of (row, state) over the rounds' channels
 #pragma unroll
-    for (int i = 0; i < kQ; ++i) {
-      dh[i] = nq + i < N ? carry[o + static_cast<size_t>(nq + i) * d] : 0.f;
-      aup[i] = 1.f;
-      dA[i] = 0.f;
-    }
-    for (int s = segs - 1; s >= 0; --s) {
-      __syncthreads();
-      stage_seg<LR, T, G>(st, s * kSeg, rows, row0, ch0, d, dl, lrs, ws, u, ld_u, z, ld_z, g, ld_g);
-      __syncthreads();
-      float hs[kSeg + 1][kQ];
-      const float4 c4 = ck[s * kBwdThreads + tid];
-      hs[0][0] = c4.x, hs[0][1] = c4.y, hs[0][2] = c4.z, hs[0][3] = c4.w;
-#pragma unroll
-      for (int j = 0; j < kSeg; ++j) {
-        if (s * kSeg + j < rows) {
-          step(s * kSeg + j, j, hs[j], hs[j + 1]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < kQ; ++i) hs[j + 1][i] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int j = kSeg - 1; j >= 0; --j) {
-        const int r = s * kSeg + j;
-        if (r >= rows) continue;  // uniform over the block
-        const size_t row = row0 + r;
-        const int k = j * kBwdCh + chl;
-        const float dt = st[k], uu = st[kStage + k], gy = st[2 * kStage + k];
-        const float dzf = st[3 * kStage + k], sg = st[4 * kStage + k], dtu = dt * uu;
-        float bv[kQ], cv[kQ], pv[8];  // dB then dC partials of the 4 states
-        load_q(Bs + r * Np + nq, bv);
-        load_q(Cs + r * Np + nq, cv);
-        float sdd = 0.f, sb = 0.f, sy = 0.f;
-#pragma unroll
-        for (int i = 0; i < kQ; ++i) {
-          const float a = ex2(dt * a2[i]);
-          dh[i] = fmaf(aup[i], dh[i], cv[i] * gy);
-          aup[i] = a;
-          const float daa = dh[i] * hs[j][i] * a;
-          sdd = fmaf(daa, av[i], sdd);
-          sb = fmaf(dh[i], bv[i], sb);
-          sy = fmaf(hs[j + 1][i], cv[i], sy);
-          dA[i] = fmaf(daa, dt, dA[i]);
-          pv[i] = live ? dh[i] * dtu : 0.f;
-          pv[kQ + i] = live ? hs[j + 1][i] * gy : 0.f;
-        }
-        sdd = quad_sum(sdd);
-        sb = quad_sum(sb);
-        sy = quad_sum(sy);
+      for (int j = 0; j < kP3Rows; ++j) acc[j] = 0.f;
+      for (int chr = 0; chr < kBwdCh; chr += kRoundCh) {
+        const int ct = chr + c8, ch = ch0 + ct;
+        const bool live = ch < d;
+        const int cl = live ? ch : 0;  // channels past d compute on zeros and write nothing
+        // The round's loads from device memory, issued first: A's row, D,
+        // the segment's entry state (h0s, or the last sub-chunk's exit) and
+        // the carry into the sub-chunk.
+        float a2[kQ], av[kQ], h[kQ], X[kQ];
+        load_a4(A, cl, N, nq, a2, av);
+        const float Dv = D[cl];
         {
-          const float v = channel_sums8(pv, lane);
-          const int idx = (lane >> 2) & 7;  // which of the 8 this lane holds
-          part[(j * kBwdWarps + warp) * 32 + (idx >> 2) * 16 + q * kQ + (idx & 3)] = v;
-        }
-        if (Grp) {
-          const int yk = r * kBwdCh + chl;
-          if (!first) sy += ysm[yk];
-          if (!last) {
-            __syncwarp();  // the quad's reads of ysm[yk] before its write
-            if (q == 0) ysm[yk] = sy;
+          const size_t o = (static_cast<size_t>(b) * nc + c) * N * d + cl;
+          const size_t oc = slice * N * d + cl;
+#pragma unroll
+          for (int i = 0; i < kQ; ++i) {
+            const int n = nq + i;
+            h[i] = n >= N || !live ? 0.f : (k == 0 ? h0s : hx)[o + static_cast<size_t>(n) * d];
+            X[i] = n < N && live ? carry[oc + static_cast<size_t>(n) * d] : 0.f;
           }
         }
-        if (!live) continue;
-        const float ypre = sy + Dv * uu;
-        if (q == 0) {
-          const float v = sdd + sb * uu;
-          ddt[row * d + ch] = first ? v : ddt[row * d + ch] + v;
-          if (last) dD = fmaf(gy, uu, dD);
-        } else if (q == 1) {
-          const float v = first ? sb * dt : du[row * d + ch] + sb * dt;
-          du[row * d + ch] = last ? v + gy * Dv : v;
-        } else if (last) {
-          if (q == 2)
-            dz[row * ld_dz + ch] = from_f32<ZT>(ypre * dzf);
-          else if (yg != nullptr)
-            yg[row * d + ch] = from_f32<T>(ypre * sg);
+        if (chr % gch == 0) {
+          __syncthreads();  // the last round's readers of st and sum are done
+          stage_sub_rows<LR, T, G>(st, sc, rows, row0, ch0, chr, gch, d, dl, ws, u, ld_u, z,
+                                   ld_z, g, ld_g);
+        }
+        __syncthreads();  // the staging, and the last round's readers of sum
+        const int cs = ct % gch;  // the channel's column in st
+
+        // a_t once, and the segment's summaries P, H, E.
+        float a[kP3Rows][kQ];
+        if (has_seg) {
+          float P[kQ], Hs[kQ], Ds[kQ], aup[kQ];
+#pragma unroll
+          for (int i = 0; i < kQ; ++i) P[i] = 1.f, Hs[i] = 0.f, Ds[i] = 0.f, aup[i] = 1.f;
+#pragma unroll
+          for (int j = 0; j < kP3Rows; ++j) {
+            const int x = (r0 + j) * gch + cs;
+            const float dt = st[x], dtu = dt * st[sv + x];
+            float bv[kQ];
+            load_q(Bs + (r0 + j) * Np + nq, bv);
+#pragma unroll
+            for (int i = 0; i < kQ; ++i) {
+              a[j][i] = ex2(dt * a2[i]);
+              Hs[i] = fmaf(a[j][i], Hs[i], dtu * bv[i]);
+              P[i] *= a[j][i];
+            }
+          }
+#pragma unroll
+          for (int j = kP3Rows - 1; j >= 0; --j) {
+            const float gy = st[2 * sv + (r0 + j) * gch + cs];
+            float cv[kQ];
+            load_q(Cs + (r0 + j) * Np + nq, cv);
+#pragma unroll
+            for (int i = 0; i < kQ; ++i) {
+              Ds[i] = fmaf(aup[i], Ds[i], cv[i] * gy);
+              aup[i] = a[j][i];
+            }
+          }
+          sum[(w * 3) * 32 + lane] = make_float4(P[0], P[1], P[2], P[3]);
+          sum[(w * 3 + 1) * 32 + lane] = make_float4(Hs[0], Hs[1], Hs[2], Hs[3]);
+          sum[(w * 3 + 2) * 32 + lane] = make_float4(aup[0] * Ds[0], aup[1] * Ds[1],
+                                                     aup[2] * Ds[2], aup[3] * Ds[3]);
+        }
+        __syncthreads();
+
+        float dA[kQ] = {0.f, 0.f, 0.f, 0.f}, dD = 0.f;
+        if (has_seg) {
+          // The segment's entry state and the adjoint carried into its end.
+          for (int s = 0; s < w; ++s) {
+            const float4 P4 = sum[(s * 3) * 32 + lane], H4 = sum[(s * 3 + 1) * 32 + lane];
+            h[0] = fmaf(P4.x, h[0], H4.x), h[1] = fmaf(P4.y, h[1], H4.y);
+            h[2] = fmaf(P4.z, h[2], H4.z), h[3] = fmaf(P4.w, h[3], H4.w);
+          }
+          for (int s = n_seg - 1; s > w; --s) {
+            const float4 P4 = sum[(s * 3) * 32 + lane], E4 = sum[(s * 3 + 2) * 32 + lane];
+            X[0] = fmaf(P4.x, X[0], E4.x), X[1] = fmaf(P4.y, X[1], E4.y);
+            X[2] = fmaf(P4.z, X[2], E4.z), X[3] = fmaf(P4.w, X[3], E4.w);
+          }
+          // Back: dh_t = a_{t+1} dh_{t+1} + C_t gy_t, from a_end dh_end = X.
+          float dh[kP3Rows][kQ];
+#pragma unroll
+          for (int j = kP3Rows - 1; j >= 0; --j) {
+            const float gy = st[2 * sv + (r0 + j) * gch + cs];
+            float cv[kQ];
+            load_q(Cs + (r0 + j) * Np + nq, cv);
+#pragma unroll
+            for (int i = 0; i < kQ; ++i) {
+              dh[j][i] = j == kP3Rows - 1 ? X[i] + cv[i] * gy
+                                          : fmaf(a[j + 1][i], dh[j + 1][i], cv[i] * gy);
+            }
+          }
+          // Forward: the states and every row's outputs.
+#pragma unroll
+          for (int j = 0; j < kP3Rows; ++j) {
+            const int r = r0 + j, x = r * gch + cs;
+            const float dt = st[x], uu = st[sv + x], gy = st[2 * sv + x];
+            const float dtu = dt * uu;
+            float bv[kQ], cv[kQ], pv[8];  // dB then dC partials of the 4 states
+            load_q(Bs + r * Np + nq, bv);
+            load_q(Cs + r * Np + nq, cv);
+            float sdd = 0.f, sb = 0.f, sy = 0.f;
+#pragma unroll
+            for (int i = 0; i < kQ; ++i) {
+              const float hn = fmaf(a[j][i], h[i], dtu * bv[i]);
+              const float daa = dh[j][i] * h[i] * a[j][i];
+              sdd = fmaf(daa, av[i], sdd);
+              sb = fmaf(dh[j][i], bv[i], sb);
+              sy = fmaf(hn, cv[i], sy);
+              dA[i] = fmaf(daa, dt, dA[i]);
+              pv[i] = dh[j][i] * dtu;  // 0 past d: dt, u, gy, h and dh are
+              pv[kQ + i] = hn * gy;    // staged or carried as zeros there
+              h[i] = hn;
+            }
+            // Lane q: the sum over the states of daa A (q 0), dh B (1) or
+            // h C (2, 3); lane 0 also takes lane 1's, for ddelta.
+            const float red[4] = {sdd, sb, sy, sy};
+            float tot = quad_sums4(red, q);
+            const float sb_all = __shfl_xor_sync(0xffffffffu, tot, 1);
+            acc[j] += channel_sums8(pv, lane);
+            if (Grp) {
+              const int yk = r * kBwdCh + ct;
+              if (!first && q >= 2) tot += ysm[yk];
+              if (!last) {
+                __syncwarp();  // the quad's reads of ysm[yk] before its write
+                if (q == 2) ysm[yk] = tot;
+              }
+            }
+            // Each lane's output into a staged value every lane has read
+            // (it fed the shuffles): ddelta over delta, du over u, dz over
+            // gy, the gated output over silu(z); `flush` writes them out.
+            if (q == 0 && last && r < rows) dD = fmaf(gy, uu, dD);
+            const float ypre = tot + Dv * uu;
+            const float du_b = tot * dt, du_v = last ? du_b + gy * Dv : du_b;
+            const float gate = st[(q == 2 ? 3 : 4) * sv + x];  // q 2, 3: g silu'(z), silu(z)
+            st[(q < 2 ? q : q == 2 ? 2 : 4) * sv + x] =
+                q == 0 ? tot + sb_all * uu : q == 1 ? du_v : ypre * gate;
+          }
+        }
+        // dA and dD summed over the segments in order; the sub-chunk's exit
+        // states for the next one.
+        __syncthreads();  // every thread is done reading sum
+        float* dDx = reinterpret_cast<float*>(sum + n_seg * 32);
+        if (has_seg) {
+          sum[w * 32 + lane] = make_float4(dA[0], dA[1], dA[2], dA[3]);
+          dDx[w * 32 + lane] = dD;
+          if (ns > 1 && w == n_seg - 1 && live) {
+            const size_t o = (static_cast<size_t>(b) * nc + c) * N * d + ch;
+#pragma unroll
+            for (int i = 0; i < kQ; ++i)
+              if (nq + i < N) hx[o + static_cast<size_t>(nq + i) * d] = h[i];
+          }
+        }
+        __syncthreads();
+        // The staged group's outputs, coalesced, after its last round.
+        if (chr % gch == gch - kRoundCh) {
+          const int c0 = chr - (gch - kRoundCh), n_out = sc * gch;
+          for (int i = tid; i < n_out; i += kBwdThreads) {
+            const int r = i / gch, ch2 = ch0 + c0 + i % gch;
+            if (r >= rows || ch2 >= d) continue;
+            const size_t row = row0 + r;
+            ddt[row * d + ch2] = first ? st[i] : ddt[row * d + ch2] + st[i];
+            du[row * d + ch2] = first ? st[sv + i] : du[row * d + ch2] + st[sv + i];
+            if (last) {
+              dz[row * ld_dz + ch2] = from_f32<ZT>(st[2 * sv + i]);
+              if (yg != nullptr) yg[row * d + ch2] = from_f32<T>(st[4 * sv + i]);
+            }
+          }
+        }
+        if (w == 0 && live) {
+          float4 t = sum[lane];
+          float tD = dDx[lane];
+          for (int s = 1; s < n_seg; ++s) {
+            const float4 v = sum[s * 32 + lane];
+            t.x += v.x, t.y += v.y, t.z += v.z, t.w += v.w;
+            tD += dDx[s * 32 + lane];
+          }
+          const float tv[kQ] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+          for (int i = 0; i < kQ; ++i)
+            if (nq + i < N) dAp[(slice * N + nq + i) * d + ch] = tv[i];
+          if (q == 0 && last) dDp[slice * d + ch] = tD;
         }
       }
-      __syncthreads();
-      for (int k = tid; k < kSeg * 32; k += kBwdThreads) {
-        const int j = k >> 5, v = k & 31, n = n0 + (v & 15), r = s * kSeg + j;
-        if (r >= rows || n >= N) continue;
-        float acc = 0.f;
+      // The rounds' dB and dC sums: lane 4 c8 + q holds dB (c8 < 4) or dC of
+      // state nq + (c8 & 3) for each of its segment's rows.
+      if (has_seg) {
+        const int n = nq + (c8 & 3);
+        float* dst = c8 < 4 ? dBp : dCp;
 #pragma unroll
-        for (int w = 0; w < kBwdWarps; ++w) acc += part[(j * kBwdWarps + w) * 32 + v];
-        float* dst = v < 16 ? dBp : dCp;
-        dst[(static_cast<size_t>(blockIdx.x) * Bt * L + row0 + r) * N + n] = acc;
+        for (int j = 0; j < kP3Rows; ++j)
+          if (r0 + j < rows && n < N)
+            dst[(static_cast<size_t>(blockIdx.x) * Bt * L + row0 + r0 + j) * N + n] = acc[j];
       }
-      __syncthreads();
     }
-    if (!live) continue;
-#pragma unroll
-    for (int i = 0; i < kQ; ++i)
-      if (nq + i < N) dAp[o + static_cast<size_t>(nq + i) * d] = dA[i];
   }
-  if (live && q == 0) dDp[(static_cast<size_t>(b) * nc + c) * d + ch] = dD;
 }
 
 // out[i] = sum over s of in[s n + i], in order of s, for groups of up to
@@ -486,104 +677,6 @@ cudaError_t reduce_slices(const float* in, float* out, int ns, size_t n, float* 
 // --- weight gradients: part[slice, p, q] = sum over the slice's rows m of
 // X[m, p] Y[m, q] ----------------------------------------------------------
 
-// 8 values of row m, columns c..c+7, of X (zeros past P or past the slice).
-__device__ __forceinline__ void load8(const bf16* __restrict__ X, int ldx, int m, int me, int c,
-                                      int P, bool vec, bf16 (&v)[8]) {
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  if (m < me && vec && c + 8 <= P) {
-    const uint4 x = *reinterpret_cast<const uint4*>(X + static_cast<size_t>(m) * ldx + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&x);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = e[k];
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    v[k] = m < me && c + k < P ? X[static_cast<size_t>(m) * ldx + c + k] : zero;
-}
-
-// bf16: the block's 128 x 128 tile of (p, q), the products as the GEMM's
-// (mma.sync), the operands staged transposed ([p][m], [q][m]).
-__global__ void __launch_bounds__(kGemmThreads)
-    wgrad_bf16_kernel(const bf16* __restrict__ X, int ldx, const bf16* __restrict__ Y, int ldy,
-                      float* __restrict__ part, int M, int P, int Q, int vx, int vy) {
-  __shared__ __align__(16) bf16 Xs[kBM * kGRow];
-  __shared__ __align__(16) bf16 Ys[kBN * kGRow];
-  const int p0 = blockIdx.y * kBM, q0 = blockIdx.x * kBN, slice = blockIdx.z;
-  const int mb = slice * kWRows, me = min(M, mb + kWRows);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 64;
-  const int g = lane >> 2, t = lane & 3;
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-  // Each thread moves two 8-value pieces of X and of Y a k-step; the next
-  // step's are loaded into registers while this one's products run.
-  constexpr int kItems = kBK * (kBM / 8) / kGemmThreads;
-  bf16 px[kItems][8], py[kItems][8];
-  // A warp takes 32 rows of one 8-column piece: its transposed stores then
-  // fall in distinct banks (a warp along the columns hits one bank 16 times).
-  auto piece = [](int i, int& mm, int& cc) { mm = i % kBK, cc = (i / kBK) * 8; };
-  auto fetch = [&](int m0) {
-#pragma unroll
-    for (int it = 0; it < kItems; ++it) {
-      const int i = threadIdx.x + it * kGemmThreads;
-      int mm, cc;
-      piece(i, mm, cc);
-      load8(X, ldx, m0 + mm, me, p0 + cc, P, vx, px[it]);
-      load8(Y, ldy, m0 + mm, me, q0 + cc, Q, vy, py[it]);
-    }
-  };
-  if (mb < me) fetch(mb);
-  for (int m0 = mb; m0 < me; m0 += kBK) {
-#pragma unroll
-    for (int it = 0; it < kItems; ++it) {
-      const int i = threadIdx.x + it * kGemmThreads;
-      int mm, cc;
-      piece(i, mm, cc);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        Xs[(cc + k) * kGRow + mm] = px[it][k];
-        Ys[(cc + k) * kGRow + mm] = py[it][k];
-      }
-    }
-    __syncthreads();
-    if (m0 + kBK < me) fetch(m0 + kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const bf16* p = Xs + (wm + i * 16 + g) * kGRow + kk * 16 + 2 * t;
-        a[i][0] = ld32(p);
-        a[i][1] = ld32(p + 8 * kGRow);
-        a[i][2] = ld32(p + 8);
-        a[i][3] = ld32(p + 8 * kGRow + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bf16* qp = Ys + (wn + j * 8 + g) * kGRow + kk * 16 + 2 * t;
-        const uint32_t b0 = ld32(qp), b1 = ld32(qp + 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_16816(acc[i][j], a[i][0], a[i][1], a[i][2], a[i][3], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-  float* out = part + static_cast<size_t>(slice) * P * Q;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int p = p0 + wm + i * 16 + g + 8 * (e >> 1), qq = q0 + wn + j * 8 + 2 * t + (e & 1);
-        if (p < P && qq < Q) out[static_cast<size_t>(p) * Q + qq] = acc[i][j][e];
-      }
-}
-
 // fp32: a block owns 64 x 64 of (p, q), a thread 4 x 4, full fp32 FMAs.
 __global__ void __launch_bounds__(256)
     wgrad_f32_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y, int ldy,
@@ -632,11 +725,15 @@ cudaError_t wgrad(const T* X, int ldx, const T* Y, int ldy, float* part, float* 
                   int M, int P, int Q, cudaStream_t s) {
   const int ns = wgrad_slices(M);
   if (sizeof(T) == 2) {
-    const int vx = ldx % 8 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0;
-    const int vy = ldy % 8 == 0 && reinterpret_cast<uintptr_t>(Y) % 16 == 0;
-    wgrad_bf16_kernel<<<dim3((Q + kBN - 1) / kBN, (P + kBM - 1) / kBM, ns), kGemmThreads, 0, s>>>(
-        reinterpret_cast<const bf16*>(X), ldx, reinterpret_cast<const bf16*>(Y), ldy, part, M, P,
-        Q, vx, vy);
+    // wgmma reads X and Y as 16-byte row pieces.
+    if (ldx % 8 || ldy % 8 ||
+        (reinterpret_cast<uintptr_t>(X) | reinterpret_cast<uintptr_t>(Y)) % 16)
+      return cudaErrorMisalignedAddress;
+    const dim3 grid((Q + kGemmTile - 1) / kGemmTile, (P + kGemmTile - 1) / kGemmTile, ns);
+    cudaError_t err = gemm_launch<true, float>(grid, reinterpret_cast<const bf16*>(X), ldx,
+                                               reinterpret_cast<const bf16*>(Y), ldy, part, Q, P,
+                                               Q, M, 0, s);
+    if (err != cudaSuccess) return err;
   } else {
     wgrad_f32_kernel<<<dim3((Q + 63) / 64, (P + 63) / 64, ns), 256, 0, s>>>(
         reinterpret_cast<const float*>(X), ldx, reinterpret_cast<const float*>(Y), ldy, part, M,
@@ -875,13 +972,18 @@ struct Carve {
   if ((err = (x)) != cudaSuccess) return err
 
 struct ScanBwdWs {
-  float *P, *E, *dBp, *dCp, *dAp, *dDp, *tmp;
+  float *P, *E, *dBp, *dCp, *dAp, *dDp, *hx, *tmp;
 };
 
 int scan_tiles(int d) { return (d + kBwdCh - 1) / kBwdCh; }
 
+// Sub-chunks of the adjoint's passes: chunks x sub-chunks a chunk.
+size_t scan_subs(int L, int chunk) {
+  return static_cast<size_t>((L + chunk - 1) / chunk) * n_subs(chunk);
+}
+
 ScanBwdWs carve_scan(Carve& cv, int Bt, int L, int d, int N, int chunk) {
-  const size_t nc = (L + chunk - 1) / chunk, cnd = Bt * nc * N * d;
+  const size_t nc = scan_subs(L, chunk), cnd = Bt * nc * N * d;
   const size_t tiles_rows = static_cast<size_t>(scan_tiles(d)) * Bt * L * N;
   ScanBwdWs w;
   w.P = cv.take<float>(cnd);
@@ -890,6 +992,8 @@ ScanBwdWs carve_scan(Carve& cv, int Bt, int L, int d, int N, int chunk) {
   w.dCp = cv.take<float>(tiles_rows);
   w.dAp = cv.take<float>(cnd);
   w.dDp = cv.take<float>(Bt * nc * d);
+  // Pass 3's sub-chunk exit states, past one sub-chunk a chunk.
+  w.hx = cv.take<float>(n_subs(chunk) > 1 ? Bt * nc / n_subs(chunk) * N * d : 0);
   const size_t slices = Bt * nc, t1 = reduce_tmp(slices, static_cast<size_t>(N) * d);
   const size_t t2 = reduce_tmp(scan_tiles(d), static_cast<size_t>(Bt) * L * N);
   w.tmp = cv.take<float>(t1 > t2 ? t1 : t2);
@@ -901,17 +1005,28 @@ ScanBwdWs carve_scan(Carve& cv, int Bt, int L, int d, int N, int chunk) {
 // the same sums.
 size_t scan_bwd_smem1(int chunk, int N, int R) {
   const int lr_ld = round4(R);
-  return sizeof(float) * (static_cast<size_t>(chunk) * n_pad(N) + kStaged * kStage +
+  return sizeof(float) * (static_cast<size_t>(sub_rows(chunk)) * n_pad(N) + kStaged * kStage +
                           (R > 0 ? kSeg * lr_ld + (lr_ld + 1) * kBwdCh : 0));
 }
 
+// Pass 3: a sub-chunk's B and C rows and its row values for gch channels,
+// the segments' summaries (three float4 a lane), past 16 states each row's
+// running C.h, and in the low-rank form W_dt's columns.
+size_t scan_bwd_smem3_g(int chunk, int N, int R, int gch) {
+  const int sc = sub_rows(chunk), n_seg = (sc + kP3Rows - 1) / kP3Rows, lr_ld = round4(R);
+  return sizeof(float) * (2 * static_cast<size_t>(sc) * n_pad(N) + kRowVals * sc * gch +
+                          n_seg * 3 * 32 * 4 + (N > kMaxN ? sc * kBwdCh : 0) +
+                          (R > 0 ? (lr_ld + 1) * kBwdCh : 0));
+}
+
+// Channels pass 3 stages at once: the tile's 64 where they fit (one wait on
+// device memory a sub-chunk), else a round's 8.
+int scan_bwd_gch(int chunk, int N, int R) {
+  return scan_bwd_smem3_g(chunk, N, R, kBwdCh) <= kSmemMax ? kBwdCh : kRoundCh;
+}
+
 size_t scan_bwd_smem3(int chunk, int N, int R) {
-  const int n_seg = (chunk + kSeg - 1) / kSeg, lr_ld = round4(R);
-  return sizeof(float) * (2 * static_cast<size_t>(chunk) * n_pad(N) +
-                          kSeg * kBwdWarps * 32 + kStaged * kStage +
-                          (N > kMaxN ? chunk * kBwdCh : 0) +
-                          (R > 0 ? kSeg * lr_ld + (lr_ld + 1) * kBwdCh : 0)) +
-         sizeof(float4) * n_seg * kBwdThreads;
+  return scan_bwd_smem3_g(chunk, N, R, scan_bwd_gch(chunk, N, R));
 }
 
 template <typename T, typename G, typename ZT, bool Grp, bool LR>
@@ -925,16 +1040,15 @@ cudaError_t scan_bwd_k(const T* u, int ld_u, const DtSrc& dl, const T* Bc, const
   cudaError_t err;
   DDG_TRY(allow_smem(reinterpret_cast<const void*>(scan_bwd_chunk_kernel<T, G, Grp, LR>), smem1));
   DDG_TRY(allow_smem(reinterpret_cast<const void*>(scan_bwd_out_kernel<T, G, ZT, Grp, LR>), smem3));
-  const dim3 grid(scan_tiles(d), nc, Bt);
-  scan_bwd_chunk_kernel<T, G, Grp, LR><<<grid, kBwdThreads, smem1, s>>>(dl, Cc, ld_bc, z, ld_z, g,
-                                                                   ld_g, A, w.P, w.E, L, d, N,
-                                                                   chunk);
+  const int n_sub = static_cast<int>(scan_subs(L, chunk));
+  scan_bwd_chunk_kernel<T, G, Grp, LR><<<dim3(scan_tiles(d), n_sub, Bt), kBwdThreads, smem1, s>>>(
+      dl, Cc, ld_bc, z, ld_z, g, ld_g, A, w.P, w.E, L, d, N, chunk);
   DDG_TRY(cudaGetLastError());
-  scan_bwd_carry_kernel<<<dim3((N * d + 255) / 256, Bt), 256, 0, s>>>(w.P, w.E, nc, N * d);
+  scan_bwd_carry_kernel<<<dim3((N * d + 255) / 256, Bt), 256, 0, s>>>(w.P, w.E, n_sub, N * d);
   DDG_TRY(cudaGetLastError());
-  scan_bwd_out_kernel<T, G, ZT, Grp, LR><<<grid, kBwdThreads, smem3, s>>>(
-      u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, ld_g, A, D, h0s, w.E, ddt, du, dz, ld_dz, yg,
-      w.dBp, w.dCp, w.dAp, w.dDp, Bt, L, d, N, chunk);
+  scan_bwd_out_kernel<T, G, ZT, Grp, LR><<<dim3(scan_tiles(d), nc, Bt), kBwdThreads, smem3, s>>>(
+      u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, ld_g, A, D, h0s, w.E, w.hx, ddt, du, dz, ld_dz, yg,
+      w.dBp, w.dCp, w.dAp, w.dDp, Bt, L, d, N, chunk, scan_bwd_gch(chunk, N, R));
   return cudaGetLastError();
 }
 
@@ -955,10 +1069,10 @@ cudaError_t scan_bwd(const T* u, int ld_u, const DtSrc& dl, const T* Bc, const T
 #undef DDG_SCAN_BWD
 }
 
-// The (N, d) dA_log and (d,) dD from the per-(b, chunk) partials.
+// The (N, d) dA_log and (d,) dD from the per-(b, sub-chunk) partials.
 cudaError_t scan_bwd_sums(const ScanBwdWs& w, const float* A, float* dA_log, float* dD, int Bt,
                           int L, int d, int N, int chunk, cudaStream_t s) {
-  const int slices = Bt * ((L + chunk - 1) / chunk);
+  const int slices = Bt * static_cast<int>(scan_subs(L, chunk));
   cudaError_t err;
   DDG_TRY(reduce_slices(w.dAp, dA_log, slices, static_cast<size_t>(N) * d, w.tmp, s, A, N, d));
   return reduce_slices(w.dDp, dD, slices, d, w.tmp, s);

@@ -73,12 +73,14 @@
 //     at 3.35 TB/s), where rotating tiles inside the kernels, as the
 //     forward does, cost twice that (PERF.md, PR 10).
 // * The CUDA-core kernels (float32; bf16 rows off 16-byte boundaries; any
-//   other even D up to the shared-memory cap, 174): attention_bwd_q_kernel
-//   (32 query rows a block, 64-key tiles) and attention_bwd_kv_kernel (64
-//   keys a block, 32-query tiles), 256 threads, the same passes with expf,
-//   IEEE division and fp32 products on the CUDA cores (the contract there).
-//   Shared memory depends on D only: (224 D + 4224) floats for Q and (320 D
-//   + 2400) for KV.
+//   other even D up to 290, the widest the CUDA-core forward takes):
+//   attention_bwd_q_kernel (32 query rows a block, 64-key tiles) and
+//   attention_bwd_kv_kernel (64 keys a block, 32-query tiles), 256 threads,
+//   the same passes with expf, IEEE division and fp32 products on the CUDA
+//   cores (the contract there). Shared memory: (224 D + 4224) floats for Q
+//   and (320 D + 2400) for KV, which fits up to D = 174; past that the
+//   tiles halve (16 query rows, 32 keys: (112 D + 1088) and (160 D + 688)
+//   floats), so every head the forward serves also trains.
 // The C functions report in *path which kernels they launched (1: tensor
 // cores, 0: CUDA cores); ddg_attention_bwd_plan exports the launch plan,
 // which ops/attention.py:backward_plan mirrors.
@@ -97,25 +99,32 @@ constexpr int kSmemMax = 232448;           // dynamic shared memory of a block o
 
 // --- fp32 / any-D path on the CUDA cores ------------------------------------
 
-constexpr int kTile = 32;                  // query rows of a tile
 constexpr int kThreads = 256;
-constexpr int kRowsPerWarp = kTile / (kThreads / 32);
+// Tiles: QT query rows and KT keys, 32 and 64 while both kernels' fp32
+// tiles fit in shared memory (D <= 174), 16 and 32 past that, up to the
+// widest head the CUDA-core forward takes (rope_attention.cu: 290).
+constexpr int kCoreDMax = 290;
 
-// Kernel Q: q', dO and the dq' sums (kTile x D each), k' and v (kKeyTile x
-// (D + 1) each, rows padded against bank conflicts), S then dS and the
-// rounded dP (kTile x kKeyTile each).
-__host__ __device__ constexpr size_t core_q_smem(int D) {
-  return sizeof(float) * (3 * static_cast<size_t>(kTile) * D +
-                          2 * static_cast<size_t>(kKeyTile) * (D + 1) + 2 * kTile * kKeyTile);
+// Kernel Q: q', dO and the dq' sums (QT x D each), k' and v (KT x (D + 1)
+// each, rows padded against bank conflicts), S then dS and the rounded dP
+// (QT x KT each).
+__host__ __device__ constexpr size_t core_q_smem(int D, int QT, int KT) {
+  return sizeof(float) * (3 * static_cast<size_t>(QT) * D +
+                          2 * static_cast<size_t>(KT) * (D + 1) + 2 * QT * KT);
 }
 
-// Kernel KV: k', v (kKeyTile x (D + 1)), the query tile's q', dO (kTile x
-// (D + 1)), P^T then dS^T (kKeyTile x (kTile + 1)), the tile's m, l, delta
-// (3 x kTile), the dk' and dv sums (kKeyTile x D each).
-__host__ __device__ constexpr size_t core_kv_smem(int D) {
-  return sizeof(float) * (2 * static_cast<size_t>(kKeyTile) * (D + 1) +
-                          2 * static_cast<size_t>(kTile) * (D + 1) + kKeyTile * (kTile + 1) +
-                          3 * kTile + 2 * static_cast<size_t>(kKeyTile) * D);
+// Kernel KV: k', v (KT x (D + 1)), the query tile's q', dO (QT x (D + 1)),
+// P^T then dS^T (KT x (QT + 1)), the tile's m, l, delta (3 x QT), the dk'
+// and dv sums (KT x D each).
+__host__ __device__ constexpr size_t core_kv_smem(int D, int QT, int KT) {
+  return sizeof(float) * (2 * static_cast<size_t>(KT) * (D + 1) +
+                          2 * static_cast<size_t>(QT) * (D + 1) + KT * (QT + 1) + 3 * QT +
+                          2 * static_cast<size_t>(KT) * D);
+}
+
+// Whether the 32-row, 64-key tiles fit D (else 16 and 32).
+__host__ __device__ constexpr bool core_wide_tiles(int D) {
+  return core_q_smem(D, 32, 64) <= kSmemMax && core_kv_smem(D, 32, 64) <= kSmemMax;
 }
 
 // Element d of row `pos` of q or k as the products take it: rotated and
@@ -177,51 +186,54 @@ __device__ __forceinline__ float ds_of(float p, float dp, float delta, float sca
   return __fmul_rn(__fsub_rn(__fmul_rn(p, dp), __fmul_rn(p, delta)), scale);
 }
 
-// Kernel Q on the CUDA cores: one block per (32-row query tile, head,
-// batch). Warp w owns rows w, w + 8, w + 16, w + 24 for the softmax.
-template <typename T, bool kRope>
+// Kernel Q on the CUDA cores: one block per (QT-row query tile, head,
+// batch), walking KT-key tiles. Warp w owns rows w, w + 8, ... for the
+// softmax, a lane KT / 32 keys of each.
+template <typename T, bool kRope, int QT, int KT>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const float* __restrict__ cos,
                            const float* __restrict__ sin, const T* __restrict__ dout,
                            T* __restrict__ dq, float* __restrict__ stats, int L, int H, int D,
                            int ts_q, int ts_k, int ts_v, int causal, float scale, int Lp) {
+  constexpr int kRowsPerWarp = QT / (kThreads / 32);
+  static_assert(KT == 32 || KT == 64, "a lane takes one or two keys of a tile");
   extern __shared__ float smem[];
   const int KS = D + 1;
-  float* Qs = smem;                    // kTile x D: q'
-  float* Os = Qs + kTile * D;          // kTile x D: dO
-  float* Gs = Os + kTile * D;          // kTile x D: the dq' sums
-  float* Ks = Gs + kTile * D;          // kKeyTile x (D + 1): k'
-  float* Vs = Ks + kKeyTile * KS;      // kKeyTile x (D + 1): v
-  float* Ss = Vs + kKeyTile * KS;      // kTile x kKeyTile: S, then dS
-  float* Ps = Ss + kTile * kKeyTile;   // kTile x kKeyTile: dP, rounded
-  const int i0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  float* Qs = smem;                    // QT x D: q'
+  float* Os = Qs + QT * D;             // QT x D: dO
+  float* Gs = Os + QT * D;             // QT x D: the dq' sums
+  float* Ks = Gs + QT * D;             // KT x (D + 1): k'
+  float* Vs = Ks + KT * KS;            // KT x (D + 1): v
+  float* Ss = Vs + KT * KS;            // QT x KT: S, then dS
+  float* Ps = Ss + QT * KT;            // QT x KT: dP, rounded
+  const int i0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const int out_stride = H * D;
   const T* qh = q + static_cast<size_t>(b) * L * ts_q + static_cast<size_t>(h) * D;
   const T* kh = k + static_cast<size_t>(b) * L * ts_k + static_cast<size_t>(h) * D;
   const T* vh = v + static_cast<size_t>(b) * L * ts_v + static_cast<size_t>(h) * D;
   const size_t head = static_cast<size_t>(b) * L * out_stride + static_cast<size_t>(h) * D;
 
-  stage_rows<T, kRope>(Qs, D, qh, ts_q, i0, kTile, L, D, cos, sin);
-  stage_rows<T, false>(Os, D, dout + head, out_stride, i0, kTile, L, D, cos, sin);
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) Gs[idx] = 0.f;
+  stage_rows<T, kRope>(Qs, D, qh, ts_q, i0, QT, L, D, cos, sin);
+  stage_rows<T, false>(Os, D, dout + head, out_stride, i0, QT, L, D, cos, sin);
+  for (int idx = threadIdx.x; idx < QT * D; idx += kThreads) Gs[idx] = 0.f;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float m[kRowsPerWarp], l[kRowsPerWarp], dl[kRowsPerWarp], delta[kRowsPerWarp];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) m[r] = kNeg, l[r] = dl[r] = delta[r] = 0.f;
 
-  const int n_tiles = (L + kKeyTile - 1) / kKeyTile;
-  const int n_keys = causal ? min(n_tiles, (i0 + kTile - 1) / kKeyTile + 1) : n_tiles;
+  const int n_tiles = (L + KT - 1) / KT;
+  const int n_keys = causal ? min(n_tiles, (i0 + QT - 1) / KT + 1) : n_tiles;
   for (int pass = 0; pass < 2; ++pass) {
     for (int jt = 0; jt < n_keys; ++jt) {
-      const int j0 = jt * kKeyTile;
+      const int j0 = jt * KT;
       __syncthreads();  // the previous tile's readers are done
-      stage_rows<T, kRope>(Ks, KS, kh, ts_k, j0, kKeyTile, L, D, cos, sin);
-      stage_rows<T, false>(Vs, KS, vh, ts_v, j0, kKeyTile, L, D, cos, sin);
+      stage_rows<T, kRope>(Ks, KS, kh, ts_k, j0, KT, L, D, cos, sin);
+      stage_rows<T, false>(Vs, KS, vh, ts_v, j0, KT, L, D, cos, sin);
       __syncthreads();
-      for (int idx = threadIdx.x; idx < kTile * kKeyTile; idx += kThreads) {
-        const int i = idx / kKeyTile, jj = idx % kKeyTile, key = j0 + jj;
+      for (int idx = threadIdx.x; idx < QT * KT; idx += kThreads) {
+        const int i = idx / KT, jj = idx % KT, key = j0 + jj;
         const float *qi = Qs + i * D, *oi = Os + i * D;
         const float *kj = Ks + jj * KS, *vj = Vs + jj * KS;
         float s = 0.f, dp = 0.f;
@@ -237,33 +249,41 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
-        float* s = Ss + (warp + r * (kThreads / 32)) * kKeyTile;
-        const float* dp = Ps + (warp + r * (kThreads / 32)) * kKeyTile;
-        const float x0 = s[lane], x1 = s[lane + 32], d0 = dp[lane], d1 = dp[lane + 32];
+        float* s = Ss + (warp + r * (kThreads / 32)) * KT;
+        const float* dp = Ps + (warp + r * (kThreads / 32)) * KT;
+        const float x0 = s[lane], d0 = dp[lane];
+        const float x1 = KT == 64 ? s[lane + 32] : kNeg, d1 = KT == 64 ? dp[lane + 32] : 0.f;
         if (pass == 0) {
           // The forward's pass 1, with delta carried beside l.
-          const float mn = fmaxf(m[r], ddg::warp_max(fmaxf(x0, x1)));
-          const float e0 = expf(x0 - mn), e1 = expf(x1 - mn);
-          const float sum = ddg::warp_sum(e0 + e1);
-          const float dsum = ddg::warp_sum(fmaf(e0, d0, e1 * d1));
+          float mn, sum, dsum;
+          if constexpr (KT == 64) {
+            mn = fmaxf(m[r], ddg::warp_max(fmaxf(x0, x1)));
+            const float e0 = expf(x0 - mn), e1 = expf(x1 - mn);
+            sum = ddg::warp_sum(e0 + e1);
+            dsum = ddg::warp_sum(fmaf(e0, d0, e1 * d1));
+          } else {
+            mn = fmaxf(m[r], ddg::warp_max(x0));
+            const float e0 = expf(x0 - mn);
+            sum = ddg::warp_sum(e0);
+            dsum = ddg::warp_sum(e0 * d0);
+          }
           const float f = expf(m[r] - mn);
           l[r] = l[r] * f + sum;
           dl[r] = dl[r] * f + dsum;
           m[r] = mn;
         } else {
-          const float p0 = expf(x0 - m[r]) / l[r], p1 = expf(x1 - m[r]) / l[r];
-          s[lane] = ds_of(p0, d0, delta[r], scale);
-          s[lane + 32] = ds_of(p1, d1, delta[r], scale);
+          s[lane] = ds_of(expf(x0 - m[r]) / l[r], d0, delta[r], scale);
+          if constexpr (KT == 64) s[lane + 32] = ds_of(expf(x1 - m[r]) / l[r], d1, delta[r], scale);
         }
       }
       if (pass == 0) continue;
       __syncthreads();
       // dq' += dS k' in key order.
-      for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
+      for (int idx = threadIdx.x; idx < QT * D; idx += kThreads) {
         const int i = idx / D, d = idx % D;
-        const float* ds = Ss + i * kKeyTile;
+        const float* ds = Ss + i * KT;
         float acc = Gs[idx];
-        for (int jj = 0; jj < kKeyTile; ++jj) acc = fmaf(ds[jj], Ks[jj * KS + d], acc);
+        for (int jj = 0; jj < KT; ++jj) acc = fmaf(ds[jj], Ks[jj * KS + d], acc);
         Gs[idx] = acc;
       }
     }
@@ -273,7 +293,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  store_rows<T, kRope>(Gs, D, dq + head, out_stride, i0, kTile, L, D, cos, sin);
+  store_rows<T, kRope>(Gs, D, dq + head, out_stride, i0, QT, L, D, cos, sin);
   if (lane == 0) {
     float* st = stats + (static_cast<size_t>(b) * H + h) * 3 * Lp;
 #pragma unroll
@@ -287,9 +307,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Kernel KV on the CUDA cores: one block per (64-key tile, head, batch),
-// walking the 32-row query tiles in order.
-template <typename T, bool kRope>
+// Kernel KV on the CUDA cores: one block per (KT-key tile, head, batch),
+// walking the QT-row query tiles in order.
+template <typename T, bool kRope, int QT, int KT>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const float* __restrict__ cos,
@@ -299,17 +319,17 @@ __global__ void __launch_bounds__(kThreads)
                             int ts_k, int ts_v, int causal, float scale, int Lp) {
   extern __shared__ float smem[];
   const int RS = D + 1;                // padded row of k', v, q', dO
-  constexpr int PS = kTile + 1;        // padded row of P^T / dS^T
-  constexpr int kPer = kKeyTile * kTile / kThreads;
-  float* Ks = smem;                    // kKeyTile x (D + 1): k'
-  float* Vs = Ks + kKeyTile * RS;      // kKeyTile x (D + 1): v
-  float* Qs = Vs + kKeyTile * RS;      // kTile x (D + 1): q' of the query tile
-  float* Os = Qs + kTile * RS;         // kTile x (D + 1): dO of the query tile
-  float* Pt = Os + kTile * RS;         // kKeyTile x (kTile + 1): P^T, then dS^T
-  float* St = Pt + kKeyTile * PS;      // 3 x kTile: m, l, delta of the tile's rows
-  float* dKs = St + 3 * kTile;         // kKeyTile x D: the dk' sums
-  float* dVs = dKs + kKeyTile * D;     // kKeyTile x D: the dv sums
-  const int j0 = blockIdx.x * kKeyTile, h = blockIdx.y, b = blockIdx.z;
+  constexpr int PS = QT + 1;           // padded row of P^T / dS^T
+  constexpr int kPer = KT * QT / kThreads;
+  float* Ks = smem;                    // KT x (D + 1): k'
+  float* Vs = Ks + KT * RS;            // KT x (D + 1): v
+  float* Qs = Vs + KT * RS;            // QT x (D + 1): q' of the query tile
+  float* Os = Qs + QT * RS;            // QT x (D + 1): dO of the query tile
+  float* Pt = Os + QT * RS;            // KT x (QT + 1): P^T, then dS^T
+  float* St = Pt + KT * PS;            // 3 x QT: m, l, delta of the tile's rows
+  float* dKs = St + 3 * QT;            // KT x D: the dk' sums
+  float* dVs = dKs + KT * D;           // KT x D: the dv sums
+  const int j0 = blockIdx.x * KT, h = blockIdx.y, b = blockIdx.z;
   const int out_stride = H * D;
   const T* qh = q + static_cast<size_t>(b) * L * ts_q + static_cast<size_t>(h) * D;
   const T* kh = k + static_cast<size_t>(b) * L * ts_k + static_cast<size_t>(h) * D;
@@ -317,69 +337,69 @@ __global__ void __launch_bounds__(kThreads)
   const size_t head = static_cast<size_t>(b) * L * out_stride + static_cast<size_t>(h) * D;
   const float* st = stats + (static_cast<size_t>(b) * H + h) * 3 * Lp;
 
-  stage_rows<T, kRope>(Ks, RS, kh, ts_k, j0, kKeyTile, L, D, cos, sin);
-  stage_rows<T, false>(Vs, RS, vh, ts_v, j0, kKeyTile, L, D, cos, sin);
-  for (int idx = threadIdx.x; idx < kKeyTile * D; idx += kThreads) dKs[idx] = dVs[idx] = 0.f;
+  stage_rows<T, kRope>(Ks, RS, kh, ts_k, j0, KT, L, D, cos, sin);
+  stage_rows<T, false>(Vs, RS, vh, ts_v, j0, KT, L, D, cos, sin);
+  for (int idx = threadIdx.x; idx < KT * D; idx += kThreads) dKs[idx] = dVs[idx] = 0.f;
 
-  const int n_q = (L + kTile - 1) / kTile;
-  for (int it = causal ? j0 / kTile : 0; it < n_q; ++it) {
-    const int i0 = it * kTile;
+  const int n_q = (L + QT - 1) / QT;
+  for (int it = causal ? j0 / QT : 0; it < n_q; ++it) {
+    const int i0 = it * QT;
     __syncthreads();  // the previous tile's readers are done
-    stage_rows<T, kRope>(Qs, RS, qh, ts_q, i0, kTile, L, D, cos, sin);
-    stage_rows<T, false>(Os, RS, dout + head, out_stride, i0, kTile, L, D, cos, sin);
-    for (int idx = threadIdx.x; idx < 3 * kTile; idx += kThreads) {
-      const int c = idx / kTile, p = i0 + idx % kTile;
+    stage_rows<T, kRope>(Qs, RS, qh, ts_q, i0, QT, L, D, cos, sin);
+    stage_rows<T, false>(Os, RS, dout + head, out_stride, i0, QT, L, D, cos, sin);
+    for (int idx = threadIdx.x; idx < 3 * QT; idx += kThreads) {
+      const int c = idx / QT, p = i0 + idx % QT;
       St[idx] = p < L ? st[c * Lp + p] : (c == 1 ? 1.f : 0.f);
     }
     __syncthreads();
     // P^T from kernel Q's formulas: S summed over d in the same order.
-    for (int idx = threadIdx.x; idx < kKeyTile * kTile; idx += kThreads) {
-      const int jj = idx / kTile, ii = idx % kTile, key = j0 + jj, row = i0 + ii;
+    for (int idx = threadIdx.x; idx < KT * QT; idx += kThreads) {
+      const int jj = idx / QT, ii = idx % QT, key = j0 + jj, row = i0 + ii;
       const float *qi = Qs + ii * RS, *kj = Ks + jj * RS;
       float s = 0.f;
       for (int d = 0; d < D; ++d) s = fmaf(qi[d], kj[d], s);
       s *= scale;
       const bool masked = row >= L || key >= L || (causal && key > row);
-      Pt[jj * PS + ii] = masked ? 0.f : expf(s - St[ii]) / St[kTile + ii];
+      Pt[jj * PS + ii] = masked ? 0.f : expf(s - St[ii]) / St[QT + ii];
     }
     __syncthreads();
     // dv += round(P)^T dO in query order.
-    for (int idx = threadIdx.x; idx < kKeyTile * D; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < KT * D; idx += kThreads) {
       const int jj = idx / D, d = idx % D;
       const float* p = Pt + jj * PS;
       float acc = dVs[idx];
-      for (int ii = 0; ii < kTile; ++ii) acc = fmaf(ddg::round_to<T>(p[ii]), Os[ii * RS + d], acc);
+      for (int ii = 0; ii < QT; ++ii) acc = fmaf(ddg::round_to<T>(p[ii]), Os[ii * RS + d], acc);
       dVs[idx] = acc;
     }
     // dP^T rounded, dS^T over P^T once dv has read it.
     float ds[kPer];
 #pragma unroll
     for (int e = 0; e < kPer; ++e) {
-      const int idx = threadIdx.x + e * kThreads, jj = idx / kTile, ii = idx % kTile;
+      const int idx = threadIdx.x + e * kThreads, jj = idx / QT, ii = idx % QT;
       const float *oi = Os + ii * RS, *vj = Vs + jj * RS;
       float dp = 0.f;
       for (int d = 0; d < D; ++d) dp = fmaf(oi[d], vj[d], dp);
-      ds[e] = ds_of(Pt[jj * PS + ii], ddg::round_to<T>(dp), St[2 * kTile + ii], scale);
+      ds[e] = ds_of(Pt[jj * PS + ii], ddg::round_to<T>(dp), St[2 * QT + ii], scale);
     }
     __syncthreads();
 #pragma unroll
     for (int e = 0; e < kPer; ++e) {
       const int idx = threadIdx.x + e * kThreads;
-      Pt[(idx / kTile) * PS + idx % kTile] = ds[e];
+      Pt[(idx / QT) * PS + idx % QT] = ds[e];
     }
     __syncthreads();
     // dk' += dS^T q' in query order.
-    for (int idx = threadIdx.x; idx < kKeyTile * D; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < KT * D; idx += kThreads) {
       const int jj = idx / D, d = idx % D;
       const float* g = Pt + jj * PS;
       float acc = dKs[idx];
-      for (int ii = 0; ii < kTile; ++ii) acc = fmaf(g[ii], Qs[ii * RS + d], acc);
+      for (int ii = 0; ii < QT; ++ii) acc = fmaf(g[ii], Qs[ii * RS + d], acc);
       dKs[idx] = acc;
     }
   }
   __syncthreads();
-  store_rows<T, false>(dVs, D, dv + head, out_stride, j0, kKeyTile, L, D, cos, sin);
-  store_rows<T, kRope>(dKs, D, dk + head, out_stride, j0, kKeyTile, L, D, cos, sin);
+  store_rows<T, false>(dVs, D, dv + head, out_stride, j0, KT, L, D, cos, sin);
+  store_rows<T, kRope>(dKs, D, dk + head, out_stride, j0, KT, L, D, cos, sin);
 }
 
 // --- bf16 tensor-core path: wgmma over 64-row tiles --------------------------
@@ -871,11 +891,12 @@ int make_plan(int B, int L, int H, int D, bool tc, Plan* p) {
            static_cast<int>((rope_threads + kMmaThreads - 1) / kMmaThreads), 2, 1}};
     return cudaSuccess;
   }
-  const size_t q_smem = core_q_smem(D), kv_smem = core_kv_smem(D);
-  if (q_smem > kSmemMax || kv_smem > kSmemMax) return cudaErrorInvalidValue;
+  if (D > kCoreDMax) return cudaErrorInvalidValue;
+  const int qt = core_wide_tiles(D) ? 32 : 16, kt = 2 * qt;
+  const size_t q_smem = core_q_smem(D, qt, kt), kv_smem = core_kv_smem(D, qt, kt);
   *p = {0, stats_len,
-        {kTile, kKeyTile, 1, static_cast<int>(q_smem), kThreads, cdiv(L, kTile), H, B},
-        {kTile, kKeyTile, 1, static_cast<int>(kv_smem), kThreads, cdiv(L, kKeyTile), H, B},
+        {qt, kt, 1, static_cast<int>(q_smem), kThreads, cdiv(L, qt), H, B},
+        {qt, kt, 1, static_cast<int>(kv_smem), kThreads, cdiv(L, kt), H, B},
         {0, 0, 0, 0, 0, 0, 0, 0}};
   return cudaSuccess;
 }
@@ -949,8 +970,12 @@ int launch(const void* q, const void* k, const void* v, const void* cos, const v
     return err;
   }
   using P = const T*;
-  auto kq = attention_bwd_q_kernel<T, kRope>;
-  auto kkv = attention_bwd_kv_kernel<T, kRope>;
+  auto kq = attention_bwd_q_kernel<T, kRope, 32, 64>;
+  auto kkv = attention_bwd_kv_kernel<T, kRope, 32, 64>;
+  if (p.q.q_tile == 16) {
+    kq = attention_bwd_q_kernel<T, kRope, 16, 32>;
+    kkv = attention_bwd_kv_kernel<T, kRope, 16, 32>;
+  }
   if ((err = prepare(kq, p.q.smem)) != cudaSuccess) return err;
   if ((err = prepare(kkv, p.kv.smem)) != cudaSuccess) return err;
   kq<<<grid_of(p.q), p.q.threads, p.q.smem, stream>>>(

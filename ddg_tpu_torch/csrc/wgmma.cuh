@@ -3,8 +3,8 @@
 // cp.async copies of 64-row tiles into shared memory in the 128-byte
 // swizzle, the wgmma shared-memory descriptor, wgmma m64n64k16 with A
 // from shared memory or from registers, the fences that order them, and 2^x
-// by the SFU. flash_attention.cu's wgmma K20 and K21 use them too, with one
-// warpgroup a block.
+// by the SFU. flash_attention.cu's wgmma K20-K22 use them too, with one
+// warpgroup a block, and the DiMamba kernels' bf16 products (mamba.cuh).
 //
 // Tiles are 64 rows x 64 bf16 (D = 64, 128 bytes a row), loaded by blocks
 // of two warpgroups (256 threads) unless load_tile is told otherwise. The
@@ -110,6 +110,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DDG_D32
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DDG_D32_OUT
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A B, 64 x 64 x 16, both from shared memory and both MN-major (A's
+// rows and B's columns contiguous: the transpose bits set), as the weight
+// gradients X^T Y read X and Y row by row.
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DDG_D32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
       : DDG_D32_OUT
       : "l"(da), "l"(db), "r"(1));
 }

@@ -41,6 +41,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/rope_attention_bwd.cu).
 _KEY_TILE = 64
 _SMEM_MAX = 232448
+_CORE_D_MAX = 290               # the CUDA-core forward's widest head: both take it
 
 
 def forward_plan(B, L, H, D, dtype, aligned=True):
@@ -113,20 +114,26 @@ def backward_plan(B, L, H, D, dtype, aligned=True):
                     rope=dict(threads=256,
                               grid=(-(-B * L * H * 4 // 256), 2, 1)))
     else:
-        # fp32 on 32-row query tiles: q', dO, the dq sums, k', v (rows
-        # padded by one), S and dP (Q); k', v, q', dO (rows padded by one),
-        # P^T, the tile's statistics, the dk and dv sums (KV).
-        q_smem = 4 * (3 * 32 * D + 2 * 64 * (D + 1) + 2 * 32 * 64)
-        kv_smem = 4 * (2 * 64 * (D + 1) + 2 * 32 * (D + 1) + 64 * 33
-                       + 3 * 32 + 2 * 64 * D)
-        if max(q_smem, kv_smem) > _SMEM_MAX:
+        # fp32 on qt-row query tiles and kt-key tiles: q', dO, the dq sums,
+        # k', v (rows padded by one), S and dP (Q); k', v, q', dO (rows
+        # padded by one), P^T, the tile's statistics, the dk and dv sums
+        # (KV). 32 and 64 while they fit (D <= 174), else 16 and 32, up to
+        # the CUDA-core forward's widest head.
+        if D > _CORE_D_MAX:
             raise ValueError(f'the CUDA-core attention backward takes '
-                             f'head_dim up to 174, got {D}')
+                             f'head_dim up to {_CORE_D_MAX}, as the '
+                             f'forward does, got {D}')
+
+        def smem(qt, kt):
+            return (4 * (3 * qt * D + 2 * kt * (D + 1) + 2 * qt * kt),
+                    4 * (2 * kt * (D + 1) + 2 * qt * (D + 1) + kt * (qt + 1)
+                         + 3 * qt + 2 * kt * D))
+        qt = 32 if max(smem(32, 64)) <= _SMEM_MAX else 16
+        kt = 2 * qt
+        q_smem, kv_smem = smem(qt, kt)
         plan = dict(path=0,
-                    q=_launch(32, _KEY_TILE, 1, q_smem, 256,
-                              (-(-L // 32), H, B)),
-                    kv=_launch(32, _KEY_TILE, 1, kv_smem, 256,
-                               (-(-L // _KEY_TILE), H, B)),
+                    q=_launch(qt, kt, 1, q_smem, 256, (-(-L // qt), H, B)),
+                    kv=_launch(qt, kt, 1, kv_smem, 256, (-(-L // kt), H, B)),
                     rope=None)
     plan['stats_len'] = -(-L // _KEY_TILE) * _KEY_TILE
     return plan

@@ -27,8 +27,8 @@ token stride (views into the fused qkv projection), as `ops.attention`
 takes them; the library's (B, H, L, D) swap is layout only. l, m and di
 are (B, H, L) float32. On CUDA tensors each wrapper launches its kernel of
 `csrc/flash_attention.cu` or raises; `flash_plan` mirrors which (bf16
-rows on 16-byte boundaries: D = 64 on wgmma for K20 and K21, D a multiple
-of 16 up to 48, and K22 up to 64, on `mma.sync`; everything else, every
+rows on 16-byte boundaries: D = 64 on wgmma, D a multiple of 16 up to
+48 on `mma.sync`; everything else, every
 head width the library takes up to D = 512, on the CUDA cores; each
 wrapper's `tensor_core_launches` counts the first two, `wgmma_launches`
 the first). On CPU tensors the plain versions below run. Shapes the
@@ -238,7 +238,12 @@ def flash_plan(B, L, H, D, dtype, aligned=True):
         dkv = _launch(0, own, 32, 1, 4 * (2 * own * (D + 1) + 2 * 32 * (D + 1)
                                           + 2 * own * 33 + 3 * 32),
                       256, (L // own, H, B))
-    if mma:
+    if mma and D == 64:
+        # One warpgroup of 64 query rows, its Q and dO tiles and a
+        # three-stage ring of 64-key (K, V) tile pairs.
+        dq = _launch(2, 64, 64, 3, 2 * _TILE + 3 * 2 * _TILE, 128,
+                     (L // 64, H, B))
+    elif mma:
         dq = _launch(1, 128, 64, 2, 4 * 64 * pad, 256, (L // 128, H, B))
     else:
         dq = _launch(0, own, 32, 1, 4 * (2 * own * (D + 1) + 2 * 32 * (D + 1)

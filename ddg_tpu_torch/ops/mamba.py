@@ -66,6 +66,7 @@ _GROUP = 16                     # states a thread holds; more run in groups
 _MAX_RANK = 64                  # dt_rank: two register tiles of W_dt
 _TAPS = (4, 8)                  # conv taps built; fewer are padded with zeros
 _SMEM = 232448                  # shared memory a block can have
+_SUB_ROWS = 64                  # rows of the adjoint's sub-chunks
 
 
 def _n_pad(N: int) -> int:
@@ -79,19 +80,27 @@ def _round4(R: int) -> int:
 def scan_smem(chunk: int, N: int, R: int = 0) -> int:
     """Bytes of shared memory of the largest block of the scan's forward and
     adjoint passes, as csrc's `scan_smem1/3` and `scan_bwd_smem1/3` count
-    them (R > 0: the low-rank form, K16 and K17): the chunk's B and C rows
-    padded to whole groups of 16 states, the staged segment, the forward
-    checkpoints, and past 16 states each row's running C.h sum."""
+    them (R > 0: the low-rank form, K16 and K17). The forward's: the
+    chunk's B and C rows padded to whole groups of 16 states (and dt_lr
+    rows), past 16 states each row's running C.h sum. The adjoint's, which
+    run on sub-chunks of at most 64 rows: pass 1's C rows and staged
+    16-row segment; pass 3's B and C rows, five values a row for the
+    tile's 64 channels (8 where those do not fit), three float4 summaries
+    a lane for each 8-row segment, past 16 states each row's C.h for the 64
+    channels, and in the low-rank form W_dt's columns."""
     Np, lr = _n_pad(N), (_round4(R) if R else 0)
     grp = N > _GROUP
     low = 16 * lr + (lr + 1) * 64 if R else 0
-    staged = 5 * 16 * 64
+    staged = 2 * 16 * 64
+    sc = min(chunk, _SUB_ROWS)
+
+    def pass3(gch):
+        return 4 * (2 * sc * Np + 5 * sc * gch + 384 * -(-sc // 8)
+                    + (sc * 64 if grp else 0) + ((lr + 1) * 64 if R else 0))
     return max(4 * chunk * (Np + lr),
                4 * chunk * (2 * Np + lr + (128 if grp else 0)),
-               4 * (chunk * Np + staged + low),
-               4 * (2 * chunk * Np + 16 * 8 * 32 + staged
-                    + (chunk * 64 if grp else 0) + low)
-               + 16 * -(-chunk // 16) * 256)
+               4 * (sc * Np + staged + low),
+               pass3(64) if pass3(64) <= _SMEM else pass3(8))
 
 
 def _front_tile(d: int, R: int, esize: int) -> int:
@@ -108,12 +117,16 @@ def mamba_inner_takes(H: int, d: int, N: int, R: int, K: int,
                       compute_dtype, chunk: int = 128) -> bool:
     """Whether K18 and K19 take a block of hidden H, d_inner d, d_state
     N, dt_rank R, d_conv K and scan chunk `chunk` in `compute_dtype` on the
-    card: H % 8 == 0 and d % 8 (16 in bfloat16) == 0 for the products;
-    dt_rank <= 64 (W_dt's column in two register tiles of 32); d_conv <= 8
-    (built for 4 and 8 taps, `pad_taps`); a d_inner whose front tile of 16
-    rows of u fits in shared memory (up to 3560 in float32, 7120 in
-    bfloat16; dt_rank <= 64 already caps hidden at 1024, d_inner 2048 at
-    expand 2); d_state and chunk as `ssm_scan_takes`."""
+    card, and which kernel sets each limit: H % 8 == 0 and d % 8 (16 in
+    bfloat16) == 0, the products' rows (both); dt_rank <= 64, W_dt's
+    column in two register tiles of 32 (K18's front, which K19 reruns, and
+    K19's dt_proj adjoint); d_conv <= 8, built for 4 and 8 taps
+    (`pad_taps`; K18's front and K19's conv adjoint); a d_inner whose
+    front tile of 16 rows of u fits in shared memory (K18's front: up to
+    3560 in float32, 7120 in bfloat16; dt_rank <= 64 already caps hidden
+    at 1024, d_inner 2048 at expand 2); d_state and chunk as
+    `ssm_scan_takes` (K18's scan pass 3: at chunk 128, d_state <= 160;
+    K19's adjoint runs on sub-chunks of 64 rows and needs less)."""
     esize = 2 if compute_dtype == torch.bfloat16 else 4
     return (compute_dtype in _DTYPES and H % 8 == 0
             and d % (16 if compute_dtype == torch.bfloat16 else 8) == 0
@@ -134,7 +147,8 @@ def pad_taps(conv_w):
 def ssm_scan_takes(d: int, N: int, chunk: int = 128) -> bool:
     """Whether K14 and K15 take d_inner d, d_state N and `chunk` on the
     card: any d and N whose blocks' shared memory fits (`scan_smem`; at
-    chunk 128, d_state <= 112)."""
+    chunk 128, d_state <= 160, set by the forward's pass 3: K15's passes
+    work on sub-chunks of 64 rows and need less)."""
     return d > 0 and N > 0 and chunk > 0 and scan_smem(chunk, N) <= _SMEM
 
 
@@ -142,7 +156,8 @@ def ssm_scan_dtlr_takes(d: int, N: int, R: int, chunk: int = 128) -> bool:
     """Whether K16 and K17 take d_inner d, d_state N, dt_rank R and `chunk`
     on the card: dt_rank <= 64, and the blocks' shared memory with the
     staged dt_lr rows and W_dt columns fits (`scan_smem`; at chunk 128,
-    d_state <= 96 with dt_rank 64)."""
+    d_state <= 144 at dt_rank 16, <= 112 at dt_rank 64, both set by K16's
+    pass 3)."""
     return (d > 0 and N > 0 and chunk > 0 and 0 < R <= _MAX_RANK
             and scan_smem(chunk, N, R) <= _SMEM)
 

@@ -45,7 +45,7 @@ GROUPS = (   # first match wins; matched against the kernel's name
     ('K11/K12 head_sample', ('head_sample', 'head_merge')),
     ('K9/K10 uniform_sample', ('uniform_sample',)),
     ('K13 groupnorm', ('gn_stats', 'gn_apply')),
-    ('K18 in/out_proj', ('gemm_bf16_kernel', 'gemm_f32_kernel')),
+    ('K18 in/out_proj', ('gemm_wgmma_kernel', 'gemm_f32_kernel')),
     ('K18 conv/x_proj/dt_proj', ('mamba_front',)),
     ('K18/K14 scan', ('scan_chunk', 'scan_carry', 'scan_out')),
     ('gemm/conv', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas', 'conv',

@@ -52,12 +52,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 GROUPS = (   # first match wins; matched against the kernel's name
     # The library flash attention's kernels ('flash' route): the wgmma
-    # (bf16, D = 64; K20, K21), mma.sync (bf16, D <= 64) and CUDA-core
+    # (bf16, D = 64), mma.sync (bf16, D <= 48) and CUDA-core
     # instantiations of each.
     ('K20 flash attention fwd', ('fwd_wgmma(', 'fwd_mma<', 'fwd_core<')),
     ('K21 flash attention dK/dV and di', ('dkv_wgmma(', 'dkv_mma<',
                                           'dkv_core<')),
-    ('K22 flash attention dQ', ('dq_mma<', 'dq_core<')),
+    ('K22 flash attention dQ', ('dq_wgmma(', 'dq_mma<', 'dq_core<')),
     # The attention kernels' RoPE flag is their template's `true`.
     # K1b and K2b share their two kernels, the query-tile one (dq) and the
     # key-tile one (dk, dv): the route says which runs (K1b on 'fused_rope'

@@ -230,11 +230,22 @@ def test_shared_memory_does_not_grow_with_length(dtype, D):
 
 
 def test_shapes_no_kernel_takes_raise():
-    # 174 is the widest even head the CUDA-core key-tile kernel's shared
-    # memory holds: (320 D + 2400) floats.
+    # 174 is the widest even head the CUDA-core kernels' 32-row, 64-key
+    # tiles hold ((320 D + 2400) floats for the key-tile kernel); past it
+    # they halve, up to 290, the widest head the CUDA-core forward takes
+    # (ROADMAP C.7): the backward refuses 292 as the forward does.
     plan = tat.backward_plan(1, 16, 1, 174, torch.float32)
     assert max(plan['q']['smem'], plan['kv']['smem']) <= SMEM_MAX
-    for args in ((1, 16, 1, 176, torch.float32), (1, 16, 1, 63,
+    assert (plan['q']['q_tile'], plan['q']['k_tile']) == (32, 64)
+    for D in range(176, 292, 2):
+        plan = tat.backward_plan(1, 16, 1, D, torch.float32)
+        assert max(plan['q']['smem'], plan['kv']['smem']) <= SMEM_MAX
+        assert (plan['q']['q_tile'], plan['q']['k_tile']) == (16, 32)
+        assert plan['kv']['grid'] == (1, 1, 1)
+    tat.forward_plan(1, 16, 1, 290, torch.float32)
+    with pytest.raises(ValueError):
+        tat.forward_plan(1, 16, 1, 292, torch.float32)
+    for args in ((1, 16, 1, 292, torch.float32), (1, 16, 1, 63,
                                                  torch.bfloat16),
                  (0, 16, 1, 64, torch.bfloat16), (1, 0, 1, 64, torch.float32),
                  (1, 16, 1, 64, torch.float16)):

@@ -88,3 +88,34 @@ def test_bwd_rounds_where_the_vjp_rounds():
         assert g.dtype == torch.bfloat16
         scale = r.abs().max().item()
         assert (g.float() - r).abs().max().item() <= 4 * scale * 2 ** -8
+
+
+@pytest.mark.parametrize('route', ['fused_rope', 'short_seq'])
+def test_bwd_matches_pallas_vjp_at_head_dim_192(route):
+    """A head width the CUDA-core backward takes only on its halved tiles
+    (past 174, up to the forward's 290): both plain backwards against
+    `jax.vjp` of the Pallas kernels (interpret=True), causal, at L=40."""
+    length, D = 40, 192
+    r = np.random.RandomState(30)
+    q, k, v, do = (r.randn(B, length, H, D).astype(np.float32)
+                   for _ in range(4))
+    cos, sin = (np.array(a) for a in jdit.rope_cos_sin(length, D))
+    if route == 'fused_rope':
+        def fn(q, k, v):
+            return jat.fused_rope_attention(
+                q, k, v, jnp.asarray(cos), jnp.asarray(sin), causal=True,
+                interpret=True)
+        got = tat.fused_rope_attention_bwd_plain(
+            *(T(a) for a in (q, k, v, cos, sin, do)), causal=True)
+    else:
+        def fn(q, k, v):
+            return jat.short_seq_attention(q, k, v, causal=True,
+                                           interpret=True)
+        got = tat.short_seq_attention_bwd_plain(
+            *(T(a) for a in (q, k, v, do)), causal=True)
+    _, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    assert tat.backward_plan(B, length, H, D, torch.float32)['q'][
+        'q_tile'] == 16

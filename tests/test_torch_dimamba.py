@@ -311,9 +311,10 @@ def test_auto_route_follows_the_kernels_limits(d_conv, d_state, want):
     assert resolve_route(dataclasses.replace(cfg, d_conv=9), L,
                          on_card=True) == 'scan_kernel'
     # What the card's kernels still refuse raises, naming the kernel: a
-    # d_state whose blocks overflow shared memory, and dt_rank 65 (> 64) at
-    # hidden 1040.
-    big = dataclasses.replace(cfg, d_state=128)
+    # d_state whose blocks overflow shared memory (past 160 at chunk 128,
+    # the forward's pass 3 since the adjoint's sub-chunks), and dt_rank 65
+    # (> 64) at hidden 1040.
+    big = dataclasses.replace(cfg, d_state=176)
     with pytest.raises(ValueError, match='K18/K19'):
         resolve_route(big, L, on_card=True)
     with pytest.raises(ValueError, match='K14/K15'):

@@ -64,6 +64,19 @@ def interpret(option):
             else contextlib.nullcontext())
 
 
+def jax_logits(option, weights, x, sigma):
+    """The flax DIT's logits as one jitted call, waited for before anything
+    else is dispatched. The TPU interpret mode's io_callbacks dispatch jnp
+    operations of their own; run op by op, the flax forward kept
+    dispatching past the flash kernel, and a callback's operation could
+    queue behind one that waits on the kernel's output (a deadlock that
+    showed under CPU contention)."""
+    model = jdit.DIT(jax_cfg(**OPTIONS[option]))
+    with interpret(option):
+        return jax.block_until_ready(jax.jit(model.apply)(
+            {'params': weights}, jnp.asarray(x), jnp.asarray(sigma)))
+
+
 @pytest.fixture(scope='module')
 def weights():
     """JAX-initialised params perturbed by seeded noise (flax zero-inits
@@ -82,9 +95,7 @@ def test_logits_match_jax(weights, option):
     r = np.random.RandomState(2)
     x = r.randint(0, V, (2, L)).astype(np.int32)
     sigma = r.uniform(0, 2, 2).astype(np.float32)
-    with interpret(option):
-        want = jdit.DIT(jax_cfg(**OPTIONS[option])).apply(
-            {'params': weights}, jnp.asarray(x), jnp.asarray(sigma))
+    want = jax_logits(option, weights, x, sigma)
     assert float(jnp.abs(want).max()) > 0.1      # not trivially zero
     m = torch_model(weights, **OPTIONS[option]).eval()
     before = flash_attention.flash_attention_fwd.launches

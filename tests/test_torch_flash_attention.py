@@ -59,12 +59,21 @@ def library(q, k, v, do, causal, jdt):
     blocks = lib.BlockSizes.get_default(*q.shape[:1], 2, q.shape[1],
                                         q.shape[1], q.shape[-1])
     jq, jk, jv, jdo = (_to_jax(a, jdt) for a in (q, k, v, do))
-    with pltpu.force_tpu_interpret_mode():
+
+    def run(jq, jk, jv, jdo):
         o, l, m = lib._flash_attention(jq, jk, jv, None, None, True, causal,
                                        sc, blocks, False)
         _, vjp = jax.vjp(lambda a, b, c: lib.flash_attention(
             a, b, c, causal=causal, sm_scale=sc), jq, jk, jv)
-        grads = vjp(jdo)
+        return (o, l, m), vjp(jdo)
+
+    # One jitted call, waited for before anything else is dispatched: the
+    # interpret mode's io_callbacks dispatch jnp operations of their own,
+    # which can deadlock behind work queued on the kernel's outputs
+    # (tests/test_torch_dit_attention_options.py:jax_logits).
+    with pltpu.force_tpu_interpret_mode():
+        (o, l, m), grads = jax.block_until_ready(
+            jax.jit(run)(jq, jk, jv, jdo))
     dt = torch.float32 if jdt == jnp.float32 else torch.bfloat16
     return ([_to_torch(x.swapaxes(1, 2), dt) for x in (o, *grads)],
             [_to_torch(x, torch.float32) for x in (l, m)])

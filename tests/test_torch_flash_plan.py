@@ -41,17 +41,35 @@ def test_shared_memory_fits_every_shape(dtype, aligned):
 @pytest.mark.parametrize('L', [128, 256, 384, 1024])
 def test_bf16_d64_takes_wgmma(L):
     plan = fa.flash_plan(4, L, 12, 64, torch.bfloat16)
-    assert plan['fwd']['path'] == plan['dkv']['path'] == 2
+    assert [plan[k]['path'] for k in KERNELS] == [2, 2, 2]
     assert fa.PATHS[plan['fwd']['path']] == 'wgmma'
-    assert plan['dq']['path'] == 1            # K22 keeps mma.sync
-    # One warpgroup: 64 query rows (K20) or keys (K21) a block; K20 takes
-    # a library block of 128 keys a step, K21 64 query rows.
+    # One warpgroup: 64 query rows (K20, K22) or keys (K21) a block; K20
+    # takes a library block of 128 keys a step, K21 64 query rows, K22 64
+    # keys through a three-stage ring.
     assert (plan['fwd']['tile'], plan['fwd']['step']) == (64, 128)
     assert (plan['dkv']['tile'], plan['dkv']['step']) == (64, 64)
-    assert plan['fwd']['threads'] == plan['dkv']['threads'] == 128
-    # Three blocks an SM of each: K20's take 72 KB, K21's 66 KB.
-    assert 3 * plan['fwd']['smem'] <= 228 * 1024
-    assert 3 * plan['dkv']['smem'] <= 228 * 1024
+    assert (plan['dq']['tile'], plan['dq']['step'],
+            plan['dq']['stages']) == (64, 64, 3)
+    assert all(plan[k]['threads'] == 128 for k in KERNELS)
+    assert plan['dq']['grid'] == (L // 64, 12, 4)
+    # Three blocks an SM of each: K20's take 72 KB, K21's 66 KB, K22's 64.
+    for k in KERNELS:
+        assert 3 * plan[k]['smem'] <= 228 * 1024
+    assert plan['dq']['smem'] == 64 * 1024
+
+
+@pytest.mark.parametrize('dtype, D, aligned, path', [
+    (torch.bfloat16, 48, True, 1), (torch.bfloat16, 32, True, 1),
+    (torch.bfloat16, 64, False, 0), (torch.float32, 64, True, 0),
+    (torch.bfloat16, 128, True, 0)])
+def test_k22_keeps_its_old_paths_elsewhere(dtype, D, aligned, path):
+    """Only bf16 D = 64 on 16-byte rows moved to wgmma; K22's mma.sync
+    kernel (128 rows a block, 64 keys a step) and CUDA-core kernel keep
+    the other shapes."""
+    dq = fa.flash_plan(2, 256, 2, D, dtype, aligned=aligned)['dq']
+    assert dq['path'] == path
+    if path == 1:
+        assert (dq['tile'], dq['step'], dq['threads']) == (128, 64, 256)
 
 
 @pytest.mark.parametrize('D', [16, 32, 48])
