@@ -142,9 +142,12 @@ their plain versions, fp32 and bf16, at B=2, L=2048, at a ragged channel
 tile, at 16 x 32768 and at the dt-lowrank training micro-batch
 (DIMAMBA_DTLR_TRAIN_MICRO_BATCH x 32768), K16 also bit for bit against K14
 fed its composite delta, K17 rerun bit-identical, K16 timed in bf16 at the
-serving shape (16 x 32768) and K17 at the training one, beside their
+serving shape (16 x 32768) and at the training one, K17 at the training
+one beside K15 on the same operands (K17's own part) and with its
+workspace past the adjoint's held below M x d x 4 bytes, beside their
 composites; K14-K19 at the shapes they were widened to take (d_state 24
-and 64, d_conv 6 and 8, hidden 768 with dt_rank 48) against their plain
+and 64, d_conv 6 and 8, hidden 768 with dt_rank 48; the scans also at
+d_state 192 with dt_rank 96) against their plain
 versions, fp32 and bf16 (fp32 rows to 1e-4 of their largest magnitude,
 K14 and K15 also against float64, recorded), the backwards twice each
 with bit-identical outputs; and the wrappers' mirror of the kernels'
@@ -1658,6 +1661,9 @@ WIDE_SHAPES = (('d_state24', SH, SD, 24, SR, 4), ('d_state64', SH, SD, 64, SR, 4
                ('d_conv6', SH, SD, SN, SR, 6), ('d_conv8', SH, SD, SN, SR, 8),
                ('hidden768', 768, 1536, SN, 48, 4))
 WIDE_B, WIDE_L = 2, 1024
+# The scans alone (K14-K17) also at d_state 192 with dt_rank 96, past the
+# fused block's dt_rank: (label, d_inner, d_state, dt_rank).
+WIDE_SCAN_SHAPES = (('d_state192_rank96', SD, 192, 96),)
 
 
 def _scan_inputs(gen, dtype, Bt, Lm, d=SD, N=SN, R=SR):
@@ -1680,24 +1686,28 @@ def check_mamba_dtlr(results, gen):
     """K16 (`ssm_scan_dtlr`) against its plain version, and bit for bit
     against K14 fed the composite softplus(dt_lr W_dt + b_dt) (y and h0s
     equal), fp32 and bf16: at B=2, L=2048, at d_inner 200 (a ragged
-    channel tile of the scan's 128), at the dt-lowrank serving path's shape
+    channel tile of the scan's 128; also at chunk 60, a sub-chunk of 60
+    rows in the backward), at the dt-lowrank serving path's shape
     (16 x 32768: D-CFG doubles B=8; d 512, N 16, R 16) and at its training
     path's (DIMAMBA_DTLR_TRAIN_MICRO_BATCH x 32768). Timed in bf16 at the
     serving shape beside its bound, its plain version and the composite
-    (dt_proj by torch.matmul, softplus, K14)."""
+    (dt_proj by torch.matmul, softplus, K14), and at the training shape
+    (`ms_train_shape`)."""
     from ddg_tpu_torch.entry import DIMAMBA_DTLR_TRAIN_MICRO_BATCH as TB
     from ddg_tpu_torch.ops import mamba as M
     SB2 = 2 * SB
     for dtype in (torch.float32, torch.bfloat16):
         rec = {}
-        for Bt, Lm, d in ((2, 2048, SD), (2, 1024, 200), (SB2, SL, SD),
-                          (TB, SL, SD)):
+        for Bt, Lm, d, chunk in ((2, 2048, SD, 128), (2, 1024, 200, 128),
+                                 (2, 960, 200, 60), (SB2, SL, SD, 128),
+                                 (TB, SL, SD, 128)):
             a16, a14 = _scan_inputs(gen, dtype, Bt, Lm, d=d)
-            got = M.ssm_scan_dtlr(*a16, return_h0s=True)
-            name = f'ssm_scan_dtlr B={Bt} L={Lm} d={d}'
+            got = M.ssm_scan_dtlr(*a16, chunk=chunk, return_h0s=True)
+            name = f'ssm_scan_dtlr B={Bt} L={Lm} d={d} chunk={chunk}'
             _fwd_pair(rec, name, dtype, got,
-                      M.ssm_scan_dtlr_plain(*a16, return_h0s=True))
-            want = M.ssm_scan(*a14, return_h0s=True)
+                      M.ssm_scan_dtlr_plain(*a16, chunk=chunk,
+                                            return_h0s=True))
+            want = M.ssm_scan(*a14, chunk=chunk, return_h0s=True)
             check(torch.equal(got[0], want[0])
                   and torch.equal(got[1], want[1]),
                   f'{name} {dtype}: differs from K14 fed the composite '
@@ -1716,6 +1726,10 @@ def check_mamba_dtlr(results, gen):
     rec['composite_ms'] = time_ms(lambda: M.ssm_scan(
         a14[0], M.softplus(lr @ w_dt + b_dt), *a14[2:]), reps=10)
     rec['library_ms'] = None
+    del a16, a14
+    a16, _ = _scan_inputs(gen, bf, TB, SL)
+    rec['ms_train_shape'] = time_ms(lambda: M.ssm_scan_dtlr(*a16), reps=10)
+    del a16
     # Bytes: u, z, y (bf16) per (row, channel); dt_lr (fp32), B and C per
     # row; the chunk entry states out; the weights. Operations: per (row,
     # channel) exp(delta A) per state, softplus's exp and log1p and the
@@ -1749,9 +1763,9 @@ def check_mamba_smem():
           f'{M._SMEM}')
     n = 0
     for chunk in (128, 16):
-        for N in sorted({SN, 24, 64, 96, 97, 112, 113, 128, 144, 145, 160,
-                         161}):
-            for R in (0, SR, 48, 64):
+        for N in sorted({SN, 17, 24, 64, 96, 97, 112, 113, 128, 144, 145,
+                         160, 161, 176, 192, 512}):
+            for R in (0, SR, 48, 64, 96, 128, 184, 185, 248, 249):
                 py, c = M.scan_smem(chunk, N, R), max(fwd(chunk, N, R),
                                                       bwd(chunk, N, R))
                 check(py == c, f'scan_smem(chunk={chunk}, N={N}, R={R}): '
@@ -1785,13 +1799,30 @@ def _f64_gap(outs, got, plain, exact):
             for n, g, p, e in zip(outs, got, plain, exact)}
 
 
+def _wide_scans(results, gen, dtype, label, d, N, R):
+    """K14 and K16 against their plain versions at one widened shape (fp32
+    rows to 1e-4 of their largest magnitude); in fp32 K14's y from both
+    also against float64 (recorded)."""
+    from ddg_tpu_torch.ops import mamba as M
+    a16, a14 = _scan_inputs(gen, dtype, WIDE_B, WIDE_L, d=d, N=N, R=R)
+    for name, fn, plain, a in (
+            ('ssm_scan', M.ssm_scan, M.ssm_scan_plain, a14),
+            ('ssm_scan_dtlr', M.ssm_scan_dtlr, M.ssm_scan_dtlr_plain, a16)):
+        rec = results[name][str(dtype)]
+        got, want = fn(*a, return_h0s=True), plain(*a, return_h0s=True)
+        rec.setdefault('widened', {})[label] = _fwd_pair(
+            rec, f'{name} {label}', dtype, got, want, rel=True)['err']
+        if name == 'ssm_scan' and dtype == torch.float32:
+            rec.setdefault('widened_vs_f64', {})[label] = _f64_gap(
+                ('y',), got, want, _f64_scan(a14))
+
+
 def check_mamba_wide(results, gen):
     """The C.1 shapes (WIDE_SHAPES) on K18, K14 and K16 against their plain
     versions, fp32 and bf16, fp32 rows to 1e-4 of their largest magnitude
     (`_close`'s `rel`): K18 at every shape, the scans at those whose
-    d_state, d_inner or dt_rank differ from Species10's. In fp32 K14's y
-    from the plain version and the kernel is also held against float64
-    (`_f64_scan`; recorded, the basis of that bar)."""
+    d_state, d_inner or dt_rank differ from Species10's and at the
+    WIDE_SCAN_SHAPES (`_wide_scans`)."""
     from ddg_tpu_torch.ops import mamba as M
     for dtype in (torch.float32, torch.bfloat16):
         for label, H, d, N, R, K in WIDE_SHAPES:
@@ -1803,20 +1834,10 @@ def check_mamba_wide(results, gen):
             rec.setdefault('widened', {})[label] = _fwd_pair(
                 rec, f'mamba_inner {label}', dtype, M.mamba_inner(h, **w, **kw),
                 M.mamba_inner_plain(h, **w, **kw), rel=True)['err']
-            if K != 4:
-                continue
-            a16, a14 = _scan_inputs(gen, dtype, WIDE_B, WIDE_L, d=d, N=N, R=R)
-            for name, fn, plain, a in (
-                    ('ssm_scan', M.ssm_scan, M.ssm_scan_plain, a14),
-                    ('ssm_scan_dtlr', M.ssm_scan_dtlr, M.ssm_scan_dtlr_plain,
-                     a16)):
-                rec = results[name][str(dtype)]
-                got, want = fn(*a, return_h0s=True), plain(*a, return_h0s=True)
-                rec.setdefault('widened', {})[label] = _fwd_pair(
-                    rec, f'{name} {label}', dtype, got, want, rel=True)['err']
-                if name == 'ssm_scan' and dtype == torch.float32:
-                    rec.setdefault('widened_vs_f64', {})[label] = _f64_gap(
-                        ('y',), got, want, _f64_scan(a14))
+            if K == 4:
+                _wide_scans(results, gen, dtype, label, d, N, R)
+        for label, d, N, R in WIDE_SCAN_SHAPES:
+            _wide_scans(results, gen, dtype, label, d, N, R)
 
 
 # Outputs of the backward kernels: per row (the 1e-4 / 2-ulp bars) or sums
@@ -1992,20 +2013,21 @@ def check_mamba_bwd(results):
     check_mamba_wide_bwd(results, gen)
 
 
-def _k17_args(gen, dtype, Bt, Lm, d=SD, N=SN, R=SR):
+def _k17_args(gen, dtype, Bt, Lm, d=SD, N=SN, R=SR, chunk=128):
     """K17's arguments: K16's inputs, the chunk entry states of K16's
     forward on them and a cotangent."""
     from ddg_tpu_torch.ops import mamba as M
     a16, _ = _scan_inputs(gen, dtype, Bt, Lm, d=d, N=N, R=R)
-    _, h0s = M.ssm_scan_dtlr(*a16, return_h0s=True)
+    _, h0s = M.ssm_scan_dtlr(*a16, chunk=chunk, return_h0s=True)
     return (*a16, h0s, _rand(gen, Bt, Lm, d, dtype=dtype))
 
 
 def check_mamba_dtlr_bwd(results, gen):
     """K17 (`ssm_scan_dtlr_bwd`) against its plain backward, fp32 and bf16,
     twice each with bit-identical outputs (`_bwd_case`): at B=2, L=2048, at
-    d_inner 200 (ragged channel tiles of the adjoint's 64 and the dt
-    adjoint's 128), at 16 x 32768 (the fused route's micro-batch) and at
+    d_inner 200 (a ragged channel tile of the adjoint's 64; also at chunk
+    60, one sub-chunk of 60 rows with a partial segment), at 16 x 32768
+    (the fused route's micro-batch) and at
     the dt-lowrank training path's shape, DIMAMBA_DTLR_TRAIN_MICRO_BATCH x
     32768. Timed in bf16 at the path's shape beside its bound, its plain
     version and the composite (dt_proj and softplus, K15, the dt products
@@ -2014,12 +2036,14 @@ def check_mamba_dtlr_bwd(results, gen):
     from ddg_tpu_torch.ops import mamba as M
     for dtype in (torch.float32, torch.bfloat16):
         rec = {}
-        for Bt, Lm, d in ((2, 2048, SD), (2, 1024, 200), (2 * SB, SL, SD),
-                          (TB, SL, SD)):
-            a = _k17_args(gen, dtype, Bt, Lm, d=d)
-            _bwd_case(rec, f'ssm_scan_dtlr_bwd B={Bt} L={Lm} d={d}', dtype,
-                      K17_OUT, lambda: M.ssm_scan_dtlr_bwd(*a),
-                      lambda: M.ssm_scan_dtlr_bwd_plain(*a))
+        for Bt, Lm, d, chunk in ((2, 2048, SD, 128), (2, 1024, 200, 128),
+                                 (2, 960, 200, 60), (2 * SB, SL, SD, 128),
+                                 (TB, SL, SD, 128)):
+            a = _k17_args(gen, dtype, Bt, Lm, d=d, chunk=chunk)
+            _bwd_case(rec, f'ssm_scan_dtlr_bwd B={Bt} L={Lm} d={d} '
+                      f'chunk={chunk}', dtype, K17_OUT,
+                      lambda: M.ssm_scan_dtlr_bwd(*a, chunk=chunk),
+                      lambda: M.ssm_scan_dtlr_bwd_plain(*a, chunk=chunk))
             if Bt == TB and dtype == torch.bfloat16:
                 rec['ms'] = time_ms(lambda: M.ssm_scan_dtlr_bwd(*a), reps=10)
                 rec['plain_ms'] = time_ms(
@@ -2040,7 +2064,15 @@ def check_mamba_dtlr_bwd(results, gen):
 
                 rec['composite_ms'] = time_ms(composite, reps=10)
                 rec['library_ms'] = None
-                del u, lr, w_dt, b_dt, A, Bc, Cc, D, z, g, pre, h0s
+                # K15 on the same operands (delta the composite's), in the
+                # same call: K17's own part is the difference.
+                delta = M.softplus(pre)
+                rec['k15_ms'] = time_ms(lambda: M.ssm_scan_bwd(
+                    u, delta, A, Bc, Cc, D, z, h0s, g), reps=10)
+                rec['own_ms'] = rec['ms'] - rec['k15_ms']
+                emit({'phase': 'k17_own_part', 'k17_ms': rec['ms'],
+                      'k15_ms': rec['k15_ms'], 'own_ms': rec['own_ms']})
+                del u, lr, w_dt, b_dt, A, Bc, Cc, D, z, g, pre, h0s, delta
             del a
         results['ssm_scan_dtlr_bwd'][str(dtype)] = rec
     rec = results['ssm_scan_dtlr_bwd'][str(torch.bfloat16)]
@@ -2049,26 +2081,62 @@ def check_mamba_dtlr_bwd(results, gen):
     # states; the weights and their gradients. Operations: per (row,
     # channel) exp(delta A) per state, softplus's exp and log1p and the
     # sigmoids of z and pre on the SFU; dt_proj, its adjoint and dW_dt in
-    # fp32. The ddelta workspace (fp32, written and read) is this design's
-    # and not the function's: it is in `bound_with_workspace_ms` only.
+    # fp32.
     M_rows, n_chunks = TB * SL, SL // 128
     nbytes = (M_rows * SD * 10 + M_rows * (8 * SR + 8 * SN)
               + TB * n_chunks * SN * SD * 4 + 8 * SD * (SR + SN + 2))
     ops = ((M_rows * SD * (SN + 4), PEAK_SFU),
            (3 * 2 * M_rows * SR * SD, PEAK_FP32))
     rec['bound_ms'], rec['bound_by'] = bound_mixed(nbytes, ops)
-    rec['bound_with_workspace_ms'] = bound_mixed(
-        nbytes + M_rows * SD * 8, ops)[0]
     rec['shape'] = [TB, SL, SD, SN, SR]
+    # K17's workspace past the adjoint's own (K15's at the same shape) holds
+    # no (M, d) array: ddelta stays in pass 3's shared memory.
+    ws17 = M.workspace_bytes('ddg_ssm_scan_dtlr_bwd', TB, SL, SD, SN, SR, 128)
+    ws15 = M.workspace_bytes('ddg_ssm_scan_bwd', TB, SL, SD, SN, 128)
+    rec['workspace_bytes'] = ws17
+    rec['workspace_own_bytes'] = ws17 - ws15
+    check(ws17 - ws15 < M_rows * SD * 4,
+          f'K17 workspace {ws17} is {ws17 - ws15} bytes past the adjoint\'s '
+          f'{ws15}: not below M x d x 4 = {M_rows * SD * 4}')
+
+
+def _wide_scan_bwds(results, gen, dtype, label, d, N, R):
+    """K15 and K17 against their plain backwards at one widened shape, twice
+    each with bit-identical outputs, fp32 rows to 1e-4 of their largest
+    magnitude; in fp32 K15's per-row outputs from the plain version and the
+    kernel also against float64 (recorded)."""
+    from ddg_tpu_torch.ops import mamba as M
+    _, a14 = _scan_inputs(gen, dtype, WIDE_B, WIDE_L, d=d, N=N, R=R)
+    _, h0s = M.ssm_scan(*a14, return_h0s=True)
+    a15 = (*a14, h0s, _rand(gen, WIDE_B, WIDE_L, d, dtype=dtype))
+    rec = results['ssm_scan_bwd'][str(dtype)]
+    got = _bwd_case(rec, f'ssm_scan_bwd {label}', dtype, K15_OUT,
+                    lambda: M.ssm_scan_bwd(*a15),
+                    lambda: M.ssm_scan_bwd_plain(*a15), rel=True)
+    if dtype == torch.float32:
+        # float64 adjoint from the float64 forward's entry states.
+        h0s64 = _f64_scan(a14)[1]
+        ddt, du, dB, dC, _, dz, _, _ = M.scan_bwd_chunks(
+            *(t.double() for t in a14[:2]), M._round_trip(a14[2]).double(),
+            *(t.double() for t in a14[3:]), a15[-1].double(), h0s64, 128)
+        plain = M.ssm_scan_bwd_plain(*a15)
+        rec.setdefault('widened_vs_f64', {})[label] = _f64_gap(
+            ('du', 'ddelta', 'dB', 'dC', 'dz'),
+            [got[i] for i in (0, 1, 2, 3, 5)],
+            [plain[i] for i in (0, 1, 2, 3, 5)], (du, ddt, dB, dC, dz))
+    a17 = _k17_args(gen, dtype, WIDE_B, WIDE_L, d=d, N=N, R=R)
+    _bwd_case(results['ssm_scan_dtlr_bwd'][str(dtype)],
+              f'ssm_scan_dtlr_bwd {label}', dtype, K17_OUT,
+              lambda: M.ssm_scan_dtlr_bwd(*a17),
+              lambda: M.ssm_scan_dtlr_bwd_plain(*a17), rel=True)
 
 
 def check_mamba_wide_bwd(results, gen):
     """The C.1 shapes (WIDE_SHAPES) on K19, K15 and K17 against their plain
     backwards, fp32 and bf16, twice each with bit-identical outputs, fp32
     rows to 1e-4 of their largest magnitude: K19 at every shape, the scans
-    at those whose d_state, d_inner or dt_rank differ from Species10's. In
-    fp32 K15's per-row outputs from the plain version and the kernel are
-    also held against float64 (recorded)."""
+    at those whose d_state, d_inner or dt_rank differ from Species10's and
+    at the WIDE_SCAN_SHAPES (`_wide_scan_bwds`)."""
     from ddg_tpu_torch.ops import mamba as M
     for dtype in (torch.float32, torch.bfloat16):
         for label, H, d, N, R, K in WIDE_SHAPES:
@@ -2082,34 +2150,10 @@ def check_mamba_wide_bwd(results, gen):
             _bwd_case(rec, f'mamba_inner_bwd {label}', dtype, K19_OUT,
                       lambda: M.mamba_inner_bwd(*a19, **kw),
                       lambda: M.mamba_inner_bwd_plain(*a19, **kw), rel=True)
-            if K != 4:
-                continue
-            _, a14 = _scan_inputs(gen, dtype, WIDE_B, WIDE_L, d=d, N=N, R=R)
-            _, h0s = M.ssm_scan(*a14, return_h0s=True)
-            a15 = (*a14, h0s, _rand(gen, WIDE_B, WIDE_L, d, dtype=dtype))
-            rec = results['ssm_scan_bwd'][str(dtype)]
-            got = _bwd_case(rec, f'ssm_scan_bwd {label}', dtype, K15_OUT,
-                            lambda: M.ssm_scan_bwd(*a15),
-                            lambda: M.ssm_scan_bwd_plain(*a15), rel=True)
-            if dtype == torch.float32:
-                # float64 adjoint from the float64 forward's entry states.
-                h0s64 = _f64_scan(a14)[1]
-                ddt, du, dB, dC, _, dz, _, _ = M.scan_bwd_chunks(
-                    *(t.double() for t in a14[:2]),
-                    M._round_trip(a14[2]).double(),
-                    *(t.double() for t in a14[3:]), a15[-1].double(), h0s64,
-                    128)
-                plain = M.ssm_scan_bwd_plain(*a15)
-                rec.setdefault('widened_vs_f64', {})[label] = _f64_gap(
-                    ('du', 'ddelta', 'dB', 'dC', 'dz'),
-                    [got[i] for i in (0, 1, 2, 3, 5)],
-                    [plain[i] for i in (0, 1, 2, 3, 5)],
-                    (du, ddt, dB, dC, dz))
-            a17 = _k17_args(gen, dtype, WIDE_B, WIDE_L, d=d, N=N, R=R)
-            _bwd_case(results['ssm_scan_dtlr_bwd'][str(dtype)],
-                      f'ssm_scan_dtlr_bwd {label}', dtype, K17_OUT,
-                      lambda: M.ssm_scan_dtlr_bwd(*a17),
-                      lambda: M.ssm_scan_dtlr_bwd_plain(*a17), rel=True)
+            if K == 4:
+                _wide_scan_bwds(results, gen, dtype, label, d, N, R)
+        for label, d, N, R in WIDE_SCAN_SHAPES:
+            _wide_scan_bwds(results, gen, dtype, label, d, N, R)
 
 
 # ---------------------------------------------------------------------------
@@ -3935,7 +3979,8 @@ def main():
                     'logits_bit_equal_int8_dense',
                     'shape', 'sum_err_of_tol', 'widened',
                     'differs_from_plain',
-                    'bound_with_workspace_ms',
+                    'ms_train_shape', 'k15_ms', 'own_ms',
+                    'workspace_bytes', 'workspace_own_bytes',
                     'equals_ssm_scan_on_composite'):
             if key in r:
                 rows[-1][key] = r[key]

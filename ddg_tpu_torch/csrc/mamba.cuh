@@ -17,13 +17,11 @@ using ddg::to_f32;
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxN = 16;       // states a thread holds: a group; d_state loops over groups
-constexpr int kMaxR = 32;       // dt_rank of one tile of W_dt held in registers
-constexpr int kMaxRT = 2;       // tiles: dt_rank <= 64
+constexpr int kMaxR = 32;       // dt_rank of one tile of W_dt held in registers (K18's
+constexpr int kMaxRT = 2;       // front, K19's dt adjoint); tiles: dt_rank <= 64
 constexpr int kSmemMax = 232448;
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
-// d_state padded to whole groups of kMaxN (zero states).
-__host__ __device__ constexpr int n_pad(int n) { return (n + kMaxN - 1) / kMaxN * kMaxN; }
 
 // 1 / (1 + exp(-x)); the correctly rounded reciprocal is the division's result.
 __device__ __forceinline__ float sigmoid(float x) { return __frcp_rn(1.f + expf(-x)); }
@@ -35,8 +33,10 @@ __device__ __forceinline__ float softplus(float x) {
 
 // dt_proj's sum pre = dt_lr . w, fp32 FMAs with k ascending, four at a
 // time (lr zero past R up to a multiple of 4, w zero past R): the forward
-// and every adjoint form delta = softplus(pre + b_dt) from this one sum, so
-// they agree bit for bit. w in registers (a channel's column of W_dt)...
+// and every adjoint form delta = softplus(pre + b_dt) in this one order
+// (here with w in registers, a channel's column of W_dt; K16's
+// `delta_kernel` and K17's `dt_pre_rows` with it in shared memory), so
+// they agree bit for bit.
 template <int NW>
 __device__ __forceinline__ float dt_pre(const float* lr, const float (&w)[NW], int R) {
   float acc = 0.f;
@@ -48,19 +48,6 @@ __device__ __forceinline__ float dt_pre(const float* lr, const float (&w)[NW], i
     acc = fmaf(v.y, w[k + 1], acc);
     acc = fmaf(v.z, w[k + 2], acc);
     acc = fmaf(v.w, w[k + 3], acc);
-  }
-  return acc;
-}
-
-// ... or in shared memory, w[k * ldw] (zero rows past R up to round4(R)).
-__device__ __forceinline__ float dt_pre_s(const float* lr, const float* w, int ldw, int R) {
-  float acc = 0.f;
-  for (int k = 0; k < R; k += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(lr + k);
-    acc = fmaf(v.x, w[k * ldw], acc);
-    acc = fmaf(v.y, w[(k + 1) * ldw], acc);
-    acc = fmaf(v.z, w[(k + 2) * ldw], acc);
-    acc = fmaf(v.w, w[(k + 3) * ldw], acc);
   }
   return acc;
 }
@@ -464,40 +451,16 @@ cudaError_t front(const T* xz, const T* cw, const T* cb, const T* wx, const floa
 
 constexpr int kScanThreads = 128;  // channels of one block
 
-// Where the scan takes delta from: the (Bt L, d) fp32 array (K14, K15 and
-// inside K18, K19), or, with delta null, formed per (row, channel) as
-// softplus(dt_lr W_dt + b_dt) from dt_lr (Bt L rows of stride ld_lr,
-// fp32), W_dt (R, d) and b_dt (d), fp32 (K16, K17): never in device memory.
-struct DtSrc {
-  const float* delta;
-  const float* lr;
-  int ld_lr;
-  const float* wdt;
-  const float* bdt;
-  int R;
-};
-
-// B (and C) rows of chunk c into shared memory as fp32, Np to a row (N
-// padded to whole groups, zeros past N), so that a thread reads a group's
-// row as four float4s. Grp false: one group, Np = 16 known to the compiler
-// (a runtime divisor costs an integer division per element).
-template <bool Grp, typename T>
-__device__ void stage_rows(const T* __restrict__ src, int ld, size_t row0, int rows, int N,
-                           int Np_, float* dst) {
-  const int Np = Grp ? Np_ : kMaxN;
-  for (int i = threadIdx.x; i < rows * Np; i += blockDim.x) {
-    const int r = i / Np, n = i % Np;
-    dst[i] = n < N ? to_f32(src[(row0 + r) * ld + n]) : 0.f;
-  }
-}
-
-// dt_lr rows into shared memory, lr_ld = round4(R) to a row, zeros past R.
-__device__ void stage_lr(const float* __restrict__ lr, int ld, size_t row0, int rows, int R,
-                         float* dst) {
-  const int lr_ld = round4(R);
-  for (int i = threadIdx.x; i < rows * lr_ld; i += blockDim.x) {
-    const int r = i / lr_ld, k = i % lr_ld;
-    dst[i] = k < R ? lr[(row0 + r) * ld + k] : 0.f;
+// States n0 .. n0 + 15 of B (or C) rows [0, n_rows) of chunk row0 into
+// shared memory as fp32, kMaxN to a row (zeros past N and past `rows`), so
+// that a thread reads a group's row as four float4s: the passes stage one
+// group at a time, which bounds their shared memory whatever d_state is.
+template <typename T>
+__device__ void stage_rows(const T* __restrict__ src, int ld, size_t row0, int rows, int n_rows,
+                           int N, int n0, float* dst) {
+  for (int i = threadIdx.x; i < n_rows * kMaxN; i += blockDim.x) {
+    const int r = i / kMaxN, n = n0 + i % kMaxN;
+    dst[i] = r < rows && n < N ? to_f32(src[(row0 + r) * ld + n]) : 0.f;
   }
 }
 

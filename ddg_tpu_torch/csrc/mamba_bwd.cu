@@ -31,27 +31,37 @@
 //      underflows).
 // So exp(delta A) is taken twice a state-row (pass 1 and pass 3), and a
 // row's fixed work (delta, u, the gate's three terms) once per (row,
-// channel): staged in shared memory a round of 8 channels at a time. Sums
-// over the states are quad shuffles; dB and dC sum over channels by a
+// channel): staged in shared memory for the tile's 64 channels at once.
+// Sums over the states are quad shuffles; dB and dC sum over channels by a
 // recursive-halving warp shuffle, then over the rounds in order in
 // registers, then over the channel tiles in order (`reduce_slices`). dA and
 // dD sum over a sub-chunk's segments in order, per (b, sub-chunk), then over
 // those in order. No atomics: reruns are bit-identical. d_state > 16 runs
-// passes 1 and 3 over groups of 16 states in order; pass 3 carries each
-// row's sums over the states from group to group (ddelta and du in their
-// outputs, C.h in shared memory). tests/test_torch_mamba_scan_order.py
-// emulates this order against the float64 recurrence.
+// passes 1 and 3 over groups of 16 states in order, each group's B and C
+// columns staged before it, so no pass's shared memory grows with d_state;
+// pass 3 carries each row's sums over the states from group to group (du in
+// its output, ddelta in its output or in shared memory, C.h in shared
+// memory). tests/test_torch_mamba_scan_order.py emulates this order against
+// the float64 recurrence.
 //
-// ddg_ssm_scan_dtlr_bwd (K17) is that adjoint with delta formed in passes 1
-// and 3 from dt_lr, W_dt and b_dt as K16 forms it (`stage_seg`,
-// `stage_sub_rows`), ddelta through a workspace, then dt_proj's adjoint over
-// channel tiles (`dt_bwd_kernel`, which K19 runs too): dpre = ddelta sigmoid(pre),
-// ddt_lr = dpre W_dt^T, dW_dt = dt_lr^T dpre, db_dt = sum_t dpre, each a
-// fixed-order sum of partials. Bound at the training shape (16 x 32768,
-// d 512, N 16, R 16): 8,704 exps a token for the scan and 2 x 512 for
-// delta and its sigmoid, 1.22 ms on the SFU, against 1.2 GB of bytes
-// (0.36 ms) in this design's count: u, z, g, dt_lr, B, C in, du, dz,
-// ddt_lr, dB, dC out, h0s and the ddelta workspace.
+// ddg_ssm_scan_dtlr_bwd (K17) is that adjoint in its low-rank form, with
+// dt_proj's adjoint inside pass 3, as the TPU kernel's body has it: delta
+// formed in passes 1 and 3 from dt_lr, W_dt and b_dt as K16 forms it (its
+// dt_lr rows and W_dt's columns staged in shared memory, `form_delta`), and
+// sigmoid(pre) staged beside it; once a sub-chunk's ddelta is final, the
+// block forms dpre = ddelta sigmoid(pre), ddt_lr = dpre W_dt^T over its 64
+// channels and dW_dt = dt_lr^T dpre, db_dt = sum_t dpre over the rows, in
+// fp32 FMAs (no TF32: JAX takes them at Precision.HIGHEST), each a
+// fixed-order sum of partials: ddt_lr over the channel tiles, dW_dt and
+// db_dt over the (b, chunk) slices. ddelta never leaves shared memory: the
+// first K17 wrote it to an (M, d) fp32 workspace and ran K19's
+// `dt_bwd_kernel` on it, which with the staging of delta made 2.06 ms of
+// its 7.78 a call at 4 x 32768 beyond K15's adjoint on the same operands
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+// Bound at the training shape (4 x 32768, d 512, N 16, R 16): 8,704 exps a
+// token for the scan and 2 x 512 for delta and its sigmoid, 0.32 ms on the
+// SFU, against 0.74 GB of bytes (0.22 ms): u, z, g, dt_lr, B, C in, du, dz,
+// ddt_lr, dB, dC out and h0s.
 //
 // ddg_mamba_inner_bwd (K19), for compute type T, per direction:
 //   xz, u, x_dbl, delta   the front, recomputed from h by the forward's own
@@ -103,10 +113,38 @@ constexpr int kSubRows = kBwdWarps * kP3Rows;
 constexpr int kRowVals = 5;                  // staged per (row, channel): dt, u, gy, dzf, sg
 static_assert(kRoundCh * kQ == 32 && kBwdCh % kRoundCh == 0, "a round is one warp's lanes");
 
+// Where the adjoint takes delta from: the (Bt L, d) fp32 array (K15 and
+// inside K19), or, with delta null, formed per (row, channel) as
+// softplus(dt_lr W_dt + b_dt) from dt_lr (Bt L rows of stride ld_lr, fp32),
+// W_dt (R, d) and b_dt (d), fp32 (K17).
+struct DtSrc {
+  const float* delta;
+  const float* lr;
+  int ld_lr;
+  const float* wdt;
+  const float* bdt;
+  int R;
+};
+
+// K17's partials of dt_proj's adjoint, formed in pass 3 (null elsewhere):
+// ddt_lr per channel tile (tiles, Bt L, R), dW_dt (Bt n_chunks, R, d) and
+// db_dt (Bt n_chunks, d) per (b, chunk).
+struct DtGrad {
+  float* dlr;
+  float* dw;
+  float* db;
+};
+
 __host__ __device__ constexpr int sub_rows(int chunk) {
   return chunk < kSubRows ? chunk : kSubRows;
 }
 __host__ __device__ constexpr int n_subs(int chunk) { return (chunk + kSubRows - 1) / kSubRows; }
+// Rows pass 3 stages a sub-chunk: sub_rows rounded up to whole kP3Rows
+// segments (zeros past it), so that a last, partial segment reads zeros
+// and writes into its own rows.
+__host__ __device__ constexpr int p3_rows(int chunk) {
+  return (sub_rows(chunk) + kP3Rows - 1) / kP3Rows * kP3Rows;
+}
 
 // States nq .. nq + 3 of channel ch's row of A, round-tripped as
 // -exp(log(-A)): plain (av) and times log2 e (a2); 0 past N.
@@ -130,47 +168,112 @@ __device__ __forceinline__ void load_q(const float* p, float (&v)[kQ]) {
 // coalesced load for kSeg rows, in place of a dependent load per row,
 // which left the few warps an SM holds waiting on memory; the gate is
 // taken once per (row, channel), not by each of its four threads.
-// In the low-rank form (dl.delta null, K17) delta is formed here as the
-// forward forms it: the segment's dt_lr rows staged in lrs (kSeg x
-// round4(R)), W_dt's columns of the block's channels and b_dt in ws
-// (`stage_w`), the same sum in the same order (`dt_pre_s`). A thread forms
-// delta of one channel only (kBwdThreads is a multiple of kBwdCh).
 constexpr int kStage = kSeg * kBwdCh;
-constexpr int kStaged = 2;
 
-// W_dt's columns of the block's channels, round4(R) rows of kBwdCh (zeros
-// past R and past d), then b_dt as one more row.
-__device__ void stage_w(const DtSrc& dl, int ch0, int d, float* ws) {
-  const int lr_ld = round4(dl.R);
-  for (int i = threadIdx.x; i < (lr_ld + 1) * kBwdCh; i += kBwdThreads) {
+// The low-rank form (dl.delta null, K17) forms delta as the forward forms
+// it, from the sub-chunk's dt_lr rows (lrs, kSubRows rows of lr_ld =
+// round4(R), zeros past R and past the sub-chunk) and W_dt's columns of the
+// block's channels (wt, [channel][rank], wt_ld = lr_ld + 4 to a channel, so
+// that the channels' float4 loads hit distinct banks; zeros past R and d;
+// then b_dt, one a channel): pass 1 a segment's rows at a time
+// (`stage_seg`), pass 3 once a sub-chunk (`form_delta`).
+__host__ __device__ constexpr int wt_ld(int R) { return round4(R) + 4; }
+
+__device__ void stage_wt(const DtSrc& dl, int ch0, int d, float* wt) {
+  const int lr_ld = round4(dl.R), ld = wt_ld(dl.R);
+  for (int i = threadIdx.x; i < lr_ld * kBwdCh; i += kBwdThreads) {
     const int k = i / kBwdCh, c = i % kBwdCh, ch = ch0 + c;
-    float v = 0.f;
-    if (ch < d && k < dl.R) v = dl.wdt[static_cast<size_t>(k) * d + ch];
-    if (ch < d && k == lr_ld) v = dl.bdt[ch];
-    ws[i] = v;
+    wt[c * ld + k] = ch < d && k < dl.R ? dl.wdt[static_cast<size_t>(k) * d + ch] : 0.f;
+  }
+  for (int c = threadIdx.x; c < kBwdCh; c += kBwdThreads)
+    wt[kBwdCh * ld + c] = ch0 + c < d ? dl.bdt[ch0 + c] : 0.f;
+}
+
+// dt_lr rows [0, n) of the sub-chunk starting at row0, zeros past `rows`.
+__device__ void stage_lr_rows(const DtSrc& dl, size_t row0, int rows, int n, float* lrs) {
+  const int lr_ld = round4(dl.R);
+  for (int i = threadIdx.x; i < n * lr_ld; i += kBwdThreads) {
+    const int r = i / lr_ld, k = i - r * lr_ld;
+    lrs[i] = r < rows && k < dl.R ? dl.lr[(row0 + r) * dl.ld_lr + k] : 0.f;
   }
 }
 
+// pre - b_dt of one dt_lr row and W_dt's column wc, k ascending four at a
+// time: `dt_pre`'s order and bits. Not unrolled: pass 1 keeps its registers
+// (and so its blocks an SM) for the walk.
+__device__ __forceinline__ float dt_pre_row(const float* lr, const float* wc, int lr_ld) {
+  float acc = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < lr_ld; k += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(lr + k);
+    const float4 w = *reinterpret_cast<const float4*>(wc + k);
+    acc = fmaf(v.x, w.x, acc);
+    acc = fmaf(v.y, w.y, acc);
+    acc = fmaf(v.z, w.z, acc);
+    acc = fmaf(v.w, w.w, acc);
+  }
+  return acc;
+}
+
+// delta = softplus(pre) and sigmoid(pre) of the sub-chunk's rows [0, n) for
+// the tile's channels into dst and sig, [row][channel] (zeros past `rows`
+// and d). A thread takes channel tid % kBwdCh and kRowsAtOnce rows
+// tid / kBwdCh + 4 e at a time, W_dt's column loaded once a four ranks for
+// all of them; each sum in `dt_pre_row`'s order.
+constexpr int kRowPhases = kBwdThreads / kBwdCh;
+constexpr int kRowsAtOnce = 8;
+
+__device__ void form_delta(const DtSrc& dl, const float* lrs, const float* wt, int ch0, int d,
+                           int rows, int n, float* dst, float* sig) {
+  const int lr_ld = round4(dl.R), c = threadIdx.x % kBwdCh;
+  const float* wc = wt + c * wt_ld(dl.R);
+  const float bias = wt[kBwdCh * wt_ld(dl.R) + c];
+  for (int j0 = threadIdx.x / kBwdCh; j0 < n; j0 += kRowPhases * kRowsAtOnce) {
+    float acc[kRowsAtOnce];
+#pragma unroll
+    for (int e = 0; e < kRowsAtOnce; ++e) acc[e] = 0.f;
+    for (int k = 0; k < lr_ld; k += 4) {
+      const float4 w = *reinterpret_cast<const float4*>(wc + k);
+#pragma unroll
+      for (int e = 0; e < kRowsAtOnce; ++e) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(lrs + (j0 + kRowPhases * e) * lr_ld + k);
+        acc[e] = fmaf(v.x, w.x, acc[e]);
+        acc[e] = fmaf(v.y, w.y, acc[e]);
+        acc[e] = fmaf(v.z, w.z, acc[e]);
+        acc[e] = fmaf(v.w, w.w, acc[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kRowsAtOnce; ++e) {
+      const int r = j0 + kRowPhases * e;
+      if (r >= n) break;
+      const bool in = r < rows && ch0 + c < d;
+      const float pre = acc[e] + bias;
+      dst[r * kBwdCh + c] = in ? softplus(pre) : 0.f;
+      sig[r * kBwdCh + c] = in ? sigmoid(pre) : 0.f;
+    }
+  }
+}
+
+// A segment's delta (from memory, or in the low-rank form formed from the
+// sub-chunk's dt_lr rows in lrs, one row a thread, which keeps pass 1's
+// registers for its warps) and gate terms gy into st, [value][row][channel].
 template <bool LR, typename T, typename G>
 __device__ void stage_seg(float* st, int r0, int rows, size_t row0, int ch0, int d,
-                          const DtSrc& dl, float* lrs, const float* ws,
+                          const DtSrc& dl, const float* lrs, const float* wt,
                           const T* __restrict__ z, int ld_z, const G* __restrict__ g, int ld_g) {
   const int lr_ld = round4(dl.R);
-  if (LR) {
-    for (int i = threadIdx.x; i < kSeg * lr_ld; i += kBwdThreads) {
-      const int j = i / lr_ld, k = i % lr_ld, r = r0 + j;
-      lrs[i] = r < rows && k < dl.R ? dl.lr[(row0 + r) * dl.ld_lr + k] : 0.f;
-    }
-    __syncthreads();
-  }
   for (int i = threadIdx.x; i < kStage; i += kBwdThreads) {
     const int j = i / kBwdCh, c = i % kBwdCh, r = r0 + j, ch = ch0 + c;
     const bool in = r < rows && ch < d;
     const size_t row = row0 + r;
     float dt = 0.f;
-    if (in)
-      dt = LR ? softplus(dt_pre_s(lrs + j * lr_ld, ws + c, kBwdCh, dl.R) + ws[lr_ld * kBwdCh + c])
-              : dl.delta[row * d + ch];
+    if (in && LR)
+      dt = softplus(dt_pre_row(lrs + r * lr_ld, wt + c * wt_ld(dl.R), lr_ld) +
+                    wt[kBwdCh * wt_ld(dl.R) + c]);
+    else if (in)
+      dt = dl.delta[row * d + ch];
     st[i] = dt;
     const float zz = in ? to_f32(z[row * ld_z + ch]) : 0.f;
     const float gg = in ? to_f32(g[row * ld_g + ch]) : 0.f;
@@ -179,9 +282,9 @@ __device__ void stage_seg(float* st, int r0, int rows, size_t row0, int ch0, int
 }
 
 // Pass 1: each (b, sub-chunk, channel tile) from a zero adjoint at the
-// sub-chunk's end, a group of 16 states at a time (Grp: d_state > 16). P
-// and E (the carry handed left) are (Bt, n_chunks x n_subs, N, d); a
-// sub-chunk past L has P = 1, E = 0.
+// sub-chunk's end, a group of 16 states at a time (Grp: d_state > 16), the
+// group's C columns staged before it. P and E (the carry handed left) are
+// (Bt, n_chunks x n_subs, N, d); a sub-chunk past L has P = 1, E = 0.
 template <typename T, typename G, bool Grp, bool LR>
 __global__ void __launch_bounds__(kBwdThreads)
     scan_bwd_chunk_kernel(DtSrc dl, const T* __restrict__ Cc, int ld_bc,
@@ -189,37 +292,40 @@ __global__ void __launch_bounds__(kBwdThreads)
                           const float* __restrict__ A, float* __restrict__ P,
                           float* __restrict__ E, int L, int d, int N, int chunk) {
   extern __shared__ __align__(16) float sm1[];
-  const int Np = Grp ? n_pad(N) : kMaxN, lr_ld = round4(dl.R);
+  const int lr_ld = round4(dl.R);
   const int sc = sub_rows(chunk), ns = n_subs(chunk);
-  float* Cs = sm1;                         // sc x Np
-  float* st = Cs + sc * Np;                // kStaged x kStage
-  float* lrs = st + kStaged * kStage;      // kSeg x lr_ld (low-rank form)
-  float* ws = lrs + kSeg * lr_ld;          // (lr_ld + 1) x kBwdCh (low-rank form)
+  float* Cs = sm1;                         // sc x kMaxN: the group's C columns
+  float* st = Cs + sc * kMaxN;             // 2 x kStage: a segment's delta and gy
+  float* lrs = st + 2 * kStage;            // sc x lr_ld (low-rank form)
+  float* wt = lrs + sc * lr_ld;            // kBwdCh x (wt_ld + 1) (low-rank form)
   const int b = blockIdx.z, y = blockIdx.y, c = y / ns, k = y - c * ns;
   const int q = threadIdx.x & 3, chl = threadIdx.x >> 2;
   const int ch0 = blockIdx.x * kBwdCh, ch = ch0 + chl;
   const bool live = ch < d;
   const int t0 = c * chunk + k * sc, rows = min(min(sc, chunk - k * sc), L - t0);
   const size_t row0 = static_cast<size_t>(b) * L + t0;
-  stage_rows<Grp>(Cc, ld_bc, row0, rows, N, Np, Cs);
-  if (LR) stage_w(dl, ch0, d, ws);
+  if (LR) {
+    stage_wt(dl, ch0, d, wt);
+    stage_lr_rows(dl, row0, rows, sc, lrs);
+  }
   const size_t o = (static_cast<size_t>(b) * gridDim.y + y) * N * d + ch;
   const int n_end = Grp ? N : 1;
   for (int n0 = 0; n0 < n_end; n0 += kMaxN) {
     const int nq = n0 + q * kQ;
+    if (Grp && n0 > 0) __syncthreads();  // the last group's readers of Cs are done
+    stage_rows(Cc, ld_bc, row0, rows, rows, N, n0, Cs);
     float a2[kQ], av[kQ], dh[kQ], p[kQ], aup[kQ], cv[kQ];
     load_a4(A, live ? ch : 0, N, nq, a2, av);
 #pragma unroll
     for (int i = 0; i < kQ; ++i) dh[i] = 0.f, p[i] = 1.f, aup[i] = 1.f;
     for (int s = (rows - 1) / kSeg; s >= 0; --s) {
       __syncthreads();
-      stage_seg<LR, T, G>(st, s * kSeg, rows, row0, ch0, d, dl, lrs, ws, z, ld_z, g,
-                      ld_g);
+      stage_seg<LR, T, G>(st, s * kSeg, rows, row0, ch0, d, dl, lrs, wt, z, ld_z, g, ld_g);
       __syncthreads();
       for (int j = min(kSeg, rows - s * kSeg) - 1; j >= 0; --j) {
         const int r = s * kSeg + j, k = j * kBwdCh + chl;
         const float dt = st[k], gy = st[kStage + k];
-        load_q(Cs + r * Np + nq, cv);
+        load_q(Cs + r * kMaxN + q * kQ, cv);
 #pragma unroll
         for (int i = 0; i < kQ; ++i) {
           const float a = ex2(dt * a2[i]);
@@ -295,27 +401,29 @@ __device__ __forceinline__ float quad_sums4(const float (&v)[4], int q) {
   return (b0 ? w1 : w0) + __shfl_xor_sync(0xffffffffu, b0 ? w0 : w1, 1);
 }
 
-// The sub-chunk's row values for the gch channels from ch0 + chr,
-// [value][row][channel] for rows [0, sc) (zeros past `rows` and past d):
-// delta (from memory, or formed as
-// the forward forms it from the dt_lr row and W_dt's columns in ws, the
-// same fp32 sum in the same order as `dt_pre_s`), u, and from z and g the
-// gate's terms gy = g silu(z), g silu'(z) and silu(z), each once per (row,
-// channel). Loads go kStageBatch pairs a thread at a time, then are formed.
+// The sub-chunk's row values for the tile's kBwdCh channels from ch0,
+// [value][row][channel] for rows [0, sp) (zeros past `rows` and past d):
+// delta (from memory, or in the low-rank form formed as the forward forms
+// it from lrs and wt, `form_delta`), u, and from z and g
+// the gate's terms gy = g silu(z), g silu'(z) and silu(z), each once per
+// (row, channel). The low-rank form keeps sigmoid(pre) in place of
+// silu(z): K17 writes no gated output, and dt_proj's adjoint needs dpre =
+// ddelta sigmoid(pre). Loads go kStageBatch pairs a thread at a time, then
+// are formed.
 constexpr int kStageBatch = 8;
 
 template <bool LR, typename T, typename G>
-__device__ void stage_sub_rows(float* st, int sc, int rows, size_t row0, int ch0, int chr,
-                               int gch, int d, const DtSrc& dl, const float* ws,
+__device__ void stage_sub_rows(float* st, int sp, int rows, size_t row0, int ch0, int d,
+                               const DtSrc& dl, const float* lrs, const float* wt,
                                const T* __restrict__ u, int ld_u, const T* __restrict__ z,
                                int ld_z, const G* __restrict__ g, int ld_g) {
-  const int lr_ld = round4(dl.R), n = sc * gch;
+  const int n = sp * kBwdCh;
   for (int i0 = 0; i0 < n; i0 += kStageBatch * kBwdThreads) {
     float dt[kStageBatch], uu[kStageBatch], zz[kStageBatch], gg[kStageBatch];
 #pragma unroll
     for (int e = 0; e < kStageBatch; ++e) {
       const int i = i0 + threadIdx.x + e * kBwdThreads;
-      const int r = i / gch, ch = ch0 + chr + i % gch;
+      const int r = i / kBwdCh, ch = ch0 + i % kBwdCh;
       const bool in = i < n && r < rows && ch < d;
       const size_t row = row0 + r;
       dt[e] = uu[e] = zz[e] = gg[e] = 0.f;
@@ -330,41 +438,24 @@ __device__ void stage_sub_rows(float* st, int sc, int rows, size_t row0, int ch0
     for (int e = 0; e < kStageBatch; ++e) {
       const int i = i0 + threadIdx.x + e * kBwdThreads;
       if (i >= n) break;
-      const int r = i / gch, ct = chr + i % gch;
-      if (LR && r < rows && ch0 + ct < d) {
-        const float* lr = dl.lr + (row0 + r) * dl.ld_lr;
-        float acc = 0.f;
-        for (int kk = 0; kk < dl.R; ++kk) acc = fmaf(lr[kk], ws[kk * kBwdCh + ct], acc);
-        dt[e] = softplus(acc + ws[lr_ld * kBwdCh + ct]);
-      }
       const float sig = sigmoid(zz[e]), sg = zz[e] * sig;
-      st[i] = dt[e];
+      if (!LR) st[i] = dt[e];
       st[n + i] = uu[e];
       st[2 * n + i] = gg[e] * sg;
       st[3 * n + i] = gg[e] * (sig + sg * (1.f - sig));
-      st[4 * n + i] = sg;
+      if (!LR) st[4 * n + i] = sg;
     }
   }
-}
-
-// Rows [0, sc) of B or C (fp32, Np to a row), zeros past `rows` and N.
-template <bool Grp, typename T>
-__device__ void stage_sub(const T* __restrict__ src, int ld, size_t row0, int rows, int sc,
-                          int N, int Np_, float* dst) {
-  const int Np = Grp ? Np_ : kMaxN;
-  for (int i = threadIdx.x; i < sc * Np; i += kBwdThreads) {
-    const int r = i / Np, n = i % Np;
-    dst[i] = r < rows && n < N ? to_f32(src[(row0 + r) * ld + n]) : 0.f;
-  }
+  if (LR) form_delta(dl, lrs, wt, ch0, d, rows, sp, st, st + 4 * n);
 }
 
 // Pass 3: each (b, chunk, channel tile), its sub-chunks left to right, with
 // the true carry into each (pass 2) and the entry state of each (h0s, then
 // the last sub-chunk's exit state through hx, (Bt, n_chunks, N, d)). Per
-// row: ddelta, du (fp32), dz (ZT, row stride ld_dz) and, when yg is given,
-// the gated output (C.h + D u) silu(z) in T; the block's partial sums of dB
-// and dC over its channels (dBp, dCp: (tiles, Bt L, N)); per (b, sub-chunk)
-// the partial dA (N, d) and dD (d).
+// row: ddelta (K15, K19), du (fp32), dz (ZT, row stride ld_dz) and, when yg
+// is given, the gated output (C.h + D u) silu(z) in T; the block's partial
+// sums of dB and dC over its channels (dBp, dCp: (tiles, Bt L, N)); per (b,
+// sub-chunk) the partial dA (N, d) and dD (d).
 //
 // Time-parallel over a sub-chunk's rows: for each round of 8 channels and
 // each group of 16 states, warp w takes rows 8 w .. 8 w + 7 of the
@@ -381,12 +472,25 @@ __device__ void stage_sub(const T* __restrict__ src, int ld, size_t row0, int ro
 // quad shuffles (`quad_sums4`); dB and dC sum over the round's 8 channels
 // by `channel_sums8` and over the rounds in order in registers. A row's
 // outputs go into staged values already read, and leave coalesced once the
-// staged channels' rounds are done. The row values of the tile's 64
-// channels are staged at once where they fit (`scan_bwd_gch`), else a
-// round's 8. Grp (d_state > 16): the groups of 16 states in order; the
-// per-row sums over the states carry from group to group, ddelta and du in
-// their fp32 outputs (each group's flush adds to them) and C.h in shared
-// memory (ysm), and the gated terms are written after the last group.
+// rounds are done. The row values of the tile's 64 channels, and the
+// group's B and C columns, are staged once a (sub-chunk, group). Grp
+// (d_state > 16): the groups of 16 states in order; the per-row sums over
+// the states carry from group to group, du in its fp32 output (each group's
+// flush adds to it), ddelta in its output or, in the low-rank form, in
+// shared memory (dsm), and C.h in shared memory (ysm); the gated terms are
+// written after the last group.
+//
+// The low-rank form (LR, K17) writes no ddelta. After a sub-chunk's last
+// group its flush forms dpre = ddelta sigmoid(pre) (zero past `rows` and
+// d) in the staged slots, and the block forms dt_proj's adjoint there, as
+// the TPU kernel's body does (`_bwd_kernel_lr`), in fp32 FMAs on the CUDA
+// cores: through a transposed copy of dpre (row stride sp | 1, odd, so that
+// rows and channels both read without bank conflicts), warps 0-3 sum
+// ddt_lr[r, k] over the tile's 64 channels in channel order (partials per
+// channel tile) and warps 4-7 dW_dt[k, c] = dt_lr^T dpre and db_dt[c] over
+// the sub-chunk's rows in row order, carried across the chunk's sub-chunks
+// through their own slots of the (b, chunk) partials; a thread takes two
+// rows or channels and four ranks at a time, for any dt_rank.
 template <typename T, typename G, typename ZT, bool Grp, bool LR>
 __global__ void __launch_bounds__(kBwdThreads, 2)
     scan_bwd_out_kernel(const T* __restrict__ u, int ld_u, DtSrc dl,
@@ -397,32 +501,35 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
                         float* __restrict__ hx, float* __restrict__ ddt,
                         float* __restrict__ du, ZT* __restrict__ dz, int ld_dz,
                         T* __restrict__ yg, float* __restrict__ dBp, float* __restrict__ dCp,
-                        float* __restrict__ dAp, float* __restrict__ dDp, int Bt, int L, int d,
-                        int N, int chunk, int gch) {
+                        float* __restrict__ dAp, float* __restrict__ dDp, DtGrad dg, int Bt,
+                        int L, int d, int N, int chunk) {
   extern __shared__ __align__(16) float sm[];
-  const int sc = sub_rows(chunk), ns = n_subs(chunk);
-  const int n_seg = (sc + kP3Rows - 1) / kP3Rows;
-  const int Np = Grp ? n_pad(N) : kMaxN;
-  float* Bs = sm;                                                  // sc x Np
-  float* Cs = Bs + sc * Np;                                        // sc x Np
-  float* st = Cs + sc * Np;                                        // kRowVals x sc x gch
-  float4* sum = reinterpret_cast<float4*>(st + kRowVals * sc * gch);  // n_seg x 3 x 32
-  float* ysm = reinterpret_cast<float*>(sum + n_seg * 3 * 32);     // sc x kBwdCh, Grp
-  float* ws = ysm + (Grp ? sc * kBwdCh : 0);                       // (lr_ld + 1) x kBwdCh
+  // The staged rows: the sub-chunk's sc rows, zeros on to whole segments.
+  const int sc = sub_rows(chunk), ns = n_subs(chunk), sp = p3_rows(chunk);
+  const int n_seg = sp / kP3Rows, lr_ld = round4(dl.R);
+  float* Bs = sm;                                                  // sp x kMaxN
+  float* Cs = Bs + sp * kMaxN;                                     // sp x kMaxN
+  float* st = Cs + sp * kMaxN;                                     // kRowVals x sp x kBwdCh
+  float4* sum = reinterpret_cast<float4*>(st + kRowVals * sp * kBwdCh);  // n_seg x 3 x 32
+  float* ysm = reinterpret_cast<float*>(sum + n_seg * 3 * 32);     // sp x kBwdCh, Grp
+  float* dsm = ysm + (Grp ? sp * kBwdCh : 0);                      // sp x kBwdCh, Grp and LR
+  float* wt = dsm + (Grp && LR ? sp * kBwdCh : 0);                 // kBwdCh x (wt_ld + 1), LR
+  float* lrs = wt + (LR ? kBwdCh * (wt_ld(dl.R) + 1) : 0);         // kSubRows x lr_ld, LR
   const int b = blockIdx.z, c = blockIdx.y, nc = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, q = lane & 3, c8 = lane >> 2;
   const int ch0 = blockIdx.x * kBwdCh, r0 = w * kP3Rows;
   const bool has_seg = w < n_seg;  // uniform over the warp
-  const int sv = sc * gch;         // one staged value's floats
-  if (LR) stage_w(dl, ch0, d, ws);
+  const int sv = sp * kBwdCh;      // one staged value's floats
+  if (LR) stage_wt(dl, ch0, d, wt);
 
   for (int k = 0; k < ns; ++k) {
     const int t0 = c * chunk + k * sc, rows = min(min(sc, chunk - k * sc), L - t0);
     const size_t row0 = static_cast<size_t>(b) * L + t0;
     const size_t slice = (static_cast<size_t>(b) * nc + c) * ns + k;
-    __syncthreads();  // the last sub-chunk's readers of Bs and Cs are done
-    stage_sub<Grp>(Bc, ld_bc, row0, rows, sc, N, Np, Bs);
-    stage_sub<Grp>(Cc, ld_bc, row0, rows, sc, N, Np, Cs);
+    if (LR) {
+      __syncthreads();  // the last sub-chunk's readers of lrs are done
+      stage_lr_rows(dl, row0, rows, kSubRows, lrs);
+    }
 
     const int n_end = Grp ? N : 1;
     for (int n0 = 0; n0 < n_end; n0 += kMaxN) {
@@ -451,13 +558,15 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
             X[i] = n < N && live ? carry[oc + static_cast<size_t>(n) * d] : 0.f;
           }
         }
-        if (chr % gch == 0) {
-          __syncthreads();  // the last round's readers of st and sum are done
-          stage_sub_rows<LR, T, G>(st, sc, rows, row0, ch0, chr, gch, d, dl, ws, u, ld_u, z,
-                                   ld_z, g, ld_g);
+        if (chr == 0) {
+          __syncthreads();  // the last group's readers of Bs, Cs, st and sum are done
+          stage_rows(Bc, ld_bc, row0, rows, sp, N, n0, Bs);
+          stage_rows(Cc, ld_bc, row0, rows, sp, N, n0, Cs);
+          stage_sub_rows<LR, T, G>(st, sp, rows, row0, ch0, d, dl, lrs, wt, u, ld_u, z, ld_z,
+                                   g, ld_g);
         }
         __syncthreads();  // the staging, and the last round's readers of sum
-        const int cs = ct % gch;  // the channel's column in st
+        const int cs = ct;  // the channel's column in st
 
         // a_t once, and the segment's summaries P, H, E.
         float a[kP3Rows][kQ];
@@ -467,10 +576,10 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
           for (int i = 0; i < kQ; ++i) P[i] = 1.f, Hs[i] = 0.f, Ds[i] = 0.f, aup[i] = 1.f;
 #pragma unroll
           for (int j = 0; j < kP3Rows; ++j) {
-            const int x = (r0 + j) * gch + cs;
+            const int x = (r0 + j) * kBwdCh + cs;
             const float dt = st[x], dtu = dt * st[sv + x];
             float bv[kQ];
-            load_q(Bs + (r0 + j) * Np + nq, bv);
+            load_q(Bs + (r0 + j) * kMaxN + q * kQ, bv);
 #pragma unroll
             for (int i = 0; i < kQ; ++i) {
               a[j][i] = ex2(dt * a2[i]);
@@ -480,9 +589,9 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
           }
 #pragma unroll
           for (int j = kP3Rows - 1; j >= 0; --j) {
-            const float gy = st[2 * sv + (r0 + j) * gch + cs];
+            const float gy = st[2 * sv + (r0 + j) * kBwdCh + cs];
             float cv[kQ];
-            load_q(Cs + (r0 + j) * Np + nq, cv);
+            load_q(Cs + (r0 + j) * kMaxN + q * kQ, cv);
 #pragma unroll
             for (int i = 0; i < kQ; ++i) {
               Ds[i] = fmaf(aup[i], Ds[i], cv[i] * gy);
@@ -513,9 +622,9 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
           float dh[kP3Rows][kQ];
 #pragma unroll
           for (int j = kP3Rows - 1; j >= 0; --j) {
-            const float gy = st[2 * sv + (r0 + j) * gch + cs];
+            const float gy = st[2 * sv + (r0 + j) * kBwdCh + cs];
             float cv[kQ];
-            load_q(Cs + (r0 + j) * Np + nq, cv);
+            load_q(Cs + (r0 + j) * kMaxN + q * kQ, cv);
 #pragma unroll
             for (int i = 0; i < kQ; ++i) {
               dh[j][i] = j == kP3Rows - 1 ? X[i] + cv[i] * gy
@@ -525,12 +634,12 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
           // Forward: the states and every row's outputs.
 #pragma unroll
           for (int j = 0; j < kP3Rows; ++j) {
-            const int r = r0 + j, x = r * gch + cs;
+            const int r = r0 + j, x = r * kBwdCh + cs;
             const float dt = st[x], uu = st[sv + x], gy = st[2 * sv + x];
             const float dtu = dt * uu;
             float bv[kQ], cv[kQ], pv[8];  // dB then dC partials of the 4 states
-            load_q(Bs + r * Np + nq, bv);
-            load_q(Cs + r * Np + nq, cv);
+            load_q(Bs + r * kMaxN + q * kQ, bv);
+            load_q(Cs + r * kMaxN + q * kQ, cv);
             float sdd = 0.f, sb = 0.f, sy = 0.f;
 #pragma unroll
             for (int i = 0; i < kQ; ++i) {
@@ -560,13 +669,15 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
             }
             // Each lane's output into a staged value every lane has read
             // (it fed the shuffles): ddelta over delta, du over u, dz over
-            // gy, the gated output over silu(z); `flush` writes them out.
+            // gy, the gated output over silu(z) (not in the low-rank form,
+            // whose slot holds sigmoid(pre)); `flush` writes them out.
             if (q == 0 && last && r < rows) dD = fmaf(gy, uu, dD);
             const float ypre = tot + Dv * uu;
             const float du_b = tot * dt, du_v = last ? du_b + gy * Dv : du_b;
             const float gate = st[(q == 2 ? 3 : 4) * sv + x];  // q 2, 3: g silu'(z), silu(z)
-            st[(q < 2 ? q : q == 2 ? 2 : 4) * sv + x] =
-                q == 0 ? tot + sb_all * uu : q == 1 ? du_v : ypre * gate;
+            if (!LR || q != 3)
+              st[(q < 2 ? q : q == 2 ? 2 : 4) * sv + x] =
+                  q == 0 ? tot + sb_all * uu : q == 1 ? du_v : ypre * gate;
           }
         }
         // dA and dD summed over the segments in order; the sub-chunk's exit
@@ -584,14 +695,24 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
           }
         }
         __syncthreads();
-        // The staged group's outputs, coalesced, after its last round.
-        if (chr % gch == gch - kRoundCh) {
-          const int c0 = chr - (gch - kRoundCh), n_out = sc * gch;
-          for (int i = tid; i < n_out; i += kBwdThreads) {
-            const int r = i / gch, ch2 = ch0 + c0 + i % gch;
-            if (r >= rows || ch2 >= d) continue;
+        // The staged outputs, coalesced, after the last round; in the
+        // low-rank form ddelta stays in shared memory (dpre after the last
+        // group).
+        if (chr == kBwdCh - kRoundCh) {
+          for (int i = tid; i < sv; i += kBwdThreads) {
+            const int r = i / kBwdCh, ch2 = ch0 + i % kBwdCh;
+            const bool in = r < rows && ch2 < d;
             const size_t row = row0 + r;
-            ddt[row * d + ch2] = first ? st[i] : ddt[row * d + ch2] + st[i];
+            if (LR) {
+              float dd = st[i];
+              if (Grp) {
+                if (!first) dd = dsm[i] + dd;
+                if (!last) dsm[i] = dd;
+              }
+              if (last) st[i] = in ? dd * st[4 * sv + i] : 0.f;
+            }
+            if (!in) continue;
+            if (!LR) ddt[row * d + ch2] = first ? st[i] : ddt[row * d + ch2] + st[i];
             du[row * d + ch2] = first ? st[sv + i] : du[row * d + ch2] + st[sv + i];
             if (last) {
               dz[row * ld_dz + ch2] = from_f32<ZT>(st[2 * sv + i]);
@@ -623,6 +744,78 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
         for (int j = 0; j < kP3Rows; ++j)
           if (r0 + j < rows && n < N)
             dst[(static_cast<size_t>(blockIdx.x) * Bt * L + row0 + r0 + j) * N + n] = acc[j];
+      }
+    }
+    if constexpr (LR) {
+      // dt_proj's adjoint of the sub-chunk, from dpre (slot 0, [row][channel])
+      // through its transpose dT (slots 1-2, [channel][row], row stride dld).
+      // Warps 0-3 take ddt_lr, thread (p, kq) rows p and p + 32; warps 4-7
+      // dW_dt and db_dt, thread (p, kq) channels p and p + 32; kq takes
+      // ranks 4 kq .. 4 kq + 3, then 16 on.
+      const int dld = sp | 1, wld = wt_ld(dl.R);
+      float* dT = st + sv;
+      __syncthreads();  // dpre formed, every staged slot read
+      for (int i = tid; i < sv; i += kBwdThreads) dT[(i % kBwdCh) * dld + i / kBwdCh] = st[i];
+      __syncthreads();
+      const int p = lane, kq = w & 3;
+      const size_t bc = static_cast<size_t>(b) * nc + c;   // the (b, chunk) slice
+      for (int k4 = 4 * kq; k4 < lr_ld; k4 += 16) {
+        float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+        if (w < 4) {
+          // ddt_lr: over the tile's channels in order.
+          for (int cc = 0; cc < kBwdCh; ++cc) {
+            const float4 wv = *reinterpret_cast<const float4*>(wt + cc * wld + k4);
+            const float x0 = dT[cc * dld + p], x1 = dT[cc * dld + p + 32];
+            s0[0] = fmaf(x0, wv.x, s0[0]), s1[0] = fmaf(x1, wv.x, s1[0]);
+            s0[1] = fmaf(x0, wv.y, s0[1]), s1[1] = fmaf(x1, wv.y, s1[1]);
+            s0[2] = fmaf(x0, wv.z, s0[2]), s1[2] = fmaf(x1, wv.z, s1[2]);
+            s0[3] = fmaf(x0, wv.w, s0[3]), s1[3] = fmaf(x1, wv.w, s1[3]);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = p + 32 * h;
+            if (r >= rows) continue;
+            float* o = dg.dlr + (static_cast<size_t>(blockIdx.x) * Bt * L + row0 + r) * dl.R;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (k4 + e < dl.R) o[k4 + e] = h ? s1[e] : s0[e];
+          }
+        } else {
+          // dW_dt: over the rows in order, carried from the chunk's earlier
+          // sub-chunks through the thread's own slots.
+          float* w0 = dg.dw + (bc * dl.R + k4) * d + ch0 + p;
+          const bool in0 = ch0 + p < d, in1 = ch0 + p + 32 < d;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool ke = k > 0 && k4 + e < dl.R;
+            s0[e] = ke && in0 ? w0[static_cast<size_t>(e) * d] : 0.f;
+            s1[e] = ke && in1 ? w0[static_cast<size_t>(e) * d + 32] : 0.f;
+          }
+          for (int r = 0; r < rows; ++r) {
+            const float4 v = *reinterpret_cast<const float4*>(lrs + r * lr_ld + k4);
+            const float x0 = dT[p * dld + r], x1 = dT[(p + 32) * dld + r];
+            s0[0] = fmaf(v.x, x0, s0[0]), s1[0] = fmaf(v.x, x1, s1[0]);
+            s0[1] = fmaf(v.y, x0, s0[1]), s1[1] = fmaf(v.y, x1, s1[1]);
+            s0[2] = fmaf(v.z, x0, s0[2]), s1[2] = fmaf(v.z, x1, s1[2]);
+            s0[3] = fmaf(v.w, x0, s0[3]), s1[3] = fmaf(v.w, x1, s1[3]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (k4 + e >= dl.R) continue;
+            if (in0) w0[static_cast<size_t>(e) * d] = s0[e];
+            if (in1) w0[static_cast<size_t>(e) * d + 32] = s1[e];
+          }
+        }
+      }
+      if (w == 4) {
+        float* o = dg.db + bc * d + ch0 + p;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (ch0 + p + 32 * h >= d) continue;
+          float sb = k > 0 ? o[32 * h] : 0.f;
+          for (int r = 0; r < rows; ++r) sb += dT[(p + 32 * h) * dld + r];
+          o[32 * h] = sb;
+        }
       }
     }
   }
@@ -744,7 +937,7 @@ cudaError_t wgrad(const T* X, int ldx, const T* Y, int ldy, float* part, float* 
   return reduce_slices(part, out, ns, static_cast<size_t>(P) * Q, tmp, s);
 }
 
-// --- dt_proj's adjoint, over channel tiles (K17, and inside K19) --------------
+// --- dt_proj's adjoint over channel tiles, inside K19 ------------------------
 
 constexpr int kDtCh = 128;                 // channels of one block, a thread each
 constexpr int kDtTile = 256;               // rows of one block
@@ -982,11 +1175,12 @@ size_t scan_subs(int L, int chunk) {
   return static_cast<size_t>((L + chunk - 1) / chunk) * n_subs(chunk);
 }
 
-ScanBwdWs carve_scan(Carve& cv, int Bt, int L, int d, int N, int chunk) {
+// P holds at least p_min floats (K17 reuses it once pass 2 has read it).
+ScanBwdWs carve_scan(Carve& cv, int Bt, int L, int d, int N, int chunk, size_t p_min = 0) {
   const size_t nc = scan_subs(L, chunk), cnd = Bt * nc * N * d;
   const size_t tiles_rows = static_cast<size_t>(scan_tiles(d)) * Bt * L * N;
   ScanBwdWs w;
-  w.P = cv.take<float>(cnd);
+  w.P = cv.take<float>(cnd > p_min ? cnd : p_min);
   w.E = cv.take<float>(cnd);
   w.dBp = cv.take<float>(tiles_rows);
   w.dCp = cv.take<float>(tiles_rows);
@@ -1002,41 +1196,35 @@ ScanBwdWs carve_scan(Carve& cv, int Bt, int L, int d, int N, int chunk) {
 
 // Shared memory of the adjoint's passes 1 and 3 (R = 0: delta from
 // memory); the wrappers' `ssm_scan_takes` and `ssm_scan_dtlr_takes` hold
-// the same sums.
-size_t scan_bwd_smem1(int chunk, int N, int R) {
-  const int lr_ld = round4(R);
-  return sizeof(float) * (static_cast<size_t>(sub_rows(chunk)) * n_pad(N) + kStaged * kStage +
-                          (R > 0 ? kSeg * lr_ld + (lr_ld + 1) * kBwdCh : 0));
+// the same sums. Pass 1: a sub-chunk's C columns of one group and a staged
+// 16-row segment's delta and gy, and in the low-rank form the sub-chunk's
+// dt_lr rows and W_dt's columns.
+size_t scan_bwd_smem1(int chunk, int R) {
+  const int sc = sub_rows(chunk);
+  return sizeof(float) * (static_cast<size_t>(sc) * kMaxN + 2 * kStage +
+                          (R > 0 ? sc * round4(R) + kBwdCh * (wt_ld(R) + 1) : 0));
 }
 
-// Pass 3: a sub-chunk's B and C rows and its row values for gch channels,
-// the segments' summaries (three float4 a lane), past 16 states each row's
-// running C.h, and in the low-rank form W_dt's columns.
-size_t scan_bwd_smem3_g(int chunk, int N, int R, int gch) {
-  const int sc = sub_rows(chunk), n_seg = (sc + kP3Rows - 1) / kP3Rows, lr_ld = round4(R);
-  return sizeof(float) * (2 * static_cast<size_t>(sc) * n_pad(N) + kRowVals * sc * gch +
-                          n_seg * 3 * 32 * 4 + (N > kMaxN ? sc * kBwdCh : 0) +
-                          (R > 0 ? (lr_ld + 1) * kBwdCh : 0));
-}
-
-// Channels pass 3 stages at once: the tile's 64 where they fit (one wait on
-// device memory a sub-chunk), else a round's 8.
-int scan_bwd_gch(int chunk, int N, int R) {
-  return scan_bwd_smem3_g(chunk, N, R, kBwdCh) <= kSmemMax ? kBwdCh : kRoundCh;
-}
-
+// Pass 3: a sub-chunk's B and C columns of one group and its row values for
+// the tile's channels, the segments' summaries (three float4 a lane), past
+// 16 states each row's running C.h (and, low-rank, ddelta), and in the
+// low-rank form W_dt's columns and the sub-chunk's dt_lr rows (kSubRows).
 size_t scan_bwd_smem3(int chunk, int N, int R) {
-  return scan_bwd_smem3_g(chunk, N, R, scan_bwd_gch(chunk, N, R));
+  const int sp = p3_rows(chunk), n_seg = sp / kP3Rows, lr_ld = round4(R);
+  const size_t rows = static_cast<size_t>(sp) * kBwdCh, grp = N > kMaxN ? rows : 0;
+  return sizeof(float) * (2 * static_cast<size_t>(sp) * kMaxN + kRowVals * rows +
+                          n_seg * 3 * 32 * 4 + grp +
+                          (R > 0 ? grp + kBwdCh * (wt_ld(R) + 1) + kSubRows * lr_ld : 0));
 }
 
 template <typename T, typename G, typename ZT, bool Grp, bool LR>
 cudaError_t scan_bwd_k(const T* u, int ld_u, const DtSrc& dl, const T* Bc, const T* Cc,
                        int ld_bc, const T* z, int ld_z, const G* g, int ld_g, const float* A,
                        const float* D, const float* h0s, const ScanBwdWs& w, float* ddt,
-                       float* du, ZT* dz, int ld_dz, T* yg, int Bt, int L, int d, int N,
-                       int chunk, cudaStream_t s) {
+                       float* du, ZT* dz, int ld_dz, T* yg, const DtGrad& dg, int Bt, int L,
+                       int d, int N, int chunk, cudaStream_t s) {
   const int nc = (L + chunk - 1) / chunk, R = LR ? dl.R : 0;
-  const size_t smem1 = scan_bwd_smem1(chunk, N, R), smem3 = scan_bwd_smem3(chunk, N, R);
+  const size_t smem1 = scan_bwd_smem1(chunk, R), smem3 = scan_bwd_smem3(chunk, N, R);
   cudaError_t err;
   DDG_TRY(allow_smem(reinterpret_cast<const void*>(scan_bwd_chunk_kernel<T, G, Grp, LR>), smem1));
   DDG_TRY(allow_smem(reinterpret_cast<const void*>(scan_bwd_out_kernel<T, G, ZT, Grp, LR>), smem3));
@@ -1048,21 +1236,22 @@ cudaError_t scan_bwd_k(const T* u, int ld_u, const DtSrc& dl, const T* Bc, const
   DDG_TRY(cudaGetLastError());
   scan_bwd_out_kernel<T, G, ZT, Grp, LR><<<dim3(scan_tiles(d), nc, Bt), kBwdThreads, smem3, s>>>(
       u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, ld_g, A, D, h0s, w.E, w.hx, ddt, du, dz, ld_dz, yg,
-      w.dBp, w.dCp, w.dAp, w.dDp, Bt, L, d, N, chunk, scan_bwd_gch(chunk, N, R));
+      w.dBp, w.dCp, w.dAp, w.dDp, dg, Bt, L, d, N, chunk);
   return cudaGetLastError();
 }
 
+// ddt (K15, K19) or, with dl.delta null, dg (K17) takes the delta adjoint.
 template <typename T, typename G, typename ZT>
 cudaError_t scan_bwd(const T* u, int ld_u, const DtSrc& dl, const T* Bc, const T* Cc, int ld_bc,
                      const T* z, int ld_z, const G* g, int ld_g, const float* A, const float* D,
                      const float* h0s, const ScanBwdWs& w, float* ddt, float* du, ZT* dz,
-                     int ld_dz, T* yg, int Bt, int L, int d, int N, int chunk, cudaStream_t s) {
+                     int ld_dz, T* yg, const DtGrad& dg, int Bt, int L, int d, int N, int chunk,
+                     cudaStream_t s) {
   if (N <= 0 || chunk <= 0 || d <= 0 || L <= 0) return cudaErrorInvalidValue;
-  if (dl.delta == nullptr && (dl.R <= 0 || dl.R > kDtMaxR || L % chunk))
-    return cudaErrorInvalidValue;
+  if (dl.delta == nullptr && (dl.R <= 0 || L % chunk)) return cudaErrorInvalidValue;
 #define DDG_SCAN_BWD(G2, L2)                                                                   \
   scan_bwd_k<T, G, ZT, G2, L2>(u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, ld_g, A, D, h0s, w, ddt, \
-                               du, dz, ld_dz, yg, Bt, L, d, N, chunk, s)
+                               du, dz, ld_dz, yg, dg, Bt, L, d, N, chunk, s)
   if (dl.delta == nullptr)
     return N > kMaxN ? DDG_SCAN_BWD(true, true) : DDG_SCAN_BWD(false, true);
   return N > kMaxN ? DDG_SCAN_BWD(true, false) : DDG_SCAN_BWD(false, false);
@@ -1100,28 +1289,30 @@ cudaError_t ssm_bwd(const T* u, int ld_u, const float* delta, const T* Bc, const
   const DtSrc dl{delta, nullptr, 0, nullptr, nullptr, 0};
   cudaError_t err;
   DDG_TRY((scan_bwd<T, T, float>(u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, d, A, D, h0s, w, ddelta,
-                                 du, dz, d, nullptr, Bt, L, d, N, chunk, s)));
+                                 du, dz, d, nullptr, DtGrad{}, Bt, L, d, N, chunk, s)));
   return scan_bwd_outputs(w, A, dB, dC, dA_log, dD, Bt, L, d, N, chunk, s);
 }
 
-// K17's workspace: the scan adjoint's, ddelta (M, d) and the dt adjoint's
-// partials.
+// K17's workspace: the scan adjoint's and the partials of dt_proj's
+// adjoint, no (M, d) array (ddelta never leaves pass 3). ddt_lr's partials
+// (channel tiles, M, R) go over the adjoint's P, which pass 2 was the last
+// to read.
 struct DtlrBwdWs {
   ScanBwdWs scan;
-  float *ddt, *dlr_p, *dw_p, *db_p, *tmp;
+  DtGrad dg;
+  float* tmp;
 };
 
 DtlrBwdWs carve_dtlr(Carve& cv, int Bt, int L, int d, int N, int R, int chunk) {
-  const size_t M = static_cast<size_t>(Bt) * L;
-  const size_t ct = dt_ch_tiles(d), rt = dt_row_tiles(static_cast<int>(M));
+  const size_t M = static_cast<size_t>(Bt) * L, tiles = scan_tiles(d);
+  const size_t slices = static_cast<size_t>(Bt) * ((L + chunk - 1) / chunk);
   DtlrBwdWs w;
-  w.scan = carve_scan(cv, Bt, L, d, N, chunk);
-  w.ddt = cv.take<float>(M * d);
-  w.dlr_p = cv.take<float>(ct * M * R);
-  w.dw_p = cv.take<float>(rt * R * d);
-  w.db_p = cv.take<float>(rt * d);
-  size_t t = reduce_tmp(ct, M * R);
-  const size_t t2 = reduce_tmp(rt, static_cast<size_t>(R) * d);
+  w.scan = carve_scan(cv, Bt, L, d, N, chunk, tiles * M * R);
+  w.dg.dlr = w.scan.P;
+  w.dg.dw = cv.take<float>(slices * R * d);
+  w.dg.db = cv.take<float>(slices * d);
+  size_t t = reduce_tmp(tiles, M * R);
+  const size_t t2 = reduce_tmp(slices, static_cast<size_t>(R) * d);
   w.tmp = cv.take<float>(t > t2 ? t : t2);
   return w;
 }
@@ -1133,18 +1324,17 @@ cudaError_t dtlr_bwd(const T* u, int ld_u, const float* lr, int ld_lr, const flo
                      float* dlr, float* dW_dt, float* db_dt, float* dz, float* dB, float* dC,
                      float* dA_log, float* dD, void* ws, int Bt, int L, int d, int N, int R,
                      int chunk, cudaStream_t s) {
-  if (R <= 0 || R > kDtMaxR || chunk <= 0 || L % chunk) return cudaErrorInvalidValue;
+  if (R <= 0 || chunk <= 0 || L % chunk) return cudaErrorInvalidValue;
   Carve cv{reinterpret_cast<uintptr_t>(ws)};
   const DtlrBwdWs w = carve_dtlr(cv, Bt, L, d, N, R, chunk);
-  const int M = Bt * L, rt = dt_row_tiles(M);
+  const int M = Bt * L, slices = Bt * (L / chunk);
   const DtSrc dl{nullptr, lr, ld_lr, wdt, bdt, R};
   cudaError_t err;
   DDG_TRY((scan_bwd<T, T, float>(u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, d, A, D, h0s, w.scan,
-                                 w.ddt, du, dz, d, nullptr, Bt, L, d, N, chunk, s)));
-  DDG_TRY(dt_bwd<float>(w.ddt, lr, ld_lr, wdt, bdt, w.dlr_p, w.dw_p, w.db_p, M, d, R, s));
-  DDG_TRY(reduce_slices(w.dlr_p, dlr, dt_ch_tiles(d), static_cast<size_t>(M) * R, w.tmp, s));
-  DDG_TRY(reduce_slices(w.dw_p, dW_dt, rt, static_cast<size_t>(R) * d, w.tmp, s));
-  DDG_TRY(reduce_slices(w.db_p, db_dt, rt, d, w.tmp, s));
+                                 nullptr, du, dz, d, nullptr, w.dg, Bt, L, d, N, chunk, s)));
+  DDG_TRY(reduce_slices(w.dg.dlr, dlr, scan_tiles(d), static_cast<size_t>(M) * R, w.tmp, s));
+  DDG_TRY(reduce_slices(w.dg.dw, dW_dt, slices, static_cast<size_t>(R) * d, w.tmp, s));
+  DDG_TRY(reduce_slices(w.dg.db, db_dt, slices, d, w.tmp, s));
   return scan_bwd_outputs(w.scan, A, dB, dC, dA_log, dD, Bt, L, d, N, chunk, s);
 }
 
@@ -1219,7 +1409,7 @@ cudaError_t inner_bwd(const T* h, const T* w_in, const T* w_in_f, const T* cw, c
   const DtSrc dl{w.delta, nullptr, 0, nullptr, nullptr, 0};
   DDG_TRY((scan_bwd<T, float, T>(w.u, d, dl, w.xdbl + R, w.xdbl + R + N, nx, w.xz + d, 2 * d,
                                  w.dy, d, A, D, h0s, w.scan, w.ddt, w.du, w.dxz + d, 2 * d, w.yg,
-                                 Bt, L, d, N, chunk, s)));
+                                 DtGrad{}, Bt, L, d, N, chunk, s)));
   // dt_proj's adjoint (on the stored dt_lr columns), then x_proj's.
   DDG_TRY(dt_bwd<T>(w.ddt, w.xdbl, nx, w_dt, b_dt, w.dlr_p, w.dtw_p, w.dtb_p, M, d, R, s));
   const size_t n_dx = static_cast<size_t>(M) * nxp;
@@ -1260,7 +1450,7 @@ bf16* bo(void* p) { return static_cast<bf16*>(p); }
 
 // The adjoint's share of `ops.mamba.scan_smem`, for the same check.
 extern "C" long long ddg_scan_bwd_smem(int chunk, int N, int R) {
-  const size_t s1 = scan_bwd_smem1(chunk, N, R), s3 = scan_bwd_smem3(chunk, N, R);
+  const size_t s1 = scan_bwd_smem1(chunk, R), s3 = scan_bwd_smem3(chunk, N, R);
   return static_cast<long long>(s1 > s3 ? s1 : s3);
 }
 

@@ -11,8 +11,9 @@ with A round-tripped as -exp(log(-A)), as the TPU call hands its kernel
 log(-A); y is written in u's dtype. It also gives the entry state of each
 chunk of `chunk` rows, h0s (B, n_chunks, N, d) float32. `ssm_scan_dtlr`
 (K16) is the same scan with delta = softplus(dt_lr @ W_dt + b_dt) formed
-inside the kernel from the low-rank dt_lr, so the (B, L, d) delta never
-reaches device memory; L must be a multiple of the chunk.
+on the card from the low-rank dt_lr, once per (row, channel), into a
+transient (B, L, d) float32 workspace that K14's passes read; L must be a
+multiple of the chunk.
 
 `mamba_inner` (K18) is one direction of the fused Mamba block, with the
 rounding points of the TPU kernel's `_recompute_front` (compute dtype cd):
@@ -30,12 +31,16 @@ The arguments follow the JAX functions (`mamba_inner_pallas`,
 (in, out) layout, A (d, N), conv_w (K, 1, d). The TPU schedule knobs
 (`seg`, `scan_impl`, tiles, `interpret`) have no counterpart. On CUDA
 tensors each call runs `csrc/mamba.cu` (K18: in_proj, conv + x_proj +
-dt_proj, the three scan passes and out_proj, six launches; K14 and K16:
-the three scan passes) and adds one to the wrapper's `launches`; on CPU
-tensors the plain versions below run instead. What the card takes is
-stated by `mamba_inner_takes`, `ssm_scan_takes` and `ssm_scan_dtlr_takes`
-(any d_state whose blocks fit in shared memory, dt_rank <= 64, d_conv <=
-8, and on the fused block a d_inner whose front tile fits).
+dt_proj, the three scan passes and out_proj, six launches; K14: the three
+scan passes; K16: delta, then K14's passes) and adds one to the wrapper's
+`launches`; on CPU tensors the plain versions below run instead. What the
+card takes is stated by `mamba_inner_takes`, `ssm_scan_takes` and
+`ssm_scan_dtlr_takes`, each naming the kernel that sets each limit: any
+d_state (every scan pass stages one group of 16 states at a time); on the
+dt-lowrank scans a dt_rank up to 184 (248 at d_state <= 16; K17's shared
+memory); on the fused block dt_rank <= 64 (K18's front and K19's dt_proj
+adjoint hold W_dt in registers), d_conv <= 8 and a d_inner whose front
+tile fits.
 
 With gradients recorded, `ssm_scan`, `ssm_scan_dtlr` and `mamba_inner` run
 through autograd Functions that save the inputs and the chunk entry states
@@ -43,7 +48,8 @@ h0s (as the TPU VJPs save (inputs, h0s)); their backwards are
 `ssm_scan_bwd` (K15), `ssm_scan_dtlr_bwd` (K17) and `mamba_inner_bwd`
 (K19), `csrc/mamba_bwd.cu` on the card, each with its own `launches`. K19
 recomputes the front from h by K18's own launches, so the forward keeps
-nothing but h and h0s; K17 forms delta again from dt_lr. Under
+nothing but h and h0s; K17 forms delta again from dt_lr, and dt_proj's
+adjoint inside the scan adjoint's last pass. Under
 `torch.no_grad()` (sampling) the forwards run outside autograd and launch
 what they did before.
 """
@@ -63,14 +69,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # built kernels' own sums, `ddg_smem_max`, `ddg_scan_smem`,
 # `ddg_scan_bwd_smem` and `ddg_front_tile`).
 _GROUP = 16                     # states a thread holds; more run in groups
-_MAX_RANK = 64                  # dt_rank: two register tiles of W_dt
+_MAX_RANK = 64                  # fused block dt_rank: W_dt in two register tiles
 _TAPS = (4, 8)                  # conv taps built; fewer are padded with zeros
 _SMEM = 232448                  # shared memory a block can have
 _SUB_ROWS = 64                  # rows of the adjoint's sub-chunks
-
-
-def _n_pad(N: int) -> int:
-    return -(-N // _GROUP) * _GROUP
 
 
 def _round4(R: int) -> int:
@@ -79,28 +81,32 @@ def _round4(R: int) -> int:
 
 def scan_smem(chunk: int, N: int, R: int = 0) -> int:
     """Bytes of shared memory of the largest block of the scan's forward and
-    adjoint passes, as csrc's `scan_smem1/3` and `scan_bwd_smem1/3` count
-    them (R > 0: the low-rank form, K16 and K17). The forward's: the
-    chunk's B and C rows padded to whole groups of 16 states (and dt_lr
-    rows), past 16 states each row's running C.h sum. The adjoint's, which
-    run on sub-chunks of at most 64 rows: pass 1's C rows and staged
-    16-row segment; pass 3's B and C rows, five values a row for the
-    tile's 64 channels (8 where those do not fit), three float4 summaries
-    a lane for each 8-row segment, past 16 states each row's C.h for the 64
-    channels, and in the low-rank form W_dt's columns."""
-    Np, lr = _n_pad(N), (_round4(R) if R else 0)
+    adjoint passes, as csrc's `scan_smem1/3`, `delta_smem` and
+    `scan_bwd_smem1/3` count them (R > 0: the low-rank form, K16 and K17).
+    Every pass stages one group of 16 states of B and C at a time, so d_state
+    adds only the running sums past 16 states. The forward's: the chunk's B
+    (and C) columns of a group, past 16 states each row's running C.h; K16's
+    delta kernel: W_dt's columns of 128 channels and 32 dt_lr rows. The
+    adjoint's, which run on sub-chunks of at most 64 rows: pass 1's C columns
+    and staged 16-row segment (and dt_lr rows and W_dt's columns); pass 3's,
+    on the sub-chunk's rows rounded up to whole 8-row segments: B and C
+    columns, five values a row for the tile's 64 channels, three float4
+    summaries a lane for each segment, past 16 states each row's C.h (and,
+    low-rank, ddelta) for the 64 channels, and in the low-rank form W_dt's
+    columns and the sub-chunk's dt_lr rows."""
+    lr = _round4(R) if R else 0
     grp = N > _GROUP
-    low = 16 * lr + (lr + 1) * 64 if R else 0
-    staged = 2 * 16 * 64
     sc = min(chunk, _SUB_ROWS)
-
-    def pass3(gch):
-        return 4 * (2 * sc * Np + 5 * sc * gch + 384 * -(-sc // 8)
-                    + (sc * 64 if grp else 0) + ((lr + 1) * 64 if R else 0))
-    return max(4 * chunk * (Np + lr),
-               4 * chunk * (2 * Np + lr + (128 if grp else 0)),
-               4 * (sc * Np + staged + low),
-               pass3(64) if pass3(64) <= _SMEM else pass3(8))
+    sp = -(-sc // 8) * 8        # pass 3's rows: whole 8-row segments
+    rows = sp * 64
+    fwd = max(4 * chunk * _GROUP, 4 * chunk * (2 * _GROUP + (128 if grp else 0)),
+              4 * lr * (128 + 32))
+    wt = 64 * (lr + 5)          # W_dt's columns (row stride lr + 4), b_dt
+    bwd1 = 4 * (sc * _GROUP + 2 * 16 * 64 + (sc * lr + wt if R else 0))
+    bwd3 = 4 * (2 * sp * _GROUP + 5 * rows + 384 * (sp // 8)
+                + (rows if grp else 0)
+                + ((rows if grp else 0) + wt + _SUB_ROWS * lr if R else 0))
+    return max(fwd, bwd1, bwd3)
 
 
 def _front_tile(d: int, R: int, esize: int) -> int:
@@ -120,13 +126,12 @@ def mamba_inner_takes(H: int, d: int, N: int, R: int, K: int,
     card, and which kernel sets each limit: H % 8 == 0 and d % 8 (16 in
     bfloat16) == 0, the products' rows (both); dt_rank <= 64, W_dt's
     column in two register tiles of 32 (K18's front, which K19 reruns, and
-    K19's dt_proj adjoint); d_conv <= 8, built for 4 and 8 taps
-    (`pad_taps`; K18's front and K19's conv adjoint); a d_inner whose
+    K19's dt_proj adjoint, `dt_bwd_kernel`); d_conv <= 8, built for 4 and 8
+    taps (`pad_taps`; K18's front and K19's conv adjoint); a d_inner whose
     front tile of 16 rows of u fits in shared memory (K18's front: up to
     3560 in float32, 7120 in bfloat16; dt_rank <= 64 already caps hidden
     at 1024, d_inner 2048 at expand 2); d_state and chunk as
-    `ssm_scan_takes` (K18's scan pass 3: at chunk 128, d_state <= 160;
-    K19's adjoint runs on sub-chunks of 64 rows and needs less)."""
+    `ssm_scan_takes` (any d_state; the chunk set by K18's scan pass 3)."""
     esize = 2 if compute_dtype == torch.bfloat16 else 4
     return (compute_dtype in _DTYPES and H % 8 == 0
             and d % (16 if compute_dtype == torch.bfloat16 else 8) == 0
@@ -146,19 +151,21 @@ def pad_taps(conv_w):
 
 def ssm_scan_takes(d: int, N: int, chunk: int = 128) -> bool:
     """Whether K14 and K15 take d_inner d, d_state N and `chunk` on the
-    card: any d and N whose blocks' shared memory fits (`scan_smem`; at
-    chunk 128, d_state <= 160, set by the forward's pass 3: K15's passes
-    work on sub-chunks of 64 rows and need less)."""
+    card: any d and any d_state (one group of 16 states is staged at a
+    time), and a chunk whose blocks' shared memory fits (`scan_smem`: the
+    forward's pass 3 sets it, chunk <= 363 past 16 states and <= 1816 at up
+    to 16; K15's passes work on sub-chunks of 64 rows)."""
     return d > 0 and N > 0 and chunk > 0 and scan_smem(chunk, N) <= _SMEM
 
 
 def ssm_scan_dtlr_takes(d: int, N: int, R: int, chunk: int = 128) -> bool:
     """Whether K16 and K17 take d_inner d, d_state N, dt_rank R and `chunk`
-    on the card: dt_rank <= 64, and the blocks' shared memory with the
-    staged dt_lr rows and W_dt columns fits (`scan_smem`; at chunk 128,
-    d_state <= 144 at dt_rank 16, <= 112 at dt_rank 64, both set by K16's
-    pass 3)."""
-    return (d > 0 and N > 0 and chunk > 0 and 0 < R <= _MAX_RANK
+    on the card: any d and d_state, and a dt_rank whose staged dt_lr rows
+    and W_dt columns fit in shared memory (`scan_smem`): at chunk 64 or more
+    dt_rank <= 248 up to 16 states and <= 184 past them, both set by K17's
+    pass 3 (K16's delta kernel takes up to 360); the chunk as
+    `ssm_scan_takes`."""
+    return (d > 0 and N > 0 and chunk > 0 and R > 0
             and scan_smem(chunk, N, R) <= _SMEM)
 
 
@@ -684,11 +691,17 @@ class _MambaInner(torch.autograd.Function):
         return grads[:7] + (_grad_A(grads[7], A),) + grads[8:] + (None,)
 
 
+def workspace_bytes(fn: str, *ints) -> int:
+    """The bytes of workspace the C side's `<fn>_workspace` gives (needs
+    the built kernels)."""
+    return _build.kernel('mamba_bwd', f'{fn}_workspace',
+                         (_build.i32,) * len(ints), ctypes.c_longlong)(*ints)
+
+
 def _workspace(fn: str, device, *ints) -> torch.Tensor:
     """A byte workspace of the size the C side's `<fn>_workspace` gives."""
-    size = _build.kernel('mamba_bwd', f'{fn}_workspace',
-                         (_build.i32,) * len(ints), ctypes.c_longlong)(*ints)
-    return torch.empty((size,), dtype=torch.uint8, device=device)
+    return torch.empty((workspace_bytes(fn, *ints),), dtype=torch.uint8,
+                       device=device)
 
 
 def ssm_scan_bwd(u, delta, A, B, C, D, z, h0s, g, *, chunk: int = 128):
@@ -859,10 +872,11 @@ def ssm_scan_dtlr_plain(u, dt_lr, W_dt, b_dt, A, B, C, D, z, *,
 
 def ssm_scan_dtlr(u, dt_lr, W_dt, b_dt, A, B, C, D, z, *, chunk: int = 128,
                   return_h0s: bool = False):
-    """Gated selective scan with dt_proj and softplus inside the kernel,
-    K16 (`selective_scan_pallas_dtlr`'s arguments): `ssm_scan` of delta =
-    softplus(dt_lr @ W_dt + b_dt), the (Bt, L, d) delta never in device
-    memory. Differentiable in its nine tensors through K17
+    """Gated selective scan with dt_proj and softplus on the card, K16
+    (`selective_scan_pallas_dtlr`'s arguments): `ssm_scan` of delta =
+    softplus(dt_lr @ W_dt + b_dt), formed once per (row, channel) into a
+    transient float32 workspace and never saved for the backward.
+    Differentiable in its nine tensors through K17
     (`ssm_scan_dtlr_bwd`); without gradients (sampling) the forward runs as
     it is, outside autograd.
 
@@ -921,19 +935,20 @@ def _ssm_scan_dtlr_fwd(u, dt_lr, W_dt, b_dt, A, B, C, D, z, *, chunk):
     lr, ld_lr, w_dt, b_dt, A, D, ld_bc = _dtlr_operands(
         u, dt_lr, W_dt, b_dt, A, B, C, D, z, chunk, 'ssm_scan_dtlr')
     y = torch.empty((Bt, L, d), dtype=u.dtype, device=u.device)
+    delta = torch.empty((Bt, L, d), dtype=torch.float32, device=u.device)
     prod, end, h0s = _scan_buffers(u, d, N, chunk)
     fn = _build.kernel('mamba', 'ddg_ssm_scan_dtlr',
-                       (_build.ptr, _build.i32, _build.ptr, _build.i32,
-                        _build.ptr, _build.ptr, _build.ptr, _build.ptr,
-                        _build.i32, _build.ptr, _build.i32)
+                       (_build.ptr, _build.i32, _build.ptr, _build.i32)
+                       + (_build.ptr,) * 5
+                       + (_build.i32, _build.ptr, _build.i32)
                        + (_build.ptr,) * 6 + (_build.i32,) * 7
                        + (_build.ptr,))
     rc = fn(u.data_ptr(), _row_stride(u, 'u'), lr.data_ptr(), ld_lr,
-            w_dt.data_ptr(), b_dt.data_ptr(), B.data_ptr(), C.data_ptr(),
-            ld_bc, z.data_ptr(), _row_stride(z, 'z'), A.data_ptr(),
-            D.data_ptr(), y.data_ptr(), prod.data_ptr(), end.data_ptr(),
-            h0s.data_ptr(), Bt, L, d, N, R, chunk, _DTYPES[u.dtype],
-            _build.stream(u))
+            w_dt.data_ptr(), b_dt.data_ptr(), delta.data_ptr(), B.data_ptr(),
+            C.data_ptr(), ld_bc, z.data_ptr(), _row_stride(z, 'z'),
+            A.data_ptr(), D.data_ptr(), y.data_ptr(), prod.data_ptr(),
+            end.data_ptr(), h0s.data_ptr(), Bt, L, d, N, R, chunk,
+            _DTYPES[u.dtype], _build.stream(u))
     ssm_scan_dtlr.launches += 1
     _build.check(rc, 'ddg_ssm_scan_dtlr')
     return y, h0s
@@ -968,8 +983,8 @@ def ssm_scan_dtlr_bwd(u, dt_lr, W_dt, b_dt, A, B, C, D, z, h0s, g, *,
     and dz in their inputs' dtypes, ddt_lr (Bt, L, R), dW_dt (R, d) and
     db_dt float32, dA_log (N, d) the gradient of log(-A).T, dD (d,). On
     CUDA tensors one call of `csrc/mamba_bwd.cu` (the scan's adjoint with
-    delta formed in the kernel, then dt_proj's adjoint over channel tiles
-    and the fixed-order sums of the partials; deterministic) and one
+    delta formed in the kernel and dt_proj's adjoint inside its last pass,
+    then the fixed-order sums of the partials; deterministic) and one
     count."""
     if u.device.type == 'cpu':
         return ssm_scan_dtlr_bwd_plain(u, dt_lr, W_dt, b_dt, A, B, C, D, z,

@@ -2,28 +2,39 @@
 """CUDA-event times of the DiMamba kernels of one `ddg_tpu_torch` tree.
 
     python3 scripts/time_mamba_kernels.py [--tree DIR] [--tag NAME] [--f64]
+                                          [--digest] [--profile]
 
 Imports `ddg_tpu_torch` from `--tree` (default: this checkout), builds its
-kernels into that tree's `build/`, and times K18, K19, K14 and K15 (and
-K16, K17 where the tree has them) in bf16 at the Species10 training shape
-(16 x 32768, hidden 256, d_inner 512, d_state 16, dt_rank 16) with
-`chip_smoke.time_ms` on `chip_smoke`'s inputs; prints one JSON line with
-the card's name and power limit. `--f64` adds, for K15's scan adjoint
-(which K17 and K19 share), the largest distance of each fp32 output of
-the kernel and of the plain version from the float64 adjoint
-(`chip_smoke._f64_gap`) at B=2, L=1024, d_state 16 and 64, on inputs made
-from one seed, so two trees are compared on the same data. To compare two
-versions on one card, in one call, unpack the other into a directory
-`.gitignore` lists and run them in turns:
+kernels into that tree's `build/`, and times in bf16 with
+`chip_smoke.time_ms` on `chip_smoke`'s inputs: K18 and K19 at the
+Species10 training shape (16 x 32768, hidden 256, d_inner 512, d_state 16,
+dt_rank 16), and K14, K15, K16 and K17 at 16 x 32768 and at the dt-lowrank
+training micro-batch, 4 x 32768 (`K16_4` and so on); with K17's workspace
+bytes at 4 x 32768. Prints one JSON line with the card's name and power
+limit. `--f64` adds, for K15's scan adjoint (which K17 and K19 share), the
+largest distance of each fp32 output of the kernel and of the plain version
+from the float64 adjoint (`chip_smoke._f64_gap`) at B=2, L=1024, d_state
+16 and 64. `--digest` adds a hash of each kernel's outputs on inputs made
+from fixed seeds: the scans at B=2, L=4096, d_state 16 and at L=1024,
+d_state 64; K18 and K19 at B=2, L=2048, d_state 16 and 32. Two trees run on
+the same data, so equal hashes mean bit-identical outputs. `--profile`
+adds ptxas's registers and spills of the scan kernels and the device ms a
+call of each kernel K15, K16 and K17 launch at 4 x 32768 (torch.profiler).
+To compare two versions on one card, in one call, unpack the other into a
+directory `.gitignore` lists and run them in turns:
 
     git archive <commit> ddg_tpu_torch | tar -x -C build/parent
     for t in build/parent . . build/parent; do
-        python3 scripts/time_mamba_kernels.py --tree $t --tag $t; done
+        python3 scripts/time_mamba_kernels.py --tree $t --tag $t --digest
+    done
 """
 
 import argparse
+import ctypes
+import hashlib
 import json
 import os
+import re
 import sys
 
 import torch
@@ -36,6 +47,8 @@ def main():
     ap.add_argument('--tree', default=ROOT)
     ap.add_argument('--tag', default='this')
     ap.add_argument('--f64', action='store_true')
+    ap.add_argument('--digest', action='store_true')
+    ap.add_argument('--profile', action='store_true')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('no CUDA device is visible', file=sys.stderr)
@@ -43,42 +56,127 @@ def main():
     sys.path.insert(0, os.path.abspath(args.tree))
     torch.backends.cuda.matmul.allow_tf32 = False
     from ddg_tpu_torch.ops import _build, mamba as M
-    _build.build_all()
+    libs = _build.build_all()
     sys.path.insert(1, ROOT)
     import chip_smoke as cs
+    out = {'tag': args.tag, 'nvidia_smi': cs.nvidia_smi()}
+    if args.profile:
+        out['ptxas'] = scan_ptxas(libs)
+        out['by_kernel_4'] = by_kernel(cs, M)
+    if args.digest:
+        out['digest'] = digests(cs, M)
     gen = torch.Generator(device='cuda').manual_seed(14)
     bf = torch.bfloat16
-    TB, SL, SH, SD, SN, SR = 16, 32768, 256, 512, 16, 16
+    SL, SH, SD, SN, SR = 32768, 256, 512, 16, 16
     w = cs._mamba_weights(gen, bf)
-    h = cs._rand(gen, TB, SL, SH, dtype=bf)
+    h = cs._rand(gen, 16, SL, SH, dtype=bf)
     kw = dict(d_state=SN, dt_rank=SR)
-    out = {'tag': args.tag, 'nvidia_smi': cs.nvidia_smi()}
     out['K18'] = cs.time_ms(lambda: M.mamba_inner(h, **w, **kw), reps=20)
     _, h0s = M.mamba_inner(h, **w, **kw, return_h0s=True)
-    a19 = (h, *w.values(), h0s, cs._rand(gen, TB, SL, SH, dtype=bf))
+    a19 = (h, *w.values(), h0s, cs._rand(gen, 16, SL, SH, dtype=bf))
     out['K19'] = cs.time_ms(lambda: M.mamba_inner_bwd(*a19, **kw), reps=10)
-    del a19, h0s
-    xz = cs._rand(gen, TB, SL, 2 * SD, dtype=bf)
-    xd = cs._rand(gen, TB, SL, SR + 2 * SN, dtype=bf)
-    args14 = (xz[..., :SD], M.softplus(cs._rand(gen, TB, SL, SD) - 3.0),
-              w['A'], xd[..., SR:SR + SN], xd[..., SR + SN:], w['D'],
-              xz[..., SD:])
-    out['K14'] = cs.time_ms(lambda: M.ssm_scan(*args14), reps=20)
-    _, h0s = M.ssm_scan(*args14, return_h0s=True)
-    gy = cs._rand(gen, TB, SL, SD, dtype=bf)
-    out['K15'] = cs.time_ms(lambda: M.ssm_scan_bwd(*args14, h0s, gy),
-                            reps=10)
-    if hasattr(M, 'ssm_scan_dtlr'):
-        args16 = (xz[..., :SD], xd[..., :SR].float(), w['W_dt'], w['b_dt'],
-                  *args14[2:])
-        out['K16'] = cs.time_ms(lambda: M.ssm_scan_dtlr(*args16), reps=20)
-        _, h0s = M.ssm_scan_dtlr(*args16, return_h0s=True)
-        out['K17'] = cs.time_ms(
-            lambda: M.ssm_scan_dtlr_bwd(*args16, h0s, gy), reps=10)
+    del a19, h0s, h
+    for Bt, tag in ((16, ''), (4, '_4')):
+        a16, a14 = cs._scan_inputs(gen, bf, Bt, SL)
+        gy = cs._rand(gen, Bt, SL, SD, dtype=bf)
+        out['K14' + tag] = cs.time_ms(lambda: M.ssm_scan(*a14), reps=20)
+        _, h0s = M.ssm_scan(*a14, return_h0s=True)
+        out['K15' + tag] = cs.time_ms(lambda: M.ssm_scan_bwd(*a14, h0s, gy),
+                                      reps=10)
+        out['K16' + tag] = cs.time_ms(lambda: M.ssm_scan_dtlr(*a16), reps=20)
+        _, h0s = M.ssm_scan_dtlr(*a16, return_h0s=True)
+        out['K17' + tag] = cs.time_ms(
+            lambda: M.ssm_scan_dtlr_bwd(*a16, h0s, gy), reps=10)
+        out['K17_own' + tag] = out['K17' + tag] - out['K15' + tag]
+        del a16, a14, gy, h0s
+        torch.cuda.empty_cache()
+    ws = _build.kernel('mamba_bwd', 'ddg_ssm_scan_dtlr_bwd_workspace',
+                       (_build.i32,) * 6, ctypes.c_longlong)
+    out['K17_workspace_bytes_4'] = ws(4, SL, SD, SN, SR, 128)
     if args.f64:
         out['K15_f64_gap'] = f64_gaps(cs, M)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def scan_ptxas(libs):
+    """{kernel: 'N registers, S spill stores'} of the scan kernels, from
+    the build's ptxas lines (empty where the library was built before)."""
+    out, cur = {}, None
+    for name in ('mamba', 'mamba_bwd'):
+        for ln in libs[name][1].splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                cur = m.group(1)
+            elif cur and re.search('scan|delta|dt_bwd', cur):
+                key = re.sub(r'^_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}\d+', '', cur)[:60]
+                if 'spill stores' in ln:
+                    out[key] = ln.split(',')[1].strip()
+                elif 'registers' in ln:
+                    out[key] = ln.split(':')[-1].split(',')[0].strip() \
+                        + ', ' + out.get(key, '')
+    return out
+
+
+def by_kernel(cs, M):
+    """{K15|K16|K17: {kernel: device ms a call}} at 4 x 32768, bf16."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device='cuda').manual_seed(15)
+    a16, a14 = cs._scan_inputs(gen, torch.bfloat16, 4, 32768)
+    g = cs._rand(gen, 4, 32768, cs.SD, dtype=torch.bfloat16)
+    _, h14 = M.ssm_scan(*a14, return_h0s=True)
+    _, h16 = M.ssm_scan_dtlr(*a16, return_h0s=True)
+    calls = {'K15': lambda: M.ssm_scan_bwd(*a14, h14, g),
+             'K16': lambda: M.ssm_scan_dtlr(*a16),
+             'K17': lambda: M.ssm_scan_dtlr_bwd(*a16, h16, g)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        out[name] = {e.key.replace('(anonymous namespace)::', '')[:48]:
+                     round(e.device_time_total / 3e3, 4)
+                     for e in prof.key_averages() if e.device_time_total > 0}
+    return out
+
+
+def _hash(ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def digests(cs, M):
+    """{kernel case: hash of its outputs}, each case on inputs of its own
+    seed (bf16 operands, as the main paths run them)."""
+    bf = torch.bfloat16
+    out = {}
+    for L, N in ((4096, 16), (1024, 64)):
+        gen = torch.Generator(device='cuda').manual_seed(1000 + N)
+        a16, a14 = cs._scan_inputs(gen, bf, 2, L, N=N)
+        g = cs._rand(gen, 2, L, cs.SD, dtype=bf)
+        y14 = M.ssm_scan(*a14, return_h0s=True)
+        out[f'K14_N{N}'] = _hash(y14)
+        out[f'K15_N{N}'] = _hash(M.ssm_scan_bwd(*a14, y14[1], g))
+        y16 = M.ssm_scan_dtlr(*a16, return_h0s=True)
+        out[f'K16_N{N}'] = _hash(y16)
+        out[f'K17_N{N}'] = _hash(M.ssm_scan_dtlr_bwd(*a16, y16[1], g))
+    for N in (16, 32):
+        gen = torch.Generator(device='cuda').manual_seed(2000 + N)
+        w = cs._mamba_weights(gen, bf, N=N)
+        h = cs._rand(gen, 2, 2048, cs.SH, dtype=bf)
+        kw = dict(d_state=N, dt_rank=cs.SR)
+        y18 = M.mamba_inner(h, **w, **kw, return_h0s=True)
+        out[f'K18_N{N}'] = _hash(y18)
+        g = cs._rand(gen, 2, 2048, cs.SH, dtype=bf)
+        out[f'K19_N{N}'] = _hash(M.mamba_inner_bwd(h, *w.values(), y18[1],
+                                                   g, **kw))
+    return out
 
 
 def f64_gaps(cs, M):

@@ -310,27 +310,41 @@ def test_auto_route_follows_the_kernels_limits(d_conv, d_state, want):
                              on_card=True) == 'fused_block'
     assert resolve_route(dataclasses.replace(cfg, d_conv=9), L,
                          on_card=True) == 'scan_kernel'
-    # What the card's kernels still refuse raises, naming the kernel: a
-    # d_state whose blocks overflow shared memory (past 160 at chunk 128,
-    # the forward's pass 3 since the adjoint's sub-chunks), and dt_rank 65
-    # (> 64) at hidden 1040.
+    # Every route takes any d_state on the card (each scan pass stages one
+    # group of 16 states at a time), and the dt-lowrank scan dt_rank 65.
     big = dataclasses.replace(cfg, d_state=176)
+    assert resolve_route(big, L, on_card=True) == 'fused_block'
+    assert resolve_route(dataclasses.replace(big, fused_block=False), L,
+                         on_card=True) == 'scan_kernel'
+    assert resolve_route(dataclasses.replace(big, fused_block=False,
+                                             dt_inkernel=True), L,
+                         on_card=True) == 'scan_kernel_dtlr'
+    # What the card's kernels still refuse raises, naming the kernel: a
+    # chunk whose forward pass 3 overflows shared memory past 16 states
+    # (384 rows), dt_rank 65 (> 64) on the fused block at hidden 1040, and
+    # dt_rank 190 (> 184 past 16 states, K17's pass 3) at hidden 3040.
+    long = dataclasses.replace(cfg, d_state=32, scan_chunk=384)
     with pytest.raises(ValueError, match='K18/K19'):
-        resolve_route(big, L, on_card=True)
+        resolve_route(long, 768, on_card=True)
     with pytest.raises(ValueError, match='K14/K15'):
-        resolve_route(dataclasses.replace(big, fused_block=False), L,
+        resolve_route(dataclasses.replace(long, fused_block=False), 768,
                       on_card=True)
     with pytest.raises(ValueError, match='K16/K17'):
-        resolve_route(dataclasses.replace(big, fused_block=False,
-                                          dt_inkernel=True), L, on_card=True)
+        resolve_route(dataclasses.replace(long, fused_block=False,
+                                          dt_inkernel=True), 768,
+                      on_card=True)
     wide = dataclasses.replace(cfg, hidden_size=1040)
     with pytest.raises(ValueError, match='K18/K19'):
         resolve_route(wide, L, on_card=True)
-    with pytest.raises(ValueError, match='K16/K17'):
-        resolve_route(dataclasses.replace(wide, fused_block=False,
-                                          dt_inkernel=True), L, on_card=True)
+    assert resolve_route(dataclasses.replace(wide, fused_block=False,
+                                             dt_inkernel=True), L,
+                         on_card=True) == 'scan_kernel_dtlr'
     assert resolve_route(dataclasses.replace(wide, fused_block=False), L,
                          on_card=True) == 'scan_kernel'
+    wider = dataclasses.replace(cfg, hidden_size=3040, d_state=32,
+                                fused_block=False, dt_inkernel=True)
+    with pytest.raises(ValueError, match='K16/K17'):
+        resolve_route(wider, L, on_card=True)
 
 
 def test_auto_route_on_a_refused_shape_runs_on_the_cpu():
