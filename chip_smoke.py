@@ -1551,47 +1551,132 @@ def _fwd_pair(rec, name, dtype, got, want, rel=False):
     return {'err': err, 'tol': tol, 'h0s_err': h0s_err}
 
 
+def _rerun_equal(name, fn, first):
+    """A second call of fn returns outputs bit-identical to `first`."""
+    again = fn()
+    check(all(torch.equal(a, b) for a, b in zip(again, first)),
+          f'{name}: reruns differ')
+
+
+def _rows_alone(rec, name, fn, plain, *args):
+    """fn on the first 4 rows of its batched (3-D) arguments (a batch of
+    4 runs the scan's three passes, one of 16 the walk: the same function
+    in another order) against the plain version on those rows, to the
+    kernel's bars; returns the largest difference of its output from the
+    same rows of fn on all of them."""
+    whole = fn(*args)
+    sub = tuple(t[:4] if t.dim() == 3 else t for t in args)
+    part = fn(*sub)
+    _fwd_pair(rec, f'{name}: the first 4 rows alone', torch.bfloat16, part,
+              plain(*sub))
+    return float((part[0].float() - whole[0][:4].float()).abs().max())
+
+
 def check_mamba(results):
     """K18 (`mamba_inner`) and K14 (`ssm_scan`) against their plain versions
     on the card at the DiMamba's widths, in fp32 and bf16: K18 at B=2,
     L=2048 (16 chunks of 128) with the forward direction's weights and
     with another set on the flipped rows (as the model runs `core_rev`),
-    and at L=80, chunk 16 (a ragged last row tile of the conv kernel and of
+    at L=80, chunk 16 (a ragged last row tile of the conv kernel and of
     the products), there also with d_conv 3 (run as 4 taps, the first
-    zero); K14 on u, z, B, C as views into wider projections (as
-    the model slices them) at L=2048 and at L=2000 (a padded last chunk).
-    Outputs to the usual bars, the chunk entry states to `_close_states`.
-    Timed in bf16 at the Species10 shape, 16 x 32768 (256 chunks a row),
-    and held against the plain versions there too (`main_path`)."""
+    zero), at L=960, chunk 60 (chunk ends inside a batch of 8 rows) and
+    at d_state 24, 64 and 192 (groups of 16 states in order, their sums of
+    C . h through device memory); K14 on u, z, B, C as views into wider
+    projections (as
+    the model slices them) at L=2048, at L=2000 (a padded last chunk), at
+    chunk 60, at d_state 24, 64 and 192 and with B and C at an odd offset
+    and row stride (dt_rank 3). Every case is rerun and must
+    give the same bits. Outputs to the usual bars, the chunk entry states
+    to `_close_states`; in fp32 K14's y and h0s at L=2048 are also held
+    against float64 (`f64_gap`, recorded). Timed in bf16 at the Species10
+    shape, 16 x 32768 (256 chunks a row), and held against the plain
+    versions there too (`main_path`), and the first 4 rows run alone (the
+    three passes) against their plain version, recording how far they lie
+    from the same rows among 16 (the walk); the walk's own edge cases run
+    at batches that fill the card."""
     from ddg_tpu_torch.ops import mamba as M
     gen = torch.Generator(device=DEV).manual_seed(14)
     for dtype in (torch.float32, torch.bfloat16):
         rec18 = {}
-        for Bt, Lm, chunk, rows in ((2, 2048, 128, 'fwd'),
-                                    (2, 2048, 128, 'rev'),
-                                    (2, 80, 16, 'ragged'),
-                                    (2, 80, 16, 'taps3')):
-            w = _mamba_weights(gen, dtype, K=3 if rows == 'taps3' else 4)
+        for Bt, Lm, chunk, rows, N in ((2, 2048, 128, 'fwd', SN),
+                                       (2, 2048, 128, 'rev', SN),
+                                       (2, 80, 16, 'ragged', SN),
+                                       (2, 80, 16, 'taps3', SN),
+                                       (2, 960, 60, 'chunk60', SN),
+                                       (2, 1024, 128, 'd_state24', 24),
+                                       (2, 1024, 128, 'd_state64', 64),
+                                       (1, 512, 128, 'd_state192', 192)):
+            w = _mamba_weights(gen, dtype, N=N,
+                               K=3 if rows == 'taps3' else 4)
             h = _rand(gen, Bt, Lm, SH, dtype=dtype)
             if rows == 'rev':
                 h = torch.flip(h, (1,))
-            kw = dict(d_state=SN, dt_rank=SR, chunk=chunk,
+            kw = dict(d_state=N, dt_rank=SR, chunk=chunk,
                       compute_dtype=dtype, return_h0s=True)
-            _fwd_pair(rec18, f'mamba_inner {rows} B={Bt} L={Lm} '
-                      f'chunk={chunk}', dtype, M.mamba_inner(h, **w, **kw),
-                      M.mamba_inner_plain(h, **w, **kw))
+            name = f'mamba_inner {rows} B={Bt} L={Lm} chunk={chunk}'
+            got = M.mamba_inner(h, **w, **kw)
+            _fwd_pair(rec18, name, dtype, got,
+                      M.mamba_inner_plain(h, **w, **kw), rel=N > SN)
+            _rerun_equal(name, lambda: M.mamba_inner(h, **w, **kw), got)
         results['mamba_inner'][str(dtype)] = rec18
         rec14 = {}
-        for Bt, Lm in ((2, 2048), (2, 2000)):
+        for Bt, Lm, chunk, N, R in ((2, 2048, 128, SN, SR),
+                                    (2, 2000, 128, SN, SR),
+                                    (2, 960, 60, SN, SR), (2, 1000, 60, SN, SR),
+                                    (2, 1024, 128, 24, SR),
+                                    (2, 1024, 128, 64, SR),
+                                    (1, 512, 128, 192, SR),
+                                    (2, 1000, 128, SN, 3)):
+            # R = 3: B and C views of odd offset and row stride (copied by
+            # loads and stores, not cp.async).
             xz = _rand(gen, Bt, Lm, 2 * SD, dtype=dtype)
-            xd = _rand(gen, Bt, Lm, SR + 2 * SN, dtype=dtype)
-            w = _mamba_weights(gen, dtype)
+            xd = _rand(gen, Bt, Lm, R + 2 * N, dtype=dtype)
+            w = _mamba_weights(gen, dtype, N=N)
             args = (xz[..., :SD], M.softplus(_rand(gen, Bt, Lm, SD) - 3.0),
-                    w['A'], xd[..., SR:SR + SN], xd[..., SR + SN:], w['D'],
+                    w['A'], xd[..., R:R + N], xd[..., R + N:], w['D'],
                     xz[..., SD:])
-            _fwd_pair(rec14, f'ssm_scan B={Bt} L={Lm}', dtype,
-                      M.ssm_scan(*args, return_h0s=True),
-                      M.ssm_scan_plain(*args, return_h0s=True))
+            name = f'ssm_scan B={Bt} L={Lm} chunk={chunk} d_state={N} R={R}'
+            got = M.ssm_scan(*args, chunk=chunk, return_h0s=True)
+            want = M.ssm_scan_plain(*args, chunk=chunk, return_h0s=True)
+            _fwd_pair(rec14, name, dtype, got, want, rel=N > SN)
+            _rerun_equal(name, lambda: M.ssm_scan(*args, chunk=chunk,
+                                                  return_h0s=True), got)
+            if dtype == torch.float32 and Lm == 2048:
+                rec14['f64_gap'] = _f64_gap(('y', 'h0s'), got, want,
+                                            _f64_scan(args, chunk))
+        # The cases above run the three passes (a batch of 2); the walk
+        # (`scan_fwd_kernel`) runs where a batch fills the card with 3
+        # blocks of 16 channels an SM: a chunk that ends inside its 16-row
+        # batch (60, 48), groups past 16 states, B and C of odd offset and
+        # row stride, a ragged channel tile (d 200 at B=32), K14 and K18.
+        for Bt, Lm, chunk, N, R, d in ((16, 240, 60, 24, 3, SD),
+                                       (32, 128, 16, SN, SR, 200)):
+            xz = _rand(gen, Bt, Lm, 2 * d, dtype=dtype)
+            xd = _rand(gen, Bt, Lm, R + 2 * N, dtype=dtype)
+            w = _mamba_weights(gen, dtype, d=d, N=N)
+            args = (xz[..., :d], M.softplus(_rand(gen, Bt, Lm, d) - 3.0),
+                    w['A'], xd[..., R:R + N], xd[..., R + N:], w['D'],
+                    xz[..., d:])
+            name = (f'ssm_scan walk B={Bt} L={Lm} d={d} chunk={chunk} '
+                    f'd_state={N} R={R}')
+            got = M.ssm_scan(*args, chunk=chunk, return_h0s=True)
+            want = M.ssm_scan_plain(*args, chunk=chunk, return_h0s=True)
+            _fwd_pair(rec14, name, dtype, got, want, rel=N > SN)
+            _rerun_equal(name, lambda: M.ssm_scan(*args, chunk=chunk,
+                                                  return_h0s=True), got)
+            if dtype == torch.float32 and d == SD:
+                rec14['f64_gap_walk'] = _f64_gap(('y', 'h0s'), got, want,
+                                                 _f64_scan(args, chunk))
+        for Bt, Lm, chunk, N in ((16, 240, 48, SN), (16, 256, 128, 24)):
+            w = _mamba_weights(gen, dtype, N=N)
+            h = _rand(gen, Bt, Lm, SH, dtype=dtype)
+            kw = dict(d_state=N, dt_rank=SR, chunk=chunk,
+                      compute_dtype=dtype, return_h0s=True)
+            name = f'mamba_inner walk B={Bt} L={Lm} chunk={chunk} d_state={N}'
+            got = M.mamba_inner(h, **w, **kw)
+            _fwd_pair(rec18, name, dtype, got,
+                      M.mamba_inner_plain(h, **w, **kw), rel=N > SN)
+            _rerun_equal(name, lambda: M.mamba_inner(h, **w, **kw), got)
         results['ssm_scan'][str(dtype)] = rec14
 
     # Times at the main path's shape, bf16.
@@ -1608,6 +1693,10 @@ def check_mamba(results):
         rec18, f'mamba_inner B={2 * SB} L={SL}', bf,
         M.mamba_inner(h, **w, **kw, return_h0s=True),
         M.mamba_inner_plain(h, **w, **kw, return_h0s=True))
+    rec18['rows_at_4_vs_16_diff'] = _rows_alone(
+        rec18, 'mamba_inner',
+        lambda x: M.mamba_inner(x, **w, **kw, return_h0s=True),
+        lambda x: M.mamba_inner_plain(x, **w, **kw, return_h0s=True), h)
     # The yardstick for its GEMM share: its four products through
     # torch.matmul at the same shapes (bf16; dt_proj fp32).
     u = _rand(gen, M_rows, SD, dtype=bf)
@@ -1641,6 +1730,9 @@ def check_mamba(results):
         rec14, f'ssm_scan B={2 * SB} L={SL}', bf,
         M.ssm_scan(*args, return_h0s=True),
         M.ssm_scan_plain(*args, return_h0s=True))
+    rec14['rows_at_4_vs_16_diff'] = _rows_alone(
+        rec14, 'ssm_scan', lambda *x: M.ssm_scan(*x, return_h0s=True),
+        lambda *x: M.ssm_scan_plain(*x, return_h0s=True), *args)
     # Bytes: u, z, y (bf16) and delta (fp32) per (row, channel), B and C
     # per row, the chunk entry states out. Operations: exp(delta A) per
     # state and the gate's sigmoid, on the SFU.
@@ -1659,11 +1751,19 @@ def check_mamba(results):
 # (`_close`'s `rel`): (label, H, d_inner, d_state, dt_rank, d_conv).
 WIDE_SHAPES = (('d_state24', SH, SD, 24, SR, 4), ('d_state64', SH, SD, 64, SR, 4),
                ('d_conv6', SH, SD, SN, SR, 6), ('d_conv8', SH, SD, SN, SR, 8),
-               ('hidden768', 768, 1536, SN, 48, 4))
+               ('hidden768', 768, 1536, SN, 48, 4),
+               ('hidden1536', 1536, 3072, SN, 96, 4))
 WIDE_B, WIDE_L = 2, 1024
-# The scans alone (K14-K17) also at d_state 192 with dt_rank 96, past the
-# fused block's dt_rank: (label, d_inner, d_state, dt_rank).
-WIDE_SCAN_SHAPES = (('d_state192_rank96', SD, 192, 96),)
+# The scans alone (K14-K17) also at d_state 192 with dt_rank 96 and at the
+# largest dt_rank K17's pass 3 holds (248 at d_state 16, 184 past it):
+# (label, d_inner, d_state, dt_rank).
+WIDE_SCAN_SHAPES = (('d_state192_rank96', SD, 192, 96),
+                    ('rank248', SD, SN, 248), ('d_state32_rank184', SD, 32, 184))
+# ROADMAP C.6: K18 past the old front tile's d_inner cap (7120 in bf16,
+# 3560 in fp32) at B=1, L=256, hidden 4096 (dt_rank 256); K14 and K18 at
+# chunk 1024 with d_state 64 at B=2, L=2048 (label, B, L, H, d, N, R, chunk).
+C6_SHAPES = (('d_inner8192', 1, 256, 4096, 8192, SN, 256, 128),
+             ('chunk1024_d_state64', 2, 2048, SH, SD, 64, SR, 1024))
 
 
 def _scan_inputs(gen, dtype, Bt, Lm, d=SD, N=SN, R=SR):
@@ -1686,8 +1786,10 @@ def check_mamba_dtlr(results, gen):
     """K16 (`ssm_scan_dtlr`) against its plain version, and bit for bit
     against K14 fed the composite softplus(dt_lr W_dt + b_dt) (y and h0s
     equal), fp32 and bf16: at B=2, L=2048, at d_inner 200 (a ragged
-    channel tile of the scan's 128; also at chunk 60, a sub-chunk of 60
-    rows in the backward), at the dt-lowrank serving path's shape
+    channel tile of the adjoint's 64; also at chunk 60, a sub-chunk of 60
+    rows in the backward), at d_inner 100 with chunk 50 (a ragged tile of
+    the forward scan's 16 channels, chunk ends inside a batch of 8 rows),
+    at the dt-lowrank serving path's shape
     (16 x 32768: D-CFG doubles B=8; d 512, N 16, R 16) and at its training
     path's (DIMAMBA_DTLR_TRAIN_MICRO_BATCH x 32768). Timed in bf16 at the
     serving shape beside its bound, its plain version and the composite
@@ -1699,8 +1801,8 @@ def check_mamba_dtlr(results, gen):
     for dtype in (torch.float32, torch.bfloat16):
         rec = {}
         for Bt, Lm, d, chunk in ((2, 2048, SD, 128), (2, 1024, 200, 128),
-                                 (2, 960, 200, 60), (SB2, SL, SD, 128),
-                                 (TB, SL, SD, 128)):
+                                 (2, 960, 200, 60), (2, 1000, 100, 50),
+                                 (SB2, SL, SD, 128), (TB, SL, SD, 128)):
             a16, a14 = _scan_inputs(gen, dtype, Bt, Lm, d=d)
             got = M.ssm_scan_dtlr(*a16, chunk=chunk, return_h0s=True)
             name = f'ssm_scan_dtlr B={Bt} L={Lm} d={d} chunk={chunk}'
@@ -1744,51 +1846,51 @@ def check_mamba_dtlr(results, gen):
 
 def check_mamba_smem():
     """The wrappers' mirror of the kernels' shared-memory sums
-    (`ops.mamba.scan_smem`, `_front_tile`, `_SMEM`, which decide what
+    (`ops.mamba.scan_smem`, `_front_smem`, `_SMEM`, which decide what
     `ssm_scan_takes`, `ssm_scan_dtlr_takes` and `mamba_inner_takes` accept
     without a card) equals the sums the built kernels use
-    (`ddg_scan_smem`, `ddg_scan_bwd_smem`, `ddg_front_tile`,
+    (`ddg_scan_smem`, `ddg_scan_bwd_smem`, `ddg_front_smem`,
     `ddg_smem_max`): at Species10's shape, the WIDE_SHAPES, the d_state
-    and dt_rank where the scans stop fitting, and the d_inner where the
-    front tile shrinks or fails, at chunks 128 and 16."""
+    and dt_rank where K17's pass 3 stops holding dt_proj's adjoint and
+    where K16's delta kernel stops fitting, at chunks 16, 60, 128 and
+    1024; the front's for both element sizes."""
     import ctypes
     from ddg_tpu_torch.ops import _build
     from ddg_tpu_torch.ops import mamba as M
     i32, ll = _build.i32, ctypes.c_longlong
     fwd = _build.kernel('mamba', 'ddg_scan_smem', (i32,) * 3, ll)
     bwd = _build.kernel('mamba_bwd', 'ddg_scan_bwd_smem', (i32,) * 3, ll)
-    tile = _build.kernel('mamba', 'ddg_front_tile', (i32,) * 3, i32)
+    front = _build.kernel('mamba', 'ddg_front_smem', (i32,), i32)
     smem_max = _build.kernel('mamba', 'ddg_smem_max', (), i32)()
     check(smem_max == M._SMEM, f'kSmemMax {smem_max} != ops.mamba._SMEM '
           f'{M._SMEM}')
     n = 0
-    for chunk in (128, 16):
+    for chunk in (128, 16, 60, 1024):
         for N in sorted({SN, 17, 24, 64, 96, 97, 112, 113, 128, 144, 145,
                          160, 161, 176, 192, 512}):
-            for R in (0, SR, 48, 64, 96, 128, 184, 185, 248, 249):
+            for R in (0, SR, 48, 64, 96, 128, 184, 185, 248, 249, 300, 360,
+                      361):
                 py, c = M.scan_smem(chunk, N, R), max(fwd(chunk, N, R),
                                                       bwd(chunk, N, R))
                 check(py == c, f'scan_smem(chunk={chunk}, N={N}, R={R}): '
                       f'{py} in ops.mamba, {c} in csrc')
                 n += 1
-    for d in (200, SD, 1536, 2048, 3328, 3560, 3568, 7120, 7136):
-        for R in (SR, 48, 64):
-            for esize in (2, 4):
-                py, c = M._front_tile(d, R, esize), tile(d, R, esize)
-                check(py == c, f'front tile (d={d}, R={R}, {esize}-byte '
-                      f'rows): {py} in ops.mamba, {c} in csrc')
-                n += 1
+    for esize in (2, 4):
+        py, c = M._front_smem(esize), front(esize)
+        check(py == c, f'front shared memory ({esize}-byte rows): {py} in '
+              f'ops.mamba, {c} in csrc')
+        n += 1
     emit({'phase': 'mamba_smem_mirror', 'cases': n, 'smem_max': smem_max})
 
 
-def _f64_scan(a14):
+def _f64_scan(a14, chunk=128):
     """K14's (y, h0s) on its operands in float64 (the plain version's sums
     and order, A's fp32 round trip kept): the yardstick for how far the
     fp32 plain version and the kernel lie from the exact sums."""
     from ddg_tpu_torch.ops import mamba as M
     u, delta, A, Bc, Cc, D, z = (t.double() for t in a14)
     y, h0s = M.scan_chunks(u, delta, M._round_trip(a14[2]).double(), Bc, Cc,
-                           128)
+                           chunk)
     return (y + D * u) * (z * torch.sigmoid(z)), h0s
 
 
@@ -1818,11 +1920,12 @@ def _wide_scans(results, gen, dtype, label, d, N, R):
 
 
 def check_mamba_wide(results, gen):
-    """The C.1 shapes (WIDE_SHAPES) on K18, K14 and K16 against their plain
-    versions, fp32 and bf16, fp32 rows to 1e-4 of their largest magnitude
-    (`_close`'s `rel`): K18 at every shape, the scans at those whose
-    d_state, d_inner or dt_rank differ from Species10's and at the
-    WIDE_SCAN_SHAPES (`_wide_scans`)."""
+    """The C.1 and C.6 shapes (WIDE_SHAPES, C6_SHAPES) on K18, K14 and K16
+    against their plain versions, fp32 and bf16, fp32 rows to 1e-4 of
+    their largest magnitude (`_close`'s `rel`): K18 at every shape, the
+    scans at those whose d_state, d_inner or dt_rank differ from
+    Species10's and at the WIDE_SCAN_SHAPES (`_wide_scans`), K14 also at
+    C6_SHAPES' chunk 1024."""
     from ddg_tpu_torch.ops import mamba as M
     for dtype in (torch.float32, torch.bfloat16):
         for label, H, d, N, R, K in WIDE_SHAPES:
@@ -1838,6 +1941,25 @@ def check_mamba_wide(results, gen):
                 _wide_scans(results, gen, dtype, label, d, N, R)
         for label, d, N, R in WIDE_SCAN_SHAPES:
             _wide_scans(results, gen, dtype, label, d, N, R)
+        for label, Bt, Lm, H, d, N, R, chunk in C6_SHAPES:
+            w = _mamba_weights(gen, dtype, H=H, d=d, R=R, N=N)
+            h = _rand(gen, Bt, Lm, H, dtype=dtype)
+            kw = dict(d_state=N, dt_rank=R, chunk=chunk, compute_dtype=dtype,
+                      return_h0s=True)
+            rec = results['mamba_inner'][str(dtype)]
+            rec.setdefault('widened', {})[label] = _fwd_pair(
+                rec, f'mamba_inner {label}', dtype, M.mamba_inner(h, **w, **kw),
+                M.mamba_inner_plain(h, **w, **kw), rel=True)['err']
+            del w, h
+            if d != SD:
+                continue
+            _, a14 = _scan_inputs(gen, dtype, Bt, Lm, d=d, N=N, R=R)
+            rec = results['ssm_scan'][str(dtype)]
+            rec.setdefault('widened', {})[label] = _fwd_pair(
+                rec, f'ssm_scan {label}', dtype,
+                M.ssm_scan(*a14, chunk=chunk, return_h0s=True),
+                M.ssm_scan_plain(*a14, chunk=chunk, return_h0s=True),
+                rel=True)['err']
 
 
 # Outputs of the backward kernels: per row (the 1e-4 / 2-ulp bars) or sums

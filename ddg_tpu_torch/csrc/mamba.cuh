@@ -1,6 +1,6 @@
 // Pieces shared by the DiMamba kernels' forward (mamba.cu) and backward
 // (mamba_bwd.cu): the bf16 and fp32 products, the front (conv + SiLU,
-// x_proj, dt_proj + softplus) and the scan's row staging.
+// x_proj, dt_proj + softplus), delta from dt_lr and the scan's row staging.
 #pragma once
 
 #include "common.cuh"
@@ -17,8 +17,8 @@ using ddg::to_f32;
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxN = 16;       // states a thread holds: a group; d_state loops over groups
-constexpr int kMaxR = 32;       // dt_rank of one tile of W_dt held in registers (K18's
-constexpr int kMaxRT = 2;       // front, K19's dt adjoint); tiles: dt_rank <= 64
+constexpr int kMaxR = 32;       // dt_rank of one tile of W_dt held in registers (K19's
+constexpr int kMaxRT = 2;       // dt adjoint); tiles: dt_rank <= 64, past it rank tiles
 constexpr int kSmemMax = 232448;
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
@@ -34,9 +34,9 @@ __device__ __forceinline__ float softplus(float x) {
 // dt_proj's sum pre = dt_lr . w, fp32 FMAs with k ascending, four at a
 // time (lr zero past R up to a multiple of 4, w zero past R): the forward
 // and every adjoint form delta = softplus(pre + b_dt) in this one order
-// (here with w in registers, a channel's column of W_dt; K16's
-// `delta_kernel` and K17's `dt_pre_rows` with it in shared memory), so
-// they agree bit for bit.
+// (here with w in registers, a channel's column of W_dt, as the front
+// holds a rank tile of it; `delta_kernel` and K17's `dt_pre_row` with it
+// in shared memory), so they agree bit for bit.
 template <int NW>
 __device__ __forceinline__ float dt_pre(const float* lr, const float (&w)[NW], int R) {
   float acc = 0.f;
@@ -274,11 +274,279 @@ cudaError_t gemm(const float* A, const float* W, float* C, int M, int N, int K, 
   return cudaGetLastError();
 }
 
-// --- front: conv + SiLU, x_proj, dt_proj + softplus -------------------------
+// --- front, any shape: conv + SiLU, x_proj, dt_proj + softplus --------------
+//
+// One block of kFrontThreads per (kFrontRows rows, b). x_proj walks d in k
+// steps of kFrontK channels: each step forms its u columns of the tile's
+// rows (conv + SiLU: a thread a channel and kConvSeg rows, the K - 1 rows
+// before them read first, zeros before the sequence starts) into shared
+// memory beside W_x's matching columns, then multiplies them in: bf16 on
+// the tensor cores (mma.sync m16n8k16, k ascending 16 at a time), fp32 on
+// the CUDA cores (k ascending); the accumulators of up to kXCols columns of
+// x_dbl stay in registers over the walk, and wider x_dbl takes more passes
+// (the conv redone, u written once). Neither d nor dt_rank sizes the
+// block's shared memory. dt_proj follows from the block's x_dbl rows as
+// stored (K18's forward and K19's recompute, the same bits): the rows'
+// dt_lr in rank tiles of kDtPRank in shared memory (staged once where one
+// tile holds dt_rank), a thread's channel's column of each tile of W_dt in
+// registers, each sum in `dt_pre`'s order.
+constexpr int kFrontRows = 64;                                      // rows of a tile (row-tile
+constexpr int kFrontThreads = 256;                                  // kernel: at most)
+constexpr int kFrontK = 64;                                         // channels of a k step
+constexpr int kXCols = 64;                                          // x_dbl columns of a pass
+constexpr int kConvSeg = kFrontRows * kFrontK / kFrontThreads;      // rows of a conv thread
+constexpr int kRowBatch = 8;        // rows of x the conv adjoint loads at once (mamba_bwd.cu)
+constexpr int kDtPCh = 64;                                          // dt_proj: channels a step
+constexpr int kDtPRank = 16;                                        // dt_proj: ranks staged
+constexpr int kDtPRows = kFrontRows * kDtPCh / kFrontThreads;       // dt_proj: rows a thread
 
-constexpr int kFrontRows = 64;  // rows of a tile where d allows (fewer where d is wide)
-constexpr int kFrontThreads = 256;
-constexpr int kRowBatch = 8;    // rows of x a thread loads at once
+// Row strides of the staged u tile and W_x tile (elements): bf16 fragment
+// loads and fp32 column reads both land on distinct banks.
+__host__ __device__ constexpr int front_us_ld() { return kFrontK + 8; }
+__host__ __device__ constexpr int front_wx_ld(int tsize) {
+  return tsize == 2 ? kFrontK + 8 : kFrontK + 1;
+}
+
+// Bytes of the front's shared memory: the u and W_x tiles (dt_proj's rank
+// tile of dt_lr reuses them: 4 KB).
+__host__ __device__ constexpr int front_smem(int tsize) {
+  return tsize * (kFrontRows * front_us_ld() + kXCols * front_wx_ld(tsize));
+}
+
+// u columns k0 .. k0 + kFrontK - 1 of the tile's rows into us (zeros past
+// the rows and d), and into u when write_u; the conv's taps summed from the
+// oldest, every op rounded to T, SiLU in fp32.
+template <typename T, int K>
+__device__ __forceinline__ void conv_step(const T* __restrict__ xz, const T* __restrict__ cw,
+                                          const T* __restrict__ cb, T* __restrict__ u, T* us,
+                                          int b, int L, int d, int t0, int rows, int k0,
+                                          bool write_u) {
+  const int c = threadIdx.x % kFrontK, r0 = threadIdx.x / kFrontK * kConvSeg, ch = k0 + c;
+  constexpr int ld = front_us_ld();
+  if (ch >= d) {
+#pragma unroll
+    for (int r = 0; r < kConvSeg; ++r) us[(r0 + r) * ld + c] = from_f32<T>(0.f);
+    return;
+  }
+  // xv[i] is x at row t0 + r0 - (K - 1) + i.
+  float xv[K - 1 + kConvSeg], w[K];
+  const size_t base = static_cast<size_t>(b) * L;
+#pragma unroll
+  for (int i = 0; i < K - 1 + kConvSeg; ++i) {
+    const int tt = t0 + r0 - (K - 1) + i;
+    xv[i] = tt >= 0 && tt < t0 + rows ? to_f32(xz[(base + tt) * 2 * d + ch]) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) w[j] = to_f32(cw[j * d + ch]);
+  const float bias = to_f32(cb[ch]);
+#pragma unroll
+  for (int r = 0; r < kConvSeg; ++r) {
+    float acc = round_to<T>(xv[r] * w[0]);
+#pragma unroll
+    for (int j = 1; j < K; ++j) acc = round_to<T>(acc + round_to<T>(xv[r + j] * w[j]));
+    const float xc = round_to<T>(acc + bias);
+    const T v = from_f32<T>(xc * sigmoid(xc));
+    const int rr = r0 + r;
+    const bool in = rr < rows;
+    us[rr * ld + c] = in ? v : from_f32<T>(0.f);
+    if (write_u && in) u[(base + t0 + rr) * d + ch] = v;
+  }
+}
+
+// W_x's rows cp0 .. cp0 + kXCols - 1 (those < nx), columns k0 .. k0 +
+// kFrontK - 1 (those < d) into wxs, zeros elsewhere; every load issued
+// before the first store.
+__device__ __forceinline__ void stage_wx(const bf16* __restrict__ wx, int d, int nx, int cp0,
+                                         int k0, bf16* wxs) {
+  constexpr int ld = front_wx_ld(2), pieces = kFrontK / 8;
+  constexpr int J = kXCols * pieces / kFrontThreads;
+  uint4 v[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int i = threadIdx.x + j * kFrontThreads, r = i / pieces, c = (i % pieces) * 8;
+    v[j] = make_uint4(0u, 0u, 0u, 0u);
+    if (cp0 + r < nx && k0 + c < d)
+      v[j] = *reinterpret_cast<const uint4*>(wx + static_cast<size_t>(cp0 + r) * d + k0 + c);
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int i = threadIdx.x + j * kFrontThreads, r = i / pieces, c = (i % pieces) * 8;
+    *reinterpret_cast<uint4*>(wxs + r * ld + c) = v[j];
+  }
+}
+
+__device__ __forceinline__ void stage_wx(const float* __restrict__ wx, int d, int nx, int cp0,
+                                         int k0, float* wxs) {
+  constexpr int ld = front_wx_ld(4), J = kXCols * kFrontK / kFrontThreads;
+  float v[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int i = threadIdx.x + j * kFrontThreads, r = i / kFrontK, c = i % kFrontK;
+    v[j] = cp0 + r < nx && k0 + c < d ? wx[static_cast<size_t>(cp0 + r) * d + k0 + c] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int i = threadIdx.x + j * kFrontThreads;
+    wxs[i / kFrontK * ld + i % kFrontK] = v[j];
+  }
+}
+
+// One k step of x_proj. bf16: warp w owns the (16-row, 8-column) tiles of
+// row tile w / 2 and column tiles 4 (w % 2) .. + 3 (acc[4 j + e]); ncols
+// columns of the pass are live.
+__device__ __forceinline__ void xproj_step(const bf16* us, const bf16* wxs, int ncols,
+                                           float (&acc)[16]) {
+  constexpr int uld = front_us_ld(), wld = front_wx_ld(2);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mt = warp >> 1, nb = (warp & 1) * 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if ((nb + j) * 8 >= ncols) break;  // uniform over the warp
+    float a[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]};
+#pragma unroll
+    for (int kk = 0; kk < kFrontK; kk += 16) {
+      const bf16* p = us + (mt * 16 + g) * uld + kk + 2 * t;
+      const bf16* q = wxs + ((nb + j) * 8 + g) * wld + kk + 2 * t;
+      mma_16816(a, ld32(p), ld32(p + 8 * uld), ld32(p + 8), ld32(p + 8 * uld + 8), ld32(q),
+                ld32(q + 8));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[4 * j + e] = a[e];
+  }
+}
+
+// fp32: thread (column tid % 64, rows 16 (tid / 64) ..) in full fp32 FMAs.
+__device__ __forceinline__ void xproj_step(const float* us, const float* wxs, int ncols,
+                                           float (&acc)[16]) {
+  constexpr int uld = front_us_ld(), wld = front_wx_ld(4);
+  const int c = threadIdx.x % kXCols, r0 = threadIdx.x / kXCols * 16;
+  if (c >= ncols) return;
+#pragma unroll 4
+  for (int k = 0; k < kFrontK; ++k) {
+    const float wv = wxs[c * wld + k];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[j] = fmaf(us[(r0 + j) * uld + k], wv, acc[j]);
+  }
+}
+
+// The pass's x_dbl columns cp0 .. out, rounded to T.
+__device__ __forceinline__ void xproj_store(const float (&acc)[16], bf16* __restrict__ xdbl,
+                                            size_t row0, int rows, int nx, int cp0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mt = warp >> 1, nb = (warp & 1) * 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = mt * 16 + g + (e >> 1) * 8, c = cp0 + (nb + j) * 8 + 2 * t + (e & 1);
+      if (r < rows && c < nx) xdbl[(row0 + r) * nx + c] = __float2bfloat16_rn(acc[4 * j + e]);
+    }
+}
+
+__device__ __forceinline__ void xproj_store(const float (&acc)[16], float* __restrict__ xdbl,
+                                            size_t row0, int rows, int nx, int cp0) {
+  const int c = cp0 + threadIdx.x % kXCols, r0 = threadIdx.x / kXCols * 16;
+  if (c >= nx) return;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (r0 + j < rows) xdbl[(row0 + r0 + j) * nx + c] = acc[j];
+}
+
+// One block per (kFrontRows-row tile, b), for K conv taps (4, or 8: fewer
+// taps come padded with leading zero taps). W_x is (nx, d), W_dt (R, d).
+template <typename T, int K>
+__global__ void __launch_bounds__(kFrontThreads, 4)
+    mamba_front_wide_kernel(const T* __restrict__ xz, const T* __restrict__ cw,
+                            const T* __restrict__ cb, const T* __restrict__ wx,
+                            const float* __restrict__ wdt, const float* __restrict__ bdt,
+                            T* __restrict__ u, T* __restrict__ xdbl, float* __restrict__ delta,
+                            int L, int d, int R, int N) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* us = reinterpret_cast<T*>(smem);                       // kFrontRows x front_us_ld
+  T* wxs = us + kFrontRows * front_us_ld();                 // kXCols x front_wx_ld
+  const int nx = R + 2 * N;
+  const int b = blockIdx.y, t0 = blockIdx.x * kFrontRows;
+  const int rows = min(kFrontRows, L - t0);
+  const size_t row0 = static_cast<size_t>(b) * L + t0;
+  for (int cp0 = 0; cp0 < nx; cp0 += kXCols) {
+    float acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+    for (int k0 = 0; k0 < d; k0 += kFrontK) {
+      __syncthreads();  // the last step's readers of us and wxs are done
+      conv_step<T, K>(xz, cw, cb, u, us, b, L, d, t0, rows, k0, cp0 == 0);
+      stage_wx(wx, d, nx, cp0, k0, wxs);
+      __syncthreads();
+      xproj_step(us, wxs, nx - cp0, acc);
+    }
+    xproj_store(acc, xdbl, row0, rows, nx, cp0);
+  }
+
+  // dt_proj on the rows' dt_lr as stored: thread (channel tid % kDtPCh of
+  // the step, kDtPRows rows), k ascending four at a time (`dt_pre`).
+  float* lrs = reinterpret_cast<float*>(smem);              // kFrontRows x kDtPRank
+  const int c = threadIdx.x % kDtPCh, r0 = threadIdx.x / kDtPCh * kDtPRows;
+  const bool one_tile = R <= kDtPRank;
+  for (int ch0 = 0; ch0 < d; ch0 += kDtPCh) {
+    const int ch = ch0 + c;
+    const bool live = ch < d;
+    float acc[kDtPRows];
+#pragma unroll
+    for (int j = 0; j < kDtPRows; ++j) acc[j] = 0.f;
+    for (int k0 = 0; k0 < R; k0 += kDtPRank) {
+      if (!one_tile || ch0 == 0) {
+        __syncthreads();  // x_dbl's rows written; the last tile's readers are done
+        for (int i = threadIdx.x; i < kFrontRows * kDtPRank; i += kFrontThreads) {
+          const int r = i / kDtPRank, k = k0 + i % kDtPRank;
+          lrs[i] = r < rows && k < R ? to_f32(xdbl[(row0 + r) * nx + k]) : 0.f;
+        }
+        __syncthreads();
+      }
+      float w[kDtPRank];
+      load_wdt(wdt + static_cast<size_t>(k0) * d, live ? ch : 0, d, live ? R - k0 : 0, w);
+#pragma unroll
+      for (int kk = 0; kk < kDtPRank; kk += 4) {
+        if (k0 + kk >= R) break;
+#pragma unroll
+        for (int j = 0; j < kDtPRows; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(lrs + (r0 + j) * kDtPRank + kk);
+          acc[j] = fmaf(v.x, w[kk], acc[j]);
+          acc[j] = fmaf(v.y, w[kk + 1], acc[j]);
+          acc[j] = fmaf(v.z, w[kk + 2], acc[j]);
+          acc[j] = fmaf(v.w, w[kk + 3], acc[j]);
+        }
+      }
+    }
+    if (!live) continue;
+    const float bias = bdt[ch];
+#pragma unroll
+    for (int j = 0; j < kDtPRows; ++j)
+      if (r0 + j < rows) delta[(row0 + r0 + j) * d + ch] = softplus(acc[j] + bias);
+  }
+}
+
+template <typename T, int K>
+cudaError_t front_wide_k(const T* xz, const T* cw, const T* cb, const T* wx, const float* wdt,
+                         const float* bdt, T* u, T* xdbl, float* delta, int Bt, int L, int d,
+                         int R, int N, cudaStream_t s) {
+  const size_t smem = front_smem(sizeof(T));
+  const dim3 grid((L + kFrontRows - 1) / kFrontRows, Bt);
+  auto kernel = mamba_front_wide_kernel<T, K>;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kFrontThreads, smem, s>>>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, L, d, R, N);
+  return cudaGetLastError();
+}
+
+// --- front, the shapes a row tile holds: a thread a channel ----------------
+//
+// Where dt_rank <= 64 and a tile of rows of all d channels fits in shared
+// memory (`front_tile`), this kernel runs the front; the k-step kernel
+// above takes every other shape. Both sum in the same orders (conv taps
+// from the oldest, x_proj k ascending 16 at a time on the tensor cores or
+// one at a time in fp32, dt_proj in `dt_pre`'s), so they give the same
+// bits; this one is the faster at the DiMamba's shapes (2.17 against 2.39
+// ms at 16 x 32768, PERF.md).
 
 // x_proj of the tile's u rows (us, row stride us_ld; tile rows, a multiple
 // of 16) on the tensor cores: warps take (16-row, 8-column) tiles in turn;
@@ -402,7 +670,7 @@ __global__ void __launch_bounds__(kFrontThreads)
   }
 }
 
-size_t front_smem(int tile, int d, int R, size_t tsize) {
+size_t front_tile_smem(int tile, int d, int R, size_t tsize) {
   return tsize * tile * (d + 8) + sizeof(float) * tile * round4(R);
 }
 
@@ -410,17 +678,17 @@ size_t front_smem(int tile, int d, int R, size_t tsize) {
 // shared memory (0: d too wide).
 int front_tile(int d, int R, size_t tsize) {
   for (int t = kFrontRows; t >= 16; t -= 16)
-    if (front_smem(t, d, R, tsize) <= kSmemMax) return t;
+    if (front_tile_smem(t, d, R, tsize) <= kSmemMax) return t;
   return 0;
 }
 
 template <typename T, int K, int NW>
-cudaError_t front_k(const T* xz, const T* cw, const T* cb, const T* wx, const float* wdt,
+cudaError_t front_tile_k(const T* xz, const T* cw, const T* cb, const T* wx, const float* wdt,
                     const float* bdt, T* u, T* xdbl, float* delta, int Bt, int L, int d, int R,
                     int N, cudaStream_t s) {
   const int tile = front_tile(d, R, sizeof(T));
   if (tile == 0) return cudaErrorInvalidValue;
-  const size_t smem = front_smem(tile, d, R, sizeof(T));
+  const size_t smem = front_tile_smem(tile, d, R, sizeof(T));
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(mamba_front_kernel<T, K, NW>), smem);
   if (err != cudaSuccess) return err;
   mamba_front_kernel<T, K, NW><<<dim3((L + tile - 1) / tile, Bt), kFrontThreads, smem, s>>>(
@@ -429,32 +697,118 @@ cudaError_t front_k(const T* xz, const T* cw, const T* cb, const T* wx, const fl
 }
 
 // Built for 4 and 8 taps (the wrapper pads 1-3 taps to 4 and 5-7 to 8
-// with leading zeros) and dt_rank <= 32 or <= 64; others are refused.
+// with leading zeros); any d (bf16: a multiple of 16, fp32: of 8, the
+// products' rows) and any dt_rank: the row-tile kernel where it holds the
+// shape, else the k-step kernel.
 template <typename T>
 cudaError_t front(const T* xz, const T* cw, const T* cb, const T* wx, const float* wdt,
                   const float* bdt, T* u, T* xdbl, float* delta, int Bt, int L, int d, int K, int R,
                   int N, cudaStream_t s) {
-  if (R <= 0 || R > kMaxR * kMaxRT || (sizeof(T) == 2 && d % 16) || (K != 4 && K != 8))
+  if (R <= 0 || N <= 0 || d % (sizeof(T) == 2 ? 16 : 8) || (K != 4 && K != 8) ||
+      delta == nullptr)
     return cudaErrorInvalidValue;
-  if (K == 4)
-    return R <= kMaxR
-               ? front_k<T, 4, kMaxR>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt, L, d, R, N, s)
-               : front_k<T, 4, kMaxR * kMaxRT>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt, L,
-                                               d, R, N, s);
-  return R <= kMaxR
-             ? front_k<T, 8, kMaxR>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt, L, d, R, N, s)
-             : front_k<T, 8, kMaxR * kMaxRT>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt, L, d,
-                                             R, N, s);
+  if (R <= kMaxR * kMaxRT && front_tile(d, R, sizeof(T)) > 0) {
+    if (K == 4)
+      return R <= kMaxR ? front_tile_k<T, 4, kMaxR>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt,
+                                                      L, d, R, N, s)
+                        : front_tile_k<T, 4, kMaxR * kMaxRT>(xz, cw, cb, wx, wdt, bdt, u, xdbl,
+                                                              delta, Bt, L, d, R, N, s);
+    return R <= kMaxR ? front_tile_k<T, 8, kMaxR>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt,
+                                                    L, d, R, N, s)
+                      : front_tile_k<T, 8, kMaxR * kMaxRT>(xz, cw, cb, wx, wdt, bdt, u, xdbl,
+                                                            delta, Bt, L, d, R, N, s);
+  }
+  return K == 4 ? front_wide_k<T, 4>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt, L, d, R, N, s)
+                : front_wide_k<T, 8>(xz, cw, cb, wx, wdt, bdt, u, xdbl, delta, Bt, L, d, R, N, s);
+}
+
+// --- delta = softplus(dt_lr W_dt + b_dt), once per (row, channel) -------------
+//
+// K16's delta (and K17's where its pass 3 cannot hold dt_proj's adjoint).
+// One block per channel tile, walking row tiles (grid.y blocks apart): W_dt's
+// columns of the tile in shared memory for the whole walk, each row tile's
+// dt_lr rows staged beside them; a thread owns a channel and sums kDeltaBatch
+// rows at once, k ascending four at a time with zeros past R, which is
+// `dt_pre`'s order, so delta is the bits K18's front and K17 form.
+constexpr int kDeltaCh = 128;
+constexpr int kDeltaRows = 32;
+constexpr int kDeltaBatch = 8;
+constexpr int kDeltaBlocks = 2048;   // blocks of a launch, at most
+
+size_t delta_smem(int R) {
+  return sizeof(float) * static_cast<size_t>(round4(R)) * (kDeltaCh + kDeltaRows);
+}
+
+__global__ void __launch_bounds__(kDeltaCh)
+    delta_kernel(const float* __restrict__ lr, int ld_lr, const float* __restrict__ wdt,
+                 const float* __restrict__ bdt, float* __restrict__ delta, size_t M, int d,
+                 int R) {
+  extern __shared__ __align__(16) float dsm[];
+  const int lr_ld = round4(R);
+  float* ws = dsm;                          // lr_ld x kDeltaCh
+  float* lrs = ws + lr_ld * kDeltaCh;       // kDeltaRows x lr_ld
+  const int ch0 = blockIdx.x * kDeltaCh, tid = threadIdx.x, ch = ch0 + tid;
+  const bool live = ch < d;
+  for (int i = tid; i < lr_ld * kDeltaCh; i += kDeltaCh) {
+    const int k = i / kDeltaCh, c = ch0 + i % kDeltaCh;
+    ws[i] = k < R && c < d ? wdt[static_cast<size_t>(k) * d + c] : 0.f;
+  }
+  const float bias = live ? bdt[ch] : 0.f;
+  const size_t step = static_cast<size_t>(gridDim.y) * kDeltaRows;
+  for (size_t m0 = static_cast<size_t>(blockIdx.y) * kDeltaRows; m0 < M; m0 += step) {
+    __syncthreads();  // W_dt staged; the last tile's readers of lrs are done
+    for (int i = tid; i < kDeltaRows * lr_ld; i += kDeltaCh) {
+      const int r = i / lr_ld, k = i - r * lr_ld;
+      lrs[i] = m0 + r < M && k < R ? lr[(m0 + r) * ld_lr + k] : 0.f;
+    }
+    __syncthreads();
+    for (int rb = 0; rb < kDeltaRows; rb += kDeltaBatch) {
+      float acc[kDeltaBatch];
+#pragma unroll
+      for (int e = 0; e < kDeltaBatch; ++e) acc[e] = 0.f;
+      for (int k = 0; k < lr_ld; k += 4) {
+        const float w0 = ws[k * kDeltaCh + tid], w1 = ws[(k + 1) * kDeltaCh + tid];
+        const float w2 = ws[(k + 2) * kDeltaCh + tid], w3 = ws[(k + 3) * kDeltaCh + tid];
+#pragma unroll
+        for (int e = 0; e < kDeltaBatch; ++e) {
+          const float4 v = *reinterpret_cast<const float4*>(lrs + (rb + e) * lr_ld + k);
+          acc[e] = fmaf(v.x, w0, acc[e]);
+          acc[e] = fmaf(v.y, w1, acc[e]);
+          acc[e] = fmaf(v.z, w2, acc[e]);
+          acc[e] = fmaf(v.w, w3, acc[e]);
+        }
+      }
+      if (!live) continue;
+#pragma unroll
+      for (int e = 0; e < kDeltaBatch; ++e) {
+        const size_t m = m0 + rb + e;
+        if (m < M) delta[m * d + ch] = softplus(acc[e] + bias);
+      }
+    }
+  }
+}
+
+// delta (M rows of d) from dt_lr (M rows of stride ld_lr, fp32).
+cudaError_t form_delta(const float* lr, int ld_lr, const float* wdt, const float* bdt,
+                       float* delta, size_t M, int d, int R, cudaStream_t s) {
+  const size_t smem = delta_smem(R);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(delta_kernel), smem);
+  if (err != cudaSuccess) return err;
+  const int ct = (d + kDeltaCh - 1) / kDeltaCh;
+  const size_t tiles = (M + kDeltaRows - 1) / kDeltaRows;
+  const int gy = static_cast<int>(tiles < static_cast<size_t>(kDeltaBlocks / ct)
+                                      ? tiles : kDeltaBlocks / ct > 0 ? kDeltaBlocks / ct : 1);
+  delta_kernel<<<dim3(ct, gy), kDeltaCh, smem, s>>>(lr, ld_lr, wdt, bdt, delta, M, d, R);
+  return cudaGetLastError();
 }
 
 // --- the scan ---------------------------------------------------------------
 
-constexpr int kScanThreads = 128;  // channels of one block
-
 // States n0 .. n0 + 15 of B (or C) rows [0, n_rows) of chunk row0 into
 // shared memory as fp32, kMaxN to a row (zeros past N and past `rows`), so
-// that a thread reads a group's row as four float4s: the passes stage one
-// group at a time, which bounds their shared memory whatever d_state is.
+// that a thread reads a group's row as four float4s: the adjoint's passes
+// stage one group at a time, which bounds their shared memory whatever
+// d_state is.
 template <typename T>
 __device__ void stage_rows(const T* __restrict__ src, int ld, size_t row0, int rows, int n_rows,
                            int N, int n0, float* dst) {

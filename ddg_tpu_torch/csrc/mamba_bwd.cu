@@ -951,7 +951,8 @@ constexpr int kDtMaxR = kMaxR * kMaxRT;    // dt_rank
 // row order (partials (row tiles, R, d) and (row tiles, d)). ddt_lr = dpre
 // W_dt^T sums over the block's channels in channel order, four running
 // sums (channel mod 4) added in a fixed order (partials (channel tiles,
-// M, R), summed over the tiles in order by the caller). Any d; R <= 64.
+// M, R), summed over the tiles in order by the caller). Any d; R <= 64
+// (`dt_bwd_tiled_kernel` past it).
 template <typename LrT, int NW>
 __global__ void __launch_bounds__(kDtCh)
     dt_bwd_kernel(const float* __restrict__ ddt, const LrT* __restrict__ lr, int ld_lr,
@@ -1022,21 +1023,137 @@ __global__ void __launch_bounds__(kDtCh)
   db_p[static_cast<size_t>(blockIdx.y) * d + ch] = gb;
 }
 
+// dt_rank > 64: the same sums over rank tiles of kDtMaxR, the kernel above
+// looped. A first sweep forms each row's dpre = ddelta sigmoid(pre) (pre
+// over the rank tiles in `dt_pre`'s order, each tile of W_dt's column in
+// registers) and writes it over ddelta, which nothing reads after; then each
+// rank tile runs the row loop above on it: dW_dt and db_dt in row order,
+// ddt_lr over the block's channels as above.
+template <typename LrT>
+__global__ void __launch_bounds__(kDtCh)
+    dt_bwd_tiled_kernel(float* __restrict__ ddt, const LrT* __restrict__ lr, int ld_lr,
+                        const float* __restrict__ wdt, const float* __restrict__ bdt,
+                        float* __restrict__ dlr_p, float* __restrict__ dw_p,
+                        float* __restrict__ db_p, int M, int d, int R) {
+  __shared__ __align__(16) float lrs[kDtRows * kDtMaxR];
+  __shared__ float dps[kDtRows][kDtCh + 1];
+  __shared__ float wts[kDtMaxR][kDtCh + 1];
+  const int ch0 = blockIdx.x * kDtCh, cn = min(kDtCh, d - ch0);
+  const int tid = threadIdx.x, ch = ch0 + tid;
+  const bool live = tid < cn;
+  const size_t m_begin = static_cast<size_t>(blockIdx.y) * kDtTile;
+  const int tile_rows = static_cast<int>(min(static_cast<size_t>(kDtTile), M - m_begin));
+  const float bias = live ? bdt[ch] : 0.f;
+  // The rows' dt_lr ranks k0 .. k0 + kn - 1 (lr_ld = round4(kn) to a row).
+  auto stage = [&](size_t m0, int rows, int k0, int kn) {
+    const int lr_ld = round4(kn);
+    for (int i = tid; i < kDtRows * lr_ld; i += kDtCh) {
+      const int r = i / lr_ld, k = i % lr_ld;
+      lrs[i] = r < rows && k < kn ? to_f32(lr[(m0 + r) * ld_lr + k0 + k]) : 0.f;
+    }
+  };
+  for (int r0 = 0; r0 < tile_rows; r0 += kDtRows) {
+    const int rows = min(kDtRows, tile_rows - r0);
+    const size_t m0 = m_begin + r0;
+    float acc[kDtRows];
+#pragma unroll
+    for (int r = 0; r < kDtRows; ++r) acc[r] = 0.f;
+    for (int k0 = 0; k0 < R; k0 += kDtMaxR) {
+      const int kn = min(kDtMaxR, R - k0), lr_ld = round4(kn);
+      float wr[kDtMaxR];
+      load_wdt(wdt + static_cast<size_t>(k0) * d, live ? ch : 0, d, live ? kn : 0, wr);
+      __syncthreads();  // the last tile's readers of lrs are done
+      stage(m0, rows, k0, kn);
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kDtMaxR; k += 4) {
+        if (k >= kn) break;
+#pragma unroll
+        for (int r = 0; r < kDtRows; ++r) {
+          const float4 v = *reinterpret_cast<const float4*>(lrs + r * lr_ld + k);
+          acc[r] = fmaf(v.x, wr[k], acc[r]);
+          acc[r] = fmaf(v.y, wr[k + 1], acc[r]);
+          acc[r] = fmaf(v.z, wr[k + 2], acc[r]);
+          acc[r] = fmaf(v.w, wr[k + 3], acc[r]);
+        }
+      }
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int r = 0; r < kDtRows; ++r) {
+      if (r >= rows) break;
+      float* p = ddt + (m0 + r) * d + ch;
+      *p = *p * sigmoid(acc[r] + bias);
+    }
+  }
+  float gb = 0.f;
+  for (int k0 = 0; k0 < R; k0 += kDtMaxR) {
+    const int kn = min(kDtMaxR, R - k0), lr_ld = round4(kn);
+    float gw[kDtMaxR];
+#pragma unroll
+    for (int k = 0; k < kDtMaxR; ++k) gw[k] = 0.f;
+    __syncthreads();  // the last tile's readers of wts are done
+    for (int k = 0; k < kn; ++k) wts[k][tid] = live ? wdt[static_cast<size_t>(k0 + k) * d + ch] : 0.f;
+    for (int r0 = 0; r0 < tile_rows; r0 += kDtRows) {
+      const int rows = min(kDtRows, tile_rows - r0);
+      const size_t m0 = m_begin + r0;
+      __syncthreads();  // the last batch's reads of lrs and dps are done
+      stage(m0, rows, k0, kn);
+      __syncthreads();
+      for (int r = 0; r < kDtRows; ++r) {
+        const float* lrr = lrs + r * lr_ld;
+        const float dpv = live && r < rows ? ddt[(m0 + r) * d + ch] : 0.f;
+        dps[r][tid] = dpv;
+        if (k0 == 0) gb += dpv;
+#pragma unroll
+        for (int k = 0; k < kDtMaxR; k += 4) {
+          if (k >= kn) break;
+          const float4 v = *reinterpret_cast<const float4*>(lrr + k);
+          gw[k] = fmaf(v.x, dpv, gw[k]);
+          gw[k + 1] = fmaf(v.y, dpv, gw[k + 1]);
+          gw[k + 2] = fmaf(v.z, dpv, gw[k + 2]);
+          gw[k + 3] = fmaf(v.w, dpv, gw[k + 3]);
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < rows * kn; i += kDtCh) {
+        const int r = i / kn, k = i % kn;
+        float a4[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int c0 = 0; c0 < cn; c0 += 4) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (c0 + e < cn) a4[e] = fmaf(dps[r][c0 + e], wts[k][c0 + e], a4[e]);
+        }
+        dlr_p[(static_cast<size_t>(blockIdx.x) * M + m0 + r) * R + k0 + k] =
+            (a4[0] + a4[1]) + (a4[2] + a4[3]);
+      }
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int k = 0; k < kDtMaxR; ++k)
+      if (k < kn) dw_p[(static_cast<size_t>(blockIdx.y) * R + k0 + k) * d + ch] = gw[k];
+  }
+  if (live) db_p[static_cast<size_t>(blockIdx.y) * d + ch] = gb;
+}
+
 int dt_row_tiles(int M) { return (M + kDtTile - 1) / kDtTile; }
 int dt_ch_tiles(int d) { return (d + kDtCh - 1) / kDtCh; }
 
+// ddt: ddelta, overwritten with dpre past dt_rank 64.
 template <typename LrT>
-cudaError_t dt_bwd(const float* ddt, const LrT* lr, int ld_lr, const float* wdt,
-                   const float* bdt, float* dlr_p, float* dw_p, float* db_p, int M, int d, int R,
-                   cudaStream_t s) {
-  if (R <= 0 || R > kDtMaxR) return cudaErrorInvalidValue;
+cudaError_t dt_bwd(float* ddt, const LrT* lr, int ld_lr, const float* wdt, const float* bdt,
+                   float* dlr_p, float* dw_p, float* db_p, int M, int d, int R, cudaStream_t s) {
+  if (R <= 0) return cudaErrorInvalidValue;
   const dim3 grid(dt_ch_tiles(d), dt_row_tiles(M));
   if (R <= kMaxR)
     dt_bwd_kernel<LrT, kMaxR><<<grid, kDtCh, 0, s>>>(ddt, lr, ld_lr, wdt, bdt, dlr_p, dw_p, db_p,
                                                      M, d, R);
-  else
+  else if (R <= kDtMaxR)
     dt_bwd_kernel<LrT, kDtMaxR><<<grid, kDtCh, 0, s>>>(ddt, lr, ld_lr, wdt, bdt, dlr_p, dw_p,
                                                        db_p, M, d, R);
+  else
+    dt_bwd_tiled_kernel<LrT><<<grid, kDtCh, 0, s>>>(ddt, lr, ld_lr, wdt, bdt, dlr_p, dw_p, db_p,
+                                                    M, d, R);
   return cudaGetLastError();
 }
 
@@ -1395,8 +1512,7 @@ cudaError_t inner_bwd(const T* h, const T* w_in, const T* w_in_f, const T* cw, c
                       float* dW_dt, float* db_dt, float* dA_log, float* dD, float* dW_out,
                       void* ws, int Bt, int L, int H, int d, int K, int R, int N, int chunk,
                       cudaStream_t s) {
-  if ((K != 4 && K != 8) || R <= 0 || R > kDtMaxR || chunk <= 0 || L % chunk)
-    return cudaErrorInvalidValue;
+  if ((K != 4 && K != 8) || R <= 0 || chunk <= 0 || L % chunk) return cudaErrorInvalidValue;
   Carve cv{reinterpret_cast<uintptr_t>(ws)};
   const InnerBwdWs<T> w = carve_inner<T>(cv, Bt, L, H, d, K, R, N, chunk);
   const int M = Bt * L, nx = R + 2 * N, nxp = round8(nx);

@@ -189,15 +189,16 @@ def resolve_route(cfg: DiMambaConfig, L: int, on_card: bool) -> str:
             cfg.hidden_size, d, N, R, cfg.d_conv, cfg.compute_dtype, chunk):
         raise ValueError(
             f'DiMamba: the fused block K18/K19 does not take {shape} on the '
-            'card (it takes hidden % 8 == 0, dt_rank <= 64, d_conv <= 8 '
-            'and the d_inner and chunk of mamba_inner_takes); set '
+            'card (it takes hidden % 8 == 0, d_inner % 16 == 0 in bfloat16 '
+            'and % 8 in float32, d_conv <= 8: mamba_inner_takes); set '
             'fused_block=False for the unfused route')
     if route == 'scan_kernel_dtlr' and not mamba_ops.ssm_scan_dtlr_takes(
             d, N, R, chunk):
         raise ValueError(
             f'DiMamba: the dt-lowrank scan K16/K17 does not take {shape} on '
-            'the card (a dt_rank and chunk whose blocks fit in shared '
-            'memory, ssm_scan_dtlr_takes); set dt_inkernel=False')
+            'the card (a dt_rank whose blocks fit in shared memory, up to '
+            '248 at d_state <= 16 and 184 past it: ssm_scan_dtlr_takes); '
+            'set dt_inkernel=False')
     if route == 'scan_kernel' and not mamba_ops.ssm_scan_takes(d, N, chunk):
         raise ValueError(
             f'DiMamba: the scan kernel K14/K15 does not take {shape} on the '

@@ -12,7 +12,7 @@ log(-A); y is written in u's dtype. It also gives the entry state of each
 chunk of `chunk` rows, h0s (B, n_chunks, N, d) float32. `ssm_scan_dtlr`
 (K16) is the same scan with delta = softplus(dt_lr @ W_dt + b_dt) formed
 on the card from the low-rank dt_lr, once per (row, channel), into a
-transient (B, L, d) float32 workspace that K14's passes read; L must be a
+transient (B, L, d) float32 workspace that K14's scan reads; L must be a
 multiple of the chunk.
 
 `mamba_inner` (K18) is one direction of the fused Mamba block, with the
@@ -31,16 +31,18 @@ The arguments follow the JAX functions (`mamba_inner_pallas`,
 (in, out) layout, A (d, N), conv_w (K, 1, d). The TPU schedule knobs
 (`seg`, `scan_impl`, tiles, `interpret`) have no counterpart. On CUDA
 tensors each call runs `csrc/mamba.cu` (K18: in_proj, conv + x_proj +
-dt_proj, the three scan passes and out_proj, six launches; K14: the three
-scan passes; K16: delta, then K14's passes) and adds one to the wrapper's
-`launches`; on CPU tensors the plain versions below run instead. What the
-card takes is stated by `mamba_inner_takes`, `ssm_scan_takes` and
+dt_proj, the scan, out_proj; K14: the scan, which is one launch that
+walks each row in order and takes each exp(delta A) once where the batch
+fills the card, else three chunk passes (from zero, their carries, again
+from the carries); K16: delta, then K14's scan) and adds one to the
+wrapper's `launches`; on CPU tensors the plain versions below run
+instead. What the card takes is
+stated by `mamba_inner_takes`, `ssm_scan_takes` and
 `ssm_scan_dtlr_takes`, each naming the kernel that sets each limit: any
-d_state (every scan pass stages one group of 16 states at a time); on the
-dt-lowrank scans a dt_rank up to 184 (248 at d_state <= 16; K17's shared
-memory); on the fused block dt_rank <= 64 (K18's front and K19's dt_proj
-adjoint hold W_dt in registers), d_conv <= 8 and a d_inner whose front
-tile fits.
+chunk, d_state and d_inner; on the dt-lowrank scans a dt_rank up to 184
+(248 at d_state <= 16: K17's pass 3 holds dt_proj's adjoint in shared
+memory); on the fused block any dt_rank, d_conv <= 8, and d_inner and
+hidden on the products' rows.
 
 With gradients recorded, `ssm_scan`, `ssm_scan_dtlr` and `mamba_inner` run
 through autograd Functions that save the inputs and the chunk entry states
@@ -64,32 +66,35 @@ import torch.nn.functional as F
 from ddg_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# What the kernels hold in registers and shared memory (csrc/mamba.cuh;
-# `chip_smoke.py` holds `_SMEM`, `scan_smem` and `_front_tile` against the
-# built kernels' own sums, `ddg_smem_max`, `ddg_scan_smem`,
-# `ddg_scan_bwd_smem` and `ddg_front_tile`).
+# What the kernels hold in registers and shared memory (csrc/mamba.cu,
+# mamba.cuh; `chip_smoke.py` holds `_SMEM`, `scan_smem` and `_front_smem`
+# against the built kernels' own sums, `ddg_smem_max`, `ddg_scan_smem`,
+# `ddg_scan_bwd_smem` and `ddg_front_smem`).
 _GROUP = 16                     # states a thread holds; more run in groups
-_MAX_RANK = 64                  # fused block dt_rank: W_dt in two register tiles
 _TAPS = (4, 8)                  # conv taps built; fewer are padded with zeros
 _SMEM = 232448                  # shared memory a block can have
 _SUB_ROWS = 64                  # rows of the adjoint's sub-chunks
+# The forward scan's walk (`scan_fwd_kernel`), its larger block (fp32
+# operands; 16 channels a block, tiles of 64 rows, 8 lanes a channel): two
+# raw tiles of u, z and delta of the channels and B and C of 16 states,
+# [row][column], and the staged tile the lanes read, a (delta, delta u)
+# float2 a row and channel and a B and C float4 a row and lane.
+_SCAN_CH, _SCAN_ROWS, _SCAN_LANES = 16, 64, 8
+_SCAN_FWD_SMEM = (2 * _SCAN_ROWS * (2 * _SCAN_CH * 4 + _SCAN_CH * 4
+                                    + 2 * _GROUP * 4)
+                  + _SCAN_ROWS * (8 * _SCAN_CH + 16 * _SCAN_LANES))
+_FRONT_ROWS, _FRONT_K, _XCOLS = 64, 64, 64   # the front's tile and k step
 
 
 def _round4(R: int) -> int:
     return -(-R // 4) * 4
 
 
-def scan_smem(chunk: int, N: int, R: int = 0) -> int:
-    """Bytes of shared memory of the largest block of the scan's forward and
-    adjoint passes, as csrc's `scan_smem1/3`, `delta_smem` and
-    `scan_bwd_smem1/3` count them (R > 0: the low-rank form, K16 and K17).
-    Every pass stages one group of 16 states of B and C at a time, so d_state
-    adds only the running sums past 16 states. The forward's: the chunk's B
-    (and C) columns of a group, past 16 states each row's running C.h; K16's
-    delta kernel: W_dt's columns of 128 channels and 32 dt_lr rows. The
-    adjoint's, which run on sub-chunks of at most 64 rows: pass 1's C columns
-    and staged 16-row segment (and dt_lr rows and W_dt's columns); pass 3's,
-    on the sub-chunk's rows rounded up to whole 8-row segments: B and C
+def _scan_bwd_smem(chunk: int, N: int, R: int) -> tuple[int, int]:
+    """(pass 1, pass 3) bytes of the adjoint (csrc `scan_bwd_smem1/3`),
+    which run on sub-chunks of at most 64 rows: pass 1's C columns and
+    staged 16-row segment (and dt_lr rows and W_dt's columns); pass 3's, on
+    the sub-chunk's rows rounded up to whole 8-row segments: B and C
     columns, five values a row for the tile's 64 channels, three float4
     summaries a lane for each segment, past 16 states each row's C.h (and,
     low-rank, ddelta) for the 64 channels, and in the low-rank form W_dt's
@@ -99,24 +104,37 @@ def scan_smem(chunk: int, N: int, R: int = 0) -> int:
     sc = min(chunk, _SUB_ROWS)
     sp = -(-sc // 8) * 8        # pass 3's rows: whole 8-row segments
     rows = sp * 64
-    fwd = max(4 * chunk * _GROUP, 4 * chunk * (2 * _GROUP + (128 if grp else 0)),
-              4 * lr * (128 + 32))
     wt = 64 * (lr + 5)          # W_dt's columns (row stride lr + 4), b_dt
     bwd1 = 4 * (sc * _GROUP + 2 * 16 * 64 + (sc * lr + wt if R else 0))
     bwd3 = 4 * (2 * sp * _GROUP + 5 * rows + 384 * (sp // 8)
                 + (rows if grp else 0)
                 + ((rows if grp else 0) + wt + _SUB_ROWS * lr if R else 0))
-    return max(fwd, bwd1, bwd3)
+    return bwd1, bwd3
 
 
-def _front_tile(d: int, R: int, esize: int) -> int:
-    """Rows of K18's front tile (csrc `front_tile`): 64, or the most
-    multiples of 16 whose u and dt_lr rows fit in shared memory; 0 if none
-    do."""
-    for t in (64, 48, 32, 16):
-        if esize * t * (d + 8) + 4 * t * _round4(R) <= _SMEM:
-            return t
-    return 0
+def scan_smem(chunk: int, N: int, R: int = 0) -> int:
+    """Bytes of shared memory of the largest block the scan's forward and
+    adjoint launch, as csrc's `scan_fwd_smem`, `delta_smem` and
+    `scan_bwd_smem1/3` count them (R > 0: the low-rank form, K16 and K17).
+    The forward scan's walk is the same for any chunk, d_state and dt_rank
+    (one group of 16 states of B and C, u, z and delta of its 16 channels);
+    its three passes run only where the chunk fits them (csrc
+    `use_passes`), else the walk;
+    K16's delta kernel holds W_dt's columns of 128 channels and 32 dt_lr
+    rows. The adjoint stages one group of 16 states at a time, so d_state
+    adds only its running sums past 16 states; K17's passes 1 and 3 also
+    hold dt_lr's rows and W_dt's columns."""
+    fwd = max(_SCAN_FWD_SMEM, 4 * _round4(R) * (128 + 32) if R else 0)
+    return max(fwd, *_scan_bwd_smem(chunk, N, R))
+
+
+def _front_smem(esize: int) -> int:
+    """Bytes of the front's shared memory (csrc `front_smem`): a 64-row
+    tile of one k step of u (64 channels, rows of 72) and of W_x's 64
+    columns (rows of 72 in bfloat16, 65 in float32), whatever d and
+    dt_rank are."""
+    wx_ld = _FRONT_K + (8 if esize == 2 else 1)
+    return esize * (_FRONT_ROWS * (_FRONT_K + 8) + _XCOLS * wx_ld)
 
 
 def mamba_inner_takes(H: int, d: int, N: int, R: int, K: int,
@@ -124,20 +142,17 @@ def mamba_inner_takes(H: int, d: int, N: int, R: int, K: int,
     """Whether K18 and K19 take a block of hidden H, d_inner d, d_state
     N, dt_rank R, d_conv K and scan chunk `chunk` in `compute_dtype` on the
     card, and which kernel sets each limit: H % 8 == 0 and d % 8 (16 in
-    bfloat16) == 0, the products' rows (both); dt_rank <= 64, W_dt's
-    column in two register tiles of 32 (K18's front, which K19 reruns, and
-    K19's dt_proj adjoint, `dt_bwd_kernel`); d_conv <= 8, built for 4 and 8
-    taps (`pad_taps`; K18's front and K19's conv adjoint); a d_inner whose
-    front tile of 16 rows of u fits in shared memory (K18's front: up to
-    3560 in float32, 7120 in bfloat16; dt_rank <= 64 already caps hidden
-    at 1024, d_inner 2048 at expand 2); d_state and chunk as
-    `ssm_scan_takes` (any d_state; the chunk set by K18's scan pass 3)."""
-    esize = 2 if compute_dtype == torch.bfloat16 else 4
+    bfloat16) == 0, the products' rows (both, and the front); any dt_rank
+    (the front stages dt_lr in rank tiles of 16, K19's dt_proj adjoint
+    loops tiles of 64 past 64); d_conv <= 8,
+    built for 4 and 8 taps (`pad_taps`; K18's front and K19's conv
+    adjoint); any d_inner (the front walks it in k steps of 64 channels);
+    d_state and chunk as `ssm_scan_takes` (any)."""
     return (compute_dtype in _DTYPES and H % 8 == 0
             and d % (16 if compute_dtype == torch.bfloat16 else 8) == 0
-            and 0 < R <= _MAX_RANK and 0 < K <= _TAPS[-1]
-            and _front_tile(d, R, esize) > 0
-            and ssm_scan_takes(d, N, chunk))
+            and R > 0 and 0 < K <= _TAPS[-1]
+            and _front_smem(2 if compute_dtype == torch.bfloat16 else 4)
+            <= _SMEM and ssm_scan_takes(d, N, chunk))
 
 
 def pad_taps(conv_w):
@@ -151,20 +166,18 @@ def pad_taps(conv_w):
 
 def ssm_scan_takes(d: int, N: int, chunk: int = 128) -> bool:
     """Whether K14 and K15 take d_inner d, d_state N and `chunk` on the
-    card: any d and any d_state (one group of 16 states is staged at a
-    time), and a chunk whose blocks' shared memory fits (`scan_smem`: the
-    forward's pass 3 sets it, chunk <= 363 past 16 states and <= 1816 at up
-    to 16; K15's passes work on sub-chunks of 64 rows)."""
+    card: any d, any d_state (one group of 16 states is staged at a time)
+    and any chunk (the forward scan's shared memory is the same for every
+    chunk, K15's passes work on sub-chunks of 64 rows): `scan_smem`."""
     return d > 0 and N > 0 and chunk > 0 and scan_smem(chunk, N) <= _SMEM
 
 
 def ssm_scan_dtlr_takes(d: int, N: int, R: int, chunk: int = 128) -> bool:
     """Whether K16 and K17 take d_inner d, d_state N, dt_rank R and `chunk`
-    on the card: any d and d_state, and a dt_rank whose staged dt_lr rows
-    and W_dt columns fit in shared memory (`scan_smem`): at chunk 64 or more
-    dt_rank <= 248 up to 16 states and <= 184 past them, both set by K17's
-    pass 3 (K16's delta kernel takes up to 360); the chunk as
-    `ssm_scan_takes`."""
+    on the card: any d, d_state and chunk, and a dt_rank whose blocks fit
+    in shared memory (`scan_smem`): K17 forms dt_proj's adjoint inside its
+    pass 3, which holds dt_lr's rows and W_dt's columns, up to dt_rank 248
+    at d_state <= 16 and 184 past it (chunk 64 or more)."""
     return (d > 0 and N > 0 and chunk > 0 and R > 0
             and scan_smem(chunk, N, R) <= _SMEM)
 
@@ -250,10 +263,24 @@ def _row_stride(t, name):
 
 
 def _scan_buffers(u, d, N, chunk):
+    """(h0s, ysum, P, E) for the forward scan: h0s (Bt, n_chunks, N, d)
+    float32; where the card runs the three passes (`ddg_scan_passes`: a
+    small batch) their P and E, shaped as h0s; else, past 16 states, the
+    walk's (Bt, L, d) float32 sums of C . h over the groups so far. The
+    rest None."""
     Bt, L = u.shape[:2]
     nc = -(-L // chunk)
-    return [torch.empty((Bt, nc, N, d), dtype=torch.float32, device=u.device)
-            for _ in range(3)]     # chunk products, chunk end states, h0s
+    h0s = torch.empty((Bt, nc, N, d), dtype=torch.float32, device=u.device)
+    passes = _build.kernel('mamba', 'ddg_scan_passes', (_build.i32,) * 4)
+    if passes(Bt, d, N, chunk):
+        return h0s, None, torch.empty_like(h0s), torch.empty_like(h0s)
+    ysum = (torch.empty((Bt, L, d), dtype=torch.float32, device=u.device)
+            if N > _GROUP else None)
+    return h0s, ysum, None, None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def ssm_scan(u, delta, A, B, C, D, z, *, chunk: int = 128,
@@ -297,24 +324,23 @@ def _ssm_scan_fwd(u, delta, A, B, C, D, z, *, chunk):
             or C.shape != B.shape):
         raise ValueError('ssm_scan: inconsistent shapes or layouts')
     if not ssm_scan_takes(d, N, chunk):
-        raise ValueError(f'ssm_scan: d_state={N}, chunk={chunk} do not fit '
-                         'the kernel\'s shared memory on the card '
-                         '(ssm_scan_takes)')
+        raise ValueError(f'ssm_scan: d_state={N}, chunk={chunk} outside '
+                         'what the kernel takes on the card (ssm_scan_takes)')
     ld_bc = _row_stride(B, 'B')
     if _row_stride(C, 'C') != ld_bc:
         raise ValueError('B and C must share their row stride')
     y = torch.empty((Bt, L, d), dtype=u.dtype, device=u.device)
-    prod, end, h0s = _scan_buffers(u, d, N, chunk)
+    h0s, ysum, P, E = _scan_buffers(u, d, N, chunk)
     fn = _build.kernel('mamba', 'ddg_ssm_scan',
                        (_build.ptr, _build.i32, _build.ptr, _build.ptr,
                         _build.ptr, _build.i32, _build.ptr, _build.i32)
-                       + (_build.ptr,) * 6 + (_build.i32,) * 6
+                       + (_build.ptr,) * 7 + (_build.i32,) * 6
                        + (_build.ptr,))
     rc = fn(u.data_ptr(), _row_stride(u, 'u'), delta.data_ptr(),
             B.data_ptr(), C.data_ptr(), ld_bc, z.data_ptr(),
             _row_stride(z, 'z'), A.data_ptr(), D.data_ptr(), y.data_ptr(),
-            prod.data_ptr(), end.data_ptr(), h0s.data_ptr(), Bt, L, d, N,
-            chunk, _DTYPES[u.dtype], _build.stream(u))
+            h0s.data_ptr(), _ptr(ysum), _ptr(P), _ptr(E), Bt, L, d, N, chunk,
+            _DTYPES[u.dtype], _build.stream(u))
     ssm_scan.launches += 1
     _build.check(rc, 'ddg_ssm_scan')
     return y, h0s
@@ -443,18 +469,19 @@ def _mamba_inner_fwd(h, W_in, conv_w, conv_b, W_x, W_dt, b_dt, A, D, W_out,
     xz = torch.empty((Bt, L, 2 * d), dtype=cd, device=dev)
     u = torch.empty((Bt, L, d), dtype=cd, device=dev)
     x_dbl = torch.empty((Bt, L, R + 2 * N), dtype=cd, device=dev)
-    delta = torch.empty((Bt, L, d), dtype=torch.float32, device=dev)
     y = torch.empty((Bt, L, d), dtype=cd, device=dev)
     out = torch.empty((Bt, L, H), dtype=cd, device=dev)
-    prod, end, h0s = _scan_buffers(u, d, N, chunk)
+    delta = torch.empty((Bt, L, d), dtype=torch.float32, device=dev)
+    h0s, ysum, P, E = _scan_buffers(u, d, N, chunk)
     fn = _build.kernel('mamba', 'ddg_mamba_inner',
-                       (_build.ptr,) * 19 + (_build.i32,) * 9 + (_build.ptr,))
+                       (_build.ptr,) * 20 + (_build.i32,) * 9 + (_build.ptr,))
     rc = fn(hc.data_ptr(), w_in.data_ptr(), cw.data_ptr(), cb.data_ptr(),
             w_x.data_ptr(), w_dt.data_ptr(), b_dt.data_ptr(), A.data_ptr(),
             D.data_ptr(), w_out.data_ptr(), xz.data_ptr(), u.data_ptr(),
-            x_dbl.data_ptr(), delta.data_ptr(), prod.data_ptr(),
-            end.data_ptr(), h0s.data_ptr(), y.data_ptr(), out.data_ptr(),
-            Bt, L, H, d, K, R, N, chunk, _DTYPES[cd], _build.stream(h))
+            x_dbl.data_ptr(), delta.data_ptr(), h0s.data_ptr(), _ptr(ysum),
+            _ptr(P), _ptr(E), y.data_ptr(), out.data_ptr(), Bt, L, H, d, K, R,
+            N, chunk,
+            _DTYPES[cd], _build.stream(h))
     mamba_inner.launches += 1
     _build.check(rc, 'ddg_mamba_inner')
     return out, h0s
@@ -936,18 +963,18 @@ def _ssm_scan_dtlr_fwd(u, dt_lr, W_dt, b_dt, A, B, C, D, z, *, chunk):
         u, dt_lr, W_dt, b_dt, A, B, C, D, z, chunk, 'ssm_scan_dtlr')
     y = torch.empty((Bt, L, d), dtype=u.dtype, device=u.device)
     delta = torch.empty((Bt, L, d), dtype=torch.float32, device=u.device)
-    prod, end, h0s = _scan_buffers(u, d, N, chunk)
+    h0s, ysum, P, E = _scan_buffers(u, d, N, chunk)
     fn = _build.kernel('mamba', 'ddg_ssm_scan_dtlr',
                        (_build.ptr, _build.i32, _build.ptr, _build.i32)
                        + (_build.ptr,) * 5
                        + (_build.i32, _build.ptr, _build.i32)
-                       + (_build.ptr,) * 6 + (_build.i32,) * 7
+                       + (_build.ptr,) * 7 + (_build.i32,) * 7
                        + (_build.ptr,))
     rc = fn(u.data_ptr(), _row_stride(u, 'u'), lr.data_ptr(), ld_lr,
             w_dt.data_ptr(), b_dt.data_ptr(), delta.data_ptr(), B.data_ptr(),
             C.data_ptr(), ld_bc, z.data_ptr(), _row_stride(z, 'z'),
-            A.data_ptr(), D.data_ptr(), y.data_ptr(), prod.data_ptr(),
-            end.data_ptr(), h0s.data_ptr(), Bt, L, d, N, R, chunk,
+            A.data_ptr(), D.data_ptr(), y.data_ptr(), h0s.data_ptr(),
+            _ptr(ysum), _ptr(P), _ptr(E), Bt, L, d, N, R, chunk,
             _DTYPES[u.dtype], _build.stream(u))
     ssm_scan_dtlr.launches += 1
     _build.check(rc, 'ddg_ssm_scan_dtlr')

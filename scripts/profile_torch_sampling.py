@@ -47,7 +47,7 @@ GROUPS = (   # first match wins; matched against the kernel's name
     ('K13 groupnorm', ('gn_stats', 'gn_apply')),
     ('K18 in/out_proj', ('gemm_wgmma_kernel', 'gemm_f32_kernel')),
     ('K18 conv/x_proj/dt_proj', ('mamba_front',)),
-    ('K18/K14 scan', ('scan_chunk', 'scan_carry', 'scan_out')),
+    ('K18/K14 scan', ('scan_fwd', 'scan_chunk', 'scan_carry', 'scan_out')),
     ('gemm/conv', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas', 'conv',
                    'cudnn')),
     ('elementwise/reduce/other', ('',)),

@@ -11,15 +11,17 @@ Species10 training shape (16 x 32768, hidden 256, d_inner 512, d_state 16,
 dt_rank 16), and K14, K15, K16 and K17 at 16 x 32768 and at the dt-lowrank
 training micro-batch, 4 x 32768 (`K16_4` and so on); with K17's workspace
 bytes at 4 x 32768. Prints one JSON line with the card's name and power
-limit. `--f64` adds, for K15's scan adjoint (which K17 and K19 share), the
-largest distance of each fp32 output of the kernel and of the plain version
-from the float64 adjoint (`chip_smoke._f64_gap`) at B=2, L=1024, d_state
-16 and 64. `--digest` adds a hash of each kernel's outputs on inputs made
+limit. `--f64` adds, for K14's y and h0s and for K15's scan adjoint (which
+K17 and K19 share), the largest distance of each fp32 output of the kernel
+and of the plain version from float64 (`chip_smoke._f64_gap`) at B=2,
+L=1024, d_state 16 and 64. `--digest` adds a hash of each kernel's outputs on inputs made
 from fixed seeds: the scans at B=2, L=4096, d_state 16 and at L=1024,
 d_state 64; K18 and K19 at B=2, L=2048, d_state 16 and 32. Two trees run on
 the same data, so equal hashes mean bit-identical outputs. `--profile`
-adds ptxas's registers and spills of the scan kernels and the device ms a
-call of each kernel K15, K16 and K17 launch at 4 x 32768 (torch.profiler).
+adds ptxas's registers and spills of the scan, front and dt kernels and the
+device ms a call of each kernel that K14, K16 and K18 launch at 16, 8 and
+4 x 32768 and that K15 and K17 launch at 4 x 32768 (torch.profiler:
+for K18 its products, its front and its scan).
 To compare two versions on one card, in one call, unpack the other into a
 directory `.gitignore` lists and run them in turns:
 
@@ -62,7 +64,7 @@ def main():
     out = {'tag': args.tag, 'nvidia_smi': cs.nvidia_smi()}
     if args.profile:
         out['ptxas'] = scan_ptxas(libs)
-        out['by_kernel_4'] = by_kernel(cs, M)
+        out['by_kernel'] = by_kernel(cs, M)
     if args.digest:
         out['digest'] = digests(cs, M)
     gen = torch.Generator(device='cuda').manual_seed(14)
@@ -94,7 +96,7 @@ def main():
                        (_build.i32,) * 6, ctypes.c_longlong)
     out['K17_workspace_bytes_4'] = ws(4, SL, SD, SN, SR, 128)
     if args.f64:
-        out['K15_f64_gap'] = f64_gaps(cs, M)
+        out['K14_f64_gap'], out['K15_f64_gap'] = f64_gaps(cs, M)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -108,7 +110,7 @@ def scan_ptxas(libs):
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 cur = m.group(1)
-            elif cur and re.search('scan|delta|dt_bwd', cur):
+            elif cur and re.search('scan|delta|dt_bwd|front', cur):
                 key = re.sub(r'^_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}\d+', '', cur)[:60]
                 if 'spill stores' in ln:
                     out[key] = ln.split(',')[1].strip()
@@ -118,28 +120,44 @@ def scan_ptxas(libs):
     return out
 
 
-def by_kernel(cs, M):
-    """{K15|K16|K17: {kernel: device ms a call}} at 4 x 32768, bf16."""
+def _profile(fn, reps=3):
+    """{kernel: device ms a call} of fn (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
-    gen = torch.Generator(device='cuda').manual_seed(15)
-    a16, a14 = cs._scan_inputs(gen, torch.bfloat16, 4, 32768)
-    g = cs._rand(gen, 4, 32768, cs.SD, dtype=torch.bfloat16)
-    _, h14 = M.ssm_scan(*a14, return_h0s=True)
-    _, h16 = M.ssm_scan_dtlr(*a16, return_h0s=True)
-    calls = {'K15': lambda: M.ssm_scan_bwd(*a14, h14, g),
-             'K16': lambda: M.ssm_scan_dtlr(*a16),
-             'K17': lambda: M.ssm_scan_dtlr_bwd(*a16, h16, g)}
-    out = {}
-    for name, fn in calls.items():
-        fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-        out[name] = {e.key.replace('(anonymous namespace)::', '')[:48]:
-                     round(e.device_time_total / 3e3, 4)
-                     for e in prof.key_averages() if e.device_time_total > 0}
+    return {e.key.replace('(anonymous namespace)::', '')[:48]:
+            round(e.device_time_total / reps / 1e3, 4)
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def by_kernel(cs, M):
+    """{K14|K16|K18 at 16, 8 and 4 rows of 32768, K15|K17 at 4: {kernel:
+    device ms a call}}, bf16."""
+    gen = torch.Generator(device='cuda').manual_seed(15)
+    bf = torch.bfloat16
+    out = {}
+    for Bt in (16, 8, 4):
+        a16, a14 = cs._scan_inputs(gen, bf, Bt, 32768)
+        out[f'K14_{Bt}'] = _profile(lambda: M.ssm_scan(*a14))
+        out[f'K16_{Bt}'] = _profile(lambda: M.ssm_scan_dtlr(*a16))
+        if Bt == 4:
+            g = cs._rand(gen, 4, 32768, cs.SD, dtype=bf)
+            _, h14 = M.ssm_scan(*a14, return_h0s=True)
+            _, h16 = M.ssm_scan_dtlr(*a16, return_h0s=True)
+            out['K15_4'] = _profile(lambda: M.ssm_scan_bwd(*a14, h14, g))
+            out['K17_4'] = _profile(lambda: M.ssm_scan_dtlr_bwd(*a16, h16, g))
+            del g, h14, h16
+        del a16, a14
+        w = cs._mamba_weights(gen, bf)
+        h = cs._rand(gen, Bt, 32768, cs.SH, dtype=bf)
+        out[f'K18_{Bt}'] = _profile(lambda: M.mamba_inner(
+            h, **w, d_state=cs.SN, dt_rank=cs.SR))
+        del w, h
+        torch.cuda.empty_cache()
     return out
 
 
@@ -180,13 +198,17 @@ def digests(cs, M):
 
 
 def f64_gaps(cs, M):
-    """{d_state: {output: [plain - f64, kernel - f64, max |f64|]}} of K15 in
-    fp32 at B=2, L=1024."""
-    gaps = {}
+    """({d_state: {output: [plain - f64, kernel - f64, max |f64|]}} of K14,
+    the same of K15), in fp32 at B=2, L=1024."""
+    gaps, gaps14 = {}, {}
     for N in (16, 64):
         gen = torch.Generator(device='cuda').manual_seed(64 + N)
         _, a14 = cs._scan_inputs(gen, torch.float32, 2, 1024, N=N)
-        _, h0s = M.ssm_scan(*a14, return_h0s=True)
+        y14 = M.ssm_scan(*a14, return_h0s=True)
+        gaps14[N] = cs._f64_gap(('y', 'h0s'), y14,
+                                M.ssm_scan_plain(*a14, return_h0s=True),
+                                cs._f64_scan(a14))
+        h0s = y14[1]
         a15 = (*a14, h0s, cs._rand(gen, 2, 1024, a14[0].shape[-1]))
         got = M.ssm_scan_bwd(*a15)
         plain = M.ssm_scan_bwd_plain(*a15)
@@ -198,7 +220,7 @@ def f64_gaps(cs, M):
                               [got[i] for i in (0, 1, 2, 3, 5)],
                               [plain[i] for i in (0, 1, 2, 3, 5)],
                               (du, ddt, dB, dC, dz))
-    return gaps
+    return gaps14, gaps
 
 
 if __name__ == '__main__':

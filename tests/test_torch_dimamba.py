@@ -319,32 +319,39 @@ def test_auto_route_follows_the_kernels_limits(d_conv, d_state, want):
     assert resolve_route(dataclasses.replace(big, fused_block=False,
                                              dt_inkernel=True), L,
                          on_card=True) == 'scan_kernel_dtlr'
-    # What the card's kernels still refuse raises, naming the kernel: a
-    # chunk whose forward pass 3 overflows shared memory past 16 states
-    # (384 rows), dt_rank 65 (> 64) on the fused block at hidden 1040, and
-    # dt_rank 190 (> 184 past 16 states, K17's pass 3) at hidden 3040.
+    # Every route takes any chunk, and the fused block any dt_rank: chunk
+    # 384 past 16 states (the forward scan's shared memory is the same for
+    # every chunk), dt_rank 65 at hidden 1040.
     long = dataclasses.replace(cfg, d_state=32, scan_chunk=384)
-    with pytest.raises(ValueError, match='K18/K19'):
-        resolve_route(long, 768, on_card=True)
-    with pytest.raises(ValueError, match='K14/K15'):
-        resolve_route(dataclasses.replace(long, fused_block=False), 768,
-                      on_card=True)
-    with pytest.raises(ValueError, match='K16/K17'):
-        resolve_route(dataclasses.replace(long, fused_block=False,
-                                          dt_inkernel=True), 768,
-                      on_card=True)
+    assert resolve_route(long, 768, on_card=True) == 'fused_block'
+    assert resolve_route(dataclasses.replace(long, fused_block=False), 768,
+                         on_card=True) == 'scan_kernel'
+    assert resolve_route(dataclasses.replace(long, fused_block=False,
+                                             dt_inkernel=True), 768,
+                         on_card=True) == 'scan_kernel_dtlr'
     wide = dataclasses.replace(cfg, hidden_size=1040)
-    with pytest.raises(ValueError, match='K18/K19'):
-        resolve_route(wide, L, on_card=True)
+    assert resolve_route(wide, L, on_card=True) == 'fused_block'
     assert resolve_route(dataclasses.replace(wide, fused_block=False,
                                              dt_inkernel=True), L,
                          on_card=True) == 'scan_kernel_dtlr'
-    assert resolve_route(dataclasses.replace(wide, fused_block=False), L,
-                         on_card=True) == 'scan_kernel'
+    # What the card's kernels still refuse raises, naming the kernel: a
+    # hidden off the products' rows (1036: d_inner 2072 is not a multiple
+    # of 16) on the fused block; on the dt-lowrank scan dt_rank 190 (> 184
+    # past 16 states, hidden 3040) and 361 (hidden 5776), past what K17's
+    # pass 3 holds.
     wider = dataclasses.replace(cfg, hidden_size=3040, d_state=32,
                                 fused_block=False, dt_inkernel=True)
     with pytest.raises(ValueError, match='K16/K17'):
         resolve_route(wider, L, on_card=True)
+    with pytest.raises(ValueError, match='K18/K19'):
+        resolve_route(dataclasses.replace(cfg, hidden_size=1036), L,
+                      on_card=True)
+    widest = dataclasses.replace(cfg, hidden_size=5776, fused_block=False,
+                                 dt_inkernel=True)
+    with pytest.raises(ValueError, match='K16/K17'):
+        resolve_route(widest, L, on_card=True)
+    assert resolve_route(dataclasses.replace(widest, dt_inkernel=False), L,
+                         on_card=True) == 'scan_kernel'
 
 
 def test_auto_route_on_a_refused_shape_runs_on_the_cpu():
