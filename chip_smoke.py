@@ -202,6 +202,18 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+STEP_SECONDS = {}
+
+
+def _step(name, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its seconds kept under `name` for the
+    'step_seconds' line (printed before the result lines)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    STEP_SECONDS[name] = time.perf_counter() - t0
+    return out
+
+
 def check(ok, msg):
     if not ok:
         raise RuntimeError(f'chip_smoke check failed: {msg}')
@@ -898,55 +910,217 @@ def _close_sum(name, dtype, out, ref):
     return err
 
 
+# K4 and K6 beyond the training shapes: one batch row, an L off the
+# blocks' 64 rows, and rows of 512 and 1024 16-byte vectors (D = 4096 and
+# 8192 in bf16, 4096 in fp32: a row to a team of 4 and 8 warps).
+# (label, B, L, D, dtypes)
+ADALN_BWD_SHAPES = (('b1', 1, 128, D, (torch.float32, torch.bfloat16)),
+                    ('l100', 4, 100, D, (torch.float32, torch.bfloat16)),
+                    ('d4096', 2, 64, 4096, (torch.float32, torch.bfloat16)),
+                    ('d8192', 2, 64, 8192, (torch.bfloat16,)))
+
+
+def kernel_ms(fn, reps=20):
+    """Device ms a call of `fn` by kernel name (the part of the name before
+    its template arguments), from one torch.profiler trace of `reps` calls
+    after a warm-up."""
+    import os
+    import tempfile
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    out = {}
+    for e in events:
+        if e.get('cat') != 'kernel':
+            continue
+        name = e['name'].split('<')[0].split('::')[-1].split('(')[0]
+        name = (name.split() or [e['name'][:48]])[-1]
+        out[name] = out.get(name, 0.0) + e['dur'] / 1e3 / reps
+    check(out, 'the profiler recorded no kernel on the card')
+    return out
+
+
+def _adaln_bwd_inputs(gen, nb, Lr, Dr, dtype):
+    x = _rand(gen, nb, Lr, Dr, dtype=dtype)
+    y = _rand(gen, nb, Lr, Dr, dtype=dtype)
+    dx = _rand(gen, nb, Lr, Dr, dtype=dtype)
+    dh = _rand(gen, nb, Lr, Dr, dtype=dtype)
+    mod = _rand(gen, nb, 6 * Dr, scale=0.5, dtype=dtype)
+    scale, gate = mod[:, Dr:2 * Dr], mod[:, 2 * Dr:3 * Dr]
+    w = 1.0 + _rand(gen, Dr, scale=0.1)
+    return x, y, gate, w, scale, dx, dh
+
+
+def _adaln_bwd_composite(x, y, gate, w, scale, dx, dh):
+    """The same grads from library calls in the rows' dtype (the yardstick):
+    the LN statistics and xn (`native_layer_norm`), dxn = dh w (1 + scale),
+    dx_ln (`native_layer_norm_backward`), the column sums and, with y, the
+    residual terms."""
+    aten = torch.ops.aten
+    Dr = x.shape[-1]
+    xn, mean, rstd = aten.native_layer_norm(x, [Dr], None, None, 1e-5)
+    sc = 1.0 + scale.float()
+    dxn = (dh * (w * sc)[:, None]).to(x.dtype)
+    dx_ln = aten.native_layer_norm_backward(dxn, x, [Dr], mean, rstd, None,
+                                            None, [True, False, False])[0]
+    dhf = dh.float()
+    s = (dhf * xn.float()).sum(1)
+    conds = (dhf.sum(1).to(x.dtype), (s * w).to(x.dtype))
+    dw = (s * sc).sum(0)
+    if y is None:
+        return (dx_ln, dw, *conds)
+    dx_tot = dx + dx_ln
+    return (dx_tot * gate[:, None], dx_tot,
+            (dx_tot.float() * y.float()).sum(1).to(x.dtype), dw, *conds)
+
+
+def _adaln_bwd_cases(adaln, x, y, gate, w, scale, dx, dh):
+    """(name, kernel call, plain call, composite call, row outputs)."""
+    return (('ln_modulate_bwd',
+             lambda: adaln.ln_modulate_bwd(x, w, scale, dh),
+             lambda: adaln.ln_modulate_bwd_plain(x, w, scale, dh),
+             lambda: _adaln_bwd_composite(x, None, None, w, scale, None,
+                                          dh), 1),
+            ('gate_res_ln_modulate_bwd',
+             lambda: adaln.gate_res_ln_modulate_bwd(x, y, gate, w, scale,
+                                                    dx, dh),
+             lambda: adaln.gate_res_ln_modulate_bwd_plain(
+                 x, y, gate, w, scale, dx, dh),
+             lambda: _adaln_bwd_composite(x, y, gate, w, scale, dx, dh), 2))
+
+
+def _adaln_bwd_hold(name, dtype, out, again, ref, n_rows):
+    """The bars and the rerun's bits: row grads at `_close`'s, the sums
+    (dgate, dw, dshift, dscale) at `_close_sum`'s."""
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          f'{name} {dtype}: a rerun is not bit-identical')
+    rec = {'err': 0.0, 'sum_err': 0.0, 'bit_identical_rerun': True}
+    for i, (o, r) in enumerate(zip(out, ref)):
+        if i < n_rows:      # the row grads
+            e, rec['tol'] = _close(f'{name} out {i}', dtype, o, r)
+            rec['err'] = max(rec['err'], e)
+        else:
+            rec['sum_err'] = max(rec['sum_err'], _close_sum(
+                f'{name} out {i}', dtype, o, r))
+    return rec
+
+
+def _adaln_bwd_timing(rec, call, plain, composite, nb, Lr, Dr, n_rows, es):
+    """ms, plain and composite ms, the bound and the rows / sums split of
+    one bf16 case."""
+    rec['ms'] = time_ms(call)
+    rec['plain_ms'] = time_ms(plain)
+    rec['composite_ms'] = time_ms(composite)
+    rec['composite'] = ('native_layer_norm + dh w (1 + scale) + '
+                        'native_layer_norm_backward + column sums'
+                        + (' + residual terms' if n_rows == 2 else ''))
+    rec['library_ms'] = None
+    by = kernel_ms(call)
+    rec['split_ms'] = {
+        'rows': sum(v for k, v in by.items() if 'rows' in k),
+        'sums': sum(v for k, v in by.items() if 'rows' not in k)}
+    rec['bound_ms'], rec['bound_by'] = adaln_bwd_bound(nb, Lr, Dr, n_rows, es)
+    rec['shape'] = [nb, Lr, Dr]
+
+
+def adaln_bwd_bound(nb, Lr, Dr, n_rows, es):
+    """(ms, 'bytes' or 'operations') of K4 (n_rows 1) or K6 (2): K4 reads
+    x, dh and writes dx; K6 reads x', y, dx, dh and writes dy, dskip; both
+    read scale (and gate) and w and write the conditioning grads and dw;
+    about 15 (K4) and 20 (K6) fp32 operations per element."""
+    rows = nb * Lr
+    n_stream = 3 if n_rows == 1 else 6
+    return bound(
+        n_stream * rows * Dr * es + (n_rows + 2) * nb * Dr * es + 8 * Dr,
+        (15 if n_rows == 1 else 20) * rows * Dr, PEAK_FP32)
+
+
+def check_adaln_plan(shapes):
+    """`ops.adaln.bwd_plan` (what the wrappers allocate and pass) equals
+    the built kernels' `ddg_adaln_bwd_plan` at each (B, L, D), both
+    dtypes and both forms."""
+    import ctypes
+    from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import adaln
+    fn = _build.kernel('adaln', 'ddg_adaln_bwd_plan',
+                       (_build.i32,) * 5 + (_build.i32p,))
+    keys = ('rows', 'tiles', 'groups', 'warps_per_row', 'vectors_per_lane',
+            'teams', 'threads', 'smem', 'workspace')
+    n = 0
+    for nb, Lr, Dr in shapes:
+        for dtype, es in ((0, 4), (1, 2)):
+            if Dr // (16 // es) > 1024:
+                continue
+            for res in (0, 1):
+                out = (ctypes.c_int * 9)()
+                check(fn(nb, Lr, Dr, dtype, res, out) == 0,
+                      f'ddg_adaln_bwd_plan refused {nb} x {Lr} x {Dr}')
+                c = dict(zip(keys, out))
+                c['workspace'] *= Dr
+                py = adaln.bwd_plan(nb, Lr, Dr, es, bool(res))
+                check(py == c, f'adaLN backward plan {nb} x {Lr} x {Dr} '
+                      f'({es}-byte rows, residual {res}): {py} in ops.adaln,'
+                      f' {c} in csrc')
+                n += 1
+    return n
+
+
 def check_adaln_bwd(results):
-    """K4 and K6 against their plain backwards, at the training micro-
-    batch, with the conditioning as strided chunks of one (B, 6D)
-    projection; each kernel run twice must give bit-identical grads."""
+    """K4 and K6 against their plain backwards at the LM1B training
+    micro-batch (256 x 128) and text8's (256 x 256), and at
+    ADALN_BWD_SHAPES, with the conditioning as strided chunks of one
+    (B, 6D) projection; each kernel run twice must give bit-identical
+    grads. Timed in bf16 at both training shapes beside the bound, the
+    plain version and the composite of library calls, with the split
+    between the rows kernel and the sums after it; the launch plan held
+    against csrc's."""
+    from ddg_tpu_torch.entry import TEXT8_TRAIN_MICRO_BATCH as tb
+    from ddg_tpu_torch.entry import TRAIN_MICRO_BATCH as nb
     from ddg_tpu_torch.ops import adaln
     gen = torch.Generator(device=DEV).manual_seed(8)
-    from ddg_tpu_torch.entry import TRAIN_MICRO_BATCH as nb
-    rows = nb * L
-    for dtype in (torch.float32, torch.bfloat16):
-        es = torch.tensor([], dtype=dtype).element_size()
-        x = _rand(gen, nb, L, D, dtype=dtype)
-        y = _rand(gen, nb, L, D, dtype=dtype)
-        dx = _rand(gen, nb, L, D, dtype=dtype)
-        dh = _rand(gen, nb, L, D, dtype=dtype)
-        mod = _rand(gen, nb, 6 * D, scale=0.5, dtype=dtype)
-        scale, gate = mod[:, D:2 * D], mod[:, 2 * D:3 * D]
-        w = 1.0 + _rand(gen, D, scale=0.1)
-        for name, call, plain, n_rows in (
-                ('ln_modulate_bwd',
-                 lambda: adaln.ln_modulate_bwd(x, w, scale, dh),
-                 lambda: adaln.ln_modulate_bwd_plain(x, w, scale, dh), 1),
-                ('gate_res_ln_modulate_bwd',
-                 lambda: adaln.gate_res_ln_modulate_bwd(x, y, gate, w, scale,
-                                                        dx, dh),
-                 lambda: adaln.gate_res_ln_modulate_bwd_plain(
-                     x, y, gate, w, scale, dx, dh), 2)):
-            out, again, ref = call(), call(), plain()
-            check(all(torch.equal(a, b) for a, b in zip(out, again)),
-                  f'{name} {dtype}: a rerun is not bit-identical')
-            rec = {'err': 0.0, 'sum_err': 0.0, 'bit_identical_rerun': True}
-            for i, (o, r) in enumerate(zip(out, ref)):
-                if i < n_rows:      # the row grads
-                    e, rec['tol'] = _close(f'{name} out {i}', dtype, o, r)
-                    rec['err'] = max(rec['err'], e)
-                else:               # dgate, dw, dshift, dscale
-                    rec['sum_err'] = max(rec['sum_err'], _close_sum(
-                        f'{name} out {i}', dtype, o, r))
-            if dtype == torch.bfloat16:
-                rec['ms'] = time_ms(call)
-                rec['plain_ms'] = time_ms(plain)
-                # Rows: K4 reads x, dh and writes dx; K6 reads x', y, dx,
-                # dh and writes dy, dskip. About 15 (K4) and 20 (K6) fp32
-                # operations per element.
-                n_stream = 3 if n_rows == 1 else 6
-                rec['bound_ms'], rec['bound_by'] = bound(
-                    n_stream * rows * D * es + (n_rows + 2) * nb * D * es
-                    + 8 * D, (15 if n_rows == 1 else 20) * rows * D,
-                    PEAK_FP32)
-            results[name][str(dtype)] = rec
+    shapes = [('lm1b_training', nb, L, D, (torch.float32, torch.bfloat16)),
+              ('text8_training', tb, 256, D, (torch.bfloat16,)),
+              *ADALN_BWD_SHAPES]
+    for label, nbr, Lr, Dr, dtypes in shapes:
+        for dtype in dtypes:
+            es = torch.tensor([], dtype=dtype).element_size()
+            ins = _adaln_bwd_inputs(gen, nbr, Lr, Dr, dtype)
+            for name, call, plain, composite, n_rows in _adaln_bwd_cases(
+                    adaln, *ins):
+                ref = plain()
+                rec = _adaln_bwd_hold(f'{name} {label}', dtype, call(),
+                                      call(), ref, n_rows)
+                comp = composite()
+                rec['composite_err'] = max(
+                    (c.float() - r.float()).abs().max().item()
+                    / max(r.float().abs().max().item(), 1e-30)
+                    for c, r in zip(comp, ref))
+                check(rec['composite_err'] < 0.05,
+                      f'{name} {label}: the composite differs from the '
+                      f'plain version by {rec["composite_err"]} of its '
+                      'largest magnitude')
+                if dtype == torch.bfloat16 and label.endswith('training'):
+                    _adaln_bwd_timing(rec, call, plain, composite, nbr, Lr,
+                                      Dr, n_rows, es)
+                if label == 'lm1b_training':
+                    results[name][str(dtype)] = rec
+                else:
+                    results[name].setdefault(label, {})[str(dtype)] = rec
+            del ins
+    n = check_adaln_plan([(nb, L, D), (tb, 256, D), (3, 40, 64),
+                          (2, 64, 1280)]
+                         + [(b, l, d) for _, b, l, d, _ in ADALN_BWD_SHAPES])
+    emit({'phase': 'adaln_bwd_plan_mirror', 'cases': n})
 
 
 def check_sampling(results):
@@ -1754,11 +1928,15 @@ WIDE_SHAPES = (('d_state24', SH, SD, 24, SR, 4), ('d_state64', SH, SD, 64, SR, 4
                ('hidden768', 768, 1536, SN, 48, 4),
                ('hidden1536', 1536, 3072, SN, 96, 4))
 WIDE_B, WIDE_L = 2, 1024
-# The scans alone (K14-K17) also at d_state 192 with dt_rank 96 and at the
-# largest dt_rank K17's pass 3 holds (248 at d_state 16, 184 past it):
-# (label, d_inner, d_state, dt_rank).
+# The scans alone (K14-K17) also at d_state 192 with dt_rank 96, at the
+# largest dt_rank the first K17 design held (248 at d_state 16, 184 past
+# it), and past it in rank tiles (300 and 512 at d_state 16, 512 past K16's
+# first 360-rank tile too; 256 at d_state 32): (label, d_inner, d_state,
+# dt_rank).
 WIDE_SCAN_SHAPES = (('d_state192_rank96', SD, 192, 96),
-                    ('rank248', SD, SN, 248), ('d_state32_rank184', SD, 32, 184))
+                    ('rank248', SD, SN, 248), ('d_state32_rank184', SD, 32, 184),
+                    ('rank300', SD, SN, 300), ('d_state32_rank256', SD, 32, 256),
+                    ('rank512', SD, SN, 512))
 # ROADMAP C.6: K18 past the old front tile's d_inner cap (7120 in bf16,
 # 3560 in fp32) at B=1, L=256, hidden 4096 (dt_rank 256); K14 and K18 at
 # chunk 1024 with d_state 64 at B=2, L=2048 (label, B, L, H, d, N, R, chunk).
@@ -1851,9 +2029,10 @@ def check_mamba_smem():
     without a card) equals the sums the built kernels use
     (`ddg_scan_smem`, `ddg_scan_bwd_smem`, `ddg_front_smem`,
     `ddg_smem_max`): at Species10's shape, the WIDE_SHAPES, the d_state
-    and dt_rank where K17's pass 3 stops holding dt_proj's adjoint and
-    where K16's delta kernel stops fitting, at chunks 16, 60, 128 and
-    1024; the front's for both element sizes."""
+    and dt_rank at and past each rank tile's width (128 for K17's passes,
+    360 for K16's delta kernel) and where the first K17 design stopped
+    holding dt_proj's adjoint, at chunks 16, 60, 128 and 1024; the front's
+    for both element sizes."""
     import ctypes
     from ddg_tpu_torch.ops import _build
     from ddg_tpu_torch.ops import mamba as M
@@ -1868,8 +2047,8 @@ def check_mamba_smem():
     for chunk in (128, 16, 60, 1024):
         for N in sorted({SN, 17, 24, 64, 96, 97, 112, 113, 128, 144, 145,
                          160, 161, 176, 192, 512}):
-            for R in (0, SR, 48, 64, 96, 128, 184, 185, 248, 249, 300, 360,
-                      361):
+            for R in (0, SR, 48, 64, 96, 128, 129, 184, 185, 248, 249, 256,
+                      300, 360, 361, 512, 4096):
                 py, c = M.scan_smem(chunk, N, R), max(fwd(chunk, N, R),
                                                       bwd(chunk, N, R))
                 check(py == c, f'scan_smem(chunk={chunk}, N={N}, R={R}): '
@@ -4021,14 +4200,15 @@ def main():
         **{name: getattr(flash_attention, name) for name in FLASH},
     }
 
-    phase_environment()
-    phase_build()
+    _step('phase_environment', phase_environment)
+    _step('phase_build', phase_build)
 
     t0 = time.perf_counter()
     unet = unet_flagship(device=DEV)
     unet_cfg = unet[1]
     norms, macs = unet_forward_census(unet[2], unet_cfg)
     n_norms = sum(norms.values())
+    STEP_SECONDS['unet_flagship'] = time.perf_counter() - t0
     emit({'phase': 'unet_flagship', 'seconds': time.perf_counter() - t0,
           'parameters': sum(p.numel() for p in unet[4].values()),
           'ch': unet_cfg.ch, 'ch_mult': list(unet_cfg.ch_mult),
@@ -4041,44 +4221,54 @@ def main():
           f'{expected_norms(unet_cfg)}')
 
     results = {name: {} for name in kernels}
-    check_adaln(results)
-    check_attention_plan(check_attention(results))
-    check_flash_plan(check_flash_attention(results))
-    tv = check_sampling(results)
-    check_head_sample(results)
-    tv.update(check_uniform(results))
-    check_groupnorm(results, norms)
-    check_adaln_bwd(results)
-    check_uniform_species(results, tv)
-    check_mamba(results)
-    check_mamba_bwd(results)
+    _step('check_adaln', check_adaln, results)
+    _step('check_attention', lambda: check_attention_plan(
+        check_attention(results)))
+    _step('check_flash_attention', lambda: check_flash_plan(
+        check_flash_attention(results)))
+    tv = _step('check_sampling', check_sampling, results)
+    _step('check_head_sample', check_head_sample, results)
+    tv.update(_step('check_uniform', check_uniform, results))
+    _step('check_groupnorm', check_groupnorm, results, norms)
+    _step('check_adaln_bwd', check_adaln_bwd, results)
+    _step('check_uniform_species', check_uniform_species, results, tv)
+    _step('check_mamba', check_mamba, results)
+    _step('check_mamba_bwd', check_mamba_bwd, results)
     emit({'phase': 'kernels_vs_plain', 'results': results,
           'internal_rng': tv})
-    check_tiny_dit()
-    check_tiny_dit('flash')
-    check_tiny_dit_int8()
-    check_int8_tv()
-    check_tiny_train()
-    check_tiny_unet()
-    check_tiny_dimamba()
-    check_tiny_dimamba_train()
-    check_tiny_text8_train()
-    check_wide_head_dit_train()
-    by_path = {'serving': run_main_path(kernels),
-               'training': run_train_path(kernels),
-               'unet_serving': run_unet_path(kernels, unet, n_norms)}
-    by_path.update(run_dimamba_path(kernels))
-    by_path.update(run_dimamba_train_path(kernels))
-    by_path.update(run_dimamba_dtlr_train_path(kernels))
-    by_path['text8_training'] = run_text8_train_path(kernels, 'fused_rope')
-    by_path['text8_training_short_seq'] = run_text8_train_path(
-        kernels, 'short_seq', warmup=1, steps=2)
-    by_path['text8_training_flash'] = run_text8_train_path(
-        kernels, 'flash', warmup=1, steps=2)
-    by_path['dit_small_l1024_training'] = run_dit_small_l1024(kernels)
-    check_learning()
-    check_dimamba_learning()
-    check_text8_learning()
+    _step('check_tiny_dit', check_tiny_dit)
+    _step('check_tiny_dit_flash', check_tiny_dit, 'flash')
+    _step('check_tiny_dit_int8', check_tiny_dit_int8)
+    _step('check_int8_tv', check_int8_tv)
+    _step('check_tiny_train', check_tiny_train)
+    _step('check_tiny_unet', check_tiny_unet)
+    _step('check_tiny_dimamba', check_tiny_dimamba)
+    _step('check_tiny_dimamba_train', check_tiny_dimamba_train)
+    _step('check_tiny_text8_train', check_tiny_text8_train)
+    _step('check_wide_head_dit_train', check_wide_head_dit_train)
+    by_path = {
+        'serving': _step('run_main_path', run_main_path, kernels),
+        'training': _step('run_train_path', run_train_path, kernels),
+        'unet_serving': _step('run_unet_path', run_unet_path, kernels, unet,
+                              n_norms)}
+    by_path.update(_step('run_dimamba_path', run_dimamba_path, kernels))
+    by_path.update(_step('run_dimamba_train_path', run_dimamba_train_path,
+                         kernels))
+    by_path.update(_step('run_dimamba_dtlr_train_path',
+                         run_dimamba_dtlr_train_path, kernels))
+    by_path['text8_training'] = _step(
+        'run_text8_train_path', run_text8_train_path, kernels, 'fused_rope')
+    by_path['text8_training_short_seq'] = _step(
+        'run_text8_train_path_short_seq', run_text8_train_path, kernels,
+        'short_seq', warmup=1, steps=2)
+    by_path['text8_training_flash'] = _step(
+        'run_text8_train_path_flash', run_text8_train_path, kernels, 'flash',
+        warmup=1, steps=2)
+    by_path['dit_small_l1024_training'] = _step(
+        'run_dit_small_l1024', run_dit_small_l1024, kernels)
+    _step('check_learning', check_learning)
+    _step('check_dimamba_learning', check_dimamba_learning)
+    _step('check_text8_learning', check_text8_learning)
 
     rows = []
     for name in kernels:
@@ -4097,7 +4287,7 @@ def main():
                      'bound_by': r['bound_by'],
                      'library_ms': r.get('library_ms')})
         for key in ('ms_covers', 'products_matmul_ms', 'composite_ms',
-                    'composite', 'rng_near_ties_vs_k7',
+                    'composite', 'split_ms', 'rng_near_ties_vs_k7',
                     'logits_bit_equal_int8_dense',
                     'shape', 'sum_err_of_tol', 'widened',
                     'differs_from_plain',
@@ -4113,7 +4303,8 @@ def main():
                 rows[-1][label] = {
                     k: other[k] for k in ('shape', 'err', 'ms', 'plain_ms',
                                           'library_ms', 'bound_ms',
-                                          'bound_by')}
+                                          'bound_by', 'composite_ms',
+                                          'split_ms') if k in other}
         f32 = results[name].get(str(torch.float32), {})
         if name.startswith('fused_absorbing_head') and 'ms' in f32:
             rows[-1]['float32'] = {
@@ -4124,6 +4315,9 @@ def main():
                 k: results[name]['species10'][k]
                 for k in ('shape', 'err', 'ms', 'plain_ms', 'bound_ms',
                           'bound_by')}
+    emit({'phase': 'step_seconds', 'seconds': STEP_SECONDS,
+          'unaccounted': time.perf_counter() - T_START
+          - sum(STEP_SECONDS.values())})
     emit({'phase': 'done', 'seconds': time.perf_counter() - T_START})
     emit({'kernels': rows})
     print(nvidia_smi(), flush=True)

@@ -724,65 +724,87 @@ cudaError_t front(const T* xz, const T* cw, const T* cb, const T* wx, const floa
 
 // --- delta = softplus(dt_lr W_dt + b_dt), once per (row, channel) -------------
 //
-// K16's delta (and K17's where its pass 3 cannot hold dt_proj's adjoint).
-// One block per channel tile, walking row tiles (grid.y blocks apart): W_dt's
-// columns of the tile in shared memory for the whole walk, each row tile's
-// dt_lr rows staged beside them; a thread owns a channel and sums kDeltaBatch
-// rows at once, k ascending four at a time with zeros past R, which is
-// `dt_pre`'s order, so delta is the bits K18's front and K17 form.
+// K16's delta. One block per channel tile, walking row tiles (grid.y blocks
+// apart): W_dt's columns of the tile in shared memory, each row tile's
+// dt_lr rows staged beside them; a thread owns a channel and sums
+// kDeltaBatch rows at once, k ascending four at a time with zeros past R,
+// which is `dt_pre`'s order, so delta is the bits K18's front and K17 form.
+// dt_rank goes in rank tiles of kDeltaRank: up to one tile (kTiled false)
+// W_dt is staged once for the whole walk; past it (kTiled) each row tile
+// walks the rank tiles in order, restaging W_dt's rows of each, its running
+// sums carried through delta's own slots, so that every sum keeps the one
+// k-ascending chain whatever dt_rank is.
 constexpr int kDeltaCh = 128;
 constexpr int kDeltaRows = 32;
 constexpr int kDeltaBatch = 8;
 constexpr int kDeltaBlocks = 2048;   // blocks of a launch, at most
+constexpr int kDeltaRank = 360;      // ranks of a tile (a multiple of 4)
 
-size_t delta_smem(int R) {
-  return sizeof(float) * static_cast<size_t>(round4(R)) * (kDeltaCh + kDeltaRows);
+__host__ __device__ constexpr int delta_ld(int R) {
+  return round4(R) < kDeltaRank ? round4(R) : kDeltaRank;
 }
 
+size_t delta_smem(int R) {
+  return sizeof(float) * static_cast<size_t>(delta_ld(R)) * (kDeltaCh + kDeltaRows);
+}
+
+template <bool kTiled>
 __global__ void __launch_bounds__(kDeltaCh)
     delta_kernel(const float* __restrict__ lr, int ld_lr, const float* __restrict__ wdt,
                  const float* __restrict__ bdt, float* __restrict__ delta, size_t M, int d,
                  int R) {
   extern __shared__ __align__(16) float dsm[];
-  const int lr_ld = round4(R);
-  float* ws = dsm;                          // lr_ld x kDeltaCh
-  float* lrs = ws + lr_ld * kDeltaCh;       // kDeltaRows x lr_ld
+  const int lr_ld = round4(R), tw = delta_ld(R);
+  float* ws = dsm;                          // tw x kDeltaCh
+  float* lrs = ws + tw * kDeltaCh;          // kDeltaRows x (the tile's ranks)
   const int ch0 = blockIdx.x * kDeltaCh, tid = threadIdx.x, ch = ch0 + tid;
   const bool live = ch < d;
-  for (int i = tid; i < lr_ld * kDeltaCh; i += kDeltaCh) {
-    const int k = i / kDeltaCh, c = ch0 + i % kDeltaCh;
-    ws[i] = k < R && c < d ? wdt[static_cast<size_t>(k) * d + c] : 0.f;
-  }
+  // W_dt's rows [k0, k0 + kn) of the tile's channels.
+  auto stage_w = [&](int k0, int kn) {
+    for (int i = tid; i < kn * kDeltaCh; i += kDeltaCh) {
+      const int k = k0 + i / kDeltaCh, c = ch0 + i % kDeltaCh;
+      ws[i] = k < R && c < d ? wdt[static_cast<size_t>(k) * d + c] : 0.f;
+    }
+  };
+  if (!kTiled) stage_w(0, lr_ld);
   const float bias = live ? bdt[ch] : 0.f;
   const size_t step = static_cast<size_t>(gridDim.y) * kDeltaRows;
   for (size_t m0 = static_cast<size_t>(blockIdx.y) * kDeltaRows; m0 < M; m0 += step) {
-    __syncthreads();  // W_dt staged; the last tile's readers of lrs are done
-    for (int i = tid; i < kDeltaRows * lr_ld; i += kDeltaCh) {
-      const int r = i / lr_ld, k = i - r * lr_ld;
-      lrs[i] = m0 + r < M && k < R ? lr[(m0 + r) * ld_lr + k] : 0.f;
-    }
-    __syncthreads();
-    for (int rb = 0; rb < kDeltaRows; rb += kDeltaBatch) {
-      float acc[kDeltaBatch];
-#pragma unroll
-      for (int e = 0; e < kDeltaBatch; ++e) acc[e] = 0.f;
-      for (int k = 0; k < lr_ld; k += 4) {
-        const float w0 = ws[k * kDeltaCh + tid], w1 = ws[(k + 1) * kDeltaCh + tid];
-        const float w2 = ws[(k + 2) * kDeltaCh + tid], w3 = ws[(k + 3) * kDeltaCh + tid];
+    for (int k0 = 0; k0 < lr_ld; k0 += kDeltaRank) {
+      const int kn = kTiled ? min(kDeltaRank, lr_ld - k0) : lr_ld;
+      __syncthreads();  // W_dt staged; the last tile's readers of ws and lrs are done
+      if (kTiled) stage_w(k0, kn);
+      for (int i = tid; i < kDeltaRows * kn; i += kDeltaCh) {
+        const int r = i / kn, k = i - r * kn;
+        lrs[i] = m0 + r < M && k0 + k < R ? lr[(m0 + r) * ld_lr + k0 + k] : 0.f;
+      }
+      __syncthreads();
+      const bool last = !kTiled || k0 + kn == lr_ld;
+      for (int rb = 0; rb < kDeltaRows; rb += kDeltaBatch) {
+        float acc[kDeltaBatch];
 #pragma unroll
         for (int e = 0; e < kDeltaBatch; ++e) {
-          const float4 v = *reinterpret_cast<const float4*>(lrs + (rb + e) * lr_ld + k);
-          acc[e] = fmaf(v.x, w0, acc[e]);
-          acc[e] = fmaf(v.y, w1, acc[e]);
-          acc[e] = fmaf(v.z, w2, acc[e]);
-          acc[e] = fmaf(v.w, w3, acc[e]);
+          const size_t m = m0 + rb + e;
+          acc[e] = kTiled && k0 > 0 && live && m < M ? delta[m * d + ch] : 0.f;
         }
-      }
-      if (!live) continue;
+        for (int k = 0; k < kn; k += 4) {
+          const float w0 = ws[k * kDeltaCh + tid], w1 = ws[(k + 1) * kDeltaCh + tid];
+          const float w2 = ws[(k + 2) * kDeltaCh + tid], w3 = ws[(k + 3) * kDeltaCh + tid];
 #pragma unroll
-      for (int e = 0; e < kDeltaBatch; ++e) {
-        const size_t m = m0 + rb + e;
-        if (m < M) delta[m * d + ch] = softplus(acc[e] + bias);
+          for (int e = 0; e < kDeltaBatch; ++e) {
+            const float4 v = *reinterpret_cast<const float4*>(lrs + (rb + e) * kn + k);
+            acc[e] = fmaf(v.x, w0, acc[e]);
+            acc[e] = fmaf(v.y, w1, acc[e]);
+            acc[e] = fmaf(v.z, w2, acc[e]);
+            acc[e] = fmaf(v.w, w3, acc[e]);
+          }
+        }
+        if (!live) continue;
+#pragma unroll
+        for (int e = 0; e < kDeltaBatch; ++e) {
+          const size_t m = m0 + rb + e;
+          if (m < M) delta[m * d + ch] = last ? softplus(acc[e] + bias) : acc[e];
+        }
       }
     }
   }
@@ -792,13 +814,15 @@ __global__ void __launch_bounds__(kDeltaCh)
 cudaError_t form_delta(const float* lr, int ld_lr, const float* wdt, const float* bdt,
                        float* delta, size_t M, int d, int R, cudaStream_t s) {
   const size_t smem = delta_smem(R);
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(delta_kernel), smem);
+  const bool tiled = round4(R) > kDeltaRank;
+  auto kern = tiled ? delta_kernel<true> : delta_kernel<false>;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kern), smem);
   if (err != cudaSuccess) return err;
   const int ct = (d + kDeltaCh - 1) / kDeltaCh;
   const size_t tiles = (M + kDeltaRows - 1) / kDeltaRows;
   const int gy = static_cast<int>(tiles < static_cast<size_t>(kDeltaBlocks / ct)
                                       ? tiles : kDeltaBlocks / ct > 0 ? kDeltaBlocks / ct : 1);
-  delta_kernel<<<dim3(ct, gy), kDeltaCh, smem, s>>>(lr, ld_lr, wdt, bdt, delta, M, d, R);
+  kern<<<dim3(ct, gy), kDeltaCh, smem, s>>>(lr, ld_lr, wdt, bdt, delta, M, d, R);
   return cudaGetLastError();
 }
 

@@ -47,8 +47,9 @@
 // ddg_ssm_scan_dtlr_bwd (K17) is that adjoint in its low-rank form, with
 // dt_proj's adjoint inside pass 3, as the TPU kernel's body has it: delta
 // formed in passes 1 and 3 from dt_lr, W_dt and b_dt as K16 forms it (its
-// dt_lr rows and W_dt's columns staged in shared memory, `form_delta`), and
-// sigmoid(pre) staged beside it; once a sub-chunk's ddelta is final, the
+// dt_lr rows and W_dt's columns staged in shared memory a rank tile of up
+// to kRankTile at a time, `form_delta`), and sigmoid(pre) staged beside
+// it; once a sub-chunk's ddelta is final, the
 // block forms dpre = ddelta sigmoid(pre), ddt_lr = dpre W_dt^T over its 64
 // channels and dW_dt = dt_lr^T dpre, db_dt = sum_t dpre over the rows, in
 // fp32 FMAs (no TF32: JAX takes them at Precision.HIGHEST), each a
@@ -171,73 +172,76 @@ __device__ __forceinline__ void load_q(const float* p, float (&v)[kQ]) {
 constexpr int kStage = kSeg * kBwdCh;
 
 // The low-rank form (dl.delta null, K17) forms delta as the forward forms
-// it, from the sub-chunk's dt_lr rows (lrs, kSubRows rows of lr_ld =
-// round4(R), zeros past R and past the sub-chunk) and W_dt's columns of the
-// block's channels (wt, [channel][rank], wt_ld = lr_ld + 4 to a channel, so
-// that the channels' float4 loads hit distinct banks; zeros past R and d;
-// then b_dt, one a channel): pass 1 a segment's rows at a time
-// (`stage_seg`), pass 3 once a sub-chunk (`form_delta`).
-__host__ __device__ constexpr int wt_ld(int R) { return round4(R) + 4; }
+// it, from dt_lr rows and W_dt's columns of the block's channels staged in
+// shared memory: lrs, rows of the tile's ranks rank_ld(R) apart, zeros
+// past R and past the sub-chunk; wt, [channel][rank], wt_ld = rank_ld + 4
+// to a channel, so that the channels' float4 loads hit distinct banks,
+// zeros past R and d, then b_dt, one a channel. Up to kRankTile ranks (one
+// tile) W_dt is staged once a block and dt_lr once a sub-chunk; past it
+// (the kernels' RT instantiations), rank tiles are staged one at a time
+// where they are used, and every sum walks them in order, so that it keeps
+// the one k-ascending chain (and bits) whatever dt_rank is.
+constexpr int kRankTile = 128;
+__host__ __device__ constexpr int rank_ld(int R) {
+  return round4(R) < kRankTile ? round4(R) : kRankTile;
+}
+__host__ __device__ constexpr int rank_tiles(int R) {
+  return (round4(R) + kRankTile - 1) / kRankTile;
+}
+__host__ __device__ constexpr int wt_ld(int R) { return rank_ld(R) + 4; }
 
-__device__ void stage_wt(const DtSrc& dl, int ch0, int d, float* wt) {
-  const int lr_ld = round4(dl.R), ld = wt_ld(dl.R);
-  for (int i = threadIdx.x; i < lr_ld * kBwdCh; i += kBwdThreads) {
-    const int k = i / kBwdCh, c = i % kBwdCh, ch = ch0 + c;
-    wt[c * ld + k] = ch < d && k < dl.R ? dl.wdt[static_cast<size_t>(k) * d + ch] : 0.f;
+// W_dt's rows [k0, k0 + rank_ld) of the block's channels, and b_dt.
+__device__ void stage_wt(const DtSrc& dl, int ch0, int d, int k0, float* wt) {
+  const int tw = rank_ld(dl.R), ld = wt_ld(dl.R);
+  for (int i = threadIdx.x; i < tw * kBwdCh; i += kBwdThreads) {
+    const int k = i / kBwdCh, c = i % kBwdCh, ch = ch0 + c, kk = k0 + k;
+    wt[c * ld + k] = ch < d && kk < dl.R ? dl.wdt[static_cast<size_t>(kk) * d + ch] : 0.f;
   }
   for (int c = threadIdx.x; c < kBwdCh; c += kBwdThreads)
     wt[kBwdCh * ld + c] = ch0 + c < d ? dl.bdt[ch0 + c] : 0.f;
 }
 
-// dt_lr rows [0, n) of the sub-chunk starting at row0, zeros past `rows`.
-__device__ void stage_lr_rows(const DtSrc& dl, size_t row0, int rows, int n, float* lrs) {
-  const int lr_ld = round4(dl.R);
-  for (int i = threadIdx.x; i < n * lr_ld; i += kBwdThreads) {
-    const int r = i / lr_ld, k = i - r * lr_ld;
-    lrs[i] = r < rows && k < dl.R ? dl.lr[(row0 + r) * dl.ld_lr + k] : 0.f;
+// Ranks [k0, k0 + rank_ld) of dt_lr rows [0, n) of the sub-chunk starting
+// at row0, zeros past `rows` and R.
+__device__ void stage_lr_rows(const DtSrc& dl, size_t row0, int rows, int n, int k0, float* lrs) {
+  const int tw = rank_ld(dl.R);
+  for (int i = threadIdx.x; i < n * tw; i += kBwdThreads) {
+    const int r = i / tw, k = i - r * tw;
+    lrs[i] = r < rows && k0 + k < dl.R ? dl.lr[(row0 + r) * dl.ld_lr + k0 + k] : 0.f;
   }
 }
 
-// pre - b_dt of one dt_lr row and W_dt's column wc, k ascending four at a
-// time: `dt_pre`'s order and bits. Not unrolled: pass 1 keeps its registers
-// (and so its blocks an SM) for the walk.
-__device__ __forceinline__ float dt_pre_row(const float* lr, const float* wc, int lr_ld) {
-  float acc = 0.f;
-#pragma unroll 1
-  for (int k = 0; k < lr_ld; k += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(lr + k);
-    const float4 w = *reinterpret_cast<const float4*>(wc + k);
-    acc = fmaf(v.x, w.x, acc);
-    acc = fmaf(v.y, w.y, acc);
-    acc = fmaf(v.z, w.z, acc);
-    acc = fmaf(v.w, w.w, acc);
-  }
-  return acc;
-}
-
-// delta = softplus(pre) and sigmoid(pre) of the sub-chunk's rows [0, n) for
-// the tile's channels into dst and sig, [row][channel] (zeros past `rows`
-// and d). A thread takes channel tid % kBwdCh and kRowsAtOnce rows
-// tid / kBwdCh + 4 e at a time, W_dt's column loaded once a four ranks for
-// all of them; each sum in `dt_pre_row`'s order.
+// Pass 3's delta: the rank tile from k0 of pre - b_dt = dt_lr . W_dt for
+// the sub-chunk's rows [0, n) and the tile's channels, [row][channel] in
+// dst, added to the sums the tiles before left there (RT; k ascending four
+// at a time over every tile: `dt_pre`'s order and bits). After the last
+// tile, delta = softplus(pre) goes into dst and sigmoid(pre) into sig
+// (zeros past `rows` and d). A thread takes channel tid % kBwdCh and
+// kRowsAtOnce rows tid / kBwdCh + 4 e at a time, W_dt's column loaded once
+// a four ranks for all of them.
 constexpr int kRowPhases = kBwdThreads / kBwdCh;
 constexpr int kRowsAtOnce = 8;
 
-__device__ void form_delta(const DtSrc& dl, const float* lrs, const float* wt, int ch0, int d,
-                           int rows, int n, float* dst, float* sig) {
-  const int lr_ld = round4(dl.R), c = threadIdx.x % kBwdCh;
+template <bool RT>
+__device__ void form_delta(const DtSrc& dl, const float* lrs, const float* wt, int k0, int ch0,
+                           int d, int rows, int n, float* dst, float* sig) {
+  const int tw = rank_ld(dl.R), kn = RT ? min(tw, round4(dl.R) - k0) : tw;
+  const int c = threadIdx.x % kBwdCh;
+  const bool first = !RT || k0 == 0, last = !RT || k0 + kn == round4(dl.R);
   const float* wc = wt + c * wt_ld(dl.R);
   const float bias = wt[kBwdCh * wt_ld(dl.R) + c];
   for (int j0 = threadIdx.x / kBwdCh; j0 < n; j0 += kRowPhases * kRowsAtOnce) {
     float acc[kRowsAtOnce];
 #pragma unroll
-    for (int e = 0; e < kRowsAtOnce; ++e) acc[e] = 0.f;
-    for (int k = 0; k < lr_ld; k += 4) {
+    for (int e = 0; e < kRowsAtOnce; ++e) {
+      const int r = j0 + kRowPhases * e;
+      acc[e] = first || r >= n ? 0.f : dst[r * kBwdCh + c];
+    }
+    for (int k = 0; k < kn; k += 4) {
       const float4 w = *reinterpret_cast<const float4*>(wc + k);
 #pragma unroll
       for (int e = 0; e < kRowsAtOnce; ++e) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(lrs + (j0 + kRowPhases * e) * lr_ld + k);
+        const float4 v = *reinterpret_cast<const float4*>(lrs + (j0 + kRowPhases * e) * tw + k);
         acc[e] = fmaf(v.x, w.x, acc[e]);
         acc[e] = fmaf(v.y, w.y, acc[e]);
         acc[e] = fmaf(v.z, w.z, acc[e]);
@@ -248,6 +252,10 @@ __device__ void form_delta(const DtSrc& dl, const float* lrs, const float* wt, i
     for (int e = 0; e < kRowsAtOnce; ++e) {
       const int r = j0 + kRowPhases * e;
       if (r >= n) break;
+      if (!last) {
+        dst[r * kBwdCh + c] = acc[e];
+        continue;
+      }
       const bool in = r < rows && ch0 + c < d;
       const float pre = acc[e] + bias;
       dst[r * kBwdCh + c] = in ? softplus(pre) : 0.f;
@@ -256,28 +264,62 @@ __device__ void form_delta(const DtSrc& dl, const float* lrs, const float* wt, i
   }
 }
 
-// A segment's delta (from memory, or in the low-rank form formed from the
-// sub-chunk's dt_lr rows in lrs, one row a thread, which keeps pass 1's
-// registers for its warps) and gate terms gy into st, [value][row][channel].
-template <bool LR, typename T, typename G>
+// pre - b_dt of one dt_lr row and W_dt's column wc over kn ranks, k
+// ascending four at a time from acc: `dt_pre`'s order and bits. Not
+// unrolled: pass 1 keeps its registers (and so its blocks an SM) for the
+// walk.
+__device__ __forceinline__ float dt_pre_row(const float* lr, const float* wc, int kn,
+                                            float acc) {
+#pragma unroll 1
+  for (int k = 0; k < kn; k += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(lr + k);
+    const float4 w = *reinterpret_cast<const float4*>(wc + k);
+    acc = fmaf(v.x, w.x, acc);
+    acc = fmaf(v.y, w.y, acc);
+    acc = fmaf(v.z, w.z, acc);
+    acc = fmaf(v.w, w.w, acc);
+  }
+  return acc;
+}
+
+// A segment's delta (from memory, or in the low-rank form formed from
+// dt_lr's rows in lrs, one row a thread, which keeps pass 1's registers
+// for its warps) and gate terms gy into st, [value][row][channel]. Up to
+// one rank tile lrs holds the sub-chunk's rows, staged by the caller; past
+// it each tile's W_dt columns and the segment's kSeg rows are staged here
+// in turn, the running sums carried in st.
+template <bool LR, bool RT, typename T, typename G>
 __device__ void stage_seg(float* st, int r0, int rows, size_t row0, int ch0, int d,
-                          const DtSrc& dl, const float* lrs, const float* wt,
-                          const T* __restrict__ z, int ld_z, const G* __restrict__ g, int ld_g) {
-  const int lr_ld = round4(dl.R);
-  for (int i = threadIdx.x; i < kStage; i += kBwdThreads) {
-    const int j = i / kBwdCh, c = i % kBwdCh, r = r0 + j, ch = ch0 + c;
-    const bool in = r < rows && ch < d;
-    const size_t row = row0 + r;
-    float dt = 0.f;
-    if (in && LR)
-      dt = softplus(dt_pre_row(lrs + r * lr_ld, wt + c * wt_ld(dl.R), lr_ld) +
-                    wt[kBwdCh * wt_ld(dl.R) + c]);
-    else if (in)
-      dt = dl.delta[row * d + ch];
-    st[i] = dt;
-    const float zz = in ? to_f32(z[row * ld_z + ch]) : 0.f;
-    const float gg = in ? to_f32(g[row * ld_g + ch]) : 0.f;
-    st[kStage + i] = gg * (zz * sigmoid(zz));
+                          const DtSrc& dl, float* lrs, float* wt, const T* __restrict__ z,
+                          int ld_z, const G* __restrict__ g, int ld_g) {
+  const int tw = rank_ld(dl.R), nt = RT ? rank_tiles(dl.R) : 1;
+  const int lr0 = RT ? r0 : 0;  // lrs's first row
+  for (int kt = 0; kt < nt; ++kt) {
+    const int k0 = kt * kRankTile, kn = RT ? min(tw, round4(dl.R) - k0) : tw;
+    if (RT) {
+      __syncthreads();  // the last tile's readers of lrs and wt are done
+      stage_wt(dl, ch0, d, k0, wt);
+      stage_lr_rows(dl, row0 + r0, rows - r0, min(kSeg, rows - r0), k0, lrs);
+      __syncthreads();
+    }
+    for (int i = threadIdx.x; i < kStage; i += kBwdThreads) {
+      const int j = i / kBwdCh, c = i % kBwdCh, r = r0 + j, ch = ch0 + c;
+      const bool in = r < rows && ch < d;
+      const size_t row = row0 + r;
+      float dt = 0.f;
+      if (in && LR) {
+        const float acc = dt_pre_row(lrs + (r - lr0) * tw, wt + c * wt_ld(dl.R), kn,
+                                     RT && kt > 0 ? st[i] : 0.f);
+        dt = kt == nt - 1 ? softplus(acc + wt[kBwdCh * wt_ld(dl.R) + c]) : acc;
+      } else if (in) {
+        dt = dl.delta[row * d + ch];
+      }
+      st[i] = dt;
+      if (kt < nt - 1) continue;
+      const float zz = in ? to_f32(z[row * ld_z + ch]) : 0.f;
+      const float gg = in ? to_f32(g[row * ld_g + ch]) : 0.f;
+      st[kStage + i] = gg * (zz * sigmoid(zz));
+    }
   }
 }
 
@@ -285,28 +327,27 @@ __device__ void stage_seg(float* st, int r0, int rows, size_t row0, int ch0, int
 // sub-chunk's end, a group of 16 states at a time (Grp: d_state > 16), the
 // group's C columns staged before it. P and E (the carry handed left) are
 // (Bt, n_chunks x n_subs, N, d); a sub-chunk past L has P = 1, E = 0.
-template <typename T, typename G, bool Grp, bool LR>
+template <typename T, typename G, bool Grp, bool LR, bool RT>
 __global__ void __launch_bounds__(kBwdThreads)
     scan_bwd_chunk_kernel(DtSrc dl, const T* __restrict__ Cc, int ld_bc,
                           const T* __restrict__ z, int ld_z, const G* __restrict__ g, int ld_g,
                           const float* __restrict__ A, float* __restrict__ P,
                           float* __restrict__ E, int L, int d, int N, int chunk) {
   extern __shared__ __align__(16) float sm1[];
-  const int lr_ld = round4(dl.R);
   const int sc = sub_rows(chunk), ns = n_subs(chunk);
   float* Cs = sm1;                         // sc x kMaxN: the group's C columns
   float* st = Cs + sc * kMaxN;             // 2 x kStage: a segment's delta and gy
-  float* lrs = st + 2 * kStage;            // sc x lr_ld (low-rank form)
-  float* wt = lrs + sc * lr_ld;            // kBwdCh x (wt_ld + 1) (low-rank form)
+  float* lrs = st + 2 * kStage;            // sc x rank_ld (low-rank form)
+  float* wt = lrs + sc * rank_ld(dl.R);    // kBwdCh x (wt_ld + 1) (low-rank form)
   const int b = blockIdx.z, y = blockIdx.y, c = y / ns, k = y - c * ns;
   const int q = threadIdx.x & 3, chl = threadIdx.x >> 2;
   const int ch0 = blockIdx.x * kBwdCh, ch = ch0 + chl;
   const bool live = ch < d;
   const int t0 = c * chunk + k * sc, rows = min(min(sc, chunk - k * sc), L - t0);
   const size_t row0 = static_cast<size_t>(b) * L + t0;
-  if (LR) {
-    stage_wt(dl, ch0, d, wt);
-    stage_lr_rows(dl, row0, rows, sc, lrs);
+  if (LR && !RT) {
+    stage_wt(dl, ch0, d, 0, wt);
+    stage_lr_rows(dl, row0, rows, sc, 0, lrs);
   }
   const size_t o = (static_cast<size_t>(b) * gridDim.y + y) * N * d + ch;
   const int n_end = Grp ? N : 1;
@@ -320,7 +361,8 @@ __global__ void __launch_bounds__(kBwdThreads)
     for (int i = 0; i < kQ; ++i) dh[i] = 0.f, p[i] = 1.f, aup[i] = 1.f;
     for (int s = (rows - 1) / kSeg; s >= 0; --s) {
       __syncthreads();
-      stage_seg<LR, T, G>(st, s * kSeg, rows, row0, ch0, d, dl, lrs, wt, z, ld_z, g, ld_g);
+      stage_seg<LR, RT, T, G>(st, s * kSeg, rows, row0, ch0, d, dl, lrs, wt, z, ld_z, g,
+                              ld_g);
       __syncthreads();
       for (int j = min(kSeg, rows - s * kSeg) - 1; j >= 0; --j) {
         const int r = s * kSeg + j, k = j * kBwdCh + chl;
@@ -403,8 +445,8 @@ __device__ __forceinline__ float quad_sums4(const float (&v)[4], int q) {
 
 // The sub-chunk's row values for the tile's kBwdCh channels from ch0,
 // [value][row][channel] for rows [0, sp) (zeros past `rows` and past d):
-// delta (from memory, or in the low-rank form formed as the forward forms
-// it from lrs and wt, `form_delta`), u, and from z and g
+// delta (from memory; the low-rank form forms it after, `form_delta`), u,
+// and from z and g
 // the gate's terms gy = g silu(z), g silu'(z) and silu(z), each once per
 // (row, channel). The low-rank form keeps sigmoid(pre) in place of
 // silu(z): K17 writes no gated output, and dt_proj's adjoint needs dpre =
@@ -414,8 +456,8 @@ constexpr int kStageBatch = 8;
 
 template <bool LR, typename T, typename G>
 __device__ void stage_sub_rows(float* st, int sp, int rows, size_t row0, int ch0, int d,
-                               const DtSrc& dl, const float* lrs, const float* wt,
-                               const T* __restrict__ u, int ld_u, const T* __restrict__ z,
+                               const DtSrc& dl, const T* __restrict__ u, int ld_u,
+                               const T* __restrict__ z,
                                int ld_z, const G* __restrict__ g, int ld_g) {
   const int n = sp * kBwdCh;
   for (int i0 = 0; i0 < n; i0 += kStageBatch * kBwdThreads) {
@@ -446,7 +488,6 @@ __device__ void stage_sub_rows(float* st, int sp, int rows, size_t row0, int ch0
       if (!LR) st[4 * n + i] = sg;
     }
   }
-  if (LR) form_delta(dl, lrs, wt, ch0, d, rows, sp, st, st + 4 * n);
 }
 
 // Pass 3: each (b, chunk, channel tile), its sub-chunks left to right, with
@@ -480,6 +521,11 @@ __device__ void stage_sub_rows(float* st, int sp, int rows, size_t row0, int ch0
 // shared memory (dsm), and C.h in shared memory (ysm); the gated terms are
 // written after the last group.
 //
+// The low-rank form stages W_dt's columns once a block and the sub-chunk's
+// dt_lr rows once a sub-chunk up to one rank tile; past it each use (the
+// delta of each group's staging, and the epilogue) stages the tiles in
+// turn.
+//
 // The low-rank form (LR, K17) writes no ddelta. After a sub-chunk's last
 // group its flush forms dpre = ddelta sigmoid(pre) (zero past `rows` and
 // d) in the staged slots, and the block forms dt_proj's adjoint there, as
@@ -490,8 +536,9 @@ __device__ void stage_sub_rows(float* st, int sp, int rows, size_t row0, int ch0
 // channel tile) and warps 4-7 dW_dt[k, c] = dt_lr^T dpre and db_dt[c] over
 // the sub-chunk's rows in row order, carried across the chunk's sub-chunks
 // through their own slots of the (b, chunk) partials; a thread takes two
-// rows or channels and four ranks at a time, for any dt_rank.
-template <typename T, typename G, typename ZT, bool Grp, bool LR>
+// rows or channels and four ranks at a time, rank tile by rank tile (each
+// output is one rank's: no sum crosses a tile).
+template <typename T, typename G, typename ZT, bool Grp, bool LR, bool RT>
 __global__ void __launch_bounds__(kBwdThreads, 2)
     scan_bwd_out_kernel(const T* __restrict__ u, int ld_u, DtSrc dl,
                         const T* __restrict__ Bc, const T* __restrict__ Cc, int ld_bc,
@@ -506,7 +553,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
   extern __shared__ __align__(16) float sm[];
   // The staged rows: the sub-chunk's sc rows, zeros on to whole segments.
   const int sc = sub_rows(chunk), ns = n_subs(chunk), sp = p3_rows(chunk);
-  const int n_seg = sp / kP3Rows, lr_ld = round4(dl.R);
+  const int n_seg = sp / kP3Rows;
   float* Bs = sm;                                                  // sp x kMaxN
   float* Cs = Bs + sp * kMaxN;                                     // sp x kMaxN
   float* st = Cs + sp * kMaxN;                                     // kRowVals x sp x kBwdCh
@@ -514,22 +561,31 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
   float* ysm = reinterpret_cast<float*>(sum + n_seg * 3 * 32);     // sp x kBwdCh, Grp
   float* dsm = ysm + (Grp ? sp * kBwdCh : 0);                      // sp x kBwdCh, Grp and LR
   float* wt = dsm + (Grp && LR ? sp * kBwdCh : 0);                 // kBwdCh x (wt_ld + 1), LR
-  float* lrs = wt + (LR ? kBwdCh * (wt_ld(dl.R) + 1) : 0);         // kSubRows x lr_ld, LR
+  float* lrs = wt + (LR ? kBwdCh * (wt_ld(dl.R) + 1) : 0);         // kSubRows x rank_ld, LR
   const int b = blockIdx.z, c = blockIdx.y, nc = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, q = lane & 3, c8 = lane >> 2;
   const int ch0 = blockIdx.x * kBwdCh, r0 = w * kP3Rows;
   const bool has_seg = w < n_seg;  // uniform over the warp
   const int sv = sp * kBwdCh;      // one staged value's floats
-  if (LR) stage_wt(dl, ch0, d, wt);
+  if (LR && !RT) stage_wt(dl, ch0, d, 0, wt);
 
   for (int k = 0; k < ns; ++k) {
     const int t0 = c * chunk + k * sc, rows = min(min(sc, chunk - k * sc), L - t0);
     const size_t row0 = static_cast<size_t>(b) * L + t0;
     const size_t slice = (static_cast<size_t>(b) * nc + c) * ns + k;
-    if (LR) {
+    if (LR && !RT) {
       __syncthreads();  // the last sub-chunk's readers of lrs are done
-      stage_lr_rows(dl, row0, rows, kSubRows, lrs);
+      stage_lr_rows(dl, row0, rows, kSubRows, 0, lrs);
     }
+    // Past one rank tile: tile kt of W_dt's columns and the sub-chunk's
+    // dt_lr rows (uniform over the block).
+    auto stage_tile = [&](int kt) {
+      if (!RT) return;
+      __syncthreads();  // the readers of the last tile are done
+      stage_wt(dl, ch0, d, kt * kRankTile, wt);
+      stage_lr_rows(dl, row0, rows, kSubRows, kt * kRankTile, lrs);
+      __syncthreads();
+    };
 
     const int n_end = Grp ? N : 1;
     for (int n0 = 0; n0 < n_end; n0 += kMaxN) {
@@ -562,8 +618,13 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
           __syncthreads();  // the last group's readers of Bs, Cs, st and sum are done
           stage_rows(Bc, ld_bc, row0, rows, sp, N, n0, Bs);
           stage_rows(Cc, ld_bc, row0, rows, sp, N, n0, Cs);
-          stage_sub_rows<LR, T, G>(st, sp, rows, row0, ch0, d, dl, lrs, wt, u, ld_u, z, ld_z,
-                                   g, ld_g);
+          stage_sub_rows<LR, T, G>(st, sp, rows, row0, ch0, d, dl, u, ld_u, z, ld_z, g, ld_g);
+          if constexpr (LR) {
+            for (int kt = 0; kt < (RT ? rank_tiles(dl.R) : 1); ++kt) {
+              stage_tile(kt);
+              form_delta<RT>(dl, lrs, wt, kt * kRankTile, ch0, d, rows, sp, st, st + 4 * sv);
+            }
+          }
         }
         __syncthreads();  // the staging, and the last round's readers of sum
         const int cs = ct;  // the channel's column in st
@@ -752,58 +813,63 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
       // Warps 0-3 take ddt_lr, thread (p, kq) rows p and p + 32; warps 4-7
       // dW_dt and db_dt, thread (p, kq) channels p and p + 32; kq takes
       // ranks 4 kq .. 4 kq + 3, then 16 on.
-      const int dld = sp | 1, wld = wt_ld(dl.R);
+      const int dld = sp | 1, wld = wt_ld(dl.R), tw = rank_ld(dl.R);
       float* dT = st + sv;
       __syncthreads();  // dpre formed, every staged slot read
       for (int i = tid; i < sv; i += kBwdThreads) dT[(i % kBwdCh) * dld + i / kBwdCh] = st[i];
       __syncthreads();
       const int p = lane, kq = w & 3;
       const size_t bc = static_cast<size_t>(b) * nc + c;   // the (b, chunk) slice
-      for (int k4 = 4 * kq; k4 < lr_ld; k4 += 16) {
-        float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
-        if (w < 4) {
-          // ddt_lr: over the tile's channels in order.
-          for (int cc = 0; cc < kBwdCh; ++cc) {
-            const float4 wv = *reinterpret_cast<const float4*>(wt + cc * wld + k4);
-            const float x0 = dT[cc * dld + p], x1 = dT[cc * dld + p + 32];
-            s0[0] = fmaf(x0, wv.x, s0[0]), s1[0] = fmaf(x1, wv.x, s1[0]);
-            s0[1] = fmaf(x0, wv.y, s0[1]), s1[1] = fmaf(x1, wv.y, s1[1]);
-            s0[2] = fmaf(x0, wv.z, s0[2]), s1[2] = fmaf(x1, wv.z, s1[2]);
-            s0[3] = fmaf(x0, wv.w, s0[3]), s1[3] = fmaf(x1, wv.w, s1[3]);
-          }
+      for (int kt = 0; kt < (RT ? rank_tiles(dl.R) : 1); ++kt) {
+        stage_tile(kt);
+        const int k0 = kt * kRankTile, kn = RT ? min(tw, round4(dl.R) - k0) : tw;
+        for (int k4 = 4 * kq; k4 < kn; k4 += 16) {
+          const int kr = k0 + k4;  // the four ranks' first
+          float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+          if (w < 4) {
+            // ddt_lr: over the tile's channels in order.
+            for (int cc = 0; cc < kBwdCh; ++cc) {
+              const float4 wv = *reinterpret_cast<const float4*>(wt + cc * wld + k4);
+              const float x0 = dT[cc * dld + p], x1 = dT[cc * dld + p + 32];
+              s0[0] = fmaf(x0, wv.x, s0[0]), s1[0] = fmaf(x1, wv.x, s1[0]);
+              s0[1] = fmaf(x0, wv.y, s0[1]), s1[1] = fmaf(x1, wv.y, s1[1]);
+              s0[2] = fmaf(x0, wv.z, s0[2]), s1[2] = fmaf(x1, wv.z, s1[2]);
+              s0[3] = fmaf(x0, wv.w, s0[3]), s1[3] = fmaf(x1, wv.w, s1[3]);
+            }
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = p + 32 * h;
-            if (r >= rows) continue;
-            float* o = dg.dlr + (static_cast<size_t>(blockIdx.x) * Bt * L + row0 + r) * dl.R;
+            for (int h = 0; h < 2; ++h) {
+              const int r = p + 32 * h;
+              if (r >= rows) continue;
+              float* o = dg.dlr + (static_cast<size_t>(blockIdx.x) * Bt * L + row0 + r) * dl.R;
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (k4 + e < dl.R) o[k4 + e] = h ? s1[e] : s0[e];
-          }
-        } else {
-          // dW_dt: over the rows in order, carried from the chunk's earlier
-          // sub-chunks through the thread's own slots.
-          float* w0 = dg.dw + (bc * dl.R + k4) * d + ch0 + p;
-          const bool in0 = ch0 + p < d, in1 = ch0 + p + 32 < d;
+              for (int e = 0; e < 4; ++e)
+                if (kr + e < dl.R) o[kr + e] = h ? s1[e] : s0[e];
+            }
+          } else {
+            // dW_dt: over the rows in order, carried from the chunk's earlier
+            // sub-chunks through the thread's own slots.
+            float* w0 = dg.dw + (bc * dl.R + kr) * d + ch0 + p;
+            const bool in0 = ch0 + p < d, in1 = ch0 + p + 32 < d;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool ke = k > 0 && k4 + e < dl.R;
-            s0[e] = ke && in0 ? w0[static_cast<size_t>(e) * d] : 0.f;
-            s1[e] = ke && in1 ? w0[static_cast<size_t>(e) * d + 32] : 0.f;
-          }
-          for (int r = 0; r < rows; ++r) {
-            const float4 v = *reinterpret_cast<const float4*>(lrs + r * lr_ld + k4);
-            const float x0 = dT[p * dld + r], x1 = dT[(p + 32) * dld + r];
-            s0[0] = fmaf(v.x, x0, s0[0]), s1[0] = fmaf(v.x, x1, s1[0]);
-            s0[1] = fmaf(v.y, x0, s0[1]), s1[1] = fmaf(v.y, x1, s1[1]);
-            s0[2] = fmaf(v.z, x0, s0[2]), s1[2] = fmaf(v.z, x1, s1[2]);
-            s0[3] = fmaf(v.w, x0, s0[3]), s1[3] = fmaf(v.w, x1, s1[3]);
-          }
+            for (int e = 0; e < 4; ++e) {
+              const bool ke = k > 0 && kr + e < dl.R;
+              s0[e] = ke && in0 ? w0[static_cast<size_t>(e) * d] : 0.f;
+              s1[e] = ke && in1 ? w0[static_cast<size_t>(e) * d + 32] : 0.f;
+            }
+            for (int r = 0; r < rows; ++r) {
+              const float4 v = *reinterpret_cast<const float4*>(lrs + r * tw + k4);
+              const float x0 = dT[p * dld + r], x1 = dT[(p + 32) * dld + r];
+              s0[0] = fmaf(v.x, x0, s0[0]), s1[0] = fmaf(v.x, x1, s1[0]);
+              s0[1] = fmaf(v.y, x0, s0[1]), s1[1] = fmaf(v.y, x1, s1[1]);
+              s0[2] = fmaf(v.z, x0, s0[2]), s1[2] = fmaf(v.z, x1, s1[2]);
+              s0[3] = fmaf(v.w, x0, s0[3]), s1[3] = fmaf(v.w, x1, s1[3]);
+            }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (k4 + e >= dl.R) continue;
-            if (in0) w0[static_cast<size_t>(e) * d] = s0[e];
-            if (in1) w0[static_cast<size_t>(e) * d + 32] = s1[e];
+            for (int e = 0; e < 4; ++e) {
+              if (kr + e >= dl.R) continue;
+              if (in0) w0[static_cast<size_t>(e) * d] = s0[e];
+              if (in1) w0[static_cast<size_t>(e) * d + 32] = s1[e];
+            }
           }
         }
       }
@@ -1314,27 +1380,28 @@ ScanBwdWs carve_scan(Carve& cv, int Bt, int L, int d, int N, int chunk, size_t p
 // Shared memory of the adjoint's passes 1 and 3 (R = 0: delta from
 // memory); the wrappers' `ssm_scan_takes` and `ssm_scan_dtlr_takes` hold
 // the same sums. Pass 1: a sub-chunk's C columns of one group and a staged
-// 16-row segment's delta and gy, and in the low-rank form the sub-chunk's
-// dt_lr rows and W_dt's columns.
+// 16-row segment's delta and gy, and in the low-rank form one rank tile of
+// the sub-chunk's dt_lr rows and W_dt's columns.
 size_t scan_bwd_smem1(int chunk, int R) {
   const int sc = sub_rows(chunk);
   return sizeof(float) * (static_cast<size_t>(sc) * kMaxN + 2 * kStage +
-                          (R > 0 ? sc * round4(R) + kBwdCh * (wt_ld(R) + 1) : 0));
+                          (R > 0 ? sc * rank_ld(R) + kBwdCh * (wt_ld(R) + 1) : 0));
 }
 
 // Pass 3: a sub-chunk's B and C columns of one group and its row values for
 // the tile's channels, the segments' summaries (three float4 a lane), past
 // 16 states each row's running C.h (and, low-rank, ddelta), and in the
-// low-rank form W_dt's columns and the sub-chunk's dt_lr rows (kSubRows).
+// low-rank form one rank tile of W_dt's columns and of the sub-chunk's
+// dt_lr rows (kSubRows).
 size_t scan_bwd_smem3(int chunk, int N, int R) {
-  const int sp = p3_rows(chunk), n_seg = sp / kP3Rows, lr_ld = round4(R);
+  const int sp = p3_rows(chunk), n_seg = sp / kP3Rows, lr_ld = rank_ld(R);
   const size_t rows = static_cast<size_t>(sp) * kBwdCh, grp = N > kMaxN ? rows : 0;
   return sizeof(float) * (2 * static_cast<size_t>(sp) * kMaxN + kRowVals * rows +
                           n_seg * 3 * 32 * 4 + grp +
                           (R > 0 ? grp + kBwdCh * (wt_ld(R) + 1) + kSubRows * lr_ld : 0));
 }
 
-template <typename T, typename G, typename ZT, bool Grp, bool LR>
+template <typename T, typename G, typename ZT, bool Grp, bool LR, bool RT>
 cudaError_t scan_bwd_k(const T* u, int ld_u, const DtSrc& dl, const T* Bc, const T* Cc,
                        int ld_bc, const T* z, int ld_z, const G* g, int ld_g, const float* A,
                        const float* D, const float* h0s, const ScanBwdWs& w, float* ddt,
@@ -1343,15 +1410,17 @@ cudaError_t scan_bwd_k(const T* u, int ld_u, const DtSrc& dl, const T* Bc, const
   const int nc = (L + chunk - 1) / chunk, R = LR ? dl.R : 0;
   const size_t smem1 = scan_bwd_smem1(chunk, R), smem3 = scan_bwd_smem3(chunk, N, R);
   cudaError_t err;
-  DDG_TRY(allow_smem(reinterpret_cast<const void*>(scan_bwd_chunk_kernel<T, G, Grp, LR>), smem1));
-  DDG_TRY(allow_smem(reinterpret_cast<const void*>(scan_bwd_out_kernel<T, G, ZT, Grp, LR>), smem3));
+  DDG_TRY(allow_smem(reinterpret_cast<const void*>(scan_bwd_chunk_kernel<T, G, Grp, LR, RT>),
+                     smem1));
+  DDG_TRY(allow_smem(
+      reinterpret_cast<const void*>(scan_bwd_out_kernel<T, G, ZT, Grp, LR, RT>), smem3));
   const int n_sub = static_cast<int>(scan_subs(L, chunk));
-  scan_bwd_chunk_kernel<T, G, Grp, LR><<<dim3(scan_tiles(d), n_sub, Bt), kBwdThreads, smem1, s>>>(
+  scan_bwd_chunk_kernel<T, G, Grp, LR, RT><<<dim3(scan_tiles(d), n_sub, Bt), kBwdThreads, smem1, s>>>(
       dl, Cc, ld_bc, z, ld_z, g, ld_g, A, w.P, w.E, L, d, N, chunk);
   DDG_TRY(cudaGetLastError());
   scan_bwd_carry_kernel<<<dim3((N * d + 255) / 256, Bt), 256, 0, s>>>(w.P, w.E, n_sub, N * d);
   DDG_TRY(cudaGetLastError());
-  scan_bwd_out_kernel<T, G, ZT, Grp, LR><<<dim3(scan_tiles(d), nc, Bt), kBwdThreads, smem3, s>>>(
+  scan_bwd_out_kernel<T, G, ZT, Grp, LR, RT><<<dim3(scan_tiles(d), nc, Bt), kBwdThreads, smem3, s>>>(
       u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, ld_g, A, D, h0s, w.E, w.hx, ddt, du, dz, ld_dz, yg,
       w.dBp, w.dCp, w.dAp, w.dDp, dg, Bt, L, d, N, chunk);
   return cudaGetLastError();
@@ -1366,12 +1435,14 @@ cudaError_t scan_bwd(const T* u, int ld_u, const DtSrc& dl, const T* Bc, const T
                      cudaStream_t s) {
   if (N <= 0 || chunk <= 0 || d <= 0 || L <= 0) return cudaErrorInvalidValue;
   if (dl.delta == nullptr && (dl.R <= 0 || L % chunk)) return cudaErrorInvalidValue;
-#define DDG_SCAN_BWD(G2, L2)                                                                   \
-  scan_bwd_k<T, G, ZT, G2, L2>(u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, ld_g, A, D, h0s, w, ddt, \
-                               du, dz, ld_dz, yg, dg, Bt, L, d, N, chunk, s)
+#define DDG_SCAN_BWD(G2, L2, RT2)                                                           \
+  scan_bwd_k<T, G, ZT, G2, L2, RT2>(u, ld_u, dl, Bc, Cc, ld_bc, z, ld_z, g, ld_g, A, D, h0s, w, \
+                                    ddt, du, dz, ld_dz, yg, dg, Bt, L, d, N, chunk, s)
+  if (dl.delta == nullptr && rank_tiles(dl.R) > 1)
+    return N > kMaxN ? DDG_SCAN_BWD(true, true, true) : DDG_SCAN_BWD(false, true, true);
   if (dl.delta == nullptr)
-    return N > kMaxN ? DDG_SCAN_BWD(true, true) : DDG_SCAN_BWD(false, true);
-  return N > kMaxN ? DDG_SCAN_BWD(true, false) : DDG_SCAN_BWD(false, false);
+    return N > kMaxN ? DDG_SCAN_BWD(true, true, false) : DDG_SCAN_BWD(false, true, false);
+  return N > kMaxN ? DDG_SCAN_BWD(true, false, false) : DDG_SCAN_BWD(false, false, false);
 #undef DDG_SCAN_BWD
 }
 

@@ -196,9 +196,8 @@ def resolve_route(cfg: DiMambaConfig, L: int, on_card: bool) -> str:
             d, N, R, chunk):
         raise ValueError(
             f'DiMamba: the dt-lowrank scan K16/K17 does not take {shape} on '
-            'the card (a dt_rank whose blocks fit in shared memory, up to '
-            '248 at d_state <= 16 and 184 past it: ssm_scan_dtlr_takes); '
-            'set dt_inkernel=False')
+            'the card (it takes every d_state, chunk and dt_rank >= 1: '
+            'ssm_scan_dtlr_takes); set dt_inkernel=False')
     if route == 'scan_kernel' and not mamba_ops.ssm_scan_takes(d, N, chunk):
         raise ValueError(
             f'DiMamba: the scan kernel K14/K15 does not take {shape} on the '

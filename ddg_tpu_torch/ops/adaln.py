@@ -10,8 +10,9 @@ do, the backward recomputes the LN statistics from the saved x (the
 rounded x' for the residual form) and returns the row grads in the row
 dtype, dw in fp32 and the conditioning grads in their own dtype. On CUDA
 tensors each forward is one launch of `csrc/adaln.cu` and each backward
-one launch of its backward kernel there; on CPU tensors the plain
-versions below run instead.
+one call of its backward there (three launches: the rows, the
+conditioning sums, dw; `bwd_plan` mirrors their grid); on CPU tensors the
+plain versions below run instead.
 """
 
 from __future__ import annotations
@@ -216,44 +217,80 @@ def _gate_res_ln_modulate_fwd(y, skip, gate, w, shift, scale):
 gate_res_ln_modulate.launches = 0
 
 
-_BWD_ROWS = 16          # rows per block of the backward kernels
+# The backward's launch (csrc/adaln.cu, `bwd_plan`): blocks of 64 rows of
+# one batch row; a row to a team of warps, a lane holding up to 4 16-byte
+# vectors of each row stream; 8 warps a block; the conditioning sums in
+# groups of 8 batch rows.
+_BWD_ROWS = 64
+_BWD_WARPS = 8
+_LANE_VECS = 4
+_COND_GROUP = 8
 
 
-def _bwd_args(x, w, dh, *conds):
+def bwd_plan(B: int, L: int, D: int, esize: int, residual: bool) -> dict:
+    """The backward kernels' launch for (B, L, D) rows of `esize`-byte
+    elements (csrc `ddg_adaln_bwd_plan`; `chip_smoke.py` holds the two
+    equal): a block per (b, tile of `rows` rows); a row to a team of
+    `warps_per_row` warps, lane t of it holding 16-byte vectors t, t + 32
+    warps_per_row, ... (`vectors_per_lane` of each stream); `teams` teams a
+    block of `threads` threads with `smem` bytes of dynamic shared memory
+    (w (1 + scale), gate for the residual form, a slice of per-column
+    partials a team, P = 2 or 3 of them, and the teams' exchange slots past
+    one warp); `groups` conditioning blocks of batch rows; an fp32
+    workspace of `workspace` floats: the blocks' partials (P, B, tiles, D)
+    and the groups' partial dw (groups, D)."""
+    N = 16 // esize
+    nvec = D // N
+    warps = -(-nvec // (32 * _LANE_VECS))
+    vecs = -(-nvec // (32 * warps))
+    teams = _BWD_WARPS // warps
+    S = vecs * N * 32 * warps
+    P = 3 if residual else 2
+    tiles, groups = -(-L // _BWD_ROWS), -(-B // _COND_GROUP)
+    return dict(rows=_BWD_ROWS, tiles=tiles, groups=groups,
+                warps_per_row=warps, vectors_per_lane=vecs, teams=teams,
+                threads=teams * warps * 32,
+                smem=4 * (S * ((2 if residual else 1) + P * teams)
+                          + (teams * 4 * warps if warps > 1 else 0)),
+                workspace=(P * B * tiles + groups) * D)
+
+
+def _bwd_args(x, w, dh, residual, *conds):
     """Checks shared by the backward kernels; returns (dh, conds,
-    cond_stride, tiles, fp32 workspace) for the launch."""
+    cond_stride, plan, fp32 workspace) for the launch."""
     B, L, D = x.shape
     dh = dh.to(x.dtype).contiguous()
     _check(x, w, dh)
     conds, cs = _conds(x, *conds)
     _build.require_cuda(x, *conds, contiguous=False)
-    if D // (16 // x.element_size()) > 1024:
+    if D // (16 // x.element_size()) > _BWD_WARPS * 32 * _LANE_VECS:
         raise ValueError('the adaLN backward kernels take rows of at most '
                          '1024 16-byte vectors')
-    tiles = -(-L // _BWD_ROWS)
-    ws = torch.empty((3, B, tiles, D), dtype=torch.float32, device=x.device)
-    return dh, conds, cs, tiles, ws
+    plan = bwd_plan(B, L, D, x.element_size(), residual)
+    ws = torch.empty((plan['workspace'],), dtype=torch.float32,
+                     device=x.device)
+    return dh, conds, cs, plan, ws
 
 
 def ln_modulate_bwd(x, w, scale, dh):
     """Backward of `ln_modulate` for the output gradient dh: (dx, dw,
     dshift, dscale), dx in x's dtype, dw float32, dshift/dscale (B, D)
-    contiguous in scale's dtype. On CUDA tensors one kernel launch (two
-    passes, deterministic)."""
+    contiguous in scale's dtype. On CUDA tensors the kernel's three
+    launches (deterministic: `bwd_plan`)."""
     if x.device.type == 'cpu':
         return ln_modulate_bwd_plain(x, w, scale, dh)
     B, L, D = x.shape
-    dh, (scale,), cs, tiles, ws = _bwd_args(x, w, dh, scale)
+    dh, (scale,), cs, plan, ws = _bwd_args(x, w, dh, False, scale)
     dx = torch.empty_like(x)
     dw = torch.empty((D,), dtype=torch.float32, device=x.device)
     dshift, dscale = (torch.empty((B, D), dtype=x.dtype, device=x.device)
                       for _ in range(2))
     fn = _build.kernel('adaln', 'ddg_ln_modulate_bwd',
-                       (_build.ptr,) * 9 + (_build.i32,) * 6 + (_build.ptr,))
+                       (_build.ptr,) * 9 + (_build.i32,) * 7 + (_build.ptr,))
     rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), dh.data_ptr(),
             dx.data_ptr(), dw.data_ptr(), dshift.data_ptr(),
-            dscale.data_ptr(), ws.data_ptr(), B, L, D, cs, tiles,
-            _DTYPES[x.dtype], _build.stream(x))
+            dscale.data_ptr(), ws.data_ptr(), B, L, D, cs, plan['tiles'],
+            plan['groups'], _DTYPES[x.dtype], _build.stream(x))
     ln_modulate_bwd.launches += 1
     _build.check(rc, 'ddg_ln_modulate_bwd')
     return dx, dw, dshift, dscale
@@ -266,13 +303,14 @@ def gate_res_ln_modulate_bwd(x_new, y, gate, w, scale, dx, dh):
     """Backward of `gate_res_ln_modulate` for the output gradients (dx,
     dh) of (x', h), from the saved x': (dy, dskip, dgate, dw, dshift,
     dscale), row grads in y's dtype, dw float32, the (B, D) conditioning
-    grads contiguous in gate's dtype. On CUDA tensors one kernel launch
-    (two passes, deterministic)."""
+    grads contiguous in gate's dtype. On CUDA tensors the kernel's three
+    launches (deterministic: `bwd_plan`)."""
     if x_new.device.type == 'cpu':
         return gate_res_ln_modulate_bwd_plain(x_new, y, gate, w, scale, dx,
                                               dh)
     B, L, D = x_new.shape
-    dh, (gate, scale), cs, tiles, ws = _bwd_args(x_new, w, dh, gate, scale)
+    dh, (gate, scale), cs, plan, ws = _bwd_args(x_new, w, dh, True, gate,
+                                                scale)
     dx = dx.to(x_new.dtype).contiguous()
     _check(x_new, w, y, dx)
     if y.dtype != x_new.dtype or y.shape != x_new.shape:
@@ -283,13 +321,14 @@ def gate_res_ln_modulate_bwd(x_new, y, gate, w, scale, dx, dh):
                                          device=x_new.device)
                              for _ in range(3))
     fn = _build.kernel('adaln', 'ddg_gate_res_ln_modulate_bwd',
-                       (_build.ptr,) * 14 + (_build.i32,) * 6
+                       (_build.ptr,) * 14 + (_build.i32,) * 7
                        + (_build.ptr,))
     rc = fn(x_new.data_ptr(), y.data_ptr(), gate.data_ptr(), w.data_ptr(),
             scale.data_ptr(), dx.data_ptr(), dh.data_ptr(), dy.data_ptr(),
             dskip.data_ptr(), dgate.data_ptr(), dw.data_ptr(),
             dshift.data_ptr(), dscale.data_ptr(), ws.data_ptr(), B, L, D, cs,
-            tiles, _DTYPES[x_new.dtype], _build.stream(x_new))
+            plan['tiles'], plan['groups'], _DTYPES[x_new.dtype],
+            _build.stream(x_new))
     gate_res_ln_modulate_bwd.launches += 1
     _build.check(rc, 'ddg_gate_res_ln_modulate_bwd')
     return dy, dskip, dgate, dw, dshift, dscale

@@ -39,9 +39,9 @@ wrapper's `launches`; on CPU tensors the plain versions below run
 instead. What the card takes is
 stated by `mamba_inner_takes`, `ssm_scan_takes` and
 `ssm_scan_dtlr_takes`, each naming the kernel that sets each limit: any
-chunk, d_state and d_inner; on the dt-lowrank scans a dt_rank up to 184
-(248 at d_state <= 16: K17's pass 3 holds dt_proj's adjoint in shared
-memory); on the fused block any dt_rank, d_conv <= 8, and d_inner and
+chunk, d_state and d_inner; any dt_rank on the dt-lowrank scans (K16's
+delta kernel and K17's passes 1 and 3 stage W_dt and dt_lr in rank
+tiles); on the fused block any dt_rank, d_conv <= 8, and d_inner and
 hidden on the products' rows.
 
 With gradients recorded, `ssm_scan`, `ssm_scan_dtlr` and `mamba_inner` run
@@ -84,6 +84,8 @@ _SCAN_FWD_SMEM = (2 * _SCAN_ROWS * (2 * _SCAN_CH * 4 + _SCAN_CH * 4
                                     + 2 * _GROUP * 4)
                   + _SCAN_ROWS * (8 * _SCAN_CH + 16 * _SCAN_LANES))
 _FRONT_ROWS, _FRONT_K, _XCOLS = 64, 64, 64   # the front's tile and k step
+_DELTA_RANK = 360               # ranks of K16's delta kernel's rank tile
+_RANK_TILE = 128                # ranks of K17's rank tile (passes 1 and 3)
 
 
 def _round4(R: int) -> int:
@@ -93,13 +95,15 @@ def _round4(R: int) -> int:
 def _scan_bwd_smem(chunk: int, N: int, R: int) -> tuple[int, int]:
     """(pass 1, pass 3) bytes of the adjoint (csrc `scan_bwd_smem1/3`),
     which run on sub-chunks of at most 64 rows: pass 1's C columns and
-    staged 16-row segment (and dt_lr rows and W_dt's columns); pass 3's, on
-    the sub-chunk's rows rounded up to whole 8-row segments: B and C
+    staged 16-row segment (and, low-rank, one rank tile of the sub-chunk's
+    dt_lr rows and W_dt's columns); pass 3's,
+    on the sub-chunk's rows rounded up to whole 8-row segments: B and C
     columns, five values a row for the tile's 64 channels, three float4
     summaries a lane for each segment, past 16 states each row's C.h (and,
-    low-rank, ddelta) for the 64 channels, and in the low-rank form W_dt's
-    columns and the sub-chunk's dt_lr rows."""
-    lr = _round4(R) if R else 0
+    low-rank, ddelta) for the 64 channels, and in the low-rank form one
+    rank tile of W_dt's columns and the sub-chunk's dt_lr rows. A rank
+    tile holds min(round4(R), 128) ranks, so no block grows past it."""
+    lr = min(_round4(R), _RANK_TILE) if R else 0
     grp = N > _GROUP
     sc = min(chunk, _SUB_ROWS)
     sp = -(-sc // 8) * 8        # pass 3's rows: whole 8-row segments
@@ -120,11 +124,14 @@ def scan_smem(chunk: int, N: int, R: int = 0) -> int:
     (one group of 16 states of B and C, u, z and delta of its 16 channels);
     its three passes run only where the chunk fits them (csrc
     `use_passes`), else the walk;
-    K16's delta kernel holds W_dt's columns of 128 channels and 32 dt_lr
-    rows. The adjoint stages one group of 16 states at a time, so d_state
-    adds only its running sums past 16 states; K17's passes 1 and 3 also
-    hold dt_lr's rows and W_dt's columns."""
-    fwd = max(_SCAN_FWD_SMEM, 4 * _round4(R) * (128 + 32) if R else 0)
+    K16's delta kernel holds one rank tile (up to 360 ranks) of W_dt's
+    columns of 128 channels and of 32 dt_lr rows. The adjoint stages one
+    group of 16 states at a time, so d_state adds only its running sums
+    past 16 states; K17's passes 1 and 3 also hold one rank tile of dt_lr's
+    rows and W_dt's columns. So no block grows with dt_rank past its
+    tile."""
+    fwd = max(_SCAN_FWD_SMEM,
+              4 * min(_round4(R), _DELTA_RANK) * (128 + 32) if R else 0)
     return max(fwd, *_scan_bwd_smem(chunk, N, R))
 
 
@@ -174,10 +181,10 @@ def ssm_scan_takes(d: int, N: int, chunk: int = 128) -> bool:
 
 def ssm_scan_dtlr_takes(d: int, N: int, R: int, chunk: int = 128) -> bool:
     """Whether K16 and K17 take d_inner d, d_state N, dt_rank R and `chunk`
-    on the card: any d, d_state and chunk, and a dt_rank whose blocks fit
-    in shared memory (`scan_smem`): K17 forms dt_proj's adjoint inside its
-    pass 3, which holds dt_lr's rows and W_dt's columns, up to dt_rank 248
-    at d_state <= 16 and 184 past it (chunk 64 or more)."""
+    on the card: any d, d_state, chunk and dt_rank >= 1, with blocks that
+    fit in shared memory (`scan_smem`): K16's delta kernel and K17's
+    passes 1 and 3 stage W_dt's columns and dt_lr's rows a rank tile at a
+    time, so no block grows with dt_rank past one tile."""
     return (d > 0 and N > 0 and chunk > 0 and R > 0
             and scan_smem(chunk, N, R) <= _SMEM)
 
@@ -939,8 +946,9 @@ def _dtlr_operands(u, dt_lr, W_dt, b_dt, A, B, C, D, z, chunk, name):
         raise ValueError(f'{name}: inconsistent shapes')
     if not ssm_scan_dtlr_takes(d, N, R, chunk):
         raise ValueError(f'{name}: d_state={N}, dt_rank={R}, chunk={chunk} '
-                         'outside what the kernel takes on the card '
-                         '(ssm_scan_dtlr_takes)')
+                         'outside what the kernel takes on the card (every '
+                         'd_state, chunk and dt_rank >= 1: '
+                         'ssm_scan_dtlr_takes)')
     lr = dt_lr.float()
     ld_bc = _row_stride(B, 'B')
     if _row_stride(C, 'C') != ld_bc:

@@ -16,7 +16,9 @@ K17 and K19 share), the largest distance of each fp32 output of the kernel
 and of the plain version from float64 (`chip_smoke._f64_gap`) at B=2,
 L=1024, d_state 16 and 64. `--digest` adds a hash of each kernel's outputs on inputs made
 from fixed seeds: the scans at B=2, L=4096, d_state 16 and at L=1024,
-d_state 64; K18 and K19 at B=2, L=2048, d_state 16 and 32. Two trees run on
+d_state 64; K16 and K17 at B=2, L=1024 with dt_rank 64, 200 and 248 at
+d_state 16 and 184 at d_state 32; K18 and K19 at B=2, L=2048, d_state 16
+and 32. Two trees run on
 the same data, so equal hashes mean bit-identical outputs. `--profile`
 adds ptxas's registers and spills of the scan, front and dt kernels and the
 device ms a call of each kernel that K14, K16 and K18 launch at 16, 8 and
@@ -184,6 +186,15 @@ def digests(cs, M):
         y16 = M.ssm_scan_dtlr(*a16, return_h0s=True)
         out[f'K16_N{N}'] = _hash(y16)
         out[f'K17_N{N}'] = _hash(M.ssm_scan_dtlr_bwd(*a16, y16[1], g))
+    # K16 and K17 at ranks past one K17 rank tile (128) that the first
+    # K17 design held whole (248 at d_state 16, 184 past it).
+    for N, R in ((16, 64), (16, 200), (16, 248), (32, 184)):
+        gen = torch.Generator(device='cuda').manual_seed(3000 + R)
+        a16, _ = cs._scan_inputs(gen, bf, 2, 1024, N=N, R=R)
+        g = cs._rand(gen, 2, 1024, cs.SD, dtype=bf)
+        y16 = M.ssm_scan_dtlr(*a16, return_h0s=True)
+        out[f'K16_N{N}_R{R}'] = _hash(y16)
+        out[f'K17_N{N}_R{R}'] = _hash(M.ssm_scan_dtlr_bwd(*a16, y16[1], g))
     for N in (16, 32):
         gen = torch.Generator(device='cuda').manual_seed(2000 + N)
         w = cs._mamba_weights(gen, bf, N=N)

@@ -336,20 +336,18 @@ def test_auto_route_follows_the_kernels_limits(d_conv, d_state, want):
                          on_card=True) == 'scan_kernel_dtlr'
     # What the card's kernels still refuse raises, naming the kernel: a
     # hidden off the products' rows (1036: d_inner 2072 is not a multiple
-    # of 16) on the fused block; on the dt-lowrank scan dt_rank 190 (> 184
-    # past 16 states, hidden 3040) and 361 (hidden 5776), past what K17's
-    # pass 3 holds.
+    # of 16) on the fused block. The dt-lowrank scan takes every dt_rank
+    # (K16 and K17 stage W_dt and dt_lr in rank tiles): 190 past 16 states
+    # (hidden 3040) and 361 (hidden 5776), which it once refused.
     wider = dataclasses.replace(cfg, hidden_size=3040, d_state=32,
                                 fused_block=False, dt_inkernel=True)
-    with pytest.raises(ValueError, match='K16/K17'):
-        resolve_route(wider, L, on_card=True)
+    assert resolve_route(wider, L, on_card=True) == 'scan_kernel_dtlr'
     with pytest.raises(ValueError, match='K18/K19'):
         resolve_route(dataclasses.replace(cfg, hidden_size=1036), L,
                       on_card=True)
     widest = dataclasses.replace(cfg, hidden_size=5776, fused_block=False,
                                  dt_inkernel=True)
-    with pytest.raises(ValueError, match='K16/K17'):
-        resolve_route(widest, L, on_card=True)
+    assert resolve_route(widest, L, on_card=True) == 'scan_kernel_dtlr'
     assert resolve_route(dataclasses.replace(widest, dt_inkernel=False), L,
                          on_card=True) == 'scan_kernel'
 

@@ -18,6 +18,7 @@ two scan chunks, d_state 16, V=12, 10 classes), JAX's
   versions), sample and train, and launch nothing.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -184,3 +185,50 @@ def test_tiny_flagships_take_the_route_on_the_cpu(monkeypatch):
     assert [f.launches for f in COUNTERS] == before
     with pytest.raises(ValueError, match='route'):
         dimamba_flagship(tiny=True, device='cpu', route='fused')
+
+
+def test_dt_rank_300_matches_jax_logits(monkeypatch):
+    """The dt-lowrank route at dt_rank 300, past the ranks the first K17
+    design held (248), with a tiny L and d_inner: both configurations
+    derive dt_rank from the hidden size (ceil(H / 16)), so a subclass of
+    each pins it at 300 for hidden 32 (d_inner 64); JAX initialises the
+    weights (x_proj's 300 + 2 d_state columns, dt_proj's 300 rows, x4 so
+    the mixer matters), and the port's float32 logits on the converted
+    state dict equal JAX's to the 1e-3 bar above. The port runs K16/K17's
+    plain versions here; `chip_smoke.py` holds the kernels against them at
+    dt_rank 300 and 512."""
+    _interpret(monkeypatch)
+    rank, Lr, blocks = 300, 64, 1
+
+    @dataclasses.dataclass(frozen=True)
+    class JCfg(jdm.DiMambaConfig):
+        dt_rank = property(lambda self: rank)
+
+    @dataclasses.dataclass(frozen=True)
+    class TCfg(DiMambaConfig):
+        dt_rank = property(lambda self: rank)
+
+    small = dict(SMALL, length=Lr, n_blocks=blocks, scan_chunk=32)
+    jcfg = JCfg(**small, compute_dtype=jnp.float32, pallas_interpret=True,
+                **DTLR)
+    r = np.random.RandomState(3)
+    x = r.randint(0, V, (B, Lr)).astype(np.int32)
+    sigma = r.uniform(0, 1, B).astype(np.float32)
+    cond = np.array([0, 7, NC], np.int32)
+    model = jdm.DiMamba(jcfg)
+    params = model.init(jax.random.PRNGKey(1), x, sigma, cond)['params']
+    params = jax.tree.map(lambda a: a * 4 if a.ndim >= 2 else a, params)
+    x_proj = [a for p, a in jax.tree_util.tree_leaves_with_path(params)
+              if 'x_proj' in jax.tree_util.keystr(p)]
+    assert x_proj and all(a.shape[-1] == rank + 2 * 16 for a in x_proj)
+    want = np.asarray(jax.jit(lambda p: model.apply({'params': p}, x, sigma,
+                                                    cond))(params))
+    m = DiMamba(TCfg(**small, compute_dtype=torch.float32, **DTLR))
+    m.load_state_dict(convert.dimamba_state_dict_from_jax(
+        jax.tree.map(np.array, params), n_blocks=blocks), strict=True)
+    assert m.cfg.dt_rank == rank
+    assert resolve_route(m.cfg, Lr, on_card=False) == 'scan_kernel_dtlr'
+    assert resolve_route(m.cfg, Lr, on_card=True) == 'scan_kernel_dtlr'
+    with torch.no_grad():
+        got = m.eval()(*(torch.from_numpy(a) for a in (x, sigma, cond)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)

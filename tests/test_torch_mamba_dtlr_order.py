@@ -145,13 +145,18 @@ def test_emulated_order_is_the_sum_in_float64():
 def test_takes_the_widened_shapes_and_refuses_the_rest():
     """Every scan stages one group of 16 states at a time and the forward
     scan's shared memory is the same for every chunk, so any d_state and
-    chunk fit; dt_rank is bounded by K17's pass 3 (W_dt's columns and the
-    sub-chunk's dt_lr rows in shared memory: 248 at d_state <= 16, 184
-    past it). The fused block takes any dt_rank and d_inner (the front
+    chunk fit; so does any dt_rank (K16's delta kernel and K17's passes 1
+    and 3 stage W_dt's columns and the sub-chunk's dt_lr rows a rank tile
+    at a time). The fused block takes any dt_rank and d_inner (the front
     walks d in k steps and dt_lr in rank tiles, K19's dt_proj adjoint loops
     rank tiles past 64)."""
     for N, R in ((192, 96), (512, 128), (16, 248), (17, 184), (1600, 16)):
         assert mamba.ssm_scan_dtlr_takes(512, N, R, 128), (N, R)
+    # Past the ranks the first K17 design held (248 at d_state <= 16, 184
+    # past it) and K16's first delta tile (360).
+    for N, R, chunk in ((16, 249, 128), (17, 185, 128), (16, 300, 128),
+                        (32, 360, 128), (16, 361, 128)):
+        assert mamba.ssm_scan_dtlr_takes(512, N, R, chunk), (N, R, chunk)
     for N, chunk in ((192, 128), (512, 128), (1600, 128), (32, 364),
                      (16, 1817), (64, 1024), (16, 60)):
         assert mamba.ssm_scan_takes(512, N, chunk), (N, chunk)
@@ -164,9 +169,7 @@ def test_takes_the_widened_shapes_and_refuses_the_rest():
             assert mamba.mamba_inner_takes(H, d, N, R, 4, dtype, chunk), (
                 H, d, N, R, chunk)
     # What no kernel takes.
-    for N, R, chunk in ((16, 249, 128), (17, 185, 128), (16, 300, 128),
-                        (32, 360, 128), (16, 361, 128), (16, 0, 128),
-                        (16, 16, 0)):
+    for N, R, chunk in ((16, 0, 128), (16, 16, 0)):
         assert not mamba.ssm_scan_dtlr_takes(512, N, R, chunk), (N, R, chunk)
     assert not mamba.ssm_scan_takes(512, 0, 128)
     assert not mamba.mamba_inner_takes(256, 520, 16, 16, 4, torch.bfloat16)

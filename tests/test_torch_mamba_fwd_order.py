@@ -279,19 +279,40 @@ def test_forward_scan_smem_is_the_same_for_every_chunk_and_d_state(chunk, N):
     assert mamba.ssm_scan_takes(40, N, chunk)
 
 
-@pytest.mark.parametrize('R, taken', [(16, True), (248, True), (249, False),
-                                      (300, False), (360, False)])
+@pytest.mark.parametrize('R, taken', [(16, True), (248, True), (249, True),
+                                      (300, True), (360, True)])
 def test_k17_pass3_bounds_the_dt_rank(R, taken):
-    """At chunk 128, d_state 16: up to dt_rank 248 K17's pass 3 holds
-    dt_lr's rows and W_dt's columns beside the adjoint's own, and its sums
-    set `scan_smem` (beside the forward scan's and K16's delta kernel's);
-    past it the card takes no dt-lowrank scan."""
+    """At chunk 128, d_state 16: K17's passes 1 and 3 hold one rank tile
+    (min(round4(R), 128) ranks) of dt_lr's rows and W_dt's columns beside
+    the adjoint's own, and K16's delta kernel one of up to 360 ranks; their
+    sums set `scan_smem` (beside the forward scan's). So the rank tiles
+    bound the blocks, not dt_rank: every rank is taken, past 248 (where
+    the pass 3 that held all the ranks stopped fitting) as below it."""
+    lr = min(-(-R // 4) * 4, 128)
+    bwd1 = 4 * (64 * 16 + 2 * 16 * 64 + 64 * lr + 64 * (lr + 5))
     bwd_lr = max(mamba._scan_bwd_smem(128, 16, R))
+    assert bwd_lr == max(bwd1, mamba._scan_bwd_smem(128, 16, R)[1])
     assert (bwd_lr <= mamba._SMEM) == taken
-    delta_kernel = 4 * (-(-R // 4) * 4) * 160
+    delta_kernel = 4 * min(-(-R // 4) * 4, 360) * 160
     assert mamba.scan_smem(128, 16, R) == max(mamba._SCAN_FWD_SMEM,
                                               delta_kernel, bwd_lr)
     assert mamba.ssm_scan_dtlr_takes(512, 16, R, 128) == taken
+
+
+@pytest.mark.parametrize('N', [16, 17, 64])
+@pytest.mark.parametrize('R', [128, 129, 249, 360, 361, 512, 4096])
+def test_scan_smem_counts_rank_tiles(R, N):
+    """Past one rank tile the dt-lowrank blocks stop growing: K17's passes
+    hold 128 ranks (a 129th starts a second tile) and K16's delta kernel
+    360, so `scan_smem` at any larger dt_rank equals its value at the
+    tiles' width, and the card takes it at every chunk."""
+    for chunk in (16, 60, 128, 1024):
+        bwd = mamba._scan_bwd_smem(chunk, N, R)
+        assert bwd == mamba._scan_bwd_smem(chunk, N, min(R, 128))
+        want = max(mamba._SCAN_FWD_SMEM, 4 * min(-(-R // 4) * 4, 360) * 160,
+                   *bwd)
+        assert mamba.scan_smem(chunk, N, R) == want <= mamba._SMEM
+        assert mamba.ssm_scan_dtlr_takes(512, N, R, chunk)
 
 
 @pytest.mark.parametrize('esize, want', [(2, 18432), (4, 35072)])
