@@ -950,6 +950,25 @@ def kernel_ms(fn, reps=20):
     return out
 
 
+def kernel_launches(fn):
+    """{kernel name: launches} of one call of `fn`, from a torch.profiler
+    trace after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split('<')[0].split('::')[-1].split('(')[0]
+            name = (name.split() or [e.name[:48]])[-1]
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
 def _adaln_bwd_inputs(gen, nb, Lr, Dr, dtype):
     x = _rand(gen, nb, Lr, Dr, dtype=dtype)
     y = _rand(gen, nb, Lr, Dr, dtype=dtype)
@@ -1311,16 +1330,27 @@ def check_head_sample(results):
     (a probe buffer) equal to the plain version's, K12's bit for bit; with
     the in-kernel noise, equal to the composite that K11/K12 replace (fp32
     logits by a PyTorch product, then K7 with the same seed) under the same
-    gap rule; reruns identical. Timed at the main shape, every token
-    masked, in-kernel noise, beside the plain version and the composite
-    the port's unfused path runs (the head product, then K7)."""
+    gap rule; reruns identical. The bf16 head runs the wgmma kernel
+    (`head_plan`'s path 1) at the main shape and at 3 x 40 and 2 x 32
+    tokens over V = 3000 (Vp 4096: a partial token tile, the mask in the
+    first of four splits, or in the last; one token tile) and the first
+    kernel at the first ragged case (Vp 1024); fp32 and int8 the first
+    kernel. The plan's mirror (`ddg_head_plan` against `head_plan`) and
+    the wgmma kernel's in-kernel noise against the exact posterior at
+    V = 16 (TV under twice the binomial floor, `_head_tv_check`). Timed at
+    the main shape, every token masked, in-kernel noise, beside the plain
+    version and the composite the port's unfused path runs (the head
+    product, then K7)."""
     global MASK
     from ddg_tpu_torch.ops import fused_sampling as fs
     from ddg_tpu_torch.ops import quant
     _check_philox_mirror(fs)
+    _check_head_plan(fs)
     gen = torch.Generator(device=DEV).manual_seed(12)
     cases = (('main_path', B, L, V, V - 1, TILE_V),
-             ('ragged', 3, 32, 1000, 300, 256))
+             ('ragged', 3, 32, 1000, 300, 256),
+             ('ragged_split', 3, 40, 3000, 300, TILE_V),
+             ('one_tile', 2, 32, 3000, 2999, TILE_V))
     saved_mask = MASK
     try:
         for dtype in (torch.bfloat16, torch.float32, torch.int8):
@@ -1381,15 +1411,74 @@ def check_head_sample(results):
                        'tile_v': tile_v}
                 if int8:
                     rec['logits_bit_equal_int8_dense'] = True
+                rec['path'] = fs.head_plan(Bt * Lt, D, head[0].shape[0],
+                                           dtype)['path']
                 if label == 'main_path':
                     rec.update(_time_head(fs, quant, kern, plain, fin,
                                           head, mct, mcs, kw, dtype))
+                    if dtype == torch.bfloat16:
+                        rec['tv'] = _head_tv_check(fs)
                     results[name][str(dtype)] = rec
                 else:
                     results[name].setdefault(label, {})[str(dtype)] = rec
                 del fin, head, g, z, probe
     finally:
         MASK = saved_mask
+
+
+def _check_head_plan(fs):
+    """The wrapper's `head_plan` equals the built kernel's
+    (`ddg_head_plan`) at the LM1B slice and at shapes around the limits
+    of each field; the main path's bf16 head takes the wgmma kernel."""
+    import ctypes
+    from ddg_tpu_torch.ops import _build
+    fn = _build.kernel('head_sample', 'ddg_head_plan',
+                       (_build.i32,) * 4 + (_build.i32p,), None)
+    for T, Dm, Vp in ((B * L, D, 30720), (64, D, 2048), (96, 1280, 4096),
+                      (7, 1600, 4096), (B * L, D, 30720 + 128),
+                      (4096 * 8, 1024, 1024)):
+        for dtype, mode in ((torch.bfloat16, 1), (torch.float32, 0),
+                            (torch.int8, 2)):
+            out = (ctypes.c_int * 7)()
+            fn(T, Dm, Vp, mode, out)
+            want = fs.head_plan(T, Dm, Vp, dtype)
+            check(list(out) == list(want.values()),
+                  f'head_plan({T}, {Dm}, {Vp}, {dtype}): the kernel\'s '
+                  f'{list(out)} != the wrapper\'s {list(want.values())}')
+    check(fs.head_plan(B * L, D, 30720, torch.bfloat16)['path'] == 1,
+          'the LM1B slice\'s bf16 head does not take the wgmma kernel')
+
+
+def _head_tv_check(fs):
+    """The bf16 head's in-kernel noise (the wgmma kernel) against the exact
+    posterior at V = 16 (Vp 2048): every token the same features, so one
+    row of logits; the histogram of 64 x 1024 draws within twice the
+    binomial floor of it in TV (as `_tv_check` for K7)."""
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    Bt, Lt, Vt = 64, 1024, 16
+    n = Bt * Lt
+    feats = _rand(gen, D, dtype=torch.bfloat16).expand(Bt, Lt, D).contiguous()
+    head = fs.pad_head_weights(_rand(gen, Vt, D, scale=0.05).to(
+        torch.bfloat16), _rand(gen, Vt, scale=0.5), tile_v=TILE_V)
+    check(fs.head_plan(n, D, head[0].shape[0], torch.bfloat16)['path'] == 1,
+          'the TV check does not run the wgmma kernel')
+    xt = torch.full((Bt, Lt), Vt - 1, dtype=torch.int32, device=DEV)
+    mct = torch.full((Bt,), 0.8, device=DEV)
+    mcs = torch.full((Bt,), 0.3, device=DEV)
+    out = fs.fused_absorbing_head_sample(
+        2468, xt, feats, *head, mct, mcs, vocab_size=Vt, mask_index=Vt - 1,
+        tile_v=TILE_V)
+    z = fs.head_logits(feats[:1, :1], *head)[0, 0, :Vt].clone()
+    z[Vt - 1] = -1e30
+    p = torch.softmax(z, -1) * (0.8 - 0.3)
+    p[Vt - 1] = 0.3
+    q = (p / p.sum()).double()
+    hist = torch.bincount(out.flatten().long(), minlength=Vt).double() / n
+    tv = 0.5 * (hist - q).abs().sum().item()
+    floor = 0.5 * torch.sqrt(2 * q * (1 - q) / (math.pi * n)).sum().item()
+    check(tv < 2 * floor, f'fused_absorbing_head_sample bf16 internal RNG: '
+                          f'TV {tv} >= 2 x floor {floor}')
+    return {'tv': tv, 'floor': floor, 'draws': n}
 
 
 def _time_head(fs, quant, kern, plain, fin, head, mct, mcs, kw, dtype):
@@ -1436,6 +1525,18 @@ def _time_head(fs, quant, kern, plain, fin, head, mct, mcs, kw, dtype):
         nbytes += Vt * 4 + T * 4
     rec['bound_ms'], rec['bound_by'] = bound_mixed(
         nbytes, ((2 * T * D * Vt, peak), (3 * T * Vt, PEAK_SFU)))
+    if dtype == torch.bfloat16:
+        # The in-kernel noise's issue work beside the product: Philox4x32-10
+        # (10 rounds of two 32 x 32 -> 64-bit products, four xors and two
+        # key adds for four words) and the Gumbel's conversion, about 30
+        # integer and fp32 instructions a logit on the CUDA cores, added to
+        # the tensor cores' time (the two share the SMs' issue slots).
+        issue_ms = 30 * T * Vt / PEAK_ISSUE * 1e3
+        tensor_ms = 2 * T * D * Vt / peak * 1e3
+        if tensor_ms + issue_ms > rec['bound_ms']:
+            rec['bound_ms'] = tensor_ms + issue_ms
+            rec['bound_by'] = 'operations'
+        rec['bound_issue_ms'] = issue_ms
     rec['library_ms'] = None
     return rec
 
@@ -1447,6 +1548,9 @@ UB, UL, UV = 32, 3072, 256
 # programming guide's throughput table for compute capability 9.0) x 132
 # SMs x 1.98 GHz (H100 SXM boost clock).
 PEAK_SFU = 16 * 132 * 1.98e9
+# fp32 or int32 instructions a second on the CUDA cores: 128 lanes a clock
+# per SM x 132 SMs x 1.98 GHz (the 67 TFLOP/s fp32 rate counts an FMA as 2).
+PEAK_ISSUE = 128 * 132 * 1.98e9
 
 
 def _uniform_inputs(gen, dtype, V, n_logits=2, Bu=UB, Lu=UL):
@@ -1575,10 +1679,32 @@ def check_uniform(results):
     return _uniform_tv_check(fs)
 
 
+def _check_gn_plan(gn, HW, C, G):
+    """The wrapper's `plan` equals the built kernel's
+    (`ddg_group_norm_plan`) with bf16 and with fp32 in, and both hold the
+    slab on chip (one launch). Returns the bf16 plan."""
+    import ctypes
+    from ddg_tpu_torch.ops import _build
+    fn = _build.kernel('groupnorm', 'ddg_group_norm_plan',
+                       (_build.i32,) * 4 + (_build.i32p,), None)
+    for size in (2, 4):
+        out = (ctypes.c_int * 4)()
+        fn(HW, C, G, size, out)
+        want = gn.plan(HW, C, G, size)
+        check(tuple(out) == want, f'groupnorm plan({HW}, {C}, {G}, {size}): '
+                                  f'the kernel\'s {tuple(out)} != {want}')
+        check(want[0] == 1, f'groupnorm plan({HW}, {C}, {G}, {size}) is not '
+                            'the slab path')
+    return list(gn.plan(HW, C, G, 2))
+
+
 def check_groupnorm(results, norms):
     """K13 against its plain version at every (HW, C, act) of one UNet
     forward (`norms`: {(H, W, C, act): count}), bf16 in and fp32 out, at
-    N=64 (D-CFG) and N=32; the other three dtype pairs at one shape. The times
+    N=64 (D-CFG) and N=32; the other three dtype pairs at one shape. At
+    each shape the plan's mirror (`_check_gn_plan`, bf16 and fp32 in) and
+    one launch a call (torch.profiler: one `gn_slab_kernel`). `ms_sequence`
+    times the 51 calls back to back, as a forward runs them. The times
     are sums over one D-CFG forward's norms (N=64), each shape weighted by
     its count; the library yardstick is F.group_norm without the SiLU, on
     the NCHW view of the same channels-last input (bf16 out)."""
@@ -1588,6 +1714,7 @@ def check_groupnorm(results, norms):
     rec = {'err': 0.0, 'tol': FP32_TOL, 'ms': 0.0, 'plain_ms': 0.0,
            'library_ms': 0.0, 'shapes': []}
     nbytes = 0
+    forward = []
     for (Hh, Ww, C, act), count in sorted(norms.items()):
         G = min(C // 4, 32)
         scale = 1.0 + _rand(gen, C, scale=0.2)
@@ -1608,6 +1735,12 @@ def check_groupnorm(results, norms):
             check(torch.equal(out, again),
                   f'fused_group_norm_act {(N, Hh, Ww, C)}: a rerun is not '
                   'bit-identical')
+            plan = _check_gn_plan(gn, Hh * Ww, C, G)
+            launches = kernel_launches(
+                lambda: gn.fused_group_norm_act(x, scale, bias, **kw))
+            check(launches == {'gn_slab_kernel': 1},
+                  f'fused_group_norm_act {(N, Hh, Ww, C)}: launched '
+                  f'{launches}, not one slab kernel')
             ms = time_ms(lambda: gn.fused_group_norm_act(x, scale, bias, **kw))
             plain_ms = time_ms(
                 lambda: gn.fused_group_norm_act_plain(x, scale, bias, **kw),
@@ -1618,10 +1751,20 @@ def check_groupnorm(results, norms):
             rec['ms'] += count * ms
             rec['plain_ms'] += count * plain_ms
             rec['library_ms'] += count * lib_ms
+            forward.append((count, x, scale, bias, kw))
             nbytes += count * (N * Hh * Ww * C * (2 + 4) + 2 * C * 4)
             rec['shapes'].append({'N': N, 'H': Hh, 'W': Ww, 'C': C,
                                   'act': act, 'count': count, 'ms': ms,
-                                  'plain_ms': plain_ms, 'library_ms': lib_ms})
+                                  'plain_ms': plain_ms, 'library_ms': lib_ms,
+                                  'plan': plan, 'launches': launches})
+    # The 51 calls back to back, as a forward runs them (one pair of
+    # events around them all, so no event falls between two calls).
+    def one_forward():
+        for count, xf, sf, bf, kwf in forward:
+            for _ in range(count):
+                gn.fused_group_norm_act(xf, sf, bf, **kwf)
+    rec['ms_sequence'] = time_ms(one_forward, reps=10)
+    del forward
     # The other dtypes, at the largest shape: fp32 in with fp32 or bf16
     # out, and bf16 in and out (norm_dtype=bf16).
     x32 = torch.randn((UB, 32, 32, 384), generator=gen, device=DEV)
@@ -1634,6 +1777,11 @@ def check_groupnorm(results, norms):
         _close(f'fused_group_norm_act {in_dtype} in, {out_dtype} out',
                out_dtype, gn.fused_group_norm_act(x, scale, bias, **kw),
                gn.fused_group_norm_act_plain(x, scale, bias, **kw))
+        check(kernel_launches(lambda: gn.fused_group_norm_act(
+            x, scale, bias, **kw)) == {'gn_slab_kernel': 1},
+              f'fused_group_norm_act {in_dtype} in at 32 x 32 x 384: not '
+              'one slab kernel')
+    rec['launches_per_call'] = 1
     # Read once and write once per norm; about 10 fp32 operations per
     # element (stats, normalize, SiLU), under the fp32 rate.
     n_elem = nbytes / 6
@@ -1732,18 +1880,39 @@ def _rerun_equal(name, fn, first):
           f'{name}: reruns differ')
 
 
-def _rows_alone(rec, name, fn, plain, *args):
-    """fn on the first 4 rows of its batched (3-D) arguments (a batch of
-    4 runs the scan's three passes, one of 16 the walk: the same function
-    in another order) against the plain version on those rows, to the
-    kernel's bars; returns the largest difference of its output from the
-    same rows of fn on all of them."""
-    whole = fn(*args)
-    sub = tuple(t[:4] if t.dim() == 3 else t for t in args)
-    part = fn(*sub)
-    _fwd_pair(rec, f'{name}: the first 4 rows alone', torch.bfloat16, part,
-              plain(*sub))
-    return float((part[0].float() - whole[0][:4].float()).abs().max())
+def _batched(args, n):
+    """The first n rows of every batched argument (a tensor of 3 or more
+    dimensions whose first is the batch's), the rest as they are."""
+    Bt = args[0].shape[0]
+    return tuple(t[:n] if isinstance(t, torch.Tensor) and t.dim() >= 3
+                 and t.shape[0] == Bt else t for t in args)
+
+
+def _rows_any_batch(name, fn, *args, batches=(1, 4, 8, 16, 32), keep=None):
+    """ROADMAP C.8: a row's outputs follow its inputs only. fn on the first
+    nb rows of its batched arguments, for each nb in `batches` (the
+    arguments hold the largest): the first row of every output (those in
+    `keep`, default all) bit-equal at every nb, and the first 4 rows at
+    every nb from 4 up (the forward scan runs its three passes at a small
+    batch and its walk at one that fills the card). Returns the largest
+    difference between the first 4 rows at 4 and at 16 rows (0.0)."""
+    outs = {nb: fn(*_batched(args, nb)) for nb in batches}
+    keep = range(len(outs[batches[0]])) if keep is None else keep
+    diff = 0.0
+    for nb, out in outs.items():
+        for k in keep:
+            for m in (1, 4):
+                if m > nb or m not in outs:
+                    continue
+                a, b = out[k][:m], outs[m][k]
+                check(torch.equal(a, b),
+                      f'{name}: output {k}, the first {m} rows among {nb} '
+                      f'differ from the same rows among {m} by '
+                      f'{(a.float() - b.float()).abs().max().item()}')
+            if nb == 16 and 4 in outs:
+                diff = max(diff, (out[k][:4].float()
+                                  - outs[4][k].float()).abs().max().item())
+    return diff
 
 
 def check_mamba(results):
@@ -1764,10 +1933,11 @@ def check_mamba(results):
     to `_close_states`; in fp32 K14's y and h0s at L=2048 are also held
     against float64 (`f64_gap`, recorded). Timed in bf16 at the Species10
     shape, 16 x 32768 (256 chunks a row), and held against the plain
-    versions there too (`main_path`), and the first 4 rows run alone (the
-    three passes) against their plain version, recording how far they lie
-    from the same rows among 16 (the walk); the walk's own edge cases run
-    at batches that fill the card."""
+    versions there too (`main_path`); the walk's own edge cases run at
+    batches that fill the card. ROADMAP C.8: at the main shape in bf16,
+    and at L=4096 in fp32, K14's and K18's first rows give the same bits
+    alone, among 4 (the three passes) and among 8, 16 and 32 (the walk)
+    (`_rows_any_batch`)."""
     from ddg_tpu_torch.ops import mamba as M
     gen = torch.Generator(device=DEV).manual_seed(14)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1853,11 +2023,12 @@ def check_mamba(results):
             _rerun_equal(name, lambda: M.mamba_inner(h, **w, **kw), got)
         results['ssm_scan'][str(dtype)] = rec14
 
-    # Times at the main path's shape, bf16.
+    # Times at the main path's shape, bf16, on the first 16 of 32 rows.
     bf = torch.bfloat16
     M_rows, nx = 2 * SB * SL, SR + 2 * SN
     w = _mamba_weights(gen, bf)
-    h = _rand(gen, 2 * SB, SL, SH, dtype=bf)
+    h32 = _rand(gen, 4 * SB, SL, SH, dtype=bf)
+    h = h32[:2 * SB]
     kw = dict(d_state=SN, dt_rank=SR)
     rec18 = results['mamba_inner'][str(bf)]
     rec18['ms'] = time_ms(lambda: M.mamba_inner(h, **w, **kw))
@@ -1867,10 +2038,12 @@ def check_mamba(results):
         rec18, f'mamba_inner B={2 * SB} L={SL}', bf,
         M.mamba_inner(h, **w, **kw, return_h0s=True),
         M.mamba_inner_plain(h, **w, **kw, return_h0s=True))
-    rec18['rows_at_4_vs_16_diff'] = _rows_alone(
-        rec18, 'mamba_inner',
-        lambda x: M.mamba_inner(x, **w, **kw, return_h0s=True),
-        lambda x: M.mamba_inner_plain(x, **w, **kw, return_h0s=True), h)
+    # C.8: a row's out and h0s are the same bits alone and among 4, 8, 16
+    # and 32 rows (the three passes below 16 rows, the walk from 16).
+    rec18['rows_at_4_vs_16_diff'] = _rows_any_batch(
+        'mamba_inner bf16', lambda x: M.mamba_inner(
+            x, **w, **kw, return_h0s=True), h32)
+    del h32
     # The yardstick for its GEMM share: its four products through
     # torch.matmul at the same shapes (bf16; dt_proj fp32).
     u = _rand(gen, M_rows, SD, dtype=bf)
@@ -1892,11 +2065,12 @@ def check_mamba(results):
     del h, h2, u, lr
 
     rec14 = results['ssm_scan'][str(bf)]
-    xz = _rand(gen, 2 * SB, SL, 2 * SD, dtype=bf)
-    xd = _rand(gen, 2 * SB, SL, nx, dtype=bf)
-    args = (xz[..., :SD], M.softplus(_rand(gen, 2 * SB, SL, SD) - 3.0),
-            w['A'], xd[..., SR:SR + SN], xd[..., SR + SN:], w['D'],
-            xz[..., SD:])
+    xz = _rand(gen, 4 * SB, SL, 2 * SD, dtype=bf)
+    xd = _rand(gen, 4 * SB, SL, nx, dtype=bf)
+    a32 = (xz[..., :SD], M.softplus(_rand(gen, 4 * SB, SL, SD) - 3.0),
+           w['A'], xd[..., SR:SR + SN], xd[..., SR + SN:], w['D'],
+           xz[..., SD:])
+    args = _batched(a32, 2 * SB)
     rec14['ms'] = time_ms(lambda: M.ssm_scan(*args))
     rec14['plain_ms'] = time_ms(lambda: M.ssm_scan_plain(*args), reps=3,
                                 warmup=1)
@@ -1904,9 +2078,25 @@ def check_mamba(results):
         rec14, f'ssm_scan B={2 * SB} L={SL}', bf,
         M.ssm_scan(*args, return_h0s=True),
         M.ssm_scan_plain(*args, return_h0s=True))
-    rec14['rows_at_4_vs_16_diff'] = _rows_alone(
-        rec14, 'ssm_scan', lambda *x: M.ssm_scan(*x, return_h0s=True),
-        lambda *x: M.ssm_scan_plain(*x, return_h0s=True), *args)
+    rec14['rows_at_4_vs_16_diff'] = _rows_any_batch(
+        'ssm_scan bf16', lambda *x: M.ssm_scan(*x, return_h0s=True), *a32)
+    del a32, xz, xd
+    # C.8 in fp32, at a shorter L (the design follows the batch and d, not
+    # L): K14 and K18, the first rows alone and among 4 to 32.
+    f32 = torch.float32
+    w32 = _mamba_weights(gen, f32)
+    xz = _rand(gen, 4 * SB, 4096, 2 * SD)
+    xd = _rand(gen, 4 * SB, 4096, nx)
+    a32 = (xz[..., :SD], M.softplus(_rand(gen, 4 * SB, 4096, SD) - 3.0),
+           w32['A'], xd[..., SR:SR + SN], xd[..., SR + SN:], w32['D'],
+           xz[..., SD:])
+    results['ssm_scan'][str(f32)]['rows_at_4_vs_16_diff'] = _rows_any_batch(
+        'ssm_scan fp32', lambda *x: M.ssm_scan(*x, return_h0s=True), *a32)
+    results['mamba_inner'][str(f32)]['rows_at_4_vs_16_diff'] = \
+        _rows_any_batch('mamba_inner fp32', lambda x: M.mamba_inner(
+            x, **w32, **kw, compute_dtype=f32, return_h0s=True),
+            _rand(gen, 4 * SB, 4096, SH))
+    del a32, xz, xd
     # Bytes: u, z, y (bf16) and delta (fp32) per (row, channel), B and C
     # per row, the chunk entry states out. Operations: exp(delta A) per
     # state and the gate's sigmoid, on the SFU.
@@ -2010,6 +2200,14 @@ def check_mamba_dtlr(results, gen):
     a16, _ = _scan_inputs(gen, bf, TB, SL)
     rec['ms_train_shape'] = time_ms(lambda: M.ssm_scan_dtlr(*a16), reps=10)
     del a16
+    # C.8: y and h0s of the first rows alone and among 4 to 32, bf16 at the
+    # serving path's L, fp32 at a shorter one.
+    for dtype, Lm in ((bf, SL), (torch.float32, 4096)):
+        a16, _ = _scan_inputs(gen, dtype, 4 * SB, Lm)
+        results['ssm_scan_dtlr'][str(dtype)]['rows_at_4_vs_16_diff'] = \
+            _rows_any_batch(f'ssm_scan_dtlr {dtype}', lambda *x:
+                            M.ssm_scan_dtlr(*x, return_h0s=True), *a16)
+        del a16
     # Bytes: u, z, y (bf16) per (row, channel); dt_lr (fp32), B and C per
     # row; the chunk entry states out; the weights. Operations: per (row,
     # channel) exp(delta A) per state, softplus's exp and log1p and the
@@ -2310,8 +2508,49 @@ def check_mamba_bwd(results):
     rec15['library_ms'] = None
     rec15['shape'] = [TB, SL, SD]
     del a
+    check_rows_any_batch_bwd(results, gen)
     check_mamba_dtlr_bwd(results, gen)
     check_mamba_wide_bwd(results, gen)
+
+
+def check_rows_any_batch_bwd(results, gen, Lm=4096):
+    """ROADMAP C.8 through the backwards: the first 4 rows' gradients of
+    K19, K15 and K17 (their row outputs; the weight gradients sum over the
+    batch) are the same bits at micro-batch 4 and 16, each run on the h0s
+    of its own forward (K18, K14, K16), bf16 and fp32, at L=4096 (the
+    forward's design follows the batch and d, not L)."""
+    from ddg_tpu_torch.ops import mamba as M
+    kw = dict(d_state=SN, dt_rank=SR)
+    for dtype in (torch.float32, torch.bfloat16):
+        w = _mamba_weights(gen, dtype)
+        wv = tuple(w.values())
+        h, g = (_rand(gen, 16, Lm, SH, dtype=dtype) for _ in range(2))
+
+        def k19(h, g):
+            _, h0s = M.mamba_inner(h, *wv, **kw, compute_dtype=dtype,
+                                   return_h0s=True)
+            return M.mamba_inner_bwd(h, *wv, h0s, g, **kw,
+                                     compute_dtype=dtype)
+        _, a14 = _scan_inputs(gen, dtype, 16, Lm)
+        g14 = _rand(gen, 16, Lm, SD, dtype=dtype)
+
+        def k15(*a):
+            _, h0s = M.ssm_scan(*a[:7], return_h0s=True)
+            return M.ssm_scan_bwd(*a[:7], h0s, a[7])
+        a16, _ = _scan_inputs(gen, dtype, 16, Lm)
+
+        def k17(*a):
+            _, h0s = M.ssm_scan_dtlr(*a[:9], return_h0s=True)
+            return M.ssm_scan_dtlr_bwd(*a[:9], h0s, a[9])
+        rec = results.setdefault('rows_any_batch_bwd', {})
+        for name, fn, args, outs in (
+                ('mamba_inner_bwd', k19, (h, g), K19_OUT),
+                ('ssm_scan_bwd', k15, (*a14, g14), K15_OUT),
+                ('ssm_scan_dtlr_bwd', k17, (*a16, g14), K17_OUT)):
+            keep = [i for i, (_, kind) in enumerate(outs) if kind == 'row']
+            rec[f'{name} {dtype}'] = _rows_any_batch(
+                f'{name} {dtype}', fn, *args, batches=(4, 16), keep=keep)
+        del h, g, a14, a16, g14
 
 
 def _k17_args(gen, dtype, Bt, Lm, d=SD, N=SN, R=SR, chunk=128):

@@ -23,11 +23,16 @@
 // Bound on the H100: tensor operations. At the LM1B slice (3072 tokens,
 // D = 768, V = 30523) the product is 144 G operations, 0.146 ms in bf16 at
 // 989 TFLOP/s and 0.073 ms in int8 at 1979 TOP/s; W and the features are
-// 52 MB (bf16) or 26 MB (int8), and the epilogue's exps and logs ~0.07 ms
-// of SFU time.
+// 52 MB (bf16) or 26 MB (int8), the epilogue's exps and logs ~0.07 ms of
+// SFU time, and its Philox rounds and conversions ~30 integer and fp32
+// instructions a logit, ~0.08 ms of issue on the CUDA cores.
 //
-// Design (a first, simple kernel; wgmma and TMA are later work): one
-// block of 8 warps takes 128 tokens and a contiguous range of 128-row
+// Two designs, by `head_plan` (from the shape alone): the bf16 head runs
+// `hw::head_wgmma_kernel` (TMA, wgmma, warp-specialised; described at its
+// namespace below) where its feature tiles fit and Vp is a multiple of
+// 1024; every other call runs the first design:
+//
+// One block of 8 warps takes 128 tokens and a contiguous range of 128-row
 // vocab chunks (the vocab is split across blockIdx.y so that the 24 token
 // tiles of the slice fill the card). For every chunk the block runs a
 // 128 x 128 product over the whole of D through a 4-stage cp.async ring
@@ -49,6 +54,7 @@
 // (a float32 head) runs FMAs on the CUDA cores from the same staged
 // tiles, never TF32.
 
+#include "async.cuh"
 #include "common.cuh"
 
 namespace {
@@ -421,6 +427,395 @@ __global__ void __launch_bounds__(kThreads, 2) head_sample_kernel(const Args a) 
   }
 }
 
+// ---- The bf16 kernel for Hopper (path 1 of `head_plan`) -----------------
+//
+// A block takes kTok = 64 tokens and one vocab split of kSplitChunks chunks
+// of kVt = 128 rows, with its warps specialised:
+//   - the producer (the last warp's first thread) loads the block's
+//     features once (D / 64 tiles of 64 x 64 bf16 in the 128-byte swizzle,
+//     by TMA) and W's tiles of 128 rows x 64 columns through a ring of
+//     kStages slots (TMA, the 128-byte swizzle, an mbarrier a slot);
+//   - warpgroup 0 runs each chunk's product (wgmma m64n128k16, A and B
+//     from shared memory, 64 fp32 accumulators a thread, kInFlight slabs
+//     left running behind the newest) and writes its logits to a 64 x 128
+//     fp32 tile in shared memory;
+//   - warpgroups 1 and 2 run the epilogue of each tile, a token and 32
+//     consecutive vocab rows a thread: the bias, the online (max, sum of
+//     exps), the Gumbel noise (K7's Philox words: kPhilox calls of a
+//     thread's rows run round by round side by side, so their chains
+//     overlap), the perturbed scores, and the tile's sum of exps and best
+//     score (the lowest index winning ties) by fixed trees, merged into
+//     the token's state, and the mask's Gumbel.
+// The two sides hand each tile over by two mbarriers. At the split's end
+// each token's four states are merged by shuffles in a fixed order and
+// written per (split, token); `head_merge_kernel` merges the splits in
+// order. The split and every merge's order follow the shape only, so a
+// token's bits follow its inputs and not the card. The sum of exps uses
+// __expf and the Gumbel noise's outer log __logf (each within 2 ulp); the
+// inner log, whose argument nears 1 for the largest draws, stays logf.
+// Thirteen warps leave each thread 128 registers, without spills.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md): consumer
+// warpgroups that each ran their own chunks' products and epilogues in
+// turn (ping-pong by named barriers) left one or two warps an SMSP on the
+// epilogue, latency-bound (0.84 ms a call, 0.39 for their products
+// alone); `setmaxnreg` did not lift ptxas's allocation above the launch
+// bound's; a cluster of 2 with W's tiles multicast doubled the products'
+// time (0.45 against 0.20 ms), so L2 does not set the pace and each block
+// loads its own W tiles.
+namespace hw {
+
+constexpr int kTok = 64;                 // tokens a block: one wgmma M
+constexpr int kVt = 128;                 // vocab rows a chunk: one wgmma N
+constexpr int kSplitChunks = 8;          // chunks a split: 1024 vocab rows
+constexpr int kEpiThreads = 256;         // two epilogue warpgroups
+constexpr int kThreads = 128 + kEpiThreads + 32;  // and the producer's warp
+constexpr int kInFlight = 2;             // wgmma groups (slabs) left running behind the newest
+constexpr int kPhilox = 2;               // Philox calls of a thread run side by side
+constexpr int kTileBytes = kTok * 128;   // a feature tile: 64 rows x 64 bf16
+constexpr int kStageBytes = kVt * 128;   // a W slot: 128 rows x 64 bf16
+constexpr int kZRow = kVt + 4;           // the logits tile's padded row, floats
+constexpr int kZBytes = kTok * kZRow * 4;
+constexpr int kMaxStages = 8;
+constexpr int kSmemMax = 232448;
+constexpr int kAlign = 1024;             // the 128-byte swizzle's repeat
+
+// Shared memory of a block with nk feature tiles and `stages` W slots
+// (with the logits tile, the alignment slack and the mbarriers).
+__host__ __device__ constexpr int smem_bytes(int nk, int stages) {
+  return kAlign + nk * kTileBytes + stages * kStageBytes + kZBytes + 8 * (2 * stages + 3);
+}
+__host__ __device__ constexpr int stages_for(int nk) {
+  int s = kMaxStages;
+  while (s > 0 && smem_bytes(nk, s) > kSmemMax) --s;
+  return s;
+}
+
+__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// The thread's index, read where it is used: ptxas cannot keep a value
+// formed from it live across the epilogue's loop (it spilled two such).
+__device__ __forceinline__ int thread_x() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+// Pin the accumulators here: no read or write of them moves across.
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Standard Gumbel noise from 32 random bits as ddg::gumbel_from_bits, the
+// outer log by the SFU (its argument, -log u, is never near 1).
+__device__ __forceinline__ float gumbel_bits(unsigned bits) {
+  const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f) + 1e-10f;
+  return -__logf(-logf(u));
+}
+
+// One Philox4x32-10 round (`ddg::philox4x32_10`'s), each product's high
+// and low words from one 64-bit multiply.
+__device__ __forceinline__ uint4 philox_round(uint4 c, unsigned k0, unsigned k1) {
+  const unsigned long long p0 = static_cast<unsigned long long>(0xD2511F53u) * c.x;
+  const unsigned long long p1 = static_cast<unsigned long long>(0xCD9E8D57u) * c.z;
+  return make_uint4(static_cast<unsigned>(p1 >> 32) ^ c.y ^ k0, static_cast<unsigned>(p1),
+                    static_cast<unsigned>(p0 >> 32) ^ c.w ^ k1, static_cast<unsigned>(p0));
+}
+
+// d += A B, 64 x 128 x 16: A (64 x 16) and B (16 x 128) from shared memory
+// through their descriptors, both K-major. Thread (warp w of the
+// warpgroup, lane = 4 g + t) holds d[4 j + e] = D[16 w + g + 8 (e >> 1)]
+// [8 j + 2 t + (e & 1)], j < 16.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52,"
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+struct HArgs {
+  const int* seed;
+  const int* xt;
+  const float* bias;     // (Vp,)
+  const float* gumbel;   // (B, Vp, L) or null
+  float* logits_out;     // (T, Vp) or null
+  float* part;           // (5, splits, T)
+  int T, L, nk, Vp, V, mask_index, splits, stages;
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+    head_wgmma_kernel(const __grid_constant__ CUtensorMap tm_f,
+                      const __grid_constant__ CUtensorMap tm_w, const HArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~static_cast<uintptr_t>(kAlign - 1));
+  const int nk = a.nk, S = a.stages;
+  unsigned char* fs = smem;                            // nk feature tiles
+  unsigned char* ring = fs + nk * kTileBytes;          // S W slots
+  float* zt = reinterpret_cast<float*>(ring + S * kStageBytes);   // kTok x kZRow
+  uint64_t* full = reinterpret_cast<uint64_t*>(zt + kTok * kZRow);
+  uint64_t* empty = full + S;
+  uint64_t* fbar = empty + S;
+  uint64_t* zfull = fbar + 1;
+  uint64_t* zempty = zfull + 1;
+  const int tid = threadIdx.x;
+  const int tok0 = blockIdx.x * kTok, split = blockIdx.y;
+  const int items = kSplitChunks;
+
+  // A block whose tokens are all decoded has nothing to sample.
+  const bool mine = tid < kTok && tok0 + tid < a.T && a.xt[tok0 + tid] == a.mask_index;
+  if (!__syncthreads_or(mine)) return;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      ddg::mbar_init(ddg::smem_u32(full + s), 1);
+      ddg::mbar_init(ddg::smem_u32(empty + s), 4);   // warpgroup 0's warps
+    }
+    ddg::mbar_init(ddg::smem_u32(fbar), 1);
+    ddg::mbar_init(ddg::smem_u32(zfull), 128);
+    ddg::mbar_init(ddg::smem_u32(zempty), kEpiThreads);
+    ddg::fence_mbar_init();
+  }
+  __syncthreads();
+  auto vrow = [&](int i) { return (split * kSplitChunks + i) * kVt; };
+
+  if (tid >= 128 + kEpiThreads) {        // ---- the producer
+    if (tid == 128 + kEpiThreads) {
+      const uint32_t fb = ddg::smem_u32(fbar);
+      ddg::mbar_expect_tx(fb, nk * kTileBytes);
+      for (int k = 0; k < nk; ++k)
+        ddg::tma_load_2d(ddg::smem_u32(fs + k * kTileBytes), &tm_f, k * 64, tok0, fb);
+      for (int idx = 0; idx < items * nk; ++idx) {
+        const int slot = idx % S;
+        ddg::mbar_wait(ddg::smem_u32(empty + slot), ((idx / S) & 1) ^ 1);
+        const uint32_t fb2 = ddg::smem_u32(full + slot);
+        ddg::mbar_expect_tx(fb2, kStageBytes);
+        ddg::tma_load_2d(ddg::smem_u32(ring + slot * kStageBytes), &tm_w, (idx % nk) * 64,
+                         vrow(idx / nk), fb2);
+      }
+    }
+    return;
+  }
+
+  if (tid < 128) {                       // ---- the products
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    float acc[64];
+#pragma unroll
+    for (int q = 0; q < 64; ++q) acc[q] = 0.f;
+    ddg::mbar_wait(ddg::smem_u32(fbar), 0);
+    const uint32_t fs0 = ddg::smem_u32(fs), ring0 = ddg::smem_u32(ring);
+    for (int i = 0; i < items; ++i) {
+      for (int k = 0; k < nk; ++k) {
+        const int idx = i * nk + k, slot = idx % S;
+        ddg::mbar_wait(ddg::smem_u32(full + slot), (idx / S) & 1);
+        wg_fence();
+        pin(acc);
+        const uint32_t fa = fs0 + k * kTileBytes, fw = ring0 + slot * kStageBytes;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_n128(acc, desc128(fa + 32 * kk), desc128(fw + 32 * kk), k > 0 || kk > 0);
+        wg_commit();
+        pin(acc);
+        if (k >= kInFlight) {            // slab k - kInFlight is done: its slot is free
+          wg_wait<kInFlight>();
+          pin(acc);
+          if (lane == 0) ddg::mbar_arrive(ddg::smem_u32(empty + (idx - kInFlight) % S));
+          __syncwarp();
+        }
+      }
+      wg_wait<0>();
+      pin(acc);
+      if (lane == 0)
+        for (int k = max(0, nk - kInFlight); k < nk; ++k)
+          ddg::mbar_arrive(ddg::smem_u32(empty + (i * nk + k) % S));
+      __syncwarp();
+      // The logits tile, once the epilogue has read the last one.
+      ddg::mbar_wait(ddg::smem_u32(zempty), (i & 1) ^ 1);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(zt + (16 * warp + g + 8 * h) * kZRow + 8 * j + 2 * t) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      ddg::mbar_arrive(ddg::smem_u32(zfull));
+    }
+    return;
+  }
+
+  // ---- The epilogue: token row 8 (warp) + r, vocab rows 32 q .. 32 q + 31
+  // of each chunk (lane = 8 q + r, so a quarter warp's 16-byte reads of the
+  // tile fall in distinct banks).
+  auto row = [](int t) { return 8 * ((t - 128) >> 5) + (t & 7); };   // token row
+  const int q = (tid & 31) >> 3;
+  const int tok_c = min(tok0 + row(tid), a.T - 1);
+  const int tb = tok_c / a.L, tl = tok_c - tb * a.L;
+  const unsigned seed = a.gumbel ? 0u : static_cast<unsigned>(a.seed[0]);
+  RowState st = RowState{kNeg, 0.f, -INFINITY, 0.f, 0x7fffffff};
+  for (int i = 0; i < items; ++i) {
+    const int v0 = vrow(i) + 32 * q;
+    // Rows of this thread that are sampled (below V, not the mask).
+    unsigned on = a.V - v0 >= 32 ? 0xffffffffu : a.V > v0 ? (1u << (a.V - v0)) - 1u : 0u;
+    const int mc = a.mask_index - v0;    // the mask's row here, if in [0, 32)
+    if (mc >= 0 && mc < 32) on &= ~(1u << mc);
+    float z[32], gn[32];
+    ddg::mbar_wait(ddg::smem_u32(zfull), i & 1);
+    const float* zrow = zt + row(thread_x()) * kZRow + 32 * q;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float4 w = *reinterpret_cast<const float4*>(zrow + 4 * k);
+      z[4 * k] = w.x, z[4 * k + 1] = w.y, z[4 * k + 2] = w.z, z[4 * k + 3] = w.w;
+    }
+    ddg::mbar_arrive(ddg::smem_u32(zempty));
+    // The logits and their max over the sampled rows (max is exact in any
+    // order).
+    float tmax = kNeg;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float4 bias = *reinterpret_cast<const float4*>(a.bias + v0 + 4 * k);
+      const float bv[4] = {bias.x, bias.y, bias.z, bias.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 4 * k + e;
+        z[c] = __fadd_rn(z[c], bv[e]);
+        if ((on >> c) & 1u) tmax = fmaxf(tmax, z[c]);
+      }
+    }
+    if (a.logits_out && tok0 + row(thread_x()) < a.T) {
+      const size_t tok = tok0 + row(thread_x());
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        *reinterpret_cast<float4*>(a.logits_out + tok * a.Vp + v0 + 4 * k) =
+            make_float4(z[4 * k], z[4 * k + 1], z[4 * k + 2], z[4 * k + 3]);
+    }
+    if (tmax > st.m) {
+      st.s *= __expf(st.m - tmax);
+      st.m = tmax;
+    }
+    // The noise: the eight Philox calls of the 32 rows, counters (v / 4,
+    // l, b, 0), kPhilox at a time round by round side by side.
+    if (a.gumbel) {
+#pragma unroll
+      for (int c = 0; c < 32; ++c) gn[c] = a.gumbel[((size_t)tb * a.Vp + v0 + c) * a.L + tl];
+    } else {
+#pragma unroll
+      for (int k0 = 0; k0 < 8; k0 += kPhilox) {
+        uint4 ctr[kPhilox];
+#pragma unroll
+        for (int k = 0; k < kPhilox; ++k)
+          ctr[k] = make_uint4(static_cast<unsigned>((v0 >> 2) + k0 + k),
+                              static_cast<unsigned>(tl), static_cast<unsigned>(tb), 0u);
+        unsigned key0 = seed, key1 = 0u;
+#pragma unroll
+        for (int rnd = 0; rnd < 10; ++rnd) {
+#pragma unroll
+          for (int k = 0; k < kPhilox; ++k) ctr[k] = philox_round(ctr[k], key0, key1);
+          key0 += 0x9E3779B9u;
+          key1 += 0xBB67AE85u;
+        }
+#pragma unroll
+        for (int k = 0; k < kPhilox; ++k) {
+          gn[4 * (k0 + k)] = gumbel_bits(ctr[k].x);
+          gn[4 * (k0 + k) + 1] = gumbel_bits(ctr[k].y);
+          gn[4 * (k0 + k) + 2] = gumbel_bits(ctr[k].z);
+          gn[4 * (k0 + k) + 3] = gumbel_bits(ctr[k].w);
+        }
+      }
+    }
+    // Each row's exp and perturbed score; the mask's Gumbel.
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      if (c == mc) st.mg += gn[c];
+      const bool in = (on >> c) & 1u;
+      gn[c] = in ? __fadd_rn(z[c], gn[c]) : -INFINITY;
+      z[c] = in ? __expf(z[c] - st.m) : 0.f;
+    }
+    // Their sum and best by fixed trees: pairs (2c, 2c + 1), then halves
+    // (c, c + w), the lower index kept on ties.
+    float g16[16], z16[16];
+    int i16[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      i16[c] = gn[2 * c + 1] > gn[2 * c] ? 2 * c + 1 : 2 * c;
+      g16[c] = fmaxf(gn[2 * c], gn[2 * c + 1]);
+      z16[c] = z[2 * c] + z[2 * c + 1];
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      i16[c] = g16[c + 8] > g16[c] ? i16[c + 8] : i16[c];
+      g16[c] = fmaxf(g16[c], g16[c + 8]);
+      z16[c] = z16[c] + z16[c + 8];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      i16[c] = g16[c + 4] > g16[c] ? i16[c + 4] : i16[c];
+      g16[c] = fmaxf(g16[c], g16[c + 4]);
+      z16[c] = z16[c] + z16[c + 4];
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      i16[c] = g16[c + 2] > g16[c] ? i16[c + 2] : i16[c];
+      g16[c] = fmaxf(g16[c], g16[c + 2]);
+      z16[c] = z16[c] + z16[c + 2];
+    }
+    i16[0] = g16[1] > g16[0] ? i16[1] : i16[0];
+    g16[0] = fmaxf(g16[0], g16[1]);
+    st.s += z16[0] + z16[1];
+    if (on) ddg::merge_arg(st.best, st.idx, g16[0], v0 + i16[0]);
+  }
+
+  // ---- The split's state of each token: its four lanes' merged in a
+  // fixed order, written per token.
+#pragma unroll
+  for (int o = 8; o < 32; o <<= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, st.m, o);
+    const float s2 = __shfl_xor_sync(0xffffffffu, st.s, o);
+    const float b2 = __shfl_xor_sync(0xffffffffu, st.best, o);
+    const int i2 = __shfl_xor_sync(0xffffffffu, st.idx, o);
+    const float g2 = __shfl_xor_sync(0xffffffffu, st.mg, o);
+    ddg::merge_ms(st.m, st.s, m2, s2);
+    ddg::merge_arg(st.best, st.idx, b2, i2);
+    st.mg += g2;
+  }
+  const int tok = tok0 + row(thread_x());
+  if (q == 0 && tok < a.T) {
+    const size_t o = (size_t)split * a.T + tok, n = (size_t)a.splits * a.T;
+    a.part[o] = st.m;
+    a.part[n + o] = st.s;
+    a.part[2 * n + o] = st.best;
+    a.part[3 * n + o] = __int_as_float(st.idx);
+    a.part[4 * n + o] = st.mg;
+  }
+}
+
+}  // namespace hw
+
 // One thread a token: merge the splits in order, then the posterior pick
 // and the copy-over (_head_kernel's _final, :539-556).
 __global__ void head_merge_kernel(const int* __restrict__ xt, const float* __restrict__ mct,
@@ -449,6 +844,83 @@ __global__ void head_merge_kernel(const int* __restrict__ xt, const float* __res
   const float pm_non = __fadd_rn(__fsub_rn(best, lse), logf(mct[b] - mcs[b]));
   const float pm_mask = __fadd_rn(logf(mcs[b]), mg);
   out[tok] = pm_non >= pm_mask ? idx : mask_index;
+}
+
+// How a call runs, from its shape alone (no SM count): path 1, the bf16
+// kernel above, where its feature tiles fit beside two W slots and Vp is
+// a multiple of a split (kSplitChunks kVt = 1024 rows); path 0, the first
+// kernel (fp32, int8, and bf16 otherwise), whose splits the wrapper sets.
+// ops/fused_sampling.py's `head_plan` mirrors it, and chip_smoke.py holds
+// the two equal through `ddg_head_plan`.
+struct HeadPlan {
+  int path, tokens, chunk, split_chunks, splits, stages, smem;
+};
+
+HeadPlan head_plan(int T, int D, int Vp, int mode) {
+  const int nk = (D + 63) / 64, st = hw::stages_for(nk);
+  if (mode != kModeBF16 || T <= 0 || D <= 0 || D % 8 || Vp <= 0 ||
+      Vp % (hw::kSplitChunks * hw::kVt) || st < 2)
+    return HeadPlan{0, 0, 0, 0, 0, 0, 0};
+  return HeadPlan{1, hw::kTok, hw::kVt, hw::kSplitChunks, Vp / (hw::kSplitChunks * hw::kVt), st,
+                  hw::smem_bytes(nk, st)};
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, fetched through the runtime's
+// entry-point query (no link against libcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
+      return nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (rows, cols) bf16 row-major tensor as boxes of box_rows x 64 in the
+// 128-byte swizzle; boxes past its edges read zeros.
+bool make_map(CUtensorMap* m, const void* base, int rows, int cols, int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t es[2] = {1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+             es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma(const HeadPlan& pl, const void* feats, const void* w, int D, const hw::HArgs& h,
+                 cudaStream_t stream) {
+  CUtensorMap tf, tw;
+  if (!make_map(&tf, feats, h.T, D, hw::kTok) || !make_map(&tw, w, h.Vp, D, hw::kVt))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        hw::head_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, hw::kSmemMax);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const dim3 grid((h.T + hw::kTok - 1) / hw::kTok, h.splits);
+  hw::head_wgmma_kernel<<<grid, hw::kThreads, pl.smem, stream>>>(tf, tw, h);
+  return cudaGetLastError();
 }
 
 template <int kMode>
@@ -498,16 +970,48 @@ extern "C" int ddg_head_sample(const void* seed, const void* xt, const void* fea
   a.Vp = Vp;
   a.V = V;
   a.mask_index = mask_index;
-  a.chunks_per_split = (n_ch + splits - 1) / splits;
-  if ((n_ch + a.chunks_per_split - 1) / a.chunks_per_split != splits) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  int rc = mode == kModeF32    ? launch<kModeF32>(a, splits, s)
-           : mode == kModeBF16 ? launch<kModeBF16>(a, splits, s)
-                               : launch<kModeS8>(a, splits, s);
+  const HeadPlan pl = head_plan(a.T, D, Vp, mode);
+  int rc;
+  if (pl.path == 1) {
+    if (splits != pl.splits) return cudaErrorInvalidValue;
+    hw::HArgs h;
+    h.seed = a.seed;
+    h.xt = a.xt;
+    h.bias = a.bias;
+    h.gumbel = a.gumbel;
+    h.logits_out = a.logits_out;
+    h.part = a.part;
+    h.T = a.T;
+    h.L = L;
+    h.nk = (D + 63) / 64;
+    h.Vp = Vp;
+    h.V = V;
+    h.mask_index = mask_index;
+    h.splits = splits;
+    h.stages = pl.stages;
+    rc = launch_wgmma(pl, feats, w, D, h, s);
+  } else {
+    a.chunks_per_split = (n_ch + splits - 1) / splits;
+    if ((n_ch + a.chunks_per_split - 1) / a.chunks_per_split != splits)
+      return cudaErrorInvalidValue;
+    rc = mode == kModeF32    ? launch<kModeF32>(a, splits, s)
+         : mode == kModeBF16 ? launch<kModeBF16>(a, splits, s)
+                             : launch<kModeS8>(a, splits, s);
+  }
   if (rc) return rc;
   head_merge_kernel<<<(a.T + 255) / 256, 256, 0, s>>>(a.xt, static_cast<const float*>(mct),
                                                        static_cast<const float*>(mcs), a.part,
                                                        static_cast<int*>(out), a.T, L, splits,
                                                        mask_index);
   return cudaGetLastError();
+}
+
+// The plan of a call (`head_plan`) into out[0..6]: path, tokens a block,
+// vocab rows a chunk, chunks a split, splits, W slots, shared memory a
+// block.
+extern "C" void ddg_head_plan(int T, int D, int Vp, int mode, int* out) {
+  const HeadPlan p = head_plan(T, D, Vp, mode);
+  const int v[7] = {p.path, p.tokens, p.chunk, p.split_chunks, p.splits, p.stages, p.smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
 }

@@ -15,40 +15,48 @@
 // and h0s, the state entering each chunk of `chunk` rows. Two designs, by
 // the batch (`use_passes`); K16 and K18 run the same scan.
 //
+// Both designs take one association, the three passes' (below), so a
+// row's y and h0s are the same bits at every batch and on every card, as
+// the TPU kernel's row does not depend on its batch: each chunk from its
+// entry state h0s[c] (h0s[0] = 0), h = fmaf(a_t, h, (delta_t u_t) B_t)
+// with a_t = exp(delta_t A) (ex2.approx of delta times A log2 e); the next
+// entry state h0s[c + 1] = fmaf(P, h0s[c], E), E the chunk's end state
+// from a zero state and P = exp(S A) with S the chunk's sum of delta_t,
+// row by row in order; a row's C . h over a group of 16 states as pairs
+// (2 j, 2 j + 1), fmaf(C[2j+1], h[2j+1], C[2j] h[2j]), summed by the tree
+// ((Y0 + Y4) + (Y2 + Y6)) + ((Y1 + Y5) + (Y3 + Y7)), the groups past 16
+// states added in order; y = fmaf(D, u, C.h) silu(z).
+//
 // The walk, `scan_fwd_kernel`, where the batch fills the card (at least
 // kWalkBlocksPerSm blocks an SM: 16 rows of d = 512 on an H100): one
 // launch that walks each row of L in order, as the TPU kernel carries h
 // across the chunks in VMEM. A block owns (b, 16 channels), 8 lanes a
 // channel, and a lane 2 of a group of 16 states, so each of the Bt d N
-// recurrences is one lane's register, stepped row by row with a_t =
-// exp(delta_t A) taken once (ex2.approx of delta times A log2 e: one SFU
-// operation) and never stored. Per batch of 16 rows a lane takes the exps,
-// then steps its states and forms their share of each row's C_t . h_t,
-// with no branch in that chain; the channel's 8 lanes sum the shares by a
-// reduce-scatter of shuffles (lanes j, j ^ 4; then j ^ 2; then j ^ 1),
-// after which lane j holds rows j and 8 + j of the batch, gates them and
-// writes them. The state after row c chunk - 1 goes to h0s[c] from the
-// lanes that hold it, so any chunk runs. Tiles of 64 rows of u, z and
-// delta (the block's channels) and of B and C (16 states) land in shared
-// memory by cp.async while the tile before runs, and are restaged once a
-// tile as the lanes read them: a (delta, delta u) pair a row and channel,
-// a lane's B and C pairs as one float4, one shared load each a row.
-// d_state > 16 walks L once a group of 16 states, in order, each row's
-// C . h of the groups so far kept in a (Bt L, d) fp32 workspace and gated
-// after the last group. The walk's association is fixed (per row: lane
-// j's two states, then the pairs above, then the groups in order). No P
-// and E, and no exp(delta A) taken twice where the chunk is a multiple of
-// 16 rows (a chunk that ends inside a 16-row batch has that batch stepped
-// again, exps and all); shared memory grows with neither chunk nor
+// recurrences is one lane's register, stepped row by row with a_t taken
+// once (one SFU operation) and never stored; beside h the lane steps E on
+// the same a_t and product (one more fmaf a state and row) and S (one add
+// a row), and at a chunk's last row it forms the carry as pass 2 does and
+// takes it as h. Per batch of 16 rows a lane takes the exps, then steps
+// its states and forms their share of each row's C_t . h_t, with no branch
+// in that chain where no chunk ends before the batch's last row; the
+// channel's 8 lanes sum the shares by a reduce-scatter of shuffles (lanes
+// j, j ^ 4; then j ^ 2; then j ^ 1), after which lane j holds rows j and
+// 8 + j of the batch, gates them and writes them. Tiles of 64 rows of u, z
+// and delta (the block's channels) and of B and C (16 states) land in
+// shared memory by cp.async while the tile before runs, and are restaged
+// once a tile as the lanes read them: a (delta, delta u) pair a row and
+// channel, a lane's B and C pairs as one float4, one shared load each a
+// row. d_state > 16 walks L once a group of 16 states, in order, each
+// row's C . h of the groups so far kept in a (Bt L, d) fp32 workspace and
+// gated after the last group. Shared memory grows with neither chunk nor
 // d_state.
 //
 // The three passes at a smaller batch, where the walk has one warp an SMSP
 // or fewer and waits on each batch's latencies: every chunk from a zero
-// state (its end state E and the product P of its a_t), the chunks'
-// entry states chained into h0s, every chunk again from h0s, read out
-// through C and gated; each exp taken twice, (b, chunk, channel) threads
-// filling the card. A row's bits therefore follow the batch it runs in
-// (both designs meet the same bars against the plain version).
+// state (E and S, then P), the chunks' entry states chained into h0s,
+// every chunk again from h0s, read out through C and gated; each exp
+// taken twice, (b, chunk, channel) threads filling the card. `use_passes`
+// picks the design by speed alone: the bits are the same.
 //
 // ddg_ssm_scan_dtlr (K16) is K14 on delta = softplus(dt_lr W_dt + b_dt):
 // `delta_kernel` (mamba.cuh) forms delta once per (row, channel) into a
@@ -198,19 +206,47 @@ __device__ __forceinline__ float lane_sum(const float (&yp)[kLanes], int j) {
   return (h1 ? y2[1] : y2[0]) + __shfl_xor_sync(0xffffffffu, h1 ? y2[0] : y2[1], 1);
 }
 
+// A row's C . h over a group of 16 states, in the one order both designs
+// take: each pair of states (2 j, 2 j + 1) as fmaf(C[2j+1], h[2j+1],
+// C[2j] h[2j]), then the 8 pairs' shares by the tree the walk's lanes sum
+// them in (`lane_sum`: pairs j and j ^ 4, then j ^ 2, then j ^ 1).
+__device__ __forceinline__ float pair_share(float c0, float c1, float h0, float h1) {
+  return fmaf(c1, h1, c0 * h0);
+}
+__device__ __forceinline__ float group_sum(const float (&c)[kMaxN], const float (&h)[kMaxN]) {
+  float s[kLanes];
+#pragma unroll
+  for (int k = 0; k < kLanes; ++k)
+    s[k] = pair_share(c[2 * k], c[2 * k + 1], h[2 * k], h[2 * k + 1]);
+  const float t0 = s[0] + s[4], t1 = s[1] + s[5], t2 = s[2] + s[6], t3 = s[3] + s[7];
+  return (t0 + t2) + (t1 + t3);
+}
+
+// The gate of a row's scan sum: (C.h + D u) silu(z), fp32.
+__device__ __forceinline__ float gate(float ys, float dv, float uu, float zz) {
+  return fmaf(dv, uu, ys) * (zz * sigmoid(zz));
+}
+
 // One block per (kScanCh channels, b); thread (c, j) = (threadIdx.x / 8,
 // threadIdx.x % 8) owns channel ch0 + c and states 2 j, 2 j + 1 of each
-// group, and walks all of L: per row h_s = a_t h_s + (delta_t u_t) B_t[s]
-// with a_t = exp(delta_t A_s), and its share C_t[2j] h + C_t[2j+1] h of the
-// row's C . h. A batch of 16 rows takes its exps first, then the states'
-// chain, with no branch between and nothing but h live after it; the
-// channel's lanes then sum the shares of rows 0-7 and 8-15 (lane j keeps
-// rows j and 8 + j), which lane j gates and writes (Grp, past 16 states:
-// before the last group, adds into ysum). A chunk that ends on a batch's
-// last row takes h as it stands; one that ends inside a batch (a chunk
-// that is not a multiple of 16) steps the batch's rows again from its
-// first state, exps and all, to that row (the same operations, the same
-// bits). The tile after this one lands by cp.async meanwhile.
+// group, and walks all of L in the three passes' association: per row h_s
+// = a_t h_s + (delta_t u_t) B_t[s] with a_t = exp(delta_t A_s), started
+// from the chunk's entry state h0 at each chunk's first row; beside it the
+// chunk's state from zero, E_s (the same a_t and product, one more fmaf),
+// and the sum S of the chunk's delta_t. At a chunk's last row the next
+// entry state is h0 = fmaf(P_s, h0, E_s) with P_s = exp(S A_s), as
+// `scan_carry_kernel` chains it from pass 1's P and E; it goes to h0s and
+// becomes h. Each row's share C_t[2j] h + C_t[2j+1] h is summed over the
+// channel's 8 lanes (`lane_sum`), as pass 3 sums a row's 16 states
+// (`group_sum`); groups past 16 states are added in order. So a row's y
+// and h0s are the bits the passes give, whatever the batch. A batch of 16
+// rows takes its exps first, then the chain, with no branch between where
+// no chunk ends before its last row; a batch inside which a chunk ends
+// (a chunk that is not a multiple of 16) steps its rows one at a time and
+// carries at each chunk's end. The channel's lanes then sum the shares of
+// rows 0-7 and 8-15 (lane j keeps rows j and 8 + j), which lane j gates
+// and writes (Grp, past 16 states: before the last group, adds into
+// ysum). The tile after this one lands by cp.async meanwhile.
 template <typename T, bool Grp>
 __global__ void __launch_bounds__(kScanThreads, 4)
     scan_fwd_kernel(const ScanArgs<T> p) {
@@ -236,14 +272,30 @@ __global__ void __launch_bounds__(kScanThreads, 4)
   for (int g = 0; g < n_groups; ++g) {
     const int n0 = g * kMaxN, nn = min(kMaxN, N - n0);
     const bool first = !Grp || g == 0, last = !Grp || g == n_groups - 1;
-    float a2[kPerLane], h[kPerLane];
+    float a2[kPerLane], h[kPerLane], h0[kPerLane], E[kPerLane], S = 0.f;
 #pragma unroll
     for (int s = 0; s < kPerLane; ++s) {
       const int n = n0 + kPerLane * j + s;
       a2[s] = n < N ? -expf(logf(-p.A[static_cast<size_t>(cl) * N + n])) * kLog2e : 0.f;
-      h[s] = 0.f;
+      h[s] = h0[s] = E[s] = 0.f;
       if (live && n < N) p.h0s[(hb + n) * d + ch] = 0.f;
     }
+    // The carry at the end of chunk cn - 1 (its last row): the entry state
+    // of chunk cn into h0s and h; E and S start again.
+    int next = chunk - 1, cn = 1;
+    auto carry = [&]() {
+#pragma unroll
+      for (int s = 0; s < kPerLane; ++s) {
+        h0[s] = fmaf(ex2(S * a2[s]), h0[s], E[s]);
+        h[s] = h0[s];
+        E[s] = 0.f;
+        const int n = n0 + kPerLane * j + s;
+        if (live && n < N) p.h0s[(hb + static_cast<size_t>(cn) * N + n) * d + ch] = h0[s];
+      }
+      S = 0.f;
+      next += chunk;
+      ++cn;
+    };
     auto fetch_tile = [&](int t0, int k) {
       const int rows = min(TR, L - t0);
       const size_t row0 = static_cast<size_t>(b) * L + t0;
@@ -256,7 +308,6 @@ __global__ void __launch_bounds__(kScanThreads, 4)
     };
     if (Grp && g > 0) __syncthreads();  // the last group's readers of raw tile 0 are done
     fetch_tile(0, 0);
-    int next = chunk - 1, cn = 1;   // the last row of chunk cn - 1; h then enters chunk cn
     int k = 0;
     for (int t0 = 0; t0 < L; t0 += TR, k ^= 1) {
       const int rows = min(TR, L - t0);
@@ -270,20 +321,50 @@ __global__ void __launch_bounds__(kScanThreads, 4)
       const T* zs = rz(k);
       for (int r0 = 0; r0 < rows; r0 += kBatch) {
         float a[kBatch][kPerLane], x[kBatch], yp[2][kLanes];
+        // Rows of the batch that end a chunk with a chunk after it.
+        const int tb = t0 + r0;
+        unsigned ends = 0u;
+        for (int e = next; e < tb + kBatch && e + 1 < L; e += chunk) ends |= 1u << (e - tb);
+        if ((ends & ~(1u << (kBatch - 1))) == 0u) {
 #pragma unroll
-        for (int r = 0; r < kBatch; ++r) {
-          const float2 dx = DX[(r0 + r) * CH + c];
-          x[r] = dx.y;
+          for (int r = 0; r < kBatch; ++r) {
+            const float2 dx = DX[(r0 + r) * CH + c];
+            x[r] = dx.y;
+            S += dx.x;
 #pragma unroll
-          for (int s = 0; s < kPerLane; ++s) a[r][s] = ex2(dx.x * a2[s]);
-        }
-        const float hs[kPerLane] = {h[0], h[1]};
+            for (int s = 0; s < kPerLane; ++s) a[r][s] = ex2(dx.x * a2[s]);
+          }
 #pragma unroll
-        for (int r = 0; r < kBatch; ++r) {
-          const float4 bc = BC[(r0 + r) * kLanes + j];
-          h[0] = fmaf(a[r][0], h[0], x[r] * bc.x);
-          h[1] = fmaf(a[r][1], h[1], x[r] * bc.y);
-          yp[r / kLanes][r % kLanes] = fmaf(bc.w, h[1], bc.z * h[0]);
+          for (int r = 0; r < kBatch; ++r) {
+            const float4 bc = BC[(r0 + r) * kLanes + j];
+            const float b0 = x[r] * bc.x, b1 = x[r] * bc.y;
+            h[0] = fmaf(a[r][0], h[0], b0);
+            h[1] = fmaf(a[r][1], h[1], b1);
+            E[0] = fmaf(a[r][0], E[0], b0);
+            E[1] = fmaf(a[r][1], E[1], b1);
+            yp[r / kLanes][r % kLanes] = pair_share(bc.z, bc.w, h[0], h[1]);
+          }
+          if (ends) carry();
+        } else {
+#pragma unroll
+          for (int r = 0; r < kBatch; ++r) {
+            const float2 dx = DX[(r0 + r) * CH + c];
+            x[r] = dx.y;
+#pragma unroll
+            for (int s = 0; s < kPerLane; ++s) a[r][s] = ex2(dx.x * a2[s]);
+          }
+#pragma unroll
+          for (int r = 0; r < kBatch; ++r) {
+            const float4 bc = BC[(r0 + r) * kLanes + j];
+            const float b0 = x[r] * bc.x, b1 = x[r] * bc.y;
+            S += DX[(r0 + r) * CH + c].x;
+            h[0] = fmaf(a[r][0], h[0], b0);
+            h[1] = fmaf(a[r][1], h[1], b1);
+            E[0] = fmaf(a[r][0], E[0], b0);
+            E[1] = fmaf(a[r][1], E[1], b1);
+            yp[r / kLanes][r % kLanes] = pair_share(bc.z, bc.w, h[0], h[1]);
+            if ((ends >> r) & 1u) carry();
+          }
         }
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
@@ -295,41 +376,7 @@ __global__ void __launch_bounds__(kScanThreads, 4)
             if (!last) {
               p.ysum[o] = v;
             } else {
-              const float uu = to_f32(us[rr * CH + c]), zz = to_f32(zs[rr * CH + c]);
-              p.y[o] = from_f32<T>((v + Dv * uu) * (zz * sigmoid(zz)));
-            }
-          }
-        }
-        // The chunks that end in the batch: the state after each such row
-        // into h0s.
-        const int tb = t0 + r0;
-        if (next < tb + kBatch) {
-          unsigned bmask = 0u;
-          int cb = cn;
-          while (next < tb + kBatch) {
-            bmask |= 1u << (next - tb);
-            next += chunk;
-            ++cn;
-          }
-          auto put = [&](const float (&hv)[kPerLane], int cc) {
-            if (!live || cc >= nc) return;
-#pragma unroll
-            for (int s = 0; s < kPerLane; ++s) {
-              const int n = n0 + kPerLane * j + s;
-              if (n < N) p.h0s[(hb + static_cast<size_t>(cc) * N + n) * d + ch] = hv[s];
-            }
-          };
-          if (bmask == 1u << (kBatch - 1)) {
-            put(h, cb);
-          } else {
-            float hh[kPerLane] = {hs[0], hs[1]};
-#pragma unroll
-            for (int r = 0; r < kBatch; ++r) {
-              const float2 dx = DX[(r0 + r) * CH + c];
-              const float4 bc = BC[(r0 + r) * kLanes + j];
-              hh[0] = fmaf(ex2(dx.x * a2[0]), hh[0], dx.y * bc.x);
-              hh[1] = fmaf(ex2(dx.x * a2[1]), hh[1], dx.y * bc.y);
-              if ((bmask >> r) & 1u) put(hh, cb++);
+              p.y[o] = from_f32<T>(gate(v, Dv, to_f32(us[rr * CH + c]), to_f32(zs[rr * CH + c])));
             }
           }
         }
@@ -345,8 +392,8 @@ __global__ void __launch_bounds__(kScanThreads, 4)
 // each batch's latencies (K14 at 4 x 32768: the walk 1.80 ms, these passes
 // 1.02; NVIDIA H100 80GB HBM3, PERF.md). There the chunks run in parallel
 // instead, each exp(delta A) taken twice: pass 1 runs every chunk from a
-// zero state for its end state E and the product P of its a_t, pass 2
-// chains them into h0s, pass 3 reruns every chunk from h0s and reads it out
+// zero state for its end state E and P = exp(S A) from the sum S of its
+// delta_t, pass 2 chains them into h0s, pass 3 reruns every chunk from h0s and reads it out
 // through C, gated; a thread holds 16 states of one channel. d_state > 16
 // runs passes 1 and 3 over groups of 16 states, pass 3 keeping each row's
 // C . h of the groups so far in shared memory (chunk x 128 floats), which
@@ -378,25 +425,22 @@ __global__ void __launch_bounds__(kPassThreads)
     stage_rows(Bc, ld_bc, row0, rows, rows, N, n0, Bs);
     __syncthreads();
     if (!live) continue;
-    float a2[kMaxN], h[kMaxN], p[kMaxN], bv[kMaxN];
+    float a2[kMaxN], h[kMaxN], bv[kMaxN], S = 0.f;
     load_a(A, ch, N, n0, a2);
 #pragma unroll
-    for (int n = 0; n < kMaxN; ++n) h[n] = 0.f, p[n] = 1.f;
+    for (int n = 0; n < kMaxN; ++n) h[n] = 0.f;
     for (int r = 0; r < rows; ++r) {
       const float dt = delta[(row0 + r) * d + ch];
       const float dtu = dt * to_f32(u[(row0 + r) * ld_u + ch]);
+      S += dt;
       load_row(Bs + r * kMaxN, bv);
 #pragma unroll
-      for (int n = 0; n < kMaxN; ++n) {
-        const float a = ex2(dt * a2[n]);
-        h[n] = fmaf(a, h[n], dtu * bv[n]);
-        p[n] *= a;
-      }
+      for (int n = 0; n < kMaxN; ++n) h[n] = fmaf(ex2(dt * a2[n]), h[n], dtu * bv[n]);
     }
 #pragma unroll
     for (int n = 0; n < kMaxN; ++n) {
       if (n0 + n >= N) break;
-      P[o + static_cast<size_t>(n0 + n) * d] = p[n];
+      P[o + static_cast<size_t>(n0 + n) * d] = ex2(S * a2[n]);
       E[o + static_cast<size_t>(n0 + n) * d] = h[n];
     }
   }
@@ -459,19 +503,15 @@ __global__ void __launch_bounds__(kPassThreads)
       const float dtu = dt * uu;
       load_row(Bs + r * kMaxN, bv);
       load_row(Cs + r * kMaxN, cv);
-      float ys = first ? 0.f : ysum[r * kPassThreads + threadIdx.x];
 #pragma unroll
-      for (int n = 0; n < kMaxN; ++n) {
-        const float a = ex2(dt * a2[n]);
-        h[n] = fmaf(a, h[n], dtu * bv[n]);
-        ys = fmaf(cv[n], h[n], ys);
-      }
+      for (int n = 0; n < kMaxN; ++n) h[n] = fmaf(ex2(dt * a2[n]), h[n], dtu * bv[n]);
+      const float yg = group_sum(cv, h);
+      const float ys = first ? yg : ysum[r * kPassThreads + threadIdx.x] + yg;
       if (!last) {
         ysum[r * kPassThreads + threadIdx.x] = ys;
         continue;
       }
-      const float zz = to_f32(z[row * ld_z + ch]);
-      y[row * d + ch] = from_f32<T>((ys + dv * uu) * (zz * sigmoid(zz)));
+      y[row * d + ch] = from_f32<T>(gate(ys, dv, uu, to_f32(z[row * ld_z + ch])));
     }
   }
 }

@@ -22,7 +22,10 @@ Head-fused absorbing state (K11, K12): the vocab projection of the head
 features runs inside the step, z = W f + bias (bf16 or fp32 operands,
 fp32 sums; or the int8 head's (acc * x_scale) * w_scale + bias), and the
 (B, L, V) logits never reach memory. The pick is the same posterior
-argmax as K7's.
+argmax as K7's. The bf16 head runs the TMA and wgmma kernel where
+`head_plan` (shape only) takes it; the fp32 and int8 heads, and bf16
+shapes off that plan, run the first kernel, whose vocab splits
+`head_splits` sets from the card's SM count.
 
 On CUDA tensors each function is one call of `csrc/absorbing_sample.cu`,
 `csrc/uniform_sample.cu` or `csrc/head_sample.cu`; on CPU tensors the
@@ -420,9 +423,45 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# The bf16 head kernel for Hopper (csrc `head_plan`, path 1): 64 tokens a
+# block, 128 vocab rows a chunk, 8 chunks a split (a block); D / 64
+# feature tiles of 8 KB, 2 to 8 W slots of 16 KB and a 64 x 132 fp32
+# logits tile a block, with 1 KB of alignment and the mbarriers, within
+# the card's shared memory.
+_HW_TOKENS, _HW_CHUNK, _HW_SPLIT_CHUNKS = 64, 128, 8
+_HW_TILE, _HW_STAGE, _HW_MAX_STAGES, _SMEM_MAX = 8192, 16384, 8, 232448
+_HW_Z = 64 * 132 * 4
+
+
+def _hw_smem(nk: int, stages: int) -> int:
+    return (1024 + nk * _HW_TILE + stages * _HW_STAGE + _HW_Z
+            + 8 * (2 * stages + 3))
+
+
+def head_plan(n_tokens: int, D: int, Vp: int, dtype) -> dict:
+    """How the card runs a head call, from its shape alone (no SM count),
+    as csrc `head_plan` (`ddg_head_plan`) does: path 1, the bf16 kernel
+    (TMA, wgmma, a block per 64 tokens and vocab split of 1024 rows),
+    where its feature tiles fit beside two W slots and Vp is a multiple of
+    1024; else path 0, the first kernel, with `head_splits`."""
+    nk = -(-D // 64)
+    stages = _HW_MAX_STAGES
+    while stages > 0 and _hw_smem(nk, stages) > _SMEM_MAX:
+        stages -= 1
+    rows = _HW_SPLIT_CHUNKS * _HW_CHUNK
+    if (dtype != torch.bfloat16 or n_tokens <= 0 or D <= 0 or D % 8
+            or Vp <= 0 or Vp % rows or stages < 2):
+        return dict(path=0, tokens=0, chunk=0, split_chunks=0, splits=0,
+                    stages=0, smem=0)
+    return dict(path=1, tokens=_HW_TOKENS, chunk=_HW_CHUNK,
+                split_chunks=_HW_SPLIT_CHUNKS, splits=Vp // rows,
+                stages=stages, smem=_hw_smem(nk, stages))
+
+
 def head_splits(n_tokens: int, Vp: int, sms: int) -> int:
-    """Vocab splits of the head kernel's grid: enough blocks for two a
-    multiprocessor, each split a whole number of chunks and none empty."""
+    """Vocab splits of the first head kernel's grid (fp32 and int8 heads,
+    `head_plan`'s path 0): enough blocks for two a multiprocessor, each
+    split a whole number of chunks and none empty."""
     chunks = Vp // HEAD_CHUNK
     tiles = -(-n_tokens // HEAD_TOKENS)
     want = min(chunks, max(1, -(-2 * sms // tiles)))
@@ -472,9 +511,10 @@ def _check_head(seed, xt, feats, w_t, bias_col, mct, mcs, vocab_size,
 def _launch_head(wrapper, seed, xt, feats, w_t, bias_col, x_scale, w_scale,
                  mct, mcs, vocab_size, mask_index, tile_v, gumbel_t,
                  logits_out=None):
-    """One call of `csrc/head_sample.cu` (the product-and-pick kernel, then
-    the merge of its vocab splits). `logits_out`, a (B, L, Vp) fp32
-    tensor, receives the logits the kernel formed (a probe for checks)."""
+    """One call of `csrc/head_sample.cu` (the product-and-pick kernel of
+    `head_plan`'s path, then the merge of its vocab splits in order).
+    `logits_out`, a (B, L, Vp) fp32 tensor, receives the logits the kernel
+    formed (a probe for checks)."""
     extra = () if x_scale is None else (x_scale, w_scale)
     seed = _check_head(seed, xt, feats, w_t, bias_col, mct, mcs, vocab_size,
                        mask_index, tile_v, gumbel_t, extra)
@@ -490,7 +530,9 @@ def _launch_head(wrapper, seed, xt, feats, w_t, bias_col, x_scale, w_scale,
                                    or tuple(logits_out.shape) != (B, L, Vp)
                                    or not logits_out.is_contiguous()):
         raise ValueError('logits_out must be contiguous float32 (B, L, Vp)')
-    splits = head_splits(B * L, Vp, _sm_count(feats.device.index or 0))
+    plan = head_plan(B * L, D, Vp, feats.dtype)
+    splits = (plan['splits'] if plan['path'] == 1 else
+              head_splits(B * L, Vp, _sm_count(feats.device.index or 0)))
     part = torch.empty((5, splits, B * L), dtype=torch.float32,
                        device=feats.device)
     out = torch.empty((B, L), dtype=torch.int32, device=feats.device)

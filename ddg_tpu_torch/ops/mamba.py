@@ -34,7 +34,8 @@ tensors each call runs `csrc/mamba.cu` (K18: in_proj, conv + x_proj +
 dt_proj, the scan, out_proj; K14: the scan, which is one launch that
 walks each row in order and takes each exp(delta A) once where the batch
 fills the card, else three chunk passes (from zero, their carries, again
-from the carries); K16: delta, then K14's scan) and adds one to the
+from the carries), both in the passes' association, so a row's bits do
+not depend on its batch; K16: delta, then K14's scan) and adds one to the
 wrapper's `launches`; on CPU tensors the plain versions below run
 instead. What the card takes is
 stated by `mamba_inner_takes`, `ssm_scan_takes` and
@@ -198,11 +199,12 @@ def scan_chunks(u, delta, A, B, C, chunk: int):
     """The selective scan in fp32, chunk-parallel as the kernel runs it.
 
     u, delta: (Bt, L, d); A: (d, N); B, C: (Bt, L, N), all fp32. Pass 1
-    runs every chunk from a zero state, keeping its end state and the
-    product of its a_t; pass 2 chains those into each chunk's entry
-    state; pass 3 reruns each chunk from its entry state and reads it out
-    through C. Rows past L (the last chunk's padding) have delta = 0:
-    a = 1, b = 0. Returns (C . h (Bt, L, d), h0s (Bt, n_chunks, N, d))."""
+    runs every chunk from a zero state, keeping its end state E and its
+    decay P = exp(A sum_t delta_t) (the product of its a_t, formed as the
+    kernels form it); pass 2 chains those into each chunk's entry state;
+    pass 3 reruns each chunk from its entry state and reads it out through
+    C. Rows past L (the last chunk's padding) have delta = 0: a = 1, b = 0.
+    Returns (C . h (Bt, L, d), h0s (Bt, n_chunks, N, d))."""
     Bt, L, d = u.shape
     nc = -(-L // chunk)
     pad = nc * chunk - L
@@ -219,10 +221,9 @@ def scan_chunks(u, delta, A, B, C, chunk: int):
 
     h = torch.zeros((Bt, nc, d, A.shape[1]), dtype=torch.float32,
                     device=u.device)
-    p = torch.ones_like(h)
     for j in range(chunk):
-        a, h = step(h, j)
-        p = p * a
+        _, h = step(h, j)
+    p = torch.exp(dt.sum(2)[..., None] * A)
     e = torch.zeros_like(h[:, 0])
     entries = []
     for c in range(nc):

@@ -18,7 +18,11 @@ L=1024, d_state 16 and 64. `--digest` adds a hash of each kernel's outputs on in
 from fixed seeds: the scans at B=2, L=4096, d_state 16 and at L=1024,
 d_state 64; K16 and K17 at B=2, L=1024 with dt_rank 64, 200 and 248 at
 d_state 16 and 184 at d_state 32; K18 and K19 at B=2, L=2048, d_state 16
-and 32. Two trees run on
+and 32; K14, K16 and K18 at 16 rows of L=1024 (the forward scan's walk);
+K18 with the k-step front (hidden 1536, d_inner 3072, dt_rank 96, B=2,
+L=512, ROADMAP B.10); and for each K18 case, apart, K18's in_proj product
+and front (xz, u, x_dbl, delta: `K18..._front`), which no change to the
+scan moves. Two trees run on
 the same data, so equal hashes mean bit-identical outputs. `--profile`
 adds ptxas's registers and spills of the scan, front and dt kernels and the
 device ms a call of each kernel that K14, K16 and K18 launch at 16, 8 and
@@ -202,10 +206,61 @@ def digests(cs, M):
         kw = dict(d_state=N, dt_rank=cs.SR)
         y18 = M.mamba_inner(h, **w, **kw, return_h0s=True)
         out[f'K18_N{N}'] = _hash(y18)
+        out[f'K18_N{N}_front'] = _hash(k18_parts(M, h, w, N, cs.SR)[:4])
         g = cs._rand(gen, 2, 2048, cs.SH, dtype=bf)
         out[f'K19_N{N}'] = _hash(M.mamba_inner_bwd(h, *w.values(), y18[1],
                                                    g, **kw))
+    # 16 rows: the forward scan's walk (the cases above run its passes).
+    gen = torch.Generator(device='cuda').manual_seed(4016)
+    a16, a14 = cs._scan_inputs(gen, bf, 16, 1024)
+    out['K14_B16'] = _hash(M.ssm_scan(*a14, return_h0s=True))
+    out['K16_B16'] = _hash(M.ssm_scan_dtlr(*a16, return_h0s=True))
+    w = cs._mamba_weights(gen, bf)
+    h = cs._rand(gen, 16, 1024, cs.SH, dtype=bf)
+    out['K18_B16'] = _hash(M.mamba_inner(h, **w, d_state=cs.SN,
+                                         dt_rank=cs.SR, return_h0s=True))
+    out['K18_B16_front'] = _hash(k18_parts(M, h, w, cs.SN, cs.SR)[:4])
+    # The k-step front (`mamba_front_wide_kernel`): d_inner 3072, dt_rank 96.
+    gen = torch.Generator(device='cuda').manual_seed(4096)
+    w = cs._mamba_weights(gen, bf, H=1536, d=3072, R=96)
+    h = cs._rand(gen, 2, 512, 1536, dtype=bf)
+    out['K18_wide'] = _hash(M.mamba_inner(h, **w, d_state=cs.SN, dt_rank=96,
+                                          return_h0s=True))
+    out['K18_wide_front'] = _hash(k18_parts(M, h, w, cs.SN, 96)[:4])
     return out
+
+
+def k18_parts(M, h, w, N, R, chunk=128):
+    """One bf16 K18 call (`ddg_mamba_inner`) on buffers of its own: (xz,
+    u, x_dbl, delta, y, out, h0s), so that in_proj's product and the
+    front (the first four) can be told apart from the scan's outputs."""
+    from ddg_tpu_torch.ops import _build
+    bf = torch.bfloat16
+    Bt, L, H = h.shape
+    d = w['W_in'].shape[1] // 2
+    K = w['conv_w'].shape[0]
+    prep = (w['W_in'].t(), w['conv_w'].reshape(K, d), w['conv_b'],
+            w['W_x'].t(), w['W_dt'].float(), w['b_dt'].float(),
+            w['A'].float(), w['D'].float(), w['W_out'].t())
+    prep = [t.to(bf).contiguous() if i in (0, 1, 2, 3, 8) else
+            t.contiguous() for i, t in enumerate(prep)]
+    dev = h.device
+    xz = torch.empty((Bt, L, 2 * d), dtype=bf, device=dev)
+    u = torch.empty((Bt, L, d), dtype=bf, device=dev)
+    x_dbl = torch.empty((Bt, L, R + 2 * N), dtype=bf, device=dev)
+    y = torch.empty((Bt, L, d), dtype=bf, device=dev)
+    out = torch.empty((Bt, L, H), dtype=bf, device=dev)
+    delta = torch.empty((Bt, L, d), dtype=torch.float32, device=dev)
+    h0s, ysum, P, E = M._scan_buffers(u, d, N, chunk)
+    fn = _build.kernel('mamba', 'ddg_mamba_inner',
+                       (_build.ptr,) * 20 + (_build.i32,) * 9 + (_build.ptr,))
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    rc = fn(h.contiguous().data_ptr(), *(t.data_ptr() for t in prep),
+            xz.data_ptr(), u.data_ptr(), x_dbl.data_ptr(), delta.data_ptr(),
+            h0s.data_ptr(), ptr(ysum), ptr(P), ptr(E), y.data_ptr(),
+            out.data_ptr(), Bt, L, H, d, K, R, N, chunk, 1, _build.stream(h))
+    _build.check(rc, 'ddg_mamba_inner')
+    return xz, u, x_dbl, delta, y, out, h0s
 
 
 def f64_gaps(cs, M):

@@ -156,9 +156,37 @@ def test_head_preparations_match_jax():
 
 
 def test_head_splits_fill_the_card():
-    """The kernel's vocab splits at the LM1B slice (3072 tokens, Vp =
-    30720) on a 132-multiprocessor card: 24 token tiles x 11 splits, every
-    split a whole number of 128-row chunks and none empty."""
+    """The bf16 head kernel's plan at the LM1B slice (3072 tokens, D = 768,
+    Vp = 30720), from the shape alone (`head_plan` takes no SM count): 48
+    token tiles of 64 times 30 vocab splits of 8 chunks of 128 rows, 1440
+    blocks (more than 10 a multiprocessor on a 132-multiprocessor card),
+    each split whole and none empty; 6 W slots beside the 12 feature tiles
+    and the logits tile, within the card's shared memory; D up to 1280 (2
+    slots). fp32 and int8 heads keep the first kernel, whose splits follow
+    the card (`head_splits`: 24 token tiles x 11 splits at 132
+    multiprocessors, every split a whole number of 128-row chunks and
+    none empty)."""
+    import inspect
+    assert list(inspect.signature(tfs.head_plan).parameters) == [
+        'n_tokens', 'D', 'Vp', 'dtype']
+    p = tfs.head_plan(3072, 768, 30720, torch.bfloat16)
+    assert p == dict(path=1, tokens=64, chunk=128, split_chunks=8,
+                     splits=30, stages=6,
+                     smem=1024 + 12 * 8192 + 6 * 16384 + 64 * 132 * 4
+                     + 8 * 15)
+    assert -(-3072 // p['tokens']) * p['splits'] == 1440 > 10 * 132
+    assert p['splits'] * p['split_chunks'] * p['chunk'] == 30720
+    assert p['smem'] <= 232448
+    for n_tok, D, Vp, stages in ((64, 768, 2048, 6), (3072, 1280, 30720, 2),
+                                 (100, 128, 1024, 8), (7, 1024, 4096, 4)):
+        q = tfs.head_plan(n_tok, D, Vp, torch.bfloat16)
+        assert (q['path'], q['stages'], q['splits']) == (1, stages,
+                                                          Vp // 1024)
+        assert q['smem'] <= 232448
+    for dtype, D, Vp in ((torch.float32, 768, 30720), (torch.int8, 768, 30720),
+                         (torch.bfloat16, 1344, 30720),
+                         (torch.bfloat16, 768, 30720 + 128)):
+        assert tfs.head_plan(3072, D, Vp, dtype)['path'] == 0
     assert tfs.head_splits(3072, 30720, 132) == 11
     for n_tok, Vp in ((64, 384), (3072, 30720), (4, 128), (40000, 256)):
         s = tfs.head_splits(n_tok, Vp, 132)

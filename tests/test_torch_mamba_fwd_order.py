@@ -1,23 +1,30 @@
-"""A torch emulation of the association order of the walk, the forward scan
-that K14, K16 and K18 share where a batch fills the card (`csrc/mamba.cu`,
-`scan_fwd_kernel`; smaller batches run three chunk passes, the plain
-version's order), and of the delta K18's front forms, held against the float64 recurrence, against the plain
-versions (`ops.mamba.scan_chunks`, `ssm_scan_plain`, `mamba_inner_plain`,
-the chunk-parallel order) and against JAX's `selective_scan_pallas` and
-`mamba_inner_pallas` in interpret mode; with the wrappers' mirror of the
-kernels' shared memory and what the card takes.
+"""A torch emulation of the one association order of the forward scan that
+K14, K16 and K18 share (`csrc/mamba.cu`): the walk, `scan_fwd_kernel`,
+where a batch fills the card, and the three chunk passes,
+`scan_chunk_kernel`, `scan_carry_kernel` and `scan_out_kernel`, at a
+smaller batch, each emulated with the same elementwise operations and held
+bit-equal to the other; and of the delta K18's front forms; held against
+the float64 recurrence, against the plain versions (`ops.mamba.
+scan_chunks`, `ssm_scan_plain`, `mamba_inner_plain`) and against JAX's
+`selective_scan_pallas` and `mamba_inner_pallas` in interpret mode; with
+the wrappers' mirror of the kernels' shared memory and what the card takes.
 
-The kernel's order: each (row of the batch, channel, state) recurrence is
-one lane's register, stepped over L in order, h = a_t h + b_t with a_t =
-exp(delta_t A) and b_t = (delta_t u_t) B_t; no chunk splits it. A lane
-holds states 2 j and 2 j + 1 of a group of 16 and forms its share of each
-row's C . h as C_t[2j] h + C_t[2j+1] h; the 8 shares of a row are summed
-by a reduce-scatter, lanes j and j ^ 4 first, then j ^ 2, then j ^ 1:
-((Y0 + Y4) + (Y2 + Y6)) + ((Y1 + Y5) + (Y3 + Y7)). Past 16 states the
-groups run in order and their sums are added in order. The state after
-row c chunk - 1 is h0s[c], h0s[0] = 0; rows past L have delta = 0 (a = 1,
-b = 0). Nothing in the walk's order depends on the batch, the chunk or the
-card.
+The order: every chunk runs from its entry state h0s[c] (h0s[0] = 0), h =
+a_t h + b_t with a_t = exp(delta_t A) and b_t = (delta_t u_t) B_t; the next
+entry state is h0s[c + 1] = P h0s[c] + E, with E the chunk's end state from
+a zero state and P = exp(S A), S the chunk's delta_t summed row by row in
+order. The walk steps h over L in order beside E and S and takes the carry
+as h at each chunk's last row; the passes run every chunk from zero (E, S),
+chain the carries, and run every chunk again from h0s. A row's C . h over a
+group of 16 states: the pairs (2 j, 2 j + 1), then
+((Y0 + Y4) + (Y2 + Y6)) + ((Y1 + Y5) + (Y3 + Y7)), as the walk's 8 lanes
+sum their shares by a reduce-scatter (lanes j and j ^ 4, then j ^ 2, then
+j ^ 1) and pass 3 sums a thread's 16 states; past 16 states the groups run
+in order and their sums are added in order. Rows past L have delta = 0 (a
+= 1, b = 0). Nothing in this order depends on the batch or the card, so
+the card may pick either design by speed. (The kernels' fmaf is a multiply
+and an add here; the two emulations share every elementwise operation, the
+exps included, so they agree bit for bit.)
 K18's delta is the front's: pre = sum over k of dt_lr[k] W_dt[k], k
 ascending (in fours, zeros past dt_rank), then softplus(pre + b_dt):
 `dt_pre`'s order.
@@ -59,32 +66,97 @@ def _lane_sum(pr):
     return y[..., 0] + y[..., 1]                # then j ^ 1
 
 
+def _pad_states(A, B, C):
+    """A, B and C with zero states up to whole groups of 16."""
+    pad = -(-A.shape[1] // GROUP) * GROUP - A.shape[1]
+    return F.pad(A, (0, pad)), F.pad(B, (0, pad)), F.pad(C, (0, pad))
+
+
+def _step_terms(u, delta, A, B):
+    """(a_t, b_t), each (Bt, L, d, states): a_t = exp(delta_t A) and b_t =
+    (delta_t u_t) B_t, formed once for both emulations (the kernels take
+    the same exp at each use)."""
+    return (torch.exp(delta[..., None] * A),
+            (delta * u)[..., None] * B[:, :, None, :])
+
+
+def _chunk_sums(delta, chunk):
+    """S (Bt, n_chunks, d): each chunk's delta_t summed row by row in
+    order."""
+    Bt, L, d = delta.shape
+    S = torch.zeros((Bt, -(-L // chunk), d), dtype=delta.dtype)
+    for t in range(L):
+        S[:, t // chunk] = S[:, t // chunk] + delta[:, t]
+    return S
+
+
 def scan_in_kernel_order(u, delta, A, B, C, chunk):
     """(C . h (Bt, L, d), h0s (Bt, n_chunks, N, d)) as `scan_chunks`
-    returns them, in the kernel's association order; every input of one
-    float dtype, A round-tripped (d, N)."""
+    returns them, in the walk's steps (`scan_fwd_kernel`): each row in
+    order, E and S beside h, the carry taken as h at a chunk's last row;
+    every input of one float dtype, A round-tripped (d, N)."""
     Bt, L, d = u.shape
     N = A.shape[1]
-    ng, nc = -(-N // GROUP), -(-L // chunk)
-    pad = ng * GROUP - N
-    Ap = F.pad(A, (0, pad))
-    Bp, Cp = F.pad(B, (0, pad)), F.pad(C, (0, pad))
-    dtu = delta * u
-    h0s = torch.zeros((Bt, nc, ng * GROUP, d), dtype=u.dtype)
+    nc = -(-L // chunk)
+    Ap, Bp, Cp = _pad_states(A, B, C)
+    a, b = _step_terms(u, delta, Ap, Bp)
+    P = torch.exp(_chunk_sums(delta, chunk)[..., None] * Ap)
+    h0s = torch.zeros((Bt, nc, Ap.shape[1], d), dtype=u.dtype)
     ysum = None
-    for g in range(ng):
+    for g in range(Ap.shape[1] // GROUP):
         sl = slice(g * GROUP, (g + 1) * GROUP)
-        h = torch.zeros((Bt, d, GROUP), dtype=u.dtype)
+        h = h0 = E = torch.zeros((Bt, d, GROUP), dtype=u.dtype)
         ys = []
         for t in range(L):
-            a = torch.exp(delta[:, t, :, None] * Ap[:, sl])
-            h = a * h + dtu[:, t, :, None] * Bp[:, t, None, sl]
+            h = a[:, t, :, sl] * h + b[:, t, :, sl]
+            E = a[:, t, :, sl] * E + b[:, t, :, sl]
             ys.append(_lane_sum(Cp[:, t, None, sl] * h))
-            if (t + 1) % chunk == 0 and (t + 1) // chunk < nc:
-                h0s[:, (t + 1) // chunk, sl] = h.transpose(1, 2)
+            c = (t + 1) // chunk
+            if (t + 1) % chunk == 0 and c < nc:
+                h0 = P[:, c - 1, :, sl] * h0 + E
+                h, E = h0, torch.zeros_like(E)
+                h0s[:, c, sl] = h0.transpose(1, 2)
         y = torch.stack(ys, dim=1)
         ysum = y if ysum is None else ysum + y
     return ysum, h0s[:, :, :N]
+
+
+def scan_in_pass_order(u, delta, A, B, C, chunk):
+    """The same, in the three passes' steps (`scan_chunk_kernel`,
+    `scan_carry_kernel`, `scan_out_kernel`): every chunk from zero for E
+    (and S, then P), the carries chained into h0s, every chunk again from
+    h0s and read out through C; the chunks side by side."""
+    Bt, L, d = u.shape
+    N = A.shape[1]
+    nc = -(-L // chunk)
+    Ap, Bp, Cp = _pad_states(A, B, C)
+    a, b = _step_terms(u, delta, Ap, Bp)
+    pad = nc * chunk - L
+
+    def split(x, value=0.0):
+        x = F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad), value=value)
+        return x.reshape(Bt, nc, chunk, *x.shape[2:])
+
+    a, b, Cs = split(a, 1.0), split(b), split(Cp)
+    P = torch.exp(_chunk_sums(delta, chunk)[..., None] * Ap)
+    E = torch.zeros((Bt, nc, d, Ap.shape[1]), dtype=u.dtype)
+    for j in range(chunk):
+        E = a[:, :, j] * E + b[:, :, j]
+    e, entries = torch.zeros_like(E[:, 0]), []
+    for c in range(nc):
+        entries.append(e)
+        e = P[:, c] * e + E[:, c]
+    h0 = torch.stack(entries, dim=1)
+    ysum = None
+    for g in range(Ap.shape[1] // GROUP):
+        sl = slice(g * GROUP, (g + 1) * GROUP)
+        h, ys = h0[..., sl], []
+        for j in range(chunk):
+            h = a[:, :, j, :, sl] * h + b[:, :, j, :, sl]
+            ys.append(_lane_sum(Cs[:, :, j, None, sl] * h))
+        y = torch.stack(ys, dim=2).reshape(Bt, nc * chunk, d)[:, :L]
+        ysum = y if ysum is None else ysum + y
+    return ysum, h0.transpose(2, 3)[:, :, :N].contiguous()
 
 
 def delta_in_kernel_order(lr, W_dt, b_dt):
@@ -165,16 +237,35 @@ def test_float32_emulation_within_k14_bars(L, N, chunk, Bt):
         assert gap <= 4 * plain_gap + 1e-6 * m, (name, gap, plain_gap)
 
 
+@pytest.mark.parametrize('N', [16, 24])
+@pytest.mark.parametrize('chunk', [16, 60, 128])
+@pytest.mark.parametrize('Bt', [1, 2, 4])
+def test_walk_and_passes_give_the_same_bits(Bt, chunk, N):
+    """The walk's steps and the passes' steps, on the same elementwise
+    operations, give equal float32 y and h0s: the card may run either at
+    any batch (chunk 60 ends inside a 16-row batch of the walk; L = 200
+    pads the last chunk)."""
+    u, delta, A, B, C, _, _ = _inputs(7, Bt, 200, D, N)
+    A_rt = mamba._round_trip(A)
+    walk = scan_in_kernel_order(u, delta, A_rt, B, C, chunk)
+    passes = scan_in_pass_order(u, delta, A_rt, B, C, chunk)
+    for name, x, y in zip(('y', 'h0s'), walk, passes):
+        assert torch.equal(x, y), name
+
+
 def test_emulated_rows_do_not_depend_on_the_batch():
-    """A row's y and h0s in the walk's order are the same bits alone and as
-    the first row of a batch of four: no part of the walk's order follows
-    the batch (the card picks the walk or the passes by the batch, and
-    holds each to the plain version)."""
+    """A row's y and h0s are the same bits alone and as the first row of a
+    batch of four, in the walk's steps and in the passes' (the card picks
+    the design by the batch): no part of the order follows the batch."""
     u, delta, A, B, C, _, _ = _inputs(6, 4, 200, D, 24)
     A_rt = mamba._round_trip(A)
-    y4, h4 = scan_in_kernel_order(u, delta, A_rt, B, C, 60)
-    y1, h1 = scan_in_kernel_order(u[:1], delta[:1], A_rt, B[:1], C[:1], 60)
-    assert torch.equal(y4[:1], y1) and torch.equal(h4[:1], h1)
+    one = [t[:1] for t in (u, delta)] + [A_rt, B[:1], C[:1]]
+    ref = scan_in_kernel_order(*one, 60)
+    for emulate in (scan_in_kernel_order, scan_in_pass_order):
+        y4, h4 = emulate(u, delta, A_rt, B, C, 60)
+        y1, h1 = emulate(*one, 60)
+        assert torch.equal(y4[:1], y1) and torch.equal(h4[:1], h1)
+        assert torch.equal(y1, ref[0]) and torch.equal(h1, ref[1])
 
 
 @pytest.mark.parametrize('L, chunk', [(256, 128), (200, 64)],

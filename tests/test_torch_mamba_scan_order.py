@@ -229,3 +229,19 @@ def test_plain_backward_agrees_with_the_emulation():
                                                                 e[7])):
         torch.testing.assert_close(x, y, rtol=1e-4,
                                    atol=1e-4 * float(y.abs().max()), msg=name)
+
+
+def test_emulated_row_gradients_do_not_depend_on_the_batch():
+    """A row's outputs of the adjoint (ddelta, du, dB, dC, y, dz) are the
+    same bits alone and as the first row of a batch of four, given the
+    row's h0s (the forward's, whose bits no longer follow the batch): the
+    adjoint's order follows the shape of a row only. dA and dD sum over
+    the batch and are left out."""
+    u, delta, A, B, C, D, z, g = _inputs(4, 4, 120, 16, 8)
+    A_rt = mamba._round_trip(A)
+    _, h0s = mamba.scan_chunks(u, delta, A_rt, B, C, 60)
+    four = adjoint_in_kernel_order(u, delta, A_rt, B, C, D, z, g, h0s, 60)
+    one = adjoint_in_kernel_order(u[:1], delta[:1], A_rt, B[:1], C[:1], D,
+                                  z[:1], g[:1], h0s[:1], 60)
+    for name, x, y in zip(('ddt', 'du', 'dB', 'dC', 'y', 'dz'), four, one):
+        assert torch.equal(x[:1], y), name
