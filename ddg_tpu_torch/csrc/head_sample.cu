@@ -29,8 +29,8 @@
 //
 // Two designs, by `head_plan` (from the shape alone): the bf16 head runs
 // `hw::head_wgmma_kernel` (TMA, wgmma, warp-specialised; described at its
-// namespace below) where its feature tiles fit and Vp is a multiple of
-// 1024; every other call runs the first design:
+// namespace below) where its feature tiles fit (D up to 1280); every other
+// call runs the first design:
 //
 // One block of 8 warps takes 128 tokens and a contiguous range of 128-row
 // vocab chunks (the vocab is split across blockIdx.y so that the 24 token
@@ -430,7 +430,8 @@ __global__ void __launch_bounds__(kThreads, 2) head_sample_kernel(const Args a) 
 // ---- The bf16 kernel for Hopper (path 1 of `head_plan`) -----------------
 //
 // A block takes kTok = 64 tokens and one vocab split of kSplitChunks chunks
-// of kVt = 128 rows, with its warps specialised:
+// of kVt = 128 rows (the last split what is left), with its warps
+// specialised:
 //   - the producer (the last warp's first thread) loads the block's
 //     features once (D / 64 tiles of 64 x 64 bf16 in the 128-byte swizzle,
 //     by TMA) and W's tiles of 128 rows x 64 columns through a ring of
@@ -455,14 +456,13 @@ __global__ void __launch_bounds__(kThreads, 2) head_sample_kernel(const Args a) 
 // inner log, whose argument nears 1 for the largest draws, stays logf.
 // Thirteen warps leave each thread 128 registers, without spills.
 //
-// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md): consumer
-// warpgroups that each ran their own chunks' products and epilogues in
-// turn (ping-pong by named barriers) left one or two warps an SMSP on the
-// epilogue, latency-bound (0.84 ms a call, 0.39 for their products
-// alone); `setmaxnreg` did not lift ptxas's allocation above the launch
-// bound's; a cluster of 2 with W's tiles multicast doubled the products'
-// time (0.45 against 0.20 ms), so L2 does not set the pace and each block
-// loads its own W tiles.
+// Layouts tried before this one and dropped (no script of the repo times
+// them, so no times are given): consumer warpgroups that each ran their
+// own chunks' products and epilogues in turn (ping-pong by named
+// barriers), which left one or two warps an SMSP on the latency-bound
+// epilogue; `setmaxnreg`, which did not lift ptxas's allocation above the
+// launch bound's; a cluster of 2 with W's tiles multicast, whose products
+// were slower than each block loading its own W tiles.
 namespace hw {
 
 constexpr int kTok = 64;                 // tokens a block: one wgmma M
@@ -588,7 +588,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* zempty = zfull + 1;
   const int tid = threadIdx.x;
   const int tok0 = blockIdx.x * kTok, split = blockIdx.y;
-  const int items = kSplitChunks;
+  const int items = min(kSplitChunks, a.Vp / kVt - split * kSplitChunks);
 
   // A block whose tokens are all decoded has nothing to sample.
   const bool mine = tid < kTok && tok0 + tid < a.T && a.xt[tok0 + tid] == a.mask_index;
@@ -847,9 +847,10 @@ __global__ void head_merge_kernel(const int* __restrict__ xt, const float* __res
 }
 
 // How a call runs, from its shape alone (no SM count): path 1, the bf16
-// kernel above, where its feature tiles fit beside two W slots and Vp is
-// a multiple of a split (kSplitChunks kVt = 1024 rows); path 0, the first
-// kernel (fp32, int8, and bf16 otherwise), whose splits the wrapper sets.
+// kernel above, where its feature tiles fit beside two W slots; path 0,
+// the first kernel (fp32, int8, and bf16 past D = 1280). A bf16 head's
+// vocab splits are kSplitChunks kVt = 1024 rows (the last what is left)
+// on either path; the fp32 and int8 heads' splits the wrapper sets.
 // ops/fused_sampling.py's `head_plan` mirrors it, and chip_smoke.py holds
 // the two equal through `ddg_head_plan`.
 struct HeadPlan {
@@ -858,11 +859,11 @@ struct HeadPlan {
 
 HeadPlan head_plan(int T, int D, int Vp, int mode) {
   const int nk = (D + 63) / 64, st = hw::stages_for(nk);
-  if (mode != kModeBF16 || T <= 0 || D <= 0 || D % 8 || Vp <= 0 ||
-      Vp % (hw::kSplitChunks * hw::kVt) || st < 2)
+  const int rows = hw::kSplitChunks * hw::kVt, splits = (Vp + rows - 1) / rows;
+  if (mode != kModeBF16 || T <= 0 || D <= 0 || D % 8 || Vp <= 0 || Vp % hw::kVt)
     return HeadPlan{0, 0, 0, 0, 0, 0, 0};
-  return HeadPlan{1, hw::kTok, hw::kVt, hw::kSplitChunks, Vp / (hw::kSplitChunks * hw::kVt), st,
-                  hw::smem_bytes(nk, st)};
+  if (st < 2) return HeadPlan{0, 0, 0, hw::kSplitChunks, splits, 0, 0};
+  return HeadPlan{1, hw::kTok, hw::kVt, hw::kSplitChunks, splits, st, hw::smem_bytes(nk, st)};
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -972,9 +973,9 @@ extern "C" int ddg_head_sample(const void* seed, const void* xt, const void* fea
   a.mask_index = mask_index;
   auto s = static_cast<cudaStream_t>(stream);
   const HeadPlan pl = head_plan(a.T, D, Vp, mode);
+  if (mode == kModeBF16 && splits != pl.splits) return cudaErrorInvalidValue;
   int rc;
   if (pl.path == 1) {
-    if (splits != pl.splits) return cudaErrorInvalidValue;
     hw::HArgs h;
     h.seed = a.seed;
     h.xt = a.xt;

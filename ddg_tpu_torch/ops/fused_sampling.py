@@ -23,9 +23,9 @@ features runs inside the step, z = W f + bias (bf16 or fp32 operands,
 fp32 sums; or the int8 head's (acc * x_scale) * w_scale + bias), and the
 (B, L, V) logits never reach memory. The pick is the same posterior
 argmax as K7's. The bf16 head runs the TMA and wgmma kernel where
-`head_plan` (shape only) takes it; the fp32 and int8 heads, and bf16
-shapes off that plan, run the first kernel, whose vocab splits
-`head_splits` sets from the card's SM count.
+`head_plan` (shape only) takes it, and the first kernel past D = 1280,
+both in vocab splits of 1024 rows; the fp32 and int8 heads run the first
+kernel, whose vocab splits `head_splits` sets from the card's SM count.
 
 On CUDA tensors each function is one call of `csrc/absorbing_sample.cu`,
 `csrc/uniform_sample.cu` or `csrc/head_sample.cu`; on CPU tensors the
@@ -440,28 +440,35 @@ def _hw_smem(nk: int, stages: int) -> int:
 
 def head_plan(n_tokens: int, D: int, Vp: int, dtype) -> dict:
     """How the card runs a head call, from its shape alone (no SM count),
-    as csrc `head_plan` (`ddg_head_plan`) does: path 1, the bf16 kernel
-    (TMA, wgmma, a block per 64 tokens and vocab split of 1024 rows),
-    where its feature tiles fit beside two W slots and Vp is a multiple of
-    1024; else path 0, the first kernel, with `head_splits`."""
+    as csrc `head_plan` (`ddg_head_plan`) does. A bf16 head takes vocab
+    splits of 1024 rows (the last what is left): on path 1, the bf16
+    kernel (TMA, wgmma, a block per 64 tokens and split), where its
+    feature tiles fit beside two W slots (D up to 1280); else on path 0,
+    the first kernel. The fp32 and int8 heads take path 0 with no splits
+    here: `head_splits` sets theirs."""
     nk = -(-D // 64)
     stages = _HW_MAX_STAGES
     while stages > 0 and _hw_smem(nk, stages) > _SMEM_MAX:
         stages -= 1
     rows = _HW_SPLIT_CHUNKS * _HW_CHUNK
+    splits = -(-Vp // rows)
     if (dtype != torch.bfloat16 or n_tokens <= 0 or D <= 0 or D % 8
-            or Vp <= 0 or Vp % rows or stages < 2):
+            or Vp <= 0 or Vp % _HW_CHUNK):
         return dict(path=0, tokens=0, chunk=0, split_chunks=0, splits=0,
                     stages=0, smem=0)
+    if stages < 2:
+        return dict(path=0, tokens=0, chunk=0,
+                    split_chunks=_HW_SPLIT_CHUNKS, splits=splits, stages=0,
+                    smem=0)
     return dict(path=1, tokens=_HW_TOKENS, chunk=_HW_CHUNK,
-                split_chunks=_HW_SPLIT_CHUNKS, splits=Vp // rows,
+                split_chunks=_HW_SPLIT_CHUNKS, splits=splits,
                 stages=stages, smem=_hw_smem(nk, stages))
 
 
 def head_splits(n_tokens: int, Vp: int, sms: int) -> int:
-    """Vocab splits of the first head kernel's grid (fp32 and int8 heads,
-    `head_plan`'s path 0): enough blocks for two a multiprocessor, each
-    split a whole number of chunks and none empty."""
+    """Vocab splits of the first head kernel's grid for the fp32 and int8
+    heads: enough blocks for two a multiprocessor, each split a whole
+    number of chunks and none empty."""
     chunks = Vp // HEAD_CHUNK
     tiles = -(-n_tokens // HEAD_TOKENS)
     want = min(chunks, max(1, -(-2 * sms // tiles)))
@@ -530,9 +537,8 @@ def _launch_head(wrapper, seed, xt, feats, w_t, bias_col, x_scale, w_scale,
                                    or tuple(logits_out.shape) != (B, L, Vp)
                                    or not logits_out.is_contiguous()):
         raise ValueError('logits_out must be contiguous float32 (B, L, Vp)')
-    plan = head_plan(B * L, D, Vp, feats.dtype)
-    splits = (plan['splits'] if plan['path'] == 1 else
-              head_splits(B * L, Vp, _sm_count(feats.device.index or 0)))
+    splits = (head_plan(B * L, D, Vp, feats.dtype)['splits']
+              or head_splits(B * L, Vp, _sm_count(feats.device.index or 0)))
     part = torch.empty((5, splits, B * L), dtype=torch.float32,
                        device=feats.device)
     out = torch.empty((B, L), dtype=torch.int32, device=feats.device)

@@ -5,6 +5,7 @@
     python3 scripts/ab_torch_head_sample.py [--steps 1000] [--rounds 2]
     python3 scripts/ab_torch_head_sample.py --parent-source build/ab/head_sample.cu
     python3 scripts/ab_torch_head_sample.py --k13 --parent-source build/ab/groupnorm.cu
+    python3 scripts/ab_torch_head_sample.py --phases
 
 With no source, the LM1B D-CFG feature-mix sampler (gamma 2, B=24) with
 and without the head-fused step: for the bf16 flagship and then the int8
@@ -27,10 +28,19 @@ times the parent's call, the new one, the new one, the parent's (A B B A,
 arms' tokens: equal bits for fp32 and int8 (the first kernel in both), and
 for bf16 each arm's tokens against the plain version under an external
 Gumbel where the top-two margin exceeds `chip_smoke.MARGIN`. Both arms are
-called through ctypes on the same inputs; the parent takes the split the
-first kernel's wrapper gives it (`head_splits`, by the card's SM count),
-the new one `head_plan`'s. One JSON line per arm and one summary line per
+called through ctypes on the same inputs; each arm takes the split its
+own plan gives (`ddg_head_plan` where the parent exports it, else the
+first kernel's `head_splits`, by the card's SM count). One JSON line per arm and one summary line per
 head, with the split by kernel (torch.profiler).
+
+With `--phases`, the bf16 head's kernel (`hw::head_wgmma_kernel`) at the
+same slice beside two copies of this tree's `head_sample.cu`, each
+patched to skip one side (`PHASE_PATCHES`): 'no_products' drops the
+wgmma instructions (the loads stay; the epilogue runs on zero logits),
+'no_epilogue' hands each logits tile back as soon as it is read (the
+loads and products stay). Timed full, no_products, no_epilogue, then
+back (A B C C B A, `--rounds` times, CUDA events), with the split by
+kernel; the copies' tokens are not checked.
 
 With `--k13 --parent-source <an earlier groupnorm.cu>`, the same for K13
 over the 51 norms of one UNet D-CFG forward (`chip_smoke.
@@ -130,6 +140,83 @@ def _head_call(fn, splits, seed, xt, fin, head, mct, mcs, Vt, gumbel=None):
     return out
 
 
+# (old, new) text of `head_sample.cu` for `--phases`; each old text must
+# occur once.
+PHASE_PATCHES = {
+    'no_products': ('          wgmma_n128(acc, desc128(fa + 32 * kk), '
+                    'desc128(fw + 32 * kk), k > 0 || kk > 0);\n', ''),
+    'no_epilogue': ('    ddg::mbar_arrive(ddg::smem_u32(zempty));\n',
+                    '    ddg::mbar_arrive(ddg::smem_u32(zempty));\n'
+                    '    continue;\n'),
+}
+
+
+def run_phases(rounds):
+    from concurrent.futures import ThreadPoolExecutor
+    from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    src = (ROOT / 'ddg_tpu_torch' / 'csrc' / 'head_sample.cu').read_text()
+    out_dir = ROOT / 'build' / 'ab'
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for arm, (old, new) in PHASE_PATCHES.items():
+        cs.check(src.count(old) == 1, f'{arm}: the patched text occurs '
+                                      f'{src.count(old)} times, not once')
+        paths[arm] = out_dir / f'head_sample_{arm}.cu'
+        paths[arm].write_text(src.replace(old, new))
+    with ThreadPoolExecutor(len(paths)) as pool:
+        built = dict(zip(paths, pool.map(build_parent, paths.values())))
+    fns = {'full': _build.kernel('head_sample', 'ddg_head_sample',
+                                 HEAD_ARGS)}
+    fns.update({arm: lib.ddg_head_sample for arm, (lib, _) in built.items()})
+    for f in fns.values():
+        f.argtypes = list(HEAD_ARGS)
+        f.restype = ctypes.c_int
+    smi = cs.nvidia_smi()
+    gen = torch.Generator(device='cuda').manual_seed(17)
+    Bt, Lt, Vt = cs.B, cs.L, cs.V
+    cs.MASK = Vt - 1
+    fin, head, _, mct, mcs, _ = cs._head_inputs(
+        gen, Bt, Lt, Vt, cs.MASK, cs.TILE_V, torch.bfloat16)
+    plan = fs.head_plan(Bt * Lt, cs.D, head[0].shape[0], torch.bfloat16)
+    cs.check(plan['path'] == 1, 'the slice does not take the wgmma kernel')
+    seed = torch.tensor([11], dtype=torch.int32, device='cuda')
+    xm = torch.full((Bt, Lt), cs.MASK, dtype=torch.int32, device='cuda')
+
+    def call(arm):
+        return _head_call(fns[arm], plan['splits'], seed, xm, fin, head,
+                          mct, mcs, Vt)
+    order = list(fns)
+    times = {arm: [] for arm in order}
+    for r in range(rounds):
+        for arm in order + order[::-1]:
+            ms = cs.time_ms(lambda: call(arm))
+            times[arm].append(ms)
+            print(json.dumps({'phases': arm, 'round': r, 'ms': ms,
+                              'nvidia_smi': smi}), flush=True)
+    print(json.dumps({
+        'phases_ms': {arm: sum(t) / len(t) for arm, t in times.items()},
+        'times': times,
+        'split_ms': {arm: cs.kernel_ms(lambda: call(arm)) for arm in order},
+        'ptxas': {arm: cs.ptxas_lines(log) for arm, (_, log)
+                  in built.items()},
+        'nvidia_smi': smi}), flush=True)
+    return 0
+
+
+def _parent_splits(parent, T, Dm, Vp, dtype, sms):
+    """The vocab splits the parent's wrapper would give: its exported
+    plan's, else (a parent before `ddg_head_plan`) `head_splits`."""
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    try:
+        plan = parent.ddg_head_plan
+    except AttributeError:
+        return fs.head_splits(T, Vp, sms)
+    out = (ctypes.c_int * 7)()
+    plan(T, Dm, Vp, fs._HEAD_MODES[dtype], out)
+    return out[4] or fs.head_splits(T, Vp, sms)
+
+
 def run_head_ab(parent_source, rounds):
     from ddg_tpu_torch.ops import _build
     from ddg_tpu_torch.ops import fused_sampling as fs
@@ -149,9 +236,9 @@ def run_head_ab(parent_source, rounds):
             gen, Bt, Lt, Vt, cs.MASK, cs.TILE_V, dtype)
         Vp = head[0].shape[0]
         plan = fs.head_plan(Bt * Lt, cs.D, Vp, dtype)
-        splits = {'parent': fs.head_splits(Bt * Lt, Vp, sms),
-                  'new': (plan['splits'] if plan['path'] == 1 else
-                          fs.head_splits(Bt * Lt, Vp, sms))}
+        splits = {'parent': _parent_splits(parent, Bt * Lt, cs.D, Vp, dtype,
+                                           sms),
+                  'new': plan['splits'] or fs.head_splits(Bt * Lt, Vp, sms)}
         fns = {'parent': getattr(parent, 'ddg_head_sample'),
                'new': _build.kernel('head_sample', 'ddg_head_sample',
                                     HEAD_ARGS)}
@@ -320,12 +407,15 @@ def main():
     ap.add_argument('--rounds', type=int, default=2)
     ap.add_argument('--parent-source')
     ap.add_argument('--k13', action='store_true')
+    ap.add_argument('--phases', action='store_true')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('no CUDA device is visible', file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.DEV = 'cuda'
+    if args.phases:
+        return run_phases(args.rounds)
     if args.parent_source is None:
         if args.k13:
             ap.error('--k13 needs --parent-source')

@@ -162,8 +162,10 @@ def test_head_splits_fill_the_card():
     blocks (more than 10 a multiprocessor on a 132-multiprocessor card),
     each split whole and none empty; 6 W slots beside the 12 feature tiles
     and the logits tile, within the card's shared memory; D up to 1280 (2
-    slots). fp32 and int8 heads keep the first kernel, whose splits follow
-    the card (`head_splits`: 24 token tiles x 11 splits at 132
+    slots); a Vp off 1024 rows leaves a last split of what is left; past
+    D = 1280 the bf16 head takes the first kernel in the same splits.
+    fp32 and int8 heads keep the first kernel, whose splits follow the
+    card (`head_splits`: 24 token tiles x 11 splits at 132
     multiprocessors, every split a whole number of 128-row chunks and
     none empty)."""
     import inspect
@@ -178,21 +180,44 @@ def test_head_splits_fill_the_card():
     assert p['splits'] * p['split_chunks'] * p['chunk'] == 30720
     assert p['smem'] <= 232448
     for n_tok, D, Vp, stages in ((64, 768, 2048, 6), (3072, 1280, 30720, 2),
-                                 (100, 128, 1024, 8), (7, 1024, 4096, 4)):
+                                 (100, 128, 1024, 8), (7, 1024, 4096, 4),
+                                 (3072, 768, 30720 + 128, 6),
+                                 (40, 768, 2944, 6)):
         q = tfs.head_plan(n_tok, D, Vp, torch.bfloat16)
         assert (q['path'], q['stages'], q['splits']) == (1, stages,
-                                                          Vp // 1024)
+                                                          -(-Vp // 1024))
         assert q['smem'] <= 232448
-    for dtype, D, Vp in ((torch.float32, 768, 30720), (torch.int8, 768, 30720),
-                         (torch.bfloat16, 1344, 30720),
-                         (torch.bfloat16, 768, 30720 + 128)):
-        assert tfs.head_plan(3072, D, Vp, dtype)['path'] == 0
+    q = tfs.head_plan(3072, 1344, 30720, torch.bfloat16)
+    assert (q['path'], q['split_chunks'], q['splits']) == (0, 8, 30)
+    for dtype in (torch.float32, torch.int8):
+        assert tfs.head_plan(3072, 768, 30720, dtype) == dict(
+            path=0, tokens=0, chunk=0, split_chunks=0, splits=0, stages=0,
+            smem=0)
     assert tfs.head_splits(3072, 30720, 132) == 11
     for n_tok, Vp in ((64, 384), (3072, 30720), (4, 128), (40000, 256)):
         s = tfs.head_splits(n_tok, Vp, 132)
         chunks = Vp // tfs.HEAD_CHUNK
         per = -(-chunks // s)
         assert 1 <= s <= chunks and (s - 1) * per < chunks
+
+
+@pytest.mark.parametrize('n_tok,D,Vp', [
+    (3072, 768, 30720), (3072, 768, 30848), (40, 768, 2944), (7, 64, 128),
+    (64, 1280, 9088), (3072, 1344, 30720), (5, 1600, 4224),
+    (3072, 4096, 128 * 73)])
+def test_bf16_head_splits_follow_the_shape(n_tok, D, Vp):
+    """On either path the bf16 head's vocab splits are 1024 rows, the last
+    split 1 to 8 chunks of 128, so a token's merge order follows its
+    shape only. On path 0 the first kernel derives its chunks a split as
+    ceil(chunks / splits) and refuses a split count that this does not
+    give back; 8 chunks a split always gives it back."""
+    q = tfs.head_plan(n_tok, D, Vp, torch.bfloat16)
+    chunks = Vp // tfs.HEAD_CHUNK
+    assert q['path'] == (1 if D <= 1280 else 0)
+    assert q['split_chunks'] == 8 and q['splits'] == -(-chunks // 8)
+    assert 1 <= chunks - 8 * (q['splits'] - 1) <= 8
+    per = -(-chunks // q['splits'])
+    assert -(-chunks // per) == q['splits']
 
 
 # ---------------------------------------------------------------------------
