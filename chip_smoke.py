@@ -108,6 +108,15 @@ The serving path (6) runs feature-mix at T=1000 (the JAX bench's line) and
 records each run under PyTorch's sync debug mode: no host sync in
 feature-mix and first-hitting, exactly one a step in the NFE cache (its
 validity flag).
+Phase 4 holds K7 and K8 (the absorbing step) against their plain versions
+at the main shape under an external Gumbel and at SAMPLE_EDGES (V = 37 and
+1031, the mask first, mid-row and last, fp32 and bf16, rows at every
+16-byte phase, a CFG pair at two phases), their in-kernel noise against
+the plain version fed the same Philox draws (`_philox_gumbel`), the
+kernels' Gumbel noise against float64 (`ddg_absorbing_gumbel`), ties to
+the lowest index and the mask channel where log_stay dominates, reruns
+bit-identical; timed in bf16 with every token masked and with half of
+them, beside a bound of bytes, SFU results and the noise's issue.
 Phase 4 also holds K11 (bf16, fp32) and K12 against their plain versions
 at 24 x 128 x 768 x V=30523 and a ragged case (V=1000, the mask in a
 non-final tile, L=32): tokens under an external Gumbel, the logits the
@@ -828,14 +837,14 @@ def _sample_inputs(gen, dtype, n_logits):
     return logits, xt, mct, mcs
 
 
-def _token_check(name, out, ref, scores, xt, vocab=None):
+def _token_check(name, out, ref, scores, xt, vocab=None, mask=None):
     """Identical tokens where the top-two perturbed scores differ by more
     than MARGIN; decoded positions copied over exactly; every token below
-    `vocab` (default V)."""
+    `vocab` (default V). `mask`: the mask index (default MASK)."""
     vocab = vocab or V
     top2 = scores.topk(2, dim=-1).values
     decided = (top2[..., 0] - top2[..., 1]) > MARGIN
-    masked = xt == MASK
+    masked = xt == (MASK if mask is None else mask)
     bad = ((out != ref) & decided & masked).sum().item()
     check(bad == 0, f'{name}: {bad} tokens differ where the margin > '
                     f'{MARGIN}')
@@ -847,19 +856,26 @@ def _token_check(name, out, ref, scores, xt, vocab=None):
 
 
 def _tie_check(fs):
-    """All scores equal outside the mask channel: the lowest index wins."""
+    """All scores equal outside the mask channel: the lowest index wins,
+    with the mask first, in the middle and last; with log_stay far above
+    every other score the mask channel wins."""
     Bt, Lt, Vt = 2, 4, 40
     z = torch.zeros((Bt, Lt, Vt), device=DEV)
-    xt = torch.full((Bt, Lt), Vt - 1, dtype=torch.int32, device=DEV)
-    mct = torch.full((Bt,), 0.9, device=DEV)
-    mcs = torch.full((Bt,), 1e-3, device=DEV)   # the mask channel loses
     g = torch.zeros_like(z)
-    a = fs.fused_absorbing_sample(0, xt, z, mct, mcs, mask_index=Vt - 1,
-                                  gumbel=g)
-    c = fs.fused_absorbing_cfg_sample(0, xt, z, z, GAMMA, mct, mcs,
-                                      mask_index=Vt - 1, gumbel=g)
-    check(bool((a == 0).all()) and bool((c == 0).all()),
-          'ties must go to the lowest index')
+    mct = torch.full((Bt,), 0.9, device=DEV)
+    for mask, mcs_value, want in ((Vt - 1, 1e-3, 0), (0, 1e-3, 1),
+                                  (Vt // 2, 1e-3, 0), (Vt // 2, 0.8999,
+                                                       Vt // 2)):
+        xt = torch.full((Bt, Lt), mask, dtype=torch.int32, device=DEV)
+        mcs = torch.full((Bt,), mcs_value, device=DEV)
+        a = fs.fused_absorbing_sample(0, xt, z, mct, mcs, mask_index=mask,
+                                      gumbel=g)
+        c = fs.fused_absorbing_cfg_sample(0, xt, z, z, GAMMA, mct, mcs,
+                                          mask_index=mask, gumbel=g)
+        check(bool((a == want).all()) and bool((c == want).all()),
+              f'mask {mask}, mcs {mcs_value}: every token must be {want} '
+              '(ties to the lowest index; the mask channel where log_stay '
+              'dominates)')
 
 
 def _tv_check(fs):
@@ -920,48 +936,70 @@ ADALN_BWD_SHAPES = (('b1', 1, 128, D, (torch.float32, torch.bfloat16)),
                     ('d8192', 2, 64, 8192, (torch.bfloat16,)))
 
 
-def kernel_trace(fn, reps=20, tries=3):
+# Traces that `kernel_trace` took again because device records were lost.
+TRACE_RETAKES = []
+
+
+def kernel_trace(fn, reps=20, tries=4):
     """{kernel name: (launches, device ms)} a call of `fn`, by kernel name
     (the part of the name before its template arguments), from one
-    torch.profiler trace of `reps` calls after a warm-up. A short sleep
-    kernel (`spin_kernel`) opens and closes the traced calls: a trace that
-    lacks either lost device records (CUPTI hands them over
-    asynchronously; a trace of one launch came back empty on the card
-    once), so it is taken again, at most `tries` times in all, and the
-    check fails if none is whole. The sleep kernels are not counted."""
+    torch.profiler trace of `reps` calls after a warm-up. Short sleep
+    kernels (`spin_kernel`, three on each side, a synchronize between them
+    and the calls) open and close the traced calls. CUPTI
+    hands device records over asynchronously, and a trace has come back
+    without some of them: once with no kernel of one K13 launch, once with
+    one of the two single sleep kernels the bracket had then. A trace in
+    which no sleep kernel came before the first traced kernel, or none
+    after the last, is taken again, at most `tries` times in all (each
+    retake is noted in TRACE_RETAKES), and the check fails if none is
+    whole. The sleep kernels are not counted."""
     import os
     import tempfile
+    pad = 3
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(tries):
+    for attempt in range(tries):
         with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda._sleep(1000)
+            for _ in range(pad):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
-            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(pad):
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, 'trace.json')
             prof.export_chrome_trace(path)
             with open(path) as f:
                 events = json.load(f)['traceEvents']
-        out, marks = {}, 0
+        out, spins, ts = {}, [], []
         for e in events:
             if e.get('cat') != 'kernel':
                 continue
             name = e['name'].split('<')[0].split('::')[-1].split('(')[0]
             name = (name.split() or [e['name'][:48]])[-1]
             if name == 'spin_kernel':
-                marks += 1
+                spins.append(e['ts'])
                 continue
+            ts.append(e['ts'])
             n, ms = out.get(name, (0, 0.0))
             out[name] = (n + 1, ms + e['dur'] / 1e3)
-        if marks == 2:
+        if ts:
+            opened = sum(t < min(ts) for t in spins)
+            closed = sum(t > max(ts) for t in spins)
+        else:
+            opened = closed = len(spins) // 2
+        if opened and closed:
             break
-    check(marks == 2, f'{tries} profiler traces in a row lost device '
-          f'records (sleep kernels seen in the last: {marks} of 2)')
+        TRACE_RETAKES.append({'attempt': attempt, 'opening': opened,
+                              'closing': closed, 'kernels': len(ts)})
+    check(opened and closed, f'{tries} profiler traces in a row lost device '
+          f'records (sleep kernels seen in the last: {opened} of {pad} '
+          f'before the traced kernels, {closed} of {pad} after)')
     check(out, 'the profiler recorded no kernel on the card')
     return {k: (n / reps, ms / reps) for k, (n, ms) in out.items()}
 
@@ -1149,7 +1187,154 @@ def check_adaln_bwd(results):
     emit({'phase': 'adaln_bwd_plan_mirror', 'cases': n})
 
 
+# K7 and K8 off the main shape: (label, B, L, V, mask index, dtype, element
+# offset of the logits, of the unconditional logits). An odd V puts the
+# rows' starts at every phase of 16 bytes; the offsets move the first
+# row's; logits at two phases (the last case) take K8's column-by-column
+# path for the unconditional half.
+SAMPLE_EDGES = (('v37_mask0', 2, 16, 37, 0, torch.bfloat16, 0, 0),
+                ('v37_mid', 2, 16, 37, 18, torch.float32, 3, 3),
+                ('v1031_mid', 2, 16, 1031, 515, torch.bfloat16, 5, 5),
+                ('v1031_mask0', 2, 16, 1031, 0, torch.float32, 1, 1),
+                ('v1031_two_phases', 2, 16, 1031, 1030, torch.bfloat16, 2,
+                 7))
+
+
+def _offset_view(gen, shape, dtype, offset, scale=2.0):
+    """A contiguous tensor of `shape` that starts `offset` elements into a
+    fresh buffer."""
+    n = math.prod(shape)
+    return _rand(gen, n + offset, scale=scale, dtype=dtype)[offset:].view(
+        shape)
+
+
+def _absorbing_cases(fs, lc, lu, mask):
+    """(name, fp32 z (a function), kernel call, plain call) of K7 and K8;
+    each call takes the seed, xt and the move chances, and `gumbel=`."""
+    return (('fused_absorbing_sample', lambda: lc.float(),
+             lambda seed, xt, mct, mcs, **kw: fs.fused_absorbing_sample(
+                 seed, xt, lc, mct, mcs, mask_index=mask, **kw),
+             lambda seed, xt, mct, mcs, **kw:
+                 fs.fused_absorbing_sample_plain(
+                     seed, xt, lc, mct, mcs, mask_index=mask, **kw)),
+            ('fused_absorbing_cfg_sample', lambda: fs.cfg_mix(lc, lu, GAMMA),
+             lambda seed, xt, mct, mcs, **kw: fs.fused_absorbing_cfg_sample(
+                 seed, xt, lc, lu, GAMMA, mct, mcs, mask_index=mask, **kw),
+             lambda seed, xt, mct, mcs, **kw:
+                 fs.fused_absorbing_cfg_sample_plain(
+                     seed, xt, lc, lu, GAMMA, mct, mcs, mask_index=mask,
+                     **kw)))
+
+
+def _sample_edge(fs, gen, label, Bt, Lt, Vt, mask, dtype, off_c, off_u):
+    """K7 and K8 at one SAMPLE_EDGES case: tokens against the plain version
+    under an external Gumbel; with the in-kernel noise against the plain
+    version fed the same draws (`_philox_gumbel`), near-ties within MARGIN;
+    a rerun bit-identical."""
+    lc = _offset_view(gen, (Bt, Lt, Vt), dtype, off_c)
+    lu = _offset_view(gen, (Bt, Lt, Vt), dtype, off_u)
+    x0 = torch.randint(0, Vt, (Bt, Lt), generator=gen, device=DEV,
+                       dtype=torch.int32)
+    x0 = torch.where(x0 == mask, (x0 + 1) % Vt, x0)
+    xt = torch.where(torch.rand((Bt, Lt), generator=gen, device=DEV) < 0.7,
+                     torch.full_like(x0, mask), x0)
+    mct = 0.4 + 0.5 * torch.rand((Bt,), generator=gen, device=DEV)
+    mcs = 0.6 * mct
+    g = -torch.log(-torch.log(torch.rand((Bt, Lt, Vt), generator=gen,
+                                         device=DEV).clamp_min(1e-20)))
+    b, l, v = torch.meshgrid(*(torch.arange(n, device=DEV)
+                               for n in (Bt, Lt, Vt)), indexing='ij')
+    g_philox = _philox_gumbel(99, b, l, v)
+    seed = torch.tensor([99], dtype=torch.int32, device=DEV)
+    recs = {}
+    for name, zf, call, plain in _absorbing_cases(fs, lc, lu, mask):
+        tag = f'{name} {label} {dtype}'
+        z = zf()
+        out = call(7, xt, mct, mcs, gumbel=g)
+        ref = plain(7, xt, mct, mcs, gumbel=g)
+        scores = fs.perturbed_scores(7, z, mct, mcs, mask_index=mask,
+                                     gumbel=g)
+        n_cmp = _token_check(tag, out, ref, scores, xt, Vt, mask)
+        got = call(seed, xt, mct, mcs)
+        check(torch.equal(got, call(seed, xt, mct, mcs)),
+              f'{tag}: a rerun differs')
+        want = plain(seed, xt, mct, mcs, gumbel=g_philox)
+        n_tie = _rng_gap_check(f'{tag} in-kernel noise', got, want, z, xt,
+                               mct, mcs, 99, mask)
+        recs[name] = {'shape': [Bt, Lt, Vt], 'mask_index': mask,
+                      'dtype': str(dtype), 'offsets': [off_c, off_u],
+                      'compared_tokens': n_cmp, 'rng_near_ties': n_tie}
+    return recs
+
+
+def _check_gumbel_probe():
+    """The sampling kernels' Gumbel noise (`ddg_absorbing_gumbel`: the
+    polynomial inner log, the SFU's outer one) against -log(-log(u)) in
+    float64 of the same fp32 u, over every 61st 24-bit uniform and the
+    lowest and highest 2^16: within 2e-6 (one fp32 ulp at |g| = 16 plus
+    the SFU's error). Returns the largest error."""
+    from ddg_tpu_torch.ops import _build
+    fn = _build.kernel('absorbing_sample', 'ddg_absorbing_gumbel',
+                       (_build.ptr, _build.ptr, _build.i32, _build.ptr))
+    top = torch.cat([torch.arange(0, 1 << 24, 61),
+                     torch.arange(0, 1 << 16),
+                     torch.arange((1 << 24) - (1 << 16), 1 << 24)]).to(DEV)
+    words = (top << 8) | 0x5A
+    bits = torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+    g = torch.empty(bits.shape, dtype=torch.float32, device=DEV)
+    _build.check(fn(bits.data_ptr(), g.data_ptr(), bits.numel(),
+                    _build.stream(g)), 'ddg_absorbing_gumbel')
+    u = top.float() * (1.0 / 16777216.0) + 1e-10
+    ref = -torch.log(-torch.log(u.double()))
+    err = (g.double() - ref).abs().max().item()
+    check(err <= 2e-6, f'the sampling kernels\' Gumbel noise is {err} off '
+                       '-log(-log(u))')
+    return err
+
+
+# The work a logit that any exact absorbing step with in-kernel noise must
+# do, besides moving its bytes: on the SFU one exp2 for the LSE; on the
+# CUDA cores the Philox words (Philox4x32-10 gives four: 10 rounds of two
+# 32 x 32 -> 64-bit products and two three-input xors, the key schedule
+# the same for every call, so 10 instructions a logit), the compare of the
+# word's top 24 bits that decides whether the noise can win, and the LSE's
+# max, exp argument and add. The noise's int-to-float and two logs are
+# needed only where it can win (about 7% of the logits at the main shape),
+# so they are not counted: the bound is a lower one. Forming the fp32
+# logit adds its own slots (`extra`: a bf16 conversion, the CFG mix, a
+# bias add).
+NOISE_ISSUE_PER_LOGIT = 10 + 1 + 3
+
+
+def _noise_kinds(n_logits, extra):
+    """(operations, peak) kinds of `n_logits` logits' per-logit work
+    (NOISE_ISSUE_PER_LOGIT + `extra` issue slots, one SFU result), and the
+    issue term's ms."""
+    issue = (NOISE_ISSUE_PER_LOGIT + extra) * n_logits
+    return ([(n_logits, PEAK_SFU), (issue, PEAK_ISSUE)],
+            issue / PEAK_ISSUE * 1e3)
+
+
+def _absorbing_bound(n_logits, es, n_streams):
+    """K7 (one stream of logits) or K8 (two, mixed): bytes (each masked row
+    of the logits once, xt and the output) and `_noise_kinds` (a bf16
+    logit's conversion to fp32, and for K8 the mix's two products and add),
+    through bound_mixed; returns (ms, by, issue ms)."""
+    nbytes = n_streams * n_logits * es + 2 * B * L * 4 + 2 * B * 4 + 4
+    extra = n_streams * (es == 2) + 3 * (n_streams == 2)
+    kinds, issue_ms = _noise_kinds(n_logits, extra)
+    return (*bound_mixed(nbytes, kinds), issue_ms)
+
+
 def check_sampling(results):
+    """K7 and K8 against their plain versions on the card: at the main shape
+    (fp32 and bf16) under an external Gumbel, and at SAMPLE_EDGES (also the
+    in-kernel noise against the plain version fed the same draws); the
+    Gumbel noise against float64; ties to the lowest index; TV of the
+    in-kernel noise. Timed in bf16 with every token masked (the first step)
+    and with half of them (the run's average under the log-linear
+    schedule), noise from the in-kernel generator."""
     from ddg_tpu_torch.ops import fused_sampling as fs
     gen = torch.Generator(device=DEV).manual_seed(6)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1158,53 +1343,51 @@ def check_sampling(results):
         g = -torch.log(-torch.log(
             torch.rand((B, L, V), generator=gen, device=DEV)
             .clamp_min(1e-20)))
-
-        out = fs.fused_absorbing_sample(7, xt, lc, mct, mcs, mask_index=MASK,
-                                        gumbel=g)
-        ref = fs.fused_absorbing_sample_plain(7, xt, lc, mct, mcs,
-                                              mask_index=MASK, gumbel=g)
-        scores = fs.perturbed_scores(7, lc.float(), mct, mcs,
-                                     mask_index=MASK, gumbel=g)
-        n_a = _token_check('fused_absorbing_sample', out, ref, scores, xt)
-        del scores
-
-        out_c = fs.fused_absorbing_cfg_sample(7, xt, lc, lu, GAMMA, mct, mcs,
-                                              mask_index=MASK, gumbel=g)
-        ref_c = fs.fused_absorbing_cfg_sample_plain(
-            7, xt, lc, lu, GAMMA, mct, mcs, mask_index=MASK, gumbel=g)
-        scores = fs.perturbed_scores(7, fs.cfg_mix(lc, lu, GAMMA), mct, mcs,
-                                     mask_index=MASK, gumbel=g)
-        n_c = _token_check('fused_absorbing_cfg_sample', out_c, ref_c,
-                           scores, xt)
-        del scores, g
-        rec_a = {'err': 0, 'compared_tokens': n_a}
-        rec_c = {'err': 0, 'compared_tokens': n_c}
+        recs = {}
+        for name, zf, call, plain in _absorbing_cases(fs, lc, lu, MASK):
+            z = zf()
+            out = call(7, xt, mct, mcs, gumbel=g)
+            ref = plain(7, xt, mct, mcs, gumbel=g)
+            scores = fs.perturbed_scores(7, z, mct, mcs, mask_index=MASK,
+                                         gumbel=g)
+            recs[name] = {'err': 0, 'compared_tokens': _token_check(
+                name, out, ref, scores, xt)}
+            del scores, z
+        del g
         if dtype == torch.bfloat16:
-            # Timed as in the first step of the main path: every token
-            # masked, noise from the in-kernel generator.
+            # Every token masked, as in the first step, and half of them.
             xm = torch.full((B, L), MASK, dtype=torch.int32, device=DEV)
+            x0 = torch.randint(0, V - 1, (B, L), generator=gen, device=DEV,
+                               dtype=torch.int32)
+            xh = torch.where(torch.rand((B, L), generator=gen, device=DEV)
+                             < 0.5, torch.full_like(x0, MASK), x0)
+            frac = (xh == MASK).float().mean().item()
             seed = torch.tensor([11], dtype=torch.int32, device=DEV)
-            rec_a['ms'] = time_ms(lambda: fs.fused_absorbing_sample(
-                seed, xm, lc, mct, mcs, mask_index=MASK))
-            rec_a['plain_ms'] = time_ms(
-                lambda: fs.fused_absorbing_sample_plain(
-                    seed, xm, lc, mct, mcs, mask_index=MASK), reps=10)
-            rec_c['ms'] = time_ms(lambda: fs.fused_absorbing_cfg_sample(
-                seed, xm, lc, lu, GAMMA, mct, mcs, mask_index=MASK))
-            rec_c['plain_ms'] = time_ms(
-                lambda: fs.fused_absorbing_cfg_sample_plain(
-                    seed, xm, lc, lu, GAMMA, mct, mcs, mask_index=MASK),
-                reps=10)
-            small = 2 * B * L * 4 + 2 * B * 4 + 4
-            # ~10 fp32 operations per logit (max/exp/sum pass, then the
-            # subtractions, the two logs of the Gumbel draw and the
-            # compare); the CFG mix adds 3.
-            rec_a['bound_ms'], rec_a['bound_by'] = bound(
-                B * L * V * es + small, 10 * B * L * V, PEAK_FP32)
-            rec_c['bound_ms'], rec_c['bound_by'] = bound(
-                2 * B * L * V * es + small, 13 * B * L * V, PEAK_FP32)
-        results['fused_absorbing_sample'][str(dtype)] = rec_a
-        results['fused_absorbing_cfg_sample'][str(dtype)] = rec_c
+            for (name, _, call, plain), streams in zip(
+                    _absorbing_cases(fs, lc, lu, MASK), (1, 2)):
+                rec = recs[name]
+                first = call(seed, xm, mct, mcs)
+                check(torch.equal(first, call(seed, xm, mct, mcs)),
+                      f'{name}: a rerun differs')
+                rec['bit_identical_rerun'] = True
+                rec['ms'] = time_ms(lambda: call(seed, xm, mct, mcs))
+                rec['ms_half_masked'] = time_ms(
+                    lambda: call(seed, xh, mct, mcs))
+                rec['half_masked_share'] = frac
+                rec['plain_ms'] = time_ms(
+                    lambda: plain(seed, xm, mct, mcs), reps=10)
+                rec['bound_ms'], rec['bound_by'], rec['bound_issue_ms'] = (
+                    _absorbing_bound(B * L * V, es, streams))
+                rec['bound_ms_half_masked'] = _absorbing_bound(
+                    frac * B * L * V, es, streams)[0]
+        for name, rec in recs.items():
+            results[name][str(dtype)] = rec
+    for case in SAMPLE_EDGES:
+        for name, rec in _sample_edge(fs, gen, *case).items():
+            results[name].setdefault('edges', {})[case[0]] = rec
+    results['fused_absorbing_sample']['gumbel_max_abs_err'] = (
+        _check_gumbel_probe())
+    _check_philox_mirror(fs)
     _tie_check(fs)
     return _tv_check(fs)
 
@@ -1268,13 +1451,15 @@ def _check_philox_mirror(fs):
           'K7')
 
 
-def _rng_gap_check(name, got, ref, z, xt, mct, mcs, seed):
+def _rng_gap_check(name, got, ref, z, xt, mct, mcs, seed, mask=None):
     """Tokens of two samplers with the same in-kernel noise (`got`, `ref`)
     are equal wherever the top-two perturbed scores of the fp32 logits z
     differ by more than MARGIN: at every masked token where they differ,
     the two tokens' scores (K7's, with the Philox noise rebuilt) must lie
-    within MARGIN. Returns the number of such near-ties."""
-    masked = xt == MASK
+    within MARGIN. Returns the number of such near-ties. `mask`: the mask
+    index (default MASK)."""
+    mask = MASK if mask is None else mask
+    masked = xt == mask
     check(torch.equal(got[~masked], xt[~masked]),
           f'{name}: decoded tokens not copied over')
     diff = (got != ref) & masked
@@ -1286,7 +1471,7 @@ def _rng_gap_check(name, got, ref, z, xt, mct, mcs, seed):
     bi, li = diff.nonzero(as_tuple=True)
     V = z.shape[-1]
     zm = z[bi, li].double()
-    zm[:, MASK] = -math.inf
+    zm[:, mask] = -math.inf
     lse = torch.logsumexp(zm, -1)
     log_move = torch.log((mct - mcs)[bi].double())
     log_stay = torch.log(mcs[bi].double())
@@ -1294,7 +1479,7 @@ def _rng_gap_check(name, got, ref, z, xt, mct, mcs, seed):
     for v in (got[bi, li].long(), ref[bi, li].long()):
         g = _philox_gumbel(seed, bi, li, v).double()
         zv = zm.gather(-1, v[:, None])[:, 0]
-        gaps.append(torch.where(v == MASK, log_stay, zv - lse + log_move)
+        gaps.append(torch.where(v == mask, log_stay, zv - lse + log_move)
                     + g)
     worst = (gaps[0] - gaps[1]).abs().max().item()
     check(worst <= MARGIN, f'{name}: tokens differ from the composite '
@@ -1536,22 +1721,16 @@ def _time_head(fs, quant, kern, plain, fin, head, mct, mcs, kw, dtype):
             torch.int8: PEAK_INT8_TENSOR}[dtype]
     T = B * L
     # W, the features, the bias (and scales), xt and the output once; the
-    # product's 2 T D V operations; one exp and two Gumbel logs a logit.
+    # product's 2 T D V operations; the sampling's work a logit
+    # (`_noise_kinds`, with the bias add). The tensor cores' products run
+    # beside the CUDA cores' and the SFU's work (wgmma asynchronously, a
+    # warpgroup issuing one instruction a 64 x 128 x 16 product), so each
+    # is a kind of its own, maxed with the others.
     nbytes = (Vt * D + T * D) * es + Vt * 4 + 2 * T * 4 + B * 8
     if dtype == torch.int8:
         nbytes += Vt * 4 + T * 4
-    kinds = [(2 * T * D * Vt, peak), (3 * T * Vt, PEAK_SFU)]
-    if dtype == torch.bfloat16:
-        # The in-kernel noise's issue work beside the product: Philox4x32-10
-        # (10 rounds of two 32 x 32 -> 64-bit products, four xors and two
-        # key adds for four words) and the Gumbel's conversion, about 30
-        # integer and fp32 instructions a logit on the CUDA cores. wgmma
-        # runs on the tensor cores asynchronously, a warpgroup issuing one
-        # instruction a 64 x 128 x 16 product, so this work overlaps the
-        # products: it is a kind of its own, maxed with the others.
-        issue = 30 * T * Vt
-        kinds.append((issue, PEAK_ISSUE))
-        rec['bound_issue_ms'] = issue / PEAK_ISSUE * 1e3
+    kinds, rec['bound_issue_ms'] = _noise_kinds(T * Vt, 1)
+    kinds.append((2 * T * D * Vt, peak))
     rec['bound_ms'], rec['bound_by'] = bound_mixed(nbytes, kinds)
     rec['library_ms'] = None
     return rec
@@ -4543,6 +4722,8 @@ def main():
                      'library_ms': r.get('library_ms')})
         for key in ('ms_covers', 'products_matmul_ms', 'composite_ms',
                     'composite', 'split_ms', 'rng_near_ties_vs_k7',
+                    'ms_half_masked', 'bound_ms_half_masked',
+                    'half_masked_share', 'bound_issue_ms',
                     'logits_bit_equal_int8_dense',
                     'shape', 'sum_err_of_tol', 'widened',
                     'differs_from_plain',
@@ -4573,7 +4754,8 @@ def main():
     emit({'phase': 'step_seconds', 'seconds': STEP_SECONDS,
           'unaccounted': time.perf_counter() - T_START
           - sum(STEP_SECONDS.values())})
-    emit({'phase': 'done', 'seconds': time.perf_counter() - T_START})
+    emit({'phase': 'done', 'seconds': time.perf_counter() - T_START,
+          'trace_retakes': TRACE_RETAKES})
     emit({'kernels': rows})
     print(nvidia_smi(), flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

@@ -4,7 +4,8 @@
 // swizzle, the wgmma shared-memory descriptor, wgmma m64n64k16 with A
 // from shared memory or from registers, the fences that order them, and 2^x
 // by the SFU. flash_attention.cu's wgmma K20-K22 use them too, with one
-// warpgroup a block, and the DiMamba kernels' bf16 products (mamba.cuh).
+// warpgroup a block, and the DiMamba kernels' bf16 products (mamba.cuh);
+// the absorbing step (absorbing_sample.cu) takes its 2^x.
 //
 // Tiles are 64 rows x 64 bf16 (D = 64, 128 bytes a row), loaded by blocks
 // of two warpgroups (256 threads) unless load_tile is told otherwise. The

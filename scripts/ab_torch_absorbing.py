@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""The absorbing denoise step (K7 `fused_absorbing_sample`, K8
+`fused_absorbing_cfg_sample`; `csrc/absorbing_sample.cu`) on one card: a
+first-call check and a same-call A/B against another copy of the source.
+
+    python3 scripts/ab_torch_absorbing.py --check
+    python3 scripts/ab_torch_absorbing.py --parent-source build/ab/absorbing_sample.cu [--rounds 2]
+
+`--check` builds the kernels, prints ptxas's lines for
+`absorbing_sample.cu` and runs `chip_smoke.check_sampling`: K7 and K8
+against their plain versions at the main shape and `chip_smoke.
+SAMPLE_EDGES`, the in-kernel noise against the plain version fed the same
+draws, the Gumbel noise against float64, ties, TV, reruns, and the bf16
+times (every token masked and half of them) beside the bound and the plain
+version. One JSON line; it exits non-zero if a check failed.
+
+With `--parent-source` (an earlier `absorbing_sample.cu`, e.g. `git show
+HEAD:ddg_tpu_torch/csrc/absorbing_sample.cu > build/ab/absorbing_sample.cu`;
+headers are looked up beside it first, then in `csrc/`) it builds that copy
+into `build/ab/` under another library name and, at the LM1B slice (24 x
+128 tokens, V = 30523, the mask last), for K7 and K8 in bf16 and fp32,
+times the parent's call, the new one, the new one, the parent's (A B B A,
+`--rounds` times, CUDA events, `chip_smoke.time_ms`) with every token
+masked and with half of them, in-kernel noise. Each arm's tokens are held
+against the plain version under one external Gumbel wherever the top-two
+gap exceeds `chip_smoke.MARGIN` (half the tokens masked, so decoded ones
+must be copied over); with the in-kernel noise the two arms' tokens are
+compared and, where they differ, their scores with the Philox draws
+rebuilt (`chip_smoke._philox_gumbel`) must lie within MARGIN. Both arms
+are called through ctypes on the same inputs. One JSON line per arm and
+round, one summary line per (kernel, dtype), beside nvidia-smi's name and
+power limit.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+sys.path.insert(0, str(ROOT / 'scripts'))
+from ab_torch_attention import build_parent  # noqa: E402
+
+ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4 + (ctypes.c_float,) * 2
+        + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+
+def _call(fn, seed, xt, lc, lu, mct, mcs, gumbel=None):
+    """One call of a `ddg_absorbing_sample` of either version."""
+    from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    Bt, Lt, Vt = lc.shape
+    out = torch.empty((Bt, Lt), dtype=torch.int32, device='cuda')
+    g = 0.0 if lu is None else cs.GAMMA
+    rc = fn(seed.data_ptr(), xt.data_ptr(), lc.data_ptr(),
+            None if lu is None else lu.data_ptr(), mct.data_ptr(),
+            mcs.data_ptr(), None if gumbel is None else gumbel.data_ptr(),
+            out.data_ptr(), Bt * Lt, Lt, Vt, cs.MASK, g, 1.0 - g,
+            int(lu is not None), fs._DTYPES[lc.dtype], _build.stream(lc))
+    _build.check(rc, 'ddg_absorbing_sample')
+    return out
+
+
+def _fns(libs):
+    out = {}
+    for arm, lib in libs.items():
+        f = lib.ddg_absorbing_sample
+        f.argtypes = list(ARGS)
+        f.restype = ctypes.c_int
+        out[arm] = f
+    return out
+
+
+def run_turns(fns, rounds):
+    """The arms in turns (A B ... then back) for K7 and K8, bf16 and fp32,
+    every token masked and half of them; tokens checked as the module
+    docstring says. Returns the number of failed checks."""
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    smi = cs.nvidia_smi()
+    gen = torch.Generator(device='cuda').manual_seed(18)
+    B, L, V = cs.B, cs.L, cs.V
+    cs.MASK = V - 1
+    order = list(fns)
+    failed = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        (lc, lu), _, mct, mcs = cs._sample_inputs(gen, dtype, 2)
+        xm = torch.full((B, L), cs.MASK, dtype=torch.int32, device='cuda')
+        x0 = torch.randint(0, V - 1, (B, L), generator=gen, device='cuda',
+                           dtype=torch.int32)
+        xh = torch.where(torch.rand((B, L), generator=gen, device='cuda')
+                         < 0.5, torch.full_like(x0, cs.MASK), x0)
+        seed = torch.tensor([11], dtype=torch.int32, device='cuda')
+        for kernel, lu_k in (('K7', None), ('K8', lu)):
+            rec = {'kernel': kernel, 'dtype': str(dtype),
+                   'half_masked_share': (xh == cs.MASK).float().mean().item()}
+            try:
+                z = lc.float() if lu_k is None else fs.cfg_mix(lc, lu, cs.GAMMA)
+                g = -torch.log(-torch.log(torch.rand(
+                    (B, L, V), generator=gen, device='cuda').clamp_min(1e-20)))
+                ref = fs._sample_plain(7, xh, z, mct, mcs, cs.MASK, g)
+                scores = fs.perturbed_scores(7, z, mct, mcs,
+                                             mask_index=cs.MASK, gumbel=g)
+                rec['compared_tokens'] = {arm: cs._token_check(
+                    f'{kernel} {dtype} {arm}',
+                    _call(fns[arm], seed, xh, lc, lu_k, mct, mcs, g), ref,
+                    scores, xh) for arm in order}
+                del scores, g, ref
+                got = {arm: _call(fns[arm], seed, xm, lc, lu_k, mct, mcs)
+                       for arm in order}
+                rec['reruns_equal'] = {arm: bool(torch.equal(
+                    got[arm], _call(fns[arm], seed, xm, lc, lu_k, mct, mcs)))
+                    for arm in order}
+                cs.check(all(rec['reruns_equal'].values()), 'a rerun differs')
+                rec['tokens_equal_first_arm'] = {
+                    arm: bool(torch.equal(got[arm], got[order[0]]))
+                    for arm in order[1:]}
+                rec['rng_tokens_differ_from_first_arm'] = {
+                    arm: cs._rng_gap_check(f'{kernel} {dtype} {arm}',
+                                           got[arm], got[order[0]], z, xm,
+                                           mct, mcs, 11)
+                    for arm in order[1:]}
+                del z
+            except Exception as e:  # report, then fail
+                rec['error'] = repr(e)[:800]
+                failed += 1
+            for masked, x in (('all', xm), ('half', xh)):
+                times = {arm: [] for arm in order}
+                for r in range(rounds):
+                    for arm in order + order[::-1]:
+                        ms = cs.time_ms(lambda: _call(fns[arm], seed, x, lc,
+                                                      lu_k, mct, mcs))
+                        times[arm].append(ms)
+                        print(json.dumps({'kernel': kernel,
+                                          'dtype': str(dtype),
+                                          'masked': masked, 'arm': arm,
+                                          'round': r, 'ms': ms}), flush=True)
+                rec[f'ms_{masked}_masked'] = {
+                    arm: sum(t) / len(t) for arm, t in times.items()}
+                rec[f'times_{masked}_masked'] = times
+            rec['split_ms'] = {arm: cs.kernel_ms(lambda: _call(
+                fns[arm], seed, xm, lc, lu_k, mct, mcs)) for arm in order}
+            rec['nvidia_smi'] = smi
+            print(json.dumps(rec), flush=True)
+        del lc, lu
+    return failed
+
+
+def run_check():
+    from ddg_tpu_torch.ops import _build
+    libs = _build.build_all()
+    print(json.dumps({'ptxas': cs.ptxas_lines(libs['absorbing_sample'][1])}),
+          flush=True)
+    results = {'fused_absorbing_sample': {}, 'fused_absorbing_cfg_sample': {}}
+    try:
+        tv = cs.check_sampling(results)
+    except Exception as e:  # report, then fail
+        print(json.dumps({'check': 'failed', 'error': repr(e)[:2000],
+                          'results': results}, default=str), flush=True)
+        return 1
+    print(json.dumps({'check': 'passed', 'results': results,
+                      'internal_rng': tv, 'nvidia_smi': cs.nvidia_smi()},
+                     default=str), flush=True)
+    return 0
+
+
+def run_parent(parent_source, rounds):
+    from ddg_tpu_torch.ops import _build
+    parent, log = build_parent(parent_source)
+    print(json.dumps({'parent_ptxas': cs.ptxas_lines(log)}), flush=True)
+    libs = _build.build_all()
+    print(json.dumps({'ptxas': cs.ptxas_lines(libs['absorbing_sample'][1])}),
+          flush=True)
+    new = ctypes.CDLL(str(libs['absorbing_sample'][0]))
+    return run_turns(_fns({'parent': parent, 'new': new}), rounds)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--check', action='store_true')
+    ap.add_argument('--parent-source')
+    ap.add_argument('--rounds', type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print('no CUDA device is visible', file=sys.stderr)
+        return 1
+    cs.DEV = 'cuda'
+    if args.check:
+        return run_check()
+    if args.parent_source is None or not os.path.exists(args.parent_source):
+        ap.error('--parent-source names no file')
+    return run_parent(args.parent_source, args.rounds)
+
+
+if __name__ == '__main__':
+    sys.exit(main())
