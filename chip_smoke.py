@@ -122,8 +122,19 @@ at 24 x 128 x 768 x V=30523 and a ragged case (V=1000, the mask in a
 non-final tile, L=32): tokens under an external Gumbel, the logits the
 kernel forms (K12's bit for bit with `int8_dense`), the in-kernel noise
 against fp32 logits + K7 with the same seed (their Philox draws rebuilt in
-PyTorch where the two disagree), identical reruns; timed beside the
-composite of the unfused path.
+PyTorch where the two disagree; K12 forms K7's noise, so only near-ties
+of the final pick may differ), identical reruns; timed beside the
+composite of the unfused path. The bf16 and int8 heads take their wgmma
+kernels where `head_plan` says so (held equal to `ddg_head_plan`).
+Phase 4 holds K9 and K10 against their plain versions at the UNet's 32 x
+3072 x V=256, at V=250 / vocab 243 and at Species10's 8 x 32768 x V=12,
+fp32 and bf16, under an external Gumbel; K10's plan mirror
+(`uniform_cfg_plan` against `ddg_uniform_cfg_plan`), its in-kernel noise
+against the plain version fed the same Philox draws and its ties at every
+width of UNIFORM_WIDTHS (a thread a row, a warp a row in one turn and in
+four), reruns bit-identical, TV of the in-kernel draws at V=20 / vocab 16
+and V=12; K3 and K5 also at the training micro-batches (LM1B 256 x 128,
+text8 256 x 256), timed.
 Phase 4 holds K20, K21 and K22 (the library flash attention behind the
 DiT's `tpu_flash_attn`) against their plain versions on the same inputs,
 fp32 and bf16, causal and not, at 48 x 128 x 12 x 64, 256 x 256, 4 x 1024,
@@ -332,9 +343,59 @@ def _close(name, dtype, out, ref, rel=False):
     return err, tol
 
 
+def _adaln_fwd_records(gen, nb, Lr, dtype):
+    """K3 and K5 at (nb, Lr, D): each against its plain version, timed,
+    beside the bound of `check_adaln`'s count. Returns their records."""
+    from ddg_tpu_torch.ops import adaln
+    es = torch.tensor([], dtype=dtype).element_size()
+    x = _rand(gen, nb, Lr, D, dtype=dtype)
+    y = _rand(gen, nb, Lr, D, dtype=dtype)
+    mod = _rand(gen, nb, 6 * D, scale=0.5, dtype=dtype)
+    shift, scale, gate = mod[:, :D], mod[:, D:2 * D], mod[:, 2 * D:3 * D]
+    w = 1.0 + _rand(gen, D, scale=0.1)
+    recs = {}
+    h = adaln.ln_modulate(x, w, shift, scale)
+    err, tol = _close(f'ln_modulate {(nb, Lr, D)}', dtype, h,
+                      adaln.ln_modulate_plain(x, w, shift, scale))
+    recs['ln_modulate'] = {
+        'shape': [nb, Lr, D], 'err': err, 'tol': tol,
+        'ms': time_ms(lambda: adaln.ln_modulate(x, w, shift, scale)),
+        'plain_ms': time_ms(lambda: adaln.ln_modulate_plain(x, w, shift,
+                                                            scale)),
+        **dict(zip(('bound_ms', 'bound_by'), bound(
+            2 * nb * Lr * D * es + 4 * D + 2 * nb * D * es,
+            8 * nb * Lr * D, PEAK_FP32)))}
+    del h
+    xn, hn = adaln.gate_res_ln_modulate(y, x, gate, w, shift, scale)
+    xr, hr = adaln.gate_res_ln_modulate_plain(y, x, gate, w, shift, scale)
+    e1, _ = _close(f'gate_res_ln_modulate x {(nb, Lr, D)}', dtype, xn, xr)
+    e2, tol = _close(f'gate_res_ln_modulate h {(nb, Lr, D)}', dtype, hn, hr)
+    del xn, hn, xr, hr
+    recs['gate_res_ln_modulate'] = {
+        'shape': [nb, Lr, D], 'err': max(e1, e2), 'tol': tol,
+        'ms': time_ms(lambda: adaln.gate_res_ln_modulate(
+            y, x, gate, w, shift, scale)),
+        'plain_ms': time_ms(lambda: adaln.gate_res_ln_modulate_plain(
+            y, x, gate, w, shift, scale)),
+        **dict(zip(('bound_ms', 'bound_by'), bound(
+            4 * nb * Lr * D * es + 4 * D + 3 * nb * D * es,
+            10 * nb * Lr * D, PEAK_FP32)))}
+    return recs
+
+
 def check_adaln(results):
+    """K3 and K5 against their plain versions at the serving shape (fp32
+    and bf16, timed in bf16), and in bf16 at the training paths' micro-
+    batches (LM1B 256 x 128, text8 256 x 256, D = 768), timed."""
+    from ddg_tpu_torch.entry import TEXT8_TRAIN_MICRO_BATCH as tb
+    from ddg_tpu_torch.entry import TRAIN_MICRO_BATCH as nb
     from ddg_tpu_torch.ops import adaln
     gen = torch.Generator(device=DEV).manual_seed(3)
+    for label, nbr, Lr in (('lm1b_training', nb, L),
+                           ('text8_training', tb, 256)):
+        for name, rec in _adaln_fwd_records(gen, nbr, Lr,
+                                            torch.bfloat16).items():
+            results[name][label] = {str(torch.bfloat16): rec}
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         x = _rand(gen, B2, L, D, dtype=dtype)
@@ -1528,8 +1589,10 @@ def check_head_sample(results):
     partial token tile, the mask in the first of four splits, or in the
     last; one token tile) and at 2 x 40 tokens over V = 2900 (Vp 2944: a
     last split of 7 chunks, the mask in it), and the first kernel, in the
-    same 1024-row splits, at D = 1536; fp32 and int8 the first kernel
-    throughout. The plan's mirror (`ddg_head_plan` against `head_plan`) and
+    same 1024-row splits, at D = 1536 and 2688; the int8 head runs its
+    wgmma kernel (3840-row splits) up to D = 1536 and the first kernel at
+    D = 2688; fp32 the first kernel throughout. The plan's mirror
+    (`ddg_head_plan` against `head_plan`) and
     the wgmma kernel's in-kernel noise against the exact posterior at
     V = 16 (TV under twice the binomial floor, `_head_tv_check`). Timed at
     the main shape, every token masked, in-kernel noise, beside the plain
@@ -1546,7 +1609,8 @@ def check_head_sample(results):
              ('ragged_split', 3, 40, 3000, 300, TILE_V, D),
              ('one_tile', 2, 32, 3000, 2999, TILE_V, D),
              ('partial_split', 2, 40, 2900, 2800, 128, D),
-             ('wide_d', 2, 32, 3000, 1500, TILE_V, 1536))
+             ('wide_d', 2, 32, 3000, 1500, TILE_V, 1536),
+             ('wider_d', 2, 32, 3000, 1500, TILE_V, 2688))
     saved_mask = MASK
     try:
         for dtype in (torch.bfloat16, torch.float32, torch.int8):
@@ -1634,7 +1698,8 @@ def _check_head_plan(fs):
     for T, Dm, Vp in ((B * L, D, 30720), (64, D, 2048), (96, 1280, 4096),
                       (7, 1600, 4096), (B * L, D, 30720 + 128),
                       (4096 * 8, 1024, 1024), (80, D, 2944),
-                      (64, 1536, 3072 + 896)):
+                      (64, 1536, 3072 + 896), (64, 896, 2048),
+                      (200, 1024, 2048), (64, 784, 2048)):
         for dtype, mode in ((torch.bfloat16, 1), (torch.float32, 0),
                             (torch.int8, 2)):
             out = (ctypes.c_int * 7)()
@@ -1649,6 +1714,8 @@ def _check_head_plan(fs):
                       f'{want["splits"]} are not 1024 rows')
     check(fs.head_plan(B * L, D, 30720, torch.bfloat16)['path'] == 1,
           'the LM1B slice\'s bf16 head does not take the wgmma kernel')
+    check(fs.head_plan(B * L, D, 30720, torch.int8)['path'] == 1,
+          'the LM1B slice\'s int8 head does not take the int8 wgmma kernel')
 
 
 def _head_tv_check(fs):
@@ -1831,10 +1898,127 @@ def _uniform_tv_check(fs, Vt=20, vocab=16):
     return out
 
 
+# K10's widths beyond the main paths' (V, vocab_size): a thread a row
+# holding 16 or 32 columns (V=20 / 16, V=40 / 30), a warp a row in one turn
+# (V=250 / 243, V=256) or in four (V=1000 / 997).
+UNIFORM_WIDTHS = ((12, 12), (20, 16), (40, 30), (250, 243), (256, 256),
+                  (1000, 997))
+
+# The work a logit and logits tensor that any exact uniform step must do
+# besides moving its bytes: the bf16 conversion, the LSE's max, exp
+# argument and add (the exp itself on the SFU), p = e / sum, the
+# numerator's products and adds and the log's scale (the log on the SFU);
+# then a logit's Philox words (10 slots, as NOISE_ISSUE_PER_LOGIT), the
+# compare of its top 24 bits, the CFG mix (2) and the score's add and
+# compare (2). The noise's logs, formed only where the draw can win, are
+# not counted.
+UNIFORM_ISSUE_PER_TENSOR = 8
+UNIFORM_ISSUE_PER_LOGIT = 10 + 1 + 2 + 2
+
+
+def _uniform_bound(n_rows, V, es, n_in):
+    """K9 (n_in 1) or K10 (n_in 2) at n_rows rows of V columns: bytes (the
+    logits, xt in and the tokens out) and, per logit, one exp and one log
+    of the numerator for each logits tensor on the SFU and the issue of
+    UNIFORM_ISSUE_PER_*; returns (ms, by, issue ms). The count of the
+    first design, which forms every logit's noise (two logs more on the
+    SFU), is `_uniform_bound_full_noise`."""
+    n = n_rows * V
+    nbytes = n_in * n * es + 2 * n_rows * 4
+    issue = (UNIFORM_ISSUE_PER_LOGIT + n_in * UNIFORM_ISSUE_PER_TENSOR) * n
+    ms, by = bound_mixed(nbytes, ((2 * n_in * n, PEAK_SFU),
+                                  (issue, PEAK_ISSUE)))
+    return ms, by, issue / PEAK_ISSUE * 1e3
+
+
+def _uniform_bound_full_noise(n_rows, V, es, n_in):
+    """The bound as it was counted for the first design, which forms every
+    logit's noise: bytes, and 2 n_in + 2 SFU results a logit (the exps and
+    logs of each tensor and the noise's two logs)."""
+    return bound(n_in * n_rows * V * es + 2 * n_rows * 4 + 8,
+                 (2 * n_in + 2) * n_rows * V, PEAK_SFU)
+
+
+def _check_uniform_plan(fs):
+    """The wrapper's `uniform_cfg_plan` equals the built kernel's
+    (`ddg_uniform_cfg_plan`) around each limit; Species10's V=12 takes a
+    thread a row and the UNet's V=256 a warp a row with 16-byte loads."""
+    import ctypes
+    from ddg_tpu_torch.ops import _build
+    fn = _build.kernel('uniform_sample', 'ddg_uniform_cfg_plan',
+                       (_build.i32, _build.i32, _build.i32p), None)
+    for V, vocab in ((1, 1), (12, 12), (16, 16), (20, 16), (17, 17),
+                     (32, 32), (40, 33), (256, 256), (250, 243), (264, 257),
+                     (30522, 30522)):
+        for aligned in (False, True):
+            want = fs.uniform_cfg_plan(V, vocab, torch.bfloat16, aligned)
+            out = (ctypes.c_int * 4)()
+            fn(vocab, want['vec'], out)
+            check(list(out) == list(want.values()),
+                  f'uniform_cfg_plan({V}, {vocab}, aligned={aligned}): the '
+                  f'kernel\'s {list(out)} != the wrapper\'s '
+                  f'{list(want.values())}')
+    check(fs.uniform_cfg_plan(SV, SV, torch.bfloat16, True)['kernel'] == 1,
+          'Species10\'s D-CFG step does not take a thread a row')
+    check(fs.uniform_cfg_plan(UV, UV, torch.bfloat16, True) == dict(
+        kernel=3, rows=8, cols=8, vec=1),
+          'the UNet\'s D-CFG step does not take a warp a row in one turn')
+
+
+def _uniform_rng_and_ties(fs):
+    """K10 at UNIFORM_WIDTHS, fp32 and bf16: the in-kernel noise against the
+    plain version fed the same Philox draws (`_philox_gumbel`; tokens equal
+    wherever the top-two gap of those scores exceeds MARGIN, and a rerun
+    bit-identical), and ties: with alpha(s) = 1 the numerator of xt's
+    column is that of its probability, so with xt's logit far below the
+    others and no noise every other column ties, and the lowest wins.
+    Returns {width: compared tokens}."""
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    Bt, Lt = 2, 64
+    out = {}
+    for V, vocab in UNIFORM_WIDTHS:
+        b, l, v = torch.meshgrid(*(torch.arange(n, device=DEV)
+                                   for n in (Bt, Lt, V)), indexing='ij')
+        g_philox = _philox_gumbel(99, b, l, v)
+        for dtype in (torch.float32, torch.bfloat16):
+            (lc, lu), xt, a_t, a_s = _uniform_inputs(gen, dtype, V, Bu=Bt,
+                                                     Lu=Lt)
+            xt = xt % vocab
+            seed = torch.tensor([99], dtype=torch.int32, device=DEV)
+            got = fs.fused_uniform_cfg_sample(seed, xt, lc, lu, GAMMA, a_t,
+                                              a_s, vocab_size=vocab)
+            check(torch.equal(got, fs.fused_uniform_cfg_sample(
+                seed, xt, lc, lu, GAMMA, a_t, a_s, vocab_size=vocab)),
+                  f'fused_uniform_cfg_sample V={V}: a rerun differs')
+            kw = dict(vocab_size=vocab, gumbel=g_philox)
+            ref = fs.fused_uniform_cfg_sample_plain(0, xt, lc, lu, GAMMA,
+                                                    a_t, a_s, **kw)
+            scores = fs.uniform_perturbed_scores(0, fs.uniform_cfg_log_num(
+                lc, lu, GAMMA, xt, a_t, a_s, vocab_size=vocab), **kw)
+            _, n_cmp = _uniform_token_check(
+                f'fused_uniform_cfg_sample V={V}/{vocab} {dtype} in-kernel '
+                'noise', got, ref, scores, vocab)
+            out[f'{V}/{vocab} {dtype}'] = n_cmp
+        for x_col, want in ((0, 1), (vocab // 2, 0)):
+            z = torch.zeros((Bt, Lt, V), device=DEV)
+            z[..., x_col] = -100.0
+            xt = torch.full((Bt, Lt), x_col, dtype=torch.int32, device=DEV)
+            ones = torch.ones((Bt,), device=DEV)
+            tok = fs.fused_uniform_cfg_sample(
+                0, xt, z, z, GAMMA, 0.5 * ones, ones, vocab_size=vocab,
+                gumbel=torch.zeros_like(z))
+            check(bool((tok == want).all()),
+                  f'fused_uniform_cfg_sample V={V}: tied columns do not go '
+                  f'to the lowest index {want}')
+    return out
+
+
 def check_uniform(results):
     """K9/K10 against their plain versions with the same noise at the main
     path's shape (and at a V that is not a multiple of 8, with columns past
-    the vocabulary), timed with the in-kernel generator."""
+    the vocabulary), timed with the in-kernel generator; K10's plan mirror,
+    its in-kernel noise against the plain version fed the same draws and
+    its ties at every width of UNIFORM_WIDTHS."""
     from ddg_tpu_torch.ops import fused_sampling as fs
     gen = torch.Generator(device=DEV).manual_seed(10)
     for V, vocab in ((UV, UV), (250, 243)):
@@ -1854,24 +2038,29 @@ def check_uniform(results):
             if V != UV or dtype != torch.bfloat16:
                 continue
             seed = torch.tensor([11], dtype=torch.int32, device=DEV)
-            es = 2
             for name, call, plain, _ in _uniform_cases(
                     fs, seed, xt, lc, lu, a_t, a_s, vocab, None):
                 rec = results[name][str(dtype)]
                 rec['ms'] = time_ms(call)
                 rec['plain_ms'] = time_ms(plain, reps=10)
-                n_in = 2 if 'cfg' in name else 1
-                # Bytes: the logits, xt in and the tokens out. Operations:
-                # per logit one exp (a lane keeps its V / 32 values in
-                # registers, so exp(z - max) serves the sum and the
-                # probability, times 1 / sum) and one log of the numerator
-                # for each logits tensor, and the two logs of the Gumbel
-                # draw, on the SFU (about 12 other fp32 operations per
-                # logit each stay far under the fp32 rate).
-                rec['bound_ms'], rec['bound_by'] = bound(
-                    n_in * UB * UL * V * es + 2 * UB * UL * 4 + 8 * UB,
-                    (2 * n_in + 2) * UB * UL * V, PEAK_SFU)
+                _uniform_timing_bounds(rec, name, UB * UL, V)
+    _check_uniform_plan(fs)
+    results['fused_uniform_cfg_sample']['widths'] = _uniform_rng_and_ties(fs)
     return _uniform_tv_check(fs)
+
+
+def _uniform_timing_bounds(rec, name, n_rows, V):
+    """The bound of a timed bf16 K9 or K10 record: K10's recounted
+    (`_uniform_bound`, with the first design's count beside it), K9's by
+    the first design's count."""
+    n_in = 2 if 'cfg' in name else 1
+    full = _uniform_bound_full_noise(n_rows, V, 2, n_in)
+    if n_in == 2:
+        rec['bound_ms'], rec['bound_by'], rec['bound_issue_ms'] = (
+            _uniform_bound(n_rows, V, 2, n_in))
+        rec['bound_ms_full_noise'] = full[0]
+    else:
+        rec['bound_ms'], rec['bound_by'] = full
 
 
 def _check_gn_plan(gn, HW, C, G):
@@ -2017,10 +2206,7 @@ def check_uniform_species(results, tv):
                     fs, seed, xt, lc, lu, a_t, a_s, SV, None)}[name]
                 rec['ms'] = time_ms(case[1])
                 rec['plain_ms'] = time_ms(case[2], reps=10)
-                n_in = 2 if 'cfg' in name else 1
-                rec['bound_ms'], rec['bound_by'] = bound(
-                    n_in * SB * SL * SV * 2 + 2 * SB * SL * 4 + 8 * SB,
-                    (2 * n_in + 2) * SB * SL * SV, PEAK_SFU)
+                _uniform_timing_bounds(rec, name, SB * SL, SV)
                 results[name]['species10'] = rec
         del g
     tv.update(_uniform_tv_check(fs, SV, SV))
@@ -4724,6 +4910,7 @@ def main():
                     'composite', 'split_ms', 'rng_near_ties_vs_k7',
                     'ms_half_masked', 'bound_ms_half_masked',
                     'half_masked_share', 'bound_issue_ms',
+                    'bound_ms_full_noise',
                     'logits_bit_equal_int8_dense',
                     'shape', 'sum_err_of_tol', 'widened',
                     'differs_from_plain',
@@ -4750,7 +4937,9 @@ def main():
             rows[-1]['species10'] = {
                 k: results[name]['species10'][k]
                 for k in ('shape', 'err', 'ms', 'plain_ms', 'bound_ms',
-                          'bound_by')}
+                          'bound_by', 'bound_ms_full_noise',
+                          'bound_issue_ms')
+                if k in results[name]['species10']}
     emit({'phase': 'step_seconds', 'seconds': STEP_SECONDS,
           'unaccounted': time.perf_counter() - T_START
           - sum(STEP_SECONDS.values())})

@@ -55,43 +55,7 @@
 namespace {
 
 constexpr int kRowWarps = 8;
-constexpr float kLn2 = 0.693147180559945309f;
 constexpr unsigned kAll = 0xffffffffu;
-
-__device__ __forceinline__ float lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// -log(u) for a normal u in (0, 1], to a few parts in 1e8 of itself (also
-// near u = 1, where the SFU's lg2 is not): u = 2^e m with m in [2/3, 4/3),
-// log(u) = e log(2) + log1p(f), f = m - 1 exact, and log1p(f) = f - f^2 / 2
-// + f^3 R(f) with R a degree-6 fit on [-1/3, 1/3] (weighted minimax).
-__device__ __forceinline__ float neg_log(float u) {
-  const int ib = __float_as_int(u);
-  const int e = (ib - 0x3f2aaaab) >> 23;
-  const float f = __fsub_rn(__int_as_float(ib - static_cast<int>(static_cast<unsigned>(e) << 23)),
-                            1.0f);
-  const float ef = __fsub_rn(__int_as_float(0x4b400000 + e), 12582912.0f);  // e, exact
-  float r = 0.13819070160388947f;
-  r = __fmaf_rn(r, f, -0.15121205151081085f);
-  r = __fmaf_rn(r, f, 0.1404252052307129f);
-  r = __fmaf_rn(r, f, -0.1647246778011322f);
-  r = __fmaf_rn(r, f, 0.200079083442688f);
-  r = __fmaf_rn(r, f, -0.2500423192977905f);
-  r = __fmaf_rn(r, f, 0.3333326578140259f);
-  const float q = __fmaf_rn(r, f, -0.5f);
-  const float p = __fmaf_rn(q, __fmul_rn(f, f), f);
-  return -__fmaf_rn(ef, kLn2, p);
-}
-
-// Standard Gumbel noise from 32 random bits: u = top24 / 2^24 + 1e-10 as
-// ddg::gumbel_from_bits forms it, g = -log(-log(u)).
-__device__ __forceinline__ float gumbel(unsigned bits) {
-  const float u = __fmaf_rn(static_cast<float>(bits >> 8), 1.0f / 16777216.0f, 1e-10f);
-  return __fmul_rn(lg2(neg_log(u)), -kLn2);
-}
 
 __device__ __forceinline__ unsigned word_of(uint4 r, int i) {
   return (i & 2) ? ((i & 1) ? r.w : r.z) : ((i & 1) ? r.y : r.x);
@@ -292,14 +256,10 @@ __global__ void __launch_bounds__(kRowWarps * 32)
         best_g = g;
       }
     } else {
-      // A column beats the warp's best z + g only if its g exceeds t =
-      // wbest - max z, and g <= -log(1 - u) for every u: a column with
-      // 1 - u >= e^-t (t less a margin for the fp32 roundings of g and of
-      // z + g and for ex2's error) cannot win, and its noise is not formed.
-      // Those are the columns whose top 24 bits are at most kmax.
-      const float t = wbest - vm - (1e-3f + fabsf(wbest) * 0x1p-20f);
-      const float c = ex2(-t * kLog2e) * (1.f + 0x1p-16f);
-      const int kmax = __float2int_rd(__fmaf_rn(-c, 16777216.f, 16777215.f));
+      // A column beats the warp's best z + g only if its noise can
+      // (ddg::noise_kmax): the columns whose top 24 bits are at most kmax
+      // cannot, and their noise is not formed.
+      const int kmax = ddg::noise_kmax(wbest, vm);
 #pragma unroll
       for (int k = 0; k < N / 4; ++k) {
         const uint4 r = ddg::philox4x32_10(
@@ -310,7 +270,7 @@ __global__ void __launch_bounds__(kRowWarps * 32)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           if (static_cast<int>(w[i] >> 8) > kmax) {
-            const float sc = __fadd_rn(z[4 * k + i], gumbel(w[i]));
+            const float sc = __fadd_rn(z[4 * k + i], ddg::gumbel(w[i]));
             if (sc > best) {
               best = sc;
               best_g = g;
@@ -364,7 +324,7 @@ __global__ void __launch_bounds__(kRowWarps * 32)
           make_uint4(static_cast<unsigned>(v >> 2), static_cast<unsigned>(l),
                      static_cast<unsigned>(b), 0u),
           key);
-      gv = gumbel(word_of(r, v & 3));
+      gv = ddg::gumbel(word_of(r, v & 3));
     }
   }
   const unsigned hit = __ballot_sync(kAll, in && __fadd_rn(zv, gv) == best);
@@ -418,7 +378,7 @@ int launch(const int* seed, const int* xt, const void* lc, const void* lu, const
 __global__ void gumbel_probe_kernel(const unsigned* __restrict__ bits, float* __restrict__ g,
                                     int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) g[i] = gumbel(bits[i]);
+  if (i < n) g[i] = ddg::gumbel(bits[i]);
 }
 
 }  // namespace

@@ -1,7 +1,9 @@
 // Helpers shared by the ddg_tpu_torch kernels: 16-byte vector loads and
 // stores of fp32 / bf16 rows as fp32 registers, warp reductions, the bf16
-// tensor-core product (mma.sync m16n8k16) and its fragment loads, and the
-// sampling kernels' Philox generator, Gumbel noise and argmax merge.
+// tensor-core product (mma.sync m16n8k16) and its fragment loads, 2^x and
+// log2 by the SFU, and the sampling kernels' Philox generator, Gumbel
+// noise, the rule that skips the noise where it cannot win, and argmax
+// merge.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -122,6 +124,68 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 __device__ __forceinline__ float gumbel_from_bits(unsigned bits) {
   const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f) + 1e-10f;
   return -logf(-logf(u));
+}
+
+// 2^x and log2(x) by the SFU (ex2.approx / lg2.approx: 2 ulp; subnormal
+// inputs and results flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLn2 = 0.693147180559945309f;
+
+// The Gumbel noise of the absorbing steps K7 and K8 (absorbing_sample.cu),
+// the uniform D-CFG step K10 (uniform_sample.cu) and the int8 head-fused
+// step K12 (head_sample.cu); K9 and K11 still form gumbel_from_bits.
+//
+// -log(u) for a normal u in (0, 1], to a few parts in 1e8 of itself (also
+// near u = 1, where the SFU's lg2 is not): u = 2^e m with m in [2/3, 4/3),
+// log(u) = e log(2) + log1p(f), f = m - 1 exact, and log1p(f) = f - f^2 / 2
+// + f^3 R(f) with R a degree-6 fit on [-1/3, 1/3] (weighted minimax).
+__device__ __forceinline__ float neg_log(float u) {
+  const int ib = __float_as_int(u);
+  const int e = (ib - 0x3f2aaaab) >> 23;
+  const float f = __fsub_rn(__int_as_float(ib - static_cast<int>(static_cast<unsigned>(e) << 23)),
+                            1.0f);
+  const float ef = __fsub_rn(__int_as_float(0x4b400000 + e), 12582912.0f);  // e, exact
+  float r = 0.13819070160388947f;
+  r = __fmaf_rn(r, f, -0.15121205151081085f);
+  r = __fmaf_rn(r, f, 0.1404252052307129f);
+  r = __fmaf_rn(r, f, -0.1647246778011322f);
+  r = __fmaf_rn(r, f, 0.200079083442688f);
+  r = __fmaf_rn(r, f, -0.2500423192977905f);
+  r = __fmaf_rn(r, f, 0.3333326578140259f);
+  const float q = __fmaf_rn(r, f, -0.5f);
+  const float p = __fmaf_rn(q, __fmul_rn(f, f), f);
+  return -__fmaf_rn(ef, kLn2, p);
+}
+
+// Standard Gumbel noise from 32 random bits: u = top24 / 2^24 + 1e-10 as
+// gumbel_from_bits forms it, g = -log(-log(u)), the inner log neg_log's,
+// the outer the SFU's (g within ~2e-6 of -log(-log u) in float64).
+__device__ __forceinline__ float gumbel(unsigned bits) {
+  const float u = __fmaf_rn(static_cast<float>(bits >> 8), 1.0f / 16777216.0f, 1e-10f);
+  return __fmul_rn(lg2(neg_log(u)), -kLn2);
+}
+
+// Which noise can win. A column whose score is x + g beats `best` (the
+// score of a column already formed) only if g > t = best - x, and g <=
+// -log(1 - u) for every u: a column with 1 - u >= e^-t (t less a margin
+// for the fp32 roundings of g and of x + g and for ex2's error) cannot
+// win, and its noise need not be formed. Those are the columns whose
+// Philox word's top 24 bits are at most the value returned; x may be the
+// largest of a group's x, which bounds every column of the group.
+__device__ __forceinline__ int noise_kmax(float best, float x) {
+  const float t = best - x - (1e-3f + fabsf(best) * 0x1p-20f);
+  const float c = ex2(-t * 1.4426950408889634f) * (1.f + 0x1p-16f);
+  return __float2int_rd(__fmaf_rn(-c, 16777216.f, 16777215.f));
 }
 
 // Online (max, sum of exp) pair: merge (m2, s2) into (m, s).

@@ -18,7 +18,8 @@
 // here by K7's generator: Philox4x32-10 keyed on the seed, counter
 // (v / 4, l, b), word v % 4, u = top24 / 2^24 + 1e-10, g = -log(-log(u)).
 // With that key the kernel draws the same noise as K7 (absorbing_sample.cu)
-// run on the materialised logits.
+// run on the materialised logits; the int8 wgmma kernel forms it with
+// K7's own formula (ddg::gumbel), the others with ddg::gumbel_from_bits.
 //
 // Bound on the H100: tensor operations. At the LM1B slice (3072 tokens,
 // D = 768, V = 30523) the product is 144 G operations, 0.146 ms in bf16 at
@@ -27,10 +28,13 @@
 // SFU time, and its Philox rounds and conversions ~30 integer and fp32
 // instructions a logit, ~0.08 ms of issue on the CUDA cores.
 //
-// Two designs, by `head_plan` (from the shape alone): the bf16 head runs
+// Three designs, by `head_plan` (from the shape alone): the bf16 head runs
 // `hw::head_wgmma_kernel` (TMA, wgmma, warp-specialised; described at its
-// namespace below) where its feature tiles fit (D up to 1280); every other
-// call runs the first design:
+// namespace below) where its feature tiles fit (D up to 1280), the int8
+// head `s8::head_s8_kernel` (the same shape on int8 wgmma, with a wider
+// epilogue that forms K7's noise only where it can win; its namespace
+// below) where its tiles fit (D up to 2560); every other call runs the
+// first design:
 //
 // One block of 8 warps takes 128 tokens and a contiguous range of 128-row
 // vocab chunks (the vocab is split across blockIdx.y so that the 24 token
@@ -134,6 +138,14 @@ struct RowState {
   float m, s, best, mg;
   int idx;
 };
+
+// Keep (sc, v) as the best if it beats it, the lower index winning ties.
+__device__ __forceinline__ void take_best(RowState& st, float sc, int v) {
+  if (sc > st.best || (sc == st.best && v < st.idx)) {
+    st.best = sc;
+    st.idx = v;
+  }
+}
 
 template <int kMode>
 __global__ void __launch_bounds__(kThreads, 2) head_sample_kernel(const Args a) {
@@ -816,6 +828,426 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace hw
 
+// ---- The int8 kernel for Hopper (path 1 of `head_plan` for int8) --------
+//
+// hw::head_wgmma_kernel's warp-specialised shape with int8 operands and an
+// epilogue that forms K7's noise only where it can win: a block takes kTok
+// = 64 tokens and one vocab split of kSplitChunks chunks of kVt = 128 rows
+// (3840 rows, the last split what is left: 384 blocks, 2.9 waves, at the
+// LM1B slice; 1024- to 2560-row splits left a part-filled last wave and
+// more first chunks, whose noise pruning has no best yet, 0.48-0.49 ms).
+//   - The producer (the last warp's first thread) loads the block's int8
+//     features once (ceil(D / 128) TMA tiles of 64 tokens x 128 bytes in
+//     the 128-byte swizzle) and W's tiles of 128 rows x 128 bytes through a
+//     ring of up to kMaxStages slots (half the bytes of bf16's tiles a K
+//     step, so more slots fit).
+//   - The product warpgroup runs each chunk's product (wgmma m64n128k32
+//     s8 x s8 -> s32, exact, A and B from shared memory, both K-major as
+//     `feats_q` (B, L, D) and `w_q` (Vp, D) are) and writes the s32 tile to
+//     shared memory.
+//   - Eight epilogue warps take kRows consecutive vocab rows of a chunk for
+//     each of kHt tokens a thread: the rescale (float(acc) * xs) * ws + bias
+//     in explicit roundings (the logits of ops.quant.int8_dense bit for
+//     bit), the online (max, sum of exps) by fixed trees, and the best z + g
+//     with K7's noise (ddg::gumbel), formed only where it can beat the best
+//     z + g of the token's threads when the chunk began (ddg::noise_kmax
+//     against each Philox quad's largest z; a row no lane of the warp forms
+//     is skipped by the whole warp), and always for the mask's row. A
+//     thread's Philox calls run side by side.
+// The split's state of each token is merged over its threads in a fixed
+// order and written per (split, token); `head_merge_kernel` merges the
+// splits in order, so reruns give the same tokens. Layouts measured before
+// this one on an H100 at the LM1B slice (`scripts/ab_torch_head_sample.py
+// --phases --int8`; PERF.md §6): 128 tokens a block over two product
+// warpgroups (W read from L2 half as often, but 17-24 warps leave 80-96
+// registers and the epilogue spills), sixteen epilogue warps of 16 rows (96
+// registers), the producer's loads issued by the first product thread (the
+// products alone 0.44 ms against 0.31 with their own warp), and the rescale
+// and LSE on the product warpgroup's accumulators (the products' time
+// doubled).
+namespace s8 {
+
+constexpr int kVt = 128;                 // vocab rows a chunk: one wgmma N
+constexpr int kRows = 16;                // vocab rows of a chunk an epilogue thread takes
+constexpr int kEpiWarps = 8;             // epilogue warps
+constexpr int kSplitRows = 3840;         // vocab rows a split
+constexpr int kTok = 64;                 // tokens a block: one wgmma M
+constexpr int kK = 128;                  // K bytes of a tile
+constexpr int kProdThreads = 128;        // one product warpgroup
+constexpr int kEpiThreads = 32 * kEpiWarps;
+constexpr int kThreads = kProdThreads + kEpiThreads + 32;   // and the producer's warp
+constexpr int kSplitChunks = kSplitRows / kVt;
+constexpr int kHt = kTok * kVt / (kRows * kEpiThreads);   // tokens an epilogue thread
+constexpr int kTpw = 32 * kRows / kVt;   // tokens an epilogue warp's lanes take at once
+constexpr int kInFlight = 2;             // wgmma groups left running behind the newest
+constexpr int kTileBytes = kTok * kK;    // a feature tile: kTok tokens x 128 int8
+constexpr int kStageBytes = kVt * kK;    // a W slot: kVt rows x 128 int8
+constexpr int kZRow = kVt + 4;           // the s32 tile's padded row, words
+constexpr int kMaxStages = 8;
+constexpr int kMinStages = 2;
+constexpr int kSmemMax = 232448;
+constexpr int kAlign = 1024;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kHt >= 1 && kTok * kVt == kHt * kRows * kEpiThreads, "epilogue split");
+
+// Shared memory of a block with nk feature tiles and `stages` W slots
+// (with the s32 tile, the alignment slack and the mbarriers).
+__host__ __device__ constexpr int smem_bytes(int nk, int stages) {
+  return kAlign + nk * kTileBytes + stages * kStageBytes + kTok * kZRow * 4 +
+         8 * (2 * stages + 3);
+}
+__host__ __device__ constexpr int stages_for(int nk) {
+  int s = kMaxStages;
+  while (s > 0 && smem_bytes(nk, s) > kSmemMax) --s;
+  return s;
+}
+
+__device__ __forceinline__ void pin(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d += A B, 64 x 128 x 32: A (64 x 32) and B (32 x 128) int8 from shared
+// memory, both K-major, s32 accumulators laid out as hw::wgmma_n128's
+// (thread (warp w, lane 4 g + t) holds D[16 w + g + 8 (e >> 1)][8 j + 2 t
+// + (e & 1)] at 4 j + e, j < 16).
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52,"
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+struct SArgs {
+  const int* seed;
+  const int* xt;
+  const float* bias;     // (Vp,)
+  const float* x_scale;  // (T,)
+  const float* w_scale;  // (Vp,)
+  const float* gumbel;   // (B, Vp, L) or null
+  float* logits_out;     // (T, Vp) or null
+  float* part;           // (5, splits, T)
+  int T, L, nk, Vp, V, mask_index, splits, stages;
+};
+
+// The largest of x[0 .. N), by a tree.
+template <int N>
+__device__ __forceinline__ float tree_max(const float (&x)[N]) {
+  float t[N / 2];
+#pragma unroll
+  for (int c = 0; c < N / 2; ++c) t[c] = fmaxf(x[2 * c], x[2 * c + 1]);
+#pragma unroll
+  for (int w = N / 4; w > 0; w >>= 1)
+#pragma unroll
+    for (int c = 0; c < w; ++c) t[c] = fmaxf(t[c], t[c + w]);
+  return t[0];
+}
+
+// The Philox words of vocab rows v0 .. v0 + N - 1 of token (tb, tl):
+// counters (v / 4, l, b, 0), the N / 4 calls side by side round by round.
+template <int N>
+__device__ __forceinline__ void words(unsigned (&w)[N], int v0, int tb, int tl, unsigned seed) {
+  uint4 ctr[N / 4];
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k)
+    ctr[k] = make_uint4(static_cast<unsigned>((v0 >> 2) + k), static_cast<unsigned>(tl),
+                        static_cast<unsigned>(tb), 0u);
+  unsigned key0 = seed, key1 = 0u;
+#pragma unroll
+  for (int rnd = 0; rnd < 10; ++rnd) {
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k) ctr[k] = hw::philox_round(ctr[k], key0, key1);
+    key0 += 0x9E3779B9u;
+    key1 += 0xBB67AE85u;
+  }
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    w[4 * k] = ctr[k].x;
+    w[4 * k + 1] = ctr[k].y;
+    w[4 * k + 2] = ctr[k].z;
+    w[4 * k + 3] = ctr[k].w;
+  }
+}
+
+// One token's vocab rows v0 .. v0 + kRows - 1 of a chunk (`acc`: their s32
+// sums): the logits, the online (max, sum of exps), the mask row's noise
+// and the best z + g, into `st`. `floor` is a z + g that some row of the
+// token reached (the best of its threads when the chunk began).
+__device__ __forceinline__ void rows(const int (&acc)[kRows], const SArgs& a, int v0, int tok,
+                                     float xs, int tb, int tl, unsigned seed, float floor,
+                                     RowState& st) {
+  constexpr int N = kRows;
+  // The Philox words first: they need no logit, so their chains overlap
+  // the rest.
+  unsigned w[N];
+  if (!a.gumbel) words(w, v0, tb, tl, seed);
+  float z[N];
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    const float4 ws = *reinterpret_cast<const float4*>(a.w_scale + v0 + 4 * k);
+    const float4 bias = *reinterpret_cast<const float4*>(a.bias + v0 + 4 * k);
+    const float wv[4] = {ws.x, ws.y, ws.z, ws.w}, bv[4] = {bias.x, bias.y, bias.z, bias.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      z[4 * k + e] = __fadd_rn(
+          __fmul_rn(__fmul_rn(static_cast<float>(acc[4 * k + e]), xs), wv[e]), bv[e]);
+  }
+  if (a.logits_out && tok < a.T) {
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k)
+      *reinterpret_cast<float4*>(a.logits_out + static_cast<size_t>(tok) * a.Vp + v0 + 4 * k) =
+          make_float4(z[4 * k], z[4 * k + 1], z[4 * k + 2], z[4 * k + 3]);
+  }
+  // -inf at the rows that are not sampled (V and past, the mask).
+  const int mc = a.mask_index - v0;      // the mask's row here, if in [0, N)
+  if (a.V - v0 < N || (mc >= 0 && mc < N)) {
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+      if (v0 + c >= a.V || c == mc) z[c] = -INFINITY;
+  }
+  // The online max and sum of exps.
+  const float tmax = fmaxf(tree_max(z), kNeg);
+  if (tmax > st.m) {
+    st.s *= ddg::ex2((st.m - tmax) * kLog2e);
+    st.m = tmax;
+  }
+  const float ml = st.m * kLog2e;
+  float e[N / 2];
+#pragma unroll
+  for (int c = 0; c < N / 2; ++c)
+    e[c] = ddg::ex2(__fmaf_rn(z[2 * c], kLog2e, -ml)) +
+           ddg::ex2(__fmaf_rn(z[2 * c + 1], kLog2e, -ml));
+#pragma unroll
+  for (int k = N / 4; k > 0; k >>= 1)
+#pragma unroll
+    for (int c = 0; c < k; ++c) e[c] += e[c + k];
+  st.s += e[0];
+  // The noise and the best z + g.
+  if (a.gumbel) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      if (z[c] == -INFINITY && c != mc) continue;
+      const float g = a.gumbel[(static_cast<size_t>(tb) * a.Vp + v0 + c) * a.L + tl];
+      if (c == mc)
+        st.mg += g;
+      else
+        take_best(st, __fadd_rn(z[c], g), v0 + c);
+    }
+    return;
+  }
+  if (mc >= 0 && mc < N) {
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+      if (c == mc) st.mg += ddg::gumbel(w[c]);
+  }
+  const float best0 = fmaxf(floor, st.best);
+  // Each quad's bound from its largest z; the rows whose noise can win,
+  // this thread's (fm) and the warp's (wm: a row no lane forms is skipped
+  // by the whole warp).
+  unsigned fm = 0u;
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    const int kmax = ddg::noise_kmax(
+        best0, fmaxf(fmaxf(z[4 * k], z[4 * k + 1]), fmaxf(z[4 * k + 2], z[4 * k + 3])));
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (z[4 * k + i] > -INFINITY && static_cast<int>(w[4 * k + i] >> 8) > kmax)
+        fm |= 1u << (4 * k + i);
+  }
+  const unsigned wm = __reduce_or_sync(0xffffffffu, fm);
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+    if ((wm >> c) & 1u) {
+      if ((fm >> c) & 1u) take_best(st, __fadd_rn(z[c], ddg::gumbel(w[c])), v0 + c);
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    head_s8_kernel(const __grid_constant__ CUtensorMap tm_f,
+                   const __grid_constant__ CUtensorMap tm_w, const SArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~static_cast<uintptr_t>(kAlign - 1));
+  const int nk = a.nk, S = a.stages;
+  unsigned char* fs = smem;                            // nk feature tiles
+  unsigned char* ring = fs + nk * kTileBytes;          // S W slots
+  int* zt = reinterpret_cast<int*>(ring + S * kStageBytes);   // kTok x kZRow
+  uint64_t* full = reinterpret_cast<uint64_t*>(zt + kTok * kZRow);
+  uint64_t* empty = full + S;
+  uint64_t* fbar = empty + S;
+  uint64_t* zfull = fbar + 1;
+  uint64_t* zempty = zfull + 1;
+  const int tid = threadIdx.x;
+  const int tok0 = blockIdx.x * kTok, split = blockIdx.y;
+  const int items = min(kSplitChunks, a.Vp / kVt - split * kSplitChunks);
+
+  // A block whose tokens are all decoded has nothing to sample.
+  const bool mine = tid < kTok && tok0 + tid < a.T && a.xt[tok0 + tid] == a.mask_index;
+  if (!__syncthreads_or(mine)) return;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      ddg::mbar_init(ddg::smem_u32(full + s), 1);
+      ddg::mbar_init(ddg::smem_u32(empty + s), kProdThreads / 32);   // the product warps
+    }
+    ddg::mbar_init(ddg::smem_u32(fbar), 1);
+    ddg::mbar_init(ddg::smem_u32(zfull), kProdThreads);
+    ddg::mbar_init(ddg::smem_u32(zempty), kEpiThreads);
+    ddg::fence_mbar_init();
+  }
+  __syncthreads();
+  auto vrow = [&](int i) { return (split * kSplitChunks + i) * kVt; };
+
+  if (tid >= kProdThreads + kEpiThreads) {   // ---- the producer
+    if (tid == kProdThreads + kEpiThreads) {
+      const uint32_t fb = ddg::smem_u32(fbar);
+      ddg::mbar_expect_tx(fb, nk * kTileBytes);
+      for (int k = 0; k < nk; ++k)
+        ddg::tma_load_2d(ddg::smem_u32(fs + k * kTileBytes), &tm_f, k * kK, tok0, fb);
+      for (int idx = 0; idx < items * nk; ++idx) {
+        const int slot = idx % S;
+        ddg::mbar_wait(ddg::smem_u32(empty + slot), ((idx / S) & 1) ^ 1);
+        const uint32_t fb2 = ddg::smem_u32(full + slot);
+        ddg::mbar_expect_tx(fb2, kStageBytes);
+        ddg::tma_load_2d(ddg::smem_u32(ring + slot * kStageBytes), &tm_w, (idx % nk) * kK,
+                         vrow(idx / nk), fb2);
+      }
+    }
+    return;
+  }
+
+  if (tid < kProdThreads) {              // ---- the products
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int r0 = 16 * warp + g;        // this thread's token rows r0, r0 + 8
+    // Slab idx's products are done: its slot is free.
+    auto release = [&](int idx) {
+      if (lane == 0) ddg::mbar_arrive(ddg::smem_u32(empty + idx % S));
+      __syncwarp();
+    };
+    int acc[kVt / 2];
+#pragma unroll
+    for (int q = 0; q < kVt / 2; ++q) acc[q] = 0;
+    ddg::mbar_wait(ddg::smem_u32(fbar), 0);
+    const uint32_t fs0 = ddg::smem_u32(fs), ring0 = ddg::smem_u32(ring);
+    for (int i = 0; i < items; ++i) {
+      for (int k = 0; k < nk; ++k) {
+        const int idx = i * nk + k, slot = idx % S;
+        ddg::mbar_wait(ddg::smem_u32(full + slot), (idx / S) & 1);
+        hw::wg_fence();
+        pin(acc);
+        const uint32_t fa = fs0 + k * kTileBytes, fw = ring0 + slot * kStageBytes;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_s8(acc, hw::desc128(fa + 32 * kk), hw::desc128(fw + 32 * kk),
+                   k > 0 || kk > 0);
+        hw::wg_commit();
+        pin(acc);
+        if (k >= kInFlight) {            // slab idx - kInFlight is done
+          hw::wg_wait<kInFlight>();
+          pin(acc);
+          release(idx - kInFlight);
+        }
+      }
+      hw::wg_wait<0>();
+      pin(acc);
+      for (int k = max(0, nk - kInFlight); k < nk; ++k) release(i * nk + k);
+      // The s32 tile, once the epilogue has read the last one.
+      ddg::mbar_wait(ddg::smem_u32(zempty), (i & 1) ^ 1);
+#pragma unroll
+      for (int j = 0; j < kVt / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<int2*>(zt + (r0 + 8 * h) * kZRow + 8 * j + 2 * t) =
+              make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      ddg::mbar_arrive(ddg::smem_u32(zfull));
+    }
+    return;
+  }
+
+  // ---- The epilogue: token rows kTpw w + r + kTpw kEpiWarps h (w the
+  // epilogue warp, h < kHt), vocab rows kRows q .. kRows q + kRows - 1 of
+  // each chunk (lane = kTpw q + r, so a quarter warp's 16-byte reads of the
+  // tile fall in distinct banks).
+  const int e = tid - kProdThreads, lane = e & 31, q = lane / kTpw;
+  const int row0 = kTpw * (e >> 5) + lane % kTpw;
+  const unsigned seed = a.gumbel ? 0u : static_cast<unsigned>(a.seed[0]);
+  RowState st[kHt];
+  int tb[kHt], tl[kHt];
+  float xs[kHt];
+#pragma unroll
+  for (int h = 0; h < kHt; ++h) {
+    st[h] = RowState{kNeg, 0.f, -INFINITY, 0.f, 0x7fffffff};
+    const int tok_c = min(tok0 + row0 + kTpw * kEpiWarps * h, a.T - 1);
+    tb[h] = tok_c / a.L;
+    tl[h] = tok_c - tb[h] * a.L;
+    xs[h] = a.x_scale[tok_c];
+  }
+  for (int i = 0; i < items; ++i) {
+    const int v0 = vrow(i) + kRows * q;
+    ddg::mbar_wait(ddg::smem_u32(zfull), i & 1);
+#pragma unroll
+    for (int h = 0; h < kHt; ++h) {
+      const int row = row0 + kTpw * kEpiWarps * h;
+      // The best z + g of the token's threads when the chunk began.
+      float floor = st[h].best;
+#pragma unroll
+      for (int o = kTpw; o < 32; o <<= 1)
+        floor = fmaxf(floor, __shfl_xor_sync(0xffffffffu, floor, o));
+      int acc[kRows];
+#pragma unroll
+      for (int k = 0; k < kRows / 4; ++k)
+        *reinterpret_cast<int4*>(acc + 4 * k) =
+            *reinterpret_cast<const int4*>(zt + row * kZRow + kRows * q + 4 * k);
+      if (h == kHt - 1) ddg::mbar_arrive(ddg::smem_u32(zempty));
+      rows(acc, a, v0, tok0 + row, xs[h], tb[h], tl[h], seed, floor, st[h]);
+    }
+  }
+
+  // ---- The split's state of each token: its threads' merged in a fixed
+  // order, written per token.
+#pragma unroll
+  for (int h = 0; h < kHt; ++h) {
+    RowState& r = st[h];
+#pragma unroll
+    for (int o = kTpw; o < 32; o <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, r.m, o);
+      const float s2 = __shfl_xor_sync(0xffffffffu, r.s, o);
+      const float b2 = __shfl_xor_sync(0xffffffffu, r.best, o);
+      const int i2 = __shfl_xor_sync(0xffffffffu, r.idx, o);
+      const float g2 = __shfl_xor_sync(0xffffffffu, r.mg, o);
+      ddg::merge_ms(r.m, r.s, m2, s2);
+      ddg::merge_arg(r.best, r.idx, b2, i2);
+      r.mg += g2;
+    }
+    const int tok = tok0 + row0 + kTpw * kEpiWarps * h;
+    if (q == 0 && tok < a.T) {
+      const size_t o = static_cast<size_t>(split) * a.T + tok;
+      const size_t n = static_cast<size_t>(a.splits) * a.T;
+      a.part[o] = r.m;
+      a.part[n + o] = r.s;
+      a.part[2 * n + o] = r.best;
+      a.part[3 * n + o] = __int_as_float(r.idx);
+      a.part[4 * n + o] = r.mg;
+    }
+  }
+}
+
+}  // namespace s8
+
 // One thread a token: merge the splits in order, then the posterior pick
 // and the copy-over (_head_kernel's _final, :539-556).
 __global__ void head_merge_kernel(const int* __restrict__ xt, const float* __restrict__ mct,
@@ -847,10 +1279,13 @@ __global__ void head_merge_kernel(const int* __restrict__ xt, const float* __res
 }
 
 // How a call runs, from its shape alone (no SM count): path 1, the bf16
-// kernel above, where its feature tiles fit beside two W slots; path 0,
-// the first kernel (fp32, int8, and bf16 past D = 1280). A bf16 head's
-// vocab splits are kSplitChunks kVt = 1024 rows (the last what is left)
-// on either path; the fp32 and int8 heads' splits the wrapper sets.
+// kernel (hw) or the int8 kernel (s8) above, where its feature tiles fit
+// beside two W slots (bf16, D up to 1280; int8, D up to 2560, a multiple
+// of 16); path 0, the
+// first kernel (fp32, and bf16 and int8 past those). A bf16 head's vocab
+// splits are hw::kSplitChunks kVt = 1024 rows (the last what is left) on
+// either path, an int8 head's on path 1 s8::kSplitChunks chunks; the fp32
+// head's, and the int8 head's on path 0, the wrapper sets.
 // ops/fused_sampling.py's `head_plan` mirrors it, and chip_smoke.py holds
 // the two equal through `ddg_head_plan`.
 struct HeadPlan {
@@ -858,6 +1293,14 @@ struct HeadPlan {
 };
 
 HeadPlan head_plan(int T, int D, int Vp, int mode) {
+  if (mode == kModeS8) {
+    const int nk = (D + s8::kK - 1) / s8::kK, st = s8::stages_for(nk);
+    const int rows = s8::kSplitChunks * s8::kVt;
+    if (T <= 0 || D <= 0 || D % 16 || Vp <= 0 || Vp % hw::kVt || st < s8::kMinStages)
+      return HeadPlan{0, 0, 0, 0, 0, 0, 0};
+    return HeadPlan{1, s8::kTok, s8::kVt, s8::kSplitChunks, (Vp + rows - 1) / rows, st,
+                    s8::smem_bytes(nk, st)};
+  }
   const int nk = (D + 63) / 64, st = hw::stages_for(nk);
   const int rows = hw::kSplitChunks * hw::kVt, splits = (Vp + rows - 1) / rows;
   if (mode != kModeBF16 || T <= 0 || D <= 0 || D % 8 || Vp <= 0 || Vp % hw::kVt)
@@ -892,16 +1335,20 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A (rows, cols) bf16 row-major tensor as boxes of box_rows x 64 in the
-// 128-byte swizzle; boxes past its edges read zeros.
-bool make_map(CUtensorMap* m, const void* base, int rows, int cols, int box_rows) {
+// A (rows, cols) bf16 (or int8) row-major tensor as boxes of box_rows x
+// 128 bytes in the 128-byte swizzle; boxes past its edges read zeros.
+bool make_map(CUtensorMap* m, const void* base, int rows, int cols, int box_rows,
+              bool int8 = false) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
+  const int bytes = int8 ? 1 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / bytes),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t es[2] = {1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+  return enc(m, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(base), dims, strides, box,
              es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -921,6 +1368,24 @@ int launch_wgmma(const HeadPlan& pl, const void* feats, const void* w, int D, co
   }
   const dim3 grid((h.T + hw::kTok - 1) / hw::kTok, h.splits);
   hw::head_wgmma_kernel<<<grid, hw::kThreads, pl.smem, stream>>>(tf, tw, h);
+  return cudaGetLastError();
+}
+
+int launch_s8(const HeadPlan& pl, const void* feats, const void* w, int D, const s8::SArgs& h,
+              cudaStream_t stream) {
+  CUtensorMap tf, tw;
+  if (!make_map(&tf, feats, h.T, D, s8::kTok, true) ||
+      !make_map(&tw, w, h.Vp, D, s8::kVt, true))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        s8::head_s8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s8::kSmemMax);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const dim3 grid((h.T + s8::kTok - 1) / s8::kTok, h.splits);
+  s8::head_s8_kernel<<<grid, s8::kThreads, pl.smem, stream>>>(tf, tw, h);
   return cudaGetLastError();
 }
 
@@ -973,9 +1438,28 @@ extern "C" int ddg_head_sample(const void* seed, const void* xt, const void* fea
   a.mask_index = mask_index;
   auto s = static_cast<cudaStream_t>(stream);
   const HeadPlan pl = head_plan(a.T, D, Vp, mode);
-  if (mode == kModeBF16 && splits != pl.splits) return cudaErrorInvalidValue;
+  if ((mode == kModeBF16 || pl.path == 1) && splits != pl.splits) return cudaErrorInvalidValue;
   int rc;
-  if (pl.path == 1) {
+  if (pl.path == 1 && mode == kModeS8) {
+    s8::SArgs h;
+    h.seed = a.seed;
+    h.xt = a.xt;
+    h.bias = a.bias;
+    h.x_scale = a.x_scale;
+    h.w_scale = a.w_scale;
+    h.gumbel = a.gumbel;
+    h.logits_out = a.logits_out;
+    h.part = a.part;
+    h.T = a.T;
+    h.L = L;
+    h.nk = (D + s8::kK - 1) / s8::kK;
+    h.Vp = Vp;
+    h.V = V;
+    h.mask_index = mask_index;
+    h.splits = splits;
+    h.stages = pl.stages;
+    rc = launch_s8(pl, feats, w, D, h, s);
+  } else if (pl.path == 1) {
     hw::HArgs h;
     h.seed = a.seed;
     h.xt = a.xt;

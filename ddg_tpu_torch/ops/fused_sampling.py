@@ -16,16 +16,19 @@ argmax, every token resampled. With p = softmax(z) over the first
             + (1 - a_ts)(1 - a_s) / vocab_size
   log q_v = log(num_v + 1e-35);  -1e30 at columns >= vocab_size
 The posterior's denominator is constant along a row. The CFG variant
-interpolates log-posteriors, gamma log q(l_c) + (1 - gamma) log q(l_u).
+interpolates log-posteriors, gamma log q(l_c) + (1 - gamma) log q(l_u);
+on the card it takes a thread a row or a warp a row by the row's width
+(`uniform_cfg_plan`).
 
 Head-fused absorbing state (K11, K12): the vocab projection of the head
 features runs inside the step, z = W f + bias (bf16 or fp32 operands,
 fp32 sums; or the int8 head's (acc * x_scale) * w_scale + bias), and the
 (B, L, V) logits never reach memory. The pick is the same posterior
-argmax as K7's. The bf16 head runs the TMA and wgmma kernel where
-`head_plan` (shape only) takes it, and the first kernel past D = 1280,
-both in vocab splits of 1024 rows; the fp32 and int8 heads run the first
-kernel, whose vocab splits `head_splits` sets from the card's SM count.
+argmax as K7's. The bf16 and int8 heads run a TMA and wgmma kernel
+where `head_plan` (shape only) takes it (bf16 D up to 1280, int8 D up to
+2560), in vocab splits of 1024 and 3840 rows; the fp32 head, and the
+others past those widths, the first kernel (the bf16 head in the same
+splits, the others in those `head_splits` sets from the card's SM count).
 
 On CUDA tensors each function is one call of `csrc/absorbing_sample.cu`,
 `csrc/uniform_sample.cu` or `csrc/head_sample.cu`; on CPU tensors the
@@ -261,6 +264,24 @@ def fused_uniform_cfg_sample_plain(seed, xt, logits_cond, logits_uncond,
     return torch.argmax(scores, dim=-1).to(torch.int32)
 
 
+def uniform_cfg_plan(V: int, vocab_size: int, dtype, aligned: bool) -> dict:
+    """How the card runs a D-CFG call (K10), from its shape alone, as csrc
+    `cfg_plan` (`ddg_uniform_cfg_plan`) does: a thread a row where the
+    vocabulary is at most 32 columns (kernel 1 or 2, holding 16 or 32 of
+    them), else a warp a row (kernel 3 for one turn of 256 columns, 4 for
+    more), a lane 8 columns a turn, 16-byte loads (`vec`) where V % 8 == 0
+    and every row is 16-byte aligned (`aligned`: each tensor's address)."""
+    if dtype not in _DTYPES or not 0 < vocab_size <= V:
+        raise ValueError(f'no D-CFG plan for V={V}, vocab_size='
+                         f'{vocab_size}, {dtype}')
+    if vocab_size <= 16:
+        return dict(kernel=1, rows=256, cols=16, vec=0)
+    if vocab_size <= 32:
+        return dict(kernel=2, rows=256, cols=32, vec=0)
+    return dict(kernel=3 if vocab_size <= 256 else 4, rows=8, cols=8,
+                vec=int(V % 8 == 0 and aligned))
+
+
 def _launch_uniform(wrapper, seed, xt, lc, lu, alpha_t, alpha_s, gumbel,
                     vocab_size, gamma):
     B, L, V = lc.shape
@@ -431,11 +452,28 @@ def _sm_count(index: int) -> int:
 _HW_TOKENS, _HW_CHUNK, _HW_SPLIT_CHUNKS = 64, 128, 8
 _HW_TILE, _HW_STAGE, _HW_MAX_STAGES, _SMEM_MAX = 8192, 16384, 8, 232448
 _HW_Z = 64 * 132 * 4
+# The int8 head kernel (csrc `s8`, path 1 for int8): 64 tokens a block,
+# 128 vocab rows a chunk, 30 chunks a split; D / 128 feature tiles of 8 KB,
+# 2 to 8 W slots of 16 KB (128 rows x 128 int8) and a 64 x 132 s32 tile.
+_S8_TOKENS, _S8_CHUNK, _S8_SPLIT_CHUNKS, _S8_K, _S8_MIN_STAGES = (
+    64, 128, 30, 128, 2)
 
 
 def _hw_smem(nk: int, stages: int) -> int:
     return (1024 + nk * _HW_TILE + stages * _HW_STAGE + _HW_Z
             + 8 * (2 * stages + 3))
+
+
+def _s8_smem(nk: int, stages: int) -> int:
+    return (1024 + nk * _S8_TOKENS * _S8_K + stages * _S8_CHUNK * _S8_K
+            + _S8_TOKENS * (_S8_CHUNK + 4) * 4 + 8 * (2 * stages + 3))
+
+
+def _stages(smem, nk: int) -> int:
+    stages = _HW_MAX_STAGES
+    while stages > 0 and smem(nk, stages) > _SMEM_MAX:
+        stages -= 1
+    return stages
 
 
 def head_plan(n_tokens: int, D: int, Vp: int, dtype) -> dict:
@@ -444,18 +482,29 @@ def head_plan(n_tokens: int, D: int, Vp: int, dtype) -> dict:
     splits of 1024 rows (the last what is left): on path 1, the bf16
     kernel (TMA, wgmma, a block per 64 tokens and split), where its
     feature tiles fit beside two W slots (D up to 1280); else on path 0,
-    the first kernel. The fp32 and int8 heads take path 0 with no splits
-    here: `head_splits` sets theirs."""
+    the first kernel. An int8 head takes path 1, the int8 kernel (int8
+    wgmma, a block per 64 tokens and split of 3840 rows), where its
+    feature tiles fit beside two W slots (D up to 2560, a multiple of 16);
+    else path 0 with no splits here, as the fp32 head: `head_splits` sets
+    theirs."""
+    zero = dict(path=0, tokens=0, chunk=0, split_chunks=0, splits=0,
+                stages=0, smem=0)
+    if n_tokens <= 0 or D <= 0 or Vp <= 0 or Vp % _HW_CHUNK:
+        return zero
+    if dtype == torch.int8:
+        nk = -(-D // _S8_K)
+        stages = _stages(_s8_smem, nk)
+        if D % 16 or stages < _S8_MIN_STAGES:
+            return zero
+        return dict(path=1, tokens=_S8_TOKENS, chunk=_S8_CHUNK,
+                    split_chunks=_S8_SPLIT_CHUNKS,
+                    splits=-(-Vp // (_S8_SPLIT_CHUNKS * _S8_CHUNK)),
+                    stages=stages, smem=_s8_smem(nk, stages))
     nk = -(-D // 64)
-    stages = _HW_MAX_STAGES
-    while stages > 0 and _hw_smem(nk, stages) > _SMEM_MAX:
-        stages -= 1
-    rows = _HW_SPLIT_CHUNKS * _HW_CHUNK
-    splits = -(-Vp // rows)
-    if (dtype != torch.bfloat16 or n_tokens <= 0 or D <= 0 or D % 8
-            or Vp <= 0 or Vp % _HW_CHUNK):
-        return dict(path=0, tokens=0, chunk=0, split_chunks=0, splits=0,
-                    stages=0, smem=0)
+    stages = _stages(_hw_smem, nk)
+    splits = -(-Vp // (_HW_SPLIT_CHUNKS * _HW_CHUNK))
+    if dtype != torch.bfloat16 or D % 8:
+        return zero
     if stages < 2:
         return dict(path=0, tokens=0, chunk=0,
                     split_chunks=_HW_SPLIT_CHUNKS, splits=splits, stages=0,
@@ -466,8 +515,8 @@ def head_plan(n_tokens: int, D: int, Vp: int, dtype) -> dict:
 
 
 def head_splits(n_tokens: int, Vp: int, sms: int) -> int:
-    """Vocab splits of the first head kernel's grid for the fp32 and int8
-    heads: enough blocks for two a multiprocessor, each split a whole
+    """Vocab splits of the first head kernel's grid for the fp32 head and
+    the int8 head on path 0: enough blocks for two a multiprocessor, each split a whole
     number of chunks and none empty."""
     chunks = Vp // HEAD_CHUNK
     tiles = -(-n_tokens // HEAD_TOKENS)

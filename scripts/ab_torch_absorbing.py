@@ -5,6 +5,7 @@ first-call check and a same-call A/B against another copy of the source.
 
     python3 scripts/ab_torch_absorbing.py --check
     python3 scripts/ab_torch_absorbing.py --parent-source build/ab/absorbing_sample.cu [--rounds 2]
+    python3 scripts/ab_torch_absorbing.py --uniform --parent-source build/ab/uniform_sample.cu
 
 `--check` builds the kernels, prints ptxas's lines for
 `absorbing_sample.cu` and runs `chip_smoke.check_sampling`: K7 and K8
@@ -30,6 +31,17 @@ rebuilt (`chip_smoke._philox_gumbel`) must lie within MARGIN. Both arms
 are called through ctypes on the same inputs. One JSON line per arm and
 round, one summary line per (kernel, dtype), beside nvidia-smi's name and
 power limit.
+
+With `--uniform` and an earlier `uniform_sample.cu` as `--parent-source`
+the same for the uniform step, K9 `fused_uniform_sample` and K10
+`fused_uniform_cfg_sample`, in bf16 with in-kernel noise at the shapes of
+their main paths: Species10's 8 x 32768 x V=12 and the UNet's 32 x 3072 x
+V=256 (A B B A, `--rounds` times). Each arm's tokens are held against the
+plain version under one external Gumbel wherever the top-two gap exceeds
+`chip_smoke.MARGIN`; with the in-kernel noise K9's two arms must be
+bit-equal, and where K10's differ (this tree forms K7's noise, the parent
+`ddg::gumbel_from_bits`), the two tokens' scores with the Philox draws
+rebuilt (`chip_smoke._philox_gumbel`) must lie within MARGIN.
 """
 
 import argparse
@@ -151,6 +163,134 @@ def run_turns(fns, rounds):
     return failed
 
 
+UNIFORM_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4
+                + (ctypes.c_float,) * 2 + (ctypes.c_int,) * 3
+                + (ctypes.c_void_p,))
+
+
+def _uniform_call(fn, seed, xt, lc, lu, a_t, a_s, gumbel=None):
+    """One call of a `ddg_uniform_sample` of either version (K10 when lu is
+    given), vector loads where the wrapper would take them."""
+    from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    Bt, Lt, Vt = lc.shape
+    rows = [t for t in (lc, lu, gumbel) if t is not None]
+    vec = Vt % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in rows)
+    out = torch.empty((Bt, Lt), dtype=torch.int32, device='cuda')
+    g = 0.0 if lu is None else cs.GAMMA
+    rc = fn(seed.data_ptr(), xt.data_ptr(), lc.data_ptr(),
+            None if lu is None else lu.data_ptr(), a_t.data_ptr(),
+            a_s.data_ptr(), None if gumbel is None else gumbel.data_ptr(),
+            out.data_ptr(), Bt * Lt, Lt, Vt, Vt, g, 1.0 - g,
+            int(lu is not None), fs._DTYPES[lc.dtype], int(vec),
+            _build.stream(lc))
+    _build.check(rc, 'ddg_uniform_sample')
+    return out
+
+
+def _uniform_gap(name, a, b, log_q, seed):
+    """Where tokens a and b differ, their scores log q + g with the Philox
+    draws of `seed` rebuilt must lie within MARGIN; returns how many
+    differ."""
+    diff = a != b
+    n = int(diff.sum().item())
+    if n == 0:
+        return 0
+    bi, li = diff.nonzero(as_tuple=True)
+    gaps = []
+    for tok in (a[bi, li].long(), b[bi, li].long()):
+        g = cs._philox_gumbel(seed, bi, li, tok).double()
+        gaps.append(log_q[bi, li].double().gather(-1, tok[:, None])[:, 0] + g)
+    worst = (gaps[0] - gaps[1]).abs().max().item()
+    cs.check(worst <= cs.MARGIN, f'{name}: {n} tokens differ where the '
+                                 f'scores differ by {worst}')
+    return n
+
+
+def run_uniform(parent_source, rounds):
+    """K9 and K10 of the parent and of this tree in turns; see the module
+    docstring. Returns the number of failed checks."""
+    from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    parent, log = build_parent(parent_source)
+    print(json.dumps({'parent_ptxas': cs.ptxas_lines(log)}), flush=True)
+    libs = _build.build_all()
+    print(json.dumps({'ptxas': cs.ptxas_lines(libs['uniform_sample'][1])}),
+          flush=True)
+    fns = {}
+    for arm, lib in (('parent', parent),
+                     ('new', ctypes.CDLL(str(libs['uniform_sample'][0])))):
+        fns[arm] = lib.ddg_uniform_sample
+        fns[arm].argtypes = list(UNIFORM_ARGS)
+        fns[arm].restype = ctypes.c_int
+    smi = cs.nvidia_smi()
+    gen = torch.Generator(device='cuda').manual_seed(19)
+    order = list(fns)
+    failed = 0
+    for label, Bt, Lt, Vt in (('species10', cs.SB, cs.SL, cs.SV),
+                              ('unet', cs.UB, cs.UL, cs.UV)):
+        (lc, lu), xt, a_t, a_s = cs._uniform_inputs(
+            gen, torch.bfloat16, Vt, Bu=Bt, Lu=Lt)
+        seed = torch.tensor([11], dtype=torch.int32, device='cuda')
+        for kernel, lu_k in (('K9', None), ('K10', lu)):
+            rec = {'kernel': kernel, 'shape': [Bt, Lt, Vt], 'case': label,
+                   'nvidia_smi': smi}
+            try:
+                if lu_k is None:
+                    log_q = fs.uniform_log_num(lc, xt, a_t, a_s,
+                                               vocab_size=Vt)
+                else:
+                    log_q = fs.uniform_cfg_log_num(lc, lu, cs.GAMMA, xt, a_t,
+                                                   a_s, vocab_size=Vt)
+                g = -torch.log(-torch.log(torch.rand(
+                    (Bt, Lt, Vt), generator=gen, device='cuda')
+                    .clamp_min(1e-20)))
+                scores = fs.uniform_perturbed_scores(0, log_q, vocab_size=Vt,
+                                                     gumbel=g)
+                ref = torch.argmax(scores, -1).to(torch.int32)
+                rec['external_bad_compared'] = {
+                    arm: cs._uniform_token_check(
+                        f'{kernel} {label} {arm}',
+                        _uniform_call(fns[arm], seed, xt, lc, lu_k, a_t, a_s,
+                                      g), ref, scores, Vt)
+                    for arm in order}
+                del scores, g, ref
+                got = {arm: _uniform_call(fns[arm], seed, xt, lc, lu_k, a_t,
+                                          a_s) for arm in order}
+                rec['reruns_equal'] = {arm: bool(torch.equal(
+                    got[arm], _uniform_call(fns[arm], seed, xt, lc, lu_k,
+                                            a_t, a_s))) for arm in order}
+                cs.check(all(rec['reruns_equal'].values()), 'a rerun differs')
+                rec['arms_equal'] = bool(torch.equal(got['parent'],
+                                                     got['new']))
+                if lu_k is None:
+                    cs.check(rec['arms_equal'], f'{kernel}: the arms differ')
+                else:
+                    rec['arms_differ_tokens'] = _uniform_gap(
+                        f'{kernel} {label}', got['parent'], got['new'], log_q,
+                        11)
+                del log_q
+            except Exception as e:  # report, then fail
+                rec['error'] = repr(e)[:800]
+                failed += 1
+            times = {arm: [] for arm in order}
+            for r in range(rounds):
+                for arm in order + order[::-1]:
+                    ms = cs.time_ms(lambda: _uniform_call(
+                        fns[arm], seed, xt, lc, lu_k, a_t, a_s))
+                    times[arm].append(ms)
+                    print(json.dumps({'kernel': kernel, 'case': label,
+                                      'arm': arm, 'round': r, 'ms': ms}),
+                          flush=True)
+            rec['ms'] = {arm: sum(t) / len(t) for arm, t in times.items()}
+            rec['times'] = times
+            rec['split_ms'] = {arm: cs.kernel_ms(lambda: _uniform_call(
+                fns[arm], seed, xt, lc, lu_k, a_t, a_s)) for arm in order}
+            print(json.dumps(rec), flush=True)
+        del lc, lu
+    return failed
+
+
 def run_check():
     from ddg_tpu_torch.ops import _build
     libs = _build.build_all()
@@ -185,6 +325,7 @@ def main():
     ap.add_argument('--check', action='store_true')
     ap.add_argument('--parent-source')
     ap.add_argument('--rounds', type=int, default=2)
+    ap.add_argument('--uniform', action='store_true')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('no CUDA device is visible', file=sys.stderr)
@@ -194,6 +335,8 @@ def main():
         return run_check()
     if args.parent_source is None or not os.path.exists(args.parent_source):
         ap.error('--parent-source names no file')
+    if args.uniform:
+        return 1 if run_uniform(args.parent_source, args.rounds) else 0
     return run_parent(args.parent_source, args.rounds)
 
 

@@ -5,7 +5,8 @@
     python3 scripts/ab_torch_head_sample.py [--steps 1000] [--rounds 2]
     python3 scripts/ab_torch_head_sample.py --parent-source build/ab/head_sample.cu
     python3 scripts/ab_torch_head_sample.py --k13 --parent-source build/ab/groupnorm.cu
-    python3 scripts/ab_torch_head_sample.py --phases
+    python3 scripts/ab_torch_head_sample.py --phases [--int8]
+    python3 scripts/ab_torch_head_sample.py --int8 --parent-source build/ab/head_sample.cu
 
 With no source, the LM1B D-CFG feature-mix sampler (gamma 2, B=24) with
 and without the head-fused step: for the bf16 flagship and then the int8
@@ -25,9 +26,13 @@ tokens, D 768, V 30523, Vp 30720, every token masked, in-kernel noise),
 times the parent's call, the new one, the new one, the parent's (A B B A,
 `--rounds` times, CUDA events, `chip_smoke.time_ms`) for the bf16 head
 (K11), the fp32 head (K11) and the int8 head (K12), and compares the two
-arms' tokens: equal bits for fp32 and int8 (the first kernel in both), and
-for bf16 each arm's tokens against the plain version under an external
-Gumbel where the top-two margin exceeds `chip_smoke.MARGIN`. Both arms are
+arms' tokens: equal bits for bf16 and fp32, each arm's tokens against the
+plain version under an external Gumbel where the top-two margin exceeds
+`chip_smoke.MARGIN`, and for int8, whose noise differs between the
+versions (the parent's `ddg::gumbel_from_bits`, this tree's K7 noise), the
+new arm's in-kernel tokens against its composite (the int8 logits, then
+K7 with the same seed) by `chip_smoke._rng_gap_check`, and the count of
+tokens in which the two arms differ. Both arms are
 called through ctypes on the same inputs; each arm takes the split its
 own plan gives (`ddg_head_plan` where the parent exports it, else the
 first kernel's `head_splits`, by the card's SM count). One JSON line per arm and one summary line per
@@ -40,7 +45,15 @@ wgmma instructions (the loads stay; the epilogue runs on zero logits),
 'no_epilogue' hands each logits tile back as soon as it is read (the
 loads and products stay). Timed full, no_products, no_epilogue, then
 back (A B C C B A, `--rounds` times, CUDA events), with the split by
-kernel; the copies' tokens are not checked.
+kernel; the copies' tokens are not checked. `--phases --int8` does the
+same for the int8 head's kernel (`s8::head_s8_kernel`, `PHASE_PATCHES_S8`:
+'no_products' drops its wgmma, 'no_epilogue' the epilogue's work on each
+tile, which is then read by no one, 'no_noise' the noise and best z + g,
+'no_pruning' forms every logit's noise) and times beside them splits its
+plan did not take, 'split1024' and 'split2048' (1024 and 2048 vocab
+rows); each copy runs its own plan's split.
+
+`--int8` with `--parent-source` times the int8 head (K12) alone.
 
 With `--k13 --parent-source <an earlier groupnorm.cu>`, the same for K13
 over the 51 norms of one UNet D-CFG forward (`chip_smoke.
@@ -143,32 +156,69 @@ def _head_call(fn, splits, seed, xt, fin, head, mct, mcs, Vt, gumbel=None):
 # (old, new) text of `head_sample.cu` for `--phases`; each old text must
 # occur once.
 PHASE_PATCHES = {
-    'no_products': ('          wgmma_n128(acc, desc128(fa + 32 * kk), '
-                    'desc128(fw + 32 * kk), k > 0 || kk > 0);\n', ''),
-    'no_epilogue': ('    ddg::mbar_arrive(ddg::smem_u32(zempty));\n',
-                    '    ddg::mbar_arrive(ddg::smem_u32(zempty));\n'
-                    '    continue;\n'),
+    'no_products': [('          wgmma_n128(acc, desc128(fa + 32 * kk), '
+                     'desc128(fw + 32 * kk), k > 0 || kk > 0);\n', '')],
+    'no_epilogue': [('    ddg::mbar_arrive(ddg::smem_u32(zempty));\n',
+                     '    ddg::mbar_arrive(ddg::smem_u32(zempty));\n'
+                     '    continue;\n')],
 }
 
 
-def run_phases(rounds):
+# The same for the int8 kernel, and the two layouts its plan did not take.
+_NO_WGMMA = ('          wgmma_s8(acc, hw::desc128(fa + 32 * kk), '
+             'hw::desc128(fw + 32 * kk),\n'
+             '                   k > 0 || kk > 0);\n', '')
+PHASE_PATCHES_S8 = {
+    'no_products': [_NO_WGMMA],
+    'no_epilogue': [('      rows(acc, a, v0, tok0 + row, xs[h], tb[h], tl[h], seed, '
+                     'floor, st[h]);\n', '')],
+    'no_noise': [('  if (mc >= 0 && mc < N) {\n#pragma unroll\n'
+                  '    for (int c = 0; c < N; ++c)\n'
+                  '      if (c == mc) st.mg += ddg::gumbel(w[c]);',
+                  '  return;\n  if (mc >= 0 && mc < N) {\n#pragma unroll\n'
+                  '    for (int c = 0; c < N; ++c)\n'
+                  '      if (c == mc) st.mg += ddg::gumbel(w[c]);')],
+    'no_pruning': [('      if (z[4 * k + i] > -INFINITY && '
+                    'static_cast<int>(w[4 * k + i] >> 8) > kmax)',
+                    '      if (z[4 * k + i] > -INFINITY)')],
+    'split1024': [('constexpr int kSplitRows = 3840;',
+                   'constexpr int kSplitRows = 1024;')],
+    'split2048': [('constexpr int kSplitRows = 3840;',
+                   'constexpr int kSplitRows = 2048;')],
+}
+
+
+def _plan_splits(lib, T, Dm, Vp, dtype):
+    """The vocab splits of a built library's own plan (`ddg_head_plan`)."""
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    out = (ctypes.c_int * 7)()
+    lib.ddg_head_plan(T, Dm, Vp, fs._HEAD_MODES[dtype], out)
+    return list(out)
+
+
+def run_phases(rounds, int8=False):
     from concurrent.futures import ThreadPoolExecutor
     from ddg_tpu_torch.ops import _build
-    from ddg_tpu_torch.ops import fused_sampling as fs
     src = (ROOT / 'ddg_tpu_torch' / 'csrc' / 'head_sample.cu').read_text()
-    out_dir = ROOT / 'build' / 'ab'
+    # Beside no header: the copies include this tree's csrc/ headers.
+    out_dir = ROOT / 'build' / 'variants'
     out_dir.mkdir(parents=True, exist_ok=True)
+    dtype = torch.int8 if int8 else torch.bfloat16
     paths = {}
-    for arm, (old, new) in PHASE_PATCHES.items():
-        cs.check(src.count(old) == 1, f'{arm}: the patched text occurs '
-                                      f'{src.count(old)} times, not once')
+    for arm, pairs in (PHASE_PATCHES_S8 if int8 else PHASE_PATCHES).items():
+        text = src
+        for old, new in pairs:
+            cs.check(text.count(old) == 1, f'{arm}: the patched text occurs '
+                                           f'{text.count(old)} times, not '
+                                           'once')
+            text = text.replace(old, new)
         paths[arm] = out_dir / f'head_sample_{arm}.cu'
-        paths[arm].write_text(src.replace(old, new))
+        paths[arm].write_text(text)
     with ThreadPoolExecutor(len(paths)) as pool:
         built = dict(zip(paths, pool.map(build_parent, paths.values())))
-    fns = {'full': _build.kernel('head_sample', 'ddg_head_sample',
-                                 HEAD_ARGS)}
-    fns.update({arm: lib.ddg_head_sample for arm, (lib, _) in built.items()})
+    libs = {'full': ctypes.CDLL(str(_build.build_all()['head_sample'][0]))}
+    libs.update({arm: lib for arm, (lib, _) in built.items()})
+    fns = {arm: lib.ddg_head_sample for arm, lib in libs.items()}
     for f in fns.values():
         f.argtypes = list(HEAD_ARGS)
         f.restype = ctypes.c_int
@@ -177,14 +227,17 @@ def run_phases(rounds):
     Bt, Lt, Vt = cs.B, cs.L, cs.V
     cs.MASK = Vt - 1
     fin, head, _, mct, mcs, _ = cs._head_inputs(
-        gen, Bt, Lt, Vt, cs.MASK, cs.TILE_V, torch.bfloat16)
-    plan = fs.head_plan(Bt * Lt, cs.D, head[0].shape[0], torch.bfloat16)
-    cs.check(plan['path'] == 1, 'the slice does not take the wgmma kernel')
+        gen, Bt, Lt, Vt, cs.MASK, cs.TILE_V, dtype)
+    plans = {arm: _plan_splits(lib, Bt * Lt, cs.D, head[0].shape[0], dtype)
+             for arm, lib in libs.items()}
+    for arm, plan in plans.items():
+        cs.check(plan[0] == 1, f'{arm}: the slice does not take the wgmma '
+                               f'kernel ({plan})')
     seed = torch.tensor([11], dtype=torch.int32, device='cuda')
     xm = torch.full((Bt, Lt), cs.MASK, dtype=torch.int32, device='cuda')
 
     def call(arm):
-        return _head_call(fns[arm], plan['splits'], seed, xm, fin, head,
+        return _head_call(fns[arm], plans[arm][4], seed, xm, fin, head,
                           mct, mcs, Vt)
     order = list(fns)
     times = {arm: [] for arm in order}
@@ -195,6 +248,7 @@ def run_phases(rounds):
             print(json.dumps({'phases': arm, 'round': r, 'ms': ms,
                               'nvidia_smi': smi}), flush=True)
     print(json.dumps({
+        'head': str(dtype), 'plans': plans,
         'phases_ms': {arm: sum(t) / len(t) for arm, t in times.items()},
         'times': times,
         'split_ms': {arm: cs.kernel_ms(lambda: call(arm)) for arm in order},
@@ -217,7 +271,7 @@ def _parent_splits(parent, T, Dm, Vp, dtype, sms):
     return out[4] or fs.head_splits(T, Vp, sms)
 
 
-def run_head_ab(parent_source, rounds):
+def run_head_ab(parent_source, rounds, dtypes):
     from ddg_tpu_torch.ops import _build
     from ddg_tpu_torch.ops import fused_sampling as fs
     parent, log = build_parent(parent_source)
@@ -231,7 +285,7 @@ def run_head_ab(parent_source, rounds):
     Bt, Lt, Vt = cs.B, cs.L, cs.V
     cs.MASK = Vt - 1
     failed = 0
-    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+    for dtype in dtypes:
         fin, head, xt, mct, mcs, g = cs._head_inputs(
             gen, Bt, Lt, Vt, cs.MASK, cs.TILE_V, dtype)
         Vp = head[0].shape[0]
@@ -259,7 +313,9 @@ def run_head_ab(parent_source, rounds):
                                                          again[arm]))
                                    for arm in fns}
             rec['arms_equal'] = bool(torch.equal(got['parent'], got['new']))
-            if dtype != torch.bfloat16:
+            rec['arms_differ_tokens'] = int((got['parent'] != got['new'])
+                                            .sum().item())
+            if dtype != torch.int8:
                 cs.check(rec['arms_equal'], f'{dtype}: the arms differ')
             # External Gumbel: each arm against the plain version.
             ext = {arm: call(arm, xt, g) for arm in fns}
@@ -277,6 +333,13 @@ def run_head_ab(parent_source, rounds):
             rec['compared_tokens'] = {arm: cs._token_check(
                 f'{dtype} {arm}', out, ref, scores, xt, Vt)
                 for arm, out in ext.items()}
+            if dtype == torch.int8:
+                comp = fs.fused_absorbing_sample(
+                    seed, xm, z[..., :Vt].contiguous(), mct, mcs,
+                    mask_index=cs.MASK)
+                rec['new_vs_composite_near_ties'] = cs._rng_gap_check(
+                    'int8 new arm vs its composite', got['new'], comp,
+                    z[..., :Vt], xm, mct, mcs, 11)
             del scores, z, ref
         except Exception as e:  # report, then fail
             rec['error'] = repr(e)[:800]
@@ -408,6 +471,7 @@ def main():
     ap.add_argument('--parent-source')
     ap.add_argument('--k13', action='store_true')
     ap.add_argument('--phases', action='store_true')
+    ap.add_argument('--int8', action='store_true')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('no CUDA device is visible', file=sys.stderr)
@@ -415,7 +479,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.DEV = 'cuda'
     if args.phases:
-        return run_phases(args.rounds)
+        return run_phases(args.rounds, args.int8)
     if args.parent_source is None:
         if args.k13:
             ap.error('--k13 needs --parent-source')
@@ -424,7 +488,9 @@ def main():
         ap.error('--parent-source names no file')
     if args.k13:
         return run_k13_ab(args.parent_source, args.rounds)
-    return run_head_ab(args.parent_source, args.rounds)
+    return run_head_ab(args.parent_source, args.rounds,
+                       (torch.int8,) if args.int8 else
+                       (torch.bfloat16, torch.float32, torch.int8))
 
 
 if __name__ == '__main__':

@@ -25,8 +25,8 @@ dominates. Parametrised over V (37, 257 and 1031: one group a lane or
 less, and a few), the first row's offset into a 16-byte-aligned buffer
 (every phase mod 8; an odd V then puts the other rows at every phase),
 the mask index (0, mid-row, V - 1), bf16 and fp32, CFG on and off. The
-noise's polynomial inner log (its coefficients read from the source) is
-held against float64."""
+noise's polynomial inner log (its coefficients read from `common.cuh`,
+where K7 shares it with K10 and K12) is held against float64."""
 
 import math
 import re
@@ -41,8 +41,11 @@ from ddg_tpu.ops import fused_sampling as jfs
 from ddg_tpu_torch.ops import fused_sampling as tfs
 
 torch.set_num_threads(1)
-SRC = (Path(__file__).resolve().parents[1] / 'ddg_tpu_torch' / 'csrc'
-       / 'absorbing_sample.cu').read_text()
+CSRC = Path(__file__).resolve().parents[1] / 'ddg_tpu_torch' / 'csrc'
+SRC = (CSRC / 'absorbing_sample.cu').read_text()
+# The noise (`ddg::neg_log`, `ddg::gumbel`) that K7 and K8 share with K10
+# and K12.
+NOISE_SRC = (CSRC / 'common.cuh').read_text()
 ROW_WARPS = int(re.search(r'constexpr int kRowWarps = (\d+);', SRC).group(1))
 B, L = 2, 8
 MARGIN = 1e-4
@@ -499,7 +502,7 @@ def test_groups_cover_the_row_once(V, dtype):
 
 
 def _neg_log_coefficients():
-    body = SRC[SRC.index('float neg_log(float u)'):]
+    body = NOISE_SRC[NOISE_SRC.index('float neg_log(float u)'):]
     body = body[:body.index('\n}\n')]
     first = float(re.search(r'float r = ([-0-9.e]+)f;', body).group(1))
     rest = [float(x) for x in re.findall(

@@ -13,6 +13,9 @@ shared Gumbel, and the samplers' precedence (the NFE cache wins, the CPU
 takes the unfused chain).
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,11 +42,11 @@ CASE_IDS = ['mask_first_tile', 'mask_middle_tile', 'mask_last_tile',
             'one_tile']
 
 
-def _inputs(V, tile_v, seed):
+def _inputs(V, tile_v, seed, Dm=D):
     r = np.random.RandomState(seed)
     Vp = -(-V // tile_v) * tile_v
-    feats = r.randn(B, L, D).astype(np.float32)
-    kernel = (r.randn(D, V) * 0.4).astype(np.float32)
+    feats = r.randn(B, L, Dm).astype(np.float32)
+    kernel = (r.randn(Dm, V) * 0.4).astype(np.float32)
     bias = (r.randn(V) * 0.5).astype(np.float32)
     x0 = r.randint(0, V, (B, L))
     xt = np.where(r.rand(B, L) < 0.7, -1, x0).astype(np.int32)
@@ -129,6 +132,164 @@ def test_head_sample_int8_matches_pallas(V, tile_v, mask):
                   mask)
 
 
+@pytest.mark.parametrize('V,mask', [(1000, 500), (1000, 999), (643, 0)],
+                         ids=['mask_mid', 'mask_last', 'mask_first'])
+def test_head_sample_int8_matches_pallas_at_kernel_k(V, mask):
+    """K12's plain version against JAX's at D = 128 (one K tile of the int8
+    wgmma kernel) and a V that is no multiple of 128, one external Gumbel
+    for both."""
+    Dm = 128
+    feats, kernel, bias, xt, mct, mcs, g = _inputs(V, 128, 11 * V + mask, Dm)
+    xt = np.where(xt < 0, mask, xt).astype(np.int32)
+    jwq, jws, jb = jfs.quantize_head_weights(
+        jnp.asarray(kernel), jnp.asarray(bias), tile_v=128)
+    jfq, jxs = jfs.quantize_head_inputs(jnp.asarray(feats))
+    want = jfs.fused_absorbing_head_sample_int8(
+        3, jnp.asarray(xt), jfq, jxs, jwq, jws, jb, jnp.asarray(mct),
+        jnp.asarray(mcs), vocab_size=V, mask_index=mask, tile_v=128,
+        interpret=True, gumbel_t=jnp.asarray(g))
+    w_q, w_scale, bias_col = tfs.quantize_head_weights(
+        torch.from_numpy(kernel.T.copy()), torch.from_numpy(bias),
+        tile_v=128)
+    fq, xs = tfs.quantize_head_inputs(torch.from_numpy(feats))
+    got = tfs.fused_absorbing_head_sample_int8(
+        3, torch.from_numpy(xt), fq, xs, w_q, w_scale, bias_col,
+        torch.from_numpy(mct), torch.from_numpy(mcs), vocab_size=V,
+        mask_index=mask, tile_v=128, gumbel_t=torch.from_numpy(g))
+    logits = tfs.head_logits_int8(fq, xs, w_q, w_scale, bias_col)
+    _check_tokens(got, want, _scores(logits, xt, mct, mcs, mask, g, V), xt,
+                  mask)
+
+
+HEAD_SRC = (Path(__file__).resolve().parents[1] / 'ddg_tpu_torch' / 'csrc'
+            / 'head_sample.cu').read_text()
+
+
+def _s8_source():
+    """The int8 kernel's namespace of `head_sample.cu` and its integer
+    constants (the derived ones computed from the source's expressions,
+    each of which is asserted)."""
+    body = HEAD_SRC[HEAD_SRC.index('namespace s8 {'):
+                    HEAD_SRC.index('}  // namespace s8')]
+    c = {name: int(value) for name, value in re.findall(
+        r'constexpr int (k\w+) = (\d+);', body)}
+    for text in ('constexpr int kEpiThreads = 32 * kEpiWarps;',
+                 'constexpr int kSplitChunks = kSplitRows / kVt;',
+                 'constexpr int kHt = kTok * kVt / (kRows * kEpiThreads);',
+                 'constexpr int kTpw = 32 * kRows / kVt;',
+                 'constexpr int kTileBytes = kTok * kK;',
+                 'constexpr int kStageBytes = kVt * kK;',
+                 'constexpr int kZRow = kVt + 4;'):
+        assert text in body, text
+    c.update(kEpiThreads=32 * c['kEpiWarps'],
+             kSplitChunks=c['kSplitRows'] // c['kVt'], kZRow=c['kVt'] + 4,
+             kTpw=32 * c['kRows'] // c['kVt'])
+    c['kHt'] = c['kTok'] * c['kVt'] // (c['kRows'] * c['kEpiThreads'])
+    return body, c
+
+
+@pytest.mark.parametrize('D', [64, 128, 768, 784, 896, 1024, 1040, 1280,
+                               1296, 1536, 4096])
+def test_int8_head_plan_matches_the_source(D):
+    """`head_plan` for int8 against the int8 kernel's constants read from
+    `head_sample.cu` (s8: tokens a block, chunk and split, W slots, shared
+    memory, `smem_bytes` recomputed here): path 1 where D is a multiple of
+    16 and the feature tiles leave room for kMinStages W slots (one more
+    than the products in flight), else path 0 with no splits
+    (`head_splits` sets them). The LM1B slice takes path 1."""
+    body, c = _s8_source()
+    assert ('return kAlign + nk * kTileBytes + stages * kStageBytes + '
+            'kTok * kZRow * 4 +' in ' '.join(body.split()))
+    assert (tfs._S8_TOKENS, tfs._S8_CHUNK, tfs._S8_SPLIT_CHUNKS, tfs._S8_K,
+            tfs._S8_MIN_STAGES) == (c['kTok'], c['kVt'], c['kSplitChunks'],
+                                    c['kK'], c['kMinStages'])
+
+    def smem(nk, stages):
+        return (c['kAlign'] + nk * c['kTok'] * c['kK']
+                + stages * c['kVt'] * c['kK']
+                + c['kTok'] * c['kZRow'] * 4 + 8 * (2 * stages + 3))
+    nk = -(-D // c['kK'])
+    stages = c['kMaxStages']
+    while stages > 0 and smem(nk, stages) > c['kSmemMax']:
+        stages -= 1
+    for n_tok, Vp in ((3072, 30720), (40, 2944), (7, 128)):
+        got = tfs.head_plan(n_tok, D, Vp, torch.int8)
+        if D % 16 == 0 and stages >= c['kMinStages']:
+            rows = c['kSplitChunks'] * c['kVt']
+            assert got == dict(path=1, tokens=c['kTok'], chunk=c['kVt'],
+                               split_chunks=c['kSplitChunks'],
+                               splits=-(-Vp // rows), stages=stages,
+                               smem=smem(nk, stages))
+            assert got['smem'] <= c['kSmemMax']
+        else:
+            assert got == dict(path=0, tokens=0, chunk=0, split_chunks=0,
+                               splits=0, stages=0, smem=0)
+    assert tfs.head_plan(3072, 768, 30720, torch.int8)['path'] == 1
+
+
+def test_int8_epilogue_rescale_is_int8_dense():
+    """The int8 kernel's logits, emulated on the CPU from its layout: the
+    product warpgroup's s32 sums (thread (warp w, lane 4 g + t) holds token
+    rows 16 w + g + 8 h and vocab rows 8 j + 2 t + e at 4 j + 2 h + e, the
+    wgmma m64n128 layout) written to the block's s32 tile; each epilogue
+    thread (warp w, lane kTpw q + r) reading token rows kTpw w + r + kTpw
+    kEpiWarps h (h < kHt) and vocab rows kRows q .. kRows q + kRows - 1 and
+    rescaling them in the source's order, (float(acc) * xs) * ws + bias
+    with each step rounded. Bit-equal to `head_logits_int8` (so to
+    `ops.quant.int8_dense`) over a block of kTok tokens and one chunk,
+    every cell written and read once."""
+    body, c = _s8_source()
+    flat = ' '.join(body.split())
+    assert ('z[4 * k + e] = __fadd_rn( __fmul_rn(__fmul_rn(static_cast<float>('
+            'acc[4 * k + e]), xs), wv[e]), bv[e]);' in flat)
+    for text in ('const int r0 = 16 * warp + g;',
+                 '*reinterpret_cast<int2*>(zt + (r0 + 8 * h) * kZRow + 8 * j + '
+                 '2 * t) = make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + '
+                 '1]);',
+                 'const int row0 = kTpw * (e >> 5) + lane % kTpw;',
+                 'const int row = row0 + kTpw * kEpiWarps * h;',
+                 'const int v0 = vrow(i) + kRows * q;'):
+        assert ' '.join(text.split()) in flat, text
+    T, Vt, R, tpw = c['kTok'], c['kVt'], c['kRows'], c['kTpw']
+    r = np.random.RandomState(8)
+    Dm = 2 * c['kK']
+    feats = torch.from_numpy(r.randn(1, T, Dm).astype(np.float32) * 3)
+    weight = torch.from_numpy(r.randn(Vt, Dm).astype(np.float32) * 0.05)
+    bias = torch.from_numpy(r.randn(Vt).astype(np.float32))
+    w_q, w_scale, bias_col = tfs.quantize_head_weights(weight, bias,
+                                                       tile_v=Vt)
+    fq, xs = tfs.quantize_head_inputs(feats)
+    want = tfs.head_logits_int8(fq, xs, w_q, w_scale, bias_col)[0]
+    acc = tq.int8_matmul(fq[0], w_q)                       # (T, Vt) s32
+    tile = torch.full((T, c['kZRow']), -(2 ** 31), dtype=torch.int32)
+    written = torch.zeros((T, Vt), dtype=torch.int32)
+    assert c['kProdThreads'] == 128 and T == 64
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for j in range(Vt // 8):
+                for q in range(4):
+                    row = 16 * w + g + 8 * (q >> 1)
+                    col = 8 * j + 2 * t + (q & 1)
+                    tile[row, col] = acc[row, col]
+                    written[row, col] += 1
+    assert bool((written == 1).all())
+    got = torch.full((T, Vt), float('nan'))
+    seen = torch.zeros((T, Vt), dtype=torch.int32)
+    for w in range(c['kEpiWarps']):
+        for lane in range(32):
+            q, row0 = lane // tpw, tpw * w + lane % tpw
+            for h in range(c['kHt']):
+                row = row0 + tpw * c['kEpiWarps'] * h
+                cols = slice(R * q, R * q + R)
+                a = tile[row, cols].float()
+                got[row, cols] = (a * xs[0, row, 0]) * w_scale[cols, 0] \
+                    + bias_col[cols, 0]
+                seen[row, cols] += 1
+    assert bool((seen == 1).all())
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
 def test_head_preparations_match_jax():
     feats, kernel, bias, *_ = _inputs(300, 128, 0)
     weight = torch.from_numpy(kernel.T.copy())
@@ -164,10 +325,11 @@ def test_head_splits_fill_the_card():
     and the logits tile, within the card's shared memory; D up to 1280 (2
     slots); a Vp off 1024 rows leaves a last split of what is left; past
     D = 1280 the bf16 head takes the first kernel in the same splits.
-    fp32 and int8 heads keep the first kernel, whose splits follow the
-    card (`head_splits`: 24 token tiles x 11 splits at 132
-    multiprocessors, every split a whole number of 128-row chunks and
-    none empty)."""
+    The int8 head takes its own wgmma kernel at the slice (path 1; its
+    plan is held by `test_int8_head_plan_matches_the_source`). The fp32
+    head keeps the first kernel, whose splits follow the card
+    (`head_splits`: 24 token tiles x 11 splits at 132 multiprocessors,
+    every split a whole number of 128-row chunks and none empty)."""
     import inspect
     assert list(inspect.signature(tfs.head_plan).parameters) == [
         'n_tokens', 'D', 'Vp', 'dtype']
@@ -189,10 +351,10 @@ def test_head_splits_fill_the_card():
         assert q['smem'] <= 232448
     q = tfs.head_plan(3072, 1344, 30720, torch.bfloat16)
     assert (q['path'], q['split_chunks'], q['splits']) == (0, 8, 30)
-    for dtype in (torch.float32, torch.int8):
-        assert tfs.head_plan(3072, 768, 30720, dtype) == dict(
-            path=0, tokens=0, chunk=0, split_chunks=0, splits=0, stages=0,
-            smem=0)
+    assert tfs.head_plan(3072, 768, 30720, torch.float32) == dict(
+        path=0, tokens=0, chunk=0, split_chunks=0, splits=0, stages=0,
+        smem=0)
+    assert tfs.head_plan(3072, 768, 30720, torch.int8)['path'] == 1
     assert tfs.head_splits(3072, 30720, 132) == 11
     for n_tok, Vp in ((64, 384), (3072, 30720), (4, 128), (40000, 256)):
         s = tfs.head_splits(n_tok, Vp, 132)
