@@ -128,13 +128,15 @@ composite of the unfused path. The bf16 and int8 heads take their wgmma
 kernels where `head_plan` says so (held equal to `ddg_head_plan`).
 Phase 4 holds K9 and K10 against their plain versions at the UNet's 32 x
 3072 x V=256, at V=250 / vocab 243 and at Species10's 8 x 32768 x V=12,
-fp32 and bf16, under an external Gumbel; K10's plan mirror
-(`uniform_cfg_plan` against `ddg_uniform_cfg_plan`), its in-kernel noise
-against the plain version fed the same Philox draws and its ties at every
-width of UNIFORM_WIDTHS (a thread a row, a warp a row in one turn and in
-four), reruns bit-identical, TV of the in-kernel draws at V=20 / vocab 16
-and V=12; K3 and K5 also at the training micro-batches (LM1B 256 x 128,
-text8 256 x 256), timed.
+fp32 and bf16, under an external Gumbel; their plan mirror (`uniform_plan`
+against `ddg_uniform_plan`, one plan for both), their in-kernel
+noise against the plain version fed the same Philox draws and their ties
+at every width of UNIFORM_WIDTHS (a thread a row, a warp a row in one turn
+and in four), reruns bit-identical, TV of the in-kernel draws at V=20 /
+vocab 16 and V=12; K3 and K5 also at the training micro-batches (LM1B 256
+x 128, text8 256 x 256), timed, and K3 at ADALN_FWD_SHAPES (D = 64 to
+32768, L = 1 and 40), fp32 and bf16, reruns bit-identical, its launch plan
+(`ops.adaln.fwd_plan`) equal to `ddg_adaln_fwd_plan`.
 Phase 4 holds K20, K21 and K22 (the library flash attention behind the
 DiT's `tpu_flash_attn`) against their plain versions on the same inputs,
 fp32 and bf16, causal and not, at 48 x 128 x 12 x 64, 256 x 256, 4 x 1024,
@@ -357,8 +359,11 @@ def _adaln_fwd_records(gen, nb, Lr, dtype):
     h = adaln.ln_modulate(x, w, shift, scale)
     err, tol = _close(f'ln_modulate {(nb, Lr, D)}', dtype, h,
                       adaln.ln_modulate_plain(x, w, shift, scale))
+    check(torch.equal(h, adaln.ln_modulate(x, w, shift, scale)),
+          f'ln_modulate {(nb, Lr, D)}: a rerun is not bit-identical')
     recs['ln_modulate'] = {
         'shape': [nb, Lr, D], 'err': err, 'tol': tol,
+        'bit_identical_rerun': True,
         'ms': time_ms(lambda: adaln.ln_modulate(x, w, shift, scale)),
         'plain_ms': time_ms(lambda: adaln.ln_modulate_plain(x, w, shift,
                                                             scale)),
@@ -383,10 +388,74 @@ def _adaln_fwd_records(gen, nb, Lr, dtype):
     return recs
 
 
+# K3 off the main shapes: (label, B, L, D). D = 64 takes a warp a row of
+# one vector a lane, 1280 a team of two warps (bf16) or three (fp32), 8192
+# a team of eight (bf16) or sixteen warps re-reading the modulation (fp32),
+# 32768 in bf16 the widest row (4096 vectors: 32 warps); L = 40 leaves a
+# tile part-filled, L = 1 a block of one row.
+ADALN_FWD_SHAPES = (('d64_l40', 3, 40, 64), ('d1280_l40', 3, 40, 1280),
+                    ('d768_l1', 8, 1, D), ('d8192_l40', 2, 40, 8192),
+                    ('d8192_l1', 3, 1, 8192), ('d32768_l3', 2, 3, 32768))
+
+
+def check_adaln_fwd_plan(shapes):
+    """`ops.adaln.fwd_plan` equals the built kernel's `ddg_adaln_fwd_plan`
+    at each (B, L, D) in both dtypes."""
+    import ctypes
+    from ddg_tpu_torch.ops import _build
+    from ddg_tpu_torch.ops import adaln
+    fn = _build.kernel('adaln', 'ddg_adaln_fwd_plan',
+                       (_build.i32,) * 4 + (_build.i32p,))
+    keys = ('rows', 'tiles', 'blocks', 'warps_per_row', 'vectors_per_lane',
+            'teams', 'threads', 'hold')
+    n = 0
+    for nb, Lr, Dr in shapes:
+        for dtype, es in ((0, 4), (1, 2)):
+            if Dr // (16 // es) > 4096:
+                continue
+            out = (ctypes.c_int * 8)()
+            check(fn(nb, Lr, Dr, dtype, out) == 0,
+                  f'ddg_adaln_fwd_plan refused {nb} x {Lr} x {Dr}')
+            c = dict(zip(keys, out))
+            py = adaln.fwd_plan(nb, Lr, Dr, es)
+            check(py == c, f'K3 plan {nb} x {Lr} x {Dr} ({es}-byte rows): '
+                  f'{py} in ops.adaln, {c} in csrc')
+            n += 1
+    return n
+
+
+def check_adaln_fwd_shapes(results):
+    """K3 at ADALN_FWD_SHAPES, fp32 and bf16 (bf16 alone past 4096 fp32
+    vectors), the conditioning as chunks of one (B, 6 D) projection:
+    against its plain version, and a rerun bit-identical."""
+    from ddg_tpu_torch.ops import adaln
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    for label, nb, Lr, Dr in ADALN_FWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            if Dr // (16 // torch.tensor([], dtype=dtype).element_size()) \
+                    > 4096:
+                continue
+            x = _rand(gen, nb, Lr, Dr, dtype=dtype)
+            mod = _rand(gen, nb, 6 * Dr, scale=0.5, dtype=dtype)
+            shift, scale = mod[:, :Dr], mod[:, Dr:2 * Dr]
+            w = 1.0 + _rand(gen, Dr, scale=0.1)
+            h = adaln.ln_modulate(x, w, shift, scale)
+            err, tol = _close(f'ln_modulate {label}', dtype, h,
+                              adaln.ln_modulate_plain(x, w, shift, scale))
+            check(torch.equal(h, adaln.ln_modulate(x, w, shift, scale)),
+                  f'ln_modulate {label} {dtype}: a rerun is not '
+                  'bit-identical')
+            results['ln_modulate'].setdefault(label, {})[str(dtype)] = {
+                'shape': [nb, Lr, Dr], 'err': err, 'tol': tol,
+                'bit_identical_rerun': True}
+
+
 def check_adaln(results):
     """K3 and K5 against their plain versions at the serving shape (fp32
     and bf16, timed in bf16), and in bf16 at the training paths' micro-
-    batches (LM1B 256 x 128, text8 256 x 256, D = 768), timed."""
+    batches (LM1B 256 x 128, text8 256 x 256, D = 768), timed; K3 also at
+    ADALN_FWD_SHAPES, its reruns bit-identical, and its launch plan held
+    against csrc's."""
     from ddg_tpu_torch.entry import TEXT8_TRAIN_MICRO_BATCH as tb
     from ddg_tpu_torch.entry import TRAIN_MICRO_BATCH as nb
     from ddg_tpu_torch.ops import adaln
@@ -409,7 +478,9 @@ def check_adaln(results):
         h = adaln.ln_modulate(x, w, shift, scale)
         h_ref = adaln.ln_modulate_plain(x, w, shift, scale)
         err, tol = _close('ln_modulate', dtype, h, h_ref)
-        rec = {'err': err, 'tol': tol}
+        check(torch.equal(h, adaln.ln_modulate(x, w, shift, scale)),
+              f'ln_modulate {dtype}: a rerun is not bit-identical')
+        rec = {'err': err, 'tol': tol, 'bit_identical_rerun': True}
         if dtype == torch.bfloat16:
             rec['ms'] = time_ms(lambda: adaln.ln_modulate(x, w, shift, scale))
             rec['plain_ms'] = time_ms(
@@ -434,6 +505,10 @@ def check_adaln(results):
                 4 * B2 * L * D * es + 4 * D + 3 * B2 * D * es,
                 10 * B2 * L * D, PEAK_FP32)
         results['gate_res_ln_modulate'][str(dtype)] = rec
+    check_adaln_fwd_shapes(results)
+    n = check_adaln_fwd_plan([(B2, L, D), (nb, L, D), (tb, 256, D)]
+                             + [(b, l, d) for _, b, l, d in ADALN_FWD_SHAPES])
+    emit({'phase': 'adaln_fwd_plan_mirror', 'cases': n})
 
 
 def _qkv_views(gen, shape, dtype):
@@ -1898,9 +1973,9 @@ def _uniform_tv_check(fs, Vt=20, vocab=16):
     return out
 
 
-# K10's widths beyond the main paths' (V, vocab_size): a thread a row
-# holding 16 or 32 columns (V=20 / 16, V=40 / 30), a warp a row in one turn
-# (V=250 / 243, V=256) or in four (V=1000 / 997).
+# K9's and K10's widths (V, vocab_size): a thread a row holding 12, 16 or
+# 32 columns (V=12, V=20 / 16, V=40 / 30), a warp a row in one turn (V=250 /
+# 243, V=256) or in four (V=1000 / 997).
 UNIFORM_WIDTHS = ((12, 12), (20, 16), (40, 30), (250, 243), (256, 256),
                   (1000, 997))
 
@@ -1909,23 +1984,26 @@ UNIFORM_WIDTHS = ((12, 12), (20, 16), (40, 30), (250, 243), (256, 256),
 # argument and add (the exp itself on the SFU), p = e / sum, the
 # numerator's products and adds and the log's scale (the log on the SFU);
 # then a logit's Philox words (10 slots, as NOISE_ISSUE_PER_LOGIT), the
-# compare of its top 24 bits, the CFG mix (2) and the score's add and
-# compare (2). The noise's logs, formed only where the draw can win, are
-# not counted.
+# compare of its top 24 bits and the score's add and compare (2); with two
+# tensors (K10) the CFG mix (2) too. The noise's logs, formed only where
+# the draw can win, are not counted.
 UNIFORM_ISSUE_PER_TENSOR = 8
-UNIFORM_ISSUE_PER_LOGIT = 10 + 1 + 2 + 2
+UNIFORM_ISSUE_PER_LOGIT = 10 + 1 + 2
+UNIFORM_ISSUE_MIX = 2
 
 
 def _uniform_bound(n_rows, V, es, n_in):
     """K9 (n_in 1) or K10 (n_in 2) at n_rows rows of V columns: bytes (the
     logits, xt in and the tokens out) and, per logit, one exp and one log
     of the numerator for each logits tensor on the SFU and the issue of
-    UNIFORM_ISSUE_PER_*; returns (ms, by, issue ms). The count of the
+    UNIFORM_ISSUE_PER_* (and the mix, UNIFORM_ISSUE_MIX, for K10 alone);
+    returns (ms, by, issue ms). The count of the
     first design, which forms every logit's noise (two logs more on the
     SFU), is `_uniform_bound_full_noise`."""
     n = n_rows * V
     nbytes = n_in * n * es + 2 * n_rows * 4
-    issue = (UNIFORM_ISSUE_PER_LOGIT + n_in * UNIFORM_ISSUE_PER_TENSOR) * n
+    issue = (UNIFORM_ISSUE_PER_LOGIT + n_in * UNIFORM_ISSUE_PER_TENSOR
+             + (UNIFORM_ISSUE_MIX if n_in == 2 else 0)) * n
     ms, by = bound_mixed(nbytes, ((2 * n_in * n, PEAK_SFU),
                                   (issue, PEAK_ISSUE)))
     return ms, by, issue / PEAK_ISSUE * 1e3
@@ -1940,42 +2018,43 @@ def _uniform_bound_full_noise(n_rows, V, es, n_in):
 
 
 def _check_uniform_plan(fs):
-    """The wrapper's `uniform_cfg_plan` equals the built kernel's
-    (`ddg_uniform_cfg_plan`) around each limit; Species10's V=12 takes a
-    thread a row and the UNet's V=256 a warp a row with 16-byte loads."""
+    """The wrapper's `uniform_plan` equals the built kernel's
+    (`ddg_uniform_plan`) around each limit; one plan serves one logits
+    tensor (K9) and two (K10). Species10's V=12 takes a thread a row and
+    the UNet's V=256 a warp a row with 16-byte loads."""
     import ctypes
     from ddg_tpu_torch.ops import _build
-    fn = _build.kernel('uniform_sample', 'ddg_uniform_cfg_plan',
-                       (_build.i32, _build.i32, _build.i32p), None)
-    for V, vocab in ((1, 1), (12, 12), (16, 16), (20, 16), (17, 17),
-                     (32, 32), (40, 33), (256, 256), (250, 243), (264, 257),
-                     (30522, 30522)):
+    fn = _build.kernel('uniform_sample', 'ddg_uniform_plan',
+                       (_build.i32,) * 2 + (_build.i32p,), None)
+    for V, vocab in ((1, 1), (12, 12), (13, 13), (16, 16), (20, 16),
+                     (17, 17), (32, 32), (40, 33), (256, 256), (250, 243),
+                     (264, 257), (30522, 30522)):
         for aligned in (False, True):
-            want = fs.uniform_cfg_plan(V, vocab, torch.bfloat16, aligned)
+            want = fs.uniform_plan(V, vocab, torch.bfloat16, aligned)
             out = (ctypes.c_int * 4)()
             fn(vocab, want['vec'], out)
             check(list(out) == list(want.values()),
-                  f'uniform_cfg_plan({V}, {vocab}, aligned={aligned}): the '
+                  f'uniform_plan({V}, {vocab}, aligned={aligned}): the '
                   f'kernel\'s {list(out)} != the wrapper\'s '
                   f'{list(want.values())}')
-    check(fs.uniform_cfg_plan(SV, SV, torch.bfloat16, True)['kernel'] == 1,
-          'Species10\'s D-CFG step does not take a thread a row')
-    check(fs.uniform_cfg_plan(UV, UV, torch.bfloat16, True) == dict(
-        kernel=3, rows=8, cols=8, vec=1),
-          'the UNet\'s D-CFG step does not take a warp a row in one turn')
+    check(fs.uniform_plan(SV, SV, torch.bfloat16, True)['kernel'] == 1,
+          'Species10\'s step does not take a thread a row')
+    check(fs.uniform_plan(UV, UV, torch.bfloat16, True) == dict(
+        kernel=2, rows=8, cols=8, vec=1),
+          'the UNet\'s step does not take a warp a row in one turn')
 
 
 def _uniform_rng_and_ties(fs):
-    """K10 at UNIFORM_WIDTHS, fp32 and bf16: the in-kernel noise against the
-    plain version fed the same Philox draws (`_philox_gumbel`; tokens equal
-    wherever the top-two gap of those scores exceeds MARGIN, and a rerun
-    bit-identical), and ties: with alpha(s) = 1 the numerator of xt's
-    column is that of its probability, so with xt's logit far below the
-    others and no noise every other column ties, and the lowest wins.
-    Returns {width: compared tokens}."""
+    """K9 and K10 at UNIFORM_WIDTHS, fp32 and bf16: the in-kernel noise
+    against the plain version fed the same Philox draws (`_philox_gumbel`;
+    tokens equal wherever the top-two gap of those scores exceeds MARGIN,
+    and a rerun bit-identical), and ties: with alpha(s) = 1 the numerator
+    of xt's column is that of its probability, so with xt's logit far below
+    the others and no noise every other column ties, and the lowest wins.
+    Returns {name: {width: compared tokens}}."""
     gen = torch.Generator(device=DEV).manual_seed(19)
     Bt, Lt = 2, 64
-    out = {}
+    out = {'fused_uniform_sample': {}, 'fused_uniform_cfg_sample': {}}
     for V, vocab in UNIFORM_WIDTHS:
         b, l, v = torch.meshgrid(*(torch.arange(n, device=DEV)
                                    for n in (Bt, Lt, V)), indexing='ij')
@@ -1985,31 +2064,28 @@ def _uniform_rng_and_ties(fs):
                                                      Lu=Lt)
             xt = xt % vocab
             seed = torch.tensor([99], dtype=torch.int32, device=DEV)
-            got = fs.fused_uniform_cfg_sample(seed, xt, lc, lu, GAMMA, a_t,
-                                              a_s, vocab_size=vocab)
-            check(torch.equal(got, fs.fused_uniform_cfg_sample(
-                seed, xt, lc, lu, GAMMA, a_t, a_s, vocab_size=vocab)),
-                  f'fused_uniform_cfg_sample V={V}: a rerun differs')
-            kw = dict(vocab_size=vocab, gumbel=g_philox)
-            ref = fs.fused_uniform_cfg_sample_plain(0, xt, lc, lu, GAMMA,
-                                                    a_t, a_s, **kw)
-            scores = fs.uniform_perturbed_scores(0, fs.uniform_cfg_log_num(
-                lc, lu, GAMMA, xt, a_t, a_s, vocab_size=vocab), **kw)
-            _, n_cmp = _uniform_token_check(
-                f'fused_uniform_cfg_sample V={V}/{vocab} {dtype} in-kernel '
-                'noise', got, ref, scores, vocab)
-            out[f'{V}/{vocab} {dtype}'] = n_cmp
+            for name, call, plain, scores in _uniform_cases(
+                    fs, seed, xt, lc, lu, a_t, a_s, vocab, None):
+                got = call()
+                check(torch.equal(got, call()),
+                      f'{name} V={V}: a rerun differs')
+                ref = {c[0]: c for c in _uniform_cases(
+                    fs, 0, xt, lc, lu, a_t, a_s, vocab, g_philox)}[name]
+                _, n_cmp = _uniform_token_check(
+                    f'{name} V={V}/{vocab} {dtype} in-kernel noise', got,
+                    ref[2](), ref[3](), vocab)
+                out[name][f'{V}/{vocab} {dtype}'] = n_cmp
         for x_col, want in ((0, 1), (vocab // 2, 0)):
             z = torch.zeros((Bt, Lt, V), device=DEV)
             z[..., x_col] = -100.0
             xt = torch.full((Bt, Lt), x_col, dtype=torch.int32, device=DEV)
             ones = torch.ones((Bt,), device=DEV)
-            tok = fs.fused_uniform_cfg_sample(
-                0, xt, z, z, GAMMA, 0.5 * ones, ones, vocab_size=vocab,
-                gumbel=torch.zeros_like(z))
-            check(bool((tok == want).all()),
-                  f'fused_uniform_cfg_sample V={V}: tied columns do not go '
-                  f'to the lowest index {want}')
+            for name, call, _, _ in _uniform_cases(
+                    fs, 0, xt, z, z, 0.5 * ones, ones, vocab,
+                    torch.zeros_like(z)):
+                check(bool((call() == want).all()),
+                      f'{name} V={V}: tied columns do not go to the lowest '
+                      f'index {want}')
     return out
 
 
@@ -2045,22 +2121,19 @@ def check_uniform(results):
                 rec['plain_ms'] = time_ms(plain, reps=10)
                 _uniform_timing_bounds(rec, name, UB * UL, V)
     _check_uniform_plan(fs)
-    results['fused_uniform_cfg_sample']['widths'] = _uniform_rng_and_ties(fs)
+    for name, widths in _uniform_rng_and_ties(fs).items():
+        results[name]['widths'] = widths
     return _uniform_tv_check(fs)
 
 
 def _uniform_timing_bounds(rec, name, n_rows, V):
-    """The bound of a timed bf16 K9 or K10 record: K10's recounted
-    (`_uniform_bound`, with the first design's count beside it), K9's by
-    the first design's count."""
+    """The bound of a timed bf16 K9 or K10 record (`_uniform_bound`), with
+    the first design's count, which forms every logit's noise, beside it."""
     n_in = 2 if 'cfg' in name else 1
-    full = _uniform_bound_full_noise(n_rows, V, 2, n_in)
-    if n_in == 2:
-        rec['bound_ms'], rec['bound_by'], rec['bound_issue_ms'] = (
-            _uniform_bound(n_rows, V, 2, n_in))
-        rec['bound_ms_full_noise'] = full[0]
-    else:
-        rec['bound_ms'], rec['bound_by'] = full
+    rec['bound_ms'], rec['bound_by'], rec['bound_issue_ms'] = (
+        _uniform_bound(n_rows, V, 2, n_in))
+    rec['bound_ms_full_noise'] = _uniform_bound_full_noise(n_rows, V, 2,
+                                                           n_in)[0]
 
 
 def _check_gn_plan(gn, HW, C, G):

@@ -13,13 +13,36 @@
 // 4-6 bytes read and written per element (bf16), far below the ~20
 // operations per byte where fp32 arithmetic would take over.
 //
-// Design: one block per row, each thread holding up to kMaxVec 16-byte
-// vectors of the row in registers, so the row stream is read once and h
-// (and x') written once, with 16-byte coalesced accesses. The moments
-// reduce with warp shuffles and, across the warps of a block, through
-// shared memory. Rows need D % 8 == 0 (bf16) or D % 4 == 0 (fp32); the
-// wrapper checks that. gate/shift/scale are (B, D) views with a row stride
-// (`cond_stride`), so the chunks of the adaLN projection need no copy.
+// K3 (ln_modulate): K4's mapping (below) applied to the forward.
+// A row belongs to a team of G warps (one warp up to 128 16-byte vectors a
+// row, D = 1024 in bf16; G = ceil(vectors / 128) past that), a lane holding
+// V <= 4 vectors of the row, lane t of the team vectors t, t + 32 G, ... A
+// block is a tile of R rows of one batch row b, taken in turns by its
+// teams (8 / G of them up to G = 8; one team of G warps past that). R is
+// the longest of 128, 64 and 32 rows that still gives kFwdMinBlocks blocks
+// (about a wave of the H100's 132 SMs at two blocks an SM), else 32: long
+// tiles spread each team's start over more rows, short ones fill the card
+// at small batches.
+// Lane t owns the same columns in every row of the block, so it forms
+// w (1 + scale[b]) and shift[b] for them once a block, in registers (past
+// G = 8, where a block of G warps leaves 64 registers a thread, it reads
+// them again for each row, from L1). Each team has two rows in flight: the
+// next row's 16-byte loads go out before the current row's sums. The sums
+// are warp shuffles, and past one warp the team's warps in order through
+// shared memory behind a named barrier of the team alone (two slots,
+// alternating by row): no block barrier anywhere, so no row waits on a
+// block launch, a block barrier or the modulation's loads behind one.
+//
+// K5 (gate_res_ln_modulate) keeps the first design: one block per row,
+// each thread holding up to kMaxVec 16-byte vectors of the row in
+// registers, so the row streams are read once and h and x' written once,
+// with 16-byte coalesced accesses; the moments reduce with warp shuffles
+// and, across the warps of a block, through shared memory.
+//
+// Rows need D % 8 == 0 (bf16) or D % 4 == 0 (fp32), at most 4096 16-byte
+// vectors; the wrapper checks that. gate/shift/scale are (B, D) views with
+// a row stride (`cond_stride`), so the chunks of the adaLN projection need
+// no copy.
 //
 // Backward (K4, K6), replacing
 //   ln_modulate          -> _ln_mod_bwd   -> _lm_bwd_kernel (pallas_call :149)
@@ -62,7 +85,248 @@
 
 namespace {
 
-constexpr int kMaxVec = 4;
+constexpr int kMaxVec = 4;       // K5: 16-byte vectors a thread holds, at most
+constexpr int kLaneVec = 4;      // K3, K4, K6: 16-byte vectors a lane holds of a row stream
+constexpr int kMaxRowVec = 4096; // 16-byte vectors a row, at most (K3, K5)
+
+// A raw 16-byte vector of T as N fp32 values, and back.
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& r, float* out);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& r, float* out) {
+  out[0] = __uint_as_float(r.x), out[1] = __uint_as_float(r.y);
+  out[2] = __uint_as_float(r.z), out[3] = __uint_as_float(r.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& r, float* out) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 ld_raw(const T* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// The team's two sums, in every lane: the warp's by a shuffle butterfly,
+// then past one warp the team's warps' in warp order, through the team's
+// exchange slot `xch` (2 G floats). A slot is rewritten only after the
+// team's barrier that follows its last reads: K3 alternates two slots by
+// row, K4/K6 take slot 0 for the first pair of a row and 1 for the second.
+__device__ __forceinline__ void team_sum2(float& a, float& b, float* xch, int G, int wt,
+                                          int lane, int team) {
+  a = ddg::warp_sum(a);
+  b = ddg::warp_sum(b);
+  if (G == 1) return;
+  if (lane == 0) {
+    xch[2 * wt] = a;
+    xch[2 * wt + 1] = b;
+  }
+  asm volatile("bar.sync %0, %1;" ::"r"(team + 1), "r"(G * 32) : "memory");
+  a = xch[0];
+  b = xch[1];
+  for (int w = 1; w < G; ++w) {
+    a += xch[2 * w];
+    b += xch[2 * w + 1];
+  }
+}
+
+// --- K3: ln_modulate forward --------------------------------------------------
+
+constexpr int kFwdMinBlocks = 256;  // blocks a launch, for its tiles longer than 32 rows
+constexpr int kFwdWarps = 8;     // warps of a block up to teams of 8 warps
+constexpr int kFwdDepth = 2;     // rows in flight a team
+
+// The launch for B x L rows of nvec 16-byte vectors: tiles of R rows, a
+// team of G warps a row, V vectors a lane, T teams a block of `threads`;
+// hold: the modulation stays in registers for the block (G <= kFwdWarps),
+// else it is read again for each row.
+struct FwdPlan {
+  int R, tiles, G, V, T, threads, hold;
+};
+
+FwdPlan fwd_plan(int B, int L, int nvec) {
+  FwdPlan p;
+  p.R = 32;
+  for (int r = 128; r > 32; r /= 2)
+    if (static_cast<long long>(B) * ((L + r - 1) / r) >= kFwdMinBlocks) {
+      p.R = r;
+      break;
+    }
+  p.tiles = (L + p.R - 1) / p.R;
+  p.G = (nvec + 32 * kLaneVec - 1) / (32 * kLaneVec);
+  p.V = (nvec + 32 * p.G - 1) / (32 * p.G);
+  p.hold = p.G <= kFwdWarps;
+  p.T = p.hold ? kFwdWarps / p.G : 1;
+  p.threads = p.T * p.G * 32;
+  return p;
+}
+
+// The modulation of the N columns of vector `col`: mul = w (1 + scale[b])
+// and shift[b] in fp32.
+template <typename T, int N>
+__device__ __forceinline__ void modulation(const float* w, const T* shift, const T* scale,
+                                           size_t cond, int col, float (&mul)[N],
+                                           float (&sh)[N]) {
+  float wv[N], sc[N];
+  ddg::load_f32<N>(w + col, wv);
+  ddg::load16(shift + cond + col, sh);
+  ddg::load16(scale + cond + col, sc);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mul[i] = __fmul_rn(wv[i], __fadd_rn(1.f, sc[i]));
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void load_row(const T* x, size_t base, int t, int TT, int nvec,
+                                         uint4 (&r)[V]) {
+  constexpr int N = ddg::Vec16<T>::N;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int vi = t + k * TT;
+    if (vi < nvec) r[k] = ld_raw(x + base + static_cast<size_t>(vi) * N);
+  }
+}
+
+// One row: its moments (each lane's elements in order, then team_sum2 into
+// slot `xch`), then h = (x - mean) r mul + shift, stored.
+template <typename T, int V, bool kHold, int N = ddg::Vec16<T>::N>
+__device__ __forceinline__ void modulate_row(const uint4 (&r)[V], size_t base, T* __restrict__ h,
+                                             const float (&mul)[kHold ? V : 1][N],
+                                             const float (&shv)[kHold ? V : 1][N], const float* w,
+                                             const T* shift, const T* scale, size_t cond,
+                                             float* xch, int t, int TT, int nvec, int D, int G,
+                                             int wt, int lane, int team) {
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if (t + k * TT >= nvec) continue;
+    float v[N];
+    unpack<T>(r[k], v);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      s1 += v[i];
+      s2 = fmaf(v[i], v[i], s2);
+    }
+  }
+  team_sum2(s1, s2, xch, G, wt, lane, team);
+  const float m1 = s1 / D;
+  const float m2 = s2 / D;
+  const float rr = rsqrtf(fmaxf(m2 - m1 * m1, 0.f) + 1e-5f);
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int vi = t + k * TT;
+    if (vi >= nvec) continue;
+    float v[N], o[N], mu[N], sh[N];
+    unpack<T>(r[k], v);
+    if constexpr (kHold) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) mu[i] = mul[k][i], sh[i] = shv[k][i];
+    } else {
+      modulation<T, N>(w, shift, scale, cond, vi * N, mu, sh);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float xn = __fmul_rn(__fsub_rn(v[i], m1), rr);
+      o[i] = __fadd_rn(__fmul_rn(xn, mu[i]), sh[i]);
+    }
+    ddg::store16(h + base + static_cast<size_t>(vi) * N, o);
+  }
+}
+
+template <typename T, int V, bool kHold>
+__global__ void __launch_bounds__(kHold ? kFwdWarps * 32 : 1024, kHold ? 2 : 1)
+    ln_modulate_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                       const T* __restrict__ shift, const T* __restrict__ scale,
+                       T* __restrict__ h, int L, int D, int cond_stride, int R, int tiles,
+                       int G) {
+  constexpr int N = ddg::Vec16<T>::N;
+  __shared__ float xch[4 * 32];  // per team two slots of (s1, s2) a warp; T G <= 32
+  const int TT = 32 * G, Tm = blockDim.x / TT;
+  const int tid = threadIdx.x, team = tid / TT, t = tid % TT;
+  const int lane = tid & 31, wt = t >> 5;
+  const int nvec = D / N;
+  const int b = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const size_t cond = static_cast<size_t>(b) * cond_stride;
+  const size_t row0 = static_cast<size_t>(b) * L;
+  const int r_end = min((tile + 1) * R, L);
+  float* tx = xch + team * 4 * G;
+
+  float mul[kHold ? V : 1][N], sh[kHold ? V : 1][N];
+  // kFwdDepth rows in flight: a row's loads go out kFwdDepth - 1 rows
+  // before its sums.
+  const int r0 = tile * R + team;
+  uint4 rows[kFwdDepth][V];
+#pragma unroll
+  for (int j = 0; j + 1 < kFwdDepth; ++j)
+    if (r0 + j * Tm < r_end) load_row<T, V>(x, (row0 + r0 + j * Tm) * D, t, TT, nvec, rows[j]);
+  if constexpr (kHold) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int vi = t + k * TT;
+      if (vi < nvec) modulation<T, N>(w, shift, scale, cond, vi * N, mul[k], sh[k]);
+    }
+  }
+  int slot = 0;
+  for (int r = r0; r < r_end; r += kFwdDepth * Tm) {
+#pragma unroll
+    for (int j = 0; j < kFwdDepth; ++j) {
+      const int rj = r + j * Tm;
+      if (rj >= r_end) break;
+      const int rn = rj + (kFwdDepth - 1) * Tm;
+      if (rn < r_end)
+        load_row<T, V>(x, (row0 + rn) * D, t, TT, nvec, rows[(j + kFwdDepth - 1) % kFwdDepth]);
+      modulate_row<T, V, kHold>(rows[j], (row0 + rj) * D, h, mul, sh, w, shift, scale, cond,
+                                tx + 2 * G * slot, t, TT, nvec, D, G, wt, lane, team);
+      slot ^= 1;
+    }
+  }
+}
+
+template <typename T, int V, bool kHold>
+cudaError_t launch_ln_modulate(const FwdPlan& p, const void* x, const void* w, const void* shift,
+                               const void* scale, void* h, int B, int L, int D, int cond_stride,
+                               cudaStream_t stream) {
+  ln_modulate_kernel<T, V, kHold><<<B * p.tiles, p.threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const T*>(shift),
+      static_cast<const T*>(scale), static_cast<T*>(h), L, D, cond_stride, p.R, p.tiles, p.G);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_fwd(const void* x, const void* w, const void* shift, const void* scale, void* h,
+               int rows, int L, int D, int cond_stride, cudaStream_t stream) {
+  constexpr int N = ddg::Vec16<T>::N;
+  if (D <= 0 || D % N || cond_stride % N || L <= 0 || rows < 0 || rows % L ||
+      D / N > kMaxRowVec)
+    return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  const int B = rows / L;
+  const FwdPlan p = fwd_plan(B, L, D / N);
+  // Past kFwdWarps warps a row (more than 1024 vectors), every lane holds 4.
+  if (!p.hold) return launch_ln_modulate<T, 4, false>(p, x, w, shift, scale, h, B, L, D,
+                                                      cond_stride, stream);
+  switch (p.V) {
+    case 1:
+      return launch_ln_modulate<T, 1, true>(p, x, w, shift, scale, h, B, L, D, cond_stride,
+                                            stream);
+    case 2:
+      return launch_ln_modulate<T, 2, true>(p, x, w, shift, scale, h, B, L, D, cond_stride,
+                                            stream);
+    case 3:
+      return launch_ln_modulate<T, 3, true>(p, x, w, shift, scale, h, B, L, D, cond_stride,
+                                            stream);
+    default:
+      return launch_ln_modulate<T, 4, true>(p, x, w, shift, scale, h, B, L, D, cond_stride,
+                                            stream);
+  }
+}
+
+// --- K5: gate_res_ln_modulate forward -------------------------------------------
 
 __device__ __forceinline__ void block_sum2(float& a, float& b) {
   a = ddg::warp_sum(a);
@@ -81,12 +345,12 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   __syncthreads();  // sa/sb are free again for the next call
 }
 
-template <typename T, bool kResidual>
-__global__ void adaln_kernel(const T* __restrict__ x_or_y, const T* __restrict__ skip,
-                             const T* __restrict__ gate, const float* __restrict__ w,
-                             const T* __restrict__ shift, const T* __restrict__ scale,
-                             T* __restrict__ x_out, T* __restrict__ h_out, int L, int D,
-                             int cond_stride) {
+template <typename T>
+__global__ void gate_res_kernel(const T* __restrict__ y, const T* __restrict__ skip,
+                                const T* __restrict__ gate, const float* __restrict__ w,
+                                const T* __restrict__ shift, const T* __restrict__ scale,
+                                T* __restrict__ x_out, T* __restrict__ h_out, int L, int D,
+                                int cond_stride) {
   constexpr int N = ddg::Vec16<T>::N;
   const int row = blockIdx.x;
   const size_t cond = static_cast<size_t>(row / L) * cond_stride;
@@ -100,15 +364,13 @@ __global__ void adaln_kernel(const T* __restrict__ x_or_y, const T* __restrict__
     const int vi = threadIdx.x + k * blockDim.x;
     if (vi >= nvec) continue;
     const int col = vi * N;
-    ddg::load16(x_or_y + base + col, v[k]);
-    if (kResidual) {
-      float sk[N], g[N];
-      ddg::load16(skip + base + col, sk);
-      ddg::load16(gate + cond + col, g);
+    ddg::load16(y + base + col, v[k]);
+    float sk[N], g[N];
+    ddg::load16(skip + base + col, sk);
+    ddg::load16(gate + cond + col, g);
 #pragma unroll
-      for (int i = 0; i < N; ++i) v[k][i] = __fadd_rn(sk[i], __fmul_rn(g[i], v[k][i]));
-      ddg::store16(x_out + base + col, v[k]);
-    }
+    for (int i = 0; i < N; ++i) v[k][i] = __fadd_rn(sk[i], __fmul_rn(g[i], v[k][i]));
+    ddg::store16(x_out + base + col, v[k]);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       s1 += v[k][i];
@@ -139,20 +401,19 @@ __global__ void adaln_kernel(const T* __restrict__ x_or_y, const T* __restrict__
   }
 }
 
-template <typename T, bool kResidual>
-int launch(const void* x_or_y, const void* skip, const void* gate, const void* w,
-           const void* shift, const void* scale, void* x_out, void* h, int rows, int L,
-           int D, int cond_stride, cudaStream_t stream) {
+template <typename T>
+int launch_gate_res(const void* y, const void* skip, const void* gate, const void* w,
+                    const void* shift, const void* scale, void* x_out, void* h, int rows, int L,
+                    int D, int cond_stride, cudaStream_t stream) {
   constexpr int N = ddg::Vec16<T>::N;
   if (D % N || cond_stride % N || L <= 0 || rows % L) return cudaErrorInvalidValue;
   const int nvec = D / N;
   const int block = nvec > 1024 ? 1024 : ((nvec + 31) / 32) * 32;
   if (nvec > block * kMaxVec) return cudaErrorInvalidValue;
-  adaln_kernel<T, kResidual><<<rows, block, 0, stream>>>(
-      static_cast<const T*>(x_or_y), static_cast<const T*>(skip),
-      static_cast<const T*>(gate), static_cast<const float*>(w),
-      static_cast<const T*>(shift), static_cast<const T*>(scale), static_cast<T*>(x_out),
-      static_cast<T*>(h), L, D, cond_stride);
+  gate_res_kernel<T><<<rows, block, 0, stream>>>(
+      static_cast<const T*>(y), static_cast<const T*>(skip), static_cast<const T*>(gate),
+      static_cast<const float*>(w), static_cast<const T*>(shift), static_cast<const T*>(scale),
+      static_cast<T*>(x_out), static_cast<T*>(h), L, D, cond_stride);
   return cudaGetLastError();
 }
 
@@ -160,7 +421,6 @@ int launch(const void* x_or_y, const void* skip, const void* gate, const void* w
 
 constexpr int kBwdRows = 64;     // rows of a block
 constexpr int kBwdWarps = 8;     // warps of a block (a whole number of teams)
-constexpr int kLaneVec = 4;      // 16-byte vectors a lane holds of each stream, at most
 constexpr int kCondGroup = 8;    // batch rows of a conditioning block
 constexpr int kCondCols = 128;   // columns of a conditioning block
 
@@ -184,53 +444,6 @@ BwdPlan bwd_plan(int nvec, int N, bool residual) {
   p.smem = static_cast<int>(sizeof(float)) *
            (p.S * ((residual ? 2 : 1) + P * p.T) + (p.G > 1 ? p.T * 4 * p.G : 0));
   return p;
-}
-
-// A raw 16-byte vector of T as N fp32 values, and back.
-template <typename T>
-__device__ __forceinline__ void unpack(const uint4& r, float* out);
-template <>
-__device__ __forceinline__ void unpack<float>(const uint4& r, float* out) {
-  out[0] = __uint_as_float(r.x), out[1] = __uint_as_float(r.y);
-  out[2] = __uint_as_float(r.z), out[3] = __uint_as_float(r.w);
-}
-template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& r, float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ uint4 ld_raw(const T* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-// The team's two sums, in every lane: the warp's by a shuffle butterfly,
-// then past one warp the team's warps' in warp order, through the team's
-// exchange slot (slot 0 for the first pair of a row, 1 for the second, so
-// that a slot is rewritten only after the team's barrier that follows its
-// last reads).
-__device__ __forceinline__ void team_sum2(float& a, float& b, float* xch, int G, int wt,
-                                          int lane, int team) {
-  a = ddg::warp_sum(a);
-  b = ddg::warp_sum(b);
-  if (G == 1) return;
-  if (lane == 0) {
-    xch[2 * wt] = a;
-    xch[2 * wt + 1] = b;
-  }
-  asm volatile("bar.sync %0, %1;" ::"r"(team + 1), "r"(G * 32) : "memory");
-  a = xch[0];
-  b = xch[1];
-  for (int w = 1; w < G; ++w) {
-    a += xch[2 * w];
-    b += xch[2 * w + 1];
-  }
 }
 
 // Partial slices and the staged w (1 + scale) and gate are column-ordered
@@ -567,16 +780,27 @@ extern "C" int ddg_gate_res_ln_modulate_bwd(const void* x_new, const void* y, co
   return cudaErrorInvalidValue;
 }
 
+// K3's launch plan for the wrapper's mirror (`ops.adaln.fwd_plan`): rows a
+// block, tiles of a batch row, blocks, warps a row, vectors a lane, teams a
+// block, threads, and whether the modulation is held in registers. Returns
+// 0, or 1 for a shape it refuses.
+extern "C" int ddg_adaln_fwd_plan(int B, int L, int D, int dtype, int* out) {
+  const int N = dtype == ddg::kF32 ? 4 : 8;
+  if (B <= 0 || L <= 0 || D <= 0 || D % N || D / N > kMaxRowVec) return 1;
+  const FwdPlan p = fwd_plan(B, L, D / N);
+  const int vals[8] = {p.R, p.tiles, B * p.tiles, p.G, p.V, p.T, p.threads, p.hold};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  return 0;
+}
+
 extern "C" int ddg_ln_modulate(const void* x, const void* w, const void* shift,
                                const void* scale, void* h, int rows, int L, int D,
                                int cond_stride, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == ddg::kF32)
-    return launch<float, false>(x, nullptr, nullptr, w, shift, scale, nullptr, h, rows, L, D,
-                                cond_stride, s);
+    return launch_fwd<float>(x, w, shift, scale, h, rows, L, D, cond_stride, s);
   if (dtype == ddg::kBF16)
-    return launch<__nv_bfloat16, false>(x, nullptr, nullptr, w, shift, scale, nullptr, h, rows,
-                                        L, D, cond_stride, s);
+    return launch_fwd<__nv_bfloat16>(x, w, shift, scale, h, rows, L, D, cond_stride, s);
   return cudaErrorInvalidValue;
 }
 
@@ -586,10 +810,10 @@ extern "C" int ddg_gate_res_ln_modulate(const void* y, const void* skip, const v
                                         int cond_stride, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == ddg::kF32)
-    return launch<float, true>(y, skip, gate, w, shift, scale, x_out, h, rows, L, D, cond_stride,
-                               s);
+    return launch_gate_res<float>(y, skip, gate, w, shift, scale, x_out, h, rows, L, D,
+                                  cond_stride, s);
   if (dtype == ddg::kBF16)
-    return launch<__nv_bfloat16, true>(y, skip, gate, w, shift, scale, x_out, h, rows, L, D,
-                                       cond_stride, s);
+    return launch_gate_res<__nv_bfloat16>(y, skip, gate, w, shift, scale, x_out, h, rows, L, D,
+                                          cond_stride, s);
   return cudaErrorInvalidValue;
 }

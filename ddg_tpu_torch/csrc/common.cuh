@@ -142,8 +142,9 @@ __device__ __forceinline__ float lg2(float x) {
 constexpr float kLn2 = 0.693147180559945309f;
 
 // The Gumbel noise of the absorbing steps K7 and K8 (absorbing_sample.cu),
-// the uniform D-CFG step K10 (uniform_sample.cu) and the int8 head-fused
-// step K12 (head_sample.cu); K9 and K11 still form gumbel_from_bits.
+// the uniform steps K9 and K10 (uniform_sample.cu) and the int8 head-fused
+// step K12 (head_sample.cu); only K11 (the bf16 and fp32 head-fused step)
+// still forms gumbel_from_bits.
 //
 // -log(u) for a normal u in (0, 1], to a few parts in 1e8 of itself (also
 // near u = 1, where the SFU's lg2 is not): u = 2^e m with m in [2/3, 4/3),

@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernels in ddg_tpu/ops/fused_sampling.py (both reach
 // pl.pallas_call through _uniform_call, :366-398):
-//   fused_uniform_sample     -> _uniform_kernel
-//   fused_uniform_cfg_sample -> _uniform_cfg_kernel
+//   fused_uniform_sample     -> _uniform_kernel       (K9, one logits tensor)
+//   fused_uniform_cfg_sample -> _uniform_cfg_kernel   (K10, two)
 // For each (b, l) row, over the columns v < V of the logits, of which the
 // first `vocab_size` are the vocabulary:
 //   p_v     = softmax(logits)_v over the vocabulary
@@ -22,40 +22,32 @@
 // Philox4x32-10 keyed as the absorbing kernels key it: counter (v / 4, l,
 // b), key (seed, 0), u = top24 / 2^24 + 1e-10, g = -log(-log(u)).
 //
-// Bound on the H100: at the main path's shape (B=32, L=3072, V=256, bf16)
-// the step reads 50.3 MB of logits (100.7 MB for CFG), 0.015 / 0.030 ms at
+// Bound on the H100: at the UNet's shape (B=32, L=3072, V=256, bf16) the
+// step reads 50.3 MB of logits (100.7 MB for CFG), 0.015 / 0.030 ms at
 // 3.35 TB/s. Each logit also costs an exp and a log of the numerator for
 // each logits tensor and the Philox words and their compare; the two logs
 // of a Gumbel draw are needed only where the draw can win.
 //
-// K9 (`uniform_sample_kernel`, kCfg = false): one warp per row, 8 rows per
-// block of 256 threads. A lane takes 8 consecutive columns at a time (one
-// 16-byte load of bf16 logits when V % 8 == 0, else scalar loads with
-// bounds), so one pair of Philox calls gives its 8 uniforms. Pass 1 keeps
-// a per-lane online max-and-sum, merged across the warp by shuffles into
-// the LSE; pass 2 reads the row again (from L1: a 256-column bf16 row is
-// 512 bytes) and keeps a per-lane (score, index) maximum, merged across the
-// warp with the lowest index winning ties. Any V and vocab_size <= V work.
-//
-// K10 (the D-CFG step) takes one of two kernels by the row's width
-// (`cfg_plan`, from the shape alone; ops/fused_sampling.py's
-// `uniform_cfg_plan` mirrors it):
-//   - narrow rows (vocab_size <= 32; Species10's 12): `cfg_narrow_kernel`,
-//     a thread a row, 256 rows a block, so every lane works and a warp's
-//     loads cover the contiguous span of its 32 rows in both tensors; the
-//     row's columns stay in registers (16 or 32 of them);
-//   - wider rows: `cfg_wide_kernel`, a warp a row, a lane 8 consecutive
-//     columns a turn of 256 (16-byte loads where V % 8 == 0 and the rows
-//     are aligned); up to 256 columns the row is read once and stays in
-//     registers, past that a second pass reads it again.
+// K9 and K10 run the same two kernels, compiled for kIn = 1 or 2 logits
+// tensors, one of them by the row's width (`plan`, from the shape alone;
+// ops/fused_sampling.py's `uniform_plan` mirrors it):
+//   - narrow rows (vocab_size <= 32; Species10's 12):
+//     `uniform_narrow_kernel`, a thread a row, 256 rows a block, so every
+//     lane works and a warp's loads cover the contiguous span of its 32
+//     rows; the row's columns stay in registers (12, 16 or 32 of them: a
+//     thread's work is per column held, the vocabulary's or not);
+//   - wider rows: `uniform_wide_kernel`, a warp a row, a lane 8
+//     consecutive columns a turn of 256 (16-byte loads where V % 8 == 0
+//     and the rows are aligned); up to 256 columns the row is read once and
+//     stays in registers, past that a second pass reads it again.
 // Both take one exp a logit and tensor where the row stays in registers
 // (exp(z - max) serves the sum and p = exp(z - max) / sum), then the
-// numerator's formula and its log (the SFU's), and the mix. The noise is
-// K7's (ddg::gumbel) with K7's rule (ddg::noise_kmax): the noise of the
-// column with the largest mixed log q of each thread is formed first, and
-// every other column's only where lq + g can beat the best score so far
-// (the warp's, for a wide row). The skipped columns lie below that best
-// by a margin, so the token is that of the noise formed everywhere, the
+// numerator's formula and its log (the SFU's), and for K10 the mix. The
+// noise is K7's (ddg::gumbel) with K7's rule (ddg::noise_kmax): the noise
+// of the column with the largest log q of each thread is formed first, and
+// every other column's only where log q + g can beat the best score so far
+// (the warp's, for a wide row). The skipped columns lie below that best by
+// a margin, so the token is that of the noise formed everywhere, the
 // lowest index winning ties.
 
 #include "common.cuh"
@@ -63,9 +55,15 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / 32;
-constexpr int kCols = 8;
+constexpr int kRowsPerBlock = kThreads / 32;  // rows a block of the wide kernel
+constexpr int kNarrowRows = kThreads;         // rows a block of the narrow kernel
+constexpr int kWideCols = 8;                  // a lane's columns a turn
+constexpr int kTurn = 32 * kWideCols;         // a warp's columns a turn
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The kernel of a call (`plan`).
+enum Kernel : int { kNarrow = 1, kWideOne = 2, kWideTurns = 3 };
 
 // Columns v0 .. v0 + 7 of a row as fp32; columns at or past V read as kNeg.
 template <typename T, bool kVec>
@@ -74,35 +72,13 @@ __device__ __forceinline__ void load_cols(const T* row, int v0, int V, float* ou
     if constexpr (sizeof(T) == 2) {
       ddg::load16(reinterpret_cast<const __nv_bfloat16*>(row) + v0, out);
     } else {
-      ddg::load_f32<kCols>(reinterpret_cast<const float*>(row) + v0, out);
+      ddg::load_f32<kWideCols>(reinterpret_cast<const float*>(row) + v0, out);
     }
   } else {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c)
+    for (int c = 0; c < kWideCols; ++c)
       out[c] = v0 + c < V ? ddg::to_f32(row[v0 + c]) : kNeg;
   }
-}
-
-// The LSE of a row over its first `n_valid` columns, on every lane.
-template <typename T, bool kVec>
-__device__ __forceinline__ float row_lse(const T* row, int V, int n_valid, int lane) {
-  float m = kNeg, s = 0.f;
-  for (int v0 = lane * kCols; v0 < V; v0 += 32 * kCols) {
-    float z[kCols];
-    load_cols<T, kVec>(row, v0, V, z);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      if (v0 + c >= n_valid) continue;
-      if (z[c] > m) {
-        s = s * expf(m - z[c]) + 1.f;
-        m = z[c];
-      } else {
-        s += expf(z[c] - m);
-      }
-    }
-  }
-  ddg::warp_merge_ms(m, s);
-  return m + logf(s);
 }
 
 // Per-row constants of the numerator.
@@ -113,121 +89,6 @@ struct Num {
   float c;     // (1 - a_t / a_s) * (1 - a_s) / vocab_size
 };
 
-__device__ __forceinline__ float log_num(float z, float lse, bool is_xt, const Num& k) {
-  const float p = expf(__fsub_rn(z, lse));
-  const float x = is_xt ? 1.f : 0.f;
-  const float num = __fadd_rn(
-      __fadd_rn(__fmul_rn(p, __fadd_rn(k.a, __fmul_rn(x, k.axt))), __fmul_rn(x, k.bxt)), k.c);
-  return logf(__fadd_rn(num, 1e-35f));
-}
-
-template <typename T, bool kCfg, bool kExternal, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    uniform_sample_kernel(const int* __restrict__ seed, const int* __restrict__ xt,
-                          const T* __restrict__ logits_c, const T* __restrict__ logits_u,
-                          const float* __restrict__ alpha_t, const float* __restrict__ alpha_s,
-                          const float* __restrict__ gumbel, int* __restrict__ out, int rows,
-                          int L, int V, int vocab_size, float gamma, float omg) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int b = row / L, l = row % L;
-  const size_t base = static_cast<size_t>(row) * V;
-  const T* lc = logits_c + base;
-  const T* lu = kCfg ? logits_u + base : nullptr;
-  const int n_valid = min(vocab_size, V);
-
-  const float lse_c = row_lse<T, kVec>(lc, V, n_valid, lane);
-  const float lse_u = kCfg ? row_lse<T, kVec>(lu, V, n_valid, lane) : 0.f;
-
-  const float a_t = alpha_t[b], a_s = alpha_s[b];
-  const float vs = static_cast<float>(vocab_size);
-  const float a_ts = __fdiv_rn(a_t, a_s);
-  const Num k = {__fsub_rn(a_s, a_t), __fmul_rn(a_t, vs), __fsub_rn(a_ts, a_t),
-                 __fdiv_rn(__fmul_rn(__fsub_rn(1.f, a_ts), __fsub_rn(1.f, a_s)), vs)};
-  const int tok = xt[row];
-
-  const uint2 key = make_uint2(kExternal ? 0u : static_cast<unsigned>(seed[0]), 0u);
-  const float* g_row = kExternal ? gumbel + base : nullptr;
-  float best = -INFINITY;
-  int best_i = 0x7fffffff;
-  for (int v0 = lane * kCols; v0 < n_valid; v0 += 32 * kCols) {
-    float zc[kCols], zu[kCols], g[kCols];
-    load_cols<T, kVec>(lc, v0, V, zc);
-    if (kCfg) load_cols<T, kVec>(lu, v0, V, zu);
-    if (kExternal) {
-      load_cols<float, kVec>(g_row, v0, V, g);
-    } else {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint4 r = ddg::philox4x32_10(
-            make_uint4(static_cast<unsigned>((v0 >> 2) + h), static_cast<unsigned>(l),
-                       static_cast<unsigned>(b), 0u),
-            key);
-        g[4 * h] = ddg::gumbel_from_bits(r.x);
-        g[4 * h + 1] = ddg::gumbel_from_bits(r.y);
-        g[4 * h + 2] = ddg::gumbel_from_bits(r.z);
-        g[4 * h + 3] = ddg::gumbel_from_bits(r.w);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int v = v0 + c;
-      if (v >= n_valid) continue;
-      float lq = log_num(zc[c], lse_c, v == tok, k);
-      if (kCfg)
-        lq = __fadd_rn(__fmul_rn(gamma, lq), __fmul_rn(omg, log_num(zu[c], lse_u, v == tok, k)));
-      const float score = __fadd_rn(lq, g[c]);
-      if (score > best) {
-        best = score;
-        best_i = v;
-      }
-    }
-  }
-  ddg::warp_argmax(best, best_i);
-  if (lane == 0) out[row] = best_i;
-}
-
-template <typename T, bool kCfg, bool kExternal>
-int launch_vec(bool vec, const int* seed, const int* xt, const T* lc, const T* lu,
-               const float* at, const float* as, const float* gumbel, int* out, int rows, int L,
-               int V, int vocab_size, float gamma, float omg, cudaStream_t stream) {
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  if (vec) {
-    uniform_sample_kernel<T, kCfg, kExternal, true><<<blocks, kThreads, 0, stream>>>(
-        seed, xt, lc, lu, at, as, gumbel, out, rows, L, V, vocab_size, gamma, omg);
-  } else {
-    uniform_sample_kernel<T, kCfg, kExternal, false><<<blocks, kThreads, 0, stream>>>(
-        seed, xt, lc, lu, at, as, gumbel, out, rows, L, V, vocab_size, gamma, omg);
-  }
-  return cudaGetLastError();
-}
-
-template <typename T, bool kCfg>
-int launch(bool vec, const int* seed, const int* xt, const void* lc, const void* lu,
-           const float* at, const float* as, const float* gumbel, int* out, int rows, int L,
-           int V, int vocab_size, float gamma, float omg, cudaStream_t stream) {
-  const T* c = static_cast<const T*>(lc);
-  const T* u = static_cast<const T*>(lu);
-  return gumbel ? launch_vec<T, kCfg, true>(vec, seed, xt, c, u, at, as, gumbel, out, rows, L,
-                                            V, vocab_size, gamma, omg, stream)
-                : launch_vec<T, kCfg, false>(vec, seed, xt, c, u, at, as, gumbel, out, rows, L,
-                                             V, vocab_size, gamma, omg, stream);
-}
-
-
-// ---- K10: the D-CFG step, by row width -----------------------------------
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kWideCols = 8;                  // a lane's columns a turn
-constexpr int kTurn = 32 * kWideCols;         // a warp's columns a turn
-constexpr int kNarrowRows = kThreads;         // rows a block of the narrow kernel
-
-// The kernel of a D-CFG call (`cfg_plan`).
-enum CfgKernel : int { kNarrow16 = 1, kNarrow32 = 2, kWideOne = 3, kWideTurns = 4 };
-
-// The per-row constants of the numerator, as uniform_sample_kernel forms
-// them.
 __device__ __forceinline__ Num make_num(float a_t, float a_s, int vocab_size) {
   const float vs = static_cast<float>(vocab_size);
   const float a_ts = __fdiv_rn(a_t, a_s);
@@ -265,7 +126,7 @@ __device__ __forceinline__ void log_nums(float (&e)[N], float inv, int v0, int t
   }
 }
 
-// gamma * a + (1 - gamma) * b, as uniform_sample_kernel mixes them.
+// gamma * a + (1 - gamma) * b: K10's mix of the two log numerators.
 template <int N>
 __device__ __forceinline__ void mix(float (&a)[N], const float (&b)[N], float gamma, float omg) {
 #pragma unroll
@@ -357,23 +218,26 @@ __device__ __forceinline__ void narrow_log_nums(const T* row, int n, int tok, co
   log_nums(z, __frcp_rn(exps(z, m)), 0, tok, k);
 }
 
-template <typename T, bool kExternal, int N>
-__global__ void __launch_bounds__(kThreads)
-    cfg_narrow_kernel(const int* __restrict__ seed, const int* __restrict__ xt,
-                      const T* __restrict__ logits_c, const T* __restrict__ logits_u,
-                      const float* __restrict__ alpha_t, const float* __restrict__ alpha_s,
-                      const float* __restrict__ gumbel, int* __restrict__ out, int rows, int L,
-                      int V, int n, float gamma, float omg) {
+template <typename T, int kIn, bool kExternal, int N>
+__global__ void __launch_bounds__(kNarrowRows)
+    uniform_narrow_kernel(const int* __restrict__ seed, const int* __restrict__ xt,
+                  const T* __restrict__ logits_c, const T* __restrict__ logits_u,
+                  const float* __restrict__ alpha_t, const float* __restrict__ alpha_s,
+                  const float* __restrict__ gumbel, int* __restrict__ out, int rows, int L, int V,
+                  int n, float gamma, float omg) {
   const int row = blockIdx.x * kNarrowRows + threadIdx.x;
   if (row >= rows) return;
   const int b = row / L, l = row - b * L;
   const size_t base = static_cast<size_t>(row) * V;
   const Num k = make_num(alpha_t[b], alpha_s[b], n);
   const int tok = xt[row];
-  float lq[N], lu[N];
+  float lq[N];
   narrow_log_nums<T, N>(logits_c + base, n, tok, k, lq);
-  narrow_log_nums<T, N>(logits_u + base, n, tok, k, lu);
-  mix(lq, lu, gamma, omg);
+  if constexpr (kIn == 2) {
+    float lu[N];
+    narrow_log_nums<T, N>(logits_u + base, n, tok, k, lu);
+    mix(lq, lu, gamma, omg);
+  }
   float best = -INFINITY;
   int best_i = 0x7fffffff;
   if (kExternal) {
@@ -409,49 +273,56 @@ __device__ __forceinline__ float max_of(const float (&z)[kWideCols]) {
   return m;
 }
 
-template <typename T, bool kExternal, bool kVec, bool kOne>
+// The row max and sum of exps of one tensor over every turn (more than
+// one), each lane's online pair merged over the warp.
+template <typename T, bool kVec>
+__device__ __forceinline__ void row_ms(const T* row, int turns, int lane, int V, int n,
+                                       float& m, float& s) {
+  m = kNeg;
+  s = 0.f;
+  for (int t = 0; t < turns; ++t) {
+    float z[kWideCols];
+    load_valid<T, kVec>(row, t * kTurn + lane * kWideCols, V, n, z);
+    const float nm = fmaxf(m, max_of(z));
+    s = s * ddg::ex2((m - nm) * kLog2e) + exps(z, nm);
+    m = nm;
+  }
+  ddg::warp_merge_ms(m, s);
+}
+
+template <typename T, int kIn, bool kExternal, bool kVec, bool kOne>
 __global__ void __launch_bounds__(kThreads)
-    cfg_wide_kernel(const int* __restrict__ seed, const int* __restrict__ xt,
-                    const T* __restrict__ logits_c, const T* __restrict__ logits_u,
-                    const float* __restrict__ alpha_t, const float* __restrict__ alpha_s,
-                    const float* __restrict__ gumbel, int* __restrict__ out, int rows, int L,
-                    int V, int n, float gamma, float omg) {
+    uniform_wide_kernel(const int* __restrict__ seed, const int* __restrict__ xt,
+                const T* __restrict__ logits_c, const T* __restrict__ logits_u,
+                const float* __restrict__ alpha_t, const float* __restrict__ alpha_s,
+                const float* __restrict__ gumbel, int* __restrict__ out, int rows, int L, int V,
+                int n, float gamma, float omg) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int b = row / L, l = row - b * L;
   const size_t base = static_cast<size_t>(row) * V;
   const T* lc = logits_c + base;
-  const T* lu = logits_u + base;
+  const T* lu = kIn == 2 ? logits_u + base : nullptr;
   const Num k = make_num(alpha_t[b], alpha_s[b], n);
   const int tok = xt[row];
   const int turns = kOne ? 1 : (n + kTurn - 1) / kTurn;
 
   // The row max and sum of exps of each tensor.
   float zc[kWideCols], zu[kWideCols];
-  float mc, sc, mu, su;
+  float mc, sc, mu = 0.f, su = 1.f;
   if (kOne) {
     load_valid<T, kVec>(lc, lane * kWideCols, V, n, zc);
-    load_valid<T, kVec>(lu, lane * kWideCols, V, n, zu);
+    if (kIn == 2) load_valid<T, kVec>(lu, lane * kWideCols, V, n, zu);
     mc = ddg::warp_max(max_of(zc));
-    mu = ddg::warp_max(max_of(zu));
     sc = ddg::warp_sum(exps(zc, mc));
-    su = ddg::warp_sum(exps(zu, mu));
-  } else {
-    mc = mu = kNeg;
-    sc = su = 0.f;
-    for (int t = 0; t < turns; ++t) {
-      const int v0 = t * kTurn + lane * kWideCols;
-      load_valid<T, kVec>(lc, v0, V, n, zc);
-      load_valid<T, kVec>(lu, v0, V, n, zu);
-      const float nc = fmaxf(mc, max_of(zc)), nu = fmaxf(mu, max_of(zu));
-      sc = sc * ddg::ex2((mc - nc) * kLog2e) + exps(zc, nc);
-      su = su * ddg::ex2((mu - nu) * kLog2e) + exps(zu, nu);
-      mc = nc;
-      mu = nu;
+    if (kIn == 2) {
+      mu = ddg::warp_max(max_of(zu));
+      su = ddg::warp_sum(exps(zu, mu));
     }
-    ddg::warp_merge_ms(mc, sc);
-    ddg::warp_merge_ms(mu, su);
+  } else {
+    row_ms<T, kVec>(lc, turns, lane, V, n, mc, sc);
+    if (kIn == 2) row_ms<T, kVec>(lu, turns, lane, V, n, mu, su);
   }
   const float ic = __frcp_rn(sc), iu = __frcp_rn(su);
 
@@ -463,13 +334,17 @@ __global__ void __launch_bounds__(kThreads)
     const int v0 = t * kTurn + lane * kWideCols;
     if (!kOne) {
       load_valid<T, kVec>(lc, v0, V, n, zc);
-      load_valid<T, kVec>(lu, v0, V, n, zu);
       exps(zc, mc);
-      exps(zu, mu);
+      if (kIn == 2) {
+        load_valid<T, kVec>(lu, v0, V, n, zu);
+        exps(zu, mu);
+      }
     }
     log_nums(zc, ic, v0, tok, k);
-    log_nums(zu, iu, v0, tok, k);
-    mix(zc, zu, gamma, omg);
+    if (kIn == 2) {
+      log_nums(zu, iu, v0, tok, k);
+      mix(zc, zu, gamma, omg);
+    }
     if (kExternal) {
       float g[kWideCols];
       load_cols<float, kVec>(g_row, v0, V, g);
@@ -489,75 +364,94 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) out[row] = best_i;
 }
 
-
-// How a D-CFG call runs, from its shape alone: a thread a row where the
-// vocabulary is at most 32 columns (16 or 32 held), else a warp a row (one
-// turn of 256 columns, or more). vec: V % 8 == 0 and every row 16-byte
-// aligned, so the wide kernel loads 16-byte vectors. ops/fused_sampling.py's
-// `uniform_cfg_plan` mirrors it, and chip_smoke.py holds the two equal
-// through `ddg_uniform_cfg_plan`.
-struct CfgPlan {
+// How a call runs, from its shape alone: a thread a row where the
+// vocabulary is at most 32 columns (12, 16 or 32 held), else a warp a row
+// (one turn of 256 columns, or more). vec: V % 8 == 0 and every row 16-byte
+// aligned, so the wide kernel loads 16-byte vectors. The same plan serves
+// one logits tensor (K9) and two (K10). ops/fused_sampling.py's
+// `uniform_plan` mirrors it, and chip_smoke.py holds the two equal through
+// `ddg_uniform_plan`.
+struct Plan {
   int kernel, rows, cols, vec;
 };
 
-CfgPlan cfg_plan(int vocab_size, int vec) {
-  if (vocab_size <= 16) return {kNarrow16, kNarrowRows, 16, 0};
-  if (vocab_size <= 32) return {kNarrow32, kNarrowRows, 32, 0};
+Plan plan(int vocab_size, int vec) {
+  if (vocab_size <= 32)
+    return {kNarrow, kNarrowRows, vocab_size <= 12 ? 12 : vocab_size <= 16 ? 16 : 32, 0};
   return {vocab_size <= kTurn ? kWideOne : kWideTurns, kRowsPerBlock, kWideCols, vec ? 1 : 0};
 }
 
-template <typename T, bool kExternal>
-int launch_cfg_noise(const CfgPlan& p, const int* seed, const int* xt, const T* lc, const T* lu,
-                     const float* at, const float* as, const float* gumbel, int* out, int rows,
-                     int L, int V, int vocab_size, float gamma, float omg, cudaStream_t stream) {
+template <typename T, int kIn, bool kExternal>
+int launch_plan(const Plan& p, const int* seed, const int* xt, const T* lc, const T* lu,
+                const float* at, const float* as, const float* gumbel, int* out, int rows, int L,
+                int V, int vocab_size, float gamma, float omg, cudaStream_t stream) {
   const int blocks = (rows + p.rows - 1) / p.rows;
-#define DDG_CFG_ARGS seed, xt, lc, lu, at, as, gumbel, out, rows, L, V, vocab_size, gamma, omg
+#define DDG_ARGS seed, xt, lc, lu, at, as, gumbel, out, rows, L, V, vocab_size, gamma, omg
   switch (p.kernel) {
-    case kNarrow16:
-      cfg_narrow_kernel<T, kExternal, 16><<<blocks, kThreads, 0, stream>>>(DDG_CFG_ARGS);
-      break;
-    case kNarrow32:
-      cfg_narrow_kernel<T, kExternal, 32><<<blocks, kThreads, 0, stream>>>(DDG_CFG_ARGS);
+    case kNarrow:
+      if (p.cols == 12)
+        uniform_narrow_kernel<T, kIn, kExternal, 12>
+            <<<blocks, kNarrowRows, 0, stream>>>(DDG_ARGS);
+      else if (p.cols == 16)
+        uniform_narrow_kernel<T, kIn, kExternal, 16>
+            <<<blocks, kNarrowRows, 0, stream>>>(DDG_ARGS);
+      else
+        uniform_narrow_kernel<T, kIn, kExternal, 32>
+            <<<blocks, kNarrowRows, 0, stream>>>(DDG_ARGS);
       break;
     case kWideOne:
       if (p.vec)
-        cfg_wide_kernel<T, kExternal, true, true><<<blocks, kThreads, 0, stream>>>(DDG_CFG_ARGS);
+        uniform_wide_kernel<T, kIn, kExternal, true, true>
+            <<<blocks, kThreads, 0, stream>>>(DDG_ARGS);
       else
-        cfg_wide_kernel<T, kExternal, false, true><<<blocks, kThreads, 0, stream>>>(DDG_CFG_ARGS);
+        uniform_wide_kernel<T, kIn, kExternal, false, true>
+            <<<blocks, kThreads, 0, stream>>>(DDG_ARGS);
       break;
     default:
       if (p.vec)
-        cfg_wide_kernel<T, kExternal, true, false><<<blocks, kThreads, 0, stream>>>(DDG_CFG_ARGS);
+        uniform_wide_kernel<T, kIn, kExternal, true, false>
+            <<<blocks, kThreads, 0, stream>>>(DDG_ARGS);
       else
-        cfg_wide_kernel<T, kExternal, false, false><<<blocks, kThreads, 0, stream>>>(DDG_CFG_ARGS);
+        uniform_wide_kernel<T, kIn, kExternal, false, false>
+            <<<blocks, kThreads, 0, stream>>>(DDG_ARGS);
   }
-#undef DDG_CFG_ARGS
+#undef DDG_ARGS
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch_cfg(const CfgPlan& p, const int* seed, const int* xt, const void* lc, const void* lu,
-               const float* at, const float* as, const float* gumbel, int* out, int rows, int L,
-               int V, int vocab_size, float gamma, float omg, cudaStream_t stream) {
+template <typename T, int kIn>
+int launch_noise(const Plan& p, const int* seed, const int* xt, const void* lc, const void* lu,
+                 const float* at, const float* as, const float* gumbel, int* out, int rows, int L,
+                 int V, int vocab_size, float gamma, float omg, cudaStream_t stream) {
   const T* c = static_cast<const T*>(lc);
   const T* u = static_cast<const T*>(lu);
-  return gumbel ? launch_cfg_noise<T, true>(p, seed, xt, c, u, at, as, gumbel, out, rows, L, V,
+  return gumbel ? launch_plan<T, kIn, true>(p, seed, xt, c, u, at, as, gumbel, out, rows, L, V,
                                             vocab_size, gamma, omg, stream)
-                : launch_cfg_noise<T, false>(p, seed, xt, c, u, at, as, gumbel, out, rows, L, V,
+                : launch_plan<T, kIn, false>(p, seed, xt, c, u, at, as, gumbel, out, rows, L, V,
                                              vocab_size, gamma, omg, stream);
+}
+
+template <typename T>
+int launch(const Plan& p, bool cfg, const int* seed, const int* xt, const void* lc,
+           const void* lu, const float* at, const float* as, const float* gumbel, int* out,
+           int rows, int L, int V, int vocab_size, float gamma, float omg, cudaStream_t stream) {
+  return cfg ? launch_noise<T, 2>(p, seed, xt, lc, lu, at, as, gumbel, out, rows, L, V,
+                                  vocab_size, gamma, omg, stream)
+             : launch_noise<T, 1>(p, seed, xt, lc, lu, at, as, gumbel, out, rows, L, V,
+                                  vocab_size, gamma, omg, stream);
 }
 
 }  // namespace
 
 // vec: 1 when V % 8 == 0 and every row pointer is 16-byte aligned (the
-// wrapper checks), for vector loads.
+// wrapper checks), for vector loads; cfg: 1 for K10 (logits_u given).
 extern "C" int ddg_uniform_sample(const void* seed, const void* xt, const void* logits_c,
                                   const void* logits_u, const void* alpha_t, const void* alpha_s,
                                   const void* gumbel, void* out, int rows, int L, int V,
                                   int vocab_size, float gamma, float one_minus_gamma, int cfg,
                                   int dtype, int vec, void* stream) {
   if (rows <= 0 || L <= 0 || rows % L || V <= 0 || vocab_size <= 0 || vocab_size > V ||
-      (cfg && !logits_u) || (vec && V % kCols))
+      (cfg && !logits_u) || (vec && V % kWideCols))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto sd = static_cast<const int*>(seed);
@@ -566,32 +460,21 @@ extern "C" int ddg_uniform_sample(const void* seed, const void* xt, const void* 
   auto as = static_cast<const float*>(alpha_s);
   auto g = static_cast<const float*>(gumbel);
   auto o = static_cast<int*>(out);
-  const bool v = vec != 0;
-  if (cfg) {
-    const CfgPlan p = cfg_plan(vocab_size, vec);
-    if (dtype == ddg::kF32)
-      return launch_cfg<float>(p, sd, x, logits_c, logits_u, at, as, g, o, rows, L, V, vocab_size,
-                               gamma, one_minus_gamma, s);
-    if (dtype == ddg::kBF16)
-      return launch_cfg<__nv_bfloat16>(p, sd, x, logits_c, logits_u, at, as, g, o, rows, L, V,
-                                       vocab_size, gamma, one_minus_gamma, s);
-    return cudaErrorInvalidValue;
-  }
+  const Plan p = plan(vocab_size, vec);
   if (dtype == ddg::kF32)
-    return launch<float, false>(v, sd, x, logits_c, logits_u, at, as, g, o, rows, L, V,
-                                vocab_size, gamma, one_minus_gamma, s);
+    return launch<float>(p, cfg, sd, x, logits_c, logits_u, at, as, g, o, rows, L, V,
+                         vocab_size, gamma, one_minus_gamma, s);
   if (dtype == ddg::kBF16)
-    return launch<__nv_bfloat16, false>(v, sd, x, logits_c, logits_u, at, as, g, o, rows, L, V,
-                                         vocab_size, gamma, one_minus_gamma, s);
+    return launch<__nv_bfloat16>(p, cfg, sd, x, logits_c, logits_u, at, as, g, o, rows, L, V,
+                                 vocab_size, gamma, one_minus_gamma, s);
   return cudaErrorInvalidValue;
 }
 
-// The plan of a D-CFG call (`cfg_plan`) into out[0..3]: kernel (1, 2
-// narrow with 16 or 32 columns a thread; 3, 4 wide with one turn or more),
-// rows a block, columns a thread (a turn's, for the wide kernel), vector
-// loads.
-extern "C" void ddg_uniform_cfg_plan(int vocab_size, int vec, int* out) {
-  const CfgPlan p = cfg_plan(vocab_size, vec);
+// The plan of a call (`plan`) into out[0..3]: kernel (1 narrow; 2, 3 wide
+// with one turn or more), rows a block, columns a thread (a turn's, for the
+// wide kernel), vector loads.
+extern "C" void ddg_uniform_plan(int vocab_size, int vec, int* out) {
+  const Plan p = plan(vocab_size, vec);
   out[0] = p.kernel;
   out[1] = p.rows;
   out[2] = p.cols;

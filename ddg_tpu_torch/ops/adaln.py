@@ -9,10 +9,10 @@ scale-only weight. Both chains are differentiable: as the JAX custom VJPs
 do, the backward recomputes the LN statistics from the saved x (the
 rounded x' for the residual form) and returns the row grads in the row
 dtype, dw in fp32 and the conditioning grads in their own dtype. On CUDA
-tensors each forward is one launch of `csrc/adaln.cu` and each backward
-one call of its backward there (three launches: the rows, the
-conditioning sums, dw; `bwd_plan` mirrors their grid); on CPU tensors the
-plain versions below run instead.
+tensors each forward is one launch of `csrc/adaln.cu` (`fwd_plan` mirrors
+`ln_modulate`'s grid) and each backward one call of its backward there
+(three launches: the rows, the conditioning sums, dw; `bwd_plan` mirrors
+their grid); on CPU tensors the plain versions below run instead.
 """
 
 from __future__ import annotations
@@ -161,6 +161,40 @@ def ln_modulate(x, w, shift, scale):
     return _ln_modulate_fwd(x, w, shift, scale)
 
 
+# K3's launch (csrc/adaln.cu, `fwd_plan`): blocks of R rows of one batch
+# row, R the longest of 128, 64 and 32 that still gives 256 blocks (else
+# 32); a row to a team of warps, a lane holding up to 4 16-byte vectors of
+# it; 8 warps a block up to teams of 8 warps, one team of up to 32 warps
+# past that.
+_FWD_TILES = (128, 64, 32)
+_FWD_MIN_BLOCKS = 256
+_FWD_WARPS = 8
+_LANE_VECS = 4
+
+
+def fwd_plan(B: int, L: int, D: int, esize: int) -> dict:
+    """K3's launch for (B, L, D) rows of `esize`-byte elements (csrc
+    `ddg_adaln_fwd_plan`; `chip_smoke.py` holds the two equal): a block per
+    (b, tile of `rows` rows), `blocks` in all; a row to a team of
+    `warps_per_row` warps, lane t of it holding 16-byte vectors t, t + 32
+    warps_per_row, ... (`vectors_per_lane`); `teams` teams a block of
+    `threads` threads taking its rows in turns; `hold`: 1 where the block
+    keeps w (1 + scale) and shift in registers (teams of up to 8 warps),
+    0 where it reads them again for each row."""
+    N = 16 // esize
+    nvec = D // N
+    rows = next((r for r in _FWD_TILES[:-1]
+                 if B * -(-L // r) >= _FWD_MIN_BLOCKS), _FWD_TILES[-1])
+    warps = -(-nvec // (32 * _LANE_VECS))
+    hold = warps <= _FWD_WARPS
+    teams = _FWD_WARPS // warps if hold else 1
+    tiles = -(-L // rows)
+    return dict(rows=rows, tiles=tiles, blocks=B * tiles,
+                warps_per_row=warps,
+                vectors_per_lane=-(-nvec // (32 * warps)), teams=teams,
+                threads=teams * warps * 32, hold=int(hold))
+
+
 def _ln_modulate_fwd(x, w, shift, scale):
     if x.device.type == 'cpu':
         return ln_modulate_plain(x, w, shift, scale)
@@ -223,7 +257,6 @@ gate_res_ln_modulate.launches = 0
 # groups of 8 batch rows.
 _BWD_ROWS = 64
 _BWD_WARPS = 8
-_LANE_VECS = 4
 _COND_GROUP = 8
 
 

@@ -16,9 +16,9 @@ argmax, every token resampled. With p = softmax(z) over the first
             + (1 - a_ts)(1 - a_s) / vocab_size
   log q_v = log(num_v + 1e-35);  -1e30 at columns >= vocab_size
 The posterior's denominator is constant along a row. The CFG variant
-interpolates log-posteriors, gamma log q(l_c) + (1 - gamma) log q(l_u);
-on the card it takes a thread a row or a warp a row by the row's width
-(`uniform_cfg_plan`).
+interpolates log-posteriors, gamma log q(l_c) + (1 - gamma) log q(l_u).
+On the card both take a thread a row or a warp a row by the row's width
+(`uniform_plan`).
 
 Head-fused absorbing state (K11, K12): the vocab projection of the head
 features runs inside the step, z = W f + bias (bf16 or fp32 operands,
@@ -264,21 +264,21 @@ def fused_uniform_cfg_sample_plain(seed, xt, logits_cond, logits_uncond,
     return torch.argmax(scores, dim=-1).to(torch.int32)
 
 
-def uniform_cfg_plan(V: int, vocab_size: int, dtype, aligned: bool) -> dict:
-    """How the card runs a D-CFG call (K10), from its shape alone, as csrc
-    `cfg_plan` (`ddg_uniform_cfg_plan`) does: a thread a row where the
-    vocabulary is at most 32 columns (kernel 1 or 2, holding 16 or 32 of
-    them), else a warp a row (kernel 3 for one turn of 256 columns, 4 for
-    more), a lane 8 columns a turn, 16-byte loads (`vec`) where V % 8 == 0
-    and every row is 16-byte aligned (`aligned`: each tensor's address)."""
+def uniform_plan(V: int, vocab_size: int, dtype, aligned: bool) -> dict:
+    """How the card runs a uniform step, of one logits tensor (K9) or two
+    (K10) alike, from its shape alone, as csrc `plan` (`ddg_uniform_plan`)
+    does: a thread a row where the vocabulary is at most 32 columns
+    (kernel 1, holding 12, 16 or 32 of them), else a warp a row (kernel 2
+    for one turn of 256 columns, 3 for more), a lane 8 columns a turn,
+    16-byte loads (`vec`) where V % 8 == 0 and every row is 16-byte
+    aligned (`aligned`: each tensor's address)."""
     if dtype not in _DTYPES or not 0 < vocab_size <= V:
-        raise ValueError(f'no D-CFG plan for V={V}, vocab_size='
+        raise ValueError(f'no uniform-step plan for V={V}, vocab_size='
                          f'{vocab_size}, {dtype}')
-    if vocab_size <= 16:
-        return dict(kernel=1, rows=256, cols=16, vec=0)
-    if vocab_size <= 32:
-        return dict(kernel=2, rows=256, cols=32, vec=0)
-    return dict(kernel=3 if vocab_size <= 256 else 4, rows=8, cols=8,
+    for cols in (12, 16, 32):
+        if vocab_size <= cols:
+            return dict(kernel=1, rows=256, cols=cols, vec=0)
+    return dict(kernel=2 if vocab_size <= 256 else 3, rows=8, cols=8,
                 vec=int(V % 8 == 0 and aligned))
 
 

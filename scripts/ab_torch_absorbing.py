@@ -6,6 +6,7 @@ first-call check and a same-call A/B against another copy of the source.
     python3 scripts/ab_torch_absorbing.py --check
     python3 scripts/ab_torch_absorbing.py --parent-source build/ab/absorbing_sample.cu [--rounds 2]
     python3 scripts/ab_torch_absorbing.py --uniform --parent-source build/ab/uniform_sample.cu
+    python3 scripts/ab_torch_absorbing.py --uniform --phases
 
 `--check` builds the kernels, prints ptxas's lines for
 `absorbing_sample.cu` and runs `chip_smoke.check_sampling`: K7 and K8
@@ -38,10 +39,19 @@ the same for the uniform step, K9 `fused_uniform_sample` and K10
 their main paths: Species10's 8 x 32768 x V=12 and the UNet's 32 x 3072 x
 V=256 (A B B A, `--rounds` times). Each arm's tokens are held against the
 plain version under one external Gumbel wherever the top-two gap exceeds
-`chip_smoke.MARGIN`; with the in-kernel noise K9's two arms must be
-bit-equal, and where K10's differ (this tree forms K7's noise, the parent
-`ddg::gumbel_from_bits`), the two tokens' scores with the Philox draws
-rebuilt (`chip_smoke._philox_gumbel`) must lie within MARGIN.
+`chip_smoke.MARGIN`, and the two arms' tokens must be equal there too.
+With the in-kernel noise K10's two arms must be bit-equal (both form K7's
+noise, `ddg::gumbel`); where K9's differ (this tree forms K7's noise, a
+parent before the one-tensor kernels `ddg::gumbel_from_bits`), the two
+tokens' scores with the Philox draws rebuilt (`chip_smoke._philox_gumbel`)
+must lie within MARGIN.
+
+`--uniform --phases` times this tree's K9 and K10 at the same shapes
+beside copies of `uniform_sample.cu` patched by `UNIFORM_PHASES`, each
+without one part of the step (the noise, the noise past each lane's
+first pick, Philox, the numerator's log), A B .. B A, with each arm's
+kernel ms from the profiler; the copies' tokens are not checked. The last line lists the profiler traces `chip_smoke.
+kernel_trace` took again (`trace_retakes`).
 """
 
 import argparse
@@ -58,7 +68,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 sys.path.insert(0, str(ROOT / 'scripts'))
-from ab_torch_attention import build_parent  # noqa: E402
+from ab_torch_attention import build_parent, build_variants  # noqa: E402,E501
 
 ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4 + (ctypes.c_float,) * 2
         + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
@@ -207,19 +217,117 @@ def _uniform_gap(name, a, b, log_q, seed):
     return n
 
 
-def run_uniform(parent_source, rounds):
-    """K9 and K10 of the parent and of this tree in turns; see the module
-    docstring. Returns the number of failed checks."""
+# (old, new) text of `uniform_sample.cu` for `--uniform --phases`: the
+# phases of the one-tensor and two-tensor kernels, each copy without one
+# part (its tokens are not checked).
+_NARROW_NOISE = ('    unsigned w[N];\n'
+                 '    words(w, 0, n, l, b, make_uint2(static_cast<unsigned>'
+                 '(seed[0]), 0u));\n'
+                 '    const int first = pick_first(lq, w, 0, n, best, '
+                 'best_i);\n'
+                 '    pick_rest(lq, w, 0, n, first, -INFINITY, best, '
+                 'best_i);\n')
+_WIDE_NOISE = ('      unsigned w[kWideCols];\n'
+               '      words(w, v0, n, l, b, key);\n'
+               '      // Each lane\'s column of the largest lq first, then the '
+               'rest against\n'
+               '      // the warp\'s best.\n'
+               '      const int first = t == 0 ? pick_first(zc, w, v0, n, '
+               'best, best_i) : -1;\n'
+               '      pick_rest(zc, w, v0, n, first, ddg::warp_max(best), '
+               'best, best_i);\n')
+UNIFORM_PHASES = {
+    'no_noise': [(_NARROW_NOISE, '#pragma unroll\n'
+                  '    for (int c = 0; c < N; ++c)\n'
+                  '      if (c < n) take(best, best_i, lq[c], c);\n'),
+                 (_WIDE_NOISE, '#pragma unroll\n'
+                  '      for (int c = 0; c < kWideCols; ++c)\n'
+                  '        if (v0 + c < n) take(best, best_i, zc[c], v0 + c);'
+                  '\n')],
+    'first_noise_only': [
+        ('    pick_rest(lq, w, 0, n, first, -INFINITY, best, best_i);\n', ''),
+        ('      pick_rest(zc, w, v0, n, first, ddg::warp_max(best), best, '
+         'best_i);\n', '')],
+    'no_philox': [
+        ('    const uint4 r = ddg::philox4x32_10(\n',
+         '    const uint4 r = cheap4(\n'),
+        ('// The Philox words of columns v0',
+         '__device__ __forceinline__ uint4 cheap4(uint4 c, uint2 k) {\n'
+         '  const unsigned h = (c.x * 0x9E3779B9u) ^ (c.y * 0x85EBCA6Bu) ^ '
+         '(c.z * 0xC2B2AE35u) ^ k.x;\n'
+         '  return make_uint4(h, h * 747796405u, h ^ 0x5bd1e995u, '
+         'h * 0x27d4eb2du);\n}\n\n// The Philox words of columns v0')],
+    'no_log': [('    e[c] = __logf(__fadd_rn(num, 1e-35f));\n',
+                '    e[c] = num;\n')],
+}
+
+
+def _uniform_arm_checks(rec, fns, kernel, label, ins, gen):
+    """The parent's and this tree's tokens (see the module docstring) into
+    `rec`; raises if a check fails."""
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    seed, xt, lc, lu, lu_k, a_t, a_s = ins
+    Bt, Lt, Vt = lc.shape
+    order = list(fns)
+    if lu_k is None:
+        log_q = fs.uniform_log_num(lc, xt, a_t, a_s, vocab_size=Vt)
+    else:
+        log_q = fs.uniform_cfg_log_num(lc, lu, cs.GAMMA, xt, a_t, a_s,
+                                       vocab_size=Vt)
+    g = -torch.log(-torch.log(torch.rand(
+        (Bt, Lt, Vt), generator=gen, device='cuda').clamp_min(1e-20)))
+    scores = fs.uniform_perturbed_scores(0, log_q, vocab_size=Vt, gumbel=g)
+    ref = torch.argmax(scores, -1).to(torch.int32)
+    ext = {arm: _uniform_call(fns[arm], seed, xt, lc, lu_k, a_t, a_s, g)
+           for arm in order}
+    rec['external_bad_compared'] = {
+        arm: cs._uniform_token_check(f'{kernel} {label} {arm}', ext[arm],
+                                     ref, scores, Vt)
+        for arm in order}
+    rec['external_arms_bad_compared'] = cs._uniform_token_check(
+        f'{kernel} {label} new against parent', ext['new'], ext['parent'],
+        scores, Vt)
+    rec['external_arms_equal'] = bool(torch.equal(ext['new'],
+                                                  ext['parent']))
+    del scores, g, ref, ext
+    got = {arm: _uniform_call(fns[arm], seed, xt, lc, lu_k, a_t, a_s)
+           for arm in order}
+    rec['reruns_equal'] = {arm: bool(torch.equal(
+        got[arm], _uniform_call(fns[arm], seed, xt, lc, lu_k, a_t, a_s)))
+        for arm in order}
+    cs.check(all(rec['reruns_equal'].values()), 'a rerun differs')
+    rec['arms_equal'] = bool(torch.equal(got['parent'], got['new']))
+    if lu_k is not None:
+        cs.check(rec['arms_equal'], f'{kernel}: the arms differ')
+    else:
+        rec['arms_differ_tokens'] = _uniform_gap(
+            f'{kernel} {label}', got['parent'], got['new'], log_q, 11)
+
+
+def run_uniform(parent_source, rounds, phases=False):
+    """K9 and K10 of the parent and of this tree in turns, or with
+    `phases` of this tree and UNIFORM_PHASES' copies of it (timed only);
+    see the module docstring. Returns the number of failed
+    checks."""
     from ddg_tpu_torch.ops import _build
     from ddg_tpu_torch.ops import fused_sampling as fs
-    parent, log = build_parent(parent_source)
-    print(json.dumps({'parent_ptxas': cs.ptxas_lines(log)}), flush=True)
     libs = _build.build_all()
     print(json.dumps({'ptxas': cs.ptxas_lines(libs['uniform_sample'][1])}),
           flush=True)
+    arms = {'new': ctypes.CDLL(str(libs['uniform_sample'][0]))}
+    if phases:
+        built = build_variants('uniform_sample.cu', UNIFORM_PHASES)
+        for arm, (lib, log) in built.items():
+            arms[arm] = lib
+            print(json.dumps({'phase': arm, 'ptxas': [
+                ln for ln in cs.ptxas_lines(log) if 'registers' in ln
+                or 'spill' in ln or 'Compiling' in ln]}), flush=True)
+    else:
+        parent, log = build_parent(parent_source)
+        print(json.dumps({'parent_ptxas': cs.ptxas_lines(log)}), flush=True)
+        arms = {'parent': parent, **arms}
     fns = {}
-    for arm, lib in (('parent', parent),
-                     ('new', ctypes.CDLL(str(libs['uniform_sample'][0])))):
+    for arm, lib in arms.items():
         fns[arm] = lib.ddg_uniform_sample
         fns[arm].argtypes = list(UNIFORM_ARGS)
         fns[arm].restype = ctypes.c_int
@@ -235,44 +343,14 @@ def run_uniform(parent_source, rounds):
         for kernel, lu_k in (('K9', None), ('K10', lu)):
             rec = {'kernel': kernel, 'shape': [Bt, Lt, Vt], 'case': label,
                    'nvidia_smi': smi}
-            try:
-                if lu_k is None:
-                    log_q = fs.uniform_log_num(lc, xt, a_t, a_s,
-                                               vocab_size=Vt)
-                else:
-                    log_q = fs.uniform_cfg_log_num(lc, lu, cs.GAMMA, xt, a_t,
-                                                   a_s, vocab_size=Vt)
-                g = -torch.log(-torch.log(torch.rand(
-                    (Bt, Lt, Vt), generator=gen, device='cuda')
-                    .clamp_min(1e-20)))
-                scores = fs.uniform_perturbed_scores(0, log_q, vocab_size=Vt,
-                                                     gumbel=g)
-                ref = torch.argmax(scores, -1).to(torch.int32)
-                rec['external_bad_compared'] = {
-                    arm: cs._uniform_token_check(
-                        f'{kernel} {label} {arm}',
-                        _uniform_call(fns[arm], seed, xt, lc, lu_k, a_t, a_s,
-                                      g), ref, scores, Vt)
-                    for arm in order}
-                del scores, g, ref
-                got = {arm: _uniform_call(fns[arm], seed, xt, lc, lu_k, a_t,
-                                          a_s) for arm in order}
-                rec['reruns_equal'] = {arm: bool(torch.equal(
-                    got[arm], _uniform_call(fns[arm], seed, xt, lc, lu_k,
-                                            a_t, a_s))) for arm in order}
-                cs.check(all(rec['reruns_equal'].values()), 'a rerun differs')
-                rec['arms_equal'] = bool(torch.equal(got['parent'],
-                                                     got['new']))
-                if lu_k is None:
-                    cs.check(rec['arms_equal'], f'{kernel}: the arms differ')
-                else:
-                    rec['arms_differ_tokens'] = _uniform_gap(
-                        f'{kernel} {label}', got['parent'], got['new'], log_q,
-                        11)
-                del log_q
-            except Exception as e:  # report, then fail
-                rec['error'] = repr(e)[:800]
-                failed += 1
+            if not phases:
+                try:
+                    _uniform_arm_checks(rec, fns, kernel, label,
+                                        (seed, xt, lc, lu, lu_k, a_t, a_s),
+                                        gen)
+                except Exception as e:  # report, then fail
+                    rec['error'] = repr(e)[:800]
+                    failed += 1
             times = {arm: [] for arm in order}
             for r in range(rounds):
                 for arm in order + order[::-1]:
@@ -320,12 +398,19 @@ def run_parent(parent_source, rounds):
     return run_turns(_fns({'parent': parent, 'new': new}), rounds)
 
 
+def _report_retakes():
+    """The profiler traces `chip_smoke.kernel_trace` took again (C.9)."""
+    print(json.dumps({'trace_retakes': cs.TRACE_RETAKES}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--check', action='store_true')
     ap.add_argument('--parent-source')
     ap.add_argument('--rounds', type=int, default=2)
     ap.add_argument('--uniform', action='store_true')
+    ap.add_argument('--phases', action='store_true',
+                    help='with --uniform: this tree against UNIFORM_PHASES')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('no CUDA device is visible', file=sys.stderr)
@@ -333,6 +418,8 @@ def main():
     cs.DEV = 'cuda'
     if args.check:
         return run_check()
+    if args.uniform and args.phases:
+        return 1 if run_uniform(None, args.rounds, True) else 0
     if args.parent_source is None or not os.path.exists(args.parent_source):
         ap.error('--parent-source names no file')
     if args.uniform:
@@ -341,4 +428,6 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    rc = main()
+    _report_retakes()
+    sys.exit(rc)

@@ -177,6 +177,30 @@ def build_parent(src):
     return ctypes.CDLL(str(lib)), proc.stdout + proc.stderr
 
 
+def build_variants(source, patches):
+    """Copies of `csrc/<source>` under `build/variants/`, each with its
+    (old, new) text patches (each old text must occur once), built in
+    parallel by `build_parent`: {name: (library, nvcc log)}. The copies
+    include this tree's csrc/ headers."""
+    from concurrent.futures import ThreadPoolExecutor
+    from ddg_tpu_torch.ops import _build
+    text0 = (_build.CSRC / source).read_text()
+    out_dir = ROOT / 'build' / 'variants'
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for name, pairs in patches.items():
+        text = text0
+        for old, new in pairs:
+            cs.check(text.count(old) == 1,
+                     f'{name}: the patched text occurs {text.count(old)} '
+                     'times, not once')
+            text = text.replace(old, new)
+        paths[name] = out_dir / f'{Path(source).stem}_{name}.cu'
+        paths[name].write_text(text)
+    with ThreadPoolExecutor(len(paths)) as pool:
+        return dict(zip(paths, pool.map(build_parent, paths.values())))
+
+
 def run_check():
     from ddg_tpu_torch.ops import _build
     from ddg_tpu_torch.ops import attention as A

@@ -80,7 +80,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 sys.path.insert(0, str(ROOT / 'scripts'))
-from ab_torch_attention import build_parent  # noqa: E402
+from ab_torch_attention import build_parent, build_variants  # noqa: E402,E501
 
 HEAD_ARGS = (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 GN_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_float,)
@@ -197,25 +197,10 @@ def _plan_splits(lib, T, Dm, Vp, dtype):
 
 
 def run_phases(rounds, int8=False):
-    from concurrent.futures import ThreadPoolExecutor
     from ddg_tpu_torch.ops import _build
-    src = (ROOT / 'ddg_tpu_torch' / 'csrc' / 'head_sample.cu').read_text()
-    # Beside no header: the copies include this tree's csrc/ headers.
-    out_dir = ROOT / 'build' / 'variants'
-    out_dir.mkdir(parents=True, exist_ok=True)
     dtype = torch.int8 if int8 else torch.bfloat16
-    paths = {}
-    for arm, pairs in (PHASE_PATCHES_S8 if int8 else PHASE_PATCHES).items():
-        text = src
-        for old, new in pairs:
-            cs.check(text.count(old) == 1, f'{arm}: the patched text occurs '
-                                           f'{text.count(old)} times, not '
-                                           'once')
-            text = text.replace(old, new)
-        paths[arm] = out_dir / f'head_sample_{arm}.cu'
-        paths[arm].write_text(text)
-    with ThreadPoolExecutor(len(paths)) as pool:
-        built = dict(zip(paths, pool.map(build_parent, paths.values())))
+    built = build_variants('head_sample.cu',
+                           PHASE_PATCHES_S8 if int8 else PHASE_PATCHES)
     libs = {'full': ctypes.CDLL(str(_build.build_all()['head_sample'][0]))}
     libs.update({arm: lib for arm, (lib, _) in built.items()})
     fns = {arm: lib.ddg_head_sample for arm, lib in libs.items()}

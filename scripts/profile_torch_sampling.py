@@ -40,11 +40,11 @@ GROUPS = (   # first match wins; matched against the kernel's name
     ('K1 rope_attention', ('attention_wgmma_kernel<true',
                            'attention_kernel<__nv_bfloat16, true',
                            'attention_kernel<float, true')),
-    ('K3/K5 adaln', ('adaln_kernel',)),
+    ('K3/K5 adaln', ('ln_modulate_kernel', 'gate_res_kernel')),
     ('K7/K8 absorbing_sample', ('absorbing_sample',)),
     ('K11/K12 head_sample', ('head_sample', 'head_wgmma', 'head_s8',
                              'head_merge')),
-    ('K9/K10 uniform_sample', ('uniform_sample', 'cfg_narrow', 'cfg_wide')),
+    ('K9/K10 uniform_sample', ('uniform_sample', 'uniform_narrow', 'uniform_wide')),
     ('K13 groupnorm', ('gn_slab', 'gn_stats', 'gn_apply')),
     ('K18 in/out_proj', ('gemm_wgmma_kernel', 'gemm_f32_kernel')),
     ('K18 conv/x_proj/dt_proj', ('mamba_front',)),

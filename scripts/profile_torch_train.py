@@ -73,7 +73,7 @@ GROUPS = (   # first match wins; matched against the kernel's name
                              'attention_kernel<float, true')),
     ('K2 attention', ('attention_wgmma_kernel', 'attention_kernel')),
     ('K4/K6 adaln bwd', ('adaln_bwd',)),
-    ('K3/K5 adaln fwd', ('adaln_kernel',)),
+    ('K3/K5 adaln fwd', ('ln_modulate_kernel', 'gate_res_kernel')),
     ('gemm', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas', 'splitK')),
     ('optimizer/clip/EMA (foreach)', ('multi_tensor_apply',)),
     ('softmax/log-softmax', ('softmax',)),

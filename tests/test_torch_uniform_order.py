@@ -1,21 +1,22 @@
-"""A torch emulation of the work split of K10, the uniform D-CFG step
-(`ddg_tpu_torch/csrc/uniform_sample.cu`: `cfg_narrow_kernel`,
-`cfg_wide_kernel`), held against the plain version
-(`ddg_tpu_torch.ops.fused_sampling.fused_uniform_cfg_sample_plain`) and
-the Pallas kernel of `ddg_tpu/ops/fused_sampling.py` in interpret mode,
-all fed one external Gumbel made with numpy from a seed.
+"""A torch emulation of the work split of K9 and K10, the uniform steps
+with one and two logits tensors (`ddg_tpu_torch/csrc/uniform_sample.cu`:
+`uniform_narrow_kernel`, `uniform_wide_kernel`), held against the plain
+versions (`ddg_tpu_torch.ops.fused_sampling.fused_uniform_sample_plain`,
+`fused_uniform_cfg_sample_plain`) and the Pallas kernels of
+`ddg_tpu/ops/fused_sampling.py` in interpret mode, all fed one external
+Gumbel made with numpy from a seed.
 
-The emulation follows the kernels as `uniform_cfg_plan` chooses them: a
-thread a row holding 16 or 32 columns where the vocabulary has at most 32
-(columns past it -inf), else a warp a row, a lane 8 consecutive columns a
-turn of 256. Each tensor's row max first (the lanes' by a butterfly of
+The emulation follows the kernels as `uniform_plan` chooses them: a
+thread a row holding 12, 16 or 32 columns where the vocabulary has at most
+32 (columns past it -inf), else a warp a row, a lane 8 consecutive columns
+a turn of 256. Each tensor's row max first (the lanes' by a butterfly of
 max), then one exp a column, 2^((z - max) log2 e), summed in the thread's
 order and over the lanes by the butterfly of adds (past one turn: each
 lane's online max and sum, merged by the butterfly of `merge_ms`, and a
-second read); p = e * (1 / sum), the numerator's formula and its log, the
-mix; then each thread's best score, the lowest index winning ties, and
-the warp's. The exps and logs are the CPU's, not the SFU's: the emulation
-holds the order, not the bits.
+second read); p = e * (1 / sum), the numerator's formula and its log, and
+with two tensors the mix; then each thread's best score, the lowest index
+winning ties, and the warp's. The exps and logs are the CPU's, not the
+SFU's: the emulation holds the order, not the bits.
 
 With the in-kernel noise (the Philox words of counter (v / 4, l, b) under
 key (seed, 0)) the emulation forms a column's noise only where the kernel
@@ -25,11 +26,13 @@ first, the rest only where their Philox word's top 24 bits exceed
 constants read from `common.cuh`), and the tokens must equal those of the
 noise formed everywhere, bit for bit.
 
-Parametrised over the widths of the port's uniform paths and the edges of
-the plan (V = 12, the Species10 DNA vocabulary; V = 20 with a vocabulary
-of 16; V = 40 with 30; V = 250 with 243; V = 256, the UNet's pixels; V =
-600 with 597, three turns), bf16 and fp32, and ties."""
+Parametrised over one and two logits tensors (K9, K10), the widths of the
+port's uniform paths and the edges of the plan (V = 12, the Species10 DNA
+vocabulary; V = 20 with a vocabulary of 16; V = 40 with 30; V = 250 with
+243; V = 256, the UNet's pixels; V = 600 with 597, three turns), bf16 and
+fp32, and ties."""
 
+import itertools
 import math
 import re
 from pathlib import Path
@@ -61,6 +64,8 @@ def _const(name, src=SRC):
 
 WIDE_COLS = _const('kWideCols')
 THREADS = _const('kThreads')
+NARROW_ROWS = THREADS
+assert 'constexpr int kNarrowRows = kThreads;' in SRC
 TURN = 32 * WIDE_COLS
 assert 'constexpr int kTurn = 32 * kWideCols;' in SRC
 
@@ -180,11 +185,17 @@ def _num_constants(a_t, a_s, vocab):
             'c': ((1 - a_ts) * (1 - a_s)) / vs}
 
 
+def _mix(lqs, g_mix, omg):
+    """K10's mix of its two tensors' log numerators; K9's one as it is."""
+    return lqs[0] if len(lqs) == 1 else g_mix * lqs[0] + omg * lqs[1]
+
+
 def emulate(xt, lc, lu, a_t, a_s, vocab, noise, gamma=GAMMA):
-    """K10's tokens (B, L) int32; `noise`: an external (B, L, V) Gumbel
-    tensor, or a Noise."""
+    """K10's tokens (B, L) int32, or K9's where `lu` is None; `noise`: an
+    external (B, L, V) Gumbel tensor, or a Noise."""
     Bt, Lt, V = lc.shape
-    plan = tfs.uniform_cfg_plan(V, vocab, lc.dtype, True)
+    tensors = [t for t in (lc, lu) if t is not None]
+    plan = tfs.uniform_plan(V, vocab, lc.dtype, True)
     rows = Bt * Lt
     x = xt.reshape(rows).long()
     bi = torch.arange(rows) // Lt
@@ -194,17 +205,17 @@ def emulate(xt, lc, lu, a_t, a_s, vocab, noise, gamma=GAMMA):
     w_all = None if ext else noise.words.reshape(rows, V)
     g_mix = torch.tensor(gamma, dtype=F32)
     omg = torch.tensor(1 - gamma, dtype=F32)
-    if plan['kernel'] in (1, 2):                    # a thread a row
+    if plan['kernel'] == 1:                         # a thread a row
         N = plan['cols']
         cols = torch.arange(N)
         lqs = []
-        for t in (lc, lu):
+        for t in tensors:
             z = torch.full((rows, N), -math.inf)
             z[:, :vocab] = t.reshape(rows, V)[:, :vocab].float()
             m = torch.clamp(z.amax(-1), min=NEG)
             e, s = _exps(z, m)
             lqs.append(_log_nums(e, 1 / s, cols, x, k))
-        lq = g_mix * lqs[0] + omg * lqs[1]
+        lq = _mix(lqs, g_mix, omg)
         valid = cols < vocab
         best = torch.full((rows,), -math.inf)
         idx = torch.full((rows,), 2 ** 31 - 1)
@@ -247,7 +258,7 @@ def emulate(xt, lc, lu, a_t, a_s, vocab, noise, gamma=GAMMA):
         return torch.where(valid, t.reshape(rows, V)[:, cl].float(),
                            -math.inf)
     lqs = []
-    for t in (lc, lu):
+    for t in tensors:
         z = grid(t)
         if turns == 1:
             m = _butterfly(torch.clamp(z[:, 0].amax(-1), min=NEG),
@@ -270,7 +281,7 @@ def emulate(xt, lc, lu, a_t, a_s, vocab, noise, gamma=GAMMA):
         inv = 1 / s
         lqs.append(_log_nums(e.reshape(rows, -1), inv, cols.reshape(-1), x, k)
                    .reshape(rows, turns, 32, WIDE_COLS))
-    lq = g_mix * lqs[0] + omg * lqs[1]
+    lq = _mix(lqs, g_mix, omg)
     gv = torch.where(valid, g_all[:, cl], 0.0)
     best = torch.full((rows, 32), -math.inf)
     idx = torch.full((rows, 32), 2 ** 31 - 1)
@@ -338,11 +349,64 @@ def _inputs(V, vocab, dtype, seed, scale=3.0):
         torch.from_numpy(a_s), torch.from_numpy(g)
 
 
+# The number of logits tensors: 2 (K10, `fused_uniform_cfg_sample`) and 1
+# (K9, `fused_uniform_sample`); K9's cases carry '-k9' after K10's ids.
+N_IN = [1, 2]
+
+
+def _both(*axes):
+    """pytest params of every combination of `axes` (each a list of
+    (value, id), the id's parts joined by '-'), for K10 and then for K9,
+    the tensor count last."""
+    out = []
+    for n_in in (2, 1):
+        for combo in itertools.product(*axes):
+            values = [v for part, _ in combo
+                      for v in (part if isinstance(part, tuple) else (part,))]
+            ident = '-'.join(i for _, i in combo) + ('-k9' if n_in == 1
+                                                      else '')
+            out.append(pytest.param(*values, n_in, id=ident))
+    return out
+
+
+_WIDTH_AXIS = list(zip(WIDTHS, WIDTH_IDS))
+_DTYPE_AXIS = [(k, k) for k in DTYPES]
+
+
+def _log_q(lc, lu, xt, a_t, a_s, vocab):
+    if lu is None:
+        return tfs.uniform_log_num(lc, xt, a_t, a_s, vocab_size=vocab)
+    return tfs.uniform_cfg_log_num(lc, lu, GAMMA, xt, a_t, a_s,
+                                   vocab_size=vocab)
+
+
+def _plain(xt, lc, lu, a_t, a_s, vocab, g):
+    if lu is None:
+        return tfs.fused_uniform_sample_plain(0, xt, lc, a_t, a_s,
+                                              vocab_size=vocab, gumbel=g)
+    return tfs.fused_uniform_cfg_sample_plain(0, xt, lc, lu, GAMMA, a_t, a_s,
+                                              vocab_size=vocab, gumbel=g)
+
+
+def _pallas(xt, lc, lu, a_t, a_s, vocab, g):
+    """JAX's kernel in interpret mode, its logits in the rows' dtype."""
+    jdt = jnp.bfloat16 if lc.dtype == torch.bfloat16 else jnp.float32
+    jl = [jnp.asarray(t.float().numpy()).astype(jdt)
+          for t in (lc, lu) if t is not None]
+    args = (jnp.asarray(a_t.numpy()), jnp.asarray(a_s.numpy()))
+    kw = dict(vocab_size=vocab, interpret=True, gumbel=jnp.asarray(g.numpy()))
+    x = jnp.asarray(xt.numpy())
+    if lu is None:
+        out = jfs.fused_uniform_sample(3, x, jl[0], *args, **kw)
+    else:
+        out = jfs.fused_uniform_cfg_sample(3, x, jl[0], jl[1], GAMMA, *args,
+                                           **kw)
+    return torch.from_numpy(np.array(out))
+
+
 def _decided(lc, lu, xt, a_t, a_s, g, vocab):
-    log_q = tfs.uniform_cfg_log_num(lc, lu, GAMMA, xt, a_t, a_s,
-                                    vocab_size=vocab)
-    scores = tfs.uniform_perturbed_scores(0, log_q, vocab_size=vocab,
-                                          gumbel=g)
+    scores = tfs.uniform_perturbed_scores(
+        0, _log_q(lc, lu, xt, a_t, a_s, vocab), vocab_size=vocab, gumbel=g)
     top2 = scores.topk(2, dim=-1).values
     return (top2[..., 0] - top2[..., 1]) > MARGIN
 
@@ -353,38 +417,30 @@ def _check(got, want, decided):
                                   want[decided].numpy())
 
 
-@pytest.mark.parametrize('dtype', list(DTYPES))
-@pytest.mark.parametrize('V,vocab', WIDTHS, ids=WIDTH_IDS)
-def test_emulation_matches_plain_and_pallas(V, vocab, dtype):
+@pytest.mark.parametrize('V,vocab,dtype,n_in',
+                         _both(_WIDTH_AXIS, _DTYPE_AXIS))
+def test_emulation_matches_plain_and_pallas(V, vocab, dtype, n_in):
     (lc, lu), xt, a_t, a_s, g = _inputs(V, vocab, DTYPES[dtype],
                                         V + vocab + len(dtype))
+    lu = lu if n_in == 2 else None
     got = emulate(xt, lc, lu, a_t, a_s, vocab, g)
     assert got.dtype == torch.int32 and bool(((got >= 0)
                                               & (got < vocab)).all())
     decided = _decided(lc, lu, xt, a_t, a_s, g, vocab)
-    plain = tfs.fused_uniform_cfg_sample_plain(0, xt, lc, lu, GAMMA, a_t,
-                                               a_s, vocab_size=vocab,
-                                               gumbel=g)
-    _check(got, plain, decided)
-    jdt = jnp.bfloat16 if dtype == 'bf16' else jnp.float32
-    jl = [jnp.asarray(t.float().numpy()).astype(jdt) for t in (lc, lu)]
-    want = jfs.fused_uniform_cfg_sample(
-        3, jnp.asarray(xt.numpy()), jl[0], jl[1], GAMMA,
-        jnp.asarray(a_t.numpy()), jnp.asarray(a_s.numpy()), vocab_size=vocab,
-        interpret=True, gumbel=jnp.asarray(g.numpy()))
-    _check(got, torch.from_numpy(np.array(want)), decided)
+    _check(got, _plain(xt, lc, lu, a_t, a_s, vocab, g), decided)
+    _check(got, _pallas(xt, lc, lu, a_t, a_s, vocab, g), decided)
 
 
-@pytest.mark.parametrize('scale', [3.0, 12.0])
-@pytest.mark.parametrize('dtype', list(DTYPES))
-@pytest.mark.parametrize('V,vocab', WIDTHS, ids=WIDTH_IDS)
-def test_pruned_noise_is_exact(V, vocab, dtype, scale):
+@pytest.mark.parametrize('V,vocab,dtype,scale,n_in', _both(
+    _WIDTH_AXIS, _DTYPE_AXIS, [(3.0, '3.0'), (12.0, '12.0')]))
+def test_pruned_noise_is_exact(V, vocab, dtype, scale, n_in):
     """The in-kernel noise: the tokens with the noise formed only where the
     kernel forms it equal those with it formed at every column, bit for
     bit, and the plain version's fed the same draws wherever the gap
     exceeds 1e-4."""
     (lc, lu), xt, a_t, a_s, _ = _inputs(V, vocab, DTYPES[dtype], 7 * V,
                                         scale)
+    lu = lu if n_in == 2 else None
     seed = 4321 + V
     pruned = Noise(seed, B, L, V)
     got = emulate(xt, lc, lu, a_t, a_s, vocab, pruned)
@@ -393,26 +449,30 @@ def test_pruned_noise_is_exact(V, vocab, dtype, scale):
     assert torch.equal(got, full)
     assert pruned.formed <= pruned.columns
     g = gumbel_of(philox_words(seed, B, L, V))
-    plain = tfs.fused_uniform_cfg_sample_plain(0, xt, lc, lu, GAMMA, a_t,
-                                               a_s, vocab_size=vocab,
-                                               gumbel=g)
-    _check(got, plain, _decided(lc, lu, xt, a_t, a_s, g, vocab))
+    _check(got, _plain(xt, lc, lu, a_t, a_s, vocab, g),
+           _decided(lc, lu, xt, a_t, a_s, g, vocab))
 
 
-@pytest.mark.parametrize('V,vocab', [(12, 12), (256, 256)],
-                         ids=['species10', 'unet'])
-def test_noise_formed_for_few_columns(V, vocab):
-    """At the main paths' widths, with logits of scale 2 (as
-    chip_smoke.py draws them), the kernel forms the noise of fewer than
-    half the logits, and the tokens are those of the noise formed
-    everywhere."""
-    Bt, Lt = 4, 16
-    r = np.random.RandomState(3)
+def _main_path_inputs(V, vocab, n_in, Bt, Lt, seed):
+    """Logits of scale 2 (as chip_smoke.py draws them) and the rest, bf16."""
+    r = np.random.RandomState(seed)
     lc, lu = (torch.from_numpy((r.randn(Bt, Lt, V) * 2).astype(np.float32))
               .to(torch.bfloat16) for _ in range(2))
     xt = torch.from_numpy(r.randint(0, vocab, (Bt, Lt)).astype(np.int32))
     a_t = torch.from_numpy(r.uniform(0.05, 0.85, Bt).astype(np.float32))
     a_s = a_t + (1 - a_t) * torch.from_numpy(r.rand(Bt).astype(np.float32))
+    return xt, lc, (lu if n_in == 2 else None), a_t, a_s
+
+
+@pytest.mark.parametrize('V,vocab,n_in', _both(
+    [((12, 12), 'species10'), ((256, 256), 'unet')]))
+def test_noise_formed_for_few_columns(V, vocab, n_in):
+    """At the main paths' widths, with logits of scale 2 (as
+    chip_smoke.py draws them), the kernel forms the noise of fewer than
+    half the logits, and the tokens are those of the noise formed
+    everywhere."""
+    Bt, Lt = 4, 16
+    xt, lc, lu, a_t, a_s = _main_path_inputs(V, vocab, n_in, Bt, Lt, 3)
     pruned = Noise(55, Bt, Lt, V)
     got = emulate(xt, lc, lu, a_t, a_s, vocab, pruned)
     assert torch.equal(got, emulate(xt, lc, lu, a_t, a_s, vocab,
@@ -421,77 +481,72 @@ def test_noise_formed_for_few_columns(V, vocab):
                                                   pruned.columns)
 
 
-@pytest.mark.parametrize('V,vocab', WIDTHS, ids=WIDTH_IDS)
-def test_ties_go_to_the_lowest_index(V, vocab):
+@pytest.mark.parametrize('V,vocab,n_in', _both(_WIDTH_AXIS))
+def test_ties_go_to_the_lowest_index(V, vocab, n_in):
     """alpha(s) = 1 makes xt's numerator that of its probability: with xt's
     logit far below the rest and no noise, every other column ties and the
     lowest wins, in the emulation, the plain version and JAX's kernel."""
     for x_col, want in ((0, 1), (vocab // 2, 0)):
         z = torch.zeros((B, L, V))
         z[..., x_col] = -100.0
+        zu = z if n_in == 2 else None
         xt = torch.full((B, L), x_col, dtype=torch.int32)
         a_t, a_s = torch.full((B,), 0.5), torch.ones((B,))
         g = torch.zeros_like(z)
-        got = emulate(xt, z, z, a_t, a_s, vocab, g)
-        plain = tfs.fused_uniform_cfg_sample_plain(
-            0, xt, z, z, GAMMA, a_t, a_s, vocab_size=vocab, gumbel=g)
-        jax_tok = jfs.fused_uniform_cfg_sample(
-            3, jnp.asarray(xt.numpy()), jnp.asarray(z.numpy()),
-            jnp.asarray(z.numpy()), GAMMA, jnp.asarray(a_t.numpy()),
-            jnp.asarray(a_s.numpy()), vocab_size=vocab, interpret=True,
-            gumbel=jnp.asarray(g.numpy()))
-        for tok in (got, plain, torch.from_numpy(np.array(jax_tok))):
+        for tok in (emulate(xt, z, zu, a_t, a_s, vocab, g),
+                    _plain(xt, z, zu, a_t, a_s, vocab, g),
+                    _pallas(xt, z, zu, a_t, a_s, vocab, g)):
             assert bool((tok == want).all())
 
 
 def test_plan_matches_the_source():
-    """`uniform_cfg_plan` mirrors csrc `cfg_plan`: the limits (16 and 32
+    """`uniform_plan` mirrors csrc `plan`: the limits (12, 16 and 32
     columns a thread, one turn of 32 lanes x kWideCols), the rows a block
-    (kThreads threads; a warp a row: kThreads / 32) and the vector-load
-    rule (V % 8, aligned rows; the narrow kernel loads scalars)."""
-    body = SRC[SRC.index('CfgPlan cfg_plan(int vocab_size, int vec)'):]
+    (kNarrowRows, a thread a row; a warp a row: kThreads / 32), the
+    vector-load rule (V % 8, aligned rows; the narrow kernel loads
+    scalars), the same for one logits tensor and two (`cfg` picks the
+    kernels' kIn, not the plan)."""
+    body = SRC[SRC.index('Plan plan(int vocab_size, int vec)'):]
     body = ' '.join(body[:body.index('\n}\n')].split())
-    assert ('if (vocab_size <= 16) return {kNarrow16, kNarrowRows, 16, 0};'
-            in body)
-    assert ('if (vocab_size <= 32) return {kNarrow32, kNarrowRows, 32, 0};'
-            in body)
+    assert ('if (vocab_size <= 32) return {kNarrow, kNarrowRows, vocab_size '
+            '<= 12 ? 12 : vocab_size <= 16 ? 16 : 32, 0};' in body)
     assert ('return {vocab_size <= kTurn ? kWideOne : kWideTurns, '
             'kRowsPerBlock, kWideCols, vec ? 1 : 0};' in body)
-    assert 'constexpr int kNarrowRows = kThreads;' in SRC
+    assert 'const Plan p = plan(vocab_size, vec);' in SRC
+    assert re.search(r'return cfg \? launch_noise<T, 2>\(.*: launch_noise<T, 1>\(',
+                     ' '.join(SRC.split()))
     assert 'constexpr int kRowsPerBlock = kThreads / 32;' in SRC
-    assert re.search(r'enum CfgKernel : int \{ kNarrow16 = 1, kNarrow32 = 2, '
-                     r'kWideOne = 3, kWideTurns = 4 \};', SRC)
-    for vocab in (1, 12, 16, 17, 32, 33, 256, 257, 30522):
+    assert re.search(r'enum Kernel : int \{ kNarrow = 1, kWideOne = 2, '
+                     r'kWideTurns = 3 \};', SRC)
+    for vocab in (1, 12, 13, 16, 17, 32, 33, 256, 257, 30522):
         for V, aligned in ((vocab, True), (vocab + 8 - vocab % 8, True),
                            (vocab + 8 - vocab % 8, False)):
-            got = tfs.uniform_cfg_plan(V, vocab, torch.float32, aligned)
+            got = tfs.uniform_plan(V, vocab, torch.float32, aligned)
             if vocab <= 32:
-                want = dict(kernel=1 if vocab <= 16 else 2,
-                            rows=THREADS, cols=16 if vocab <= 16 else 32,
+                want = dict(kernel=1, rows=NARROW_ROWS,
+                            cols=next(c for c in (12, 16, 32) if vocab <= c),
                             vec=0)
             else:
-                want = dict(kernel=3 if vocab <= TURN else 4,
+                want = dict(kernel=2 if vocab <= TURN else 3,
                             rows=THREADS // 32, cols=WIDE_COLS,
                             vec=int(V % 8 == 0 and aligned))
             assert got == want, (V, vocab, aligned)
-    with pytest.raises(ValueError):
-        tfs.uniform_cfg_plan(10, 11, torch.float32, True)
+    for bad in ((10, 11, torch.float32, True),
+                (12, 0, torch.float32, True),
+                (12, 12, torch.float16, True)):
+        with pytest.raises(ValueError):
+            tfs.uniform_plan(*bad)
 
 
 if __name__ == '__main__':
     # The share of the logits whose noise the kernel forms at the main
-    # paths' widths, logits of scale 2:
+    # paths' widths, logits of scale 2, for one and two tensors:
     #   PYTHONPATH=. python3 tests/test_torch_uniform_order.py
-    for V in (12, 256):
-        r = np.random.RandomState(5)
-        Bt, Lt = 8, 64
-        lc, lu = (torch.from_numpy((r.randn(Bt, Lt, V) * 2).astype(
-            np.float32)).to(torch.bfloat16) for _ in range(2))
-        xt = torch.from_numpy(r.randint(0, V, (Bt, Lt)).astype(np.int32))
-        a_t = torch.from_numpy(r.uniform(0.05, 0.85, Bt).astype(np.float32))
-        a_s = a_t + (1 - a_t) * torch.from_numpy(
-            r.rand(Bt).astype(np.float32))
-        noise = Noise(77, Bt, Lt, V)
-        emulate(xt, lc, lu, a_t, a_s, V, noise)
-        print(f'V={V}: noise formed for {noise.formed} of {noise.columns} '
-              f'logits ({noise.formed / noise.columns:.4f})')
+    for n_in in N_IN:
+        for V in (12, 256):
+            xt, lc, lu, a_t, a_s = _main_path_inputs(V, V, n_in, 8, 64, 5)
+            noise = Noise(77, 8, 64, V)
+            emulate(xt, lc, lu, a_t, a_s, V, noise)
+            print(f'{n_in} tensor(s), V={V}: noise formed for '
+                  f'{noise.formed} of {noise.columns} logits '
+                  f'({noise.formed / noise.columns:.4f})')
