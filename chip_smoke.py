@@ -103,7 +103,23 @@ Each phase prints one JSON line:
      as micro-batches of 16, two steps on each attention route: finite
      losses, exact launches (12 attention forwards and 12 of each backward
      kernel of the route a micro-step) and every attention call on the
-     tensor cores.
+     tensor cores;
+ 16. classifier-based guidance, the JAX default suite's `cbg`,
+     `cbg_approx` and `nos` lines at full width: first the classifier's
+     training (`run_classifier_train_path`: `classifier.
+     make_classifier_train_step` on the QM9 flagship's tiny classifier,
+     hidden 512, 8 blocks, L=32, V=36, a seeded class-structured batch of
+     256, AdamW lr 3e-3, 40 steps: ms/step, exactly 8 each of K1, K3, K5,
+     K1b, K4, K6 a step, 0 host syncs, the loss at least 10% down and the
+     last step's accuracy above 0.9); then D-CBG exact and first-order on
+     `entry.qm9_cbg_flagship()` with that classifier (gamma 2, B=16, T=32,
+     chunk 128; `run_cbg_path`: samples/s, ms/step, peak memory, exact
+     launches a step (exact: K1 84, K3 85, K5 84; first-order: K1 20, K3
+     21, K5 20, K1b, K4, K6 8 each), 0 host syncs, the share of the
+     trained class's tokens raised by the guidance, and 4 steps with the
+     NFE cache, one host sync a step); then NOS on `entry.nos_flagship()`
+     (B=16, T=128, one Adagrad step; `run_nos_path`: K1 12, K5 12, K3 15,
+     K4 1 a step, 0 host syncs).
 The serving path (6) runs feature-mix at T=1000 (the JAX bench's line) and
 records each run under PyTorch's sync debug mode: no host sync in
 feature-mix and first-hitting, exactly one a step in the NFE cache (its
@@ -174,7 +190,13 @@ versions, fp32 and bf16 (fp32 rows to 1e-4 of their largest magnitude,
 K14 and K15 also against float64, recorded), the backwards twice each
 with bit-identical outputs; and the wrappers' mirror of the kernels'
 shared-memory sums (what `ops.mamba`'s `*_takes` accept) against the
-sums the built kernels use. Phase 5 runs a tiny DiMamba card against CPU and a
+sums the built kernels use. Phase 4 also holds K1, K1b and K3-K6 at the
+classifier-guided paths' shapes (QM9_ATTENTION, QM9_ADALN_FWD,
+QM9_ADALN_BWD: L=32 with 8 heads of 64 and D = 512, and K4 at NOS's
+denoiser head), timed under the `qm9*` and `nos_head` labels of the
+`kernels` line. Phase 5 runs a tiny DiT classifier card against CPU
+(logits over indices, one-hots and `x_emb`, and CBG's first-order term
+through K1b, K4 and K6), a tiny DiMamba card against CPU and a
 tiny DiMamba train step card against CPU on the three kernel routes, a
 tiny DiT on the flash route (L=256) card against CPU, and a tiny text8 DiT
 train step (L=256) card against CPU on the three attention routes.
@@ -345,9 +367,10 @@ def _close(name, dtype, out, ref, rel=False):
     return err, tol
 
 
-def _adaln_fwd_records(gen, nb, Lr, dtype):
-    """K3 and K5 at (nb, Lr, D): each against its plain version, timed,
-    beside the bound of `check_adaln`'s count. Returns their records."""
+def _adaln_fwd_records(gen, nb, Lr, dtype, D=D, timed=True):
+    """K3 and K5 at (nb, Lr, D): each against its plain version and, if
+    `timed`, timed beside the bound of `check_adaln`'s count. Returns their
+    records."""
     from ddg_tpu_torch.ops import adaln
     es = torch.tensor([], dtype=dtype).element_size()
     x = _rand(gen, nb, Lr, D, dtype=dtype)
@@ -361,30 +384,33 @@ def _adaln_fwd_records(gen, nb, Lr, dtype):
                       adaln.ln_modulate_plain(x, w, shift, scale))
     check(torch.equal(h, adaln.ln_modulate(x, w, shift, scale)),
           f'ln_modulate {(nb, Lr, D)}: a rerun is not bit-identical')
-    recs['ln_modulate'] = {
-        'shape': [nb, Lr, D], 'err': err, 'tol': tol,
-        'bit_identical_rerun': True,
-        'ms': time_ms(lambda: adaln.ln_modulate(x, w, shift, scale)),
-        'plain_ms': time_ms(lambda: adaln.ln_modulate_plain(x, w, shift,
-                                                            scale)),
-        **dict(zip(('bound_ms', 'bound_by'), bound(
-            2 * nb * Lr * D * es + 4 * D + 2 * nb * D * es,
-            8 * nb * Lr * D, PEAK_FP32)))}
+    recs['ln_modulate'] = {'shape': [nb, Lr, D], 'err': err, 'tol': tol,
+                           'bit_identical_rerun': True}
+    if timed:
+        recs['ln_modulate'].update({
+            'ms': time_ms(lambda: adaln.ln_modulate(x, w, shift, scale)),
+            'plain_ms': time_ms(lambda: adaln.ln_modulate_plain(
+                x, w, shift, scale)),
+            **dict(zip(('bound_ms', 'bound_by'), bound(
+                2 * nb * Lr * D * es + 4 * D + 2 * nb * D * es,
+                8 * nb * Lr * D, PEAK_FP32)))})
     del h
     xn, hn = adaln.gate_res_ln_modulate(y, x, gate, w, shift, scale)
     xr, hr = adaln.gate_res_ln_modulate_plain(y, x, gate, w, shift, scale)
     e1, _ = _close(f'gate_res_ln_modulate x {(nb, Lr, D)}', dtype, xn, xr)
     e2, tol = _close(f'gate_res_ln_modulate h {(nb, Lr, D)}', dtype, hn, hr)
     del xn, hn, xr, hr
-    recs['gate_res_ln_modulate'] = {
-        'shape': [nb, Lr, D], 'err': max(e1, e2), 'tol': tol,
-        'ms': time_ms(lambda: adaln.gate_res_ln_modulate(
-            y, x, gate, w, shift, scale)),
-        'plain_ms': time_ms(lambda: adaln.gate_res_ln_modulate_plain(
-            y, x, gate, w, shift, scale)),
-        **dict(zip(('bound_ms', 'bound_by'), bound(
-            4 * nb * Lr * D * es + 4 * D + 3 * nb * D * es,
-            10 * nb * Lr * D, PEAK_FP32)))}
+    recs['gate_res_ln_modulate'] = {'shape': [nb, Lr, D],
+                                    'err': max(e1, e2), 'tol': tol}
+    if timed:
+        recs['gate_res_ln_modulate'].update({
+            'ms': time_ms(lambda: adaln.gate_res_ln_modulate(
+                y, x, gate, w, shift, scale)),
+            'plain_ms': time_ms(lambda: adaln.gate_res_ln_modulate_plain(
+                y, x, gate, w, shift, scale)),
+            **dict(zip(('bound_ms', 'bound_by'), bound(
+                4 * nb * Lr * D * es + 4 * D + 3 * nb * D * es,
+                10 * nb * Lr * D, PEAK_FP32)))})
     return recs
 
 
@@ -450,21 +476,35 @@ def check_adaln_fwd_shapes(results):
                 'bit_identical_rerun': True}
 
 
+# K3 and K5 at the classifier-guided paths' shapes: the tiny classifier
+# (D = 512) over a CBG-exact chunk (2048 rows of L=32), over B=16 and over
+# the training batch of 256. (label, B, L, D)
+QM9_ADALN_FWD = (('qm9', 2048, 32, 512), ('qm9_grad', 16, 32, 512),
+                 ('qm9_training', 256, 32, 512))
+
+
 def check_adaln(results):
     """K3 and K5 against their plain versions at the serving shape (fp32
     and bf16, timed in bf16), and in bf16 at the training paths' micro-
-    batches (LM1B 256 x 128, text8 256 x 256, D = 768), timed; K3 also at
+    batches (LM1B 256 x 128, text8 256 x 256, D = 768), timed, and at the
+    classifier-guided paths' QM9_ADALN_FWD (fp32 and bf16, timed in bf16);
+    K3 also at
     ADALN_FWD_SHAPES, its reruns bit-identical, and its launch plan held
     against csrc's."""
     from ddg_tpu_torch.entry import TEXT8_TRAIN_MICRO_BATCH as tb
     from ddg_tpu_torch.entry import TRAIN_MICRO_BATCH as nb
     from ddg_tpu_torch.ops import adaln
     gen = torch.Generator(device=DEV).manual_seed(3)
-    for label, nbr, Lr in (('lm1b_training', nb, L),
-                           ('text8_training', tb, 256)):
-        for name, rec in _adaln_fwd_records(gen, nbr, Lr,
-                                            torch.bfloat16).items():
+    for label, nbr, Lr, Dr in (('lm1b_training', nb, L, D),
+                               ('text8_training', tb, 256, D),
+                               *QM9_ADALN_FWD):
+        for name, rec in _adaln_fwd_records(gen, nbr, Lr, torch.bfloat16,
+                                            Dr).items():
             results[name][label] = {str(torch.bfloat16): rec}
+    for label, nbr, Lr, Dr in QM9_ADALN_FWD:
+        for name, rec in _adaln_fwd_records(gen, nbr, Lr, torch.float32,
+                                            Dr, timed=False).items():
+            results[name][label][str(torch.float32)] = rec
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         x = _rand(gen, B2, L, D, dtype=dtype)
@@ -507,7 +547,8 @@ def check_adaln(results):
         results['gate_res_ln_modulate'][str(dtype)] = rec
     check_adaln_fwd_shapes(results)
     n = check_adaln_fwd_plan([(B2, L, D), (nb, L, D), (tb, 256, D)]
-                             + [(b, l, d) for _, b, l, d in ADALN_FWD_SHAPES])
+                             + [(b, l, d) for _, b, l, d in ADALN_FWD_SHAPES]
+                             + [(b, l, d) for _, b, l, d in QM9_ADALN_FWD])
     emit({'phase': 'adaln_fwd_plan_mirror', 'cases': n})
 
 
@@ -576,6 +617,22 @@ def _sdpa_ms(sdpa, do, backward):
         F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh), doh)) - fwd
 
 
+# K1 and K1b at the classifier-guided paths' shapes (`qm9_cbg_flagship`,
+# L=32, one half-filled 64-key tile): the tiny classifier's 8 heads of 64
+# over one CBG-exact chunk of 128 edits of B=16 (2048 rows), over B=16 (the
+# first-order gradient) and over the training batch of 256; the DiT-small
+# denoiser's 12 heads at B=16. (label: (shape, kernels)); the records go
+# under each label.
+QM9_ATTENTION = {
+    'qm9': ((2048, 32, 8, 64), ('fused_rope_attention',)),
+    'qm9_grad': ((16, 32, 8, 64), ('fused_rope_attention',
+                                   'fused_rope_attention_bwd')),
+    'qm9_training': ((256, 32, 8, 64), ('fused_rope_attention',
+                                        'fused_rope_attention_bwd')),
+    'qm9_denoiser': ((16, 32, 12, 64), ('fused_rope_attention',))}
+QM9_LABELS = ('qm9', 'qm9_grad', 'qm9_training', 'qm9_denoiser', 'nos_head')
+
+
 # The share of a bf16 attention backward's dq, dk or dv elements that may
 # differ at all from the plain version's (check_attention): the forward's
 # bar, three times the largest share measured on the card (0.34%).
@@ -591,7 +648,8 @@ def check_attention(results):
     (one tile, three whole tiles, a ragged last tile; all four); a ragged
     L=40 on both kernel routes (D = 64 on tensor cores, D = 32 on CUDA
     cores; all four); and the reference DiT-small's L=1024 (`long`, 4 x
-    1024 x 12 x 64: all four, which take any L); and head widths the
+    1024 x 12 x 64: all four, which take any L); K1 and K1b at the
+    classifier-guided paths' L=32 (QM9_ATTENTION, timed); and head widths the
     CUDA-core backward takes on its halved tiles (ROADMAP C.7): 176 and 192
     at L=200, 290 (the widest the forward takes) at L=72, all four. Each
     backward runs twice with bit-identical outputs, each bf16 forward twice
@@ -629,6 +687,7 @@ def check_attention(results):
               'ragged': ((4, 40, 3, DH), every),
               'ragged_d32': ((4, 40, 2, 32), every),
               'long': ((4, 1024, H, DH), every),
+              **QM9_ATTENTION,
               **{f'wide_d{D}': ((2, 200, 2, D), every) for D in (176, 192)},
               'wide_d290': ((2, 72, 1, 290), every)}
     untimed = {'ragged', 'ragged_d32', 'tile_edges_L64', 'tile_edges_L192',
@@ -1070,6 +1129,13 @@ ADALN_BWD_SHAPES = (('b1', 1, 128, D, (torch.float32, torch.bfloat16)),
                     ('l100', 4, 100, D, (torch.float32, torch.bfloat16)),
                     ('d4096', 2, 64, 4096, (torch.float32, torch.bfloat16)),
                     ('d8192', 2, 64, 8192, (torch.bfloat16,)))
+# K4 and K6 at the classifier-guided paths' shapes: the tiny classifier's
+# first-order CBG gradient (16 x 32 x 512) and its training batch (256 x 32
+# x 512); K4 also at NOS's denoiser head (16 x 128 x 768). Timed in bf16.
+QM9_ADALN_BWD = (('qm9_grad', 16, 32, 512, (torch.float32, torch.bfloat16)),
+                 ('qm9_training', 256, 32, 512,
+                  (torch.float32, torch.bfloat16)),
+                 ('nos_head', 16, L, D, (torch.float32, torch.bfloat16)))
 
 
 # Traces that `kernel_trace` took again because device records were lost.
@@ -1277,8 +1343,8 @@ def check_adaln_plan(shapes):
 
 def check_adaln_bwd(results):
     """K4 and K6 against their plain backwards at the LM1B training
-    micro-batch (256 x 128) and text8's (256 x 256), and at
-    ADALN_BWD_SHAPES, with the conditioning as strided chunks of one
+    micro-batch (256 x 128) and text8's (256 x 256), at the classifier-
+    guided paths' QM9_ADALN_BWD (timed) and at ADALN_BWD_SHAPES, with the conditioning as strided chunks of one
     (B, 6D) projection; each kernel run twice must give bit-identical
     grads. Timed in bf16 at both training shapes beside the bound, the
     plain version and the composite of library calls, with the split
@@ -1290,7 +1356,7 @@ def check_adaln_bwd(results):
     gen = torch.Generator(device=DEV).manual_seed(8)
     shapes = [('lm1b_training', nb, L, D, (torch.float32, torch.bfloat16)),
               ('text8_training', tb, 256, D, (torch.bfloat16,)),
-              *ADALN_BWD_SHAPES]
+              *QM9_ADALN_BWD, *ADALN_BWD_SHAPES]
     for label, nbr, Lr, Dr, dtypes in shapes:
         for dtype in dtypes:
             es = torch.tensor([], dtype=dtype).element_size()
@@ -1309,7 +1375,8 @@ def check_adaln_bwd(results):
                       f'{name} {label}: the composite differs from the '
                       f'plain version by {rec["composite_err"]} of its '
                       'largest magnitude')
-                if dtype == torch.bfloat16 and label.endswith('training'):
+                if dtype == torch.bfloat16 and (label.endswith('training')
+                                                or label in QM9_LABELS):
                     _adaln_bwd_timing(rec, call, plain, composite, nbr, Lr,
                                       Dr, n_rows, es)
                 if label == 'lm1b_training':
@@ -1319,6 +1386,7 @@ def check_adaln_bwd(results):
             del ins
     n = check_adaln_plan([(nb, L, D), (tb, 256, D), (3, 40, 64),
                           (2, 64, 1280)]
+                         + [(b, l, d) for _, b, l, d, _ in QM9_ADALN_BWD]
                          + [(b, l, d) for _, b, l, d, _ in ADALN_BWD_SHAPES])
     emit({'phase': 'adaln_bwd_plan_mirror', 'cases': n})
 
@@ -4792,6 +4860,347 @@ def run_unet_path(kernels, flag, n_norms, steps=128):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Classifier-based guidance: QM9 D-CBG (exact and first-order), LM1B NOS
+# and the classifier's training
+# ---------------------------------------------------------------------------
+
+# The JAX default suite's guided lines (`bench.py:270-390, 906-908`): B and
+# T of `cbg` / `cbg_approx` (QM9, chunk 128) and of `nos` (LM1B, one
+# Adagrad step).
+QM9_B, QM9_STEPS, QM9_CHUNK = 16, 32, 128
+NOS_B, NOS_STEPS, NOS_INNER = 16, 128, 1
+CLF_TRAIN_B, CLF_TRAIN_STEPS, CLF_TRAIN_LR = 256, 40, 3e-3
+
+
+def check_tiny_classifier():
+    """A tiny float32 DiT classifier (fused flags, 2 blocks of 2 heads of 64,
+    L=32, V=36) on the card against the same weights on the CPU, where the
+    plain versions run: logits over indices, one-hots and `x_emb` to the
+    BASELINE 1e-3 bar, and one CBG first-order term (`samplers.
+    _cbg_first_order`: the gradient in the one-hot, through K1b, K4 and K6)
+    to 1e-3 of its largest magnitude."""
+    import numpy as np
+    from ddg_tpu_torch import samplers as SM
+    from ddg_tpu_torch.convert import make_reference_dit_classifier_state_dict
+    from ddg_tpu_torch.models import (DITClassifier, DITConfig,
+                                      make_classifier_apply)
+    Vt, Lt = 36, 32
+    cfg = DITConfig(hidden_size=128, cond_dim=32, length=Lt, n_blocks=2,
+                    n_heads=2, vocab_size=Vt, dropout=0.0,
+                    compute_dtype=torch.float32, fused_rope_attn=True,
+                    fused_adaln=True)
+    sd = make_reference_dit_classifier_state_dict(
+        np.random.RandomState(5), hidden=128, cond_dim=32, n_blocks=2,
+        vocab=Vt)
+    sd = {k: v * 10 if v.ndim == 2 else v for k, v in sd.items()}
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randint(0, Vt, (4, Lt), generator=gen, dtype=torch.int32)
+    sigma = torch.rand((4,), generator=gen)
+    emb = torch.randn((4, Lt, 128), generator=gen)
+    outs = {}
+    for dev in ('cpu', DEV):
+        m = DITClassifier(cfg)
+        m.load_state_dict(sd, strict=True)
+        apply = make_classifier_apply(m.to(dev).eval())
+        xd, sd_ = x.to(dev), sigma.to(dev)
+        outs[dev] = [apply(apply.params, xd, sd_).cpu(),
+                     apply(apply.params, torch.nn.functional.one_hot(
+                         xd.long(), Vt).float(), sd_).cpu(),
+                     apply(apply.params, xd, sd_, emb.to(dev)).cpu(),
+                     SM._cbg_first_order(apply, apply.params, xd, sd_, 1,
+                                         Vt).cpu()]
+    errs = [(a - b).abs().max().item() for a, b in zip(outs['cpu'],
+                                                       outs[DEV])]
+    grad_scale = outs['cpu'][3].abs().max().item()
+    emit({'phase': 'tiny_classifier_card_vs_cpu', 'length': Lt,
+          'logits_max_abs_err': errs[:3], 'first_order_max_abs_err': errs[3],
+          'first_order_scale': grad_scale,
+          'logit_std': outs['cpu'][0].std().item()})
+    for name, err in zip(('indices', 'one-hots', 'x_emb'), errs):
+        check(err < 1e-3, f'tiny classifier {name}: card vs CPU logits '
+                          f'differ by {err}')
+    check(errs[3] <= 1e-3 * grad_scale,
+          f'tiny classifier: the first-order CBG term differs by {errs[3]} '
+          f'(scale {grad_scale})')
+    check(all(bool(torch.isfinite(o).all()) for o in outs[DEV]),
+          'tiny classifier: non-finite outputs on the card')
+
+
+def _guided_run(name, kernels, sample, batch, steps, per_step, vocab, mask,
+                line, extra=None):
+    """One timed run of `sample(batch, steps, seed)` after a two-step
+    warm-up: samples/s, ms/step, peak memory and the launches, which must
+    be exactly `per_step` a step (every other kernel none); then a two-step
+    run under PyTorch's sync debug mode, which must not wait for the card.
+    Returns the launches and the tokens."""
+    sample(batch, 2, 99)
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x = sample(batch, steps, 1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_syncs = _sync_check(name, lambda: sample(batch, 2, 7))
+    n_mask = int((x == mask).sum().item())
+    emit({'phase': 'guided_path', 'run': name, 'batch': batch,
+          'steps': steps, 'jax_line': line, 'seconds': secs,
+          'samples_per_s': batch / secs, 'ms_per_step': secs / steps * 1e3,
+          'peak_memory_gb': peak / 1e9,
+          'launches_per_step': {k: v / steps for k, v in launches.items()
+                                if v},
+          'host_syncs_in_2_steps': n_syncs, 'mask_tokens_left': n_mask,
+          'distinct_tokens': int(torch.unique(x).numel()), **(extra or {})})
+    check(tuple(x.shape) == (batch, x.shape[1]) and x.dtype == torch.int32,
+          f'{name}: output {tuple(x.shape)} {x.dtype}')
+    check(bool(((x >= 0) & (x < vocab)).all()), f'{name}: token outside '
+                                                 '[0, V)')
+    check(n_mask <= math.ceil(5 * x.numel() / 8192),
+          f'{name}: {n_mask} mask tokens left')
+    _launch_check(name, kernels, launches, per_step, steps)
+    return launches, x
+
+
+def _qm9_models(approx, clf_weights=None):
+    """The QM9 flagship, its classifier's weights replaced by
+    `clf_weights` (float32, by name) when given."""
+    from ddg_tpu_torch.entry import qm9_cbg_flagship
+    t0 = time.perf_counter()
+    out = qm9_cbg_flagship(device=DEV, approx=approx)
+    spec, cfg, clf_cfg, _, params, _, clf_params = out
+    if clf_weights is not None:
+        with torch.no_grad():
+            for k, v in clf_params.items():
+                v.copy_(clf_weights[k])
+    emit({'phase': 'qm9_cbg_flagship', 'approx': approx,
+          'seconds': time.perf_counter() - t0,
+          'denoiser_parameters': sum(p.numel() for p in params.values()),
+          'classifier_parameters': sum(p.numel()
+                                       for p in clf_params.values()),
+          'length': cfg.length, 'vocab': cfg.vocab_size,
+          'denoiser': [cfg.hidden_size, cfg.n_blocks, cfg.n_heads],
+          'classifier': [clf_cfg.hidden_size, clf_cfg.n_blocks,
+                         clf_cfg.n_heads]})
+    return out
+
+
+def _class1_share(x, vocab):
+    """The share of tokens in class 1's half of `_class_batch`'s vocabulary
+    (the upper half of [0, V-1))."""
+    return ((x >= (vocab - 1) // 2) & (x < vocab - 1)).float().mean().item()
+
+
+def run_cbg_path(kernels, clf_weights=None, approx=False, steps=QM9_STEPS):
+    """The JAX suite's `cbg` line (`approx=False`: every one of the L V
+    single-token edits scored a step, in chunks of QM9_CHUNK, each one
+    classifier forward of B QM9_CHUNK rows) or `cbg_approx` (one classifier
+    forward and backward to the one-hot a step): D-CBG gamma 2, condition 1,
+    on the QM9 flagship at B=16, T=32, `use_cache=False`. Exact launches a
+    step: the denoiser's 12 K1, 13 K3, 12 K5 and the classifier's 8 of each
+    per forward (9 forwards exact), plus 8 K1b, K4, K6 first-order; 0 host
+    syncs. The exact run then takes 4 steps with the NFE cache, which waits
+    for the card once a step (its validity flag). With `clf_weights`, the
+    classifier trained by `run_classifier_train_path` (class 1: tokens of
+    the upper half of the vocabulary), the guidance must show: the share
+    of class 1's tokens in the samples must rise above that of unguided
+    samples of the same seed (the same noise: without guidance, the same
+    tokens) by at least 0.03 (the full-width first-order run on the CPU,
+    float32, went 0.523 -> 0.588)."""
+    from ddg_tpu_torch import samplers as SM
+    (spec, cfg, clf_cfg, apply_fn, params, clf_apply,
+     clf_params) = _qm9_models(approx, clf_weights)
+    guidance = SM.GuidanceSpec(method='cbg', gamma=GAMMA, condition=1,
+                               use_approx=approx, cbg_chunk=QM9_CHUNK)
+
+    def sample(batch, n_steps, seed, use_cache=False, guide=guidance):
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        return SM.diffusion_sample(
+            spec, SM.SamplerSpec(steps=n_steps, use_cache=use_cache),
+            apply_fn, params, gen, batch_size=batch, length=cfg.length,
+            guidance=guide, classifier_apply=clf_apply,
+            classifier_params=clf_params)
+
+    den, blk = cfg.n_blocks, clf_cfg.n_blocks
+    if approx:
+        per_step = {'fused_rope_attention': den + blk,
+                    'ln_modulate': den + 1 + blk,
+                    'gate_res_ln_modulate': den + blk,
+                    'fused_rope_attention_bwd': blk,
+                    'ln_modulate_bwd': blk, 'gate_res_ln_modulate_bwd': blk}
+        check(list(per_step.values()) == [20, 21, 20, 8, 8, 8],
+              f'cbg_approx: {per_step} a step')
+    else:
+        chunks = -(-cfg.length * cfg.vocab_size // QM9_CHUNK)
+        per_step = {'fused_rope_attention': den + blk * chunks,
+                    'ln_modulate': den + 1 + blk * chunks,
+                    'gate_res_ln_modulate': den + blk * chunks}
+        check(chunks == 9 and list(per_step.values()) == [84, 85, 84],
+              f'cbg: {chunks} chunks, {per_step} a step')
+    name = 'cbg_approx' if approx else 'cbg'
+    mode = 'approx' if approx else f'exact, chunk={QM9_CHUNK}'
+    launches, x = _guided_run(
+        name, kernels, sample, QM9_B, steps, per_step, cfg.vocab_size,
+        spec.mask_index, f'QM9 D-CBG samples/sec/chip ({mode}, T={steps}, '
+        f'B={QM9_B}, DiT-small + tiny-classifier)')
+    if clf_weights is not None:
+        share = {'guided': _class1_share(x, cfg.vocab_size),
+                 'unguided': _class1_share(sample(QM9_B, steps, 1,
+                                                  guide=None),
+                                           cfg.vocab_size)}
+        emit({'phase': 'guided_path_class1_share', 'run': name, **share})
+        check(share['guided'] >= share['unguided'] + 0.03,
+              f'{name}: the guidance moved the share of class 1 tokens '
+              f'from {share["unguided"]} to {share["guided"]} only')
+    if not approx:
+        n = 4
+        n_syncs = _sync_check('cbg_nfe_cache', lambda: sample(
+            QM9_B, n, 5, use_cache=True), expect=n)
+        emit({'phase': 'guided_path_host_syncs', 'run': 'cbg_nfe_cache',
+              'batch': QM9_B, 'steps': n, 'host_syncs': n_syncs,
+              'expected': n})
+    return launches
+
+
+def run_nos_path(kernels, steps=NOS_STEPS):
+    """The JAX suite's `nos` line: the LM1B flagship with the head-only
+    mean-pooling classifier (`entry.nos_flagship`), NOS with one Adagrad
+    step (size 0.1, stability 0.01), condition 1, B=16, T=128. Exact
+    launches a step: 12 K1 and 12 K5 (the trunk once), K3 13 + n + 1 and
+    K4 n (the head forward in the trunk's pass, each inner step's head
+    forward and backward, the guided head) at n = 1; 0 host syncs."""
+    from ddg_tpu_torch import samplers as SM
+    from ddg_tpu_torch.entry import nos_flagship
+    t0 = time.perf_counter()
+    spec, cfg, apply_fn, params, clf_apply, clf_params = nos_flagship(
+        device=DEV)
+    emit({'phase': 'nos_flagship', 'seconds': time.perf_counter() - t0,
+          'classifier_parameters': sorted(clf_params)})
+    guidance = SM.GuidanceSpec(method='nos', condition=1,
+                               num_nos_steps=NOS_INNER, nos_step_size=0.1,
+                               nos_stability_coef=0.01)
+
+    def sample(batch, n_steps, seed, guide=guidance):
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        return SM.diffusion_sample(
+            spec, SM.SamplerSpec(steps=n_steps, use_cache=False), apply_fn,
+            params, gen, batch_size=batch, length=cfg.length,
+            guidance=guide, classifier_apply=clf_apply,
+            classifier_params=clf_params)
+
+    n = NOS_INNER
+    per_step = {'fused_rope_attention': cfg.n_blocks,
+                'gate_res_ln_modulate': cfg.n_blocks,
+                'ln_modulate': cfg.n_blocks + 1 + n + 1,
+                'ln_modulate_bwd': n}
+    check(list(per_step.values()) == [12, 12, 15, 1],
+          f'nos: {per_step} a step')
+    launches, _ = _guided_run(
+        'nos', kernels, sample, NOS_B, steps, per_step, cfg.vocab_size,
+        spec.mask_index, f'LM1B NOS samples/sec/chip (T={steps}, B={NOS_B}, '
+        f'nos_steps={n}, DiT-small)')
+    return launches
+
+
+def _class_batch(gen, batch, length, vocab):
+    """A class-structured batch (no dataset): rows of class 0 with tokens
+    uniform over the lower half of [0, V-1), rows of class 1 over the
+    upper half, alternating (the loss's antithetic t rises with the row,
+    so the classes must not follow the row order)."""
+    split = (vocab - 1) // 2
+    label = torch.arange(batch, device=DEV) % 2
+    lo = torch.randint(0, split, (batch, length), generator=gen, device=DEV)
+    hi = torch.randint(split, vocab - 1, (batch, length), generator=gen,
+                       device=DEV)
+    return {'input_ids': torch.where(label[:, None] == 1, hi, lo).int(),
+            'attention_mask': torch.ones((batch, length), device=DEV),
+            'label': label.int()}
+
+
+def run_classifier_train_path(kernels, steps=CLF_TRAIN_STEPS, timed_from=2):
+    """`classifier.make_classifier_train_step` on the QM9 flagship's tiny
+    classifier (hidden 512, 8 blocks, L=32, V=36) with the tiny-classifier
+    config's dropout 0.1, noisy inputs under the flagship's absorbing
+    schedule with time conditioning, AdamW lr 3e-3 without warmup, EMA
+    0.9999, on one seeded class-structured batch of 256 (`_class_batch`):
+    `steps` steps, exact launches (8 each of K1, K3, K5, K1b, K4, K6 a
+    step), ms a step over the steps from `timed_from`, then one step under
+    the sync debug mode (0 host syncs). The learning check of
+    `tests/test_classifier.py:62-73`: the mean loss of the last 5 steps at
+    least 10% below the first 5's, and the last step's accuracy above
+    0.9. Returns the launches and the trained weights (float32, by
+    name)."""
+    import dataclasses
+    from ddg_tpu_torch.classifier import (ClassifierSpec,
+                                          make_classifier_train_step)
+    from ddg_tpu_torch.entry import qm9_cbg_flagship
+    from ddg_tpu_torch.models import DITClassifier, make_classifier_apply
+    from ddg_tpu_torch.runtime.averaging import AveragingSpec
+    from ddg_tpu_torch.runtime.optim import OptimSpec
+    from ddg_tpu_torch.runtime.train_state import init_train_state
+    spec, _, clf_cfg, _, _, _, clf_params = qm9_cbg_flagship(device=DEV)
+    clf_cfg = dataclasses.replace(clf_cfg, dropout=0.1)
+    clf = DITClassifier(clf_cfg)
+    clf.load_state_dict(clf_params, strict=True)
+    apply = make_classifier_apply(clf.to(DEV).train())
+    cspec = ClassifierSpec(diffusion=spec.diffusion,
+                           parameterization=spec.parameterization,
+                           noise=spec.noise, vocab_size=spec.vocab_size,
+                           mask_index=spec.mask_index, num_classes=2,
+                           time_conditioning=True)
+    optim = OptimSpec(lr=CLF_TRAIN_LR, num_warmup_steps=0)
+    avg = AveragingSpec.ema(0.9999)
+    state = init_train_state(torch.Generator(device=DEV).manual_seed(8),
+                             apply.params, optim, avg)
+    step = make_classifier_train_step(cspec, apply, optim, avg)
+    batch = _class_batch(torch.Generator(device=DEV).manual_seed(9),
+                         CLF_TRAIN_B, clf_cfg.length, clf_cfg.vocab_size)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    for i in range(steps):
+        if i == timed_from:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        metrics.append(step(state, batch)[1])
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / (steps - timed_from)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_syncs = _sync_check('classifier_training', lambda: step(state, batch))
+    losses = torch.stack([m['loss'] for m in metrics]).tolist()
+    acc = torch.stack([m['accuracy'] for m in metrics]).tolist()
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    blk = clf_cfg.n_blocks
+    emit({'phase': 'classifier_train_path', 'steps': steps,
+          'batch': CLF_TRAIN_B, 'length': clf_cfg.length,
+          'ms_per_step': secs * 1e3,
+          'tokens_per_s': CLF_TRAIN_B * clf_cfg.length / secs,
+          'peak_memory_gb': peak / 1e9,
+          'launches_per_step': {k: v / steps for k, v in launches.items()
+                                if v},
+          'host_syncs_in_a_step': n_syncs, 'loss_first5': first,
+          'loss_last5': last, 'drop': 1 - last / first,
+          'accuracy_last': acc[-1], 'losses': losses, 'accuracy': acc})
+    _launch_check('classifier_training', kernels, launches,
+                  {k: blk for k in ('fused_rope_attention', 'ln_modulate',
+                                    'gate_res_ln_modulate',
+                                    'fused_rope_attention_bwd',
+                                    'ln_modulate_bwd',
+                                    'gate_res_ln_modulate_bwd')}, steps)
+    check(all(math.isfinite(v) for v in losses),
+          'classifier training: non-finite loss')
+    check(last <= 0.9 * first, f'classifier training: loss fell from '
+                               f'{first} to {last}, less than 10%')
+    check(acc[-1] > 0.9, f'classifier training: accuracy {acc[-1]} after '
+                         f'{steps} steps')
+    return launches, state.params
+
+
 SOURCES = {
     'fused_rope_attention': ('ddg_tpu_torch/csrc/rope_attention.cu',
                              'ddg_tpu/ops/attention_pallas.py:215'),
@@ -4857,17 +5266,13 @@ SOURCES = {
 }
 
 
-def main():
-    if not torch.cuda.is_available():
-        print('chip_smoke: no CUDA device is visible', file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from ddg_tpu_torch.entry import unet_flagship
+def kernel_wrappers():
+    """{name: wrapper} of every kernel (each wrapper counts its launches in
+    `.launches`)."""
     from ddg_tpu_torch.ops import (adaln, attention, flash_attention,
                                    groupnorm, mamba)
     from ddg_tpu_torch.ops import fused_sampling as fs
-    kernels = {
+    return {
         'fused_rope_attention': attention.fused_rope_attention,
         'ln_modulate': adaln.ln_modulate,
         'gate_res_ln_modulate': adaln.gate_res_ln_modulate,
@@ -4892,6 +5297,16 @@ def main():
             fs.fused_absorbing_head_sample_int8,
         **{name: getattr(flash_attention, name) for name in FLASH},
     }
+
+
+def main():
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device is visible', file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ddg_tpu_torch.entry import unet_flagship
+    kernels = kernel_wrappers()
 
     _step('phase_environment', phase_environment)
     _step('phase_build', phase_build)
@@ -4939,6 +5354,7 @@ def main():
     _step('check_tiny_dimamba_train', check_tiny_dimamba_train)
     _step('check_tiny_text8_train', check_tiny_text8_train)
     _step('check_wide_head_dit_train', check_wide_head_dit_train)
+    _step('check_tiny_classifier', check_tiny_classifier)
     by_path = {
         'serving': _step('run_main_path', run_main_path, kernels),
         'training': _step('run_train_path', run_train_path, kernels),
@@ -4959,6 +5375,13 @@ def main():
         warmup=1, steps=2)
     by_path['dit_small_l1024_training'] = _step(
         'run_dit_small_l1024', run_dit_small_l1024, kernels)
+    by_path['qm9_classifier_training'], trained = _step(
+        'run_classifier_train_path', run_classifier_train_path, kernels)
+    by_path['qm9_cbg'] = _step('run_cbg_path', run_cbg_path, kernels,
+                               trained)
+    by_path['qm9_cbg_approx'] = _step('run_cbg_approx_path', run_cbg_path,
+                                      kernels, trained, approx=True)
+    by_path['lm1b_nos'] = _step('run_nos_path', run_nos_path, kernels)
     _step('check_learning', check_learning)
     _step('check_dimamba_learning', check_dimamba_learning)
     _step('check_text8_learning', check_text8_learning)
@@ -4993,7 +5416,7 @@ def main():
             if key in r:
                 rows[-1][key] = r[key]
         for label in ('lm1b_sampling', 'lm1b_training', 'text8_training',
-                      'long'):
+                      'long', *QM9_LABELS):
             other = results[name].get(label, {}).get(str(torch.bfloat16))
             if other and 'ms' in other:
                 rows[-1][label] = {

@@ -6,6 +6,10 @@ arrays, flax names) into a state dict in the reference torch naming,
 which `ddg_tpu_torch.models.dit.DIT` loads with `strict=True`.
 `make_reference_dit_state_dict` makes seeded random weights in that
 naming, for runs that have no checkpoint.
+`dit_classifier_state_dict_from_jax` and
+`make_reference_dit_classifier_state_dict` do the same for the port's
+`DITClassifier` (the trunk named as the DIT's; flax's `output_layer`
+Dense -> `output_layer.{weight,bias}`), full or head-only.
 
 Name mapping (flax -> reference torch):
   vocab_embed                     -> vocab_embed.embedding
@@ -49,61 +53,89 @@ import numpy as np
 import torch
 
 
-def dit_state_dict_from_jax(params, *, n_blocks: int
-                            ) -> Dict[str, torch.Tensor]:
-    """`ddg_tpu` DIT params (nested dict of arrays) -> float32 torch state
-    dict in the reference naming."""
-    def T(x):
-        return torch.from_numpy(np.ascontiguousarray(
-            np.asarray(x, dtype=np.float32).T))
+def _T(x):
+    """A flax Dense kernel (in, out) as a torch Linear weight (out, in)."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(x, dtype=np.float32).T))
 
-    def A(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32))
 
-    def dense(prefix, p, bias=True):
-        s[prefix + '.weight'] = T(p['kernel'])
-        if bias:
-            s[prefix + '.bias'] = A(p['bias'])
+def _A(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
 
-    s: Dict[str, torch.Tensor] = {}
-    s['vocab_embed.embedding'] = A(params['vocab_embed'])
+
+def _dense_from_jax(s, prefix, p, bias=True):
+    s[prefix + '.weight'] = _T(p['kernel'])
+    if bias:
+        s[prefix + '.bias'] = _A(p['bias'])
+
+
+def _dit_trunk_from_jax(s, params, n_blocks: int):
+    """The embedding, the sigma and class maps and the blocks of a DIT or
+    DITClassifier params tree into `s`."""
+    s['vocab_embed.embedding'] = _A(params['vocab_embed'])
     if 'sigma_map' in params:
-        dense('sigma_map.mlp.0', params['sigma_map']['mlp1'])
-        dense('sigma_map.mlp.2', params['sigma_map']['mlp2'])
+        _dense_from_jax(s, 'sigma_map.mlp.0', params['sigma_map']['mlp1'])
+        _dense_from_jax(s, 'sigma_map.mlp.2', params['sigma_map']['mlp2'])
     if 'cond_map' in params:
-        s['cond_map.embedding_table.weight'] = A(
+        s['cond_map.embedding_table.weight'] = _A(
             params['cond_map']['embedding'])
     for i in range(n_blocks):
         b = params[f'block_{i}']
         p = f'blocks.{i}.'
-        s[p + 'norm1.weight'] = A(b['norm1']['weight'])
-        s[p + 'norm2.weight'] = A(b['norm2']['weight'])
-        dense(p + 'attn_qkv', b['attn_qkv'], bias=False)
-        dense(p + 'attn_out', b['attn_out'], bias=False)
-        dense(p + 'mlp.0', b['mlp_in'])
-        dense(p + 'mlp.2', b['mlp_out'])
+        s[p + 'norm1.weight'] = _A(b['norm1']['weight'])
+        s[p + 'norm2.weight'] = _A(b['norm2']['weight'])
+        _dense_from_jax(s, p + 'attn_qkv', b['attn_qkv'], bias=False)
+        _dense_from_jax(s, p + 'attn_out', b['attn_out'], bias=False)
+        _dense_from_jax(s, p + 'mlp.0', b['mlp_in'])
+        _dense_from_jax(s, p + 'mlp.2', b['mlp_out'])
         if 'adaLN_modulation' in b:
-            dense(p + 'adaLN_modulation', b['adaLN_modulation'])
-    s['output_layer.norm_final.weight'] = A(params['norm_final']['weight'])
-    dense('output_layer.linear', params['output_linear'])
+            _dense_from_jax(s, p + 'adaLN_modulation',
+                            b['adaLN_modulation'])
+
+
+def dit_state_dict_from_jax(params, *, n_blocks: int
+                            ) -> Dict[str, torch.Tensor]:
+    """`ddg_tpu` DIT params (nested dict of arrays) -> float32 torch state
+    dict in the reference naming."""
+    s: Dict[str, torch.Tensor] = {}
+    _dit_trunk_from_jax(s, params, n_blocks)
+    s['output_layer.norm_final.weight'] = _A(params['norm_final']['weight'])
+    _dense_from_jax(s, 'output_layer.linear', params['output_linear'])
     if 'final_adaLN' in params:
-        dense('output_layer.adaLN_modulation', params['final_adaLN'])
+        _dense_from_jax(s, 'output_layer.adaLN_modulation',
+                        params['final_adaLN'])
     return s
 
 
-def make_reference_dit_state_dict(rng: np.random.RandomState, *,
-                                  hidden: int, cond_dim: int,
-                                  n_blocks: int, vocab: int,
-                                  with_cond: bool = False
-                                  ) -> Dict[str, torch.Tensor]:
-    """Seeded random weights (N(0, 0.02^2), norm weights around 1) with
-    the reference's names and shapes; `with_cond` adds the 3-row class
-    table of a 2-class model."""
-    s = {}
+def dit_classifier_state_dict_from_jax(params, *, n_blocks: int
+                                       ) -> Dict[str, torch.Tensor]:
+    """`ddg_tpu` DITClassifier params -> float32 state dict of
+    `models.dit.DITClassifier`: the trunk named as `dit_state_dict_from_jax`
+    names it, then flax's `output_layer` Dense -> `output_layer.{weight,
+    bias}`. A head-only tree (the JAX NOS classifier, initialised through
+    `x_emb`: `output_layer` alone) gives the state dict of
+    `DITClassifier(..., head_only=True)` and takes n_blocks=0."""
+    s: Dict[str, torch.Tensor] = {}
+    if 'vocab_embed' in params:
+        _dit_trunk_from_jax(s, params, n_blocks)
+    elif n_blocks:
+        raise ValueError(f'a head-only classifier tree has no blocks, got '
+                         f'n_blocks={n_blocks}')
+    _dense_from_jax(s, 'output_layer', params['output_layer'])
+    return s
 
+
+def _normal(rng: np.random.RandomState):
+    """N(0, 0.02^2) float32 arrays of a given shape, drawn from `rng`."""
     def r(*shape):
         return rng.randn(*shape).astype(np.float32) * 0.02
+    return r
 
+
+def _reference_trunk(s, r, *, hidden: int, cond_dim: int, n_blocks: int,
+                     vocab: int, with_cond: bool):
+    """The embedding, sigma map, class table and blocks of seeded random
+    DiT weights into `s` (numpy), drawn by `r` in this order."""
     s['vocab_embed.embedding'] = r(vocab, hidden)
     s['sigma_map.mlp.0.weight'] = r(cond_dim, 256)
     s['sigma_map.mlp.0.bias'] = r(cond_dim)
@@ -123,11 +155,41 @@ def make_reference_dit_state_dict(rng: np.random.RandomState, *,
         s[p + 'mlp.2.bias'] = r(hidden)
         s[p + 'adaLN_modulation.weight'] = r(6 * hidden, cond_dim)
         s[p + 'adaLN_modulation.bias'] = r(6 * hidden)
+
+
+def make_reference_dit_state_dict(rng: np.random.RandomState, *,
+                                  hidden: int, cond_dim: int,
+                                  n_blocks: int, vocab: int,
+                                  with_cond: bool = False
+                                  ) -> Dict[str, torch.Tensor]:
+    """Seeded random weights (N(0, 0.02^2), norm weights around 1) with
+    the reference's names and shapes; `with_cond` adds the 3-row class
+    table of a 2-class model."""
+    s, r = {}, _normal(rng)
+    _reference_trunk(s, r, hidden=hidden, cond_dim=cond_dim,
+                     n_blocks=n_blocks, vocab=vocab, with_cond=with_cond)
     s['output_layer.norm_final.weight'] = r(hidden) + 1
     s['output_layer.linear.weight'] = r(vocab, hidden)
     s['output_layer.linear.bias'] = r(vocab)
     s['output_layer.adaLN_modulation.weight'] = r(2 * hidden, cond_dim)
     s['output_layer.adaLN_modulation.bias'] = r(2 * hidden)
+    return {k: torch.from_numpy(v) for k, v in s.items()}
+
+
+def make_reference_dit_classifier_state_dict(
+        rng: np.random.RandomState, *, hidden: int, cond_dim: int = 0,
+        n_blocks: int = 0, vocab: int = 0, num_classes: int = 2,
+        head_only: bool = False) -> Dict[str, torch.Tensor]:
+    """Seeded random weights of `models.dit.DITClassifier`: the trunk as
+    `make_reference_dit_state_dict` draws it (its names and order), then
+    the class head `output_layer`; `head_only` draws the head alone
+    (cond_dim, n_blocks and vocab unused)."""
+    s, r = {}, _normal(rng)
+    if not head_only:
+        _reference_trunk(s, r, hidden=hidden, cond_dim=cond_dim,
+                         n_blocks=n_blocks, vocab=vocab, with_cond=False)
+    s['output_layer.weight'] = r(num_classes, hidden)
+    s['output_layer.bias'] = r(num_classes)
     return {k: torch.from_numpy(v) for k, v in s.items()}
 
 

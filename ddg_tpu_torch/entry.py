@@ -79,6 +79,23 @@ decay, clip 1.0) with 2500 warmup steps, EMA 0.9999; a global batch of
 Species10 data is in the repository, batches are synthetic bases (A C G T
 N, ids 7-11) with a class label per row (`TrainRun.batch`).
 
+`qm9_cbg_flagship()` builds the JAX bench's D-CBG cell
+(`bench._qm9_cbg_setup`, `bench.py:221-268`, the QM9 eval protocol of
+`scripts/eval_qm9_guidance.sh`): the DiT-small denoiser (768, 12 blocks of
+12 heads, cond 128) at L=32 over the QM9 SMILES vocabulary (35 tokens +
+the mask, index 35), no classes, a float32 vocab head; the tiny classifier
+(`configs/classifier_model/tiny-classifier.yaml`: hidden 512, 8 blocks of
+8 heads, head width 64) with 2 classes and mean pooling; absorbing SUBS
+with the log-linear schedule; dropout 0, bf16 trunks, both models through
+the Hopper kernels (`fused_rope_attn=True`, `fused_adaln=True`). Seeded
+random weights in the reference layout (`convert.
+make_reference_dit_state_dict`, `make_reference_dit_classifier_state_dict`)
+until QM9 checkpoints are in the repository.
+
+`nos_flagship()` is the JAX bench's NOS cell (`bench.py:334-390`): the
+LM1B `flagship()` denoiser with the head-only mean-pooling classifier over
+its hidden states (`bench.py:350-359`), 2 classes.
+
 All run on the card unless the caller passes `device='cpu'`.
 """
 
@@ -92,11 +109,13 @@ import torch
 from ddg_tpu_torch.convert import (dimamba_params_from_reference,
                                    dimamba_state_dict_from_jax,
                                    make_reference_dimamba_state_dict,
+                                   make_reference_dit_classifier_state_dict,
                                    make_reference_dit_state_dict,
                                    make_unet_state_dict)
 from ddg_tpu_torch.diffusion import DiffusionSpec, log_x_theta
-from ddg_tpu_torch.models import (DIT, DiMamba, DiMambaConfig, DITConfig,
-                                  UNet, UNetConfig, make_model_apply)
+from ddg_tpu_torch.models import (DIT, DiMamba, DiMambaConfig,
+                                  DITClassifier, DITConfig, UNet, UNetConfig,
+                                  make_classifier_apply, make_model_apply)
 from ddg_tpu_torch.ops.noise_schedules import LogLinearNoise
 from ddg_tpu_torch.runtime.averaging import AveragingSpec
 from ddg_tpu_torch.runtime.optim import OptimSpec
@@ -176,6 +195,73 @@ def flagship(tiny: bool = False, device=None, *, seed: int = 0,
     model = model.to(device).eval()
     apply_fn = make_model_apply(model)
     return spec, cfg, model, apply_fn, apply_fn.params
+
+
+QM9_VOCAB = 36                   # 35 SMILES tokens + the mask (35)
+CLASSIFIER_CLASSES = 2
+
+
+def qm9_cbg_flagship(tiny: bool = False, device=None, *, seed: int = 0,
+                     approx: bool = False):
+    """Returns (spec, cfg, clf_cfg, model_apply, params, classifier_apply,
+    classifier_params) on `device`, as `bench._qm9_cbg_setup` does. The
+    denoiser's weights come from `seed`, the classifier's from `seed + 1`.
+    `approx` names the first-order run, as in JAX, whose classifier is
+    initialised through the one-hot signature; the weights here do not
+    depend on it. `tiny` is `bench.py --quick`'s pair: the denoiser hidden
+    64, cond 32, 2 blocks of 2 heads at L=16; the classifier hidden 32, one
+    block of one head."""
+    del approx
+    device = resolve_device(device)
+    if tiny:
+        cfg = DITConfig(hidden_size=64, cond_dim=32, length=16, n_blocks=2,
+                        n_heads=2)
+        clf_cfg = dataclasses.replace(cfg, hidden_size=32, n_blocks=1,
+                                      n_heads=1)
+    else:
+        cfg = DITConfig(hidden_size=768, cond_dim=128, length=32,
+                        n_blocks=12, n_heads=12)
+        clf_cfg = dataclasses.replace(cfg, hidden_size=512, n_blocks=8,
+                                      n_heads=8)
+    kw = dict(dropout=0.0, vocab_size=QM9_VOCAB, fused_rope_attn=True,
+              fused_adaln=True)
+    cfg = dataclasses.replace(cfg, **kw)
+    clf_cfg = dataclasses.replace(clf_cfg, **kw)
+    spec = DiffusionSpec(diffusion='absorbing_state',
+                         parameterization='subs', noise=LogLinearNoise(),
+                         vocab_size=QM9_VOCAB, mask_index=QM9_VOCAB - 1)
+    model = DIT(cfg)
+    model.load_state_dict(make_reference_dit_state_dict(
+        np.random.RandomState(seed), hidden=cfg.hidden_size,
+        cond_dim=cfg.cond_dim, n_blocks=cfg.n_blocks,
+        vocab=cfg.vocab_size), strict=True)
+    clf = DITClassifier(clf_cfg, num_classes=CLASSIFIER_CLASSES,
+                        pooling='mean')
+    clf.load_state_dict(make_reference_dit_classifier_state_dict(
+        np.random.RandomState(seed + 1), hidden=clf_cfg.hidden_size,
+        cond_dim=clf_cfg.cond_dim, n_blocks=clf_cfg.n_blocks,
+        vocab=clf_cfg.vocab_size, num_classes=CLASSIFIER_CLASSES),
+        strict=True)
+    apply_fn = make_model_apply(model.to(device).eval())
+    clf_apply = make_classifier_apply(clf.to(device).eval())
+    return (spec, cfg, clf_cfg, apply_fn, apply_fn.params, clf_apply,
+            clf_apply.params)
+
+
+def nos_flagship(tiny: bool = False, device=None, *, seed: int = 0):
+    """Returns (spec, cfg, model_apply, params, classifier_apply,
+    classifier_params) on `device`: `flagship(tiny, device, seed=seed)`'s
+    denoiser and a head-only mean-pooling classifier over its hidden
+    states (`DITClassifier(cfg, head_only=True)`: `output_layer` alone,
+    no trunk), its weights from `seed + 1`."""
+    spec, cfg, _, apply_fn, params = flagship(tiny, device, seed=seed)
+    clf = DITClassifier(cfg, num_classes=CLASSIFIER_CLASSES, pooling='mean',
+                        head_only=True)
+    clf.load_state_dict(make_reference_dit_classifier_state_dict(
+        np.random.RandomState(seed + 1), hidden=cfg.hidden_size,
+        num_classes=CLASSIFIER_CLASSES, head_only=True), strict=True)
+    clf_apply = make_classifier_apply(clf.to(resolve_device(device)).eval())
+    return spec, cfg, apply_fn, params, clf_apply, clf_apply.params
 
 
 def unet_flagship(tiny: bool = False, device=None, *, seed: int = 0):

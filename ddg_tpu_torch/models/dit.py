@@ -1,5 +1,5 @@
-"""Diffusion Transformer (DiT) denoiser (port of `ddg_tpu/models/dit.py`,
-inference and training).
+"""Diffusion Transformer (DiT) denoiser and classifier (port of
+`ddg_tpu/models/dit.py`, inference and training).
 
 Parameter names are the reference torch DIT's (`vocab_embed.embedding`,
 `blocks.{i}.attn_qkv.weight`, `blocks.{i}.mlp.0.weight`,
@@ -288,7 +288,20 @@ class DDitFinalLayer(nn.Module):
                                               2 * cfg.hidden_size)
 
 
-class DIT(nn.Module):
+class _RopeTables:
+    """The rotary tables of `cfg`'s head width, made once per (L,
+    device)."""
+
+    def rope_tables(self, length: int, device):
+        key = (length, str(device))
+        if key not in self._rope:
+            self._rope[key] = rope_cos_sin(
+                length, self.cfg.hidden_size // self.cfg.n_heads,
+                device=device)
+        return self._rope[key]
+
+
+class DIT(_RopeTables, nn.Module):
     """Denoiser: (indices, sigma, cond, x_emb) -> logits (B, L, V).
 
     `skip_head` returns (trunk hidden state, conditioning vector) for the
@@ -308,14 +321,6 @@ class DIT(nn.Module):
                                     for _ in range(cfg.n_blocks))
         self.output_layer = DDitFinalLayer(cfg)
         self._rope = {}
-
-    def rope_tables(self, length: int, device):
-        key = (length, str(device))
-        if key not in self._rope:
-            self._rope[key] = rope_cos_sin(
-                length, self.cfg.hidden_size // self.cfg.n_heads,
-                device=device)
-        return self._rope[key]
 
     def forward(self, indices, sigma, cond=None, x_emb=None, *,
                 train: bool = False, rng=None,
@@ -370,6 +375,92 @@ class DIT(nn.Module):
         if return_hidden_states:
             return logits, hidden
         return logits
+
+
+POOLINGS = ('mean', 'max', 'cls', 'last', 'no_pooling', 'attention_mean')
+
+
+class DITClassifier(_RopeTables, nn.Module):
+    """Classifier trunk + pooling head (port of `ddg_tpu/models/dit.py:
+    565-630`): (indices or one-hots, sigma, x_emb, attention_mask) ->
+    float32 logits (B, num_classes), or (B, L, num_classes) under
+    'no_pooling'.
+
+    It takes token indices (B, L), or one-hot or soft inputs (B, L, V),
+    embedded as `one_hot.float() @ vocab_embed.embedding`, so that the
+    log-probabilities can be differentiated in the one-hots (CBG's
+    first-order approximation); and `x_emb`, a hidden state that bypasses
+    the trunk (NOS). With `sigma` None it conditions on sigma = 0, as the
+    clean-input (eval) classifiers do. The trunk is the denoiser's
+    `DDiTBlock`, so `fused_rope_attn` and `fused_adaln` reach K1 and K3/K5
+    (and their backwards) as in the denoiser. Poolings: POOLINGS. The head,
+    `output_layer`, is a float32 Linear on the pooled state cast to float32.
+
+    `head_only=True` builds `output_layer` alone, for a classifier that only
+    ever reads `x_emb`: the JAX NOS classifier is initialised through
+    `x_emb`, so its params hold `output_layer` and nothing else, and no
+    trunk is allocated here either. Its forward then requires `x_emb`.
+    Parameter names: `vocab_embed.embedding`, `sigma_map.mlp.{0,2}` and
+    `blocks.{i}.*` as the denoiser's, then `output_layer.{weight,bias}`.
+    """
+
+    def __init__(self, cfg: DITConfig, num_classes: int = 2,
+                 pooling: str = 'mean', head_only: bool = False):
+        super().__init__()
+        if pooling not in POOLINGS:
+            raise NotImplementedError(f'`{pooling}` method not implemented.')
+        self.cfg, self.num_classes, self.pooling = cfg, num_classes, pooling
+        self.head_only = head_only
+        if not head_only:
+            self.vocab_embed = EmbeddingLayer(cfg.vocab_size,
+                                              cfg.hidden_size)
+            if not cfg.causal:
+                self.sigma_map = TimestepEmbedder(cfg.cond_dim)
+            # A causal (FUDGE) trunk has no conditioning, so no adaLN
+            # projections, as the JAX blocks create none there.
+            block_cfg = dataclasses.replace(
+                cfg, use_adaLN=cfg.use_adaLN and not cfg.causal)
+            self.blocks = nn.ModuleList(DDiTBlock(block_cfg)
+                                        for _ in range(cfg.n_blocks))
+        self.output_layer = nn.Linear(cfg.hidden_size, num_classes)
+        self._rope = {}
+
+    def forward(self, indices_or_one_hots, sigma, x_emb=None,
+                attention_mask=None, *, train: bool = False, rng=None):
+        cfg = self.cfg
+        if x_emb is not None:
+            x = x_emb.to(cfg.compute_dtype)
+        elif self.head_only:
+            raise ValueError('a head-only classifier classifies `x_emb` '
+                             'alone')
+        else:
+            if indices_or_one_hots.ndim == 2:
+                x = self.vocab_embed(indices_or_one_hots)
+            else:
+                x = indices_or_one_hots.float() @ self.vocab_embed.embedding
+            x = x.to(cfg.compute_dtype)
+            c = None
+            if not cfg.causal:
+                if sigma is None:
+                    sigma = torch.zeros((x.shape[0],), dtype=torch.float32,
+                                        device=x.device)
+                c = F.silu(self.sigma_map(sigma)).to(cfg.compute_dtype)
+            cos, sin = self.rope_tables(x.shape[1], x.device)
+            for block in self.blocks:
+                x = block(x, cos, sin, c, train=train, rng=rng)
+
+        if self.pooling == 'mean':
+            x = x.mean(dim=1)
+        elif self.pooling == 'max':
+            x = x.amax(dim=1)
+        elif self.pooling == 'cls':
+            x = x[:, 0]
+        elif self.pooling == 'last':
+            x = x[:, -1]
+        elif self.pooling == 'attention_mean':
+            m = attention_mask[..., None].to(x.dtype)
+            x = (x * m).sum(dim=1) / (m.sum(dim=1) + 1e-15)
+        return self.output_layer(x.float())
 
 
 def dit_head_features(cfg: DITConfig, params, hidden, c):

@@ -1,6 +1,6 @@
 """Sampling loops for absorbing-state (MDLM) and uniform-state (UDLM)
-diffusion with D-CFG (port of `ddg_tpu/samplers.py:40-372, 538-765`, the
-serving slices).
+diffusion with D-CFG, D-CBG (exact and first-order) and NOS (port of
+`ddg_tpu/samplers.py:40-765`, the serving and guidance slices).
 
 The JAX package runs each loop as one `lax.scan`; here it is a Python
 loop over steps, and the tokens stay on the device throughout. Random
@@ -10,7 +10,8 @@ the `fused=True` paths when the tokens live on a CUDA device; elsewhere
 the unfused chain runs, as the JAX package does off the TPU.
 
 The NFE cache (`use_cache`) is carried as the last computed value, or
-None before the first compute, so no `_init_cache` allocation is needed.
+None before the first compute, so no `_init_cache` allocation is needed;
+under CBG that value is the pair (log x_theta, classifier log-probs).
 Checking whether a step changed nothing costs one host sync per step.
 
 The fused steps cover absorbing-state SUBS (K7/K8) and uniform-state
@@ -19,9 +20,21 @@ move chance per row). `fused_head` runs the DiT's vocab projection inside
 the absorbing step (K11, or K12 under `quant_int8`) where the NFE cache is
 off: in the unguided step and in the D-CFG feature-mix step, as
 `ddg_tpu` does; the head's padded (or quantized) weights are prepared
-once per sampling call. Not ported yet (they raise NotImplementedError):
-classifier-based guidance, NOS, FUDGE/PPLM and AR sampling (ROADMAP A.4,
-A.5).
+once per sampling call.
+
+Classifier-based guidance runs the unfused chain, as in JAX:
+  * D-CBG exact scores every single-token edit of x_t with the classifier,
+    in chunks of `cbg_chunk` edits (a Python loop where JAX has `lax.map`;
+    the last chunk padded as in JAX), so each chunk is one classifier
+    forward of B * cbg_chunk rows;
+  * D-CBG first-order (`use_approx`) takes one gradient of the
+    classifier's log-probability in the one-hot of x_t;
+  * NOS runs Adagrad on a hidden-state delta through the classifier head
+    and the denoiser's head, leashed by a KL to the unguided posterior.
+The gradients of the last two are taken under a local
+`torch.enable_grad()`, with the adapters' `grad=True` (models/__init__.py);
+nothing runs in train mode. Not ported yet (they raise
+NotImplementedError): FUDGE, PPLM and AR sampling (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ddg_tpu_torch.diffusion import DiffusionSpec, log_x_theta, process_sigma
 from ddg_tpu_torch.ops import forward_process as fp
@@ -83,10 +97,21 @@ class SamplerSpec:
 
 @dataclasses.dataclass(frozen=True)
 class GuidanceSpec:
-    """Static guidance settings (configs/guidance/*.yaml). Only `cfg` is
-    ported; the other methods' settings come with them."""
+    """Static guidance settings (configs/guidance/*.yaml). `cfg`, `cbg`
+    and `nos` are ported; the FUDGE and PPLM fields are read by the AR
+    sampler (ROADMAP A.5)."""
     method: str                      # cfg | cbg | nos | fudge | pplm
     gamma: float = 1.0
+    condition: int = 0
+    use_approx: bool = False         # cbg first-order approximation
+    topk: int = 50                   # fudge
+    num_nos_steps: int = 1
+    nos_step_size: float = 0.1
+    nos_stability_coef: float = 0.01
+    cbg_chunk: int = 256             # edits per classifier chunk (exact cbg)
+    num_pplm_steps: int = 1
+    pplm_step_size: float = 0.1
+    pplm_stability_coef: float = 0.01
 
 
 def _sample_dtype(sampler: SamplerSpec):
@@ -292,16 +317,174 @@ def _cfg_step(spec, sampler, guidance, model_apply, params, generator, xt,
     return _sample_and_copy(spec, sampler, generator, q_xs, xt), new_cache
 
 
+def _posterior_log(spec, log_xt, xt, mct, mcs):
+    """Unguided posterior in log space."""
+    if spec.diffusion == 'absorbing_state':
+        return fp.absorbing_posterior_log(log_xt, mct, mcs,
+                                          mask_index=spec.mask_index)
+    return torch.log(fp.uniform_posterior(
+        log_xt.exp(), xt, 1 - mcs, 1 - mct, vocab_size=spec.vocab_size))
+
+
+def classifier_log_probs_edits(classifier_apply, classifier_params, xt,
+                               sigma, conditioning_class, *, vocab_size,
+                               chunk: int = 256):
+    """log p(class | edit) for every single-token edit of xt: for each
+    (position l, token v), xt with xt[l] := v, scored by the classifier.
+    Runs in chunks of `chunk` edits, each one classifier forward of
+    B * chunk rows; the edit ids are padded to a multiple of `chunk` (the
+    padding edits the last position and is dropped). Returns (B, L, V)
+    float32."""
+    B, L = xt.shape
+    total = L * vocab_size
+    n_chunks = -(-total // chunk)
+    ids = torch.arange(n_chunks * chunk, device=xt.device)
+    pos = (ids // vocab_size).clamp(0, L - 1)
+    tok = (ids % vocab_size).to(xt.dtype)
+    at_pos = pos[:, None] == torch.arange(L, device=xt.device)  # (N, L)
+    sig = sigma.repeat_interleave(chunk)
+    scores = []
+    for c in range(n_chunks):
+        part = slice(c * chunk, (c + 1) * chunk)
+        edited = torch.where(at_pos[None, part], tok[None, part, None],
+                             xt[:, None, :])                  # (B, C, L)
+        logits = classifier_apply(classifier_params,
+                                  edited.reshape(B * chunk, L), sig)
+        scores.append(torch.log_softmax(logits.float(), dim=-1)
+                      [..., conditioning_class].reshape(B, chunk))
+    return torch.cat(scores, dim=1)[:, :total].reshape(B, L, vocab_size)
+
+
+def _cbg_first_order(classifier_apply, classifier_params, xt, sigma,
+                     condition: int, vocab_size: int):
+    """First-order (Taylor) CBG around the one-hot of xt: log p(class | xt)
+    plus the one-hot gradient of it, less the gradient at xt's own token."""
+    xt_oh = F.one_hot(xt.long(), vocab_size).float().requires_grad_()
+    with torch.enable_grad():
+        logits = classifier_apply(classifier_params, xt_oh, sigma, grad=True)
+        log_probs = torch.log_softmax(logits.float(), dim=-1)
+        grad, = torch.autograd.grad(log_probs[..., condition].sum(), xt_oh)
+    ratio = grad - (xt_oh.detach() * grad).sum(-1, keepdim=True)
+    return ratio + log_probs.detach()[..., condition][..., None, None]
+
+
+def _cbg_step(spec, sampler, guidance, model_apply, params,
+              classifier_apply, classifier_params, generator, xt, sigma_t,
+              mct, mcs, cache, cache_valid):
+    """D-CBG: the guided posterior softmax(gamma * classifier log-prob +
+    log q_xs), the classifier's log-probs exact over every edit or
+    first-order (`guidance.use_approx`)."""
+    dt = _sample_dtype(sampler)
+
+    def compute():
+        log_xt = log_x_theta(spec, model_apply, params, xt, sigma_t).to(dt)
+        if guidance.use_approx:
+            clf = _cbg_first_order(classifier_apply, classifier_params, xt,
+                                   sigma_t, guidance.condition,
+                                   spec.vocab_size)
+        else:
+            clf = classifier_log_probs_edits(
+                classifier_apply, classifier_params, xt, sigma_t,
+                guidance.condition, vocab_size=spec.vocab_size,
+                chunk=guidance.cbg_chunk)
+        return log_xt, clf.to(dt)
+
+    (log_xt, clf), new_cache = _cached(compute, cache, cache_valid)
+    guided = (guidance.gamma * clf
+              + _posterior_log(spec, log_xt, xt, mct, mcs))
+    if spec.diffusion == 'absorbing_state':
+        guided = fp.apply_copy_flag_log(guided, xt,
+                                        mask_index=spec.mask_index)
+    xs = _sample_and_copy(spec, sampler, generator,
+                          torch.softmax(guided, dim=-1), xt)
+    return xs, new_cache
+
+
+def _nos_step(spec, sampler, guidance, model_apply, params,
+              classifier_apply, classifier_params, generator, xt, sigma_t,
+              mct, mcs):
+    """NOS: Adagrad on a hidden-state delta that raises the classifier's
+    log-probability of `guidance.condition` while staying KL-close
+    (`batchmean`) to the unguided reverse posterior; the trunk runs once,
+    each inner step differentiates the classifier on hidden + delta and the
+    denoiser's head on it."""
+    sigma_in = process_sigma(spec, sigma_t)
+    logits, hidden = model_apply(params, xt, sigma_in, None, None,
+                                 train=False, rng=None,
+                                 return_hidden_states=True)
+
+    def to_log_probs(raw_logits):
+        raw_logits = raw_logits.float()
+        if spec.parameterization == 'subs':
+            return fp.subs_parameterization(raw_logits, xt,
+                                            mask_index=spec.mask_index)
+        if spec.subs_masking:
+            raw_logits = raw_logits + fp._one_hot(
+                spec.mask_index, spec.vocab_size, raw_logits) \
+                * fp.NEG_INFINITY
+        return torch.log_softmax(raw_logits, dim=-1)
+
+    def guided_log_posterior(raw_logits):
+        out = _posterior_log(spec, to_log_probs(raw_logits), xt, mct, mcs)
+        if spec.diffusion == 'absorbing_state':
+            out = fp.apply_copy_flag_log(out, xt, mask_index=spec.mask_index)
+        return out
+
+    diffusion_log_probs = guided_log_posterior(logits)
+    diffusion_probs = diffusion_log_probs.exp()
+
+    def nos_grad(delta):
+        with torch.enable_grad():
+            delta = delta.detach().requires_grad_()
+            h = hidden + delta
+            clf_logits = classifier_apply(classifier_params, xt, sigma_in,
+                                          x_emb=h, grad=True)
+            target = torch.log_softmax(clf_logits.float(), dim=-1)[
+                ..., guidance.condition].sum()
+            new_logits = model_apply(params, xt, sigma_in, None, h,
+                                     train=False, rng=None, grad=True)
+            adjusted = guided_log_posterior(new_logits)
+            # KLDivLoss(log_target=True, reduction='batchmean')
+            kl = (diffusion_probs * (diffusion_log_probs - adjusted)
+                  ).sum() / xt.shape[0]
+            loss = -target + guidance.nos_stability_coef * kl
+            return torch.autograd.grad(loss, delta)[0]
+
+    delta = torch.zeros_like(hidden)
+    acc = torch.zeros_like(hidden)
+    for _ in range(guidance.num_nos_steps):
+        g = nos_grad(delta)
+        acc = acc + g * g
+        delta = delta - guidance.nos_step_size * g / (acc.sqrt() + 1e-10)
+
+    guided_logits = model_apply(params, xt, sigma_in, None, hidden + delta,
+                                train=False, rng=None)
+    if spec.diffusion == 'absorbing_state':
+        guided_probs = guided_log_posterior(guided_logits).exp()
+    else:
+        guided_probs = fp.uniform_posterior(
+            to_log_probs(guided_logits).exp(), xt, 1 - mcs, 1 - mct,
+            vocab_size=spec.vocab_size)
+    return _sample_and_copy(spec, sampler, generator, guided_probs, xt)
+
+
 # ---------------------------------------------------------------------------
 # Main loops
 # ---------------------------------------------------------------------------
 
-def _check_guidance(sampler, guidance, cond):
+def _check_guidance(sampler, guidance, cond, classifier_apply=None,
+                    classifier_params=None):
+    """The guidance method, after checking that it is ported here and has
+    what it needs: `cond` for cfg, a classifier for cbg and nos."""
     method = guidance.method if guidance is not None else None
-    if method not in (None, 'cfg'):
+    if method in ('cbg', 'nos'):
+        if classifier_apply is None or classifier_params is None:
+            raise ValueError(f'{method} guidance needs `classifier_apply` '
+                             'and `classifier_params`')
+    elif method not in (None, 'cfg'):
         raise NotImplementedError(
             f'guidance method {method!r} is not ported yet (ROADMAP A.5 '
-            'for AR guidance, A.4 for CBG/NOS)')
+            'for AR guidance)')
     if method == 'cfg' and cond is None:
         raise ValueError('cfg guidance needs `cond`')
     return method
@@ -323,7 +506,8 @@ def diffusion_sample(spec: DiffusionSpec, sampler: SamplerSpec,
             spec, sampler, model_apply, params, generator,
             batch_size=batch_size, length=length, guidance=guidance,
             cond=cond, dit_cfg=dit_cfg)
-    method = _check_guidance(sampler, guidance, cond)
+    method = _check_guidance(sampler, guidance, cond, classifier_apply,
+                             classifier_params)
     dev = generator.device
     B = batch_size
     xt = fp.sample_prior((B, length), diffusion=spec.diffusion,
@@ -334,7 +518,7 @@ def diffusion_sample(spec: DiffusionSpec, sampler: SamplerSpec,
                                dtype=torch.float32, device=dev)
     dt_step = (1 - sampler.eps) / sampler.steps
     use_cache = (sampler.use_cache and spec.diffusion == 'absorbing_state'
-                 and method in (None, 'cfg'))
+                 and method in (None, 'cfg', 'cbg'))
     cache, valid = None, False
     # The head-fused step serves where the cache is off (`ddg_tpu`'s
     # precedence: the NFE cache's route wins); its weights are prepared
@@ -342,7 +526,8 @@ def diffusion_sample(spec: DiffusionSpec, sampler: SamplerSpec,
     head = None
     if (sampler.fused_head and dit_cfg is not None and not use_cache
             and spec.diffusion == 'absorbing_state'
-            and (method is None or guidance.gamma not in (0.0, 1.0))
+            and (method is None
+                 or (method == 'cfg' and guidance.gamma not in (0.0, 1.0)))
             and _fused_ok(spec, sampler, guidance, xt)):
         head = _prepare_head(dit_cfg, params)
     for i in range(sampler.steps):
@@ -359,11 +544,20 @@ def diffusion_sample(spec: DiffusionSpec, sampler: SamplerSpec,
             xs, cache = _ddpm_step(spec, sampler, model_apply, params,
                                    generator, xt, sigma_t, mct, mcs, cache,
                                    cache_valid, dit_cfg=dit_cfg, head=head)
-        else:
+        elif method == 'cfg':
             xs, cache = _cfg_step(spec, sampler, guidance, model_apply,
                                   params, generator, xt, sigma_t, mct, mcs,
                                   cond, cache, cache_valid, dit_cfg=dit_cfg,
                                   head=head)
+        elif method == 'cbg':
+            xs, cache = _cbg_step(spec, sampler, guidance, model_apply,
+                                  params, classifier_apply,
+                                  classifier_params, generator, xt, sigma_t,
+                                  mct, mcs, cache, cache_valid)
+        else:
+            xs = _nos_step(spec, sampler, guidance, model_apply, params,
+                           classifier_apply, classifier_params, generator,
+                           xt, sigma_t, mct, mcs)
         if use_cache:
             valid = torch.equal(xs, xt)
         xt = xs

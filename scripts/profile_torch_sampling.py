@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_sampling.py [--steps 16] [--trace-dir DIR]
         [--fused-head] [--int8] [--dit-only]
+        [--guidance cbg|cbg_approx|nos]
 
 Builds the two serving flagships (seeded random weights, the Hopper
 kernels on) and runs each sampler three times: to warm up, timed, and
@@ -15,7 +16,12 @@ for `--dimamba-steps` steps. `--int8` runs the DiT samplers on the int8
 flagship (`flagship(int8=True)`: the trunk's products and the vocab head
 quantized), `--fused-head` runs the feature-mix sampler with `fused_head`
 (the vocab product inside the step, K11 or, with `--int8`, K12), and
-`--dit-only` skips the UNet and the DiMamba. For each it
+`--dit-only` skips the UNet and the DiMamba. `--guidance` profiles one
+classifier-guided line of the JAX default suite alone instead: D-CBG
+exact (`cbg`, chunk 128) or first-order (`cbg_approx`) on the QM9 flagship
+(`entry.qm9_cbg_flagship`, B=16), or NOS (`nos`, one Adagrad step) on the
+LM1B flagship with its head-only classifier (`entry.nos_flagship`, B=16),
+for `--steps` steps. For each it
 prints one JSON line: wall ms per step, device-busy ms per step, the
 card's idle share, and device ms per step by kernel group, from the
 trace's kernel events, and the twelve kernels with the most device
@@ -40,7 +46,9 @@ GROUPS = (   # first match wins; matched against the kernel's name
     ('K1 rope_attention', ('attention_wgmma_kernel<true',
                            'attention_kernel<__nv_bfloat16, true',
                            'attention_kernel<float, true')),
+    ('K1b rope_attention_bwd', ('attention_bwd_', 'rope_rows_kernel')),
     ('K3/K5 adaln', ('ln_modulate_kernel', 'gate_res_kernel')),
+    ('K4/K6 adaln_bwd', ('adaln_bwd_',)),
     ('K7/K8 absorbing_sample', ('absorbing_sample',)),
     ('K11/K12 head_sample', ('head_sample', 'head_wgmma', 'head_s8',
                              'head_merge')),
@@ -114,6 +122,40 @@ def profile(name, run, n_steps, trace_dir):
         'profiled_wall_ms_per_step': profiled_wall / n_steps}), flush=True)
 
 
+def profile_guided(args):
+    """The classifier-guided line `args.guidance` at B=16 (`profile`)."""
+    from ddg_tpu_torch import samplers as SM
+    from ddg_tpu_torch.entry import nos_flagship, qm9_cbg_flagship
+    if args.guidance == 'nos':
+        spec, cfg, apply_fn, params, clf_apply, clf_params = nos_flagship(
+            device='cuda')
+        guidance = SM.GuidanceSpec(method='nos', condition=1,
+                                   num_nos_steps=1, nos_step_size=0.1,
+                                   nos_stability_coef=0.01)
+    else:
+        approx = args.guidance == 'cbg_approx'
+        (spec, cfg, _, apply_fn, params, clf_apply,
+         clf_params) = qm9_cbg_flagship(device='cuda', approx=approx)
+        guidance = SM.GuidanceSpec(method='cbg', gamma=2.0, condition=1,
+                                   use_approx=approx, cbg_chunk=128)
+
+    def run():
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        SM.diffusion_sample(
+            spec, SM.SamplerSpec(steps=args.steps, use_cache=False),
+            apply_fn, params, gen, batch_size=16, length=cfg.length,
+            guidance=guidance, classifier_apply=clf_apply,
+            classifier_params=clf_params)
+
+    print(json.dumps({'device': torch.cuda.get_device_name(0),
+                      'torch': torch.__version__}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = args.trace_dir or tmp
+        os.makedirs(trace_dir, exist_ok=True)
+        profile(args.guidance, run, args.steps, trace_dir)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--steps', type=int, default=16,
@@ -129,6 +171,8 @@ def main():
                     help='the DiT samplers on the int8 flagship')
     ap.add_argument('--dit-only', action='store_true',
                     help='skip the UNet and the DiMamba')
+    ap.add_argument('--guidance', choices=('cbg', 'cbg_approx', 'nos'),
+                    help='profile this classifier-guided line alone')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('no CUDA device is visible', file=sys.stderr)
@@ -137,6 +181,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     from ddg_tpu_torch import samplers as SM
     from ddg_tpu_torch.entry import dimamba_flagship, flagship, unet_flagship
+    if args.guidance:
+        return profile_guided(args)
     spec, cfg, _, apply_fn, params = flagship(device='cuda', int8=args.int8)
     tag = '_int8' if args.int8 else ''
     guidance = SM.GuidanceSpec(method='cfg', gamma=2.0)

@@ -202,4 +202,4 @@ def test_unported_paths_raise(models):
     with pytest.raises(NotImplementedError):
         TS.diffusion_sample(TSPEC, TS.SamplerSpec(steps=2), tapply,
                             tapply.params, gen,
-                            guidance=TS.GuidanceSpec(method='cbg'), **kw)
+                            guidance=TS.GuidanceSpec(method='fudge'), **kw)
