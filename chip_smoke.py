@@ -119,7 +119,26 @@ Each phase prints one JSON line:
      trained class's tokens raised by the guidance, and 4 steps with the
      NFE cache, one host sync a step); then NOS on `entry.nos_flagship()`
      (B=16, T=128, one Adagrad step; `run_nos_path`: K1 12, K5 12, K3 15,
-     K4 1 a step, 0 host syncs).
+     K4 1 a step, 0 host syncs);
+ 17. AR sampling: the JAX suite's `ar` and `ar_int8` lines at full width
+     and length (`run_ar_path`: `entry.ar_flagship()`, the LM1B DiT-small
+     as a causal AR model, D-CFG gamma 2 at B=256 through the KV-cache
+     decode, 2B = 512 decode rows, 127 token steps in 4 length buckets, the
+     bf16 and the int8 cache: samples/s, ms a token step, peak memory, no
+     K kernel launched, 0 host syncs, busy ms and idle share a step from a
+     16-step trace; the bf16 decode's logit gap against the float32 decode
+     of the same weights; the same line through the full causal forward,
+     exactly 12 K1, 13 K3, 12 K5 a step); FUDGE (`run_ar_fudge_path`:
+     `entry.ar_fudge_flagship()`, QM9 AR DiT-small and the causal
+     small-classifier in `no_pooling`, topk 20, B=16: the classifier first
+     trained 20 steps in FUDGE mode, 12 K1 and 12 K1b a step; then exactly
+     24 K1 a token step, 0 host syncs, the classifier's log-probability of
+     the condition and the share of its tokens raised over unguided
+     samples of the same seed); PPLM (`run_ar_pplm_path`: 12 K1 a token
+     step, guided tokens differ from unguided ones); the Species10 AR
+     baseline (`run_dimamba_ar_path`: the unidirectional DiMamba's state
+     decode at B=8, DIMAMBA_AR_STEPS of its 32767 token steps, no K
+     kernel, 0 host syncs, busy and idle share a step).
 The serving path (6) runs feature-mix at T=1000 (the JAX bench's line) and
 records each run under PyTorch's sync debug mode: no host sync in
 feature-mix and first-hitting, exactly one a step in the NFE cache (its
@@ -194,9 +213,16 @@ sums the built kernels use. Phase 4 also holds K1, K1b and K3-K6 at the
 classifier-guided paths' shapes (QM9_ATTENTION, QM9_ADALN_FWD,
 QM9_ADALN_BWD: L=32 with 8 heads of 64 and D = 512, and K4 at NOS's
 denoiser head), timed under the `qm9*` and `nos_head` labels of the
-`kernels` line. Phase 5 runs a tiny DiT classifier card against CPU
-(logits over indices, one-hots and `x_emb`, and CBG's first-order term
-through K1b, K4 and K6), a tiny DiMamba card against CPU and a
+`kernels` line, and K1 and K1b causal at the AR paths' shapes (AR_ATTENTION:
+16 and 320 rows of L=32 with 12 heads of 64, the FUDGE classifier's
+training batch of 256 forward and backward), timed causal beside causal
+SDPA under the `ar_*` labels. Phase 5 runs a tiny DiT classifier card
+against CPU (logits over indices, one-hots and `x_emb`, and CBG's
+first-order term through K1b, K4 and K6), tiny float32 AR models card against CPU
+(`check_tiny_ar`: the DiT's KV-cache decode on the float and the int8
+cache, the decode against the card's full causal forward, KV tokens equal
+to full-forward tokens; the DiMamba's state decode, against its full
+unidirectional forward through K18), a tiny DiMamba card against CPU and a
 tiny DiMamba train step card against CPU on the three kernel routes, a
 tiny DiT on the flash route (L=256) card against CPU, and a tiny text8 DiT
 train step (L=256) card against CPU on the three attention routes.
@@ -603,18 +629,20 @@ def _attention_bound(name, shape, es):
                  2 * products * nb * Hq * Lq * Lq * Dq, PEAK_BF16_TENSOR)
 
 
-def _sdpa_ms(sdpa, do, backward):
+def _sdpa_ms(sdpa, do, backward, causal=False):
     """SDPA's time on heads-major q, k, v: the forward, or autograd through
     SDPA minus its forward."""
     import torch.nn.functional as F
     with torch.no_grad():
-        fwd = time_ms(lambda: F.scaled_dot_product_attention(*sdpa))
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            *sdpa, is_causal=causal))
     if not backward:
         return fwd
     qh, kh, vh = (t.detach().requires_grad_() for t in sdpa)
     doh = do.transpose(1, 2).contiguous()
     return time_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh), doh)) - fwd
+        F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal),
+        (qh, kh, vh), doh)) - fwd
 
 
 # K1 and K1b at the classifier-guided paths' shapes (`qm9_cbg_flagship`,
@@ -5201,6 +5229,574 @@ def run_classifier_train_path(kernels, steps=CLF_TRAIN_STEPS, timed_from=2):
     return launches, state.params
 
 
+# AR decoding: K1 and K1b, causal, at the AR paths' shapes: the QM9
+# AR denoiser's 12 heads of 64 at B=16, L=32 (FUDGE's and PPLM's trunk), the
+# FUDGE classifier over B x topk = 320 candidate rows, and its training
+# batch of 256 (forward and backward). (label: (shape, kernels)); the
+# records go under each label, timed causal.
+AR_ATTENTION = {
+    'ar_qm9_denoiser': ((16, 32, 12, 64), ('fused_rope_attention',)),
+    'ar_fudge_classifier': ((320, 32, 12, 64), ('fused_rope_attention',)),
+    'ar_fudge_classifier_training': ((256, 32, 12, 64), (
+        'fused_rope_attention', 'fused_rope_attention_bwd'))}
+AR_LABELS = tuple(AR_ATTENTION)
+
+
+def _causal_attention_bound(name, shape, es):
+    """`_attention_bound` for causal attention: the products over the
+    L (L + 1) / 2 query-key pairs a head that the mask keeps."""
+    nb, Lq, Hq, Dq = shape
+    tensors, products = (7, 5) if name.endswith('_bwd') else (4, 2)
+    tables = 2 * Lq * (Dq // 2) * 4
+    return bound(tensors * nb * Lq * Hq * Dq * es + tables,
+                 2 * products * nb * Hq * (Lq * (Lq + 1) // 2) * Dq,
+                 PEAK_BF16_TENSOR)
+
+
+def check_ar_attention(results):
+    """K1 and K1b, causal, at AR_ATTENTION's shapes against their plain
+    versions in fp32 and bf16 (the backward twice, bit-identical), the bf16
+    forward rerun bit-identical; in bf16 timed beside the plain version and
+    causal SDPA (its backward: autograd through causal SDPA minus its
+    forward), with the bound of the pairs the mask keeps."""
+    from ddg_tpu_torch.ops import attention as A
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    for label, (shape, names) in AR_ATTENTION.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            es = torch.tensor([], dtype=dtype).element_size()
+            cases, sdpa, do = _attention_cases(shape, dtype, gen)
+            for name in names:
+                call, plain = cases[name]
+                rec = {'shape': list(shape), 'causal': True, 'err': 0.0}
+                wrapper = getattr(A, name)
+                before = (wrapper.launches, wrapper.tensor_core_launches)
+                bwd = name.endswith('_bwd')
+                if bwd:
+                    _bwd_case(rec, f'{name} {label}', dtype,
+                              (('dq', 'row'), ('dk', 'row'), ('dv', 'row')),
+                              lambda: call(True), lambda: plain(True),
+                              differs_bar=(BWD_DIFFERS_BAR
+                                           if dtype == torch.bfloat16
+                                           else None))
+                else:
+                    out, ref = call(True), plain(True)
+                    rec['err'], rec['tol'] = _close(f'{name} {label}', dtype,
+                                                    out, ref)
+                    check(torch.equal(out, call(True)),
+                          f'{name} {label}: a rerun differs')
+                calls = wrapper.launches - before[0]
+                rec['tensor_cores'] = (wrapper.tensor_core_launches
+                                       - before[1] == calls)
+                if dtype == torch.bfloat16:
+                    check(rec['tensor_cores'], f'{name} {label}: bf16 at '
+                                               'D=64 missed the tensor cores')
+                    rec['ms'] = time_ms(lambda: call(True))
+                    rec['plain_ms'] = time_ms(lambda: plain(True), reps=10)
+                    rec['library_ms'] = _sdpa_ms(sdpa, do, bwd, causal=True)
+                    rec['library'] = ('causal SDPA backward (autograd '
+                                      'through SDPA minus its forward)'
+                                      if bwd else 'causal SDPA')
+                    rec['bound_ms'], rec['bound_by'] = \
+                        _causal_attention_bound(name, shape, es)
+                results[name].setdefault(label, {})[str(dtype)] = rec
+
+
+def _decode_logits(decode, cfg, params, cache, tokens, cond=None):
+    """Teacher-forced decode of `tokens` (B, n): float32 logits (B, n, V)
+    of every step."""
+    out = []
+    for pos in range(tokens.shape[1]):
+        out.append(decode(cfg, params, cache, tokens[:, pos], pos,
+                          cond=cond)[0])
+    return torch.stack(out, 1)
+
+
+def check_tiny_ar():
+    """Tiny float32 AR models on the card against the same weights on the
+    CPU, where the plain versions run:
+    - a causal DiT (hidden 128, 2 blocks of 2 heads of 64, L=24, V=40, 2
+      classes, matrices x5): the KV-cache decode's logits of every step
+      with a class, on the float and the int8 cache, card against CPU to
+      1e-4 of their largest magnitude (float) and 2% of it (int8, whose
+      codes may flip where x / scale lies within float error of a half:
+      at most 0.1% of them, by one code); the card's decode against the
+      card's full causal forward (K1, K3, K5) at `tests/test_dit_decode.py`'s
+      bar; `ar_sample` on the card gives the same tokens through the KV
+      cache and the full forward from one generator (D-CFG gamma 2, B=4);
+    - the unidirectional DiMamba (hidden 32, 2 blocks, d_state 16, L=256,
+      matrices x4): the decode's logits over 64 steps card against CPU to
+      1e-4 of their largest magnitude, and against the card's full
+      unidirectional forward (K18) at every one of the 256 positions at
+      `tests/test_dimamba_decode.py`'s bar; the gap of the same weights
+      held in bf16 (the port's mixer dtype at the flagship) against float32,
+      recorded."""
+    import dataclasses
+    import numpy as np
+    from ddg_tpu_torch import samplers as SM
+    from ddg_tpu_torch.convert import (dimamba_params_from_reference,
+                                       dimamba_state_dict_from_jax,
+                                       make_reference_dimamba_state_dict,
+                                       make_reference_dit_state_dict)
+    from ddg_tpu_torch.diffusion import DiffusionSpec
+    from ddg_tpu_torch.models import (DIT, DiMamba, DiMambaConfig,
+                                      DITConfig, make_model_apply)
+    from ddg_tpu_torch.models import dimamba_decode, dit_decode
+    from ddg_tpu_torch.ops.noise_schedules import LogLinearNoise
+    Lt, Vt, Bt = 24, 40, 4
+    cfg = DITConfig(hidden_size=128, cond_dim=32, length=Lt, n_blocks=2,
+                    n_heads=2, vocab_size=Vt, dropout=0.0, causal=True,
+                    num_classes=2, compute_dtype=torch.float32,
+                    fused_rope_attn=True, fused_adaln=True)
+    sd = make_reference_dit_state_dict(
+        np.random.RandomState(21), hidden=128, cond_dim=32, n_blocks=2,
+        vocab=Vt, with_cond=True, causal=True)
+    sd = {k: v * 5 if v.ndim == 2 else v for k, v in sd.items()}
+    gen = torch.Generator().manual_seed(22)
+    x = torch.randint(0, Vt, (Bt, Lt), generator=gen, dtype=torch.int32)
+    cond = torch.tensor([0, 1, 2, 0], dtype=torch.int32)
+    rec, outs, applies = {}, {}, {}
+    for dev in ('cpu', DEV):
+        m = DIT(cfg)
+        m.load_state_dict(sd, strict=True)
+        applies[dev] = make_model_apply(m.to(dev).eval())
+        for kv_int8 in (False, True):
+            cache = dit_decode.init_cache(cfg, Bt, kv_int8=kv_int8,
+                                          device=dev)
+            with torch.no_grad():
+                logits = _decode_logits(dit_decode.decode_step, cfg,
+                                        applies[dev].params, cache,
+                                        x.to(dev), cond.to(dev))
+            outs[dev, kv_int8] = (logits.cpu(),
+                                  {k: v.cpu() for k, v in cache.items()})
+    ref = outs['cpu', False][0]
+    scale = ref.abs().max().item()
+    rec['dit_decode_err'] = (outs[DEV, False][0] - ref).abs().max().item()
+    check(rec['dit_decode_err'] <= FP32_TOL * max(1.0, scale),
+          f'tiny AR DiT: the decode differs card against CPU by '
+          f'{rec["dit_decode_err"]} (scale {scale})')
+    codes = 0.0
+    for name in ('k', 'v'):
+        d = (outs[DEV, True][1][name].int()
+             - outs['cpu', True][1][name].int()).abs()
+        check(d.max().item() <= 1, f'tiny AR DiT: int8 {name} codes differ '
+                                   f'by {d.max().item()}')
+        codes = max(codes, (d > 0).float().mean().item())
+    rec['int8_codes_differing'] = codes
+    check(codes <= 1e-3, f'tiny AR DiT: {codes} of the int8 codes differ '
+                         'card against CPU')
+    rec['dit_decode_int8_err'] = (outs[DEV, True][0]
+                                  - outs['cpu', True][0]).abs().max().item()
+    check(rec['dit_decode_int8_err'] <= 0.02 * scale,
+          f'tiny AR DiT: the int8 decode differs card against CPU by '
+          f'{rec["dit_decode_int8_err"]}')
+    with torch.no_grad():
+        full = applies[DEV](applies[DEV].params, x.to(DEV), None,
+                            cond.to(DEV)).float().cpu()
+    dec = outs[DEV, False][0]
+    excess = ((dec - full).abs() - (2e-4 + 1e-3 * full.abs())).max().item()
+    rec['dit_decode_vs_full_err'] = (dec - full).abs().max().item()
+    check(excess <= 0, f'tiny AR DiT: the card\'s decode differs from its '
+                       f'full forward by {rec["dit_decode_vs_full_err"]}')
+    spec = DiffusionSpec(diffusion='absorbing_state', parameterization='ar',
+                         noise=LogLinearNoise(), vocab_size=Vt,
+                         mask_index=Vt - 1, num_classes=2)
+    tokens = [SM.ar_sample(
+        spec, SM.SamplerSpec(), applies[DEV], applies[DEV].params,
+        torch.Generator(device=DEV).manual_seed(23), batch_size=Bt,
+        length=Lt, bos_token_id=0,
+        guidance=SM.GuidanceSpec(method='cfg', gamma=GAMMA),
+        cond=torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=DEV),
+        decode_cfg=c) for c in (cfg, None)]
+    check(torch.equal(tokens[0], tokens[1]),
+          'tiny AR DiT: KV-cache tokens differ from full-forward tokens on '
+          'the card')
+    rec['kv_tokens_equal_full_forward'] = True
+
+    mcfg = DiMambaConfig(hidden_size=32, cond_dim=16, length=256, n_blocks=2,
+                         vocab_size=12, d_state=16, d_conv=4, expand=2,
+                         bidirectional=False, dropout=0.0,
+                         compute_dtype=torch.float32)
+    ref_sd = make_reference_dimamba_state_dict(
+        np.random.RandomState(24), hidden=32, cond_dim=16, n_blocks=2,
+        vocab=12, bidirectional=False)
+    msd = dimamba_state_dict_from_jax(dimamba_params_from_reference(
+        ref_sd, n_blocks=2, bidirectional=False), n_blocks=2)
+    msd = {k: v * 4 if v.ndim == 2 else v for k, v in msd.items()}
+    xm = torch.randint(7, 12, (Bt, 256), generator=gen, dtype=torch.int32)
+
+    def mamba_decode(c, dev, n):
+        m = DiMamba(c)
+        m.load_state_dict(msd, strict=True)
+        apply = make_model_apply(m.to(dev).eval())
+        cache = dimamba_decode.init_cache(c, Bt, device=dev)
+        with torch.no_grad():
+            out = _decode_logits(
+                lambda cf, p, ca, t, pos, cond: dimamba_decode.decode_step(
+                    cf, p, ca, t, cond=cond),
+                c, dimamba_decode.precast(apply.params), cache,
+                xm[:, :n].to(dev))
+        return out.cpu(), apply
+
+    on_cpu, _ = mamba_decode(mcfg, 'cpu', 64)
+    on_card, apply = mamba_decode(mcfg, DEV, 256)
+    mscale = on_cpu.abs().max().item()
+    rec['dimamba_decode_err'] = (on_card[:, :64] - on_cpu).abs().max().item()
+    check(rec['dimamba_decode_err'] <= FP32_TOL * max(1.0, mscale),
+          f'tiny AR DiMamba: the decode differs card against CPU by '
+          f'{rec["dimamba_decode_err"]}')
+    with torch.no_grad():
+        full = apply(apply.params, xm.to(DEV), None).float().cpu()
+    excess = ((on_card - full).abs() - (2e-3 + 1e-2 * full.abs())).max()
+    rec['dimamba_decode_vs_full_err'] = (on_card - full).abs().max().item()
+    check(excess.item() <= 0, f'tiny AR DiMamba: the card\'s decode differs '
+                              f'from its full forward (K18) by '
+                              f'{rec["dimamba_decode_vs_full_err"]}')
+    bf16, _ = mamba_decode(dataclasses.replace(
+        mcfg, compute_dtype=torch.bfloat16), DEV, 256)
+    rec['dimamba_bf16_weights_gap'] = (bf16 - on_card).abs().max().item()
+    rec['dimamba_bf16_weights_gap_of_span'] = (
+        rec['dimamba_bf16_weights_gap'] / on_card.abs().max().item())
+    emit({'phase': 'tiny_ar_card_vs_cpu', 'logit_scale': scale,
+          'dimamba_logit_scale': mscale, **rec})
+
+
+def _ar_run(name, kernels, sample, per_step, steps, vocab, line,
+            sync_sample=None, extra=None):
+    """One timed AR run, `sample(batch, seed)` at the run's batch (None)
+    after a warm-up: samples/s, ms a token step (`steps` of them), peak
+    memory and the launches, which must be exactly `per_step` a step
+    (every other kernel none); then `sync_sample()` (by default a 2-row
+    run) under PyTorch's sync debug mode, which must not wait for the
+    card. Returns (launches, tokens, seconds)."""
+    sample(2, 99)
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x = sample(None, 1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_syncs = _sync_check(name, sync_sample or (lambda: sample(2, 7)))
+    batch = x.shape[0]
+    emit({'phase': 'ar_path', 'run': name, 'batch': batch,
+          'length': x.shape[1], 'token_steps': steps, 'jax_line': line,
+          'seconds': secs, 'samples_per_s': batch / secs,
+          'ms_per_token_step': secs / steps * 1e3,
+          'peak_memory_gb': peak / 1e9,
+          'launches_per_step': {k: v / steps for k, v in launches.items()
+                                if v},
+          'host_syncs': n_syncs,
+          'distinct_tokens': int(torch.unique(x).numel()), **(extra or {})})
+    check(x.dtype == torch.int32 and x.shape[1] == steps + 1,
+          f'{name}: output {tuple(x.shape)} {x.dtype}')
+    check(bool(((x >= 0) & (x < vocab)).all()), f'{name}: token outside '
+                                                '[0, V)')
+    check(bool((x[:, 0] == 0).all()), f'{name}: position 0 is not bos')
+    _launch_check(name, kernels, launches, per_step, steps)
+    return launches, x, secs
+
+
+def _ar_profile(name, run, length):
+    """Busy ms, span ms and idle share a token step of `run.sample` over
+    length - 1 steps at the run's batch, from one torch.profiler trace (the
+    call's noise draw included), emitted."""
+    busy, span, _ = device_busy_ms(lambda: run.sample(
+        torch.Generator(device=DEV).manual_seed(3), length=length))
+    n = length - 1
+    emit({'phase': 'ar_path_profile', 'run': name, 'traced_steps': n,
+          'busy_ms_per_step': busy / n, 'span_ms_per_step': span / n,
+          'idle_share': 1 - busy / span})
+
+
+def _score_precision_gap(run, x, rows=8):
+    """The bf16 decode's logits against the float32 decode of the same
+    weights (every parameter as float32, float32 compute and head), teacher
+    forced on `rows` of the samples `x` with condition 0: max and mean
+    absolute gap and the largest float32 logit."""
+    import dataclasses
+    from ddg_tpu_torch.models import dit_decode
+    cfg32 = dataclasses.replace(run.cfg, compute_dtype=torch.float32,
+                                logits_dtype=torch.float32)
+    rows = min(rows, x.shape[0])
+    cond = torch.zeros((rows,), dtype=torch.int32, device=DEV)
+    out = []
+    for cfg, params in ((run.cfg, dit_decode.precast(run.cfg, run.params)),
+                        (cfg32, {k: v.float()
+                                 for k, v in run.params.items()})):
+        cache = dit_decode.init_cache(cfg, rows, device=DEV)
+        with torch.no_grad():
+            out.append(_decode_logits(dit_decode.decode_step, cfg, params,
+                                      cache, x[:rows, :-1], cond))
+    gap = (out[0] - out[1]).abs()
+    return {'max_abs': gap.max().item(), 'mean_abs': gap.mean().item(),
+            'logit_scale': out[1].abs().max().item(),
+            'top1_agreement': (out[0].argmax(-1) == out[1].argmax(-1))
+            .float().mean().item()}
+
+
+def run_ar_path(kernels, int8_kv=False):
+    """The JAX suite's `ar` line (`int8_kv`: `ar_int8`) at full width and
+    length: `entry.ar_flagship()`, LM1B DiT-small as a causal AR model,
+    D-CFG gamma 2 at B=256 through the KV-cache decode, 2B = 512 decode
+    rows, 127 token steps in 4 length buckets: samples/s, ms a token step,
+    peak memory, no launch of any K kernel (the decode is plain PyTorch,
+    as `ddg_tpu`'s runs no Pallas kernel), 0 host syncs in a whole 2-row
+    run, and the busy ms, span and idle share a step of a 16-step traced
+    run at B=256. The bf16 run then records the decode's logit gap against
+    the float32 decode of the same weights, and runs the same line through
+    the full causal forward each step (`decode_cfg=None`: exactly 12 K1,
+    13 K3 and 12 K5 a step at 2B rows), with the share of its tokens equal
+    to the KV path's from the same seed (bf16 near-ties may differ).
+    Returns {path: launches}."""
+    import dataclasses
+    from ddg_tpu_torch.entry import ar_flagship
+    name = 'ar_int8' if int8_kv else 'ar'
+    t0 = time.perf_counter()
+    run = ar_flagship(device=DEV, int8_kv=int8_kv)
+    emit({'phase': 'ar_flagship', 'int8_kv': int8_kv,
+          'seconds': time.perf_counter() - t0,
+          'parameters': sum(p.numel() for p in run.params.values()),
+          'batch': run.batch_size, 'decode_rows': 2 * run.batch_size,
+          'length': run.length, 'vocab': run.cfg.vocab_size,
+          'buckets': run.sampler.ar_buckets})
+
+    def sample(batch, seed, r=run):
+        return r.sample(torch.Generator(device=DEV).manual_seed(seed),
+                        batch_size=batch)
+
+    steps = run.length - 1
+    launches, x, _ = _ar_run(
+        name, kernels, sample, {}, steps, run.cfg.vocab_size,
+        'LM1B AR-CFG samples/sec/chip (KV-cache decode, B=256, DiT-small'
+        + (', int8-kv)' if int8_kv else ')'))
+    _ar_profile(name, run, 17)
+    out = {name: launches}
+    if int8_kv:
+        return out
+    emit({'phase': 'ar_score_precision', 'run': name,
+          **_score_precision_gap(run, x)})
+    full = dataclasses.replace(run, decode_cfg=None)
+    trunk = {'fused_rope_attention': 12, 'ln_modulate': 13,
+             'gate_res_ln_modulate': 12}
+    out['ar_full_forward'], xf, _ = _ar_run(
+        'ar_full_forward', kernels, lambda b, s: sample(b, s, full), trunk,
+        steps, run.cfg.vocab_size,
+        'none: the JAX line decodes through the KV cache')
+    emit({'phase': 'ar_full_forward_vs_kv', 'tokens_equal_share':
+          (xf == x).float().mean().item(),
+          'rows_equal_share': (xf == x).all(1).float().mean().item(),
+          'first_step_equal_share': (xf[:, 1] == x[:, 1]).float().mean()
+          .item()})
+    return out
+
+
+# The FUDGE classifier's training before its guidance is checked: the
+# reference's clean-prefix per-position protocol
+# (`scripts/train_qm9_fudge_classifier.sh`) on a class-structured batch.
+FUDGE_TRAIN_B, FUDGE_TRAIN_STEPS, FUDGE_TRAIN_LR = 256, 20, 1e-4
+# Species10 AR decode positions run: the state is O(1) in L, so a step
+# costs the same at any position; the run stops short of 32767.
+DIMAMBA_AR_STEPS = 512
+
+
+def _train_fudge_classifier(kernels, run, steps=FUDGE_TRAIN_STEPS):
+    """`classifier.make_classifier_train_step` in FUDGE mode (clean
+    prefixes, CE at every position against the sequence label) on the
+    FUDGE flagship's classifier with the config's dropout 0.1, AdamW lr
+    FUDGE_TRAIN_LR without warmup, on one seeded class-structured batch
+    of 256 (`_class_batch`: class 0's tokens from the lower half of the
+    vocabulary, class 1's from the upper): exactly 12 K1 and 12 K1b a step,
+    0 host syncs, the mean loss of the last 5 steps at least 10% below the
+    first 5's. Copies the trained weights into the run's classifier and
+    returns the launches."""
+    from ddg_tpu_torch.classifier import (ClassifierSpec,
+                                          make_classifier_train_step)
+    from ddg_tpu_torch.models import DITClassifier, make_classifier_apply
+    from ddg_tpu_torch.runtime.averaging import AveragingSpec
+    from ddg_tpu_torch.runtime.optim import OptimSpec
+    from ddg_tpu_torch.runtime.train_state import init_train_state
+    spec, cfg = run.spec, run.classifier_cfg
+    clf = DITClassifier(cfg, num_classes=2, pooling='no_pooling')
+    clf.load_state_dict(run.classifier_params, strict=True)
+    apply = make_classifier_apply(clf.to(DEV).train())
+    cspec = ClassifierSpec(diffusion=spec.diffusion,
+                           parameterization=spec.parameterization,
+                           noise=spec.noise, vocab_size=spec.vocab_size,
+                           mask_index=spec.mask_index, num_classes=2,
+                           is_fudge_classifier=True)
+    optim = OptimSpec(lr=FUDGE_TRAIN_LR, num_warmup_steps=0)
+    avg = AveragingSpec.ema(0.9999)
+    state = init_train_state(torch.Generator(device=DEV).manual_seed(18),
+                             apply.params, optim, avg)
+    step = make_classifier_train_step(cspec, apply, optim, avg)
+    batch = _class_batch(torch.Generator(device=DEV).manual_seed(19),
+                         FUDGE_TRAIN_B, cfg.length, cfg.vocab_size)
+    step(state, batch)
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = [step(state, batch)[1]['loss'] for _ in range(steps)]
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / steps
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    n_syncs = _sync_check('fudge_classifier_training',
+                          lambda: step(state, batch))
+    losses = torch.stack(losses).tolist()
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    emit({'phase': 'fudge_classifier_train_path', 'steps': steps,
+          'batch': FUDGE_TRAIN_B, 'length': cfg.length,
+          'ms_per_step': secs * 1e3,
+          'tokens_per_s': FUDGE_TRAIN_B * cfg.length / secs,
+          'launches_per_step': {k: v / steps for k, v in launches.items()
+                                if v},
+          'host_syncs_in_a_step': n_syncs, 'loss_first5': first,
+          'loss_last5': last, 'losses': losses})
+    _launch_check('fudge_classifier_training', kernels, launches,
+                  {'fused_rope_attention': cfg.n_blocks,
+                   'fused_rope_attention_bwd': cfg.n_blocks}, steps)
+    check(all(math.isfinite(v) for v in losses),
+          'FUDGE classifier training: non-finite loss')
+    check(last <= 0.9 * first, f'FUDGE classifier training: loss fell from '
+                               f'{first} to {last}, less than 10%')
+    with torch.no_grad():
+        for k, v in run.classifier_params.items():
+            v.copy_(state.params[k])
+    return launches
+
+
+def _class_log_prob(run, x, condition):
+    """The FUDGE classifier's mean log-probability of `condition` over the
+    generated positions 1..L-1 of x (each position's prefix)."""
+    with torch.no_grad():
+        lp = torch.log_softmax(run.classifier_apply(
+            run.classifier_params, x, None).float(), dim=-1)
+    return lp[:, 1:, condition].mean().item()
+
+
+def run_ar_fudge_path(kernels):
+    """FUDGE at full width (`entry.ar_fudge_flagship()`: the QM9 AR DiT-small
+    at L=32, V=36 and the causal `small-classifier` in `no_pooling`, topk 20,
+    gamma 1, condition 0, B=16): first the classifier's training
+    (`_train_fudge_classifier`), then 31 token steps of one denoiser forward
+    and one classifier forward over the B x 20 candidates each, exactly 24
+    K1 a step (12 + 12) and nothing else, 0 host syncs; the trained
+    classifier's mean log-probability of the condition on the guided
+    samples must exceed that on unguided samples from the same seed, and
+    the share of the condition's tokens must rise. Returns {path:
+    launches}."""
+    from ddg_tpu_torch.entry import ar_fudge_flagship
+    t0 = time.perf_counter()
+    run = ar_fudge_flagship(device=DEV)
+    clf_cfg = run.classifier_cfg
+    emit({'phase': 'ar_fudge_flagship', 'seconds': time.perf_counter() - t0,
+          'denoiser_parameters': sum(p.numel() for p in run.params.values()),
+          'classifier_parameters': sum(
+              p.numel() for p in run.classifier_params.values()),
+          'length': run.length, 'vocab': run.cfg.vocab_size,
+          'batch': run.batch_size, 'topk': run.guidance.topk,
+          'classifier': [clf_cfg.hidden_size, clf_cfg.n_blocks,
+                         clf_cfg.n_heads]})
+    out = {'qm9_fudge_classifier_training': _train_fudge_classifier(
+        kernels, run)}
+
+    def sample(batch, seed, guided=True):
+        return run.sample(torch.Generator(device=DEV).manual_seed(seed),
+                          batch_size=batch, guided=guided)
+
+    nb = run.cfg.n_blocks + clf_cfg.n_blocks
+    out['ar_fudge'], x, _ = _ar_run(
+        'ar_fudge', kernels, sample, {'fused_rope_attention': nb},
+        run.length - 1, run.cfg.vocab_size,
+        'none: the JAX suite has no FUDGE line (QM9 FUDGE, topk 20, '
+        'B=16, DiT-small + small-classifier)')
+    plain = sample(None, 1, guided=False)
+    cond = run.guidance.condition
+    split = (run.cfg.vocab_size - 1) // 2
+    share = {'guided': ((x[:, 1:] < split).float().mean().item()),
+             'unguided': ((plain[:, 1:] < split).float().mean().item())}
+    score = {'guided': _class_log_prob(run, x, cond),
+             'unguided': _class_log_prob(run, plain, cond)}
+    emit({'phase': 'ar_fudge_guidance', 'condition': cond,
+          'class_token_share': share, 'classifier_log_prob': score})
+    check(score['guided'] > score['unguided'],
+          f'FUDGE: the classifier\'s log-probability of class {cond} went '
+          f'from {score["unguided"]} (unguided) to {score["guided"]}')
+    check(share['guided'] >= share['unguided'] + 0.03,
+          f'FUDGE: the share of class {cond} tokens went from '
+          f'{share["unguided"]} to {share["guided"]} only')
+    return out
+
+
+def run_ar_pplm_path(kernels):
+    """PPLM at full width (`entry.ar_pplm_flagship()`: the QM9 AR DiT-small
+    and the causal `small-classifier` in mean pooling over the denoiser's
+    hidden state, one Adagrad step, condition 0, B=16): 31 token steps of
+    the trunk once (12 K1; the classifier and the head read the hidden
+    state, so neither runs a trunk), exactly that and nothing else, 0 host
+    syncs; the guided tokens must differ from unguided ones from the same
+    seed. Returns {path: launches}."""
+    from ddg_tpu_torch.entry import ar_pplm_flagship
+    t0 = time.perf_counter()
+    run = ar_pplm_flagship(device=DEV)
+    emit({'phase': 'ar_pplm_flagship', 'seconds': time.perf_counter() - t0,
+          'length': run.length, 'batch': run.batch_size,
+          'pplm_steps': run.guidance.num_pplm_steps})
+
+    def sample(batch, seed, guided=True):
+        return run.sample(torch.Generator(device=DEV).manual_seed(seed),
+                          batch_size=batch, guided=guided)
+
+    launches, x, _ = _ar_run(
+        'ar_pplm', kernels, sample,
+        {'fused_rope_attention': run.cfg.n_blocks}, run.length - 1,
+        run.cfg.vocab_size,
+        'none: the JAX suite has no PPLM line (QM9 PPLM, B=16, DiT-small '
+        '+ small-classifier)')
+    plain = sample(None, 1, guided=False)
+    moved = (x != plain).float().mean().item()
+    emit({'phase': 'ar_pplm_guidance', 'tokens_moved_share': moved})
+    check(moved > 0, 'PPLM: the guided tokens equal the unguided ones')
+    return {'ar_pplm': launches}
+
+
+def run_dimamba_ar_path(kernels, steps=DIMAMBA_AR_STEPS):
+    """The Species10 AR baseline at full width (`entry.dimamba_ar_flagship()`:
+    the unidirectional DiMamba, hidden 256, 8 blocks, d_state 16, V=12,
+    B=8) through its conv and SSM state decode, `steps` token steps of the
+    model's 32767 (the state is O(1) in L: every step costs the same):
+    samples/s of the cut run, ms a token step, peak memory, no launch of
+    any K kernel, 0 host syncs in a 64-step 2-row run, and the busy ms and
+    idle share a step of a 64-step traced run. Returns {path: launches}."""
+    from ddg_tpu_torch.entry import dimamba_ar_flagship
+    t0 = time.perf_counter()
+    run = dimamba_ar_flagship(device=DEV)
+    emit({'phase': 'dimamba_ar_flagship',
+          'seconds': time.perf_counter() - t0,
+          'parameters': sum(p.numel() for p in run.params.values()),
+          'model_length': run.length, 'token_steps_run': steps,
+          'batch': run.batch_size, 'hidden': run.cfg.hidden_size,
+          'blocks': run.cfg.n_blocks, 'd_state': run.cfg.d_state})
+
+    def sample(batch, seed, length=steps + 1):
+        return run.sample(torch.Generator(device=DEV).manual_seed(seed),
+                          batch_size=batch, length=length)
+
+    launches, _, secs = _ar_run(
+        'dimamba_ar', kernels, sample, {}, steps, run.cfg.vocab_size,
+        'none: the JAX suite has no DiMamba AR line',
+        sync_sample=lambda: sample(2, 7, 65),
+        extra={'cut': f'{steps} of the model\'s {run.length - 1} token '
+                      'steps (state O(1) in L)'})
+    emit({'phase': 'dimamba_ar_full_length', 'seconds_at_steps_rate':
+          secs / steps * (run.length - 1), 'token_steps': run.length - 1})
+    _ar_profile('dimamba_ar', run, 65)
+    return {'dimamba_ar': launches}
+
+
 SOURCES = {
     'fused_rope_attention': ('ddg_tpu_torch/csrc/rope_attention.cu',
                              'ddg_tpu/ops/attention_pallas.py:215'),
@@ -5342,6 +5938,7 @@ def main():
     _step('check_uniform_species', check_uniform_species, results, tv)
     _step('check_mamba', check_mamba, results)
     _step('check_mamba_bwd', check_mamba_bwd, results)
+    _step('check_ar_attention', check_ar_attention, results)
     emit({'phase': 'kernels_vs_plain', 'results': results,
           'internal_rng': tv})
     _step('check_tiny_dit', check_tiny_dit)
@@ -5355,6 +5952,7 @@ def main():
     _step('check_tiny_text8_train', check_tiny_text8_train)
     _step('check_wide_head_dit_train', check_wide_head_dit_train)
     _step('check_tiny_classifier', check_tiny_classifier)
+    _step('check_tiny_ar', check_tiny_ar)
     by_path = {
         'serving': _step('run_main_path', run_main_path, kernels),
         'training': _step('run_train_path', run_train_path, kernels),
@@ -5382,6 +5980,13 @@ def main():
     by_path['qm9_cbg_approx'] = _step('run_cbg_approx_path', run_cbg_path,
                                       kernels, trained, approx=True)
     by_path['lm1b_nos'] = _step('run_nos_path', run_nos_path, kernels)
+    by_path.update(_step('run_ar_path', run_ar_path, kernels))
+    by_path.update(_step('run_ar_int8_path', run_ar_path, kernels,
+                         int8_kv=True))
+    by_path.update(_step('run_ar_fudge_path', run_ar_fudge_path, kernels))
+    by_path.update(_step('run_ar_pplm_path', run_ar_pplm_path, kernels))
+    by_path.update(_step('run_dimamba_ar_path', run_dimamba_ar_path,
+                         kernels))
     _step('check_learning', check_learning)
     _step('check_dimamba_learning', check_dimamba_learning)
     _step('check_text8_learning', check_text8_learning)
@@ -5416,7 +6021,7 @@ def main():
             if key in r:
                 rows[-1][key] = r[key]
         for label in ('lm1b_sampling', 'lm1b_training', 'text8_training',
-                      'long', *QM9_LABELS):
+                      'long', *QM9_LABELS, *AR_LABELS):
             other = results[name].get(label, {}).get(str(torch.bfloat16))
             if other and 'ms' in other:
                 rows[-1][label] = {

@@ -5,7 +5,8 @@
 arrays, flax names) into a state dict in the reference torch naming,
 which `ddg_tpu_torch.models.dit.DIT` loads with `strict=True`.
 `make_reference_dit_state_dict` makes seeded random weights in that
-naming, for runs that have no checkpoint.
+naming, for runs that have no checkpoint (`causal=True`: an AR DiT's,
+without the sigma map).
 `dit_classifier_state_dict_from_jax` and
 `make_reference_dit_classifier_state_dict` do the same for the port's
 `DITClassifier` (the trunk named as the DIT's; flax's `output_layer`
@@ -133,14 +134,17 @@ def _normal(rng: np.random.RandomState):
 
 
 def _reference_trunk(s, r, *, hidden: int, cond_dim: int, n_blocks: int,
-                     vocab: int, with_cond: bool):
-    """The embedding, sigma map, class table and blocks of seeded random
+                     vocab: int, with_cond: bool, causal: bool = False,
+                     adaln: bool = True):
+    """The embedding, sigma map (not in a causal trunk), class table and
+    blocks (with their adaLN projections when `adaln`) of seeded random
     DiT weights into `s` (numpy), drawn by `r` in this order."""
     s['vocab_embed.embedding'] = r(vocab, hidden)
-    s['sigma_map.mlp.0.weight'] = r(cond_dim, 256)
-    s['sigma_map.mlp.0.bias'] = r(cond_dim)
-    s['sigma_map.mlp.2.weight'] = r(cond_dim, cond_dim)
-    s['sigma_map.mlp.2.bias'] = r(cond_dim)
+    if not causal:
+        s['sigma_map.mlp.0.weight'] = r(cond_dim, 256)
+        s['sigma_map.mlp.0.bias'] = r(cond_dim)
+        s['sigma_map.mlp.2.weight'] = r(cond_dim, cond_dim)
+        s['sigma_map.mlp.2.bias'] = r(cond_dim)
     if with_cond:
         s['cond_map.embedding_table.weight'] = r(3, cond_dim)
     for i in range(n_blocks):
@@ -153,41 +157,51 @@ def _reference_trunk(s, r, *, hidden: int, cond_dim: int, n_blocks: int,
         s[p + 'mlp.0.bias'] = r(4 * hidden)
         s[p + 'mlp.2.weight'] = r(hidden, 4 * hidden)
         s[p + 'mlp.2.bias'] = r(hidden)
-        s[p + 'adaLN_modulation.weight'] = r(6 * hidden, cond_dim)
-        s[p + 'adaLN_modulation.bias'] = r(6 * hidden)
+        if adaln:
+            s[p + 'adaLN_modulation.weight'] = r(6 * hidden, cond_dim)
+            s[p + 'adaLN_modulation.bias'] = r(6 * hidden)
 
 
 def make_reference_dit_state_dict(rng: np.random.RandomState, *,
                                   hidden: int, cond_dim: int,
                                   n_blocks: int, vocab: int,
-                                  with_cond: bool = False
+                                  with_cond: bool = False,
+                                  causal: bool = False
                                   ) -> Dict[str, torch.Tensor]:
     """Seeded random weights (N(0, 0.02^2), norm weights around 1) with
     the reference's names and shapes; `with_cond` adds the 3-row class
-    table of a 2-class model."""
+    table of a 2-class model. `causal` gives an AR DiT's: no sigma map,
+    and adaLN projections only with the class table (`use_adaLN` of a
+    causal model is `with_cond`)."""
     s, r = {}, _normal(rng)
+    adaln = with_cond or not causal
     _reference_trunk(s, r, hidden=hidden, cond_dim=cond_dim,
-                     n_blocks=n_blocks, vocab=vocab, with_cond=with_cond)
+                     n_blocks=n_blocks, vocab=vocab, with_cond=with_cond,
+                     causal=causal, adaln=adaln)
     s['output_layer.norm_final.weight'] = r(hidden) + 1
     s['output_layer.linear.weight'] = r(vocab, hidden)
     s['output_layer.linear.bias'] = r(vocab)
-    s['output_layer.adaLN_modulation.weight'] = r(2 * hidden, cond_dim)
-    s['output_layer.adaLN_modulation.bias'] = r(2 * hidden)
+    if adaln:
+        s['output_layer.adaLN_modulation.weight'] = r(2 * hidden, cond_dim)
+        s['output_layer.adaLN_modulation.bias'] = r(2 * hidden)
     return {k: torch.from_numpy(v) for k, v in s.items()}
 
 
 def make_reference_dit_classifier_state_dict(
         rng: np.random.RandomState, *, hidden: int, cond_dim: int = 0,
         n_blocks: int = 0, vocab: int = 0, num_classes: int = 2,
-        head_only: bool = False) -> Dict[str, torch.Tensor]:
+        head_only: bool = False, causal: bool = False
+) -> Dict[str, torch.Tensor]:
     """Seeded random weights of `models.dit.DITClassifier`: the trunk as
-    `make_reference_dit_state_dict` draws it (its names and order), then
-    the class head `output_layer`; `head_only` draws the head alone
-    (cond_dim, n_blocks and vocab unused)."""
+    `make_reference_dit_state_dict` draws it (its names and order; a
+    `causal` trunk has neither sigma map nor adaLN projections), then the
+    class head `output_layer`; `head_only` draws the head alone (cond_dim,
+    n_blocks and vocab unused)."""
     s, r = {}, _normal(rng)
     if not head_only:
         _reference_trunk(s, r, hidden=hidden, cond_dim=cond_dim,
-                         n_blocks=n_blocks, vocab=vocab, with_cond=False)
+                         n_blocks=n_blocks, vocab=vocab, with_cond=False,
+                         causal=causal, adaln=not causal)
     s['output_layer.weight'] = r(num_classes, hidden)
     s['output_layer.bias'] = r(num_classes)
     return {k: torch.from_numpy(v) for k, v in s.items()}

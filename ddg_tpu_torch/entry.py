@@ -96,12 +96,38 @@ until QM9 checkpoints are in the repository.
 LM1B `flagship()` denoiser with the head-only mean-pooling classifier over
 its hidden states (`bench.py:350-359`), 2 classes.
 
+The AR entry points return an `ARRun`, whose `sample(generator)` draws one
+batch through `samplers.ar_sample`:
+  * `ar_flagship()` is the JAX bench's `ar` line (`bench.py:391-432`,
+    `_lm1b_setup(causal=True)`): the LM1B DiT-small as a causal AR model
+    (no sigma map, adaLN on the 2 classes + null, a bf16 head), D-CFG at
+    gamma 2 on condition 0 from bos 0 at B=256 through the KV-cache decode
+    (2B = 512 decode rows, 4 length buckets); `int8_kv=True` is the
+    `ar_int8` line, the same with the int8 KV cache;
+  * `ar_fudge_flagship()` is FUDGE on QM9 (`configs/guidance/fudge.yaml`,
+    topk 20, gamma 1): the AR DiT-small at L=32, V=36
+    (`scripts/train_qm9_guidance.sh` with MODEL=ar: 2 classes from its
+    cond dropout, sampled without a class as FUDGE and PPLM sample) and
+    the causal `small-classifier` (768, 12 blocks of 12 heads) in
+    `no_pooling` (`scripts/train_qm9_fudge_classifier.sh`), B=16
+    (`scripts/eval_qm9_guidance.sh`), full forwards through K1;
+  * `ar_pplm_flagship()` is PPLM (`configs/guidance/pplm.yaml`) on the same
+    denoiser with the causal `small-classifier` in mean pooling, built as
+    `ddg_tpu/main.py:234-260` builds it for an AR spec; it reads the
+    denoiser's hidden state (`x_emb`), so its trunk does not run;
+  * `dimamba_ar_flagship()` is the Species10 AR baseline
+    (`scripts/train_ten_species_no-guidance.sh` with MODEL=ar,
+    `configs/model/dimamba.yaml` with `bidirectional=False`): the DiMamba
+    at hidden 256, 8 blocks, d_state 16, unconditional, over the DNA
+    vocabulary, B=8, through its conv and SSM state decode.
+
 All run on the card unless the caller passes `device='cpu'`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -121,6 +147,7 @@ from ddg_tpu_torch.runtime.averaging import AveragingSpec
 from ddg_tpu_torch.runtime.optim import OptimSpec
 from ddg_tpu_torch.runtime.train_state import (TrainState, init_train_state,
                                                make_train_step)
+from ddg_tpu_torch.samplers import GuidanceSpec, SamplerSpec, ar_sample
 
 TRAIN_GLOBAL_BATCH = 512
 # The largest power of two whose train step peaks under half of an 80 GB
@@ -313,10 +340,12 @@ def dimamba_flagship(tiny: bool = False, device=None, *, seed: int = 0,
     return spec, cfg, model, apply_fn, apply_fn.params
 
 
-def _dimamba(tiny: bool, seed: int, route: str):
+def _dimamba(tiny: bool, seed: int, route: str, bidirectional: bool = True,
+             num_classes: Optional[int] = 10):
     """The Species10 DiMamba (or its CPU-sized cut) with seeded random
     weights in the reference layout, its mixer through `route`: (cfg,
-    model) on the CPU."""
+    model) on the CPU. `bidirectional=False, num_classes=None` is the AR
+    baseline's."""
     if route not in DIMAMBA_ROUTES:
         raise ValueError(f'route must be one of {sorted(DIMAMBA_ROUTES)}, '
                          f'got {route!r}')
@@ -326,7 +355,9 @@ def _dimamba(tiny: bool, seed: int, route: str):
     else:
         cfg = DiMambaConfig(hidden_size=256, cond_dim=128, length=32768,
                             n_blocks=8)
-    cfg = dataclasses.replace(cfg, vocab_size=DNA_VOCAB, num_classes=10,
+    cfg = dataclasses.replace(cfg, vocab_size=DNA_VOCAB,
+                              num_classes=num_classes,
+                              bidirectional=bidirectional,
                               d_state=16, d_conv=4, expand=2,
                               scan_chunk=128, scan_seg=64, scan_seg_bwd=64,
                               dropout=0.1, compute_dtype=torch.bfloat16,
@@ -336,9 +367,10 @@ def _dimamba(tiny: bool, seed: int, route: str):
         np.random.RandomState(seed), hidden=cfg.hidden_size,
         cond_dim=cfg.cond_dim, n_blocks=cfg.n_blocks, vocab=cfg.vocab_size,
         d_state=cfg.d_state, d_conv=cfg.d_conv, expand=cfg.expand,
-        num_classes=cfg.num_classes)
+        num_classes=cfg.num_classes, bidirectional=bidirectional)
     model.load_state_dict(dimamba_state_dict_from_jax(
-        dimamba_params_from_reference(ref, n_blocks=cfg.n_blocks),
+        dimamba_params_from_reference(ref, n_blocks=cfg.n_blocks,
+                                      bidirectional=bidirectional),
         n_blocks=cfg.n_blocks), strict=True)
     return cfg, model
 
@@ -545,3 +577,176 @@ def dimamba_train_flagship(device=None, *, seed: int = 0,
                     optim=optim, averaging=avg, state=state, step=step,
                     global_batch=global_batch, micro_batch=micro,
                     tokens=DNA_BASES)
+
+
+@dataclasses.dataclass
+class ARRun:
+    """What the AR entry points build: a model (its `apply_fn` and
+    `params`), the sampling settings and, for FUDGE and PPLM, the
+    classifier. `sample(generator)` draws one batch through
+    `samplers.ar_sample`."""
+    spec: DiffusionSpec
+    cfg: object                 # DITConfig or DiMambaConfig
+    apply_fn: object
+    params: dict
+    sampler: SamplerSpec
+    guidance: Optional[GuidanceSpec]
+    batch_size: int
+    length: int
+    bos_token_id: int = 0
+    # The stateful decode's config (the model's), or None for the full
+    # causal forward each step.
+    decode_cfg: object = None
+    classifier_cfg: Optional[DITConfig] = None
+    classifier_apply: object = None
+    classifier_params: Optional[dict] = None
+
+    def sample(self, generator: torch.Generator,
+               batch_size: Optional[int] = None,
+               length: Optional[int] = None,
+               guided: bool = True) -> torch.Tensor:
+        """(batch_size, length) int32 tokens on `generator.device`;
+        `guided=False` samples without the guidance, from the same
+        noise draw."""
+        B = batch_size or self.batch_size
+        guidance = self.guidance if guided else None
+        cond = None
+        if guidance is not None and guidance.method == 'cfg':
+            cond = torch.full((B,), guidance.condition, dtype=torch.int32,
+                              device=generator.device)
+        return ar_sample(self.spec, self.sampler, self.apply_fn, self.params,
+                         generator, batch_size=B,
+                         length=length or self.length,
+                         bos_token_id=self.bos_token_id, guidance=guidance,
+                         cond=cond, classifier_apply=self.classifier_apply,
+                         classifier_params=self.classifier_params,
+                         decode_cfg=self.decode_cfg)
+
+
+AR_BATCH = 256                   # bench.py's `ar` line
+QM9_AR_BATCH = 16                # the QM9 eval protocol
+DIMAMBA_AR_BATCH = 8             # the Species10 serving batch
+
+
+def _ar_spec(vocab: int, mask: int, num_classes=None) -> DiffusionSpec:
+    return DiffusionSpec(diffusion='absorbing_state', parameterization='ar',
+                         noise=LogLinearNoise(), vocab_size=vocab,
+                         mask_index=mask, num_classes=num_classes)
+
+
+def _causal_dit(cfg: DITConfig, seed: int, device):
+    """A causal DIT with seeded random weights in the reference layout
+    (the class table and adaLN projections when `cfg.num_classes`), in
+    eval mode on `device`: its `make_model_apply` adapter."""
+    model = DIT(cfg)
+    model.load_state_dict(make_reference_dit_state_dict(
+        np.random.RandomState(seed), hidden=cfg.hidden_size,
+        cond_dim=cfg.cond_dim, n_blocks=cfg.n_blocks, vocab=cfg.vocab_size,
+        with_cond=cfg.num_classes is not None, causal=True), strict=True)
+    return make_model_apply(model.to(device).eval())
+
+
+def ar_flagship(tiny: bool = False, device=None, *, seed: int = 0,
+                int8_kv: bool = False) -> ARRun:
+    """The JAX bench's `ar` line (`int8_kv`: `ar_int8`) on `device`. `tiny`
+    is a CPU-sized cut: hidden 64, cond 32, 2 blocks of 2 heads, L=32,
+    V=258, B=4."""
+    device = resolve_device(device)
+    if tiny:
+        cfg = DITConfig(hidden_size=64, cond_dim=32, length=32, n_blocks=2,
+                        n_heads=2, vocab_size=258)
+    else:
+        cfg = DITConfig(hidden_size=768, cond_dim=128, length=128,
+                        n_blocks=12, n_heads=12, vocab_size=30523)
+    cfg = dataclasses.replace(cfg, num_classes=2, causal=True,
+                              logits_dtype=torch.bfloat16,
+                              fused_rope_attn=True, fused_adaln=True)
+    apply_fn = _causal_dit(cfg, seed, device)
+    return ARRun(spec=_ar_spec(cfg.vocab_size, cfg.vocab_size - 1, 2),
+                 cfg=cfg, apply_fn=apply_fn, params=apply_fn.params,
+                 sampler=SamplerSpec(ar_kv_int8=int8_kv),
+                 guidance=GuidanceSpec(method='cfg', gamma=2.0, condition=0),
+                 batch_size=4 if tiny else AR_BATCH, length=cfg.length,
+                 decode_cfg=cfg)
+
+
+def _qm9_ar(tiny: bool, seed: int, device, pooling: str):
+    """The QM9 AR denoiser (seed) and a causal classifier in `pooling`
+    (seed + 1): (spec, cfg, apply_fn, clf_cfg, clf_apply). `tiny`: the
+    denoiser hidden 64, cond 32, 2 blocks of 2 heads at L=16; the
+    classifier the same trunk."""
+    device = resolve_device(device)
+    if tiny:
+        cfg = DITConfig(hidden_size=64, cond_dim=32, length=16, n_blocks=2,
+                        n_heads=2)
+    else:
+        cfg = DITConfig(hidden_size=768, cond_dim=128, length=32,
+                        n_blocks=12, n_heads=12)
+    cfg = dataclasses.replace(cfg, dropout=0.0, vocab_size=QM9_VOCAB,
+                              causal=True, num_classes=CLASSIFIER_CLASSES,
+                              fused_rope_attn=True, fused_adaln=True)
+    # `small-classifier` (tiny: the denoiser's trunk), causal without
+    # adaLN, as `ddg_tpu/main.py` builds a classifier for an AR spec.
+    clf_cfg = dataclasses.replace(cfg, dropout=0.1, num_classes=None,
+                                  use_adaLN=False)
+    apply_fn = _causal_dit(cfg, seed, device)
+    clf = DITClassifier(clf_cfg, num_classes=CLASSIFIER_CLASSES,
+                        pooling=pooling)
+    clf.load_state_dict(make_reference_dit_classifier_state_dict(
+        np.random.RandomState(seed + 1), hidden=clf_cfg.hidden_size,
+        cond_dim=clf_cfg.cond_dim, n_blocks=clf_cfg.n_blocks,
+        vocab=clf_cfg.vocab_size, num_classes=CLASSIFIER_CLASSES,
+        causal=True), strict=True)
+    clf_apply = make_classifier_apply(clf.to(device).eval())
+    spec = _ar_spec(QM9_VOCAB, QM9_VOCAB - 1, CLASSIFIER_CLASSES)
+    return spec, cfg, apply_fn, clf_cfg, clf_apply
+
+
+def ar_fudge_flagship(tiny: bool = False, device=None, *,
+                      seed: int = 0) -> ARRun:
+    """FUDGE on the QM9 AR DiT-small with the causal `small-classifier` in
+    `no_pooling` (weights from `seed` and `seed + 1`), topk 20, gamma 1,
+    condition 0, B=16 (tiny: B=4), on `device`."""
+    spec, cfg, apply_fn, clf_cfg, clf_apply = _qm9_ar(tiny, seed, device,
+                                                      'no_pooling')
+    return ARRun(spec=spec, cfg=cfg, apply_fn=apply_fn,
+                 params=apply_fn.params, sampler=SamplerSpec(),
+                 guidance=GuidanceSpec(method='fudge', topk=20, gamma=1.0,
+                                       condition=0),
+                 batch_size=4 if tiny else QM9_AR_BATCH, length=cfg.length,
+                 classifier_cfg=clf_cfg, classifier_apply=clf_apply,
+                 classifier_params=clf_apply.params)
+
+
+def ar_pplm_flagship(tiny: bool = False, device=None, *,
+                     seed: int = 0) -> ARRun:
+    """PPLM (one Adagrad step of size 0.1, stability 0.01, condition 0) on
+    the QM9 AR DiT-small with the causal `small-classifier` in mean pooling
+    over the denoiser's hidden state, B=16 (tiny: B=4), on `device`."""
+    spec, cfg, apply_fn, clf_cfg, clf_apply = _qm9_ar(tiny, seed, device,
+                                                      'mean')
+    return ARRun(spec=spec, cfg=cfg, apply_fn=apply_fn,
+                 params=apply_fn.params, sampler=SamplerSpec(),
+                 guidance=GuidanceSpec(method='pplm', condition=0,
+                                       num_pplm_steps=1, pplm_step_size=0.1,
+                                       pplm_stability_coef=0.01),
+                 batch_size=4 if tiny else QM9_AR_BATCH, length=cfg.length,
+                 classifier_cfg=clf_cfg, classifier_apply=clf_apply,
+                 classifier_params=clf_apply.params)
+
+
+def dimamba_ar_flagship(tiny: bool = False, device=None, *,
+                        seed: int = 0) -> ARRun:
+    """The Species10 AR baseline on `device`: the unidirectional,
+    unconditional DiMamba (`dimamba_flagship`'s widths and vocabulary,
+    `tiny` its CPU-sized cut) with seeded random weights, unguided, B=8
+    (tiny: 2), from bos 0 through the stateful decode."""
+    device = resolve_device(device)
+    cfg, model = _dimamba(tiny, seed, 'fused_block', bidirectional=False,
+                          num_classes=None)
+    apply_fn = make_model_apply(model.to(device).eval())
+    return ARRun(spec=_ar_spec(DNA_VOCAB, DNA_MASK), cfg=cfg,
+                 apply_fn=apply_fn, params=apply_fn.params,
+                 sampler=SamplerSpec(), guidance=None,
+                 batch_size=2 if tiny else DIMAMBA_AR_BATCH,
+                 length=cfg.length, decode_cfg=cfg)

@@ -13,8 +13,9 @@ def gumbel_noise_like(shape, *, generator: torch.Generator,
     from 0 (as `jax.random.gumbel`)."""
     u = torch.rand(shape, generator=generator, device=generator.device,
                    dtype=dtype)
-    u = u.clamp_min(torch.finfo(dtype).tiny)
-    return -torch.log(-torch.log(u))
+    # In place: one buffer of the noise's size (the AR samplers draw
+    # (B, L-1, V) at once).
+    return u.clamp_min_(torch.finfo(dtype).tiny).log_().neg_().log_().neg_()
 
 
 def low_confidence_mask(probs: torch.Tensor,

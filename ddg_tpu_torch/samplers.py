@@ -33,13 +33,31 @@ Classifier-based guidance runs the unfused chain, as in JAX:
     and the denoiser's head, leashed by a KL to the unguided posterior.
 The gradients of the last two are taken under a local
 `torch.enable_grad()`, with the adapters' `grad=True` (models/__init__.py);
-nothing runs in train mode. Not ported yet (they raise
-NotImplementedError): FUDGE, PPLM and AR sampling (ROADMAP A.5).
+nothing runs in train mode.
+
+AR sampling (`ar_sample`, port of `ddg_tpu/samplers.py:768-1083`) decodes
+one position a step, a Python loop over positions with int positions:
+  * with `decode_cfg` (a DITConfig or a DiMambaConfig) and no guidance or
+    D-CFG, stateful decoding (`_ar_sample_kv`): the DiT's KV cache
+    (`models/dit_decode.py`, bf16 or `ar_kv_int8`'s int8 rows) in
+    `ar_buckets` length buckets, each reading a 128-ceil window of the
+    cache, or the DiMamba's conv and SSM state
+    (`models/dimamba_decode.py`); D-CFG decodes cond and null as one
+    batch of 2B rows;
+  * otherwise the full causal forward of the whole sequence each step,
+    for none, D-CFG, FUDGE (the classifier scores each of the top-k
+    continuations at the next position) and PPLM (Adagrad on a delta to
+    the trunk's hidden state through the classifier and the denoiser's
+    head, KL-leashed to the unguided next-token distribution).
+The Gumbel noise is drawn once, (B, L-1, V) (FUDGE: (B, L-1, topk)), first
+thing from the generator, so both paths draw the same noise.
+Diffusion sampling refuses FUDGE and PPLM, which are AR methods.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -93,13 +111,20 @@ class SamplerSpec:
     fused: bool = False
     first_hitting: bool = False
     fused_head: bool = False
+    # AR decode: split the positions into this many contiguous buckets,
+    # bucket j reading a 128-ceil window of the cache (DiT only;
+    # token-identical to 1).
+    ar_buckets: int = 4
+    # AR decode: int8 KV cache rows with per-(block, b, head, position)
+    # scales (DiT only; not token-identical to the bf16 cache).
+    ar_kv_int8: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class GuidanceSpec:
     """Static guidance settings (configs/guidance/*.yaml). `cfg`, `cbg`
-    and `nos` are ported; the FUDGE and PPLM fields are read by the AR
-    sampler (ROADMAP A.5)."""
+    and `nos` guide the diffusion samplers; `cfg`, `fudge` and `pplm` the
+    AR sampler."""
     method: str                      # cfg | cbg | nos | fudge | pplm
     gamma: float = 1.0
     condition: int = 0
@@ -481,10 +506,13 @@ def _check_guidance(sampler, guidance, cond, classifier_apply=None,
         if classifier_apply is None or classifier_params is None:
             raise ValueError(f'{method} guidance needs `classifier_apply` '
                              'and `classifier_params`')
+    elif method in ('fudge', 'pplm'):
+        raise NotImplementedError(
+            f'guidance method {method!r} guides AR decoding: use '
+            '`ar_sample`')
     elif method not in (None, 'cfg'):
         raise NotImplementedError(
-            f'guidance method {method!r} is not ported yet (ROADMAP A.5 '
-            'for AR guidance)')
+            f'guidance method {method!r} not implemented')
     if method == 'cfg' and cond is None:
         raise ValueError('cfg guidance needs `cond`')
     return method
@@ -636,3 +664,218 @@ def first_hitting_sample(spec: DiffusionSpec, sampler: SamplerSpec,
             low_confidence_threshold=sampler.low_confidence_threshold)
         xt[torch.arange(B, device=dev), pos] = tok.to(torch.int32)
     return xt
+
+
+# ---------------------------------------------------------------------------
+# AR sampling
+# ---------------------------------------------------------------------------
+
+def _ar_noise(sampler: SamplerSpec, generator, shape):
+    """The AR samplers' Gumbel noise, drawn once before the first step."""
+    return S.gumbel_noise_like(shape, generator=generator,
+                               dtype=_sample_dtype(sampler))
+
+
+def _ar_token(sampler: SamplerSpec, log_probs, noise):
+    return S.sample_token(
+        log_probs, noise,
+        low_confidence_sampling=sampler.low_confidence_sampling,
+        low_confidence_threshold=sampler.low_confidence_threshold)
+
+
+def _ar_row_log_probs(model_apply, params, x, i, cond):
+    """float32 log-probs (rows, V) of the token after position i, from the
+    full causal forward of x."""
+    logits = model_apply(params, x, None, cond, None, train=False, rng=None)
+    return torch.log_softmax(logits[:, i].float(), dim=-1)
+
+
+def _fudge_log_probs(spec, guidance, classifier_apply, classifier_params,
+                     x, i, lp):
+    """FUDGE: the top-k continuations of lp (B, V), each scored by the
+    per-position classifier at position i + 1 (its prefix x[:, :i+1] plus
+    the candidate; later positions stay 0). Returns (guided log-probs over
+    the candidates (B, topk), their token ids)."""
+    B, L = x.shape
+    K = guidance.topk
+    top, idx = torch.topk(lp, K, dim=-1)
+    cand = x[:, None, :].repeat(1, K, 1)
+    cand[:, :, i + 1] = idx.to(x.dtype)
+    sig = spec.noise.total_noise(torch.zeros((B * K,), device=x.device))
+    clf = classifier_apply(classifier_params, cand.view(B * K, L), sig)
+    score = torch.log_softmax(clf.float(), dim=-1)[
+        :, i + 1, guidance.condition].view(B, K)
+    return torch.log_softmax(top + guidance.gamma * score, dim=-1), idx
+
+
+def _pplm_log_probs(guidance, model_apply, params, classifier_apply,
+                    classifier_params, x, i):
+    """PPLM: Adagrad on a delta to the trunk's final hidden state, raising
+    the classifier's log-probability of `guidance.condition` (on hidden +
+    delta, the prefix 0..i as its attention mask) with a KL leash to the
+    unguided next-token distribution; then the next token's float32
+    log-probs from the denoiser's head on hidden + delta."""
+    B, L = x.shape
+    logits, hidden = model_apply(params, x, None, None, None, train=False,
+                                 rng=None, return_hidden_states=True)
+    base_lp = torch.log_softmax(logits[:, i].float(), dim=-1)
+    base_p = base_lp.exp()
+    prefix = (torch.arange(L, device=x.device) <= i).float().expand(B, L)
+
+    def grad(delta):
+        with torch.enable_grad():
+            delta = delta.detach().requires_grad_()
+            h = hidden + delta
+            clf = classifier_apply(classifier_params, x, None, x_emb=h,
+                                   attention_mask=prefix, grad=True)
+            target = torch.log_softmax(clf.float(), dim=-1)[
+                ..., guidance.condition].sum()
+            new = model_apply(params, x, None, None, h, train=False,
+                              rng=None, grad=True)
+            new_lp = torch.log_softmax(new[:, i].float(), dim=-1)
+            kl = (base_p * (base_lp - new_lp)).sum() / B
+            loss = -target + guidance.pplm_stability_coef * kl
+            return torch.autograd.grad(loss, delta)[0]
+
+    delta = torch.zeros_like(hidden)
+    acc = torch.zeros_like(hidden)
+    for _ in range(guidance.num_pplm_steps):
+        g = grad(delta)
+        acc = acc + g * g
+        delta = delta - guidance.pplm_step_size * g / (acc.sqrt() + 1e-10)
+    guided = model_apply(params, x, None, None, hidden + delta, train=False,
+                         rng=None)
+    return torch.log_softmax(guided[:, i].float(), dim=-1)
+
+
+@torch.no_grad()
+def ar_sample(spec: DiffusionSpec, sampler: SamplerSpec, model_apply,
+              params, generator: torch.Generator, *, batch_size: int,
+              length: int, bos_token_id: int,
+              guidance: Optional[GuidanceSpec] = None,
+              cond: Optional[torch.Tensor] = None,
+              classifier_apply=None, classifier_params=None,
+              decode_cfg=None) -> torch.Tensor:
+    """AR decoding on `generator.device` (`ddg_tpu`'s `ar_sample`): the
+    stateful decode of `decode_cfg` for none and D-CFG, else the full
+    causal forward each step (FUDGE, PPLM, or no `decode_cfg`). Returns
+    (batch_size, length) int32 tokens, position 0 the bos token."""
+    if spec.parameterization != 'ar':
+        raise ValueError('ar_sample needs the ar parameterization, got '
+                         f'{spec.parameterization!r}')
+    method = guidance.method if guidance is not None else None
+    if method not in (None, 'cfg', 'fudge', 'pplm'):
+        raise NotImplementedError(
+            f'guidance method {method!r} does not guide AR decoding')
+    if method == 'cfg' and cond is None:
+        raise ValueError('cfg guidance needs `cond`')
+    if method in ('fudge', 'pplm') and (classifier_apply is None
+                                        or classifier_params is None):
+        raise ValueError(f'{method} guidance needs `classifier_apply` and '
+                         '`classifier_params`')
+    if decode_cfg is not None and method in (None, 'cfg'):
+        return _ar_sample_kv(spec, sampler, params, generator,
+                             batch_size=batch_size, length=length,
+                             bos_token_id=bos_token_id, guidance=guidance,
+                             cond=cond, decode_cfg=decode_cfg)
+    if sampler.ar_kv_int8:
+        warnings.warn('ar_kv_int8=True ignored: the full-forward AR path '
+                      'has no KV cache')
+    dev = generator.device
+    B, dt = batch_size, _sample_dtype(sampler)
+    noise = _ar_noise(sampler, generator, (
+        B, length - 1, guidance.topk if method == 'fudge'
+        else spec.vocab_size))
+    x = torch.zeros((B, length), dtype=torch.int32, device=dev)
+    x[:, 0] = bos_token_id
+    for i in range(length - 1):
+        pick = None
+        if method == 'cfg':
+            gamma = guidance.gamma
+            null = torch.full_like(cond, spec.num_classes)
+            if gamma in (0.0, 1.0):
+                lp = _ar_row_log_probs(model_apply, params, x, i,
+                                       cond if gamma == 1.0 else null).to(dt)
+            else:
+                lp2 = _ar_row_log_probs(model_apply, params,
+                                        torch.cat([x, x]), i,
+                                        torch.cat([cond, null])).to(dt)
+                lp = torch.log_softmax(
+                    gamma * lp2[:B] + (1 - gamma) * lp2[B:], dim=-1)
+        elif method == 'fudge':
+            lp, pick = _fudge_log_probs(
+                spec, guidance, classifier_apply, classifier_params, x, i,
+                _ar_row_log_probs(model_apply, params, x, i, None).to(dt))
+        elif method == 'pplm':
+            lp = _pplm_log_probs(guidance, model_apply, params,
+                                 classifier_apply, classifier_params, x,
+                                 i).to(dt)
+        else:
+            lp = _ar_row_log_probs(model_apply, params, x, i, None).to(dt)
+        y = _ar_token(sampler, lp, noise[:, i])
+        if pick is not None:
+            y = pick.gather(1, y[:, None])[:, 0]
+        x[:, i + 1] = y.to(torch.int32)
+    return x
+
+
+def _ar_sample_kv(spec, sampler, params, generator, *, batch_size, length,
+                  bos_token_id, guidance, cond, decode_cfg):
+    """Stateful AR decoding; D-CFG decodes cond and null as one batch of
+    2B rows and mixes their log-probs. `decode_cfg` picks the decode: a
+    DiMambaConfig its conv and SSM state, a DITConfig its KV cache, read
+    in `sampler.ar_buckets` length buckets."""
+    from ddg_tpu_torch.models import dimamba_decode, dit_decode
+    from ddg_tpu_torch.models.dimamba import DiMambaConfig
+    dev = generator.device
+    B, dt = batch_size, _sample_dtype(sampler)
+    num_pred = length - 1
+    noise = _ar_noise(sampler, generator, (B, num_pred, spec.vocab_size))
+    method = guidance.method if guidance is not None else None
+    gamma = guidance.gamma if guidance is not None else None
+    mixed = method == 'cfg' and gamma not in (0.0, 1.0)
+    dec_cond = None
+    if method == 'cfg':
+        null = torch.full_like(cond, spec.num_classes)
+        dec_cond = (torch.cat([cond, null]) if mixed
+                    else null if gamma == 0.0 else cond)
+    dec_B = 2 * B if mixed else B
+    if isinstance(decode_cfg, DiMambaConfig):
+        if sampler.ar_kv_int8:
+            warnings.warn('ar_kv_int8=True has no effect: this decode '
+                          'backbone has no KV cache (DiT only)')
+        dparams = dimamba_decode.precast(params)
+        cache = dimamba_decode.init_cache(decode_cfg, dec_B, device=dev)
+
+        def logits_at(tok, i, window):
+            return dimamba_decode.decode_step(decode_cfg, dparams, cache,
+                                              tok, cond=dec_cond)[0]
+        buckets = 1
+    else:
+        dparams = dit_decode.precast(decode_cfg, params)
+        cache = dit_decode.init_cache(decode_cfg, dec_B,
+                                      kv_int8=sampler.ar_kv_int8, device=dev)
+        terms = (None if dec_cond is None
+                 else dit_decode.cond_terms(decode_cfg, dparams, dec_cond))
+
+        def logits_at(tok, i, window):
+            return dit_decode.decode_step(decode_cfg, dparams, cache, tok, i,
+                                          window=window, terms=terms)[0]
+        buckets = max(1, sampler.ar_buckets)
+    x = torch.zeros((B, length), dtype=torch.int32, device=dev)
+    x[:, 0] = bos_token_id
+    bounds = [round(num_pred * j / buckets) for j in range(buckets + 1)]
+    for j in range(buckets):
+        # Bucket j's positions read a 128-ceil prefix of the cache.
+        window = (min(length, -(-bounds[j + 1] // 128) * 128)
+                  if buckets > 1 else None)
+        for i in range(bounds[j], bounds[j + 1]):
+            tok = x[:, i]
+            lp = torch.log_softmax(
+                logits_at(torch.cat([tok, tok]) if mixed else tok, i,
+                          window).to(dt), dim=-1)
+            if mixed:
+                lp = torch.log_softmax(
+                    gamma * lp[:B] + (1 - gamma) * lp[B:], dim=-1)
+            x[:, i + 1] = _ar_token(sampler, lp, noise[:, i]).to(torch.int32)
+    return x

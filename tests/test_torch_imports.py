@@ -28,7 +28,8 @@ def test_module_list_covers_the_package():
     for name in ('ops.losses', 'runtime.optim', 'runtime.averaging',
                  'runtime.train_state', 'ops.groupnorm', 'models.unet',
                  'ops.mamba', 'models.dimamba', 'entry', 'diffusion',
-                 'ops._build', 'classifier'):
+                 'ops._build', 'classifier', 'models.dit_decode',
+                 'models.dimamba_decode'):
         assert f'ddg_tpu_torch.{name}' in MODULES
     assert len(MODULES) >= 19
 
