@@ -28,9 +28,15 @@ Each phase prints one JSON line:
      `scripts/validate_quant_tpu.py` (TV of the bf16 and int8 posteriors
      under the N=4000 binomial floor), a tiny
      float32 train step (loss, every gradient, and the parameters after
-     one clip + AdamW + EMA update) card against CPU, and a tiny float32
+     one clip + AdamW + EMA update) card against CPU, a tiny float32
      UNet (logits and one fused D-CFG step given the same Gumbel noise)
-     card against CPU;
+     card against CPU, the same under `quant_int8` (each int8 conv's and
+     NiN's codes, int32 sums and output bit for bit on the same input, the
+     logits where no activation code flips, the posteriors within twice
+     the int8 scheme's own TV), the full-width int8 UNet's D-CFG posterior
+     against the bf16 one's (mean and 95th-percentile TV within 1.25x of
+     the scheme's own float32 shift; the N=4000 binomial floor printed)
+     and a tiny float32 UNet train step card against CPU;
   6. the serving main path at full width: the flagship DiT-small (seeded
      random weights) serving ancestral D-CFG (gamma=2, B=24) through the
      feature-mix path at T=1000, the same with the NFE cache (the CFG
@@ -47,9 +53,17 @@ Each phase prints one JSON line:
      norm and the kernel launches per micro-step, which must be exact;
   8. the image serving main path at full width and depth:
      `entry.unet_flagship()` (CIFAR10 UNet UDLM) sampling D-CFG (gamma 2)
-     and unguided, T=128, B=32: samples/s, ms/step, peak memory, exact
-     launches per step (K10 or K9 once, K13 once per GroupNorm) and 0 host
-     syncs per step under PyTorch's sync debug mode;
+     and unguided, and `unet_flagship(int8=True)` (the JAX suite's
+     `unet_int8` line: 51 int8 convs, 37 int8 NiNs) sampling D-CFG, T=128,
+     B=32: samples/s, ms/step, peak memory, busy and idle share and all
+     kernel launches a step from one trace, exact launches per step (K10 or
+     K9 once, K13 once per GroupNorm) and 0 host syncs per step under
+     PyTorch's sync debug mode; then the image training path at full
+     width and depth, `entry.unet_train_flagship()` (global batch 512 as
+     micro-batches): ms/step, images/s, peak memory, no kernel launched
+     (0 K13: the norms' plain versions under autograd), 0 host syncs, the
+     idle share of one profiled step, and at the end a 30-step learning
+     check on one class-pattern micro-batch (loss at least 10% down);
   9. a learning check at full width: one Zipf-distributed micro-batch,
      lr 3e-4 without warmup, 30 steps; the mean loss of the last 5 must
      be at least 10% below that of the first 5;
@@ -2254,7 +2268,9 @@ def _check_gn_plan(gn, HW, C, G):
 def check_groupnorm(results, norms):
     """K13 against its plain version at every (HW, C, act) of one UNet
     forward (`norms`: {(H, W, C, act): count}), bf16 in and fp32 out, at
-    N=64 (D-CFG) and N=32; the other three dtype pairs at one shape. At
+    N=64 (D-CFG) and N=32, and bf16 in and out (the int8 line's
+    norm_dtype=bf16) at N=64, one launch a call; the other two dtype pairs
+    at one shape. At
     each shape the plan's mirror (`_check_gn_plan`, bf16 and fp32 in) and
     one launch a call (torch.profiler: one `gn_slab_kernel`). `ms_sequence`
     times the 51 calls back to back, as a forward runs them. The times
@@ -2288,6 +2304,18 @@ def check_groupnorm(results, norms):
             check(torch.equal(out, again),
                   f'fused_group_norm_act {(N, Hh, Ww, C)}: a rerun is not '
                   'bit-identical')
+            # bf16 out as well: the int8 UNet line (norm_dtype=bf16) runs
+            # every one of these shapes at this N with bf16 in and out.
+            kw16 = dict(kw, out_dtype=torch.bfloat16)
+            _close(f'fused_group_norm_act {(N, Hh, Ww, C, act)} bf16 out',
+                   torch.bfloat16,
+                   gn.fused_group_norm_act(x, scale, bias, **kw16),
+                   gn.fused_group_norm_act_plain(x, scale, bias, **kw16))
+            launches16 = kernel_launches(
+                lambda: gn.fused_group_norm_act(x, scale, bias, **kw16))
+            check(launches16 == {'gn_slab_kernel': 1},
+                  f'fused_group_norm_act {(N, Hh, Ww, C)} bf16 out: '
+                  f'launched {launches16}, not one slab kernel')
             plan = _check_gn_plan(gn, Hh * Ww, C, G)
             launches = kernel_launches(
                 lambda: gn.fused_group_norm_act(x, scale, bias, **kw))
@@ -3541,34 +3569,45 @@ def _loss_grads(build, weights, dev, spec, batch):
 
 
 def _train_step_card_vs_cpu(name, build, sd, spec, batch, optim, avg,
-                            grad_bars=None):
+                            grad_bars=None, zero_grads=None, loss_rtol=1e-5):
     """One float32 train step of `build()` loaded with `sd`, on one batch
     and one injected (t, x_t) (`batch` = (x0, t, xt, cond), cond None for
     a model without classes), card against CPU. Bars, set before the first
-    run: the loss to 1e-5 relative; every parameter gradient to 1e-4 of its
+    run: the loss to 1e-5 relative (or to `loss_rtol`); every parameter
+    gradient to 1e-4 of its
     largest magnitude on the CPU (sums in another order, and the
     embedding's scatter-add in no fixed order on the card), or to the bar
-    `grad_bars` gives it; and, fed the CPU's gradients, the parameters and
-    the EMA shadow after one clip + AdamW + EMA update to 1e-6. Returns the
-    errors."""
+    `grad_bars` gives it; a gradient that is exactly zero but for rounding
+    (`zero_grads`: {name: the parameter whose gradient scales it}) to 1e-4
+    of that parameter's largest gradient on both sides; and, fed the CPU's
+    gradients, the parameters and the EMA shadow after one clip + AdamW +
+    EMA update to 1e-6. Returns the errors."""
     from ddg_tpu_torch.runtime import averaging
     from ddg_tpu_torch.runtime.optim import make_optimizer
     names = list(sd)
-    grad_bars = grad_bars or {}
+    grad_bars, zero_grads = grad_bars or {}, zero_grads or {}
     res = {dev: _loss_grads(build, sd, dev, spec, batch)
            for dev in ('cpu', DEV)}
     (l_cpu, g_cpu), (l_dev, g_dev) = res['cpu'], res[DEV]
     loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
-    check(math.isfinite(l_dev) and loss_err <= 1e-5,
+    check(math.isfinite(l_dev) and loss_err <= loss_rtol,
           f'{name}: card loss {l_dev} vs CPU {l_cpu}')
-    grad_err, worst = 0.0, 0.0
+    errs = {}
     for k, a, b in zip(names, g_cpu, g_dev):
+        if k in zero_grads:
+            ref = g_cpu[names.index(zero_grads[k])].abs().max().item()
+            check(max(a.abs().max().item(), b.abs().max().item())
+                  <= 1e-4 * ref, f'{name}: the zero gradient of {k} is not '
+                                 'rounding noise')
+            continue
         scale = max(a.abs().max().item(), 1e-30)
-        e = (a - b).abs().max().item() / scale
-        bar = grad_bars.get(k, 1e-4)
-        check(e <= bar, f'{name}: grad of {k} differs by {e} of its '
-                        f'largest magnitude (bar {bar})')
-        grad_err, worst = max(grad_err, e), max(worst, e / bar)
+        errs[k] = ((a - b).abs().max().item() / scale, grad_bars.get(k, 1e-4))
+    over = sorted(errs.items(), key=lambda kv: -kv[1][0] / kv[1][1])
+    check(over[0][1][0] <= over[0][1][1],
+          f'{name}: gradients past their bars (error, bar of the largest '
+          f'magnitude): {[(k, e) for k, e in over[:8] if e[0] > e[1]]}')
+    grad_err = max(e for e, _ in errs.values())
+    worst = over[0][1][0] / over[0][1][1]
     after = {}
     for dev in ('cpu', DEV):
         masters = {k: sd[k].to(dev, copy=True) for k in names}
@@ -4401,12 +4440,8 @@ def check_tiny_dimamba():
     emit({'phase': 'tiny_dimamba_card_vs_cpu', **rec})
 
 
-def device_busy_ms(run):
-    """(busy, span, lead) ms of `run` from one torch.profiler trace: busy
-    sums the device time of its kernels, copies and fills (one stream, so
-    they do not overlap); span runs on the card's clock from the first of
-    them to the end of the last, so its gaps are the card's idle time; lead
-    is the host's time from its first operation to the first of them."""
+def device_trace(run):
+    """The events of one torch.profiler trace of `run` (host and card)."""
     import os
     import tempfile
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -4418,7 +4453,21 @@ def device_busy_ms(run):
         path = os.path.join(tmp, 'trace.json')
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)['traceEvents']
+            return json.load(f)['traceEvents']
+
+
+def device_busy_ms(run):
+    """(busy, span, lead) ms of `run` from one torch.profiler trace
+    (`trace_busy_ms`)."""
+    return trace_busy_ms(device_trace(run))
+
+
+def trace_busy_ms(events):
+    """(busy, span, lead) ms of a trace's events: busy sums the device time
+    of its kernels, copies and fills (one stream, so they do not overlap);
+    span runs on the card's clock from the first of them to the end of the
+    last, so its gaps are the card's idle time; lead is the host's time
+    from its first operation to the first of them."""
     dev = [e for e in events
            if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
     check(dev, 'the profiler recorded no kernel on the card')
@@ -4830,51 +4879,76 @@ def check_dimamba_learning(micro_steps=30, rows=4):
               f'apart, over the pooled tail std {g["pooled_tail_std"]}')
 
 
-def run_unet_path(kernels, flag, n_norms, steps=128):
+def run_unet_path(kernels, flag, flag8, n_norms, steps=128):
     """The UNet main path at full width and depth: D-CFG (gamma 2) and
-    unguided ancestral sampling, T=128, B=32, with exact launches per step
-    and host syncs per step counted under PyTorch's sync debug mode."""
+    unguided ancestral sampling on the bf16 flagship `flag`, and D-CFG on
+    the int8 one `flag8` (`unet_flagship(int8=True)`, the JAX suite's
+    `unet_int8` line: 51 int8 convs and 37 int8 NiNs on the eager
+    quantization of `ops.quant`, K13 writing bf16), T=128, B=32, each with
+    exact launches per step (K10 or K9 once, K13 once per GroupNorm),
+    host syncs per step counted under PyTorch's sync debug mode, and the
+    card's busy and idle share and all kernel launches a step from one
+    2-step trace. Returns the launches of each flagship's lines
+    ('unet_serving', 'unet_int8_serving')."""
     from ddg_tpu_torch import samplers as SM
-    spec, cfg, _, apply_fn, params = flag
-    L_img = cfg.input_channels * cfg.image_size ** 2
+    L_img = flag[1].length
     cond = torch.zeros((UB,), dtype=torch.int32, device=DEV)
+    dcfg = SM.GuidanceSpec(method='cfg', gamma=GAMMA)
+    flags = {'bf16': flag, 'int8': flag8}
+    # (run, flagship, guidance, exact launches a step, JAX line)
     runs = [
-        ('dcfg', SM.GuidanceSpec(method='cfg', gamma=GAMMA),
-         {'fused_uniform_cfg_sample': 1, 'fused_group_norm_act': n_norms}),
-        ('unguided', None,
-         {'fused_uniform_sample': 1, 'fused_group_norm_act': n_norms}),
+        ('dcfg', 'bf16', dcfg,
+         {'fused_uniform_cfg_sample': 1, 'fused_group_norm_act': n_norms},
+         'unet'),
+        ('unguided', 'bf16', None,
+         {'fused_uniform_sample': 1, 'fused_group_norm_act': n_norms},
+         None),
+        ('int8_dcfg', 'int8', dcfg,
+         {'fused_uniform_cfg_sample': 1, 'fused_group_norm_act': n_norms},
+         'unet_int8'),
     ]
 
-    def sample(guidance, n_steps, seed):
+    def sample(model, guidance, n_steps, seed):
+        spec, _, _, apply_fn, params = flags[model]
         gen = torch.Generator(device=DEV).manual_seed(seed)
         kw = {} if guidance is None else {'guidance': guidance, 'cond': cond}
         return SM.diffusion_sample(
             spec, SM.SamplerSpec(steps=n_steps, use_cache=False, fused=True),
             apply_fn, params, gen, batch_size=UB, length=L_img, **kw)
 
-    for _, guidance, _ in runs:          # cuDNN's algorithm choice, outside
-        sample(guidance, 2, 99)          # the counts
-    totals = {name: 0 for name in kernels}
-    for i, (name, guidance, per_step) in enumerate(runs):
+    for _, model, guidance, _, _ in runs:   # cuDNN's and cuBLASLt's choices,
+        sample(model, guidance, 2, 99)      # outside the counts
+    totals = {'unet_serving': {name: 0 for name in kernels},
+              'unet_int8_serving': {name: 0 for name in kernels}}
+    for i, (name, model, guidance, per_step, line) in enumerate(runs):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        x = sample(guidance, steps, i)
+        x = sample(model, guidance, steps, i)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in kernels.items()}
         peak = torch.cuda.max_memory_allocated()
+        path = 'unet_int8_serving' if model == 'int8' else 'unet_serving'
         for k in kernels:
-            totals[k] += launches[k]
+            totals[path][k] += launches[k]
         _launch_check(f'unet {name}', kernels, launches, per_step, steps)
         n_syncs = _sync_check(f'unet {name}',
-                              lambda: sample(guidance, 2, 98))
-        hist = torch.bincount(x.flatten().long(), minlength=cfg.vocab_size)
-        emit({'phase': 'unet_main_path', 'run': name, 'batch': UB,
-              'steps': steps, 'seconds': secs, 'samples_per_s': UB / secs,
-              'ms_per_step': secs / steps * 1e3, 'peak_memory_bytes': peak,
+                              lambda: sample(model, guidance, 2, 98))
+        events = device_trace(lambda: sample(model, guidance, 2, 97))
+        busy, span, lead = trace_busy_ms(events)
+        n_kernels = sum(e.get('cat') == 'kernel' for e in events)
+        hist = torch.bincount(x.flatten().long(), minlength=flag[1].vocab_size)
+        emit({'phase': 'unet_main_path', 'run': name, 'int8': model == 'int8',
+              'jax_line': line, 'batch': UB, 'steps': steps, 'seconds': secs,
+              'samples_per_s': UB / secs, 'ms_per_step': secs / steps * 1e3,
+              'peak_memory_bytes': peak,
+              'profiled_busy_ms_per_step': busy / 2,
+              'profiled_span_ms_per_step': span / 2,
+              'profiled_lead_ms': lead, 'idle_share': 1.0 - busy / span,
+              'kernel_launches_per_step_all': n_kernels / 2,
               'launches': launches,
               'launches_per_step': {k: v / steps for k, v in launches.items()
                                     if v},
@@ -4883,9 +4957,369 @@ def run_unet_path(kernels, flag, n_norms, steps=128):
               'top_token_share': (hist.max() / x.numel()).item()})
         check(tuple(x.shape) == (UB, L_img) and x.dtype == torch.int32,
               f'unet {name}: output {tuple(x.shape)} {x.dtype}')
-        check(bool(((x >= 0) & (x < cfg.vocab_size)).all()),
-              f'unet {name}: token outside [0, {cfg.vocab_size})')
+        check(bool(((x >= 0) & (x < flag[1].vocab_size)).all()),
+              f'unet {name}: token outside [0, {flag[1].vocab_size})')
     return totals
+
+
+def _int8_layers(model):
+    """(name, module) of the UNet's int8 layers: its QConvs and int8
+    NiNs."""
+    from ddg_tpu_torch.models import unet as U
+    from ddg_tpu_torch.ops import quant
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, quant.QConv)
+            or (isinstance(m, U.NiN) and m.int8)]
+
+
+def _int8_codes(mod, x):
+    """The activation codes and scales an int8 layer forms from x: per
+    sample for a QConv, per row for a NiN."""
+    from ddg_tpu_torch.ops import quant
+    if isinstance(mod, quant.QConv):
+        return quant.quantize_per_sample(x)
+    return quant.quantize_rowwise(x)
+
+
+def check_tiny_unet_int8():
+    """The tiny UNet under `quant_int8` (float32 compute and GroupNorm
+    outputs, the fused GroupNorm on: K13 on the card), card against CPU.
+    Each int8 layer (19 convs, 20 NiNs), fed on the CPU the input it got
+    on the card, must give the card's activation codes and scales, int32
+    sums (the convs') and output bit for bit (an exact s32 product, then
+    the same fp32 roundings). End to end, an activation within fp32 noise
+    of a rounding tie quantizes to the next code on one side (K13 and
+    cuDNN sum in other orders than the CPU), and the flip grows: each
+    later layer quantizes inputs that now differ, so a sample's codes
+    drift apart layer by layer (on the card, 7512 of one sample's 22992
+    codes). So a sample is held to check_tiny_unet's bars (trunk
+    output 1e-4, logits 1e-3 abs + 5e-3 relative) only where none of its
+    codes flips (the count a sample is printed), and at least 2 of the 8
+    samples must be free of flips (5 were on the card); over all samples, the
+    mean TV between the card's and the CPU's posteriors (softmax of the
+    logits) must stay within twice the int8 scheme's own shift, the mean
+    TV between the CPU's int8 and float32 models: the two int8 runs are
+    then no further apart than two independent quantizations of the float
+    model."""
+    import dataclasses
+    import numpy as np
+    from ddg_tpu_torch.convert import make_unet_state_dict
+    from ddg_tpu_torch.entry import unet_flagship
+    from ddg_tpu_torch.models import UNet
+    from ddg_tpu_torch.ops import quant
+    _, cfg, _, _, _ = unet_flagship(tiny=True, device='cpu', int8=True)
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32,
+                              norm_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(6)
+    sd = {k: v + 0.05 * torch.randn(v.shape, generator=gen)
+          for k, v in make_unet_state_dict(
+              UNet(cfg), np.random.RandomState(3)).items()}
+    Bt, Lt = 8, cfg.length
+    xt = torch.randint(0, cfg.vocab_size, (Bt, Lt), generator=gen,
+                       dtype=torch.int32)
+    sigma = 0.1 + 2 * torch.rand((Bt,), generator=gen)
+    cond = torch.tensor([3, 8, cfg.num_classes, 0, 1, 2, 5, 9],
+                        dtype=torch.int32)
+    layers, outs = {}, {}
+    for dev in ('cpu', DEV):
+        m = UNet(cfg)
+        m.load_state_dict(sd, strict=True)
+        m = m.to(dev).eval()
+        seen = []
+        hooks = [mod.register_forward_hook(
+            lambda mod, inp, out: seen.append((mod, inp[0], out)))
+            for _, mod in _int8_layers(m)]
+        with torch.no_grad():
+            logits, hidden = m(xt.to(dev), sigma.to(dev), cond.to(dev),
+                               return_hidden_states=True)
+        for hk in hooks:
+            hk.remove()
+        layers[dev], outs[dev] = seen, (logits.cpu(), hidden.cpu())
+    check(len(layers[DEV]) == 39, 'tiny int8 UNet: expected 39 int8 layers, '
+                                  f'ran {len(layers[DEV])}')
+    flips, codes = torch.zeros(Bt, dtype=torch.int64), 0
+    with torch.no_grad():
+        for n, ((mod_c, x_c, _), (mod_d, x_d, out_d)) in enumerate(
+                zip(layers['cpu'], layers[DEV])):
+            (q_d, s_d), (q_c, s_c) = (_int8_codes(mod_d, x_d),
+                                      _int8_codes(mod_c, x_d.cpu()))
+            check(torch.equal(q_d.cpu(), q_c) and torch.equal(s_d.cpu(), s_c),
+                  f'tiny int8 UNet: layer {n}: codes or scales differ on the '
+                  'same input')
+            if isinstance(mod_d, quant.QConv):
+                kw = dict(stride=mod_d.stride[0], padding=mod_d.padding[0])
+                kh, kw_ = mod_d.kernel_size
+                acc_d, acc_c = (quant.int8_conv_acc(
+                    q, quant.quantized_weight(mod.weight, 'conv')[0], kh, kw_,
+                    mod.out_channels, **kw) for q, mod in ((q_d, mod_d),
+                                                           (q_c, mod_c)))
+                check(torch.equal(acc_d.cpu(), acc_c),
+                      f'tiny int8 UNet: conv {n}: int32 sums differ')
+            want = mod_c(x_d.cpu())
+            check(torch.equal(want, out_d.cpu()),
+                  f'tiny int8 UNet: layer {n} on the card differs from the '
+                  'CPU on the same input by '
+                  f'{(want - out_d.cpu()).abs().max().item()}')
+            own = _int8_codes(mod_c, x_c)[0]
+            flips += (own != q_d.cpu()).reshape(Bt, -1).sum(-1)
+            codes += own.numel()
+        f32 = UNet(dataclasses.replace(cfg, quant_int8=False))
+        f32.load_state_dict(sd, strict=True)
+        l_f32 = f32.eval()(xt, sigma, cond)
+    (l_c, h_c), (l_d, h_d) = outs['cpu'], outs[DEV]
+    check(bool(torch.isfinite(l_d).all()), 'tiny int8 UNet: non-finite')
+
+    def tv(a, b):
+        return (0.5 * (a.softmax(-1) - b.softmax(-1)).abs().sum(-1)).mean()
+
+    tv_card, tv_scheme = tv(l_d, l_c).item(), tv(l_c, l_f32).item()
+    same = flips == 0
+    rec = {'phase': 'tiny_unet_int8_card_vs_cpu',
+           'int8_layers_bit_equal_on_same_input': len(layers[DEV]),
+           'flipped_codes_per_sample': flips.tolist(),
+           'codes_per_sample': codes // Bt,
+           'samples_without_flips': int(same.sum()),
+           'tv_card_vs_cpu_mean': tv_card, 'tv_int8_vs_f32_mean': tv_scheme,
+           'logit_std': l_c.std().item()}
+    if same.any():
+        rec['trunk_max_abs_err'] = (h_c[same] - h_d[same]).abs().max().item()
+        rec['logits_max_abs_err'] = (l_c[same] - l_d[same]).abs().max().item()
+        excess = ((l_c[same] - l_d[same]).abs()
+                  - 5e-3 * l_c[same].abs()).max().item()
+    emit(rec)
+    check(int(same.sum()) >= 2,
+          f'tiny int8 UNet: only {int(same.sum())} of {Bt} samples without '
+          'flipped codes; the trunk and logit bars need at least 2')
+    check(tv_card <= 2 * tv_scheme,
+          f'tiny int8 UNet: card and CPU posteriors {tv_card} apart in mean '
+          f'TV, past twice the int8 scheme\'s own {tv_scheme}')
+    check(rec['trunk_max_abs_err'] <= 1e-4,
+          f'tiny int8 UNet: trunk output differs by '
+          f'{rec["trunk_max_abs_err"]} on a sample without flips')
+    check(excess <= 1e-3,
+          f'tiny int8 UNet: logits beyond the bar by {excess}')
+
+
+def check_unet_int8_tv(flag, flag8, n_eval=4000, batch=4):
+    """`scripts/validate_quant_tpu.py`'s test on the full-width UNet
+    flagships (the same weights): the D-CFG step's posterior (gamma 2,
+    alpha_t 0.4, alpha_s 0.7: what K10 draws from) of the bf16 and of the
+    int8 flagship on the same x_t (uniform pixel tokens), sigma 0.9 and
+    classes, in float64; the TV between them a position, and that of
+    n_eval draws from the int8 posterior, against the binomial floor at
+    n_eval draws (printed). The int8 scheme itself moves these posteriors
+    far past that floor (per-sample activation scales make each conv's
+    codes coarse): the float32 int8 model's TV from the float32 model, on
+    the int8 line's own weights (`flag8`'s, float32 where they are
+    quantized) and inputs, is printed beside it with its own floor ratios.
+    Its layers are the ones `tests/test_torch_unet_int8.py` holds to JAX's
+    int8 UNet (and `test_int8_posterior_shift_matches_jax` its shift to
+    JAX's). So the check holds the int8 line to the scheme's own shift: the
+    mean and 95th percentile of its TV from the bf16 line at most 1.25 x
+    those of the float32 int8 model's TV from the float32 model."""
+    import dataclasses
+    from ddg_tpu_torch import samplers as SM
+    from ddg_tpu_torch.models import UNet, make_model_apply
+    from ddg_tpu_torch.ops import fused_sampling as fs
+    spec, cfg = flag[0], flag[1]
+    Vu, Lu = cfg.vocab_size, cfg.length
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    xt = torch.randint(0, Vu, (batch, Lu), generator=gen, device=DEV,
+                       dtype=torch.int32)
+    sigma = torch.full((batch,), 0.9, device=DEV)
+    cond = torch.arange(batch, dtype=torch.int32, device=DEV)
+    x2, s2 = torch.cat([xt, xt]), torch.cat([sigma, sigma])
+    c2 = torch.cat([cond, torch.full_like(cond, cfg.num_classes)])
+    a_t = torch.full((batch,), 0.4, device=DEV, dtype=torch.float64)
+    a_s = torch.full((batch,), 0.7, device=DEV, dtype=torch.float64)
+    weights = {k: v.float() for k, v in flag8[2].state_dict().items()}
+
+    def f32_model(int8):
+        m = UNet(dataclasses.replace(cfg, compute_dtype=torch.float32,
+                                     norm_dtype=torch.float32,
+                                     quant_int8=int8))
+        m.load_state_dict(weights, strict=True)
+        apply = make_model_apply(m.to(DEV).eval())
+        return apply, apply.params
+
+    q = {}
+    for key, (apply_fn, params) in (
+            ('bf16', flag[3:5]), ('int8', flag8[3:5]),
+            ('f32', f32_model(False)), ('int8_f32', f32_model(True))):
+        raw = SM._raw_logits(spec, apply_fn, params, x2, s2, c2).double()
+        q[key] = torch.softmax(fs.uniform_cfg_log_num(
+            raw[:batch], raw[batch:], GAMMA, xt, a_t, a_s,
+            vocab_size=Vu), -1).reshape(batch * Lu, Vu)
+    floor = 0.5 * torch.sqrt(2 * q['bf16'] * (1 - q['bf16'])
+                             / (math.pi * n_eval)).sum(-1)
+    tv = 0.5 * (q['bf16'] - q['int8']).abs().sum(-1)
+    tv_scheme = 0.5 * (q['f32'] - q['int8_f32']).abs().sum(-1)
+    tv_bf16 = 0.5 * (q['f32'] - q['bf16']).abs().sum(-1)
+    draws = torch.multinomial(q['int8'].float(), n_eval, replacement=True,
+                              generator=gen)
+    rows = torch.arange(draws.shape[0], device=DEV)[:, None] * Vu
+    emp = torch.bincount((draws + rows).flatten(),
+                         minlength=batch * Lu * Vu).reshape(-1, Vu) / n_eval
+    tv_emp = 0.5 * (emp.double() - q['bf16']).abs().sum(-1)
+
+    def stats(t):
+        return {'mean': t.mean().item(), 'p95': torch.quantile(t, 0.95)
+                .item(), 'max': t.max().item()}
+
+    rec = {'phase': 'unet_int8_tv', 'positions': batch * Lu, 'draws': n_eval,
+           'tv_int8_vs_bf16': stats(tv),
+           'tv_int8_f32_vs_f32': stats(tv_scheme),
+           'tv_bf16_vs_f32': stats(tv_bf16),
+           'floor_min': floor.min().item(), 'floor_max': floor.max().item(),
+           'worst_ratio_to_floor': (tv / floor).max().item(),
+           'empirical_worst_ratio_to_floor': (tv_emp / floor).max().item(),
+           'share_under_2_floors': (tv < 2 * floor).double().mean().item(),
+           'scheme_worst_ratio_to_floor': (tv_scheme / floor).max().item(),
+           'scheme_share_under_2_floors':
+               (tv_scheme < 2 * floor).double().mean().item()}
+    emit(rec)
+    got, ref = rec['tv_int8_vs_bf16'], rec['tv_int8_f32_vs_f32']
+    for key in ('mean', 'p95'):
+        check(got[key] <= 1.25 * ref[key],
+              f'unet int8 TV: the int8 line is {got[key]} ({key}) from the '
+              f'bf16 line, past 1.25 x the scheme\'s own {ref[key]}')
+
+
+# ---------------------------------------------------------------------------
+# The UNet training path: CIFAR10 UDLM with cond dropout
+# ---------------------------------------------------------------------------
+
+def check_tiny_unet_train():
+    """`unet_train_flagship(tiny=True)`'s model in float32 (weights + 0.05
+    seeded noise, dropout 0) with the training run's optimizer and EMA,
+    card against CPU (`_train_step_card_vs_cpu`): the plain GroupNorms
+    under autograd and cuDNN's convolutions on the card, their CPU
+    counterparts. Bars: each gradient to 1e-3 of its largest magnitude,
+    the attention key biases' gradients, zero but for rounding, against
+    their key matrices' gradients, and the loss to 1e-4 relative (8x the
+    card's measured 1.2e-5). The UNet's loss and gradients pass through many more
+    transcendental outputs than the DiT's (the sinusoidal time embedding at
+    arguments up to ~1e3, the GroupNorms' rsqrt and SiLU, the logistic
+    head's cancelling tail log1p(-exp(b - a) + 1e-6), b ~ a), where the
+    card's and the CPU's math libraries differ by ulps; on the CPU an ulp
+    of jitter in those outputs moves the gradients by up to 2.4e-3 of
+    their largest magnitude and the loss by up to 1.2e-4 relative, against
+    under 1e-4 for half an ulp in the weights (`_half_ulp_bars`). Runs on
+    the card measured card-against-CPU gradients up to 3.0e-4 of their
+    largest magnitude (GroupNorm scales, conv weights) and the loss 1.2e-5
+    relative apart; with the logistic head evaluated in float64 on both
+    sides, 1.3e-5 and 4e-7 (cuDNN off, or the time embedding in float64,
+    changed nothing): the head's float32 transcendentals are the cause. A
+    wrong gradient moves by O(1)."""
+    import dataclasses
+    from ddg_tpu_torch.diffusion import sample_corruption
+    from ddg_tpu_torch.entry import unet_train_flagship
+    from ddg_tpu_torch.models import UNet
+    run = unet_train_flagship(device='cpu', tiny=True)
+    cfg = dataclasses.replace(run.cfg, compute_dtype=torch.float32,
+                              dropout=0.0)
+    gen = torch.Generator().manual_seed(9)
+    sd = {k: v.float() + 0.05 * torch.randn(v.shape, generator=gen)
+          for k, v in run.model.state_dict().items()}
+    data = run.batch(gen)
+    x0, cond = data['input_ids'][0], data['cond'][0]
+    t, xt = sample_corruption(run.spec, x0, gen)
+    optim = dataclasses.replace(run.optim, num_warmup_steps=0)
+    # The attention key biases' gradients are zero but for rounding (the
+    # softmax over keys ignores q . b_k).
+    zero = {k: k[:-1] + 'W' for k in sd if k.endswith('.k.b')}
+    rec = _train_step_card_vs_cpu('tiny UNet train', lambda: UNet(cfg), sd,
+                                  run.spec, (x0, t, xt, cond), optim,
+                                  run.averaging,
+                                  grad_bars={k: 1e-3 for k in sd},
+                                  zero_grads=zero, loss_rtol=1e-4)
+    emit({'phase': 'tiny_unet_train_card_vs_cpu', **rec})
+
+
+def run_unet_train_path(kernels, warmup=1, steps=2):
+    """The CIFAR10 UNet training run at full width and depth
+    (`unet_train_flagship()`: global batch 512 images as micro-batches):
+    `warmup` steps, then `steps` timed ones (ms/step, images/s, tokens/s,
+    peak memory, loss, grad norm); no kernel of the port on this path (the
+    GroupNorms run their plain version under autograd: 0 K13), 0 host
+    syncs in a step, and the card's busy and idle share over one profiled
+    step. Returns the launches."""
+    from ddg_tpu_torch.entry import unet_train_flagship
+    t0 = time.perf_counter()
+    run = unet_train_flagship(device=DEV)
+    cfg = run.cfg
+    emit({'phase': 'unet_train_flagship', 'seconds': time.perf_counter() - t0,
+          'parameters': sum(p.numel() for p in run.apply_fn.params.values()),
+          'ch': cfg.ch, 'ch_mult': list(cfg.ch_mult),
+          'num_res_blocks': cfg.num_res_blocks, 'dropout': cfg.dropout,
+          'image_size': cfg.image_size, 'global_batch': run.global_batch,
+          'micro_batch': run.micro_batch, 'accum_steps': run.accum_steps})
+    batch = run.batch(torch.Generator(device=DEV).manual_seed(1))
+    for _ in range(warmup):
+        run.step(run.state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = [run.step(run.state, batch)[1] for _ in range(steps)]
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / steps
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _launch_check('unet training', kernels, launches, {},
+                  steps * run.accum_steps)
+    n_syncs = _sync_check('unet training', lambda: run.step(run.state, batch))
+    busy, span, lead = device_busy_ms(lambda: run.step(run.state, batch))
+    loss = [m['loss'].item() for m in metrics]
+    gnorm = [m['grad_norm'].item() for m in metrics]
+    emit({'phase': 'unet_train_main_path', 'steps': steps,
+          'ms_per_step': secs * 1e3,
+          'images_per_s': run.global_batch / secs,
+          'tokens_per_s': run.global_batch * cfg.length / secs,
+          'peak_memory_bytes': peak, 'loss': loss, 'grad_norm': gnorm,
+          'lr': metrics[-1]['lr'].item(),
+          'profiled_busy_ms': busy, 'profiled_span_ms': span,
+          'profiled_lead_ms': lead, 'idle_share': 1.0 - busy / span,
+          'k13_launches': launches['fused_group_norm_act'],
+          'host_syncs_in_a_step': n_syncs})
+    check(all(math.isfinite(v) for v in loss + gnorm),
+          'unet training: non-finite loss or grad norm')
+    return launches
+
+
+def check_unet_learning(micro_steps=30):
+    """At full width, one micro-batch of class-pattern images
+    (`entry.class_pattern_images`) repeated, the run's lr 2e-4 with no
+    warmup: the mean loss of the last 5 steps at least 10% below the first
+    5 (check_learning's bar)."""
+    import dataclasses
+    from ddg_tpu_torch.entry import class_pattern_images, unet_train_flagship
+    from ddg_tpu_torch.runtime.train_state import (init_train_state,
+                                                   make_train_step)
+    run = unet_train_flagship(device=DEV, seed=2)
+    optim = dataclasses.replace(run.optim, num_warmup_steps=0)
+    state = init_train_state(torch.Generator(device=DEV).manual_seed(3),
+                             run.apply_fn.params, optim, run.averaging)
+    step = make_train_step(run.spec, run.apply_fn, optim, run.averaging)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    cond = torch.randint(0, run.cfg.num_classes, (run.micro_batch,),
+                         generator=gen, device=DEV, dtype=torch.int32)
+    ids = class_pattern_images(cond, gen, image_size=run.cfg.image_size)
+    batch = {'input_ids': ids, 'cond': cond,
+             'attention_mask': torch.ones(ids.shape, device=DEV)}
+    t0 = time.perf_counter()
+    losses = torch.stack([step(state, batch)[1]['loss']
+                          for _ in range(micro_steps)]).tolist()
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    emit({'phase': 'unet_learning_check', 'steps': micro_steps,
+          'micro_batch': run.micro_batch,
+          'seconds': time.perf_counter() - t0, 'loss_first5': first,
+          'loss_last5': last, 'drop': 1 - last / first, 'losses': losses})
+    check(all(math.isfinite(v) for v in losses),
+          'unet learning: non-finite loss')
+    check(last <= 0.9 * first, f'unet learning: loss fell from {first} to '
+                               f'{last}, less than 10%')
 
 
 # ---------------------------------------------------------------------------
@@ -5909,6 +6343,7 @@ def main():
 
     t0 = time.perf_counter()
     unet = unet_flagship(device=DEV)
+    unet8 = unet_flagship(device=DEV, int8=True)
     unet_cfg = unet[1]
     norms, macs = unet_forward_census(unet[2], unet_cfg)
     n_norms = sum(norms.values())
@@ -5947,6 +6382,9 @@ def main():
     _step('check_int8_tv', check_int8_tv)
     _step('check_tiny_train', check_tiny_train)
     _step('check_tiny_unet', check_tiny_unet)
+    _step('check_tiny_unet_int8', check_tiny_unet_int8)
+    _step('check_unet_int8_tv', check_unet_int8_tv, unet, unet8)
+    _step('check_tiny_unet_train', check_tiny_unet_train)
     _step('check_tiny_dimamba', check_tiny_dimamba)
     _step('check_tiny_dimamba_train', check_tiny_dimamba_train)
     _step('check_tiny_text8_train', check_tiny_text8_train)
@@ -5955,9 +6393,12 @@ def main():
     _step('check_tiny_ar', check_tiny_ar)
     by_path = {
         'serving': _step('run_main_path', run_main_path, kernels),
-        'training': _step('run_train_path', run_train_path, kernels),
-        'unet_serving': _step('run_unet_path', run_unet_path, kernels, unet,
-                              n_norms)}
+        'training': _step('run_train_path', run_train_path, kernels)}
+    by_path.update(_step('run_unet_path', run_unet_path, kernels, unet, unet8,
+                         n_norms))
+    del unet8
+    by_path['unet_training'] = _step('run_unet_train_path',
+                                     run_unet_train_path, kernels)
     by_path.update(_step('run_dimamba_path', run_dimamba_path, kernels))
     by_path.update(_step('run_dimamba_train_path', run_dimamba_train_path,
                          kernels))
@@ -5990,6 +6431,7 @@ def main():
     _step('check_learning', check_learning)
     _step('check_dimamba_learning', check_dimamba_learning)
     _step('check_text8_learning', check_text8_learning)
+    _step('check_unet_learning', check_unet_learning)
 
     rows = []
     for name in kernels:

@@ -127,6 +127,7 @@ All run on the card unless the caller passes `device='cpu'`.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -291,30 +292,50 @@ def nos_flagship(tiny: bool = False, device=None, *, seed: int = 0):
     return spec, cfg, apply_fn, params, clf_apply, clf_apply.params
 
 
-def unet_flagship(tiny: bool = False, device=None, *, seed: int = 0):
-    """Returns (spec, cfg, model, model_apply, params) on `device`. `tiny`
-    is `bench.py --unet --quick`'s model: ch 16, one res block, 2 scales,
+def _unet_cfg(tiny: bool) -> UNetConfig:
+    """The CIFAR10 UNet (configs/model/unet.yaml) with 10 classes, or
+    `bench.py --unet --quick`'s cut of it: ch 16, one res block, 2 scales,
     8 x 8 images (L=192)."""
-    device = resolve_device(device)
     if tiny:
         cfg = UNetConfig(ch=16, num_res_blocks=1, num_scales=2,
                          ch_mult=(1, 1), image_size=8)
     else:
         cfg = UNetConfig(ch=128, num_res_blocks=2, num_scales=4,
                          ch_mult=(1, 2, 2, 2), image_size=32)
-    cfg = dataclasses.replace(cfg, num_classes=10, dropout=0.0,
-                              compute_dtype=torch.bfloat16,
-                              norm_dtype=torch.float32, fused_norm=True)
-    spec = DiffusionSpec(diffusion='uniform', parameterization='d3pm',
+    return dataclasses.replace(cfg, num_classes=10)
+
+
+def _unet_spec(cfg: UNetConfig, **kw) -> DiffusionSpec:
+    """Uniform-state D3PM over the pixel values with the log-linear
+    schedule, no mask token, sigma conditioning."""
+    return DiffusionSpec(diffusion='uniform', parameterization='d3pm',
                          noise=LogLinearNoise(), vocab_size=cfg.vocab_size,
                          mask_index=-1, num_classes=cfg.num_classes,
-                         time_conditioning=True)
+                         time_conditioning=True, **kw)
+
+
+def _unet_model(cfg: UNetConfig, seed: int) -> UNet:
     model = UNet(cfg)
     model.load_state_dict(make_unet_state_dict(
         model, np.random.RandomState(seed)), strict=True)
-    model = model.to(device).eval()
+    return model
+
+
+def unet_flagship(tiny: bool = False, device=None, *, seed: int = 0,
+                  int8: bool = False):
+    """Returns (spec, cfg, model, model_apply, params) on `device`. `tiny`
+    is `bench.py --unet --quick`'s model: ch 16, one res block, 2 scales,
+    8 x 8 images (L=192). `int8` is the JAX suite's `unet_int8` line
+    (`bench.py:920-924`): `quant_int8` with bf16 GroupNorm outputs, the
+    norms still through K13."""
+    device = resolve_device(device)
+    cfg = dataclasses.replace(
+        _unet_cfg(tiny), dropout=0.0, compute_dtype=torch.bfloat16,
+        norm_dtype=torch.bfloat16 if int8 else torch.float32,
+        fused_norm=True, quant_int8=int8)
+    model = _unet_model(cfg, seed).to(device).eval()
     apply_fn = make_model_apply(model)
-    return spec, cfg, model, apply_fn, apply_fn.params
+    return _unet_spec(cfg), cfg, model, apply_fn, apply_fn.params
 
 
 # The DNA tokenizer (`ddg_tpu/data/tokenizers.py:211-231`): 7 specials, then
@@ -397,7 +418,7 @@ class TrainRun:
     """What `train_flagship` and `dimamba_train_flagship` build;
     `step(state, batch)` is the train step."""
     spec: DiffusionSpec
-    cfg: object                 # DITConfig or DiMambaConfig
+    cfg: object                 # DITConfig, DiMambaConfig or UNetConfig
     model: torch.nn.Module
     apply_fn: object
     optim: OptimSpec
@@ -577,6 +598,98 @@ def dimamba_train_flagship(device=None, *, seed: int = 0,
                     optim=optim, averaging=avg, state=state, step=step,
                     global_batch=global_batch, micro_batch=micro,
                     tokens=DNA_BASES)
+
+
+UNET_TRAIN_GLOBAL_BATCH = 512
+# The fastest micro-batch of the card's sweep whose step peaks under half of
+# an 80 GB card (PERF.md §4; scripts/profile_torch_train.py --model unet
+# --sweep).
+UNET_TRAIN_MICRO_BATCH = 256
+
+
+def class_pattern_images(cond: torch.Tensor, generator: torch.Generator, *,
+                         image_size: int, channels: int = 3,
+                         noise: float = 24.0) -> torch.Tensor:
+    """Synthetic pixel tokens for class labels `cond` (...,): (..., C * H *
+    W) int32 in [0, 256), CHW order. Class c is a low-frequency plane wave
+    (c % 3 + 1 periods down the image, c // 3 across, phase 0.7 c, each
+    channel a third of a period on), 127.5 + 80 sin(...), plus N(0,
+    `noise`^2) from `generator` a pixel, rounded and clipped."""
+    dev = cond.device
+    c = cond.long()[..., None, None, None].float()
+    ch = torch.arange(channels, device=dev).float()[:, None, None]
+    pos = torch.arange(image_size, device=dev).float() / image_size
+    phase = 2 * math.pi * (((c % 3) + 1) * pos[:, None]
+                           + torch.div(c, 3, rounding_mode='floor')
+                           * pos[None, :]) + 0.7 * c + 2 * math.pi * ch / 3
+    img = 127.5 + 80.0 * torch.sin(phase)
+    img = img + noise * torch.randn(img.shape, generator=generator,
+                                    device=dev)
+    tokens = torch.clamp(torch.round(img), 0, 255).to(torch.int32)
+    return tokens.reshape(*cond.shape, -1)
+
+
+@dataclasses.dataclass
+class UNetTrainRun(TrainRun):
+    """What `unet_train_flagship` builds: its batches are class-pattern
+    images (`class_pattern_images`), not uniform tokens."""
+
+    def batch(self, generator: torch.Generator) -> dict:
+        """A synthetic global batch, shaped (accum, micro, L) when
+        accumulating: a class label per image ('cond', uniform over the
+        classes) and its class-pattern image."""
+        shape = (self.global_batch,)
+        if self.accum_steps > 1:
+            shape = (self.accum_steps, self.micro_batch)
+        cond = torch.randint(0, self.cfg.num_classes, shape,
+                             generator=generator, device=generator.device,
+                             dtype=torch.int32)
+        ids = class_pattern_images(cond, generator,
+                                   image_size=self.cfg.image_size,
+                                   channels=self.cfg.input_channels)
+        return {'input_ids': ids, 'cond': cond,
+                'attention_mask': torch.ones(ids.shape, device=ids.device)}
+
+
+def unet_train_flagship(device=None, *, seed: int = 0,
+                        tiny: bool = False) -> UNetTrainRun:
+    """The CIFAR10 UNet training run of
+    `scripts/train_cifar10_unet_guidance.sh` on `device`: the UNet of
+    `configs/model/unet.yaml` (ch 128, 2 res blocks, 4 scales of (1, 2, 2,
+    2), attention at 16 x 16, dropout 0.1) with 10 classes over V=256 pixel
+    values, bf16 compute with float32 GroupNorm outputs (the plain norms
+    under autograd, as JAX trains); uniform-state D3PM in continuous time
+    with the log-linear schedule, antithetic t (eps 1e-3), sigma
+    conditioning, `zero_recon_loss` and CFG cond dropout 0.1; AdamW (lr
+    2e-4, betas 0.9/0.999, eps 1e-8, no weight decay, clip 1.0) with 2500
+    warmup steps, EMA 0.9999; a global batch of 512 images as
+    micro-batches of UNET_TRAIN_MICRO_BATCH. Weights seeded random as the
+    JAX module initialises them, the train state's generator seeded with
+    `seed`. Its batches are synthetic class-pattern images
+    (`class_pattern_images`): real CIFAR-10 waits for its data files in the
+    repository. `tiny` is `unet_flagship(tiny=True)`'s model with a global
+    batch of 4 as 2 micro-batches, for runs on the CPU."""
+    device = resolve_device(device)
+    cfg = dataclasses.replace(_unet_cfg(tiny), dropout=0.1,
+                              compute_dtype=torch.bfloat16,
+                              norm_dtype=torch.float32, fused_norm=False)
+    global_batch, micro = ((4, 2) if tiny else
+                           (UNET_TRAIN_GLOBAL_BATCH, UNET_TRAIN_MICRO_BATCH))
+    spec = _unet_spec(cfg, zero_recon_loss=True, cond_dropout=0.1,
+                      antithetic_sampling=True, sampling_eps=1e-3)
+    model = _unet_model(cfg, seed).to(device)
+    apply_fn = make_model_apply(model)
+    optim = OptimSpec(lr=2e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+                      weight_decay=0.0, grad_clip=1.0,
+                      scheduler='constant_warmup', num_warmup_steps=2500)
+    avg = AveragingSpec.ema(0.9999)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = init_train_state(gen, apply_fn.params, optim, avg)
+    step = make_train_step(spec, apply_fn, optim, avg,
+                           accum_steps=global_batch // micro)
+    return UNetTrainRun(spec=spec, cfg=cfg, model=model, apply_fn=apply_fn,
+                        optim=optim, averaging=avg, state=state, step=step,
+                        global_batch=global_batch, micro_batch=micro)
 
 
 @dataclasses.dataclass

@@ -29,8 +29,11 @@ the final norm through `ops.adaln`. On CUDA tensors these are the Hopper
 kernels (forward and backward), on CPU tensors their plain versions.
 `quant_int8=True` (inference only, as in `ddg_tpu`) runs the four big trunk
 products and the vocab head through `ops.quant.QLinear` (int8 dynamic
-quantization, same parameters and state-dict keys); the adaLN projections
-stay in `compute_dtype`. The JAX-only branch (tensor/sequence/ring
+quantization, same parameters and state-dict keys). Those layers hold
+float32 weights and biases whatever `compute_dtype` is, as `QDense`'s
+flax params are, so their codes are those of the float32 weights; their
+outputs are in `compute_dtype` (the head's in `logits_dtype`). The adaLN
+projections stay in `compute_dtype`. The JAX-only branch (tensor/sequence/ring
 parallelism) raises NotImplementedError when set.
 
 `train=True` applies dropout (rate `cfg.dropout`) after the attention

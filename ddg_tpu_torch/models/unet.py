@@ -1,5 +1,5 @@
 """UNet denoiser for discretized images (port of `ddg_tpu/models/unet.py`,
-inference).
+inference, int8 inference and training).
 
 The token interface is the JAX module's: a flat (B, C*H*W) sequence of
 pixel values in CHW order goes in, (B, C*H*W, vocab_size) float32 logits of
@@ -22,8 +22,23 @@ and the probabilities are cast to `compute_dtype` for the PV product.
 `fused_norm=True` runs every GroupNorm through `ops.groupnorm` (the Hopper
 kernel on CUDA tensors, its plain version on CPU tensors);
 `fused_norm=False` runs the plain version everywhere, the counterpart of
-flax's XLA GroupNorm. Training (`train=True`) and `quant_int8` raise
-NotImplementedError.
+flax's XLA GroupNorm.
+
+`quant_int8=True` (inference only, as in `ddg_tpu`) runs the 3x3 convs
+(conv_in, both convs of every ResBlock, the Downsample and Upsample convs:
+51 at full width) through `ops.quant.QConv` and the NiN projections (the
+attention's q, k, v, out and the ResBlock shortcuts: 37) through
+`ops.quant.int8_linear`, with the same parameters and state-dict keys.
+Those layers hold float32 weights and biases whatever `compute_dtype` is,
+as the JAX params are, and write `compute_dtype`. conv_out, the time
+embedding's and temb_proj's denses and the class table stay float.
+
+`train=True` applies dropout (rate `cfg.dropout`) after `norm1`, before
+`conv1`, in every ResBlock, where the JAX block has it, with masks drawn
+from the `rng` generator (keep with probability 1 - p, scale by 1 / (1 -
+p); the masks are not JAX's bits), and runs every GroupNorm through its
+plain version under autograd, as JAX runs flax's GroupNorm when training
+(the kernel has no backward).
 """
 
 from __future__ import annotations
@@ -37,7 +52,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ddg_tpu_torch.ops import groupnorm
+from ddg_tpu_torch.models.dit import dropout
+from ddg_tpu_torch.ops import groupnorm, quant
 
 
 def transformer_timestep_embedding(t: torch.Tensor, dim: int,
@@ -71,7 +87,6 @@ class UNetConfig:
     image_size: int = 32
     num_classes: Optional[int] = None
     compute_dtype: torch.dtype = torch.float32
-    # Not ported: raises when set.
     quant_int8: bool = False
     norm_dtype: torch.dtype = torch.float32
     fused_norm: bool = False
@@ -80,10 +95,6 @@ class UNetConfig:
     pallas_interpret: bool = False
 
     def __post_init__(self):
-        if self.quant_int8:
-            raise NotImplementedError(
-                'UNetConfig.quant_int8: int8 inference is not ported to '
-                'ddg_tpu_torch yet (ROADMAP A.3)')
         if self.pallas_interpret:
             raise ValueError(
                 'UNetConfig.pallas_interpret: the port has no interpret '
@@ -93,10 +104,18 @@ class UNetConfig:
     def time_embed_dim(self) -> int:
         return self.ch
 
+    @property
+    def length(self) -> int:
+        """Tokens of an image: C * H * W."""
+        return self.input_channels * self.image_size ** 2
+
 
 def _conv(conv: nn.Conv2d, x, *, stride: int = 1, padding: int = 1):
     """A conv on channels-last (B, H, W, C) activations, in the conv's
-    dtype; returns (B, H', W', C')."""
+    dtype; returns (B, H', W', C'). A `QConv` quantizes x as it is and
+    takes its own stride and padding, which are these."""
+    if isinstance(conv, quant.QConv):
+        return conv(x)
     x = x.to(conv.weight.dtype).permute(0, 3, 1, 2)
     return F.conv2d(x, conv.weight, conv.bias, stride, padding).permute(
         0, 2, 3, 1)
@@ -113,14 +132,21 @@ def _skip_rescale(out, enabled: bool):
 
 
 class NiN(nn.Module):
-    """1x1 projection x @ W + b, W stored (in, out) as flax stores it."""
+    """1x1 projection x @ W + b, W stored (in, out) as flax stores it; with
+    `int8`, float32 W and b and `int8_dense`'s compute, written in
+    `dtype`."""
 
-    def __init__(self, cin: int, cout: int, dtype):
+    def __init__(self, cin: int, cout: int, dtype, int8: bool = False):
         super().__init__()
-        self.W = nn.Parameter(torch.zeros(cin, cout, dtype=dtype))
-        self.b = nn.Parameter(torch.zeros(cout, dtype=dtype))
+        self.int8, self.dtype = int8, dtype
+        pdt = torch.float32 if int8 else dtype
+        self.W = nn.Parameter(torch.zeros(cin, cout, dtype=pdt))
+        self.b = nn.Parameter(torch.zeros(cout, dtype=pdt))
 
     def forward(self, x):
+        if self.int8:
+            return quant.int8_linear(x, self.W, self.b, self.dtype,
+                                     layout='in_out')
         return F.linear(x.to(self.W.dtype), self.W.t(), self.b)
 
 
@@ -135,12 +161,17 @@ class GNorm(nn.Module):
         self.num_groups, self.eps, self.act = num_groups, eps, act
         self.dtype, self.fused = dtype, fused
 
-    def forward(self, x):
-        fn = (groupnorm.fused_group_norm_act if self.fused
+    def forward(self, x, train: bool = False):
+        fn = (groupnorm.fused_group_norm_act if self.fused and not train
               else groupnorm.fused_group_norm_act_plain)
         return fn(x.contiguous(), self.scale, self.bias,
                   num_groups=self.num_groups, eps=self.eps, act=self.act,
                   out_dtype=self.dtype)
+
+
+def _conv_cls(cfg: UNetConfig):
+    """The 3x3 convs' class: `nn.Conv2d` or its int8 drop-in."""
+    return quant.QConv if cfg.quant_int8 else nn.Conv2d
 
 
 def _gnorm(cfg: UNetConfig, channels: int, act: bool, dtype=None):
@@ -153,17 +184,17 @@ class AttnBlock(nn.Module):
 
     def __init__(self, cfg: UNetConfig, channels: int):
         super().__init__()
-        cd = cfg.compute_dtype
+        cd, q8 = cfg.compute_dtype, cfg.quant_int8
         self.skip_rescale = cfg.skip_rescale
         self.norm = _gnorm(cfg, channels, act=False)
-        self.q = NiN(channels, channels, cd)
-        self.k = NiN(channels, channels, cd)
-        self.v = NiN(channels, channels, cd)
-        self.out = NiN(channels, channels, cd)
+        self.q = NiN(channels, channels, cd, q8)
+        self.k = NiN(channels, channels, cd, q8)
+        self.v = NiN(channels, channels, cd, q8)
+        self.out = NiN(channels, channels, cd, q8)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         B, H, W, C = x.shape
-        h = self.norm(x)
+        h = self.norm(x, train)
         q, k, v = (m(h).reshape(B, H * W, C) for m in (self.q, self.k, self.v))
         w = torch.bmm(q.float(), k.float().transpose(1, 2)) * (C ** -0.5)
         w = torch.softmax(w, dim=-1).to(v.dtype)
@@ -174,23 +205,25 @@ class AttnBlock(nn.Module):
 class ResBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, in_ch: int, out_ch: int):
         super().__init__()
-        cd = cfg.compute_dtype
-        self.skip_rescale = cfg.skip_rescale
+        cd, Conv = cfg.compute_dtype, _conv_cls(cfg)
+        self.skip_rescale, self.dropout = cfg.skip_rescale, cfg.dropout
         self.norm0 = _gnorm(cfg, in_ch, act=True)
-        self.conv0 = nn.Conv2d(in_ch, out_ch, 3, padding=1, dtype=cd)
+        self.conv0 = Conv(in_ch, out_ch, 3, padding=1, dtype=cd)
         if cfg.time_conditioning or cfg.num_classes is not None:
             self.temb_proj = nn.Linear(4 * cfg.time_embed_dim, out_ch,
                                        dtype=cd)
         self.norm1 = _gnorm(cfg, out_ch, act=True)
-        self.conv1 = nn.Conv2d(out_ch, out_ch, 3, padding=1, dtype=cd)
+        self.conv1 = Conv(out_ch, out_ch, 3, padding=1, dtype=cd)
         if in_ch != out_ch:
-            self.shortcut = NiN(in_ch, out_ch, cd)
+            self.shortcut = NiN(in_ch, out_ch, cd, cfg.quant_int8)
 
-    def forward(self, x, temb):
-        h = _conv(self.conv0, self.norm0(x))
+    def forward(self, x, temb, train: bool = False, rng=None):
+        h = _conv(self.conv0, self.norm0(x, train))
         if temb is not None:
             h = h + self.temb_proj(F.silu(temb))[:, None, None, :]
-        h = _conv(self.conv1, self.norm1(h))
+        h = dropout(self.norm1(h, train), self.dropout, train=train,
+                    generator=rng)
+        h = _conv(self.conv1, h)
         if hasattr(self, 'shortcut'):
             x = self.shortcut(x)
         return _skip_rescale(x.to(h.dtype) + h, self.skip_rescale)
@@ -201,8 +234,8 @@ class Downsample(nn.Module):
 
     def __init__(self, cfg: UNetConfig, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2,
-                              dtype=cfg.compute_dtype)
+        self.conv = _conv_cls(cfg)(channels, channels, 3, stride=2,
+                                   dtype=cfg.compute_dtype)
 
     def forward(self, x):
         return _conv(self.conv, F.pad(x, (0, 0, 0, 1, 0, 1)), stride=2,
@@ -214,8 +247,8 @@ class Upsample(nn.Module):
 
     def __init__(self, cfg: UNetConfig, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1,
-                              dtype=cfg.compute_dtype)
+        self.conv = _conv_cls(cfg)(channels, channels, 3, padding=1,
+                                   dtype=cfg.compute_dtype)
 
     def forward(self, x):
         B, H, W, C = x.shape
@@ -265,8 +298,8 @@ class UNet(nn.Module):
         if cfg.num_classes is not None:
             self.cond_map = nn.Embedding(cfg.num_classes + 1, temb_dim,
                                          dtype=cd)
-        self.conv_in = nn.Conv2d(cfg.input_channels, ch, 3, padding=1,
-                                 dtype=cd)
+        self.conv_in = _conv_cls(cfg)(cfg.input_channels, ch, 3, padding=1,
+                                      dtype=cd)
         attn = cfg.scale_count_to_put_attn
         cur, skips = ch, [ch]
         for s in range(cfg.num_scales):
@@ -300,9 +333,10 @@ class UNet(nn.Module):
     def forward(self, x, sigma, cond=None, x_emb=None, *, train: bool = False,
                 rng=None, return_hidden_states: bool = False):
         cfg = self.cfg
-        if train:
-            raise NotImplementedError('UNet training is not ported to '
-                                      'ddg_tpu_torch yet (ROADMAP A.7)')
+        if cfg.quant_int8 and train:
+            raise ValueError(
+                'quant_int8 is an inference-only transform (rounding kills '
+                'gradients); train with it off and turn it on for sampling')
         cd = cfg.compute_dtype
         img, C = cfg.image_size, cfg.input_channels
         B = x.shape[0]
@@ -327,24 +361,25 @@ class UNet(nn.Module):
         attn = cfg.scale_count_to_put_attn
         for s in range(cfg.num_scales):
             for r in range(cfg.num_res_blocks):
-                h = getattr(self, f'down_{s}_{r}')(h, temb)
+                h = getattr(self, f'down_{s}_{r}')(h, temb, train, rng)
                 if s == attn:
-                    h = getattr(self, f'down_attn_{s}_{r}')(h)
+                    h = getattr(self, f'down_attn_{s}_{r}')(h, train)
                 hs.append(h)
             if s != cfg.num_scales - 1:
                 h = getattr(self, f'downsample_{s}')(h)
                 hs.append(h)
-        h = self.mid_res1(self.mid_attn(self.mid_res0(h, temb)), temb)
+        h = self.mid_res0(h, temb, train, rng)
+        h = self.mid_res1(self.mid_attn(h, train), temb, train, rng)
         for s in reversed(range(cfg.num_scales)):
             for r in range(cfg.num_res_blocks + 1):
                 h = torch.cat([h, hs.pop().to(h.dtype)], dim=-1)
-                h = getattr(self, f'up_{s}_{r}')(h, temb)
+                h = getattr(self, f'up_{s}_{r}')(h, temb, train, rng)
                 if s == attn:
-                    h = getattr(self, f'up_attn_{s}_{r}')(h)
+                    h = getattr(self, f'up_attn_{s}_{r}')(h, train)
             if s != 0:
                 h = getattr(self, f'upsample_{s}')(h)
 
-        h = _conv(self.conv_out, self.norm_out(h))
+        h = _conv(self.conv_out, self.norm_out(h, train))
         # tanh-residual mean parameterization
         mu = torch.tanh(centered_x_in + h[..., :C].float())
         logits = truncated_logistic_logits(

@@ -375,8 +375,8 @@ def pad_head_weights(weight, bias, tile_v: int = 2048):
 
 def quantize_head_weights(weight, bias, tile_v: int = 2048):
     """One-time preparation for `fused_absorbing_head_sample_int8`: the
-    (V, D) head weight quantized per vocab row (the scheme of
-    `ops.quant`), zero-padded to (Vp, D) int8, its (Vp, 1) fp32 scales and
+    (V, D) head weight (float32, as the int8 DiT holds it) quantized per
+    vocab row (the scheme of `ops.quant`), zero-padded to (Vp, D) int8, its (Vp, 1) fp32 scales and
     the (Vp, 1) fp32 bias. Loop-invariant."""
     q, scale = quant.quantize_rowwise(weight)
     Vp = _padded_vocab(weight.shape[0], tile_v)

@@ -2,7 +2,7 @@
 """Where the time of `ddg_tpu_torch`'s sampling goes on one CUDA card.
 
     python3 scripts/profile_torch_sampling.py [--steps 16] [--trace-dir DIR]
-        [--fused-head] [--int8] [--dit-only]
+        [--model all|dit|unet] [--fused-head] [--int8]
         [--guidance cbg|cbg_approx|nos]
 
 Builds the two serving flagships (seeded random weights, the Hopper
@@ -14,9 +14,14 @@ UNet (UDLM), ancestral D-CFG (gamma 2) and unguided, B=32; for the
 Species10 DiMamba (UDLM, L=32768), D-CFG (gamma 2) and unguided, B=8,
 for `--dimamba-steps` steps. `--int8` runs the DiT samplers on the int8
 flagship (`flagship(int8=True)`: the trunk's products and the vocab head
-quantized), `--fused-head` runs the feature-mix sampler with `fused_head`
-(the vocab product inside the step, K11 or, with `--int8`, K12), and
-`--dit-only` skips the UNet and the DiMamba. `--guidance` profiles one
+quantized) and adds the int8 UNet's D-CFG line (`unet_flagship(int8=
+True)`, the JAX suite's `unet_int8`), `--fused-head` runs the
+feature-mix sampler with `fused_head` (the vocab product inside the step,
+K11 or, with `--int8`, K12), and `--model dit` or `unet` profiles that
+model's lines alone (default all three models). An int8 UNet line also
+charges its kernels to profiler ranges around the quantization's pieces
+(activation codes, im2col, the int32 product, the rescale) and prints
+their device ms and launches a step. `--guidance` profiles one
 classifier-guided line of the JAX default suite alone instead: D-CBG
 exact (`cbg`, chunk 128) or first-order (`cbg_approx`) on the QM9 flagship
 (`entry.qm9_cbg_flagship`, B=16), or NOS (`nos`, one Adagrad step) on the
@@ -31,6 +36,7 @@ time. TF32 is off for matmuls and convolutions, as in
 """
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -58,7 +64,7 @@ GROUPS = (   # first match wins; matched against the kernel's name
     ('K18 conv/x_proj/dt_proj', ('mamba_front',)),
     ('K18/K14 scan', ('scan_fwd', 'scan_chunk', 'scan_carry', 'scan_out')),
     ('gemm/conv', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas', 'conv',
-                   'cudnn')),
+                   'cudnn', 'igemm')),
     ('elementwise/reduce/other', ('',)),
 )
 
@@ -73,16 +79,68 @@ def group_of(name):
     return GROUPS[-1][0]
 
 
-def kernel_events(trace_path):
+def all_events(trace_path):
     with open(trace_path) as f:
-        events = json.load(f)['traceEvents']
-    return [e for e in events if e.get('cat') == 'kernel']
+        return json.load(f)['traceEvents']
 
 
-def profile(name, run, n_steps, trace_dir):
-    """One warm-up, one timed run, one run under the profiler. The idle
-    share compares the profiled device time with the unprofiled wall
-    time (the profiler slows the host, not the kernels)."""
+def kernel_events(trace_path):
+    return [e for e in all_events(trace_path) if e.get('cat') == 'kernel']
+
+
+# The int8 UNet's quantization pieces, as profiler ranges (`quant_ranges`).
+QUANT_RANGES = (('int8 activation codes', 'quantize_per_sample'),
+                ('int8 activation codes', 'quantize_rowwise'),
+                ('int8 im2col', 'im2col'),
+                ('int8 int32 product', 'int8_matmul'),
+                ('int8 rescale', 'rescale'))
+
+
+@contextlib.contextmanager
+def quant_ranges():
+    """Profiler ranges around `ops.quant`'s pieces (looked up by name at
+    call time inside the module)."""
+    from ddg_tpu_torch.ops import quant
+    saved = [(attr, getattr(quant, attr)) for _, attr in QUANT_RANGES]
+
+    def ranged(name, fn):
+        def wrapped(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return wrapped
+
+    for name, attr in QUANT_RANGES:
+        setattr(quant, attr, ranged(name, getattr(quant, attr)))
+    try:
+        yield
+    finally:
+        for attr, fn in saved:
+            setattr(quant, attr, fn)
+
+
+def range_split(events, n_steps):
+    """Device ms and launches a step of the kernels that ran inside each
+    QUANT_RANGES range (by the midpoint of the kernel's device span)."""
+    names = {name for name, _ in QUANT_RANGES}
+    spans = [(e['name'], e['ts'], e['ts'] + e['dur']) for e in events
+             if e.get('cat') == 'gpu_user_annotation' and e['name'] in names]
+    ms, count = {}, {}
+    for e in events:
+        if e.get('cat') != 'kernel':
+            continue
+        t = e['ts'] + e['dur'] / 2
+        hit = [n for n, a, b in spans if a <= t <= b]
+        if hit:
+            ms[hit[0]] = ms.get(hit[0], 0.0) + e['dur'] / 1e3 / n_steps
+            count[hit[0]] = count.get(hit[0], 0) + 1 / n_steps
+    return {'device_ms_per_step': ms, 'launches_per_step': count}
+
+
+def profile(name, run, n_steps, trace_dir, ranges=None):
+    """One warm-up, one timed run, one run under the profiler (inside the
+    `ranges` context, if given, whose split is printed). The idle share
+    compares the profiled device time with the unprofiled wall time (the
+    profiler slows the host, not the kernels)."""
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -91,7 +149,8 @@ def profile(name, run, n_steps, trace_dir):
     wall = (time.perf_counter() - t0) * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with (ranges() if ranges else contextlib.nullcontext()), \
+            torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -118,8 +177,11 @@ def profile(name, run, n_steps, trace_dir):
         'device_ms_per_step': {g: v / n_steps for g, v in sorted(
             by_group.items(), key=lambda kv: -kv[1])},
         'kernels_per_step': {g: c / n_steps for g, c in count.items()},
+        'launches_per_step': len(kernels) / n_steps,
         'top_kernels_ms_per_step': [[n[:120], v / n_steps] for n, v in top],
-        'profiled_wall_ms_per_step': profiled_wall / n_steps}), flush=True)
+        'profiled_wall_ms_per_step': profiled_wall / n_steps,
+        **({'quant_split': range_split(all_events(path), n_steps)}
+           if ranges else {})}), flush=True)
 
 
 def profile_guided(args):
@@ -168,9 +230,12 @@ def main():
                     help='feature-mix with fused_head (K11, or K12 with '
                          '--int8)')
     ap.add_argument('--int8', action='store_true',
-                    help='the DiT samplers on the int8 flagship')
-    ap.add_argument('--dit-only', action='store_true',
-                    help='skip the UNet and the DiMamba')
+                    help='the DiT samplers on the int8 flagship, and the '
+                         'int8 UNet line')
+    ap.add_argument('--model', choices=('all', 'dit', 'unet'),
+                    default='all',
+                    help='profile this model\'s lines alone (default: the '
+                         'DiT, UNet and DiMamba lines)')
     ap.add_argument('--guidance', choices=('cbg', 'cbg_approx', 'nos'),
                     help='profile this classifier-guided line alone')
     args = ap.parse_args()
@@ -183,7 +248,6 @@ def main():
     from ddg_tpu_torch.entry import dimamba_flagship, flagship, unet_flagship
     if args.guidance:
         return profile_guided(args)
-    spec, cfg, _, apply_fn, params = flagship(device='cuda', int8=args.int8)
     tag = '_int8' if args.int8 else ''
     guidance = SM.GuidanceSpec(method='cfg', gamma=2.0)
 
@@ -196,7 +260,9 @@ def main():
                                 guidance=guidance, cond=cond, dit_cfg=cfg)
         return run
 
-    def unet_runner(guided):
+    def unet_runner(guided, flag):
+        uspec, ucfg, _, uapply, uparams = flag
+
         def run():
             gen = torch.Generator(device='cuda').manual_seed(0)
             kw = {}
@@ -227,6 +293,21 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = args.trace_dir or tmp
         os.makedirs(trace_dir, exist_ok=True)
+        if args.model in ('all', 'unet'):
+            flag = unet_flagship(device='cuda')
+            profile('unet_dcfg', unet_runner(True, flag), args.steps,
+                    trace_dir)
+            profile('unet_unguided', unet_runner(False, flag), args.steps,
+                    trace_dir)
+            if args.int8:
+                flag = unet_flagship(device='cuda', int8=True)
+                profile('unet_int8_dcfg', unet_runner(True, flag),
+                        args.steps, trace_dir, ranges=quant_ranges)
+            del flag
+        if args.model == 'unet':
+            return 0
+        spec, cfg, _, apply_fn, params = flagship(device='cuda',
+                                                  int8=args.int8)
         profile('ancestral_feature_mix' + tag
                 + ('_fused_head' if args.fused_head else ''),
                 runner(24, SM.SamplerSpec(
@@ -237,12 +318,9 @@ def main():
             trace_dir)
         profile('first_hitting' + tag, runner(32, SM.SamplerSpec(
             first_hitting=True)), cfg.length, trace_dir)
-        if args.dit_only:
+        if args.model == 'dit':
             return 0
-        uspec, ucfg, _, uapply, uparams = unet_flagship(device='cuda')
         dspec, dcfg, _, dapply, dparams = dimamba_flagship(device='cuda')
-        profile('unet_dcfg', unet_runner(True), args.steps, trace_dir)
-        profile('unet_unguided', unet_runner(False), args.steps, trace_dir)
         profile('species10_dcfg', dimamba_runner(True), args.dimamba_steps,
                 trace_dir)
         profile('species10_unguided', dimamba_runner(False),

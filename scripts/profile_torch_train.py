@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of `ddg_tpu_torch`'s training step goes on one CUDA card.
 
-    python3 scripts/profile_torch_train.py [--model dit|dimamba|text8|both]
+    python3 scripts/profile_torch_train.py [--model dit|dimamba|text8|unet|both]
                                            [--route ROUTE] [--sweep]
                                            [--steps 2] [--trace-dir DIR]
 
@@ -22,6 +22,10 @@ share, device ms per step by group and the largest kernels by name.
   with ms/step, tokens/s and peak memory (or the out-of-memory error),
   then a line naming the fastest micro-batch whose peak stays under half
   the card.
+- unet: `entry.unet_train_flagship` (CIFAR10 UNet UDLM, global batch 512
+  images as micro-batches, bf16, the plain GroupNorms under autograd),
+  grouped as dit (cuDNN's convolutions under 'conv'). With `--sweep`,
+  first a sweep of the micro-batches 32 to 512 as text8's.
 - dimamba: `entry.dimamba_train_flagship` (Species10 DiMamba UDLM, global
   batch 32 x 32768) on `--route` ('fused_block', the default, or
   'dt_lowrank', the unfused chain around K16/K17). The step runs with
@@ -74,6 +78,9 @@ GROUPS = (   # first match wins; matched against the kernel's name
     ('K2 attention', ('attention_wgmma_kernel', 'attention_kernel')),
     ('K4/K6 adaln bwd', ('adaln_bwd',)),
     ('K3/K5 adaln fwd', ('ln_modulate_kernel', 'gate_res_kernel')),
+    # cuDNN's convolutions (the UNet's), forward and both gradients.
+    ('conv', ('fprop', 'dgrad', 'wgrad', 'cudnn', 'implicit_convolve',
+              'winograd')),
     ('gemm', ('gemm', 'xmma', 'cutlass', 'nvjet', 'cublas', 'splitK')),
     ('optimizer/clip/EMA (foreach)', ('multi_tensor_apply',)),
     ('softmax/log-softmax', ('softmax',)),
@@ -112,6 +119,26 @@ def head_gemm_ms(n_rows, hidden, vocab, reps=20):
 def _text8_run(args):
     from ddg_tpu_torch.entry import text8_train_flagship
     return text8_train_flagship(device='cuda', route=args.route)
+
+
+def _unet_run(args):
+    from ddg_tpu_torch.entry import unet_train_flagship
+    return unet_train_flagship(device='cuda')
+
+
+def sweep_unet(args, micros=(32, 64, 128, 256, 512)):
+    """The UNet run at each micro-batch dividing 512."""
+    from ddg_tpu_torch import entry
+    default = entry.UNET_TRAIN_MICRO_BATCH
+
+    def build(micro):
+        entry.UNET_TRAIN_MICRO_BATCH = micro
+        return _unet_run(args)
+
+    try:
+        sweep('unet', args, build, micros, default)
+    finally:
+        entry.UNET_TRAIN_MICRO_BATCH = default
 
 
 def _dimamba_run(args):
@@ -252,6 +279,8 @@ def profile_dit(args, build=None):
                                       key=lambda kv: -kv[1])[:15]),
         'profiled_wall_ms': profiled_wall}), flush=True)
     cfg = run.cfg
+    if not hasattr(cfg, 'hidden_size'):         # the UNet has no vocab GEMM
+        return
     fwd, bwd_dh, bwd_dw = head_gemm_ms(run.micro_batch * cfg.length,
                                        cfg.hidden_size, cfg.vocab_size)
     print(json.dumps({
@@ -388,7 +417,8 @@ def profile_dimamba(args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--model', choices=('dit', 'dimamba', 'text8', 'both'),
+    ap.add_argument('--model', choices=('dit', 'dimamba', 'text8', 'unet',
+                                        'both'),
                     default='both',
                     help='which training run (default both: dit, dimamba)')
     ap.add_argument('--route', default=None,
@@ -397,7 +427,7 @@ def main():
                     help="text8's attention route (default fused_rope) or "
                          "the DiMamba's mixer route (default fused_block)")
     ap.add_argument('--sweep', action='store_true',
-                    help='text8, dimamba: sweep the micro-batch first')
+                    help='text8, dimamba, unet: sweep the micro-batch first')
     ap.add_argument('--steps', type=int, default=2,
                     help='unprofiled steps to time (default 2)')
     ap.add_argument('--trace-dir', default=None,
@@ -421,6 +451,10 @@ def main():
         if args.sweep:
             sweep_text8(args)
         profile_dit(args, build=_text8_run)
+    if args.model == 'unet':
+        if args.sweep:
+            sweep_unet(args)
+        profile_dit(args, build=_unet_run)
     return 0
 
 

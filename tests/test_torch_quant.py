@@ -10,6 +10,8 @@ found); bf16 outputs to one bf16 ulp (the cast of equal fp32 values; the
 bar leaves room for a contraction in another XLA build).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -150,9 +152,9 @@ def _jax_cfg():
 
 
 def _torch_cfg(**kw):
+    kw = dict(dict(compute_dtype=torch.float32, quant_int8=True), **kw)
     return DITConfig(hidden_size=HID, cond_dim=COND, length=L, n_blocks=NB,
-                     n_heads=NH, vocab_size=V, num_classes=NC,
-                     compute_dtype=torch.float32, quant_int8=True, **kw)
+                     n_heads=NH, vocab_size=V, num_classes=NC, **kw)
 
 
 @pytest.fixture(scope='module')
@@ -189,6 +191,109 @@ def test_int8_dit_loads_the_jax_int8_tree(int8_weights):
                                 n_blocks=NB, n_heads=NH, vocab_size=V,
                                 num_classes=NC))
     assert list(m.state_dict()) == list(float_model.state_dict())
+
+
+BF16 = dict(compute_dtype=torch.bfloat16, logits_dtype=torch.bfloat16)
+
+
+def test_int8_codes_under_bf16_compute_are_jax_codes(int8_weights):
+    """Under bf16 compute and a bf16 head, every int8 layer quantizes the
+    float32 parameter, as `QDense` does (its kernel is a float32 flax
+    param, `compute_dtype` sets only its output dtype): the codes and
+    scales of each trunk product and of the head, the cached ones
+    (`quantized_weight`) and K12's prepared ones (`quantize_head_weights`
+    through the sampler's `_prepare_head`), equal JAX's
+    `quantize_colwise(kernel)` of the float32 kernel exactly, and the bias
+    is JAX's float32 bias. A layer's output is `int8_dense` on the float32
+    kernel and bias, cast to the layer's output dtype."""
+    from ddg_tpu_torch import samplers as TS
+    sd = tconvert.dit_state_dict_from_jax(int8_weights, n_blocks=NB)
+    m = _int8_model(int8_weights, **BF16)
+    layers = {n: mod for n, mod in m.named_modules()
+              if isinstance(mod, tq.QLinear)}
+    assert len(layers) == 4 * NB + 1
+    x = torch.from_numpy(_activations(4, (3, 5, HID)))
+    for name, mod in layers.items():
+        kernel = sd[name + '.weight'].numpy().T
+        jcode, jscale = jq.quantize_colwise(jnp.asarray(kernel))
+        code, scale = tq.quantized_weight(mod.weight)
+        N, K = mod.weight.shape
+        np.testing.assert_array_equal(code[:N, :K].numpy().T,
+                                      np.asarray(jcode), err_msg=name)
+        np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale),
+                                      err_msg=name)
+        out_dtype = (torch.bfloat16 if name == 'output_layer.linear'
+                     else m.cfg.compute_dtype)
+        if K == HID:
+            bias = sd.get(name + '.bias')
+            with torch.no_grad():
+                got = mod(x)
+            want = tq.int8_dense(x, torch.from_numpy(kernel), bias,
+                                 out_dtype=out_dtype)
+            assert got.dtype == out_dtype, name
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          want.float().numpy(), err_msg=name)
+    with torch.no_grad():
+        w_q, w_scale, bias_col = TS._prepare_head(
+            m.cfg, dict(m.named_parameters()))
+    jcode, jscale = jq.quantize_colwise(jnp.asarray(
+        int8_weights['output_linear']['kernel']))
+    np.testing.assert_array_equal(w_q[:V].numpy().T, np.asarray(jcode))
+    np.testing.assert_array_equal(w_scale[:V, 0].numpy(), np.asarray(jscale))
+    np.testing.assert_array_equal(
+        bias_col[:V, 0].numpy(), int8_weights['output_linear']['bias'])
+
+
+def test_int8_dit_bf16_logits_match_jax(int8_weights):
+    """bf16 compute and a bf16 head on both sides (JAX's `quant_int8` DiT
+    with `compute_dtype=logits_dtype=bf16`), fused flags off. The two
+    sides sum the bf16 trunk (LayerNorm, attention, GELU) in different
+    orders, so the hidden states differ by bf16 ulps, and the head
+    features, whose bf16 error is about a code step, quantize to other
+    codes at about half of their positions (the count is recorded, not
+    bounded). Given the features' codes and scales, the int8 head is
+    exact, so each logit is held to what those differences can move it:
+    the float32 test's code-flip term taken per logit, sum over the
+    flipped codes of |code step| x |W code| x x_scale x w_scale, plus
+    |JAX's int32 sum| x |x_scale difference| x w_scale (the bf16 trunk's
+    rounding seen through the row scale), times (1 + 1e-5) for the fp32
+    rescale, plus one bf16 ulp of the output (each side rounds once)."""
+    from ddg_tpu_torch.models.dit import dit_head_features
+    cfg = dataclasses.replace(_jax_cfg(), compute_dtype=jnp.bfloat16,
+                              logits_dtype=jnp.bfloat16)
+    r = np.random.RandomState(2)
+    x = r.randint(0, V, (3, L)).astype(np.int32)
+    sigma = r.uniform(0, 2, 3).astype(np.float32)
+    cond = np.array([0, 1, NC], np.int32)
+    args = (jnp.asarray(x), jnp.asarray(sigma), jnp.asarray(cond))
+    model = jdit.DIT(cfg)
+    want = np.asarray(jax.jit(model.apply)({'params': int8_weights}, *args)
+                      .astype(jnp.float32))
+    jh, jc = jax.jit(lambda p, *a: model.apply({'params': p}, *a,
+                                               skip_head=True))(
+        int8_weights, *args)
+    jfeats = jdit.dit_head_features(cfg, int8_weights, jh, jc)
+    m = _int8_model(int8_weights, **BF16)
+    params = dict(m.named_parameters())
+    targs = (torch.from_numpy(x), torch.from_numpy(sigma),
+             torch.from_numpy(cond))
+    with torch.no_grad():
+        got = m(*targs)
+        th, tc = m(*targs, skip_head=True)
+        feats = dit_head_features(m.cfg, params, th, tc)
+    assert got.dtype == torch.bfloat16 and np.abs(want).max() > 0.1
+    jcode, jscale = (np.asarray(a) for a in jq.quantize_rowwise(jfeats))
+    code, scale = (a.numpy() for a in tq.quantize_rowwise(feats))
+    wq, ws = (np.asarray(a) for a in jq.quantize_colwise(
+        jnp.asarray(int8_weights['output_linear']['kernel'])))
+    step = np.abs(code.astype(np.int64) - jcode) @ np.abs(wq.astype(np.int64))
+    acc = jcode.astype(np.int64) @ wq.astype(np.int64)
+    got = got.float().numpy()
+    out = np.maximum(np.abs(got), np.abs(want))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(out, 1e-30))) - 7)
+    bar = ((step * scale + np.abs(acc) * np.abs(scale - jscale)) * ws
+           * (1 + 1e-5) + ulp)
+    assert np.all(np.abs(got - want) <= bar)
 
 
 @pytest.mark.parametrize('flags', [

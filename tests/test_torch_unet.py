@@ -18,7 +18,8 @@ against `ddg_tpu` on the same weights, carried across by
   same x_t, sigma and Gumbel noise, wherever the top-two perturbed scores
   differ by more than 1e-4;
 - whole sampling loops through `entry.unet_flagship(tiny=True)` return
-  tokens in [0, 256).
+  tokens in [0, 256);
+- training the int8 model raises, as the interpret switch does.
 """
 
 import dataclasses
@@ -223,10 +224,12 @@ def test_sampling_loop_gives_pixel_tokens(fused, guided, monkeypatch):
 
 
 def test_training_and_int8_raise():
-    with pytest.raises(NotImplementedError):
-        UNetConfig(quant_int8=True)
+    """Training the int8 model raises, as in JAX (int8 inference and
+    float training are ported: `test_torch_unet_int8.py`,
+    `test_torch_unet_train.py`); so does the interpret switch."""
     with pytest.raises(ValueError, match='interpret'):
         UNetConfig(pallas_interpret=True)
-    m = UNet(TCFG)
-    with pytest.raises(NotImplementedError):
-        m(torch.zeros((1, L), dtype=torch.int32), torch.zeros(1), train=True)
+    m = UNet(dataclasses.replace(TCFG, quant_int8=True))
+    with pytest.raises(ValueError, match='inference-only'):
+        m(torch.zeros((1, L), dtype=torch.int32), torch.zeros(1), train=True,
+          rng=torch.Generator())
